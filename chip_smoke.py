@@ -1,28 +1,42 @@
-"""Drive the PyTorch + CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving and training paths once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels from ``tapclip_tpu_torch/csrc`` with
-   nvcc for sm_90a and prints the build time.
-3. Holds each kernel against its plain PyTorch version at the serving path's
-   shapes, in float32 (atol = rtol = 1e-4; TF32 is off on both sides) and in
-   bfloat16 (atol = rtol = 2e-2, compared in f32), and times both with CUDA
-   events.  In bfloat16 the attention-block kernel keeps q and k in f32 as
-   the JAX kernel does, while its plain version rounds the qkv product to
-   bf16 as the JAX package's plain path does.
-4. Serves ViT-B/16 at full width with random weights from a fixed seed
+   nvcc for sm_90a (one nvcc per source, all started together) and prints
+   the build time.
+3. Holds each forward kernel against its plain PyTorch version at the
+   serving path's shapes, in float32 (atol = rtol = 1e-4; TF32 is off on
+   both sides) and in bfloat16 (atol = rtol = 2e-2, compared in f32), and
+   times both with CUDA events.  In bfloat16 the attention-block kernel
+   keeps q and k in f32 as the JAX kernel does, while its plain version
+   rounds the qkv product to bf16 as the JAX package's plain path does.
+4. Holds the backward kernels B4 (attention block) and B5 (MLP) against
+   their plain backward on all seven outputs at the text shape (8 x 88 rows,
+   W 512, 8 heads, valid 82) and the image shape (8 x 200, W 768, 12 heads,
+   valid 197), by the norm-relative error of each output (tolerances at
+   BWD_F32_TOL / BWD_BF16_TOL), and times both with CUDA events.
+5. Serves ViT-B/16 at full width with random weights from a fixed seed
    through ``tapclip_tpu_torch.serve``'s HTTP server on localhost: adds a
    class, sends 16 concurrent /predict requests (uint8 pixels, batches of
-   8), 8 more, then one /explain.  Every kernel's launch count is set to 0
-   just before and read just after; each must have risen.
-5. Checks the answers: finite probabilities that sum to 1, the same class
+   8), 8 more, then one /explain.  Every forward kernel's launch count is
+   set to 0 just before and read just after; each must have risen.
+6. Checks the answers: finite probabilities that sum to 1, the same class
    for the same image in every batch, and probabilities, logits and
    attribution rows equal, within the stated tolerance, to those of the same
    model run with the plain versions (``attn_impl="xla"``) on the card.
-6. Serves the same weights in bfloat16 through ``PredictService`` (a class
+7. Serves the same weights in bfloat16 through ``PredictService`` (a class
    added, one batch of 8, one explain) and holds them, within the bfloat16
    model tolerance, against the same bfloat16 model on the plain versions.
+8. Trains the same weights (the five classes of ``bench.py``, capacity 8),
+   in float32 and then bfloat16: 3 pixels-in ``make_train_step`` steps at
+   batch 32, then ``fit_prompt_model`` over cached features (256 train / 64
+   val, batch 32, 2 epochs), each on the kernel path and on the plain path.
+   Every launch count is set to 0 just before the kernel path and read just
+   after: B4 and B5 must have launched 12 times per step (one per text
+   block).  Per step, loss and grad norm must agree between the paths, and
+   so must the final context vectors (TRAIN_TOL).  Prints ms per step.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -58,6 +72,23 @@ BF16_LOGIT_TOL = 0.1
 BF16_PROB_TOL = 1e-2
 BF16_ATTR_TOL = 1e-4
 
+# Backward kernels: norm-relative error ||got - want|| / ||want|| of each of
+# the seven outputs.  f32: only the order of the f32 sums differs.  bf16:
+# both sides round the same intermediates, but a value on the other side of
+# a rounding step moves by one bf16 ulp (2^-8 relative).  Set from a reading
+# on an H100 80GB HBM3 at 700 W of at most 1.2e-6 (f32) and 3.5e-4 (bf16).
+BWD_F32_TOL = 1e-5
+BWD_BF16_TOL = 5e-3
+# Training, kernel path vs plain path on the same weights and batches:
+# relative error of each step's loss and grad norm, and max abs error of the
+# final context vectors.  Set from a reading on the same card of 3.6e-7 /
+# 2.0e-6 / 3.5e-6 in f32 and 2.6e-4 / 1.7e-2 / 7.5e-3 in bf16 (AdamW moves
+# each context element by about lr = 2e-3 a step, whatever the gradient's
+# size, so bf16 noise in a small gradient moves ctx by up to that).
+TRAIN_TOL = {"float32": {"loss": 5e-6, "grad_norm": 2e-5, "ctx": 5e-5},
+             "bfloat16": {"loss": 2e-3, "grad_norm": 1e-1, "ctx": 5e-2}}
+TRAIN_CLASSES = ["Backpack", "Alarm_Clock", "Laptop", "Pen", "Mug"]  # bench.py:126
+
 CLASSES = ["Backpack", "Pen", "Monitor"]
 
 KERNELS = {
@@ -73,7 +104,17 @@ KERNELS = {
         "source": "tapclip_tpu_torch/csrc/attn_aux.cu",
         "replaces": "tapclip_tpu/ops/flash_attention.py:65",
     },
+    "fused_attn_block_bwd": {
+        "source": "tapclip_tpu_torch/csrc/attn_block_bwd.cu",
+        "replaces": "tapclip_tpu/ops/fused_mha.py:628",
+    },
+    "fused_mlp_bwd": {
+        "source": "tapclip_tpu_torch/csrc/mlp_bwd.cu",
+        "replaces": "tapclip_tpu/ops/fused_mlp.py:119",
+    },
 }
+FORWARD = ("fused_mlp", "fused_attn_block", "fused_attention_aux")
+BACKWARD = ("fused_attn_block_bwd", "fused_mlp_bwd")
 
 
 class SmokeFailure(RuntimeError):
@@ -85,16 +126,28 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def _wrappers():
+def _counters():
+    """Each kernel's launch counter: (wrapper, attribute)."""
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
     from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
 
     return {
-        "fused_mlp": fused_mlp_block,
-        "fused_attn_block": fused_attn_block,
-        "fused_attention_aux": fused_attention,
+        "fused_mlp": (fused_mlp_block, "launches"),
+        "fused_attn_block": (fused_attn_block, "launches"),
+        "fused_attention_aux": (fused_attention, "launches"),
+        "fused_attn_block_bwd": (fused_attn_block, "bwd_launches"),
+        "fused_mlp_bwd": (fused_mlp_block, "bwd_launches"),
     }
+
+
+def reset_counts() -> None:
+    for wrapper, attr in _counters().values():
+        setattr(wrapper, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(wrapper, attr) for name, (wrapper, attr) in _counters().items()}
 
 
 def card_line() -> str:
@@ -227,6 +280,169 @@ def check_kernels() -> dict:
     return results
 
 
+def _rel_errors(got, want) -> tuple:
+    """(max norm-relative error, max abs error) over paired output tensors."""
+    import torch
+
+    rel = ab = 0.0
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float().reshape(a.shape)
+        require(bool(torch.isfinite(a).all()), "backward kernel output is not finite")
+        rel = max(rel, float((a - b).norm() / b.norm().clamp_min(1e-30)))
+        ab = max(ab, float((a - b).abs().max()))
+    return rel, ab
+
+
+def check_backward() -> dict:
+    """B4 and B5 against their plain backward on all seven outputs, at the
+    text and image shapes, in f32 and bf16; CUDA-event times of the kernel
+    (with and without weight gradients) and of the plain backward."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, attn_block_bwd_reference
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_bwd_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {name: {"cases": []} for name in BACKWARD}
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, T, W, nh, valid) in (("text 8x88x512", (8, 88, 512, 8, 82)),
+                                            ("image 8x200x768", (8, 200, 768, 12, 197))):
+            x, g = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
+            ln = (1.0 + rn(W, s=0.1), rn(W, s=0.1))
+            H = 4 * W
+            mlp = (rn(W, H, s=W ** -0.5), rn(H, s=0.1), rn(H, W, s=H ** -0.5))
+            attn = (rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1), rn(W, W, s=W ** -0.5))
+            cases = {
+                "fused_mlp_bwd": (
+                    lambda w=True: _fused_mlp_bwd_cuda(x, g, *ln, *mlp, eps=1e-5, weight_grads=w),
+                    lambda: fused_mlp_bwd_reference(x, g, *ln, *mlp, 1e-5)),
+                "fused_attn_block_bwd": (
+                    lambda w=True: _attn_block_bwd_cuda(x, g, *ln, *attn, nh, valid, 1e-5, weight_grads=w),
+                    lambda: attn_block_bwd_reference(x, g, *ln, *attn, nh, valid, 1e-5)),
+            }
+            for name, (kern, plain) in cases.items():
+                with torch.no_grad():
+                    got, want = kern(), plain()
+                    dx_only = kern(False)[0]
+                    torch.cuda.synchronize()
+                    rel, ab = _rel_errors(got, want)
+                    rel_dx, _ = _rel_errors([dx_only], [want[0]])
+                    shape = label if name == "fused_mlp_bwd" else f"{label} h{nh} valid{valid}"
+                    case = {"shape": shape, "dtype": dname, "max_rel_err": rel, "max_abs_err": ab,
+                            "dx_only_rel_err": rel_dx,
+                            "ms": time_ms(kern), "ms_dx_only": time_ms(lambda: kern(False)),
+                            "plain_ms": time_ms(plain)}
+                results[name]["cases"].append(case)
+                print(f"backward {name} [{shape} {dname}]: "
+                      + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
+                      flush=True)
+                require(rel <= tol and rel_dx <= tol,
+                        f"{name} {shape} {dname}: norm-relative error {max(rel, rel_dx):.3e} > {tol}")
+    return results
+
+
+def _sync_ms(fn) -> tuple:
+    """(result, ms) of ``fn`` on the host clock, ended by a synchronisation."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _train_path(model, images, labels, train_set, val_set) -> dict:
+    """3 pixels-in train steps at batch 32, then fit_prompt_model on cached
+    features, for one model; returns the readings."""
+    from tapclip_tpu_torch.config import TrainConfig
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.trainer import fit_prompt_model
+
+    cfg = TrainConfig(batch_size=32, epochs=2)
+    state = init_train_state(model.trainable, make_optimizer(cfg))
+    step = make_train_step(model.clip_cfg, model.prompt_cfg, use_image_feats=False)
+    mask = np.ones(len(labels[0]), bool)
+    losses, norms, step_ms = [], [], []
+    for x, y in zip(images, labels):
+        (state, metrics), ms = _sync_ms(
+            lambda: step(model.clip_params, state, model.prompt_learner.bank, x, y, mask))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        step_ms.append(ms)
+    pixel_ctx = state.params["ctx"].detach().float().cpu().numpy()
+    res, fit_ms = _sync_ms(lambda: fit_prompt_model(model, train_set, val_set, cfg, verbose=False))
+    return {"loss": losses, "grad_norm": norms, "pixel_step_ms": step_ms, "pixel_ctx": pixel_ctx,
+            "fit_loss": res.loss_history, "fit_acc": res.acc_history, "fit_entropy": res.attr_entropy,
+            "fit_ctx": res.final_state.params["ctx"].detach().float().cpu().numpy(),
+            "fit_step_ms": 1e3 / res.steps_per_sec, "fit_s": fit_ms / 1e3,
+            "steps": len(losses) + res.final_state.step}
+
+
+def train_phase(clip_params, base_cfg, dtype: str) -> dict:
+    """The training path on the kernels and on the plain versions, same
+    weights and batches; launch counts of the kernel path."""
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.trainer import CachedSet
+
+    cfg = base_cfg.replace(dtype=dtype)
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (32, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+              for _ in range(3)]
+    labels = [rng.integers(0, len(TRAIN_CLASSES), 32) for _ in range(3)]
+    train_set = CachedSet(rng.standard_normal((256, cfg.embed_dim)).astype(np.float32),
+                          rng.integers(0, len(TRAIN_CLASSES), 256))
+    val_set = CachedSet(rng.standard_normal((64, cfg.embed_dim)).astype(np.float32),
+                        rng.integers(0, len(TRAIN_CLASSES), 64))
+    out = {}
+    for path, c in (("kernel", cfg), ("plain", cfg.replace(attn_impl="xla"))):
+        model = FullModel(TRAIN_CLASSES, clip_params, c)
+        require(model.prompt_learner.bank.capacity == 8, "capacity is not 8")
+        reset_counts()
+        out[path] = _train_path(model, images, labels, train_set, val_set)
+        out[path]["launches"] = read_counts()
+    k, p = out["kernel"], out["plain"]
+    tol = TRAIN_TOL[dtype]
+    steps = k["steps"]
+    launches = k["launches"]
+    errs = {
+        "loss": max(abs(a - b) / abs(b) for a, b in zip(k["loss"] + k["fit_loss"], p["loss"] + p["fit_loss"])),
+        "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(k["grad_norm"], p["grad_norm"])),
+        "ctx": float(max(np.abs(k["pixel_ctx"] - p["pixel_ctx"]).max(),
+                         np.abs(k["fit_ctx"] - p["fit_ctx"]).max())),
+    }
+    print(f"train {dtype}: {steps} steps per path; kernel-path launches {launches}; "
+          f"plain-path launches {p['launches']}", flush=True)
+    print(f"train {dtype}: pixels-in step ms (batch 32, incl. host) kernel "
+          f"{[round(v, 2) for v in k['pixel_step_ms']]} vs plain {[round(v, 2) for v in p['pixel_step_ms']]}; "
+          f"cached-feature step ms kernel {k['fit_step_ms']:.2f} vs plain {p['fit_step_ms']:.2f}", flush=True)
+    print(f"train {dtype}: loss kernel {[round(v, 5) for v in k['loss']]} plain {[round(v, 5) for v in p['loss']]}; "
+          f"fit loss kernel {[round(v, 5) for v in k['fit_loss']]} plain {[round(v, 5) for v in p['fit_loss']]}; "
+          f"fit acc {k['fit_acc']} / {p['fit_acc']}; entropy {k['fit_entropy']} / {p['fit_entropy']}",
+          flush=True)
+    print(f"train {dtype}: kernel vs plain: loss rel err {errs['loss']:.3e} (tol {tol['loss']}), grad norm "
+          f"rel err {errs['grad_norm']:.3e} (tol {tol['grad_norm']}), ctx max abs err {errs['ctx']:.3e} "
+          f"(tol {tol['ctx']})", flush=True)
+    for name in BACKWARD:
+        require(launches[name] == 12 * steps,
+                f"{name}: {launches[name]} launches in {steps} train steps, expected {12 * steps}")
+    for name in FORWARD:
+        require(launches[name] > 0, f"kernel {name} was not launched on the training path")
+    require(all(n == 0 for n in p["launches"].values()), f"plain path launched kernels {p['launches']}")
+    for path in (k, p):
+        require(all(np.isfinite(path["loss"] + path["fit_loss"] + path["grad_norm"])), "non-finite loss")
+    for key, err in errs.items():
+        require(err <= tol[key], f"train {dtype}: kernel vs plain {key} error {err:.3e} > {tol[key]}")
+    return {"launches": launches, "steps": steps, "errors": errs,
+            "pixel_step_ms": {"kernel": k["pixel_step_ms"], "plain": p["pixel_step_ms"]},
+            "fit_step_ms": {"kernel": k["fit_step_ms"], "plain": p["fit_step_ms"]}}
+
+
 def _post(url: str, obj: dict, timeout: float = 300.0) -> dict:
     req = urllib.request.Request(url, data=json.dumps(obj).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -258,10 +474,8 @@ def serve_path(model) -> dict:
     base = f"http://127.0.0.1:{server.server_address[1]}"
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
-    wrappers = _wrappers()
     try:
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         names = _post(base + "/classes", {"name": "Clipboards"})["classes"]
         with ThreadPoolExecutor(16) as pool:
@@ -272,7 +486,7 @@ def serve_path(model) -> dict:
         explain = _post(base + "/explain", {"pixels": images[0].tolist()})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = {name: n for name, n in read_counts().items() if name in FORWARD}
         stats = service.stats()
     finally:
         server.shutdown()
@@ -335,9 +549,7 @@ def serve_bf16(model, images: np.ndarray, f32_logits: np.ndarray) -> dict:
     cfg = model.clip_cfg.replace(dtype="bfloat16")
     kern = FullModel(CLASSES, model.clip_params, cfg)
     plain = FullModel(CLASSES, model.clip_params, cfg.replace(attn_impl="xla"))
-    wrappers = _wrappers()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     service = PredictService(kern, batch_size=8, max_latency_ms=2000.0)
     try:
         names = service.add_class("Clipboards")
@@ -345,7 +557,7 @@ def serve_bf16(model, images: np.ndarray, f32_logits: np.ndarray) -> dict:
             served = list(pool.map(lambda j: service.predict(images[j], timeout=300.0), range(8)))
         explain = service.explain(images[0])
         torch.cuda.synchronize()
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = {name: n for name, n in read_counts().items() if name in FORWARD}
         stats = service.stats()
     finally:
         service.close()
@@ -444,6 +656,7 @@ def main() -> int:
               f"{spills} bytes of spill stores", flush=True)
 
     kernels = check_kernels()
+    kernels.update(check_backward())
     t0 = time.perf_counter()
     model = build_model(VIT_B_16, CLASSES, "cuda", seed=0)
     print(f"serve: built {VIT_B_16.name} (width {VIT_B_16.vision_width}/{VIT_B_16.text_width}, "
@@ -451,21 +664,31 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     served = serve_path(model)
     serve_bf16(model, served["images"], served["served_logits"])
+    trained = {dtype: train_phase(model.clip_params, VIT_B_16, dtype) for dtype in ("float32", "bfloat16")}
 
     record = []
     for name, meta in KERNELS.items():
         f32_cases = [c for c in kernels[name]["cases"] if c["dtype"] == "float32"]
-        bf16_timed = [c for c in kernels[name]["cases"] if c["dtype"] == "bfloat16" and "ms" in c]
+        bf16_cases = [c for c in kernels[name]["cases"] if c["dtype"] == "bfloat16"]
         timed = [c for c in f32_cases if "ms" in c][0]
-        record.append({
+        bf16_timed = [c for c in bf16_cases if "ms" in c][0]
+        entry = {
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": served["launches"][name],
+            "replaces": meta["replaces"],
+            # The backward kernels' main path is training; the forward ones'
+            # is serving (their training-path counts ride along).
+            "launches": (trained["float32"] if name in BACKWARD else served)["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in f32_cases),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"], "shape": timed["shape"],
-            "bf16_max_abs_err": max(c["max_abs_err"] for c in kernels[name]["cases"]
-                                    if c["dtype"] == "bfloat16"),
-            "bf16_ms": bf16_timed[0]["ms"], "bf16_plain_ms": bf16_timed[0]["plain_ms"],
-        })
+            "bf16_max_abs_err": max(c["max_abs_err"] for c in bf16_cases),
+            "bf16_ms": bf16_timed["ms"], "bf16_plain_ms": bf16_timed["plain_ms"],
+            "train_launches": trained["float32"]["launches"][name],
+        }
+        if name in BACKWARD:
+            entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),
+                         bf16_max_rel_err=max(c["max_rel_err"] for c in bf16_cases),
+                         ms_dx_only=timed["ms_dx_only"])
+        record.append(entry)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,3 +17,9 @@ def attribution_scores(attn_col: torch.Tensor, prompt_len: int, normalize: bool 
     """``attn_col [N, T]`` (attention-to-last column) -> ``[N, prompt_len]`` f32."""
     raw = attn_col[:, :prompt_len].float()
     return torch.softmax(raw, dim=-1) if normalize else raw
+
+
+def attribution_entropy(attribution: torch.Tensor) -> torch.Tensor:
+    """Mean entropy of attribution rows (the reference's ``eval_metrics.py:76-81``)."""
+    p = attribution.float() + 1e-8
+    return (-(p * torch.log(p)).sum(dim=-1)).mean()

@@ -14,6 +14,12 @@ aux layer runs ``attn_forward`` with plain QKV and out-projections around
 the attention kernel K3.  Each kernel wrapper launches its CUDA kernel on a
 CUDA tensor and its plain version on a CPU tensor.  ``impl="xla"`` runs
 the plain composition on any device.
+
+The fused blocks differentiate: ``fused_attn_block`` and ``fused_mlp_block``
+are ``torch.autograd.Function`` s whose backward is the hand-written B4 / B5
+on the card (weight gradients only where a parameter requires one).  K3 has
+no ported backward and refuses a graph; the attribution pass that runs it is
+detached.
 """
 
 from __future__ import annotations

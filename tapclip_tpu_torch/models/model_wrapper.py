@@ -7,8 +7,10 @@ pass, and the forward is
 
     1 image-tower pass  +  2 class-batched text passes
 
-The attribution pass is detached (the reference's hook detaches the
-attention map).  Loss: cross-entropy only, as in the reference.  The
+(or precomputed image features in place of the tower pass).  The
+attribution pass runs without an autograd graph (the reference's hook
+detaches the attention map), so a training step differentiates the encode
+pass only.  Loss: cross-entropy only, as in the reference.  The
 image-conditioned (CoCoOp) and MaPLe branches are not yet ported and raise.
 """
 
@@ -74,10 +76,11 @@ def text_features_with_attribution(
     P = prompt_cfg.prompt_len
     seq = build_prompts(ctx.detach(), bank.token_embs)
     T = seq.shape[1]
-    _, aux = clip_model.text_forward_embeds(
-        clip_params, clip_cfg, seq, mode="ref_compat", attn_to_idx=T - 1
-    )
-    attribution = attribution_scores(aux, P, prompt_cfg.normalize_attribution).detach()
+    with torch.no_grad():  # the reference detaches the attention map
+        _, aux = clip_model.text_forward_embeds(
+            clip_params, clip_cfg, seq, mode="ref_compat", attn_to_idx=T - 1
+        )
+        attribution = attribution_scores(aux, P, prompt_cfg.normalize_attribution)
     adjusted = adjust_prompt(adjustor_params, prompt_cfg.adjustor_method, ctx, attribution)
     feats, _ = clip_model.text_forward_embeds(
         clip_params, clip_cfg, build_prompts(adjusted, bank.token_embs),
@@ -96,11 +99,21 @@ def full_model_forward(
     clip_cfg: CLIPConfig,
     prompt_cfg: PromptConfig,
     with_loss: bool = False,
+    image_feats: Optional[torch.Tensor] = None,
+    batch_mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """The fused forward over ``images [B,H,W,3]``: ``{"logits", "attribution"}``
-    (+ ``"loss"``, ``"loss_cls"``).  Padded classes get ``NEG_INF`` logits."""
+    """The fused forward: ``{"logits", "attribution"}`` (+ ``"loss"``,
+    ``"loss_cls"``).  Padded classes get ``NEG_INF`` logits.
+
+    Either ``images [B,H,W,3]`` or precomputed ``image_feats [B,E]``
+    (unnormalized) is given; the image tower is frozen, so callers may cache
+    its features across epochs.  ``batch_mask [B]`` averages the
+    cross-entropy over the marked rows only (padded batches).
+    """
     check_prompt_supported(prompt_cfg)
-    img = clip_model.l2_normalize(clip_model.encode_image(clip_params, clip_cfg, images))
+    if image_feats is None:
+        image_feats = clip_model.encode_image(clip_params, clip_cfg, images)
+    img = clip_model.l2_normalize(image_feats)
     scale = torch.exp(trainable["logit_scale"]).float()
     text_feats, attribution = text_features_with_attribution(
         clip_params, trainable["ctx"], bank, clip_cfg, prompt_cfg, trainable["adjustor"]
@@ -112,7 +125,12 @@ def full_model_forward(
     if with_loss:
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.take_along_dim(logits, labels.long()[:, None], dim=1)[:, 0]
-        loss = (lse - ll).mean()
+        ce = lse - ll
+        if batch_mask is not None:
+            m = batch_mask.float()
+            loss = (ce * m).sum() / m.sum().clamp_min(1.0)
+        else:
+            loss = ce.mean()
         out["loss"] = loss
         out["loss_cls"] = loss
     return out

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
-plain C interface, loaded with ``ctypes``.  Nothing includes PyTorch's
-headers, so a build takes seconds instead of minutes.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for Hopper
+(``-gencode arch=compute_90a,code=sm_90a``), all started together, and the
+objects are linked into ONE shared library with a plain C interface, loaded
+with ``ctypes``.  Nothing includes PyTorch's headers, so a build takes
+seconds instead of minutes.
 
 The library lands in ``build/tapclip_kernels/<hash>/`` beside the package
 (``.gitignore`` lists ``build/``), keyed by a hash of the sources and the
@@ -34,7 +35,7 @@ BUILD_ROOT = _PKG.parent / "build" / "tapclip_kernels"
 NVCC_FALLBACK = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -54,6 +55,23 @@ _SIGNATURES = {
     "tapclip_gemm_bias_residual": (P, P, P, P, P, I, I, I, I, P),
     # q, k, v, valid, eot, out, aux, B, H, T, Dh, with_aux, dtype, stream
     "tapclip_attn_aux": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # a, b, bias, c, M, N, K, trans_a, trans_b, dtype, stream
+    "tapclip_gemm_f32": (P, P, P, P, I, I, I, I, I, I, P),
+    # in, out, R, N, rows_per_chunk, dtype, stream
+    "tapclip_col_sum": (P, P, I, I, I, I, P),
+    # W
+    "tapclip_mlp_bwd_rows_per_block": (I,),
+    # x, g, gamma, beta, w_fc, b_fc, w_proj, dx, y_out, h_out, dhp_out, part,
+    # R, W, H, eps, want_w, dtype, stream
+    "tapclip_mlp_bwd_rows": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, P),
+    # Dh
+    "tapclip_attn_bwd_max_seq": (I,),
+    # x, gamma, beta, y, mean, rstd, R, W, eps, dtype, stream
+    "tapclip_ln_rows": (P, P, P, P, P, P, I, I, F, I, P),
+    # qkv, gh, attn, dqkv, B, T, W, n_heads, valid, dtype, stream
+    "tapclip_attn_bwd_core": (P, P, P, P, I, I, I, I, I, I, P),
+    # x, g, dy, gamma, mean, rstd, dx, part, R, W, want_w, dtype, stream
+    "tapclip_ln_bwd_rows": (P, P, P, P, P, P, P, P, I, I, I, I, P),
 }
 
 build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load
@@ -94,19 +112,29 @@ def library() -> ctypes.CDLL:
     if not cached:
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
-        cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        ptxas = proc.stdout + proc.stderr
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+            # One nvcc per source, all started together, then one link.
+            procs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = os.path.join(tmp_dir, src.stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", obj]
+                procs.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            outputs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, _, proc in procs]
+            for cmd, out, rc in outputs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+            ptxas = "".join(out for _, out, _ in outputs)
+            tmp_so = os.path.join(tmp_dir, "lib.so")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                   "-o", tmp_so, *(obj for _, obj, _ in procs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}\n{proc.stderr}"
+                )
+            os.replace(tmp_so, so)  # atomic: a concurrent loader sees all or nothing
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -153,8 +181,11 @@ def check_cuda_operand(name: str, t, dtype=None, shape=None) -> None:
 
 
 def refuse_grad(*tensors) -> None:
-    """The backward kernels are not ported: refuse to build an autograd graph."""
+    """For a kernel whose backward is not ported: refuse to build an autograd graph."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("backward kernel lands with the training slice")
+        raise NotImplementedError(
+            "this kernel's backward is not ported; the training slice runs it "
+            "without a graph (the attribution pass is detached)"
+        )

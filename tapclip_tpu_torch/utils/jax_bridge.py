@@ -5,12 +5,13 @@ every transformer block's leaves stacked along a leading ``[L]`` axis.  The
 port keeps the same tree and layout, except that a stack of blocks is a list
 of L per-block dicts.  The functions here take trees whose leaves are NumPy
 arrays (convert a JAX tree with ``jax.tree.map(np.asarray, tree)``), so the
-port itself never imports jax.
+port itself never imports jax.  :func:`adamw_state_from_optax` carries an
+optax AdamW state over, so a JAX mid-training state resumes in the port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -82,3 +83,39 @@ def prompt_state_from_jax(trainable: Dict[str, Any], bank, device="cpu") -> Tupl
         eot_pos=_tensor(bank.eot_pos, device, torch.int32),
     )
     return port_trainable, port_bank
+
+
+def _adam_node(node):
+    """The first node with ``count``, ``mu`` and ``nu`` (optax's ScaleByAdamState)."""
+    if all(hasattr(node, a) for a in ("count", "mu", "nu")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _adam_node(child)
+            if found is not None:
+                return found
+    return None
+
+
+def adamw_state_from_optax(opt_state) -> List[Dict[str, Any]]:
+    """optax ``adamw`` state (NumPy-valued, ``(ScaleByAdamState(count, mu, nu),
+    ...)``) -> the port's per-leaf AdamW moments, in sorted-key leaf order, for
+    ``init_train_state(opt_state=...)`` or ``fit_prompt_model(resume_state=...)``.
+
+    optax's ``count`` is torch's ``step``, ``mu`` its ``exp_avg`` and ``nu``
+    its ``exp_avg_sq``; both apply the bias correction by the count, so the
+    next step from a resumed state equals the next JAX step.
+    """
+    from tapclip_tpu_torch.parallel.train_step import tree_leaves
+
+    adam = _adam_node(opt_state)
+    if adam is None:
+        raise ValueError("no (count, mu, nu) Adam state found in the optax state")
+    count = int(np.asarray(adam.count))
+    mus, nus = tree_leaves(dict(adam.mu)), tree_leaves(dict(adam.nu))
+    if count == 0:
+        return [{} for _ in mus]
+    return [
+        {"step": count, "exp_avg": np.asarray(m, np.float32), "exp_avg_sq": np.asarray(v, np.float32)}
+        for m, v in zip(mus, nus)
+    ]

@@ -187,9 +187,12 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         "fused_mlp.cu": "tapclip_tpu/ops/fused_mlp.py::_mlp_kernel",
         "attn_block.cu": "tapclip_tpu/ops/fused_mha.py::_attn_block_kernel",
         "attn_aux.cu": "tapclip_tpu/ops/flash_attention.py::_attn_kernel",
+        "mlp_bwd.cu": "tapclip_tpu/ops/fused_mlp.py::_mlp_bwd_kernel",
+        "attn_block_bwd.cu": "tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel",
+        "gemm.cu": "tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel",
     }
     for fname, tpu in replaced.items():
-        head = (_build.CSRC / fname).read_text()[:2000]
+        head = (_build.CSRC / fname).read_text()[:4000]
         assert tpu in head, fname
         assert "bounds it on the card" in head, fname
 
@@ -210,6 +213,18 @@ def test_operand_checks():
     assert (_build.dtype_code(torch.float32), _build.dtype_code(torch.bfloat16)) == (0, 1)
     with pytest.raises(RuntimeError, match="cudaError 1"):
         _build.check(1, "k")
+
+
+def test_gemm_wrappers_take_cuda_operands_only():
+    from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
+
+    a = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="at most one transposed"):
+        gemm_f32(a, a, trans_a=True, trans_b=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gemm_f32(a, torch.zeros(3, 5))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        col_sum(a)
 
 
 def test_refuse_grad():

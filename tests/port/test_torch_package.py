@@ -33,6 +33,7 @@ PORT_MODULES = [
     "tapclip_tpu_torch.ops.fused_mlp",
     "tapclip_tpu_torch.ops.fused_mha",
     "tapclip_tpu_torch.ops.flash_attention",
+    "tapclip_tpu_torch.ops.gemm",
     "tapclip_tpu_torch.models.layers",
     "tapclip_tpu_torch.models.clip",
     "tapclip_tpu_torch.models.prompt_learner",
@@ -40,6 +41,9 @@ PORT_MODULES = [
     "tapclip_tpu_torch.models.prompt_adjustor",
     "tapclip_tpu_torch.models.model_wrapper",
     "tapclip_tpu_torch.utils.jax_bridge",
+    "tapclip_tpu_torch.utils.logging_utils",
+    "tapclip_tpu_torch.parallel.train_step",
+    "tapclip_tpu_torch.trainer",
     "tapclip_tpu_torch.serve",
 ]
 
