@@ -197,7 +197,8 @@ class PromptConfig:
     image_conditioned: bool = False
     meta_hidden: int = 0
     maple_depth: int = 0
-    # Only "ref_compat" is ported; "idiomatic" raises NotImplementedError.
+    # "ref_compat" (the reference's bare-transformer pass) or "idiomatic"
+    # (CoOp-style: positional embedding, causal mask, ln_final, EOT pooling).
     text_mode: str = "ref_compat"
 
 

@@ -3,7 +3,8 @@
 //   aux[b, h, t] = p[t, eot[b]] / l[t]   (the normalised probability column).
 //
 // Replaces tapclip_tpu/ops/flash_attention.py::_attn_kernel with
-// with_aux=True (the pallas_call in _pallas_attention).  The wrapper
+// with_aux=True (the pallas_call in _pallas_attention), causal or not (the
+// kernel's static flag).  The wrapper
 // (tapclip_tpu_torch/ops/flash_attention.py::fused_attention) takes the
 // mean of aux over heads, as the JAX wrapper does.
 //
@@ -24,6 +25,13 @@
 // final row max and sum; a key at or past valid[b] gives 0, as its masked
 // probability does in the JAX kernel.  q and k are read as f32 and the
 // probabilities rounded to the compute dtype before p.v, as in the JAX kernel.
+//
+// Causal (the idiomatic text mode's aux layer): a key after the query takes
+// -1e30, and a query tile skips the key tiles wholly above the diagonal
+// (their probabilities are exactly 0).  A row whose attribution key eot[b]
+// lies after it gets an aux of exactly 0, as exp2(-1e30 - m) is in the JAX
+// kernel: in idiomatic mode every context query sits before its class's EOT
+// key, so the JAX package's attribution there is the softmax of zeros.
 #include "attn_tile.cuh"
 #include "common.cuh"
 
@@ -38,7 +46,7 @@ __global__ void __launch_bounds__(kThreads)
 attn_aux_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ valid_b,
                 const int* __restrict__ eot_b, T* __restrict__ out,
-                float* __restrict__ aux, int H, int T_, int with_aux) {
+                float* __restrict__ aux, int H, int T_, int with_aux, int causal) {
   using Tile = AttnTile<T, DH>;
   extern __shared__ __align__(16) float smem[];
   float* Q_s = smem;
@@ -61,7 +69,8 @@ attn_aux_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   Tile tile;
   tile.init();
-  for (int kt0 = 0; kt0 < T_; kt0 += Tile::kKeys) {
+  const int k_end = causal ? min(T_, q0 + Tile::kRows) : T_;
+  for (int kt0 = 0; kt0 < k_end; kt0 += Tile::kKeys) {
     for (int e = tid; e < Tile::kKeys * DH; e += kThreads) {
       const int r = e / DH, d = e % DH;
       const bool in = kt0 + r < T_;
@@ -70,7 +79,7 @@ attn_aux_kernel(const T* __restrict__ q, const T* __restrict__ k,
       V_s[r * Tile::kLd + d] = in ? to_f(v[off]) : 0.f;
     }
     __syncthreads();
-    tile.step(Q_s, K_s, V_s, P_s, kt0, T_, valid, scale_log2, rg, cg);
+    tile.step(Q_s, K_s, V_s, P_s, kt0, T_, valid, scale_log2, rg, cg, causal ? q0 : -1);
   }
 
   const int eot = eot_b[b];
@@ -87,7 +96,7 @@ attn_aux_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (with_aux && cg == 0) {
       float col = 0.f;
-      if (eot_ok) {
+      if (eot_ok && !(causal && eot > t)) {
         const T* ke = k + base + static_cast<size_t>(eot) * DH;
         float s = 0.f;
         for (int d = 0; d < DH; ++d) s = fmaf(Q_s[(rg + 16 * i) * Tile::kLd + d], to_f(ke[d]), s);
@@ -101,7 +110,7 @@ attn_aux_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* valid,
                    const int* eot, void* out, float* aux, int B, int H, int T_,
-                   int with_aux, cudaStream_t stream) {
+                   int with_aux, int causal, cudaStream_t stream) {
   const size_t smem = AttnTile<T, DH>::kSmemFloats * sizeof(float);
   auto kernel = attn_aux_kernel<T, DH>;
   cudaError_t err = allow_smem(kernel, smem);
@@ -109,19 +118,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* valid
   const dim3 grid(B * H, (T_ + AttnTile<T, DH>::kRows - 1) / AttnTile<T, DH>::kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid,
-      eot, static_cast<T*>(out), aux, H, T_, with_aux);
+      eot, static_cast<T*>(out), aux, H, T_, with_aux, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, const int* valid,
                       const int* eot, void* out, float* aux, int B, int H, int T_,
-                      int Dh, int with_aux, cudaStream_t s) {
+                      int Dh, int with_aux, int causal, cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, s);
-    case 32: return launch<T, 32>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, s);
-    case 64: return launch<T, 64>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, s);
-    case 128: return launch<T, 128>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, s);
+    case 16: return launch<T, 16>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, causal, s);
+    case 32: return launch<T, 32>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, causal, s);
+    case 64: return launch<T, 64>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, causal, s);
+    case 128: return launch<T, 128>(q, k, v, valid, eot, out, aux, B, H, T_, with_aux, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -129,18 +138,19 @@ cudaError_t launch_dh(const void* q, const void* k, const void* v, const int* va
 }  // namespace
 
 // q, k, v, out: [B, H, T, Dh]; valid, eot: [B] int32 on the device;
-// aux: [B, H, T] f32 (unused when with_aux is 0).  dtype: 0 float32, 1 bfloat16.
+// aux: [B, H, T] f32 (unused when with_aux is 0).  causal: 0 or 1.
+// dtype: 0 float32, 1 bfloat16.
 extern "C" int tapclip_attn_aux(const void* q, const void* k, const void* v,
                                 const void* valid, const void* eot, void* out, void* aux,
-                                int B, int H, int T, int Dh, int with_aux, int dtype,
-                                void* stream) {
+                                int B, int H, int T, int Dh, int with_aux, int causal,
+                                int dtype, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0) return cudaErrorInvalidValue;
   const auto* va = static_cast<const int*>(valid);
   const auto* eo = static_cast<const int*>(eot);
   auto* ax = static_cast<float*>(aux);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dh<float>(q, k, v, va, eo, out, ax, B, H, T, Dh, with_aux, s);
+  if (dtype == 0) return launch_dh<float>(q, k, v, va, eo, out, ax, B, H, T, Dh, with_aux, causal, s);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, va, eo, out, ax, B, H, T, Dh, with_aux, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, va, eo, out, ax, B, H, T, Dh, with_aux, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -15,16 +15,13 @@
 //      y = LN(x) rounded to the compute dtype.
 //   2. gemm: qkv = y . w_qkv + b_qkv (f32), and the cotangent of the
 //      attention output gh = g . w_out^T (f32).
-//   3. attn_bwd_core (here): one block per (batch row, head).  It holds the
-//      head's whole [T, T] probability tile in f32 in shared memory (31 KB
-//      at T = 88, 160 KB at T = 200) beside one [T, Dh] operand tile, and
-//      runs the TPU kernel's per-head chain
-//        s = q k^T * scale log2 e (keys >= valid: -1e30), p = exp2(s - max) / sum,
-//        o = p v,  dv = p^T gh,  dp = gh v^T,  ds = p (dp - sum(dp p)) scale,
-//        dq = ds k,  dk = ds^T q,
-//      overwriting p with ds in place.  It writes o into attn [B, T, W] and
-//      dq, dk, dv into dqkv [B, T, 3W], both in the compute dtype.  A T whose
-//      tile does not fit is refused by the wrapper, never run another way.
+//   3. attn_bwd_core (here): one block per (batch row, head) runs the
+//      shared backward core (attn_bwd_core.cuh, which B7 also runs): the
+//      head's whole [T, T] probability tile in f32 in shared memory, and the
+//      TPU kernel's per-head chain o, dv, dp, ds, dq, dk.  It writes o into
+//      attn [B, T, W] and dq, dk, dv into dqkv [B, T, 3W], both in the
+//      compute dtype.  A T whose tile does not fit is refused by the
+//      wrapper, never run another way.
 //   4. gemm: dy = dqkv . w_qkv^T (f32).
 //   5. ln_bwd_rows (here): dx = g + LN backward of dy; with weight gradients
 //      wanted, per-block partial column sums of dy * n and dy.
@@ -43,6 +40,7 @@
 // holding K2's core back.  At T = 200 the [T, T] tile leaves room for one
 // operand tile only, so q and gh rows are read from L1/L2 in the s and dp
 // phases.  Splitting over query tiles and tensor-core MMA are later work.
+#include "attn_bwd_core.cuh"
 #include "common.cuh"
 
 namespace {
@@ -51,12 +49,6 @@ using namespace tapclip;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKeyGroups = 8;  // keys per lane in the row phases: T <= 256
-
-template <int DH>
-size_t core_smem_bytes(int T) {
-  return (static_cast<size_t>(T) * T + static_cast<size_t>(T) * (DH + 1)) * sizeof(float);
-}
 
 // LayerNorm statistics and y = LN(x) rounded to T, one warp per row.
 template <typename T>
@@ -83,205 +75,6 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   if (lane == 0) {
     mean_out[r] = mean;
     rstd_out[r] = rstd;
-  }
-}
-
-// X_s[t][d] (row stride DH + 1) = src[t * ld + d] for t < T, optionally
-// rounded to the compute dtype.
-template <typename T, int DH>
-__device__ __forceinline__ void stage(float* X_s, const float* src, int ld, int T_, bool rnd) {
-  for (int e = threadIdx.x; e < T_ * DH; e += kThreads) {
-    const int t = e / DH, d = e % DH;
-    const float v = src[static_cast<size_t>(t) * ld + d];
-    X_s[t * (DH + 1) + d] = rnd ? round_to<T>(v) : v;
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-attn_bwd_core_kernel(const float* __restrict__ qkv, const float* __restrict__ gh,
-                     T* __restrict__ attn, T* __restrict__ dqkv, int H, int T_,
-                     int W, int valid) {
-  constexpr int kLd = DH + 1;
-  constexpr int kDPer = (DH + 31) / 32;  // head columns per lane
-  extern __shared__ __align__(16) float smem[];
-  float* P_s = smem;                             // [T][T]: p, then ds
-  float* X_s = P_s + static_cast<size_t>(T_) * T_;  // [T][DH + 1] operand tile
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int ld3 = 3 * W;
-  const float* q = qkv + static_cast<size_t>(b) * T_ * ld3 + h * DH;
-  const float* k = q + W;
-  const float* v = q + 2 * W;
-  const float* g = gh + static_cast<size_t>(b) * T_ * W + h * DH;
-  T* attn_b = attn + static_cast<size_t>(b) * T_ * W + h * DH;
-  T* dq = dqkv + static_cast<size_t>(b) * T_ * ld3 + h * DH;
-  T* dk = dq + W;
-  T* dv = dq + 2 * W;
-  const float scale = rsqrtf(static_cast<float>(DH));
-  const float scale_log2 = scale * kLog2e;
-
-  // a. p = softmax of the masked, log2-scaled scores, row by row.
-  stage<T, DH>(X_s, k, ld3, T_, false);
-  __syncthreads();
-  for (int i = warp; i < T_; i += kWarps) {
-    float s[kMaxKeyGroups];
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) s[jt] = 0.f;
-    const float* qi = q + static_cast<size_t>(i) * ld3;
-    for (int d = 0; d < DH; ++d) {
-      const float qd = qi[d];
-#pragma unroll
-      for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-        const int j = lane + 32 * jt;
-        if (j < T_) s[jt] = fmaf(qd, X_s[j * kLd + d], s[jt]);
-      }
-    }
-    float m = -INFINITY;
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-      const int j = lane + 32 * jt;
-      s[jt] = j >= T_ ? -INFINITY : (j >= valid ? kNegBig : s[jt] * scale_log2);
-      m = fmaxf(m, s[jt]);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-      s[jt] = exp2f(s[jt] - m);  // 0 for keys past T
-      l += s[jt];
-    }
-    l = warp_sum(l);
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-      const int j = lane + 32 * jt;
-      if (j < T_) P_s[i * T_ + j] = s[jt] / l;
-    }
-  }
-  __syncthreads();
-
-  // b. o = p v, with p and v rounded to the compute dtype.
-  stage<T, DH>(X_s, v, ld3, T_, true);
-  __syncthreads();
-  for (int i = warp; i < T_; i += kWarps) {
-    float acc[kDPer];
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) acc[u] = 0.f;
-    for (int j = 0; j < T_; ++j) {
-      const float p = round_to<T>(P_s[i * T_ + j]);
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) {
-        const int d = lane + 32 * u;
-        if (d < DH) acc[u] = fmaf(p, X_s[j * kLd + d], acc[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) {
-      const int d = lane + 32 * u;
-      if (d < DH) attn_b[static_cast<size_t>(i) * W + d] = from_f<T>(acc[u]);
-    }
-  }
-  __syncthreads();
-
-  // c. dv = p^T gh, with p and gh rounded to the compute dtype.
-  stage<T, DH>(X_s, g, W, T_, true);
-  __syncthreads();
-  for (int j = warp; j < T_; j += kWarps) {
-    float acc[kDPer];
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) acc[u] = 0.f;
-    for (int i = 0; i < T_; ++i) {
-      const float p = round_to<T>(P_s[i * T_ + j]);
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) {
-        const int d = lane + 32 * u;
-        if (d < DH) acc[u] = fmaf(p, X_s[i * kLd + d], acc[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) {
-      const int d = lane + 32 * u;
-      if (d < DH) dv[static_cast<size_t>(j) * ld3 + d] = from_f<T>(acc[u]);
-    }
-  }
-  __syncthreads();
-
-  // d. dp = gh v^T (f32), ds = p (dp - sum(dp p)) scale, in place of p.
-  stage<T, DH>(X_s, v, ld3, T_, false);
-  __syncthreads();
-  for (int i = warp; i < T_; i += kWarps) {
-    float dp[kMaxKeyGroups];
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) dp[jt] = 0.f;
-    const float* gi = g + static_cast<size_t>(i) * W;
-    for (int d = 0; d < DH; ++d) {
-      const float gd = gi[d];
-#pragma unroll
-      for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-        const int j = lane + 32 * jt;
-        if (j < T_) dp[jt] = fmaf(gd, X_s[j * kLd + d], dp[jt]);
-      }
-    }
-    float p[kMaxKeyGroups];
-    float r = 0.f;
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-      const int j = lane + 32 * jt;
-      p[jt] = j < T_ ? P_s[i * T_ + j] : 0.f;
-      r += dp[jt] * p[jt];
-    }
-    r = warp_sum(r);
-#pragma unroll
-    for (int jt = 0; jt < kMaxKeyGroups; ++jt) {
-      const int j = lane + 32 * jt;
-      if (j < T_) P_s[i * T_ + j] = p[jt] * (dp[jt] - r) * scale;
-    }
-  }
-  __syncthreads();
-
-  // e. dq = ds k.
-  stage<T, DH>(X_s, k, ld3, T_, false);
-  __syncthreads();
-  for (int i = warp; i < T_; i += kWarps) {
-    float acc[kDPer];
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) acc[u] = 0.f;
-    for (int j = 0; j < T_; ++j) {
-      const float ds = P_s[i * T_ + j];
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) {
-        const int d = lane + 32 * u;
-        if (d < DH) acc[u] = fmaf(ds, X_s[j * kLd + d], acc[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) {
-      const int d = lane + 32 * u;
-      if (d < DH) dq[static_cast<size_t>(i) * ld3 + d] = from_f<T>(acc[u]);
-    }
-  }
-  __syncthreads();
-
-  // f. dk = ds^T q.
-  stage<T, DH>(X_s, q, ld3, T_, false);
-  __syncthreads();
-  for (int j = warp; j < T_; j += kWarps) {
-    float acc[kDPer];
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) acc[u] = 0.f;
-    for (int i = 0; i < T_; ++i) {
-      const float ds = P_s[i * T_ + j];
-#pragma unroll
-      for (int u = 0; u < kDPer; ++u) {
-        const int d = lane + 32 * u;
-        if (d < DH) acc[u] = fmaf(ds, X_s[i * kLd + d], acc[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kDPer; ++u) {
-      const int d = lane + 32 * u;
-      if (d < DH) dk[static_cast<size_t>(j) * ld3 + d] = from_f<T>(acc[u]);
-    }
   }
 }
 
@@ -334,53 +127,12 @@ ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_core(const float* qkv, const float* gh, void* attn, void* dqkv,
-                        int B, int T_, int W, int H, int valid, cudaStream_t s) {
-  const size_t smem = core_smem_bytes<DH>(T_);
-  auto kernel = attn_bwd_core_kernel<T, DH>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<B * H, kThreads, smem, s>>>(qkv, gh, static_cast<T*>(attn),
-                                       static_cast<T*>(dqkv), H, T_, W, valid);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_core_dh(const float* qkv, const float* gh, void* attn, void* dqkv,
-                           int B, int T_, int W, int H, int valid, cudaStream_t s) {
-  switch (W / H) {
-    case 16: return launch_core<T, 16>(qkv, gh, attn, dqkv, B, T_, W, H, valid, s);
-    case 32: return launch_core<T, 32>(qkv, gh, attn, dqkv, B, T_, W, H, valid, s);
-    case 64: return launch_core<T, 64>(qkv, gh, attn, dqkv, B, T_, W, H, valid, s);
-    case 128: return launch_core<T, 128>(qkv, gh, attn, dqkv, B, T_, W, H, valid, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-constexpr size_t kMaxSmem = 227 * 1024;
-
-size_t core_smem_dh(int T, int Dh) {
-  switch (Dh) {
-    case 16: return core_smem_bytes<16>(T);
-    case 32: return core_smem_bytes<32>(T);
-    case 64: return core_smem_bytes<64>(T);
-    case 128: return core_smem_bytes<128>(T);
-    default: return 0;
-  }
-}
-
 }  // namespace
 
-// Largest sequence length the core holds at head dim Dh (its [T, T] f32 tile
-// and one [T, Dh] operand tile in shared memory, at most 32 x 8 keys per
-// row), 0 for an unsupported head dim.
-extern "C" int tapclip_attn_bwd_max_seq(int Dh) {
-  if (core_smem_dh(1, Dh) == 0) return 0;
-  int t = 0;
-  while (t < 32 * kMaxKeyGroups && core_smem_dh(t + 1, Dh) <= kMaxSmem) ++t;
-  return t;
-}
+// Largest sequence length the backward core (B4 and B7) holds at head dim
+// Dh (its [T, T] f32 tile and one [T, Dh] operand tile in shared memory, at
+// most 32 x 8 keys per row), 0 for an unsupported head dim.
+extern "C" int tapclip_attn_bwd_max_seq(int Dh) { return bwd_core_max_seq(Dh); }
 
 // Step 1 of B4: y = LN(x) (dtype of x) and f32 mean / rstd per row.
 extern "C" int tapclip_ln_rows(const void* x, const void* gamma, const void* beta,
@@ -412,14 +164,15 @@ extern "C" int tapclip_ln_rows(const void* x, const void* gamma, const void* bet
 extern "C" int tapclip_attn_bwd_core(const void* qkv, const void* gh, void* attn,
                                      void* dqkv, int B, int T, int W, int n_heads,
                                      int valid, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || n_heads <= 0 || W % n_heads || valid < 1 || valid > T)
-    return cudaErrorInvalidValue;
-  if (T > tapclip_attn_bwd_max_seq(W / n_heads)) return cudaErrorInvalidValue;
   const auto* q = static_cast<const float*>(qkv);
   const auto* g = static_cast<const float*>(gh);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_core_dh<float>(q, g, attn, dqkv, B, T, W, n_heads, valid, s);
-  if (dtype == 1) return launch_core_dh<__nv_bfloat16>(q, g, attn, dqkv, B, T, W, n_heads, valid, s);
+  if (dtype == 0)
+    return launch_bwd_core_dh<float, float, true>(q, g, attn, dqkv, B, T, W, n_heads, valid, 0, s);
+  if (dtype == 1) {
+    return launch_bwd_core_dh<__nv_bfloat16, float, true>(q, g, attn, dqkv, B, T, W, n_heads,
+                                                          valid, 0, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Softmax attention of one 64-row query tile against all keys, one 64-key
 // tile at a time (online softmax), shared by the fused attention block (K2,
-// attn_block.cu) and the attribution attention (K3, attn_aux.cu).
+// attn_block.cu), the attribution attention (K3, attn_aux.cu) and the
+// packed-QKV attention core (B6, mha.cu).
 //
 // The JAX kernels hold a whole [T, T] score tile in VMEM.  A Hopper block has
 // at most 227 KB of shared memory, so the CUDA kernels keep one [64, 64]
@@ -11,7 +12,11 @@
 // past T (the ragged last tile) take -inf and contribute exactly 0.  The
 // 1/l normalisation is deferred past p.v, and p is rounded to the compute
 // dtype before p.v (the JAX kernels' `p.astype(v.dtype)`), while l sums the
-// unrounded p.
+// unrounded p.  With a causal mask (causal_q0 >= 0, the query index of tile
+// row 0) a key after the query takes the same -1e30; key 0 is never masked,
+// so every row's max is finite from the first tile on, and a later tile whose
+// keys are all masked for a row adds exactly 0 to it (callers skip the tiles
+// wholly above the diagonal).
 //
 // Block: 256 threads as a 16 x 16 grid.  Thread (rg, cg) owns query rows
 // rg + 16 i (i < 4), key columns cg + 16 j (j < 4) of the score tile and
@@ -47,11 +52,11 @@ struct AttnTile {
   }
 
   // One key tile starting at key kt0 of n_keys.  K_s/V_s rows past n_keys
-  // must hold zeros.
+  // must hold zeros.  causal_q0 < 0: no causal mask.
   __device__ __forceinline__ void step(const float* Q_s, const float* K_s,
                                        const float* V_s, float* P_s, int kt0,
                                        int n_keys, int valid, float scale_log2,
-                                       int rg, int cg) {
+                                       int rg, int cg, int causal_q0 = -1) {
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -76,7 +81,7 @@ struct AttnTile {
       for (int i = 0; i < 4; ++i) {
         float v = s[i][j] * scale_log2;
         if (key >= n_keys) v = -INFINITY;
-        else if (key >= valid) v = kNegBig;
+        else if (key >= valid || (causal_q0 >= 0 && key > causal_q0 + rg + 16 * i)) v = kNegBig;
         s[i][j] = v;
       }
     }

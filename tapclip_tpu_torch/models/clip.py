@@ -1,14 +1,16 @@
-"""Functional CLIP: the ViT image tower and the ``ref_compat`` text pass.
+"""Functional CLIP: the ViT image tower and the text tower.
 
-Counterpart of ``tapclip_tpu/models/clip.py`` for the serving path.  Plain
-functions over a parameter dict in the JAX package's layout (see
-``utils/jax_bridge.py`` for the bridge from a JAX tree).  The patch
-embedding is a reshape + GEMM over NHWC images, numerically a strided conv.
+Counterpart of ``tapclip_tpu/models/clip.py``.  Plain functions over a
+parameter dict in the JAX package's layout (see ``utils/jax_bridge.py`` for
+the bridge from a JAX tree).  The patch embedding is a reshape + GEMM over
+NHWC images, numerically a strided conv.
 
 Ported: ``init_clip_params`` (ViT), ``patchify``, ``encode_image``,
-``text_forward_embeds`` in ``ref_compat`` mode and ``l2_normalize``.  The
-ResNet tower, MoE, VPT, token pruning, the int8 tower and the causal
-``encode_text`` / ``idiomatic`` mode raise ``NotImplementedError``.
+``embed_tokens``, ``encode_text`` (the proper CLIP text encoder: positional
+embedding, causal mask, ``ln_final``, EOT pooling), ``text_forward_embeds``
+in ``ref_compat`` and ``idiomatic`` mode, and ``l2_normalize``; every
+``attn_impl`` of the JAX package.  The ResNet tower, MoE, VPT, MaPLe's deep
+prompts, token pruning and the int8 tower raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,8 +38,6 @@ def _unported(cfg: CLIPConfig) -> Optional[str]:
         return "the int8 tower (quantize_tower)"
     if cfg.token_keep_ratio < 1.0:
         return "token pruning (token_keep_ratio < 1)"
-    if cfg.attn_impl not in ("auto", "xla", "pallas"):
-        return f"attn_impl={cfg.attn_impl!r} (the packed-QKV attention core)"
     return None
 
 
@@ -158,6 +158,47 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     return layers.dense(x[:, 0], p["proj"])
 
 
+def embed_tokens(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
+    """Token ids ``[B, T]`` -> embeddings ``[B, T, W]`` (frozen lookup)."""
+    table = params["text"]["token_embedding"]
+    return table[torch.as_tensor(token_ids, device=table.device).long()]
+
+
+def encode_text(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
+    """Proper CLIP text encoding: ids ``[B, T]`` -> ``[B, embed_dim]``.
+
+    Positional embedding, causal tower, ``ln_final``, and pooling at the EOT
+    token (the largest id).  The tower runs at T padded to a multiple of 8
+    (77 -> 80) with the pad keys masked; the pad query rows are sliced off
+    before pooling.  The caller L2-normalizes.
+    """
+    check_supported(cfg)
+    p = params["text"]
+    dtype = cfg.compute_dtype
+    ids = torch.as_tensor(token_ids, device=p["token_embedding"].device).long()
+    x = embed_tokens(params, cfg, ids).to(dtype)
+    x = x + p["positional_embedding"].to(dtype)[None]
+    T = x.shape[1]
+    x, kv_valid = _pad_to_8(x)
+    x, _ = layers.transformer_forward(
+        x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=True,
+        kv_valid_len=kv_valid, impl=cfg.attn_impl,
+    )
+    x = layers.layer_norm(x[:, :T], p["ln_final"], cfg.ln_eps)
+    pooled = _pool(x, ids.argmax(dim=-1))
+    return layers.dense(pooled, p["text_projection"])
+
+
+def _pool(x: torch.Tensor, pool_idx) -> torch.Tensor:
+    """Row ``pool_idx`` (None: the last; an int; or ``[B]``) of ``x [B, T, W]``."""
+    if pool_idx is None:
+        return x[:, -1]
+    if isinstance(pool_idx, int):
+        return x[:, pool_idx]
+    idx = pool_idx.to(device=x.device, dtype=torch.long).reshape(-1, 1, 1)
+    return torch.take_along_dim(x, idx.expand(-1, 1, x.shape[-1]), dim=1)[:, 0]
+
+
 def text_forward_embeds(
     params: Params,
     cfg: CLIPConfig,
@@ -166,42 +207,51 @@ def text_forward_embeds(
     mode: str = "ref_compat",
     pool_idx=None,
     attn_to_idx=None,
+    kv_valid_len: Optional[int] = None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Text transformer over raw embeddings ``[B, T, W]``, ``ref_compat`` mode.
+    """Text transformer over raw embeddings ``[B, T, W]``.
 
-    Reproduces the reference's bare-transformer call: NO positional
-    embedding, NO causal mask, NO ln_final; pool at ``pool_idx`` (default
-    T-1).  T = 82 runs padded to 88 with the pad keys masked, then x and the
-    aux are sliced back to T.  Returns ``(features [B, embed_dim], aux [B, T]
-    | None)``, the aux being the last layer's head-averaged attention of every
-    query to key ``attn_to_idx``.
+    ``mode="ref_compat"`` reproduces the reference's bare-transformer call:
+    NO positional embedding, NO causal mask, NO ln_final; pool at
+    ``pool_idx`` (default T-1).  T = 82 runs padded to 88 with the pad keys
+    masked, then x and the aux are sliced back to T.
+
+    ``mode="idiomatic"`` (CoOp-style prompt tuning over well-formed
+    sequences) adds the positional embedding of the first T positions, runs
+    the tower causal and unpadded, and applies ``ln_final`` before pooling.
+
+    Returns ``(features [B, embed_dim], aux [B, T] | None)``, the aux being
+    the last layer's head-averaged attention of every query to key
+    ``attn_to_idx``.
     """
-    if mode != "ref_compat":
-        raise NotImplementedError(
-            f"text mode {mode!r} (causal text tower) is not yet ported in tapclip_tpu_torch"
-        )
     check_supported(cfg)
     p = params["text"]
     x = embeds.to(cfg.compute_dtype)
     T = x.shape[1]
-    x, kv_valid = _pad_to_8(x)
+    if mode == "idiomatic":
+        pos = p["positional_embedding"]
+        if T > pos.shape[0]:
+            raise ValueError(f"idiomatic mode requires T<= {pos.shape[0]}, got {T}")
+        x = x + pos[:T].to(x.dtype)[None]
+        causal = True
+    elif mode == "ref_compat":
+        causal = False
+        if kv_valid_len is None:
+            x, kv_valid_len = _pad_to_8(x)
+    else:
+        raise ValueError(f"unknown text mode {mode!r}")
     x, aux = layers.transformer_forward(
-        x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps,
-        kv_valid_len=kv_valid, attn_to_idx=attn_to_idx,
+        x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=causal,
+        kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx,
         impl=impl if impl is not None else cfg.attn_impl,
     )
     x = x[:, :T]
     if aux is not None:
         aux = aux[:, :T]
-    if pool_idx is None:
-        pooled = x[:, -1]
-    elif isinstance(pool_idx, int):
-        pooled = x[:, pool_idx]
-    else:
-        idx = pool_idx.to(device=x.device, dtype=torch.long).reshape(-1, 1, 1)
-        pooled = torch.take_along_dim(x, idx.expand(-1, 1, x.shape[-1]), dim=1)[:, 0]
-    return layers.dense(pooled, p["text_projection"]), aux
+    if mode == "idiomatic":
+        x = layers.layer_norm(x, p["ln_final"], cfg.ln_eps)
+    return layers.dense(_pool(x, pool_idx), p["text_projection"]), aux
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """FullModel: frozen CLIP + prompt learner + attribution + adjustor.
 
-Counterpart of ``tapclip_tpu/models/model_wrapper.py`` (``ref_compat`` text
-mode).  The attribution pass's input does not depend on the image, so
-attribution is computed once per class, in one batched ``[C, T, D]`` text
-pass, and the forward is
+Counterpart of ``tapclip_tpu/models/model_wrapper.py``, in both text modes
+(``ref_compat`` and the CoOp-style ``idiomatic``).  The attribution pass's
+input does not depend on the image, so attribution is computed once per
+class, in one batched ``[C, T, D]`` text pass, and the forward is
 
     1 image-tower pass  +  2 class-batched text passes
 
@@ -36,10 +36,8 @@ def check_prompt_supported(prompt_cfg: PromptConfig) -> None:
         raise NotImplementedError("image_conditioned prompts are not yet ported in tapclip_tpu_torch")
     if prompt_cfg.maple_depth > 0:
         raise NotImplementedError("MaPLe prompts are not yet ported in tapclip_tpu_torch")
-    if prompt_cfg.text_mode != "ref_compat":
-        raise NotImplementedError(
-            f"text_mode {prompt_cfg.text_mode!r} is not yet ported in tapclip_tpu_torch"
-        )
+    if prompt_cfg.text_mode not in ("ref_compat", "idiomatic"):
+        raise ValueError(f"unknown text mode {prompt_cfg.text_mode!r}")
 
 
 def init_trainable(
@@ -58,6 +56,13 @@ def init_trainable(
     }
 
 
+def _idiomatic_seq(ctx: torch.Tensor, token_embs: torch.Tensor, context_length: int) -> torch.Tensor:
+    """``[sot, ctx(P), template tokens 1..77-P-1]`` -> ``[C, 77, D]``."""
+    P = ctx.shape[1]
+    embs = token_embs.to(ctx.dtype)
+    return torch.cat([embs[:, :1], ctx, embs[:, 1:context_length - P]], dim=1)
+
+
 def text_features_with_attribution(
     clip_params,
     ctx: torch.Tensor,  # [C, P, D]
@@ -69,22 +74,35 @@ def text_features_with_attribution(
     """Class-batched attribution -> adjust -> encode.
 
     Returns ``(feats [C, embed_dim] L2-normalized, attribution [C, P] f32)``.
-    ``[ctx || 77-token embedding]`` is the 82-token sequence; the attribution
-    column and the pooling position are both T-1.
+    ``ref_compat``: ``[ctx || 77-token embedding]`` is the 82-token sequence;
+    the attribution column and the pooling position are both T-1.
+    ``idiomatic``: ``[sot, ctx, template tokens]`` (77 tokens) through the
+    causal tower; the attribution column and the pooling position are each
+    class's EOT, shifted by P, and the context queries are rows 1..P.  Under
+    the causal mask those queries cannot see their EOT key, so their column
+    is exactly 0 and the attribution the softmax of zeros, 1/P, as in the
+    JAX package.
     """
     check_prompt_supported(prompt_cfg)
     P = prompt_cfg.prompt_len
-    seq = build_prompts(ctx.detach(), bank.token_embs)
-    T = seq.shape[1]
+    mode = prompt_cfg.text_mode
+    if mode == "idiomatic":
+        Tctx = clip_cfg.context_length
+        build = lambda c: _idiomatic_seq(c, bank.token_embs, Tctx)  # noqa: E731
+        col = torch.clamp(bank.eot_pos.long() + P, max=Tctx - 1)
+        rows = slice(1, P + 1)
+    else:
+        build = lambda c: build_prompts(c, bank.token_embs)  # noqa: E731
+        col = P + bank.token_embs.shape[1] - 1
+        rows = slice(0, P)
     with torch.no_grad():  # the reference detaches the attention map
         _, aux = clip_model.text_forward_embeds(
-            clip_params, clip_cfg, seq, mode="ref_compat", attn_to_idx=T - 1
+            clip_params, clip_cfg, build(ctx.detach()), mode=mode, attn_to_idx=col
         )
-        attribution = attribution_scores(aux, P, prompt_cfg.normalize_attribution)
+        attribution = attribution_scores(aux[:, rows], P, prompt_cfg.normalize_attribution)
     adjusted = adjust_prompt(adjustor_params, prompt_cfg.adjustor_method, ctx, attribution)
     feats, _ = clip_model.text_forward_embeds(
-        clip_params, clip_cfg, build_prompts(adjusted, bank.token_embs),
-        mode="ref_compat", pool_idx=T - 1,
+        clip_params, clip_cfg, build(adjusted), mode=mode, pool_idx=col
     )
     return clip_model.l2_normalize(feats), attribution
 

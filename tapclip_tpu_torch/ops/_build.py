@@ -53,8 +53,8 @@ _SIGNATURES = {
     "tapclip_attn_block_core": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     # a, w, bias, residual, out, M, N, K, dtype, stream
     "tapclip_gemm_bias_residual": (P, P, P, P, P, I, I, I, I, P),
-    # q, k, v, valid, eot, out, aux, B, H, T, Dh, with_aux, dtype, stream
-    "tapclip_attn_aux": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    # q, k, v, valid, eot, out, aux, B, H, T, Dh, with_aux, causal, dtype, stream
+    "tapclip_attn_aux": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     # a, b, bias, c, M, N, K, trans_a, trans_b, dtype, stream
     "tapclip_gemm_f32": (P, P, P, P, I, I, I, I, I, I, P),
     # in, out, R, N, rows_per_chunk, dtype, stream
@@ -72,6 +72,10 @@ _SIGNATURES = {
     "tapclip_attn_bwd_core": (P, P, P, P, I, I, I, I, I, I, P),
     # x, g, dy, gamma, mean, rstd, dx, part, R, W, want_w, dtype, stream
     "tapclip_ln_bwd_rows": (P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # qkv, out, B, T, W, n_heads, valid, causal, dtype, stream
+    "tapclip_mha": (P, P, I, I, I, I, I, I, I, P),
+    # qkv, g, dqkv, B, T, W, n_heads, valid, causal, dtype, stream
+    "tapclip_mha_bwd": (P, P, P, I, I, I, I, I, I, I, P),
 }
 
 build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load

@@ -11,6 +11,8 @@ Two implementations share one interface:
   * ``pallas`` -- :func:`tapclip_tpu_torch.ops.flash_attention.fused_attention`,
                   the hand-written CUDA kernel K3 on a CUDA tensor.
 
+``causal`` masks key > query (the CLIP text tower).
+
 ``auto`` sends aux-bearing calls to the kernel and the rest to the plain
 version, as the JAX package routes them on its TPU.
 """
@@ -29,23 +31,28 @@ def attention_reference(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = False,
     kv_valid_len: IntOrTensor = None,
     attn_to_idx: IntOrTensor = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain attention over ``q, k, v [B, H, T, Dh]``.
 
-    ``kv_valid_len`` (int or ``[B]``) masks keys at or past the valid length;
-    ``attn_to_idx`` (int or ``[B]``) also returns the head-averaged probability
-    of every query attending to that key, ``[B, T]`` f32.  Logits and softmax
+    ``causal`` masks every key after the query; ``kv_valid_len`` (int or
+    ``[B]``) masks keys at or past the valid length; ``attn_to_idx`` (int or
+    ``[B]``) also returns the head-averaged probability of every query
+    attending to that key, ``[B, T]`` f32.  Logits and softmax
     in f32; ``p`` is rounded to ``v.dtype`` before ``p @ v`` and the output
     returned in ``q.dtype``, as in the JAX version.
     """
     B, H, T, Dh = q.shape
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (Dh ** -0.5)
+    ki = torch.arange(k.shape[2], device=q.device)
+    neg = torch.finfo(torch.float32).min
+    if causal:
+        qi = torch.arange(T, device=q.device)[:, None]
+        logits = torch.where(ki <= qi, logits, torch.full_like(logits, neg))
     if kv_valid_len is not None:
         valid = torch.as_tensor(kv_valid_len, device=q.device).reshape(-1, 1, 1, 1)
-        ki = torch.arange(k.shape[2], device=q.device)
-        neg = torch.finfo(torch.float32).min
         logits = torch.where(ki < valid, logits, torch.full_like(logits, neg))
     probs = torch.softmax(logits, dim=-1)
     out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
@@ -66,6 +73,7 @@ def multi_head_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = False,
     kv_valid_len: IntOrTensor = None,
     attn_to_idx: IntOrTensor = None,
     impl: str = "auto",
@@ -73,12 +81,11 @@ def multi_head_attention(
     """Dispatching attention entry point; shapes as in :func:`attention_reference`."""
     if impl == "auto":
         impl = "pallas" if attn_to_idx is not None else "xla"
+    kw = dict(causal=causal, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx)
     if impl == "xla":
-        return attention_reference(
-            q, k, v, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx
-        )
+        return attention_reference(q, k, v, **kw)
     if impl == "pallas":
         from tapclip_tpu_torch.ops.flash_attention import fused_attention
 
-        return fused_attention(q, k, v, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx)
+        return fused_attention(q, k, v, **kw)
     raise ValueError(f"unknown attention impl {impl!r}")

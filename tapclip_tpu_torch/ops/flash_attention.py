@@ -8,6 +8,8 @@ On a CUDA tensor :func:`fused_attention` launches the hand-written kernel
 emits the per-head normalised probability column ``[B, H, T]``; this wrapper
 takes its mean over heads, as the JAX wrapper does.  The kernel walks keys in
 64-key tiles, so every T runs (T = 584, ViT-L/14 at 336 px, included).
+``causal`` is the Pallas kernel's static flag (the idiomatic text mode's aux
+layer): a row whose attribution key lies after it gets an aux of exactly 0.
 """
 
 from __future__ import annotations
@@ -25,16 +27,19 @@ def fused_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     *,
+    causal: bool = False,
     kv_valid_len: IntOrTensor = None,
     attn_to_idx: IntOrTensor = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Same contract as ``attention_reference``: K3 on CUDA, plain on CPU."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx)
-    return _fused_attention_cuda(q, k, v, kv_valid_len, attn_to_idx)
+        return attention_reference(q, k, v, causal=causal, kv_valid_len=kv_valid_len,
+                                   attn_to_idx=attn_to_idx)
+    return _fused_attention_cuda(q, k, v, causal, kv_valid_len, attn_to_idx)
 
 
-fused_attention.launches = 0
+fused_attention.launches = 0  # every launch of K3
+fused_attention.causal_launches = 0  # the causal ones among them
 
 
 def _per_batch(x: IntOrTensor, batch: int, default: int, device) -> torch.Tensor:
@@ -45,7 +50,7 @@ def _per_batch(x: IntOrTensor, batch: int, default: int, device) -> torch.Tensor
     return x.to(device=device, dtype=torch.int32).reshape(batch).contiguous()
 
 
-def _fused_attention_cuda(q, k, v, kv_valid_len, attn_to_idx):
+def _fused_attention_cuda(q, k, v, causal, kv_valid_len, attn_to_idx):
     _build.refuse_grad(q, k, v)
     B, H, T, Dh = q.shape
     dtype = q.dtype
@@ -61,8 +66,10 @@ def _fused_attention_cuda(q, k, v, kv_valid_len, attn_to_idx):
     err = _build.library().tapclip_attn_aux(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), eot.data_ptr(),
         out.data_ptr(), aux.data_ptr() if with_aux else None,
-        B, H, T, Dh, int(with_aux), _build.dtype_code(dtype), _build.stream_handle(q.device),
+        B, H, T, Dh, int(with_aux), int(causal), _build.dtype_code(dtype),
+        _build.stream_handle(q.device),
     )
     _build.check(err, "tapclip_attn_aux")
     fused_attention.launches += 1
+    fused_attention.causal_launches += int(causal)
     return out, (aux.mean(dim=1) if with_aux else None)

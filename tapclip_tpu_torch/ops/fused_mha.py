@@ -1,6 +1,7 @@
-"""Fused attention half-block: kernel K2 and its backward B4.
+"""Fused attention: the half-block K2 with its backward B4, and the
+packed-QKV attention core B6 with its backward B7.
 
-Counterpart of ``tapclip_tpu/ops/fused_mha.py::fused_attn_block``.
+**The half-block.** Counterpart of ``tapclip_tpu/ops/fused_mha.py::fused_attn_block``.
 ``x + out_proj(mha(qkv_proj(layer_norm(x))))`` over ``x [B, T, W]`` with keys
 at or past ``valid_len`` masked.  :func:`fused_attn_block` is one
 ``torch.autograd.Function`` on every device.  On a CUDA tensor its forward
@@ -18,6 +19,17 @@ compute dtype, as the JAX kernels do; the plain forward rounds the whole qkv
 product to the compute dtype, as the JAX package's plain path does
 (``layers.py:130``), while the plain backward rounds where the JAX backward
 kernel rounds.  In f32 they agree to summation order.
+
+**The attention core.** Counterpart of ``tapclip_tpu/ops/fused_mha.py::fused_mha``:
+attention over the packed ``qkv [B, T, 3W]`` (bias added) into ``[B, T, W]``,
+keys at or past ``valid_len`` masked, optionally causal.  :func:`fused_mha` is
+one ``torch.autograd.Function``: on a CUDA tensor its forward is B6
+(``csrc/mha.cu``, which replaces ``_mha_kernel``) and its backward B7
+(``csrc/mha_bwd.cu``, which replaces ``_mha_bwd_kernel``); on a CPU tensor
+:func:`fused_mha_reference` (the counterpart of ``_xla_reference``) and
+:func:`fused_mha_bwd_reference` (the TPU backward's formula).  The forward
+saves qkv only; the backward recomputes the probabilities.  Any T runs
+forward; the backward holds a ``[T, T]`` tile and refuses a T past its limit.
 """
 
 from __future__ import annotations
@@ -249,3 +261,136 @@ def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid,
     ln_sums = col_sum(part)
     return (dx, ln_sums[:W], ln_sums[W:], gemm_f32(y, dqkv, trans_a=True), col_sum(dqkv),
             gemm_f32(attn, g2, trans_a=True), col_sum(g2))
+
+
+# --- the packed-QKV attention core: B6 forward, B7 backward -------------------
+
+
+def _split_heads(t, n_heads):  # [B, T, W] -> [B, H, T, Dh]
+    B, T, W = t.shape
+    return t.reshape(B, T, n_heads, W // n_heads).transpose(1, 2)
+
+
+def _merge_heads(t):  # [B, H, T, Dh] -> [B, T, W]
+    B, H, T, Dh = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * Dh)
+
+
+def fused_mha_reference(qkv, n_heads, valid, causal):
+    """Plain version of B6: ``_xla_reference``, the plain attention over the
+    three column blocks of ``qkv``."""
+    from tapclip_tpu_torch.ops.attention import attention_reference
+
+    T, W = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (_split_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    out, _ = attention_reference(q, k, v, causal=causal, kv_valid_len=None if valid == T else valid)
+    return _merge_heads(out)
+
+
+def _mha_mask(T, valid, causal, device):
+    """``[T, T]`` bool: key j is visible to query i."""
+    keys = torch.arange(T, device=device)
+    mask = (keys < valid)[None, :].expand(T, T)
+    if causal:
+        mask = mask & (keys[None, :] <= keys[:, None])
+    return mask
+
+
+def fused_mha_bwd_reference(qkv, g, n_heads, valid, causal):
+    """Plain backward of B6, written out as ``_mha_bwd_kernel`` computes it
+    (the same roundings in bfloat16): packed ``dqkv [B, T, 3W]`` in qkv's dtype."""
+    dt = qkv.dtype
+    T, W = qkv.shape[1], qkv.shape[2] // 3
+    scale = (W // n_heads) ** -0.5
+    q, k, v = (_split_heads(t.float(), n_heads) for t in qkv.split(W, dim=-1))
+    gh = _split_heads(g.float(), n_heads)
+    s = q @ k.transpose(-1, -2) * (scale * _LOG2E)
+    s = torch.where(_mha_mask(T, valid, causal, qkv.device), s, torch.full_like(s, -1e30))
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dv = _rnd(p, g.dtype).transpose(-1, -2) @ gh
+    dp = gh @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq, dk = ds @ k, ds.transpose(-1, -2) @ q
+    return torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+
+
+class _FusedMHA(torch.autograd.Function):
+    """B6 forward and B7 backward (plain versions on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads, valid, causal):
+        ctx.save_for_backward(qkv)
+        ctx.cfg = (n_heads, valid, causal)
+        if qkv.device.type == "cpu":
+            return fused_mha_reference(qkv, n_heads, valid, causal)
+        return _fused_mha_cuda(qkv, n_heads, valid, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        g = g.to(qkv.dtype).contiguous()
+        if qkv.device.type == "cpu":
+            dqkv = fused_mha_bwd_reference(qkv, g, *ctx.cfg)
+        else:
+            dqkv = _fused_mha_bwd_cuda(qkv, g, *ctx.cfg)
+        return dqkv, None, None, None
+
+
+def fused_mha(
+    qkv: torch.Tensor,
+    n_heads: int,
+    *,
+    valid_len: Optional[int] = None,
+    causal: bool = False,
+) -> torch.Tensor:
+    """Packed-QKV multi-head self attention ``[B, T, 3W] -> [B, T, W]``:
+    B6/B7 on CUDA, plain on CPU."""
+    valid = valid_len if valid_len is not None else qkv.shape[1]
+    return _FusedMHA.apply(qkv, n_heads, int(valid), bool(causal))
+
+
+fused_mha.launches = 0
+fused_mha.bwd_launches = 0
+
+
+def _mha_operands(qkv, n_heads, valid, *more):
+    B, T, W3 = qkv.shape
+    W = W3 // 3
+    Dh = _check_heads(T, W, n_heads, valid)
+    _build.check_cuda_operand("qkv", qkv, qkv.dtype, (B, T, 3 * W))
+    for name, t in more:
+        _build.check_cuda_operand(name, t, qkv.dtype, (B, T, W))
+    return B, T, W, Dh
+
+
+def _fused_mha_cuda(qkv, n_heads, valid, causal):
+    B, T, W, _ = _mha_operands(qkv, n_heads, valid)
+    out = torch.empty((B, T, W), dtype=qkv.dtype, device=qkv.device)
+    err = _build.library().tapclip_mha(
+        qkv.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
+        _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device),
+    )
+    _build.check(err, "tapclip_mha")
+    fused_mha.launches += 1
+    return out
+
+
+def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal):
+    """B7 on the card: packed ``dqkv`` in qkv's dtype."""
+    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g))
+    lib = _build.library()
+    max_t = lib.tapclip_attn_bwd_max_seq(Dh)
+    if T > max_t:
+        raise ValueError(
+            f"attention core backward kernel holds a [T, T] f32 tile in shared memory: "
+            f"T={T} exceeds its limit of {max_t} at head dim {Dh}"
+        )
+    dqkv = torch.empty_like(qkv)
+    err = lib.tapclip_mha_bwd(
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
+        _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device),
+    )
+    _build.check(err, "tapclip_mha_bwd")
+    fused_mha.bwd_launches += 1
+    return dqkv

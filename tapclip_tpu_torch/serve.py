@@ -25,7 +25,8 @@ Endpoints (JSON):
                   -> {"class": str, "index": int, "probs": {name: p}}
   POST /explain   same payload -> prediction + per-class attribution rows
   POST /embed     same payload -> {"embedding": [E floats]}
-Not yet ported (HTTP 501): /embed_text, /reload, "saliency" in /explain.
+  POST /embed_text {"texts": [str, ...]} -> {"embeddings": [[E floats], ...]}
+Not yet ported (HTTP 501): /reload, "saliency" in /explain.
 
 Run: ``python -m tapclip_tpu_torch.serve --model ViT-B-16 --synthetic``
 """
@@ -99,7 +100,24 @@ class PredictService:
         return slot["result"]
 
     def embed_text(self, texts: List[str]) -> Dict[str, Any]:
-        raise NotPortedError("/embed_text (the causal text tower)")
+        """L2-normalized CLIP text embeddings (the proper text encoder) for a
+        list of strings, the text half of a retrieval index.  The batch is
+        padded with id-0 rows to the next power of two, as the JAX server
+        pads to bound its executables."""
+        from tapclip_tpu_torch.featurize import make_text_embed_fn
+
+        if not texts:
+            return {"embeddings": []}
+        m = self.model
+        ids = np.asarray(m.tokenizer.tokenize(list(texts), m.clip_cfg.context_length))
+        n = len(texts)
+        n_pad = 1 << (n - 1).bit_length()  # next power of two
+        if n_pad != n:
+            ids = np.concatenate([ids, np.zeros((n_pad - n, ids.shape[1]), ids.dtype)])
+        with self._lock:  # the offline featurizer's function: the same embeddings
+            feats = make_text_embed_fn(m.clip_cfg)(m.clip_params, ids)
+            feats = feats[:n].float().cpu().numpy()
+        return {"embeddings": [[round(float(v), 6) for v in row] for row in feats]}
 
     def reload_weights(self, source) -> Dict[str, Any]:
         raise NotPortedError("/reload")

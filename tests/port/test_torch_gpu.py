@@ -14,7 +14,8 @@ backward kernels (B4, B5) are held on each of their seven outputs by the
 norm-relative error ||got - want|| / ||want||: f32 1e-5 (only the order of
 the f32 sums differs, over up to 1,600 rows and 3,072 hidden columns), bf16
 2e-2 (both sides round the same intermediates, but a value on the other side
-of a rounding step moves by one bf16 ulp, 2^-8 relative).
+of a rounding step moves by one bf16 ulp, 2^-8 relative).  B7 is held the
+same way on its packed dqkv.
 """
 
 import numpy as np
@@ -25,9 +26,13 @@ from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.flash_attention import fused_attention
 from tapclip_tpu_torch.ops.fused_mha import (
     _attn_block_bwd_cuda,
+    _fused_mha_bwd_cuda,
     attn_block_bwd_reference,
     attn_block_reference,
     fused_attn_block,
+    fused_mha,
+    fused_mha_bwd_reference,
+    fused_mha_reference,
 )
 from tapclip_tpu_torch.ops.fused_mlp import (
     _fused_mlp_bwd_cuda,
@@ -259,3 +264,114 @@ def test_tiny_model_kernel_path_matches_plain(cuda):
         got, want = model(px), plain(px)
     _close(got["logits"], want["logits"], 1e-4)
     _close(got["attribution"], want["attribution"], 1e-4)
+
+
+# --- B6 / B7: the packed-QKV attention core and its backward; K3 causal ----------
+
+MHA_SHAPES = [(8, 77, 512, 8, 77, True), (8, 80, 512, 8, 77, True), (2, 200, 768, 12, 197, False),
+              (2, 200, 768, 12, 197, True), (3, 77, 128, 2, 77, False), (1, 70, 256, 2, 50, True),
+              (2, 65, 64, 4, 65, True), (1, 40, 256, 8, 33, False)]
+MHA_IDS = ["text77-causal", "text80-valid77-causal", "image200", "image200-causal", "dh64-77",
+           "dh128-causal", "dh16-causal", "dh32"]
+
+
+def _mha_case(cuda, dtype, B, T, W, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return _randn(gen, B, T, 3 * W, scale=0.5).to(dtype), _randn(gen, B, T, W).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid,causal", MHA_SHAPES, ids=MHA_IDS)
+def test_fused_mha_kernel(cuda, dtype, tol, B, T, W, heads, valid, causal):
+    qkv, _ = _mha_case(cuda, dtype, B, T, W, T + W)
+    with torch.inference_mode():
+        n = fused_mha.launches
+        got = fused_mha(qkv, heads, valid_len=valid, causal=causal)
+        assert fused_mha.launches == n + 1
+        want = fused_mha_reference(qkv, heads, valid, causal)
+    assert got.dtype == dtype and got.shape == (B, T, W)
+    _close(got, want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid,causal", MHA_SHAPES, ids=MHA_IDS)
+def test_fused_mha_bwd_kernel(cuda, dtype, tol, B, T, W, heads, valid, causal):
+    qkv, g = _mha_case(cuda, dtype, B, T, W, T + W + 1)
+    n = fused_mha.bwd_launches
+    got = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    again = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    assert fused_mha.bwd_launches == n + 2 and got.dtype == dtype and got.shape == qkv.shape
+    _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, heads, valid, causal), tol)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)  # deterministic: no atomics
+
+
+@pytest.mark.gpu
+def test_fused_mha_function_differentiates_on_the_card(cuda):
+    """Autograd through B6 / B7 equals autograd through the plain forward."""
+    qkv, g = _mha_case(cuda, torch.float32, 4, 77, 512, 3)
+    qkv.requires_grad_()
+    n = (fused_mha.launches, fused_mha.bwd_launches)
+    (got,) = torch.autograd.grad(fused_mha(qkv, 8, causal=True), [qkv], g)
+    assert (fused_mha.launches, fused_mha.bwd_launches) == (n[0] + 1, n[1] + 1)
+    (want,) = torch.autograd.grad(fused_mha_reference(qkv, 8, 77, True), [qkv], g)
+    _close_rel("dqkv", got, want, 1e-5)
+
+
+@pytest.mark.gpu
+def test_fused_mha_bwd_refuses_long_sequences(cuda):
+    qkv, g = _mha_case(cuda, torch.float32, 1, 240, 128, 4)
+    with pytest.raises(ValueError, match="exceeds its limit"):
+        _fused_mha_bwd_cuda(qkv, g, 2, 240, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize(
+    "B,H,T,Dh,valid,eot",
+    [(8, 8, 77, 64, [77] * 8, [11, 12, 13, 14, 15, 16, 17, 76]), (2, 3, 130, 32, [130, 100], [129, 50]),
+     (1, 2, 5, 16, [5], [2])],
+    ids=["idiomatic", "two-tiles", "tiny"],
+)
+def test_attention_aux_kernel_causal(cuda, dtype, tol, B, H, T, Dh, valid, eot):
+    gen = torch.Generator(device=cuda).manual_seed(T * Dh + 1)
+    q, k, v = (_randn(gen, B, H, T, Dh).to(dtype) for _ in range(3))
+    valid_t, eot_t = torch.tensor(valid, device=cuda), torch.tensor(eot, device=cuda)
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, causal=True, kv_valid_len=valid_t, attn_to_idx=eot_t)
+        want = attention_reference(q, k, v, causal=True, kv_valid_len=valid_t, attn_to_idx=eot_t)
+    for g, w in zip(got, want):
+        _close(g, w, tol)
+    for b, e in enumerate(eot):  # queries before their attribution key: exactly 0
+        assert not got[1][b, :e].any()
+
+
+@pytest.mark.gpu
+def test_tiny_model_idiomatic_train_step_kernel_path_matches_plain(cuda):
+    """Idiomatic prompt tuning on the card (cached features): the causal
+    tower on B6 / K3 / K1 and its backward on B7 / B5 vs the plain path."""
+    from tapclip_tpu_torch.config import TINY_TEST, PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.serve import build_model
+
+    pcfg = PromptConfig(text_mode="idiomatic")
+    model = build_model(TINY_TEST, ["Backpack", "Pen", "Mug"], "cuda", seed=0)
+    rng = np.random.default_rng(1)
+    batches = [(rng.standard_normal((4, TINY_TEST.embed_dim)).astype(np.float32), rng.integers(0, 3, 4))
+               for _ in range(3)]
+    mask = np.ones(4, bool)
+    results = []
+    for cfg in (TINY_TEST, TINY_TEST.replace(attn_impl="xla")):
+        m = FullModel(model.class_names, model.clip_params, cfg, prompt_cfg=pcfg)
+        state = init_train_state(m.trainable, make_optimizer(TrainConfig()))
+        step = make_train_step(cfg, pcfg)
+        n = fused_mha.bwd_launches
+        losses = [float(step(m.clip_params, state, m.prompt_learner.bank, x, y, mask)[1]["loss"])
+                  for x, y in batches]
+        results.append((losses, state.params["ctx"].detach(), fused_mha.bwd_launches - n))
+    (kl, kctx, kb7), (pl, pctx, pb7) = results
+    assert (kb7, pb7) == (3 * TINY_TEST.text_layers, 0)
+    np.testing.assert_allclose(kl, pl, rtol=1e-4, atol=1e-5)
+    _close(kctx, pctx, 1e-4)

@@ -136,14 +136,13 @@ def test_unported_configs_raise(geo):
     jc, jp, tc, tp = geo
     x = torch.from_numpy(_images(jc, n=1))
     for kw in (dict(token_keep_ratio=0.5), dict(quantize_tower=True), dict(vpt_tokens=2),
-               dict(attn_impl="fused"), dict(attn_impl="fused_split")):
+               dict(moe_experts=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tclip.encode_image(tp, tc.replace(**kw), x)
-    with pytest.raises(NotImplementedError, match="attn_impl='fused_split'"):
-        tclip.text_forward_embeds(tp, tc.replace(attn_impl="fused_split"),
-                                  torch.zeros(1, 8, jc.text_width))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tclip.text_forward_embeds(tp, tc, torch.zeros(1, 8, jc.text_width), mode="idiomatic")
+    with pytest.raises(NotImplementedError, match="visual prompt tokens"):
+        tclip.text_forward_embeds(tp, tc.replace(vpt_tokens=2), torch.zeros(1, 8, jc.text_width))
+    with pytest.raises(NotImplementedError, match="int8 tower"):
+        tclip.encode_text(tp, tc.replace(quantize_tower=True), np.zeros((1, jc.context_length), np.int32))
 
 
 # --- prompt layer ------------------------------------------------------------

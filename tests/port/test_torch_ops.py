@@ -190,6 +190,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         "mlp_bwd.cu": "tapclip_tpu/ops/fused_mlp.py::_mlp_bwd_kernel",
         "attn_block_bwd.cu": "tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel",
         "gemm.cu": "tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel",
+        "mha.cu": "tapclip_tpu/ops/fused_mha.py::_mha_kernel",
+        "mha_bwd.cu": "tapclip_tpu/ops/fused_mha.py::_mha_bwd_kernel",
     }
     for fname, tpu in replaced.items():
         head = (_build.CSRC / fname).read_text()[:4000]

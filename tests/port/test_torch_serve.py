@@ -1,8 +1,9 @@
 """The port's PredictService and HTTP server against the JAX package's.
 
 A port ``PredictService`` on ``device="cpu"`` with the tiny config, fed the
-bridged JAX weights and prompt state, serves the same probabilities and
-attribution rows as the JAX ``PredictService`` on the same images (1e-4).
+bridged JAX weights and prompt state, serves the same probabilities,
+attribution rows and text embeddings as the JAX ``PredictService`` on the
+same inputs (1e-4).
 Routes the port does not have yet answer HTTP 501.
 """
 
@@ -122,6 +123,29 @@ def test_explain_attribution_matches_jax(services):
         tsvc.explain(px, saliency=True)
 
 
+@pytest.mark.parametrize("texts", [["a photo of a Backpack.", "Mug", "a drawing of a Pen"], []],
+                         ids=["3-texts-padded-to-4", "no-texts"])
+def test_embed_text_matches_jax(pair, tiny_cfg, tiny_params, texts):
+    """``embed_text`` (ids padded with id-0 rows to a power of two) against
+    JAX's ``make_text_embed_fn`` on the same padded ids."""
+    from tapclip_tpu.featurize import make_text_embed_fn
+
+    _, tm = pair
+    svc = PredictService(tm, batch_size=4, max_latency_ms=5.0)
+    try:
+        got = svc.embed_text(texts)["embeddings"]
+    finally:
+        svc.close()
+    if not texts:
+        assert got == []
+        return
+    ids = tm.tokenizer.tokenize(texts, tiny_cfg.context_length)
+    ids = np.concatenate([ids, np.zeros((1, ids.shape[1]), ids.dtype)])
+    want = np.asarray(make_text_embed_fn(tiny_cfg)(tiny_params, jax.numpy.asarray(ids)))[:3]
+    assert np.asarray(got).shape == (3, tiny_cfg.embed_dim)
+    np.testing.assert_allclose(np.asarray(got), want, atol=TOL)
+
+
 def _request(url, obj=None):
     data = None if obj is None else json.dumps(obj).encode()
     req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
@@ -160,8 +184,11 @@ def test_http_round_trip_add_class_and_501(tiny_cfg, tiny_params):
         assert code == 200 and len(json.loads(body)["attribution"]["Clipboards"]) == 5
         code, body = _request(base + "/embed", {"pixels": px})
         assert code == 200 and len(json.loads(body)["embedding"]) == tc.embed_dim
-        for route, payload in (("/embed_text", {"texts": ["a dog"]}),
-                               ("/reload", {"path": "x"}),
+        code, body = _request(base + "/embed_text", {"texts": ["a dog", "a cat"]})
+        emb = np.asarray(json.loads(body)["embeddings"])
+        assert code == 200 and emb.shape == (2, tc.embed_dim)
+        np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
+        for route, payload in (("/reload", {"path": "x"}),
                                ("/explain", {"pixels": px, "saliency": True})):
             code, body = _request(base + route, payload)
             assert code == 501, route
