@@ -22,7 +22,8 @@ Run from the repository root:  python3 chip_smoke.py
    causal), the idiomatic step's shape (8 x 77, causal) and the fused_split
    image shape (8 x 200, valid 197, W 768, 12 heads), and causal K3 at the
    idiomatic aux layer (8 classes x 8 heads, T 77, per-class EOT), f32 and
-   bf16.  Every kernel's time is printed beside its plain version's, one
+   bf16; B7 beside the flash chain on the same packed strides (what runs
+   past B7's tile), held and timed.  Every kernel's time is printed beside its plain version's, one
    library call's (SDPA for the attention kernels, where one computes the
    same function) and its bound (bytes over 3.35 TB/s or operations over
    the dtype's peak, whichever is larger).
@@ -58,6 +59,23 @@ Run from the repository root:  python3 chip_smoke.py
     steps at batch 32 on the kernels and on the plain path: per step 23 B6,
     1 causal K3, 12 B7, 12 B5 and no B4 launches; loss, grad norm and ctx
     held as in 8.
+12. The flash backward chain (``csrc/flash_bwd.cu``: LSE, dK/dV, dQ) kernel
+    by kernel against its plain versions, f32 and bf16, at the pallas
+    training step's shapes (8 classes x 8 heads, T 88 valid 82; T 77
+    causal), the ViT-L/14-336 vision shape (4 x 16 heads, T 584, valid 577)
+    and a long case (1 x 16 heads, T 4096, valid 4000, causal and not, where
+    the JAX package runs its blockwise kernels), the whole chain against the
+    single-block formula, with CUDA-event times beside the plain versions,
+    SDPA's backward and the bound; K3 at T 4096 (the blockwise forward's
+    counterpart) against its plain version, by the norm-relative error of
+    its output and aux column (K3_LONG_TOL).
+13. The B7 and B4 backwards past their [T, T] tile (T 584, W 1024, 16
+    heads): the flash chain on the packed strides, and the split
+    composition, against their plain backward.
+14. Prompt tuning with ``attn_impl="pallas"`` in both text modes, f32 and
+    bf16, 3 cached-feature steps at batch 32, against ``"xla"`` on the card:
+    per step 24 K3 launches (causal in idiomatic mode), 12 each of LSE,
+    dK/dV and dQ, and none of K1, K2, B4, B5, B6, B7.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -103,6 +121,14 @@ BF16_ATTR_TOL = 1e-4
 # on an H100 80GB HBM3 at 700 W of at most 1.2e-6 (f32) and 3.5e-4 (bf16).
 BWD_F32_TOL = 1e-5
 BWD_BF16_TOL = 5e-3
+# K3 at T 4096 (B9's role), norm-relative error of the output and of the
+# aux column: a softmax over about 4000 keys makes both small (a typical
+# |out| of 0.03, an aux of 2.5e-4), so an absolute limit would hide a
+# skipped 64-key tile, which moves the output by about 0.1 and the aux by
+# about 1e-2 of their norms.  Set from a reading on an H100 80GB HBM3 at
+# 700 W of at most 1.6e-6 (out, f32), 3.1e-3 (out, bf16: both sides round
+# to bf16) and 1.0e-7 (aux, f32 math on both sides in either dtype).
+K3_LONG_TOL = {"float32": {"out": 1e-5, "aux": 1e-6}, "bfloat16": {"out": 1e-2, "aux": 1e-6}}
 # Training, kernel path vs plain path on the same weights and batches:
 # relative error of each step's loss and grad norm, and the norm-relative
 # error of the context vectors' displacement from their start,
@@ -186,12 +212,30 @@ KERNELS = {
         "source": "tapclip_tpu_torch/csrc/attn_aux.cu",
         "replaces": "tapclip_tpu/ops/flash_attention.py:65",
     },
+    "flash_lse": {
+        "source": "tapclip_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "tapclip_tpu/ops/flash_attention.py:463",
+    },
+    "flash_bwd_dkv": {
+        "source": "tapclip_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "tapclip_tpu/ops/flash_attention.py:523, tapclip_tpu/ops/flash_attention.py:355",
+    },
+    "flash_bwd_dq": {
+        "source": "tapclip_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "tapclip_tpu/ops/flash_attention.py:591, tapclip_tpu/ops/flash_attention.py:355",
+    },
+    "fused_attention_aux_long": {  # K3 where the JAX package runs its blockwise forward
+        "source": "tapclip_tpu_torch/csrc/attn_aux.cu",
+        "replaces": "tapclip_tpu/ops/flash_attention.py:129",
+    },
 }
-# The ref_compat serving and training paths' kernels, and the causal text
-# tower's.
+# The ref_compat serving and training paths' kernels, the causal text
+# tower's, and those of prompt tuning with attn_impl="pallas".
 FORWARD = ("fused_mlp", "fused_attn_block", "fused_attention_aux")
 BACKWARD = ("fused_attn_block_bwd", "fused_mlp_bwd")
 TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
+FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
+PALLAS_STEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -218,6 +262,11 @@ def _counters():
         "fused_mha": (fused_mha, "launches"),
         "fused_mha_bwd": (fused_mha, "bwd_launches"),
         "fused_attention_aux_causal": (fused_attention, "causal_launches"),
+        "flash_lse": (fused_attention, "lse_launches"),
+        "flash_bwd_dkv": (fused_attention, "dkv_launches"),
+        "flash_bwd_dq": (fused_attention, "dq_launches"),
+        # fused_attention_aux_long has none: it is K3 past T 2048, which no
+        # main path reaches (0 launches there); K3's own launches are above.
     }
 
 
@@ -321,7 +370,7 @@ def check_kernels() -> dict:
     import torch
 
     from tapclip_tpu_torch.ops.attention import attention_reference
-    from tapclip_tpu_torch.ops.flash_attention import fused_attention
+    from tapclip_tpu_torch.ops.flash_attention import _fused_attention_cuda, fused_attention
     from tapclip_tpu_torch.ops.fused_mha import attn_block_reference, fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_reference
 
@@ -405,6 +454,11 @@ def check_kernels() -> dict:
                    tol, timed, work=work,
                    library=lambda: torch.nn.functional.scaled_dot_product_attention(
                        q, k, v, attn_mask=mask))
+            if timed:  # the launcher alone, without the autograd Function around it
+                with torch.inference_mode():
+                    ms = time_ms(lambda: _fused_attention_cuda(q, k, v, False, valid, eot))
+                results["fused_attention_aux"]["cases"][-1]["launcher_ms"] = ms
+                print(f"kernel fused_attention_aux [{label} {dtype}]: launcher alone {ms:.4g} ms", flush=True)
     return results
 
 
@@ -779,6 +833,8 @@ def check_text_kernels() -> dict:
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
     from tapclip_tpu_torch.ops.fused_mha import (
         _fused_mha_bwd_cuda,
+        _fused_mha_cuda,
+        _mha_flash_bwd_cuda,
         fused_mha,
         fused_mha_bwd_reference,
         fused_mha_reference,
@@ -823,9 +879,14 @@ def check_text_kernels() -> dict:
             with torch.no_grad():
                 got = _fused_mha_bwd_cuda(qkv, g, nh, valid, causal)
                 want = fused_mha_bwd_reference(qkv, g, nh, valid, causal)
+                # The flash chain on the same packed strides (what runs past B7's tile).
+                y = _fused_mha_cuda(qkv, nh, valid, causal)
+                chain = _mha_flash_bwd_cuda(qkv, g, y, nh, valid, causal)
                 torch.cuda.synchronize()
                 rel, ab = _rel_errors([got], [want])
+                chain_rel = _rel_errors([chain], [want])[0]
                 ms = time_ms(lambda: _fused_mha_bwd_cuda(qkv, g, nh, valid, causal))
+                chain_ms = time_ms(lambda: _mha_flash_bwd_cuda(qkv, g, y, nh, valid, causal))
                 plain_ms = time_ms(lambda: fused_mha_bwd_reference(qkv, g, nh, valid, causal))
             leaves = [t.detach().clone().requires_grad_() for t in heads]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
@@ -833,9 +894,12 @@ def check_text_kernels() -> dict:
             library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g_heads, retain_graph=True))
             report("fused_mha_bwd", {"shape": label, "dtype": dname, "max_rel_err": rel,
                                      "max_abs_err": ab, "ms": ms, "plain_ms": plain_ms,
-                                     "library_ms": library_ms,
+                                     "library_ms": library_ms, "chain_ms": chain_ms,
+                                     "chain_rel_err": chain_rel,
                                      **bound(nbytes(qkv, g, got), 10 * nh * Dh * pairs, dname)})
             require(rel <= bwd_tol, f"fused_mha_bwd {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
+            require(chain_rel <= bwd_tol,
+                    f"flash chain on packed qkv {label} {dname}: norm-relative error {chain_rel:.3e} > {bwd_tol}")
 
         # causal K3 at the idiomatic aux layer: 8 classes x 8 heads, T 77, the
         # EOT column of each class after its 5 context tokens.
@@ -1063,6 +1127,281 @@ def fused_split_phase(model, images: np.ndarray) -> dict:
     return {"launches": launches, "err": err, "timing_ms": timing}
 
 
+def _sdpa_bwd(q, k, v, g, mask):
+    """SDPA's backward through autograd, on the same inputs: a closure to time."""
+    import torch
+    import torch.nn.functional as F
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def check_flash_kernels() -> dict:
+    """The flash backward chain kernel by kernel (LSE, dK/dV, dQ) against its
+    plain versions on the same inputs (the plain LSE and delta into both
+    gradient kernels), the whole chain against the single-block formula, and
+    K3 at T 4096, f32 and bf16, with CUDA-event times, SDPA's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from tapclip_tpu_torch.ops.attention import attention_reference
+    from tapclip_tpu_torch.ops.flash_attention import (
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dq_cuda,
+        _flash_lse_cuda,
+        attention_bwd_dkv_reference,
+        attention_bwd_dq_reference,
+        attention_bwd_reference,
+        attention_delta,
+        attention_lse_reference,
+        flash_attention_bwd_cuda,
+        fused_attention,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    results = {name: {"cases": []} for name in FLASH}
+    # The pallas training step's shape first: the kernels line reports it.
+    shapes = (("text 8x8x88 valid82", (8, 8, 88, 82, False)),
+              ("idiomatic 8x8x77 causal", (8, 8, 77, 77, True)),
+              ("vit-l-336 4x16x584 valid577", (4, 16, 584, 577, False)),
+              ("long 1x16x4096 valid4000", (1, 16, 4096, 4000, False)),
+              ("long 1x16x4096 valid4000 causal", (1, 16, 4096, 4000, True)))
+
+    def report(name, case):
+        results[name]["cases"].append(case)
+        print(f"flash kernel {name} [{case['shape']} {case['dtype']}]: "
+              + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                          for k, v in case.items() if k not in ("shape", "dtype")), flush=True)
+
+    for dtype, bwd_tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, H, T, valid, causal) in shapes:
+            iters = 5 if T > 2048 else 20
+            q, k, v, g = (torch.randn((B, H, T, 64), generator=gen, device="cuda").to(dtype) for _ in range(4))
+            valid_t = torch.full((B,), valid, dtype=torch.int32, device="cuda")
+            mask = key_mask(B, T, valid, causal)
+            pairs = H * attn_pairs(B, T, valid, causal)
+            rows = 4 * B * H * T  # one f32 [B, H, T] row vector
+            with torch.no_grad():
+                out, _ = fused_attention(q, k, v, causal=causal, kv_valid_len=valid_t)
+                lse = attention_lse_reference(q, k, valid_t, causal)
+                delta = attention_delta(out, g)
+                dk, dv, dq = (torch.empty_like(q) for _ in range(3))
+                kern = {
+                    "flash_lse": lambda: _flash_lse_cuda(q, k, valid_t, causal),
+                    "flash_bwd_dkv": lambda: _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid_t, causal, dk, dv),
+                    "flash_bwd_dq": lambda: _flash_bwd_dq_cuda(q, k, v, g, lse, delta, valid_t, causal, dq),
+                }
+                plain = {
+                    "flash_lse": lambda: attention_lse_reference(q, k, valid_t, causal),
+                    "flash_bwd_dkv": lambda: attention_bwd_dkv_reference(q, k, v, g, lse, delta, valid_t, causal),
+                    "flash_bwd_dq": lambda: attention_bwd_dq_reference(q, k, v, g, lse, delta, valid_t, causal),
+                }
+                # (bytes in and out, operations): 2 FLOP per multiply-add over the visible pairs.
+                work = {"flash_lse": (nbytes(q, k) + rows, 2 * 64 * pairs),
+                        "flash_bwd_dkv": (nbytes(q, k, v, g) + 2 * rows + 2 * nbytes(q), 8 * 64 * pairs),
+                        "flash_bwd_dq": (nbytes(q, k, v, g) + 2 * rows + nbytes(q), 6 * 64 * pairs)}
+                library_ms = time_ms(_sdpa_bwd(q, k, v, g, mask), iters, 1)
+                chain_ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, g, valid_t, causal), iters, 1)
+                for name in ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq"):
+                    got, want = kern[name](), plain[name]()
+                    torch.cuda.synchronize()
+                    if name == "flash_lse":  # f32 math on the same inputs in both dtypes
+                        err = compare(f"{name} {label} {dname}", got, want, F32_TOL)
+                        err["max_rel_err"] = _rel_errors([got], [want])[0]
+                    else:
+                        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+                        rel, ab = _rel_errors(got, want)
+                        require(rel <= bwd_tol, f"{name} {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
+                        err = {"max_abs_err": ab, "max_rel_err": rel}
+                    report(name, {"shape": label, "dtype": dname, **err,
+                                  "ms": time_ms(kern[name], iters, 1), "plain_ms": time_ms(plain[name], iters, 1),
+                                  "library_ms": None if name == "flash_lse" else library_ms,
+                                  "chain_ms": chain_ms, **bound(*work[name], dname)})
+                # The whole chain (delta, LSE, dK/dV, dQ) against the single-block formula.
+                chain = flash_attention_bwd_cuda(q, k, v, out, g, valid_t, causal)
+                rel, ab = _rel_errors(chain, attention_bwd_reference(q, k, v, g, valid_t, causal))
+                print(f"flash chain [{label} {dname}]: vs the single-block formula norm-rel err {rel:.3e}, "
+                      f"max abs {ab:.3e}; chain {chain_ms:.4g} ms vs SDPA backward {library_ms:.4g} ms",
+                      flush=True)
+                require(rel <= bwd_tol, f"flash chain {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
+
+            if T > 2048:  # K3 where the JAX package runs its blockwise forward
+                eot = torch.full((B,), valid - 1, device="cuda")
+                with torch.inference_mode():
+                    got = fused_attention(q, k, v, causal=causal, kv_valid_len=valid_t, attn_to_idx=eot)
+                    want = attention_reference(q, k, v, causal=causal, kv_valid_len=valid_t, attn_to_idx=eot)
+                    torch.cuda.synchronize()
+                    err = {}
+                    for part, a, b in (("out", got[0], want[0]), ("aux", got[1], want[1])):
+                        rel, ab = _rel_errors([a], [b])
+                        limit = K3_LONG_TOL[dname][part]
+                        require(rel <= limit, f"K3 {label} {dname} {part}: norm-relative error {rel:.3e} > {limit}")
+                        err[f"{part}_rel_err"], err[f"{part}_abs_err"] = rel, ab
+                    report("fused_attention_aux_long", {
+                        "shape": label, "dtype": dname, **err,
+                        "max_abs_err": max(err["out_abs_err"], err["aux_abs_err"]),
+                        "max_rel_err": max(err["out_rel_err"], err["aux_rel_err"]),
+                        "ms": time_ms(lambda: fused_attention(q, k, v, causal=causal, kv_valid_len=valid_t,
+                                                              attn_to_idx=eot), iters, 1),
+                        "plain_ms": time_ms(lambda: attention_reference(q, k, v, causal=causal, kv_valid_len=valid_t,
+                                                                         attn_to_idx=eot), iters, 1),
+                        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                              iters, 1),
+                        **bound(4 * nbytes(q) + 4 * B * T, 4 * 64 * pairs, dname)})
+            del q, k, v, g, out, lse, delta, dk, dv, dq
+            torch.cuda.empty_cache()
+    return results
+
+
+def check_long_repairs() -> dict:
+    """B7 and B4 past their [T, T] tile, at the ViT-L/14-336 vision shape
+    (4 x 584, valid 577, W 1024, 16 heads), f32 and bf16: the autograd
+    Functions' backward (the flash chain on the packed strides; the split
+    composition) against the plain backward, with launch counts and times."""
+    import torch
+
+    from tapclip_tpu_torch.ops.flash_attention import fused_attention
+    from tapclip_tpu_torch.ops.fused_mha import (
+        attn_block_bwd_reference,
+        fused_attn_block,
+        fused_mha,
+        fused_mha_bwd_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, T, W, nh, valid = 4, 584, 1024, 16, 577
+    label = f"vit-l-336 {B}x{T}x{W} h{nh} valid{valid}"
+    out = {}
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        dname = str(dtype).replace("torch.", "")
+        qkv = (0.5 * rn(B, T, 3 * W)).to(dtype).requires_grad_()
+        g = rn(B, T, W).to(dtype)
+        reset_counts()
+        y = fused_mha(qkv, nh, valid_len=valid)
+        (got,) = torch.autograd.grad(y, [qkv], g, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _expect(f"B7 past its tile {dname}", launches, {"fused_mha": 1, "fused_mha_bwd": 0, "flash_lse": 1,
+                                                        "flash_bwd_dkv": 1, "flash_bwd_dq": 1})
+        with torch.no_grad():
+            want = fused_mha_bwd_reference(qkv, g, nh, valid, False)
+            rel, ab = _rel_errors([got], [want])
+            case = {"shape": label, "dtype": dname, "max_rel_err": rel, "max_abs_err": ab,
+                    "ms": time_ms(lambda: torch.autograd.grad(y, [qkv], g, retain_graph=True), 10, 2),
+                    "plain_ms": time_ms(lambda: fused_mha_bwd_reference(qkv, g, nh, valid, False), 10, 2)}
+        out[f"fused_mha_bwd {dname}"] = case
+        print(f"B7 past its tile [{label} {dname}]: flash chain on the packed strides vs plain B7 "
+              + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)), flush=True)
+        require(rel <= tol, f"B7 past its tile {dname}: norm-relative error {rel:.3e} > {tol}")
+
+        x, gx = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
+        p = [1.0 + rn(W, s=0.1), rn(W, s=0.1), rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1),
+             rn(W, W, s=W ** -0.5), rn(W, s=0.1)]
+        leaves = [t.clone().requires_grad_() for t in [x, *p]]
+        reset_counts()
+        y = fused_attn_block(leaves[0], {"scale": leaves[1], "bias": leaves[2]},
+                             dict(zip(("w_qkv", "b_qkv", "w_out", "b_out"), leaves[3:])), nh, valid_len=valid)
+        got = torch.autograd.grad(y, leaves, gx, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _expect(f"B4 past its tile {dname}", launches, {"fused_attn_block": 1, "fused_attn_block_bwd": 0,
+                                                        "fused_mha": 1, "flash_bwd_dq": 1})
+        with torch.no_grad():
+            want = attn_block_bwd_reference(x, gx, *p[:5], nh, valid, 1e-5)
+            rel, ab = _rel_errors(got, want)
+            case = {"shape": label, "dtype": dname, "max_rel_err": rel, "max_abs_err": ab,
+                    "ms": time_ms(lambda: torch.autograd.grad(y, leaves, gx, retain_graph=True), 10, 2),
+                    "plain_ms": time_ms(lambda: attn_block_bwd_reference(x, gx, *p[:5], nh, valid, 1e-5), 10, 2)}
+        out[f"fused_attn_block_bwd {dname}"] = case
+        print(f"B4 past its tile [{label} {dname}]: split composition (B6 + flash chain) vs plain B4, all seven "
+              "outputs " + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)), flush=True)
+        require(rel <= tol, f"B4 past its tile {dname}: norm-relative error {rel:.3e} > {tol}")
+        del qkv, g, y, got, want, x, gx, p, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def pallas_train_phase(clip_params, base_cfg, dtype: str) -> dict:
+    """Prompt tuning with ``attn_impl="pallas"`` in both text modes (cached
+    features, batch 32, the five classes in a bank of 8) against ``"xla"``
+    on the card, same weights and batches.  Per step the kernel path must
+    launch K3 24 times (12 attribution + 12 encode blocks; causal in
+    idiomatic mode), the flash chain's three kernels 12 times each (the
+    encode pass's backward), and nothing else."""
+    import torch
+
+    from tapclip_tpu_torch.config import PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel, full_model_forward
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+
+    n = PALLAS_STEPS
+    out = {}
+    for mode, tol in (("ref_compat", TRAIN_TOL[dtype]), ("idiomatic", IDIOMATIC_TOL[dtype])):
+        cfg = base_cfg.replace(dtype=dtype, attn_impl="pallas")
+        pcfg = PromptConfig(text_mode=mode)
+        rng = np.random.default_rng(6)
+        batches = [(rng.standard_normal((32, cfg.embed_dim)).astype(np.float32),
+                    rng.integers(0, len(TRAIN_CLASSES), 32)) for _ in range(n)]
+        mask = np.ones(32, bool)
+        paths = {}
+        for path, c in (("kernel", cfg), ("plain", cfg.replace(attn_impl="xla"))):
+            model = FullModel(TRAIN_CLASSES, clip_params, c, prompt_cfg=pcfg)
+            state = init_train_state(model.trainable, make_optimizer(TrainConfig(batch_size=32)))
+            step = make_train_step(c, pcfg)
+            ctx0 = model.trainable["ctx"].clone().requires_grad_()
+            fwd = full_model_forward(
+                clip_params, dict(model.trainable, ctx=ctx0), model.prompt_learner.bank, None,
+                torch.from_numpy(batches[0][1]).cuda(), clip_cfg=c, prompt_cfg=pcfg, with_loss=True,
+                image_feats=torch.from_numpy(batches[0][0]).cuda())
+            grad0 = torch.autograd.grad(fwd["loss"], [ctx0])[0].float().cpu().numpy()
+            rec = {"loss": [], "grad_norm": [], "step_ms": [], "grad0": grad0,
+                   "ctx0": model.trainable["ctx"].detach().float().cpu().numpy()}
+            reset_counts()
+            for x, y in batches:
+                (state, metrics), ms = _sync_ms(lambda: step(clip_params, state, model.prompt_learner.bank, x, y, mask))
+                rec["loss"].append(float(metrics["loss"]))
+                rec["grad_norm"].append(float(metrics["grad_norm"]))
+                rec["step_ms"].append(ms)
+            rec["launches"] = read_counts()
+            rec["ctx"] = state.params["ctx"].detach().float().cpu().numpy()
+            paths[path] = rec
+        k, p = paths["kernel"], paths["plain"]
+        _expect(f"pallas train {mode} {dtype}", k["launches"], {
+            "fused_attention_aux": 24 * n, "fused_attention_aux_causal": 24 * n * (mode == "idiomatic"),
+            "flash_lse": 12 * n, "flash_bwd_dkv": 12 * n, "flash_bwd_dq": 12 * n,
+            "fused_mlp": 0, "fused_attn_block": 0, "fused_attn_block_bwd": 0, "fused_mlp_bwd": 0,
+            "fused_mha": 0, "fused_mha_bwd": 0})
+        require(all(v == 0 for v in p["launches"].values()), f"plain path launched kernels {p['launches']}")
+        errs = {
+            "loss": max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])),
+            "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(k["grad_norm"], p["grad_norm"])),
+            "grad": float(np.abs(k["grad0"] - p["grad0"]).max() / np.abs(p["grad0"]).max()),
+            "ctx_step": _step_err(k["ctx"], k["ctx0"], p["ctx"], p["ctx0"]),
+        }
+        print(f"pallas train {mode} {dtype}: {n} cached-feature steps per path; kernel-path launches "
+              f"{k['launches']}", flush=True)
+        print(f"pallas train {mode} {dtype}: step ms (batch 32, incl. host) kernel "
+              f"{[round(v, 2) for v in k['step_ms']]} vs plain {[round(v, 2) for v in p['step_ms']]}; loss kernel "
+              f"{[round(v, 5) for v in k['loss']]} plain {[round(v, 5) for v in p['loss']]}; kernel vs plain: "
+              + ", ".join(f"{key} {err:.3e} (tol {tol.get(key)})" for key, err in errs.items()), flush=True)
+        for path in (k, p):
+            require(all(np.isfinite(path["loss"] + path["grad_norm"])), "non-finite pallas-path loss")
+        for key, err in errs.items():
+            if key in tol:
+                require(err <= tol[key], f"pallas train {mode} {dtype}: kernel vs plain {key} error "
+                                         f"{err:.3e} > {tol[key]}")
+        out[mode] = {"launches": k["launches"], "errors": errs,
+                     "step_ms": {"kernel": k["step_ms"], "plain": p["step_ms"]}}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1098,6 +1437,8 @@ def main() -> int:
     kernels = check_kernels()
     kernels.update(check_backward())
     kernels.update(check_text_kernels())
+    kernels.update(check_flash_kernels())
+    repairs = check_long_repairs()
     t0 = time.perf_counter()
     model = build_model(VIT_B_16, CLASSES, "cuda", seed=0)
     print(f"serve: built {VIT_B_16.name} (width {VIT_B_16.vision_width}/{VIT_B_16.text_width}, "
@@ -1110,6 +1451,7 @@ def main() -> int:
     trained = {dtype: train_phase(model.clip_params, VIT_B_16, dtype) for dtype in ("float32", "bfloat16")}
     idiomatic = {dtype: idiomatic_train_phase(model.clip_params, VIT_B_16, dtype)
                  for dtype in ("float32", "bfloat16")}
+    pallas = {dtype: pallas_train_phase(model.clip_params, VIT_B_16, dtype) for dtype in ("float32", "bfloat16")}
 
     record = []
     for name, meta in KERNELS.items():
@@ -1119,12 +1461,18 @@ def main() -> int:
         bf16_timed = [c for c in bf16_cases if "ms" in c][0]
         # Each kernel's launches on its main path: the ref_compat serving
         # drive for the forward kernels, the ref_compat training for their
-        # backward, the idiomatic training for the text tower's kernels.
-        main_path = served if name in FORWARD else trained["float32"] if name in BACKWARD else idiomatic["float32"]
+        # backward, the idiomatic training for the text tower's kernels, the
+        # ref_compat pallas training for the flash family's.
+        main_path = (served if name in FORWARD else trained["float32"] if name in BACKWARD
+                     else pallas["float32"]["ref_compat"] if name in FLASH else idiomatic["float32"])
+
+        def launches(run):
+            return run["launches"].get(name, 0)
+
         entry = {
             "name": name, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
-            "launches": main_path["launches"][name],
+            "launches": launches(main_path),
             "max_abs_err": max(c["max_abs_err"] for c in f32_cases),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -1132,13 +1480,21 @@ def main() -> int:
             "bf16_max_abs_err": max(c["max_abs_err"] for c in bf16_cases),
             "bf16_ms": bf16_timed["ms"], "bf16_plain_ms": bf16_timed["plain_ms"],
             "bf16_bound_ms": bf16_timed["bound_ms"], "bf16_library_ms": bf16_timed["library_ms"],
-            "train_launches": trained["float32"]["launches"][name],
-            "idiomatic_train_launches": idiomatic["float32"]["launches"][name],
+            "train_launches": launches(trained["float32"]),
+            "idiomatic_train_launches": launches(idiomatic["float32"]),
+            "pallas_idiomatic_train_launches": launches(pallas["float32"]["idiomatic"]),
         }
-        if name in BACKWARD:
+        if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),
-                         bf16_max_rel_err=max(c["max_rel_err"] for c in bf16_cases),
-                         ms_dx_only=timed["ms_dx_only"])
+                         bf16_max_rel_err=max(c["max_rel_err"] for c in bf16_cases))
+        if name in BACKWARD:
+            entry["ms_dx_only"] = timed["ms_dx_only"]
+        if "chain_ms" in timed:  # the flash chain; beside B7, on B7's packed strides
+            entry["chain_ms"] = timed["chain_ms"]
+        if "launcher_ms" in timed:
+            entry["launcher_ms"] = timed["launcher_ms"]
+        if f"{name} float32" in repairs:  # B7 / B4 past their [T, T] tile
+            entry["long_t"] = {dt: repairs[f"{name} {dt}"] for dt in ("float32", "bfloat16")}
         if name == "fused_mha":
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)

@@ -20,8 +20,9 @@
 //      head's whole [T, T] probability tile in f32 in shared memory, and the
 //      TPU kernel's per-head chain o, dv, dp, ds, dq, dk.  It writes o into
 //      attn [B, T, W] and dq, dk, dv into dqkv [B, T, 3W], both in the
-//      compute dtype.  A T whose tile does not fit is refused by the
-//      wrapper, never run another way.
+//      compute dtype.  Past the T whose tile fits, the autograd Function
+//      differentiates the split composition instead (plain projections
+//      around B6 and the flash chain), as the JAX _attn_block_bwd does.
 //   4. gemm: dy = dqkv . w_qkv^T (f32).
 //   5. ln_bwd_rows (here): dx = g + LN backward of dy; with weight gradients
 //      wanted, per-block partial column sums of dy * n and dy.

@@ -19,7 +19,8 @@
 // and g for dv, the outputs), f32 elsewhere.  The products skip the entries
 // whose probability is exactly 0 (keys >= valid, and above the diagonal when
 // causal); adding them would change no bit.  A T whose tile does not fit in
-// shared memory (bwd_core_max_seq) is refused by the callers, never run another way.
+// shared memory (bwd_core_max_seq) is refused here; the callers' wrappers
+// then run the blockwise flash chain (flash_bwd.cu) instead.
 #pragma once
 
 #include "common.cuh"

@@ -15,9 +15,9 @@
 // out of the packed qkv rows and g out of [B, T, W], and writes dq, dk, dv
 // straight into their column blocks of dqkv.  One block per (batch row,
 // head) holds the head's whole [T, T] f32 probability tile in shared memory;
-// a T whose tile does not fit (over 210 at Dh 64) is refused by the wrapper
-// with the limit in its message, never run another way (the flash backward
-// of the blockwise kernels lifts it).
+// past the T whose tile fits (210 at Dh 64) the wrapper runs the blockwise
+// flash chain (flash_bwd.cu) on the packed strides instead, as the JAX
+// kernel runs at any T.
 //
 // What bounds it on the card: inferred, not measured by a profile.  Per
 // (batch row, head) the core does about 5 x T^2 x Dh FMAs on the FMA units

@@ -26,11 +26,13 @@ aux.  Each kernel wrapper launches its CUDA kernel on a CUDA tensor and its
 plain version on a CPU tensor.  The QKV and out-projections stay
 ``torch.matmul``: the JAX package computes them outside any Pallas kernel.
 
-The fused blocks differentiate: ``fused_attn_block``, ``fused_mha`` and
-``fused_mlp_block`` are ``torch.autograd.Function`` s whose backward is the
-hand-written B4 / B7 / B5 on the card (weight gradients only where a
-parameter requires one).  K3 has no ported backward and refuses a graph; the
-attribution pass that runs it is detached.
+Every kernel differentiates: ``fused_attn_block``, ``fused_mha``,
+``fused_mlp_block`` and ``fused_attention`` are ``torch.autograd.Function`` s
+whose backward is the hand-written B4 / B7 / B5 / flash chain on the card
+(weight gradients only where a parameter requires one).  Under
+``attn_impl="pallas"`` every block runs K3 between the plain projections and
+the plain MLP, and differentiates through the flash chain; the attribution
+pass runs under ``no_grad`` (the aux column is detached), so it saves nothing.
 """
 
 from __future__ import annotations

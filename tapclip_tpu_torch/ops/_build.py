@@ -76,6 +76,14 @@ _SIGNATURES = {
     "tapclip_mha": (P, P, I, I, I, I, I, I, I, P),
     # qkv, g, dqkv, B, T, W, n_heads, valid, causal, dtype, stream
     "tapclip_mha_bwd": (P, P, P, I, I, I, I, I, I, I, P),
+    # q, k, valid, lse, B, H, T, Dh, sq_b, sq_h, sq_t, causal, dtype, stream
+    "tapclip_flash_lse": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # q, k, v, g, lse, delta, valid, dk, dv, B, H, T, Dh, sq_b, sq_h, sq_t,
+    # sg_b, sg_h, sg_t, causal, round_p, dtype, stream
+    "tapclip_flash_bwd_dkv": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
+    # q, k, v, g, lse, delta, valid, dq, B, H, T, Dh, sq_b, sq_h, sq_t,
+    # sg_b, sg_h, sg_t, causal, dtype, stream
+    "tapclip_flash_bwd_dq": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
 }
 
 build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load
@@ -172,24 +180,15 @@ def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_cuda_operand(name: str, t, dtype=None, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype``/``shape``."""
+def check_cuda_operand(name: str, t, dtype=None, shape=None, contiguous=True) -> None:
+    """Raise unless ``t`` is a CUDA tensor of ``dtype``/``shape``, contiguous
+    unless the kernel reads it through strides (``contiguous=False``)."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if dtype is not None and t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
-
-def refuse_grad(*tensors) -> None:
-    """For a kernel whose backward is not ported: refuse to build an autograd graph."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "this kernel's backward is not ported; the training slice runs it "
-            "without a graph (the attribution pass is detached)"
-        )

@@ -9,7 +9,8 @@ Two implementations share one interface:
   * ``xla``    -- :func:`attention_reference`, plain PyTorch (the name is the
                   JAX package's, so configs compare equal).
   * ``pallas`` -- :func:`tapclip_tpu_torch.ops.flash_attention.fused_attention`,
-                  the hand-written CUDA kernel K3 on a CUDA tensor.
+                  the hand-written CUDA kernel K3 on a CUDA tensor, whose
+                  backward is the flash chain (``csrc/flash_bwd.cu``).
 
 ``causal`` masks key > query (the CLIP text tower).
 

@@ -12,7 +12,10 @@ backward is B4 (``csrc/attn_block_bwd.cu`` + ``csrc/gemm.cu``, which replace
 ``_attn_block_bwd_kernel``).  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
-recomputes LN, QKV and the probabilities, as the TPU kernel does.
+recomputes LN, QKV and the probabilities, as the TPU kernel does.  B4 holds
+a head's ``[T, T]`` f32 tile in shared memory; past that (T over 210 at head
+dim 64) the backward differentiates the split composition (plain
+projections around :func:`fused_mha`), as the JAX ``_attn_block_bwd`` does.
 
 Numerics in bfloat16: the kernels keep q and k in f32 and round v to the
 compute dtype, as the JAX kernels do; the plain forward rounds the whole qkv
@@ -28,8 +31,11 @@ one ``torch.autograd.Function``: on a CUDA tensor its forward is B6
 (``csrc/mha_bwd.cu``, which replaces ``_mha_bwd_kernel``); on a CPU tensor
 :func:`fused_mha_reference` (the counterpart of ``_xla_reference``) and
 :func:`fused_mha_bwd_reference` (the TPU backward's formula).  The forward
-saves qkv only; the backward recomputes the probabilities.  Any T runs
-forward; the backward holds a ``[T, T]`` tile and refuses a T past its limit.
+saves qkv; the backward recomputes the probabilities.  B7 holds a head's
+``[T, T]`` tile in shared memory; past it the forward also saves its output
+and the backward runs the blockwise flash chain (``csrc/flash_bwd.cu``) on
+the packed strides, writing dq, dk, dv straight into ``dqkv``, as the JAX
+``_fused_mha_bwd_impl`` runs at any T.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Optional
 import torch
 
 from tapclip_tpu_torch.ops import _build
+from tapclip_tpu_torch.ops.flash_attention import flash_attention_bwd_cuda
 from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _rnd, ln_backward
 from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
 
@@ -126,9 +133,38 @@ class _FusedAttnBlock(torch.autograd.Function):
         args = (x, g, gamma, beta, w_qkv, b_qkv, w_out, *ctx.cfg)
         if x.device.type == "cpu":
             grads = attn_block_bwd_reference(*args)
+        elif not _tile_fits(x.shape[1], x.shape[2] // ctx.cfg[0]):
+            return (*_split_block_grads(saved, g, need, *ctx.cfg), None, None, None)
         else:
             grads = _attn_block_bwd_cuda(*args, weight_grads=any(need[1:7]))
         return (*_grads_like(grads, saved, need), None, None, None)
+
+
+def _tile_fits(T, Dh):
+    """Whether the ``[T, T]``-tile backward core (B4, B7) holds sequence length T."""
+    return T <= _build.library().tapclip_attn_bwd_max_seq(Dh)
+
+
+def _split_block(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
+    """The half-block as the split composition: LayerNorm and the projections
+    in torch (products of compute-dtype values in f32) around :func:`fused_mha`."""
+    dt = x.dtype
+    y = _ln_parts(x, gamma, beta, eps)[2].float()
+    qkv = (y @ _rnd(w_qkv, dt) + b_qkv.float()).to(dt)
+    h = fused_mha(qkv, n_heads, valid_len=valid).float() @ _rnd(w_out, dt) + b_out.float()
+    return x + h.to(dt)
+
+
+def _split_block_grads(saved, g, need, n_heads, valid, eps):
+    """The half-block's gradients past B4's tile: autograd through
+    :func:`_split_block` (whose attention core differentiates on the flash
+    chain), as ``_attn_block_bwd`` falls back to ``jax.vjp`` of the split
+    composition."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = _split_block(*leaves, n_heads, valid, eps)
+        grads = iter(torch.autograd.grad(out, [t for t in leaves if t.requires_grad], g))
+    return [next(grads) if n else None for n in need[:len(saved)]]
 
 
 def fused_attn_block(
@@ -209,11 +245,11 @@ def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid,
     R = B * T
     Dh = _check_heads(T, W, n_heads, valid)
     lib = _build.library()
-    max_t = lib.tapclip_attn_bwd_max_seq(Dh)
-    if T > max_t:
+    if not _tile_fits(T, Dh):
         raise ValueError(
             f"attention block backward kernel holds a [T, T] f32 tile in shared memory: "
-            f"T={T} exceeds its limit of {max_t} at head dim {Dh}"
+            f"T={T} exceeds its limit of {lib.tapclip_attn_bwd_max_seq(Dh)} at head dim {Dh} "
+            f"(the autograd Function differentiates the split composition there)"
         )
     dtype, f32, dev = x.dtype, torch.float32, x.device
     ops = {
@@ -320,20 +356,24 @@ class _FusedMHA(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qkv, n_heads, valid, causal):
-        ctx.save_for_backward(qkv)
         ctx.cfg = (n_heads, valid, causal)
         if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv)
             return fused_mha_reference(qkv, n_heads, valid, causal)
-        return _fused_mha_cuda(qkv, n_heads, valid, causal)
+        out = _fused_mha_cuda(qkv, n_heads, valid, causal)
+        # The flash chain past B7's tile needs the output (delta = rowsum(g * out)).
+        fits = _tile_fits(qkv.shape[1], qkv.shape[2] // 3 // n_heads)
+        ctx.save_for_backward(*((qkv,) if fits else (qkv, out)))
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
+        qkv, *out = ctx.saved_tensors
         g = g.to(qkv.dtype).contiguous()
         if qkv.device.type == "cpu":
             dqkv = fused_mha_bwd_reference(qkv, g, *ctx.cfg)
         else:
-            dqkv = _fused_mha_bwd_cuda(qkv, g, *ctx.cfg)
+            dqkv = _fused_mha_bwd_cuda(qkv, g, *ctx.cfg, out=out[0] if out else None)
         return dqkv, None, None, None
 
 
@@ -376,18 +416,33 @@ def _fused_mha_cuda(qkv, n_heads, valid, causal):
     return out
 
 
-def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal):
-    """B7 on the card: packed ``dqkv`` in qkv's dtype."""
-    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g))
-    lib = _build.library()
-    max_t = lib.tapclip_attn_bwd_max_seq(Dh)
-    if T > max_t:
-        raise ValueError(
-            f"attention core backward kernel holds a [T, T] f32 tile in shared memory: "
-            f"T={T} exceeds its limit of {max_t} at head dim {Dh}"
-        )
+def _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal):
+    """The flash chain on the packed strides: ``dqkv`` of the attention core
+    from the forward's output ``out [B, T, W]``, dq, dk, dv written straight
+    into it."""
+    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g), ("out", out))
     dqkv = torch.empty_like(qkv)
-    err = lib.tapclip_mha_bwd(
+
+    def heads(t):  # a [B, T, W] view -> a [B, H, T, Dh] view, never a copy
+        return t.view(B, T, n_heads, Dh).transpose(1, 2)
+
+    # B7 rounds p to the compute dtype before the dv product (a no-op in f32).
+    flash_attention_bwd_cuda(*map(heads, (*qkv.split(W, dim=-1), out, g)), valid, causal,
+                             grads=[heads(t) for t in dqkv.split(W, dim=-1)], round_p=True)
+    return dqkv
+
+
+def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal, *, out=None):
+    """B7 on the card: packed ``dqkv`` in qkv's dtype.  Past B7's ``[T, T]``
+    tile the flash chain runs on the packed strides; it needs the forward's
+    output ``out [B, T, W]``."""
+    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g))
+    if not _tile_fits(T, Dh):
+        if out is None:
+            raise ValueError(f"T={T} runs the flash chain, which needs the forward output")
+        return _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal)
+    dqkv = torch.empty_like(qkv)
+    err = _build.library().tapclip_mha_bwd(
         qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
         _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device),
     )

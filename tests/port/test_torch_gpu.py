@@ -15,7 +15,8 @@ norm-relative error ||got - want|| / ||want||: f32 1e-5 (only the order of
 the f32 sums differs, over up to 1,600 rows and 3,072 hidden columns), bf16
 2e-2 (both sides round the same intermediates, but a value on the other side
 of a rounding step moves by one bf16 ulp, 2^-8 relative).  B7 is held the
-same way on its packed dqkv.
+same way on its packed dqkv, and so are the flash backward chain's kernels
+(LSE at 1e-5 absolute in both dtypes: f32 math on the same inputs).
 """
 
 import numpy as np
@@ -23,7 +24,18 @@ import pytest
 import torch
 
 from tapclip_tpu_torch.ops.attention import attention_reference
-from tapclip_tpu_torch.ops.flash_attention import fused_attention
+from tapclip_tpu_torch.ops.flash_attention import (
+    _flash_bwd_dkv_cuda,
+    _flash_bwd_dq_cuda,
+    _flash_lse_cuda,
+    attention_bwd_dkv_reference,
+    attention_bwd_dq_reference,
+    attention_bwd_reference,
+    attention_delta,
+    attention_lse_reference,
+    flash_attention_bwd_cuda,
+    fused_attention,
+)
 from tapclip_tpu_torch.ops.fused_mha import (
     _attn_block_bwd_cuda,
     _fused_mha_bwd_cuda,
@@ -61,6 +73,13 @@ def _randn(gen, *shape, scale=1.0):
 def _close(got, want, tol):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_rel(name, got, want, tol):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), name
+    err = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert err <= tol, f"{name}: norm-relative error {err:.3e} > {tol}"
 
 
 @pytest.mark.gpu
@@ -132,8 +151,9 @@ def test_attention_aux_kernel(cuda, dtype, tol, B, H, T, Dh, valid, eot):
 
 @pytest.mark.gpu
 def test_kernels_refuse_grad_and_bad_operands(cuda):
-    """K1 and K2 differentiate (their backward is B5 / B4); K3, whose
-    backward is not ported, refuses a graph; bad operands raise."""
+    """K1 and K2 differentiate (their backward is B5 / B4); K3 differentiates
+    on the flash chain and its aux column carries no gradient; bad operands
+    raise."""
     x = torch.randn(2, 8, 64, device=cuda, requires_grad=True)
     ln = {"scale": torch.ones(64, device=cuda), "bias": torch.zeros(64, device=cuda)}
     mlp = {"w_fc": torch.randn(64, 256, device=cuda), "b_fc": torch.zeros(256, device=cuda),
@@ -146,20 +166,17 @@ def test_kernels_refuse_grad_and_bad_operands(cuda):
     assert torch.isfinite(dx).all()
     assert (fused_mlp_block.bwd_launches, fused_attn_block.bwd_launches) == (n_mlp + 1, n_attn + 1)
     q = torch.randn(1, 2, 8, 64, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_attention(q, q, q, attn_to_idx=3)
+    out, aux = fused_attention(q, q, q, attn_to_idx=3)
+    assert not aux.requires_grad
+    (dq,) = torch.autograd.grad(out.sum(), [q])
+    qr = q.detach().clone().requires_grad_()
+    (want,) = torch.autograd.grad(attention_reference(qr, qr, qr)[0].sum(), [qr])
+    _close_rel("dq", dq, want, 1e-5)
     with torch.inference_mode():
         with pytest.raises(ValueError, match="contiguous"):
             fused_mlp_block(torch.randn(2, 64, 8, device=cuda).transpose(1, 2), ln, mlp)
         with pytest.raises(TypeError):
             fused_mlp_block(torch.randn(2, 8, 64, device=cuda, dtype=torch.float16), ln, mlp)
-
-
-def _close_rel(name, got, want, tol):
-    got, want = got.float(), want.float()
-    assert torch.isfinite(got).all(), name
-    err = float((got - want).norm() / want.norm().clamp_min(1e-30))
-    assert err <= tol, f"{name}: norm-relative error {err:.3e} > {tol}"
 
 
 NAMES = ("dx", "dgamma", "dbeta", "dw_1", "db_1", "dw_2", "db_2")
@@ -211,12 +228,29 @@ def test_fused_attn_block_bwd_kernel(cuda, dtype, tol, B, T, W, heads, valid):
 
 
 @pytest.mark.gpu
-def test_fused_attn_block_bwd_refuses_long_sequences(cuda):
-    x = torch.randn(1, 240, 128, device=cuda)
-    p = (torch.ones(128, device=cuda), torch.zeros(128, device=cuda), torch.randn(128, 384, device=cuda),
-         torch.zeros(384, device=cuda), torch.randn(128, 128, device=cuda))
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", [(1, 240, 128, 2, 240), (2, 257, 256, 4, 257),
+                                               (1, 577, 256, 4, 577), (1, 584, 1024, 16, 577)],
+                         ids=["T240", "vit-l-224", "T577", "vit-l-336"])
+def test_fused_attn_block_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, valid):
+    """Past B4's [T, T] tile the Function differentiates the split composition
+    (plain projections around B6 and the flash chain); B4 itself refuses."""
+    gen = torch.Generator(device=cuda).manual_seed(T + W + 2)
+    x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W).to(dtype)
+    p = [1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, 3 * W, scale=W ** -0.5),
+         _randn(gen, 3 * W, scale=0.1), _randn(gen, W, W, scale=W ** -0.5), _randn(gen, W, scale=0.1)]
     with pytest.raises(ValueError, match="exceeds its limit"):
-        _attn_block_bwd_cuda(x, x, *p, 2, 240, 1e-5)
+        _attn_block_bwd_cuda(x, g, *p[:5], heads, valid, 1e-5)
+    leaves = [t.clone().requires_grad_() for t in [x, *p]]
+    n = (fused_attn_block.bwd_launches, fused_attention.dq_launches)
+    out = fused_attn_block(leaves[0], {"scale": leaves[1], "bias": leaves[2]},
+                           dict(zip(("w_qkv", "b_qkv", "w_out", "b_out"), leaves[3:])), heads,
+                           valid_len=valid)
+    got = torch.autograd.grad(out, leaves, g)
+    assert (fused_attn_block.bwd_launches, fused_attention.dq_launches) == (n[0], n[1] + 1)
+    want = attn_block_bwd_reference(x, g, *p[:5], heads, valid, 1e-5)
+    for name, a, b in zip(NAMES, got, want):
+        _close_rel(name, a, b, tol)
 
 
 @pytest.mark.gpu
@@ -320,10 +354,26 @@ def test_fused_mha_function_differentiates_on_the_card(cuda):
 
 
 @pytest.mark.gpu
-def test_fused_mha_bwd_refuses_long_sequences(cuda):
-    qkv, g = _mha_case(cuda, torch.float32, 1, 240, 128, 4)
-    with pytest.raises(ValueError, match="exceeds its limit"):
-        _fused_mha_bwd_cuda(qkv, g, 2, 240, True)
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid,causal", [(1, 240, 128, 2, 240, True), (2, 257, 256, 4, 257, False),
+                                                      (1, 577, 256, 4, 577, True), (1, 584, 1024, 16, 577, False)],
+                         ids=["T240-causal", "vit-l-224", "T577-causal", "vit-l-336"])
+def test_fused_mha_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, valid, causal):
+    """Past B7's [T, T] tile the Function's backward runs the flash chain on
+    the packed strides, from the output its forward saved."""
+    qkv, g = _mha_case(cuda, dtype, B, T, W, T + 4)
+    with pytest.raises(ValueError, match="forward output"):
+        _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    leaf = qkv.clone().requires_grad_()
+    n = (fused_mha.bwd_launches, fused_attention.lse_launches, fused_attention.dkv_launches)
+    (got,) = torch.autograd.grad(fused_mha(leaf, heads, valid_len=valid, causal=causal), [leaf], g)
+    assert (fused_mha.bwd_launches, fused_attention.lse_launches, fused_attention.dkv_launches) == (
+        n[0], n[1] + 1, n[2] + 1)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, heads, valid, causal), tol)
+    again = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal,
+                                out=fused_mha_reference(qkv, heads, valid, causal).to(dtype))
+    _close_rel("dqkv from the plain output", again, got, tol)
 
 
 @pytest.mark.gpu
@@ -375,3 +425,90 @@ def test_tiny_model_idiomatic_train_step_kernel_path_matches_plain(cuda):
     assert (kb7, pb7) == (3 * TINY_TEST.text_layers, 0)
     np.testing.assert_allclose(kl, pl, rtol=1e-4, atol=1e-5)
     _close(kctx, pctx, 1e-4)
+
+
+# --- the flash backward chain: LSE, dK/dV, dQ ------------------------------------
+
+FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, [82, 82, 40]),
+                (1, 3, 130, 16, [130]), (1, 2, 577, 128, [577]), (1, 2, 2100, 64, [2000])]
+FLASH_IDS = ["T1", "T77", "T88-valid82", "T130-dh16", "T577-dh128", "T2100"]
+
+
+def _flash_case(cuda, dtype, B, H, T, Dh, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [_randn(gen, B, H, T, Dh).to(dtype) for _ in range(4)]
+
+
+def _close_flash(name, got, want, tol, T):
+    """Norm-relative, except dq and dk at T = 1: over one key ds = p (dp - delta)
+    is 0 up to rounding on both sides, so they are held at 1e-5 absolute."""
+    if T == 1 and not name.endswith("dv"):
+        assert float(got.float().abs().max()) <= 1e-5 and float(want.float().abs().max()) <= 1e-5, name
+    else:
+        _close_rel(name, got, want, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,H,T,Dh,valid", FLASH_SHAPES, ids=FLASH_IDS)
+def test_flash_bwd_kernels(cuda, dtype, tol, B, H, T, Dh, valid, causal):
+    """Each kernel of the chain against its plain version on the same inputs
+    (the plain LSE and delta into both dK/dV and dQ), the chain against the
+    single-block formula, and bit-for-bit repeats."""
+    q, k, v, g = _flash_case(cuda, dtype, B, H, T, Dh, T * Dh + causal)
+    valid_t = torch.tensor(valid, device=cuda, dtype=torch.int32)
+    out, _ = attention_reference(q, k, v, causal=causal, kv_valid_len=valid_t)
+    lse = attention_lse_reference(q, k, valid_t, causal)
+    delta = attention_delta(out, g)
+    n = (fused_attention.lse_launches, fused_attention.dkv_launches, fused_attention.dq_launches)
+    got_lse = _flash_lse_cuda(q, k, valid_t, causal)
+    torch.testing.assert_close(got_lse, lse, rtol=0, atol=1e-5)
+    dk, dv = (torch.empty_like(q) for _ in range(2))
+    _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid_t, causal, dk, dv)
+    want_dk, want_dv = attention_bwd_dkv_reference(q, k, v, g, lse, delta, valid_t, causal)
+    dq = _flash_bwd_dq_cuda(q, k, v, g, lse, delta, valid_t, causal, torch.empty_like(q))
+    assert (fused_attention.lse_launches, fused_attention.dkv_launches, fused_attention.dq_launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+    for name, a, b in (("dk", dk, want_dk), ("dv", dv, want_dv),
+                       ("dq", dq, attention_bwd_dq_reference(q, k, v, g, lse, delta, valid_t, causal))):
+        assert a.dtype == dtype
+        _close_flash(name, a, b, tol, T)
+    chain = flash_attention_bwd_cuda(q, k, v, out, g, valid_t, causal)
+    for name, a, b, c in zip(("dq", "dk", "dv"), chain, attention_bwd_reference(q, k, v, g, valid_t, causal),
+                             flash_attention_bwd_cuda(q, k, v, out, g, valid_t, causal)):
+        _close_flash(f"chain {name}", a, b, tol, T)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)  # deterministic: no atomics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_fused_attention_function_differentiates_on_the_card(cuda, causal):
+    """Autograd through K3 + the chain equals autograd through the plain
+    forward, with the aux column requested and detached."""
+    q, k, v, g = _flash_case(cuda, torch.float32, 3, 4, 88, 64, 7 + causal)
+    valid = torch.tensor([82, 88, 50], device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, aux = fused_attention(*leaves, causal=causal, kv_valid_len=valid, attn_to_idx=81)
+    assert not aux.requires_grad
+    got = torch.autograd.grad(out, leaves, g)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*plain, causal=causal, kv_valid_len=valid)[0], plain, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close_rel(name, a, b, 1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_chain_refuses_bad_operands(cuda):
+    q, k, v, g = _flash_case(cuda, torch.float32, 1, 2, 16, 64, 9)
+    valid = torch.full((1,), 16, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="share q's strides"):
+        _flash_lse_cuda(q, torch.zeros(1, 2, 32, 64, device=cuda)[:, :, :16], valid, False)
+    with pytest.raises(TypeError):
+        _flash_lse_cuda(q, k.to(torch.bfloat16), valid, False)
+    with pytest.raises(ValueError, match="head dims"):
+        _flash_lse_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(), valid, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _flash_lse_cuda(q.cpu(), k.cpu(), valid, False)
+    with pytest.raises(TypeError):
+        _flash_lse_cuda(q, k, valid.long(), False)
