@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's serving, training and text paths once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving, training, text and int8 paths once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -76,6 +76,35 @@ Run from the repository root:  python3 chip_smoke.py
     bf16, 3 cached-feature steps at batch 32, against ``"xla"`` on the card:
     per step 24 K3 launches (causal in idiomatic mode), 12 each of LSE,
     dK/dV and dQ, and none of K1, K2, B4, B5, B6, B7.
+15. The int8 kernels B13 (MLP) and B14 (attention) against their plain
+    versions with the same random draws, f32 and bf16, stochastic and round
+    to nearest, at ViT-B/16 (8 x 200, W 768; B14 also at the pruned 8 x 96)
+    and ViT-L/14 (8 x 264, W 1024, H 4096, 16 heads), by the norm-relative
+    error of the block's update (INT8_TOL), with CUDA-event times of the
+    kernel, the plain version and the wrapper; the 64-seed mean of each
+    stochastic block at least INT8_MEAN_GAIN times closer than one draw to
+    the weight-only-quantized float block.
+16. S5 (B13's erf3 / recipmul variants) against the base kernel
+    (INT8_VARIANT_TOL) and their plain versions, timed in turns; S6 (the
+    int8 product) exactly against its float64 plain version at the probe's
+    shape (51,200 x 768 x 3,072) and at B13's two products, timed beside
+    gemm.cu in bf16, ``torch._int_mm`` and ``torch.matmul`` in bf16.
+17. ViT-B/16 with ``quantize_tower`` served over HTTP, f32 and bf16,
+    stochastic and round to nearest: per image batch exactly 12 B13 + 12
+    B14 and no K1/K2/K3/B6; logits and served probabilities against the
+    same model on the plain int8 versions on the card (INT8_SERVE_TOL; a
+    stochastic answer depends on the image's row in the batch, so each
+    served image is matched to the plain path at its best batch position),
+    /explain attribution, and features of cosine at least FEATURE_COS
+    against the float tower; image-batch ms of the int8 kernels, the plain
+    int8 versions and the float K1/K2 tower.
+18. ``--token-keep-ratio 0.5`` (``token_prune_layer`` 4) served over HTTP,
+    with and without int8 (f32): 4 blocks at T 200 and 8 at T 96 per image
+    batch, the kept tokens against the plain path's (exactly for the float
+    tower, INT8_KEEP_AGREE for the int8 one), features of cosine at least
+    FEATURE_COS against the unpruned tower.
+19. ``adaptive_logits`` with the int8 pruned cheap path: margin inf equals
+    the full path, -inf the cheap path.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -84,6 +113,7 @@ without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -173,9 +203,49 @@ IDIOMATIC_STEPS = 3
 IDIOMATIC_TOL = {"float32": {"loss": 5e-6, "grad_norm": 2e-5, "grad": 1e-5, "ctx_step": 5e-3},
                  "bfloat16": {"loss": 5e-3, "grad_norm": 1e-2, "grad": 5e-2, "ctx_step": 0.3}}
 # The card's published peaks (H100 SXM data sheet, dense): memory 3.35 TB/s;
-# f32 outside the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s.
+# f32 outside the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s, int8 1,979 TOP/s.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_INT8_OPS = 1979e12
+# The int8 kernels (B13, B14) against their plain versions with the same
+# random draws: norm-relative error of the block's update (out - x).  Both
+# sides do the same IEEE steps in the same order; what differs is the last
+# bit of LayerNorm's sums, erf and the attention core's sums, and an
+# activation code that lands on the other side of a rounding step there
+# moves its row by about 5e-4 of the update (a quantum of one of 3,072
+# hidden codes).  f32: 2e-3 (reading on an H100 80GB HBM3 at 700 W: at most
+# 3.0e-4).  bf16: 2e-2, as the other kernels' bf16 limit (reading: B13 at
+# most 2.3e-4; B14 1.8e-3 round to nearest and 7.8e-3 stochastic, where p
+# is rounded to bf16 against the online softmax's running max in the kernel
+# and against the row's max in the plain version, as in the TPU kernel).
+INT8_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+# S5: each variant against the base kernel with the same draws, norm-relative
+# on the output (erf3's 2.5e-5 error in erf moves about one hidden code a row).
+INT8_VARIANT_TOL = 1e-3
+# The 64-seed mean of the stochastic blocks must be this many times closer
+# (norm-relative on the update) than one draw to the weight-only-quantized
+# float block: stochastic rounding is unbiased, so averaging removes the
+# activation noise but not the weights' rounding to nearest.
+INT8_MEAN_GAIN = 3.0
+INT8_SEEDS = 64
+# Served int8 model, kernel path vs the plain int8 versions on the card, same
+# weights, draws and images: max abs error of logits (14.3 x a cosine) and of
+# probabilities, per dtype.  A code flip (above) in one block moves the next
+# block's inputs, which flips more codes there, so through 24 quantized
+# half-blocks the two paths drift apart by more than one block's error.  Set
+# from a reading on an H100 80GB HBM3 at 700 W: f32 logits 9.7e-3
+# (stochastic) and 2.5e-2 (round to nearest), probabilities 5.5e-4; bf16
+# logits 3.4e-2, probabilities 2.2e-3.  The cosine of the int8 (or pruned)
+# image features against the float (or unpruned) tower's must reach JAX's own
+# bar under pruning (tests/test_int8.py:137).
+INT8_SERVE_TOL = {"float32": {"logits": 0.1, "probs": 1e-2},
+                  "bfloat16": {"logits": 0.2, "probs": 2e-2}}
+FEATURE_COS = 0.98
+# Kept tokens of the int8 pruned tower, kernel path vs plain path: the share
+# of the 96 kept indices the two agree on, per image (the drift above can
+# move a token across the keep boundary; the float tower's must agree
+# exactly).  Reading on the same card: at least 0.979 (2 of 96).
+INT8_KEEP_AGREE = 0.95
 
 CLASSES = ["Backpack", "Pen", "Monitor"]
 
@@ -236,6 +306,17 @@ BACKWARD = ("fused_attn_block_bwd", "fused_mlp_bwd")
 TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 PALLAS_STEPS = 3
+# The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
+# bare int8 product (S6): entries of the kernels line built by int8_record.
+INT8_KERNELS = {
+    "int8_mlp": {"source": "tapclip_tpu_torch/csrc/int8_mlp.cu", "replaces": "tapclip_tpu/ops/int8_mlp.py:63"},
+    "int8_attn": {"source": "tapclip_tpu_torch/csrc/int8_attn.cu", "replaces": "tapclip_tpu/ops/int8_attn.py:48"},
+    "int8_mlp_erf3": {"source": "tapclip_tpu_torch/csrc/int8_mlp.cu", "replaces": "scripts/int8_mlp_ab.py:63"},
+    "int8_mlp_recipmul": {"source": "tapclip_tpu_torch/csrc/int8_mlp.cu", "replaces": "scripts/int8_mlp_ab.py:63"},
+    "int8_mlp_erf3_recipmul": {"source": "tapclip_tpu_torch/csrc/int8_mlp.cu",
+                               "replaces": "scripts/int8_mlp_ab.py:63"},
+    "int8_gemm": {"source": "tapclip_tpu_torch/csrc/int8_gemm.cu", "replaces": "scripts/int8_probe.py:40"},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -252,6 +333,9 @@ def _counters():
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
     from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
     from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
+    from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
 
     return {
         "fused_mlp": (fused_mlp_block, "launches"),
@@ -267,6 +351,10 @@ def _counters():
         "flash_bwd_dq": (fused_attention, "dq_launches"),
         # fused_attention_aux_long has none: it is K3 past T 2048, which no
         # main path reaches (0 launches there); K3's own launches are above.
+        "int8_mlp": (int8_mlp_block, "launches"),
+        "int8_attn": (int8_attn_block, "launches"),
+        "int8_mlp_variants": (int8_mlp_block, "variant_launches"),  # S5, off the serving path
+        "int8_gemm": (int8_gemm, "launches"),  # S6, off the serving path
     }
 
 
@@ -1402,6 +1490,523 @@ def pallas_train_phase(clip_params, base_cfg, dtype: str) -> dict:
     return out
 
 
+
+# --- the int8 eval tower (B13, B14), its variants (S5) and the int8 product (S6) ---
+
+
+def int8_bound(n_bytes: int, int8_ops: float, f32_flops: float = 0.0) -> dict:
+    """As :func:`bound`, with int8 products at the tensor cores' int8 peak and
+    the f32 work (the attention core) at the f32 peak outside them."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * (int8_ops / PEAK_INT8_OPS + f32_flops / PEAK_FLOPS["float32"])
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _update_rel(got, want, x) -> float:
+    """Norm-relative error of a block's update: ||got - want|| / ||want - x||."""
+    got, want, x = got.float(), want.float(), x.float()
+    return float((got - want).norm() / (want - x).norm())
+
+
+def _int8_case(gen, B, T, W, nh, dtype):
+    """x, LayerNorm, float MLP / attention weights and their quantized forms."""
+    import torch
+
+    from tapclip_tpu_torch.ops.int8_attn import quantize_attn
+    from tapclip_tpu_torch.ops.int8_mlp import quantize_mlp
+
+    H = 4 * W
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    x = rn(B, T, W).to(dtype)
+    ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
+    mlp = {"w_fc": rn(W, H, s=W ** -0.5), "b_fc": rn(H, s=0.1), "w_proj": rn(H, W, s=H ** -0.5),
+           "b_proj": rn(W, s=0.1)}
+    attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1), "w_out": rn(W, W, s=W ** -0.5),
+            "b_out": rn(W, s=0.1)}
+    return x, ln, mlp, attn, quantize_mlp(mlp), quantize_attn(attn)
+
+
+def _weight_only(q, w, s):
+    return q[w].float() * q[s]
+
+
+def check_int8_kernels() -> dict:
+    """B13 and B14 against their plain versions with the same draws, f32 and
+    bf16, stochastic and round to nearest, at ViT-B/16 (8 x 200, W 768; B14
+    valid 197, and the pruned back blocks at 8 x 96 with no mask) and ViT-L/14
+    (8 x 264, W 1024, H 4,096; 16 heads, valid 257), with CUDA-event times of
+    the kernel, its plain version and the wrapper (weights quantized on the
+    fly) at the ViT-B/16 shape; then, in f32, the 64-seed mean of each
+    stochastic block against the weight-only-quantized float block."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import attn_block_reference
+    from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_cuda, int8_attn_plain
+    from tapclip_tpu_torch.ops.int8_mlp import gelu, int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, ln_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results = {"int8_mlp": {"cases": []}, "int8_attn": {"cases": []}}
+    shapes = (("image 8x200x768 h12 valid197", (8, 200, 768, 12, 197), True),
+              ("pruned 8x96x768 h12", (8, 96, 768, 12, 96), False),
+              ("vit-l 8x264x1024 h16 valid257", (8, 264, 1024, 16, 257), False))
+    f32, bf16 = torch.float32, torch.bfloat16
+    keep = {}
+    for dtype in (f32, bf16):
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, T, W, nh, valid), timed in shapes:
+            x, ln, mlp, attn, qm, qa = _int8_case(gen, B, T, W, nh, dtype)
+            g, b = ln["scale"], ln["bias"]
+            R, H = B * T, 4 * W
+            vec = 4 * (2 * W + 2 * H + 2 * W)
+            mlp_work = int8_bound(nbytes(x, x, qm["w_fc"], qm["w_proj"]) + vec, 4 * R * W * H)
+            attn_work = int8_bound(nbytes(x, x, qa["w_qkv"], qa["w_out"]) + 4 * 10 * W, 8 * R * W * W,
+                                   4 * W * attn_pairs(B, T, valid))
+            for det in (False, True):
+                mode = "round-to-nearest" if det else "stochastic"
+                runs = {"int8_mlp": (lambda: int8_mlp_cuda(x, g, b, qm, deterministic=det),
+                                     lambda: int8_mlp_plain(x, g, b, qm, deterministic=det),
+                                     lambda: int8_mlp_block(x, ln, mlp, deterministic=det), mlp_work),
+                        "int8_attn": (lambda: int8_attn_cuda(x, g, b, qa, nh, valid, deterministic=det),
+                                      lambda: int8_attn_plain(x, g, b, qa, nh, valid, deterministic=det),
+                                      lambda: int8_attn_block(x, ln, attn, nh, valid_len=valid, deterministic=det),
+                                      attn_work)}
+                for name, (kern, plain, wrapper, work) in runs.items():
+                    if name == "int8_mlp" and label.startswith("pruned"):
+                        continue  # the MLP sees rows only: the image shape covers it
+                    shape = label if name == "int8_attn" else f"{label.split(' h')[0]} H{H}"
+                    with torch.inference_mode():
+                        got, want = kern(), plain()
+                        torch.cuda.synchronize()
+                        require(bool(torch.isfinite(got.float()).all()), f"{name} {label}: not finite")
+                        case = {"shape": shape, "dtype": dname, "mode": mode,
+                                "update_rel_err": _update_rel(got, want, x),
+                                "max_rel_err": float((got.float() - want.float()).norm() / want.float().norm()),
+                                "max_abs_err": float((got.float() - want.float()).abs().max())}
+                        if timed:
+                            case.update(ms=time_ms(kern), plain_ms=time_ms(plain, 10, 2),
+                                        wrapper_ms=time_ms(wrapper), library_ms=None, **work)
+                    results[name]["cases"].append(case)
+                    print(f"int8 kernel {name} [{shape} {dname} {mode}]: "
+                          + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
+                          flush=True)
+            if dtype == f32 and timed:
+                keep = {"x": x, "ln": ln, "qm": qm, "qa": qa, "nh": nh, "valid": valid}
+
+    # The stochastic blocks' mean over 64 seeds, f32, ViT-B/16.
+    x, ln, qm, qa, nh, valid = (keep[k] for k in ("x", "ln", "qm", "qa", "nh", "valid"))
+    g, b = ln["scale"], ln["bias"]
+    with torch.inference_mode():
+        y = ln_f32(x, g, b, 1e-5)
+        wo_mlp = x + (gelu(y @ _weight_only(qm, "w_fc", "s_fc") + qm["b_fc"])
+                      @ _weight_only(qm, "w_proj", "s_proj") + qm["b_proj"])
+        wo_attn = attn_block_reference(x, g, b, _weight_only(qa, "w_qkv", "s_qkv"), qa["b_qkv"],
+                                       _weight_only(qa, "w_out", "s_out"), qa["b_out"], nh, valid, 1e-5)
+        stats = {}
+        for name, run, ref in (("int8_mlp", lambda s: int8_mlp_cuda(x, g, b, qm, seed=s), wo_mlp),
+                               ("int8_attn", lambda s: int8_attn_cuda(x, g, b, qa, nh, valid, seed=s), wo_attn)):
+            one = run(0)
+            mean = sum(run(s).double() for s in range(INT8_SEEDS)) / INT8_SEEDS
+            e1, em = _update_rel(one, ref, x), _update_rel(mean, ref, x)
+            stats[name] = {"one_draw_rel_err": e1, "mean_rel_err": em, "gain": e1 / em}
+            print(f"int8 {name}: vs the weight-only-quantized f32 block, one draw {e1:.3e}, mean of "
+                  f"{INT8_SEEDS} seeds {em:.3e}: {e1 / em:.2f}x closer (need {INT8_MEAN_GAIN}x)", flush=True)
+    for name, res in results.items():
+        for c in res["cases"]:
+            tol = INT8_TOL[c["dtype"]]
+            require(c["update_rel_err"] <= tol, f"{name} {c['shape']} {c['dtype']} {c['mode']}: update "
+                                                f"norm-relative error {c['update_rel_err']:.3e} > {tol}")
+        results[name]["mean_of_seeds"] = stats[name]
+        require(stats[name]["gain"] >= INT8_MEAN_GAIN,
+                f"{name}: the {INT8_SEEDS}-seed mean is only {stats[name]['gain']:.2f}x closer than one draw")
+    return results
+
+
+def check_int8_variants() -> dict:
+    """S5: B13's erf3 / recipmul variants against the base kernel (same draws)
+    and against their own plain versions, timed in turns, f32, ViT-B/16."""
+    from tapclip_tpu_torch.scripts.int8_mlp_ab import run
+
+    res = run(B=8, model="ViT-B-16", reps=3)
+    for name, v in res["variants"].items():
+        print(f"int8 variant {name} [{res['shape']} {res['dtype']}]: median {v['median_ms']:.4g} ms "
+              f"(x{v['ratio']:.3f} of base), plain {v['plain_ms']:.4g} ms, vs base {v['vs_base_rel_err']:.3e}, "
+              f"vs its plain version (update) {v['vs_plain_update_rel_err']:.3e}", flush=True)
+        require(v["vs_base_rel_err"] <= INT8_VARIANT_TOL,
+                f"int8 variant {name}: {v['vs_base_rel_err']:.3e} from the base > {INT8_VARIANT_TOL}")
+        require(v["vs_plain_update_rel_err"] <= INT8_TOL["float32"],
+                f"int8 variant {name}: {v['vs_plain_update_rel_err']:.3e} from its plain version")
+    return res
+
+
+def check_int8_gemm() -> dict:
+    """S6 at the probe's shape (exact against float64, timed beside gemm.cu in
+    bf16, torch._int_mm and torch.matmul in bf16) and at B13's two product
+    shapes."""
+    from tapclip_tpu_torch.scripts.int8_probe import PROBE_SHAPE, probe
+
+    out = {}
+    for label, shape, iters in (("probe", PROBE_SHAPE, 3), ("b13 fc", (1600, 768, 3072), 10),
+                                ("b13 proj", (1600, 3072, 768), 10)):
+        out[label] = probe(*shape, iters=iters)
+        print(f"int8 gemm [{label} {out[label]['shape']}]: "
+              + ", ".join(f"{k}={v:.4g}" for k, v in out[label].items() if isinstance(v, float)), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` replaced by ``fn(original, *args, **kwargs)`` for the block."""
+    orig = getattr(module, name)
+    setattr(module, name, lambda *a, **k: fn(orig, *a, **k))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """The int8 blocks of ``block_forward`` run their plain versions on the
+    card (the wrappers launch the kernels on a CUDA tensor)."""
+    from tapclip_tpu_torch.models import layers
+    from tapclip_tpu_torch.ops.int8_attn import int8_attn_plain, quantize_attn
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_plain, quantize_mlp
+
+    def mlp(_, x, ln, p, *, eps=1e-5, seed=0, deterministic=False):
+        return int8_mlp_plain(x, ln["scale"], ln["bias"], quantize_mlp(p), eps=eps, seed=seed,
+                              deterministic=deterministic)
+
+    def attn(_, x, ln, p, n_heads, *, valid_len=None, eps=1e-5, seed=0, deterministic=False):
+        valid = x.shape[1] if valid_len is None else valid_len
+        return int8_attn_plain(x, ln["scale"], ln["bias"], quantize_attn(p), n_heads, valid, eps=eps,
+                               seed=seed, deterministic=deterministic)
+
+    with patched(layers, "int8_mlp_block", mlp), patched(layers, "int8_attn_block", attn):
+        yield
+
+
+@contextlib.contextmanager
+def block_lengths(record: list):
+    """Record the sequence length of every vision/text block's attention and
+    MLP half (kernel or plain) that ``block_forward`` runs."""
+    from tapclip_tpu_torch.models import layers
+
+    def spy(kind):
+        def call(orig, x, *a, **k):
+            record.append((kind, x.shape[1]))
+            return orig(x, *a, **k)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name, kind in (("int8_attn_block", "attn"), ("fused_attn_block", "attn"),
+                           ("int8_mlp_block", "mlp"), ("fused_mlp_block", "mlp")):
+            stack.enter_context(patched(layers, name, spy(kind)))
+        yield
+
+
+def _http_drive(model, images) -> dict:
+    """Add a class, 16 concurrent uint8 /predict (two batches of 8), 8 more
+    (one batch, text side cached), one /explain, over HTTP on localhost.
+    Launch counts: set to 0 just before, read after the 16, after the 8 and
+    at the end."""
+    import torch
+
+    from tapclip_tpu_torch.serve import PredictService, make_http_server
+
+    service = PredictService(model, batch_size=8, max_latency_ms=2000.0)
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        names = _post(base + "/classes", {"name": "Clipboards"})["classes"]
+        with ThreadPoolExecutor(16) as pool:
+            wave1 = list(pool.map(lambda j: _post(base + "/predict", {"pixels": images[j % 8].tolist()}),
+                                  range(16)))
+            torch.cuda.synchronize()
+            after1 = read_counts()
+            wave2 = list(pool.map(lambda j: _post(base + "/predict", {"pixels": images[j].tolist()}), range(8)))
+        torch.cuda.synchronize()
+        after2 = read_counts()
+        explain = _post(base + "/explain", {"pixels": images[0].tolist()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = read_counts()
+        stats = service.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    require(names == CLASSES + ["Clipboards"], f"/classes returned {names}")
+    for r in wave1 + wave2 + [explain]:
+        probs = np.array([r["probs"][n] for n in names])
+        require(bool(np.isfinite(probs).all()) and abs(probs.sum() - 1.0) < 1e-4, f"probabilities {probs}")
+    batch = {k: after2[k] - after1[k] for k in total}
+    return {"names": names, "wave2": wave2, "explain": explain, "stats": stats, "wall_s": wall,
+            "launches": total, "batch_launches": batch}
+
+
+def _image_features(params, cfg, x):
+    import torch
+
+    from tapclip_tpu_torch.models import clip as clip_model
+
+    with torch.inference_mode():
+        return clip_model.l2_normalize(clip_model.encode_image(params, cfg, x)).float()
+
+
+def int8_serve_phase(model, images: np.ndarray) -> dict:
+    """ViT-B/16 with ``quantize_tower`` served through ``PredictService`` and
+    HTTP, f32 and bf16, stochastic and round to nearest: per image batch
+    exactly 12 B13 + 12 B14 and no K1, K2; served probabilities against the
+    same model on the plain int8 versions on the card; image features against
+    the float tower; image-batch ms of the int8 kernels, their plain versions
+    and the float kernels (K1/K2)."""
+    import torch
+
+    from tapclip_tpu_torch.models.model_wrapper import FullModel, text_features_with_attribution
+    from tapclip_tpu_torch.serve import predict_batch
+
+    params = model.clip_params
+    x = torch.from_numpy(images).cuda()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for det in (False, True):
+            mode = "round-to-nearest" if det else "stochastic"
+            cfg = model.clip_cfg.replace(dtype=dtype)
+            cfg_q = cfg.replace(quantize_tower=True, int8_deterministic=det)
+            kern = FullModel(CLASSES, params, cfg_q)
+            drive = _http_drive(kern, images)
+            L = cfg.vision_layers
+            _expect(f"int8 serving {dtype} {mode}, one image batch", drive["batch_launches"],
+                    {"int8_mlp": L, "int8_attn": L, "fused_mlp": 0, "fused_attn_block": 0,
+                     "fused_attention_aux": 0, "fused_mha": 0})
+            plain = FullModel(CLASSES, params, cfg_q.replace(attn_impl="xla"))
+            plain.add_class_prompt("Clipboards")
+            n = len(images)
+            placed = np.zeros((n, n, len(CLASSES) + 1))  # [batch position, image, class]
+            with torch.inference_mode():
+                with plain_int8():
+                    want = plain(images)
+                    # The stochastic draws are keyed on the batch row, and
+                    # concurrent requests fill a batch in arrival order: the
+                    # plain path at every position of every image (rotations;
+                    # round to nearest does not depend on the position).
+                    for r in range(1 if det else n):
+                        order = [(pos - r) % n for pos in range(n)]
+                        probs = _plain_probs(plain(images[order])["logits"].float().cpu().numpy())
+                        placed[np.arange(n), order] = probs
+                got = kern(images)
+                got_feats = _image_features(params, cfg_q, x)
+                with plain_int8():
+                    plain_feats = _image_features(params, cfg_q, x)
+            names = drive["names"]
+            want_logits = want["logits"].float().cpu().numpy()
+            logit_err = float(np.abs(got["logits"].float().cpu().numpy() - want_logits).max())
+            served = np.array([[r["probs"][n] for n in names] for r in drive["wave2"]])
+            # Each served image against the plain path at the batch position
+            # that matches it best; the spread is how much the position moves it.
+            if det:  # image j at position j, the same at every position
+                placed[:] = placed[np.arange(n), np.arange(n)]
+            pos_err = np.abs(placed - served[None]).max(-1)  # [position, image]
+            prob_err = float(pos_err.min(0).max())
+            spread = float(np.abs(placed - placed[:1]).max())
+            plain_cos = float((plain_feats * got_feats).sum(-1).min())
+            served_attr = np.array([drive["explain"]["attribution"][n] for n in names])
+            attr_err = float(np.abs(served_attr - want["attribution"].float().cpu().numpy()).max())
+            cos_min = float((got_feats * _image_features(params, cfg, x)).sum(-1).min())
+            float_model = FullModel(CLASSES, params, cfg)
+            float_model.add_class_prompt("Clipboards")
+            with torch.inference_mode():
+                float_logits = float_model(images)["logits"].float().cpu().numpy()
+            int8_gap = float(np.abs(got["logits"].float().cpu().numpy() - float_logits).max())
+
+            with torch.inference_mode():
+                text = text_features_with_attribution(params, kern.trainable["ctx"], kern.prompt_learner.bank,
+                                                      cfg, kern.prompt_cfg, kern.trainable["adjustor"])[0]
+                bank = kern.prompt_learner.bank
+                scale = kern.trainable["logit_scale"]
+                timing = {"int8_kernel": time_ms(lambda: predict_batch(params, cfg_q, text, scale, bank.class_mask, x),
+                                                 10, 2),
+                          "float_kernel": time_ms(lambda: predict_batch(params, cfg, text, scale, bank.class_mask, x),
+                                                  10, 2)}
+                with plain_int8():
+                    timing["int8_plain"] = time_ms(
+                        lambda: predict_batch(params, cfg_q, text, scale, bank.class_mask, x), 5, 1)
+            tol = INT8_SERVE_TOL[dtype]
+            print(f"int8 serve {dtype} {mode}: 1 add_class + 24 /predict + 1 /explain in {drive['wall_s']:.2f} s; "
+                  f"stats {drive['stats']}; launches per image batch {drive['batch_launches']}; whole drive "
+                  f"{drive['launches']}", flush=True)
+            print(f"int8 serve {dtype} {mode}: vs the plain int8 path on the card: logits max abs err "
+                  f"{logit_err:.3e} (tol {tol['logits']}; the int8 tower's own gap to the float tower's logits "
+                  f"{int8_gap:.3e}), served probs at their best batch position {prob_err:.3e} (tol {tol['probs']}; "
+                  f"spread over positions {spread:.3e}), features min cosine {plain_cos:.6f}, /explain "
+                  f"attribution {attr_err:.3e} (tol {ATTR_TOL}); image "
+                  f"features vs the float tower: min cosine {cos_min:.5f} (need {FEATURE_COS}); image batch of 8 "
+                  f"ms (CUDA events, no HTTP): " + ", ".join(f"{k}={v:.3f}" for k, v in timing.items()),
+                  flush=True)
+            require(logit_err <= tol["logits"], f"int8 {dtype} {mode}: logits differ from plain by {logit_err:.3e}")
+            require(prob_err <= tol["probs"], f"int8 {dtype} {mode}: served probs differ by {prob_err:.3e}")
+            require(attr_err <= ATTR_TOL, f"int8 {dtype} {mode}: attribution differs by {attr_err:.3e}")
+            require(drive["explain"]["index"] == int(want_logits[0].argmax()), f"int8 {dtype} {mode}: /explain class")
+            require(cos_min >= FEATURE_COS, f"int8 {dtype} {mode}: feature cosine {cos_min:.5f} < {FEATURE_COS}")
+            out[f"{dtype} {mode}"] = {"launches": drive["launches"], "batch_launches": drive["batch_launches"],
+                                      "logit_err": logit_err, "prob_err": prob_err, "attr_err": attr_err,
+                                      "cos_min": cos_min, "plain_cos_min": plain_cos, "int8_gap": int8_gap,
+                                      "position_spread": spread,
+                                      "timing_ms": timing, "stats": drive["stats"]}
+    return out
+
+
+def pruned_serve_phase(model, images: np.ndarray) -> dict:
+    """``--token-keep-ratio 0.5`` (``token_prune_layer`` 4) with and without
+    ``--int8`` (f32, stochastic), through ``PredictService`` and HTTP: per
+    image batch 4 front blocks at T 200 and 8 back blocks at T 96 (12 launches
+    of each block kernel); the kept tokens against the plain path's; image
+    features against the unpruned tower."""
+    import torch
+
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel, text_features_with_attribution
+    from tapclip_tpu_torch.serve import predict_batch
+
+    params = model.clip_params
+    x = torch.from_numpy(images).cuda()
+    out = {}
+    for label, kw in (("float", {}), ("int8", {"quantize_tower": True})):
+        cfg = model.clip_cfg.replace(**kw)
+        cfg_p = cfg.replace(token_keep_ratio=0.5)
+        kern = FullModel(CLASSES, params, cfg_p)
+        drive = _http_drive(kern, images)
+        L, k = cfg.vision_layers, cfg_p.token_prune_layer
+        T = (cfg.vision_seq_len + 7) // 8 * 8
+        # The kept count of clip.py:480-490 (a multiple of 8, no more than the real tokens).
+        n_keep = min(max(8, int(T * 0.5) // 8 * 8), max(cfg.vision_seq_len // 8 * 8, 8))
+        want = {"int8_mlp": L, "int8_attn": L, "fused_mlp": 0, "fused_attn_block": 0} if kw else \
+            {"int8_mlp": 0, "int8_attn": 0, "fused_mlp": L, "fused_attn_block": L}
+        _expect(f"pruned serving {label}, one image batch", drive["batch_launches"], want)
+
+        def kept(c, plain):
+            seen = []
+
+            def spy(orig, *a):
+                idx = orig(*a)
+                seen.append(idx)
+                return idx
+
+            with patched(clip_model, "token_keep_indices", spy), \
+                    (plain_int8() if plain else contextlib.nullcontext()):
+                feats = _image_features(params, c, x)
+            return feats, torch.sort(seen[0], dim=-1).values.cpu().numpy()
+
+        lengths = []
+        with block_lengths(lengths):
+            got, idx = kept(cfg_p, False)
+        plain_cfg = cfg_p if kw else cfg_p.replace(attn_impl="xla")
+        _, plain_idx = kept(plain_cfg, bool(kw))
+        want_lengths = [("attn", T), ("mlp", T)] * k + [("attn", n_keep), ("mlp", n_keep)] * (L - k)
+        require(lengths == want_lengths, f"pruned {label}: block lengths {lengths}")
+        agree = [len(np.intersect1d(a, b)) / len(a) for a, b in zip(idx, plain_idx)]
+        cos_min = float((got * _image_features(params, cfg, x)).sum(-1).min())
+        with torch.inference_mode():
+            text = text_features_with_attribution(params, kern.trainable["ctx"], kern.prompt_learner.bank,
+                                                  cfg, kern.prompt_cfg, kern.trainable["adjustor"])[0]
+            bank, scale = kern.prompt_learner.bank, kern.trainable["logit_scale"]
+            timing = {"pruned": time_ms(lambda: predict_batch(params, cfg_p, text, scale, bank.class_mask, x), 10, 2),
+                      "unpruned": time_ms(lambda: predict_batch(params, cfg, text, scale, bank.class_mask, x), 10, 2)}
+        print(f"pruned serve {label}: 1 add_class + 24 /predict + 1 /explain in {drive['wall_s']:.2f} s; launches "
+              f"per image batch {drive['batch_launches']}; blocks at T {T}: {lengths.count(('attn', T))}, at "
+              f"T {n_keep}: {lengths.count(('attn', n_keep))}; kept {idx.shape[1]} tokens, agreement with the plain path "
+              f"per image {[round(a, 4) for a in agree]}; features vs the unpruned tower: min cosine {cos_min:.5f}; "
+              f"image batch of 8 ms " + ", ".join(f"{k}={v:.3f}" for k, v in timing.items()), flush=True)
+        require(idx.shape[1] == n_keep and bool((idx[:, 0] == 0).all()), f"pruned {label}: kept {idx.shape}")
+        require(min(agree) >= (INT8_KEEP_AGREE if kw else 1.0),
+                f"pruned {label}: kept tokens differ from the plain path's: {agree}")
+        require(cos_min >= FEATURE_COS, f"pruned {label}: feature cosine {cos_min:.5f} < {FEATURE_COS}")
+        out[label] = {"launches": drive["launches"], "batch_launches": drive["batch_launches"],
+                      "keep_agreement": agree, "cos_min": cos_min, "timing_ms": timing}
+    return out
+
+
+def adaptive_phase(model, images: np.ndarray) -> dict:
+    """``adaptive_logits`` with the int8 pruned tower as the cheap path: at
+    margin inf it equals the full path, at -inf the cheap path."""
+    import torch
+
+    from tapclip_tpu_torch.models.model_wrapper import FullModel, full_model_forward
+    from tapclip_tpu_torch.utils.adaptive_eval import adaptive_logits
+
+    m = FullModel(CLASSES, model.clip_params, model.clip_cfg)
+    cheap = m.clip_cfg.replace(token_keep_ratio=0.5, quantize_tower=True)
+    x = torch.from_numpy(images).cuda()
+    want = {}
+    with torch.inference_mode():
+        for name, c in (("full", m.clip_cfg), ("cheap", cheap)):
+            want[name] = full_model_forward(m.clip_params, m.trainable, m.prompt_learner.bank, x, None,
+                                            clip_cfg=c, prompt_cfg=m.prompt_cfg)["logits"].float().cpu().numpy()
+    errs, stats = {}, {}
+    for name, margin in (("full", np.inf), ("cheap", -np.inf)):
+        got, stats[name] = adaptive_logits(m, images, margin=margin, cheap_cfg=cheap)
+        errs[name] = float(np.abs(got - want[name]).max())
+    print(f"adaptive_logits: margin inf vs the full path max abs err {errs['full']:.3e} ({stats['full']}), "
+          f"-inf vs the cheap path {errs['cheap']:.3e} ({stats['cheap']}); cheap vs full "
+          f"{float(np.abs(want['cheap'] - want['full'])[:, :len(CLASSES)].max()):.3e}", flush=True)
+    require(errs["full"] <= 1e-5 and stats["full"]["n_rescued"] == len(images), "adaptive_logits at margin inf")
+    require(errs["cheap"] <= 1e-5 and stats["cheap"]["n_rescued"] == 0, "adaptive_logits at margin -inf")
+    return {"errors": errs, "stats": stats}
+
+
+def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict) -> list:
+    """The kernels-line entries of B13, B14, S5 and S6: launches on the int8
+    serving drive (f32, stochastic), errors and times at ViT-B/16 (B13, B14,
+    S5) and at the probe's shape (S6)."""
+    def main_case(name, dtype, mode):
+        return [c for c in int8_kernels[name]["cases"]
+                if c["dtype"] == dtype and c["mode"] == mode and "ms" in c][0]
+
+    out = []
+    for name in ("int8_mlp", "int8_attn"):
+        c = main_case(name, "float32", "stochastic")
+        rtn, bf, bf_rtn = (main_case(name, d, m) for d, m in (("float32", "round-to-nearest"),
+                                                            ("bfloat16", "stochastic"),
+                                                            ("bfloat16", "round-to-nearest")))
+        cases = int8_kernels[name]["cases"]
+        out.append({
+            "name": name, "route": "cuda", **INT8_KERNELS[name], "launches": launches[name],
+            "max_abs_err": max(x["max_abs_err"] for x in cases if x["dtype"] == "float32"),
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None, "shape": c["shape"], "wrapper_ms": c["wrapper_ms"],
+            "update_rel_err": max(x["update_rel_err"] for x in cases if x["dtype"] == "float32"),
+            "rtn_ms": rtn["ms"], "rtn_plain_ms": rtn["plain_ms"],
+            "bf16_ms": bf["ms"], "bf16_plain_ms": bf["plain_ms"], "bf16_rtn_ms": bf_rtn["ms"],
+            "bf16_update_rel_err": max(x["update_rel_err"] for x in cases if x["dtype"] == "bfloat16"),
+            "mean_of_seeds": int8_kernels[name]["mean_of_seeds"],
+        })
+    base = main_case("int8_mlp", "float32", "stochastic")
+    for vname, key in (("int8_mlp_erf3", "erf3"), ("int8_mlp_recipmul", "recipmul"),
+                       ("int8_mlp_erf3_recipmul", "both")):
+        v = variants["variants"][key]
+        out.append({"name": vname, "route": "cuda", **INT8_KERNELS[vname], "launches": launches["int8_mlp_variants"],
+                    "max_abs_err": v["max_abs_err"], "ms": v["median_ms"], "plain_ms": v["plain_ms"],
+                    "bound_ms": base["bound_ms"], "bound_by": base["bound_by"], "library_ms": None,
+                    "shape": variants["shape"], "base_ms": variants["variants"]["base"]["median_ms"],
+                    "vs_base_rel_err": v["vs_base_rel_err"]})
+    p = gemm["probe"]
+    out.append({"name": "int8_gemm", "route": "cuda", **INT8_KERNELS["int8_gemm"], "launches": launches["int8_gemm"],
+                "max_abs_err": max(p["max_abs_err_int32"], p["max_abs_err_f32"]), "ms": p["ms"],
+                "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+                "library_ms": p["library_ms"], "shape": p["shape"], "ms_f32_out": p["ms_f32_out"],
+                "matmul_bf16_ms": p["matmul_bf16_ms"], "gemm_cu_bf16_ms": p["gemm_cu_bf16_ms"],
+                "b13_products_ms": {k: gemm[k]["ms"] for k in ("b13 fc", "b13 proj")}})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1434,24 +2039,41 @@ def main() -> int:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers per thread, "
               f"{spills} bytes of spill stores", flush=True)
 
-    kernels = check_kernels()
-    kernels.update(check_backward())
-    kernels.update(check_text_kernels())
-    kernels.update(check_flash_kernels())
-    repairs = check_long_repairs()
+    phase_s = {"build": log["seconds"]}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    kernels = phase("kernels", check_kernels)
+    kernels.update(phase("backward", check_backward))
+    kernels.update(phase("text kernels", check_text_kernels))
+    kernels.update(phase("flash kernels", check_flash_kernels))
+    repairs = phase("long repairs", check_long_repairs)
+    int8_kernels = phase("int8 kernels", check_int8_kernels)
+    variants = phase("int8 variants", check_int8_variants)
+    gemm = phase("int8 gemm", check_int8_gemm)
     t0 = time.perf_counter()
     model = build_model(VIT_B_16, CLASSES, "cuda", seed=0)
     print(f"serve: built {VIT_B_16.name} (width {VIT_B_16.vision_width}/{VIT_B_16.text_width}, "
           f"{VIT_B_16.vision_layers}+{VIT_B_16.text_layers} layers, {VIT_B_16.dtype}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    served = serve_path(model)
-    serve_bf16(model, served["images"], served["served_logits"])
-    text_path(model, served["images"])
-    split = fused_split_phase(model, served["images"])
-    trained = {dtype: train_phase(model.clip_params, VIT_B_16, dtype) for dtype in ("float32", "bfloat16")}
-    idiomatic = {dtype: idiomatic_train_phase(model.clip_params, VIT_B_16, dtype)
+    served = phase("serve", serve_path, model)
+    images = served["images"]
+    phase("serve bf16", serve_bf16, model, images, served["served_logits"])
+    phase("text", text_path, model, images)
+    split = phase("fused_split", fused_split_phase, model, images)
+    trained = {dtype: phase(f"train {dtype}", train_phase, model.clip_params, VIT_B_16, dtype)
+               for dtype in ("float32", "bfloat16")}
+    idiomatic = {dtype: phase(f"idiomatic {dtype}", idiomatic_train_phase, model.clip_params, VIT_B_16, dtype)
                  for dtype in ("float32", "bfloat16")}
-    pallas = {dtype: pallas_train_phase(model.clip_params, VIT_B_16, dtype) for dtype in ("float32", "bfloat16")}
+    pallas = {dtype: phase(f"pallas {dtype}", pallas_train_phase, model.clip_params, VIT_B_16, dtype)
+              for dtype in ("float32", "bfloat16")}
+    int8_served = phase("int8 serve", int8_serve_phase, model, images)
+    pruned = phase("pruned serve", pruned_serve_phase, model, images)
+    phase("adaptive", adaptive_phase, model, images)
 
     record = []
     for name, meta in KERNELS.items():
@@ -1498,6 +2120,8 @@ def main() -> int:
         if name == "fused_mha":
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)
+    record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"])
+    print("chip_smoke: phase seconds " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,15 @@ parameter dict in the JAX package's layout (see ``utils/jax_bridge.py`` for
 the bridge from a JAX tree).  The patch embedding is a reshape + GEMM over
 NHWC images, numerically a strided conv.
 
-Ported: ``init_clip_params`` (ViT), ``patchify``, ``encode_image``,
-``embed_tokens``, ``encode_text`` (the proper CLIP text encoder: positional
-embedding, causal mask, ``ln_final``, EOT pooling), ``text_forward_embeds``
-in ``ref_compat`` and ``idiomatic`` mode, and ``l2_normalize``; every
-``attn_impl`` of the JAX package.  The ResNet tower, MoE, VPT, MaPLe's deep
-prompts, token pruning and the int8 tower raise ``NotImplementedError``.
+Ported: ``init_clip_params`` (ViT), ``patchify``, ``encode_image`` (with
+the int8 W8A8 tower of ``quantize_tower`` / ``int8_deterministic`` and the
+attention-aware token pruning of ``token_keep_ratio``), ``embed_tokens``,
+``encode_text`` (the proper CLIP text encoder: positional embedding, causal
+mask, ``ln_final``, EOT pooling), ``text_forward_embeds`` in ``ref_compat``
+and ``idiomatic`` mode, and ``l2_normalize``; every ``attn_impl`` of the JAX
+package.  The text tower is never quantized, as in the JAX package.  The
+ResNet tower, MoE, VPT and MaPLe's deep prompts raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,10 +37,6 @@ def _unported(cfg: CLIPConfig) -> Optional[str]:
         return "mixture-of-experts towers"
     if cfg.vpt_tokens:
         return "visual prompt tokens (VPT)"
-    if cfg.quantize_tower:
-        return "the int8 tower (quantize_tower)"
-    if cfg.token_keep_ratio < 1.0:
-        return "token pruning (token_keep_ratio < 1)"
     return None
 
 
@@ -139,6 +138,19 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     L2-normalizes.  The tower runs at T padded to a multiple of 8 (197 -> 200
     at ViT-B/16) with the pad keys masked; the pooled class token is row 0.
     """
+    if cfg.vision_tower == "resnet":
+        # As the JAX package: a quantization or pruning flag on the
+        # convolutional tower fails loudly rather than being a silent no-op.
+        if cfg.quantize_tower:
+            raise NotImplementedError(
+                "quantize_tower is implemented for ViT towers only "
+                "(the RN-family tower is convolutional)"
+            )
+        if cfg.token_keep_ratio < 1.0:
+            raise NotImplementedError(
+                "token_keep_ratio applies to ViT towers only "
+                "(the RN-family tower has no token sequence to prune)"
+            )
     check_supported(cfg)
     p = params["visual"]
     dtype = cfg.compute_dtype
@@ -150,12 +162,65 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     x = x + p["positional_embedding"].to(dtype)[None]
     x = layers.layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, kv_valid = _pad_to_8(x)
-    x, _ = layers.transformer_forward(
-        x, p["blocks"], cfg.vision_heads, act=cfg.act, ln_eps=cfg.ln_eps,
-        kv_valid_len=kv_valid, impl=cfg.attn_impl,
-    )
+    if cfg.token_keep_ratio < 1.0 and cfg.token_prune_layer < cfg.vision_layers:
+        x = _forward_with_token_pruning(p, cfg, x, kv_valid)
+    else:
+        x, _ = layers.transformer_forward(
+            x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, **_tower_kw(cfg),
+        )
     x = layers.layer_norm(x, p["ln_post"], cfg.ln_eps)
     return layers.dense(x[:, 0], p["proj"])
+
+
+def _tower_kw(cfg: CLIPConfig) -> Dict[str, Any]:
+    """The vision blocks' options: activation, LayerNorm eps, attention route
+    and the int8 tower's flags."""
+    return dict(act=cfg.act, ln_eps=cfg.ln_eps, impl=cfg.attn_impl,
+                quantize=cfg.quantize_tower, quantize_deterministic=cfg.int8_deterministic)
+
+
+def token_keep_indices(blk: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid) -> torch.Tensor:
+    """``[B, n_keep]`` indices of the tokens to keep: the class token first,
+    then the patches in order of the class query's head-averaged attention
+    under block ``blk``'s q/k weights (pads at -inf)."""
+    y = layers.layer_norm(x, blk["ln_1"], cfg.ln_eps)
+    B, T, W = y.shape
+    H = cfg.vision_heads
+    Dh = W // H
+    w_qkv, b_qkv = blk["attn"]["w_qkv"], blk["attn"]["b_qkv"]
+    dt = y.dtype
+
+    def proj(rows, lo):  # rows @ w[:, lo:lo+W] + b[lo:lo+W] in the compute dtype
+        return rows @ w_qkv[:, lo:lo + W].to(dt) + b_qkv[lo:lo + W].to(dt)
+
+    q_cls = proj(y[:, :1], 0).reshape(B, 1, H, Dh)
+    keys = proj(y, W).reshape(B, T, H, Dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q_cls, keys).float()[:, :, 0] * (Dh ** -0.5)  # [B, H, T]
+    if kv_valid is not None:
+        ki = torch.arange(T, device=x.device)[None, None, :]
+        logits = torch.where(ki < kv_valid, logits, torch.full_like(logits, -torch.inf))
+    scores = torch.softmax(logits, dim=-1).mean(dim=1)  # [B, T]
+    n_keep = max(8, int(T * cfg.token_keep_ratio) // 8 * 8)  # a multiple of 8
+    if kv_valid is not None:
+        # Never keep more tokens than exist: past this point kv_valid is
+        # dropped, so a kept pad row would become an attendable key.
+        n_keep = min(n_keep, max(kv_valid // 8 * 8, 8))
+    scores[:, 0] = torch.inf  # the class token is always kept, first
+    return torch.topk(scores, n_keep, dim=-1).indices
+
+
+def _forward_with_token_pruning(p: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid):
+    """Attention-aware token filtering (EViT/ATS-style), as the JAX package's:
+    ``token_prune_layer`` blocks at the padded T with the pad keys masked,
+    then the tokens of :func:`token_keep_indices` under the next block's
+    weights, then the remaining blocks on them without a mask."""
+    k = cfg.token_prune_layer
+    front, back = p["blocks"][:k], p["blocks"][k:]
+    x, _ = layers.transformer_forward(x, front, cfg.vision_heads, kv_valid_len=kv_valid, **_tower_kw(cfg))
+    idx = token_keep_indices(back[0], cfg, x, kv_valid)
+    x = torch.take_along_dim(x, idx[:, :, None], dim=1)
+    x, _ = layers.transformer_forward(x, back, cfg.vision_heads, **_tower_kw(cfg))
+    return x
 
 
 def embed_tokens(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:

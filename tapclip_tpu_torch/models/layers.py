@@ -26,7 +26,15 @@ aux.  Each kernel wrapper launches its CUDA kernel on a CUDA tensor and its
 plain version on a CPU tensor.  The QKV and out-projections stay
 ``torch.matmul``: the JAX package computes them outside any Pallas kernel.
 
-Every kernel differentiates: ``fused_attn_block``, ``fused_mha``,
+``quantize`` (``CLIPConfig.quantize_tower``, the frozen tower's eval path)
+routes as the JAX package does, whatever ``impl``: a non-causal block without
+the attribution aux and with an int (or no) ``kv_valid_len`` runs the int8
+attention half-block (B14, ``int8_attn_block``), and every ``gelu`` MLP the
+int8 MLP (B13, ``int8_mlp_block``); ``quantize_deterministic``
+(``int8_deterministic``) picks round-to-nearest in both.  Neither has a
+gradient.
+
+Every other kernel differentiates: ``fused_attn_block``, ``fused_mha``,
 ``fused_mlp_block`` and ``fused_attention`` are ``torch.autograd.Function`` s
 whose backward is the hand-written B4 / B7 / B5 / flash chain on the card
 (weight gradients only where a parameter requires one).  Under
@@ -45,6 +53,8 @@ import torch.nn.functional as F
 from tapclip_tpu_torch.ops.attention import IntOrTensor, multi_head_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
+from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
 
 Params = Dict[str, Any]
 
@@ -136,11 +146,20 @@ def block_forward(
     kv_valid_len: Optional[int] = None,
     attn_to_idx: IntOrTensor = None,
     impl: str = "auto",
+    quantize: bool = False,
+    quantize_deterministic: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-LN residual attention block (open_clip ResidualAttentionBlock)."""
-    if impl in ("auto", "fused") and attn_to_idx is None and not causal and (
+    plain_attn_block = attn_to_idx is None and not causal and (
         kv_valid_len is None or isinstance(kv_valid_len, int)
-    ):
+    )
+    if quantize and plain_attn_block:
+        x = int8_attn_block(
+            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps,
+            deterministic=quantize_deterministic,
+        )
+        aux = None
+    elif impl in ("auto", "fused") and plain_attn_block:
         x = fused_attn_block(
             x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps
         )
@@ -151,7 +170,9 @@ def block_forward(
             kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl,
         )
         x = x + h
-    if act == "gelu" and impl in ("auto", "fused", "fused_split"):
+    if quantize and act == "gelu":
+        x = int8_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, deterministic=quantize_deterministic)
+    elif act == "gelu" and impl in ("auto", "fused", "fused_split"):
         x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps)
     else:
         x = x + mlp_forward(layer_norm(x, p["ln_2"], ln_eps), p["mlp"], act)
@@ -169,13 +190,16 @@ def transformer_forward(
     kv_valid_len: Optional[int] = None,
     attn_to_idx: IntOrTensor = None,
     impl: str = "auto",
+    quantize: bool = False,
+    quantize_deterministic: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order; the attribution aux comes from the last one.
 
     The reference hooks the last text block's attention, so only the last
     block gets ``attn_to_idx`` (the JAX package runs it outside its scan).
     """
-    kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl)
+    kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
+              quantize=quantize, quantize_deterministic=quantize_deterministic)
     head = blocks if attn_to_idx is None else blocks[:-1]
     for blk in head:
         x, _ = block_forward(x, blk, n_heads, **kw)

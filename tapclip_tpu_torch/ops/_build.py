@@ -41,6 +41,7 @@ NVCC_FLAGS = (
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 # C signature of every launcher: argument types in order.  Pointers and the
@@ -84,6 +85,20 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, valid, dq, B, H, T, Dh, sq_b, sq_h, sq_t,
     # sg_b, sg_h, sg_t, causal, dtype, stream
     "tapclip_flash_bwd_dq": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
+    # x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, R, W, H,
+    # eps, seed, deterministic, variant, dtype, stream
+    "tapclip_int8_mlp": (P, P, P, P, P, P, P, P, P, P, I, I, I, F, U, I, I, I, P),
+    # W, H
+    "tapclip_int8_mlp_smem_bytes": (I, I),
+    # x, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, R, W, eps, seed, deterministic,
+    # dtype, stream
+    "tapclip_int8_qkv": (P, P, P, P, P, P, P, I, I, F, U, I, I, P),
+    # qkv, a, B, T, W, n_heads, valid, round_p, stream
+    "tapclip_int8_attn_core": (P, P, I, I, I, I, I, I, P),
+    # a, w_out, s_out, b_out, x, out, R, W, seed, deterministic, dtype, stream
+    "tapclip_int8_out": (P, P, P, P, P, P, I, I, U, I, I, P),
+    # a, b, c, M, N, K, out_f32, stream
+    "tapclip_int8_gemm": (P, P, P, I, I, I, I, P),
 }
 
 build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load

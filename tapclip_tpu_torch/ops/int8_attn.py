@@ -1,0 +1,155 @@
+"""int8 W8A8 attention half-block for the frozen-tower eval path (B14).
+
+Counterpart of ``tapclip_tpu/ops/int8_attn.py``: ``x + out_proj(attn(qkv(layer_norm(x))))``
+with the qkv and output projections quantized as in :mod:`.int8_mlp` (int8
+weights per output column, int8 activations per row, exact int32 sums) and
+the attention core in f32, keys at or past ``valid_len`` masked, never
+causal.  Eval only.
+
+The two modes compute what the JAX package computes in each:
+
+* **stochastic**: the Pallas kernel ``_int8_attn_kernel``'s function with
+  the port's draws (:func:`.int8_mlp.rand_bits`): LayerNorm's output f32; q
+  and k f32, v rounded to the compute dtype; p rounded to v's dtype before
+  p.v, the sum of p unrounded, the output normalised after (exp2 softmax, as
+  the kernel); the attention output f32 before its quantizer.
+* **deterministic**: ``_xla_int8_attn_reference``'s function: LayerNorm's
+  output rounded to the compute dtype before it is quantized, the attention
+  core in f32 throughout (``attention_reference``).
+
+:func:`int8_attn_block` makes the three launches of ``csrc/int8_attn.cu``
+(the hand-written B14) on a CUDA tensor in either mode and runs the plain
+version (:func:`int8_attn_plain`) on a CPU tensor.  The TPU kernel's
+head-pair packing and its VMEM picker (``int8_attn.py:226-229``) are TPU
+layout choices and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from tapclip_tpu_torch.ops import _build
+from tapclip_tpu_torch.ops.attention import attention_reference
+from tapclip_tpu_torch.ops.fused_mha import _LOG2E, _check_heads, _merge_heads, _split_heads
+from tapclip_tpu_torch.ops.int8_mlp import (
+    STREAM_ATTN_A,
+    STREAM_ATTN_Y,
+    _f32_operand,
+    int_dot,
+    ln_f32,
+    pack_k4,
+    quantize_activations,
+    quantize_cols_int8,
+    refuse_graph,
+)
+
+
+def quantize_attn(attn) -> Dict[str, torch.Tensor]:
+    """The projections' weights as the kernels take them."""
+    w_qkv, s_qkv = quantize_cols_int8(attn["w_qkv"])
+    w_out, s_out = quantize_cols_int8(attn["w_out"])
+    return {"w_qkv": w_qkv, "s_qkv": s_qkv, "b_qkv": attn["b_qkv"].float(),
+            "w_out": w_out, "s_out": s_out, "b_out": attn["b_out"].float()}
+
+
+def attn_core_exp2(qkv: torch.Tensor, n_heads: int, valid: int, p_dtype) -> torch.Tensor:
+    """The TPU kernel's attention core over f32 ``qkv [B, T, 3W]``: scores in
+    the log2 domain, keys at or past ``valid`` at -1e30, p rounded to
+    ``p_dtype`` before p.v, normalised by the unrounded sum after.  f32 out."""
+    T, W = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (_split_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    s = (q @ k.transpose(-1, -2)) * ((W // n_heads) ** -0.5 * _LOG2E)
+    keys = torch.arange(T, device=qkv.device) < valid
+    s = torch.where(keys, s, torch.full_like(s, -1e30))
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = (p.to(p_dtype).float() @ v) / p.sum(dim=-1, keepdim=True)
+    return _merge_heads(o)
+
+
+def int8_attn_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
+                    deterministic=False):
+    """Plain version of B14 on the quantized weights ``q`` (:func:`quantize_attn`)."""
+    B, T, W = x.shape
+    x2 = x.reshape(B * T, W)
+    y = ln_f32(x2, gamma, beta, eps)
+    yq, t1 = quantize_activations(y, x.dtype, seed, STREAM_ATTN_Y, deterministic, round_input=True)
+    qkv = int_dot(yq, q["w_qkv"]) * t1 * q["s_qkv"] + q["b_qkv"]
+    if deterministic:
+        heads = [_split_heads(t, n_heads) for t in qkv.reshape(B, T, 3 * W).split(W, dim=-1)]
+        a = _merge_heads(attention_reference(*heads, kv_valid_len=None if valid == T else valid)[0])
+    else:
+        qkv = torch.cat([qkv[:, :2 * W], qkv[:, 2 * W:].to(x.dtype).float()], dim=-1)
+        a = attn_core_exp2(qkv.reshape(B, T, 3 * W), n_heads, valid, x.dtype)
+    aq, t2 = quantize_activations(a.reshape(B * T, W), x.dtype, seed, STREAM_ATTN_A, deterministic)
+    out = int_dot(aq, q["w_out"]) * t2 * q["s_out"] + q["b_out"]
+    return (out + x2.float()).to(x.dtype).reshape(B, T, W)
+
+
+def int8_attn_reference(x, ln_params, attn_params, n_heads: int, valid: int, eps: float = 1e-5):
+    """The round-to-nearest model, as ``_xla_int8_attn_reference``."""
+    return int8_attn_plain(x, ln_params["scale"], ln_params["bias"], quantize_attn(attn_params),
+                           n_heads, valid, eps=eps, deterministic=True)
+
+
+def int8_attn_sr_reference(x, ln_params, attn_params, n_heads: int, valid: int,
+                           eps: float = 1e-5, seed: int = 0):
+    """What the TPU kernel computes, fed the port's draws of ``seed``."""
+    return int8_attn_plain(x, ln_params["scale"], ln_params["bias"], quantize_attn(attn_params),
+                           n_heads, valid, eps=eps, seed=seed)
+
+
+def int8_attn_block(x: torch.Tensor, ln_params, attn_params, n_heads: int, *,
+                    valid_len: Optional[int] = None, eps: float = 1e-5, seed: int = 0,
+                    deterministic: bool = False) -> torch.Tensor:
+    """The int8 attention half-block over ``x [B, T, W]``: B14 on CUDA (either
+    mode), plain on CPU.  Eval only."""
+    refuse_graph("int8_attn_block", x, *ln_params.values(), *attn_params.values())
+    valid = valid_len if valid_len is not None else x.shape[1]
+    q = quantize_attn(attn_params)
+    gamma, beta = ln_params["scale"], ln_params["bias"]
+    if x.device.type == "cpu":
+        return int8_attn_plain(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
+                               deterministic=deterministic)
+    return int8_attn_cuda(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
+                          deterministic=deterministic)
+
+
+int8_attn_block.launches = 0
+
+
+def int8_attn_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
+                   deterministic=False):
+    """B14 on the card: qkv launch, attention core, out launch."""
+    B, T, W = x.shape
+    R = B * T
+    _check_heads(T, W, n_heads, valid)
+    _build.check_cuda_operand("x", x, x.dtype, (B, T, W))
+    for name, shape in (("w_qkv", (W, 3 * W)), ("w_out", (W, W))):
+        _build.check_cuda_operand(name, q[name], torch.int8, shape)
+    f = {name: _f32_operand(name, t, (n,)) for name, t, n in (
+        ("gamma", gamma, W), ("beta", beta, W), ("s_qkv", q["s_qkv"], 3 * W),
+        ("b_qkv", q["b_qkv"], 3 * W), ("s_out", q["s_out"], W), ("b_out", q["b_out"], W))}
+    w_qkv, w_out = pack_k4(q["w_qkv"]), pack_k4(q["w_out"])
+    lib = _build.library()
+    code = _build.dtype_code(x.dtype)
+    stream = _build.stream_handle(x.device)
+    seed = int(seed) & 0xFFFFFFFF
+    qkv = torch.empty((R, 3 * W), dtype=torch.float32, device=x.device)
+    a = torch.empty((R, W), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    err = lib.tapclip_int8_qkv(x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(),
+                               w_qkv.data_ptr(), f["s_qkv"].data_ptr(), f["b_qkv"].data_ptr(),
+                               qkv.data_ptr(), R, W, float(eps), seed, int(deterministic), code, stream)
+    _build.check(err, "tapclip_int8_qkv")
+    round_p = int(not deterministic and x.dtype == torch.bfloat16)
+    err = lib.tapclip_int8_attn_core(qkv.data_ptr(), a.data_ptr(), B, T, W, n_heads, int(valid),
+                                     round_p, stream)
+    _build.check(err, "tapclip_int8_attn_core")
+    err = lib.tapclip_int8_out(a.data_ptr(), w_out.data_ptr(), f["s_out"].data_ptr(),
+                               f["b_out"].data_ptr(), x.data_ptr(), out.data_ptr(), R, W, seed,
+                               int(deterministic), code, stream)
+    _build.check(err, "tapclip_int8_out")
+    int8_attn_block.launches += 1
+    return out

@@ -383,8 +383,22 @@ def build_model(cfg, class_names, device: str, seed: int = 0):
     return FullModel(class_names, params, cfg)
 
 
-def main(argv: Optional[List[str]] = None):
+def server_config(args):
+    """The model config the parsed flags ask for (``--model`` or ``--preset``,
+    then ``--int8``, ``--int8-deterministic`` and ``--token-keep-ratio``, as
+    the JAX server applies them)."""
     from tapclip_tpu_torch.config import MODEL_PRESETS, preset
+
+    cfg = preset(args.preset).model if args.preset else MODEL_PRESETS[args.model]
+    if args.int8:
+        cfg = cfg.replace(quantize_tower=True, int8_deterministic=args.int8_deterministic)
+    if args.token_keep_ratio < 1.0:
+        cfg = cfg.replace(token_keep_ratio=args.token_keep_ratio)
+    return cfg
+
+
+def main(argv: Optional[List[str]] = None):
+    from tapclip_tpu_torch.config import MODEL_PRESETS
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model", default="ViT-B-16", choices=list(MODEL_PRESETS))
@@ -401,19 +415,33 @@ def main(argv: Optional[List[str]] = None):
                    help="random weights from a fixed seed (required: loading "
                         "open_clip weights is not yet ported)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    for flag in ("--pretrained", "--ckpt", "--int8", "--int8-deterministic",
-                 "--token-keep-ratio", "--dp"):
+    p.add_argument("--int8", action="store_true",
+                   help="serve the int8 W8A8 tower (ViT only)")
+    p.add_argument("--int8-deterministic", action="store_true",
+                   help="with --int8: round-to-nearest everywhere for reproducible "
+                        "scoring (the same kernels, without stochastic rounding)")
+    p.add_argument("--token-keep-ratio", type=float, default=1.0,
+                   help="attention-aware token pruning ratio (1.0 = off)")
+    for flag in ("--pretrained", "--ckpt", "--dp"):
         p.add_argument(flag, default=None, nargs="?", const=True, help=f"({NOT_PORTED})")
     args = p.parse_args(argv)
-    for flag in ("pretrained", "ckpt", "int8", "int8_deterministic", "token_keep_ratio", "dp"):
+    for flag in ("pretrained", "ckpt", "dp"):
         if getattr(args, flag) is not None:
             p.error(f"--{flag.replace('_', '-')} is {NOT_PORTED}")
     if not args.synthetic:
         p.error("pass --synthetic: loading open_clip weights is " + NOT_PORTED)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
-    cfg = preset(args.preset).model if args.preset else MODEL_PRESETS[args.model]
+    cfg = server_config(args)
     model = build_model(cfg, args.classes, args.device)
+    if model.device.type == "cuda":
+        # Build the kernels before the first request: nvcc takes longer than
+        # a request's timeout on a fresh checkout.
+        from tapclip_tpu_torch.ops import _build
+
+        _build.library()
+        log.info("kernels ready in %.1f s (%s)", _build.build_log["seconds"],
+                 "cached" if _build.build_log["cached"] else "nvcc")
     service = PredictService(model, batch_size=args.batch_size,
                              max_latency_ms=args.max_latency_ms, temperature=args.temperature)
     server = make_http_server(service, args.host, args.port)

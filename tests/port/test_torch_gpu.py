@@ -16,7 +16,12 @@ the f32 sums differs, over up to 1,600 rows and 3,072 hidden columns), bf16
 2e-2 (both sides round the same intermediates, but a value on the other side
 of a rounding step moves by one bf16 ulp, 2^-8 relative).  B7 is held the
 same way on its packed dqkv, and so are the flash backward chain's kernels
-(LSE at 1e-5 absolute in both dtypes: f32 math on the same inputs).
+(LSE at 1e-5 absolute in both dtypes: f32 math on the same inputs).  The
+int8 kernels (B13, B14) are held against their plain versions with the same
+random draws, in both modes, by the norm-relative error of the block's
+update (out - x): f32 2e-3 (an activation code on the other side of a
+rounding step, where LayerNorm's or erf's last bit differs, moves its row by
+about 5e-4), bf16 2e-2; the int8 product (S6) exactly.
 """
 
 import numpy as np
@@ -52,6 +57,9 @@ from tapclip_tpu_torch.ops.fused_mlp import (
     fused_mlp_bwd_reference,
     fused_mlp_reference,
 )
+from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_plain, quantize_attn
+from tapclip_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
+from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, quantize_mlp
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 BWD_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -512,3 +520,119 @@ def test_flash_chain_refuses_bad_operands(cuda):
         _flash_lse_cuda(q.cpu(), k.cpu(), valid, False)
     with pytest.raises(TypeError):
         _flash_lse_cuda(q, k, valid.long(), False)
+
+
+# --- the int8 eval tower: B13, B14 and the int8 product S6 ---------------------
+
+INT8_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _int8_case(cuda, B, T, W, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    H = 4 * W
+    x = _randn(gen, B, T, W)
+    ln = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    mlp = {"w_fc": _randn(gen, W, H, scale=W ** -0.5), "b_fc": _randn(gen, H, scale=0.1),
+           "w_proj": _randn(gen, H, W, scale=H ** -0.5), "b_proj": _randn(gen, W, scale=0.1)}
+    attn = {"w_qkv": _randn(gen, W, 3 * W, scale=W ** -0.5), "b_qkv": _randn(gen, 3 * W, scale=0.1),
+            "w_out": _randn(gen, W, W, scale=W ** -0.5), "b_out": _randn(gen, W, scale=0.1)}
+    return x, ln, mlp, attn
+
+
+def _close_update(name, got, want, x, tol):
+    got, want, x = got.float(), want.float(), x.float()
+    assert torch.isfinite(got).all(), name
+    err = float((got - want).norm() / (want - x).norm())
+    assert err <= tol, f"{name}: update norm-relative error {err:.3e} > {tol}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("B,T,W", [(1, 1, 64), (3, 7, 40), (2, 200, 256), (1, 264, 1024)],
+                         ids=["one-row", "ragged-w40", "image-t200", "vit-l-h4096"])
+def test_int8_mlp_kernel(cuda, dtype, deterministic, B, T, W):
+    x, ln, mlp, _ = _int8_case(cuda, B, T, W, B * T + W)
+    x = x.to(dtype)
+    q = quantize_mlp(mlp)
+    with torch.inference_mode():
+        n = int8_mlp_block.launches
+        got = int8_mlp_block(x, ln, mlp, deterministic=deterministic)
+        assert int8_mlp_block.launches == n + 1
+        want = int8_mlp_plain(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
+        again = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
+    _close_update("int8_mlp", got, want, x, INT8_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", [dict(erf3=True), dict(recipmul=True), dict(erf3=True, recipmul=True)],
+                         ids=["erf3", "recipmul", "both"])
+def test_int8_mlp_variants(cuda, variant):
+    x, ln, mlp, _ = _int8_case(cuda, 2, 200, 256, 5)
+    q = quantize_mlp(mlp)
+    with torch.inference_mode():
+        n = int8_mlp_block.variant_launches
+        got = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, **variant)
+        assert int8_mlp_block.variant_launches == n + 1
+        want = int8_mlp_plain(x, ln["scale"], ln["bias"], q, **variant)
+        base = int8_mlp_cuda(x, ln["scale"], ln["bias"], q)
+        with pytest.raises(ValueError, match="stochastic"):
+            int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=True, **variant)
+    _close_update("int8_mlp variant", got, want, x, INT8_TOL[torch.float32])
+    assert float((got - base).norm() / base.norm()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("B,T,W,heads,valid", [(2, 16, 128, 2, 13), (1, 65, 64, 4, 65), (3, 96, 768, 12, 96),
+                                               (1, 200, 768, 12, 197), (1, 40, 256, 8, 33)],
+                         ids=["dh64", "dh16-full", "pruned-t96", "image-t200", "dh32"])
+def test_int8_attn_kernel(cuda, dtype, deterministic, B, T, W, heads, valid):
+    x, ln, _, attn = _int8_case(cuda, B, T, W, T + W)
+    x = x.to(dtype)
+    q = quantize_attn(attn)
+    with torch.inference_mode():
+        n = int8_attn_block.launches
+        got = int8_attn_block(x, ln, attn, heads, valid_len=valid, deterministic=deterministic)
+        assert int8_attn_block.launches == n + 1
+        want = int8_attn_plain(x, ln["scale"], ln["bias"], q, heads, valid, deterministic=deterministic)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close_update("int8_attn", got, want, x, INT8_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_int8_blocks_refuse_a_graph_and_bad_operands(cuda):
+    x, ln, mlp, attn = _int8_case(cuda, 1, 8, 64, 3)
+    with pytest.raises(RuntimeError, match="eval only"):
+        int8_mlp_block(x.clone().requires_grad_(), ln, mlp)
+    with pytest.raises(RuntimeError, match="eval only"):
+        int8_attn_block(x, ln, {k: v.clone().requires_grad_() for k, v in attn.items()}, 2)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="head dims"):
+            int8_attn_block(x, ln, attn, 3)
+        with pytest.raises(TypeError):
+            int8_mlp_block(x.half(), ln, mlp)
+        with pytest.raises(ValueError, match="shared memory"):
+            x2, ln2, mlp2, _ = _int8_case(cuda, 1, 8, 2048, 4)
+            int8_mlp_block(x2, ln2, mlp2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1, 4, 1), (65, 68, 130), (1600, 768, 3072), (1600, 3072, 768)],
+                         ids=["one", "ragged", "b13-fc", "b13-proj"])
+def test_int8_gemm_kernel_is_exact(cuda, M, K, N):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), generator=gen, device=cuda, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, device=cuda, dtype=torch.int8)
+    n = int8_gemm.launches
+    for out_dtype in (torch.int32, torch.float32):
+        got = int8_gemm(a, b, out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        torch.testing.assert_close(got, int8_gemm_reference(a, b, out_dtype), rtol=0, atol=0)
+    assert int8_gemm.launches == n + 2
+    with pytest.raises(ValueError, match="multiple of 4"):
+        int8_gemm(a[:, :1].contiguous(), b[:1].contiguous())
+

@@ -135,14 +135,15 @@ def test_l2_normalize_and_patchify():
 def test_unported_configs_raise(geo):
     jc, jp, tc, tp = geo
     x = torch.from_numpy(_images(jc, n=1))
-    for kw in (dict(token_keep_ratio=0.5), dict(quantize_tower=True), dict(vpt_tokens=2),
-               dict(moe_experts=2)):
+    for kw in (dict(vpt_tokens=2), dict(moe_experts=2)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tclip.encode_image(tp, tc.replace(**kw), x)
     with pytest.raises(NotImplementedError, match="visual prompt tokens"):
         tclip.text_forward_embeds(tp, tc.replace(vpt_tokens=2), torch.zeros(1, 8, jc.text_width))
-    with pytest.raises(NotImplementedError, match="int8 tower"):
-        tclip.encode_text(tp, tc.replace(quantize_tower=True), np.zeros((1, jc.context_length), np.int32))
+    # The int8 tower is the vision tower's: the text tower ignores the flag.
+    ids = np.zeros((1, jc.context_length), np.int32)
+    torch.testing.assert_close(tclip.encode_text(tp, tc.replace(quantize_tower=True), ids),
+                               tclip.encode_text(tp, tc, ids), rtol=0, atol=0)
 
 
 # --- prompt layer ------------------------------------------------------------

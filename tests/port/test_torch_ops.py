@@ -193,6 +193,9 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         "mha.cu": "tapclip_tpu/ops/fused_mha.py::_mha_kernel",
         "mha_bwd.cu": "tapclip_tpu/ops/fused_mha.py::_mha_bwd_kernel",
         "flash_bwd.cu": "tapclip_tpu/ops/flash_attention.py::_blocked_lse_kernel",
+        "int8_mlp.cu": "tapclip_tpu/ops/int8_mlp.py::_int8_mlp_kernel",
+        "int8_attn.cu": "tapclip_tpu/ops/int8_attn.py::_int8_attn_kernel",
+        "int8_gemm.cu": "scripts/int8_probe.py::mm_kernel",
     }
     for fname, tpu in replaced.items():
         head = (_build.CSRC / fname).read_text()[:4000]

@@ -34,6 +34,9 @@ PORT_MODULES = [
     "tapclip_tpu_torch.ops.fused_mha",
     "tapclip_tpu_torch.ops.flash_attention",
     "tapclip_tpu_torch.ops.gemm",
+    "tapclip_tpu_torch.ops.int8_mlp",
+    "tapclip_tpu_torch.ops.int8_attn",
+    "tapclip_tpu_torch.ops.int8_gemm",
     "tapclip_tpu_torch.models.layers",
     "tapclip_tpu_torch.models.clip",
     "tapclip_tpu_torch.models.prompt_learner",
@@ -42,12 +45,15 @@ PORT_MODULES = [
     "tapclip_tpu_torch.models.model_wrapper",
     "tapclip_tpu_torch.utils.jax_bridge",
     "tapclip_tpu_torch.utils.logging_utils",
+    "tapclip_tpu_torch.utils.adaptive_eval",
     "tapclip_tpu_torch.parallel.train_step",
     "tapclip_tpu_torch.trainer",
     "tapclip_tpu_torch.serve",
     "tapclip_tpu_torch.featurize",
     "tapclip_tpu_torch.zero_shot",
     "tapclip_tpu_torch.time_attn_block_bwd",
+    "tapclip_tpu_torch.scripts.int8_mlp_ab",
+    "tapclip_tpu_torch.scripts.int8_probe",
 ]
 
 

@@ -224,8 +224,8 @@ def test_decode_image_payload_matches_jax():
 
 
 def test_main_refuses_what_is_not_ported(capsys):
-    for argv in (["--synthetic", "--int8"], ["--synthetic", "--dp", "2"],
-                 ["--synthetic", "--token-keep-ratio", "0.5"], []):
+    for argv in (["--synthetic", "--dp", "2"], ["--synthetic", "--ckpt", "p.pt"],
+                 ["--synthetic", "--pretrained", "w.pt"], []):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
