@@ -105,6 +105,13 @@ Run from the repository root:  python3 chip_smoke.py
     FEATURE_COS against the unpruned tower.
 19. ``adaptive_logits`` with the int8 pruned cheap path: margin inf equals
     the full path, -inf the cheap path.
+20. The A/B variants, off every main path (0 launches there): the four card
+    drivers' ``run()`` (``tapclip_tpu_torch/scripts/``: S1 the one-launch
+    fused layer, S2 K1's variants, S3 and S4 K2's) at ViT-B/16, batch 8, f32
+    and bf16.  Each distinct variant kernel is held against its plain version
+    (AB_TOL: the parents' F32_TOL / BF16_TOL), each variant with its parent's
+    configuration against the parent bit for bit, each timed in turns with
+    the parent (CUDA events) beside its plain version and the bound.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -319,6 +326,16 @@ INT8_KERNELS = {
 }
 
 
+# The A/B variants (S1-S4): each distinct variant kernel against its plain
+# version, atol = rtol, per dtype: the parents' limits, except the "bf16"
+# softmax in f32, which rounds (s - m) to bf16 before exp2, so an f32 ulp of
+# difference in s moves p by a bf16 step (reading on the CPU against the TPU
+# kernel, tests/port/test_torch_ab.py: 1.8e-4).
+AB_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL}
+AB_BF16_SOFTMAX_F32_TOL = 1e-3
+AB_DRIVERS = ("fused_layer_ab", "mlp_kernel_ab", "attn_kernel_ab", "attn_softmax_ab")
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -331,8 +348,9 @@ def require(cond: bool, msg: str) -> None:
 def _counters():
     """Each kernel's launch counter: (wrapper, attribute)."""
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
-    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
-    from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from tapclip_tpu_torch.ops.fused_layer import fused_layer
+    from tapclip_tpu_torch.ops.fused_mha import attn_block_variant, fused_attn_block, fused_mha
+    from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_variant
     from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
     from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
@@ -355,6 +373,9 @@ def _counters():
         "int8_attn": (int8_attn_block, "launches"),
         "int8_mlp_variants": (int8_mlp_block, "variant_launches"),  # S5, off the serving path
         "int8_gemm": (int8_gemm, "launches"),  # S6, off the serving path
+        "fused_layer": (fused_layer, "launches"),  # S1-S4, off every main path
+        "fused_mlp_variant": (fused_mlp_variant, "launches"),
+        "attn_block_variant": (attn_block_variant, "launches"),
     }
 
 
@@ -767,7 +788,8 @@ def serve_path(model) -> dict:
         explain = _post(base + "/explain", {"pixels": images[0].tolist()})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: n for name, n in read_counts().items() if name in FORWARD}
+        all_launches = read_counts()
+        launches = {name: n for name, n in all_launches.items() if name in FORWARD}
         stats = service.stats()
     finally:
         server.shutdown()
@@ -812,7 +834,7 @@ def serve_path(model) -> dict:
           f"probs {prob_err:.3e} (tol {PROB_TOL}), attribution {attr_err:.3e} (tol {ATTR_TOL})",
           flush=True)
     timing = time_model(model, plain, images)
-    return {"launches": launches, "stats": stats, "wall_s": wall, "logit_err": logit_err,
+    return {"launches": launches, "all_launches": all_launches, "stats": stats, "wall_s": wall, "logit_err": logit_err,
             "prob_err": prob_err, "attr_err": attr_err, "timing_ms": timing,
             "images": images, "served_logits": got_logits}
 
@@ -1656,6 +1678,85 @@ def check_int8_gemm() -> dict:
     return out
 
 
+def check_ab_variants() -> dict:
+    """S1-S4: the four A/B drivers at ViT-B/16, batch 8, f32 and bf16."""
+    import importlib
+
+    import torch
+
+    out = {}
+    for driver in AB_DRIVERS:
+        mod = importlib.import_module(f"tapclip_tpu_torch.scripts.{driver}")
+        for dtype in (torch.float32, torch.bfloat16):
+            res = mod.run(B=8, model="ViT-B-16", reps=3, dtype=dtype)
+            dt = res["dtype"]
+            out[(driver, dt)] = res
+            par = res["parent"]
+            print(f"ab {driver} [{res['shape']} {dt}]: parent {par['ms']:.4g} ms (plain {par['plain_ms']:.4g}), "
+                  f"bound {res['bound_ms']:.4g} ms ({res['bound_by']})"
+                  + (f", cooperative grid {res['grid']}" if "grid" in res else ""), flush=True)
+            for name, v in res["variants"].items():
+                if "same_as" in v:
+                    print(f"ab {driver} {name} [{dt}]: same kernel as {v['same_as']}", flush=True)
+                    continue
+                tol = AB_TOL[dt]
+                if dt == "float32" and v["flags"].get("softmax_opt") == "bf16":
+                    tol = AB_BF16_SOFTMAX_F32_TOL
+                print(f"ab {driver} {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of the parent), "
+                      f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
+                      f"(needs {v['vs_plain']['tol_needed']:.3e}, limit {tol}), vs parent max abs "
+                      f"{v['vs_parent']['max_abs_err']:.3e} rel {v['vs_parent']['rel_err']:.3e}"
+                      + (f", bit-equal to the parent: {v['bit_equal_parent']}" if "bit_equal_parent" in v else ""),
+                      flush=True)
+                require(v["vs_plain"]["finite"], f"ab {driver} {name} {dt}: output is not finite")
+                require(v["vs_plain"]["tol_needed"] <= tol,
+                        f"ab {driver} {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version > {tol}")
+                require(v.get("bit_equal_parent", True),
+                        f"ab {driver} {name} {dt}: the parent's configuration differs from the parent")
+    return out
+
+
+def _ab_source(driver: str, flags: dict) -> str:
+    if driver == "fused_layer_ab":
+        return "tapclip_tpu_torch/csrc/fused_layer.cu"
+    if driver == "mlp_kernel_ab":
+        return "tapclip_tpu_torch/csrc/fused_mlp_variants.cu"
+    online = flags["form"] == "softmax" or flags.get("softmax_opt") is True
+    return f"tapclip_tpu_torch/csrc/attn_variants_{'online' if online else 'two_pass'}.cu"
+
+
+def ab_record(ab: dict, launches: dict) -> list:
+    """The kernels-line entries of S1-S4: one per distinct variant kernel, with
+    its launches on the serving drive (0: no main path reaches it), f32 error
+    and times, bf16 beside them."""
+    import importlib
+
+    counter = {"fused_layer_ab": "fused_layer", "mlp_kernel_ab": "fused_mlp_variant",
+               "attn_kernel_ab": "attn_block_variant", "attn_softmax_ab": "attn_block_variant"}
+    out = []
+    for driver in AB_DRIVERS:
+        mod = importlib.import_module(f"tapclip_tpu_torch.scripts.{driver}")
+        f32, bf16 = ab[(driver, "float32")], ab[(driver, "bfloat16")]
+        for name, v in f32["variants"].items():
+            if "same_as" in v:
+                continue
+            replaces = mod.REPLACES if isinstance(mod.REPLACES, str) else mod.REPLACES[mod.VARIANTS[name][0]]
+            b = bf16["variants"][name]
+            out.append({
+                "name": f"{driver[:-3]}:{name}", "route": "cuda", "source": _ab_source(driver, v["flags"]),
+                "replaces": replaces, "launches": launches[counter[driver]],
+                "max_abs_err": v["vs_plain"]["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
+                "shape": f32["shape"], "flags": v["flags"],
+                "same_as_this": [n for n, w in f32["variants"].items() if w.get("same_as") == name],
+                "parent_ms": f32["parent"]["ms"], "ratio": v["ratio"],
+                "vs_parent_rel_err": v["vs_parent"]["rel_err"], "bit_equal_parent": v.get("bit_equal_parent"),
+                "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_max_abs_err": b["vs_plain"]["max_abs_err"],
+                "bf16_bound_ms": bf16["bound_ms"], "bf16_parent_ms": bf16["parent"]["ms"],
+            })
+    return out
+
+
 @contextlib.contextmanager
 def patched(module, name, fn):
     """``module.name`` replaced by ``fn(original, *args, **kwargs)`` for the block."""
@@ -2055,6 +2156,8 @@ def main() -> int:
     int8_kernels = phase("int8 kernels", check_int8_kernels)
     variants = phase("int8 variants", check_int8_variants)
     gemm = phase("int8 gemm", check_int8_gemm)
+    ab = phase("ab variants", check_ab_variants)
+    print(f"ab variants: {phase_s['ab variants']:.1f} s, on kernels built in {log['seconds']:.1f} s", flush=True)
     t0 = time.perf_counter()
     model = build_model(VIT_B_16, CLASSES, "cuda", seed=0)
     print(f"serve: built {VIT_B_16.name} (width {VIT_B_16.vision_width}/{VIT_B_16.text_width}, "
@@ -2121,6 +2224,7 @@ def main() -> int:
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)
     record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"])
+    record += ab_record(ab, served["all_launches"])
     print("chip_smoke: phase seconds " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": record}))

@@ -35,161 +35,19 @@
 // for both dtypes (tensor-core MMA is later work).
 // Padded query rows (valid <= t < T) are computed like any other row, so
 // they stay finite through every layer.
-#include "attn_tile.cuh"
+// The core's device code (LN statistics, the head's QKV slice, the attention
+// tiles) lives in attn_core.cuh, which the A/B variants (attn_variants_*.cu)
+// and the fused layer (fused_layer.cu) share; K2 instantiates its default
+// configuration.
+#include "attn_core.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace tapclip;
 
-constexpr int kThreads = 256;
-constexpr int kRowTile = 64;  // token rows per projection tile
-constexpr int kKTile = 32;    // reduction depth per staged tile
-
-template <int DH>
-struct CoreSmem {
-  static constexpr int kCols = 3 * DH;  // q, k, v columns of one head
-  static constexpr int kProj = kRowTile * (kKTile + 1) + kKTile * kCols;
-  static constexpr int kAttn = AttnTile<float, DH>::kSmemFloats;
-  static constexpr int kUnion = kProj > kAttn ? kProj : kAttn;
-  static size_t bytes(int T) { return (kUnion + 2 * T) * sizeof(float); }
-};
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-attn_block_core_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, const T* __restrict__ w_qkv,
-                       const float* __restrict__ b_qkv,
-                       float* ws,  // written, then read back by this block: no __restrict__
-                       T* __restrict__ attn, int H, int T_, int W, int valid,
-                       float eps) {
-  using Tile = AttnTile<T, DH>;
-  constexpr int kCols = CoreSmem<DH>::kCols;
-  constexpr int kNj = kCols / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* mean_s = smem + CoreSmem<DH>::kUnion;  // [T]
-  float* rstd_s = mean_s + T_;                  // [T]
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const T* xb = x + static_cast<size_t>(b) * T_ * W;
-  float* ws_q = ws + static_cast<size_t>(blockIdx.x) * 3 * T_ * DH;
-  float* ws_k = ws_q + static_cast<size_t>(T_) * DH;
-  float* ws_v = ws_k + static_cast<size_t>(T_) * DH;
-
-  // LayerNorm statistics, one warp per token.
-  for (int t = warp; t < T_; t += kThreads / 32) {
-    const T* xr = xb + static_cast<size_t>(t) * W;
-    float s = 0.f;
-    for (int c = lane; c < W; c += 32) s += to_f(xr[c]);
-    const float mean = warp_sum(s) / W;
-    float v = 0.f;
-    for (int c = lane; c < W; c += 32) {
-      const float d = to_f(xr[c]) - mean;
-      v += d * d;
-    }
-    const float var = warp_sum(v) / W;
-    if (lane == 0) {
-      mean_s[t] = mean;
-      rstd_s[t] = rsqrtf(var + eps);
-    }
-  }
-  __syncthreads();
-
-  // q, k, v of head h for all tokens: [T, 3 DH] = LN(x) @ w_qkv[:, head cols].
-  float* y_s = smem;                                // [kRowTile][kKTile + 1]
-  float* w_s = smem + kRowTile * (kKTile + 1);      // [kKTile][kCols]
-  for (int t0 = 0; t0 < T_; t0 += kRowTile) {
-    float acc[4][kNj];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kNj; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < W; k0 += kKTile) {
-      for (int e = tid; e < kRowTile * kKTile; e += kThreads) {
-        const int r = e / kKTile, kk = e % kKTile;
-        const int t = t0 + r, k = k0 + kk;
-        float val = 0.f;
-        if (t < T_ && k < W)
-          val = round_to<T>((to_f(xb[static_cast<size_t>(t) * W + k]) - mean_s[t]) *
-                                rstd_s[t] * gamma[k] + beta[k]);
-        y_s[r * (kKTile + 1) + kk] = val;
-      }
-      for (int e = tid; e < kKTile * kCols; e += kThreads) {
-        const int kk = e / kCols, c = e % kCols;
-        const int k = k0 + kk;
-        const int col = (c / DH) * W + h * DH + (c % DH);
-        w_s[kk * kCols + c] = k < W ? to_f(w_qkv[static_cast<size_t>(k) * 3 * W + col]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kKTile; ++kk) {
-        float a[4], bv[kNj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = y_s[(rg + 16 * i) * (kKTile + 1) + kk];
-#pragma unroll
-        for (int j = 0; j < kNj; ++j) bv[j] = w_s[kk * kCols + cg + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kNj; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + rg + 16 * i;
-      if (t >= T_) continue;
-#pragma unroll
-      for (int j = 0; j < kNj; ++j) {
-        const int c = cg + 16 * j;
-        const int part = c / DH, d = c % DH;
-        float val = acc[i][j] + b_qkv[part * W + h * DH + d];
-        if (part == 2) val = round_to<T>(val);  // v in the compute dtype
-        ws_q[static_cast<size_t>(part) * T_ * DH + static_cast<size_t>(t) * DH + d] = val;
-      }
-    }
-  }
-  __syncthreads();  // makes the workspace writes visible to the whole block
-
-  // Attention over 64-row query tiles.
-  float* Q_s = smem;
-  float* K_s = Q_s + Tile::kRows * Tile::kLd;
-  float* V_s = K_s + Tile::kKeys * Tile::kLd;
-  float* P_s = V_s + Tile::kKeys * Tile::kLd;
-  const float scale_log2 = rsqrtf(static_cast<float>(DH)) * kLog2e;
-  for (int q0 = 0; q0 < T_; q0 += Tile::kRows) {
-    for (int e = tid; e < Tile::kRows * DH; e += kThreads) {
-      const int r = e / DH, d = e % DH;
-      Q_s[r * Tile::kLd + d] = q0 + r < T_ ? ws_q[static_cast<size_t>(q0 + r) * DH + d] : 0.f;
-    }
-    Tile tile;
-    tile.init();
-    for (int kt0 = 0; kt0 < T_; kt0 += Tile::kKeys) {
-      for (int e = tid; e < Tile::kKeys * DH; e += kThreads) {
-        const int r = e / DH, d = e % DH;
-        const bool in = kt0 + r < T_;
-        const size_t off = static_cast<size_t>(kt0 + r) * DH + d;
-        K_s[r * Tile::kLd + d] = in ? ws_k[off] : 0.f;
-        V_s[r * Tile::kLd + d] = in ? ws_v[off] : 0.f;
-      }
-      __syncthreads();
-      tile.step(Q_s, K_s, V_s, P_s, kt0, T_, valid, scale_log2, rg, cg);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = q0 + rg + 16 * i;
-      if (t >= T_) continue;
-      const float inv_l = 1.f / tile.l[i];
-#pragma unroll
-      for (int j = 0; j < Tile::kDj; ++j) {
-        const int d = cg + 16 * j;
-        attn[(static_cast<size_t>(b) * T_ + t) * W + h * DH + d] = from_f<T>(tile.o[i][j] * inv_l);
-      }
-    }
-  }
-}
+constexpr int kThreads = kCoreThreads;
+constexpr int kKTile = 32;  // reduction depth per staged tile of the GEMM below
 
 // out[M, N] = a[M, K] @ w[K, N] + bias[N] + res[M, N]; 64 x 64 tiles, 4 x 4 per thread.
 template <typename T>
@@ -252,13 +110,14 @@ cudaError_t launch_core(const void* x, const float* gamma, const float* beta,
                         const void* w_qkv, const float* b_qkv, float* ws, void* attn,
                         int B, int T_, int W, int H, int valid, float eps,
                         cudaStream_t stream) {
-  const size_t smem = CoreSmem<DH>::bytes(T_);
-  auto kernel = attn_block_core_kernel<T, DH>;
+  using Cfg = CoreCfg<>;
+  const size_t smem = CoreSmem<DH, Cfg>::bytes(T_);
+  auto kernel = attn_core_kernel<T, DH, Cfg>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w_qkv), b_qkv, ws,
-      static_cast<T*>(attn), H, T_, W, valid, eps);
+  const CoreArgs<T> a{static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w_qkv), b_qkv, ws,
+                      attn, nullptr, nullptr, B, H, T_, W, valid, eps};
+  launch_attn_core<T, DH, Cfg>(a, CoreSwitches{0, 0, 0, 0, 1}, B * H, smem, stream);
   return cudaGetLastError();
 }
 

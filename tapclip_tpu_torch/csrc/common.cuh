@@ -59,6 +59,18 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
+// The A&S 7.1.25 3-term erf of scripts/_bench_util.py::erf3 (|err| <= 2.5e-5),
+// the erf3 switch of the A/B variants (int8_mlp.cu's S5, fused_mlp's S2),
+// written step by step so nvcc fuses nothing the plain versions round twice.
+__device__ __forceinline__ float erf3(float x) {
+  const float ax = fabsf(x);
+  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(0.47047f, ax)));
+  const float poly =
+      __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(0.7478556f, t), -0.0958798f), t), 0.3480242f), t);
+  const float y = __fsub_rn(1.f, __fmul_rn(poly, expf(-__fmul_rn(ax, ax))));
+  return x < 0.f ? -y : (x > 0.f ? y : 0.f);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

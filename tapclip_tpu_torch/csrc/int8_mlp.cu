@@ -37,16 +37,6 @@ namespace {
 
 using namespace tapclip;
 
-// The A&S 3-term erf of scripts/_bench_util.py::erf3 (|err| <= 2.5e-5).
-__device__ __forceinline__ float erf3(float x) {
-  const float ax = fabsf(x);
-  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(0.47047f, ax)));
-  const float poly =
-      __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(0.7478556f, t), -0.0958798f), t), 0.3480242f), t);
-  const float y = __fsub_rn(1.f, __fmul_rn(poly, expf(-__fmul_rn(ax, ax))));
-  return x < 0.f ? -y : (x > 0.f ? y : 0.f);
-}
-
 // Exact GELU in the plain version's order: (0.5 v) (1 + erf(v / sqrt 2)).
 template <bool ERF3>
 __device__ __forceinline__ float gelu(float v) {

@@ -99,6 +99,24 @@ _SIGNATURES = {
     "tapclip_int8_out": (P, P, P, P, P, P, I, I, U, I, I, P),
     # a, b, c, M, N, K, out_f32, stream
     "tapclip_int8_gemm": (P, P, P, I, I, I, I, P),
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, R, W, H, eps, rows,
+    # erf3, ln1pass, ilv, dtype, stream
+    "tapclip_fused_mlp_variant": (P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, I, P),
+    # x, gamma, beta, w_qkv, b_qkv, w_out, ws, attn, part, B, T, W, n_heads,
+    # valid, eps, form, sum_rounded, tail_split, smem_qkv, interleaved,
+    # ln1pass, qk_round, fold_q, mask, group, dtype, stream
+    "tapclip_attn_variant_online": (P,) * 9 + (I,) * 5 + (F,) + (I,) * 11 + (P,),
+    "tapclip_attn_variant_two_pass": (P,) * 9 + (I,) * 5 + (F,) + (I,) * 11 + (P,),
+    # T, smem_qkv, interleaved
+    "tapclip_attn_variant_smem_bytes": (I, I, I),
+    # part, groups, b_out, x, out, R, W, dtype, stream
+    "tapclip_attn_partials_reduce": (P, I, P, P, P, I, I, I, P),
+    # x, gamma1, beta1, w_qkv, b_qkv, w_out, b_out, gamma2, beta2, w_fc, b_fc,
+    # w_proj, b_proj, ws, attn, out, B, T, W, n_heads, H, valid, eps, grid,
+    # dtype, stream
+    "tapclip_fused_layer": (P,) * 16 + (I,) * 6 + (F, I, I, P),
+    # T, W, dtype
+    "tapclip_fused_layer_max_grid": (I, I, I),
 }
 
 build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load
@@ -171,6 +189,18 @@ def library() -> ctypes.CDLL:
         seconds=time.perf_counter() - t0, path=str(so), cached=cached, ptxas=ptxas
     )
     return lib
+
+
+def refuse_graph(name: str, *tensors) -> None:
+    """Eval-only kernels (no backward in the JAX package): raise where
+    autograd would record a graph."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is eval only (the JAX package gives it no gradient): run it under "
+            "torch.no_grad() or on inputs that do not require grad"
+        )
 
 
 def check(err: int, name: str) -> None:

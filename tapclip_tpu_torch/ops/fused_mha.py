@@ -46,10 +46,11 @@ import torch
 
 from tapclip_tpu_torch.ops import _build
 from tapclip_tpu_torch.ops.flash_attention import flash_attention_bwd_cuda
-from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _rnd, ln_backward
+from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _rnd, ln_backward
 from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
 
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e: scores are exp2'd
+_LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_tile.cuh's kLn2Bf16)
 
 
 def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
@@ -449,3 +450,187 @@ def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal, *, out=None):
     _build.check(err, "tapclip_mha_bwd")
     fused_mha.bwd_launches += 1
     return dqkv
+
+
+# --- S3, S4: the A/B variants of K2 -------------------------------------------
+#
+# ``form`` picks the TPU kernel a call stands for: "variant"
+# (scripts/attn_kernel_ab.py::make_variant_kernel: group_heads, ln_1pass,
+# perhead_qkv, softmax_opt in {False, True, "bf16"}), "interleaved" (its
+# make_interleaved_kernel: group_heads) or "softmax"
+# (scripts/attn_softmax_ab.py::make_kernel: qk_cast, fold_q, mask_mode in
+# {"full", "tail", "zerokv"}, group_heads, sum_mxu, tail_split).
+# ``group_heads`` is K2's heads per block here (1 in K2; the TPU scripts count
+# heads per 128-lane step, 2 at head dim 64): a schedule switch, like
+# tail_split.  The TPU switches with no counterpart on the card (swpipe, bB,
+# vmem_mb) are not taken: the drivers drop them.
+
+ATTN_VARIANT_FLAGS = {
+    "variant": ("group_heads", "ln_1pass", "perhead_qkv", "softmax_opt"),
+    "interleaved": ("group_heads",),
+    "softmax": ("group_heads", "qk_cast", "fold_q", "mask_mode", "sum_mxu", "tail_split"),
+}
+_FORM_CODE = {"online": 0, "normalized": 1, "bf16": 2}  # attn_tile.cuh's AttnForm
+_MASK_CODE = {"full": 0, "tail": 1, "zerokv": 2}
+
+
+def attn_variant_switches(form, T, valid, n_heads, **flags):
+    """The kernel switches (``attn_core.cuh``) of one variant; raises on a flag
+    the form does not take, and on ``mask_mode="tail"`` where a pad key lies
+    before the last 64-key tile or the last 128-key boundary (the TPU
+    kernel's precondition, ``attn_softmax_ab.py:87-89``)."""
+    if form not in ATTN_VARIANT_FLAGS:
+        raise ValueError(f"unknown attention variant form {form!r}")
+    bad = set(flags) - set(ATTN_VARIANT_FLAGS[form])
+    if bad:
+        raise ValueError(f"form {form!r} takes {ATTN_VARIANT_FLAGS[form]}, got {sorted(bad)}")
+    group = int(flags.get("group_heads", 1))
+    if group < 1 or n_heads % group:
+        raise ValueError(f"group_heads {group} must divide the {n_heads} heads")
+    sw = dict(softmax="online", sum_rounded=False, tail_split=False, smem_qkv=False, interleaved=False,
+              ln1pass=False, qk_round=False, fold_q=False, mask="full", group=group)
+    if form == "variant":
+        opt = flags.get("softmax_opt", False)
+        if opt not in (False, True, "bf16"):
+            raise ValueError(f"softmax_opt must be False, True or 'bf16', got {opt!r}")
+        perhead = bool(flags.get("perhead_qkv", False))
+        sw.update(softmax={False: "normalized", True: "online", "bf16": "bf16"}[opt],
+                  smem_qkv=perhead, qk_round=not perhead, ln1pass=bool(flags.get("ln_1pass", False)))
+    elif form == "interleaved":
+        sw.update(softmax="normalized", interleaved=True)
+    else:
+        mask = flags.get("mask_mode", "full")
+        if mask not in _MASK_CODE:
+            raise ValueError(f"mask_mode must be one of {sorted(_MASK_CODE)}, got {mask!r}")
+        sum_mxu = bool(flags.get("sum_mxu", False))
+        sw.update(qk_round=bool(flags.get("qk_cast", False)), fold_q=bool(flags.get("fold_q", False)),
+                  mask=mask, sum_rounded=sum_mxu, tail_split=bool(flags.get("tail_split", False)) and not sum_mxu)
+        first = max(T // 128 * 128, (T - 1) // 64 * 64)
+        if mask == "tail" and valid < T and valid < first:
+            raise ValueError(f"mask_mode='tail' selects only keys from {first} on (the last 64-key tile and "
+                             f"the last 128-key boundary), but valid={valid} of T={T} pads keys before that")
+    return sw
+
+
+def attn_block_variant_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, *,
+                                 eps=1e-5, form="variant", **flags):
+    """Plain version of S3/S4, rounded where the TPU script's kernel rounds:
+    LN(x) to x's dtype; q and k f32 unless the variant rounds them; v rounded;
+    the softmax of the variant's form; the attention output rounded before the
+    f32 out-projection, + b_out + x, one rounding of the result.  Schedule
+    switches (group_heads, tail_split, perhead_qkv's storage) change nothing
+    here.  In f32 the form "variant" with no flag is
+    :func:`attn_block_reference` operation for operation."""
+    B, T, W = x.shape
+    sw = attn_variant_switches(form, T, valid, n_heads, **flags)
+    dt = x.dtype
+    Dh = W // n_heads
+    scale = Dh ** -0.5
+    x32 = x.float()
+    y = (_ln_rows(x32, eps, sw["ln1pass"]) * gamma.float() + beta.float()).to(dt).float()
+    qkv = torch.matmul(y, _rnd(w_qkv, dt)) + b_qkv.float()
+    q, k, v = (_split_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    if sw["fold_q"]:
+        q = q * (scale * _LOG2E)
+    pad = torch.arange(T, device=x.device) >= valid
+    if sw["mask"] == "zerokv":
+        k = k.masked_fill(pad[:, None], 0.0)
+        v = v.masked_fill(pad[:, None], 0.0)
+    if sw["qk_round"]:
+        q, k = _rnd(q, dt), _rnd(k, dt)
+    v = _rnd(v, dt)
+    s = torch.matmul(q, k.transpose(-1, -2))
+    neg = torch.full_like(s, -1e30)
+    if sw["softmax"] == "normalized":
+        # exp(s - m) / l, the division before the rounding; softmax() as in
+        # attention_reference, so the flags-off f32 form is attn_block_reference.
+        o = torch.matmul(_rnd(torch.softmax(torch.where(pad, neg, s * scale), dim=-1), dt), v)
+    else:
+        if not sw["fold_q"]:
+            s = s * (scale * _LOG2E)
+        if sw["mask"] != "zerokv":
+            s = torch.where(pad, neg, s)
+        m = s.amax(dim=-1, keepdim=True)
+        if sw["softmax"] == "bf16":
+            # XLA's exp2 of a bf16 array: exp(bf16(x * bf16(ln 2))), rounded.
+            p = _rnd(torch.exp(_rnd(_rnd(s - m, torch.bfloat16) * _LN2_BF16, torch.bfloat16)), torch.bfloat16)
+            l = p.sum(dim=-1, keepdim=True)
+        else:
+            p = torch.exp2(s - m)
+            l = (_rnd(p, dt) if sw["sum_rounded"] else p).sum(dim=-1, keepdim=True)
+        if sw["mask"] == "zerokv":
+            l = l - (T - valid) * torch.exp2(-m)
+        o = torch.matmul(_rnd(p, dt), v) / l
+    attn = _rnd(_merge_heads(o), dt)
+    out = torch.matmul(attn, _rnd(w_out, dt)) + b_out.float()
+    return (out + x32).to(dt)
+
+
+def attn_block_variant(x, ln_params, attn_params, n_heads, valid, *, eps=1e-5, form="variant", **flags):
+    """S3/S4 (forward only): K2's core in the variant's configuration
+    (``csrc/attn_variants_online.cu``, ``attn_variants_two_pass.cu``), then the
+    out-projection (``tapclip_gemm_bias_residual``, or for the interleaved form
+    the per-group partials reduced by ``tapclip_attn_partials_reduce``) on a
+    CUDA tensor; :func:`attn_block_variant_reference` on a CPU tensor."""
+    params = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"], attn_params["b_qkv"],
+              attn_params["w_out"], attn_params["b_out"])
+    _build.refuse_graph("attn_block_variant", x, *params)
+    B, T, W = x.shape
+    sw = attn_variant_switches(form, T, valid, n_heads, **flags)
+    if x.device.type == "cpu":
+        return attn_block_variant_reference(x, *params, n_heads, valid, eps=eps, form=form, **flags)
+    Dh = _check_heads(T, W, n_heads, valid)
+    if Dh != 64:
+        raise ValueError(f"the attention variants take head dim 64 (ViT-B/16, ViT-L/14), got {Dh}")
+    lib = _build.library()
+    smem = lib.tapclip_attn_variant_smem_bytes(T, int(sw["smem_qkv"]), int(sw["interleaved"]))
+    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+    if smem > limit:
+        raise ValueError(f"perhead_qkv keeps q, k, v of T={T} in shared memory: {smem} bytes, past the "
+                         f"card's {limit} a block")
+    dtype, f32 = x.dtype, torch.float32
+    ops = {
+        "x": (x, dtype, (B, T, W)),
+        "gamma": (params[0].to(f32), f32, (W,)),
+        "beta": (params[1].to(f32), f32, (W,)),
+        "w_qkv": (params[2].to(dtype), dtype, (W, 3 * W)),
+        "b_qkv": (params[3].to(f32), f32, (3 * W,)),
+        "w_out": (params[4].to(dtype), dtype, (W, W)),
+        "b_out": (params[5].to(f32), f32, (W,)),
+    }
+    for name, (t, dt, shape) in ops.items():
+        _build.check_cuda_operand(name, t, dt, shape)
+    t = {name: v[0] for name, v in ops.items()}
+    groups = n_heads // sw["group"]
+    ws = None if sw["smem_qkv"] else torch.empty((B, n_heads, 3, T, Dh), dtype=f32, device=x.device)
+    attn = torch.empty_like(x)
+    part = torch.empty((groups, B, T, W), dtype=f32, device=x.device) if sw["interleaved"] else None
+    out = torch.empty_like(x)
+    code = _build.dtype_code(dtype)
+    stream = _build.stream_handle(x.device)
+    launcher = "tapclip_attn_variant_online" if sw["softmax"] == "online" else "tapclip_attn_variant_two_pass"
+
+    def ptr(tensor):
+        return None if tensor is None else tensor.data_ptr()
+
+    err = getattr(lib, launcher)(
+        x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(),
+        t["b_qkv"].data_ptr(), t["w_out"].data_ptr(), ptr(ws), attn.data_ptr(), ptr(part),
+        B, T, W, n_heads, int(valid), float(eps), _FORM_CODE[sw["softmax"]], int(sw["sum_rounded"]),
+        int(sw["tail_split"]), int(sw["smem_qkv"]), int(sw["interleaved"]), int(sw["ln1pass"]),
+        int(sw["qk_round"]), int(sw["fold_q"]), _MASK_CODE[sw["mask"]], sw["group"], code, stream,
+    )
+    _build.check(err, launcher)
+    if sw["interleaved"]:
+        err = lib.tapclip_attn_partials_reduce(part.data_ptr(), groups, t["b_out"].data_ptr(), x.data_ptr(),
+                                               out.data_ptr(), B * T, W, code, stream)
+        _build.check(err, "tapclip_attn_partials_reduce")
+    else:
+        err = lib.tapclip_gemm_bias_residual(attn.data_ptr(), t["w_out"].data_ptr(), t["b_out"].data_ptr(),
+                                             x.data_ptr(), out.data_ptr(), B * T, W, W, code, stream)
+        _build.check(err, "tapclip_gemm_bias_residual")
+    attn_block_variant.launches += 1
+    return out
+
+
+attn_block_variant.launches = 0

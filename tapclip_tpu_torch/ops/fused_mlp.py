@@ -212,3 +212,79 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
     dw_fc = gemm_f32(y, dhp, trans_a=True)
     dw_proj = gemm_f32(h, g.reshape(R, W), trans_a=True)
     return dx, sums[:W], sums[W:2 * W], dw_fc, sums[3 * W:], dw_proj, sums[2 * W:3 * W]
+
+
+# --- S2: the A/B variants of K1 (scripts/mlp_kernel_ab.py) -------------------
+
+
+def erf3_poly(z):
+    """The A&S 7.1.25 3-term erf of ``scripts/_bench_util.py::erf3`` (|err| <= 2.5e-5)."""
+    az = z.abs()
+    t = 1.0 / (1.0 + 0.47047 * az)
+    y = 1.0 - ((0.7478556 * t + -0.0958798) * t + 0.3480242) * t * torch.exp(-az * az)
+    return torch.sign(z) * y
+
+
+def _ln_rows(x32, eps, one_pass):
+    """(x32 - mean) * rstd over the last axis, f32; ``one_pass``: var = E[x^2] - mean^2."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    if one_pass:
+        var = (x32 * x32).mean(dim=-1, keepdim=True) - mean * mean
+    else:
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps)
+
+
+def fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps=1e-5, erf3=False,
+                                ln1pass=False, ilv=False, rows=16):
+    """Plain version of S2, rounded where ``scripts/mlp_kernel_ab.py``'s kernel
+    rounds: LN(x) and GELU's output to x's dtype; fc, GELU, the projection and
+    the residual in f32; one rounding of the result.  ``erf3`` takes the
+    3-term erf, ``ln1pass`` the one-pass variance; ``ilv`` and ``rows`` are
+    schedule switches and change nothing here.  In f32 with every switch off
+    it is :func:`fused_mlp_reference` operation for operation."""
+    del ilv, rows
+    dt = x.dtype
+    x32 = x.float()
+    y = (_ln_rows(x32, eps, ln1pass) * gamma.float() + beta.float()).to(dt).float()
+    h = torch.matmul(y, _rnd(w_fc, dt)) + b_fc.float()
+    if erf3:
+        g = 0.5 * h * (1.0 + erf3_poly(h * 2.0 ** -0.5))
+    else:
+        g = torch.nn.functional.gelu(h)
+    out = torch.matmul(g.to(dt).float(), _rnd(w_proj, dt)) + b_proj.float()
+    return (x32 + out).to(dt)
+
+
+def fused_mlp_variant(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps=1e-5, erf3=False,
+                      ln1pass=False, ilv=False, rows=16):
+    """S2 (forward only): K1 with the A/B switches of ``scripts/mlp_kernel_ab.py``
+    (``csrc/fused_mlp_variants.cu``) on a CUDA tensor, the plain version on a
+    CPU tensor.  ``rows`` 16 (K1's) or 8; every switch off is K1 itself."""
+    _build.refuse_graph("fused_mlp_variant", x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
+    if rows not in (16, 8) or (rows == 8 and (erf3 or ilv)):
+        raise ValueError(f"fused_mlp_variant takes rows 16 with any switch or rows 8 alone, got rows={rows}, "
+                         f"erf3={erf3}, ilv={ilv}")
+    kw = dict(eps=eps, erf3=erf3, ln1pass=ln1pass, ilv=ilv, rows=rows)
+    if x.device.type == "cpu":
+        return fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, **kw)
+    W = x.shape[-1]
+    H = w_fc.shape[-1]
+    if W % 4 or H % 4:
+        raise ValueError(f"fused_mlp kernel needs W and H divisible by 4, got W={W}, H={H}")
+    t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj)
+    b_proj = b_proj.to(torch.float32)
+    _build.check_cuda_operand("b_proj", b_proj, torch.float32, (W,))
+    out = torch.empty_like(x)
+    err = _build.library().tapclip_fused_mlp_variant(
+        x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
+        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(),
+        x.numel() // W, W, H, float(eps), rows, int(erf3), int(ln1pass), int(ilv),
+        _build.dtype_code(x.dtype), _build.stream_handle(x.device),
+    )
+    _build.check(err, "tapclip_fused_mlp_variant")
+    fused_mlp_variant.launches += 1
+    return out
+
+
+fused_mlp_variant.launches = 0

@@ -42,7 +42,6 @@ from tapclip_tpu_torch.ops.int8_mlp import (
     pack_k4,
     quantize_activations,
     quantize_cols_int8,
-    refuse_graph,
 )
 
 
@@ -105,7 +104,7 @@ def int8_attn_block(x: torch.Tensor, ln_params, attn_params, n_heads: int, *,
                     deterministic: bool = False) -> torch.Tensor:
     """The int8 attention half-block over ``x [B, T, W]``: B14 on CUDA (either
     mode), plain on CPU.  Eval only."""
-    refuse_graph("int8_attn_block", x, *ln_params.values(), *attn_params.values())
+    _build.refuse_graph("int8_attn_block", x, *ln_params.values(), *attn_params.values())
     valid = valid_len if valid_len is not None else x.shape[1]
     q = quantize_attn(attn_params)
     gamma, beta = ln_params["scale"], ln_params["bias"]

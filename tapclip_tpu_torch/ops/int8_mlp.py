@@ -138,15 +138,6 @@ def quantize_activations(v, dtype, seed, stream, deterministic, *, round_input=F
     return row_quant_sr(v, bits, recipmul)
 
 
-def refuse_graph(name: str, *tensors) -> None:
-    """The int8 kernels are eval only: raise where autograd would record a graph."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is eval only (the quantized tower has no gradient, as in the JAX "
-            "package): run it under torch.no_grad() or on inputs that do not require grad"
-        )
-
-
 def quantize_mlp(mlp) -> Dict[str, torch.Tensor]:
     """The MLP's weights as the kernel takes them: int8 per-column codes and
     scales, f32 biases."""
@@ -202,7 +193,7 @@ def int8_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5,
                    deterministic: bool = False) -> torch.Tensor:
     """``x + mlp_int8(layer_norm(x))`` for ``x [B, T, W]``: B13 on CUDA (either
     mode), plain on CPU.  Eval only."""
-    refuse_graph("int8_mlp_block", x, *ln_params.values(), *mlp_params.values())
+    _build.refuse_graph("int8_mlp_block", x, *ln_params.values(), *mlp_params.values())
     q = quantize_mlp(mlp_params)
     gamma, beta = ln_params["scale"], ln_params["bias"]
     if x.device.type == "cpu":

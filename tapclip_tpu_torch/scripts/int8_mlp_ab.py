@@ -52,7 +52,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None) -> dict:
     import torch
 
     from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_plain
-    from tapclip_tpu_torch.scripts.int8_probe import time_ms
+    from tapclip_tpu_torch.scripts._bench_util import time_ms
 
     dtype = dtype or torch.float32
     x, (gamma, beta), q = _case(B, model, dtype)
@@ -87,7 +87,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None) -> dict:
 def main(argv=None) -> int:
     import torch
 
-    from tapclip_tpu_torch.scripts.int8_probe import card_line
+    from tapclip_tpu_torch.scripts._bench_util import card_line
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--batch", type=int, default=8)

@@ -21,34 +21,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
+from tapclip_tpu_torch.scripts._bench_util import HBM_BYTES_PER_S, card_line, time_ms
+
 PROBE_SHAPE = (51_200, 768, 3_072)  # scripts/int8_probe.py::main: 256 * 200 rows
-HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
-
-
-def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean CUDA-event ms of ``iters`` calls after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def probe(R: int, W: int, H: int, iters: int = 5, seed: int = 0) -> dict:

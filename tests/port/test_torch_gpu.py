@@ -636,3 +636,134 @@ def test_int8_gemm_kernel_is_exact(cuda, M, K, N):
     with pytest.raises(ValueError, match="multiple of 4"):
         int8_gemm(a[:, :1].contiguous(), b[:1].contiguous())
 
+
+
+# --- the A/B variants: S2 (K1's), S3/S4 (K2's), S1 (the fused layer) ---------------
+
+from tapclip_tpu_torch.ops.fused_layer import fused_layer, fused_layer_reference  # noqa: E402
+from tapclip_tpu_torch.ops.fused_mha import attn_block_variant, attn_block_variant_reference  # noqa: E402
+from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_variant, fused_mlp_variant_reference  # noqa: E402
+from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, mlp_kernel_ab  # noqa: E402
+
+# The "bf16" softmax rounds (s - m) to bf16 before exp2: an f32 ulp of
+# difference in s moves p by a bf16 step, so in f32 it is held at 1e-3.
+BF16_SOFTMAX_F32_TOL = 1e-3
+
+
+def _layer_case(cuda, B, T, W, seed):
+    x, ln, mlp, attn = _int8_case(cuda, B, T, W, seed)
+    gen = torch.Generator(device=cuda).manual_seed(seed + 1)
+    ln2 = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    return x, ln, attn, ln2, mlp
+
+
+def _distinct(variants, flags_of):
+    """The first variant of each port configuration."""
+    seen = {}
+    for name, kw in variants.items():
+        seen.setdefault(tuple(sorted(flags_of(kw).items())), name)
+    return sorted(seen.values())
+
+
+S2_NAMES = _distinct(mlp_kernel_ab.VARIANTS, mlp_kernel_ab.port_flags)
+S2_SCHEDULE_ONLY = {"base", "rt512", "ilv2"}  # every row's arithmetic is K1's
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W", [(3, 7, 128), (2, 200, 768)], ids=["ragged", "image-t200"])
+@pytest.mark.parametrize("name", S2_NAMES)
+def test_mlp_variant_kernels(cuda, dtype, tol, B, T, W, name):
+    x, ln, mlp, _ = _int8_case(cuda, B, T, W, T + W)
+    x = x.to(dtype)
+    args = (x, ln["scale"], ln["bias"], *mlp.values())
+    flags = mlp_kernel_ab.port_flags(mlp_kernel_ab.VARIANTS[name])
+    with torch.inference_mode():
+        n = fused_mlp_variant.launches
+        got = fused_mlp_variant(*args, **flags)
+        assert fused_mlp_variant.launches == n + 1
+        want = fused_mlp_variant_reference(*args, **flags)
+        k1 = fused_mlp_block(x, ln, mlp)
+    _close(got, want, tol)
+    if name in S2_SCHEDULE_ONLY:  # the flags-off launcher, 8 rows and the pipelined walk are K1 bit for bit
+        torch.testing.assert_close(got, k1, rtol=0, atol=0)
+
+
+def _attn_variant_cases():
+    s3 = {n: attn_kernel_ab.port_flags(*attn_kernel_ab.VARIANTS[n], 12) for n in
+          _distinct(attn_kernel_ab.VARIANTS, lambda v: attn_kernel_ab.port_flags(*v, 12))}
+    s4 = {n: attn_softmax_ab.port_flags(attn_softmax_ab.VARIANTS[n], 12) for n in
+          _distinct(attn_softmax_ab.VARIANTS, lambda v: attn_softmax_ab.port_flags(v, 12))}
+    return [pytest.param(f, id=f"s3-{n}") for n, f in s3.items()] + [pytest.param(f, id=f"s4-{n}") for n, f in s4.items()]
+
+
+# Variants with K2's arithmetic: their launchers equal K2's bit for bit.
+K2_EQUAL = [dict(form="softmax"), dict(form="softmax", mask_mode="tail"), dict(form="softmax", group_heads=2),
+            dict(form="variant", perhead_qkv=True, softmax_opt=True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", [(2, 136, 128, 2, 130), (1, 200, 768, 12, 197), (3, 24, 256, 4, 17)],
+                         ids=["t136", "image-t200", "t24"])
+@pytest.mark.parametrize("flags", _attn_variant_cases())
+def test_attn_variant_kernels(cuda, dtype, tol, B, T, W, heads, valid, flags):
+    flags = dict(flags, group_heads=min(flags["group_heads"], heads))
+    x, ln, _, attn = _int8_case(cuda, B, T, W, T + W)
+    x = x.to(dtype)
+    if flags.get("softmax_opt") == "bf16" and dtype == torch.float32:
+        tol = BF16_SOFTMAX_F32_TOL
+    with torch.inference_mode():
+        n = attn_block_variant.launches
+        got = attn_block_variant(x, ln, attn, heads, valid, **flags)
+        assert attn_block_variant.launches == n + 1
+        want = attn_block_variant_reference(x, *ln.values(), *attn.values(), heads, valid, **flags)
+        again = attn_block_variant(x, ln, attn, heads, valid, **flags)
+        k2 = fused_attn_block(x, ln, attn, heads, valid_len=valid)
+    _close(got, want, tol)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
+    if any(flags == dict(attn_softmax_ab.port_flags({}, heads), **k) or
+           flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k) for k in K2_EQUAL):
+        torch.testing.assert_close(got, k2, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", [(2, 200, 768, 12, 197), (3, 37, 128, 2, 30), (1, 264, 1024, 16, 257)],
+                         ids=["vit-b16", "ragged", "vit-l14"])
+def test_fused_layer_kernel(cuda, dtype, tol, B, T, W, heads, valid):
+    x, ln1, attn, ln2, mlp = _layer_case(cuda, B, T, W, T + W)
+    x = x.to(dtype)
+    with torch.inference_mode():
+        n = fused_layer.launches
+        got = fused_layer(x, ln1, attn, ln2, mlp, heads, valid)
+        assert fused_layer.launches == n + 1
+        want = fused_layer_reference(x, ln1, attn, ln2, mlp, heads, valid)
+        again = fused_layer(x, ln1, attn, ln2, mlp, heads, valid)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, tol)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_variant_refusals(cuda):
+    from tapclip_tpu_torch.ops.fused_layer import fused_layer_max_grid
+
+    x, ln1, attn, ln2, mlp = _layer_case(cuda, 1, 136, 128, 3)
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="tail"):  # pad key 120 lies before the last 64-key tile
+            attn_block_variant(x, ln1, attn, 2, 120, form="softmax", mask_mode="tail")
+        big, bl, ba, _, _ = _layer_case(cuda, 1, 300, 128, 4)
+        with pytest.raises(ValueError, match="shared memory"):  # q, k, v of T 300 do not fit a block
+            attn_block_variant(big, bl, ba, 2, 300, perhead_qkv=True, softmax_opt=True)
+        attn_block_variant(big, bl, ba, 2, 300, softmax_opt=True)  # the workspace form runs there
+        with pytest.raises(ValueError, match="head dim 64"):
+            attn_block_variant(x, ln1, attn, 4, 136, form="softmax")
+        with pytest.raises(ValueError, match="head dim 64"):
+            fused_layer(x, ln1, attn, ln2, mlp, 4, 136)
+        fit = fused_layer_max_grid(136, 128, torch.float32)
+        assert fit >= 132
+        with pytest.raises(RuntimeError, match="tapclip_fused_layer"):  # a cooperative grid the card cannot hold
+            fused_layer(x, ln1, attn, ln2, mlp, 2, 136, grid=fit + 1)
+        with pytest.raises(ValueError, match="rows"):
+            fused_mlp_variant(x, *ln2.values(), *mlp.values(), rows=8, ilv=True)

@@ -196,6 +196,10 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
         "int8_mlp.cu": "tapclip_tpu/ops/int8_mlp.py::_int8_mlp_kernel",
         "int8_attn.cu": "tapclip_tpu/ops/int8_attn.py::_int8_attn_kernel",
         "int8_gemm.cu": "scripts/int8_probe.py::mm_kernel",
+        "fused_layer.cu": "scripts/fused_layer_ab.py::make_layer_kernel.kernel",
+        "fused_mlp_variants.cu": "scripts/mlp_kernel_ab.py::make_kernel.kernel",
+        "attn_variants_online.cu": "scripts/attn_softmax_ab.py::make_kernel.kernel",
+        "attn_variants_two_pass.cu": "scripts/attn_kernel_ab.py::make_variant_kernel.kernel",
     }
     for fname, tpu in replaced.items():
         head = (_build.CSRC / fname).read_text()[:4000]

@@ -37,6 +37,7 @@ PORT_MODULES = [
     "tapclip_tpu_torch.ops.int8_mlp",
     "tapclip_tpu_torch.ops.int8_attn",
     "tapclip_tpu_torch.ops.int8_gemm",
+    "tapclip_tpu_torch.ops.fused_layer",
     "tapclip_tpu_torch.models.layers",
     "tapclip_tpu_torch.models.clip",
     "tapclip_tpu_torch.models.prompt_learner",
@@ -54,6 +55,12 @@ PORT_MODULES = [
     "tapclip_tpu_torch.time_attn_block_bwd",
     "tapclip_tpu_torch.scripts.int8_mlp_ab",
     "tapclip_tpu_torch.scripts.int8_probe",
+    "tapclip_tpu_torch.scripts._bench_util",
+    "tapclip_tpu_torch.scripts.fused_layer_ab",
+    "tapclip_tpu_torch.scripts.mlp_kernel_ab",
+    "tapclip_tpu_torch.scripts.attn_kernel_ab",
+    "tapclip_tpu_torch.scripts.attn_softmax_ab",
+    "tapclip_tpu_torch.scripts.time_half_blocks",
 ]
 
 
