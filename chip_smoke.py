@@ -68,7 +68,12 @@ Run from the repository root:  python3 chip_smoke.py
     single-block formula, with CUDA-event times beside the plain versions,
     SDPA's backward and the bound; K3 at T 4096 (the blockwise forward's
     counterpart) against its plain version, by the norm-relative error of
-    its output and aux column (K3_LONG_TOL).
+    its output and aux column (K3_LONG_TOL).  K3's and the chain's cases
+    also carry the launch alone through the C interface (``launch_ms``,
+    beside the wrapper's ``ms``) and a second bound at the rate of the
+    products they run on the tensor cores (``mma_bound_ms``: their bf16
+    MMAs, six per f32 product, at 989 TFLOP/s), and the kernels line lists
+    every timed case (both dtypes, T 584, T 4096).
 13. The B7 and B4 backwards past their [T, T] tile (T 584, W 1024, 16
     heads): the flash chain on the packed strides, and the split
     composition, against their plain backward.
@@ -312,6 +317,10 @@ FORWARD = ("fused_mlp", "fused_attn_block", "fused_attention_aux")
 BACKWARD = ("fused_attn_block_bwd", "fused_mlp_bwd")
 TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
+# K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
+K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
+CASE_KEYS = ("shape", "dtype", "ms", "launcher_ms", "launch_ms", "plain_ms", "library_ms", "chain_ms",
+             "bound_ms", "mma_bound_ms", "max_abs_err", "max_rel_err")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -437,6 +446,44 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+# Partial products per product of K3 and the flash chain on the tensor cores
+# (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits both operands
+# into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T and K3's rounded
+# p v are one MMA, the chain's p and ds products two (the dK/dV kernel's four
+# products 1 + 1 + 2 + 2, the dQ kernel's three 1 + 1 + 2).
+MMA_PRODUCTS = {"fused_attention_aux": (6, 1), "flash_lse": (6, 1), "flash_bwd_dkv": (6, 1.5),
+                "flash_bwd_dq": (6, 4 / 3)}
+
+
+def mma_bound(n_bytes: int, flops: float, dtype: str, kernel: str) -> dict:
+    """The bound at the rate of the products the kernel runs: its bf16 MMAs
+    (``MMA_PRODUCTS`` times the function's operations) at the tensor cores'
+    bf16 peak, or its bytes, whichever is larger."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops * MMA_PRODUCTS[kernel][dtype == "bfloat16"] / PEAK_FLOPS["bfloat16"]
+    return {"mma_bound_ms": max(by_bytes, by_ops), "mma_bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def bare_launch(fn_name: str, args: tuple):
+    """One kernel's launch alone through the C interface on arguments checked
+    once: a closure to time (it counts no launch)."""
+    from tapclip_tpu_torch.ops import _build
+
+    fn = getattr(_build.library(), fn_name)
+    return lambda: fn(*args)
+
+
+def k3_launch(q, k, v, causal, valid, eot):
+    """K3's launch alone on buffers allocated once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops.flash_attention import _attn_aux_call
+
+    B, H, T, _ = q.shape
+    aux = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if eot is not None else None
+    return bare_launch("tapclip_attn_aux", _attn_aux_call(q, k, v, causal, valid, eot, torch.empty_like(q), aux))
+
+
 def attn_pairs(B: int, T: int, valid, causal: bool = False) -> int:
     """(query, key) pairs with a nonzero probability over B batch rows
     (``valid`` an int or one per row): the attention products' work."""
@@ -548,7 +595,7 @@ def check_kernels() -> dict:
         # and ViT-L/14@336 length T=584 with per-row valid/column.
         for label, (B, H, T, valid, eot), timed in (
             ("text 8x8x88 valid82 eot81", (8, 8, 88, 82, 81), True),
-            ("long 2x16x584 per-row valid/eot", (2, 16, 584, [577, 300], [576, 17]), False),
+            ("long 2x16x584 per-row valid/eot", (2, 16, 584, [577, 300], [576, 17]), True),
         ):
             q, k, v = (torch.randn((B, H, T, 64), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
@@ -563,11 +610,14 @@ def check_kernels() -> dict:
                    tol, timed, work=work,
                    library=lambda: torch.nn.functional.scaled_dot_product_attention(
                        q, k, v, attn_mask=mask))
-            if timed:  # the launcher alone, without the autograd Function around it
+            if timed:  # without the autograd Function around it; the launch alone
+                case = results["fused_attention_aux"]["cases"][-1]
                 with torch.inference_mode():
-                    ms = time_ms(lambda: _fused_attention_cuda(q, k, v, False, valid, eot))
-                results["fused_attention_aux"]["cases"][-1]["launcher_ms"] = ms
-                print(f"kernel fused_attention_aux [{label} {dtype}]: launcher alone {ms:.4g} ms", flush=True)
+                    case["launcher_ms"] = time_ms(lambda: _fused_attention_cuda(q, k, v, False, valid, eot))
+                    case["launch_ms"] = time_ms(k3_launch(q, k, v, False, valid, eot))
+                case.update(mma_bound(*work, case["dtype"], "fused_attention_aux"))
+                print(f"kernel fused_attention_aux [{label} {dtype}]: launcher {case['launcher_ms']:.4g} ms, "
+                      f"launch alone {case['launch_ms']:.4g} ms, mma bound {case['mma_bound_ms']:.4g} ms", flush=True)
     return results
 
 
@@ -1031,7 +1081,10 @@ def check_text_kernels() -> dict:
                     "ms": time_ms(lambda: fused_attention(q, k, v, causal=True, attn_to_idx=eot_t)),
                     "plain_ms": time_ms(lambda: attention_reference(q, k, v, causal=True, attn_to_idx=eot_t)),
                     "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
-                    **bound(4 * nbytes(q) + 4 * B * T, 4 * H * 64 * attn_pairs(B, T, T, True), dname)}
+                    "launch_ms": time_ms(k3_launch(q, k, v, True, None, eot_t)),
+                    **bound(4 * nbytes(q) + 4 * B * T, 4 * H * 64 * attn_pairs(B, T, T, True), dname),
+                    **mma_bound(4 * nbytes(q) + 4 * B * T, 4 * H * 64 * attn_pairs(B, T, T, True), dname,
+                                "fused_attention_aux")}
         report("fused_attention_aux_causal", case)
     return results
 
@@ -1258,8 +1311,11 @@ def check_flash_kernels() -> dict:
 
     from tapclip_tpu_torch.ops.attention import attention_reference
     from tapclip_tpu_torch.ops.flash_attention import (
+        _flash_bwd_dkv_call,
         _flash_bwd_dkv_cuda,
+        _flash_bwd_dq_call,
         _flash_bwd_dq_cuda,
+        _flash_lse_call,
         _flash_lse_cuda,
         attention_bwd_dkv_reference,
         attention_bwd_dq_reference,
@@ -1309,6 +1365,14 @@ def check_flash_kernels() -> dict:
                     "flash_bwd_dkv": lambda: attention_bwd_dkv_reference(q, k, v, g, lse, delta, valid_t, causal),
                     "flash_bwd_dq": lambda: attention_bwd_dq_reference(q, k, v, g, lse, delta, valid_t, causal),
                 }
+                bare = {  # each launch alone, on buffers allocated once
+                    "flash_lse": bare_launch("tapclip_flash_lse", _flash_lse_call(q, k, valid_t, causal,
+                                                                                  torch.empty_like(lse))),
+                    "flash_bwd_dkv": bare_launch("tapclip_flash_bwd_dkv", _flash_bwd_dkv_call(
+                        q, k, v, g, lse, delta, valid_t, causal, dk, dv)),
+                    "flash_bwd_dq": bare_launch("tapclip_flash_bwd_dq", _flash_bwd_dq_call(
+                        q, k, v, g, lse, delta, valid_t, causal, dq)),
+                }
                 # (bytes in and out, operations): 2 FLOP per multiply-add over the visible pairs.
                 work = {"flash_lse": (nbytes(q, k) + rows, 2 * 64 * pairs),
                         "flash_bwd_dkv": (nbytes(q, k, v, g) + 2 * rows + 2 * nbytes(q), 8 * 64 * pairs),
@@ -1327,9 +1391,11 @@ def check_flash_kernels() -> dict:
                         require(rel <= bwd_tol, f"{name} {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
                         err = {"max_abs_err": ab, "max_rel_err": rel}
                     report(name, {"shape": label, "dtype": dname, **err,
-                                  "ms": time_ms(kern[name], iters, 1), "plain_ms": time_ms(plain[name], iters, 1),
+                                  "ms": time_ms(kern[name], iters, 1), "launch_ms": time_ms(bare[name], iters, 1),
+                                  "plain_ms": time_ms(plain[name], iters, 1),
                                   "library_ms": None if name == "flash_lse" else library_ms,
-                                  "chain_ms": chain_ms, **bound(*work[name], dname)})
+                                  "chain_ms": chain_ms, **bound(*work[name], dname),
+                                  **mma_bound(*work[name], dname, name)})
                 # The whole chain (delta, LSE, dK/dV, dQ) against the single-block formula.
                 chain = flash_attention_bwd_cuda(q, k, v, out, g, valid_t, causal)
                 rel, ab = _rel_errors(chain, attention_bwd_reference(q, k, v, g, valid_t, causal))
@@ -1360,7 +1426,9 @@ def check_flash_kernels() -> dict:
                                                                          attn_to_idx=eot), iters, 1),
                         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
                                               iters, 1),
-                        **bound(4 * nbytes(q) + 4 * B * T, 4 * 64 * pairs, dname)})
+                        "launch_ms": time_ms(k3_launch(q, k, v, causal, valid_t, eot), iters, 1),
+                        **bound(4 * nbytes(q) + 4 * B * T, 4 * 64 * pairs, dname),
+                        **mma_bound(4 * nbytes(q) + 4 * B * T, 4 * 64 * pairs, dname, "fused_attention_aux")})
             del q, k, v, g, out, lse, delta, dk, dv, dq
             torch.cuda.empty_cache()
     return results
@@ -2216,8 +2284,12 @@ def main() -> int:
             entry["ms_dx_only"] = timed["ms_dx_only"]
         if "chain_ms" in timed:  # the flash chain; beside B7, on B7's packed strides
             entry["chain_ms"] = timed["chain_ms"]
-        if "launcher_ms" in timed:
-            entry["launcher_ms"] = timed["launcher_ms"]
+        for key in ("launcher_ms", "launch_ms", "mma_bound_ms"):
+            if key in timed:
+                entry[key] = timed[key]
+        if name in K3_AND_CHAIN:  # every timed reading: both dtypes, T 584, T 4096
+            entry["cases"] = [{key: c[key] for key in CASE_KEYS if key in c}
+                              for c in kernels[name]["cases"] if "ms" in c]
         if f"{name} float32" in repairs:  # B7 / B4 past their [T, T] tile
             entry["long_t"] = {dt: repairs[f"{name} {dt}"] for dt in ("float32", "bfloat16")}
         if name == "fused_mha":

@@ -15,359 +15,324 @@
 // as the backward of fused_attention (attn_impl="pallas"), and of the
 // packed-QKV core (fused_mha) past the [T, T] tile of attn_bwd_core.cuh.
 //
-// Math, as the JAX kernels: q, k, v, dO are read as f32 and every product
-// accumulates in f32 (flash_attention.py casts to f32 in both backward
-// kernels); s2 = q.k^T * Dh^-1/2 * log2 e; keys at or past valid[b], and
-// after the query when causal, are masked (-1e30 in the LSE, p = 0 in the
-// gradients); p = exp2(s2 - lse2); dv += p^T dO; dp = dO v^T;
-// ds = p (dp - delta) Dh^-1/2; dk += ds^T q; dq += ds k.  With kRoundP
-// (the packed core's bfloat16 backward, whose TPU kernel rounds p to the
-// compute dtype before p^T dO) p is rounded for the dv product only.
-// Results go out in the compute dtype.  No atomics: each output row is
-// summed by one block in a fixed order, so results repeat bit for bit.
+// Math, as the JAX kernels (which cast q, k, v, dO to f32): s2 = q.k^T *
+// Dh^-1/2 * log2 e; keys at or past valid[b], and after the query when
+// causal, are masked (-1e30 in the LSE, p = 0 in the gradients);
+// p = exp2(s2 - lse2); dv += p^T dO; dp = dO v^T; ds = p (dp - delta)
+// Dh^-1/2; dk += ds^T q; dq += ds k.  With kRoundP (the packed core's
+// bfloat16 backward, whose TPU kernel rounds p to the compute dtype before
+// p^T dO) p is rounded for the dv product only.  Results go out in the
+// compute dtype.  No atomics: each output row is summed by one block in a
+// fixed order, so results repeat bit for bit.
 //
 // Layout: every [B, H, T, Dh] operand is read through (batch, head, row)
 // strides, so the same launches serve contiguous per-head tensors
 // (attn_impl="pallas") and the packed [B, T, 3W] qkv with its [B, T, W]
 // cotangent (the packed core), writing dq, dk, dv straight into the packed
 // gradient.  q, k, v, dq, dk, dv share one stride set, dO another; lse and
-// delta are contiguous [B, H, T] f32.
+// delta are contiguous [B, H, T] f32.  The 16-byte copies need 16-byte
+// aligned rows: the wrapper checks the pointers and strides.
 //
-// Design: 256 threads as a 16 x 16 grid over a [64, 64] tile, as the
-// forward's attn_tile.cuh: thread (rg, cg) computes scores for query rows
-// rg + 16 i and keys cg + 16 j (i, j < 4), and accumulates output rows
-// rg + 16 i, columns cg + 16 j (j < Dh / 16).  Operand tiles of 64 rows sit
-// in shared memory with a padded row stride (Dh + 1); p and ds pass from
-// the score layout to the accumulation layout through [64, 65] tiles.
-// Causal blocks skip the tiles wholly above the diagonal, and every loop
-// stops at valid[b] (a masked key adds exactly 0).
+// Design (flash_mma.cuh, FlashAttention-2's backward): 4 warps a block over
+// a 64-row tile, each warp owning 16 rows: query rows in the LSE and dQ
+// kernels, key rows in the dK/dV kernel (which computes s^T = k q^T and
+// dp^T = v dO^T, so p^T and ds^T are its accumulators and the A operands of
+// dv += p^T dO and dk += ds^T q in registers).  The tiles the loop walks
+// (k and v, or q, dO, lse and delta) are double-buffered with cp.async.
+// Products run on the tensor cores (mma.sync m16n8k16, f32 accumulation):
+// in bf16 q k^T and dO v^T are one MMA each (bf16 values), p and ds split
+// into two bf16 terms against the bf16 operand (one term for p under
+// kRoundP); in f32 every product splits both operands into three bf16 terms
+// (six MMAs; emulated, the LSE reads at most 1.4e-6 absolute and the
+// gradients 6.3e-7 norm-relative against the plain f32 versions,
+// flash_mma.cuh), each 16-deep step's partial products added to the
+// accumulator by a rounded f32 add (mma_split).  The
+// dK/dV kernel walks each query tile in 32-query halves at Dh 128 (register
+// room for its two [16, 128] accumulators).  Causal blocks skip the tiles
+// wholly above the diagonal, and every loop stops at valid[b].
 //
-// What bounds it on the card: inferred, not measured by a profile.  The
-// products run on the FMA units in f32, fed from shared memory (8 loads for
-// 16 FMAs in the score products), so an operation bound: at ViT-B/16's text
-// shape (8 classes x 8 heads, T 88, valid 82) the whole chain is about
-// 0.5 GFLOP, 7 microseconds at the f32 peak; the grid there is 128 blocks of
-// one or two tiles each, fewer than the card's SMs hold, so launch latency
-// and the serial tile loop dominate.  At T 4096 the grid fills the card and the
-// shared-memory feed sets the rate.  Tensor-core MMA (mma.sync / wgmma) on
-// bf16 tiles and TMA loads are later work.
-#include <type_traits>
-
+// What bounds it on the card (H100 80GB HBM3 at 700 W, measured by
+// tapclip_tpu_torch/scripts/time_flash.py): at T 4096 (1 x 16 heads, valid
+// 4000) the three launches take about 1.7 ms in bf16 against 0.37 ms for
+// their MMAs at the bf16 peak (one per q k^T and dO v^T, two per p and ds
+// product), and about 8 ms in f32 against 1.6 ms for six MMAs a product
+// (4.0 ms at the f32 FMA peak): the per-score work (exp2, masks, the splits)
+// and register pressure (the f32 dK/dV and dQ kernels use all 255
+// registers) set the rate.  At the text shapes (8 x 8 heads, T 77 or 88)
+// each launch alone takes 7-12 us in bf16 and 15-33 us in f32: launch
+// latency, 128 blocks of one or two tiles, and the split in f32.  PERF.md
+// section 6 has the readings.
 #include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
 using namespace tapclip;
+using namespace tapclip::mma;
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;       // query rows and keys of a tile
-constexpr int kPld = kTile + 1; // padded row stride of the [64, 64] p / ds tiles
+constexpr int kThreads = 128;  // 4 warps, 16 rows each
 
 // Element (b, h, t, d) of an operand sits at b * sb + h * sh + t * st + d.
 struct Strides {
   int sb, sh, st;
 };
 
-__device__ __forceinline__ size_t row_off(Strides s, int b, int h, int t) {
-  return static_cast<size_t>(b) * s.sb + static_cast<size_t>(h) * s.sh +
-         static_cast<size_t>(t) * s.st;
+// Row 0 of head (b, h) of an operand.
+template <typename P>
+__device__ __forceinline__ P* head(P* x, Strides s, int b, int h) {
+  return x + static_cast<size_t>(b) * s.sb + static_cast<size_t>(h) * s.sh;
 }
 
-// X_s[r][d] = x[row t0 + r][d] as f32 (zeros for rows past T).
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* X_s, const T* __restrict__ x, Strides s, int b,
-                                          int h, int t0, int T_) {
-  for (int e = threadIdx.x; e < kTile * DH; e += kThreads) {
-    const int r = e / DH, d = e % DH;
-    X_s[r * (DH + 1) + d] = t0 + r < T_ ? to_f(x[row_off(s, b, h, t0 + r) + d]) : 0.f;
-  }
+// Key `key` is visible to query `row`.
+__device__ __forceinline__ bool visible(int row, int key, int valid, int causal) {
+  return key < valid && (!causal || key <= row);
 }
 
-// acc[i][j] = A_s[rg + 16 i] . B_s[cg + 16 j]: this thread's 4 x 4 of the
-// [64, 64] product A B^T of two staged tiles.
-template <int DH>
-__device__ __forceinline__ void tile_abt(const float* A_s, const float* B_s, int rg, int cg,
-                                         float (&acc)[4][4]) {
-  constexpr int kLd = DH + 1;
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < N; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A_s[(rg + 16 * i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B_s[(cg + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-  }
-}
-
-// Key `key` is visible to query `row` (both below T).
-template <bool kCausal>
-__device__ __forceinline__ bool visible(int row, int key, int valid) {
-  return key < valid && (!kCausal || key <= row);
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
 }
 
 // LSE: one block per (batch row, head, 64-row query tile), over key tiles.
-template <typename T, int DH, bool kCausal>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_lse_kernel(const T* __restrict__ q, const T* __restrict__ k, Strides sq,
-                 const int* __restrict__ valid_b, float* __restrict__ lse, int H, int T_) {
-  constexpr int kLd = DH + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* Q_s = smem;
-  float* K_s = Q_s + kTile * kLd;
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+                 const int* __restrict__ valid_b, float* __restrict__ lse, int H, int T_,
+                 int causal) {
+  constexpr int kLd = tile_ld<T, DH>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Q_s = reinterpret_cast<T*>(smem_raw);
+  T* K_s = Q_s + kTile * kLd;  // two buffers
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int valid = min(valid_b[b], T_);
   const float scale_log2 = rsqrtf(static_cast<float>(DH)) * kLog2e;
+  const T* q_bh = head(q, sq, b, h);
+  const T* k_bh = head(k, sq, b, h);
+  const int n_tiles = ((causal ? min(valid, q0 + kTile) : valid) + kTile - 1) / kTile;
+  const bool active = q0 + r0 < T_;
 
-  load_tile<T, DH>(Q_s, q, sq, b, h, q0, T_);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  const int k_end = kCausal ? min(valid, q0 + kTile) : valid;
-  for (int kt0 = 0; kt0 < k_end; kt0 += kTile) {
-    load_tile<T, DH>(K_s, k, sq, b, h, kt0, T_);
+  load_tile<T, DH, kTile, kThreads>(Q_s, q_bh, sq.st, q0, T_);
+  load_tile<T, DH, kTile, kThreads>(K_s, k_bh, sq.st, 0, T_);
+  cp_commit();
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      load_tile<T, DH, kTile, kThreads>(K_s + ((j + 1) & 1) * kTile * kLd, k_bh, sq.st, (j + 1) * kTile, T_);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
-    float s[4][4];
-    tile_abt<DH>(Q_s, K_s, rg, cg, s);
+    if (active) {
+      const int kt0 = j * kTile;
+      float s[kTile / 8][4], mt[2] = {-INFINITY, -INFINITY};
+      warp_abt<T, DH, kTile>(s, Q_s, r0, K_s + (j & 1) * kTile * kLd, 0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg + 16 * i;
-      float mt = -INFINITY;
+      for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kt0 + cg + 16 * j;
-        // Slots past T add nothing (-inf); masked keys take the JAX
-        // kernel's -1e30.  Key 0 is visible to every row, so m is finite
-        // from the first tile on.
-        s[i][j] = key >= T_ ? -INFINITY
-                            : (visible<kCausal>(row, key, valid) ? s[i][j] * scale_log2 : kNegBig);
-        mt = fmaxf(mt, s[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = kt0 + 8 * n + 2 * (lane & 3) + (e & 1);
+          const int row = q0 + r0 + (lane >> 2) + 8 * (e >> 1);
+          // Slots past T add nothing (-inf); masked keys take the JAX
+          // kernel's -1e30.  Key 0 is visible to every row, so m is finite
+          // from the first tile on.
+          s[n][e] = key >= T_ ? -INFINITY
+                              : (visible(row, key, valid, causal) ? s[n][e] * scale_log2 : kNegBig);
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mt[r]));
+        l[r] *= exp2f(m[r] - m_new);
+        m[r] = m_new;
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mt));
-      float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) rs += exp2f(s[i][j] - m_new);
-      l[i] = l[i] * exp2f(m[i] - m_new) + half_warp_sum(rs);
-      m[i] = m_new;
+      for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
     }
-    __syncthreads();  // K_s is overwritten by the next tile
+    __syncthreads();  // this buffer is refilled with tile j + 2
   }
-  if (cg == 0) {
+  cp_wait<0>();
+  if (!active) return;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg + 16 * i;
-      if (row < T_) lse[static_cast<size_t>(bh) * T_ + row] = m[i] + log2f(fmaxf(l[i], 1e-30f));
-    }
-  }
-}
-
-// p = exp2(s2 - lse) where visible, else 0, and ds = p (dp - delta) scale,
-// for this thread's 4 x 4 of a (query tile q0, key tile k0) pair.
-template <bool kCausal>
-__device__ __forceinline__ void probs_and_ds(float (&s)[4][4], float (&dp)[4][4],
-                                             const float* lse_r, const float* delta_r, int q0,
-                                             int k0, int rg, int cg, int valid, int T_,
-                                             float scale, float scale_log2) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = k0 + cg + 16 * j;
-      const float p = row < T_ && visible<kCausal>(row, key, valid)
-                          ? exp2f(s[i][j] * scale_log2 - lse_r[i])
-                          : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - delta_r[i]) * scale;
-    }
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    const int row = q0 + r0 + (lane >> 2) + 8 * r;
+    if ((lane & 3) == 0 && row < T_) lse[static_cast<size_t>(bh) * T_ + row] = m[r] + log2f(fmaxf(lr, 1e-30f));
   }
 }
 
 // dK/dV: one block per (batch row, head, 64-key tile), over query tiles.
-template <typename T, int DH, bool kCausal, bool kRoundP>
+template <typename T, int DH, bool kRoundP>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, Strides sq, Strides sg,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ valid_b, T* __restrict__ dk, T* __restrict__ dv,
-                     int H, int T_) {
-  constexpr int kLd = DH + 1;
-  constexpr int kDj = DH / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* K_s = smem;
-  float* V_s = K_s + kTile * kLd;
-  float* Q_s = V_s + kTile * kLd;
-  float* G_s = Q_s + kTile * kLd;
-  float* P_s = G_s + kTile * kLd;  // [query][key]: p (rounded with kRoundP)
-  float* S_s = P_s + kTile * kPld; // [query][key]: ds
-  float* L_s = S_s + kTile * kPld; // lse of the query tile's rows
-  float* D_s = L_s + kTile;        // delta of the query tile's rows
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+                     int H, int T_, int causal) {
+  constexpr int kLd = tile_ld<T, DH>();
+  constexpr int kQn = DH == 128 ? 32 : 64;  // queries of one score block
+  constexpr int kPTerms = kRoundP ? 1 : kAccTerms<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* K_s = reinterpret_cast<T*>(smem_raw);
+  T* V_s = K_s + kTile * kLd;
+  T* QG_s = V_s + kTile * kLd;  // buffer i: q at QG_s + 2 i kTile kLd, then dO
+  float* LD_s = reinterpret_cast<float*>(QG_s + 4 * kTile * kLd);  // buffer i: lse, then delta
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int k0 = blockIdx.y * kTile;
   const int valid = min(valid_b[b], T_);
   const float scale = rsqrtf(static_cast<float>(DH));
   const float scale_log2 = scale * kLog2e;
+  const T* q_bh = head(q, sq, b, h);
+  const T* g_bh = head(g, sg, b, h);
+  const float* lse_bh = lse + static_cast<size_t>(bh) * T_;
+  const float* delta_bh = delta + static_cast<size_t>(bh) * T_;
 
-  float dk_acc[4][kDj], dv_acc[4][kDj];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDj; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
   if (k0 < valid) {  // a key tile wholly at or past valid has zero gradients
-    load_tile<T, DH>(K_s, k, sq, b, h, k0, T_);
-    load_tile<T, DH>(V_s, v, sq, b, h, k0, T_);
     // Causal: query tiles before this key tile see none of its keys.
-    for (int qt0 = kCausal ? k0 : 0; qt0 < T_; qt0 += kTile) {
-      load_tile<T, DH>(Q_s, q, sq, b, h, qt0, T_);
-      load_tile<T, DH>(G_s, g, sg, b, h, qt0, T_);
+    const int qt_first = causal ? k0 : 0;
+    const int n_q = (T_ - qt_first + kTile - 1) / kTile;
+    auto load_query_tile = [&](int i) {
+      const int qt0 = qt_first + i * kTile;
+      T* Q_b = QG_s + (i & 1) * 2 * kTile * kLd;
+      float* L_b = LD_s + (i & 1) * 2 * kTile;
+      load_tile<T, DH, kTile, kThreads>(Q_b, q_bh, sq.st, qt0, T_);
+      load_tile<T, DH, kTile, kThreads>(Q_b + kTile * kLd, g_bh, sg.st, qt0, T_);
       for (int r = threadIdx.x; r < kTile; r += kThreads) {
         const bool in = qt0 + r < T_;
-        L_s[r] = in ? lse[static_cast<size_t>(bh) * T_ + qt0 + r] : 0.f;
-        D_s[r] = in ? delta[static_cast<size_t>(bh) * T_ + qt0 + r] : 0.f;
+        cp_async4(L_b + r, lse_bh + (in ? qt0 + r : 0), in);
+        cp_async4(L_b + kTile + r, delta_bh + (in ? qt0 + r : 0), in);
+      }
+    };
+    load_tile<T, DH, kTile, kThreads>(K_s, head(k, sq, b, h), sq.st, k0, T_);
+    load_tile<T, DH, kTile, kThreads>(V_s, head(v, sq, b, h), sq.st, k0, T_);
+    load_query_tile(0);
+    cp_commit();
+    for (int i = 0; i < n_q; ++i) {
+      if (i + 1 < n_q) {
+        load_query_tile(i + 1);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
       }
       __syncthreads();
-      float s[4][4], dp[4][4], lse_r[4], delta_r[4];
-      tile_abt<DH>(Q_s, K_s, rg, cg, s);
-      tile_abt<DH>(G_s, V_s, rg, cg, dp);
+      const int qt0 = qt_first + i * kTile;
+      const T* Q_b = QG_s + (i & 1) * 2 * kTile * kLd;
+      const T* G_b = Q_b + kTile * kLd;
+      const float* L_b = LD_s + (i & 1) * 2 * kTile;
+#pragma unroll 1
+      for (int c = 0; c < kTile && qt0 + c < T_; c += kQn) {
+        float s[kQn / 8][4], dp[kQn / 8][4];
+        warp_abt<T, DH, kQn>(s, K_s, r0, Q_b, c);   // s^T = k q^T
+        warp_abt<T, DH, kQn>(dp, V_s, r0, G_b, c);  // dp^T = v dO^T
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        lse_r[i] = L_s[rg + 16 * i];
-        delta_r[i] = D_s[rg + 16 * i];
-      }
-      probs_and_ds<kCausal>(s, dp, lse_r, delta_r, qt0, k0, rg, cg, valid, T_, scale, scale_log2);
+        for (int n = 0; n < kQn / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = (rg + 16 * i) * kPld + cg + 16 * j;
-          P_s[e] = kRoundP ? round_to<T>(s[i][j]) : s[i][j];
-          S_s[e] = dp[i][j];
-        }
-      __syncthreads();
-      // dv[key][d] += p[query][key] dO[query][d]; dk[key][d] += ds[query][key] q[query][d].
-      const int n_rows = min(kTile, T_ - qt0);
-#pragma unroll 4
-      for (int r = 0; r < n_rows; ++r) {
-        float pv[4], sv[4], gv[kDj], qv[kDj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = P_s[r * kPld + rg + 16 * i];
-          sv[i] = S_s[r * kPld + rg + 16 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < kDj; ++j) {
-          gv[j] = G_s[r * kLd + cg + 16 * j];
-          qv[j] = Q_s[r * kLd + cg + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < kDj; ++j) {
-            dv_acc[i][j] = fmaf(pv[i], gv[j], dv_acc[i][j]);
-            dk_acc[i][j] = fmaf(sv[i], qv[j], dk_acc[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + r0 + (lane >> 2) + 8 * (e >> 1);
+            const int qi = c + 8 * n + 2 * (lane & 3) + (e & 1);
+            const int query = qt0 + qi;
+            const float p = query < T_ && visible(query, key, valid, causal)
+                                ? exp2f(s[n][e] * scale_log2 - L_b[qi])
+                                : 0.f;
+            s[n][e] = p;
+            dp[n][e] = p * (dp[n][e] - L_b[kTile + qi]) * scale;
           }
+        warp_pv<T, DH, kQn, kPTerms>(dv_acc, s, G_b, c);          // dv += p^T dO
+        warp_pv<T, DH, kQn, kAccTerms<T>>(dk_acc, dp, Q_b, c);    // dk += ds^T q
       }
-      __syncthreads();  // Q_s, G_s, P_s, S_s are overwritten by the next query tile
+      __syncthreads();  // this buffer is refilled with query tile i + 2
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + rg + 16 * i;
-    if (key >= T_) continue;
-    const size_t off = row_off(sq, b, h, key);
-#pragma unroll
-    for (int j = 0; j < kDj; ++j) {
-      dk[off + cg + 16 * j] = from_f<T>(dk_acc[i][j]);
-      dv[off + cg + 16 * j] = from_f<T>(dv_acc[i][j]);
-    }
-  }
+  const float one[2] = {1.f, 1.f};
+  store_rows<T, DH>(head(dk, sq, b, h), sq.st, k0 + r0, T_, dk_acc, one);
+  store_rows<T, DH>(head(dv, sq, b, h), sq.st, k0 + r0, T_, dv_acc, one);
 }
 
 // dQ: one block per (batch row, head, 64-row query tile), over key tiles.
-template <typename T, int DH, bool kCausal>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ g, Strides sq, Strides sg,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const int* __restrict__ valid_b, T* __restrict__ dq, int H, int T_) {
-  constexpr int kLd = DH + 1;
-  constexpr int kDj = DH / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Q_s = smem;
-  float* G_s = Q_s + kTile * kLd;
-  float* K_s = G_s + kTile * kLd;
-  float* V_s = K_s + kTile * kLd;
-  float* S_s = V_s + kTile * kLd;  // [query][key]: ds
-  const int rg = threadIdx.x >> 4, cg = threadIdx.x & 15;
+                    const int* __restrict__ valid_b, T* __restrict__ dq, int H, int T_,
+                    int causal) {
+  constexpr int kLd = tile_ld<T, DH>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Q_s = reinterpret_cast<T*>(smem_raw);
+  T* G_s = Q_s + kTile * kLd;
+  T* KV_s = G_s + kTile * kLd;  // buffer i: k at KV_s + 2 i kTile kLd, then v
+  const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * 16;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kTile;
   const int valid = min(valid_b[b], T_);
   const float scale = rsqrtf(static_cast<float>(DH));
   const float scale_log2 = scale * kLog2e;
+  const T* k_bh = head(k, sq, b, h);
+  const T* v_bh = head(v, sq, b, h);
+  const int n_tiles = ((causal ? min(valid, q0 + kTile) : valid) + kTile - 1) / kTile;
+  const bool active = q0 + r0 < T_;
 
-  load_tile<T, DH>(Q_s, q, sq, b, h, q0, T_);
-  load_tile<T, DH>(G_s, g, sg, b, h, q0, T_);
-  float lse_r[4], delta_r[4], acc[4][kDj];
+  load_tile<T, DH, kTile, kThreads>(Q_s, head(q, sq, b, h), sq.st, q0, T_);
+  load_tile<T, DH, kTile, kThreads>(G_s, head(g, sg, b, h), sg.st, q0, T_);
+  load_tile<T, DH, kTile, kThreads>(KV_s, k_bh, sq.st, 0, T_);
+  load_tile<T, DH, kTile, kThreads>(KV_s + kTile * kLd, v_bh, sq.st, 0, T_);
+  cp_commit();
+  float lse_r[2], delta_r[2], acc[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg + 16 * i;
-    lse_r[i] = row < T_ ? lse[static_cast<size_t>(bh) * T_ + row] : 0.f;
-    delta_r[i] = row < T_ ? delta[static_cast<size_t>(bh) * T_ + row] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kDj; ++j) acc[i][j] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + (lane >> 2) + 8 * r;
+    lse_r[r] = row < T_ ? lse[static_cast<size_t>(bh) * T_ + row] : 0.f;
+    delta_r[r] = row < T_ ? delta[static_cast<size_t>(bh) * T_ + row] : 0.f;
   }
-  const int k_end = kCausal ? min(valid, q0 + kTile) : valid;
-  for (int kt0 = 0; kt0 < k_end; kt0 += kTile) {
-    load_tile<T, DH>(K_s, k, sq, b, h, kt0, T_);
-    load_tile<T, DH>(V_s, v, sq, b, h, kt0, T_);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_abt<DH>(Q_s, K_s, rg, cg, s);
-    tile_abt<DH>(G_s, V_s, rg, cg, dp);
-    probs_and_ds<kCausal>(s, dp, lse_r, delta_r, q0, kt0, rg, cg, valid, T_, scale, scale_log2);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) S_s[(rg + 16 * i) * kPld + cg + 16 * j] = dp[i][j];
-    __syncthreads();
-    // dq[query][d] += ds[query][key] k[key][d].
-    const int n_keys = min(kTile, T_ - kt0);
-#pragma unroll 4
-    for (int c = 0; c < n_keys; ++c) {
-      float sv[4], kv[kDj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = S_s[(rg + 16 * i) * kPld + c];
-#pragma unroll
-      for (int j = 0; j < kDj; ++j) kv[j] = K_s[c * kLd + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kDj; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
+  zero(acc);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      T* nxt = KV_s + ((j + 1) & 1) * 2 * kTile * kLd;
+      load_tile<T, DH, kTile, kThreads>(nxt, k_bh, sq.st, (j + 1) * kTile, T_);
+      load_tile<T, DH, kTile, kThreads>(nxt + kTile * kLd, v_bh, sq.st, (j + 1) * kTile, T_);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
-    __syncthreads();  // K_s, V_s, S_s are overwritten by the next key tile
-  }
+    __syncthreads();
+    if (active) {
+      const T* K_s = KV_s + (j & 1) * 2 * kTile * kLd;
+      float s[kTile / 8][4], dp[kTile / 8][4];
+      warp_abt<T, DH, kTile>(s, Q_s, r0, K_s, 0);
+      warp_abt<T, DH, kTile>(dp, G_s, r0, K_s + kTile * kLd, 0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg + 16 * i;
-    if (row >= T_) continue;
-    const size_t off = row_off(sq, b, h, row);
+      for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < kDj; ++j) dq[off + cg + 16 * j] = from_f<T>(acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * kTile + 8 * n + 2 * (lane & 3) + (e & 1);
+          const int row = q0 + r0 + (lane >> 2) + 8 * (e >> 1);
+          const float p = row < T_ && visible(row, key, valid, causal)
+                              ? exp2f(s[n][e] * scale_log2 - lse_r[e >> 1])
+                              : 0.f;
+          dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * scale;
+        }
+      warp_pv<T, DH, kTile, kAccTerms<T>>(acc, dp, K_s, 0);  // dq += ds k
+    }
+    __syncthreads();  // this buffer is refilled with tile j + 2
   }
+  cp_wait<0>();
+  if (!active) return;
+  const float one[2] = {1.f, 1.f};
+  store_rows<T, DH>(head(dq, sq, b, h), sq.st, q0 + r0, T_, acc, one);
 }
 
 // The launch arguments every kernel of the chain shares.
@@ -377,17 +342,16 @@ struct Args {
   const int* valid;
   void *dq, *dk, *dv;
   float* lse_out;
-  int B, H, T;
+  int B, H, T, causal;
   Strides sq, sg;
   cudaStream_t stream;
 };
 
 enum class Which { kLse, kDkv, kDq };
 
-template <typename T, int DH, bool kCausal, bool kRoundP>
+template <typename T, int DH, bool kRoundP>
 cudaError_t launch(Which which, const Args& a) {
-  constexpr size_t kTileBytes = kTile * (DH + 1) * sizeof(float);
-  constexpr size_t kPBytes = kTile * kPld * sizeof(float);
+  constexpr size_t kTileBytes = kTile * tile_ld<T, DH>() * sizeof(T);
   const dim3 grid(a.B * a.H, (a.T + kTile - 1) / kTile);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -395,56 +359,54 @@ cudaError_t launch(Which which, const Args& a) {
   const T* g = static_cast<const T*>(a.g);
   cudaError_t err = cudaSuccess;
   if (which == Which::kLse) {
-    auto kernel = flash_lse_kernel<T, DH, kCausal>;
-    const size_t smem = 2 * kTileBytes;
+    auto kernel = flash_lse_kernel<T, DH>;
+    const size_t smem = 3 * kTileBytes;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<grid, kThreads, smem, a.stream>>>(q, k, a.sq, a.valid, a.lse_out, a.H, a.T);
+    kernel<<<grid, kThreads, smem, a.stream>>>(q, k, a.sq, a.valid, a.lse_out, a.H, a.T, a.causal);
   } else if (which == Which::kDkv) {
-    auto kernel = flash_bwd_dkv_kernel<T, DH, kCausal, kRoundP>;
-    const size_t smem = 4 * kTileBytes + 2 * kPBytes + 2 * kTile * sizeof(float);
+    auto kernel = flash_bwd_dkv_kernel<T, DH, kRoundP>;
+    const size_t smem = 6 * kTileBytes + 4 * kTile * sizeof(float);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, g, a.sq, a.sg, a.lse, a.delta, a.valid,
                                                 static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-                                                a.H, a.T);
+                                                a.H, a.T, a.causal);
   } else {
-    auto kernel = flash_bwd_dq_kernel<T, DH, kCausal>;
-    const size_t smem = 4 * kTileBytes + kPBytes;
+    auto kernel = flash_bwd_dq_kernel<T, DH>;
+    const size_t smem = 6 * kTileBytes;
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(q, k, v, g, a.sq, a.sg, a.lse, a.delta, a.valid,
-                                                static_cast<T*>(a.dq), a.H, a.T);
+                                                static_cast<T*>(a.dq), a.H, a.T, a.causal);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
-cudaError_t launch_flags(Which which, const Args& a, int causal, int round_p) {
+cudaError_t launch_flags(Which which, const Args& a, int round_p) {
   // round_p only matters for the dK/dV kernel in bfloat16 (a no-op in f32).
-  if constexpr (!std::is_same<T, float>::value) {
-    if (round_p && which == Which::kDkv) {
-      return causal ? launch<T, DH, true, true>(which, a) : launch<T, DH, false, true>(which, a);
-    }
+  if constexpr (!kIsF32<T>) {
+    if (round_p && which == Which::kDkv) return launch<T, DH, true>(which, a);
   }
-  return causal ? launch<T, DH, true, false>(which, a) : launch<T, DH, false, false>(which, a);
+  return launch<T, DH, false>(which, a);
 }
 
 template <typename T>
-cudaError_t launch_dh(Which which, const Args& a, int Dh, int causal, int round_p) {
+cudaError_t launch_dh(Which which, const Args& a, int Dh, int round_p) {
   switch (Dh) {
-    case 16: return launch_flags<T, 16>(which, a, causal, round_p);
-    case 32: return launch_flags<T, 32>(which, a, causal, round_p);
-    case 64: return launch_flags<T, 64>(which, a, causal, round_p);
-    case 128: return launch_flags<T, 128>(which, a, causal, round_p);
+    case 16: return launch_flags<T, 16>(which, a, round_p);
+    case 32: return launch_flags<T, 32>(which, a, round_p);
+    case 64: return launch_flags<T, 64>(which, a, round_p);
+    case 128: return launch_flags<T, 128>(which, a, round_p);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int run(Which which, const Args& a, int Dh, int causal, int round_p, int dtype) {
+int run(Which which, const Args& a, int Dh, int round_p, int dtype) {
   if (a.B <= 0 || a.H <= 0 || a.T <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_dh<float>(which, a, Dh, causal, round_p);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(which, a, Dh, causal, round_p);
+  if (dtype == 0) return launch_dh<float>(which, a, Dh, round_p);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(which, a, Dh, round_p);
   return cudaErrorInvalidValue;
 }
 
@@ -452,8 +414,8 @@ int run(Which which, const Args& a, int Dh, int causal, int round_p, int dtype) 
 
 // Shared arguments: q, k, v [B, H, T, Dh] read through the strides
 // (sq_b, sq_h, sq_t), dO through (sg_b, sg_h, sg_t), all in the compute dtype
-// (0 float32, 1 bfloat16); valid [B] int32 (1 <= valid); Dh in
-// {16, 32, 64, 128}; causal 0 or 1.
+// (0 float32, 1 bfloat16), with 16-byte aligned rows; valid [B] int32
+// (1 <= valid); Dh in {16, 32, 64, 128}; causal 0 or 1.
 
 // lse [B, H, T] f32 out.
 extern "C" int tapclip_flash_lse(const void* q, const void* k, const void* valid, void* lse,
@@ -467,9 +429,10 @@ extern "C" int tapclip_flash_lse(const void* q, const void* k, const void* valid
   a.B = B;
   a.H = H;
   a.T = T;
+  a.causal = causal;
   a.sq = {sq_b, sq_h, sq_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kLse, a, Dh, causal, 0, dtype);
+  return run(Which::kLse, a, Dh, 0, dtype);
 }
 
 // lse, delta [B, H, T] f32 in; dk, dv out through the q strides.  round_p:
@@ -492,10 +455,11 @@ extern "C" int tapclip_flash_bwd_dkv(const void* q, const void* k, const void* v
   a.B = B;
   a.H = H;
   a.T = T;
+  a.causal = causal;
   a.sq = {sq_b, sq_h, sq_t};
   a.sg = {sg_b, sg_h, sg_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kDkv, a, Dh, causal, round_p, dtype);
+  return run(Which::kDkv, a, Dh, round_p, dtype);
 }
 
 // lse, delta [B, H, T] f32 in; dq out through the q strides.
@@ -516,8 +480,9 @@ extern "C" int tapclip_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.B = B;
   a.H = H;
   a.T = T;
+  a.causal = causal;
   a.sq = {sq_b, sq_h, sq_t};
   a.sg = {sg_b, sg_h, sg_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kDq, a, Dh, causal, 0, dtype);
+  return run(Which::kDq, a, Dh, 0, dtype);
 }

@@ -54,8 +54,9 @@ _SIGNATURES = {
     "tapclip_attn_block_core": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
     # a, w, bias, residual, out, M, N, K, dtype, stream
     "tapclip_gemm_bias_residual": (P, P, P, P, P, I, I, I, I, P),
-    # q, k, v, valid, eot, out, aux, B, H, T, Dh, with_aux, causal, dtype, stream
-    "tapclip_attn_aux": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # q, k, v, valid, eot, valid_all, eot_all, out, aux, B, H, T, Dh, with_aux,
+    # causal, dtype, stream (valid / eot null: valid_all / eot_all in every row)
+    "tapclip_attn_aux": (P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, P),
     # a, b, bias, c, M, N, K, trans_a, trans_b, dtype, stream
     "tapclip_gemm_f32": (P, P, P, P, I, I, I, I, I, I, P),
     # in, out, R, N, rows_per_chunk, dtype, stream

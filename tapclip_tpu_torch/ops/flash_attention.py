@@ -185,27 +185,43 @@ fused_attention.dkv_launches = 0  # dK/dV
 fused_attention.dq_launches = 0  # and dQ
 
 
-def _fused_attention_cuda(q, k, v, causal, kv_valid_len, attn_to_idx):
+def _valid_arg(x: IntOrTensor, batch: int, default: int, device) -> Tuple[Optional[torch.Tensor], int]:
+    """(``[B]`` int32 tensor on the card or None, the int every row takes when
+    it is None): an int or None passes as the int, an int32 ``[B]`` tensor on
+    the card as itself, so neither costs a fill or cast launch."""
+    if x is None or isinstance(x, int):
+        return None, default if x is None else int(x)
+    if x.dtype != torch.int32 or x.device != device or not x.is_contiguous() or x.numel() != batch:
+        x = _per_batch(x, batch, default, device)
+    return x.reshape(batch), 0
+
+
+def _attn_aux_call(q, k, v, causal, kv_valid_len, attn_to_idx, out, aux):
+    """The checked arguments of one K3 launch (``tapclip_attn_aux``) into
+    ``out`` and ``aux`` (None without the column)."""
     B, H, T, Dh = q.shape
     dtype = q.dtype
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_cuda_operand(name, t, dtype, (B, H, T, Dh))
     _check_head_dim(Dh)
-    valid = _per_batch(kv_valid_len, B, T, q.device)
-    eot = _per_batch(attn_to_idx, B, 0, q.device)
-    with_aux = attn_to_idx is not None
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        _build.check_cuda_operand(name, t, dtype, (B, H, T, Dh))
+        _check_aligned(name, t)
+    valid, valid_all = _valid_arg(kv_valid_len, B, T, q.device)
+    eot, eot_all = _valid_arg(attn_to_idx, B, 0, q.device)
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr() if valid is not None else None,
+            eot.data_ptr() if eot is not None else None, valid_all, eot_all, out.data_ptr(),
+            aux.data_ptr() if aux is not None else None, B, H, T, Dh, int(aux is not None), int(causal),
+            _build.dtype_code(dtype), _build.stream_handle(q.device))
+
+
+def _fused_attention_cuda(q, k, v, causal, kv_valid_len, attn_to_idx):
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
-    aux = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if with_aux else None
-    err = _build.library().tapclip_attn_aux(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(), eot.data_ptr(),
-        out.data_ptr(), aux.data_ptr() if with_aux else None,
-        B, H, T, Dh, int(with_aux), int(causal), _build.dtype_code(dtype),
-        _build.stream_handle(q.device),
-    )
-    _build.check(err, "tapclip_attn_aux")
+    aux = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if attn_to_idx is not None else None
+    args = _attn_aux_call(q, k, v, causal, kv_valid_len, attn_to_idx, out, aux)
+    _build.check(_build.library().tapclip_attn_aux(*args), "tapclip_attn_aux")
     fused_attention.launches += 1
     fused_attention.causal_launches += int(causal)
-    return out, (aux.mean(dim=1) if with_aux else None)
+    return out, (aux.mean(dim=1) if aux is not None else None)
 
 
 # --- the backward chain on the card ---------------------------------------------------
@@ -216,12 +232,22 @@ def _check_head_dim(Dh):
         raise ValueError(f"attention kernel takes head dims 16/32/64/128, got {Dh}")
 
 
+def _check_aligned(name, t):
+    """The kernels copy rows in 16-byte pieces: the pointer and the (batch,
+    head, row) strides must be 16-byte multiples."""
+    step = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
+        raise ValueError(f"{name} must have 16-byte aligned rows (pointer and strides in steps of "
+                         f"{step} elements), got strides {t.stride()} at offset {t.data_ptr() % 16}")
+
+
 def _strides(name, t, shape, dtype):
     """(batch, head, row) element strides of a ``[B, H, T, Dh]`` CUDA view
-    whose rows are contiguous."""
+    whose rows are contiguous and 16-byte aligned."""
     _build.check_cuda_operand(name, t, dtype, shape, contiguous=False)
     if t.stride(3) != 1 or max(t.stride()[:3]) >= 2 ** 31:
         raise ValueError(f"{name} must have contiguous rows and 32-bit strides, got {t.stride()}")
+    _check_aligned(name, t)
     return t.stride()[:3]
 
 
@@ -241,46 +267,56 @@ def _chain_operands(q, valid, shared, g=None):
     return shape, sq, sg, _build.dtype_code(dtype)
 
 
+def _flash_lse_call(q, k, valid, causal, lse):
+    """The checked arguments of one LSE launch (``tapclip_flash_lse``) into ``lse``."""
+    (B, H, T, Dh), sq, _, code = _chain_operands(q, valid, (("k", k),))
+    _build.check_cuda_operand("lse", lse, torch.float32, (B, H, T))
+    return (q.data_ptr(), k.data_ptr(), valid.data_ptr(), lse.data_ptr(), B, H, T, Dh, *sq, int(causal), code,
+            _build.stream_handle(q.device))
+
+
+def _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p=False):
+    """The checked arguments of one dK/dV launch (``tapclip_flash_bwd_dkv``)."""
+    shape, sq, sg, code = _chain_operands(q, valid, (("k", k), ("v", v), ("dk", dk), ("dv", dv)), g)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _build.check_cuda_operand(name, t, torch.float32, shape[:3])
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape, *sq, *sg, int(causal), int(round_p), code,
+            _build.stream_handle(q.device))
+
+
+def _flash_bwd_dq_call(q, k, v, g, lse, delta, valid, causal, dq):
+    """The checked arguments of one dQ launch (``tapclip_flash_bwd_dq``)."""
+    shape, sq, sg, code = _chain_operands(q, valid, (("k", k), ("v", v), ("dq", dq)), g)
+    for name, t in (("lse", lse), ("delta", delta)):
+        _build.check_cuda_operand(name, t, torch.float32, shape[:3])
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            valid.data_ptr(), dq.data_ptr(), *shape, *sq, *sg, int(causal), code, _build.stream_handle(q.device))
+
+
+def _launch(name, args, counter):
+    _build.check(getattr(_build.library(), name)(*args), name)
+    setattr(fused_attention, counter, getattr(fused_attention, counter) + 1)
+
+
 def _flash_lse_cuda(q, k, valid, causal):
     """The LSE kernel: ``lse2 [B, H, T]`` f32 (``valid`` ``[B]`` int32 on the card)."""
-    (B, H, T, Dh), sq, _, code = _chain_operands(q, valid, (("k", k),))
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = _build.library().tapclip_flash_lse(
-        q.data_ptr(), k.data_ptr(), valid.data_ptr(), lse.data_ptr(), B, H, T, Dh, *sq,
-        int(causal), code, _build.stream_handle(q.device))
-    _build.check(err, "tapclip_flash_lse")
-    fused_attention.lse_launches += 1
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("tapclip_flash_lse", _flash_lse_call(q, k, valid, causal, lse), "lse_launches")
     return lse
 
 
 def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p=False):
     """The dK/dV kernel, into ``dk`` / ``dv``.  ``round_p`` rounds p to the
     compute dtype before the dv product (the packed core's bfloat16 backward)."""
-    shape, sq, sg, code = _chain_operands(q, valid, (("k", k), ("v", v), ("dk", dk), ("dv", dv)), g)
-    for name, t in (("lse", lse), ("delta", delta)):
-        _build.check_cuda_operand(name, t, torch.float32, shape[:3])
-    B, H, T, Dh = shape
-    err = _build.library().tapclip_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, Dh, *sq, *sg, int(causal),
-        int(round_p), code, _build.stream_handle(q.device))
-    _build.check(err, "tapclip_flash_bwd_dkv")
-    fused_attention.dkv_launches += 1
+    _launch("tapclip_flash_bwd_dkv", _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p),
+            "dkv_launches")
     return dk, dv
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, valid, causal, dq):
     """The dQ kernel, into ``dq``."""
-    shape, sq, sg, code = _chain_operands(q, valid, (("k", k), ("v", v), ("dq", dq)), g)
-    for name, t in (("lse", lse), ("delta", delta)):
-        _build.check_cuda_operand(name, t, torch.float32, shape[:3])
-    B, H, T, Dh = shape
-    err = _build.library().tapclip_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        valid.data_ptr(), dq.data_ptr(), B, H, T, Dh, *sq, *sg, int(causal), code,
-        _build.stream_handle(q.device))
-    _build.check(err, "tapclip_flash_bwd_dq")
-    fused_attention.dq_launches += 1
+    _launch("tapclip_flash_bwd_dq", _flash_bwd_dq_call(q, k, v, g, lse, delta, valid, causal, dq), "dq_launches")
     return dq
 
 

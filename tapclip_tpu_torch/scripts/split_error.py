@@ -1,0 +1,139 @@
+"""The error of the flash kernels' split-operand products, emulated on the CPU.
+
+    python3 -m tapclip_tpu_torch.scripts.split_error [--terms N]
+
+K3 and the flash backward chain (``csrc/flash_mma.cuh``) run every product
+on the tensor cores in bf16 with f32 accumulation.  An f32 operand is split
+into bf16 terms, ``x = x0 + x1 + ...`` with ``x0 = bf16(x)`` and each later
+term the bf16 rounding of what is left, and a product sums the partial
+products of the term pairs ``(i, j)`` with ``i + j < max(terms)``.  A product
+of two bf16 values is exact in f32, so this module computes the same sums in
+torch's f32 matmul: only the order of the f32 additions differs from the
+card.
+
+:func:`emulated_errors` runs K3's forward and the chain's three kernels that
+way at one shape and reports each result's error against the plain versions
+of ``tapclip_tpu_torch.ops.flash_attention`` on the same inputs: the LSE's
+max abs error, the norm-relative error of the output and of dq, dk, dv, and
+the aux column's max abs error.  Run as a script it prints them, one JSON
+line per shape, at the card tests' flash shapes (``FLASH_SHAPES`` of
+``tests/port/test_torch_gpu.py``), in f32 with ``--terms`` terms per operand
+(default 3, the kernels' choice) and in bf16 (q, k, v, dO exact; p and ds in
+two terms).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from tapclip_tpu_torch.ops.attention import attention_reference
+from tapclip_tpu_torch.ops.flash_attention import (
+    _LOG2E,
+    _masked_scores,
+    attention_bwd_reference,
+    attention_lse_reference,
+)
+
+# (B, H, T, Dh, per-row valid), as FLASH_SHAPES of tests/port/test_torch_gpu.py.
+FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, [82, 82, 40]),
+                (1, 3, 130, 16, [130]), (1, 2, 577, 128, [577]), (1, 2, 2100, 64, [2000]),
+                (2, 2, 15, 64, [15, 9]), (2, 2, 63, 32, [63, 40]), (1, 2, 65, 128, [64])]
+F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
+ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
+
+
+def split_terms(x: torch.Tensor, n: int) -> list:
+    """``n`` f32 tensors holding bf16 values whose sum is ``x`` up to the last
+    term's rounding: ``x0 = bf16(x)``, ``x1 = bf16(x - x0)``, ..."""
+    terms, rest = [], x.float()
+    for _ in range(n):
+        t = rest.to(torch.bfloat16).float()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, na: int, nb: int) -> torch.Tensor:
+    """``a @ b`` as the kernels form it: the partial products of the terms
+    ``(i, j)`` with ``i + j < max(na, nb)``, summed in f32, smallest first."""
+    ta, tb, n = split_terms(a, na), split_terms(b, nb), max(na, nb)
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for s in range(n - 1, -1, -1):
+        for i in range(na):
+            if 0 <= s - i < nb:
+                out = out + ta[i] @ tb[s - i]
+    return out
+
+
+def _emulate(q, k, v, g, valid, causal, f32_terms):
+    """(out, aux, lse, dq, dk, dv) in f32 as the kernels compute them."""
+    B, H, T, Dh = q.shape
+    f32 = q.dtype == torch.float32
+    nt = f32_terms if f32 else 1  # terms of q, k, v, dO
+    nacc = f32_terms if f32 else ACC_TERMS_BF16  # of p and ds
+    mask = _masked_scores(q, k, valid, causal)[1]
+    s2 = split_matmul(q, k.transpose(-1, -2), nt, nt) * (Dh ** -0.5 * _LOG2E)
+    s2 = torch.where(mask, s2, torch.full_like(s2, -1e30))
+    m = s2.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s2 - m)
+    l = e.sum(dim=-1, keepdim=True)
+    # The forward rounds p to the compute dtype before p v (one term in bf16).
+    out = split_matmul(e, v, nt if f32 else 1, nt) / l
+    aux = (e / l).mean(dim=1)  # every column; the caller picks the attribution key
+    lse = (m + torch.log2(l.clamp_min(1e-30)))[..., 0]
+    delta = (g.float() * out.to(q.dtype).float()).sum(dim=-1)
+    p = torch.where(mask, torch.exp2(s2 - lse[..., None]), torch.zeros_like(s2))
+    dp = split_matmul(g, v.transpose(-1, -2), nt, nt)
+    ds = p * (dp - delta[..., None]) * Dh ** -0.5
+    dv = split_matmul(p.transpose(-1, -2), g, nacc, nt)
+    dk = split_matmul(ds.transpose(-1, -2), q, nacc, nt)
+    dq = split_matmul(ds, k, nacc, nt)
+    return out, aux, lse, dq, dk, dv
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def emulated_errors(B, H, T, Dh, valid, causal, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) -> dict:
+    """Errors of the emulated kernels against the plain versions on the same
+    inputs (numpy normal draws from ``seed``, in ``dtype``): ``lse_abs``,
+    ``out_rel``, ``aux_abs``, and for each of dq, dk, dv ``*_rel`` and
+    ``*_abs`` (max abs), the output and the gradients in ``dtype`` as both
+    sides return them."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((B, H, T, Dh), dtype=np.float32)).to(dtype)
+                  for _ in range(4))
+    valid_t = torch.tensor(valid, dtype=torch.int32)
+    eot = valid_t - 1
+    out, aux, lse, dq, dk, dv = _emulate(q, k, v, g, valid_t, causal, f32_terms)
+    want_out, want_aux = attention_reference(q, k, v, causal=causal, kv_valid_len=valid_t, attn_to_idx=eot)
+    want = attention_bwd_reference(q, k, v, g, valid_t, causal)
+    aux = torch.take_along_dim(aux, eot.long().view(B, 1, 1).expand(B, T, 1), dim=2)[..., 0]
+    errs = {"lse_abs": float((lse - attention_lse_reference(q, k, valid_t, causal)).abs().max()),
+            "out_rel": _rel(out.to(dtype), want_out), "aux_abs": float((aux - want_aux).abs().max())}
+    for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        errs[f"{n}_rel"] = _rel(a.to(dtype), b)
+        errs[f"{n}_abs"] = float((a.to(dtype).float() - b.float()).abs().max())
+    return errs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")
+    args = ap.parse_args()
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, H, T, Dh, valid in FLASH_SHAPES:
+            for causal in (False, True):
+                errs = emulated_errors(B, H, T, Dh, valid, causal, dtype, args.terms)
+                print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms,
+                                  "shape": [B, H, T, Dh], "valid": valid, "causal": causal, **errs}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -15,6 +15,15 @@
   blockwise one; the aux column carries none.
 * The split composition B4's Function differentiates past its tile: the
   half-block and B4's plain backward, through autograd.
+* The kernels' split-operand products (``csrc/flash_mma.cuh``), emulated in
+  torch (``tapclip_tpu_torch/scripts/split_error.py``: each f32 operand
+  split into three bf16 terms, p and ds beside bf16 operands into two, the
+  partial products summed in f32) at the card tests' flash shapes, against
+  the plain f32 versions: the LSE within 1e-5 absolute and the gradients
+  within 1e-5 norm-relative (the card's limits), the output within 1e-5 and
+  the aux column within 1e-6 (K3 at T 4096's); in bf16 the card's bf16
+  limits (gradients 5e-3, output 1e-2).  At T 1, dq and dk are 0 up to
+  rounding and held at 1e-5 absolute, as on the card.
 * The slice: a 3-step ``make_train_step`` trajectory with
   ``attn_impl="pallas"`` (cached features) in both text modes against JAX's,
   where JAX runs ``_attn_kernel`` and ``_attn_bwd_kernel`` in interpret mode.
@@ -55,6 +64,7 @@ from tapclip_tpu_torch.ops.flash_attention import (
 )
 from tapclip_tpu_torch.ops.fused_mha import _split_block, attn_block_bwd_reference, attn_block_reference
 from tapclip_tpu_torch.parallel import train_step as tts
+from tapclip_tpu_torch.scripts.split_error import FLASH_SHAPES, emulated_errors
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -175,6 +185,27 @@ def test_fused_attention_backward_past_the_single_block_cap():
 
 
 # --- B4 past its tile: the split composition ---------------------------------------------
+
+
+# The card's limits the emulated split must meet: f32 (LSE absolute; the
+# gradients' and K3's output norm-relative; the aux column absolute) and bf16.
+SPLIT_LIMITS = {torch.float32: {"lse_abs": 1e-5, "grad_rel": 1e-5, "out_rel": 1e-5, "aux_abs": 1e-6},
+                torch.bfloat16: {"lse_abs": 1e-5, "grad_rel": 5e-3, "out_rel": 1e-2, "aux_abs": 1e-6}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("B,H,T,Dh,valid", FLASH_SHAPES, ids=[f"T{s[2]}" for s in FLASH_SHAPES])
+def test_split_operand_products_meet_the_card_limits(B, H, T, Dh, valid, causal, dtype):
+    errs = emulated_errors(B, H, T, Dh, valid, causal, dtype)
+    lim = SPLIT_LIMITS[dtype]
+    assert errs["lse_abs"] <= lim["lse_abs"], errs
+    assert errs["out_rel"] <= lim["out_rel"] and errs["aux_abs"] <= lim["aux_abs"], errs
+    for name in ("dq", "dk", "dv"):
+        if T == 1 and name != "dv":
+            assert errs[f"{name}_abs"] <= 1e-5, (name, errs)
+        else:
+            assert errs[f"{name}_rel"] <= lim["grad_rel"], (name, errs)
 
 
 @pytest.mark.parametrize("valid", [21, 24], ids=["valid<T", "valid=T"])

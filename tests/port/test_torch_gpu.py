@@ -16,7 +16,13 @@ the f32 sums differs, over up to 1,600 rows and 3,072 hidden columns), bf16
 2e-2 (both sides round the same intermediates, but a value on the other side
 of a rounding step moves by one bf16 ulp, 2^-8 relative).  B7 is held the
 same way on its packed dqkv, and so are the flash backward chain's kernels
-(LSE at 1e-5 absolute in both dtypes: f32 math on the same inputs).  The
+(LSE at 1e-5 absolute in both dtypes: f32 math on the same inputs).  K3
+and the chain run their products on the tensor cores (f32 operands split
+into three bf16 terms, ``csrc/flash_mma.cuh``) and are also held at their
+tile edges: the attribution key in a later key tile, at or past valid or
+after the query, T where the query-tile height changes (15, 33, 63, 129),
+every head dim in both dtypes, and B7's packed strides with p rounded at
+T 584.  The
 int8 kernels (B13, B14) are held against their plain versions with the same
 random draws, in both modes, by the norm-relative error of the block's
 update (out - x): f32 2e-3 (an activation code on the other side of a
@@ -44,6 +50,8 @@ from tapclip_tpu_torch.ops.flash_attention import (
 from tapclip_tpu_torch.ops.fused_mha import (
     _attn_block_bwd_cuda,
     _fused_mha_bwd_cuda,
+    _fused_mha_cuda,
+    _mha_flash_bwd_cuda,
     attn_block_bwd_reference,
     attn_block_reference,
     fused_attn_block,
@@ -405,6 +413,58 @@ def test_attention_aux_kernel_causal(cuda, dtype, tol, B, H, T, Dh, valid, eot):
         assert not got[1][b, :e].any()
 
 
+# K3 on the tensor cores at its tile edges: the attribution key in the second
+# key tile, at and past valid, after the query under causal; T 15, 33, 63 and
+# 129, where the query-tile height (16, 32, 64 rows) and the key-tile count
+# change.  The aux column is f32 math on both sides, held at the f32 limit in
+# both dtypes.
+K3_EDGES = [(2, 2, 100, 64, [100, 90], [70, 64], False), (2, 2, 100, 64, [80, 64], [80, 64], False),
+            (2, 2, 100, 64, [80, 60], [99, 70], False), (2, 2, 200, 64, [200, 150], [150, 149], True),
+            (2, 3, 15, 64, [15, 11], [14, 3], False), (2, 3, 15, 32, [15, 15], [10, 14], True),
+            (2, 3, 63, 64, [63, 40], [62, 39], False), (2, 3, 63, 128, [63, 63], [30, 62], True),
+            (1, 2, 33, 32, [33], [32], True), (1, 2, 129, 16, [129], [128], False)]
+K3_EDGE_IDS = ["eot-tile2", "eot-at-valid", "eot-past-valid", "eot-after-query-causal", "T15", "T15-causal",
+               "T63", "T63-causal", "T33-causal", "T129"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,H,T,Dh,valid,eot,causal", K3_EDGES, ids=K3_EDGE_IDS)
+def test_attention_aux_kernel_tile_edges(cuda, dtype, tol, B, H, T, Dh, valid, eot, causal):
+    gen = torch.Generator(device=cuda).manual_seed(T * Dh + 7)
+    q, k, v = (_randn(gen, B, H, T, Dh).to(dtype) for _ in range(3))
+    valid_t = torch.tensor(valid, device=cuda, dtype=torch.int32)
+    eot_t = torch.tensor(eot, device=cuda, dtype=torch.int32)
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, causal=causal, kv_valid_len=valid_t, attn_to_idx=eot_t)
+        want = attention_reference(q, k, v, causal=causal, kv_valid_len=valid_t, attn_to_idx=eot_t)
+    _close(got[0], want[0], tol)
+    _close(got[1], want[1], DTYPES[0][1])
+    for b, e in enumerate(eot):
+        if e >= valid[b]:  # a masked attribution key: exactly 0
+            assert not got[1][b].any()
+        if causal:  # queries before their attribution key: exactly 0
+            assert not got[1][b, :e].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_aux_kernel_takes_ints_and_int32_as_given(cuda, dtype):
+    """An int or an int32 tensor on the card reaches K3 as it is (no fill or
+    cast launch); every form gives the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_randn(gen, 3, 2, 90, 64).to(dtype) for _ in range(3))
+    with torch.inference_mode():
+        want = fused_attention(q, k, v, kv_valid_len=80, attn_to_idx=79)
+        for valid, eot in ((torch.full((3,), 80, device=cuda, dtype=torch.int32),
+                            torch.full((3,), 79, device=cuda, dtype=torch.int32)),
+                           (torch.full((3,), 80, device=cuda), torch.tensor([79] * 3))):
+            got = fused_attention(q, k, v, kv_valid_len=valid, attn_to_idx=eot)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+        _close(want[0], attention_reference(q, k, v, kv_valid_len=80)[0], DTYPES[dtype != torch.float32][1])
+
+
 @pytest.mark.gpu
 def test_tiny_model_idiomatic_train_step_kernel_path_matches_plain(cuda):
     """Idiomatic prompt tuning on the card (cached features): the causal
@@ -437,9 +497,11 @@ def test_tiny_model_idiomatic_train_step_kernel_path_matches_plain(cuda):
 
 # --- the flash backward chain: LSE, dK/dV, dQ ------------------------------------
 
+# T 15, 63 and 65: one row short of a 16- and a 64-row tile, and one past it.
 FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, [82, 82, 40]),
-                (1, 3, 130, 16, [130]), (1, 2, 577, 128, [577]), (1, 2, 2100, 64, [2000])]
-FLASH_IDS = ["T1", "T77", "T88-valid82", "T130-dh16", "T577-dh128", "T2100"]
+                (1, 3, 130, 16, [130]), (1, 2, 577, 128, [577]), (1, 2, 2100, 64, [2000]),
+                (2, 2, 15, 64, [15, 9]), (2, 2, 63, 32, [63, 40]), (1, 2, 65, 128, [64])]
+FLASH_IDS = ["T1", "T77", "T88-valid82", "T130-dh16", "T577-dh128", "T2100", "T15", "T63", "T65-dh128"]
 
 
 def _flash_case(cuda, dtype, B, H, T, Dh, seed):
@@ -504,6 +566,56 @@ def test_fused_attention_function_differentiates_on_the_card(cuda, causal):
     want = torch.autograd.grad(attention_reference(*plain, causal=causal, kv_valid_len=valid)[0], plain, g)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         _close_rel(name, a, b, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_flash_kernels_every_head_dim(cuda, dtype, tol, Dh, causal):
+    """K3 and the chain at every head dim, in both dtypes, at a ragged T with
+    per-row valid lengths (three key tiles)."""
+    B, H, T = 2, 2, 150
+    q, k, v, g = _flash_case(cuda, dtype, B, H, T, Dh, Dh + causal)
+    valid = torch.tensor([150, 101], device=cuda, dtype=torch.int32)
+    eot = torch.tensor([149, 100], device=cuda, dtype=torch.int32)
+    with torch.inference_mode():
+        got = fused_attention(q, k, v, causal=causal, kv_valid_len=valid, attn_to_idx=eot)
+        want = attention_reference(q, k, v, causal=causal, kv_valid_len=valid, attn_to_idx=eot)
+    _close(got[0], want[0], DTYPES[dtype != torch.float32][1])
+    _close(got[1], want[1], DTYPES[0][1])
+    torch.testing.assert_close(_flash_lse_cuda(q, k, valid, causal), attention_lse_reference(q, k, valid, causal),
+                               rtol=0, atol=1e-5)
+    out = want[0]
+    chain = flash_attention_bwd_cuda(q, k, v, out, g, valid, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), chain, attention_bwd_reference(q, k, v, g, valid, causal)):
+        _close_rel(f"chain {name}", a, b, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_chain_packed_strides_round_p(cuda, causal):
+    """The chain on B7's packed [B, T, 3W] strides with p rounded before the
+    dv product (bf16), at T 584 (ViT-L/14-336), against B7's plain backward,
+    and bit for bit on a repeat."""
+    qkv, g = _mha_case(cuda, torch.bfloat16, 2, 584, 256, 584 + causal)
+    out = _fused_mha_cuda(qkv, 4, 577, causal)
+    got = _mha_flash_bwd_cuda(qkv, g, out, 4, 577, causal)
+    torch.testing.assert_close(_mha_flash_bwd_cuda(qkv, g, out, 4, 577, causal), got, rtol=0, atol=0)
+    _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, 4, 577, causal), BWD_DTYPES[1][1])
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_unaligned_rows(cuda):
+    """The 16-byte copies need 16-byte aligned rows: a row stride or a start
+    that is not raises."""
+    valid = torch.full((1,), 16, device=cuda, dtype=torch.int32)
+    q = torch.randn(1, 2, 16, 66, device=cuda)[..., :64]  # rows 264 bytes apart
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _flash_lse_cuda(q, q, valid, False)
+    off = torch.randn(2 * 16 * 64 + 1, device=cuda)[1:].view(1, 2, 16, 64)  # starts 4 bytes in
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_attention(off, off, off)
 
 
 @pytest.mark.gpu
