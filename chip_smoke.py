@@ -26,7 +26,10 @@ Run from the repository root:  python3 chip_smoke.py
    past B7's tile), held and timed.  Every kernel's time is printed beside its plain version's, one
    library call's (SDPA for the attention kernels, where one computes the
    same function) and its bound (bytes over 3.35 TB/s or operations over
-   the dtype's peak, whichever is larger).
+   the dtype's peak, whichever is larger).  K1 (on the tensor cores: three
+   launches, LayerNorm, fc, proj) also carries its launches alone through
+   the C interface (``launch_ms``) and the MMA bound (``mma_bound_ms``, as
+   K3's in 12), and the kernels line lists its every timed case.
 5. Serves ViT-B/16 at full width with random weights from a fixed seed
    through ``tapclip_tpu_torch.serve``'s HTTP server on localhost: adds a
    class, sends 16 concurrent /predict requests (uint8 pixels, batches of
@@ -112,11 +115,13 @@ Run from the repository root:  python3 chip_smoke.py
     the full path, -inf the cheap path.
 20. The A/B variants, off every main path (0 launches there): the four card
     drivers' ``run()`` (``tapclip_tpu_torch/scripts/``: S1 the one-launch
-    fused layer, S2 K1's variants, S3 and S4 K2's) at ViT-B/16, batch 8, f32
-    and bf16.  Each distinct variant kernel is held against its plain version
-    (AB_TOL: the parents' F32_TOL / BF16_TOL), each variant with its parent's
-    configuration against the parent bit for bit, each timed in turns with
-    the parent (CUDA events) beside its plain version and the bound.
+    fused layer, S2 the FMA walk's variants, S3 and S4 K2's) at ViT-B/16,
+    batch 8, f32 and bf16.  Each distinct variant kernel is held against its
+    plain version (AB_TOL: the parents' F32_TOL / BF16_TOL), each variant
+    with its parent's configuration against the parent bit for bit, each
+    timed in turns with the parent (CUDA events) beside its plain version
+    and the bound.  S2's parent is its own flags-off kernel; K1 is timed in
+    the same turns as a column of its own (``k1_ms``).
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -319,6 +324,8 @@ TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 # K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
 K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
+# The kernels on the tensor cores: K3, the chain and K1.
+MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp",)
 CASE_KEYS = ("shape", "dtype", "ms", "launcher_ms", "launch_ms", "plain_ms", "library_ms", "chain_ms",
              "bound_ms", "mma_bound_ms", "max_abs_err", "max_rel_err")
 PALLAS_STEPS = 3
@@ -446,13 +453,14 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-# Partial products per product of K3 and the flash chain on the tensor cores
-# (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits both operands
-# into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T and K3's rounded
-# p v are one MMA, the chain's p and ds products two (the dK/dV kernel's four
-# products 1 + 1 + 2 + 2, the dQ kernel's three 1 + 1 + 2).
+# Partial products per product of K3, the flash chain and K1 on the tensor
+# cores (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits both
+# operands into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T, K3's
+# rounded p v and K1's two products are one MMA, the chain's p and ds
+# products two (the dK/dV kernel's four products 1 + 1 + 2 + 2, the dQ
+# kernel's three 1 + 1 + 2).
 MMA_PRODUCTS = {"fused_attention_aux": (6, 1), "flash_lse": (6, 1), "flash_bwd_dkv": (6, 1.5),
-                "flash_bwd_dq": (6, 4 / 3)}
+                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1)}
 
 
 def mma_bound(n_bytes: int, flops: float, dtype: str, kernel: str) -> dict:
@@ -482,6 +490,29 @@ def k3_launch(q, k, v, causal, valid, eot):
     B, H, T, _ = q.shape
     aux = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if eot is not None else None
     return bare_launch("tapclip_attn_aux", _attn_aux_call(q, k, v, causal, valid, eot, torch.empty_like(q), aux))
+
+
+def k1_launch(x, ln, mlp):
+    """K1's launches alone (LayerNorm, fc, proj) through the C interface on
+    buffers allocated once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    W, H = x.shape[-1], mlp["w_fc"].shape[-1]
+    R = x.numel() // W
+    ws = torch.empty(R * (H + W), dtype=x.dtype, device=x.device)
+    w = {k: mlp[k].to(x.dtype) for k in ("w_fc", "w_proj")}
+    out = torch.empty_like(x)
+    launch = bare_launch("tapclip_fused_mlp", (
+        x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), w["w_fc"].data_ptr(), mlp["b_fc"].data_ptr(),
+        w["w_proj"].data_ptr(), mlp["b_proj"].data_ptr(), out.data_ptr(), ws.data_ptr(), R, W, H, 1e-5,
+        _build.dtype_code(x.dtype), _build.stream_handle(x.device)))
+
+    def run(_buffers=(out, ws, w)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
 
 
 def attn_pairs(B: int, T: int, valid, causal: bool = False) -> int:
@@ -568,10 +599,16 @@ def check_kernels() -> dict:
             x, ln, mlp = _mlp_case(gen, B, T, W, dtype)
             p = (x, ln["scale"], ln["bias"], mlp["w_fc"], mlp["b_fc"], mlp["w_proj"], mlp["b_proj"])
             # No single PyTorch call computes x + MLP(LN(x)): no library time.
+            work = (nbytes(*p) + nbytes(x), 16 * B * T * W * W)
             record("fused_mlp", label, dtype,
                    lambda: fused_mlp_block(x, ln, mlp, eps=1e-5),
-                   lambda: fused_mlp_reference(*p, eps=1e-5), tol, timed,
-                   work=(nbytes(*p) + nbytes(x), 16 * B * T * W * W))
+                   lambda: fused_mlp_reference(*p, eps=1e-5), tol, timed, work=work)
+            case = results["fused_mlp"]["cases"][-1]
+            with torch.inference_mode():
+                case["launch_ms"] = time_ms(k1_launch(x, ln, mlp))
+            case.update(mma_bound(*work, case["dtype"], "fused_mlp"))
+            print(f"kernel fused_mlp [{label} {case['dtype']}]: launches alone {case['launch_ms']:.4g} ms, "
+                  f"mma bound {case['mma_bound_ms']:.4g} ms", flush=True)
         # K2: image T=200 (valid 197), 12 heads; text T=88 (valid 82), 8 heads.
         for label, (B, T, W, nh, valid), timed in (
             ("image 8x200x768 h12 valid197", (8, 200, 768, 12, 197), True),
@@ -1781,6 +1818,14 @@ def check_ab_variants() -> dict:
                         f"ab {driver} {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version > {tol}")
                 require(v.get("bit_equal_parent", True),
                         f"ab {driver} {name} {dt}: the parent's configuration differs from the parent")
+            for name, v in res["columns"].items():  # K1 beside S2, on the tensor cores
+                tol = AB_TOL[dt]
+                print(f"ab {driver} column {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of the parent), "
+                      f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
+                      f"(needs {v['vs_plain']['tol_needed']:.3e}, limit {tol}), vs parent rel "
+                      f"{v['vs_parent']['rel_err']:.3e}", flush=True)
+                require(v["vs_plain"]["finite"] and v["vs_plain"]["tol_needed"] <= tol,
+                        f"ab {driver} column {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version")
     return out
 
 
@@ -1821,6 +1866,8 @@ def ab_record(ab: dict, launches: dict) -> list:
                 "vs_parent_rel_err": v["vs_parent"]["rel_err"], "bit_equal_parent": v.get("bit_equal_parent"),
                 "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_max_abs_err": b["vs_plain"]["max_abs_err"],
                 "bf16_bound_ms": bf16["bound_ms"], "bf16_parent_ms": bf16["parent"]["ms"],
+                **{f"{col}_ms": f32["columns"][col]["ms"] for col in f32["columns"]},
+                **{f"bf16_{col}_ms": bf16["columns"][col]["ms"] for col in bf16["columns"]},
             })
     return out
 
@@ -2287,7 +2334,7 @@ def main() -> int:
         for key in ("launcher_ms", "launch_ms", "mma_bound_ms"):
             if key in timed:
                 entry[key] = timed[key]
-        if name in K3_AND_CHAIN:  # every timed reading: both dtypes, T 584, T 4096
+        if name in MMA_KERNELS:  # every timed reading: both dtypes, T 584, T 4096; K1's three shapes
             entry["cases"] = [{key: c[key] for key in CASE_KEYS if key in c}
                               for c in kernels[name]["cases"] if "ms" in c]
         if f"{name} float32" in repairs:  # B7 / B4 past their [T, T] tile

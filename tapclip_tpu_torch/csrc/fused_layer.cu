@@ -17,12 +17,12 @@
 //   then cooperative_groups::this_grid().sync();
 //   B. for each 16-row tile: the out-projection of its attention rows
 //      + b_out + x into f32 shared memory (mid never leaves the chip), LN2
-//      rounded, K1's 256-column hidden walk (mlp_walk.cuh) with the
+//      rounded, the 256-column FMA hidden walk (mlp_walk.cuh) with the
 //      accumulator starting at mid + b_proj, one store.
 // A launch the card cannot hold at once (the cooperative grid too large)
 // is refused and the wrapper raises.
 //
-// What bounds it on the card: as K2 then K1, the serial work of each block
+// What bounds it on the card: as K2 and the FMA walk, the serial work of each block
 // (phase A has B x H items, 96 at ViT-B/16 batch 8, on 132 SMs; phase B one
 // 16-row tile a block, each reading all of w_out, w_fc and w_proj from L2).
 // The round trip the fusion removes, one [B, T, W] tensor written and read

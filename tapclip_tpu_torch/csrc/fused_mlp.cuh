@@ -1,6 +1,6 @@
-// K1's kernel as a template over mlp_walk.cuh's switches, and its launcher:
-// instantiated at K1's configuration by fused_mlp.cu and at the S2 variants'
-// by fused_mlp_variants.cu.
+// The FMA-walk kernel of the fused MLP half-block as a template over
+// mlp_walk.cuh's switches, and its launcher: instantiated at the S2
+// variants' configurations by fused_mlp_variants.cu.
 #pragma once
 
 #include "common.cuh"

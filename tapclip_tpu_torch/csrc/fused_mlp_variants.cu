@@ -1,5 +1,6 @@
-// S2: the A/B variants of the fused MLP half-block (K1, fused_mlp.cu) as
-// configurations of its kernel (fused_mlp.cuh, mlp_walk.cuh): rows per block
+// S2: the A/B variants of the fused MLP half-block as configurations of its
+// FMA-walk kernel (fused_mlp.cuh, mlp_walk.cuh; K1, fused_mlp.cu, ran on it
+// before it moved to the tensor cores): rows per block
 // 16 or 8, erff or the 3-term erf, two-pass or one-pass LayerNorm, the
 // hidden chunks walked plainly or software-pipelined.
 //
@@ -7,7 +8,7 @@
 // ilv_chunks, and run_variant's row_tile).  The wrapper is
 // tapclip_tpu_torch/ops/fused_mlp.py::fused_mlp_variant.
 //
-// What bounds it on the card: as K1, latency inside each SM (every block
+// What bounds it on the card: latency inside each SM (every block
 // reads all of w_fc and w_proj from L2, one scalar load a thread a reduction
 // step, one 8-warp block per SM at the image shape).  The variants ask which
 // lever moves it: more blocks per SM (8 rows), fewer exposed weight loads
@@ -18,7 +19,8 @@
 using namespace tapclip;
 
 // As tapclip_fused_mlp, with rows 16 or 8 and the erf3, ln1pass and ilv
-// switches (0 or 1).  rows 16 with every switch 0 is K1.
+// switches (0 or 1).  rows 16 with every switch 0 is the flags-off
+// configuration, the parent of the A/B driver on the card.
 extern "C" int tapclip_fused_mlp_variant(const void* x, const void* gamma, const void* beta,
                                          const void* w_fc, const void* b_fc, const void* w_proj,
                                          const void* b_proj, void* out, int R, int W, int H, float eps,

@@ -12,7 +12,7 @@
 //
 // Design.  The second quantizer needs max |h| over the whole hidden row
 // (H = 3,072 at ViT-B/16, 4,096 at ViT-L/14) before any element of it is
-// quantized, so K1's walk over 256-column chunks (fused_mlp.cu) cannot carry
+// quantized, so the FMA walk over 256-column chunks (mlp_walk.cuh) cannot carry
 // over.  A block owns 8 rows and keeps their hidden rows in shared memory as
 // f32 (8 x 3,072 x 4 B = 96 KB; 128 KB at ViT-L/14):
 //   1. one warp a row: LayerNorm into shared memory (the hidden buffer, not

@@ -38,8 +38,9 @@
 // What bounds it on the card: inferred, not measured (no profile yet).  By
 // its shape it is arithmetic: 3 x 2 x R x W x H flops for dx (fc recompute,
 // dh, dy), on the FMA units in f32, with every block re-reading all of w_fc
-// (twice) and w_proj from L2.  It has K1's layout (one block of 8 warps per
-// SM, ROWS rows per block), which a block-count probe of K1 found held back
+// (twice) and w_proj from L2.  It has the FMA walk's layout (one block of 8
+// warps per SM, ROWS rows per block), which a block-count probe of K1 on that
+// walk found held back
 // by too few warps per SM; the same is expected here.  More rows per block,
 // more blocks per SM and tensor-core MMA are later work.
 #include "common.cuh"

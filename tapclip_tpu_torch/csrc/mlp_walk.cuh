@@ -1,6 +1,7 @@
-// K1's device code, shared by the fused MLP half-block (fused_mlp.cu), its A/B
-// variants S2 (fused_mlp_variants.cu) and the one-launch fused layer S1
-// (fused_layer.cu).
+// The FMA walk of the fused MLP half-block: the device code of its A/B
+// variants S2 (fused_mlp_variants.cu) and of the one-launch fused layer S1
+// (fused_layer.cu).  K1 (fused_mlp.cu) ran on it before it moved to the
+// tensor cores.
 //
 // A block owns ROWS rows.  ln_row() normalises one row in f32 into y_s
 // (rounded to the compute dtype) and starts its accumulator at x + b_proj;
@@ -9,7 +10,7 @@
 // into the chunk h_s [ROWS, 256] (rounded), and the threads add the chunk's
 // partial projection into the f32 accumulator acc_s [ROWS, W].
 //
-// K1 is MlpWalk<T, 16, false, false>.  The switches of
+// S2's flags-off configuration is MlpWalk<T, 16, false, false>.  The switches of
 // scripts/mlp_kernel_ab.py, each as its nearest counterpart here:
 //   ROWS 8   row_tile (rt512): fewer rows a block, so more blocks per SM
 //            (64 KB of shared memory a block at W 768 instead of 112 KB);
@@ -20,7 +21,8 @@
 //            barrier a chunk instead of two (a software pipeline over the
 //            hidden chunks; ilv2 and ilv4 are the same schedule here);
 //   ln_row's one_pass: ln1pass, var = E[x^2] - mean^2.
-// ROWS and ILV change only the schedule: every row's arithmetic is K1's.
+// ROWS and ILV change only the schedule: every row's arithmetic is the
+// flags-off configuration's.
 #pragma once
 
 #include "common.cuh"

@@ -47,8 +47,9 @@ F = ctypes.c_float
 # C signature of every launcher: argument types in order.  Pointers and the
 # stream are c_void_p (ctypes would cut a Python int to 32 bits otherwise).
 _SIGNATURES = {
-    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, R, W, H, eps, dtype, stream
-    "tapclip_fused_mlp": (P, P, P, P, P, P, P, P, I, I, I, F, I, P),
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, ws (scratch: R * (H + W)
+    # elements of the dtype), R, W, H, eps, dtype, stream
+    "tapclip_fused_mlp": (P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
     # x, gamma, beta, w_qkv, b_qkv, qkv_ws, attn, B, T, W, n_heads, valid,
     # eps, dtype, stream
     "tapclip_attn_block_core": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
@@ -98,8 +99,10 @@ _SIGNATURES = {
     "tapclip_int8_attn_core": (P, P, I, I, I, I, I, I, P),
     # a, w_out, s_out, b_out, x, out, R, W, seed, deterministic, dtype, stream
     "tapclip_int8_out": (P, P, P, P, P, P, I, I, U, I, I, P),
-    # a, b, c, M, N, K, out_f32, stream
-    "tapclip_int8_gemm": (P, P, P, I, I, I, I, P),
+    # a, b, bt (scratch), c, M, N, K, out_f32, stream
+    "tapclip_int8_gemm": (P, P, P, P, I, I, I, I, P),
+    # K -> Kp, the depth of int8_gemm's transposed B scratch [N, Kp]
+    "tapclip_int8_gemm_kp": (I,),
     # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, R, W, H, eps, rows,
     # erf3, ln1pass, ilv, dtype, stream
     "tapclip_fused_mlp_variant": (P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, I, P),

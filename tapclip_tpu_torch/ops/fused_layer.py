@@ -5,7 +5,7 @@ variant that the JAX package's ``block_forward`` never reaches (nor does the
 port's).  :func:`fused_layer` launches the hand-written CUDA kernel
 ``csrc/fused_layer.cu`` (one cooperative launch: K2's attention core for
 every (batch row, head), a grid-wide barrier, then per 16-row tile the
-out-projection, LN2 and K1's hidden walk with ``mid`` kept in shared memory)
+out-projection, LN2 and the FMA hidden walk with ``mid`` kept in shared memory)
 on a CUDA tensor, and :func:`fused_layer_reference` on a CPU tensor.  Forward
 only, as in the JAX package.
 

@@ -10,10 +10,13 @@ on a CUDA tensor and runs :func:`fused_mlp_bwd_reference` on a CPU tensor.
 Like the TPU kernels, the forward saves x and the parameters only and the
 backward recomputes LN -> fc -> GELU.
 
-The kernels keep the ``[R, 4W]`` hidden activation on chip and take any row
-count R (they mask the ragged last tile), so the TPU kernel's alignment
-guard (R % 256, W % 128) is not ported.  They use ``erff`` for the exact
-GELU where the TPU kernels needed a polynomial.
+K1 runs both products on the tensor cores (bf16 MMAs, f32 operands split
+into three bf16 terms) in two tiled passes, with the ``[R, 4W]`` hidden
+activation in a scratch the wrapper allocates (it stays in the card's L2);
+B5 keeps it on chip.  Both take any row count R (they mask the ragged last
+tile), so the TPU kernel's alignment guard (R % 256, W % 128) is not ported.
+They use ``erff`` for the exact GELU where the TPU kernels needed a
+polynomial.
 """
 
 from __future__ import annotations
@@ -160,10 +163,16 @@ def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps):
     t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj)
     b_proj = b_proj.to(torch.float32)
     _build.check_cuda_operand("b_proj", b_proj, torch.float32, (W,))
+    align = 4 * x.element_size()  # the kernels copy 4 elements at a time at least
+    for name in ("x", "w_fc", "w_proj"):
+        if t[name].data_ptr() % align:
+            raise ValueError(f"fused_mlp kernel copies {name} in {align}-byte chunks: it must be "
+                             f"{align}-byte aligned")
     out = torch.empty_like(x)
+    ws = torch.empty(R * (H + W), dtype=x.dtype, device=x.device)  # h [R, H], then y [R, W]
     err = _build.library().tapclip_fused_mlp(
         x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
-        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(),
+        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(), ws.data_ptr(),
         R, W, H, float(eps), _build.dtype_code(x.dtype), _build.stream_handle(x.device),
     )
     _build.check(err, "tapclip_fused_mlp")
@@ -214,7 +223,7 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
     return dx, sums[:W], sums[W:2 * W], dw_fc, sums[3 * W:], dw_proj, sums[2 * W:3 * W]
 
 
-# --- S2: the A/B variants of K1 (scripts/mlp_kernel_ab.py) -------------------
+# --- S2: the A/B variants of the MLP half-block (scripts/mlp_kernel_ab.py) ---
 
 
 def erf3_poly(z):
@@ -258,9 +267,11 @@ def fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, e
 
 def fused_mlp_variant(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps=1e-5, erf3=False,
                       ln1pass=False, ilv=False, rows=16):
-    """S2 (forward only): K1 with the A/B switches of ``scripts/mlp_kernel_ab.py``
-    (``csrc/fused_mlp_variants.cu``) on a CUDA tensor, the plain version on a
-    CPU tensor.  ``rows`` 16 (K1's) or 8; every switch off is K1 itself."""
+    """S2 (forward only): the FMA walk (``csrc/fused_mlp_variants.cu``; K1 ran on
+    it before it moved to the tensor cores) with the A/B switches of
+    ``scripts/mlp_kernel_ab.py`` on a CUDA tensor, the plain version on a CPU
+    tensor.  ``rows`` 16 or 8; every switch off is the flags-off
+    configuration, the A/B's parent."""
     _build.refuse_graph("fused_mlp_variant", x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
     if rows not in (16, 8) or (rows == 8 and (erf3 or ilv)):
         raise ValueError(f"fused_mlp_variant takes rows 16 with any switch or rows 8 alone, got rows={rows}, "

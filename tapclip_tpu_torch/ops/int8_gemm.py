@@ -2,11 +2,13 @@
 
 Counterpart of ``scripts/int8_probe.py::mm_kernel``, the probe that timed the
 product B13 and B14 are built from, in its int8 -> int32 and int8 -> f32
-forms (``make_mm``).  :func:`int8_gemm` launches the hand-written CUDA kernel
-(``csrc/int8_gemm.cu``) on CUDA tensors and runs :func:`int8_gemm_reference`,
-the float64 product cast to the output type (exact at these sizes), on CPU
-tensors.  No serving path calls it: ``tapclip_tpu_torch/scripts/int8_probe.py``
-times it, and ``chip_smoke.py`` holds it against its plain version.
+forms (``make_mm``).  :func:`int8_gemm` launches the hand-written CUDA kernels
+(``csrc/int8_gemm.cu``: B transposed to K-major into a scratch the wrapper
+allocates, then the product on the int8 tensor cores) on CUDA tensors and runs
+:func:`int8_gemm_reference`, the float64 product cast to the output type
+(exact at these sizes), on CPU tensors.  No serving path calls it:
+``tapclip_tpu_torch/scripts/int8_probe.py`` times it, and ``chip_smoke.py``
+holds it against its plain version.
 """
 
 from __future__ import annotations
@@ -39,10 +41,12 @@ def int8_gemm(a: torch.Tensor, b: torch.Tensor, *, out_dtype=torch.int32) -> tor
                          "multiple of 4 and A 4-byte aligned")
     _build.check_cuda_operand("a", a, torch.int8, (M, K))
     _build.check_cuda_operand("b", b, torch.int8, (K, N))
+    lib = _build.library()
+    # Scratch for B transposed to K-major, [N, Kp], Kp = K rounded up to the kernel's depth step.
+    bt = torch.empty((N, lib.tapclip_int8_gemm_kp(K)), dtype=torch.int8, device=a.device)
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    err = _build.library().tapclip_int8_gemm(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-                                             int(out_dtype == torch.float32),
-                                             _build.stream_handle(a.device))
+    err = lib.tapclip_int8_gemm(a.data_ptr(), b.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K,
+                                int(out_dtype == torch.float32), _build.stream_handle(a.device))
     _build.check(err, "tapclip_int8_gemm")
     int8_gemm.launches += 1
     return c

@@ -116,7 +116,7 @@ def _errors(got, want) -> dict:
             "finite": bool(got.isfinite().all())}
 
 
-def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 10) -> dict:
+def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 10, columns=None) -> dict:
     """The A/B table.  ``parent``: (kernel, plain) callables of the production
     half-block(s).  ``variants``: name -> (kernel, plain, key), ``key`` the
     variant's port switches as sorted (name, value) pairs; variants with the
@@ -124,8 +124,11 @@ def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 
     ``same_as`` the first (not run or timed again).  ``parent_key`` is the key
     of the variant configuration that is the parent's own: such a variant
     should equal the parent bit for bit (``bit_equal_parent``).
-    ``work``: (bytes, flops) of one call.  On a CUDA tensor the kernels and
-    their plain versions are timed, the kernels in turns."""
+    ``work``: (bytes, flops) of one call.  ``columns``: name -> (kernel,
+    plain) of other kernels of the same function, reported under
+    ``"columns"`` like a variant but apart from the variants (no flags, no
+    ``bit_equal_parent``).  On a CUDA tensor the kernels and their plain
+    versions are timed, the kernels in turns."""
     import torch
 
     p_kernel, p_plain = parent
@@ -146,6 +149,11 @@ def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 
             if key == parent_key:
                 v["bit_equal_parent"] = bool(torch.equal(got, want_parent))
             out["variants"][name] = v
+        columns = columns or {}
+        out["columns"] = {}
+        for name, (kernel, plain) in columns.items():
+            got = kernel()
+            out["columns"][name] = {"vs_parent": _errors(got, want_parent), "vs_plain": _errors(got, plain())}
         if not cuda:
             return out
         torch.cuda.synchronize()
@@ -153,13 +161,17 @@ def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 
         timed = {name: variants[name] for name, v in out["variants"].items() if "same_as" not in v}
         for name in timed:
             out["variants"][name]["plain_ms"] = time_ms(timed[name][1], max(1, iters // 2), 1)
-        reps_ms = {"parent": [], **{name: [] for name in timed}}
+        for name, (_, plain) in columns.items():
+            out["columns"][name]["plain_ms"] = time_ms(plain, max(1, iters // 2), 1)
+        kernels = {**{name: timed[name][0] for name in timed}, **{name: fn for name, (fn, _) in columns.items()}}
+        reps_ms = {"parent": [], **{name: [] for name in kernels}}
         for _ in range(reps):
             reps_ms["parent"].append(time_ms(p_kernel, iters, 1))
-            for name in timed:
-                reps_ms[name].append(time_ms(timed[name][0], iters, 1))
+            for name, fn in kernels.items():
+                reps_ms[name].append(time_ms(fn, iters, 1))
     out["parent"].update(ms=statistics.median(reps_ms["parent"]), ms_reps=reps_ms["parent"])
-    for name in timed:
+    for name in kernels:
         ms = statistics.median(reps_ms[name])
-        out["variants"][name].update(ms=ms, ms_reps=reps_ms[name], ratio=ms / out["parent"]["ms"])
+        table = out["columns"] if name in columns else out["variants"]
+        table[name].update(ms=ms, ms_reps=reps_ms[name], ratio=ms / out["parent"]["ms"])
     return out

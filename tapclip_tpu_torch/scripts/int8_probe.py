@@ -14,7 +14,8 @@ float64 plain version, in both output forms, and times with CUDA events:
   calls it) and ``torch.matmul`` in bf16;
 * the plain version (float64 product).
 
-Prints the card's name and power limit, then one JSON line of the readings.
+Prints the card's name and power limit, then one JSON line of the readings,
+with the kernel's time over ``torch._int_mm``'s (``ratio_to_int_mm``).
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def probe(R: int, W: int, H: int, iters: int = 5, seed: int = 0) -> dict:
     by_bytes = 1e3 * (R * W + W * H + 4 * R * H) / HBM_BYTES_PER_S
     by_ops = 1e3 * ops / INT8_OPS_PER_S
     out.update(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops else "operations",
-               tops=ops / out["ms"] / 1e9)
+               tops=ops / out["ms"] / 1e9, ratio_to_int_mm=out["ms"] / out["library_ms"])
     return out
 
 

@@ -2,23 +2,28 @@
 
     python3 -m tapclip_tpu_torch.scripts.mlp_kernel_ab [--batch B] [--model NAME] [--reps N]
 
-Counterpart of ``scripts/mlp_kernel_ab.py``: K1 (``csrc/fused_mlp.cu``, the
-parent, "production") against the variants of that script's ``main()``, run
-by ``ops/fused_mlp.py::fused_mlp_variant`` (``csrc/fused_mlp_variants.cu``)
-with each switch's nearest counterpart on this card:
+Counterpart of ``scripts/mlp_kernel_ab.py``: the FMA walk with every switch
+off (``ops/fused_mlp.py::fused_mlp_variant``, ``csrc/fused_mlp_variants.cu``:
+the port of that script's production kernel, the parent) against the
+variants of that script's ``main()``, each switch as its nearest counterpart
+on this card:
 
-* ``row_tile`` (rt512) -> 8 rows a block instead of K1's 16 (more blocks per
-  SM; 32 rows do not fit in shared memory);
+* ``row_tile`` (rt512) -> 8 rows a block instead of 16 (more blocks per SM;
+  32 rows do not fit in shared memory);
 * ``erf3`` -> the A&S 3-term erf; ``ln1pass`` -> var = E[x^2] - mean^2;
 * ``ilv_chunks`` -> the next 256-column chunk's fc issued before this
   chunk's projection (ilv2 and ilv4 are one schedule here: ilv4 is reported
   ``same_as`` ilv2).
 
-``base`` is the variant launcher with every switch off: it must equal K1 bit
-for bit.  At the model's vision widths (default ViT-B/16, batch 8: rows
-8 x 200, W 768, H 3,072), f32 and bf16, each variant is held against K1 and
-against its own plain version, and timed in turns with CUDA events; prints
-the card's name and power limit, then one JSON line per dtype.
+``base`` is the parent's configuration (it must equal the parent bit for
+bit); 8 rows and the pipelined walk change only the schedule (the card tests
+hold them bit-equal to the parent).  K1 (``csrc/fused_mlp.cu``, the same
+function on the tensor cores) is timed beside them as its own column
+(``columns["k1"]``).  At the model's vision widths (default ViT-B/16, batch
+8: rows 8 x 200, W 768, H 3,072), f32 and bf16, each variant is held against
+the parent and against its own plain version, and timed in turns with CUDA
+events; prints the card's name and power limit, then one JSON line per
+dtype.
 """
 
 from __future__ import annotations
@@ -66,9 +71,11 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         f = port_flags(kw)
         variants[name] = (lambda f=f: fused_mlp_variant(*p, **f), lambda f=f: fused_mlp_variant_reference(*p, **f),
                           tuple(sorted(f.items())))
+    flags_off = port_flags({})
     work = mlp_work(x, mlp["w_fc"].shape[-1])
-    return ab((lambda: fused_mlp_block(x, ln, mlp), lambda: fused_mlp_reference(*p)), variants,
-              parent_key=tuple(sorted(port_flags({}).items())), work=work, reps=reps)
+    return ab((lambda: fused_mlp_variant(*p, **flags_off), lambda: fused_mlp_variant_reference(*p, **flags_off)),
+              variants, parent_key=tuple(sorted(flags_off.items())), work=work, reps=reps,
+              columns={"k1": (lambda: fused_mlp_block(x, ln, mlp), lambda: fused_mlp_reference(*p))})
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,112 @@
+"""Device time of each CUDA kernel behind K1 and S6, read from a profiler trace.
+
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N]
+
+Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
+holding this file), builds its kernels, and runs ``torch.profiler`` over
+``--iters`` calls (after warm-up) of
+
+* K1 (``fused_mlp_block``) at ViT-B/16's image shape (8 x 200 rows, W 768),
+  the 64-text batch (64 x 80, W 512) and the text shape (8 x 88, W 512), in
+  float32 and bfloat16;
+* S6 (``int8_gemm``) at the probe's shape (51,200 x 768 x 3,072) and at
+  B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768).
+
+A wrapper call launches several kernels (K1: LayerNorm, fc, proj; S6: the
+transpose of B, the product); the trace splits the call's device time among
+them.  Prints the card's name and power limit, then one JSON line per case:
+each kernel's device microseconds per call (``us``, by kernel name), their
+sum, and the wall-clock ms per call between the first and the last event
+(``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
+Exits 1 without a card, or when the trace holds no device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
+S6_SHAPES = {"probe": (51_200, 768, 3_072), "b13 fc": (1_600, 768, 3_072), "b13 proj": (1_600, 3_072, 768)}
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its template arguments' noise: the function and its template list."""
+    name = name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0] if "<" not in name else name[: name.index(">") + 1]
+
+
+def profile(fn, iters: int) -> dict:
+    """Per-kernel device microseconds per call of ``fn`` and the span per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels, first, last = {}, None, None
+    for ev in prof.events():  # device events: one per kernel launch, timed on the card
+        if str(getattr(ev, "device_type", "")) != "DeviceType.CUDA" or ev.name.startswith(("Memcpy", "Memset")):
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        kernels[_short(ev.name)] = kernels.get(_short(ev.name), 0.0) + (end - start) / iters
+        first = start if first is None else min(first, start)
+        last = end if last is None else max(last, end)
+    if not kernels:
+        raise RuntimeError("the profiler trace holds no device time")
+    return {"us": kernels, "sum_us": sum(kernels.values()), "span_ms": (last - first) / 1e3 / iters}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_kernels: needs a CUDA device", file=sys.stderr)
+        return 1
+    from tapclip_tpu_torch.ops import _build
+    from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
+
+    sys.path.append(str(Path(__file__).resolve().parent))
+    from _bench_util import card_line
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.library()
+    print(card_line(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for label, (B, T, W) in K1_SHAPES.items():
+                x = rn(B, T, W).to(dtype)
+                ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
+                mlp = {"w_fc": rn(W, 4 * W, s=W ** -0.5), "b_fc": rn(4 * W, s=0.1),
+                       "w_proj": rn(4 * W, W, s=(4 * W) ** -0.5), "b_proj": rn(W, s=0.1)}
+                res = profile(lambda: fused_mlp_block(x, ln, mlp), args.iters)
+                print(json.dumps({"kernel": "K1", "case": label, "dtype": str(dtype).replace("torch.", ""), **res}),
+                      flush=True)
+        for label, (M, K, N) in S6_SHAPES.items():
+            a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+            b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+            res = profile(lambda: int8_gemm(a, b), args.iters)
+            print(json.dumps({"kernel": "S6", "case": f"{label} {M}x{K}x{N}", **res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,10 @@
-"""The error of the flash kernels' split-operand products, emulated on the CPU.
+"""The error of the tensor-core kernels' split-operand products, emulated on the CPU.
 
     python3 -m tapclip_tpu_torch.scripts.split_error [--terms N]
 
-K3 and the flash backward chain (``csrc/flash_mma.cuh``) run every product
-on the tensor cores in bf16 with f32 accumulation.  An f32 operand is split
+K3, the flash backward chain (``csrc/flash_mma.cuh``) and K1
+(``csrc/fused_mlp.cu``) run every product on the tensor cores in bf16 with
+f32 accumulation.  An f32 operand is split
 into bf16 terms, ``x = x0 + x1 + ...`` with ``x0 = bf16(x)`` and each later
 term the bf16 rounding of what is left, and a product sums the partial
 products of the term pairs ``(i, j)`` with ``i + j < max(terms)``.  A product
@@ -19,7 +20,11 @@ the aux column's max abs error.  Run as a script it prints them, one JSON
 line per shape, at the card tests' flash shapes (``FLASH_SHAPES`` of
 ``tests/port/test_torch_gpu.py``), in f32 with ``--terms`` terms per operand
 (default 3, the kernels' choice) and in bf16 (q, k, v, dO exact; p and ds in
-two terms).
+two terms).  :func:`emulated_mlp_errors` does the same for K1's two products,
+y . w_fc and h . w_proj (LayerNorm, bias, GELU and the residual in f32, y
+and h rounded to the dtype), against ``fused_mlp_reference``: the script
+prints one JSON line per shape of ``MLP_SHAPES``, the card tests' K1 shapes
+and the deep sums of W 768 / H 3,072 and W 1,024 / H 4,096.
 """
 
 from __future__ import annotations
@@ -37,11 +42,16 @@ from tapclip_tpu_torch.ops.flash_attention import (
     attention_bwd_reference,
     attention_lse_reference,
 )
+from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_reference
 
 # (B, H, T, Dh, per-row valid), as FLASH_SHAPES of tests/port/test_torch_gpu.py.
 FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, [82, 82, 40]),
                 (1, 3, 130, 16, [130]), (1, 2, 577, 128, [577]), (1, 2, 2100, 64, [2000]),
                 (2, 2, 15, 64, [15, 9]), (2, 2, 63, 32, [63, 40]), (1, 2, 65, 128, [64])]
+# (rows, W) of K1 (H = 4 W), as the K1 shapes of tests/port/test_torch_gpu.py
+# (test_fused_mlp_kernel, K1_EDGES), the image shape among them.
+MLP_SHAPES = [(1, 64), (21, 128), (400, 256), (21, 80), (37, 96), (9, 68), (1, 512), (21, 768), (1601, 768),
+              (1600, 768), (264, 1024)]
 F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
 ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
 
@@ -122,6 +132,47 @@ def emulated_errors(B, H, T, Dh, valid, causal, dtype=torch.float32, f32_terms=F
     return errs
 
 
+def emulate_mlp(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps=1e-5, f32_terms=F32_TERMS):
+    """K1 as the card computes it: LayerNorm in f32 (two-pass) rounded to x's
+    dtype, the two products on split operands (``f32_terms`` terms each in
+    f32, one in bf16), bias and exact GELU in f32, h rounded, the residual and
+    b_proj added in f32, one rounding of the result."""
+    dt = x.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    W = x.shape[-1]
+    x32 = x.reshape(-1, W).float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    y = ((x32 - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()).to(dt).float()
+    z = split_matmul(y, w_fc.to(dt).float(), nt, nt) + b_fc.float()
+    h = (0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))).to(dt).float()
+    out = split_matmul(h, w_proj.to(dt).float(), nt, nt) + b_proj.float()
+    return (x32 + out).to(dt).reshape(x.shape)
+
+
+def mlp_inputs(R, W, seed=0):
+    """x [R, W] and K1's parameters (H = 4 W), f32 numpy normal draws from
+    ``seed`` at the card tests' scales."""
+    rng = np.random.default_rng(seed)
+    H = 4 * W
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    return (f(R, W), 1.0 + f(W, scale=0.1), f(W, scale=0.1), f(W, H, scale=W ** -0.5), f(H, scale=0.1),
+            f(H, W, scale=H ** -0.5), f(W, scale=0.1))
+
+
+def emulated_mlp_errors(R, W, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) -> dict:
+    """K1's emulated output against ``fused_mlp_reference`` on the same inputs
+    (x in ``dtype``): ``out_rel`` (norm-relative) and ``out_abs``."""
+    x, *params = mlp_inputs(R, W, seed)
+    x = x.to(dtype)
+    got = emulate_mlp(x, *params, f32_terms=f32_terms)
+    want = fused_mlp_reference(x, *params)
+    return {"out_rel": _rel(got, want), "out_abs": float((got.float() - want.float()).abs().max())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")
@@ -132,6 +183,10 @@ def main() -> int:
                 errs = emulated_errors(B, H, T, Dh, valid, causal, dtype, args.terms)
                 print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms,
                                   "shape": [B, H, T, Dh], "valid": valid, "causal": causal, **errs}))
+        for R, W in MLP_SHAPES:
+            errs = emulated_mlp_errors(R, W, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "K1",
+                              "rows": R, "W": W, "H": 4 * W, **errs}))
     return 0
 
 

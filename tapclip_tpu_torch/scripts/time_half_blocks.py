@@ -5,13 +5,18 @@
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and prints one JSON line: the card's
 name and power limit, then CUDA-event ms (mean of 20 calls after 3 warm-up
-calls, ``--runs`` readings each) at ViT-B/16's image shape (8 x 200 rows,
-W 768, 12 heads, valid 197), float32 and bfloat16, of
+calls, ``--runs`` readings each), float32 and bfloat16, of
 
 * ``fused_mlp_block`` and ``fused_attn_block``, the wrappers the model calls;
 * their launches alone through the C interface, on buffers allocated once:
   K1 (``tapclip_fused_mlp``), K2's core (``tapclip_attn_block_core``) and its
   out-projection (``tapclip_gemm_bias_residual``).
+
+K2 runs at ViT-B/16's image shape (8 x 200 rows, W 768, 12 heads, valid
+197); K1 there and at the text tower's shapes (a 64-text batch, 64 x 80 rows,
+and 8 x 88 rows, W 512).  K1's C signature is read from the checkout's own
+``_build._SIGNATURES``: where it takes a scratch pointer (h and y, R (H + W)
+elements of the dtype) the scratch is allocated once beside the buffers.
 
 To compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
@@ -24,7 +29,9 @@ import json
 import sys
 from pathlib import Path
 
-SHAPE = (8, 200, 768, 12, 197)  # B, T, W, heads, valid: ViT-B/16 at batch 8
+K2_SHAPE = (8, 200, 768, 12, 197)  # B, T, W, heads, valid: ViT-B/16 at batch 8
+K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
+K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
 
 
 def main() -> int:
@@ -49,31 +56,46 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = _build.library()
-    B, T, W, nh, valid = SHAPE
+    k1_scratch = len(_build._SIGNATURES["tapclip_fused_mlp"]) > K1_ARGS
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rn(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * s
 
+    def ln_params(W):
+        return {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
+
+    def mlp_params(W):
+        return {"w_fc": rn(W, 4 * W, s=W ** -0.5), "b_fc": rn(4 * W, s=0.1),
+                "w_proj": rn(4 * W, W, s=(4 * W) ** -0.5), "b_proj": rn(W, s=0.1)}
+
     readings = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         code = _build.dtype_code(dtype)
-        x = rn(B, T, W).to(dtype)
-        ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
-        mlp = {"w_fc": rn(W, 4 * W, s=W ** -0.5), "b_fc": rn(4 * W, s=0.1),
-               "w_proj": rn(4 * W, W, s=(4 * W) ** -0.5), "b_proj": rn(W, s=0.1)}
+        calls = {}
+        for label, (B, T, W) in K1_SHAPES.items():
+            x, ln, mlp = rn(B, T, W).to(dtype), ln_params(W), mlp_params(W)
+            wd = {k: mlp[k].to(dtype) for k in ("w_fc", "w_proj")}
+            R, H = B * T, 4 * W
+            out = torch.empty_like(x)
+            ws = torch.empty(R * (H + W), dtype=dtype, device="cuda") if k1_scratch else None
+            scratch = (ws.data_ptr(),) if k1_scratch else ()
+            k1_args = (x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), wd["w_fc"].data_ptr(),
+                       mlp["b_fc"].data_ptr(), wd["w_proj"].data_ptr(), mlp["b_proj"].data_ptr(), out.data_ptr(),
+                       *scratch, R, W, H, 1e-5, code, _build.stream_handle(x.device))
+            # Default arguments keep each case's buffers alive with its closure.
+            calls[f"K1 wrapper {label}"] = lambda x=x, ln=ln, mlp=mlp: fused_mlp_block(x, ln, mlp)
+            calls[f"K1 launch {label}"] = lambda a=k1_args, keep=(x, out, wd, ws): lib.tapclip_fused_mlp(*a)
+
+        B, T, W, nh, valid = K2_SHAPE
+        x, ln = rn(B, T, W).to(dtype), ln_params(W)
         attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
                 "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)}
-        wd = {k: v.to(dtype) for k, v in {**mlp, **attn}.items() if k.startswith("w_")}
+        wd = {k: v.to(dtype) for k, v in attn.items() if k.startswith("w_")}
         out, a_buf = torch.empty_like(x), torch.empty_like(x)
         ws = torch.empty((B, nh, 3, T, W // nh), device="cuda")
         stream = _build.stream_handle(x.device)
-
-        def k1():
-            lib.tapclip_fused_mlp(x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(),
-                                  wd["w_fc"].data_ptr(), mlp["b_fc"].data_ptr(), wd["w_proj"].data_ptr(),
-                                  mlp["b_proj"].data_ptr(), out.data_ptr(), B * T, W, 4 * W, 1e-5, code, stream)
 
         def k2_core():
             lib.tapclip_attn_block_core(x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(),
@@ -84,14 +106,13 @@ def main() -> int:
             lib.tapclip_gemm_bias_residual(a_buf.data_ptr(), wd["w_out"].data_ptr(), attn["b_out"].data_ptr(),
                                            x.data_ptr(), out.data_ptr(), B * T, W, W, code, stream)
 
-        calls = {"K1 wrapper": lambda: fused_mlp_block(x, ln, mlp),
-                 "K2 wrapper": lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid),
-                 "K1 launch": k1, "K2 core launch": k2_core, "K2 out-projection launch": k2_gemm}
+        calls.update({"K2 wrapper": lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid),
+                      "K2 core launch": k2_core, "K2 out-projection launch": k2_gemm})
         with torch.inference_mode():
             for name, fn in calls.items():
                 readings[f"{name} {dname}"] = [time_ms(fn, 20, 3) for _ in range(args.runs)]
-    print(json.dumps({"root": args.root, "card": card_line(), "shape": "8x200x768 h12 valid197",
-                      "ms": readings}))
+    print(json.dumps({"root": args.root, "card": card_line(), "k1_scratch": k1_scratch,
+                      "k2_shape": "8x200x768 h12 valid197", "ms": readings}))
     return 0
 
 

@@ -27,7 +27,14 @@ int8 kernels (B13, B14) are held against their plain versions with the same
 random draws, in both modes, by the norm-relative error of the block's
 update (out - x): f32 2e-3 (an activation code on the other side of a
 rounding step, where LayerNorm's or erf's last bit differs, moves its row by
-about 5e-4), bf16 2e-2; the int8 product (S6) exactly.
+about 5e-4), bf16 2e-2; the int8 product (S6) exactly.  K1 and S6 run on the
+tensor cores and are also held at their tile edges: K1 at the config widths
+that are not multiples of 64 (80, 96), a width that is not a multiple of 8
+(68, the 8-byte copies in bf16), ragged row counts and the deep projection
+sums of W 768 / H 3,072 and W 1,024 / H 4,096 (where an accumulation bias
+would show), both elementwise and by the norm-relative error, and bit for
+bit against a second call; S6 at depths that are not multiples of 16 or 32,
+M and N off its tiles, rows of A that are not 16-byte aligned, and K 4,096.
 """
 
 import numpy as np
@@ -115,6 +122,46 @@ def test_fused_mlp_kernel(cuda, dtype, tol, B, T, W):
         want = fused_mlp_reference(x, ln["scale"], ln["bias"], *mlp.values())
     assert got.dtype == dtype and got.shape == x.shape
     _close(got, want, tol)
+
+
+# K1's tile edges: (B, T, W), H = 4 W.
+K1_EDGES = [(1, 21, 80), (1, 37, 96), (1, 9, 68), (1, 1, 512), (3, 7, 768), (1, 1601, 768), (8, 200, 768),
+            (1, 264, 1024)]
+K1_EDGE_IDS = ["w80", "w96", "w68", "r1", "r21", "r1601", "image", "w1024"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W", K1_EDGES, ids=K1_EDGE_IDS)
+def test_fused_mlp_kernel_tile_edges(cuda, dtype, tol, B, T, W):
+    gen = torch.Generator(device=cuda).manual_seed(B * T + W + 1)
+    H = 4 * W
+    x = _randn(gen, B, T, W).to(dtype)
+    ln = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    mlp = {"w_fc": _randn(gen, W, H, scale=W ** -0.5), "b_fc": _randn(gen, H, scale=0.1),
+           "w_proj": _randn(gen, H, W, scale=H ** -0.5), "b_proj": _randn(gen, W, scale=0.1)}
+    with torch.inference_mode():
+        n = fused_mlp_block.launches
+        got = fused_mlp_block(x, ln, mlp)
+        again = fused_mlp_block(x, ln, mlp)
+        assert fused_mlp_block.launches == n + 2
+        want = fused_mlp_reference(x, ln["scale"], ln["bias"], *mlp.values())
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, tol)
+    _close_rel("out", got, want, tol)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
+
+
+@pytest.mark.gpu
+def test_fused_mlp_kernel_refuses_unaligned_operands(cuda):
+    W = 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ln = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    mlp = {"w_fc": _randn(gen, W, 4 * W), "b_fc": _randn(gen, 4 * W), "w_proj": _randn(gen, 4 * W, W),
+           "b_proj": _randn(gen, W)}
+    x = _randn(gen, 3 * W + 1)[1:].view(1, 3, W)  # contiguous, 4 bytes past a 16-byte boundary
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
+        fused_mlp_block(x, ln, mlp)
 
 
 @pytest.mark.gpu
@@ -749,6 +796,25 @@ def test_int8_gemm_kernel_is_exact(cuda, M, K, N):
         int8_gemm(a[:, :1].contiguous(), b[:1].contiguous())
 
 
+# S6's tile edges: (M, K, N, offset of A's rows past a 16-byte boundary).
+S6_EDGES = [(5, 4, 7, 0), (33, 36, 40, 0), (70, 100, 129, 0), (129, 64, 257, 0), (130, 4096, 200, 0),
+            (64, 48, 64, 4), (300, 768, 96, 0), (2001, 100, 3001, 0)]
+S6_EDGE_IDS = ["k4", "k36", "k100", "m129-n257", "k4096", "a-unaligned", "small-grid", "big-ragged"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,off", S6_EDGES, ids=S6_EDGE_IDS)
+def test_int8_gemm_kernel_tile_edges(cuda, M, K, N, off):
+    gen = torch.Generator(device=cuda).manual_seed(M * K + N)
+    a = torch.randint(-128, 128, (M * K + off,), generator=gen, device=cuda, dtype=torch.int8)[off:].view(M, K)
+    b = torch.randint(-128, 128, (K, N), generator=gen, device=cuda, dtype=torch.int8)
+    for out_dtype in (torch.int32, torch.float32):
+        got = int8_gemm(a, b, out_dtype=out_dtype)
+        again = int8_gemm(a, b, out_dtype=out_dtype)
+        torch.testing.assert_close(got, int8_gemm_reference(a, b, out_dtype), rtol=0, atol=0)
+        torch.testing.assert_close(got, again, rtol=0, atol=0)
+
+
 
 # --- the A/B variants: S2 (K1's), S3/S4 (K2's), S1 (the fused layer) ---------------
 
@@ -778,7 +844,7 @@ def _distinct(variants, flags_of):
 
 
 S2_NAMES = _distinct(mlp_kernel_ab.VARIANTS, mlp_kernel_ab.port_flags)
-S2_SCHEDULE_ONLY = {"base", "rt512", "ilv2"}  # every row's arithmetic is K1's
+S2_SCHEDULE_ONLY = {"base", "rt512", "ilv2"}  # every row's arithmetic is the flags-off walk's
 
 
 @pytest.mark.gpu
@@ -795,10 +861,10 @@ def test_mlp_variant_kernels(cuda, dtype, tol, B, T, W, name):
         got = fused_mlp_variant(*args, **flags)
         assert fused_mlp_variant.launches == n + 1
         want = fused_mlp_variant_reference(*args, **flags)
-        k1 = fused_mlp_block(x, ln, mlp)
+        parent = fused_mlp_variant(*args)  # the flags-off FMA walk, S2's parent
     _close(got, want, tol)
-    if name in S2_SCHEDULE_ONLY:  # the flags-off launcher, 8 rows and the pipelined walk are K1 bit for bit
-        torch.testing.assert_close(got, k1, rtol=0, atol=0)
+    if name in S2_SCHEDULE_ONLY:  # the flags-off launcher, 8 rows and the pipelined walk: the parent bit for bit
+        torch.testing.assert_close(got, parent, rtol=0, atol=0)
 
 
 def _attn_variant_cases():
