@@ -27,9 +27,16 @@ Run from the repository root:  python3 chip_smoke.py
    library call's (SDPA for the attention kernels, where one computes the
    same function) and its bound (bytes over 3.35 TB/s or operations over
    the dtype's peak, whichever is larger).  K1 (on the tensor cores: three
-   launches, LayerNorm, fc, proj) also carries its launches alone through
-   the C interface (``launch_ms``) and the MMA bound (``mma_bound_ms``, as
-   K3's in 12), and the kernels line lists its every timed case.
+   launches, LayerNorm, fc, proj) and K2 (four: LayerNorm, the QKV product,
+   the attention tiles, the out-projection), at the image and text shapes,
+   also carry their launches alone through the C interface (``launch_ms``)
+   and the MMA bound (``mma_bound_ms``, as K3's in 12), and the kernels line
+   lists their every timed case.  B5 (five launches on the tensor cores)
+   carries the bounds of dx alone beside those of all seven outputs
+   (``bound_dx_only_ms``, ``mma_bound_dx_only_ms``) and its launches alone
+   for dx (``launch_ms_dx_only``).  The ptxas report of the tensor-core
+   half-block kernels (K1, K2, B5) is printed kernel by kernel: registers,
+   spill bytes.
 5. Serves ViT-B/16 at full width with random weights from a fixed seed
    through ``tapclip_tpu_torch.serve``'s HTTP server on localhost: adds a
    class, sends 16 concurrent /predict requests (uint8 pixels, batches of
@@ -120,8 +127,11 @@ Run from the repository root:  python3 chip_smoke.py
     plain version (AB_TOL: the parents' F32_TOL / BF16_TOL), each variant
     with its parent's configuration against the parent bit for bit, each
     timed in turns with the parent (CUDA events) beside its plain version
-    and the bound.  S2's parent is its own flags-off kernel; K1 is timed in
-    the same turns as a column of its own (``k1_ms``).
+    and the bound.  Each driver's parent is its own flags-off kernel (S2's
+    the FMA walk, S3's and S4's the FMA core's); K1 beside S2 and K2 beside
+    S3 and S4 are timed in the same turns as columns of their own
+    (``k1_ms``, ``k2_ms``), held against their plain versions.  S1's parent
+    is K2 then K1.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -324,10 +334,13 @@ TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 # K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
 K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
-# The kernels on the tensor cores: K3, the chain and K1.
-MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp",)
-CASE_KEYS = ("shape", "dtype", "ms", "launcher_ms", "launch_ms", "plain_ms", "library_ms", "chain_ms",
-             "bound_ms", "mma_bound_ms", "max_abs_err", "max_rel_err")
+# The kernels on the tensor cores: K3, the chain, K1, K2 and B5.
+MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd")
+CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "launch_ms_dx_only", "plain_ms",
+             "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "mma_bound_ms", "mma_bound_dx_only_ms",
+             "max_abs_err", "max_rel_err")
+# The sources whose kernels' ptxas report (registers, spills) is printed one by one.
+PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -453,23 +466,59 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-# Partial products per product of K3, the flash chain and K1 on the tensor
-# cores (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits both
-# operands into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T, K3's
-# rounded p v and K1's two products are one MMA, the chain's p and ds
-# products two (the dK/dV kernel's four products 1 + 1 + 2 + 2, the dQ
-# kernel's three 1 + 1 + 2).
+# Partial products per product of K3, the flash chain, K1 and B5's dx on the
+# tensor cores (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits
+# both operands into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T,
+# K3's rounded p v, K1's two products and B5's three are one MMA, the
+# chain's p and ds products two (the dK/dV kernel's four products
+# 1 + 1 + 2 + 2, the dQ kernel's three 1 + 1 + 2).  K2's mix is k2_mma_flops.
 MMA_PRODUCTS = {"fused_attention_aux": (6, 1), "flash_lse": (6, 1), "flash_bwd_dkv": (6, 1.5),
-                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1)}
+                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1), "fused_mlp_bwd": (6, 1)}
 
 
 def mma_bound(n_bytes: int, flops: float, dtype: str, kernel: str) -> dict:
     """The bound at the rate of the products the kernel runs: its bf16 MMAs
     (``MMA_PRODUCTS`` times the function's operations) at the tensor cores'
     bf16 peak, or its bytes, whichever is larger."""
+    return mma_bound_of(n_bytes, flops * MMA_PRODUCTS[kernel][dtype == "bfloat16"])
+
+
+def mma_bound_of(n_bytes: int, mma_flops: float) -> dict:
+    """The larger of the bytes over the memory rate and ``mma_flops``, the
+    operations of the bf16 MMAs run, over the tensor cores' bf16 peak."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flops * MMA_PRODUCTS[kernel][dtype == "bfloat16"] / PEAK_FLOPS["bfloat16"]
+    by_ops = 1e3 * mma_flops / PEAK_FLOPS["bfloat16"]
     return {"mma_bound_ms": max(by_bytes, by_ops), "mma_bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def k2_mma_flops(B: int, T: int, W: int, pairs: int, dtype: str) -> float:
+    """Operations of K2's bf16 MMAs: in f32 six a product; in bf16 one for
+    the two projections (8 B T W^2) and p . v (2 W a pair), six for q . k^T
+    (2 W a pair: q and k are f32 values, split into three terms)."""
+    proj, half = 8 * B * T * W * W, 2 * W * pairs
+    return 6 * (proj + 2 * half) if dtype == "float32" else proj + 6 * half + half
+
+
+def ptxas_kernels(log: str, sources=PTXAS_SOURCES) -> list:
+    """(source, kernel, registers, spill store bytes) of each kernel that
+    ``sources`` compile, from ``-Xptxas -v``'s report (one section a source,
+    ``_build.build_log["ptxas_by_source"]``)."""
+    out = []
+    for src in sources:
+        kernel = None
+        spill = 0
+        for line in log.get(src, "").splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel, spill = m.group(1), 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                out.append((src, kernel, int(m.group(1)), spill))
+                kernel = None
+    return out
 
 
 def bare_launch(fn_name: str, args: tuple):
@@ -510,6 +559,55 @@ def k1_launch(x, ln, mlp):
         _build.dtype_code(x.dtype), _build.stream_handle(x.device)))
 
     def run(_buffers=(out, ws, w)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def k2_launch(x, ln, attn, nh, valid):
+    """K2's launches alone (LayerNorm, QKV, attention, out-projection)
+    through the C interface on buffers allocated once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    B, T, W = x.shape
+    w = {k: attn[k].to(x.dtype) for k in ("w_qkv", "w_out")}
+    out, ya = torch.empty_like(x), torch.empty_like(x)
+    qkv = torch.empty((B * T, 3 * W), dtype=torch.float32, device=x.device)
+    launch = bare_launch("tapclip_attn_block", (
+        x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), w["w_qkv"].data_ptr(), attn["b_qkv"].data_ptr(),
+        w["w_out"].data_ptr(), attn["b_out"].data_ptr(), out.data_ptr(), qkv.data_ptr(), ya.data_ptr(),
+        B, T, W, nh, valid, 1e-5, _build.dtype_code(x.dtype), _build.stream_handle(x.device)))
+
+    def run(_buffers=(out, ya, qkv, w)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b5_launch(x, g, ln, mlp):
+    """B5's launches alone for dx (no weight gradients) through the C
+    interface on buffers allocated once, at the wrapper's split
+    (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    W, H = x.shape[-1], mlp[0].shape[-1]
+    R = x.numel() // W
+    lib = _build.library()
+    S = lib.tapclip_mlp_bwd_split(R, W, H, _build.dtype_code(x.dtype))
+    w_fc, w_proj = mlp[0].to(x.dtype), mlp[2].to(x.dtype)
+    dx = torch.empty_like(x)
+    ws = torch.empty(R * H + S * R * W + 2 * R, dtype=torch.float32, device=x.device)
+    wsd = torch.empty(R * (H + W), dtype=x.dtype, device=x.device)
+    launch = bare_launch("tapclip_mlp_bwd", (
+        x.data_ptr(), g.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), w_fc.data_ptr(), mlp[1].data_ptr(),
+        w_proj.data_ptr(), dx.data_ptr(), ws.data_ptr(), wsd.data_ptr(), None, None, R, W, H, 1e-5, S, 0,
+        _build.dtype_code(x.dtype), _build.stream_handle(x.device)))
+
+    def run(_buffers=(dx, ws, wsd, w_fc, w_proj)):  # the buffers live as long as the closure
         return launch()
 
     return run
@@ -612,7 +710,7 @@ def check_kernels() -> dict:
         # K2: image T=200 (valid 197), 12 heads; text T=88 (valid 82), 8 heads.
         for label, (B, T, W, nh, valid), timed in (
             ("image 8x200x768 h12 valid197", (8, 200, 768, 12, 197), True),
-            ("text 8x88x512 h8 valid82", (8, 88, 512, 8, 82), False),
+            ("text 8x88x512 h8 valid82", (8, 88, 512, 8, 82), True),
         ):
             x = (torch.randn((B, T, W), generator=gen, device="cuda")).to(dtype)
             ln = {"scale": 1.0 + 0.1 * torch.randn(W, generator=gen, device="cuda"),
@@ -623,11 +721,16 @@ def check_kernels() -> dict:
                     "b_out": 0.1 * torch.randn(W, generator=gen, device="cuda")}
             args = (x, ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"],
                     attn["w_out"], attn["b_out"], nh, valid, 1e-5)
+            work = (nbytes(*args[:7]) + nbytes(x), 8 * B * T * W * W + 4 * W * attn_pairs(B, T, valid))
             record("fused_attn_block", label, dtype,
                    lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid, eps=1e-5),
-                   lambda: attn_block_reference(*args), tol, timed,
-                   work=(nbytes(*args[:7]) + nbytes(x),
-                         8 * B * T * W * W + 4 * W * attn_pairs(B, T, valid)))
+                   lambda: attn_block_reference(*args), tol, timed, work=work)
+            case = results["fused_attn_block"]["cases"][-1]
+            with torch.inference_mode():
+                case["launch_ms"] = time_ms(k2_launch(x, ln, attn, nh, valid))
+            case.update(mma_bound_of(work[0], k2_mma_flops(B, T, W, attn_pairs(B, T, valid), case["dtype"])))
+            print(f"kernel fused_attn_block [{label} {case['dtype']}]: launches alone {case['launch_ms']:.4g} ms, "
+                  f"mma bound {case['mma_bound_ms']:.4g} ms", flush=True)
         # K3: attribution pass, 8 classes x 8 heads, T=88 (valid 82, column 81);
         # and ViT-L/14@336 length T=584 with per-row valid/column.
         for label, (B, H, T, valid, eot), timed in (
@@ -719,6 +822,11 @@ def check_backward() -> dict:
                             "ms": time_ms(kern), "ms_dx_only": time_ms(lambda: kern(False)),
                             "plain_ms": time_ms(plain), "library_ms": None,
                             **bound(in_bytes + nbytes(*got), flops, dname)}
+                    if name == "fused_mlp_bwd":  # dx alone: three products of 2 R W H on the tensor cores
+                        dx_work = (in_bytes + nbytes(got[0]), 24 * B * T * W * W)
+                        case["bound_dx_only_ms"] = bound(*dx_work, dname)["bound_ms"]
+                        case["mma_bound_dx_only_ms"] = mma_bound(*dx_work, dname, name)["mma_bound_ms"]
+                        case["launch_ms_dx_only"] = time_ms(b5_launch(x, g, ln, mlp))
                 results[name]["cases"].append(case)
                 print(f"backward {name} [{shape} {dname}]: "
                       + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
@@ -1818,7 +1926,7 @@ def check_ab_variants() -> dict:
                         f"ab {driver} {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version > {tol}")
                 require(v.get("bit_equal_parent", True),
                         f"ab {driver} {name} {dt}: the parent's configuration differs from the parent")
-            for name, v in res["columns"].items():  # K1 beside S2, on the tensor cores
+            for name, v in res["columns"].items():  # K1 beside S2, K2 beside S3 and S4, on the tensor cores
                 tol = AB_TOL[dt]
                 print(f"ab {driver} column {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of the parent), "
                       f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
@@ -2254,6 +2362,8 @@ def main() -> int:
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", log["ptxas"]))
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers per thread, "
               f"{spills} bytes of spill stores", flush=True)
+        for src, kernel, n_regs, spill in ptxas_kernels(log["ptxas_by_source"]):
+            print(f"ptxas {src}: {n_regs} registers, {spill} bytes spill stores: {kernel}", flush=True)
 
     phase_s = {"build": log["seconds"]}
 
@@ -2331,7 +2441,8 @@ def main() -> int:
             entry["ms_dx_only"] = timed["ms_dx_only"]
         if "chain_ms" in timed:  # the flash chain; beside B7, on B7's packed strides
             entry["chain_ms"] = timed["chain_ms"]
-        for key in ("launcher_ms", "launch_ms", "mma_bound_ms"):
+        for key in ("launcher_ms", "launch_ms", "launch_ms_dx_only", "mma_bound_ms", "bound_dx_only_ms",
+                    "mma_bound_dx_only_ms"):
             if key in timed:
                 entry[key] = timed[key]
         if name in MMA_KERNELS:  # every timed reading: both dtypes, T 584, T 4096; K1's three shapes

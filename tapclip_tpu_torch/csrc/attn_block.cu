@@ -2,181 +2,293 @@
 //   out = x + out_proj(softmax_masked(q k^T / sqrt(Dh)) v),  q, k, v = qkv_proj(LN(x)).
 //
 // Replaces tapclip_tpu/ops/fused_mha.py::_attn_block_kernel (the pallas_call in
-// _attn_block_fwd_impl).  Two launches inside one wrapper
-// (tapclip_tpu_torch/ops/fused_mha.py::fused_attn_block):
+// _attn_block_fwd_impl), with its roundings: LayerNorm in f32 with two-pass
+// statistics, y rounded to the compute dtype; qkv = y . w_qkv + b_qkv in f32,
+// q and k kept f32, v rounded to the compute dtype; scores q . k^T times
+// Dh^-1/2 log2 e, keys at or past valid at -1e30, exp2, l summed over the
+// unrounded p; p rounded to v's dtype before p . v, o / l rounded into attn;
+// out = (attn . w_out + b_out) + x in f32 with one rounding at the store.
+// Padded query rows (valid <= t < T) are computed like any other row, so they
+// stay finite through every layer.
 //
-//   (i)  attn_block_core: one block per (batch row, head).  LayerNorm
-//        statistics of the batch row's T tokens in f32; the head's q, k and v
-//        column slices of the QKV product for all T tokens (LN applied on the
-//        fly as the [64, 32] operand tiles are staged in shared memory); then
-//        masked softmax attention over 64-row query tiles (attn_tile.cuh).
-//        q and k stay in f32 and v is rounded to the compute dtype, as in the
-//        JAX kernel.  The head's q, k, v go to an f32 workspace [B, H, 3, T, Dh]
-//        that the wrapper allocates and the same block reads back; the
-//        [B, H, T, T] scores never leave the chip.  Output: attn [B, T, W].
-//   (ii) gemm_bias_residual: out = attn @ w_out + b_out + x, a tiled GEMM with
-//        the bias and residual in its epilogue.
+// What bounds it on the card: the products.  At ViT-B/16's image shape (8 x
+// 200 rows, W 768, 12 heads, valid 197) the projections do 8 B T W^2 = 7.5
+// GFLOP and the attention 4 W per (query, valid key) pair = 1.0 GFLOP:
+// 0.127 ms at the f32 FMA peak, 0.052 ms as the bf16 MMAs f32 takes here
+// (six a product), 0.009 ms in bf16.  The earlier K2 ran every product on
+// the FMA units in one block per (batch row, head), 96 blocks on 132 SMs,
+// each walking its head's whole [T, 3 Dh] slice of the QKV product and then
+// the attention in order (9.1 TFLOP/s, 0.915 ms).
 //
-// What bounds it on the card: the serial work of each (i) block, from a
-// block-count probe (no profiler trace yet).  Most of its operations are in
-// the QKV and output projections (2 x B x T x W x 4W flops; the attention
-// core is 4 x B x T^2 x W), but it reaches 9.1 TFLOP/s, 14% of the f32 FMA
-// peak.  On an H100 80GB HBM3 at 700 W, 48 to 132 blocks for (i) (B = 4 to
-// 11 at the image shape) take 0.87 to 1.00 ms and 144 blocks 1.31 ms: the
-// time is that of one block's pass over its head (all T tokens' QKV slice,
-// the LayerNorm statistics of its batch row, the attention), with one block
-// per SM, and the grid (B x H = 96 at the image shape, 64 at the text
-// shape) does not fill the 132 SMs.  Splitting (i) over query-row tiles and
-// tensor-core MMA are the next steps.  A
-// Hopper block has at most 227 KB of shared memory, so the JAX kernel's
-// full [T, T] score tile (160 KB at T = 200 in f32) is replaced by 64 x 64
-// tiles with an online softmax; T = 200 and T = 88 are not multiples of 64,
-// so every tile masks its ragged edge.  Products run on the FMA units in f32
-// for both dtypes (tensor-core MMA is later work).
-// Padded query rows (valid <= t < T) are computed like any other row, so
-// they stay finite through every layer.
-// The core's device code (LN statistics, the head's QKV slice, the attention
-// tiles) lives in attn_core.cuh, which the A/B variants (attn_variants_*.cu)
-// and the fused layer (fused_layer.cu) share; K2 instantiates its default
-// configuration.
-#include "attn_core.cuh"
+// Design: four launches on the tensor cores behind one wrapper call
+// (tapclip_tpu_torch/ops/fused_mha.py::fused_attn_block; the wrapper
+// allocates an f32 workspace qkv [R, 3W] and a scratch ya [R, W] of the
+// dtype, R = B T):
+//   1. LayerNorm rows (ln_rows.cuh): ya = y = LN(x), rounded.
+//   2. qkv = y . w_qkv + b_qkv, K1's tiled GEMM (gemm_mma.cuh) with the kQkv
+//      epilogue: f32 out, the v third of the columns rounded to the dtype;
+//      450 blocks of 64 x 128 at the image shape.
+//   3. attention (attn_core_mma_kernel below): one block per (batch row,
+//      head, ROWS-row query tile), K3's tile walk (flash_mma.cuh): 64-key
+//      tiles with an online softmax in the log2 domain, K and V
+//      double-buffered by 16-byte cp.async straight from the packed qkv
+//      rows (row stride 3W), the score accumulator reused in registers as
+//      p.  q . k^T splits q and k into three bf16 terms in both dtypes (six
+//      MMAs: they are f32 values in bf16 too, as in the TPU kernel; only its
+//      qk_cast variant, S4, rounds them); p . v is six MMAs in f32 and one
+//      in bf16 (p rounded, v a bf16 value read from the f32 workspace as
+//      one exact term).  attn goes into ya (y is spent).  ROWS is 16, 32 or
+//      64 by T as in K3: 384 blocks at the image shape, 192 at the text
+//      shape.
+//   4. out = (attn . w_out + b_out) + x, the same GEMM with K1's kResidual
+//      epilogue (also the out-projection of the A/B variants S3/S4,
+//      tapclip_gemm_bias_residual).
+// No atomics: a call repeats bit for bit.  Emulated error of the split
+// products: python -m tapclip_tpu_torch.scripts.split_error.
+//
+// Measured on an H100 80GB HBM3 at 700 W (time_half_blocks.py,
+// profile_kernels.py): at the image shape 0.274 ms in f32 (QKV 127 us,
+// attention 74, out-projection 64, LayerNorm 6) and 0.108 ms in bf16
+// (attention 47, QKV 34, out-projection 19), against 0.909 and 0.893 for
+// the FMA design.  In f32 the GEMMs run at 45 (QKV) and 29 (out-projection,
+// 300 tiles of 64 x 64: 1.14 waves of two blocks an SM) TFLOP/s of the
+// function's products; in bf16 the attention leads, its q . k^T still six
+// MMAs on f32 q and k split in registers for every key tile.
+//
+// K2's earlier FMA core (attn_core.cuh, attn_tile.cuh) stays as the device
+// code of the A/B variants S3/S4 (attn_variants_*.cu) and of phase A of S1
+// (fused_layer.cu).
+#include <stdint.h>
+
 #include "common.cuh"
+#include "flash_mma.cuh"
+#include "gemm_mma.cuh"
+#include "ln_rows.cuh"
 
 namespace {
 
 using namespace tapclip;
+using namespace tapclip::mma;
+using gemm::Epi;
 
-constexpr int kThreads = kCoreThreads;
-constexpr int kKTile = 32;  // reduction depth per staged tile of the GEMM below
+// attn[b, t, h Dh : (h + 1) Dh] for one (batch row b, head h, query tile) from
+// the packed f32 qkv [B T, 3W] (q, k, v column blocks, head h at h Dh in each).
+template <typename T, int DH, int ROWS>
+__global__ void __launch_bounds__(2 * ROWS)
+attn_core_mma_kernel(const float* __restrict__ qkv, T* __restrict__ attn, int H, int T_, int W, int valid) {
+  constexpr int kThreads = 2 * ROWS;  // ROWS / 16 warps
+  constexpr int kLd = tile_ld<float, DH>();
+  constexpr int kVTerms = kIsF32<T> ? kF32Terms : 1;  // v and the rounded p hold values of T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Q_s = reinterpret_cast<float*>(smem_raw);
+  float* KV_s = Q_s + ROWS * kLd;  // buffer i: K at KV_s + 2 i kTile kLd, then V
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = blockIdx.y * ROWS, r0 = (threadIdx.x >> 5) * 16;
+  const int st = 3 * W;
+  const float* q = qkv + static_cast<size_t>(b) * T_ * st + h * DH;
+  const float* k = q + W;
+  const float* v = q + 2 * W;
+  const float scale_log2 = rsqrtf(static_cast<float>(DH)) * kLog2e;
+  const int n_tiles = (T_ + kTile - 1) / kTile;
+  const bool active = q0 + r0 < T_;  // the warp holds a row below T
 
-// out[M, N] = a[M, K] @ w[K, N] + bias[N] + res[M, N]; 64 x 64 tiles, 4 x 4 per thread.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gemm_bias_residual_kernel(const T* __restrict__ a, const T* __restrict__ w,
-                          const float* __restrict__ bias, const T* __restrict__ res,
-                          T* __restrict__ out, int M, int N, int K) {
-  __shared__ float a_s[64][kKTile + 1];
-  __shared__ float w_s[kKTile][64];
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  float acc[4][4];
+  load_tile<float, DH, ROWS, kThreads>(Q_s, q, st, q0, T_);
+  load_tile<float, DH, kTile, kThreads>(KV_s, k, st, 0, T_);
+  load_tile<float, DH, kTile, kThreads>(KV_s + kTile * kLd, v, st, 0, T_);
+  cp_commit();
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DH / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKTile) {
-    for (int e = tid; e < 64 * kKTile; e += kThreads) {
-      const int r = e / kKTile, kk = e % kKTile;
-      const int m = m0 + r, k = k0 + kk;
-      a_s[r][kk] = (m < M && k < K) ? to_f(a[static_cast<size_t>(m) * K + k]) : 0.f;
-    }
-    for (int e = tid; e < kKTile * 64; e += kThreads) {
-      const int kk = e / 64, c = e % 64;
-      const int k = k0 + kk, n = n0 + c;
-      w_s[kk][c] = (k < K && n < N) ? to_f(w[static_cast<size_t>(k) * N + n]) : 0.f;
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      float* nxt = KV_s + ((j + 1) & 1) * 2 * kTile * kLd;
+      load_tile<float, DH, kTile, kThreads>(nxt, k, st, (j + 1) * kTile, T_);
+      load_tile<float, DH, kTile, kThreads>(nxt + kTile * kLd, v, st, (j + 1) * kTile, T_);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKTile; ++kk) {
-      float av[4], wv[4];
+    const float* K_s = KV_s + (j & 1) * 2 * kTile * kLd;
+    if (active) {
+      const int kt0 = j * kTile;
+      float s[kTile / 8][4], mt[2] = {-INFINITY, -INFINITY};
+      warp_abt<float, DH, kTile>(s, Q_s, r0, K_s, 0);
+      if (kt0 + kTile > min(valid, T_)) {  // the tile reaches valid or T: per-key tests
 #pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[rg + 16 * i][kk];
+        for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = w_s[kk][cg + 16 * j];
+          for (int e = 0; e < 4; ++e) {
+            const int key = kt0 + 8 * n + 2 * (lane & 3) + (e & 1);
+            float x = s[n][e] * scale_log2;
+            if (key >= T_) x = -INFINITY;
+            else if (key >= valid) x = kNegBig;
+            s[n][e] = x;
+            mt[e >> 1] = fmaxf(mt[e >> 1], x);
+          }
+      } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] *= scale_log2;
+            mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mt[r]));  // finite: key 0 is below T
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kTile / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[n][e] - m[e >> 1]);
+          l[e >> 1] += p;  // this lane's share of the row sum, unrounded p
+          s[n][e] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+      warp_pv<float, DH, kTile, kVTerms, kVTerms>(o, s, K_s + kTile * kLd, 0);
     }
-    __syncthreads();
+    __syncthreads();  // this buffer is refilled with tile j + 2
   }
+  if (!active) return;
+  float inv_l[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + rg + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + cg + 16 * j;
-      if (n >= N) continue;
-      const size_t off = static_cast<size_t>(m) * N + n;
-      out[off] = from_f<T>((acc[i][j] + bias[n]) + to_f(res[off]));
-    }
-  }
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / quad_sum(l[r]);
+  store_rows<T, DH>(attn + static_cast<size_t>(b) * T_ * W + h * DH, W, q0 + r0, T_, o, inv_l);
 }
 
-template <typename T, int DH>
-cudaError_t launch_core(const void* x, const float* gamma, const float* beta,
-                        const void* w_qkv, const float* b_qkv, float* ws, void* attn,
-                        int B, int T_, int W, int H, int valid, float eps,
-                        cudaStream_t stream) {
-  using Cfg = CoreCfg<>;
-  const size_t smem = CoreSmem<DH, Cfg>::bytes(T_);
-  auto kernel = attn_core_kernel<T, DH, Cfg>;
+template <typename T, int DH, int ROWS>
+cudaError_t launch_core(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
+  constexpr int kLd = tile_ld<float, DH>();
+  const int n_buf = T_ > kTile ? 2 : 1;  // one key tile needs no second buffer
+  const size_t smem = (ROWS + n_buf * 2 * kTile) * kLd * sizeof(float);
+  auto kernel = attn_core_mma_kernel<T, DH, ROWS>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const CoreArgs<T> a{static_cast<const T*>(x), gamma, beta, static_cast<const T*>(w_qkv), b_qkv, ws,
-                      attn, nullptr, nullptr, B, H, T_, W, valid, eps};
-  launch_attn_core<T, DH, Cfg>(a, CoreSwitches{0, 0, 0, 0, 1}, B * H, smem, stream);
+  const dim3 grid(B * H, (T_ + ROWS - 1) / ROWS);
+  kernel<<<grid, 2 * ROWS, smem, s>>>(qkv, attn, H, T_, W, valid);
   return cudaGetLastError();
 }
 
+// Query-tile height as K3's: 16 rows up to T 32, 32 up to T 128, 64 past.
+template <typename T, int DH>
+cudaError_t launch_core_rows(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
+  if (T_ <= 32) return launch_core<T, DH, 16>(qkv, attn, B, H, T_, W, valid, s);
+  if (T_ <= 128) return launch_core<T, DH, 32>(qkv, attn, B, H, T_, W, valid, s);
+  return launch_core<T, DH, 64>(qkv, attn, B, H, T_, W, valid, s);
+}
+
 template <typename T>
-cudaError_t launch_core_dh(const void* x, const float* gamma, const float* beta,
-                           const void* w_qkv, const float* b_qkv, float* ws, void* attn,
-                           int B, int T_, int W, int H, int valid, float eps,
-                           cudaStream_t s) {
+cudaError_t launch_core_dh(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
   switch (W / H) {
-    case 16: return launch_core<T, 16>(x, gamma, beta, w_qkv, b_qkv, ws, attn, B, T_, W, H, valid, eps, s);
-    case 32: return launch_core<T, 32>(x, gamma, beta, w_qkv, b_qkv, ws, attn, B, T_, W, H, valid, eps, s);
-    case 64: return launch_core<T, 64>(x, gamma, beta, w_qkv, b_qkv, ws, attn, B, T_, W, H, valid, eps, s);
-    case 128: return launch_core<T, 128>(x, gamma, beta, w_qkv, b_qkv, ws, attn, B, T_, W, H, valid, eps, s);
+    case 16: return launch_core_rows<T, 16>(qkv, attn, B, H, T_, W, valid, s);
+    case 32: return launch_core_rows<T, 32>(qkv, attn, B, H, T_, W, valid, s);
+    case 64: return launch_core_rows<T, 64>(qkv, attn, B, H, T_, W, valid, s);
+    case 128: return launch_core_rows<T, 128>(qkv, attn, B, H, T_, W, valid, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <typename T, int CE>
+cudaError_t launch_block(const T* x, const float* gamma, const float* beta, const T* w_qkv, const float* b_qkv,
+                         const T* w_out, const float* b_out, T* out, float* qkv, T* ya, int B, int T_, int W,
+                         int H, int valid, float eps, cudaStream_t s) {
+  const int R = B * T_;
+  ln_rows_kernel<T><<<(R + kLnWarps - 1) / kLnWarps, kLnThreads, 0, s>>>(x, gamma, beta, ya, nullptr, nullptr,
+                                                                          R, W, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = gemm::launch_pass<T, 128, CE, gemm::kQkv, false, float>(
+      ya, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 2 * W}, qkv, R, 3 * W, W, s);
+  if (err != cudaSuccess) return err;
+  err = launch_core_dh<T>(qkv, ya, B, H, T_, W, valid, s);
+  if (err != cudaSuccess) return err;
+  return gemm::launch_pass<T, 64, CE, gemm::kResidual>(ya, w_out, Epi<T>{b_out, x, nullptr, nullptr, 0}, out, R,
+                                                       W, W, s);
+}
+
+bool aligned(uintptr_t ptrs, int dtype) { return (ptrs & (dtype == 0 ? 15 : 7)) == 0; }
+
 }  // namespace
 
-// Launch (i) of K2.  dtype: 0 float32, 1 bfloat16.  Head dim W / n_heads in
-// {16, 32, 64, 128}; ws is an f32 workspace of B * n_heads * 3 * T * Dh.
-extern "C" int tapclip_attn_block_core(const void* x, const void* gamma,
-                                       const void* beta, const void* w_qkv,
-                                       const void* b_qkv, void* ws, void* attn,
-                                       int B, int T, int W, int n_heads, int valid,
-                                       float eps, int dtype, void* stream) {
-  if (B <= 0 || T <= 0 || n_heads <= 0 || W % n_heads || valid < 1 || valid > T)
+// K2, all four launches.  dtype: 0 float32, 1 bfloat16.  Head dim
+// W / n_heads in {16, 32, 64, 128}; valid in [1, T]; qkv an f32 workspace of
+// B T 3W, ya a scratch of B T W elements of the dtype; x, w_qkv, w_out, out
+// and ya 16-byte aligned in float32, 8-byte aligned in bfloat16.
+extern "C" int tapclip_attn_block(const void* x, const void* gamma, const void* beta, const void* w_qkv,
+                                  const void* b_qkv, const void* w_out, const void* b_out, void* out, void* qkv,
+                                  void* ya, int B, int T, int W, int n_heads, int valid, float eps, int dtype,
+                                  void* stream) {
+  if (B <= 0 || T <= 0 || n_heads <= 0 || W % n_heads || W % 4 || valid < 1 || valid > T)
     return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_qkv) |
+                         reinterpret_cast<uintptr_t>(w_out) | reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(ya) | reinterpret_cast<uintptr_t>(qkv);
+  if (!aligned(ptrs, dtype)) return cudaErrorMisalignedAddress;
   const auto* g = static_cast<const float*>(gamma);
   const auto* bt = static_cast<const float*>(beta);
   const auto* bq = static_cast<const float*>(b_qkv);
-  auto* w = static_cast<float*>(ws);
+  const auto* bo = static_cast<const float*>(b_out);
+  auto* ws = static_cast<float*>(qkv);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_core_dh<float>(x, g, bt, w_qkv, bq, w, attn, B, T, W, n_heads, valid, eps, s);
-  if (dtype == 1)
-    return launch_core_dh<__nv_bfloat16>(x, g, bt, w_qkv, bq, w, attn, B, T, W, n_heads, valid, eps, s);
+    return launch_block<float, 4>(static_cast<const float*>(x), g, bt, static_cast<const float*>(w_qkv), bq,
+                                  static_cast<const float*>(w_out), bo, static_cast<float*>(out), ws,
+                                  static_cast<float*>(ya), B, T, W, n_heads, valid, eps, s);
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    const auto* X = static_cast<const bf16*>(x);
+    const auto* Wq = static_cast<const bf16*>(w_qkv);
+    const auto* Wo = static_cast<const bf16*>(w_out);
+    if ((ptrs & 15) == 0 && W % 8 == 0)
+      return launch_block<bf16, 8>(X, g, bt, Wq, bq, Wo, bo, static_cast<bf16*>(out), ws, static_cast<bf16*>(ya), B,
+                                   T, W, n_heads, valid, eps, s);
+    return launch_block<bf16, 4>(X, g, bt, Wq, bq, Wo, bo, static_cast<bf16*>(out), ws, static_cast<bf16*>(ya), B, T,
+                                 W, n_heads, valid, eps, s);
+  }
   return cudaErrorInvalidValue;
 }
 
-// Launch (ii) of K2: out = a @ w + bias + res.  dtype: 0 float32, 1 bfloat16.
-extern "C" int tapclip_gemm_bias_residual(const void* a, const void* w, const void* bias,
-                                          const void* res, void* out, int M, int N, int K,
-                                          int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((N + 63) / 64, (M + 63) / 64);
-  auto s = static_cast<cudaStream_t>(stream);
+// K2's out-projection alone, out = round((a . w + bias) + res), a [M, K],
+// w [K, N] row major: the out-projection of the A/B variants S3/S4.  dtype:
+// 0 float32, 1 bfloat16; N and K multiples of 4; a, w, res and out 16-byte
+// aligned in float32, 8-byte aligned in bfloat16.
+extern "C" int tapclip_gemm_bias_residual(const void* a, const void* w, const void* bias, const void* res,
+                                          void* out, int M, int N, int K, int dtype, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(w) |
+                         reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(out);
+  if (!aligned(ptrs, dtype)) return cudaErrorMisalignedAddress;
   const auto* bs = static_cast<const float*>(bias);
-  if (dtype == 0) {
-    gemm_bias_residual_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(w), bs,
-        static_cast<const float*>(res), static_cast<float*>(out), M, N, K);
-  } else if (dtype == 1) {
-    using bf = __nv_bfloat16;
-    gemm_bias_residual_kernel<bf><<<grid, kThreads, 0, s>>>(
-        static_cast<const bf*>(a), static_cast<const bf*>(w), bs,
-        static_cast<const bf*>(res), static_cast<bf*>(out), M, N, K);
-  } else {
-    return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return gemm::launch_pass<float, 64, 4, gemm::kResidual>(
+        static_cast<const float*>(a), static_cast<const float*>(w),
+        Epi<float>{bs, static_cast<const float*>(res), nullptr, nullptr, 0}, static_cast<float*>(out), M, N, K, s);
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    const auto* A = static_cast<const bf16*>(a);
+    const auto* Wt = static_cast<const bf16*>(w);
+    const Epi<bf16> e{bs, static_cast<const bf16*>(res), nullptr, nullptr, 0};
+    if ((ptrs & 15) == 0 && N % 8 == 0 && K % 8 == 0)
+      return gemm::launch_pass<bf16, 64, 8, gemm::kResidual>(A, Wt, e, static_cast<bf16*>(out), M, N, K, s);
+    return gemm::launch_pass<bf16, 64, 4, gemm::kResidual>(A, Wt, e, static_cast<bf16*>(out), M, N, K, s);
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }

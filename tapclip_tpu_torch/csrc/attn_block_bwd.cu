@@ -11,8 +11,8 @@
 // wrapper (tapclip_tpu_torch/ops/fused_mha.py::_attn_block_bwd_cuda) runs
 // the same math as a chain of launches, the products by gemm.cu:
 //
-//   1. ln_rows (here): LayerNorm statistics per row in f32 and
-//      y = LN(x) rounded to the compute dtype.
+//   1. ln_rows (ln_rows.cuh, shared with K1, K2 and B5): LayerNorm
+//      statistics per row in f32 and y = LN(x) rounded to the compute dtype.
 //   2. gemm: qkv = y . w_qkv + b_qkv (f32), and the cotangent of the
 //      attention output gh = g . w_out^T (f32).
 //   3. attn_bwd_core (here): one block per (batch row, head) runs the
@@ -24,8 +24,9 @@
 //      differentiates the split composition instead (plain projections
 //      around B6 and the flash chain), as the JAX _attn_block_bwd does.
 //   4. gemm: dy = dqkv . w_qkv^T (f32).
-//   5. ln_bwd_rows (here): dx = g + LN backward of dy; with weight gradients
-//      wanted, per-block partial column sums of dy * n and dy.
+//   5. ln_bwd_rows (ln_rows.cuh, shared with B5): dx = g + LN backward of
+//      dy; with weight gradients wanted, per-block partial column sums of
+//      dy * n and dy.
 //   6. with weight gradients wanted (not on the prompt-tuning path, where
 //      the CLIP weights are frozen): dW_qkv = y^T . dqkv, dW_out = o^T . g,
 //      and the column sums for db_qkv, db_out, dgamma, dbeta (gemm.cu).
@@ -43,92 +44,9 @@
 // phases.  Splitting over query tiles and tensor-core MMA are later work.
 #include "attn_bwd_core.cuh"
 #include "common.cuh"
-
-namespace {
+#include "ln_rows.cuh"
 
 using namespace tapclip;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// LayerNorm statistics and y = LN(x) rounded to T, one warp per row.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, T* __restrict__ y,
-               float* __restrict__ mean_out, float* __restrict__ rstd_out, int R,
-               int W, float eps) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const T* xr = x + static_cast<size_t>(r) * W;
-  float s = 0.f;
-  for (int c = lane; c < W; c += 32) s += to_f(xr[c]);
-  const float mean = warp_sum(s) / W;
-  float v = 0.f;
-  for (int c = lane; c < W; c += 32) {
-    const float d = to_f(xr[c]) - mean;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / W + eps);
-  for (int c = lane; c < W; c += 32)
-    y[static_cast<size_t>(r) * W + c] = from_f<T>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
-  if (lane == 0) {
-    mean_out[r] = mean;
-    rstd_out[r] = rstd;
-  }
-}
-
-// dx = g + LN backward of dy, one warp per row; a block owns kLnRows rows and,
-// with want_w, writes its partial column sums of dy * n and dy to
-// part[block, 2W].
-constexpr int kLnRows = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   const float* __restrict__ dy, const float* __restrict__ gamma,
-                   const float* __restrict__ mean, const float* __restrict__ rstd,
-                   T* __restrict__ dx, float* __restrict__ part, int R, int W,
-                   int want_w) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * kLnRows;
-  for (int r = row0 + warp; r < min(R, row0 + kLnRows); r += kWarps) {
-    const T* xr = x + static_cast<size_t>(r) * W;
-    const float* dr = dy + static_cast<size_t>(r) * W;
-    const float mu = mean[r], rs = rstd[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < W; c += 32) {
-      const float n = (to_f(xr[c]) - mu) * rs;
-      const float dn = dr[c] * gamma[c];
-      s1 += dn;
-      s2 += dn * n;
-    }
-    s1 = warp_sum(s1) / W;
-    s2 = warp_sum(s2) / W;
-    for (int c = lane; c < W; c += 32) {
-      const size_t off = static_cast<size_t>(r) * W + c;
-      const float n = (to_f(xr[c]) - mu) * rs;
-      const float dn = dr[c] * gamma[c];
-      dx[off] = from_f<T>(to_f(g[off]) + rs * (dn - s1 - n * s2));
-    }
-  }
-  if (!want_w) return;
-  float* pb = part + static_cast<size_t>(blockIdx.x) * 2 * W;
-  for (int c = threadIdx.x; c < W; c += kThreads) {
-    float pg = 0.f, pbeta = 0.f;
-    for (int r = row0; r < min(R, row0 + kLnRows); ++r) {
-      const size_t off = static_cast<size_t>(r) * W + c;
-      const float n = (to_f(x[off]) - mean[r]) * rstd[r];
-      pg += dy[off] * n;
-      pbeta += dy[off];
-    }
-    pb[c] = pg;
-    pb[W + c] = pbeta;
-  }
-}
-
-}  // namespace
 
 // Largest sequence length the backward core (B4 and B7) holds at head dim
 // Dh (its [T, T] f32 tile and one [T, Dh] operand tile in shared memory, at
@@ -140,18 +58,18 @@ extern "C" int tapclip_ln_rows(const void* x, const void* gamma, const void* bet
                                void* y, void* mean, void* rstd, int R, int W,
                                float eps, int dtype, void* stream) {
   if (R <= 0 || W <= 0) return cudaErrorInvalidValue;
-  const int blocks = (R + kWarps - 1) / kWarps;
+  const int blocks = (R + kLnWarps - 1) / kLnWarps;
   const auto* gm = static_cast<const float*>(gamma);
   const auto* bt = static_cast<const float*>(beta);
   auto* mu = static_cast<float*>(mean);
   auto* rs = static_cast<float*>(rstd);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    ln_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
+    ln_rows_kernel<float><<<blocks, kLnThreads, 0, s>>>(
         static_cast<const float*>(x), gm, bt, static_cast<float*>(y), mu, rs, R, W, eps);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
-    ln_rows_kernel<bf><<<blocks, kThreads, 0, s>>>(
+    ln_rows_kernel<bf><<<blocks, kLnThreads, 0, s>>>(
         static_cast<const bf*>(x), gm, bt, static_cast<bf*>(y), mu, rs, R, W, eps);
   } else {
     return cudaErrorInvalidValue;
@@ -184,7 +102,7 @@ extern "C" int tapclip_ln_bwd_rows(const void* x, const void* g, const void* dy,
                                    const void* rstd, void* dx, void* part, int R,
                                    int W, int want_w, int dtype, void* stream) {
   if (R <= 0 || W <= 0) return cudaErrorInvalidValue;
-  const int blocks = (R + kLnRows - 1) / kLnRows;
+  const int blocks = (R + kLnBwdRows - 1) / kLnBwdRows;
   const auto* d = static_cast<const float*>(dy);
   const auto* gm = static_cast<const float*>(gamma);
   const auto* mu = static_cast<const float*>(mean);
@@ -192,13 +110,13 @@ extern "C" int tapclip_ln_bwd_rows(const void* x, const void* g, const void* dy,
   auto* pt = static_cast<float*>(part);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    ln_bwd_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), d, gm, mu, rs,
+    ln_bwd_rows_kernel<float><<<blocks, kLnBwdThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), d, 1, 0, gm, mu, rs,
         static_cast<float*>(dx), pt, R, W, want_w);
   } else if (dtype == 1) {
     using bf = __nv_bfloat16;
-    ln_bwd_rows_kernel<bf><<<blocks, kThreads, 0, s>>>(
-        static_cast<const bf*>(x), static_cast<const bf*>(g), d, gm, mu, rs,
+    ln_bwd_rows_kernel<bf><<<blocks, kLnBwdThreads, 0, s>>>(
+        static_cast<const bf*>(x), static_cast<const bf*>(g), d, 1, 0, gm, mu, rs,
         static_cast<bf*>(dx), pt, R, W, want_w);
   } else {
     return cudaErrorInvalidValue;

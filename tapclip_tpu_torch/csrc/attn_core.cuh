@@ -1,13 +1,14 @@
-// K2's core, shared by the attention half-block (attn_block.cu), its A/B
+// K2's earlier core on the FMA units (K2 itself, attn_block.cu, runs on the
+// tensor cores since its redesign), kept as the device code of the A/B
 // variants S3/S4 (attn_variants_*.cu) and the one-launch fused layer S1
 // (fused_layer.cu): for one (batch row, head group) the LayerNorm statistics
 // of the batch row's T tokens, then for each head of the group its q, k, v
 // column slices of the QKV product for all T tokens (LN applied on the fly as
 // the [64, KT] operand tiles are staged in shared memory) and masked softmax
-// attention over 64-row query tiles (attn_tile.cuh).  The production kernel
-// (K2: one head a block, q, k f32 in an f32 workspace [B, H, 3, T, Dh], v
-// rounded to the compute dtype, the online softmax, the output rounded into
-// [B, T, W]) takes the default CoreCfg and reads no runtime switch.
+// attention over 64-row query tiles (attn_tile.cuh).  K2's function (one head
+// a block, q, k f32 in an f32 workspace [B, H, 3, T, Dh], v rounded to the
+// compute dtype, the online softmax, the output rounded into [B, T, W]) is
+// the default CoreCfg with every runtime switch off (S4's flags-off kernel).
 //
 // The variants' switches, each the nearest Hopper counterpart of a switch of
 // scripts/attn_kernel_ab.py or scripts/attn_softmax_ab.py:

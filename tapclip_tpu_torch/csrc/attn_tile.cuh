@@ -1,7 +1,6 @@
 // Softmax attention of one 64-row query tile against all keys, one 64-key
-// tile at a time (online softmax), shared by the fused attention block (K2,
-// attn_block.cu), the attribution attention (K3, attn_aux.cu) and the
-// packed-QKV attention core (B6, mha.cu).
+// tile at a time (online softmax), shared by K2's earlier FMA core
+// (attn_core.cuh: S1, S3/S4) and the packed-QKV attention core (B6, mha.cu).
 //
 // The JAX kernels hold a whole [T, T] score tile in VMEM.  A Hopper block has
 // at most 227 KB of shared memory, so the CUDA kernels keep one [64, 64]

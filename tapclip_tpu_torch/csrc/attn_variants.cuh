@@ -1,9 +1,10 @@
 // Launch glue of the attention half-block's A/B variants (S3, S4), shared by
 // attn_variants_online.cu and attn_variants_two_pass.cu: one launch of K2's
-// core (attn_core.cuh) in a given configuration, head dim 64 (ViT-B/16 and
-// ViT-L/14), with the runtime switches.  The out-projection follows in a
-// second launch, as in K2: tapclip_gemm_bias_residual (attn_block.cu), or for
-// the interleaved form tapclip_attn_partials_reduce.
+// earlier FMA core (attn_core.cuh) in a given configuration, head dim 64
+// (ViT-B/16 and ViT-L/14), with the runtime switches.  The out-projection
+// follows in a second launch: K2's own on the tensor cores,
+// tapclip_gemm_bias_residual (attn_block.cu), or for the interleaved form
+// tapclip_attn_partials_reduce.
 #pragma once
 
 #include "attn_core.cuh"

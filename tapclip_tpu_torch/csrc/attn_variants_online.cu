@@ -1,5 +1,5 @@
 // S3 and S4: the A/B variants of the attention half-block whose softmax is
-// K2's online form, as configurations of K2's core (attn_core.cuh).
+// the online form, as configurations of K2's earlier FMA core (attn_core.cuh).
 //
 // Replaces scripts/attn_softmax_ab.py::make_kernel.kernel (S4: qk_cast,
 // fold_q, mask_mode full / tail / zerokv, sum_mxu, tail_split, swpipe,
@@ -9,7 +9,7 @@
 // attn_variants_two_pass.cu.  The wrapper is
 // tapclip_tpu_torch/ops/fused_mha.py::attn_block_variant.
 //
-// What bounds it on the card: as K2 (attn_block.cu), the serial work of one
+// What bounds it on the card: as K2's earlier FMA core, the serial work of one
 // block's pass over its head, one block per SM at the image shape, the
 // products on the FMA units in f32; the variants move that work around
 // (fewer blocks with group_heads, q, k, v kept in shared memory with

@@ -1,5 +1,5 @@
 // S3: the A/B variants of the attention half-block whose softmax takes two
-// passes over the keys, as configurations of K2's core (attn_core.cuh), and
+// passes over the keys, as configurations of K2's earlier FMA core (attn_core.cuh), and
 // the reduction of the interleaved form's per-group partials.
 //
 // Replaces scripts/attn_kernel_ab.py::make_variant_kernel.kernel with
@@ -13,7 +13,7 @@
 // so the result repeats bit for bit).  The wrapper is
 // tapclip_tpu_torch/ops/fused_mha.py::attn_block_variant.
 //
-// What bounds it on the card: as K2 (attn_block.cu), the serial work of one
+// What bounds it on the card: as K2's earlier FMA core, the serial work of one
 // block's pass over its head; the second pass over the keys adds the score
 // products again (about a third more work in the core).  The interleaved
 // form's partials are groups x B x T x W f32 (59 MB at ViT-B/16 batch 8,

@@ -247,8 +247,10 @@ __device__ __forceinline__ void load_bt(uint32_t (&b0)[1][2], uint32_t (&b1)[1][
   b1[0][1] = r[3];
 }
 
-template <int DH>
-__device__ __forceinline__ void load_bt(uint32_t (&b0)[kF32Terms][2], uint32_t (&b1)[kF32Terms][2],
+// From an f32 tile in NT terms: NT = 1 where the tile holds values of bf16
+// (K2's v in bf16, stored in its f32 workspace), so the one term is exact.
+template <int DH, int NT>
+__device__ __forceinline__ void load_bt(uint32_t (&b0)[NT][2], uint32_t (&b1)[NT][2],
                                         const float* X, int k0, int n0) {
   constexpr int kLd = tile_ld<float, DH>();
   const int l = threadIdx.x & 31;
@@ -296,11 +298,11 @@ __device__ __forceinline__ void warp_abt(float (&s)[NCOL / 8][4], const T* A_s, 
 }
 
 // o += P . X_s[k0, k0 + NCOL): P is a warp's [16, NCOL] f32 accumulator, used
-// in NTP bf16 terms; X_s a staged [*, DH] tile whose rows are the depth.
-template <typename T, int DH, int NCOL, int NTP>
+// in NTP bf16 terms; X_s a staged [*, DH] tile whose rows are the depth, used
+// in NT terms.
+template <typename T, int DH, int NCOL, int NTP, int NT = kTerms<T>>
 __device__ __forceinline__ void warp_pv(float (&o)[DH / 8][4], const float (&p)[NCOL / 8][4],
                                         const T* X_s, int k0) {
-  constexpr int NT = kTerms<T>;
 #pragma unroll
   for (int kk = 0; kk < NCOL / 8; kk += 2) {
     uint32_t a[NTP][4];

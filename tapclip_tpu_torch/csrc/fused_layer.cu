@@ -11,8 +11,8 @@
 // cannot (one ViT-B/16 sequence's mid is 200 x 768 x 4 = 614 KB against
 // 227 KB of shared memory), so the layer is one cooperative launch of a
 // persistent grid (as many blocks as fit on the SMs at once) in two phases:
-//   A. for each (batch row, head) work item, K2's core (attn_core.cuh):
-//      LN1 statistics, the head's q, k, v, 64-key online-softmax tiles; the
+//   A. for each (batch row, head) work item, K2's earlier FMA core
+//      (attn_core.cuh): LN1 statistics, the head's q, k, v, 64-key online-softmax tiles; the
 //      attention output goes, in f32, to a device workspace [B, T, W];
 //   then cooperative_groups::this_grid().sync();
 //   B. for each 16-row tile: the out-projection of its attention rows
@@ -22,9 +22,10 @@
 // A launch the card cannot hold at once (the cooperative grid too large)
 // is refused and the wrapper raises.
 //
-// What bounds it on the card: as K2 and the FMA walk, the serial work of each block
-// (phase A has B x H items, 96 at ViT-B/16 batch 8, on 132 SMs; phase B one
-// 16-row tile a block, each reading all of w_out, w_fc and w_proj from L2).
+// What bounds it on the card: as K2's earlier core and the FMA walk, the
+// serial work of each block (phase A has B x H items, 96 at ViT-B/16 batch
+// 8, on 132 SMs; phase B one 16-row tile a block, each reading all of w_out,
+// w_fc and w_proj from L2).
 // The round trip the fusion removes, one [B, T, W] tensor written and read
 // back (2 x 4.9 MB in f32 at batch 8, about 3 us at 3.35 TB/s, and it fits in
 // the 50 MB L2), is small beside either phase.

@@ -22,9 +22,9 @@
 //
 // What bounds it on the card: inferred, not measured (no profile yet).  By
 // its shape a dW product (K = rows = 704 at the text shape) is arithmetic on
-// the FMA units in f32, like K2's out-projection (gemm_bias_residual in
-// attn_block.cu, same 64 x 64 tiling), which a block-count probe found held
-// back by too few warps per SM.  Tensor-core MMA for bf16 and split-K for the
+// the FMA units in f32, like K2's earlier FMA out-projection (the same
+// 64 x 64 tiling), which a block-count probe found held back by too few
+// warps per SM.  Tensor-core MMA for bf16 and split-K for the
 // small dW_out grid (64 tiles at W = 512) are later work.
 #include "common.cuh"
 

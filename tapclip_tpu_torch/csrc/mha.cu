@@ -12,8 +12,8 @@
 // The TPU kernel holds a batch block's whole [Tp, 3W] rows and a [Tp, Tp]
 // score tile in VMEM and loops over 128-lane head groups.  Here one block of
 // 256 threads owns one (batch row, head, 64-row query tile) and walks the keys
-// in 64-key tiles with the online softmax of attn_tile.cuh (shared with K2
-// and K3), so any T runs in the same 65 KB of shared memory: T = 77 (the
+// in 64-key tiles with the online softmax of attn_tile.cuh (shared with the
+// FMA core of S1, S3 and S4), so any T runs in the same 65 KB of shared memory: T = 77 (the
 // idiomatic text mode, unpadded), 80 (encode_text), 200 (ViT-B/16 under
 // fused_split), 584 (ViT-L/14 at 336 px).  The block reads its head's q, k
 // and v straight out of the packed rows (row stride 3W, column offset

@@ -50,9 +50,10 @@ _SIGNATURES = {
     # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, ws (scratch: R * (H + W)
     # elements of the dtype), R, W, H, eps, dtype, stream
     "tapclip_fused_mlp": (P, P, P, P, P, P, P, P, P, I, I, I, F, I, P),
-    # x, gamma, beta, w_qkv, b_qkv, qkv_ws, attn, B, T, W, n_heads, valid,
-    # eps, dtype, stream
-    "tapclip_attn_block_core": (P, P, P, P, P, P, P, I, I, I, I, I, F, I, P),
+    # x, gamma, beta, w_qkv, b_qkv, w_out, b_out, out, qkv (f32 workspace
+    # R * 3W), ya (scratch: R * W elements of the dtype), B, T, W, n_heads,
+    # valid, eps, dtype, stream
+    "tapclip_attn_block": (P,) * 10 + (I,) * 5 + (F, I, P),
     # a, w, bias, residual, out, M, N, K, dtype, stream
     "tapclip_gemm_bias_residual": (P, P, P, P, P, I, I, I, I, P),
     # q, k, v, valid, eot, valid_all, eot_all, out, aux, B, H, T, Dh, with_aux,
@@ -62,11 +63,12 @@ _SIGNATURES = {
     "tapclip_gemm_f32": (P, P, P, P, I, I, I, I, I, I, P),
     # in, out, R, N, rows_per_chunk, dtype, stream
     "tapclip_col_sum": (P, P, I, I, I, I, P),
-    # W
-    "tapclip_mlp_bwd_rows_per_block": (I,),
-    # x, g, gamma, beta, w_fc, b_fc, w_proj, dx, y_out, h_out, dhp_out, part,
-    # R, W, H, eps, want_w, dtype, stream
-    "tapclip_mlp_bwd_rows": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, I, I, P),
+    # R, W, H, dtype -> the split of dy's depth that B5 takes there
+    "tapclip_mlp_bwd_split": (I, I, I, I),
+    # x, g, gamma, beta, w_fc, b_fc, w_proj, dx, ws (f32 workspace
+    # R H + split R W + 2 R), wsd (scratch: R (H + W) elements of the dtype),
+    # h_out, part, R, W, H, eps, split, want_w, dtype, stream
+    "tapclip_mlp_bwd": (P,) * 12 + (I, I, I, F, I, I, I, P),
     # Dh
     "tapclip_attn_bwd_max_seq": (I,),
     # x, gamma, beta, y, mean, rstd, R, W, eps, dtype, stream
@@ -123,7 +125,7 @@ _SIGNATURES = {
     "tapclip_fused_layer_max_grid": (I, I, I),
 }
 
-build_log: dict = {}  # "seconds", "path", "cached", "ptxas" of the last load
+build_log: dict = {}  # "seconds", "path", "cached", "ptxas", "ptxas_by_source" of the last load
 
 
 def _nvcc() -> str:
@@ -157,7 +159,7 @@ def library() -> ctypes.CDLL:
     so = out_dir / "libtapclip_kernels.so"
     t0 = time.perf_counter()
     cached = so.exists()
-    ptxas = ""
+    ptxas_by_source = {}
     if not cached:
         nvcc = _nvcc()
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -173,7 +175,7 @@ def library() -> ctypes.CDLL:
             for cmd, out, rc in outputs:
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
-            ptxas = "".join(out for _, out, _ in outputs)
+            ptxas_by_source = {Path(cmd[-3]).name: out for cmd, out, _ in outputs}
             tmp_so = os.path.join(tmp_dir, "lib.so")
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
                    "-o", tmp_so, *(obj for _, obj, _ in procs)]
@@ -190,7 +192,8 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     build_log.update(
-        seconds=time.perf_counter() - t0, path=str(so), cached=cached, ptxas=ptxas
+        seconds=time.perf_counter() - t0, path=str(so), cached=cached,
+        ptxas="".join(ptxas_by_source.values()), ptxas_by_source=ptxas_by_source,
     )
     return lib
 

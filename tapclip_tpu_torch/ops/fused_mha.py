@@ -5,11 +5,12 @@ packed-QKV attention core B6 with its backward B7.
 ``x + out_proj(mha(qkv_proj(layer_norm(x))))`` over ``x [B, T, W]`` with keys
 at or past ``valid_len`` masked.  :func:`fused_attn_block` is one
 ``torch.autograd.Function`` on every device.  On a CUDA tensor its forward
-makes two hand-written launches (``csrc/attn_block.cu``, which replaces the
-Pallas ``_attn_block_kernel``): LN + per-(batch, head) QKV projection +
-attention into ``[B, T, W]``, then out-projection + bias + residual; its
-backward is B4 (``csrc/attn_block_bwd.cu`` + ``csrc/gemm.cu``, which replace
-``_attn_block_bwd_kernel``).  On a CPU tensor they run
+is K2 (``csrc/attn_block.cu``, which replaces the Pallas
+``_attn_block_kernel``), four hand-written launches on the tensor cores: LN,
+the QKV product into an f32 workspace ``[B*T, 3W]``, attention per (batch
+row, head, query tile) into ``[B, T, W]``, then out-projection + bias +
+residual; its backward is B4 (``csrc/attn_block_bwd.cu`` +
+``csrc/gemm.cu``, which replace ``_attn_block_bwd_kernel``).  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
 recomputes LN, QKV and the probabilities, as the TPU kernel does.  B4 holds
@@ -202,7 +203,7 @@ def _check_heads(T, W, n_heads, valid):
 def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
     B, T, W = x.shape
     dtype = x.dtype
-    Dh = _check_heads(T, W, n_heads, valid)
+    _check_heads(T, W, n_heads, valid)
     f32 = torch.float32
     ops = {
         "x": (x, dtype, (B, T, W)),
@@ -216,23 +217,20 @@ def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, 
     for name, (t, dt, shape) in ops.items():
         _build.check_cuda_operand(name, t, dt, shape)
     t = {name: v[0] for name, v in ops.items()}
-    ws = torch.empty((B, n_heads, 3, T, Dh), dtype=f32, device=x.device)
-    attn = torch.empty_like(x)
+    align = 4 * x.element_size()  # the GEMMs copy 4 elements at a time at least
+    for name in ("x", "w_qkv", "w_out"):
+        if t[name].data_ptr() % align:
+            raise ValueError(f"attention block kernel copies {name} in {align}-byte chunks: it must be "
+                             f"{align}-byte aligned")
+    qkv = torch.empty((B * T, 3 * W), dtype=f32, device=x.device)  # q | k | v, v rounded to the dtype
+    ya = torch.empty_like(x)  # y = LN(x), then the attention output
     out = torch.empty_like(x)
-    lib = _build.library()
-    code = _build.dtype_code(dtype)
-    stream = _build.stream_handle(x.device)
-    err = lib.tapclip_attn_block_core(
-        x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(),
-        t["b_qkv"].data_ptr(), ws.data_ptr(), attn.data_ptr(),
-        B, T, W, n_heads, int(valid), float(eps), code, stream,
+    err = _build.library().tapclip_attn_block(
+        x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(), t["b_qkv"].data_ptr(),
+        t["w_out"].data_ptr(), t["b_out"].data_ptr(), out.data_ptr(), qkv.data_ptr(), ya.data_ptr(),
+        B, T, W, n_heads, int(valid), float(eps), _build.dtype_code(dtype), _build.stream_handle(x.device),
     )
-    _build.check(err, "tapclip_attn_block_core")
-    err = lib.tapclip_gemm_bias_residual(
-        attn.data_ptr(), t["w_out"].data_ptr(), t["b_out"].data_ptr(), x.data_ptr(),
-        out.data_ptr(), B * T, W, W, code, stream,
-    )
-    _build.check(err, "tapclip_gemm_bias_residual")
+    _build.check(err, "tapclip_attn_block")
     fused_attn_block.launches += 1
     return out
 
@@ -460,9 +458,9 @@ def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal, *, out=None):
 # make_interleaved_kernel: group_heads) or "softmax"
 # (scripts/attn_softmax_ab.py::make_kernel: qk_cast, fold_q, mask_mode in
 # {"full", "tail", "zerokv"}, group_heads, sum_mxu, tail_split).
-# ``group_heads`` is K2's heads per block here (1 in K2; the TPU scripts count
-# heads per 128-lane step, 2 at head dim 64): a schedule switch, like
-# tail_split.  The TPU switches with no counterpart on the card (swpipe, bB,
+# ``group_heads`` is the FMA core's heads per block here (1 with no switch;
+# the TPU scripts count heads per 128-lane step, 2 at head dim 64): a
+# schedule switch, like tail_split.  The TPU switches with no counterpart on the card (swpipe, bB,
 # vmem_mb) are not taken: the drivers drop them.
 
 ATTN_VARIANT_FLAGS = {
@@ -567,9 +565,9 @@ def attn_block_variant_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_h
 
 
 def attn_block_variant(x, ln_params, attn_params, n_heads, valid, *, eps=1e-5, form="variant", **flags):
-    """S3/S4 (forward only): K2's core in the variant's configuration
-    (``csrc/attn_variants_online.cu``, ``attn_variants_two_pass.cu``), then the
-    out-projection (``tapclip_gemm_bias_residual``, or for the interleaved form
+    """S3/S4 (forward only): K2's earlier FMA core in the variant's
+    configuration (``csrc/attn_variants_online.cu``, ``attn_variants_two_pass.cu``),
+    then K2's out-projection (``tapclip_gemm_bias_residual``, or for the interleaved form
     the per-group partials reduced by ``tapclip_attn_partials_reduce``) on a
     CUDA tensor; :func:`attn_block_variant_reference` on a CPU tensor."""
     params = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"], attn_params["b_qkv"],

@@ -13,8 +13,10 @@ backward recomputes LN -> fc -> GELU.
 K1 runs both products on the tensor cores (bf16 MMAs, f32 operands split
 into three bf16 terms) in two tiled passes, with the ``[R, 4W]`` hidden
 activation in a scratch the wrapper allocates (it stays in the card's L2);
-B5 keeps it on chip.  Both take any row count R (they mask the ragged last
-tile), so the TPU kernel's alignment guard (R % 256, W % 128) is not ported.
+B5 runs its three dx products the same way (the fc recompute, dh and dy),
+with z and dh_pre in such scratch.  Both take any row count R (they mask the
+ragged last tile), so the TPU kernel's alignment guard (R % 256, W % 128) is
+not ported.
 They use ``erff`` for the exact GELU where the TPU kernels needed a
 polynomial.
 """
@@ -180,47 +182,51 @@ def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps):
     return out
 
 
-def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_grads=True):
-    """B5 on the card: the row pass (dx, and with ``weight_grads`` the scratch
-    for the weight gradients), then the A^T.B products and column sums.
-    Returns the seven gradients of :func:`fused_mlp_bwd_reference` (the six
-    weight gradients None without ``weight_grads``)."""
+def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_grads=True, split=None):
+    """B5 on the card: its five launches (dx, and with ``weight_grads`` the
+    scratch for the weight gradients), then the A^T.B products and column
+    sums.  ``split``: the split of dy's depth into f32 partials (1, 2 or 4;
+    None takes the kernel's choice for the shape).  Returns the seven
+    gradients of :func:`fused_mlp_bwd_reference` (the six weight gradients
+    None without ``weight_grads``)."""
     W = x.shape[-1]
     H = w_fc.shape[-1]
     R = x.numel() // W
-    if W % 32:
-        raise ValueError(f"fused_mlp backward kernel needs W divisible by 32, got W={W}")
+    if W % 4 or H % 4:
+        raise ValueError(f"fused_mlp backward kernel needs W and H divisible by 4, got W={W}, H={H}")
     t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj, g=g)
+    align = 4 * x.element_size()  # the GEMMs copy 4 elements at a time at least
+    for name in ("g", "w_fc", "w_proj"):
+        if t[name].data_ptr() % align:
+            raise ValueError(f"fused_mlp backward kernel copies {name} in {align}-byte chunks: it must be "
+                             f"{align}-byte aligned")
     lib = _build.library()
-    rows = lib.tapclip_mlp_bwd_rows_per_block(W)
-    if rows == 0:
-        raise ValueError(f"fused_mlp backward kernel: width W={W} does not fit in shared memory")
     code = _build.dtype_code(x.dtype)
-    stream = _build.stream_handle(x.device)
+    S = lib.tapclip_mlp_bwd_split(R, W, H, code) if split is None else int(split)
+    if S not in (1, 2, 4):
+        raise ValueError(f"fused_mlp backward kernel splits dy's depth 1, 2 or 4 ways, got {S}")
     dev, dtype, f32 = x.device, x.dtype, torch.float32
     dx = torch.empty_like(x)
-    if weight_grads:
-        n_blocks = -(-R // rows)
-        y = torch.empty((R, W), dtype=dtype, device=dev)
-        h = torch.empty((R, H), dtype=dtype, device=dev)
-        dhp = torch.empty((R, H), dtype=dtype, device=dev)
-        part = torch.empty((n_blocks, 3 * W + H), dtype=f32, device=dev)
-        scratch = (y.data_ptr(), h.data_ptr(), dhp.data_ptr(), part.data_ptr())
-    else:
-        scratch = (None, None, None, None)
-    err = lib.tapclip_mlp_bwd_rows(
-        x.data_ptr(), g.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(),
-        t["w_fc"].data_ptr(), t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), dx.data_ptr(),
-        *scratch, R, W, H, float(eps), int(weight_grads), code, stream,
+    ws = torch.empty(R * H + S * R * W + 2 * R, dtype=f32, device=dev)  # z, dy partials, mean, rstd
+    wsd = torch.empty(R * (H + W), dtype=dtype, device=dev)  # dh_pre, then y
+    h = torch.empty((R, H), dtype=dtype, device=dev) if weight_grads else None
+    part = torch.empty((-(-R // 16), 2 * W), dtype=f32, device=dev) if weight_grads else None
+    err = lib.tapclip_mlp_bwd(
+        x.data_ptr(), g.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
+        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), dx.data_ptr(), ws.data_ptr(), wsd.data_ptr(),
+        None if h is None else h.data_ptr(), None if part is None else part.data_ptr(),
+        R, W, H, float(eps), S, int(weight_grads), code, _build.stream_handle(dev),
     )
-    _build.check(err, "tapclip_mlp_bwd_rows")
+    _build.check(err, "tapclip_mlp_bwd")
     fused_mlp_block.bwd_launches += 1
     if not weight_grads:
         return dx, None, None, None, None, None, None
-    sums = col_sum(part, dtype=f32)
-    dw_fc = gemm_f32(y, dhp, trans_a=True)
-    dw_proj = gemm_f32(h, g.reshape(R, W), trans_a=True)
-    return dx, sums[:W], sums[W:2 * W], dw_fc, sums[3 * W:], dw_proj, sums[2 * W:3 * W]
+    dhp, y = wsd[:R * H].view(R, H), wsd[R * H:].view(R, W)
+    dh_pre = ws[:R * H].view(R, H)  # unrounded, for db_fc
+    g2 = g.reshape(R, W)
+    ln_sums = col_sum(part)
+    return (dx, ln_sums[:W], ln_sums[W:], gemm_f32(y, dhp, trans_a=True), col_sum(dh_pre),
+            gemm_f32(h, g2, trans_a=True), col_sum(g2))
 
 
 # --- S2: the A/B variants of the MLP half-block (scripts/mlp_kernel_ab.py) ---

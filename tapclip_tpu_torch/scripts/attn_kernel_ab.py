@@ -2,10 +2,10 @@
 
     python3 -m tapclip_tpu_torch.scripts.attn_kernel_ab [--batch B] [--model NAME] [--reps N]
 
-Counterpart of ``scripts/attn_kernel_ab.py``: K2 (``csrc/attn_block.cu``, the
-parent, "production") against that script's two kernels, run by
-``ops/fused_mha.py::attn_block_variant`` as configurations of K2's core
-(``csrc/attn_core.cuh``):
+Counterpart of ``scripts/attn_kernel_ab.py``: that script's two kernels, run
+by ``ops/fused_mha.py::attn_block_variant`` as configurations of K2's earlier
+FMA core (``csrc/attn_core.cuh``), against the parent, the variant launcher
+with no switch (``v0_default``'s configuration):
 
 * ``make_variant_kernel`` (form "variant"): without ``perhead_qkv`` q, k and v
   are all rounded to the compute dtype; ``perhead_qkv`` keeps q, k f32 and
@@ -18,11 +18,13 @@ parent, "production") against that script's two kernels, run by
   launch.
 
 ``group_heads`` counts heads per 128-lane step on the TPU (2 at head dim 64,
-its default) and heads per block in K2's core here (1 in K2), so the TPU's g
-becomes g * 64 / 128.  ``bB`` and ``vmem_mb`` have no counterpart: those
-variants are reported ``same_as`` the one they equal.  ``bb8_ph_smopt`` is
-K2's arithmetic with q, k, v in shared memory and must equal K2 bit for bit.
-Prints the card's name and power limit, then one JSON line per dtype.
+its default) and heads per block in the FMA core here (1 with no switch), so
+the TPU's g becomes g * 64 / 128.  ``bB`` and ``vmem_mb`` have no
+counterpart: those variants are reported ``same_as`` the one they equal.
+K2 (``csrc/attn_block.cu``, the same function on the tensor cores since it
+left the FMA core) is timed in the same turns as a column of its own
+(``columns["k2"]``).  Prints the card's name and power limit, then one JSON
+line per dtype.
 """
 
 from __future__ import annotations
@@ -62,16 +64,18 @@ def port_flags(runner: str, jax_kwargs: dict, n_heads: int) -> dict:
             "softmax_opt": jax_kwargs.get("softmax_opt", False)}
 
 
-# K2's own configuration: its arithmetic (q, k f32, the online softmax), one head a block.
-PARENT_FLAGS = {"form": "variant", "group_heads": 1, "ln_1pass": False, "perhead_qkv": True, "softmax_opt": True}
-
 
 def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: str = "cuda",
         seed: int = 0) -> dict:
     """The A/B table (see ``_bench_util.ab``) at one dtype."""
     import torch
 
-    from tapclip_tpu_torch.ops.fused_mha import attn_block_reference, attn_block_variant, attn_block_variant_reference
+    from tapclip_tpu_torch.ops.fused_mha import (
+        attn_block_reference,
+        attn_block_variant,
+        attn_block_variant_reference,
+        fused_attn_block,
+    )
     from tapclip_tpu_torch.scripts._bench_util import vit_shape
 
     _, valid, _, heads, _ = vit_shape(model)
@@ -83,11 +87,11 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         variants[name] = (lambda f=f: attn_block_variant(x, ln, attn, heads, valid, **f),
                           lambda f=f: attn_block_variant_reference(x, *p, heads, valid, **f),
                           tuple(sorted(f.items())))
-    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
-
-    return ab((lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
-               lambda: attn_block_reference(x, *p, heads, valid, 1e-5)), variants,
-              parent_key=tuple(sorted(PARENT_FLAGS.items())), work=attn_work(x, valid), reps=reps)
+    return ab((lambda: attn_block_variant(x, ln, attn, heads, valid),
+               lambda: attn_block_variant_reference(x, *p, heads, valid)), variants,
+              parent_key=tuple(sorted(port_flags("run_variant", {}, heads).items())), work=attn_work(x, valid),
+              reps=reps, columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
+                                         lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
 
 
 def main(argv=None) -> int:

@@ -3,10 +3,10 @@
     python3 -m tapclip_tpu_torch.scripts.attn_softmax_ab [--batch B] [--model NAME] [--reps N]
 
 Counterpart of ``scripts/attn_softmax_ab.py`` (whose default, ``vitl``, is
-``--model ViT-L-14`` here): K2 (``csrc/attn_block.cu``, the parent,
-"production") against the variants of that script, run by
+``--model ViT-L-14`` here): the variants of that script, run by
 ``ops/fused_mha.py::attn_block_variant(form="softmax")`` as configurations of
-K2's core (``csrc/attn_core.cuh``):
+K2's earlier FMA core (``csrc/attn_core.cuh``), against the parent, the
+flags-off online kernel (``base``'s configuration):
 
 * ``qk_cast``: q and k rounded to the compute dtype before the score product;
   ``fold_q``: q times scale * log2 e, the score not scaled again;
@@ -21,11 +21,12 @@ K2's core (``csrc/attn_core.cuh``):
   heads a block); ``swpipe`` and ``bB`` have no counterpart (reported
   ``same_as``).
 
-``base`` (no switch) is K2's arithmetic through the variant launcher and
-must equal K2 bit for bit.  In the JAX script ``sum_mxu`` reads the tail
-select whatever ``mask_mode`` (v6b_full raises there); here it takes the
-mask it is given.  Prints the card's name and power limit, then one JSON
-line per dtype.
+``base`` (no switch) is the parent's configuration and must equal it bit for
+bit.  K2 (``csrc/attn_block.cu``, the same function on the tensor cores) is
+timed in the same turns as a column of its own (``columns["k2"]``).  In the
+JAX script ``sum_mxu`` reads the tail select whatever ``mask_mode``
+(v6b_full raises there); here it takes the mask it is given.  Prints the
+card's name and power limit, then one JSON line per dtype.
 """
 
 from __future__ import annotations
@@ -92,9 +93,11 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         variants[name] = (lambda f=f: attn_block_variant(x, ln, attn, heads, valid, **f),
                           lambda f=f: attn_block_variant_reference(x, *p, heads, valid, **f),
                           tuple(sorted(f.items())))
-    return ab((lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
-               lambda: attn_block_reference(x, *p, heads, valid, 1e-5)), variants,
-              parent_key=tuple(sorted(port_flags({}, heads).items())), work=attn_work(x, valid), reps=reps)
+    return ab((lambda: attn_block_variant(x, ln, attn, heads, valid, form="softmax"),
+               lambda: attn_block_variant_reference(x, *p, heads, valid, form="softmax")), variants,
+              parent_key=tuple(sorted(port_flags({}, heads).items())), work=attn_work(x, valid), reps=reps,
+              columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
+                              lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
 
 
 def main(argv=None) -> int:

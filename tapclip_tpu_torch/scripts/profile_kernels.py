@@ -1,4 +1,4 @@
-"""Device time of each CUDA kernel behind K1 and S6, read from a profiler trace.
+"""Device time of each CUDA kernel behind K1, K2, B5 and S6, read from a profiler trace.
 
     python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N]
 
@@ -9,12 +9,18 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
 * K1 (``fused_mlp_block``) at ViT-B/16's image shape (8 x 200 rows, W 768),
   the 64-text batch (64 x 80, W 512) and the text shape (8 x 88, W 512), in
   float32 and bfloat16;
+* K2 (``fused_attn_block``) at the image shape (12 heads, valid 197) and
+  the text shape (8 x 88, W 512, 8 heads, valid 82), both dtypes;
+* B5 (``_fused_mlp_bwd_cuda``, dx alone and all seven gradients) at the
+  text shape (H 2,048) and the image shape (H 3,072), both dtypes;
 * S6 (``int8_gemm``) at the probe's shape (51,200 x 768 x 3,072) and at
   B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768).
 
-A wrapper call launches several kernels (K1: LayerNorm, fc, proj; S6: the
-transpose of B, the product); the trace splits the call's device time among
-them.  Prints the card's name and power limit, then one JSON line per case:
+A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
+LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
+LayerNorm backward, and with all gradients gemm.cu's products and column
+sums; S6: the transpose of B, the product); the trace splits the call's
+device time among them (launches of one kernel and template list summed).  Prints the card's name and power limit, then one JSON line per case:
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
@@ -29,6 +35,8 @@ import sys
 from pathlib import Path
 
 K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
+K2_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "text 8x88x512 h8 valid82": (8, 88, 512, 8, 82)}
+B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
 S6_SHAPES = {"probe": (51_200, 768, 3_072), "b13 fc": (1_600, 768, 3_072), "b13 proj": (1_600, 3_072, 768)}
 
 
@@ -76,7 +84,8 @@ def main() -> int:
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
 
     sys.path.append(str(Path(__file__).resolve().parent))
@@ -100,6 +109,22 @@ def main() -> int:
                 res = profile(lambda: fused_mlp_block(x, ln, mlp), args.iters)
                 print(json.dumps({"kernel": "K1", "case": label, "dtype": str(dtype).replace("torch.", ""), **res}),
                       flush=True)
+            for label, (B, T, W, nh, valid) in K2_SHAPES.items():
+                x = rn(B, T, W).to(dtype)
+                ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
+                attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
+                        "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)}
+                res = profile(lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid), args.iters)
+                print(json.dumps({"kernel": "K2", "case": label, "dtype": str(dtype).replace("torch.", ""), **res}),
+                      flush=True)
+            for label, (B, T, W) in B5_SHAPES.items():
+                x, g = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
+                prm = (1.0 + rn(W, s=0.1), rn(W, s=0.1), rn(W, 4 * W, s=W ** -0.5), rn(4 * W, s=0.1),
+                       rn(4 * W, W, s=(4 * W) ** -0.5))
+                for mode, want_w in (("dx", False), ("all", True)):
+                    res = profile(lambda: _fused_mlp_bwd_cuda(x, g, *prm, eps=1e-5, weight_grads=want_w), args.iters)
+                    print(json.dumps({"kernel": f"B5 {mode}", "case": label, "dtype": str(dtype).replace("torch.", ""),
+                                      **res}), flush=True)
         for label, (M, K, N) in S6_SHAPES.items():
             a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
             b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)

@@ -25,12 +25,22 @@ y . w_fc and h . w_proj (LayerNorm, bias, GELU and the residual in f32, y
 and h rounded to the dtype), against ``fused_mlp_reference``: the script
 prints one JSON line per shape of ``MLP_SHAPES``, the card tests' K1 shapes
 and the deep sums of W 768 / H 3,072 and W 1,024 / H 4,096.
+:func:`emulated_attn_block_errors` emulates K2 (``csrc/attn_block.cu``): its
+QKV product and out-projection (three terms an f32 operand, one in bf16),
+q . k^T on three-term q and k in both dtypes (they are f32 values), p . v
+with p and v in three terms in f32 and one in bf16 (p rounded, v a bf16
+value), against ``attn_block_reference`` at ``ATTN_SHAPES`` (the card
+tests' K2 shapes).  :func:`emulated_mlp_bwd_errors` emulates B5's dx
+(``csrc/mlp_bwd.cu``): the fc recompute, dh = g . w_proj^T and
+dy = dh_pre . w_fc^T on split operands, against ``fused_mlp_bwd_reference``
+at ``MLP_BWD_SHAPES`` (the card tests' B5 shapes).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 
 import numpy as np
 import torch
@@ -42,7 +52,8 @@ from tapclip_tpu_torch.ops.flash_attention import (
     attention_bwd_reference,
     attention_lse_reference,
 )
-from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_reference
+from tapclip_tpu_torch.ops.fused_mha import attn_block_reference
+from tapclip_tpu_torch.ops.fused_mlp import _ln_parts, fused_mlp_bwd_reference, fused_mlp_reference, ln_backward
 
 # (B, H, T, Dh, per-row valid), as FLASH_SHAPES of tests/port/test_torch_gpu.py.
 FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, [82, 82, 40]),
@@ -52,6 +63,11 @@ FLASH_SHAPES = [(2, 3, 1, 64, [1, 1]), (2, 2, 77, 64, [77, 60]), (3, 2, 88, 32, 
 # (test_fused_mlp_kernel, K1_EDGES), the image shape among them.
 MLP_SHAPES = [(1, 64), (21, 128), (400, 256), (21, 80), (37, 96), (9, 68), (1, 512), (21, 768), (1601, 768),
               (1600, 768), (264, 1024)]
+# (B, T, W, heads, valid) of K2, as K2_EDGES of tests/port/test_torch_gpu.py.
+ATTN_SHAPES = [(3, 13, 128, 8, 1), (2, 33, 128, 1, 33), (2, 65, 256, 8, 40), (2, 77, 512, 8, 77),
+               (8, 88, 512, 8, 82), (1, 129, 1024, 8, 100), (8, 200, 768, 12, 197), (1, 264, 1024, 16, 257)]
+# (rows, W) of B5 (H = 4 W), as B5_EDGES of tests/port/test_torch_gpu.py.
+MLP_BWD_SHAPES = [(21, 32), (37, 64), (90, 128), (300, 256), (704, 512), (1600, 768), (65, 1024)]
 F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
 ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
 
@@ -173,6 +189,91 @@ def emulated_mlp_errors(R, W, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) 
     return {"out_rel": _rel(got, want), "out_abs": float((got.float() - want.float()).abs().max())}
 
 
+def _heads(t, n_heads):  # [B, T, W] -> [B, H, T, Dh]
+    B, T, W = t.shape
+    return t.reshape(B, T, n_heads, W // n_heads).transpose(1, 2)
+
+
+def emulate_attn_block(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps=1e-5,
+                       f32_terms=F32_TERMS):
+    """K2 as the card computes it: LayerNorm in f32 rounded to x's dtype;
+    qkv = y . w_qkv + b_qkv on split operands (``f32_terms`` terms each in
+    f32, one in bf16), v rounded to the dtype, q and k f32; scores
+    q . k^T (``f32_terms`` terms of q and k in both dtypes) times
+    Dh^-1/2 log2 e, keys at or past ``valid`` at -1e30, exp2 against the row
+    max, l over the unrounded p; p . v (``f32_terms`` terms of p and v in
+    f32; one in bf16, where that term is p's rounding and v's exact value)
+    over l, rounded; the out-projection on split operands, + b_out + x in
+    f32, one rounding of the result."""
+    dt = x.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    B, T, W = x.shape
+    Dh = W // n_heads
+    y = _ln_parts(x, gamma, beta, eps)[2].float()
+    qkv = split_matmul(y, w_qkv.to(dt).float(), nt, nt) + b_qkv.float()
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    v = v.to(dt).float()
+    s = split_matmul(q, k.transpose(-1, -2), f32_terms, f32_terms) * (Dh ** -0.5 * _LOG2E)
+    s = torch.where(torch.arange(T) < valid, s, torch.full_like(s, -1e30))
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = split_matmul(e, v, nt, nt) / e.sum(dim=-1, keepdim=True)
+    attn = o.transpose(1, 2).reshape(B, T, W).to(dt).float()
+    out = split_matmul(attn, w_out.to(dt).float(), nt, nt) + b_out.float()
+    return (x.float() + out).to(dt)
+
+
+def attn_block_inputs(B, T, W, seed=0):
+    """x [B, T, W] and K2's parameters, f32 numpy normal draws from ``seed``
+    at the card tests' scales."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    return (f(B, T, W), 1.0 + f(W, scale=0.1), f(W, scale=0.1), f(W, 3 * W, scale=W ** -0.5),
+            f(3 * W, scale=0.1), f(W, W, scale=W ** -0.5), f(W, scale=0.1))
+
+
+def emulated_attn_block_errors(B, T, W, n_heads, valid, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) -> dict:
+    """K2's emulated output against ``attn_block_reference`` on the same
+    inputs (x in ``dtype``): ``out_rel`` (norm-relative) and ``out_abs``."""
+    x, *params = attn_block_inputs(B, T, W, seed)
+    x = x.to(dtype)
+    got = emulate_attn_block(x, *params, n_heads, valid, f32_terms=f32_terms)
+    want = attn_block_reference(x, *params, n_heads, valid, 1e-5)
+    return {"out_rel": _rel(got, want), "out_abs": float((got.float() - want.float()).abs().max())}
+
+
+def emulate_mlp_bwd(x, g, gamma, beta, w_fc, b_fc, w_proj, eps=1e-5, f32_terms=F32_TERMS):
+    """B5's dx as the card computes it: LayerNorm in f32, y rounded; the fc
+    recompute z = y . w_fc + b_fc, dh = g . w_proj^T and dy = dh_pre . w_fc^T
+    on split operands (``f32_terms`` terms each in f32, one in bf16);
+    dh_pre = dh (Phi(z) + z phi(z)) rounded to the dtype; dx = g + the
+    LayerNorm backward of dy, rounded."""
+    dt = x.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    W = x.shape[-1]
+    n, rstd, y = _ln_parts(x.reshape(-1, W), gamma, beta, eps)
+    z = split_matmul(y.float(), w_fc.to(dt).float(), nt, nt) + b_fc.float()
+    dgelu = 0.5 * (1.0 + torch.erf(z * 2.0 ** -0.5)) + z * torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    gc = g.reshape(-1, W).float()
+    dhc = (split_matmul(gc, w_proj.to(dt).float().T, nt, nt) * dgelu).to(dt).float()
+    dy = split_matmul(dhc, w_fc.to(dt).float().T, nt, nt)
+    return (gc + ln_backward(dy, n, rstd, gamma)[0]).to(dt).reshape(x.shape)
+
+
+def emulated_mlp_bwd_errors(R, W, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) -> dict:
+    """B5's emulated dx against ``fused_mlp_bwd_reference``'s on the same
+    inputs (x and the cotangent, both numpy normal draws, in ``dtype``):
+    ``dx_rel`` (norm-relative) and ``dx_abs``."""
+    x, gamma, beta, w_fc, b_fc, w_proj, _ = mlp_inputs(R, W, seed)
+    g = mlp_inputs(R, W, seed + 1)[0]
+    x, g = x.to(dtype), g.to(dtype)
+    got = emulate_mlp_bwd(x, g, gamma, beta, w_fc, b_fc, w_proj, f32_terms=f32_terms)
+    want = fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj)[0]
+    return {"dx_rel": _rel(got, want), "dx_abs": float((got.float() - want.float()).abs().max())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")
@@ -186,6 +287,14 @@ def main() -> int:
         for R, W in MLP_SHAPES:
             errs = emulated_mlp_errors(R, W, dtype, args.terms)
             print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "K1",
+                              "rows": R, "W": W, "H": 4 * W, **errs}))
+        for B, T, W, heads, valid in ATTN_SHAPES:
+            errs = emulated_attn_block_errors(B, T, W, heads, valid, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "K2",
+                              "shape": [B, T, W], "heads": heads, "valid": valid, **errs}))
+        for R, W in MLP_BWD_SHAPES:
+            errs = emulated_mlp_bwd_errors(R, W, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B5",
                               "rows": R, "W": W, "H": 4 * W, **errs}))
     return 0
 

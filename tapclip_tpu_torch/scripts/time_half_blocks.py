@@ -1,4 +1,4 @@
-"""Time the forward half-block kernels K1 and K2 of one checkout of the port.
+"""Time the half-block kernels K1, K2 and B5 of one checkout of the port.
 
     python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N]
 
@@ -7,15 +7,23 @@ holding this file), builds its kernels, and prints one JSON line: the card's
 name and power limit, then CUDA-event ms (mean of 20 calls after 3 warm-up
 calls, ``--runs`` readings each), float32 and bfloat16, of
 
-* ``fused_mlp_block`` and ``fused_attn_block``, the wrappers the model calls;
+* ``fused_mlp_block`` and ``fused_attn_block``, the wrappers the model calls,
+  and B5's wrapper (``_fused_mlp_bwd_cuda``) for dx alone and for all seven
+  gradients;
 * their launches alone through the C interface, on buffers allocated once:
-  K1 (``tapclip_fused_mlp``), K2's core (``tapclip_attn_block_core``) and its
-  out-projection (``tapclip_gemm_bias_residual``).
+  K1 (``tapclip_fused_mlp``); K2 (``tapclip_attn_block``, or in a checkout
+  from before its tensor-core design its core ``tapclip_attn_block_core``
+  and its out-projection ``tapclip_gemm_bias_residual``, each alone and
+  together); B5 for dx alone (``tapclip_mlp_bwd``, or before
+  ``tapclip_mlp_bwd_rows``), at the split of dy's depth it chooses and, where
+  it takes a ``split``, at each of 1, 2 and 4.
 
-K2 runs at ViT-B/16's image shape (8 x 200 rows, W 768, 12 heads, valid
-197); K1 there and at the text tower's shapes (a 64-text batch, 64 x 80 rows,
-and 8 x 88 rows, W 512).  K1's C signature is read from the checkout's own
-``_build._SIGNATURES``: where it takes a scratch pointer (h and y, R (H + W)
+K1 at ViT-B/16's image shape (8 x 200 rows, W 768) and the text tower's
+shapes (a 64-text batch, 64 x 80 rows, and 8 x 88 rows, W 512); K2 at the
+image shape (12 heads, valid 197) and the text shape (8 x 88, W 512, 8
+heads, valid 82); B5 at the text shape (H 2,048) and the image shape (H
+3,072).  Each launcher's C signature is read from the checkout's own
+``_build._SIGNATURES``: where K1 takes a scratch pointer (h and y, R (H + W)
 elements of the dtype) the scratch is allocated once beside the buffers.
 
 To compare two commits on one card, unpack both and run this file against
@@ -29,8 +37,10 @@ import json
 import sys
 from pathlib import Path
 
-K2_SHAPE = (8, 200, 768, 12, 197)  # B, T, W, heads, valid: ViT-B/16 at batch 8
+K2_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "text 8x88x512 h8 valid82": (8, 88, 512, 8, 82)}
 K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
+B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
+B5_SPLITS = (1, 2, 4)  # the splits of dy's depth that tapclip_mlp_bwd takes, each timed where it takes one
 K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
 
 
@@ -48,7 +58,7 @@ def main() -> int:
         return 1
     from tapclip_tpu_torch.ops import _build
     from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
-    from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
 
     # This file's own helpers, whichever checkout the package comes from.
     sys.path.append(str(Path(__file__).resolve().parent))
@@ -56,7 +66,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = _build.library()
-    k1_scratch = len(_build._SIGNATURES["tapclip_fused_mlp"]) > K1_ARGS
+    sig = _build._SIGNATURES
+    k1_scratch = len(sig["tapclip_fused_mlp"]) > K1_ARGS
+    stream = _build.stream_handle(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rn(*shape, s=1.0):
@@ -88,31 +100,63 @@ def main() -> int:
             calls[f"K1 wrapper {label}"] = lambda x=x, ln=ln, mlp=mlp: fused_mlp_block(x, ln, mlp)
             calls[f"K1 launch {label}"] = lambda a=k1_args, keep=(x, out, wd, ws): lib.tapclip_fused_mlp(*a)
 
-        B, T, W, nh, valid = K2_SHAPE
-        x, ln = rn(B, T, W).to(dtype), ln_params(W)
-        attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
-                "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)}
-        wd = {k: v.to(dtype) for k, v in attn.items() if k.startswith("w_")}
-        out, a_buf = torch.empty_like(x), torch.empty_like(x)
-        ws = torch.empty((B, nh, 3, T, W // nh), device="cuda")
-        stream = _build.stream_handle(x.device)
+        for label, (B, T, W, nh, valid) in K2_SHAPES.items():
+            x, ln = rn(B, T, W).to(dtype), ln_params(W)
+            attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
+                    "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)}
+            wd = {k: v.to(dtype) for k, v in attn.items() if k.startswith("w_")}
+            out, a_buf = torch.empty_like(x), torch.empty_like(x)
+            ws = torch.empty((B * T * 3 * W,), device="cuda")
+            p = (x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), wd["w_qkv"].data_ptr(),
+                 attn["b_qkv"].data_ptr())
+            keep = (x, out, a_buf, ws, wd, ln, attn)
+            calls[f"K2 wrapper {label}"] = lambda x=x, ln=ln, attn=attn, nh=nh, v=valid: fused_attn_block(
+                x, ln, attn, nh, valid_len=v)
+            if "tapclip_attn_block" in sig:
+                a = (*p, wd["w_out"].data_ptr(), attn["b_out"].data_ptr(), out.data_ptr(), ws.data_ptr(),
+                     a_buf.data_ptr(), B, T, W, nh, valid, 1e-5, code, stream)
+                calls[f"K2 launches {label}"] = lambda a=a, keep=keep: lib.tapclip_attn_block(*a)
+            else:
+                core = (*p, ws.data_ptr(), a_buf.data_ptr(), B, T, W, nh, valid, 1e-5, code, stream)
+                proj = (a_buf.data_ptr(), wd["w_out"].data_ptr(), attn["b_out"].data_ptr(), x.data_ptr(),
+                        out.data_ptr(), B * T, W, W, code, stream)
 
-        def k2_core():
-            lib.tapclip_attn_block_core(x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(),
-                                        wd["w_qkv"].data_ptr(), attn["b_qkv"].data_ptr(), ws.data_ptr(),
-                                        a_buf.data_ptr(), B, T, W, nh, valid, 1e-5, code, stream)
+                def both(core=core, proj=proj, keep=keep):
+                    lib.tapclip_attn_block_core(*core)
+                    lib.tapclip_gemm_bias_residual(*proj)
 
-        def k2_gemm():
-            lib.tapclip_gemm_bias_residual(a_buf.data_ptr(), wd["w_out"].data_ptr(), attn["b_out"].data_ptr(),
-                                           x.data_ptr(), out.data_ptr(), B * T, W, W, code, stream)
+                calls[f"K2 launches {label}"] = both
+                calls[f"K2 core launch {label}"] = lambda a=core, keep=keep: lib.tapclip_attn_block_core(*a)
+                calls[f"K2 out-projection launch {label}"] = lambda a=proj, keep=keep: lib.tapclip_gemm_bias_residual(*a)
 
-        calls.update({"K2 wrapper": lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid),
-                      "K2 core launch": k2_core, "K2 out-projection launch": k2_gemm})
+        for label, (B, T, W) in B5_SHAPES.items():
+            x, g, ln, mlp = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype), ln_params(W), mlp_params(W)
+            prm = (ln["scale"], ln["bias"], mlp["w_fc"], mlp["b_fc"], mlp["w_proj"])
+            R, H = B * T, 4 * W
+            wd = {k: mlp[k].to(dtype) for k in ("w_fc", "w_proj")}
+            dx = torch.empty_like(x)
+            head = (x.data_ptr(), g.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), wd["w_fc"].data_ptr(),
+                    mlp["b_fc"].data_ptr(), wd["w_proj"].data_ptr(), dx.data_ptr())
+            if "tapclip_mlp_bwd" in sig:
+                auto = lib.tapclip_mlp_bwd_split(R, W, H, code)
+                for i, S in enumerate((auto, *B5_SPLITS)):
+                    ws = torch.empty(R * H + S * R * W + 2 * R, device="cuda")
+                    wsd = torch.empty(R * (H + W), dtype=dtype, device="cuda")
+                    a = (*head, ws.data_ptr(), wsd.data_ptr(), None, None, R, W, H, 1e-5, S, 0, code, stream)
+                    keep = (x, g, dx, ws, wsd, wd, ln, mlp)
+                    name = f"B5 dx launches split {S} {label}" if i else f"B5 dx launches {label}"
+                    calls[name] = lambda a=a, keep=keep: lib.tapclip_mlp_bwd(*a)
+            else:
+                a = (*head, None, None, None, None, R, W, H, 1e-5, 0, code, stream)
+                keep = (x, g, dx, wd, ln, mlp)
+                calls[f"B5 dx launches {label}"] = lambda a=a, keep=keep: lib.tapclip_mlp_bwd_rows(*a)
+            calls[f"B5 dx wrapper {label}"] = lambda x=x, g=g, prm=prm: _fused_mlp_bwd_cuda(
+                x, g, *prm, eps=1e-5, weight_grads=False)
+            calls[f"B5 all wrapper {label}"] = lambda x=x, g=g, prm=prm: _fused_mlp_bwd_cuda(x, g, *prm, eps=1e-5)
         with torch.inference_mode():
             for name, fn in calls.items():
                 readings[f"{name} {dname}"] = [time_ms(fn, 20, 3) for _ in range(args.runs)]
-    print(json.dumps({"root": args.root, "card": card_line(), "k1_scratch": k1_scratch,
-                      "k2_shape": "8x200x768 h12 valid197", "ms": readings}))
+    print(json.dumps({"root": args.root, "card": card_line(), "k1_scratch": k1_scratch, "ms": readings}))
     return 0
 
 

@@ -35,7 +35,17 @@ sums of W 768 / H 3,072 and W 1,024 / H 4,096 (where an accumulation bias
 would show), both elementwise and by the norm-relative error, and bit for
 bit against a second call; S6 at depths that are not multiples of 16 or 32,
 M and N off its tiles, rows of A that are not 16-byte aligned, and K 4,096.
+K2 and B5 run their products on the tensor cores too (K1's GEMM,
+``csrc/gemm_mma.cuh``; K2's attention on K3's tile walk) and are held at
+their tile edges: K2 at T not a multiple of 16 or 64, valid = 1, valid < T
+and valid = T, every head dim, W 128 to 1,024; B5 at row counts off its
+tiles, W 32 to 1,024, each split of dy's depth the wrapper can take, dx
+alone and all gradients; each bit for bit against a second call.  K1's
+output is held bit for bit against digests of its output taken before its
+GEMM moved into the shared header.
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -152,6 +162,42 @@ def test_fused_mlp_kernel_tile_edges(cuda, dtype, tol, B, T, W):
     torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
 
 
+# sha256 (first 16 hex digits) of K1's output bytes on numpy-seeded inputs
+# (``_k1_digest``), read on an NVIDIA H100 80GB HBM3 (CUDA 12.8) from K1 as
+# it was before its GEMM moved into csrc/gemm_mma.cuh, which K2 and B5 share:
+# the move must not change a bit of K1.  f32 and bf16 at the image shape, a
+# ragged one, W 68 (the 8-byte copies in bf16) and the text shape (32-row
+# tiles).
+K1_BITS = {
+    (torch.float32, 8, 200, 768): "65fe4e667d9e7e6c", (torch.float32, 3, 7, 128): "43b3a206802b6a4a",
+    (torch.float32, 1, 9, 68): "bc15738254957f0a", (torch.float32, 8, 88, 512): "6ffbde6917f2cc3f",
+    (torch.bfloat16, 8, 200, 768): "dbe55a5c9a347c96", (torch.bfloat16, 3, 7, 128): "e231a0354301bcb0",
+    (torch.bfloat16, 1, 9, 68): "6640117c6cae8103", (torch.bfloat16, 8, 88, 512): "959ec63b386a7fdb",
+}
+
+
+def _k1_digest(dtype, B, T, W):
+    rng = np.random.default_rng(B * T + W)
+    H = 4 * W
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)).cuda()
+
+    x = f(B, T, W).to(dtype)
+    ln = {"scale": 1.0 + f(W, scale=0.1), "bias": f(W, scale=0.1)}
+    mlp = {"w_fc": f(W, H, scale=W ** -0.5), "b_fc": f(H, scale=0.1), "w_proj": f(H, W, scale=H ** -0.5),
+           "b_proj": f(W, scale=0.1)}
+    with torch.inference_mode():
+        out = fused_mlp_block(x, ln, mlp)
+    return hashlib.sha256(out.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(K1_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}" for k in K1_BITS])
+def test_fused_mlp_kernel_bits_unchanged_by_the_shared_gemm(cuda, key):
+    assert _k1_digest(*key) == K1_BITS[key]
+
+
 @pytest.mark.gpu
 def test_fused_mlp_kernel_refuses_unaligned_operands(cuda):
     W = 64
@@ -186,6 +232,52 @@ def test_fused_attn_block_kernel(cuda, dtype, tol, B, T, W, heads, valid):
         got = fused_attn_block(x, ln, attn, heads, valid_len=valid)
         want = attn_block_reference(x, ln["scale"], ln["bias"], *attn.values(), heads, valid, 1e-5)
     _close(got, want, tol)
+
+
+# K2's tile edges (B, T, W, heads, valid): T not a multiple of 16 or 64,
+# valid < T, valid = T and valid = 1, every head dim (16, 32, 64, 128), W 128
+# to 1,024, and the query-tile heights 16, 32 and 64 (T up to 32, up to 128,
+# past).
+K2_EDGES = [(3, 13, 128, 8, 1), (2, 33, 128, 1, 33), (2, 65, 256, 8, 40), (2, 77, 512, 8, 77),
+            (8, 88, 512, 8, 82), (1, 129, 1024, 8, 100), (8, 200, 768, 12, 197), (1, 264, 1024, 16, 257)]
+K2_EDGE_IDS = ["T13-dh16-valid1", "T33-dh128-full", "T65-dh32", "T77-full", "text", "T129-dh128-w1024", "image",
+               "vit-l"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", K2_EDGES, ids=K2_EDGE_IDS)
+def test_fused_attn_block_kernel_tile_edges(cuda, dtype, tol, B, T, W, heads, valid):
+    """K2 on the tensor cores against its plain version at its tile edges,
+    elementwise and norm-relative, padded query rows finite, and bit for bit
+    against a second call (no atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(T + W + heads)
+    x = _randn(gen, B, T, W).to(dtype)
+    ln = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    attn = {"w_qkv": _randn(gen, W, 3 * W, scale=W ** -0.5), "b_qkv": _randn(gen, 3 * W, scale=0.1),
+            "w_out": _randn(gen, W, W, scale=W ** -0.5), "b_out": _randn(gen, W, scale=0.1)}
+    with torch.inference_mode():
+        n = fused_attn_block.launches
+        got = fused_attn_block(x, ln, attn, heads, valid_len=valid)
+        again = fused_attn_block(x, ln, attn, heads, valid_len=valid)
+        assert fused_attn_block.launches == n + 2
+        want = attn_block_reference(x, ln["scale"], ln["bias"], *attn.values(), heads, valid, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    _close(got, want, tol)
+    _close_rel("out", got, want, tol)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_fused_attn_block_kernel_refuses_unaligned_operands(cuda):
+    W = 64
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ln = {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    attn = {"w_qkv": _randn(gen, W, 3 * W, scale=0.1), "b_qkv": _randn(gen, 3 * W),
+            "w_out": _randn(gen, W, W, scale=0.1), "b_out": _randn(gen, W)}
+    x = _randn(gen, 3 * W + 1)[1:].view(1, 3, W)  # contiguous, 4 bytes past a 16-byte boundary
+    with torch.inference_mode(), pytest.raises(ValueError, match="aligned"):
+        fused_attn_block(x, ln, attn, 2)
 
 
 @pytest.mark.gpu
@@ -265,6 +357,53 @@ def test_fused_mlp_bwd_kernel(cuda, dtype, tol, B, T, W):
         _close_rel(name, a, b, tol)
         torch.testing.assert_close(c, a, rtol=0, atol=0)  # deterministic: no atomics
     _close_rel("dx without weight grads", dx_only[0], want[0], tol)
+
+
+# B5's tile edges (B, T, W), H = 4 W: row counts off the 32- and 64-row
+# tiles, W 32 to 1,024, the text shape (where the wrapper splits dy's depth
+# four ways) and the image shape (no split).
+B5_EDGES = [(1, 21, 32), (1, 37, 64), (2, 45, 128), (1, 300, 256), (8, 88, 512), (8, 200, 768), (1, 65, 1024)]
+B5_EDGE_IDS = ["w32", "w64", "w128", "w256-r300", "text", "image", "w1024"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W", B5_EDGES, ids=B5_EDGE_IDS)
+@pytest.mark.parametrize("split", [None, 1, 2, 4], ids=["split-auto", "split1", "split2", "split4"])
+def test_fused_mlp_bwd_kernel_tile_edges(cuda, dtype, tol, B, T, W, split):
+    """B5 on the tensor cores at its tile edges, with each split of dy's depth
+    the wrapper can take: all seven outputs and dx alone against the plain
+    backward (norm-relative), each bit for bit against a second call."""
+    gen = torch.Generator(device=cuda).manual_seed(B * T + W + 2)
+    H = 4 * W
+    x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W).to(dtype)
+    p = (1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, H, scale=W ** -0.5),
+         _randn(gen, H, scale=0.1), _randn(gen, H, W, scale=H ** -0.5))
+    got = _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5, split=split)
+    again = _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5, split=split)
+    dx_only = _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5, weight_grads=False, split=split)
+    dx_again = _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5, weight_grads=False, split=split)[0]
+    want = fused_mlp_bwd_reference(x, g, *p, 1e-5)
+    for name, a, b, c in zip(NAMES, got, want, again):
+        _close_rel(name, a, b, tol)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)
+    _close_rel("dx without weight grads", dx_only[0], want[0], tol)
+    torch.testing.assert_close(dx_again, dx_only[0], rtol=0, atol=0)
+    torch.testing.assert_close(dx_only[0], got[0], rtol=0, atol=0)  # the weight gradients' scratch changes no dx
+
+
+@pytest.mark.gpu
+def test_fused_mlp_bwd_kernel_refuses_unaligned_operands_and_splits(cuda):
+    W = 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = _randn(gen, 1, 3, W)
+    p = (1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, 4 * W),
+         _randn(gen, 4 * W), _randn(gen, 4 * W, W))
+    g = _randn(gen, 3 * W + 1)[1:].view(1, 3, W)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="aligned"):
+        _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5)
+    with pytest.raises(ValueError, match="split"):
+        _fused_mlp_bwd_cuda(x, x, *p, eps=1e-5, split=3)
 
 
 @pytest.mark.gpu
@@ -875,7 +1014,9 @@ def _attn_variant_cases():
     return [pytest.param(f, id=f"s3-{n}") for n, f in s3.items()] + [pytest.param(f, id=f"s4-{n}") for n, f in s4.items()]
 
 
-# Variants with K2's arithmetic: their launchers equal K2's bit for bit.
+# Variants with the arithmetic of the FMA core's flags-off online kernel (K2's
+# until it moved to the tensor cores): their launchers equal that kernel bit
+# for bit.
 K2_EQUAL = [dict(form="softmax"), dict(form="softmax", mask_mode="tail"), dict(form="softmax", group_heads=2),
             dict(form="variant", perhead_qkv=True, softmax_opt=True)]
 
@@ -897,12 +1038,12 @@ def test_attn_variant_kernels(cuda, dtype, tol, B, T, W, heads, valid, flags):
         assert attn_block_variant.launches == n + 1
         want = attn_block_variant_reference(x, *ln.values(), *attn.values(), heads, valid, **flags)
         again = attn_block_variant(x, ln, attn, heads, valid, **flags)
-        k2 = fused_attn_block(x, ln, attn, heads, valid_len=valid)
+        online = attn_block_variant(x, ln, attn, heads, valid, form="softmax")  # S4's flags-off kernel
     _close(got, want, tol)
     torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
     if any(flags == dict(attn_softmax_ab.port_flags({}, heads), **k) or
            flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k) for k in K2_EQUAL):
-        torch.testing.assert_close(got, k2, rtol=0, atol=0)
+        torch.testing.assert_close(got, online, rtol=0, atol=0)
 
 
 @pytest.mark.gpu

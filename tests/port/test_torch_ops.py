@@ -20,14 +20,24 @@ import torch
 
 from tapclip_tpu.ops.flash_attention import fused_attention as jax_fused_attention
 from tapclip_tpu.ops.fused_mha import fused_attn_block as jax_fused_attn_block
-from tapclip_tpu.ops.fused_mlp import _fused_mlp_vjp, _xla_composition
+from tapclip_tpu.ops.fused_mlp import _fused_mlp_bwd_impl, _fused_mlp_vjp, _xla_composition
 
 from tapclip_tpu_torch.ops import _build
 from tapclip_tpu_torch.ops.attention import attention_reference, multi_head_attention
 from tapclip_tpu_torch.ops.flash_attention import fused_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_reference
-from tapclip_tpu_torch.scripts.split_error import MLP_SHAPES, emulate_mlp, emulated_mlp_errors
+from tapclip_tpu_torch.scripts.split_error import (
+    ATTN_SHAPES,
+    MLP_BWD_SHAPES,
+    MLP_SHAPES,
+    emulate_attn_block,
+    emulate_mlp,
+    emulate_mlp_bwd,
+    emulated_attn_block_errors,
+    emulated_mlp_bwd_errors,
+    emulated_mlp_errors,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, T, W, HEADS, HID, VALID = 2, 16, 128, 2, 512, 13
@@ -135,6 +145,60 @@ def test_fused_attn_block_matches_pallas_interpret(weights, valid):
     want = jax_fused_attn_block(j["x"], j["ln"], j["attn"], HEADS, valid_len=valid, interpret=True)
     t = _torch_tree(weights)
     got = fused_attn_block(t["x"], t["ln"], t["attn"], HEADS, valid_len=valid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# K2 on the card runs its QKV product, q . k^T, p . v and its out-projection
+# on bf16 tensor-core MMAs (csrc/attn_block.cu): f32 operands split into
+# three bf16 terms, q and k split in both dtypes, p and v one term in bf16.
+# Its emulation (scripts/split_error.py) against the plain version,
+# norm-relative, at the card's forward limits F32_TOL / BF16_TOL; readings:
+# at most 2.2e-7 in f32, 2.5e-3 in bf16 (where the plain version rounds q
+# and k to bf16 and the kernel, as the TPU kernel, does not).
+K2_SPLIT_LIMITS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,W,heads,valid", ATTN_SHAPES, ids=[f"t{s[1]}-w{s[2]}-h{s[3]}" for s in ATTN_SHAPES])
+def test_fused_attn_block_split_products_meet_the_card_limits(B, T, W, heads, valid, dtype):
+    errs = emulated_attn_block_errors(B, T, W, heads, valid, dtype)
+    assert errs["out_rel"] <= K2_SPLIT_LIMITS[dtype], errs
+
+
+@pytest.mark.parametrize("valid", [VALID, T])
+def test_fused_attn_block_split_products_match_pallas_interpret(weights, valid):
+    """The same emulation against the JAX kernel in interpret mode (as the
+    plain version is held above)."""
+    j = _jax_tree(weights)
+    want = jax_fused_attn_block(j["x"], j["ln"], j["attn"], HEADS, valid_len=valid, interpret=True)
+    t = _torch_tree(weights)
+    got = emulate_attn_block(t["x"], t["ln"]["scale"], t["ln"]["bias"], *t["attn"].values(), HEADS, valid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# B5 on the card runs dx's three products (the fc recompute, dh, dy) the same
+# way (csrc/mlp_bwd.cu).  Its emulated dx against the plain backward,
+# norm-relative, at the card's backward limits (chip_smoke.py's BWD_F32_TOL /
+# BWD_BF16_TOL); readings: at most 3.5e-7 in f32; 0 in bf16, where the
+# operands are exact and only the order of the sums differs on the card.
+B5_SPLIT_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("R,W", MLP_BWD_SHAPES, ids=[f"r{r}-w{w}" for r, w in MLP_BWD_SHAPES])
+def test_fused_mlp_bwd_split_products_meet_the_card_limits(R, W, dtype):
+    errs = emulated_mlp_bwd_errors(R, W, dtype)
+    assert errs["dx_rel"] <= B5_SPLIT_LIMITS[dtype], errs
+
+
+def test_fused_mlp_bwd_split_products_match_pallas_interpret(weights):
+    """B5's emulated dx against the JAX backward kernel in interpret mode
+    (row tile 8 over the 32 rows: four grid steps)."""
+    m = weights["mlp"]
+    g = np.random.default_rng(1).standard_normal(weights["x"].shape).astype(np.float32)
+    args = (weights["ln"]["scale"], weights["ln"]["bias"], m["w_fc"], m["b_fc"], m["w_proj"], m["b_proj"])
+    want = _fused_mlp_bwd_impl(jnp.asarray(weights["x"]), *map(jnp.asarray, args), jnp.asarray(g), 1e-5, 8, True)[0]
+    got = emulate_mlp_bwd(_t(weights["x"]), _t(g), *(_t(a) for a in args[:5]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
