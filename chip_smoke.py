@@ -32,11 +32,13 @@ Run from the repository root:  python3 chip_smoke.py
    also carry their launches alone through the C interface (``launch_ms``)
    and the MMA bound (``mma_bound_ms``, as K3's in 12), and the kernels line
    lists their every timed case.  B5 (five launches on the tensor cores)
-   carries the bounds of dx alone beside those of all seven outputs
-   (``bound_dx_only_ms``, ``mma_bound_dx_only_ms``) and its launches alone
-   for dx (``launch_ms_dx_only``).  The ptxas report of the tensor-core
-   half-block kernels (K1, K2, B5) is printed kernel by kernel: registers,
-   spill bytes.
+   and B4 (seven: LayerNorm, the QKV and gh products, the attention core's
+   row and column kernels, dy, the LayerNorm backward) carry the bounds of
+   dx alone beside those of all seven outputs (``bound_dx_only_ms``,
+   ``mma_bound_dx_only_ms``) and their launches alone for dx
+   (``launch_ms_dx_only``).  The ptxas report of the tensor-core half-block
+   kernels (K1, K2, B5), B4's and B13's is printed kernel by kernel:
+   registers, spill bytes.
 5. Serves ViT-B/16 at full width with random weights from a fixed seed
    through ``tapclip_tpu_torch.serve``'s HTTP server on localhost: adds a
    class, sends 16 concurrent /predict requests (uint8 pixels, batches of
@@ -91,16 +93,22 @@ Run from the repository root:  python3 chip_smoke.py
     bf16, 3 cached-feature steps at batch 32, against ``"xla"`` on the card:
     per step 24 K3 launches (causal in idiomatic mode), 12 each of LSE,
     dK/dV and dQ, and none of K1, K2, B4, B5, B6, B7.
-15. The int8 kernels B13 (MLP) and B14 (attention) against their plain
+15. B7_BITS: B7's output, bit for bit, against digests taken before B4
+    left the [T, T]-tile core they shared (six shapes, f32 and bf16).  The
+    int8 kernels B13 (MLP) and B14 (attention) against their plain
     versions with the same random draws, f32 and bf16, stochastic and round
     to nearest, at ViT-B/16 (8 x 200, W 768; B14 also at the pruned 8 x 96)
     and ViT-L/14 (8 x 264, W 1024, H 4096, 16 heads), by the norm-relative
     error of the block's update (INT8_TOL), with CUDA-event times of the
-    kernel, the plain version and the wrapper; the 64-seed mean of each
-    stochastic block at least INT8_MEAN_GAIN times closer than one draw to
-    the weight-only-quantized float block.
-16. S5 (B13's erf3 / recipmul variants) against the base kernel
-    (INT8_VARIANT_TOL) and their plain versions, timed in turns; S6 (the
+    kernel, the plain version and the wrapper (B13 also its four launches
+    alone on weights laid out once); the 64-seed mean of each stochastic
+    block at least INT8_MEAN_GAIN times closer than one draw to the
+    weight-only-quantized float block.  B13_BITS: B13 on the int8 tensor
+    cores against the walk it replaced (S5's flags-off kernel), bit for bit,
+    both modes and dtypes, at the image and pruned (8 x 96) shapes.
+16. S5 (the walk's erf3 / recipmul variants) against the walk as built
+    (INT8_VARIANT_TOL) and their plain versions, timed in turns with B13
+    beside them (equal to the walk bit for bit); S6 (the
     int8 product) exactly against its float64 plain version at the probe's
     shape (51,200 x 768 x 3,072) and at B13's two products, timed beside
     gemm.cu in bf16, ``torch._int_mm`` and ``torch.matmul`` in bf16.
@@ -274,6 +282,31 @@ FEATURE_COS = 0.98
 # exactly).  Reading on the same card: at least 0.979 (2 of 96).
 INT8_KEEP_AGREE = 0.95
 
+# B7 (the packed-QKV core's backward) must not move a bit now that B4 has
+# left the [T, T]-tile core they shared: sha256 (first 16 hex digits) of
+# B7's dqkv on numpy-seeded inputs (``b7_digest``), read on an NVIDIA H100
+# 80GB HBM3 (CUDA 12.8) from B7 as it was before B4's tensor-core design.
+B7_BITS_CASES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
+                 "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True),
+                 "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197, False),
+                 "dh32 3x33x128 h4 valid30 causal": (3, 33, 128, 4, 30, True),
+                 "dh128 2x65x256 h2 valid60": (2, 65, 256, 2, 60, False),
+                 "dh16 1x40x64 h4": (1, 40, 64, 4, 40, False)}
+B7_BITS = {
+    ("float32", "idiomatic 8x77x512 h8 causal"): "129b372b44d225c9",
+    ("float32", "text 64x80x512 h8 valid77 causal"): "53834c08d11674dc",
+    ("float32", "image 8x200x768 h12 valid197"): "9f93de63cd7a5c68",
+    ("float32", "dh32 3x33x128 h4 valid30 causal"): "64cc89cb2df31824",
+    ("float32", "dh128 2x65x256 h2 valid60"): "37d617bdab94ffa2",
+    ("float32", "dh16 1x40x64 h4"): "2d26e8479eb2b28c",
+    ("bfloat16", "idiomatic 8x77x512 h8 causal"): "601ce7bc0becd207",
+    ("bfloat16", "text 64x80x512 h8 valid77 causal"): "c32723762fc62bcd",
+    ("bfloat16", "image 8x200x768 h12 valid197"): "9f237bc23d6c41a3",
+    ("bfloat16", "dh32 3x33x128 h4 valid30 causal"): "5b6465e47be84365",
+    ("bfloat16", "dh128 2x65x256 h2 valid60"): "684b900e10008e91",
+    ("bfloat16", "dh16 1x40x64 h4"): "c8f9d1cec980e381",
+}
+
 CLASSES = ["Backpack", "Pen", "Monitor"]
 
 KERNELS = {
@@ -334,13 +367,14 @@ TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 # K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
 K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
-# The kernels on the tensor cores: K3, the chain, K1, K2 and B5.
-MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd")
+# The kernels on the tensor cores: K3, the chain, K1, K2, B5 and B4.
+MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd", "fused_attn_block_bwd")
 CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "launch_ms_dx_only", "plain_ms",
              "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "mma_bound_ms", "mma_bound_dx_only_ms",
              "max_abs_err", "max_rel_err")
-# The sources whose kernels' ptxas report (registers, spills) is printed one by one.
-PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu")
+# The sources whose kernels' ptxas report (registers, spills) is printed one by one:
+# the half-blocks' and B4's on the tensor cores, and B13's (with S5's walk).
+PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "int8_mlp.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -499,6 +533,21 @@ def k2_mma_flops(B: int, T: int, W: int, pairs: int, dtype: str) -> float:
     return 6 * (proj + 2 * half) if dtype == "float32" else proj + 6 * half + half
 
 
+def b4_mma_flops(B: int, T: int, W: int, pairs: int, dtype: str, dx_only: bool) -> float:
+    """Operations of the bf16 MMAs of B4's function on the tensor cores: its
+    products (dx alone the three dx products, 2 R W 3W + 2 R W^2 + 2 R 3W W;
+    with every gradient also dW_qkv and dW_out, 8 R W^2, counted as if they
+    ran there) and the attention core, 2 W a (query, valid key) pair for each
+    of its six products (five without o, dx alone): in f32 six MMAs a
+    product; in bf16 one for the projections and for the products whose
+    operands the TPU kernel rounds (o = p v, dv = p^T gh), six for the rest
+    (q, k, v, gh, dp and ds are f32 values, split into three terms)."""
+    proj, pair = (14 if dx_only else 22) * B * T * W * W, 2 * W * pairs
+    if dtype == "float32":
+        return 6 * (proj + (5 if dx_only else 6) * pair)
+    return proj + (4 * 6 + (1 if dx_only else 2)) * pair
+
+
 def ptxas_kernels(log: str, sources=PTXAS_SOURCES) -> list:
     """(source, kernel, registers, spill store bytes) of each kernel that
     ``sources`` compile, from ``-Xptxas -v``'s report (one section a source,
@@ -608,6 +657,60 @@ def b5_launch(x, g, ln, mlp):
         _build.dtype_code(x.dtype), _build.stream_handle(x.device)))
 
     def run(_buffers=(dx, ws, wsd, w_fc, w_proj)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b4_launch(x, g, ln, attn, nh, valid):
+    """B4's launches alone for dx (no weight gradients) through the C
+    interface on buffers allocated once, at the wrapper's split
+    (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    B, T, W = x.shape
+    R, code = B * T, _build.dtype_code(x.dtype)
+    S = _build.library().tapclip_attn_block_bwd_split(R, W, code)
+    w_qkv, w_out = attn[0].to(x.dtype), attn[2].to(x.dtype)
+    dx = torch.empty_like(x)
+    ws = torch.empty(R * (4 * W + S * W + 2 + 2 * nh), dtype=torch.float32, device=x.device)
+    wsd = torch.empty(R * 4 * W, dtype=x.dtype, device=x.device)
+    launch = bare_launch("tapclip_attn_block_bwd", (
+        x.data_ptr(), g.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), w_qkv.data_ptr(), attn[1].data_ptr(),
+        w_out.data_ptr(), dx.data_ptr(), ws.data_ptr(), wsd.data_ptr(), None, B, T, W, nh, valid, 1e-5, S, 0, code,
+        _build.stream_handle(x.device)))
+
+    def run(_buffers=(dx, ws, wsd, w_qkv, w_out)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b13_launch(x, gamma, beta, q, deterministic):
+    """B13's four launches alone through the C interface on weights laid out
+    once and scratch allocated once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+    from tapclip_tpu_torch.ops.int8_mlp import k_major
+
+    lib = _build.library()
+    W, H = x.shape[-1], q["w_fc"].shape[1]
+    R = x.numel() // W
+    Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
+    w = (k_major(q["w_fc"], Wp), k_major(q["w_proj"], Hp))
+    bufs = (torch.empty_like(x), torch.empty((R, H), device=x.device),
+            torch.empty((R, Wp), dtype=torch.int8, device=x.device),
+            torch.empty((R, Hp), dtype=torch.int8, device=x.device), torch.empty((3, R), device=x.device))
+    launch = bare_launch("tapclip_int8_mlp", (
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w[0].data_ptr(), q["s_fc"].data_ptr(),
+        q["b_fc"].data_ptr(), w[1].data_ptr(), q["s_proj"].data_ptr(), q["b_proj"].data_ptr(),
+        *(t.data_ptr() for t in bufs), R, W, H, 1e-5, 0, int(deterministic), _build.dtype_code(x.dtype),
+        _build.stream_handle(x.device)))
+
+    def run(_buffers=(w, bufs)):  # the buffers live as long as the closure
         return launch()
 
     return run
@@ -827,6 +930,16 @@ def check_backward() -> dict:
                         case["bound_dx_only_ms"] = bound(*dx_work, dname)["bound_ms"]
                         case["mma_bound_dx_only_ms"] = mma_bound(*dx_work, dname, name)["mma_bound_ms"]
                         case["launch_ms_dx_only"] = time_ms(b5_launch(x, g, ln, mlp))
+                    else:  # dx alone: the three dx products and the attention core
+                        pairs = attn_pairs(B, T, valid)
+                        dx_bytes = in_bytes + nbytes(got[0])
+                        case["bound_dx_only_ms"] = bound(dx_bytes, 14 * B * T * W * W + 12 * W * pairs,
+                                                         dname)["bound_ms"]
+                        case["mma_bound_ms"] = mma_bound_of(
+                            in_bytes + nbytes(*got), b4_mma_flops(B, T, W, pairs, dname, False))["mma_bound_ms"]
+                        case["mma_bound_dx_only_ms"] = mma_bound_of(
+                            dx_bytes, b4_mma_flops(B, T, W, pairs, dname, True))["mma_bound_ms"]
+                        case["launch_ms_dx_only"] = time_ms(b4_launch(x, g, ln, attn, nh, valid))
                 results[name]["cases"].append(case)
                 print(f"backward {name} [{shape} {dname}]: "
                       + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
@@ -834,6 +947,35 @@ def check_backward() -> dict:
                 require(rel <= tol and rel_dx <= tol,
                         f"{name} {shape} {dname}: norm-relative error {max(rel, rel_dx):.3e} > {tol}")
     return results
+
+
+def b7_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: bool) -> str:
+    """sha256 (first 16 hex digits) of B7's packed dqkv on numpy-seeded qkv and cotangent."""
+    import hashlib
+
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _fused_mha_bwd_cuda
+
+    rng = np.random.default_rng(B * T + W + valid)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype))
+
+    qkv, g = f(B, T, 3 * W), f(B, T, W)
+    with torch.no_grad():
+        dqkv = _fused_mha_bwd_cuda(qkv, g, nh, valid, causal)
+    return hashlib.sha256(dqkv.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def check_b7_bits() -> dict:
+    """B7_BITS: B7's output bit for bit as before B4's redesign, f32 and bf16."""
+    got = {(dt, label): b7_digest(dt, *case) for dt in ("float32", "bfloat16")
+           for label, case in B7_BITS_CASES.items()}
+    for key, digest in got.items():
+        print(f"B7_BITS [{key[1]} {key[0]}]: {digest} (want {B7_BITS[key]})", flush=True)
+        require(digest == B7_BITS[key], f"B7's output changed at {key[1]} {key[0]}: {digest} != {B7_BITS[key]}")
+    return {f"{label} {dt}": d for (dt, label), d in got.items()}
 
 
 def _step_err(k1, k0, p1, p0) -> float:
@@ -1823,6 +1965,8 @@ def check_int8_kernels() -> dict:
                         if timed:
                             case.update(ms=time_ms(kern), plain_ms=time_ms(plain, 10, 2),
                                         wrapper_ms=time_ms(wrapper), library_ms=None, **work)
+                            if name == "int8_mlp":  # the four launches alone, weights laid out once
+                                case["launch_ms"] = time_ms(b13_launch(x, g, b, qm, det))
                     results[name]["cases"].append(case)
                     print(f"int8 kernel {name} [{shape} {dname} {mode}]: "
                           + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
@@ -1865,6 +2009,9 @@ def check_int8_variants() -> dict:
     from tapclip_tpu_torch.scripts.int8_mlp_ab import run
 
     res = run(B=8, model="ViT-B-16", reps=3)
+    print(f"int8 variants: B13 on the tensor cores median {res['b13_median_ms']:.4g} ms beside the walk's "
+          f"{res['variants']['base']['median_ms']:.4g}, equal to it bit for bit: {res['b13_equals_base']}", flush=True)
+    require(res["b13_equals_base"], "B13 differs from the walk (S5's flags-off kernel)")
     for name, v in res["variants"].items():
         print(f"int8 variant {name} [{res['shape']} {res['dtype']}]: median {v['median_ms']:.4g} ms "
               f"(x{v['ratio']:.3f} of base), plain {v['plain_ms']:.4g} ms, vs base {v['vs_base_rel_err']:.3e}, "
@@ -1874,6 +2021,35 @@ def check_int8_variants() -> dict:
         require(v["vs_plain_update_rel_err"] <= INT8_TOL["float32"],
                 f"int8 variant {name}: {v['vs_plain_update_rel_err']:.3e} from its plain version")
     return res
+
+
+def check_b13_bits() -> dict:
+    """B13_BITS: B13 on the int8 tensor cores against the walk it replaced
+    (S5's flags-off kernel), bit for bit, stochastic and round to nearest, f32
+    and bf16, at the image shape (8 x 200, W 768) and the pruned one (8 x 96,
+    ``--token-keep-ratio 0.5``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_walk
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for label, (B, T, W) in (("image 8x200x768", (8, 200, 768)), ("pruned 8x96x768", (8, 96, 768))):
+            x, ln, _, _, qm, _ = _int8_case(gen, B, T, W, 12, dtype)
+            for det in (False, True):
+                mode = "round-to-nearest" if det else "stochastic"
+                with torch.inference_mode():
+                    got = int8_mlp_cuda(x, ln["scale"], ln["bias"], qm, deterministic=det)
+                    walk = int8_mlp_walk(x, ln["scale"], ln["bias"], qm, deterministic=det)
+                    torch.cuda.synchronize()
+                differ = int((got != walk).sum())
+                out[f"{label} {dname} {mode}"] = differ
+                print(f"B13_BITS [{label} H{4 * W} {dname} {mode}]: {differ} of {got.numel()} elements differ "
+                      f"from the walk", flush=True)
+                require(differ == 0, f"B13 {label} {dname} {mode}: {differ} elements differ from the walk")
+    return out
 
 
 def check_int8_gemm() -> dict:
@@ -2286,7 +2462,7 @@ def adaptive_phase(model, images: np.ndarray) -> dict:
     return {"errors": errs, "stats": stats}
 
 
-def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict) -> list:
+def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, b13_bits: dict) -> list:
     """The kernels-line entries of B13, B14, S5 and S6: launches on the int8
     serving drive (f32, stochastic), errors and times at ViT-B/16 (B13, B14,
     S5) and at the probe's shape (S6)."""
@@ -2312,6 +2488,10 @@ def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict) 
             "bf16_update_rel_err": max(x["update_rel_err"] for x in cases if x["dtype"] == "bfloat16"),
             "mean_of_seeds": int8_kernels[name]["mean_of_seeds"],
         })
+        if name == "int8_mlp":
+            out[-1].update(launch_ms=c["launch_ms"], rtn_launch_ms=rtn["launch_ms"], bf16_launch_ms=bf["launch_ms"],
+                           walk_ms=variants["variants"]["base"]["median_ms"],
+                           b13_in_turns_ms=variants["b13_median_ms"], elements_differing_from_walk=b13_bits)
     base = main_case("int8_mlp", "float32", "stochastic")
     for vname, key in (("int8_mlp_erf3", "erf3"), ("int8_mlp_recipmul", "recipmul"),
                        ("int8_mlp_erf3_recipmul", "both")):
@@ -2378,7 +2558,9 @@ def main() -> int:
     kernels.update(phase("text kernels", check_text_kernels))
     kernels.update(phase("flash kernels", check_flash_kernels))
     repairs = phase("long repairs", check_long_repairs)
+    b7_bits = phase("B7 bits", check_b7_bits)
     int8_kernels = phase("int8 kernels", check_int8_kernels)
+    b13_bits = phase("B13 bits", check_b13_bits)
     variants = phase("int8 variants", check_int8_variants)
     gemm = phase("int8 gemm", check_int8_gemm)
     ab = phase("ab variants", check_ab_variants)
@@ -2450,10 +2632,12 @@ def main() -> int:
                               for c in kernels[name]["cases"] if "ms" in c]
         if f"{name} float32" in repairs:  # B7 / B4 past their [T, T] tile
             entry["long_t"] = {dt: repairs[f"{name} {dt}"] for dt in ("float32", "bfloat16")}
+        if name == "fused_mha_bwd":
+            entry["bits_unchanged"] = b7_bits
         if name == "fused_mha":
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)
-    record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"])
+    record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"], b13_bits)
     record += ab_record(ab, served["all_launches"])
     print("chip_smoke: phase seconds " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)

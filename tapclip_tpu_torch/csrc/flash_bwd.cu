@@ -88,14 +88,6 @@ __device__ __forceinline__ bool visible(int row, int key, int valid, int causal)
   return key < valid && (!causal || key <= row);
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&x)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
-}
-
 // LSE: one block per (batch row, head, 64-row query tile), over key tiles.
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)

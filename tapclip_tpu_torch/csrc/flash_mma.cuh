@@ -317,6 +317,15 @@ __device__ __forceinline__ void warp_pv(float (&o)[DH / 8][4], const float (&p)[
   }
 }
 
+// Zero a warp's accumulator tiles.
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+}
+
 // Reductions over the four lanes of a quad (the lanes that share an
 // accumulator row).
 __device__ __forceinline__ float quad_max(float v) {

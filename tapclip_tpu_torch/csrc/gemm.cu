@@ -1,8 +1,10 @@
-// Shared products and reductions of the backward kernels B4 (attn_block_bwd.cu)
-// and B5 (mlp_bwd.cu).
+// Weight-gradient products and reductions of the backward kernels B4
+// (attn_block_bwd.cu) and B5 (mlp_bwd.cu), run by their wrappers only when a
+// weight gradient is wanted (never on the prompt-tuning path, where the CLIP
+// weights are frozen).
 //
-// Replaces the in-body products and the grid-resident weight-gradient
-// accumulators of tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel and
+// Replaces the grid-resident weight-gradient accumulators of
+// tapclip_tpu/ops/fused_mha.py::_attn_block_bwd_kernel and
 // tapclip_tpu/ops/fused_mlp.py::_mlp_bwd_kernel.  On a TPU those kernels add
 // each row tile's dW into an f32 block that stays in VMEM across the
 // sequential grid.  Hopper blocks run in no order, so the reduction over rows
@@ -11,21 +13,21 @@
 //   gemm_f32:  C[M, N] = op(A) @ op(B) (+ bias[N]) in f32, with op = identity
 //              or transpose on either side.  With A transposed it is the
 //              A^T . B over rows that gives every dW (y^T . dqkv, o^T . g,
-//              y^T . dh_pre, h^T . g); with B transposed it gives the
-//              cotangent products (g . w_out^T, dqkv . w_qkv^T); plain, the
-//              recomputed QKV projection.  One block owns a 64 x 64 tile of C
+//              y^T . dh_pre, h^T . g).  One block owns a 64 x 64 tile of C
 //              and walks the whole reduction axis in order, so the sums do
-//              not depend on scheduling.
+//              not depend on scheduling.  (The dx products of B4 and B5 run
+//              on the tensor cores, gemm_mma.cuh.)
 //   col_sum:   out[c, N] = sum over a chunk of rows of in[R, N], one thread
 //              per column, rows in order; run twice (row chunks, then the
 //              chunk partials) for the bias, gamma and beta gradients.
 //
-// What bounds it on the card: inferred, not measured (no profile yet).  By
-// its shape a dW product (K = rows = 704 at the text shape) is arithmetic on
-// the FMA units in f32, like K2's earlier FMA out-projection (the same
-// 64 x 64 tiling), which a block-count probe found held back by too few
-// warps per SM.  Tensor-core MMA for bf16 and split-K for the
-// small dW_out grid (64 tiles at W = 512) are later work.
+// What bounds it on the card: the FMA units.  A dW product (K = rows = 704
+// at the text shape) runs in f32 on them with one 64 x 64 tile a block; a
+// trace on an H100 80GB HBM3 at 700 W (profile_kernels.py) reads B4's two
+// at the text shape at 169 us (f32) and 185 us (bf16), and B5's at 211 us:
+// 60% of B5's time with every gradient.  Tensor-core MMA (gemm_mma.cuh)
+// and a split of the rows for the small dW_out grid (64 tiles at W = 512)
+// are later work.
 #include "common.cuh"
 
 namespace {

@@ -1,7 +1,8 @@
-// The tiled tensor-core GEMM of K1 (fused_mlp.cu), K2 (attn_block.cu) and
-// B5 (mlp_bwd.cu):  C[M, N] = epilogue(A[M, K] . B), A row major, B either
-// [K, N] row major or [N, K] row major (TB: the B of A X^T, as the
-// cotangent products g . w_proj^T and dh_pre . w_fc^T read their weights).
+// The tiled tensor-core GEMM of K1 (fused_mlp.cu), K2 (attn_block.cu), B4
+// (attn_block_bwd.cu) and B5 (mlp_bwd.cu):  C[M, N] = epilogue(A[M, K] . B),
+// A row major, B either [K, N] row major or [N, K] row major (TB: the B of
+// A X^T, as the cotangent products g . w_proj^T and dh_pre . w_fc^T read
+// their weights).
 //
 // A block owns a BM x BN tile of C (BM 64 or 32; launch_pass picks 32 where
 // 64-row tiles would not give every SM two blocks), 8 warps as 2 (rows) x 4
@@ -29,11 +30,11 @@
 //   kResidual  C = round(resid + (acc + bias))             K1 proj, K2 out-projection
 //   kQkv       C (f32) = acc + bias, rounded to the dtype from column col0 on
 //                                                          K2's qkv (v rounded, q and k not)
-//   kBias      C (f32) = acc + bias                        B5's z = h_pre
+//   kBias      C (f32) = acc + bias                        B5's z = h_pre, B4's qkv
 //   kDgelu     C = round(acc * (Phi(z) + z phi(z))), z read from Epi::z;
 //              with Epi::h also h = round(z Phi(z)) and z := the unrounded
 //              product (for dW_proj and db_fc)             B5's dh_pre
-//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy
+//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy; B4's gh and dy
 #pragma once
 
 #include <stdint.h>
@@ -408,6 +409,22 @@ inline int sm_count() {
     return sms > 0 ? sms : 132;
   }();
   return n;
+}
+
+// The split of a kStore product's depth K, the least power of two (at most
+// max_split, each part at least 256 deep) that gives every SM two blocks of
+// 64 x 64 over C [M, N] in bf16 and four in f32 (dtype 0 float32, 1
+// bfloat16).  An f32 tile costs six MMAs a product, so a grid's last
+// part-wave costs more there than the partials' round trip through L2
+// (time_half_blocks.py on an H100 80GB HBM3 at 700 W, B5's dy at R 1,600,
+// W 768, 300 tiles: S 2 took 0.551 ms in f32 against 0.593 for S 1, while in
+// bf16 S 1 took 0.209 against 0.217).  B4's dy and B5's dy take it.
+inline int depth_split(int M, int N, int K, int dtype, int max_split) {
+  const long tiles = static_cast<long>((M + 63) / 64) * ((N + 63) / 64);
+  const long want = (dtype == 0 ? 4L : 2L) * sm_count();
+  int S = 1;
+  while (S < max_split && tiles * S < want && K / (2 * S) >= 256) S *= 2;
+  return S;
 }
 
 template <typename Kernel, typename T, typename TC>

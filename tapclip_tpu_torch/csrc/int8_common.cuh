@@ -3,12 +3,13 @@
 // tapclip_tpu/ops/int8_attn.py.
 //
 // The scheme is the JAX package's: weights quantized per output column to
-// int8 outside the kernel (ops/int8_mlp.py::quantize_cols_int8) and packed
-// four reduction rows to a 32-bit word ([K / 4, N] int32, see
-// ops/int8_mlp.py::pack_k4); activations quantized per row inside the kernel,
-// q = clip(floor(v / s + u), -127, 127) with s = max(amax, 1e-8) / 127
-// (stochastic) or clip(round(v / s)) (round to nearest); int8 x int8 products
-// summed exactly in int32 (__dp4a: four products a word) and dequantized as
+// int8 outside the kernel (ops/int8_mlp.py::quantize_cols_int8), packed four
+// reduction rows to a 32-bit word ([K / 4, N] int32, ops/int8_mlp.py::pack_k4)
+// for __dp4a or laid out K-major ([N, Kp]) for the tensor cores; activations
+// quantized per row inside the kernel, q = clip(floor(v / s + u), -127, 127)
+// with s = max(amax, 1e-8) / 127 (stochastic) or clip(round(v / s)) (round
+// to nearest); int8 x int8 products summed exactly in int32 (__dp4a, four
+// products a word, or mma.sync m16n8k32) and dequantized as
 // ((acc * s_row) * s_col) + bias.  Every float step is written with the
 // round-to-nearest intrinsics (__fdiv_rn, __fmul_rn, __fadd_rn) so that nvcc
 // cannot contract a multiply and an add into one FMA: the plain PyTorch
@@ -85,30 +86,46 @@ __device__ __forceinline__ void ln_row_warp(const T* __restrict__ xr, const floa
   }
 }
 
-// Quantize the n floats of one row (shared or global memory) into int8
-// codes q[0, n_pad) (zeros past n), one warp; returns the row's scale.
-// SR: floor(v / s + u) with the draws of row key `key`; else round(v / s),
-// half to even (rintf, as torch.round and jnp.round).  RECIP (the S5
-// variant of scripts/int8_mlp_ab.py): v * (127 / amax) in place of v / s,
-// with s = 1 / (127 / amax).
+// The scale of a row whose largest magnitude is amax, s = max(amax, 1e-8) /
+// 127; with RECIP (the S5 variant of scripts/int8_mlp_ab.py) s = 1 / inv,
+// inv = 127 / max(amax, 1e-8).
+template <bool RECIP>
+__device__ __forceinline__ float row_scale(float amax, float& inv) {
+  amax = fmaxf(amax, 1e-8f);
+  inv = RECIP ? __fdiv_rn(127.f, amax) : 0.f;
+  return RECIP ? __fdiv_rn(1.f, inv) : __fdiv_rn(amax, 127.f);
+}
+
+// The int8 code of v, column c of a row with scale s (inv with RECIP) and
+// row key `key`.  SR: floor(v / s + u) with the draw of (key, c); else
+// round(v / s), half to even (rintf, as torch.round and jnp.round).  RECIP:
+// v * inv in place of v / s.
+template <bool SR, bool RECIP>
+__device__ __forceinline__ int8_t code_of(float v, float scale, float inv, uint32_t key, int c) {
+  float t = RECIP ? __fmul_rn(v, inv) : __fdiv_rn(v, scale);
+  t = SR ? floorf(__fadd_rn(t, uniform24(key, static_cast<uint32_t>(c)))) : rintf(t);
+  return static_cast<int8_t>(fminf(fmaxf(t, -127.f), 127.f));
+}
+
+// Quantize the n floats of one row (shared or global memory) whose largest
+// magnitude is amax into int8 codes q[0, n_pad) (zeros past n), one warp;
+// returns the row's scale.
+template <bool SR, bool RECIP>
+__device__ __forceinline__ float quantize_codes_warp(const float* v, float amax, int n, int n_pad, int8_t* q,
+                                                     uint32_t key, int lane) {
+  float inv;
+  const float scale = row_scale<RECIP>(amax, inv);
+  for (int c = lane; c < n_pad; c += 32) q[c] = c < n ? code_of<SR, RECIP>(v[c], scale, inv, key, c) : 0;
+  return scale;
+}
+
+// As quantize_codes_warp, with the row's amax taken here.
 template <bool SR, bool RECIP>
 __device__ __forceinline__ float quantize_row_warp(const float* v, int n, int n_pad, int8_t* q,
                                                    uint32_t key, int lane) {
   float amax = 0.f;
   for (int c = lane; c < n; c += 32) amax = fmaxf(amax, fabsf(v[c]));
-  amax = fmaxf(warp_max(amax), 1e-8f);
-  const float inv = RECIP ? __fdiv_rn(127.f, amax) : 0.f;
-  const float scale = RECIP ? __fdiv_rn(1.f, inv) : __fdiv_rn(amax, 127.f);
-  for (int c = lane; c < n_pad; c += 32) {
-    float t = 0.f;
-    if (c < n) {
-      t = RECIP ? __fmul_rn(v[c], inv) : __fdiv_rn(v[c], scale);
-      t = SR ? floorf(__fadd_rn(t, uniform24(key, static_cast<uint32_t>(c)))) : rintf(t);
-      t = fminf(fmaxf(t, -127.f), 127.f);
-    }
-    q[c] = static_cast<int8_t>(t);
-  }
-  return scale;
+  return quantize_codes_warp<SR, RECIP>(v, warp_max(amax), n, n_pad, q, key, lane);
 }
 
 // Dequantized value of an int32 sum: ((acc * s_row) * s_col) + bias.

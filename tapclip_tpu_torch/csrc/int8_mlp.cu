@@ -1,37 +1,56 @@
 // B13: int8 W8A8 MLP half-block of the frozen-tower eval path,
 //   out = x + dequant(int8(gelu(dequant(int8(LN(x)) . Wfc_q) + b_fc)) . Wproj_q) + b_proj,
 // with per-row activation codes (stochastic or round-to-nearest) and exact
-// int32 sums.  Also S5: the erf3 / recipmul variants of
-// scripts/int8_mlp_ab.py, as template flags of the same kernel.
+// int32 sums, on the int8 tensor cores.  Also S5 and its parent: the one-launch
+// __dp4a walk (int8_mlp_walk_kernel) with the erf3 / recipmul variants of
+// scripts/int8_mlp_ab.py as template flags; its flags-off kernel is the
+// earlier B13, which the new one equals bit for bit.
 //
 // Replaces tapclip_tpu/ops/int8_mlp.py::_int8_mlp_kernel (the pallas_call in
 // int8_mlp_block) and the round-to-nearest model _xla_int8_reference, which
 // the JAX package runs under int8_deterministic: the wrapper
-// (tapclip_tpu_torch/ops/int8_mlp.py::int8_mlp_block) launches this kernel in
-// both modes.  Quantization scheme and random bits: int8_common.cuh.
+// (tapclip_tpu_torch/ops/int8_mlp.py::int8_mlp_cuda) launches it in both
+// modes.  Quantization scheme and random bits: int8_common.cuh.
 //
-// Design.  The second quantizer needs max |h| over the whole hidden row
-// (H = 3,072 at ViT-B/16, 4,096 at ViT-L/14) before any element of it is
-// quantized, so the FMA walk over 256-column chunks (mlp_walk.cuh) cannot carry
-// over.  A block owns 8 rows and keeps their hidden rows in shared memory as
-// f32 (8 x 3,072 x 4 B = 96 KB; 128 KB at ViT-L/14):
-//   1. one warp a row: LayerNorm into shared memory (the hidden buffer, not
-//      yet in use), its row amax and the int8 codes;
-//   2. every thread owns hidden columns t, t + 256 and walks the reduction
-//      over packed int8 weights with __dp4a (rows_dot_packed); dequantize,
-//      add b_fc, exact GELU (erff) into the hidden rows;
-//   3. one warp a row: amax of the hidden row and its int8 codes;
-//   4. the proj product the same way; dequantize, b_proj, the residual.
-// The hidden activation never reaches device memory.  One launch a call.
+// What bounds it on the card: the products, 4 R W H int8 operations, at
+// ViT-B/16 serving (R = 8 x 200 rows, W 768, H 3,072) 15.1 G, 0.0076 ms at
+// the tensor cores' 1,979 TOP/s; the bytes (x in and out in f32, 4.7 MB of
+// int8 weights) 0.004 ms.  Traces on an H100 80GB HBM3 at 700 W
+// (profile_kernels.py), f32 stochastic at that shape: the walk took 0.549
+// ms, both products with __dp4a on the integer units, 8 rows a block, each
+// of its 200 blocks reading both weight matrices (4.7 MB) from L2, 0.94 GB
+// of L2 reads a call.  This design 0.105 ms: the LayerNorm rows 11 us, fc
+// 40 (312 tiles of 128 x 128 over 264 block slots, the GELU epilogue
+// storing 19.7 MB of h), the hidden codes 10, proj 36 (150 tiles of 64 x
+// 128, 48 stages deep), plus 8 for the wrapper's two weight transposes;
+// launches alone 0.100 ms (time_half_blocks.py).
 //
-// What bounds it on the card: by its shape, neither bytes nor operations.
-// At ViT-B/16 serving (R = 8 x 200 rows, W 768, H 3,072) it does 4 R W H =
-// 15.1 G int8 operations (0.008 ms at the tensor cores' 1,979 TOP/s) on
-// about 5 MB of int8 weights and x; __dp4a runs on the integer units, not the
-// tensor cores, and every block reads both weight matrices (4.7 MB) from L2.
-// Tensor-core int8 MMA (mma.sync m16n8k32, then wgmma) is later work.
-// Rows past R (the ragged last block) are computed on zeros and not stored.
+// Design: four launches behind one wrapper call, which lays the weights out
+// K-major ([N, Kp], Kp = K rounded up to 64, zeros past K; S6's transpose
+// kernel, int8_gemm.cu) where it quantizes them, and allocates the scratch:
+// hidden rows h [R, H] f32, codes yq [R, Kp(W)] and hq [R, Kp(H)] int8,
+// scales [3, R] f32 (t1, t2, amax of h).
+//   1. mlp_ln_quant_kernel, one warp a row: LayerNorm into shared memory
+//      (ln_row_warp, as the walk), the row's codes and scale t1; zeroes the
+//      row's |h| max.
+//   2. mlp_fc_kernel: yq . Wfc^T on int8_mma.cuh's block tile (mma.sync
+//      m16n8k32 s8, 128 x 128 tiles or 64 x 128), its epilogue
+//      dequantizing (acc t1) s_fc + b_fc and applying exact GELU (erff) in
+//      the walk's order, storing h (19.7 MB at the image shape, in L2), and
+//      folding the tile's |h| into the row's max: a max over the quad's
+//      lanes, then atomicMax on the non-negative f32 bits, which no order
+//      of the blocks changes.
+//   3. mlp_quant_h_kernel, one block a row: the codes of h and its scale t2
+//      from that max (code_of: the draws of (seed, quantizer, row, column),
+//      so no tiling moves a draw).
+//   4. mlp_proj_kernel: hq . Wproj^T on the same tile, its epilogue
+//      dequantizing, adding b_proj and the residual with one rounding.
+// Each float step is the walk's, in the walk's order, and the int32 sums and
+// the row maxima are exact: the output equals the walk's bit for bit.
+#include <stdint.h>
+
 #include "int8_common.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -44,6 +63,17 @@ __device__ __forceinline__ float gelu(float v) {
   return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, ERF3 ? erf3(z) : erff(z)));
 }
 
+// --- S5 and its parent: the __dp4a walk ---------------------------------------
+//
+// A block owns 8 rows and keeps their hidden rows in shared memory as f32
+// (8 x 3,072 x 4 B = 96 KB; 128 KB at ViT-L/14): (1) one warp a row,
+// LayerNorm into shared memory, its amax and codes; (2) every thread owns
+// hidden columns t, t + 256 and walks the reduction over packed int8 weights
+// with __dp4a (rows_dot_packed); dequantize, b_fc, GELU into the hidden
+// rows; (3) one warp a row, the hidden row's amax and codes; (4) the proj
+// product the same way, b_proj and the residual.  One launch a call; rows
+// past R (the ragged last block) are computed on zeros and not stored.
+
 struct MlpSmem {
   int hld, wp, hp;
   __host__ __device__ MlpSmem(int W, int H) : hld(((H > W ? H : W) + 3) / 4 * 4), wp(pad16(W)), hp(pad16(H)) {}
@@ -54,7 +84,7 @@ struct MlpSmem {
 
 template <typename T, bool SR, bool ERF3, bool RECIP>
 __global__ void __launch_bounds__(kInt8Threads)
-int8_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+int8_mlp_walk_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
                 const int* __restrict__ w_fc, const float* __restrict__ s_fc, const float* __restrict__ b_fc,
                 const int* __restrict__ w_proj, const float* __restrict__ s_proj,
                 const float* __restrict__ b_proj, T* __restrict__ out, int R, int W, int H, float eps,
@@ -112,13 +142,13 @@ int8_mlp_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const 
 }
 
 template <typename T, bool SR, bool ERF3, bool RECIP>
-cudaError_t launch(const void* x, const float* gamma, const float* beta, const int* w_fc,
+cudaError_t launch_walk(const void* x, const float* gamma, const float* beta, const int* w_fc,
                    const float* s_fc, const float* b_fc, const int* w_proj, const float* s_proj,
                    const float* b_proj, void* out, int R, int W, int H, float eps, uint32_t seed,
                    cudaStream_t stream) {
   const size_t smem = MlpSmem(W, H).bytes();
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = int8_mlp_kernel<T, SR, ERF3, RECIP>;
+  auto kernel = int8_mlp_walk_kernel<T, SR, ERF3, RECIP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (R + kInt8Rows - 1) / kInt8Rows;
@@ -129,12 +159,12 @@ cudaError_t launch(const void* x, const float* gamma, const float* beta, const i
 }
 
 template <typename T>
-cudaError_t launch_mode(int deterministic, int variant, const void* x, const float* gamma,
+cudaError_t launch_walk_mode(int deterministic, int variant, const void* x, const float* gamma,
                         const float* beta, const int* w_fc, const float* s_fc, const float* b_fc,
                         const int* w_proj, const float* s_proj, const float* b_proj, void* out, int R,
                         int W, int H, float eps, uint32_t seed, cudaStream_t s) {
 #define TAPCLIP_INT8_MLP(SR, E3, RM) \
-  launch<T, SR, E3, RM>(x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, R, W, H, eps, seed, s)
+  launch_walk<T, SR, E3, RM>(x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, R, W, H, eps, seed, s)
   if (deterministic) return variant == 0 ? TAPCLIP_INT8_MLP(false, false, false) : cudaErrorInvalidValue;
   switch (variant) {
     case 0: return TAPCLIP_INT8_MLP(true, false, false);
@@ -146,15 +176,204 @@ cudaError_t launch_mode(int deterministic, int variant, const void* x, const flo
 #undef TAPCLIP_INT8_MLP
 }
 
+// --- B13 on the int8 tensor cores ------------------------------------------------
+
+// Step 1: the rows' LayerNorm, codes yq [R, Wp] and scale t1; hmax := 0.
+// One warp a row; shared memory: kInt8Warps rows of W floats.
+template <typename T, bool SR>
+__global__ void __launch_bounds__(kInt8Threads)
+mlp_ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+                    int8_t* __restrict__ yq, float* __restrict__ t1, float* __restrict__ hmax, int R, int W,
+                    int Wp, float eps, uint32_t seed) {
+  extern __shared__ __align__(16) float y_s[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kInt8Warps + warp;
+  if (row >= R) return;
+  float* yr = y_s + static_cast<size_t>(warp) * W;
+  ln_row_warp<T, !SR>(x + static_cast<size_t>(row) * W, gamma, beta, W, eps, yr, lane);
+  __syncwarp();
+  const float s = quantize_row_warp<SR, false>(yr, W, Wp, yq + static_cast<size_t>(row) * Wp,
+                                                row_key(seed, kStreamMlpY, row), lane);
+  if (lane == 0) {
+    t1[row] = s;
+    hmax[row] = 0.f;
+  }
+}
+
+// Step 2: h = gelu((yq . Wfc^T) t1 s_fc + b_fc) [R, H] f32, and each row's
+// |h| max into hmax (atomicMax on the bits of a non-negative float).
+template <int BM>
+__global__ void __launch_bounds__(mma8::kGemmThreads, 2)
+mlp_fc_kernel(const int8_t* __restrict__ yq, const int8_t* __restrict__ w_fc, const float* __restrict__ t1,
+              const float* __restrict__ s_fc, const float* __restrict__ b_fc, float* __restrict__ h,
+              float* __restrict__ hmax, int R, int H, int Wp) {
+  extern __shared__ __align__(16) int8_t tile_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * mma8::kBN;
+  int acc[BM / 32][mma8::kNT][4];
+  mma8::gemm_tile<BM, true>(yq, w_fc, tile_smem, R, H, Wp, m0, n0, acc);
+#pragma unroll
+  for (int i = 0; i < BM / 32; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = mma8::acc_row<BM>(m0, i, hh);
+      const bool in = row < R;
+      const float tr = in ? t1[row] : 0.f;
+      float m = 0.f;
+#pragma unroll
+      for (int j = 0; j < mma8::kNT; ++j) {
+        const int col = mma8::acc_col(n0, j);
+        if (!in || col >= H) continue;
+        float* hr = h + static_cast<size_t>(row) * H + col;
+        const float v0 = gelu<false>(dequant(acc[i][j][2 * hh], tr, s_fc[col], b_fc[col]));
+        m = fmaxf(m, fabsf(v0));
+        if (col + 1 >= H) {
+          hr[0] = v0;
+          continue;
+        }
+        const float v1 = gelu<false>(dequant(acc[i][j][2 * hh + 1], tr, s_fc[col + 1], b_fc[col + 1]));
+        m = fmaxf(m, fabsf(v1));
+        if (H & 1) {
+          hr[0] = v0;
+          hr[1] = v1;
+        } else {  // col even: 8-byte aligned
+          *reinterpret_cast<float2*>(hr) = make_float2(v0, v1);
+        }
+      }
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the quad's lanes share the row
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (in && (threadIdx.x & 3) == 0) atomicMax(reinterpret_cast<int*>(hmax + row), __float_as_int(m));
+    }
+}
+
+// Step 3: the codes hq [R, Hp] of h and its scale t2 (zeros past H), one
+// block a row, four columns a thread at a time (one 16-byte load of h where
+// H % 4 == 0, one 4-byte store of codes).
+template <bool SR>
+__global__ void __launch_bounds__(kInt8Threads)
+mlp_quant_h_kernel(const float* __restrict__ h, const float* __restrict__ hmax, int8_t* __restrict__ hq,
+                   float* __restrict__ t2, int H, int Hp, uint32_t seed) {
+  const int row = blockIdx.x;
+  float inv;
+  const float scale = row_scale<false>(hmax[row], inv);
+  const uint32_t key = row_key(seed, kStreamMlpH, row);
+  const float* hr = h + static_cast<size_t>(row) * H;
+  uint32_t* qr = reinterpret_cast<uint32_t*>(hq + static_cast<size_t>(row) * Hp);
+  const bool vec = (H & 3) == 0;
+  for (int c = 4 * threadIdx.x; c < Hp; c += 4 * kInt8Threads) {
+    float v[4];
+    if (vec && c < H) {
+      const float4 f = *reinterpret_cast<const float4*>(hr + c);
+      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = c + e < H ? hr[c + e] : 0.f;
+    }
+    uint32_t word = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int8_t q = c + e < H ? code_of<SR, false>(v[e], scale, inv, key, c + e) : 0;
+      word |= static_cast<uint32_t>(static_cast<uint8_t>(q)) << (8 * e);
+    }
+    qr[c / 4] = word;
+  }
+  if (threadIdx.x == 0) t2[row] = scale;
+}
+
+// Step 4: out = (hq . Wproj^T) t2 s_proj + b_proj + x, one rounding to T.
+template <typename T, int BM>
+__global__ void __launch_bounds__(mma8::kGemmThreads, 2)
+mlp_proj_kernel(const int8_t* __restrict__ hq, const int8_t* __restrict__ w_proj, const float* __restrict__ t2,
+                const float* __restrict__ s_proj, const float* __restrict__ b_proj, const T* __restrict__ x,
+                T* __restrict__ out, int R, int W, int Hp) {
+  extern __shared__ __align__(16) int8_t tile_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * mma8::kBN;
+  int acc[BM / 32][mma8::kNT][4];
+  mma8::gemm_tile<BM, true>(hq, w_proj, tile_smem, R, W, Hp, m0, n0, acc);
+#pragma unroll
+  for (int i = 0; i < BM / 32; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = mma8::acc_row<BM>(m0, i, hh);
+      if (row >= R) continue;
+      const float tr = t2[row];
+#pragma unroll
+      for (int j = 0; j < mma8::kNT; ++j) {
+        const int col = mma8::acc_col(n0, j);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (col + e >= W) continue;
+          const size_t off = static_cast<size_t>(row) * W + col + e;
+          out[off] = from_f<T>(
+              __fadd_rn(dequant(acc[i][j][2 * hh + e], tr, s_proj[col + e], b_proj[col + e]), to_f(x[off])));
+        }
+      }
+    }
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_tiles(Kernel kernel, int BM, int M, int N, cudaStream_t s, Args... args) {
+  const size_t smem = BM == 128 ? mma8::gemm_smem<128>() : mma8::gemm_smem<64>();
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + mma8::kBN - 1) / mma8::kBN, (M + BM - 1) / BM);
+  kernel<<<grid, mma8::kGemmThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+template <typename T, bool SR>
+cudaError_t launch_mma(const T* x, const float* gamma, const float* beta, const int8_t* w_fc, const float* s_fc,
+                       const float* b_fc, const int8_t* w_proj, const float* s_proj, const float* b_proj, T* out,
+                       float* h, int8_t* yq, int8_t* hq, float* scales, int R, int W, int H, float eps,
+                       uint32_t seed, cudaStream_t s) {
+  const int Wp = mma8::kp(W), Hp = mma8::kp(H);
+  float* t1 = scales;
+  float* t2 = scales + R;
+  float* hmax = scales + 2 * R;
+  const int row_blocks = (R + kInt8Warps - 1) / kInt8Warps;
+  auto ln = mlp_ln_quant_kernel<T, SR>;
+  const size_t ln_smem = static_cast<size_t>(kInt8Warps) * W * sizeof(float);
+  cudaError_t err = allow_smem(ln, ln_smem);
+  if (err != cudaSuccess) return err;
+  ln<<<row_blocks, kInt8Threads, ln_smem, s>>>(x, gamma, beta, yq, t1, hmax, R, W, Wp, eps, seed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int bm_fc = mma8::tile_m(R, H);
+  err = bm_fc == 128 ? launch_tiles(mlp_fc_kernel<128>, 128, R, H, s, yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp)
+                     : launch_tiles(mlp_fc_kernel<64>, 64, R, H, s, yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp);
+  if (err != cudaSuccess) return err;
+  mlp_quant_h_kernel<SR><<<R, kInt8Threads, 0, s>>>(h, hmax, hq, t2, H, Hp, seed);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int bm_proj = mma8::tile_m(R, W);
+  return bm_proj == 128
+             ? launch_tiles(mlp_proj_kernel<T, 128>, 128, R, W, s, hq, w_proj, t2, s_proj, b_proj, x, out, R, W, Hp)
+             : launch_tiles(mlp_proj_kernel<T, 64>, 64, R, W, s, hq, w_proj, t2, s_proj, b_proj, x, out, R, W, Hp);
+}
+
+template <typename T>
+cudaError_t launch_mma_mode(int deterministic, const void* x, const float* gamma, const float* beta,
+                            const int8_t* w_fc, const float* s_fc, const float* b_fc, const int8_t* w_proj,
+                            const float* s_proj, const float* b_proj, void* out, float* h, int8_t* yq, int8_t* hq,
+                            float* scales, int R, int W, int H, float eps, uint32_t seed, cudaStream_t s) {
+  const auto* X = static_cast<const T*>(x);
+  auto* O = static_cast<T*>(out);
+  if (deterministic)
+    return launch_mma<T, false>(X, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, O, h, yq, hq, scales, R,
+                                W, H, eps, seed, s);
+  return launch_mma<T, true>(X, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, O, h, yq, hq, scales, R, W,
+                             H, eps, seed, s);
+}
+
 }  // namespace
 
-// x, out [R, W] in the compute dtype (0 float32, 1 bfloat16); gamma, beta
-// [W], s_fc, b_fc [H], s_proj, b_proj [W] f32; w_fc [pad16(W) / 4, H] and
-// w_proj [pad16(H) / 4, W] packed int8 (int32 words).  deterministic 1:
-// round to nearest; 0: stochastic with the draws of `seed`.  variant (S5,
-// stochastic only): bit 0 erf3, bit 1 recipmul.  Refuses (cudaErrorInvalidValue)
-// shapes whose hidden rows do not fit in shared memory.
-extern "C" int tapclip_int8_mlp(const void* x, const void* gamma, const void* beta, const void* w_fc,
+// S5 and its parent, the walk: x, out, gamma, beta and the vectors as B13;
+// w_fc [pad16(W) / 4, H] and w_proj [pad16(H) / 4, W] packed int8 (int32
+// words, ops/int8_mlp.py::pack_k4).  deterministic 1: round to nearest; 0:
+// stochastic with the draws of `seed`.  variant (stochastic only): 0 the
+// flags-off walk, bit 0 erf3, bit 1 recipmul.  Refuses
+// (cudaErrorInvalidValue) shapes whose hidden rows do not fit in shared
+// memory.
+extern "C" int tapclip_int8_mlp_walk(const void* x, const void* gamma, const void* beta, const void* w_fc,
                                 const void* s_fc, const void* b_fc, const void* w_proj,
                                 const void* s_proj, const void* b_proj, void* out, int R, int W, int H,
                                 float eps, unsigned int seed, int deterministic, int variant, int dtype,
@@ -170,15 +389,54 @@ extern "C" int tapclip_int8_mlp(const void* x, const void* gamma, const void* be
   const auto* bp = static_cast<const float*>(b_proj);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_mode<float>(deterministic, variant, x, g, bt, wf, sf, bf, wp, sp, bp, out, R, W, H, eps, seed, s);
+    return launch_walk_mode<float>(deterministic, variant, x, g, bt, wf, sf, bf, wp, sp, bp, out, R, W, H, eps,
+                                   seed, s);
   if (dtype == 1)
-    return launch_mode<__nv_bfloat16>(deterministic, variant, x, g, bt, wf, sf, bf, wp, sp, bp, out, R, W, H,
+    return launch_walk_mode<__nv_bfloat16>(deterministic, variant, x, g, bt, wf, sf, bf, wp, sp, bp, out, R, W, H,
                                       eps, seed, s);
   return cudaErrorInvalidValue;
 }
 
-// Bytes of shared memory the kernel takes at width W and hidden width H
-// (the launcher refuses more than 232,448).
-extern "C" int tapclip_int8_mlp_smem_bytes(int W, int H) {
+// Bytes of shared memory the walk takes at width W and hidden width H (the
+// launcher refuses more than 232,448).
+extern "C" int tapclip_int8_mlp_walk_smem_bytes(int W, int H) {
   return static_cast<int>(MlpSmem(W, H).bytes());
+}
+
+// B13.  x, out [R, W] in the compute dtype (0 float32, 1 bfloat16); gamma,
+// beta [W], s_fc, b_fc [H], s_proj, b_proj [W] f32; w_fc [H, kp(W)] and
+// w_proj [W, kp(H)] int8, K-major with zeros past W and H (kp(K) =
+// tapclip_int8_gemm_kp(K)); scratch h [R, H] f32, yq [R, kp(W)] and hq
+// [R, kp(H)] int8, scales [3, R] f32, all 16-byte aligned.  deterministic 1:
+// round to nearest; 0: stochastic with the draws of `seed`.
+extern "C" int tapclip_int8_mlp(const void* x, const void* gamma, const void* beta, const void* w_fc,
+                                const void* s_fc, const void* b_fc, const void* w_proj, const void* s_proj,
+                                const void* b_proj, void* out, void* h, void* yq, void* hq, void* scales, int R,
+                                int W, int H, float eps, unsigned int seed, int deterministic, int dtype,
+                                void* stream) {
+  if (R <= 0 || W <= 0 || H <= 0) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(w_fc) | reinterpret_cast<uintptr_t>(w_proj) |
+                         reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(yq) |
+                         reinterpret_cast<uintptr_t>(hq) | reinterpret_cast<uintptr_t>(scales);
+  if (ptrs & 15) return cudaErrorMisalignedAddress;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* wf = static_cast<const int8_t*>(w_fc);
+  const auto* sf = static_cast<const float*>(s_fc);
+  const auto* bf = static_cast<const float*>(b_fc);
+  const auto* wp = static_cast<const int8_t*>(w_proj);
+  const auto* sp = static_cast<const float*>(s_proj);
+  const auto* bp = static_cast<const float*>(b_proj);
+  auto* hb = static_cast<float*>(h);
+  auto* y8 = static_cast<int8_t*>(yq);
+  auto* h8 = static_cast<int8_t*>(hq);
+  auto* sc = static_cast<float*>(scales);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_mma_mode<float>(deterministic, x, g, bt, wf, sf, bf, wp, sp, bp, out, hb, y8, h8, sc, R, W, H,
+                                  eps, seed, s);
+  if (dtype == 1)
+    return launch_mma_mode<__nv_bfloat16>(deterministic, x, g, bt, wf, sf, bf, wp, sp, bp, out, hb, y8, h8, sc, R,
+                                          W, H, eps, seed, s);
+  return cudaErrorInvalidValue;
 }

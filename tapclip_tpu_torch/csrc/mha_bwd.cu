@@ -10,8 +10,7 @@
 // Per head, as the TPU kernel: recompute p = softmax(mask(q k^T scale)) in
 // f32 from the saved qkv, then dv = p^T g (p rounded to g's dtype),
 // dp = g v^T (f32), ds = p (dp - sum(dp p)) scale, dq = ds k, dk = ds^T q.
-// This is step 3 of B4 without its o output and with the causal mask: one
-// launch of the shared core (attn_bwd_core.cuh), which reads q, k, v straight
+// One launch of the [T, T]-tile core (attn_bwd_core.cuh), which reads q, k, v straight
 // out of the packed qkv rows and g out of [B, T, W], and writes dq, dk, dv
 // straight into their column blocks of dqkv.  One block per (batch row,
 // head) holds the head's whole [T, T] f32 probability tile in shared memory;

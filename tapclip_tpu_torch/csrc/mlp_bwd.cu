@@ -65,20 +65,8 @@ using gemm::Epi;
 constexpr int kMaxSplit = 4;
 static_assert(kMaxSplit <= kLnMaxSplits, "ln_bwd_rows_kernel sums every partial");
 
-// S: the split of dy's depth H, the least power of two (at most kMaxSplit,
-// each part at least 256 deep) that gives every SM two blocks of 64 x 64 in
-// bf16 and four in f32.  An f32 tile costs six MMAs a product, so a grid's
-// last part-wave costs more there than the partials' round trip through L2
-// (time_half_blocks.py on an H100 80GB HBM3 at 700 W: at the image shape,
-// R 1,600, W 768, 300 tiles, S 2 took 0.551 ms in f32 against 0.593 for
-// S 1, while in bf16 S 1 took 0.209 against 0.217).
-int dy_split(int R, int W, int H, int dtype) {
-  const long tiles = static_cast<long>((R + 63) / 64) * ((W + 63) / 64);
-  const long want = (dtype == 0 ? 4L : 2L) * gemm::sm_count();
-  int S = 1;
-  while (S < kMaxSplit && tiles * S < want && H / (2 * S) >= 256) S *= 2;
-  return S;
-}
+// S: the split of dy's depth H (gemm::depth_split).
+int dy_split(int R, int W, int H, int dtype) { return gemm::depth_split(R, W, H, dtype, kMaxSplit); }
 
 template <typename T, int CE>
 cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_fc,

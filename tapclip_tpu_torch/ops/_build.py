@@ -71,12 +71,13 @@ _SIGNATURES = {
     "tapclip_mlp_bwd": (P,) * 12 + (I, I, I, F, I, I, I, P),
     # Dh
     "tapclip_attn_bwd_max_seq": (I,),
-    # x, gamma, beta, y, mean, rstd, R, W, eps, dtype, stream
-    "tapclip_ln_rows": (P, P, P, P, P, P, I, I, F, I, P),
-    # qkv, gh, attn, dqkv, B, T, W, n_heads, valid, dtype, stream
-    "tapclip_attn_bwd_core": (P, P, P, P, I, I, I, I, I, I, P),
-    # x, g, dy, gamma, mean, rstd, dx, part, R, W, want_w, dtype, stream
-    "tapclip_ln_bwd_rows": (P, P, P, P, P, P, P, P, I, I, I, I, P),
+    # R, W, dtype -> the split of dy's depth that B4 takes there
+    "tapclip_attn_block_bwd_split": (I, I, I),
+    # x, g, gamma, beta, w_qkv, b_qkv, w_out, dx, ws (f32 workspace
+    # R (4W + split W + 2 + 2 n_heads)), wsd (scratch: R (4W + W want_w)
+    # elements of the dtype), part, B, T, W, n_heads, valid, eps, split,
+    # want_w, dtype, stream
+    "tapclip_attn_block_bwd": (P,) * 11 + (I,) * 5 + (F, I, I, I, P),
     # qkv, out, B, T, W, n_heads, valid, causal, dtype, stream
     "tapclip_mha": (P, P, I, I, I, I, I, I, I, P),
     # qkv, g, dqkv, B, T, W, n_heads, valid, causal, dtype, stream
@@ -89,11 +90,14 @@ _SIGNATURES = {
     # q, k, v, g, lse, delta, valid, dq, B, H, T, Dh, sq_b, sq_h, sq_t,
     # sg_b, sg_h, sg_t, causal, dtype, stream
     "tapclip_flash_bwd_dq": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
+    # x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, h, yq, hq,
+    # scales, R, W, H, eps, seed, deterministic, dtype, stream
+    "tapclip_int8_mlp": (P,) * 14 + (I, I, I, F, U, I, I, P),
     # x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, R, W, H,
     # eps, seed, deterministic, variant, dtype, stream
-    "tapclip_int8_mlp": (P, P, P, P, P, P, P, P, P, P, I, I, I, F, U, I, I, I, P),
+    "tapclip_int8_mlp_walk": (P, P, P, P, P, P, P, P, P, P, I, I, I, F, U, I, I, I, P),
     # W, H
-    "tapclip_int8_mlp_smem_bytes": (I, I),
+    "tapclip_int8_mlp_walk_smem_bytes": (I, I),
     # x, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, R, W, eps, seed, deterministic,
     # dtype, stream
     "tapclip_int8_qkv": (P, P, P, P, P, P, P, I, I, F, U, I, I, P),
@@ -105,6 +109,8 @@ _SIGNATURES = {
     "tapclip_int8_gemm": (P, P, P, P, I, I, I, I, P),
     # K -> Kp, the depth of int8_gemm's transposed B scratch [N, Kp]
     "tapclip_int8_gemm_kp": (I,),
+    # b, bt, K, N, stream: b [K, N] int8 -> bt [N, Kp] K-major
+    "tapclip_int8_transpose": (P, P, I, I, P),
     # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, R, W, H, eps, rows,
     # erf3, ln1pass, ilv, dtype, stream
     "tapclip_fused_mlp_variant": (P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, I, P),

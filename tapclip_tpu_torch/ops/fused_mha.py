@@ -9,12 +9,14 @@ is K2 (``csrc/attn_block.cu``, which replaces the Pallas
 ``_attn_block_kernel``), four hand-written launches on the tensor cores: LN,
 the QKV product into an f32 workspace ``[B*T, 3W]``, attention per (batch
 row, head, query tile) into ``[B, T, W]``, then out-projection + bias +
-residual; its backward is B4 (``csrc/attn_block_bwd.cu`` +
-``csrc/gemm.cu``, which replace ``_attn_block_bwd_kernel``).  On a CPU tensor they run
+residual; its backward is B4 (``csrc/attn_block_bwd.cu``, which replaces
+``_attn_block_bwd_kernel``): LN, the QKV, gh and dy products and the
+attention core on the tensor cores, seven launches, with the weight
+gradients by ``csrc/gemm.cu``.  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
-recomputes LN, QKV and the probabilities, as the TPU kernel does.  B4 holds
-a head's ``[T, T]`` f32 tile in shared memory; past that (T over 210 at head
+recomputes LN, QKV and the probabilities, as the TPU kernel does.  Where
+B7's ``[T, T]`` f32 tile no longer fits in shared memory (T over 210 at head
 dim 64) the backward differentiates the split composition (plain
 projections around :func:`fused_mha`), as the JAX ``_attn_block_bwd`` does.
 
@@ -236,17 +238,21 @@ def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, 
 
 
 def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps,
-                         *, weight_grads=True):
-    """B4 on the card (the launch chain of ``csrc/attn_block_bwd.cu``).
-    Returns the seven gradients of :func:`attn_block_bwd_reference` (the six
-    weight gradients None without ``weight_grads``)."""
+                         *, weight_grads=True, split=None):
+    """B4 on the card: the seven launches of ``csrc/attn_block_bwd.cu`` (dx,
+    and with ``weight_grads`` o and the LayerNorm partials for the weight
+    gradients), then the A^T.B products and column sums.  ``split``: the
+    split of dy's depth into f32 partials (1, 2 or 4; None takes the
+    kernel's choice for the shape).  Returns the seven gradients of
+    :func:`attn_block_bwd_reference` (the six weight gradients None without
+    ``weight_grads``)."""
     B, T, W = x.shape
     R = B * T
     Dh = _check_heads(T, W, n_heads, valid)
     lib = _build.library()
     if not _tile_fits(T, Dh):
         raise ValueError(
-            f"attention block backward kernel holds a [T, T] f32 tile in shared memory: "
+            f"attention block backward kernel runs where B7's [T, T] tile fits: "
             f"T={T} exceeds its limit of {lib.tapclip_attn_bwd_max_seq(Dh)} at head dim {Dh} "
             f"(the autograd Function differentiates the split composition there)"
         )
@@ -263,36 +269,32 @@ def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid,
     for name, (t, dt, shape) in ops.items():
         _build.check_cuda_operand(name, t, dt, shape)
     t = {name: v[0] for name, v in ops.items()}
+    align = 4 * x.element_size()  # the GEMMs copy 4 elements at a time at least
+    for name in ("x", "g", "w_qkv", "w_out"):
+        if t[name].data_ptr() % align:
+            raise ValueError(f"attention block backward kernel copies {name} in {align}-byte chunks: it must be "
+                             f"{align}-byte aligned")
     code = _build.dtype_code(dtype)
-    stream = _build.stream_handle(dev)
-
-    y = torch.empty((R, W), dtype=dtype, device=dev)
-    mean = torch.empty((R,), dtype=f32, device=dev)
-    rstd = torch.empty((R,), dtype=f32, device=dev)
-    err = lib.tapclip_ln_rows(x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(),
-                              y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), R, W, float(eps),
-                              code, stream)
-    _build.check(err, "tapclip_ln_rows")
-    g2 = g.reshape(R, W)
-    qkv = gemm_f32(y, t["w_qkv"], bias=t["b_qkv"])
-    gh = gemm_f32(g2, t["w_out"], trans_b=True)
-    attn = torch.empty((R, W), dtype=dtype, device=dev)
-    dqkv = torch.empty((R, 3 * W), dtype=dtype, device=dev)
-    err = lib.tapclip_attn_bwd_core(qkv.data_ptr(), gh.data_ptr(), attn.data_ptr(), dqkv.data_ptr(),
-                                    B, T, W, n_heads, int(valid), code, stream)
-    _build.check(err, "tapclip_attn_bwd_core")
-    dy = gemm_f32(dqkv, t["w_qkv"], trans_b=True)
+    S = lib.tapclip_attn_block_bwd_split(R, W, code) if split is None else int(split)
+    if S not in (1, 2, 4):
+        raise ValueError(f"attention block backward kernel splits dy's depth 1, 2 or 4 ways, got {S}")
     dx = torch.empty_like(x)
+    # qkv, gh, dy partials, mean, rstd, lse, delta
+    ws = torch.empty(R * (4 * W + S * W + 2 + 2 * n_heads), dtype=f32, device=dev)
+    wsd = torch.empty(R * (5 * W if weight_grads else 4 * W), dtype=dtype, device=dev)  # y, dqkv, o
     part = torch.empty((-(-R // 16), 2 * W), dtype=f32, device=dev) if weight_grads else None
-    err = lib.tapclip_ln_bwd_rows(
-        x.data_ptr(), g.data_ptr(), dy.data_ptr(), t["gamma"].data_ptr(), mean.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), None if part is None else part.data_ptr(), R, W,
-        int(weight_grads), code, stream,
+    err = lib.tapclip_attn_block_bwd(
+        x.data_ptr(), g.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(),
+        t["b_qkv"].data_ptr(), t["w_out"].data_ptr(), dx.data_ptr(), ws.data_ptr(), wsd.data_ptr(),
+        None if part is None else part.data_ptr(), B, T, W, n_heads, int(valid), float(eps), S,
+        int(weight_grads), code, _build.stream_handle(dev),
     )
-    _build.check(err, "tapclip_ln_bwd_rows")
+    _build.check(err, "tapclip_attn_block_bwd")
     fused_attn_block.bwd_launches += 1
     if not weight_grads:
         return dx, None, None, None, None, None, None
+    y, dqkv, attn = wsd[:R * W].view(R, W), wsd[R * W:4 * R * W].view(R, 3 * W), wsd[4 * R * W:].view(R, W)
+    g2 = g.reshape(R, W)
     ln_sums = col_sum(part)
     return (dx, ln_sums[:W], ln_sums[W:], gemm_f32(y, dqkv, trans_a=True), col_sum(dqkv),
             gemm_f32(attn, g2, trans_a=True), col_sum(g2))

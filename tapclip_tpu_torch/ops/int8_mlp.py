@@ -22,14 +22,18 @@ Two modes, each computing what the JAX package computes in it:
   ``_xla_int8_reference``'s function (LayerNorm's output rounded to the
   compute dtype before it is quantized).
 
-:func:`int8_mlp_block` launches the hand-written CUDA kernel B13
-(``csrc/int8_mlp.cu``) on a CUDA tensor in either mode, and runs the plain
-version (:func:`int8_mlp_plain`) on a CPU tensor.  The TPU wrapper sends the
+:func:`int8_mlp_block` launches the hand-written CUDA kernels of B13
+(``csrc/int8_mlp.cu``: LayerNorm and codes, the fc product, the hidden
+rows' codes, the proj product, on the int8 tensor cores) on a CUDA tensor in
+either mode, and runs the plain version (:func:`int8_mlp_plain`) on a CPU
+tensor.  The TPU wrapper sends the
 shapes its kernel rejects (``W % 128``, ``H % 128``, ``T % 8``, ``B*T % 32``)
 to the round-to-nearest model; the card's kernel takes every shape, so the
 port rounds stochastically wherever the stochastic mode is asked for
-(``ROADMAP.md`` §C).  The kernel's compile-time variants ``erf3`` and
-``recipmul`` are the A/B variants of ``scripts/int8_mlp_ab.py`` (S5).
+(``ROADMAP.md`` §C).  The earlier one-launch ``__dp4a`` kernel stays as
+:func:`int8_mlp_walk`, whose compile-time variants ``erf3`` and
+``recipmul`` are the A/B variants of ``scripts/int8_mlp_ab.py`` (S5); the new
+kernels equal its flags-off form bit for bit.
 """
 
 from __future__ import annotations
@@ -161,11 +165,11 @@ def gelu(h: torch.Tensor, use_erf3: bool = False) -> torch.Tensor:
     return 0.5 * h * (1.0 + (erf_as3(z) if use_erf3 else torch.erf(z)))
 
 
-def int8_mlp_plain(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
-                   erf3=False, recipmul=False):
-    """Plain version of B13 on the quantized weights ``q`` (:func:`quantize_mlp`):
-    the TPU kernel's function with the port's draws, or (``deterministic``)
-    ``_xla_int8_reference``'s.  ``erf3`` / ``recipmul``: S5's variants."""
+def int8_mlp_plain_parts(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
+                         erf3=False, recipmul=False) -> Dict[str, torch.Tensor]:
+    """:func:`int8_mlp_plain` with its intermediates: the codes and scales of
+    LayerNorm's output (``yq``, ``t1``) and of the hidden rows (``h``, ``hq``,
+    ``t2``), and ``out`` in x's dtype and shape."""
     shape, W = x.shape, x.shape[-1]
     x2 = x.reshape(-1, W)
     y = ln_f32(x2, gamma, beta, eps)
@@ -174,7 +178,17 @@ def int8_mlp_plain(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
     h = gelu(int_dot(yq, q["w_fc"]) * t1 * q["s_fc"] + q["b_fc"], erf3)
     hq, t2 = quantize_activations(h, x.dtype, seed, STREAM_MLP_H, deterministic, recipmul=recipmul)
     out = int_dot(hq, q["w_proj"]) * t2 * q["s_proj"] + q["b_proj"]
-    return (out + x2.float()).to(x.dtype).reshape(shape)
+    return {"yq": yq, "t1": t1, "h": h, "hq": hq, "t2": t2,
+            "out": (out + x2.float()).to(x.dtype).reshape(shape)}
+
+
+def int8_mlp_plain(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
+                   erf3=False, recipmul=False):
+    """Plain version of B13 on the quantized weights ``q`` (:func:`quantize_mlp`):
+    the TPU kernel's function with the port's draws, or (``deterministic``)
+    ``_xla_int8_reference``'s.  ``erf3`` / ``recipmul``: S5's variants."""
+    return int8_mlp_plain_parts(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic,
+                                erf3=erf3, recipmul=recipmul)["out"]
 
 
 def int8_mlp_reference(x, ln_params, mlp_params, eps: float = 1e-5):
@@ -202,7 +216,7 @@ def int8_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5,
 
 
 int8_mlp_block.launches = 0
-int8_mlp_block.variant_launches = 0  # S5: erf3 / recipmul, off the serving path
+int8_mlp_block.variant_launches = 0  # S5 and its flags-off parent (the walk), off the serving path
 
 
 def pack_k4(w_q: torch.Tensor) -> torch.Tensor:
@@ -221,37 +235,88 @@ def _f32_operand(name, t, shape):
     return t
 
 
-def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
-                  erf3=False, recipmul=False):
-    """B13 on the card (one launch) on the quantized weights ``q``."""
+def k_major(w_q: torch.Tensor, Kp: int) -> torch.Tensor:
+    """int8 ``[K, N]`` -> int8 ``[N, Kp]``: the transpose, zeros past K, the
+    tensor cores' B operand layout (``csrc/int8_mma.cuh``).  On the card S6's
+    transpose kernel lays it out (``Kp`` must then be the kernels' depth,
+    ``tapclip_int8_gemm_kp(K)``); on the CPU, torch."""
+    K, N = w_q.shape
+    if w_q.device.type == "cpu":
+        out = w_q.new_zeros((N, Kp))
+        out[:, :K] = w_q.t()
+        return out
+    lib = _build.library()
+    if Kp != lib.tapclip_int8_gemm_kp(K):
+        raise ValueError(f"k_major lays out K={K} to depth {lib.tapclip_int8_gemm_kp(K)} on the card, not {Kp}")
+    _build.check_cuda_operand("w_q", w_q, torch.int8, (K, N))
+    out = torch.empty((N, Kp), dtype=torch.int8, device=w_q.device)
+    _build.check(lib.tapclip_int8_transpose(w_q.data_ptr(), out.data_ptr(), K, N, _build.stream_handle(w_q.device)),
+                 "tapclip_int8_transpose")
+    return out
+
+
+def _mlp_operands(x, gamma, beta, q):
     W = x.shape[-1]
     H = q["w_fc"].shape[1]
-    R = x.numel() // W
-    if deterministic and (erf3 or recipmul):
-        raise ValueError("the erf3 / recipmul variants are stochastic-mode kernels")
-    lib = _build.library()
-    smem = lib.tapclip_int8_mlp_smem_bytes(W, H)
-    if smem > 232448:
-        raise ValueError(f"int8_mlp kernel keeps 8 hidden rows in shared memory: W={W}, H={H} "
-                         f"needs {smem} bytes, more than the 232,448 a block can use")
     _build.check_cuda_operand("x", x, x.dtype)
     for name, shape in (("w_fc", (W, H)), ("w_proj", (H, W))):
         _build.check_cuda_operand(name, q[name], torch.int8, shape)
     f = {name: _f32_operand(name, t, (n,)) for name, t, n in (
         ("gamma", gamma, W), ("beta", beta, W), ("s_fc", q["s_fc"], H), ("b_fc", q["b_fc"], H),
         ("s_proj", q["s_proj"], W), ("b_proj", q["b_proj"], W))}
+    return x.numel() // W, W, H, f
+
+
+def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
+                  erf3=False, recipmul=False):
+    """B13 on the card (four launches on the int8 tensor cores) on the
+    quantized weights ``q``; ``erf3`` / ``recipmul`` run S5's variants of
+    the walk (:func:`int8_mlp_walk`) instead."""
+    if erf3 or recipmul:
+        return int8_mlp_walk(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic,
+                             erf3=erf3, recipmul=recipmul)
+    R, W, H, f = _mlp_operands(x, gamma, beta, q)
+    lib = _build.library()
+    Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
+    w_fc, w_proj = k_major(q["w_fc"], Wp), k_major(q["w_proj"], Hp)
+    dev = x.device
+    out = torch.empty_like(x)
+    h = torch.empty((R, H), dtype=torch.float32, device=dev)  # the hidden rows, through L2
+    yq = torch.empty((R, Wp), dtype=torch.int8, device=dev)
+    hq = torch.empty((R, Hp), dtype=torch.int8, device=dev)
+    scales = torch.empty((3, R), dtype=torch.float32, device=dev)  # t1, t2, max |h| of each row
+    err = lib.tapclip_int8_mlp(
+        x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_fc.data_ptr(), f["s_fc"].data_ptr(),
+        f["b_fc"].data_ptr(), w_proj.data_ptr(), f["s_proj"].data_ptr(), f["b_proj"].data_ptr(), out.data_ptr(),
+        h.data_ptr(), yq.data_ptr(), hq.data_ptr(), scales.data_ptr(), R, W, H, float(eps),
+        int(seed) & 0xFFFFFFFF, int(deterministic), _build.dtype_code(x.dtype), _build.stream_handle(dev),
+    )
+    _build.check(err, "tapclip_int8_mlp")
+    int8_mlp_block.launches += 1
+    return out
+
+
+def int8_mlp_walk(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False, erf3=False, recipmul=False):
+    """S5 and its parent on the card: the one-launch ``__dp4a`` walk (the
+    earlier B13), with none, one or both of the ``erf3`` / ``recipmul``
+    switches, on the quantized weights ``q``."""
+    if deterministic and (erf3 or recipmul):
+        raise ValueError("the erf3 / recipmul variants are stochastic-mode kernels")
+    R, W, H, f = _mlp_operands(x, gamma, beta, q)
+    lib = _build.library()
+    smem = lib.tapclip_int8_mlp_walk_smem_bytes(W, H)
+    if smem > 232448:
+        raise ValueError(f"int8_mlp walk keeps 8 hidden rows in shared memory: W={W}, H={H} "
+                         f"needs {smem} bytes, more than the 232,448 a block can use")
     w_fc, w_proj = pack_k4(q["w_fc"]), pack_k4(q["w_proj"])
     out = torch.empty_like(x)
-    err = lib.tapclip_int8_mlp(
+    err = lib.tapclip_int8_mlp_walk(
         x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_fc.data_ptr(),
         f["s_fc"].data_ptr(), f["b_fc"].data_ptr(), w_proj.data_ptr(), f["s_proj"].data_ptr(),
         f["b_proj"].data_ptr(), out.data_ptr(), R, W, H, float(eps), int(seed) & 0xFFFFFFFF,
         int(deterministic), int(erf3) | 2 * int(recipmul), _build.dtype_code(x.dtype),
         _build.stream_handle(x.device),
     )
-    _build.check(err, "tapclip_int8_mlp")
-    if erf3 or recipmul:
-        int8_mlp_block.variant_launches += 1
-    else:
-        int8_mlp_block.launches += 1
+    _build.check(err, "tapclip_int8_mlp_walk")
+    int8_mlp_block.variant_launches += 1
     return out

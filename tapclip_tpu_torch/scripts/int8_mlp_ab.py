@@ -2,17 +2,19 @@
 
     python3 -m tapclip_tpu_torch.scripts.int8_mlp_ab [--batch B] [--model NAME] [--reps N]
 
-Counterpart of ``scripts/int8_mlp_ab.py``: B13 (``csrc/int8_mlp.cu``) in the
-stochastic mode, as built (``erff``, ``v / s``) and with its two
+Counterpart of ``scripts/int8_mlp_ab.py``: the one-launch ``__dp4a`` walk
+(``csrc/int8_mlp.cu``, ``int8_mlp_walk``) in the stochastic mode, as built
+(``erff``, ``v / s``: the base, the variants' parent) and with its two
 compile-time variants, ``erf3`` (the A&S 3-term erf, |err| <= 2.5e-5) and
 ``recipmul`` (``v * (127 / amax)`` in place of the division), alone and
 together, at the model's vision width (default ViT-B/16, batch 8: rows
 8 x 200, W 768, H 3,072).  Each variant is held against the base output by
 the norm-relative error (the same random draws, so the only differences are
-the variant's roundings) and against its own plain version; the variants are
-timed in turns (base, erf3, recipmul, both, repeated ``--reps`` times, CUDA
-events) and the medians printed in one JSON line after the card's name and
-power limit.
+the variant's roundings) and against its own plain version; B13 on the
+tensor cores (``int8_mlp_cuda``) is held against the base bit for bit.  The
+variants and B13 are timed in turns (base, erf3, recipmul, both, B13,
+repeated ``--reps`` times, CUDA events) and the medians printed in one JSON
+line after the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None) -> dict:
     """Errors and median CUDA-event ms of each variant."""
     import torch
 
-    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_plain
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_plain, int8_mlp_walk
     from tapclip_tpu_torch.scripts._bench_util import time_ms
 
     dtype = dtype or torch.float32
@@ -59,9 +61,12 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None) -> dict:
     out = {"shape": f"{x.shape[0]}x{x.shape[1]}x{x.shape[2]} H{q['w_fc'].shape[1]}",
            "dtype": str(dtype).replace("torch.", ""), "variants": {}}
     with torch.inference_mode():
-        base = int8_mlp_cuda(x, gamma, beta, q).float()
+        base = int8_mlp_walk(x, gamma, beta, q).float()
+        b13 = int8_mlp_cuda(x, gamma, beta, q)
+        out["b13_equals_base"] = bool(torch.equal(b13.float(), base))
+        out["b13_ms"] = []
         for name, flags in VARIANTS.items():
-            got = int8_mlp_cuda(x, gamma, beta, q, **flags).float()
+            got = int8_mlp_walk(x, gamma, beta, q, **flags).float()
             plain = int8_mlp_plain(x, gamma, beta, q, **flags).float()
             torch.cuda.synchronize()
             out["variants"][name] = {
@@ -75,9 +80,11 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None) -> dict:
         for _ in range(reps):
             for name, flags in VARIANTS.items():
                 out["variants"][name]["ms"].append(
-                    time_ms(lambda: int8_mlp_cuda(x, gamma, beta, q, **flags), 10, 2))
+                    time_ms(lambda: int8_mlp_walk(x, gamma, beta, q, **flags), 10, 2))
+            out["b13_ms"].append(time_ms(lambda: int8_mlp_cuda(x, gamma, beta, q), 10, 2))
     for v in out["variants"].values():
         v["median_ms"] = statistics.median(v["ms"])
+    out["b13_median_ms"] = statistics.median(out["b13_ms"])
     base_ms = out["variants"]["base"]["median_ms"]
     for v in out["variants"].values():
         v["ratio"] = v["median_ms"] / base_ms

@@ -1,6 +1,6 @@
-"""Device time of each CUDA kernel behind K1, K2, B5 and S6, read from a profiler trace.
+"""Device time of each CUDA kernel behind K1, K2, B5, B4, B13 and S6, read from a profiler trace.
 
-    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N]
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels K1,B4,...]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and runs ``torch.profiler`` over
@@ -13,18 +13,26 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
   the text shape (8 x 88, W 512, 8 heads, valid 82), both dtypes;
 * B5 (``_fused_mlp_bwd_cuda``, dx alone and all seven gradients) at the
   text shape (H 2,048) and the image shape (H 3,072), both dtypes;
+* B4 (``_attn_block_bwd_cuda``, dx alone and all seven gradients) at the
+  text shape (8 x 88, W 512, 8 heads, valid 82) and the image shape (8 x
+  200, W 768, 12 heads, valid 197), both dtypes;
+* B13 (``int8_mlp_cuda`` on weights quantized once) at the image shape
+  (8 x 200, W 768, H 3,072), stochastic and round to nearest, both dtypes;
 * S6 (``int8_gemm``) at the probe's shape (51,200 x 768 x 3,072) and at
   B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768).
 
 A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
 LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
 LayerNorm backward, and with all gradients gemm.cu's products and column
-sums; S6: the transpose of B, the product); the trace splits the call's
+sums; B4 likewise its LayerNorm, products, attention core and LayerNorm
+backward; B13 its launches and the wrapper's weight layout; S6: the
+transpose of B, the product); the trace splits the call's
 device time among them (launches of one kernel and template list summed).  Prints the card's name and power limit, then one JSON line per case:
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
-Exits 1 without a card, or when the trace holds no device time.
+``--kernels`` keeps only the named ones (default: all six).  Exits 1
+without a card, or when the trace holds no device time.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from pathlib import Path
 K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
 K2_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "text 8x88x512 h8 valid82": (8, 88, 512, 8, 82)}
 B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
+B4_SHAPES = {"text 8x88x512 h8 valid82": (8, 88, 512, 8, 82), "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197)}
+B13_SHAPES = {"image 8x200x768 H3072": (8, 200, 768)}
 S6_SHAPES = {"probe": (51_200, 768, 3_072), "b13 fc": (1_600, 768, 3_072), "b13 proj": (1_600, 3_072, 768)}
 
 
@@ -75,7 +85,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,S6")
     args = ap.parse_args()
+    want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
@@ -84,9 +96,10 @@ def main() -> int:
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, quantize_mlp
 
     sys.path.append(str(Path(__file__).resolve().parent))
     from _bench_util import card_line
@@ -99,37 +112,54 @@ def main() -> int:
     def rn(*shape, s=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * s
 
+    def emit(kernel, case, dtype, res):
+        dt = {} if dtype is None else {"dtype": str(dtype).replace("torch.", "")}
+        print(json.dumps({"kernel": kernel, "case": case, **dt, **res}), flush=True)
+
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            for label, (B, T, W) in K1_SHAPES.items():
+            for label, (B, T, W) in K1_SHAPES.items() if "K1" in want else ():
                 x = rn(B, T, W).to(dtype)
                 ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
                 mlp = {"w_fc": rn(W, 4 * W, s=W ** -0.5), "b_fc": rn(4 * W, s=0.1),
                        "w_proj": rn(4 * W, W, s=(4 * W) ** -0.5), "b_proj": rn(W, s=0.1)}
                 res = profile(lambda: fused_mlp_block(x, ln, mlp), args.iters)
-                print(json.dumps({"kernel": "K1", "case": label, "dtype": str(dtype).replace("torch.", ""), **res}),
-                      flush=True)
-            for label, (B, T, W, nh, valid) in K2_SHAPES.items():
+                emit("K1", label, dtype, res)
+            for label, (B, T, W, nh, valid) in K2_SHAPES.items() if "K2" in want else ():
                 x = rn(B, T, W).to(dtype)
                 ln = {"scale": 1.0 + rn(W, s=0.1), "bias": rn(W, s=0.1)}
                 attn = {"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
                         "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)}
                 res = profile(lambda: fused_attn_block(x, ln, attn, nh, valid_len=valid), args.iters)
-                print(json.dumps({"kernel": "K2", "case": label, "dtype": str(dtype).replace("torch.", ""), **res}),
-                      flush=True)
-            for label, (B, T, W) in B5_SHAPES.items():
+                emit("K2", label, dtype, res)
+            for label, (B, T, W) in B5_SHAPES.items() if "B5" in want else ():
                 x, g = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
                 prm = (1.0 + rn(W, s=0.1), rn(W, s=0.1), rn(W, 4 * W, s=W ** -0.5), rn(4 * W, s=0.1),
                        rn(4 * W, W, s=(4 * W) ** -0.5))
                 for mode, want_w in (("dx", False), ("all", True)):
                     res = profile(lambda: _fused_mlp_bwd_cuda(x, g, *prm, eps=1e-5, weight_grads=want_w), args.iters)
-                    print(json.dumps({"kernel": f"B5 {mode}", "case": label, "dtype": str(dtype).replace("torch.", ""),
-                                      **res}), flush=True)
-        for label, (M, K, N) in S6_SHAPES.items():
+                    emit(f"B5 {mode}", label, dtype, res)
+            for label, (B, T, W, nh, valid) in B4_SHAPES.items() if "B4" in want else ():
+                x, g = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
+                prm = (1.0 + rn(W, s=0.1), rn(W, s=0.1), rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1),
+                       rn(W, W, s=W ** -0.5))
+                for mode, want_w in (("dx", False), ("all", True)):
+                    res = profile(lambda: _attn_block_bwd_cuda(x, g, *prm, nh, valid, 1e-5, weight_grads=want_w),
+                                  args.iters)
+                    emit(f"B4 {mode}", label, dtype, res)
+            for label, (B, T, W) in B13_SHAPES.items() if "B13" in want else ():
+                x = rn(B, T, W).to(dtype)
+                gamma, beta = 1.0 + rn(W, s=0.1), rn(W, s=0.1)
+                q = quantize_mlp({"w_fc": rn(W, 4 * W, s=W ** -0.5), "b_fc": rn(4 * W, s=0.1),
+                                  "w_proj": rn(4 * W, W, s=(4 * W) ** -0.5), "b_proj": rn(W, s=0.1)})
+                for mode, det in (("stochastic", False), ("round-to-nearest", True)):
+                    res = profile(lambda: int8_mlp_cuda(x, gamma, beta, q, deterministic=det), args.iters)
+                    emit(f"B13 {mode}", label, dtype, res)
+        for label, (M, K, N) in S6_SHAPES.items() if "S6" in want else ():
             a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
             b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
             res = profile(lambda: int8_gemm(a, b), args.iters)
-            print(json.dumps({"kernel": "S6", "case": f"{label} {M}x{K}x{N}", **res}), flush=True)
+            emit("S6", f"{label} {M}x{K}x{N}", None, res)
     return 0
 
 

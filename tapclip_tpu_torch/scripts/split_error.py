@@ -34,6 +34,14 @@ tests' K2 shapes).  :func:`emulated_mlp_bwd_errors` emulates B5's dx
 (``csrc/mlp_bwd.cu``): the fc recompute, dh = g . w_proj^T and
 dy = dh_pre . w_fc^T on split operands, against ``fused_mlp_bwd_reference``
 at ``MLP_BWD_SHAPES`` (the card tests' B5 shapes).
+:func:`emulated_attn_block_bwd_errors` emulates B4 (``csrc/attn_block_bwd.cu``):
+the QKV recompute, gh = g . w_out^T and dy = dqkv . w_qkv^T on split operands,
+and its attention core (the row LSE, then p, o = p v and dv = p^T gh with p,
+v and gh in three terms in f32 and their bf16 rounding in bf16, dp = gh v^T,
+dq = ds k and dk = ds^T q in three terms in both dtypes, delta = sum(dp p)),
+with the weight gradients as the plain products of its o and dqkv, against
+``attn_block_bwd_reference`` at ``ATTN_BWD_SHAPES`` (the card tests' B4
+shapes): the norm-relative error of each of the seven gradients.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from tapclip_tpu_torch.ops.flash_attention import (
     attention_bwd_reference,
     attention_lse_reference,
 )
-from tapclip_tpu_torch.ops.fused_mha import attn_block_reference
+from tapclip_tpu_torch.ops.fused_mha import attn_block_bwd_reference, attn_block_reference
 from tapclip_tpu_torch.ops.fused_mlp import _ln_parts, fused_mlp_bwd_reference, fused_mlp_reference, ln_backward
 
 # (B, H, T, Dh, per-row valid), as FLASH_SHAPES of tests/port/test_torch_gpu.py.
@@ -68,6 +76,11 @@ ATTN_SHAPES = [(3, 13, 128, 8, 1), (2, 33, 128, 1, 33), (2, 65, 256, 8, 40), (2,
                (8, 88, 512, 8, 82), (1, 129, 1024, 8, 100), (8, 200, 768, 12, 197), (1, 264, 1024, 16, 257)]
 # (rows, W) of B5 (H = 4 W), as B5_EDGES of tests/port/test_torch_gpu.py.
 MLP_BWD_SHAPES = [(21, 32), (37, 64), (90, 128), (300, 256), (704, 512), (1600, 768), (65, 1024)]
+# (B, T, W, heads, valid) of B4, as the B4 shapes of tests/port/test_torch_gpu.py
+# (test_fused_attn_block_bwd_kernel, B4_EDGES).
+ATTN_BWD_SHAPES = [(2, 16, 128, 2, 13), (1, 65, 64, 4, 65), (3, 88, 256, 2, 82), (1, 40, 256, 8, 33),
+                   (8, 88, 512, 8, 82), (2, 200, 768, 12, 197), (2, 33, 128, 4, 30), (1, 210, 512, 8, 205),
+                   (1, 97, 256, 2, 90)]
 F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
 ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
 
@@ -274,6 +287,72 @@ def emulated_mlp_bwd_errors(R, W, dtype=torch.float32, f32_terms=F32_TERMS, seed
     return {"dx_rel": _rel(got, want), "dx_abs": float((got.float() - want.float()).abs().max())}
 
 
+def emulate_attn_block_bwd(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps=1e-5,
+                           f32_terms=F32_TERMS):
+    """B4 as the card computes it: LayerNorm in f32, y rounded; the QKV
+    recompute (f32 out, v unrounded) and gh = g . w_out^T on split operands
+    (``f32_terms`` terms each in f32, one in bf16); the core on f32 q, k, v,
+    gh in ``f32_terms`` terms, except where the TPU kernel rounds to the
+    dtype (p and v for o, p and gh for dv: one term, their bf16 rounding, in
+    bf16): the row LSE of the masked log2-domain scores, p = exp2(s - lse),
+    delta = sum(dp p), ds = p (dp - delta) scale; o and dqkv rounded; dy on
+    split operands; dx = g + the LayerNorm backward.  The weight gradients
+    are the plain products of the emulated y, o and dqkv.  Returns the
+    seven gradients of ``attn_block_bwd_reference``."""
+    dt = x.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    B, T, W = x.shape
+    Dh = W // n_heads
+    scale = Dh ** -0.5
+    n, rstd, y = _ln_parts(x, gamma, beta, eps)
+    y32 = y.float()
+    wq = w_qkv.to(dt).float()
+    qkv = split_matmul(y32, wq, nt, nt) + b_qkv.float()
+    gc = g.float()
+    gh = _heads(split_matmul(gc, w_out.to(dt).float().T, nt, nt), n_heads)
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    s = split_matmul(q, k.transpose(-1, -2), f32_terms, f32_terms) * (scale * _LOG2E)
+    keys = torch.arange(T) < valid
+    s = torch.where(keys, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(keys, torch.exp2(s - lse), torch.zeros_like(s))
+    o = split_matmul(p, v, nt, nt)
+    dp = split_matmul(gh, v.transpose(-1, -2), f32_terms, f32_terms)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dv = split_matmul(p.transpose(-1, -2), gh, nt, nt)
+    dq = split_matmul(ds, k, f32_terms, f32_terms)
+    dk = split_matmul(ds.transpose(-1, -2), q, f32_terms, f32_terms)
+
+    def merge(t):  # [B, H, T, Dh] -> [B T, W], rounded to the dtype
+        return t.transpose(1, 2).reshape(B * T, W).to(dt).float()
+
+    attn = merge(o)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+    dy = split_matmul(dqkv, wq.T, nt, nt).reshape(B, T, W)
+    dx_ln, dgn, dbn = ln_backward(dy, n, rstd, gamma)
+    g2 = gc.reshape(B * T, W)
+    return ((gc + dx_ln).to(dt), dgn.sum((0, 1)), dbn.sum((0, 1)), y32.reshape(B * T, W).T @ dqkv,
+            dqkv.sum(0), attn.T @ g2, g2.sum(0))
+
+
+def emulated_attn_block_bwd_errors(B, T, W, n_heads, valid, dtype=torch.float32, f32_terms=F32_TERMS,
+                                   seed=0) -> dict:
+    """B4's emulated gradients against ``attn_block_bwd_reference``'s on the
+    same inputs (x and the cotangent in ``dtype``): the norm-relative error
+    of each (``dx_rel``, ``dgamma_rel``, ..., ``db_out_rel``), and
+    ``dx_abs``."""
+    x, gamma, beta, w_qkv, b_qkv, w_out, _ = attn_block_inputs(B, T, W, seed)
+    g = attn_block_inputs(B, T, W, seed + 1)[0]
+    x, g = x.to(dtype), g.to(dtype)
+    got = emulate_attn_block_bwd(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, f32_terms=f32_terms)
+    want = attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, 1e-5)
+    names = ("dx", "dgamma", "dbeta", "dw_qkv", "db_qkv", "dw_out", "db_out")
+    errs = {f"{n}_rel": _rel(a, b) for n, a, b in zip(names, got, want)}
+    errs["dx_abs"] = float((got[0].float() - want[0].float()).abs().max())
+    return errs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")
@@ -296,6 +375,10 @@ def main() -> int:
             errs = emulated_mlp_bwd_errors(R, W, dtype, args.terms)
             print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B5",
                               "rows": R, "W": W, "H": 4 * W, **errs}))
+        for B, T, W, heads, valid in ATTN_BWD_SHAPES:
+            errs = emulated_attn_block_bwd_errors(B, T, W, heads, valid, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B4",
+                              "shape": [B, T, W], "heads": heads, "valid": valid, **errs}))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Time the half-block kernels K1, K2 and B5 of one checkout of the port.
+"""Time the half-block kernels K1, K2, B5, B4 and B13 of one checkout of the port.
 
-    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N]
+    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B4,B13]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and prints one JSON line: the card's
@@ -16,17 +16,26 @@ calls, ``--runs`` readings each), float32 and bfloat16, of
   and its out-projection ``tapclip_gemm_bias_residual``, each alone and
   together); B5 for dx alone (``tapclip_mlp_bwd``, or before
   ``tapclip_mlp_bwd_rows``), at the split of dy's depth it chooses and, where
-  it takes a ``split``, at each of 1, 2 and 4.
+  it takes a ``split``, at each of 1, 2 and 4;
+* B4's wrapper (``_attn_block_bwd_cuda``) for dx alone and for all seven
+  gradients, and its launches alone for dx (``tapclip_attn_block_bwd``, in
+  a checkout that has it) at its split of dy's depth and at 1, 2 and 4;
+* B13's wrapper (``int8_mlp_cuda`` on weights quantized once: it lays them
+  out on every call) and its launches alone on weights laid out once
+  (``tapclip_int8_mlp``: in a checkout from before its tensor-core design the
+  one ``__dp4a`` launch on packed weights), stochastic and round to nearest.
 
 K1 at ViT-B/16's image shape (8 x 200 rows, W 768) and the text tower's
 shapes (a 64-text batch, 64 x 80 rows, and 8 x 88 rows, W 512); K2 at the
 image shape (12 heads, valid 197) and the text shape (8 x 88, W 512, 8
 heads, valid 82); B5 at the text shape (H 2,048) and the image shape (H
-3,072).  Each launcher's C signature is read from the checkout's own
+3,072); B4 at K2's two shapes; B13 at the image shape (H 3,072) and the
+pruned one (8 x 96 rows).  Each launcher's C signature is read from the checkout's own
 ``_build._SIGNATURES``: where K1 takes a scratch pointer (h and y, R (H + W)
 elements of the dtype) the scratch is allocated once beside the buffers.
 
-To compare two commits on one card, unpack both and run this file against
+``--kernels`` times only the named kernels (default: all five).  To
+compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
 """
 
@@ -40,6 +49,8 @@ from pathlib import Path
 K2_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "text 8x88x512 h8 valid82": (8, 88, 512, 8, 82)}
 K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 512), "text 8x88x512": (8, 88, 512)}
 B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
+B13_SHAPES = {"image 8x200x768 H3072": (8, 200, 768), "pruned 8x96x768 H3072": (8, 96, 768)}
+B13_WALK_ARGS = 19  # tapclip_int8_mlp's arguments in the __dp4a design (packed weights, no scratch)
 B5_SPLITS = (1, 2, 4)  # the splits of dy's depth that tapclip_mlp_bwd takes, each timed where it takes one
 K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
 
@@ -48,7 +59,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13")
     args = ap.parse_args()
+    want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
 
     import torch
@@ -57,7 +70,8 @@ def main() -> int:
         print("time_half_blocks: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
+    from tapclip_tpu_torch.ops import int8_mlp
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
 
     # This file's own helpers, whichever checkout the package comes from.
@@ -153,8 +167,55 @@ def main() -> int:
             calls[f"B5 dx wrapper {label}"] = lambda x=x, g=g, prm=prm: _fused_mlp_bwd_cuda(
                 x, g, *prm, eps=1e-5, weight_grads=False)
             calls[f"B5 all wrapper {label}"] = lambda x=x, g=g, prm=prm: _fused_mlp_bwd_cuda(x, g, *prm, eps=1e-5)
+        for label, (B, T, W, nh, valid) in K2_SHAPES.items():
+            x, g, ln = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype), ln_params(W)
+            prm = (ln["scale"], ln["bias"], rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1), rn(W, W, s=W ** -0.5))
+            R = B * T
+            if "tapclip_attn_block_bwd" in sig:
+                wd = (prm[2].to(dtype), prm[4].to(dtype))
+                dx = torch.empty_like(x)
+                auto = lib.tapclip_attn_block_bwd_split(R, W, code)
+                for i, S in enumerate((auto, *B5_SPLITS)):
+                    ws = torch.empty(R * (4 * W + S * W + 2 + 2 * nh), device="cuda")
+                    wsd = torch.empty(R * 4 * W, dtype=dtype, device="cuda")
+                    a = (x.data_ptr(), g.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), wd[0].data_ptr(),
+                         prm[3].data_ptr(), wd[1].data_ptr(), dx.data_ptr(), ws.data_ptr(), wsd.data_ptr(), None,
+                         B, T, W, nh, valid, 1e-5, S, 0, code, stream)
+                    keep = (x, g, dx, ws, wsd, wd, prm)
+                    name = f"B4 dx launches split {S} {label}" if i else f"B4 dx launches {label}"
+                    calls[name] = lambda a=a, keep=keep: lib.tapclip_attn_block_bwd(*a)
+            for mode, want_w in (("dx", False), ("all", True)):
+                calls[f"B4 {mode} wrapper {label}"] = lambda x=x, g=g, prm=prm, nh=nh, v=valid, w=want_w: (
+                    _attn_block_bwd_cuda(x, g, *prm, nh, v, 1e-5, weight_grads=w))
+
+        for label, (B, T, W) in B13_SHAPES.items():
+            x, ln, H = rn(B, T, W).to(dtype), ln_params(W), 4 * W
+            q = int8_mlp.quantize_mlp(mlp_params(W))
+            R = B * T
+            out = torch.empty_like(x)
+            vec = (q["s_fc"], q["b_fc"], q["s_proj"], q["b_proj"])
+            if len(sig["tapclip_int8_mlp"]) == B13_WALK_ARGS:
+                w = (int8_mlp.pack_k4(q["w_fc"]), int8_mlp.pack_k4(q["w_proj"]))
+                scratch, tail = (), (0,)  # the variant switch
+            else:
+                Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
+                w = (int8_mlp.k_major(q["w_fc"], Wp), int8_mlp.k_major(q["w_proj"], Hp))
+                bufs = (torch.empty((R, H), device="cuda"), torch.empty((R, Wp), dtype=torch.int8, device="cuda"),
+                        torch.empty((R, Hp), dtype=torch.int8, device="cuda"), torch.empty((3, R), device="cuda"))
+                scratch, tail = tuple(t.data_ptr() for t in bufs), ()
+                w = (*w, bufs)
+            for mode, det in (("stochastic", 0), ("round-to-nearest", 1)):
+                a = (x.data_ptr(), ln["scale"].data_ptr(), ln["bias"].data_ptr(), w[0].data_ptr(),
+                     vec[0].data_ptr(), vec[1].data_ptr(), w[1].data_ptr(), vec[2].data_ptr(), vec[3].data_ptr(),
+                     out.data_ptr(), *scratch, R, W, H, 1e-5, 0, det, *tail, code, stream)
+                keep = (x, out, w, vec, ln, q)
+                calls[f"B13 launches {label} {mode}"] = lambda a=a, keep=keep: lib.tapclip_int8_mlp(*a)
+                calls[f"B13 wrapper {label} {mode}"] = lambda x=x, ln=ln, q=q, det=bool(det): int8_mlp.int8_mlp_cuda(
+                    x, ln["scale"], ln["bias"], q, deterministic=det)
         with torch.inference_mode():
             for name, fn in calls.items():
+                if name.split()[0] not in want:
+                    continue
                 readings[f"{name} {dname}"] = [time_ms(fn, 20, 3) for _ in range(args.runs)]
     print(json.dumps({"root": args.root, "card": card_line(), "k1_scratch": k1_scratch, "ms": readings}))
     return 0

@@ -42,7 +42,15 @@ and valid = T, every head dim, W 128 to 1,024; B5 at row counts off its
 tiles, W 32 to 1,024, each split of dy's depth the wrapper can take, dx
 alone and all gradients; each bit for bit against a second call.  K1's
 output is held bit for bit against digests of its output taken before its
-GEMM moved into the shared header.
+GEMM moved into the shared header.  B4 runs its three dx products and its
+attention core on the tensor cores too and is held at its tiles' edges (T
+off the 16-, 32- and 64-row tiles, every head dim, T at
+``tapclip_attn_bwd_max_seq``, each split of dy's depth), dx alone bit for
+bit against dx with every gradient; B7, which B4 no longer shares a core
+with, bit for bit against digests of its output from before.  B13 runs its
+two products on the int8 tensor cores and equals the walk it replaced (S5's
+flags-off kernel) bit for bit, in both modes and dtypes, at row counts off
+its tiles and at H 4,096.
 """
 
 import hashlib
@@ -51,6 +59,7 @@ import numpy as np
 import pytest
 import torch
 
+from tapclip_tpu_torch.ops import _build
 from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.flash_attention import (
     _flash_bwd_dkv_cuda,
@@ -84,7 +93,7 @@ from tapclip_tpu_torch.ops.fused_mlp import (
 )
 from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_plain, quantize_attn
 from tapclip_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
-from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, quantize_mlp
+from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, int8_mlp_walk, quantize_mlp
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 BWD_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -455,6 +464,63 @@ def test_fused_attn_block_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, v
         _close_rel(name, a, b, tol)
 
 
+# B4's tile edges on the tensor cores: the text and image shapes, T not a
+# multiple of its 16-, 32- or 64-row query and key tiles (15, 33, 97, 129),
+# valid = T and valid < T, every head dim; each split of dy's depth.
+B4_EDGES = [(8, 88, 512, 8, 82), (2, 200, 768, 12, 197), (2, 33, 128, 4, 30), (1, 97, 256, 2, 90),
+            (3, 15, 64, 4, 15), (1, 129, 512, 8, 129), (2, 65, 256, 2, 60)]
+B4_EDGE_IDS = ["text-t88", "image-t200", "t33-dh32", "t97-dh128", "t15-dh16", "t129-dh64", "t65-dh128"]
+
+
+def _b4_case(cuda, dtype, B, T, W, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W).to(dtype)
+    p = (1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, 3 * W, scale=W ** -0.5),
+         _randn(gen, 3 * W, scale=0.1), _randn(gen, W, W, scale=W ** -0.5))
+    return x, g, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", B4_EDGES, ids=B4_EDGE_IDS)
+@pytest.mark.parametrize("split", [None, 1, 2, 4], ids=["split-auto", "split1", "split2", "split4"])
+def test_fused_attn_block_bwd_kernel_tile_edges(cuda, dtype, tol, B, T, W, heads, valid, split):
+    x, g, p = _b4_case(cuda, dtype, B, T, W, T * W + heads)
+    got = _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5, split=split)
+    again = _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5, split=split)
+    dx_only = _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5, weight_grads=False, split=split)
+    want = attn_block_bwd_reference(x, g, *p, heads, valid, 1e-5)
+    for name, a, b, c in zip(NAMES, got, want, again):
+        _close_rel(name, a, b, tol)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)  # deterministic: no atomics
+    torch.testing.assert_close(dx_only[0], got[0], rtol=0, atol=0)  # o is off dx's path
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+def test_fused_attn_block_bwd_kernel_at_its_longest_sequence(cuda, dtype, tol, Dh):
+    """B4 at the longest T its autograd Function routes to it
+    (``tapclip_attn_bwd_max_seq``), every head dim."""
+    T = _build.library().tapclip_attn_bwd_max_seq(Dh)
+    heads = 4
+    x, g, p = _b4_case(cuda, dtype, 1, T, heads * Dh, T + Dh)
+    got = _attn_block_bwd_cuda(x, g, *p, heads, T - 3, 1e-5)
+    want = attn_block_bwd_reference(x, g, *p, heads, T - 3, 1e-5)
+    for name, a, b in zip(NAMES, got, want):
+        _close_rel(name, a, b, tol)
+
+
+@pytest.mark.gpu
+def test_fused_attn_block_bwd_kernel_refuses_unaligned_operands_and_splits(cuda):
+    x, g, p = _b4_case(cuda, torch.float32, 1, 3, 64, 7)
+    bad = _randn(torch.Generator(device=cuda).manual_seed(0), 3 * 64 + 1)[1:].view(1, 3, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _attn_block_bwd_cuda(x, bad, *p, 2, 3, 1e-5)
+    with pytest.raises(ValueError, match="split"):
+        _attn_block_bwd_cuda(x, g, *p, 2, 3, 1e-5, split=3)
+
+
 @pytest.mark.gpu
 def test_tiny_model_train_step_kernel_path_matches_plain(cuda):
     """``loss.backward`` through the tiny model on the card (pixels in):
@@ -541,6 +607,44 @@ def test_fused_mha_bwd_kernel(cuda, dtype, tol, B, T, W, heads, valid, causal):
     assert fused_mha.bwd_launches == n + 2 and got.dtype == dtype and got.shape == qkv.shape
     _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, heads, valid, causal), tol)
     torch.testing.assert_close(again, got, rtol=0, atol=0)  # deterministic: no atomics
+
+
+# sha256 (first 16 hex digits) of B7's dqkv on numpy-seeded inputs
+# (``_b7_digest``, as chip_smoke.py's ``b7_digest``), read on an NVIDIA H100
+# 80GB HBM3 (CUDA 12.8) from B7 as it was before B4 left the [T, T]-tile
+# core they shared: B4's redesign must not move a bit of B7.
+B7_BITS = {
+    (torch.float32, 8, 77, 512, 8, 77, True): "129b372b44d225c9",
+    (torch.float32, 64, 80, 512, 8, 77, True): "53834c08d11674dc",
+    (torch.float32, 8, 200, 768, 12, 197, False): "9f93de63cd7a5c68",
+    (torch.float32, 3, 33, 128, 4, 30, True): "64cc89cb2df31824",
+    (torch.float32, 2, 65, 256, 2, 60, False): "37d617bdab94ffa2",
+    (torch.float32, 1, 40, 64, 4, 40, False): "2d26e8479eb2b28c",
+    (torch.bfloat16, 8, 77, 512, 8, 77, True): "601ce7bc0becd207",
+    (torch.bfloat16, 64, 80, 512, 8, 77, True): "c32723762fc62bcd",
+    (torch.bfloat16, 8, 200, 768, 12, 197, False): "9f237bc23d6c41a3",
+    (torch.bfloat16, 3, 33, 128, 4, 30, True): "5b6465e47be84365",
+    (torch.bfloat16, 2, 65, 256, 2, 60, False): "684b900e10008e91",
+    (torch.bfloat16, 1, 40, 64, 4, 40, False): "c8f9d1cec980e381",
+}
+
+
+def _b7_digest(dtype, B, T, W, heads, valid, causal):
+    rng = np.random.default_rng(B * T + W + valid)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
+
+    qkv, g = f(B, T, 3 * W), f(B, T, W)
+    with torch.no_grad():
+        dqkv = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    return hashlib.sha256(dqkv.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(B7_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}" for k in B7_BITS])
+def test_fused_mha_bwd_kernel_bits_unchanged(cuda, key):
+    assert _b7_digest(*key) == B7_BITS[key]
 
 
 @pytest.mark.gpu
@@ -864,6 +968,32 @@ def test_int8_mlp_kernel(cuda, dtype, deterministic, B, T, W):
     _close_update("int8_mlp", got, want, x, INT8_TOL[dtype])
 
 
+# B13 on the int8 tensor cores equals the walk (S5's flags-off kernel, the
+# earlier B13) bit for bit: rows off the 64- and 128-row tiles (8 x 97,
+# 5 x 33, 3 x 7), widths off the 128-column tile and the 64-byte depth (40,
+# 64, 256: H 160, 256, 1,024), the image and pruned shapes and ViT-L/14's
+# H 4,096.
+B13_EDGES = [(8, 200, 768), (8, 96, 768), (8, 97, 256), (5, 33, 64), (3, 7, 40), (1, 264, 1024)]
+B13_EDGE_IDS = ["image", "pruned-t96", "rows776", "rows165-w64", "rows21-w40", "vit-l-h4096"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("B,T,W", B13_EDGES, ids=B13_EDGE_IDS)
+def test_int8_mlp_kernel_equals_the_walk_bit_for_bit(cuda, dtype, deterministic, B, T, W):
+    x, ln, mlp, _ = _int8_case(cuda, B, T, W, B * T + W + 1)
+    x = x.to(dtype)
+    q = quantize_mlp(mlp)
+    with torch.inference_mode():
+        n = (int8_mlp_block.launches, int8_mlp_block.variant_launches)
+        got = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
+        walk = int8_mlp_walk(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
+        assert (int8_mlp_block.launches, int8_mlp_block.variant_launches) == (n[0] + 1, n[1] + 1)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got, walk, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("variant", [dict(erf3=True), dict(recipmul=True), dict(erf3=True, recipmul=True)],
                          ids=["erf3", "recipmul", "both"])
@@ -913,9 +1043,14 @@ def test_int8_blocks_refuse_a_graph_and_bad_operands(cuda):
             int8_attn_block(x, ln, attn, 3)
         with pytest.raises(TypeError):
             int8_mlp_block(x.half(), ln, mlp)
+        # The walk keeps 8 hidden rows in shared memory; B13 keeps them in
+        # device memory and takes the width.
+        x2, ln2, mlp2, _ = _int8_case(cuda, 1, 8, 2048, 4)
+        q2 = quantize_mlp(mlp2)
         with pytest.raises(ValueError, match="shared memory"):
-            x2, ln2, mlp2, _ = _int8_case(cuda, 1, 8, 2048, 4)
-            int8_mlp_block(x2, ln2, mlp2)
+            int8_mlp_walk(x2, ln2["scale"], ln2["bias"], q2)
+        _close_update("int8_mlp W 2048", int8_mlp_block(x2, ln2, mlp2),
+                      int8_mlp_plain(x2, ln2["scale"], ln2["bias"], q2), x2, INT8_TOL[torch.float32])
 
 
 @pytest.mark.gpu

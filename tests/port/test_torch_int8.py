@@ -240,6 +240,77 @@ def test_plain_references_are_the_two_modes():
                                int8_attn.int8_attn_block(x, ln, attn, HEADS, seed=3), rtol=0, atol=0)
 
 
+# --- B13 on the tensor cores, emulated: the column-tiled hidden rows ------------
+
+
+def _emulate_b13(x, gamma, beta, q, *, seed, deterministic, col_tile=128, depth=64):
+    """B13 as ``csrc/int8_mlp.cu`` computes it on the int8 tensor cores: the
+    weights laid out K-major with zeros past K (``k_major``), each int32 sum
+    over ``depth``-byte stages (exact), the fc epilogue per ``col_tile``-column
+    tile of the hidden rows with each tile's largest |h| taken on the f32
+    bits and the row's max the largest over its tiles (the kernel's
+    atomicMax), the hidden codes from that max; then the proj product.
+    Returns (yq, t1, h, hq, t2, out)."""
+    W = x.shape[-1]
+    H = q["w_fc"].shape[1]
+    x2 = x.reshape(-1, W)
+    R = x2.shape[0]
+    Wp, Hp = -(-W // depth) * depth, -(-H // depth) * depth
+
+    def stages(a, bt, K):  # a [R, K] integer-valued, bt [N, Kp] int8: the exact int32 sums
+        a = torch.nn.functional.pad(a, (0, bt.shape[1] - K)).double()
+        acc = torch.zeros(a.shape[0], bt.shape[0], dtype=torch.float64)
+        for k0 in range(0, bt.shape[1], depth):
+            acc += a[:, k0:k0 + depth] @ bt[:, k0:k0 + depth].double().T
+        return acc.float()
+
+    y = int8_mlp.ln_f32(x2, gamma, beta, 1e-5)
+    yq, t1 = int8_mlp.quantize_activations(y, x.dtype, seed, int8_mlp.STREAM_MLP_Y, deterministic,
+                                           round_input=True)
+    h = int8_mlp.gelu(stages(yq, int8_mlp.k_major(q["w_fc"], Wp), W) * t1 * q["s_fc"] + q["b_fc"])
+    tiles = torch.nn.functional.pad(h.abs().view(torch.int32), (0, -H % col_tile))
+    amax = tiles.view(R, -1, col_tile).amax(-1).amax(-1, keepdim=True).view(torch.float32)
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    if deterministic:
+        hq = torch.clamp(torch.round(h / scale), -127, 127)
+    else:
+        u = int8_mlp.uniform_from_bits(int8_mlp.rand_bits(seed, int8_mlp.STREAM_MLP_H, R, H))
+        hq = torch.clamp(torch.floor(h / scale + u), -127, 127)
+    out = stages(hq, int8_mlp.k_major(q["w_proj"], Hp), H) * scale * q["s_proj"] + q["b_proj"]
+    return yq, t1, h, hq, scale, (out + x2.float()).to(x.dtype).reshape(x.shape)
+
+
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,width", [((2, 16), W), ((3, 7), 40), ((1, 9), 160)],
+                         ids=["2x16-w128", "3x7-w40", "1x9-w160"])
+def test_int8_mlp_column_tiled_codes_equal_the_plain_codes(deterministic, dtype, rows, width):
+    """The hidden rows' max taken over column tiles, and the codes and output
+    built from it, equal the plain version's bit for bit in both modes (H 4W:
+    640 and 160 columns are not multiples of the 128-column tile)."""
+    rng = np.random.default_rng(width + rows[1])
+    H = 4 * width
+    x = torch.from_numpy(_f(rng, *rows, width)).to(dtype)
+    gamma, beta = torch.from_numpy(1.0 + _f(rng, width, scale=0.1)), torch.from_numpy(_f(rng, width, scale=0.1))
+    q = int8_mlp.quantize_mlp({"w_fc": torch.from_numpy(_f(rng, width, H, scale=width ** -0.5)),
+                               "b_fc": torch.from_numpy(_f(rng, H, scale=0.1)),
+                               "w_proj": torch.from_numpy(_f(rng, H, width, scale=H ** -0.5)),
+                               "b_proj": torch.from_numpy(_f(rng, width, scale=0.1))})
+    want = int8_mlp.int8_mlp_plain_parts(x, gamma, beta, q, seed=3, deterministic=deterministic)
+    got = _emulate_b13(x, gamma, beta, q, seed=3, deterministic=deterministic)
+    for name, a, b in zip(("yq", "t1", "h", "hq", "t2", "out"), got, (want[k] for k in
+                                                                     ("yq", "t1", "h", "hq", "t2", "out"))):
+        assert torch.equal(a, b), name
+    assert float(want["hq"].abs().max()) == 127  # the row max reaches the top code
+
+
+def test_k_major_layout():
+    w = torch.arange(-60, 60, dtype=torch.int8).view(10, 12)  # [K, N]
+    bt = int8_mlp.k_major(w, 64)
+    assert bt.shape == (12, 64) and bt.dtype == torch.int8
+    assert torch.equal(bt[:, :10], w.t()) and not bt[:, 10:].any()
+
+
 @pytest.mark.parametrize("block", ["mlp", "attn"])
 def test_int8_blocks_refuse_a_graph(block):
     p = _block_params()

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tapclip_tpu.ops.flash_attention import fused_attention as jax_fused_attention
+from tapclip_tpu.ops.fused_mha import _attn_block_bwd_impl
 from tapclip_tpu.ops.fused_mha import fused_attn_block as jax_fused_attn_block
 from tapclip_tpu.ops.fused_mlp import _fused_mlp_bwd_impl, _fused_mlp_vjp, _xla_composition
 
@@ -28,12 +29,15 @@ from tapclip_tpu_torch.ops.flash_attention import fused_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_reference
 from tapclip_tpu_torch.scripts.split_error import (
+    ATTN_BWD_SHAPES,
     ATTN_SHAPES,
     MLP_BWD_SHAPES,
     MLP_SHAPES,
     emulate_attn_block,
+    emulate_attn_block_bwd,
     emulate_mlp,
     emulate_mlp_bwd,
+    emulated_attn_block_bwd_errors,
     emulated_attn_block_errors,
     emulated_mlp_bwd_errors,
     emulated_mlp_errors,
@@ -200,6 +204,41 @@ def test_fused_mlp_bwd_split_products_match_pallas_interpret(weights):
     want = _fused_mlp_bwd_impl(jnp.asarray(weights["x"]), *map(jnp.asarray, args), jnp.asarray(g), 1e-5, 8, True)[0]
     got = emulate_mlp_bwd(_t(weights["x"]), _t(g), *(_t(a) for a in args[:5]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# B4 on the card runs dx's three products (the QKV recompute, gh, dy) and its
+# attention core on the tensor cores (csrc/attn_block_bwd.cu): f32 operands
+# in three bf16 terms; q, k, v, gh f32 values in both dtypes, except the
+# operands the TPU kernel rounds (p and v for o, p and gh for dv), one term
+# in bf16.  Its emulated gradients (scripts/split_error.py) against the plain
+# backward, norm-relative, each of the seven, at the card's backward limits
+# (chip_smoke.py's BWD_F32_TOL / BWD_BF16_TOL); readings: at most 9.7e-7 in
+# f32, 1.7e-4 in bf16.
+B4_SPLIT_LIMITS = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,W,heads,valid", ATTN_BWD_SHAPES,
+                         ids=[f"t{s[1]}-w{s[2]}-h{s[3]}-v{s[4]}" for s in ATTN_BWD_SHAPES])
+def test_fused_attn_block_bwd_split_products_meet_the_card_limits(B, T, W, heads, valid, dtype):
+    errs = emulated_attn_block_bwd_errors(B, T, W, heads, valid, dtype)
+    worst = max(v for k, v in errs.items() if k.endswith("_rel"))
+    assert worst <= B4_SPLIT_LIMITS[dtype], errs
+
+
+@pytest.mark.parametrize("valid", [VALID, T])
+def test_fused_attn_block_bwd_split_products_match_pallas_interpret(weights, valid):
+    """B4's emulated gradients against the JAX backward kernel in interpret
+    mode (block_b 1 over B = 2: two grid steps accumulate the weight grads)."""
+    a = weights["attn"]
+    g = np.random.default_rng(2).standard_normal(weights["x"].shape).astype(np.float32)
+    args = (weights["ln"]["scale"], weights["ln"]["bias"], a["w_qkv"], a["b_qkv"], a["w_out"])
+    want = _attn_block_bwd_impl(jnp.asarray(weights["x"]), *map(jnp.asarray, args), jnp.asarray(g),
+                                n_heads=HEADS, valid=valid, eps=1e-5, block_b=1, interpret=True,
+                                stage_batched=False)
+    got = emulate_attn_block_bwd(_t(weights["x"]), _t(g), *(_t(v) for v in args), HEADS, valid)
+    for name, a_, b_ in zip(("dx", "dgamma", "dbeta", "dw_qkv", "db_qkv", "dw_out", "db_out"), got, want):
+        np.testing.assert_allclose(a_.numpy().reshape(-1), np.asarray(b_).reshape(-1), err_msg=name, **TOL)
 
 
 def test_fused_attn_block_padded_rows_finite(weights):

@@ -52,7 +52,6 @@ PORT_MODULES = [
     "tapclip_tpu_torch.serve",
     "tapclip_tpu_torch.featurize",
     "tapclip_tpu_torch.zero_shot",
-    "tapclip_tpu_torch.time_attn_block_bwd",
     "tapclip_tpu_torch.scripts.int8_mlp_ab",
     "tapclip_tpu_torch.scripts.int8_probe",
     "tapclip_tpu_torch.scripts._bench_util",
