@@ -23,7 +23,8 @@ Run from the repository root:  python3 chip_smoke.py
    image shape (8 x 200, valid 197, W 768, 12 heads), and causal K3 at the
    idiomatic aux layer (8 classes x 8 heads, T 77, per-class EOT), f32 and
    bf16; B7 beside the flash chain on the same packed strides (what runs
-   past B7's tile), held and timed.  Every kernel's time is printed beside its plain version's, one
+   past B7's routing limit), held and timed, with its two launches alone
+   and its bounds at the FMA and the bf16 MMA rates.  Every kernel's time is printed beside its plain version's, one
    library call's (SDPA for the attention kernels, where one computes the
    same function) and its bound (bytes over 3.35 TB/s or operations over
    the dtype's peak, whichever is larger).  K1 (on the tensor cores: three
@@ -86,22 +87,26 @@ Run from the repository root:  python3 chip_smoke.py
     products they run on the tensor cores (``mma_bound_ms``: their bf16
     MMAs, six per f32 product, at 989 TFLOP/s), and the kernels line lists
     every timed case (both dtypes, T 584, T 4096).
-13. The B7 and B4 backwards past their [T, T] tile (T 584, W 1024, 16
+13. The B7 and B4 backwards past their routing limit (T 584, W 1024, 16
     heads): the flash chain on the packed strides, and the split
     composition, against their plain backward.
 14. Prompt tuning with ``attn_impl="pallas"`` in both text modes, f32 and
     bf16, 3 cached-feature steps at batch 32, against ``"xla"`` on the card:
     per step 24 K3 launches (causal in idiomatic mode), 12 each of LSE,
     dK/dV and dQ, and none of K1, K2, B4, B5, B6, B7.
-15. B7_BITS: B7's output, bit for bit, against digests taken before B4
-    left the [T, T]-tile core they shared (six shapes, f32 and bf16).  The
-    int8 kernels B13 (MLP) and B14 (attention) against their plain
+15. B7_BITS: B7's output, bit for bit, against digests taken from it on
+    the tensor cores (six shapes, f32 and bf16; a pin from one build to the
+    next).  K2_BITS and B4_BITS: K2's output and B4's dx against digests
+    taken before their attention kernels moved into the headers they share
+    with B14 and B7 (the three non-causal B7_BITS shapes, f32 and bf16).
+    The int8 kernels B13 (MLP) and B14 (attention) against their plain
     versions with the same random draws, f32 and bf16, stochastic and round
     to nearest, at ViT-B/16 (8 x 200, W 768; B14 also at the pruned 8 x 96)
     and ViT-L/14 (8 x 264, W 1024, H 4096, 16 heads), by the norm-relative
     error of the block's update (INT8_TOL), with CUDA-event times of the
-    kernel, the plain version and the wrapper (B13 also its four launches
-    alone on weights laid out once); the 64-seed mean of each stochastic
+    kernel, the plain version and the wrapper, and the launches alone on
+    weights laid out once (B13's four, B14's five; B14 also its bound at
+    the int8 and bf16 MMA rates); the 64-seed mean of each stochastic
     block at least INT8_MEAN_GAIN times closer than one draw to the
     weight-only-quantized float block.  B13_BITS: B13 on the int8 tensor
     cores against the walk it replaced (S5's flags-off kernel), bit for bit,
@@ -282,10 +287,10 @@ FEATURE_COS = 0.98
 # exactly).  Reading on the same card: at least 0.979 (2 of 96).
 INT8_KEEP_AGREE = 0.95
 
-# B7 (the packed-QKV core's backward) must not move a bit now that B4 has
-# left the [T, T]-tile core they shared: sha256 (first 16 hex digits) of
-# B7's dqkv on numpy-seeded inputs (``b7_digest``), read on an NVIDIA H100
-# 80GB HBM3 (CUDA 12.8) from B7 as it was before B4's tensor-core design.
+# B7 (the packed-QKV core's backward) must repeat its bits from one build
+# to the next: sha256 (first 16 hex digits) of B7's dqkv on numpy-seeded
+# inputs (``b7_digest``), read on an NVIDIA H100 80GB HBM3 (CUDA 12.8) from
+# B7 on B4's row and column kernels.
 B7_BITS_CASES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
                  "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True),
                  "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197, False),
@@ -293,18 +298,42 @@ B7_BITS_CASES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
                  "dh128 2x65x256 h2 valid60": (2, 65, 256, 2, 60, False),
                  "dh16 1x40x64 h4": (1, 40, 64, 4, 40, False)}
 B7_BITS = {
-    ("float32", "idiomatic 8x77x512 h8 causal"): "129b372b44d225c9",
-    ("float32", "text 64x80x512 h8 valid77 causal"): "53834c08d11674dc",
-    ("float32", "image 8x200x768 h12 valid197"): "9f93de63cd7a5c68",
-    ("float32", "dh32 3x33x128 h4 valid30 causal"): "64cc89cb2df31824",
-    ("float32", "dh128 2x65x256 h2 valid60"): "37d617bdab94ffa2",
-    ("float32", "dh16 1x40x64 h4"): "2d26e8479eb2b28c",
-    ("bfloat16", "idiomatic 8x77x512 h8 causal"): "601ce7bc0becd207",
-    ("bfloat16", "text 64x80x512 h8 valid77 causal"): "c32723762fc62bcd",
-    ("bfloat16", "image 8x200x768 h12 valid197"): "9f237bc23d6c41a3",
-    ("bfloat16", "dh32 3x33x128 h4 valid30 causal"): "5b6465e47be84365",
-    ("bfloat16", "dh128 2x65x256 h2 valid60"): "684b900e10008e91",
-    ("bfloat16", "dh16 1x40x64 h4"): "c8f9d1cec980e381",
+    ("float32", "idiomatic 8x77x512 h8 causal"): "a82c3e9855c93e5f",
+    ("float32", "text 64x80x512 h8 valid77 causal"): "6d1e956c1290c697",
+    ("float32", "image 8x200x768 h12 valid197"): "f0bdb2c3aefe73fa",
+    ("float32", "dh32 3x33x128 h4 valid30 causal"): "642afa731dcc659b",
+    ("float32", "dh128 2x65x256 h2 valid60"): "ab5f43d16fec2403",
+    ("float32", "dh16 1x40x64 h4"): "63c3861dc60d2846",
+    ("bfloat16", "idiomatic 8x77x512 h8 causal"): "cb6978e2085f246c",
+    ("bfloat16", "text 64x80x512 h8 valid77 causal"): "7df55fef41643ce0",
+    ("bfloat16", "image 8x200x768 h12 valid197"): "222671cec5394ed2",
+    ("bfloat16", "dh32 3x33x128 h4 valid30 causal"): "c60fad2de845c8ce",
+    ("bfloat16", "dh128 2x65x256 h2 valid60"): "ccca20d9035d3a2c",
+    ("bfloat16", "dh16 1x40x64 h4"): "1716e3256b02dd10",
+}
+
+# K2 (the attention half-block) and B4 (its backward) must not move a bit
+# now that their attention kernels live in shared headers (attn_core_mma.cuh,
+# attn_bwd_mma.cuh) beside B14's and B7's: sha256 (first 16 hex digits) of
+# K2's output and of B4's dx on numpy-seeded inputs (``k2_digest``,
+# ``b4_digest``) at B7_BITS_CASES' non-causal shapes, read on an NVIDIA H100
+# 80GB HBM3 from the kernels as they were before the move.
+BLOCK_BITS_CASES = {label: case[:5] for label, case in B7_BITS_CASES.items() if not case[5]}
+K2_BITS = {
+    ("float32", "image 8x200x768 h12 valid197"): "02dd4d709888b4a4",
+    ("float32", "dh128 2x65x256 h2 valid60"): "024abc62cb7100da",
+    ("float32", "dh16 1x40x64 h4"): "b5cb7f32e2cff165",
+    ("bfloat16", "image 8x200x768 h12 valid197"): "8ceb5470eda79a51",
+    ("bfloat16", "dh128 2x65x256 h2 valid60"): "dfcb46f3ceee291c",
+    ("bfloat16", "dh16 1x40x64 h4"): "9c9ef3184d447a17",
+}
+B4_BITS = {
+    ("float32", "image 8x200x768 h12 valid197"): "7360c3ecc58b8e6b",
+    ("float32", "dh128 2x65x256 h2 valid60"): "bce8c0fe9b75a5f2",
+    ("float32", "dh16 1x40x64 h4"): "dccb845270b28386",
+    ("bfloat16", "image 8x200x768 h12 valid197"): "ec1fb8087292fba1",
+    ("bfloat16", "dh128 2x65x256 h2 valid60"): "2f61056b7860e7ed",
+    ("bfloat16", "dh16 1x40x64 h4"): "c45f0d98e22d7ed5",
 }
 
 CLASSES = ["Backpack", "Pen", "Monitor"]
@@ -367,14 +396,16 @@ TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 # K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
 K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
-# The kernels on the tensor cores: K3, the chain, K1, K2, B5 and B4.
-MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd", "fused_attn_block_bwd")
+# The kernels on the tensor cores: K3, the chain, K1, K2, B5, B4 and B7.
+MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd", "fused_attn_block_bwd",
+                               "fused_mha_bwd")
 CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "launch_ms_dx_only", "plain_ms",
-             "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "mma_bound_ms", "mma_bound_dx_only_ms",
-             "max_abs_err", "max_rel_err")
+             "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "fma_bound_ms", "mma_bound_ms",
+             "mma_bound_dx_only_ms", "max_abs_err", "max_rel_err")
 # The sources whose kernels' ptxas report (registers, spills) is printed one by one:
-# the half-blocks' and B4's on the tensor cores, and B13's (with S5's walk).
-PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "int8_mlp.cu")
+# the half-blocks' and B4's on the tensor cores, B7's, and B13's (with S5's walk) and B14's.
+PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "int8_mlp.cu",
+                 "int8_attn.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -716,6 +747,71 @@ def b13_launch(x, gamma, beta, q, deterministic):
     return run
 
 
+def b14_launch(x, gamma, beta, q, nh, valid, deterministic):
+    """B14's five launches alone through the C interface on weights laid out
+    once and scratch allocated once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+    from tapclip_tpu_torch.ops.int8_mlp import k_major
+
+    B, T, W = x.shape
+    R, Wp = B * T, _build.library().tapclip_int8_gemm_kp(W)
+    w = (k_major(q["w_qkv"], Wp), k_major(q["w_out"], Wp))
+    bufs = (torch.empty_like(x), torch.empty((R, 3 * W), device=x.device), torch.empty((R, W), device=x.device),
+            torch.empty((R, Wp), dtype=torch.int8, device=x.device), torch.empty((3, R), device=x.device))
+    launch = bare_launch("tapclip_int8_attn", (
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w[0].data_ptr(), q["s_qkv"].data_ptr(),
+        q["b_qkv"].data_ptr(), w[1].data_ptr(), q["s_out"].data_ptr(), q["b_out"].data_ptr(),
+        *(t.data_ptr() for t in bufs), B, T, W, nh, valid, 1e-5, 0, int(deterministic), _build.dtype_code(x.dtype),
+        _build.stream_handle(x.device)))
+
+    def run(_buffers=(w, bufs)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b7_launch(qkv, g, nh, valid, causal):
+    """B7's two launches alone through the C interface on scratch allocated
+    once (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    B, T, W3 = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    ws = torch.empty(2 * B * nh * T, device=qkv.device)  # lse, delta
+    launch = bare_launch("tapclip_mha_bwd", (
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), ws.data_ptr(), B, T, W3 // 3, nh, valid, int(causal),
+        _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device)))
+
+    def run(_buffers=(dqkv, ws)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b7_mma_flops(W: int, pairs: int, dtype: str) -> float:
+    """Operations of the bf16 MMAs of B7's function on the tensor cores: its
+    five products, 2 W a (query, visible key) pair each; in f32 six MMAs a
+    product; in bf16 one for q k^T, g v^T and p^T g (bf16 values and p's
+    rounding), three for ds k and ds^T q (ds f32 in three terms)."""
+    return (6 * 5 if dtype == "float32" else 1 + 1 + 1 + 3 + 3) * 2 * W * pairs
+
+
+def b14_mma_bound(n_bytes: int, R: int, W: int, pairs: int, dtype: str, deterministic: bool) -> dict:
+    """B14's bound at the rates of the units it runs on: its two int8
+    products (8 R W^2) at the tensor cores' int8 peak plus its attention's
+    bf16 MMAs at the bf16 peak (q k^T six a product, q and k f32 in three
+    terms; p v six, or one where the stochastic mode in bf16 rounds p), or
+    its bytes, whichever is larger."""
+    pv = 1 if dtype == "bfloat16" and not deterministic else 6
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * (8 * R * W * W / PEAK_INT8_OPS + (6 + pv) * 2 * W * pairs / PEAK_FLOPS["bfloat16"])
+    return {"mma_bound_ms": max(by_bytes, by_ops), "mma_bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def attn_pairs(B: int, T: int, valid, causal: bool = False) -> int:
     """(query, key) pairs with a nonzero probability over B batch rows
     (``valid`` an int or one per row): the attention products' work."""
@@ -951,8 +1047,6 @@ def check_backward() -> dict:
 
 def b7_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: bool) -> str:
     """sha256 (first 16 hex digits) of B7's packed dqkv on numpy-seeded qkv and cotangent."""
-    import hashlib
-
     import torch
 
     from tapclip_tpu_torch.ops.fused_mha import _fused_mha_bwd_cuda
@@ -964,12 +1058,77 @@ def b7_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: b
 
     qkv, g = f(B, T, 3 * W), f(B, T, W)
     with torch.no_grad():
-        dqkv = _fused_mha_bwd_cuda(qkv, g, nh, valid, causal)
-    return hashlib.sha256(dqkv.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+        return _sha16(_fused_mha_bwd_cuda(qkv, g, nh, valid, causal))
+
+
+def _sha16(t) -> str:
+    """sha256 (first 16 hex digits) of a tensor's bytes."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def _bits_block_case(dtype: str, B: int, T: int, W: int, valid: int):
+    """x, the cotangent g, LayerNorm and attention weights of one bits case,
+    numpy-seeded, at the card tests' scales (x and g in ``dtype``)."""
+    import torch
+
+    rng = np.random.default_rng(B * T + W + valid + 1)
+
+    def f(*shape, s=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(s)).cuda()
+
+    dt = getattr(torch, dtype)
+    x, g = f(B, T, W).to(dt), f(B, T, W).to(dt)
+    ln = {"scale": 1.0 + f(W, s=0.1), "bias": f(W, s=0.1)}
+    attn = {"w_qkv": f(W, 3 * W, s=W ** -0.5), "b_qkv": f(3 * W, s=0.1), "w_out": f(W, W, s=W ** -0.5),
+            "b_out": f(W, s=0.1)}
+    return x, g, ln, attn
+
+
+def k2_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int) -> str:
+    """sha256 (first 16 hex digits) of K2's output on numpy-seeded inputs."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import fused_attn_block
+
+    x, _, ln, attn = _bits_block_case(dtype, B, T, W, valid)
+    with torch.inference_mode():
+        return _sha16(fused_attn_block(x, ln, attn, nh, valid_len=valid))
+
+
+def b4_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int) -> str:
+    """sha256 (first 16 hex digits) of B4's dx (no weight gradients) on numpy-seeded inputs."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda
+
+    x, g, ln, attn = _bits_block_case(dtype, B, T, W, valid)
+    with torch.no_grad():
+        dx = _attn_block_bwd_cuda(x, g, ln["scale"], ln["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], nh,
+                                  valid, 1e-5, weight_grads=False)[0]
+    return _sha16(dx)
+
+
+def check_block_bits() -> dict:
+    """K2_BITS and B4_BITS: K2's output and B4's dx bit for bit as before
+    their kernels moved into shared headers, f32 and bf16."""
+    out = {}
+    for name, fn, want in (("K2", k2_digest, K2_BITS), ("B4", b4_digest, B4_BITS)):
+        for dt in ("float32", "bfloat16"):
+            for label, case in BLOCK_BITS_CASES.items():
+                digest = fn(dt, *case)
+                print(f"{name}_BITS [{label} {dt}]: {digest} (want {want[(dt, label)]})", flush=True)
+                require(digest == want[(dt, label)],
+                        f"{name}'s output changed at {label} {dt}: {digest} != {want[(dt, label)]}")
+                out[f"{name} {label} {dt}"] = digest
+    return out
 
 
 def check_b7_bits() -> dict:
-    """B7_BITS: B7's output bit for bit as before B4's redesign, f32 and bf16."""
+    """B7_BITS: B7's output bit for bit as its digests, f32 and bf16."""
     got = {(dt, label): b7_digest(dt, *case) for dt in ("float32", "bfloat16")
            for label, case in B7_BITS_CASES.items()}
     for key, digest in got.items():
@@ -1339,11 +1498,16 @@ def check_text_kernels() -> dict:
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
             g_heads = g.view(B, T, nh, Dh).transpose(1, 2)
             library_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g_heads, retain_graph=True))
+            with torch.no_grad():
+                launch_ms = time_ms(b7_launch(qkv, g, nh, valid, causal))
+            b7_bytes = nbytes(qkv, g, got)
             report("fused_mha_bwd", {"shape": label, "dtype": dname, "max_rel_err": rel,
-                                     "max_abs_err": ab, "ms": ms, "plain_ms": plain_ms,
+                                     "max_abs_err": ab, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
                                      "library_ms": library_ms, "chain_ms": chain_ms,
                                      "chain_rel_err": chain_rel,
-                                     **bound(nbytes(qkv, g, got), 10 * nh * Dh * pairs, dname)})
+                                     **bound(b7_bytes, 10 * nh * Dh * pairs, dname),
+                                     "fma_bound_ms": 1e3 * 10 * nh * Dh * pairs / PEAK_FLOPS[dname],
+                                     **mma_bound_of(b7_bytes, b7_mma_flops(W, pairs, dname))})
             require(rel <= bwd_tol, f"fused_mha_bwd {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
             require(chain_rel <= bwd_tol,
                     f"flash chain on packed qkv {label} {dname}: norm-relative error {chain_rel:.3e} > {bwd_tol}")
@@ -1722,7 +1886,7 @@ def check_flash_kernels() -> dict:
 
 
 def check_long_repairs() -> dict:
-    """B7 and B4 past their [T, T] tile, at the ViT-L/14-336 vision shape
+    """B7 and B4 past their routing limit, at the ViT-L/14-336 vision shape
     (4 x 584, valid 577, W 1024, 16 heads), f32 and bf16: the autograd
     Functions' backward (the flash chain on the packed strides; the split
     composition) against the plain backward, with launch counts and times."""
@@ -1967,6 +2131,10 @@ def check_int8_kernels() -> dict:
                                         wrapper_ms=time_ms(wrapper), library_ms=None, **work)
                             if name == "int8_mlp":  # the four launches alone, weights laid out once
                                 case["launch_ms"] = time_ms(b13_launch(x, g, b, qm, det))
+                            else:  # the five launches alone, weights laid out once; the MMA bound
+                                case["launch_ms"] = time_ms(b14_launch(x, g, b, qa, nh, valid, det))
+                                case.update(b14_mma_bound(nbytes(x, x, qa["w_qkv"], qa["w_out"]) + 4 * 10 * W, R,
+                                                          W, attn_pairs(B, T, valid), dname, det))
                     results[name]["cases"].append(case)
                     print(f"int8 kernel {name} [{shape} {dname} {mode}]: "
                           + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)),
@@ -2488,9 +2656,12 @@ def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, 
             "bf16_update_rel_err": max(x["update_rel_err"] for x in cases if x["dtype"] == "bfloat16"),
             "mean_of_seeds": int8_kernels[name]["mean_of_seeds"],
         })
+        out[-1].update(launch_ms=c["launch_ms"], rtn_launch_ms=rtn["launch_ms"], bf16_launch_ms=bf["launch_ms"],
+                       bf16_rtn_launch_ms=bf_rtn["launch_ms"])
+        if name == "int8_attn":
+            out[-1].update(mma_bound_ms=c["mma_bound_ms"], bf16_mma_bound_ms=bf["mma_bound_ms"])
         if name == "int8_mlp":
-            out[-1].update(launch_ms=c["launch_ms"], rtn_launch_ms=rtn["launch_ms"], bf16_launch_ms=bf["launch_ms"],
-                           walk_ms=variants["variants"]["base"]["median_ms"],
+            out[-1].update(walk_ms=variants["variants"]["base"]["median_ms"],
                            b13_in_turns_ms=variants["b13_median_ms"], elements_differing_from_walk=b13_bits)
     base = main_case("int8_mlp", "float32", "stochastic")
     for vname, key in (("int8_mlp_erf3", "erf3"), ("int8_mlp_recipmul", "recipmul"),
@@ -2559,6 +2730,7 @@ def main() -> int:
     kernels.update(phase("flash kernels", check_flash_kernels))
     repairs = phase("long repairs", check_long_repairs)
     b7_bits = phase("B7 bits", check_b7_bits)
+    block_bits = phase("K2 and B4 bits", check_block_bits)
     int8_kernels = phase("int8 kernels", check_int8_kernels)
     b13_bits = phase("B13 bits", check_b13_bits)
     variants = phase("int8 variants", check_int8_variants)
@@ -2623,17 +2795,20 @@ def main() -> int:
             entry["ms_dx_only"] = timed["ms_dx_only"]
         if "chain_ms" in timed:  # the flash chain; beside B7, on B7's packed strides
             entry["chain_ms"] = timed["chain_ms"]
-        for key in ("launcher_ms", "launch_ms", "launch_ms_dx_only", "mma_bound_ms", "bound_dx_only_ms",
-                    "mma_bound_dx_only_ms"):
+        for key in ("launcher_ms", "launch_ms", "launch_ms_dx_only", "fma_bound_ms", "mma_bound_ms",
+                    "bound_dx_only_ms", "mma_bound_dx_only_ms"):
             if key in timed:
                 entry[key] = timed[key]
         if name in MMA_KERNELS:  # every timed reading: both dtypes, T 584, T 4096; K1's three shapes
             entry["cases"] = [{key: c[key] for key in CASE_KEYS if key in c}
                               for c in kernels[name]["cases"] if "ms" in c]
-        if f"{name} float32" in repairs:  # B7 / B4 past their [T, T] tile
+        if f"{name} float32" in repairs:  # B7 / B4 past their routing limit
             entry["long_t"] = {dt: repairs[f"{name} {dt}"] for dt in ("float32", "bfloat16")}
         if name == "fused_mha_bwd":
-            entry["bits_unchanged"] = b7_bits
+            entry["bits_repeat"] = b7_bits
+        if name in ("fused_attn_block", "fused_attn_block_bwd"):
+            prefix = "K2 " if name == "fused_attn_block" else "B4 "
+            entry["bits_unchanged"] = {k[len(prefix):]: v for k, v in block_bits.items() if k.startswith(prefix)}
         if name == "fused_mha":
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)

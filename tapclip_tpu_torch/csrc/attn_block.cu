@@ -28,8 +28,8 @@
 //   2. qkv = y . w_qkv + b_qkv, K1's tiled GEMM (gemm_mma.cuh) with the kQkv
 //      epilogue: f32 out, the v third of the columns rounded to the dtype;
 //      450 blocks of 64 x 128 at the image shape.
-//   3. attention (attn_core_mma_kernel below): one block per (batch row,
-//      head, ROWS-row query tile), K3's tile walk (flash_mma.cuh): 64-key
+//   3. attention (attn_core_mma.cuh, shared with B14): one block per (batch
+//      row, head, ROWS-row query tile), K3's tile walk (flash_mma.cuh): 64-key
 //      tiles with an online softmax in the log2 domain, K and V
 //      double-buffered by 16-byte cp.async straight from the packed qkv
 //      rows (row stride 3W), the score accumulator reused in registers as
@@ -60,150 +60,15 @@
 // (fused_layer.cu).
 #include <stdint.h>
 
+#include "attn_core_mma.cuh"
 #include "common.cuh"
-#include "flash_mma.cuh"
 #include "gemm_mma.cuh"
 #include "ln_rows.cuh"
 
 namespace {
 
 using namespace tapclip;
-using namespace tapclip::mma;
 using gemm::Epi;
-
-// attn[b, t, h Dh : (h + 1) Dh] for one (batch row b, head h, query tile) from
-// the packed f32 qkv [B T, 3W] (q, k, v column blocks, head h at h Dh in each).
-template <typename T, int DH, int ROWS>
-__global__ void __launch_bounds__(2 * ROWS)
-attn_core_mma_kernel(const float* __restrict__ qkv, T* __restrict__ attn, int H, int T_, int W, int valid) {
-  constexpr int kThreads = 2 * ROWS;  // ROWS / 16 warps
-  constexpr int kLd = tile_ld<float, DH>();
-  constexpr int kVTerms = kIsF32<T> ? kF32Terms : 1;  // v and the rounded p hold values of T
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Q_s = reinterpret_cast<float*>(smem_raw);
-  float* KV_s = Q_s + ROWS * kLd;  // buffer i: K at KV_s + 2 i kTile kLd, then V
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * ROWS, r0 = (threadIdx.x >> 5) * 16;
-  const int st = 3 * W;
-  const float* q = qkv + static_cast<size_t>(b) * T_ * st + h * DH;
-  const float* k = q + W;
-  const float* v = q + 2 * W;
-  const float scale_log2 = rsqrtf(static_cast<float>(DH)) * kLog2e;
-  const int n_tiles = (T_ + kTile - 1) / kTile;
-  const bool active = q0 + r0 < T_;  // the warp holds a row below T
-
-  load_tile<float, DH, ROWS, kThreads>(Q_s, q, st, q0, T_);
-  load_tile<float, DH, kTile, kThreads>(KV_s, k, st, 0, T_);
-  load_tile<float, DH, kTile, kThreads>(KV_s + kTile * kLd, v, st, 0, T_);
-  cp_commit();
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) {
-      float* nxt = KV_s + ((j + 1) & 1) * 2 * kTile * kLd;
-      load_tile<float, DH, kTile, kThreads>(nxt, k, st, (j + 1) * kTile, T_);
-      load_tile<float, DH, kTile, kThreads>(nxt + kTile * kLd, v, st, (j + 1) * kTile, T_);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const float* K_s = KV_s + (j & 1) * 2 * kTile * kLd;
-    if (active) {
-      const int kt0 = j * kTile;
-      float s[kTile / 8][4], mt[2] = {-INFINITY, -INFINITY};
-      warp_abt<float, DH, kTile>(s, Q_s, r0, K_s, 0);
-      if (kt0 + kTile > min(valid, T_)) {  // the tile reaches valid or T: per-key tests
-#pragma unroll
-        for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kt0 + 8 * n + 2 * (lane & 3) + (e & 1);
-            float x = s[n][e] * scale_log2;
-            if (key >= T_) x = -INFINITY;
-            else if (key >= valid) x = kNegBig;
-            s[n][e] = x;
-            mt[e >> 1] = fmaxf(mt[e >> 1], x);
-          }
-      } else {
-#pragma unroll
-        for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[n][e] *= scale_log2;
-            mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-          }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], quad_max(mt[r]));  // finite: key 0 is below T
-        alpha[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= alpha[r];
-      }
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[n][e] - m[e >> 1]);
-          l[e >> 1] += p;  // this lane's share of the row sum, unrounded p
-          s[n][e] = p;
-        }
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-      warp_pv<float, DH, kTile, kVTerms, kVTerms>(o, s, K_s + kTile * kLd, 0);
-    }
-    __syncthreads();  // this buffer is refilled with tile j + 2
-  }
-  if (!active) return;
-  float inv_l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / quad_sum(l[r]);
-  store_rows<T, DH>(attn + static_cast<size_t>(b) * T_ * W + h * DH, W, q0 + r0, T_, o, inv_l);
-}
-
-template <typename T, int DH, int ROWS>
-cudaError_t launch_core(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
-  constexpr int kLd = tile_ld<float, DH>();
-  const int n_buf = T_ > kTile ? 2 : 1;  // one key tile needs no second buffer
-  const size_t smem = (ROWS + n_buf * 2 * kTile) * kLd * sizeof(float);
-  auto kernel = attn_core_mma_kernel<T, DH, ROWS>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (T_ + ROWS - 1) / ROWS);
-  kernel<<<grid, 2 * ROWS, smem, s>>>(qkv, attn, H, T_, W, valid);
-  return cudaGetLastError();
-}
-
-// Query-tile height as K3's: 16 rows up to T 32, 32 up to T 128, 64 past.
-template <typename T, int DH>
-cudaError_t launch_core_rows(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
-  if (T_ <= 32) return launch_core<T, DH, 16>(qkv, attn, B, H, T_, W, valid, s);
-  if (T_ <= 128) return launch_core<T, DH, 32>(qkv, attn, B, H, T_, W, valid, s);
-  return launch_core<T, DH, 64>(qkv, attn, B, H, T_, W, valid, s);
-}
-
-template <typename T>
-cudaError_t launch_core_dh(const float* qkv, T* attn, int B, int H, int T_, int W, int valid, cudaStream_t s) {
-  switch (W / H) {
-    case 16: return launch_core_rows<T, 16>(qkv, attn, B, H, T_, W, valid, s);
-    case 32: return launch_core_rows<T, 32>(qkv, attn, B, H, T_, W, valid, s);
-    case 64: return launch_core_rows<T, 64>(qkv, attn, B, H, T_, W, valid, s);
-    case 128: return launch_core_rows<T, 128>(qkv, attn, B, H, T_, W, valid, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <typename T, int CE>
 cudaError_t launch_block(const T* x, const float* gamma, const float* beta, const T* w_qkv, const float* b_qkv,
@@ -217,7 +82,7 @@ cudaError_t launch_block(const T* x, const float* gamma, const float* beta, cons
   err = gemm::launch_pass<T, 128, CE, gemm::kQkv, false, float>(
       ya, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 2 * W}, qkv, R, 3 * W, W, s);
   if (err != cudaSuccess) return err;
-  err = launch_core_dh<T>(qkv, ya, B, H, T_, W, valid, s);
+  err = attn::launch_attn_core<T, T>(qkv, ya, nullptr, B, H, T_, W, valid, s);
   if (err != cudaSuccess) return err;
   return gemm::launch_pass<T, 64, CE, gemm::kResidual>(ya, w_out, Epi<T>{b_out, x, nullptr, nullptr, 0}, out, R,
                                                        W, W, s);

@@ -69,308 +69,18 @@
 // tapclip_tpu_torch.scripts.split_error.
 #include <stdint.h>
 
-#include "attn_bwd_core.cuh"
+#include "attn_bwd_mma.cuh"
 #include "common.cuh"
-#include "flash_mma.cuh"
 #include "gemm_mma.cuh"
 #include "ln_rows.cuh"
 
 namespace {
 
 using namespace tapclip;
-using namespace tapclip::mma;
 using gemm::Epi;
 
 constexpr int kMaxSplit = 4;
 static_assert(kMaxSplit <= kLnMaxSplits, "ln_bwd_rows_kernel sums every partial");
-
-// Rows (queries or keys) of a block's own tile: 32 up to T 128, 64 past.
-inline int tile_rows(int T) { return T <= 128 ? 32 : 64; }
-
-// Rows of a walked tile: 64 at head dims 16 and 32, 32 at 64 and 128, where
-// the walk's [16, walk] score and dp tiles beside the [16, Dh] accumulators
-// spilled with 64 (1,256 bytes a thread in the f32 dk/dv kernel at Dh 64).
-template <int DH>
-__host__ __device__ constexpr int walk_rows() {
-  return DH >= 64 ? 32 : 64;
-}
-
-// The terms of an operand the TPU kernel rounds to T (p and v for o, p and
-// gh for dv): its bf16 rounding in bf16, three terms in f32.
-template <typename T>
-constexpr int kRoundedTerms = kIsF32<T> ? kF32Terms : 1;
-
-// One block per (batch row b, head h, ROWS-row query tile): dq (and o) of
-// its rows, and their lse and delta.  q, k, v from the f32 qkv [B T, 3W], gh
-// from the f32 [B T, W]; dq into dqkv [B T, 3W] and o into attn [B T, W]
-// (null: no o) in T; lse, delta [B H, T] f32.
-template <typename T, int DH, int ROWS>
-__global__ void __launch_bounds__(2 * ROWS)
-b4_rows_kernel(const float* __restrict__ qkv, const float* __restrict__ gh, T* __restrict__ dqkv,
-               T* __restrict__ attn, float* __restrict__ lse, float* __restrict__ delta, int H, int T_, int W,
-               int valid) {
-  constexpr int kThreads = 2 * ROWS;
-  constexpr int kLd = tile_ld<float, DH>();
-  constexpr int kKeys = walk_rows<DH>();
-  constexpr int kPV = kRoundedTerms<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Q_s = reinterpret_cast<float*>(smem_raw);
-  float* G_s = Q_s + ROWS * kLd;
-  float* KV_s = G_s + ROWS * kLd;  // buffer i: K at KV_s + 2 i kKeys kLd, then V
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * ROWS, r0 = (threadIdx.x >> 5) * 16;
-  const int st = 3 * W;
-  const float* q = qkv + static_cast<size_t>(b) * T_ * st + h * DH;
-  const float* k = q + W;
-  const float* v = q + 2 * W;
-  const float* g = gh + static_cast<size_t>(b) * T_ * W + h * DH;
-  const float scale = rsqrtf(static_cast<float>(DH));
-  const float scale_log2 = scale * kLog2e;
-  const int n_tiles = (valid + kKeys - 1) / kKeys;  // keys at or past valid add nothing
-  const bool active = q0 + r0 < T_;                 // the warp holds a row below T
-
-  load_tile<float, DH, ROWS, kThreads>(Q_s, q, st, q0, T_);
-  load_tile<float, DH, ROWS, kThreads>(G_s, g, W, q0, T_);
-
-  // body(K_s, V_s, first key) for each key tile, K and V double-buffered.
-  auto walk = [&](auto&& body) {
-    load_tile<float, DH, kKeys, kThreads>(KV_s, k, st, 0, T_);
-    load_tile<float, DH, kKeys, kThreads>(KV_s + kKeys * kLd, v, st, 0, T_);
-    cp_commit();
-    for (int j = 0; j < n_tiles; ++j) {
-      if (j + 1 < n_tiles) {
-        float* nxt = KV_s + ((j + 1) & 1) * 2 * kKeys * kLd;
-        load_tile<float, DH, kKeys, kThreads>(nxt, k, st, (j + 1) * kKeys, T_);
-        load_tile<float, DH, kKeys, kThreads>(nxt + kKeys * kLd, v, st, (j + 1) * kKeys, T_);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      const float* K_s = KV_s + (j & 1) * 2 * kKeys * kLd;
-      if (active) body(K_s, K_s + kKeys * kLd, j * kKeys);
-      __syncthreads();  // this buffer is refilled with tile j + 2
-    }
-  };
-  // p of the warp's [16, kKeys] scores s (log2 domain after scale_log2),
-  // in place, from the rows' lse: 0 past valid.
-  auto probs = [&](float (&s)[kKeys / 8][4], const float (&lse_r)[2], int kt0) {
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt0 + 8 * n + 2 * (lane & 3) + (e & 1);
-        s[n][e] = key < valid ? exp2f(s[n][e] * scale_log2 - lse_r[e >> 1]) : 0.f;
-      }
-  };
-
-  // 1. The row LSE (log2 domain): keys at or past valid at -1e30, past T -inf.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  walk([&](const float* K_s, const float*, int kt0) {
-    float s[kKeys / 8][4], mt[2] = {-INFINITY, -INFINITY};
-    warp_abt<float, DH, kKeys>(s, Q_s, r0, K_s, 0);
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt0 + 8 * n + 2 * (lane & 3) + (e & 1);
-        s[n][e] = key >= T_ ? -INFINITY : (key < valid ? s[n][e] * scale_log2 : kNegBig);
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mt[r]));  // finite: key 0 is valid
-      l[r] *= exp2f(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) l[e >> 1] += exp2f(s[n][e] - m[e >> 1]);
-  });
-  float lse_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) lse_r[r] = m[r] + log2f(quad_sum(l[r]));
-
-  // 2. delta = sum(dp p), dp = gh v^T in f32; o = p v with p and v in kPV terms.
-  float o[DH / 8][4], dsum[2] = {0.f, 0.f};
-  zero(o);
-  const bool want_o = attn != nullptr;
-  walk([&](const float* K_s, const float* V_s, int kt0) {
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
-    warp_abt<float, DH, kKeys>(s, Q_s, r0, K_s, 0);
-    warp_abt<float, DH, kKeys>(dp, G_s, r0, V_s, 0);
-    probs(s, lse_r, kt0);
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[n][e] * s[n][e];
-    if (want_o) warp_pv<float, DH, kKeys, kPV, kPV>(o, s, V_s, 0);
-  });
-  float delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) delta_r[r] = quad_sum(dsum[r]);
-  const float one[2] = {1.f, 1.f};
-  const size_t row0 = static_cast<size_t>(b) * T_;
-  if (want_o && active) store_rows<T, DH>(attn + row0 * W + h * DH, W, q0 + r0, T_, o, one);  // o is done
-
-  // 3. dq = ds k, ds = p (dp - delta) scale in f32.
-  float dq[DH / 8][4];
-  zero(dq);
-  walk([&](const float* K_s, const float* V_s, int kt0) {
-    float s[kKeys / 8][4], dp[kKeys / 8][4];
-    warp_abt<float, DH, kKeys>(s, Q_s, r0, K_s, 0);
-    warp_abt<float, DH, kKeys>(dp, G_s, r0, V_s, 0);
-    probs(s, lse_r, kt0);
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - delta_r[e >> 1]) * scale;
-    warp_pv<float, DH, kKeys, kF32Terms>(dq, dp, K_s, 0);
-  });
-  if (!active) return;
-  store_rows<T, DH>(dqkv + row0 * st + h * DH, st, q0 + r0, T_, dq, one);
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + r0 + (lane >> 2) + 8 * r;
-      if (row >= T_) continue;
-      const size_t off = static_cast<size_t>(blockIdx.x) * T_ + row;
-      lse[off] = lse_r[r];
-      delta[off] = delta_r[r];
-    }
-  }
-}
-
-// One block per (batch row b, head h, ROWS-row key tile): dk and dv of its
-// keys over every query, from step 4's lse and delta.  dk, dv into dqkv in T.
-template <typename T, int DH, int ROWS>
-__global__ void __launch_bounds__(2 * ROWS)
-b4_cols_kernel(const float* __restrict__ qkv, const float* __restrict__ gh, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dqkv, int H, int T_, int W, int valid) {
-  constexpr int kThreads = 2 * ROWS;
-  constexpr int kLd = tile_ld<float, DH>();
-  constexpr int kQn = walk_rows<DH>();
-  constexpr int kPV = kRoundedTerms<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* K_s = reinterpret_cast<float*>(smem_raw);
-  float* V_s = K_s + ROWS * kLd;
-  float* QG_s = V_s + ROWS * kLd;                       // buffer i: q at QG_s + 2 i kQn kLd, then gh
-  float* LD_s = QG_s + 4 * kQn * kLd;                   // buffer i: lse, then delta
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int k0 = blockIdx.y * ROWS, r0 = (threadIdx.x >> 5) * 16;
-  const int st = 3 * W;
-  const float* q = qkv + static_cast<size_t>(b) * T_ * st + h * DH;
-  const float* g = gh + static_cast<size_t>(b) * T_ * W + h * DH;
-  const float* lse_bh = lse + static_cast<size_t>(blockIdx.x) * T_;
-  const float* delta_bh = delta + static_cast<size_t>(blockIdx.x) * T_;
-  const float scale = rsqrtf(static_cast<float>(DH));
-  const float scale_log2 = scale * kLog2e;
-  const bool active = k0 + r0 < T_ && k0 + r0 < valid;  // the warp holds a valid key
-
-  float dk[DH / 8][4], dv[DH / 8][4];
-  zero(dk);
-  zero(dv);
-  if (k0 < valid) {  // a key tile wholly at or past valid has zero gradients
-    const int n_q = (T_ + kQn - 1) / kQn;
-    auto load_queries = [&](int i) {
-      const int qt0 = i * kQn;
-      float* Q_b = QG_s + (i & 1) * 2 * kQn * kLd;
-      float* L_b = LD_s + (i & 1) * 2 * kQn;
-      load_tile<float, DH, kQn, kThreads>(Q_b, q, st, qt0, T_);
-      load_tile<float, DH, kQn, kThreads>(Q_b + kQn * kLd, g, W, qt0, T_);
-      for (int r = threadIdx.x; r < kQn; r += kThreads) {
-        const bool in = qt0 + r < T_;
-        cp_async4(L_b + r, lse_bh + (in ? qt0 + r : 0), in);
-        cp_async4(L_b + kQn + r, delta_bh + (in ? qt0 + r : 0), in);
-      }
-    };
-    load_tile<float, DH, ROWS, kThreads>(K_s, q + W, st, k0, T_);
-    load_tile<float, DH, ROWS, kThreads>(V_s, q + 2 * W, st, k0, T_);
-    load_queries(0);
-    cp_commit();
-    for (int i = 0; i < n_q; ++i) {
-      if (i + 1 < n_q) {
-        load_queries(i + 1);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      if (active) {
-        const int qt0 = i * kQn;
-        const float* Q_b = QG_s + (i & 1) * 2 * kQn * kLd;
-        const float* G_b = Q_b + kQn * kLd;
-        const float* L_b = LD_s + (i & 1) * 2 * kQn;
-        float s[kQn / 8][4], dp[kQn / 8][4];
-        warp_abt<float, DH, kQn>(s, K_s, r0, Q_b, 0);   // s^T = k q^T
-        warp_abt<float, DH, kQn>(dp, V_s, r0, G_b, 0);  // dp^T = v gh^T
-#pragma unroll
-        for (int n = 0; n < kQn / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + r0 + (lane >> 2) + 8 * (e >> 1);
-            const int qi = 8 * n + 2 * (lane & 3) + (e & 1);
-            const float p = qt0 + qi < T_ && key < valid ? exp2f(s[n][e] * scale_log2 - L_b[qi]) : 0.f;
-            s[n][e] = p;
-            dp[n][e] = p * (dp[n][e] - L_b[kQn + qi]) * scale;
-          }
-        warp_pv<float, DH, kQn, kPV, kPV>(dv, s, G_b, 0);      // dv += p^T gh
-        warp_pv<float, DH, kQn, kF32Terms>(dk, dp, Q_b, 0);    // dk += ds^T q
-      }
-      __syncthreads();  // this buffer is refilled with query tile i + 2
-    }
-  }
-  if (k0 + r0 >= T_) return;
-  const float one[2] = {1.f, 1.f};
-  T* base = dqkv + static_cast<size_t>(b) * T_ * st + h * DH;
-  store_rows<T, DH>(base + W, st, k0 + r0, T_, dk, one);
-  store_rows<T, DH>(base + 2 * W, st, k0 + r0, T_, dv, one);
-}
-
-template <typename T, int DH, int ROWS>
-cudaError_t launch_core(const float* qkv, const float* gh, T* dqkv, T* attn, float* lse, float* delta, int B,
-                        int H, int T_, int W, int valid, cudaStream_t s) {
-  constexpr int kLd = tile_ld<float, DH>();
-  constexpr int kWalk = walk_rows<DH>();
-  const dim3 grid(B * H, (T_ + ROWS - 1) / ROWS);
-  auto rows = b4_rows_kernel<T, DH, ROWS>;
-  const size_t rows_smem = (2 * ROWS + 4 * kWalk) * kLd * sizeof(float);
-  cudaError_t err = allow_smem(rows, rows_smem);
-  if (err != cudaSuccess) return err;
-  rows<<<grid, 2 * ROWS, rows_smem, s>>>(qkv, gh, dqkv, attn, lse, delta, H, T_, W, valid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  auto cols = b4_cols_kernel<T, DH, ROWS>;
-  const size_t cols_smem = (2 * ROWS + 4 * kWalk) * kLd * sizeof(float) + 4 * kWalk * sizeof(float);
-  err = allow_smem(cols, cols_smem);
-  if (err != cudaSuccess) return err;
-  cols<<<grid, 2 * ROWS, cols_smem, s>>>(qkv, gh, lse, delta, dqkv, H, T_, W, valid);
-  return cudaGetLastError();
-}
-
-template <typename T, int DH>
-cudaError_t launch_core_rows(const float* qkv, const float* gh, T* dqkv, T* attn, float* lse, float* delta,
-                             int B, int H, int T_, int W, int valid, cudaStream_t s) {
-  if (tile_rows(T_) == 32) return launch_core<T, DH, 32>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-  return launch_core<T, DH, 64>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-}
-
-template <typename T>
-cudaError_t launch_core_dh(const float* qkv, const float* gh, T* dqkv, T* attn, float* lse, float* delta, int B,
-                           int H, int T_, int W, int valid, cudaStream_t s) {
-  switch (W / H) {
-    case 16: return launch_core_rows<T, 16>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-    case 32: return launch_core_rows<T, 32>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-    case 64: return launch_core_rows<T, 64>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-    case 128: return launch_core_rows<T, 128>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 template <typename T, int CE>
 cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_qkv,
@@ -397,7 +107,7 @@ cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* 
   if (err != cudaSuccess) return err;
   err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(g, w_out, Epi<T>{}, gh, M, W, W, s);
   if (err != cudaSuccess) return err;
-  err = launch_core_dh<T>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
+  err = attn_bwd::launch_core_dh<T, float, false, true>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
   if (err != cudaSuccess) return err;
   err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(dqkv, w_qkv, Epi<T>{}, dy, M, W, 3 * W, s, S);
   if (err != cudaSuccess) return err;
@@ -408,11 +118,21 @@ cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* 
 
 }  // namespace
 
-// Largest sequence length the [T, T]-tile backward core of B7 (and the
-// routing of B4's autograd Function) holds at head dim Dh (its [T, T] f32
-// tile and one [T, Dh] operand tile in shared memory, at most 32 x 8 keys per
-// row), 0 for an unsupported head dim.
-extern "C" int tapclip_attn_bwd_max_seq(int Dh) { return bwd_core_max_seq(Dh); }
+// The routing limit of B4's and B7's autograd Functions
+// (ops/fused_mha.py::_tile_fits) at head dim Dh, 0 for an unsupported head
+// dim: past it they differentiate the split composition (B4) or run the
+// flash chain on the packed strides (B7).  It is the longest T whose [T, T]
+// f32 tile and one [T, Dh + 1] f32 operand tile fit in 227 KB of shared
+// memory (at most 256), the limit of the one-block FMA core the two kernels
+// ran before their row and column kernels (attn_bwd_mma.cuh), which take any
+// T: now only a routing limit.
+extern "C" int tapclip_attn_bwd_max_seq(int Dh) {
+  if (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) return 0;
+  const auto bytes = [Dh](size_t t) { return (t * t + t * (Dh + 1)) * sizeof(float); };
+  int t = 0;
+  while (t < 256 && bytes(t + 1) <= 227 * 1024) ++t;
+  return t;
+}
 
 // The split S of dy's depth that tapclip_attn_block_bwd takes at R rows,
 // width W and dtype (0 float32, 1 bfloat16; the wrapper sizes the workspace

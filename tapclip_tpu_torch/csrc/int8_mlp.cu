@@ -29,39 +29,34 @@
 // K-major ([N, Kp], Kp = K rounded up to 64, zeros past K; S6's transpose
 // kernel, int8_gemm.cu) where it quantizes them, and allocates the scratch:
 // hidden rows h [R, H] f32, codes yq [R, Kp(W)] and hq [R, Kp(H)] int8,
-// scales [3, R] f32 (t1, t2, amax of h).
-//   1. mlp_ln_quant_kernel, one warp a row: LayerNorm into shared memory
+// scales [3, R] f32 (t1, t2, amax of h).  The kernels are int8_tiles.cuh's,
+// shared with B14:
+//   1. ln_quant_kernel, one warp a row: LayerNorm into shared memory
 //      (ln_row_warp, as the walk), the row's codes and scale t1; zeroes the
 //      row's |h| max.
-//   2. mlp_fc_kernel: yq . Wfc^T on int8_mma.cuh's block tile (mma.sync
-//      m16n8k32 s8, 128 x 128 tiles or 64 x 128), its epilogue
+//   2. dequant_kernel<kGeluMax>: yq . Wfc^T on int8_mma.cuh's block tile
+//      (mma.sync m16n8k32 s8, 128 x 128 tiles or 64 x 128), its epilogue
 //      dequantizing (acc t1) s_fc + b_fc and applying exact GELU (erff) in
 //      the walk's order, storing h (19.7 MB at the image shape, in L2), and
 //      folding the tile's |h| into the row's max: a max over the quad's
 //      lanes, then atomicMax on the non-negative f32 bits, which no order
 //      of the blocks changes.
-//   3. mlp_quant_h_kernel, one block a row: the codes of h and its scale t2
+//   3. quant_rows_kernel, one block a row: the codes of h and its scale t2
 //      from that max (code_of: the draws of (seed, quantizer, row, column),
 //      so no tiling moves a draw).
-//   4. mlp_proj_kernel: hq . Wproj^T on the same tile, its epilogue
+//   4. proj_kernel: hq . Wproj^T on the same tile, its epilogue
 //      dequantizing, adding b_proj and the residual with one rounding.
 // Each float step is the walk's, in the walk's order, and the int32 sums and
 // the row maxima are exact: the output equals the walk's bit for bit.
 #include <stdint.h>
 
 #include "int8_common.cuh"
-#include "int8_mma.cuh"
+#include "int8_tiles.cuh"
 
 namespace {
 
 using namespace tapclip;
-
-// Exact GELU in the plain version's order: (0.5 v) (1 + erf(v / sqrt 2)).
-template <bool ERF3>
-__device__ __forceinline__ float gelu(float v) {
-  const float z = __fmul_rn(v, 0.70710678118654752f);
-  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, ERF3 ? erf3(z) : erff(z)));
-}
+using namespace tapclip::int8k;
 
 // --- S5 and its parent: the __dp4a walk ---------------------------------------
 //
@@ -176,149 +171,7 @@ cudaError_t launch_walk_mode(int deterministic, int variant, const void* x, cons
 #undef TAPCLIP_INT8_MLP
 }
 
-// --- B13 on the int8 tensor cores ------------------------------------------------
-
-// Step 1: the rows' LayerNorm, codes yq [R, Wp] and scale t1; hmax := 0.
-// One warp a row; shared memory: kInt8Warps rows of W floats.
-template <typename T, bool SR>
-__global__ void __launch_bounds__(kInt8Threads)
-mlp_ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-                    int8_t* __restrict__ yq, float* __restrict__ t1, float* __restrict__ hmax, int R, int W,
-                    int Wp, float eps, uint32_t seed) {
-  extern __shared__ __align__(16) float y_s[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kInt8Warps + warp;
-  if (row >= R) return;
-  float* yr = y_s + static_cast<size_t>(warp) * W;
-  ln_row_warp<T, !SR>(x + static_cast<size_t>(row) * W, gamma, beta, W, eps, yr, lane);
-  __syncwarp();
-  const float s = quantize_row_warp<SR, false>(yr, W, Wp, yq + static_cast<size_t>(row) * Wp,
-                                                row_key(seed, kStreamMlpY, row), lane);
-  if (lane == 0) {
-    t1[row] = s;
-    hmax[row] = 0.f;
-  }
-}
-
-// Step 2: h = gelu((yq . Wfc^T) t1 s_fc + b_fc) [R, H] f32, and each row's
-// |h| max into hmax (atomicMax on the bits of a non-negative float).
-template <int BM>
-__global__ void __launch_bounds__(mma8::kGemmThreads, 2)
-mlp_fc_kernel(const int8_t* __restrict__ yq, const int8_t* __restrict__ w_fc, const float* __restrict__ t1,
-              const float* __restrict__ s_fc, const float* __restrict__ b_fc, float* __restrict__ h,
-              float* __restrict__ hmax, int R, int H, int Wp) {
-  extern __shared__ __align__(16) int8_t tile_smem[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * mma8::kBN;
-  int acc[BM / 32][mma8::kNT][4];
-  mma8::gemm_tile<BM, true>(yq, w_fc, tile_smem, R, H, Wp, m0, n0, acc);
-#pragma unroll
-  for (int i = 0; i < BM / 32; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = mma8::acc_row<BM>(m0, i, hh);
-      const bool in = row < R;
-      const float tr = in ? t1[row] : 0.f;
-      float m = 0.f;
-#pragma unroll
-      for (int j = 0; j < mma8::kNT; ++j) {
-        const int col = mma8::acc_col(n0, j);
-        if (!in || col >= H) continue;
-        float* hr = h + static_cast<size_t>(row) * H + col;
-        const float v0 = gelu<false>(dequant(acc[i][j][2 * hh], tr, s_fc[col], b_fc[col]));
-        m = fmaxf(m, fabsf(v0));
-        if (col + 1 >= H) {
-          hr[0] = v0;
-          continue;
-        }
-        const float v1 = gelu<false>(dequant(acc[i][j][2 * hh + 1], tr, s_fc[col + 1], b_fc[col + 1]));
-        m = fmaxf(m, fabsf(v1));
-        if (H & 1) {
-          hr[0] = v0;
-          hr[1] = v1;
-        } else {  // col even: 8-byte aligned
-          *reinterpret_cast<float2*>(hr) = make_float2(v0, v1);
-        }
-      }
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the quad's lanes share the row
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-      if (in && (threadIdx.x & 3) == 0) atomicMax(reinterpret_cast<int*>(hmax + row), __float_as_int(m));
-    }
-}
-
-// Step 3: the codes hq [R, Hp] of h and its scale t2 (zeros past H), one
-// block a row, four columns a thread at a time (one 16-byte load of h where
-// H % 4 == 0, one 4-byte store of codes).
-template <bool SR>
-__global__ void __launch_bounds__(kInt8Threads)
-mlp_quant_h_kernel(const float* __restrict__ h, const float* __restrict__ hmax, int8_t* __restrict__ hq,
-                   float* __restrict__ t2, int H, int Hp, uint32_t seed) {
-  const int row = blockIdx.x;
-  float inv;
-  const float scale = row_scale<false>(hmax[row], inv);
-  const uint32_t key = row_key(seed, kStreamMlpH, row);
-  const float* hr = h + static_cast<size_t>(row) * H;
-  uint32_t* qr = reinterpret_cast<uint32_t*>(hq + static_cast<size_t>(row) * Hp);
-  const bool vec = (H & 3) == 0;
-  for (int c = 4 * threadIdx.x; c < Hp; c += 4 * kInt8Threads) {
-    float v[4];
-    if (vec && c < H) {
-      const float4 f = *reinterpret_cast<const float4*>(hr + c);
-      v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = c + e < H ? hr[c + e] : 0.f;
-    }
-    uint32_t word = 0;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int8_t q = c + e < H ? code_of<SR, false>(v[e], scale, inv, key, c + e) : 0;
-      word |= static_cast<uint32_t>(static_cast<uint8_t>(q)) << (8 * e);
-    }
-    qr[c / 4] = word;
-  }
-  if (threadIdx.x == 0) t2[row] = scale;
-}
-
-// Step 4: out = (hq . Wproj^T) t2 s_proj + b_proj + x, one rounding to T.
-template <typename T, int BM>
-__global__ void __launch_bounds__(mma8::kGemmThreads, 2)
-mlp_proj_kernel(const int8_t* __restrict__ hq, const int8_t* __restrict__ w_proj, const float* __restrict__ t2,
-                const float* __restrict__ s_proj, const float* __restrict__ b_proj, const T* __restrict__ x,
-                T* __restrict__ out, int R, int W, int Hp) {
-  extern __shared__ __align__(16) int8_t tile_smem[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * mma8::kBN;
-  int acc[BM / 32][mma8::kNT][4];
-  mma8::gemm_tile<BM, true>(hq, w_proj, tile_smem, R, W, Hp, m0, n0, acc);
-#pragma unroll
-  for (int i = 0; i < BM / 32; ++i)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = mma8::acc_row<BM>(m0, i, hh);
-      if (row >= R) continue;
-      const float tr = t2[row];
-#pragma unroll
-      for (int j = 0; j < mma8::kNT; ++j) {
-        const int col = mma8::acc_col(n0, j);
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (col + e >= W) continue;
-          const size_t off = static_cast<size_t>(row) * W + col + e;
-          out[off] = from_f<T>(
-              __fadd_rn(dequant(acc[i][j][2 * hh + e], tr, s_proj[col + e], b_proj[col + e]), to_f(x[off])));
-        }
-      }
-    }
-}
-
-template <typename Kernel, typename... Args>
-cudaError_t launch_tiles(Kernel kernel, int BM, int M, int N, cudaStream_t s, Args... args) {
-  const size_t smem = BM == 128 ? mma8::gemm_smem<128>() : mma8::gemm_smem<64>();
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + mma8::kBN - 1) / mma8::kBN, (M + BM - 1) / BM);
-  kernel<<<grid, mma8::kGemmThreads, smem, s>>>(args...);
-  return cudaGetLastError();
-}
+// --- B13 on the int8 tensor cores (int8_tiles.cuh) --------------------------------
 
 template <typename T, bool SR>
 cudaError_t launch_mma(const T* x, const float* gamma, const float* beta, const int8_t* w_fc, const float* s_fc,
@@ -329,25 +182,13 @@ cudaError_t launch_mma(const T* x, const float* gamma, const float* beta, const 
   float* t1 = scales;
   float* t2 = scales + R;
   float* hmax = scales + 2 * R;
-  const int row_blocks = (R + kInt8Warps - 1) / kInt8Warps;
-  auto ln = mlp_ln_quant_kernel<T, SR>;
-  const size_t ln_smem = static_cast<size_t>(kInt8Warps) * W * sizeof(float);
-  cudaError_t err = allow_smem(ln, ln_smem);
+  cudaError_t err = launch_ln_quant<T, SR>(x, gamma, beta, yq, t1, hmax, R, W, Wp, eps, seed, kStreamMlpY, s);
   if (err != cudaSuccess) return err;
-  ln<<<row_blocks, kInt8Threads, ln_smem, s>>>(x, gamma, beta, yq, t1, hmax, R, W, Wp, eps, seed);
-  err = cudaGetLastError();
+  err = launch_dequant<kGeluMax, float>(yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp, H, s);
   if (err != cudaSuccess) return err;
-  const int bm_fc = mma8::tile_m(R, H);
-  err = bm_fc == 128 ? launch_tiles(mlp_fc_kernel<128>, 128, R, H, s, yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp)
-                     : launch_tiles(mlp_fc_kernel<64>, 64, R, H, s, yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp);
+  err = launch_quant_rows<SR>(h, hmax, hq, t2, R, H, Hp, seed, kStreamMlpH, s);
   if (err != cudaSuccess) return err;
-  mlp_quant_h_kernel<SR><<<R, kInt8Threads, 0, s>>>(h, hmax, hq, t2, H, Hp, seed);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int bm_proj = mma8::tile_m(R, W);
-  return bm_proj == 128
-             ? launch_tiles(mlp_proj_kernel<T, 128>, 128, R, W, s, hq, w_proj, t2, s_proj, b_proj, x, out, R, W, Hp)
-             : launch_tiles(mlp_proj_kernel<T, 64>, 64, R, W, s, hq, w_proj, t2, s_proj, b_proj, x, out, R, W, Hp);
+  return launch_proj<T>(hq, w_proj, t2, s_proj, b_proj, x, out, R, W, Hp, s);
 }
 
 template <typename T>

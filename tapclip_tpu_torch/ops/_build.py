@@ -80,8 +80,9 @@ _SIGNATURES = {
     "tapclip_attn_block_bwd": (P,) * 11 + (I,) * 5 + (F, I, I, I, P),
     # qkv, out, B, T, W, n_heads, valid, causal, dtype, stream
     "tapclip_mha": (P, P, I, I, I, I, I, I, I, P),
-    # qkv, g, dqkv, B, T, W, n_heads, valid, causal, dtype, stream
-    "tapclip_mha_bwd": (P, P, P, I, I, I, I, I, I, I, P),
+    # qkv, g, dqkv, ws (f32 scratch: lse and delta, 2 B n_heads T), B, T, W,
+    # n_heads, valid, causal, dtype, stream
+    "tapclip_mha_bwd": (P, P, P, P, I, I, I, I, I, I, I, P),
     # q, k, valid, lse, B, H, T, Dh, sq_b, sq_h, sq_t, causal, dtype, stream
     "tapclip_flash_lse": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # q, k, v, g, lse, delta, valid, dk, dv, B, H, T, Dh, sq_b, sq_h, sq_t,
@@ -98,13 +99,10 @@ _SIGNATURES = {
     "tapclip_int8_mlp_walk": (P, P, P, P, P, P, P, P, P, P, I, I, I, F, U, I, I, I, P),
     # W, H
     "tapclip_int8_mlp_walk_smem_bytes": (I, I),
-    # x, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, R, W, eps, seed, deterministic,
-    # dtype, stream
-    "tapclip_int8_qkv": (P, P, P, P, P, P, P, I, I, F, U, I, I, P),
-    # qkv, a, B, T, W, n_heads, valid, round_p, stream
-    "tapclip_int8_attn_core": (P, P, I, I, I, I, I, I, P),
-    # a, w_out, s_out, b_out, x, out, R, W, seed, deterministic, dtype, stream
-    "tapclip_int8_out": (P, P, P, P, P, P, I, I, U, I, I, P),
+    # x, gamma, beta, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, out, qkv, a,
+    # codes, scales, B, T, W, n_heads, valid, eps, seed, deterministic, dtype,
+    # stream
+    "tapclip_int8_attn": (P,) * 14 + (I, I, I, I, I, F, U, I, I, P),
     # a, b, bt (scratch), c, M, N, K, out_f32, stream
     "tapclip_int8_gemm": (P, P, P, P, I, I, I, I, P),
     # K -> Kp, the depth of int8_gemm's transposed B scratch [N, Kp]

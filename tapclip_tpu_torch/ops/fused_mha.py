@@ -15,10 +15,12 @@ attention core on the tensor cores, seven launches, with the weight
 gradients by ``csrc/gemm.cu``.  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
-recomputes LN, QKV and the probabilities, as the TPU kernel does.  Where
-B7's ``[T, T]`` f32 tile no longer fits in shared memory (T over 210 at head
-dim 64) the backward differentiates the split composition (plain
-projections around :func:`fused_mha`), as the JAX ``_attn_block_bwd`` does.
+recomputes LN, QKV and the probabilities, as the TPU kernel does.  Past
+the routing limit ``tapclip_attn_bwd_max_seq`` (T over 210 at head dim 64:
+where the one-block ``[T, T]`` core the backward kernels ran before their
+row and column kernels held its tile) the backward differentiates the split
+composition (plain projections around :func:`fused_mha`), as the JAX
+``_attn_block_bwd`` does.
 
 Numerics in bfloat16: the kernels keep q and k in f32 and round v to the
 compute dtype, as the JAX kernels do; the plain forward rounds the whole qkv
@@ -34,11 +36,12 @@ one ``torch.autograd.Function``: on a CUDA tensor its forward is B6
 (``csrc/mha_bwd.cu``, which replaces ``_mha_bwd_kernel``); on a CPU tensor
 :func:`fused_mha_reference` (the counterpart of ``_xla_reference``) and
 :func:`fused_mha_bwd_reference` (the TPU backward's formula).  The forward
-saves qkv; the backward recomputes the probabilities.  B7 holds a head's
-``[T, T]`` tile in shared memory; past it the forward also saves its output
-and the backward runs the blockwise flash chain (``csrc/flash_bwd.cu``) on
-the packed strides, writing dq, dk, dv straight into ``dqkv``, as the JAX
-``_fused_mha_bwd_impl`` runs at any T.
+saves qkv; the backward recomputes the probabilities.  B7 is two launches
+on the tensor cores (B4's row and column kernels, ``csrc/attn_bwd_mma.cuh``,
+on the packed strides); past the same routing limit the forward also saves
+its output and the backward runs the blockwise flash chain
+(``csrc/flash_bwd.cu``) on the packed strides, writing dq, dk, dv straight
+into ``dqkv``, as the JAX ``_fused_mha_bwd_impl`` runs at any T.
 """
 
 from __future__ import annotations
@@ -145,7 +148,9 @@ class _FusedAttnBlock(torch.autograd.Function):
 
 
 def _tile_fits(T, Dh):
-    """Whether the ``[T, T]``-tile backward core (B4, B7) holds sequence length T."""
+    """Whether B4's and B7's autograd Functions route sequence length T to
+    their kernels (``tapclip_attn_bwd_max_seq``: the limit of the ``[T, T]``
+    core they ran before, kept as a routing limit)."""
     return T <= _build.library().tapclip_attn_bwd_max_seq(Dh)
 
 
@@ -252,7 +257,7 @@ def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid,
     lib = _build.library()
     if not _tile_fits(T, Dh):
         raise ValueError(
-            f"attention block backward kernel runs where B7's [T, T] tile fits: "
+            f"attention block backward kernel runs up to its routing limit: "
             f"T={T} exceeds its limit of {lib.tapclip_attn_bwd_max_seq(Dh)} at head dim {Dh} "
             f"(the autograd Function differentiates the split composition there)"
         )
@@ -362,7 +367,7 @@ class _FusedMHA(torch.autograd.Function):
             ctx.save_for_backward(qkv)
             return fused_mha_reference(qkv, n_heads, valid, causal)
         out = _fused_mha_cuda(qkv, n_heads, valid, causal)
-        # The flash chain past B7's tile needs the output (delta = rowsum(g * out)).
+        # The flash chain past the routing limit needs the output (delta = rowsum(g * out)).
         fits = _tile_fits(qkv.shape[1], qkv.shape[2] // 3 // n_heads)
         ctx.save_for_backward(*((qkv,) if fits else (qkv, out)))
         return out
@@ -434,17 +439,22 @@ def _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal):
 
 
 def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal, *, out=None):
-    """B7 on the card: packed ``dqkv`` in qkv's dtype.  Past B7's ``[T, T]``
-    tile the flash chain runs on the packed strides; it needs the forward's
-    output ``out [B, T, W]``."""
+    """B7 on the card (two launches: ``csrc/mha_bwd.cu``): packed ``dqkv`` in
+    qkv's dtype.  Past the routing limit (:func:`_tile_fits`) the flash chain
+    runs on the packed strides; it needs the forward's output ``out [B, T,
+    W]``."""
     B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g))
     if not _tile_fits(T, Dh):
         if out is None:
             raise ValueError(f"T={T} runs the flash chain, which needs the forward output")
         return _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal)
+    for name, t in (("qkv", qkv), ("g", g)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"packed-QKV backward kernel copies {name} in 16-byte chunks: it must be 16-byte aligned")
     dqkv = torch.empty_like(qkv)
+    ws = torch.empty(2 * B * n_heads * T, dtype=torch.float32, device=qkv.device)  # lse, delta
     err = _build.library().tapclip_mha_bwd(
-        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
+        qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), ws.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
         _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device),
     )
     _build.check(err, "tapclip_mha_bwd")

@@ -17,9 +17,12 @@ The two modes compute what the JAX package computes in each:
   output rounded to the compute dtype before it is quantized, the attention
   core in f32 throughout (``attention_reference``).
 
-:func:`int8_attn_block` makes the three launches of ``csrc/int8_attn.cu``
-(the hand-written B14) on a CUDA tensor in either mode and runs the plain
-version (:func:`int8_attn_plain`) on a CPU tensor.  The TPU kernel's
+:func:`int8_attn_block` makes the five launches of ``csrc/int8_attn.cu``
+(the hand-written B14, on the tensor cores: LayerNorm and codes, the QKV
+product on the int8 MMAs, the attention on the bf16 MMAs with each row's
+|a| max, the attention output's codes, the out product) on a CUDA tensor in
+either mode, on weights laid out K-major (:func:`.int8_mlp.k_major`), and
+runs the plain version (:func:`int8_attn_plain`) on a CPU tensor.  The TPU kernel's
 head-pair packing and its VMEM picker (``int8_attn.py:226-229``) are TPU
 layout choices and are not ported.
 """
@@ -38,8 +41,8 @@ from tapclip_tpu_torch.ops.int8_mlp import (
     STREAM_ATTN_Y,
     _f32_operand,
     int_dot,
+    k_major,
     ln_f32,
-    pack_k4,
     quantize_activations,
     quantize_cols_int8,
 )
@@ -67,9 +70,13 @@ def attn_core_exp2(qkv: torch.Tensor, n_heads: int, valid: int, p_dtype) -> torc
     return _merge_heads(o)
 
 
-def int8_attn_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
-                    deterministic=False):
-    """Plain version of B14 on the quantized weights ``q`` (:func:`quantize_attn`)."""
+def int8_attn_plain_parts(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
+                          deterministic=False) -> Dict[str, torch.Tensor]:
+    """:func:`int8_attn_plain` with its intermediates: the codes and scale of
+    LayerNorm's output (``yq``, ``t1``), the f32 workspace ``qkv [B T, 3W]``
+    (v rounded to the dtype in the stochastic mode), the attention output
+    ``a [B T, W]`` f32 and its codes and scale (``aq``, ``t2``), and ``out``
+    in x's dtype and shape."""
     B, T, W = x.shape
     x2 = x.reshape(B * T, W)
     y = ln_f32(x2, gamma, beta, eps)
@@ -81,9 +88,18 @@ def int8_attn_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, se
     else:
         qkv = torch.cat([qkv[:, :2 * W], qkv[:, 2 * W:].to(x.dtype).float()], dim=-1)
         a = attn_core_exp2(qkv.reshape(B, T, 3 * W), n_heads, valid, x.dtype)
-    aq, t2 = quantize_activations(a.reshape(B * T, W), x.dtype, seed, STREAM_ATTN_A, deterministic)
+    a = a.reshape(B * T, W)
+    aq, t2 = quantize_activations(a, x.dtype, seed, STREAM_ATTN_A, deterministic)
     out = int_dot(aq, q["w_out"]) * t2 * q["s_out"] + q["b_out"]
-    return (out + x2.float()).to(x.dtype).reshape(B, T, W)
+    return {"yq": yq, "t1": t1, "qkv": qkv, "a": a, "aq": aq, "t2": t2,
+            "out": (out + x2.float()).to(x.dtype).reshape(B, T, W)}
+
+
+def int8_attn_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
+                    deterministic=False):
+    """Plain version of B14 on the quantized weights ``q`` (:func:`quantize_attn`)."""
+    return int8_attn_plain_parts(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
+                                 deterministic=deterministic)["out"]
 
 
 def int8_attn_reference(x, ln_params, attn_params, n_heads: int, valid: int, eps: float = 1e-5):
@@ -120,7 +136,8 @@ int8_attn_block.launches = 0
 
 def int8_attn_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
                    deterministic=False):
-    """B14 on the card: qkv launch, attention core, out launch."""
+    """B14 on the card (five launches on the tensor cores) on the quantized
+    weights ``q``."""
     B, T, W = x.shape
     R = B * T
     _check_heads(T, W, n_heads, valid)
@@ -130,25 +147,21 @@ def int8_attn_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, see
     f = {name: _f32_operand(name, t, (n,)) for name, t, n in (
         ("gamma", gamma, W), ("beta", beta, W), ("s_qkv", q["s_qkv"], 3 * W),
         ("b_qkv", q["b_qkv"], 3 * W), ("s_out", q["s_out"], W), ("b_out", q["b_out"], W))}
-    w_qkv, w_out = pack_k4(q["w_qkv"]), pack_k4(q["w_out"])
     lib = _build.library()
-    code = _build.dtype_code(x.dtype)
-    stream = _build.stream_handle(x.device)
-    seed = int(seed) & 0xFFFFFFFF
-    qkv = torch.empty((R, 3 * W), dtype=torch.float32, device=x.device)
-    a = torch.empty((R, W), dtype=torch.float32, device=x.device)
+    Wp = lib.tapclip_int8_gemm_kp(W)
+    w_qkv, w_out = k_major(q["w_qkv"], Wp), k_major(q["w_out"], Wp)
+    dev = x.device
     out = torch.empty_like(x)
-    err = lib.tapclip_int8_qkv(x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(),
-                               w_qkv.data_ptr(), f["s_qkv"].data_ptr(), f["b_qkv"].data_ptr(),
-                               qkv.data_ptr(), R, W, float(eps), seed, int(deterministic), code, stream)
-    _build.check(err, "tapclip_int8_qkv")
-    round_p = int(not deterministic and x.dtype == torch.bfloat16)
-    err = lib.tapclip_int8_attn_core(qkv.data_ptr(), a.data_ptr(), B, T, W, n_heads, int(valid),
-                                     round_p, stream)
-    _build.check(err, "tapclip_int8_attn_core")
-    err = lib.tapclip_int8_out(a.data_ptr(), w_out.data_ptr(), f["s_out"].data_ptr(),
-                               f["b_out"].data_ptr(), x.data_ptr(), out.data_ptr(), R, W, seed,
-                               int(deterministic), code, stream)
-    _build.check(err, "tapclip_int8_out")
+    qkv = torch.empty((R, 3 * W), dtype=torch.float32, device=dev)  # q | k | v, v rounded in the stochastic mode
+    a = torch.empty((R, W), dtype=torch.float32, device=dev)  # the attention output
+    codes = torch.empty((R, Wp), dtype=torch.int8, device=dev)  # of LN(x), then of a
+    scales = torch.empty((3, R), dtype=torch.float32, device=dev)  # t1, t2, max |a| of each row
+    err = lib.tapclip_int8_attn(
+        x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_qkv.data_ptr(), f["s_qkv"].data_ptr(),
+        f["b_qkv"].data_ptr(), w_out.data_ptr(), f["s_out"].data_ptr(), f["b_out"].data_ptr(), out.data_ptr(),
+        qkv.data_ptr(), a.data_ptr(), codes.data_ptr(), scales.data_ptr(), B, T, W, n_heads, int(valid),
+        float(eps), int(seed) & 0xFFFFFFFF, int(deterministic), _build.dtype_code(x.dtype), _build.stream_handle(dev),
+    )
+    _build.check(err, "tapclip_int8_attn")
     int8_attn_block.launches += 1
     return out

@@ -1,6 +1,6 @@
-"""Device time of each CUDA kernel behind K1, K2, B5, B4, B13 and S6, read from a profiler trace.
+"""Device time of each CUDA kernel behind K1, K2, B5, B4, B13, B14, B7 and S6, read from a profiler trace.
 
-    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels K1,B4,...]
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B14,B7,...]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and runs ``torch.profiler`` over
@@ -18,6 +18,12 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
   200, W 768, 12 heads, valid 197), both dtypes;
 * B13 (``int8_mlp_cuda`` on weights quantized once) at the image shape
   (8 x 200, W 768, H 3,072), stochastic and round to nearest, both dtypes;
+* B14 (``int8_attn_cuda`` on weights quantized once) at the image shape
+  (8 x 200, W 768, 12 heads, valid 197), stochastic and round to nearest,
+  both dtypes;
+* B7 (``_fused_mha_bwd_cuda``) at the idiomatic step's shape (8 x 77, W
+  512, 8 heads, causal) and the 64-text batch (64 x 80, valid 77, causal),
+  both dtypes;
 * S6 (``int8_gemm``) at the probe's shape (51,200 x 768 x 3,072) and at
   B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768).
 
@@ -25,13 +31,14 @@ A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
 LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
 LayerNorm backward, and with all gradients gemm.cu's products and column
 sums; B4 likewise its LayerNorm, products, attention core and LayerNorm
-backward; B13 its launches and the wrapper's weight layout; S6: the
+backward; B13 and B14 their launches and the wrapper's weight layout; B7
+its launches; S6: the
 transpose of B, the product); the trace splits the call's
 device time among them (launches of one kernel and template list summed).  Prints the card's name and power limit, then one JSON line per case:
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
-``--kernels`` keeps only the named ones (default: all six).  Exits 1
+``--kernels`` keeps only the named ones (default: all eight).  Exits 1
 without a card, or when the trace holds no device time.
 """
 
@@ -47,6 +54,9 @@ K2_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "text 8x88x
 B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
 B4_SHAPES = {"text 8x88x512 h8 valid82": (8, 88, 512, 8, 82), "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197)}
 B13_SHAPES = {"image 8x200x768 H3072": (8, 200, 768)}
+B14_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197)}
+B7_SHAPES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
+             "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True)}
 S6_SHAPES = {"probe": (51_200, 768, 3_072), "b13 fc": (1_600, 768, 3_072), "b13 proj": (1_600, 3_072, 768)}
 
 
@@ -85,7 +95,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,S6")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,S6")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -96,8 +106,9 @@ def main() -> int:
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, fused_attn_block
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, _fused_mha_bwd_cuda, fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
+    from tapclip_tpu_torch.ops.int8_attn import int8_attn_cuda, quantize_attn
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
     from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, quantize_mlp
 
@@ -155,6 +166,19 @@ def main() -> int:
                 for mode, det in (("stochastic", False), ("round-to-nearest", True)):
                     res = profile(lambda: int8_mlp_cuda(x, gamma, beta, q, deterministic=det), args.iters)
                     emit(f"B13 {mode}", label, dtype, res)
+            for label, (B, T, W, nh, valid) in B14_SHAPES.items() if "B14" in want else ():
+                x = rn(B, T, W).to(dtype)
+                gamma, beta = 1.0 + rn(W, s=0.1), rn(W, s=0.1)
+                q = quantize_attn({"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
+                                   "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)})
+                for mode, det in (("stochastic", False), ("round-to-nearest", True)):
+                    res = profile(lambda: int8_attn_cuda(x, gamma, beta, q, nh, valid, deterministic=det),
+                                  args.iters)
+                    emit(f"B14 {mode}", label, dtype, res)
+            for label, (B, T, W, nh, valid, causal) in B7_SHAPES.items() if "B7" in want else ():
+                qkv, g = (0.5 * rn(B, T, 3 * W)).to(dtype), rn(B, T, W).to(dtype)
+                res = profile(lambda: _fused_mha_bwd_cuda(qkv, g, nh, valid, causal), args.iters)
+                emit("B7", label, dtype, res)
         for label, (M, K, N) in S6_SHAPES.items() if "S6" in want else ():
             a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
             b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)

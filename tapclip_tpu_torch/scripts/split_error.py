@@ -42,6 +42,14 @@ dq = ds k and dk = ds^T q in three terms in both dtypes, delta = sum(dp p)),
 with the weight gradients as the plain products of its o and dqkv, against
 ``attn_block_bwd_reference`` at ``ATTN_BWD_SHAPES`` (the card tests' B4
 shapes): the norm-relative error of each of the seven gradients.
+:func:`emulated_mha_bwd_errors` emulates B7 (``csrc/mha_bwd.cu``, B4's row
+and column kernels on the packed strides, causal or not: q, k, v and g in
+three terms in f32 and one in bf16, p's bf16 rounding for dv in bf16, ds in
+three terms) against ``fused_mha_bwd_reference`` at ``MHA_BWD_SHAPES``.
+:func:`emulate_int8_attn` emulates B14 (``csrc/int8_attn.cu``): its
+attention step on split q and k, p and v in three terms or (the stochastic
+mode in bf16) one, and the codes of the attention output from the row max
+taken per head's column tile (:func:`int8_head_tiled_codes`).
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from tapclip_tpu_torch.ops.flash_attention import (
     attention_bwd_reference,
     attention_lse_reference,
 )
-from tapclip_tpu_torch.ops.fused_mha import attn_block_bwd_reference, attn_block_reference
+from tapclip_tpu_torch.ops.fused_mha import attn_block_bwd_reference, attn_block_reference, fused_mha_bwd_reference
 from tapclip_tpu_torch.ops.fused_mlp import _ln_parts, fused_mlp_bwd_reference, fused_mlp_reference, ln_backward
 
 # (B, H, T, Dh, per-row valid), as FLASH_SHAPES of tests/port/test_torch_gpu.py.
@@ -81,6 +89,10 @@ MLP_BWD_SHAPES = [(21, 32), (37, 64), (90, 128), (300, 256), (704, 512), (1600, 
 ATTN_BWD_SHAPES = [(2, 16, 128, 2, 13), (1, 65, 64, 4, 65), (3, 88, 256, 2, 82), (1, 40, 256, 8, 33),
                    (8, 88, 512, 8, 82), (2, 200, 768, 12, 197), (2, 33, 128, 4, 30), (1, 210, 512, 8, 205),
                    (1, 97, 256, 2, 90)]
+# (B, T, W, heads, valid, causal) of B7, as MHA_SHAPES of tests/port/test_torch_gpu.py.
+MHA_BWD_SHAPES = [(8, 77, 512, 8, 77, True), (8, 80, 512, 8, 77, True), (2, 200, 768, 12, 197, False),
+                  (2, 200, 768, 12, 197, True), (3, 77, 128, 2, 77, False), (1, 70, 256, 2, 50, True),
+                  (2, 65, 64, 4, 65, True), (1, 40, 256, 8, 33, False)]
 F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
 ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
 
@@ -353,6 +365,108 @@ def emulated_attn_block_bwd_errors(B, T, W, n_heads, valid, dtype=torch.float32,
     return errs
 
 
+def _merge(t):  # [B, H, T, Dh] -> [B, T, W]
+    B, H, T, Dh = t.shape
+    return t.transpose(1, 2).reshape(B, T, H * Dh)
+
+
+def emulate_mha_bwd(qkv, g, n_heads, valid, causal, f32_terms=F32_TERMS):
+    """B7 as the card computes it (``csrc/mha_bwd.cu`` on B4's row and column
+    kernels): q, k, v and g in ``f32_terms`` terms in f32 and one (exact) in
+    bf16; the row LSE of the masked log2-domain scores (keys at or past
+    ``valid``, and past the query when ``causal``, at -1e30), p = exp2(s -
+    lse); dv = p^T g with p in ``f32_terms`` terms in f32 and its bf16
+    rounding in bf16; dp = g v^T; delta = sum(dp p), ds = p (dp - delta)
+    scale in f32; dq = ds k and dk = ds^T q with ds in ``f32_terms`` terms.
+    Packed ``dqkv [B, T, 3W]`` in qkv's dtype."""
+    dt = qkv.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    T, W = qkv.shape[1], qkv.shape[2] // 3
+    scale = (W // n_heads) ** -0.5
+    q, k, v = (_heads(t.float(), n_heads) for t in qkv.split(W, dim=-1))
+    gh = _heads(g.float(), n_heads)
+    keys = torch.arange(T)
+    mask = (keys < valid)[None, :].expand(T, T)
+    if causal:
+        mask = mask & (keys[None, :] <= keys[:, None])
+    s = split_matmul(q, k.transpose(-1, -2), nt, nt) * (scale * _LOG2E)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m + torch.log2(torch.exp2(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(mask, torch.exp2(s - lse), torch.zeros_like(s))
+    dv = split_matmul(p.transpose(-1, -2), gh, nt, nt)
+    dp = split_matmul(gh, v.transpose(-1, -2), nt, nt)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * scale
+    dq = split_matmul(ds, k, f32_terms, nt)
+    dk = split_matmul(ds.transpose(-1, -2), q, f32_terms, nt)
+    return torch.cat([_merge(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+
+
+def emulated_mha_bwd_errors(B, T, W, n_heads, valid, causal, dtype=torch.float32, f32_terms=F32_TERMS,
+                            seed=0) -> dict:
+    """B7's emulated dqkv against ``fused_mha_bwd_reference``'s on the same
+    inputs (qkv at half scale and the cotangent in ``dtype``): ``dqkv_rel``
+    (norm-relative) and ``dqkv_abs``."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * W), dtype=np.float32) * np.float32(0.5)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((B, T, W), dtype=np.float32)).to(dtype)
+    got = emulate_mha_bwd(qkv, g, n_heads, valid, causal, f32_terms)
+    want = fused_mha_bwd_reference(qkv, g, n_heads, valid, causal)
+    return {"dqkv_rel": _rel(got, want), "dqkv_abs": float((got.float() - want.float()).abs().max())}
+
+
+def emulate_int8_attn_core(qkv, n_heads, valid, p_dtype, f32_terms=F32_TERMS):
+    """B14's attention step (``csrc/attn_core_mma.cuh``) over the f32
+    workspace ``qkv [B, T, 3W]``: q . k^T on ``f32_terms`` terms of q and k,
+    times Dh^-1/2 log2 e, keys at or past ``valid`` at -1e30, exp2 against
+    the row max, the sum over the unrounded p; p . v on ``f32_terms`` terms
+    of p and v, or one where ``p_dtype`` is bfloat16 (p rounded, v a bf16
+    value), over the sum.  f32 ``[B, T, W]``."""
+    T, W = qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (_heads(t, n_heads) for t in qkv.float().split(W, dim=-1))
+    nt = 1 if p_dtype == torch.bfloat16 else f32_terms
+    s = split_matmul(q, k.transpose(-1, -2), f32_terms, f32_terms) * ((W // n_heads) ** -0.5 * _LOG2E)
+    s = torch.where(torch.arange(T) < valid, s, torch.full_like(s, -1e30))
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    return _merge(split_matmul(e, v, nt, nt) / e.sum(dim=-1, keepdim=True))
+
+
+def int8_head_tiled_codes(a, n_heads, seed, deterministic):
+    """The codes and scales of the attention output ``a [R, W]`` as B14's
+    last steps form them: each row's largest |a| taken per head's column tile
+    on the f32 bits and the largest over the tiles (the kernel's atomicMax),
+    then the quantizer of stream 3 (``STREAM_ATTN_A``) from it."""
+    from tapclip_tpu_torch.ops import int8_mlp
+
+    R, W = a.shape
+    tiles = a.abs().view(torch.int32).view(R, n_heads, W // n_heads)
+    amax = tiles.amax(-1).amax(-1, keepdim=True).view(torch.float32)
+    scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
+    if deterministic:
+        return torch.clamp(torch.round(a / scale), -127, 127), scale
+    u = int8_mlp.uniform_from_bits(int8_mlp.rand_bits(seed, int8_mlp.STREAM_ATTN_A, R, W))
+    return torch.clamp(torch.floor(a / scale + u), -127, 127), scale
+
+
+def emulate_int8_attn(x, gamma, beta, q, n_heads, valid, *, seed=0, deterministic=False, f32_terms=F32_TERMS):
+    """B14 as the card computes it: the QKV workspace as the plain version
+    forms it (exact int32 sums; the card's equals it bit for bit), the
+    attention step of :func:`emulate_int8_attn_core` (p rounded to bf16 only
+    in the stochastic mode in bf16), the codes from the head-tiled row max
+    (:func:`int8_head_tiled_codes`), the out product, b_out and the
+    residual with one rounding.  x's dtype and shape."""
+    from tapclip_tpu_torch.ops.int8_attn import int8_attn_plain_parts
+    from tapclip_tpu_torch.ops.int8_mlp import int_dot
+
+    B, T, W = x.shape
+    qkv = int8_attn_plain_parts(x, gamma, beta, q, n_heads, valid, seed=seed, deterministic=deterministic)["qkv"]
+    p_dtype = x.dtype if not deterministic else torch.float32
+    a = emulate_int8_attn_core(qkv.reshape(B, T, 3 * W), n_heads, valid, p_dtype, f32_terms).reshape(B * T, W)
+    aq, t2 = int8_head_tiled_codes(a, n_heads, seed, deterministic)
+    out = int_dot(aq, q["w_out"]) * t2 * q["s_out"] + q["b_out"]
+    return (out + x.reshape(B * T, W).float()).to(x.dtype).reshape(B, T, W)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")
@@ -379,6 +493,10 @@ def main() -> int:
             errs = emulated_attn_block_bwd_errors(B, T, W, heads, valid, dtype, args.terms)
             print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B4",
                               "shape": [B, T, W], "heads": heads, "valid": valid, **errs}))
+        for B, T, W, heads, valid, causal in MHA_BWD_SHAPES:
+            errs = emulated_mha_bwd_errors(B, T, W, heads, valid, causal, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B7",
+                              "shape": [B, T, W], "heads": heads, "valid": valid, "causal": causal, **errs}))
     return 0
 
 

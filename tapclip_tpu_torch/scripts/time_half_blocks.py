@@ -1,6 +1,6 @@
-"""Time the half-block kernels K1, K2, B5, B4 and B13 of one checkout of the port.
+"""Time the kernels K1, K2, B5, B4, B13, B14 and B7 of one checkout of the port.
 
-    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B4,B13]
+    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B14,B7]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and prints one JSON line: the card's
@@ -23,18 +23,28 @@ calls, ``--runs`` readings each), float32 and bfloat16, of
 * B13's wrapper (``int8_mlp_cuda`` on weights quantized once: it lays them
   out on every call) and its launches alone on weights laid out once
   (``tapclip_int8_mlp``: in a checkout from before its tensor-core design the
-  one ``__dp4a`` launch on packed weights), stochastic and round to nearest.
+  one ``__dp4a`` launch on packed weights), stochastic and round to nearest;
+* B14's wrapper (``int8_attn_cuda`` on weights quantized once: it lays them
+  out on every call) and its launches alone on weights laid out once
+  (``tapclip_int8_attn``: in a checkout from before its tensor-core design
+  its three launches ``tapclip_int8_qkv``, ``tapclip_int8_attn_core`` and
+  ``tapclip_int8_out`` on packed weights), stochastic and round to nearest;
+* B7's wrapper (``_fused_mha_bwd_cuda``) and its launches alone
+  (``tapclip_mha_bwd``, with its lse / delta scratch where it takes one).
 
 K1 at ViT-B/16's image shape (8 x 200 rows, W 768) and the text tower's
 shapes (a 64-text batch, 64 x 80 rows, and 8 x 88 rows, W 512); K2 at the
 image shape (12 heads, valid 197) and the text shape (8 x 88, W 512, 8
 heads, valid 82); B5 at the text shape (H 2,048) and the image shape (H
 3,072); B4 at K2's two shapes; B13 at the image shape (H 3,072) and the
-pruned one (8 x 96 rows).  Each launcher's C signature is read from the checkout's own
+pruned one (8 x 96 rows); B14 at the image shape (12 heads, valid 197) and
+the pruned one (8 x 96, no mask); B7 at the idiomatic step's shape (8 x 77,
+W 512, 8 heads, causal), the 64-text batch (64 x 80, valid 77, causal) and
+the fused_split image shape (8 x 200, W 768, 12 heads, valid 197).  Each launcher's C signature is read from the checkout's own
 ``_build._SIGNATURES``: where K1 takes a scratch pointer (h and y, R (H + W)
 elements of the dtype) the scratch is allocated once beside the buffers.
 
-``--kernels`` times only the named kernels (default: all five).  To
+``--kernels`` times only the named kernels (default: all seven).  To
 compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
 """
@@ -51,6 +61,11 @@ K1_SHAPES = {"image 8x200x768": (8, 200, 768), "text batch 64x80x512": (64, 80, 
 B5_SHAPES = {"text 8x88x512": (8, 88, 512), "image 8x200x768": (8, 200, 768)}
 B13_SHAPES = {"image 8x200x768 H3072": (8, 200, 768), "pruned 8x96x768 H3072": (8, 96, 768)}
 B13_WALK_ARGS = 19  # tapclip_int8_mlp's arguments in the __dp4a design (packed weights, no scratch)
+B14_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "pruned 8x96x768 h12": (8, 96, 768, 12, 96)}
+B7_SHAPES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
+             "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True),
+             "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197, False)}
+B7_CORE_ARGS = 11  # tapclip_mha_bwd's arguments in the [T, T]-core design (no lse / delta scratch)
 B5_SPLITS = (1, 2, 4)  # the splits of dy's depth that tapclip_mlp_bwd takes, each timed where it takes one
 K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
 
@@ -59,7 +74,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -70,8 +85,8 @@ def main() -> int:
         print("time_half_blocks: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops import int8_mlp
-    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, fused_attn_block
+    from tapclip_tpu_torch.ops import int8_attn, int8_mlp
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, _fused_mha_bwd_cuda, fused_attn_block
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
 
     # This file's own helpers, whichever checkout the package comes from.
@@ -212,6 +227,60 @@ def main() -> int:
                 calls[f"B13 launches {label} {mode}"] = lambda a=a, keep=keep: lib.tapclip_int8_mlp(*a)
                 calls[f"B13 wrapper {label} {mode}"] = lambda x=x, ln=ln, q=q, det=bool(det): int8_mlp.int8_mlp_cuda(
                     x, ln["scale"], ln["bias"], q, deterministic=det)
+
+        for label, (B, T, W, nh, valid) in B14_SHAPES.items():
+            x, ln, R = rn(B, T, W).to(dtype), ln_params(W), B * T
+            q = int8_attn.quantize_attn({"w_qkv": rn(W, 3 * W, s=W ** -0.5), "b_qkv": rn(3 * W, s=0.1),
+                                         "w_out": rn(W, W, s=W ** -0.5), "b_out": rn(W, s=0.1)})
+            out = torch.empty_like(x)
+            vec = tuple(q[k].data_ptr() for k in ("s_qkv", "b_qkv", "s_out", "b_out"))
+            g_b = (ln["scale"].data_ptr(), ln["bias"].data_ptr())
+            if "tapclip_int8_attn" in sig:
+                Wp = lib.tapclip_int8_gemm_kp(W)
+                w = (int8_mlp.k_major(q["w_qkv"], Wp), int8_mlp.k_major(q["w_out"], Wp))
+                bufs = (torch.empty((R, 3 * W), device="cuda"), torch.empty((R, W), device="cuda"),
+                        torch.empty((R, Wp), dtype=torch.int8, device="cuda"), torch.empty((3, R), device="cuda"))
+            else:  # the three launches of the __dp4a / FMA design, on packed weights
+                w = (int8_mlp.pack_k4(q["w_qkv"]), int8_mlp.pack_k4(q["w_out"]))
+                bufs = (torch.empty((R, 3 * W), device="cuda"), torch.empty((R, W), device="cuda"))
+            for mode, det in (("stochastic", 0), ("round-to-nearest", 1)):
+                keep = (x, out, w, bufs, ln, q)
+                if "tapclip_int8_attn" in sig:
+                    a = (x.data_ptr(), *g_b, w[0].data_ptr(), vec[0], vec[1], w[1].data_ptr(), vec[2], vec[3],
+                         out.data_ptr(), *(t.data_ptr() for t in bufs), B, T, W, nh, valid, 1e-5, 0, det, code,
+                         stream)
+                    calls[f"B14 launches {label} {mode}"] = lambda a=a, keep=keep: lib.tapclip_int8_attn(*a)
+                else:
+                    qkv, att = bufs
+                    round_p = int(not det and dtype == torch.bfloat16)
+                    a3 = ((x.data_ptr(), *g_b, w[0].data_ptr(), vec[0], vec[1], qkv.data_ptr(), R, W, 1e-5, 0, det,
+                           code, stream),
+                          (qkv.data_ptr(), att.data_ptr(), B, T, W, nh, valid, round_p, stream),
+                          (att.data_ptr(), w[1].data_ptr(), vec[2], vec[3], x.data_ptr(), out.data_ptr(), R, W, 0,
+                           det, code, stream))
+
+                    def three(a3=a3, keep=keep):
+                        lib.tapclip_int8_qkv(*a3[0])
+                        lib.tapclip_int8_attn_core(*a3[1])
+                        lib.tapclip_int8_out(*a3[2])
+
+                    calls[f"B14 launches {label} {mode}"] = three
+                calls[f"B14 wrapper {label} {mode}"] = lambda x=x, ln=ln, q=q, nh=nh, v=valid, det=bool(det): (
+                    int8_attn.int8_attn_cuda(x, ln["scale"], ln["bias"], q, nh, v, deterministic=det))
+
+        for label, (B, T, W, nh, valid, causal) in B7_SHAPES.items():
+            qkv, g = (0.5 * rn(B, T, 3 * W)).to(dtype), rn(B, T, W).to(dtype)
+            dqkv = torch.empty_like(qkv)
+            scratch = ()
+            if len(sig["tapclip_mha_bwd"]) > B7_CORE_ARGS:  # lse and delta, f32 [B H, T] each
+                ws = torch.empty(2 * B * nh * T, device="cuda")
+                scratch = (ws.data_ptr(),)
+            a = (qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), *scratch, B, T, W, nh, valid, int(causal), code,
+                 stream)
+            keep = (qkv, g, dqkv, ws if scratch else None)
+            calls[f"B7 launches {label}"] = lambda a=a, keep=keep: lib.tapclip_mha_bwd(*a)
+            calls[f"B7 wrapper {label}"] = lambda qkv=qkv, g=g, nh=nh, v=valid, c=causal: _fused_mha_bwd_cuda(
+                qkv, g, nh, v, c)
         with torch.inference_mode():
             for name, fn in calls.items():
                 if name.split()[0] not in want:

@@ -46,11 +46,17 @@ GEMM moved into the shared header.  B4 runs its three dx products and its
 attention core on the tensor cores too and is held at its tiles' edges (T
 off the 16-, 32- and 64-row tiles, every head dim, T at
 ``tapclip_attn_bwd_max_seq``, each split of dy's depth), dx alone bit for
-bit against dx with every gradient; B7, which B4 no longer shares a core
-with, bit for bit against digests of its output from before.  B13 runs its
+bit against dx with every gradient.  B7 runs on B4's row and column kernels
+(on the packed strides, causal or not) and is held at every head dim,
+causal and not, T = 1, T off the tiles with valid < T and T at the routing
+limit, and against digests of its output (a repeatability pin: its MMAs sum
+in another order than the FMA core it replaced).  B13 runs its
 two products on the int8 tensor cores and equals the walk it replaced (S5's
 flags-off kernel) bit for bit, in both modes and dtypes, at row counts off
-its tiles and at H 4,096.
+its tiles and at H 4,096.  B14 runs its two products on the same int8 tiles
+and its attention on K2's tensor-core walk, and is held at the image,
+pruned and ViT-L/14 shapes in both modes and dtypes, bit for bit against a
+second call.
 """
 
 import hashlib
@@ -91,7 +97,7 @@ from tapclip_tpu_torch.ops.fused_mlp import (
     fused_mlp_bwd_reference,
     fused_mlp_reference,
 )
-from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_plain, quantize_attn
+from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_cuda, int8_attn_plain, quantize_attn
 from tapclip_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
 from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, int8_mlp_walk, quantize_mlp
 
@@ -611,21 +617,21 @@ def test_fused_mha_bwd_kernel(cuda, dtype, tol, B, T, W, heads, valid, causal):
 
 # sha256 (first 16 hex digits) of B7's dqkv on numpy-seeded inputs
 # (``_b7_digest``, as chip_smoke.py's ``b7_digest``), read on an NVIDIA H100
-# 80GB HBM3 (CUDA 12.8) from B7 as it was before B4 left the [T, T]-tile
-# core they shared: B4's redesign must not move a bit of B7.
+# 80GB HBM3 (CUDA 12.8) from B7 on B4's row and column kernels: a pin of its
+# bits from one build to the next.
 B7_BITS = {
-    (torch.float32, 8, 77, 512, 8, 77, True): "129b372b44d225c9",
-    (torch.float32, 64, 80, 512, 8, 77, True): "53834c08d11674dc",
-    (torch.float32, 8, 200, 768, 12, 197, False): "9f93de63cd7a5c68",
-    (torch.float32, 3, 33, 128, 4, 30, True): "64cc89cb2df31824",
-    (torch.float32, 2, 65, 256, 2, 60, False): "37d617bdab94ffa2",
-    (torch.float32, 1, 40, 64, 4, 40, False): "2d26e8479eb2b28c",
-    (torch.bfloat16, 8, 77, 512, 8, 77, True): "601ce7bc0becd207",
-    (torch.bfloat16, 64, 80, 512, 8, 77, True): "c32723762fc62bcd",
-    (torch.bfloat16, 8, 200, 768, 12, 197, False): "9f237bc23d6c41a3",
-    (torch.bfloat16, 3, 33, 128, 4, 30, True): "5b6465e47be84365",
-    (torch.bfloat16, 2, 65, 256, 2, 60, False): "684b900e10008e91",
-    (torch.bfloat16, 1, 40, 64, 4, 40, False): "c8f9d1cec980e381",
+    (torch.float32, 8, 77, 512, 8, 77, True): "a82c3e9855c93e5f",
+    (torch.float32, 64, 80, 512, 8, 77, True): "6d1e956c1290c697",
+    (torch.float32, 8, 200, 768, 12, 197, False): "f0bdb2c3aefe73fa",
+    (torch.float32, 3, 33, 128, 4, 30, True): "642afa731dcc659b",
+    (torch.float32, 2, 65, 256, 2, 60, False): "ab5f43d16fec2403",
+    (torch.float32, 1, 40, 64, 4, 40, False): "63c3861dc60d2846",
+    (torch.bfloat16, 8, 77, 512, 8, 77, True): "cb6978e2085f246c",
+    (torch.bfloat16, 64, 80, 512, 8, 77, True): "7df55fef41643ce0",
+    (torch.bfloat16, 8, 200, 768, 12, 197, False): "222671cec5394ed2",
+    (torch.bfloat16, 3, 33, 128, 4, 30, True): "c60fad2de845c8ce",
+    (torch.bfloat16, 2, 65, 256, 2, 60, False): "ccca20d9035d3a2c",
+    (torch.bfloat16, 1, 40, 64, 4, 40, False): "1716e3256b02dd10",
 }
 
 
@@ -645,6 +651,47 @@ def _b7_digest(dtype, B, T, W, heads, valid, causal):
 @pytest.mark.parametrize("key", list(B7_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}" for k in B7_BITS])
 def test_fused_mha_bwd_kernel_bits_unchanged(cuda, key):
     assert _b7_digest(*key) == B7_BITS[key]
+
+
+# B7's tile edges on the tensor cores (B4's row and column kernels on the
+# packed strides): every head dim, causal and not, T = 1, T off the 16-, 32-
+# and 64-row tiles with valid < T, and T at the routing limit
+# (``tapclip_attn_bwd_max_seq``), the longest T the autograd Function sends
+# to B7.
+B7_EDGE_CASES = ["t1", "t97-valid90", "limit"]
+
+
+def _b7_edge(case, Dh):
+    if case == "t1":
+        return 2, 1, 1
+    if case == "t97-valid90":
+        return 2, 97, 90
+    T = _build.library().tapclip_attn_bwd_max_seq(Dh)
+    return 1, T, T - 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", B7_EDGE_CASES)
+def test_fused_mha_bwd_kernel_tile_edges(cuda, dtype, tol, causal, Dh, case):
+    B, T, valid = _b7_edge(case, Dh)
+    heads = 2
+    qkv, g = _mha_case(cuda, dtype, B, T, heads * Dh, T + Dh + int(causal))
+    got = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    again = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
+    assert got.dtype == dtype and got.shape == qkv.shape
+    _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, heads, valid, causal), tol)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)  # deterministic: no atomics
+
+
+@pytest.mark.gpu
+def test_fused_mha_bwd_kernel_refuses_unaligned_rows(cuda):
+    qkv, g = _mha_case(cuda, torch.float32, 1, 8, 64, 9)
+    bad = _randn(torch.Generator(device=cuda).manual_seed(0), 8 * 64 + 1)[1:].view(1, 8, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _fused_mha_bwd_cuda(qkv, bad, 4, 8, False)
 
 
 @pytest.mark.gpu
@@ -1028,6 +1075,28 @@ def test_int8_attn_kernel(cuda, dtype, deterministic, B, T, W, heads, valid):
         assert int8_attn_block.launches == n + 1
         want = int8_attn_plain(x, ln["scale"], ln["bias"], q, heads, valid, deterministic=deterministic)
     assert got.dtype == dtype and got.shape == x.shape
+    _close_update("int8_attn", got, want, x, INT8_TOL[dtype])
+
+
+# B14 at the main path's shapes: ViT-B/16's image blocks (8 x 200, valid 197),
+# the pruned back blocks (8 x 96, no mask) and ViT-L/14 (8 x 264, W 1,024, 16
+# heads, valid 257), each repeatable bit for bit.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("B,T,W,heads,valid", [(8, 200, 768, 12, 197), (8, 96, 768, 12, 96),
+                                               (8, 264, 1024, 16, 257)],
+                         ids=["image", "pruned", "vit-l"])
+def test_int8_attn_kernel_model_shapes(cuda, dtype, deterministic, B, T, W, heads, valid):
+    x, ln, _, attn = _int8_case(cuda, B, T, W, T + W + 3)
+    x = x.to(dtype)
+    q = quantize_attn(attn)
+    with torch.inference_mode():
+        got = int8_attn_cuda(x, ln["scale"], ln["bias"], q, heads, valid, deterministic=deterministic)
+        again = int8_attn_cuda(x, ln["scale"], ln["bias"], q, heads, valid, deterministic=deterministic)
+        want = int8_attn_plain(x, ln["scale"], ln["bias"], q, heads, valid, deterministic=deterministic)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(again, got, rtol=0, atol=0)  # the row max's atomicMax is order-free
     _close_update("int8_attn", got, want, x, INT8_TOL[dtype])
 
 

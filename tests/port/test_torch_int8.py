@@ -40,6 +40,7 @@ from tapclip_tpu_torch.models import layers as tlayers
 from tapclip_tpu_torch.models.model_wrapper import FullModel
 from tapclip_tpu_torch.ops import int8_attn, int8_mlp
 from tapclip_tpu_torch.ops.fused_mha import attn_block_reference
+from tapclip_tpu_torch.scripts.split_error import emulate_int8_attn, int8_head_tiled_codes
 from tapclip_tpu_torch.serve import PredictService, main, server_config
 from tapclip_tpu_torch.utils.adaptive_eval import adaptive_logits
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
@@ -302,6 +303,52 @@ def test_int8_mlp_column_tiled_codes_equal_the_plain_codes(deterministic, dtype,
                                                                      ("yq", "t1", "h", "hq", "t2", "out"))):
         assert torch.equal(a, b), name
     assert float(want["hq"].abs().max()) == 127  # the row max reaches the top code
+
+
+# --- B14 on the tensor cores, emulated: split attention products, head tiles ---
+
+# chip_smoke.py's INT8_TOL: norm-relative on the block's update.
+INT8_TOL = {torch.float32: 2e-3, torch.bfloat16: 2e-2}
+
+
+def _attn_case(dtype, rows, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(_f(rng, *rows, W)).to(dtype)
+    gamma, beta = torch.from_numpy(1.0 + _f(rng, W, scale=0.1)), torch.from_numpy(_f(rng, W, scale=0.1))
+    q = int8_attn.quantize_attn({"w_qkv": torch.from_numpy(_f(rng, W, 3 * W, scale=W ** -0.5)),
+                                 "b_qkv": torch.from_numpy(_f(rng, 3 * W, scale=0.1)),
+                                 "w_out": torch.from_numpy(_f(rng, W, W, scale=W ** -0.5)),
+                                 "b_out": torch.from_numpy(_f(rng, W, scale=0.1))})
+    return x, gamma, beta, q
+
+
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,valid", [((2, 16), 13), ((3, 24), 24)], ids=["2x16-valid13", "3x24"])
+def test_int8_attn_emulated_tensor_core_step_within_the_card_limit(deterministic, dtype, rows, valid):
+    """B14 as the card forms it (``split_error.emulate_int8_attn``: q . k^T on
+    three bf16 terms, p . v on three or, where the stochastic mode rounds p
+    to bf16, one; the codes from the head-tiled row max) against
+    ``int8_attn_plain`` within the card's INT8_TOL."""
+    x, gamma, beta, q = _attn_case(dtype, rows, 9 + valid)
+    want = int8_attn.int8_attn_plain(x, gamma, beta, q, HEADS, valid, seed=3, deterministic=deterministic)
+    got = emulate_int8_attn(x, gamma, beta, q, HEADS, valid, seed=3, deterministic=deterministic)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert _update_rel(got.float(), want.float(), x.float()) <= INT8_TOL[dtype]
+
+
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,valid", [((2, 16), 13), ((3, 24), 24)], ids=["2x16-valid13", "3x24"])
+def test_int8_attn_head_tiled_codes_equal_the_plain_codes(deterministic, dtype, rows, valid):
+    """The attention output's row max taken over per-head column tiles (B14's
+    atomicMax in the attention epilogue), and the codes and scale built from
+    it, equal the plain version's bit for bit in both modes."""
+    x, gamma, beta, q = _attn_case(dtype, rows, 17 + valid)
+    want = int8_attn.int8_attn_plain_parts(x, gamma, beta, q, HEADS, valid, seed=3, deterministic=deterministic)
+    aq, t2 = int8_head_tiled_codes(want["a"], HEADS, 3, deterministic)
+    assert torch.equal(aq, want["aq"]) and torch.equal(t2, want["t2"])
+    assert float(want["aq"].abs().max()) == 127  # the row max reaches the top code
 
 
 def test_k_major_layout():

@@ -6,7 +6,10 @@
   its Pallas path rather than ``_xla_reference``), causal and not, T 48, 77
   and 80, all keys valid or 77.  f32 at rtol = atol = 2e-5: the same math,
   but the JAX kernel's online exp2 softmax with deferred normalisation sums
-  in another order than the plain ``torch.softmax``.
+  in another order than the plain ``torch.softmax``.  B7's split products
+  on the card's tensor cores, emulated (``split_error.emulate_mha_bwd``),
+  against the same Pallas backward at the same tolerances, f32 and bf16,
+  causal and not, also at T 97.
 * K3 causal: the plain attention with the aux column against JAX's
   ``fused_attention(causal=True)`` in interpret mode, and the idiomatic case
   where every context query's aux is exactly 0.
@@ -53,6 +56,7 @@ from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.flash_attention import fused_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd_reference, fused_mha_reference
 from tapclip_tpu_torch.parallel import train_step as tts
+from tapclip_tpu_torch.scripts.split_error import emulate_mha_bwd
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -134,6 +138,24 @@ def test_fused_mha_bwd_plain_bf16_matches_pallas_interpret():
     got = fused_mha_bwd_reference(_t(qkv).to(torch.bfloat16), _t(g).to(torch.bfloat16), HEADS, 77, True)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,valid", [(48, 48), (77, 77), (80, 77), (97, 90)],
+                         ids=["T48", "T77", "T80-valid77", "T97-valid90"])
+def test_fused_mha_bwd_emulated_split_matches_pallas_interpret(T, valid, causal, dtype):
+    """B7's products as the card forms them on the tensor cores
+    (``split_error.emulate_mha_bwd``: three bf16 terms of an f32 operand, one
+    of a bf16 value and of p's bf16 rounding, ds in three terms) against the
+    Pallas ``_mha_bwd_kernel`` in interpret mode, at B7's CPU tolerances; T 97
+    is off B7's 32-row query and key tiles."""
+    qkv, g = _qkv(T, seed=6), _qkv(T, seed=7)[..., :W]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _fused_mha_bwd_impl(jnp.asarray(qkv, jdt), jnp.asarray(g, jdt), HEADS, valid, 1, True, causal)
+    got = emulate_mha_bwd(_t(qkv).to(tdt), _t(g).to(tdt), HEADS, valid, causal)
+    assert got.dtype == tdt and got.shape == (B, T, 3 * W)
+    np.testing.assert_allclose(_np(got), _np(want), **(KERNEL_TOL if dtype == "float32" else BF16_TOL))
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
