@@ -22,9 +22,9 @@ Run from the repository root:  python3 chip_smoke.py
    causal), the idiomatic step's shape (8 x 77, causal) and the fused_split
    image shape (8 x 200, valid 197, W 768, 12 heads), and causal K3 at the
    idiomatic aux layer (8 classes x 8 heads, T 77, per-class EOT), f32 and
-   bf16; B7 beside the flash chain on the same packed strides (what runs
-   past B7's routing limit), held and timed, with its two launches alone
-   and its bounds at the FMA and the bf16 MMA rates.  Every kernel's time is printed beside its plain version's, one
+   bf16; B6 with its launch alone and its bound at the bf16 MMA rate; B7
+   with its two launches alone and its bounds at the FMA and the bf16 MMA
+   rates.  Every kernel's time is printed beside its plain version's, one
    library call's (SDPA for the attention kernels, where one computes the
    same function) and its bound (bytes over 3.35 TB/s or operations over
    the dtype's peak, whichever is larger).  K1 (on the tensor cores: three
@@ -87,16 +87,17 @@ Run from the repository root:  python3 chip_smoke.py
     products they run on the tensor cores (``mma_bound_ms``: their bf16
     MMAs, six per f32 product, at 989 TFLOP/s), and the kernels line lists
     every timed case (both dtypes, T 584, T 4096).
-13. The B7 and B4 backwards past their routing limit (T 584, W 1024, 16
-    heads): the flash chain on the packed strides, and the split
-    composition, against their plain backward.
+13. The B7 and B4 backwards at ViT-L/14-336's T 584 (W 1024, 16 heads),
+    past B4's routing limit: B7's kernels (they take every T), and B4's
+    split composition (projections in torch around B6, differentiated on
+    B7), against their plain backward.
 14. Prompt tuning with ``attn_impl="pallas"`` in both text modes, f32 and
     bf16, 3 cached-feature steps at batch 32, against ``"xla"`` on the card:
     per step 24 K3 launches (causal in idiomatic mode), 12 each of LSE,
     dK/dV and dQ, and none of K1, K2, B4, B5, B6, B7.
-15. B7_BITS: B7's output, bit for bit, against digests taken from it on
-    the tensor cores (six shapes, f32 and bf16; a pin from one build to the
-    next).  K2_BITS and B4_BITS: K2's output and B4's dx against digests
+15. B7_BITS and B6_BITS: B7's and B6's outputs, bit for bit, against
+    digests taken from them on the tensor cores (six shapes, f32 and bf16;
+    a pin from one build to the next).  K2_BITS and B4_BITS: K2's output and B4's dx against digests
     taken before their attention kernels moved into the headers they share
     with B14 and B7 (the three non-causal B7_BITS shapes, f32 and bf16).
     The int8 kernels B13 (MLP) and B14 (attention) against their plain
@@ -297,6 +298,23 @@ B7_BITS_CASES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
                  "dh32 3x33x128 h4 valid30 causal": (3, 33, 128, 4, 30, True),
                  "dh128 2x65x256 h2 valid60": (2, 65, 256, 2, 60, False),
                  "dh16 1x40x64 h4": (1, 40, 64, 4, 40, False)}
+# B6 (the packed-QKV core) likewise: its output on the same qkv
+# (``b6_digest``), read on an NVIDIA H100 80GB HBM3 from B6 on K2's attention
+# walk (attn_core_mma.cuh).
+B6_BITS = {
+    ("float32", "idiomatic 8x77x512 h8 causal"): "9447e67875bbebb0",
+    ("float32", "text 64x80x512 h8 valid77 causal"): "33764a9576056d10",
+    ("float32", "image 8x200x768 h12 valid197"): "84fd1f078214062a",
+    ("float32", "dh32 3x33x128 h4 valid30 causal"): "00661bfed5aaed6d",
+    ("float32", "dh128 2x65x256 h2 valid60"): "94748c42073d11d6",
+    ("float32", "dh16 1x40x64 h4"): "c635c9dcea4854a2",
+    ("bfloat16", "idiomatic 8x77x512 h8 causal"): "a8ca64fd7426702a",
+    ("bfloat16", "text 64x80x512 h8 valid77 causal"): "26e6b6a12b38aae0",
+    ("bfloat16", "image 8x200x768 h12 valid197"): "03857513538494d1",
+    ("bfloat16", "dh32 3x33x128 h4 valid30 causal"): "2215e8d6e6a74be0",
+    ("bfloat16", "dh128 2x65x256 h2 valid60"): "cd0937527bfb660a",
+    ("bfloat16", "dh16 1x40x64 h4"): "fee2d073c94b8979",
+}
 B7_BITS = {
     ("float32", "idiomatic 8x77x512 h8 causal"): "a82c3e9855c93e5f",
     ("float32", "text 64x80x512 h8 valid77 causal"): "6d1e956c1290c697",
@@ -396,16 +414,16 @@ TEXT = ("fused_mha", "fused_mha_bwd", "fused_attention_aux_causal")
 FLASH = ("flash_lse", "flash_bwd_dkv", "flash_bwd_dq", "fused_attention_aux_long")
 # K3 and the chain (csrc/flash_mma.cuh): the kernels line lists each timed case.
 K3_AND_CHAIN = ("fused_attention_aux", "fused_attention_aux_causal") + FLASH
-# The kernels on the tensor cores: K3, the chain, K1, K2, B5, B4 and B7.
+# The kernels on the tensor cores: K3, the chain, K1, K2, B5, B4, B7 and B6.
 MMA_KERNELS = K3_AND_CHAIN + ("fused_mlp", "fused_attn_block", "fused_mlp_bwd", "fused_attn_block_bwd",
-                               "fused_mha_bwd")
+                               "fused_mha_bwd", "fused_mha")
 CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "launch_ms_dx_only", "plain_ms",
              "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "fma_bound_ms", "mma_bound_ms",
              "mma_bound_dx_only_ms", "max_abs_err", "max_rel_err")
 # The sources whose kernels' ptxas report (registers, spills) is printed one by one:
-# the half-blocks' and B4's on the tensor cores, B7's, and B13's (with S5's walk) and B14's.
-PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "int8_mlp.cu",
-                 "int8_attn.cu")
+# the half-blocks' and B4's on the tensor cores, B7's and B6's, and B13's (with S5's walk) and B14's.
+PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "mha.cu",
+                 "int8_mlp.cu", "int8_attn.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -534,11 +552,12 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
 # Partial products per product of K3, the flash chain, K1 and B5's dx on the
 # tensor cores (csrc/flash_mma.cuh), (f32, bf16): in f32 each product splits
 # both operands into three bf16 terms (six MMAs); in bf16 q k^T, dO v^T,
-# K3's rounded p v, K1's two products and B5's three are one MMA, the
-# chain's p and ds products two (the dK/dV kernel's four products
-# 1 + 1 + 2 + 2, the dQ kernel's three 1 + 1 + 2).  K2's mix is k2_mma_flops.
+# K3's rounded p v, K1's two products, B5's three and B6's two (bf16 q, k, v
+# and p's rounding) are one MMA, the chain's p and ds products two (the
+# dK/dV kernel's four products 1 + 1 + 2 + 2, the dQ kernel's three
+# 1 + 1 + 2).  K2's mix is k2_mma_flops.
 MMA_PRODUCTS = {"fused_attention_aux": (6, 1), "flash_lse": (6, 1), "flash_bwd_dkv": (6, 1.5),
-                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1), "fused_mlp_bwd": (6, 1)}
+                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1), "fused_mlp_bwd": (6, 1), "fused_mha": (6, 1)}
 
 
 def mma_bound(n_bytes: int, flops: float, dtype: str, kernel: str) -> dict:
@@ -787,6 +806,24 @@ def b7_launch(qkv, g, nh, valid, causal):
         _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device)))
 
     def run(_buffers=(dqkv, ws)):  # the buffers live as long as the closure
+        return launch()
+
+    return run
+
+
+def b6_launch(qkv, nh, valid, causal):
+    """B6's launch alone through the C interface on an output allocated once
+    (``bare_launch``)."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+
+    B, T, W3 = qkv.shape
+    out = torch.empty((B, T, W3 // 3), dtype=qkv.dtype, device=qkv.device)
+    launch = bare_launch("tapclip_mha", (qkv.data_ptr(), out.data_ptr(), B, T, W3 // 3, nh, valid, int(causal),
+                                         _build.dtype_code(qkv.dtype), _build.stream_handle(qkv.device)))
+
+    def run(_buffers=(out,)):  # the buffer lives as long as the closure
         return launch()
 
     return run
@@ -1045,20 +1082,39 @@ def check_backward() -> dict:
     return results
 
 
-def b7_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: bool) -> str:
-    """sha256 (first 16 hex digits) of B7's packed dqkv on numpy-seeded qkv and cotangent."""
+def _core_case(dtype: str, B: int, T: int, W: int, valid: int):
+    """qkv [B, T, 3W] and the cotangent g [B, T, W] of one B6/B7 bits case,
+    numpy-seeded, in ``dtype``."""
     import torch
-
-    from tapclip_tpu_torch.ops.fused_mha import _fused_mha_bwd_cuda
 
     rng = np.random.default_rng(B * T + W + valid)
 
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(getattr(torch, dtype))
 
-    qkv, g = f(B, T, 3 * W), f(B, T, W)
+    return f(B, T, 3 * W), f(B, T, W)
+
+
+def b7_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: bool) -> str:
+    """sha256 (first 16 hex digits) of B7's packed dqkv on numpy-seeded qkv and cotangent."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _fused_mha_bwd_cuda
+
+    qkv, g = _core_case(dtype, B, T, W, valid)
     with torch.no_grad():
         return _sha16(_fused_mha_bwd_cuda(qkv, g, nh, valid, causal))
+
+
+def b6_digest(dtype: str, B: int, T: int, W: int, nh: int, valid: int, causal: bool) -> str:
+    """sha256 (first 16 hex digits) of B6's output on B7's numpy-seeded qkv."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _fused_mha_cuda
+
+    qkv, _ = _core_case(dtype, B, T, W, valid)
+    with torch.no_grad():
+        return _sha16(_fused_mha_cuda(qkv, nh, valid, causal))
 
 
 def _sha16(t) -> str:
@@ -1127,13 +1183,15 @@ def check_block_bits() -> dict:
     return out
 
 
-def check_b7_bits() -> dict:
-    """B7_BITS: B7's output bit for bit as its digests, f32 and bf16."""
-    got = {(dt, label): b7_digest(dt, *case) for dt in ("float32", "bfloat16")
+def check_core_bits(name: str = "B7") -> dict:
+    """B7_BITS (or B6_BITS): B7's (B6's) output bit for bit as its digests,
+    f32 and bf16, at B7_BITS_CASES' shapes."""
+    digest_of, want = (b7_digest, B7_BITS) if name == "B7" else (b6_digest, B6_BITS)
+    got = {(dt, label): digest_of(dt, *case) for dt in ("float32", "bfloat16")
            for label, case in B7_BITS_CASES.items()}
     for key, digest in got.items():
-        print(f"B7_BITS [{key[1]} {key[0]}]: {digest} (want {B7_BITS[key]})", flush=True)
-        require(digest == B7_BITS[key], f"B7's output changed at {key[1]} {key[0]}: {digest} != {B7_BITS[key]}")
+        print(f"{name}_BITS [{key[1]} {key[0]}]: {digest} (want {want[key]})", flush=True)
+        require(digest == want[key], f"{name}'s output changed at {key[1]} {key[0]}: {digest} != {want[key]}")
     return {f"{label} {dt}": d for (dt, label), d in got.items()}
 
 
@@ -1439,8 +1497,6 @@ def check_text_kernels() -> dict:
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
     from tapclip_tpu_torch.ops.fused_mha import (
         _fused_mha_bwd_cuda,
-        _fused_mha_cuda,
-        _mha_flash_bwd_cuda,
         fused_mha,
         fused_mha_bwd_reference,
         fused_mha_reference,
@@ -1479,20 +1535,17 @@ def check_text_kernels() -> dict:
                         "ms": time_ms(lambda: fused_mha(qkv, nh, valid_len=valid, causal=causal)),
                         "plain_ms": time_ms(lambda: fused_mha_reference(qkv, nh, valid, causal)),
                         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(*heads, attn_mask=mask)),
-                        **bound(nbytes(qkv, got), 4 * nh * Dh * pairs, dname)}
+                        "launch_ms": time_ms(b6_launch(qkv, nh, valid, causal)),
+                        **bound(nbytes(qkv, got), 4 * nh * Dh * pairs, dname),
+                        **mma_bound(nbytes(qkv, got), 4 * nh * Dh * pairs, dname, "fused_mha")}
             report("fused_mha", case)
 
             with torch.no_grad():
                 got = _fused_mha_bwd_cuda(qkv, g, nh, valid, causal)
                 want = fused_mha_bwd_reference(qkv, g, nh, valid, causal)
-                # The flash chain on the same packed strides (what runs past B7's tile).
-                y = _fused_mha_cuda(qkv, nh, valid, causal)
-                chain = _mha_flash_bwd_cuda(qkv, g, y, nh, valid, causal)
                 torch.cuda.synchronize()
                 rel, ab = _rel_errors([got], [want])
-                chain_rel = _rel_errors([chain], [want])[0]
                 ms = time_ms(lambda: _fused_mha_bwd_cuda(qkv, g, nh, valid, causal))
-                chain_ms = time_ms(lambda: _mha_flash_bwd_cuda(qkv, g, y, nh, valid, causal))
                 plain_ms = time_ms(lambda: fused_mha_bwd_reference(qkv, g, nh, valid, causal))
             leaves = [t.detach().clone().requires_grad_() for t in heads]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
@@ -1503,14 +1556,11 @@ def check_text_kernels() -> dict:
             b7_bytes = nbytes(qkv, g, got)
             report("fused_mha_bwd", {"shape": label, "dtype": dname, "max_rel_err": rel,
                                      "max_abs_err": ab, "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
-                                     "library_ms": library_ms, "chain_ms": chain_ms,
-                                     "chain_rel_err": chain_rel,
+                                     "library_ms": library_ms,
                                      **bound(b7_bytes, 10 * nh * Dh * pairs, dname),
                                      "fma_bound_ms": 1e3 * 10 * nh * Dh * pairs / PEAK_FLOPS[dname],
                                      **mma_bound_of(b7_bytes, b7_mma_flops(W, pairs, dname))})
             require(rel <= bwd_tol, f"fused_mha_bwd {label} {dname}: norm-relative error {rel:.3e} > {bwd_tol}")
-            require(chain_rel <= bwd_tol,
-                    f"flash chain on packed qkv {label} {dname}: norm-relative error {chain_rel:.3e} > {bwd_tol}")
 
         # causal K3 at the idiomatic aux layer: 8 classes x 8 heads, T 77, the
         # EOT column of each class after its 5 context tokens.
@@ -1886,10 +1936,11 @@ def check_flash_kernels() -> dict:
 
 
 def check_long_repairs() -> dict:
-    """B7 and B4 past their routing limit, at the ViT-L/14-336 vision shape
-    (4 x 584, valid 577, W 1024, 16 heads), f32 and bf16: the autograd
-    Functions' backward (the flash chain on the packed strides; the split
-    composition) against the plain backward, with launch counts and times."""
+    """B7 and B4 at the ViT-L/14-336 vision shape (4 x 584, valid 577, W
+    1024, 16 heads), past B4's routing limit, f32 and bf16: the autograd
+    Functions' backward (B7's kernels; B4's split composition around B6,
+    differentiated on B7) against the plain backward, with launch counts and
+    times."""
     import torch
 
     from tapclip_tpu_torch.ops.flash_attention import fused_attention
@@ -1917,8 +1968,8 @@ def check_long_repairs() -> dict:
         (got,) = torch.autograd.grad(y, [qkv], g, retain_graph=True)
         torch.cuda.synchronize()
         launches = read_counts()
-        _expect(f"B7 past its tile {dname}", launches, {"fused_mha": 1, "fused_mha_bwd": 0, "flash_lse": 1,
-                                                        "flash_bwd_dkv": 1, "flash_bwd_dq": 1})
+        _expect(f"B7 at T {T} {dname}", launches, {"fused_mha": 1, "fused_mha_bwd": 1, "flash_lse": 0,
+                                                   "flash_bwd_dkv": 0, "flash_bwd_dq": 0})
         with torch.no_grad():
             want = fused_mha_bwd_reference(qkv, g, nh, valid, False)
             rel, ab = _rel_errors([got], [want])
@@ -1926,9 +1977,9 @@ def check_long_repairs() -> dict:
                     "ms": time_ms(lambda: torch.autograd.grad(y, [qkv], g, retain_graph=True), 10, 2),
                     "plain_ms": time_ms(lambda: fused_mha_bwd_reference(qkv, g, nh, valid, False), 10, 2)}
         out[f"fused_mha_bwd {dname}"] = case
-        print(f"B7 past its tile [{label} {dname}]: flash chain on the packed strides vs plain B7 "
+        print(f"B7 at T {T} [{label} {dname}]: B7's kernels vs plain B7 "
               + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)), flush=True)
-        require(rel <= tol, f"B7 past its tile {dname}: norm-relative error {rel:.3e} > {tol}")
+        require(rel <= tol, f"B7 at T {T} {dname}: norm-relative error {rel:.3e} > {tol}")
 
         x, gx = rn(B, T, W).to(dtype), rn(B, T, W).to(dtype)
         p = [1.0 + rn(W, s=0.1), rn(W, s=0.1), rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1),
@@ -1941,7 +1992,7 @@ def check_long_repairs() -> dict:
         torch.cuda.synchronize()
         launches = read_counts()
         _expect(f"B4 past its tile {dname}", launches, {"fused_attn_block": 1, "fused_attn_block_bwd": 0,
-                                                        "fused_mha": 1, "flash_bwd_dq": 1})
+                                                        "fused_mha": 1, "fused_mha_bwd": 1, "flash_bwd_dq": 0})
         with torch.no_grad():
             want = attn_block_bwd_reference(x, gx, *p[:5], nh, valid, 1e-5)
             rel, ab = _rel_errors(got, want)
@@ -1949,7 +2000,7 @@ def check_long_repairs() -> dict:
                     "ms": time_ms(lambda: torch.autograd.grad(y, leaves, gx, retain_graph=True), 10, 2),
                     "plain_ms": time_ms(lambda: attn_block_bwd_reference(x, gx, *p[:5], nh, valid, 1e-5), 10, 2)}
         out[f"fused_attn_block_bwd {dname}"] = case
-        print(f"B4 past its tile [{label} {dname}]: split composition (B6 + flash chain) vs plain B4, all seven "
+        print(f"B4 past its tile [{label} {dname}]: split composition (B6 + B7) vs plain B4, all seven "
               "outputs " + ", ".join(f"{k}={v:.4g}" for k, v in case.items() if isinstance(v, float)), flush=True)
         require(rel <= tol, f"B4 past its tile {dname}: norm-relative error {rel:.3e} > {tol}")
         del qkv, g, y, got, want, x, gx, p, leaves
@@ -2729,7 +2780,8 @@ def main() -> int:
     kernels.update(phase("text kernels", check_text_kernels))
     kernels.update(phase("flash kernels", check_flash_kernels))
     repairs = phase("long repairs", check_long_repairs)
-    b7_bits = phase("B7 bits", check_b7_bits)
+    b7_bits = phase("B7 bits", check_core_bits, "B7")
+    b6_bits = phase("B6 bits", check_core_bits, "B6")
     block_bits = phase("K2 and B4 bits", check_block_bits)
     int8_kernels = phase("int8 kernels", check_int8_kernels)
     b13_bits = phase("B13 bits", check_b13_bits)
@@ -2793,7 +2845,7 @@ def main() -> int:
                          bf16_max_rel_err=max(c["max_rel_err"] for c in bf16_cases))
         if name in BACKWARD:
             entry["ms_dx_only"] = timed["ms_dx_only"]
-        if "chain_ms" in timed:  # the flash chain; beside B7, on B7's packed strides
+        if "chain_ms" in timed:  # the flash chain
             entry["chain_ms"] = timed["chain_ms"]
         for key in ("launcher_ms", "launch_ms", "launch_ms_dx_only", "fma_bound_ms", "mma_bound_ms",
                     "bound_dx_only_ms", "mma_bound_dx_only_ms"):
@@ -2804,8 +2856,8 @@ def main() -> int:
                               for c in kernels[name]["cases"] if "ms" in c]
         if f"{name} float32" in repairs:  # B7 / B4 past their routing limit
             entry["long_t"] = {dt: repairs[f"{name} {dt}"] for dt in ("float32", "bfloat16")}
-        if name == "fused_mha_bwd":
-            entry["bits_repeat"] = b7_bits
+        if name in ("fused_mha_bwd", "fused_mha"):
+            entry["bits_repeat"] = b7_bits if name == "fused_mha_bwd" else b6_bits
         if name in ("fused_attn_block", "fused_attn_block_bwd"):
             prefix = "K2 " if name == "fused_attn_block" else "B4 "
             entry["bits_unchanged"] = {k[len(prefix):]: v for k, v in block_bits.items() if k.startswith(prefix)}

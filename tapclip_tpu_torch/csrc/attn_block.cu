@@ -82,7 +82,7 @@ cudaError_t launch_block(const T* x, const float* gamma, const float* beta, cons
   err = gemm::launch_pass<T, 128, CE, gemm::kQkv, false, float>(
       ya, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 2 * W}, qkv, R, 3 * W, W, s);
   if (err != cudaSuccess) return err;
-  err = attn::launch_attn_core<T, T>(qkv, ya, nullptr, B, H, T_, W, valid, s);
+  err = attn::launch_attn_core<float, T, T>(qkv, ya, nullptr, B, H, T_, W, valid, s);
   if (err != cudaSuccess) return err;
   return gemm::launch_pass<T, 64, CE, gemm::kResidual>(ya, w_out, Epi<T>{b_out, x, nullptr, nullptr, 0}, out, R,
                                                        W, W, s);

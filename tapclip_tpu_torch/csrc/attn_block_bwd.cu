@@ -58,10 +58,10 @@
 // an operand to bf16 (p and v for o, p and gh for dv) the product takes one
 // term, the operand's bf16 rounding.  The query and key tiles are 32 rows up
 // to T 128 and 64 past (192 + 192 blocks at the text shape, 384 + 384 at the
-// image shape, where the earlier core ran 64 and 96).  Past the T whose
-// [T, T] tile B7's core holds (tapclip_attn_bwd_max_seq) the autograd
-// Function differentiates the split composition, as the JAX _attn_block_bwd
-// does; this kernel does not refuse longer T itself.
+// image shape, where the earlier core ran 64 and 96).  Past the routing
+// limit tapclip_attn_bwd_max_seq the autograd Function differentiates the
+// split composition, as the JAX _attn_block_bwd does; this kernel does not
+// refuse longer T itself.
 // Weight gradients (only with want_w; off the prompt-tuning path, where the
 // CLIP weights are frozen): dW_qkv = y^T . dqkv, dW_out = o^T . g and the
 // column sums, by gemm.cu in the wrapper.  No atomics: a call repeats bit for
@@ -118,14 +118,13 @@ cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* 
 
 }  // namespace
 
-// The routing limit of B4's and B7's autograd Functions
-// (ops/fused_mha.py::_tile_fits) at head dim Dh, 0 for an unsupported head
-// dim: past it they differentiate the split composition (B4) or run the
-// flash chain on the packed strides (B7).  It is the longest T whose [T, T]
+// The routing limit of B4's autograd Function (ops/fused_mha.py::_tile_fits)
+// at head dim Dh, 0 for an unsupported head dim: past it the Function
+// differentiates the split composition.  It is the longest T whose [T, T]
 // f32 tile and one [T, Dh + 1] f32 operand tile fit in 227 KB of shared
-// memory (at most 256), the limit of the one-block FMA core the two kernels
-// ran before their row and column kernels (attn_bwd_mma.cuh), which take any
-// T: now only a routing limit.
+// memory (at most 256), the limit of the one-block FMA core B4 ran before
+// its row and column kernels (attn_bwd_mma.cuh), which take any T: now only
+// a routing limit.
 extern "C" int tapclip_attn_bwd_max_seq(int Dh) {
   if (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) return 0;
   const auto bytes = [Dh](size_t t) { return (t * t + t * (Dh + 1)) * sizeof(float); };

@@ -1,6 +1,6 @@
 // Softmax attention of one 64-row query tile against all keys, one 64-key
-// tile at a time (online softmax), shared by K2's earlier FMA core
-// (attn_core.cuh: S1, S3/S4) and the packed-QKV attention core (B6, mha.cu).
+// tile at a time (online softmax): K2's earlier FMA core (attn_core.cuh),
+// the device code of the A/B variants S1, S3 and S4.
 //
 // The JAX kernels hold a whole [T, T] score tile in VMEM.  A Hopper block has
 // at most 227 KB of shared memory, so the CUDA kernels keep one [64, 64]
@@ -11,11 +11,7 @@
 // past T (the ragged last tile) take -inf and contribute exactly 0.  The
 // 1/l normalisation is deferred past p.v, and p is rounded to the compute
 // dtype before p.v (the JAX kernels' `p.astype(v.dtype)`), while l sums the
-// unrounded p.  With a causal mask (causal_q0 >= 0, the query index of tile
-// row 0) a key after the query takes the same -1e30; key 0 is never masked,
-// so every row's max is finite from the first tile on, and a later tile whose
-// keys are all masked for a row adds exactly 0 to it (callers skip the tiles
-// wholly above the diagonal).
+// unrounded p.
 //
 // Block: 256 threads as a 16 x 16 grid.  Thread (rg, cg) owns query rows
 // rg + 16 i (i < 4), key columns cg + 16 j (j < 4) of the score tile and
@@ -69,10 +65,10 @@ struct AttnTile {
   }
 
   // Scores of one key tile: s = q.k * scale, keys past n_keys at -inf, keys at
-  // or past valid (and causal keys after the query) at -1e30.
+  // or past valid at -1e30.
   __device__ __forceinline__ void scores(const float* Q_s, const float* K_s, float (&s)[4][4],
                                          int kt0, int n_keys, int valid, float scale, int rg,
-                                         int cg, int causal_q0) const {
+                                         int cg) const {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -96,7 +92,7 @@ struct AttnTile {
       for (int i = 0; i < 4; ++i) {
         float v = s[i][j] * scale;
         if (key >= n_keys) v = -INFINITY;
-        else if (key >= valid || (causal_q0 >= 0 && key > causal_q0 + rg + 16 * i)) v = kNegBig;
+        else if (key >= valid) v = kNegBig;
         s[i][j] = v;
       }
     }
@@ -122,14 +118,14 @@ struct AttnTile {
   }
 
   // One key tile starting at key kt0 of n_keys (the online form).  K_s/V_s
-  // rows past n_keys must hold zeros.  causal_q0 < 0: no causal mask.
+  // rows past n_keys must hold zeros.
   __device__ __forceinline__ void step(const float* Q_s, const float* K_s,
                                        const float* V_s, float* P_s, int kt0,
                                        int n_keys, int valid, float scale_log2,
-                                       int rg, int cg, int causal_q0 = -1) {
+                                       int rg, int cg) {
     static_assert(FORM == kOnline, "step() is the online form; the two-pass forms scan() then accumulate()");
     float s[4][4];
-    scores(Q_s, K_s, s, kt0, n_keys, valid, scale_log2, rg, cg, causal_q0);
+    scores(Q_s, K_s, s, kt0, n_keys, valid, scale_log2, rg, cg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mt = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -159,7 +155,7 @@ struct AttnTile {
                                        int valid, float scale, int rg, int cg) {
     static_assert(FORM != kOnline, "scan() is the first pass of a two-pass form");
     float s[4][4];
-    scores(Q_s, K_s, s, kt0, n_keys, valid, scale, rg, cg, -1);
+    scores(Q_s, K_s, s, kt0, n_keys, valid, scale, rg, cg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mt = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
@@ -184,7 +180,7 @@ struct AttnTile {
                                              int cg) {
     static_assert(FORM != kOnline, "accumulate() is the second pass of a two-pass form");
     float s[4][4];
-    scores(Q_s, K_s, s, kt0, n_keys, valid, scale, rg, cg, -1);
+    scores(Q_s, K_s, s, kt0, n_keys, valid, scale, rg, cg);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float rs = 0.f;

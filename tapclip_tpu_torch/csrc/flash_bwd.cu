@@ -12,24 +12,18 @@
 // score tile (16 MB at T = 2048, far past the 227 KB of shared memory a
 // block can use), so on the card the chain computes its function at every
 // T.  The wrapper (tapclip_tpu_torch/ops/flash_attention.py) runs the chain
-// as the backward of fused_attention (attn_impl="pallas"), and of the
-// packed-QKV core (fused_mha) past the [T, T] tile of attn_bwd_core.cuh.
+// as the backward of fused_attention (attn_impl="pallas").
 //
 // Math, as the JAX kernels (which cast q, k, v, dO to f32): s2 = q.k^T *
 // Dh^-1/2 * log2 e; keys at or past valid[b], and after the query when
 // causal, are masked (-1e30 in the LSE, p = 0 in the gradients);
 // p = exp2(s2 - lse2); dv += p^T dO; dp = dO v^T; ds = p (dp - delta)
-// Dh^-1/2; dk += ds^T q; dq += ds k.  With kRoundP (the packed core's
-// bfloat16 backward, whose TPU kernel rounds p to the compute dtype before
-// p^T dO) p is rounded for the dv product only.  Results go out in the
-// compute dtype.  No atomics: each output row is summed by one block in a
+// Dh^-1/2; dk += ds^T q; dq += ds k.  Results go out in the compute dtype.  No atomics: each output row is summed by one block in a
 // fixed order, so results repeat bit for bit.
 //
 // Layout: every [B, H, T, Dh] operand is read through (batch, head, row)
-// strides, so the same launches serve contiguous per-head tensors
-// (attn_impl="pallas") and the packed [B, T, 3W] qkv with its [B, T, W]
-// cotangent (the packed core), writing dq, dk, dv straight into the packed
-// gradient.  q, k, v, dq, dk, dv share one stride set, dO another; lse and
+// strides (any with contiguous rows: per-head tensors, or views of packed
+// rows).  q, k, v, dq, dk, dv share one stride set, dO another; lse and
 // delta are contiguous [B, H, T] f32.  The 16-byte copies need 16-byte
 // aligned rows: the wrapper checks the pointers and strides.
 //
@@ -41,8 +35,7 @@
 // (k and v, or q, dO, lse and delta) are double-buffered with cp.async.
 // Products run on the tensor cores (mma.sync m16n8k16, f32 accumulation):
 // in bf16 q k^T and dO v^T are one MMA each (bf16 values), p and ds split
-// into two bf16 terms against the bf16 operand (one term for p under
-// kRoundP); in f32 every product splits both operands into three bf16 terms
+// into two bf16 terms against the bf16 operand; in f32 every product splits both operands into three bf16 terms
 // (six MMAs; emulated, the LSE reads at most 1.4e-6 absolute and the
 // gradients 6.3e-7 norm-relative against the plain f32 versions,
 // flash_mma.cuh), each 16-deep step's partial products added to the
@@ -162,7 +155,7 @@ flash_lse_kernel(const T* __restrict__ q, const T* __restrict__ k, Strides sq,
 }
 
 // dK/dV: one block per (batch row, head, 64-key tile), over query tiles.
-template <typename T, int DH, bool kRoundP>
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, Strides sq, Strides sg,
@@ -171,7 +164,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int H, int T_, int causal) {
   constexpr int kLd = tile_ld<T, DH>();
   constexpr int kQn = DH == 128 ? 32 : 64;  // queries of one score block
-  constexpr int kPTerms = kRoundP ? 1 : kAccTerms<T>;
+  constexpr int kPTerms = kAccTerms<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* K_s = reinterpret_cast<T*>(smem_raw);
   T* V_s = K_s + kTile * kLd;
@@ -341,7 +334,7 @@ struct Args {
 
 enum class Which { kLse, kDkv, kDq };
 
-template <typename T, int DH, bool kRoundP>
+template <typename T, int DH>
 cudaError_t launch(Which which, const Args& a) {
   constexpr size_t kTileBytes = kTile * tile_ld<T, DH>() * sizeof(T);
   const dim3 grid(a.B * a.H, (a.T + kTile - 1) / kTile);
@@ -357,7 +350,7 @@ cudaError_t launch(Which which, const Args& a) {
     if (err != cudaSuccess) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(q, k, a.sq, a.valid, a.lse_out, a.H, a.T, a.causal);
   } else if (which == Which::kDkv) {
-    auto kernel = flash_bwd_dkv_kernel<T, DH, kRoundP>;
+    auto kernel = flash_bwd_dkv_kernel<T, DH>;
     const size_t smem = 6 * kTileBytes + 4 * kTile * sizeof(float);
     err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return err;
@@ -375,30 +368,21 @@ cudaError_t launch(Which which, const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
-cudaError_t launch_flags(Which which, const Args& a, int round_p) {
-  // round_p only matters for the dK/dV kernel in bfloat16 (a no-op in f32).
-  if constexpr (!kIsF32<T>) {
-    if (round_p && which == Which::kDkv) return launch<T, DH, true>(which, a);
-  }
-  return launch<T, DH, false>(which, a);
-}
-
 template <typename T>
-cudaError_t launch_dh(Which which, const Args& a, int Dh, int round_p) {
+cudaError_t launch_dh(Which which, const Args& a, int Dh) {
   switch (Dh) {
-    case 16: return launch_flags<T, 16>(which, a, round_p);
-    case 32: return launch_flags<T, 32>(which, a, round_p);
-    case 64: return launch_flags<T, 64>(which, a, round_p);
-    case 128: return launch_flags<T, 128>(which, a, round_p);
+    case 16: return launch<T, 16>(which, a);
+    case 32: return launch<T, 32>(which, a);
+    case 64: return launch<T, 64>(which, a);
+    case 128: return launch<T, 128>(which, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-int run(Which which, const Args& a, int Dh, int round_p, int dtype) {
+int run(Which which, const Args& a, int Dh, int dtype) {
   if (a.B <= 0 || a.H <= 0 || a.T <= 0) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_dh<float>(which, a, Dh, round_p);
-  if (dtype == 1) return launch_dh<__nv_bfloat16>(which, a, Dh, round_p);
+  if (dtype == 0) return launch_dh<float>(which, a, Dh);
+  if (dtype == 1) return launch_dh<__nv_bfloat16>(which, a, Dh);
   return cudaErrorInvalidValue;
 }
 
@@ -424,16 +408,15 @@ extern "C" int tapclip_flash_lse(const void* q, const void* k, const void* valid
   a.causal = causal;
   a.sq = {sq_b, sq_h, sq_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kLse, a, Dh, 0, dtype);
+  return run(Which::kLse, a, Dh, dtype);
 }
 
-// lse, delta [B, H, T] f32 in; dk, dv out through the q strides.  round_p:
-// round p to the compute dtype before the dv product.
+// lse, delta [B, H, T] f32 in; dk, dv out through the q strides.
 extern "C" int tapclip_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                      const void* lse, const void* delta, const void* valid,
                                      void* dk, void* dv, int B, int H, int T, int Dh, int sq_b,
                                      int sq_h, int sq_t, int sg_b, int sg_h, int sg_t, int causal,
-                                     int round_p, int dtype, void* stream) {
+                                     int dtype, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -451,7 +434,7 @@ extern "C" int tapclip_flash_bwd_dkv(const void* q, const void* k, const void* v
   a.sq = {sq_b, sq_h, sq_t};
   a.sg = {sg_b, sg_h, sg_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kDkv, a, Dh, round_p, dtype);
+  return run(Which::kDkv, a, Dh, dtype);
 }
 
 // lse, delta [B, H, T] f32 in; dq out through the q strides.
@@ -476,5 +459,5 @@ extern "C" int tapclip_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.sq = {sq_b, sq_h, sq_t};
   a.sg = {sg_b, sg_h, sg_t};
   a.stream = static_cast<cudaStream_t>(stream);
-  return run(Which::kDq, a, Dh, 0, dtype);
+  return run(Which::kDq, a, Dh, dtype);
 }

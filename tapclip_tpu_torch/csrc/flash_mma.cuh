@@ -326,6 +326,95 @@ __device__ __forceinline__ void zero(float (&x)[N][4]) {
     for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
 }
 
+// --- products over bf16 term planes ------------------------------------------------
+//
+// An f32 operand split once into NT bf16 planes in shared memory (plane i,
+// the i-th term of every element, at X + i * plane: split_rows), read by
+// ldmatrix as bf16 tiles: the same terms, fragments and MMAs as warp_abt and
+// warp_pv on the f32 tile, which split in registers at every read.
+
+// X_s[i * plane + r * ld + e] = the i-th bf16 term of row t0 + r, column e of
+// the f32 operand whose row t sits at x + t * st (zeros past T), for r < ROWS
+// and i < NT, by 16-byte loads issued by NTHREADS threads.  x and
+// st * sizeof(float) 16-byte aligned; ld = tile_ld<bf16, DH>.
+template <int DH, int ROWS, int NT, int NTHREADS>
+__device__ __forceinline__ void split_rows(__nv_bfloat16* X_s, int plane, const float* __restrict__ x, int st,
+                                           int t0, int T_) {
+  constexpr int kChunks = DH / 4;  // 16-byte chunks of a row
+  constexpr int kLd = tile_ld<__nv_bfloat16, DH>();
+#pragma unroll 4
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NTHREADS) {
+    const int r = c / kChunks, e = (c % kChunks) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t0 + r < T_) v = *reinterpret_cast<const float4*>(x + static_cast<size_t>(t0 + r) * st + e);
+    uint32_t lo[NT][1], hi[NT][1];
+    split_into(v.x, v.y, lo, 0);
+    split_into(v.z, v.w, hi, 0);
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+      *reinterpret_cast<uint2*>(X_s + i * plane + r * kLd + e) = make_uint2(lo[i][0], hi[i][0]);
+  }
+}
+
+// s = A[r0, r0 + 16) . B[c0, c0 + NCOL)^T over DH, as warp_abt, from NA
+// planes of A (stride plane_a) and NB of B (stride plane_b); only the
+// 16-column blocks that start below `live` are computed, the rest stay 0.
+template <int DH, int NCOL, int NA, int NB>
+__device__ __forceinline__ void warp_abt_planes(float (&s)[NCOL / 8][4], const __nv_bfloat16* A_s, int plane_a,
+                                                int r0, const __nv_bfloat16* B_s, int plane_b, int c0,
+                                                int live = NCOL) {
+  zero(s);
+#pragma unroll
+  for (int kk = 0; kk < DH; kk += 16) {
+    uint32_t a[NA][4];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      uint32_t t[1][4];
+      load_a<DH>(t, A_s + i * plane_a, r0, kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[i][e] = t[0][e];
+    }
+#pragma unroll
+    for (int n = 0; n < NCOL / 8; n += 2) {
+      if (8 * n >= live) break;
+      uint32_t b0[NB][2], b1[NB][2];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        uint32_t t0[1][2], t1[1][2];
+        load_b<DH>(t0, t1, B_s + i * plane_b, c0 + 8 * n, kk);
+        b0[i][0] = t0[0][0], b0[i][1] = t0[0][1], b1[i][0] = t1[0][0], b1[i][1] = t1[0][1];
+      }
+      mma_split(s[n], a, b0);
+      mma_split(s[n + 1], a, b1);
+    }
+  }
+}
+
+// o += P . X[k0, k0 + NCOL), as warp_pv, from NT planes of X (stride plane);
+// only the 16-row blocks of X that start below `live` (p is 0 past them).
+template <int DH, int NCOL, int NTP, int NT>
+__device__ __forceinline__ void warp_pv_planes(float (&o)[DH / 8][4], const float (&p)[NCOL / 8][4],
+                                               const __nv_bfloat16* X_s, int plane, int k0, int live = NCOL) {
+#pragma unroll
+  for (int kk = 0; kk < NCOL / 8; kk += 2) {
+    if (8 * kk >= live) break;
+    uint32_t a[NTP][4];
+    acc_to_a(a, p[kk], p[kk + 1]);
+#pragma unroll
+    for (int n = 0; n < DH / 8; n += 2) {
+      uint32_t b0[NT][2], b1[NT][2];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        uint32_t t0[1][2], t1[1][2];
+        load_bt<DH>(t0, t1, X_s + i * plane, k0 + 8 * kk, 8 * n);
+        b0[i][0] = t0[0][0], b0[i][1] = t0[0][1], b1[i][0] = t1[0][0], b1[i][1] = t1[0][1];
+      }
+      mma_split(o[n], a, b0);
+      mma_split(o[n + 1], a, b1);
+    }
+  }
+}
+
 // Reductions over the four lanes of a quad (the lanes that share an
 // accumulator row).
 __device__ __forceinline__ float quad_max(float v) {

@@ -84,7 +84,7 @@ cudaError_t launch_block(const T* x, const float* gamma, const float* beta, cons
   if (err != cudaSuccess) return err;
   err = launch_dequant<kQkv, T>(codes, w_qkv, t1, s_qkv, b_qkv, qkv, nullptr, R, 3 * W, Wp, SR ? 2 * W : 3 * W, s);
   if (err != cudaSuccess) return err;
-  err = attn::launch_attn_core<PT, float, true>(qkv, a, amax, B, H, T_, W, valid, s);
+  err = attn::launch_attn_core<float, PT, float, false, true>(qkv, a, amax, B, H, T_, W, valid, s);
   if (err != cudaSuccess) return err;
   err = launch_quant_rows<SR>(a, amax, codes, t2, R, W, Wp, seed, kStreamAttnA, s);
   if (err != cudaSuccess) return err;

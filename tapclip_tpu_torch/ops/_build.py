@@ -86,8 +86,8 @@ _SIGNATURES = {
     # q, k, valid, lse, B, H, T, Dh, sq_b, sq_h, sq_t, causal, dtype, stream
     "tapclip_flash_lse": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # q, k, v, g, lse, delta, valid, dk, dv, B, H, T, Dh, sq_b, sq_h, sq_t,
-    # sg_b, sg_h, sg_t, causal, round_p, dtype, stream
-    "tapclip_flash_bwd_dkv": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
+    # sg_b, sg_h, sg_t, causal, dtype, stream
+    "tapclip_flash_bwd_dkv": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),
     # q, k, v, g, lse, delta, valid, dq, B, H, T, Dh, sq_b, sq_h, sq_t,
     # sg_b, sg_h, sg_t, causal, dtype, stream
     "tapclip_flash_bwd_dq": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, P),

@@ -275,13 +275,13 @@ def _flash_lse_call(q, k, valid, causal, lse):
             _build.stream_handle(q.device))
 
 
-def _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p=False):
+def _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv):
     """The checked arguments of one dK/dV launch (``tapclip_flash_bwd_dkv``)."""
     shape, sq, sg, code = _chain_operands(q, valid, (("k", k), ("v", v), ("dk", dk), ("dv", dv)), g)
     for name, t in (("lse", lse), ("delta", delta)):
         _build.check_cuda_operand(name, t, torch.float32, shape[:3])
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape, *sq, *sg, int(causal), int(round_p), code,
+            valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), *shape, *sq, *sg, int(causal), code,
             _build.stream_handle(q.device))
 
 
@@ -306,10 +306,9 @@ def _flash_lse_cuda(q, k, valid, causal):
     return lse
 
 
-def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p=False):
-    """The dK/dV kernel, into ``dk`` / ``dv``.  ``round_p`` rounds p to the
-    compute dtype before the dv product (the packed core's bfloat16 backward)."""
-    _launch("tapclip_flash_bwd_dkv", _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p),
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid, causal, dk, dv):
+    """The dK/dV kernel, into ``dk`` / ``dv``."""
+    _launch("tapclip_flash_bwd_dkv", _flash_bwd_dkv_call(q, k, v, g, lse, delta, valid, causal, dk, dv),
             "dkv_launches")
     return dk, dv
 
@@ -320,17 +319,15 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, valid, causal, dq):
     return dq
 
 
-def flash_attention_bwd_cuda(q, k, v, out, g, valid: IntOrTensor, causal: bool, *,
-                             grads=None, round_p: bool = False):
+def flash_attention_bwd_cuda(q, k, v, out, g, valid: IntOrTensor, causal: bool):
     """The backward chain on the card: ``(dq, dk, dv)`` of attention over the
     ``[B, H, T, Dh]`` views q, k, v (any strides with contiguous rows) from
-    the forward's output ``out`` and its cotangent ``g``.  ``grads``: the
-    ``(dq, dk, dv)`` views to write into (default: new tensors like q)."""
+    the forward's output ``out`` and its cotangent ``g``."""
     B, T = q.shape[0], q.shape[2]
     valid = _per_batch(valid, B, T, q.device)
-    dq, dk, dv = grads if grads is not None else (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = attention_delta(out, g)
     lse = _flash_lse_cuda(q, k, valid, causal)
-    _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid, causal, dk, dv, round_p)
+    _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, valid, causal, dk, dv)
     _flash_bwd_dq_cuda(q, k, v, g, lse, delta, valid, causal, dq)
     return dq, dk, dv

@@ -17,9 +17,9 @@ gradients by ``csrc/gemm.cu``.  On a CPU tensor they run
 versions.  The forward saves x and the parameters only; the backward
 recomputes LN, QKV and the probabilities, as the TPU kernel does.  Past
 the routing limit ``tapclip_attn_bwd_max_seq`` (T over 210 at head dim 64:
-where the one-block ``[T, T]`` core the backward kernels ran before their
-row and column kernels held its tile) the backward differentiates the split
-composition (plain projections around :func:`fused_mha`), as the JAX
+where the one-block ``[T, T]`` core B4 ran before its row and column
+kernels held its tile) the backward differentiates the split composition
+(plain projections around :func:`fused_mha`), as the JAX
 ``_attn_block_bwd`` does.
 
 Numerics in bfloat16: the kernels keep q and k in f32 and round v to the
@@ -32,16 +32,17 @@ kernel rounds.  In f32 they agree to summation order.
 attention over the packed ``qkv [B, T, 3W]`` (bias added) into ``[B, T, W]``,
 keys at or past ``valid_len`` masked, optionally causal.  :func:`fused_mha` is
 one ``torch.autograd.Function``: on a CUDA tensor its forward is B6
-(``csrc/mha.cu``, which replaces ``_mha_kernel``) and its backward B7
+(``csrc/mha.cu``, which replaces ``_mha_kernel``: K2's attention walk on the
+tensor cores, ``csrc/attn_core_mma.cuh``, reading qkv in the dtype, causal
+or not) and its backward B7
 (``csrc/mha_bwd.cu``, which replaces ``_mha_bwd_kernel``); on a CPU tensor
 :func:`fused_mha_reference` (the counterpart of ``_xla_reference``) and
 :func:`fused_mha_bwd_reference` (the TPU backward's formula).  The forward
 saves qkv; the backward recomputes the probabilities.  B7 is two launches
 on the tensor cores (B4's row and column kernels, ``csrc/attn_bwd_mma.cuh``,
-on the packed strides); past the same routing limit the forward also saves
-its output and the backward runs the blockwise flash chain
-(``csrc/flash_bwd.cu``) on the packed strides, writing dq, dk, dv straight
-into ``dqkv``, as the JAX ``_fused_mha_bwd_impl`` runs at any T.
+on the packed strides) at any T, as the JAX ``_fused_mha_bwd_impl`` runs at
+any T: at ViT-L/14's T 257 and 584 they beat the blockwise flash chain on
+the same strides, in f32 and bf16 (``time_half_blocks.py``; ``PERF.md``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ from typing import Optional
 import torch
 
 from tapclip_tpu_torch.ops import _build
-from tapclip_tpu_torch.ops.flash_attention import flash_attention_bwd_cuda
 from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _rnd, ln_backward
 from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
 
@@ -148,9 +148,9 @@ class _FusedAttnBlock(torch.autograd.Function):
 
 
 def _tile_fits(T, Dh):
-    """Whether B4's and B7's autograd Functions route sequence length T to
-    their kernels (``tapclip_attn_bwd_max_seq``: the limit of the ``[T, T]``
-    core they ran before, kept as a routing limit)."""
+    """Whether B4's autograd Function routes sequence length T to its
+    kernels (``tapclip_attn_bwd_max_seq``: the limit of the ``[T, T]`` core
+    it ran before, kept as a routing limit)."""
     return T <= _build.library().tapclip_attn_bwd_max_seq(Dh)
 
 
@@ -166,9 +166,8 @@ def _split_block(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps
 
 def _split_block_grads(saved, g, need, n_heads, valid, eps):
     """The half-block's gradients past B4's tile: autograd through
-    :func:`_split_block` (whose attention core differentiates on the flash
-    chain), as ``_attn_block_bwd`` falls back to ``jax.vjp`` of the split
-    composition."""
+    :func:`_split_block` (whose attention core differentiates on B7), as
+    ``_attn_block_bwd`` falls back to ``jax.vjp`` of the split composition."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
         out = _split_block(*leaves, n_heads, valid, eps)
@@ -363,23 +362,19 @@ class _FusedMHA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, n_heads, valid, causal):
         ctx.cfg = (n_heads, valid, causal)
+        ctx.save_for_backward(qkv)
         if qkv.device.type == "cpu":
-            ctx.save_for_backward(qkv)
             return fused_mha_reference(qkv, n_heads, valid, causal)
-        out = _fused_mha_cuda(qkv, n_heads, valid, causal)
-        # The flash chain past the routing limit needs the output (delta = rowsum(g * out)).
-        fits = _tile_fits(qkv.shape[1], qkv.shape[2] // 3 // n_heads)
-        ctx.save_for_backward(*((qkv,) if fits else (qkv, out)))
-        return out
+        return _fused_mha_cuda(qkv, n_heads, valid, causal)
 
     @staticmethod
     def backward(ctx, g):
-        qkv, *out = ctx.saved_tensors
+        (qkv,) = ctx.saved_tensors
         g = g.to(qkv.dtype).contiguous()
         if qkv.device.type == "cpu":
             dqkv = fused_mha_bwd_reference(qkv, g, *ctx.cfg)
         else:
-            dqkv = _fused_mha_bwd_cuda(qkv, g, *ctx.cfg, out=out[0] if out else None)
+            dqkv = _fused_mha_bwd_cuda(qkv, g, *ctx.cfg)
         return dqkv, None, None, None
 
 
@@ -411,7 +406,11 @@ def _mha_operands(qkv, n_heads, valid, *more):
 
 
 def _fused_mha_cuda(qkv, n_heads, valid, causal):
+    """B6 on the card (one launch: ``csrc/mha.cu``, K2's attention walk on
+    the tensor cores with qkv in the dtype): ``[B, T, W]`` in qkv's dtype."""
     B, T, W, _ = _mha_operands(qkv, n_heads, valid)
+    if qkv.data_ptr() % 16:
+        raise ValueError("packed-QKV attention kernel copies qkv in 16-byte chunks: it must be 16-byte aligned")
     out = torch.empty((B, T, W), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().tapclip_mha(
         qkv.data_ptr(), out.data_ptr(), B, T, W, n_heads, int(valid), int(causal),
@@ -422,32 +421,10 @@ def _fused_mha_cuda(qkv, n_heads, valid, causal):
     return out
 
 
-def _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal):
-    """The flash chain on the packed strides: ``dqkv`` of the attention core
-    from the forward's output ``out [B, T, W]``, dq, dk, dv written straight
-    into it."""
-    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g), ("out", out))
-    dqkv = torch.empty_like(qkv)
-
-    def heads(t):  # a [B, T, W] view -> a [B, H, T, Dh] view, never a copy
-        return t.view(B, T, n_heads, Dh).transpose(1, 2)
-
-    # B7 rounds p to the compute dtype before the dv product (a no-op in f32).
-    flash_attention_bwd_cuda(*map(heads, (*qkv.split(W, dim=-1), out, g)), valid, causal,
-                             grads=[heads(t) for t in dqkv.split(W, dim=-1)], round_p=True)
-    return dqkv
-
-
-def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal, *, out=None):
-    """B7 on the card (two launches: ``csrc/mha_bwd.cu``): packed ``dqkv`` in
-    qkv's dtype.  Past the routing limit (:func:`_tile_fits`) the flash chain
-    runs on the packed strides; it needs the forward's output ``out [B, T,
-    W]``."""
-    B, T, W, Dh = _mha_operands(qkv, n_heads, valid, ("g", g))
-    if not _tile_fits(T, Dh):
-        if out is None:
-            raise ValueError(f"T={T} runs the flash chain, which needs the forward output")
-        return _mha_flash_bwd_cuda(qkv, g, out, n_heads, valid, causal)
+def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal):
+    """B7 on the card (two launches: ``csrc/mha_bwd.cu``), at any T: packed
+    ``dqkv`` in qkv's dtype."""
+    B, T, W, _ = _mha_operands(qkv, n_heads, valid, ("g", g))
     for name, t in (("qkv", qkv), ("g", g)):
         if t.data_ptr() % 16:
             raise ValueError(f"packed-QKV backward kernel copies {name} in 16-byte chunks: it must be 16-byte aligned")

@@ -1,6 +1,6 @@
-"""Device time of each CUDA kernel behind K1, K2, B5, B4, B13, B14, B7 and S6, read from a profiler trace.
+"""Device time of each CUDA kernel behind K1, K2, B5, B4, B13, B14, B7, B6 and S6, read from a profiler trace.
 
-    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B14,B7,...]
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B6,step,...]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and runs ``torch.profiler`` over
@@ -24,8 +24,13 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
 * B7 (``_fused_mha_bwd_cuda``) at the idiomatic step's shape (8 x 77, W
   512, 8 heads, causal) and the 64-text batch (64 x 80, valid 77, causal),
   both dtypes;
+* B6 (``_fused_mha_cuda``) at B7's two shapes and the fused_split image
+  shape (8 x 200, W 768, 12 heads, valid 197), both dtypes;
 * S6 (``int8_gemm``) at the probe's shape (51,200 x 768 x 3,072) and at
-  B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768).
+  B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768);
+* ``step``: the idiomatic (CoOp-style) prompt-tune step on cached features
+  at ViT-B/16 with random weights from seed 0, float32 (batch 32, five
+  classes in a bank of 8, as ``time_paths.py``): see :func:`step_trace`.
 
 A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
 LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
@@ -38,7 +43,7 @@ device time among them (launches of one kernel and template list summed).  Print
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
-``--kernels`` keeps only the named ones (default: all eight).  Exits 1
+``--kernels`` keeps only the named ones (default: all ten).  Exits 1
 without a card, or when the trace holds no device time.
 """
 
@@ -57,6 +62,8 @@ B13_SHAPES = {"image 8x200x768 H3072": (8, 200, 768)}
 B14_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197)}
 B7_SHAPES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
              "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True)}
+B6_SHAPES = {**B7_SHAPES, "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197, False)}
+STEP_CLASSES = ["Backpack", "Alarm_Clock", "Laptop", "Pen", "Mug"]
 S6_SHAPES = {"probe": (51_200, 768, 3_072), "b13 fc": (1_600, 768, 3_072), "b13 proj": (1_600, 3_072, 768)}
 
 
@@ -91,11 +98,122 @@ def profile(fn, iters: int) -> dict:
     return {"us": kernels, "sum_us": sum(kernels.values()), "span_ms": (last - first) / 1e3 / iters}
 
 
+def _union_us(spans) -> float:
+    """Microseconds covered by the union of ``(start, end)`` spans."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total, end = total + (b - a), b
+        elif b > end:
+            total, end = total + (b - end), b
+    return total
+
+
+def step_trace(iters: int) -> dict:
+    """One ``torch.profiler`` trace of ``iters`` idiomatic prompt-tune steps
+    (ViT-B/16, float32, cached features, batch 32), each step, its forward
+    (``full_model_forward``), its backward (``torch.autograd.grad``) and its
+    optimizer step (``AdamW.step``) marked as host spans.  Returns per step:
+    the wall ms (``step_ms``, the host span of the step); the device's busy
+    share (the union of its kernels' intervals over the steps' window) and
+    its idle share; the step's CUDA-event ms without the profiler
+    (``step_ms_unprofiled``: the profiler's own host work per operator
+    lengthens the traced step) and the kernels' busy time over it
+    (``busy_share_unprofiled``); each kernel's device microseconds (``kernels_us``, the
+    20 largest, by name) and their sum; the host spans' ms (``host_ms``:
+    forward, backward, optimizer, and the rest of the step); the number of
+    aten operators and of kernel launches; and the 12 aten operators with
+    the most host time of their own (``top_ops``: ms and calls per step)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from tapclip_tpu_torch.config import VIT_B_16, PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel import train_step as ts
+    from tapclip_tpu_torch.serve import build_model
+
+    params = build_model(VIT_B_16, STEP_CLASSES, "cuda", seed=0).clip_params
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((32, VIT_B_16.embed_dim)).astype(np.float32)
+    labels = rng.integers(0, len(STEP_CLASSES), 32)
+    mask = np.ones(32, bool)
+    pcfg = PromptConfig(text_mode="idiomatic")
+    model = FullModel(STEP_CLASSES, params, VIT_B_16, prompt_cfg=pcfg)
+    step = ts.make_train_step(VIT_B_16, pcfg)
+    state = [ts.init_train_state(model.trainable, ts.make_optimizer(TrainConfig(batch_size=32)))]
+
+    def marked(name, fn):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+
+    forward, grad = ts.full_model_forward, torch.autograd.grad
+
+    def one():
+        with record_function("step"):
+            state[0] = step(params, state[0], model.prompt_learner.bank, feats, labels, mask)[0]
+
+    sys.path.append(str(Path(__file__).resolve().parent))
+    from _bench_util import time_ms
+
+    plain_ms = time_ms(one, iters, 3)  # the step without the profiler's host overhead
+    ts.full_model_forward, torch.autograd.grad = marked("step.forward", forward), marked("step.backward", grad)
+    try:
+        for _ in range(3):
+            one()
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                one()
+            torch.cuda.synchronize()
+    finally:
+        ts.full_model_forward, torch.autograd.grad = forward, grad
+    host, kernels, dev_spans, ops, launches = {}, {}, [], {}, 0
+    window = [None, None]
+    marks = ("step", "step.forward", "step.backward")
+    for ev in prof.events():
+        a, b = ev.time_range.start, ev.time_range.end
+        if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA":
+            # The marks' device-side copies (user annotations) are no kernel time.
+            if getattr(ev, "is_user_annotation", False) or ev.name in marks or ev.name.startswith("Optimizer."):
+                continue
+            if not ev.name.startswith(("Memcpy", "Memset")):
+                kernels[_short(ev.name)] = kernels.get(_short(ev.name), 0.0) + (b - a) / iters
+            dev_spans.append((a, b))
+            continue
+        if ev.name in marks or ev.name.startswith("Optimizer.step#"):
+            key = "optimizer" if ev.name.startswith("Optimizer.step#") else ev.name
+            host[key] = host.get(key, 0.0) + (b - a) / 1e3 / iters
+            if ev.name == "step":
+                window = [a if window[0] is None else min(window[0], a), b if window[1] is None else max(window[1], b)]
+        elif ev.name == "cudaLaunchKernel":
+            launches += 1
+        elif ev.name.startswith("aten::"):
+            own = ev.self_cpu_time_total
+            n, t = ops.get(ev.name, (0, 0.0))
+            ops[ev.name] = (n + 1, t + own)
+    if not kernels or window[0] is None:
+        raise RuntimeError("the profiler trace holds no device time")
+    span_us = window[1] - window[0]
+    busy_us = _union_us([(max(a, window[0]), min(b, window[1])) for a, b in dev_spans if b > window[0] and a < window[1]])
+    host["rest"] = host["step"] - host.get("step.forward", 0.0) - host.get("step.backward", 0.0) - host.get(
+        "optimizer", 0.0)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1][1])[:12]
+    return {"step_ms": host["step"], "busy_share": busy_us / span_us, "idle_share": 1.0 - busy_us / span_us,
+            "step_ms_unprofiled": plain_ms, "busy_share_unprofiled": busy_us / iters / 1e3 / plain_ms,
+            "kernels_sum_us": sum(kernels.values()), "kernels_us": dict(top), "host_ms": host,
+            "aten_ops_per_step": sum(n for n, _ in ops.values()) / iters, "launches_per_step": launches / iters,
+            "top_ops": {k: {"self_ms": t / 1e3 / iters, "calls": n / iters} for k, (n, t) in top_ops}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,S6")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,S6,step")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -106,7 +224,12 @@ def main() -> int:
         print("profile_kernels: needs a CUDA device", file=sys.stderr)
         return 1
     from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, _fused_mha_bwd_cuda, fused_attn_block
+    from tapclip_tpu_torch.ops.fused_mha import (
+        _attn_block_bwd_cuda,
+        _fused_mha_bwd_cuda,
+        _fused_mha_cuda,
+        fused_attn_block,
+    )
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
     from tapclip_tpu_torch.ops.int8_attn import int8_attn_cuda, quantize_attn
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
@@ -179,11 +302,17 @@ def main() -> int:
                 qkv, g = (0.5 * rn(B, T, 3 * W)).to(dtype), rn(B, T, W).to(dtype)
                 res = profile(lambda: _fused_mha_bwd_cuda(qkv, g, nh, valid, causal), args.iters)
                 emit("B7", label, dtype, res)
+            for label, (B, T, W, nh, valid, causal) in B6_SHAPES.items() if "B6" in want else ():
+                qkv = (0.5 * rn(B, T, 3 * W)).to(dtype)
+                res = profile(lambda: _fused_mha_cuda(qkv, nh, valid, causal), args.iters)
+                emit("B6", label, dtype, res)
         for label, (M, K, N) in S6_SHAPES.items() if "S6" in want else ():
             a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
             b = torch.randint(-127, 128, (K, N), generator=gen, device="cuda", dtype=torch.int8)
             res = profile(lambda: int8_gemm(a, b), args.iters)
             emit("S6", f"{label} {M}x{K}x{N}", None, res)
+    if "step" in want:
+        emit("step", "idiomatic ViT-B/16 batch 32 cached features", torch.float32, step_trace(args.iters))
     return 0
 
 

@@ -46,6 +46,11 @@ shapes): the norm-relative error of each of the seven gradients.
 and column kernels on the packed strides, causal or not: q, k, v and g in
 three terms in f32 and one in bf16, p's bf16 rounding for dv in bf16, ds in
 three terms) against ``fused_mha_bwd_reference`` at ``MHA_BWD_SHAPES``.
+:func:`emulate_mha` emulates B6 (``csrc/mha.cu`` on K2's attention walk,
+causal or not: q . k^T and p . v with q, k, p and v in three terms in f32
+and one in bf16, where p is rounded and q, k, v are bf16 values):
+:func:`emulated_mha_errors` holds it against ``fused_mha_reference`` at
+``MHA_BWD_SHAPES`` (the card tests' B6 and B7 shapes).
 :func:`emulate_int8_attn` emulates B14 (``csrc/int8_attn.cu``): its
 attention step on split q and k, p and v in three terms or (the stochastic
 mode in bf16) one, and the codes of the attention output from the row max
@@ -415,6 +420,35 @@ def emulated_mha_bwd_errors(B, T, W, n_heads, valid, causal, dtype=torch.float32
     return {"dqkv_rel": _rel(got, want), "dqkv_abs": float((got.float() - want.float()).abs().max())}
 
 
+def emulate_mha(qkv, n_heads, valid, causal, f32_terms=F32_TERMS):
+    """B6 as the card computes it (``csrc/mha.cu``: K2's attention walk with
+    qkv in the dtype): :func:`_emulate`'s forward on the split heads, q . k^T
+    on ``f32_terms`` terms of q and k in f32 and one (exact) in bf16, keys at
+    or past ``valid`` (and after the query when ``causal``) at -1e30, exp2
+    against the row max, the sum over the unrounded p, p . v on
+    ``f32_terms`` terms of p and v in f32 and one in bf16 (p's rounding, v's
+    value), over the sum.  ``[B, T, W]`` in qkv's dtype."""
+    B, W = qkv.shape[0], qkv.shape[2] // 3
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    valid_t = torch.full((B,), int(valid), dtype=torch.int32)
+    out = _emulate(q, k, v, torch.zeros_like(q), valid_t, causal, f32_terms)[0]
+    return _merge(out).to(qkv.dtype)
+
+
+def emulated_mha_errors(B, T, W, n_heads, valid, causal, dtype=torch.float32, f32_terms=F32_TERMS,
+                        seed=0) -> dict:
+    """B6's emulated output against ``fused_mha_reference``'s on the same
+    inputs (qkv at half scale in ``dtype``): ``out_rel`` (norm-relative) and
+    ``out_abs``."""
+    from tapclip_tpu_torch.ops.fused_mha import fused_mha_reference
+
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((B, T, 3 * W), dtype=np.float32) * np.float32(0.5)).to(dtype)
+    got = emulate_mha(qkv, n_heads, valid, causal, f32_terms)
+    want = fused_mha_reference(qkv, n_heads, valid, causal)
+    return {"out_rel": _rel(got, want), "out_abs": float((got.float() - want.float()).abs().max())}
+
+
 def emulate_int8_attn_core(qkv, n_heads, valid, p_dtype, f32_terms=F32_TERMS):
     """B14's attention step (``csrc/attn_core_mma.cuh``) over the f32
     workspace ``qkv [B, T, 3W]``: q . k^T on ``f32_terms`` terms of q and k,
@@ -496,6 +530,9 @@ def main() -> int:
         for B, T, W, heads, valid, causal in MHA_BWD_SHAPES:
             errs = emulated_mha_bwd_errors(B, T, W, heads, valid, causal, dtype, args.terms)
             print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B7",
+                              "shape": [B, T, W], "heads": heads, "valid": valid, "causal": causal, **errs}))
+            errs = emulated_mha_errors(B, T, W, heads, valid, causal, dtype, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B6",
                               "shape": [B, T, W], "heads": heads, "valid": valid, "causal": causal, **errs}))
     return 0
 

@@ -1,4 +1,4 @@
-"""Time the kernels K1, K2, B5, B4, B13, B14 and B7 of one checkout of the port.
+"""Time the kernels K1, K2, B5, B4, B13, B14, B7 and B6 of one checkout of the port.
 
     python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B14,B7]
 
@@ -30,7 +30,12 @@ calls, ``--runs`` readings each), float32 and bfloat16, of
   its three launches ``tapclip_int8_qkv``, ``tapclip_int8_attn_core`` and
   ``tapclip_int8_out`` on packed weights), stochastic and round to nearest;
 * B7's wrapper (``_fused_mha_bwd_cuda``) and its launches alone
-  (``tapclip_mha_bwd``, with its lse / delta scratch where it takes one).
+  (``tapclip_mha_bwd``, with its lse / delta scratch where it takes one);
+  at ViT-L/14's lengths (``B7_LONG_SHAPES``) its launches alone and, in a
+  checkout whose autograd Function sent them to the flash chain on the
+  packed strides (``_mha_flash_bwd_cuda``, on the forward's output computed
+  once), the chain beside them;
+* B6's wrapper (``_fused_mha_cuda``) and its launch alone (``tapclip_mha``).
 
 K1 at ViT-B/16's image shape (8 x 200 rows, W 768) and the text tower's
 shapes (a 64-text batch, 64 x 80 rows, and 8 x 88 rows, W 512); K2 at the
@@ -40,11 +45,13 @@ heads, valid 82); B5 at the text shape (H 2,048) and the image shape (H
 pruned one (8 x 96 rows); B14 at the image shape (12 heads, valid 197) and
 the pruned one (8 x 96, no mask); B7 at the idiomatic step's shape (8 x 77,
 W 512, 8 heads, causal), the 64-text batch (64 x 80, valid 77, causal) and
-the fused_split image shape (8 x 200, W 768, 12 heads, valid 197).  Each launcher's C signature is read from the checkout's own
+the fused_split image shape (8 x 200, W 768, 12 heads, valid 197), and
+at ViT-L/14's 4 x 257 and 4 x 584 (W 1,024, 16 heads); B6 at B7's first
+three shapes.  Each launcher's C signature is read from the checkout's own
 ``_build._SIGNATURES``: where K1 takes a scratch pointer (h and y, R (H + W)
 elements of the dtype) the scratch is allocated once beside the buffers.
 
-``--kernels`` times only the named kernels (default: all seven).  To
+``--kernels`` times only the named kernels (default: all eight).  To
 compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
 """
@@ -65,6 +72,10 @@ B14_SHAPES = {"image 8x200x768 h12 valid197": (8, 200, 768, 12, 197), "pruned 8x
 B7_SHAPES = {"idiomatic 8x77x512 h8 causal": (8, 77, 512, 8, 77, True),
              "text 64x80x512 h8 valid77 causal": (64, 80, 512, 8, 77, True),
              "image 8x200x768 h12 valid197": (8, 200, 768, 12, 197, False)}
+# ViT-L/14 at 224 and 336 px (T 257 and 577 + 7 pad keys, not causal): past B4's routing limit.
+B7_LONG_SHAPES = {"vit-l 4x257x1024 h16": (4, 257, 1024, 16, 257, False),
+                  "vit-l336 4x584x1024 h16 valid577": (4, 584, 1024, 16, 577, False)}
+B6_SHAPES = B7_SHAPES
 B7_CORE_ARGS = 11  # tapclip_mha_bwd's arguments in the [T, T]-core design (no lse / delta scratch)
 B5_SPLITS = (1, 2, 4)  # the splits of dy's depth that tapclip_mlp_bwd takes, each timed where it takes one
 K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
@@ -74,7 +85,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -86,7 +97,13 @@ def main() -> int:
         return 1
     from tapclip_tpu_torch.ops import _build
     from tapclip_tpu_torch.ops import int8_attn, int8_mlp
-    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda, _fused_mha_bwd_cuda, fused_attn_block
+    from tapclip_tpu_torch.ops import fused_mha as fm
+    from tapclip_tpu_torch.ops.fused_mha import (
+        _attn_block_bwd_cuda,
+        _fused_mha_bwd_cuda,
+        _fused_mha_cuda,
+        fused_attn_block,
+    )
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
 
     # This file's own helpers, whichever checkout the package comes from.
@@ -268,7 +285,7 @@ def main() -> int:
                 calls[f"B14 wrapper {label} {mode}"] = lambda x=x, ln=ln, q=q, nh=nh, v=valid, det=bool(det): (
                     int8_attn.int8_attn_cuda(x, ln["scale"], ln["bias"], q, nh, v, deterministic=det))
 
-        for label, (B, T, W, nh, valid, causal) in B7_SHAPES.items():
+        for label, (B, T, W, nh, valid, causal) in {**B7_SHAPES, **B7_LONG_SHAPES}.items():
             qkv, g = (0.5 * rn(B, T, 3 * W)).to(dtype), rn(B, T, W).to(dtype)
             dqkv = torch.empty_like(qkv)
             scratch = ()
@@ -279,8 +296,20 @@ def main() -> int:
                  stream)
             keep = (qkv, g, dqkv, ws if scratch else None)
             calls[f"B7 launches {label}"] = lambda a=a, keep=keep: lib.tapclip_mha_bwd(*a)
+            if label in B7_LONG_SHAPES:
+                if hasattr(fm, "_mha_flash_bwd_cuda"):
+                    out = _fused_mha_cuda(qkv, nh, valid, causal)
+                    calls[f"B7 chain {label}"] = lambda qkv=qkv, g=g, out=out, nh=nh, v=valid, c=causal: (
+                        fm._mha_flash_bwd_cuda(qkv, g, out, nh, v, c))
+                continue
             calls[f"B7 wrapper {label}"] = lambda qkv=qkv, g=g, nh=nh, v=valid, c=causal: _fused_mha_bwd_cuda(
                 qkv, g, nh, v, c)
+        for label, (B, T, W, nh, valid, causal) in B6_SHAPES.items():
+            qkv = (0.5 * rn(B, T, 3 * W)).to(dtype)
+            out = torch.empty((B, T, W), dtype=dtype, device="cuda")
+            a = (qkv.data_ptr(), out.data_ptr(), B, T, W, nh, valid, int(causal), code, stream)
+            calls[f"B6 launch {label}"] = lambda a=a, keep=(qkv, out): lib.tapclip_mha(*a)
+            calls[f"B6 wrapper {label}"] = lambda qkv=qkv, nh=nh, v=valid, c=causal: _fused_mha_cuda(qkv, nh, v, c)
         with torch.inference_mode():
             for name, fn in calls.items():
                 if name.split()[0] not in want:

@@ -1,6 +1,6 @@
-"""Time the int8 image batch and the idiomatic prompt-tune step of one checkout of the port.
+"""Time the int8 image batch, the idiomatic prompt-tune step and the text tower of one checkout of the port.
 
-    python3 tapclip_tpu_torch/scripts/time_paths.py [--root DIR] [--runs N]
+    python3 tapclip_tpu_torch/scripts/time_paths.py [--root DIR] [--runs N] [--paths int8,idiomatic,text,split]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels and ViT-B/16 with random weights from
@@ -14,7 +14,15 @@ each) of
 * one idiomatic (CoOp-style) prompt-tuning step on cached features (batch
   32, five classes in a bank of 8: 23 B6, one causal K3, 12 B7 and 12 B5
   launches), float32 and bfloat16; each call continues from the state the
-  previous one returned.
+  previous one returned;
+* ``encode_text`` of a 64-text batch (random token ids at ``context_length``
+  77, run at T 80 with the pad keys masked: 12 B6 and 12 K1 launches),
+  float32 and bfloat16;
+* one image batch of 8 with ``attn_impl="fused_split"`` (plain projections
+  around B6 in every vision block: 12 B6 and 12 K1 launches), float32 and
+  bfloat16.
+
+``--paths`` times only the named ones (default: all four).
 
 To compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
@@ -34,7 +42,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--paths", default="int8,idiomatic,text,split")
     args = ap.parse_args()
+    want = set(args.paths.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
 
     import numpy as np
@@ -62,14 +72,25 @@ def main() -> int:
     labels = rng.integers(0, len(CLASSES), 32)
     mask = np.ones(32, bool)
     pcfg = PromptConfig(text_mode="idiomatic")
+    ids = torch.from_numpy(rng.integers(1, VIT_B_16.vocab_size - 1, (64, VIT_B_16.context_length))).cuda()
+    ids[:, 20] = VIT_B_16.vocab_size - 1  # the EOT token (the largest id) the tower pools at
     readings = {}
     for dtype in ("float32", "bfloat16"):
         cfg = VIT_B_16.replace(dtype=dtype)
+        split = cfg.replace(attn_impl="fused_split")
         with torch.inference_mode():
-            for mode, det in (("stochastic", False), ("round-to-nearest", True)):
+            for mode, det in (("stochastic", False), ("round-to-nearest", True)) if "int8" in want else ():
                 cfg_q = cfg.replace(quantize_tower=True, int8_deterministic=det)
                 readings[f"int8 image batch 8 {mode} {dtype}"] = [
                     time_ms(lambda: clip_model.encode_image(params, cfg_q, images), 20, 3) for _ in range(args.runs)]
+            if "text" in want:
+                readings[f"encode_text batch 64 {dtype}"] = [
+                    time_ms(lambda: clip_model.encode_text(params, cfg, ids), 20, 3) for _ in range(args.runs)]
+            if "split" in want:
+                readings[f"fused_split image batch 8 {dtype}"] = [
+                    time_ms(lambda: clip_model.encode_image(params, split, images), 20, 3) for _ in range(args.runs)]
+        if "idiomatic" not in want:
+            continue
         model = FullModel(CLASSES, params, cfg, prompt_cfg=pcfg)
         step = make_train_step(cfg, pcfg)
         holder = [init_train_state(model.trainable, make_optimizer(TrainConfig(batch_size=32)))]

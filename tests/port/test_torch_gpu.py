@@ -83,7 +83,6 @@ from tapclip_tpu_torch.ops.fused_mha import (
     _attn_block_bwd_cuda,
     _fused_mha_bwd_cuda,
     _fused_mha_cuda,
-    _mha_flash_bwd_cuda,
     attn_block_bwd_reference,
     attn_block_reference,
     fused_attn_block,
@@ -450,8 +449,9 @@ def test_fused_attn_block_bwd_kernel(cuda, dtype, tol, B, T, W, heads, valid):
                                                (1, 577, 256, 4, 577), (1, 584, 1024, 16, 577)],
                          ids=["T240", "vit-l-224", "T577", "vit-l-336"])
 def test_fused_attn_block_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, valid):
-    """Past B4's [T, T] tile the Function differentiates the split composition
-    (plain projections around B6 and the flash chain); B4 itself refuses."""
+    """Past B4's routing limit the Function differentiates the split
+    composition (plain projections around B6, differentiated on B7); B4
+    itself refuses."""
     gen = torch.Generator(device=cuda).manual_seed(T + W + 2)
     x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W).to(dtype)
     p = [1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, 3 * W, scale=W ** -0.5),
@@ -459,12 +459,13 @@ def test_fused_attn_block_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, v
     with pytest.raises(ValueError, match="exceeds its limit"):
         _attn_block_bwd_cuda(x, g, *p[:5], heads, valid, 1e-5)
     leaves = [t.clone().requires_grad_() for t in [x, *p]]
-    n = (fused_attn_block.bwd_launches, fused_attention.dq_launches)
+    n = (fused_attn_block.bwd_launches, fused_mha.bwd_launches, fused_attention.dq_launches)
     out = fused_attn_block(leaves[0], {"scale": leaves[1], "bias": leaves[2]},
                            dict(zip(("w_qkv", "b_qkv", "w_out", "b_out"), leaves[3:])), heads,
                            valid_len=valid)
     got = torch.autograd.grad(out, leaves, g)
-    assert (fused_attn_block.bwd_launches, fused_attention.dq_launches) == (n[0], n[1] + 1)
+    assert (fused_attn_block.bwd_launches, fused_mha.bwd_launches, fused_attention.dq_launches) == (
+        n[0], n[1] + 1, n[2])
     want = attn_block_bwd_reference(x, g, *p[:5], heads, valid, 1e-5)
     for name, a, b in zip(NAMES, got, want):
         _close_rel(name, a, b, tol)
@@ -576,11 +577,20 @@ def test_tiny_model_kernel_path_matches_plain(cuda):
 
 # --- B6 / B7: the packed-QKV attention core and its backward; K3 causal ----------
 
+# B6's walk on the tensor cores (attn_core_mma.cuh) takes query tiles of 16,
+# 32 or 64 rows by T and 64-key tiles: the edges are T on either side of
+# each (head dims in turn, causal and not), a valid that ends inside a key
+# tile, and ViT-L/14 at 336 px under fused_split.
+MHA_EDGES = [(2, T, 4 * Dh, 4, T, causal) for T, Dh in ((16, 16), (17, 32), (32, 64), (33, 128), (64, 16),
+                                                       (65, 32), (128, 64), (129, 128)) for causal in (False, True)]
 MHA_SHAPES = [(8, 77, 512, 8, 77, True), (8, 80, 512, 8, 77, True), (2, 200, 768, 12, 197, False),
               (2, 200, 768, 12, 197, True), (3, 77, 128, 2, 77, False), (1, 70, 256, 2, 50, True),
-              (2, 65, 64, 4, 65, True), (1, 40, 256, 8, 33, False)]
+              (2, 65, 64, 4, 65, True), (1, 40, 256, 8, 33, False), *MHA_EDGES,
+              (2, 150, 256, 4, 100, False), (2, 150, 256, 4, 100, True), (4, 584, 1024, 16, 577, False)]
 MHA_IDS = ["text77-causal", "text80-valid77-causal", "image200", "image200-causal", "dh64-77",
-           "dh128-causal", "dh16-causal", "dh32"]
+           "dh128-causal", "dh16-causal", "dh32",
+           *[f"t{c[1]}-dh{c[2] // 4}{'-causal' if c[5] else ''}" for c in MHA_EDGES],
+           "t150-valid100", "t150-valid100-causal", "vit-l-336"]
 
 
 def _mha_case(cuda, dtype, B, T, W, seed):
@@ -600,6 +610,13 @@ def test_fused_mha_kernel(cuda, dtype, tol, B, T, W, heads, valid, causal):
         want = fused_mha_reference(qkv, heads, valid, causal)
     assert got.dtype == dtype and got.shape == (B, T, W)
     _close(got, want, tol)
+
+
+@pytest.mark.gpu
+def test_fused_mha_kernel_refuses_unaligned_rows(cuda):
+    bad = _randn(torch.Generator(device=cuda).manual_seed(0), 8 * 3 * 64 + 1)[1:].view(1, 8, 3 * 64)
+    with pytest.raises(ValueError, match="aligned"):
+        _fused_mha_cuda(bad, 4, 8, False)
 
 
 @pytest.mark.gpu
@@ -635,16 +652,49 @@ B7_BITS = {
 }
 
 
-def _b7_digest(dtype, B, T, W, heads, valid, causal):
+# B6's output on the same qkv (``_b6_digest``, as chip_smoke.py's
+# ``b6_digest``), read on an NVIDIA H100 80GB HBM3 (CUDA 12.8) from B6 on
+# K2's attention walk (attn_core_mma.cuh): a pin of its bits from one build
+# to the next.
+B6_BITS = {
+    (torch.float32, 8, 77, 512, 8, 77, True): "9447e67875bbebb0",
+    (torch.float32, 64, 80, 512, 8, 77, True): "33764a9576056d10",
+    (torch.float32, 8, 200, 768, 12, 197, False): "84fd1f078214062a",
+    (torch.float32, 3, 33, 128, 4, 30, True): "00661bfed5aaed6d",
+    (torch.float32, 2, 65, 256, 2, 60, False): "94748c42073d11d6",
+    (torch.float32, 1, 40, 64, 4, 40, False): "c635c9dcea4854a2",
+    (torch.bfloat16, 8, 77, 512, 8, 77, True): "a8ca64fd7426702a",
+    (torch.bfloat16, 64, 80, 512, 8, 77, True): "26e6b6a12b38aae0",
+    (torch.bfloat16, 8, 200, 768, 12, 197, False): "03857513538494d1",
+    (torch.bfloat16, 3, 33, 128, 4, 30, True): "2215e8d6e6a74be0",
+    (torch.bfloat16, 2, 65, 256, 2, 60, False): "cd0937527bfb660a",
+    (torch.bfloat16, 1, 40, 64, 4, 40, False): "fee2d073c94b8979",
+}
+
+
+def _core_case(dtype, B, T, W, valid):
     rng = np.random.default_rng(B * T + W + valid)
 
     def f(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda().to(dtype)
 
-    qkv, g = f(B, T, 3 * W), f(B, T, W)
+    return f(B, T, 3 * W), f(B, T, W)
+
+
+def _sha16(t):
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def _b7_digest(dtype, B, T, W, heads, valid, causal):
+    qkv, g = _core_case(dtype, B, T, W, valid)
     with torch.no_grad():
-        dqkv = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
-    return hashlib.sha256(dqkv.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+        return _sha16(_fused_mha_bwd_cuda(qkv, g, heads, valid, causal))
+
+
+def _b6_digest(dtype, B, T, W, heads, valid, causal):
+    qkv, _ = _core_case(dtype, B, T, W, valid)
+    with torch.no_grad():
+        return _sha16(_fused_mha_cuda(qkv, heads, valid, causal))
 
 
 @pytest.mark.gpu
@@ -653,11 +703,16 @@ def test_fused_mha_bwd_kernel_bits_unchanged(cuda, key):
     assert _b7_digest(*key) == B7_BITS[key]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(B6_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}" for k in B6_BITS])
+def test_fused_mha_kernel_bits_unchanged(cuda, key):
+    assert _b6_digest(*key) == B6_BITS[key]
+
+
 # B7's tile edges on the tensor cores (B4's row and column kernels on the
 # packed strides): every head dim, causal and not, T = 1, T off the 16-, 32-
-# and 64-row tiles with valid < T, and T at the routing limit
-# (``tapclip_attn_bwd_max_seq``), the longest T the autograd Function sends
-# to B7.
+# and 64-row tiles with valid < T, and T at B4's routing limit
+# (``tapclip_attn_bwd_max_seq``).
 B7_EDGE_CASES = ["t1", "t97-valid90", "limit"]
 
 
@@ -712,21 +767,17 @@ def test_fused_mha_function_differentiates_on_the_card(cuda):
                                                       (1, 577, 256, 4, 577, True), (1, 584, 1024, 16, 577, False)],
                          ids=["T240-causal", "vit-l-224", "T577-causal", "vit-l-336"])
 def test_fused_mha_bwd_long_sequences(cuda, dtype, tol, B, T, W, heads, valid, causal):
-    """Past B7's [T, T] tile the Function's backward runs the flash chain on
-    the packed strides, from the output its forward saved."""
+    """Past B4's routing limit the Function's backward still runs B7's
+    kernels (they take every T), from qkv alone: no flash-chain launch."""
     qkv, g = _mha_case(cuda, dtype, B, T, W, T + 4)
-    with pytest.raises(ValueError, match="forward output"):
-        _fused_mha_bwd_cuda(qkv, g, heads, valid, causal)
     leaf = qkv.clone().requires_grad_()
     n = (fused_mha.bwd_launches, fused_attention.lse_launches, fused_attention.dkv_launches)
     (got,) = torch.autograd.grad(fused_mha(leaf, heads, valid_len=valid, causal=causal), [leaf], g)
     assert (fused_mha.bwd_launches, fused_attention.lse_launches, fused_attention.dkv_launches) == (
-        n[0], n[1] + 1, n[2] + 1)
+        n[0] + 1, n[1], n[2])
     assert got.dtype == dtype and got.shape == qkv.shape
     _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, heads, valid, causal), tol)
-    again = _fused_mha_bwd_cuda(qkv, g, heads, valid, causal,
-                                out=fused_mha_reference(qkv, heads, valid, causal).to(dtype))
-    _close_rel("dqkv from the plain output", again, got, tol)
+    torch.testing.assert_close(_fused_mha_bwd_cuda(qkv, g, heads, valid, causal), got, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -927,19 +978,6 @@ def test_flash_kernels_every_head_dim(cuda, dtype, tol, Dh, causal):
     chain = flash_attention_bwd_cuda(q, k, v, out, g, valid, causal)
     for name, a, b in zip(("dq", "dk", "dv"), chain, attention_bwd_reference(q, k, v, g, valid, causal)):
         _close_rel(f"chain {name}", a, b, tol)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-def test_flash_chain_packed_strides_round_p(cuda, causal):
-    """The chain on B7's packed [B, T, 3W] strides with p rounded before the
-    dv product (bf16), at T 584 (ViT-L/14-336), against B7's plain backward,
-    and bit for bit on a repeat."""
-    qkv, g = _mha_case(cuda, torch.bfloat16, 2, 584, 256, 584 + causal)
-    out = _fused_mha_cuda(qkv, 4, 577, causal)
-    got = _mha_flash_bwd_cuda(qkv, g, out, 4, 577, causal)
-    torch.testing.assert_close(_mha_flash_bwd_cuda(qkv, g, out, 4, 577, causal), got, rtol=0, atol=0)
-    _close_rel("dqkv", got, fused_mha_bwd_reference(qkv, g, 4, 577, causal), BWD_DTYPES[1][1])
 
 
 @pytest.mark.gpu

@@ -6,7 +6,10 @@
   its Pallas path rather than ``_xla_reference``), causal and not, T 48, 77
   and 80, all keys valid or 77.  f32 at rtol = atol = 2e-5: the same math,
   but the JAX kernel's online exp2 softmax with deferred normalisation sums
-  in another order than the plain ``torch.softmax``.  B7's split products
+  in another order than the plain ``torch.softmax``.  B6's split products
+  on the card's tensor cores, emulated (``split_error.emulate_mha``),
+  against JAX's ``_fused_mha_fwd_impl`` in interpret mode at the card's
+  tolerances (1e-4 f32, 2e-2 bf16), causal and not.  B7's split products
   on the card's tensor cores, emulated (``split_error.emulate_mha_bwd``),
   against the same Pallas backward at the same tolerances, f32 and bf16,
   causal and not, also at T 97.
@@ -42,7 +45,7 @@ from tapclip_tpu.models import clip as jclip
 from tapclip_tpu.models import layers as jlayers
 from tapclip_tpu.models import model_wrapper as jmw
 from tapclip_tpu.ops.flash_attention import fused_attention as jax_fused_attention
-from tapclip_tpu.ops.fused_mha import _fused_mha_bwd_impl
+from tapclip_tpu.ops.fused_mha import _fused_mha_bwd_impl, _fused_mha_fwd_impl
 from tapclip_tpu.ops.fused_mha import fused_mha as jax_fused_mha
 from tapclip_tpu.parallel import train_step as jts
 
@@ -56,7 +59,7 @@ from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.flash_attention import fused_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_mha, fused_mha_bwd_reference, fused_mha_reference
 from tapclip_tpu_torch.parallel import train_step as tts
-from tapclip_tpu_torch.scripts.split_error import emulate_mha_bwd
+from tapclip_tpu_torch.scripts.split_error import emulate_mha, emulate_mha_bwd
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -105,6 +108,26 @@ def test_fused_mha_plain_matches_pallas_interpret(T, valid, causal):
     got = fused_mha(_t(qkv), HEADS, valid_len=valid, causal=causal)
     assert got.shape == (B, T, W)
     np.testing.assert_allclose(_np(got), _np(want), **KERNEL_TOL)
+
+
+# The card's B6 tolerances (tests/port/test_torch_gpu.py DTYPES, chip_smoke.py).
+CARD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("T,valid", SHAPES, ids=SHAPE_IDS)
+def test_fused_mha_emulated_split_matches_pallas_interpret(T, valid, causal, dtype):
+    """B6's products as the card forms them on the tensor cores
+    (``split_error.emulate_mha``: three bf16 terms of an f32 q, k, p and v;
+    one of a bf16 value and of p's bf16 rounding) against the Pallas
+    ``_mha_kernel`` in interpret mode, at the card's tolerances."""
+    qkv = _qkv(T, seed=9)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = _fused_mha_fwd_impl(jnp.asarray(qkv, jdt), HEADS, valid, 1, True, causal)
+    got = emulate_mha(_t(qkv).to(tdt), HEADS, T if valid is None else valid, causal)
+    assert got.dtype == tdt and got.shape == (B, T, W)
+    np.testing.assert_allclose(_np(got), _np(want), **CARD_TOL[dtype])
 
 
 def test_fused_mha_bf16_close_to_f32():
