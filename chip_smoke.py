@@ -1,4 +1,5 @@
-"""Drive the PyTorch + CUDA port's serving, training, text and int8 paths once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving, training, text and int8 paths, and the reference
+workloads from files, once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -146,6 +147,29 @@ Run from the repository root:  python3 chip_smoke.py
     S3 and S4 are timed in the same turns as columns of their own
     (``k1_ms``, ``k2_ms``), held against their plain versions.  S1's parent
     is K2 then K1.
+
+21. The reference workloads from files ("files"), ViT-B/16 f32 (the
+    reference_train preset with ``--model ViT-B-16``): two seeded state
+    dicts written in open_clip layout by ``save_openclip_checkpoint`` (and a
+    third with projections half as wide) under a temporary directory, an
+    OfficeHome-shaped tree (the four domains x the five train classes +
+    Clipboards x 8 JPEGs at 224 px); ``train`` (2 epochs, 4 shots, batch 8,
+    a snapshot per epoch, one kept): history, best and periodic
+    checkpoints, K1/K2/K3/B4/B5 launches per epoch exactly, and a
+    ``--resume`` from the epoch-1 snapshot whose epoch-2 loss equals the
+    uninterrupted run's (TRAIN_TOL); ``test_cross_domain2`` over the four
+    domains with the unseen class (the full 8-cell grid); ``serve
+    --pretrained --ckpt`` over HTTP against an in-memory plain model from
+    the same files (LOGIT_TOL / PROB_TOL, equal argmax), a refused
+    ``/reload`` of mismatched shapes (400, answers unchanged) and a
+    ``/reload`` of the second state dict against a fresh model from it.
+    The card has PIL and pandas but no matplotlib and no libjpeg headers:
+    the loaders decode with PIL and ``train`` and ``test_cross_domain2`` run
+    their ``parse`` and
+    ``run`` (``main`` without the plots).  Prints the load + convert
+    seconds, ms per epoch, the loader's images/s and the device's busy /
+    idle share over one file-fed epoch (a ``torch.profiler`` trace), each
+    beside the card's name and power limit.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2681,6 +2705,352 @@ def adaptive_phase(model, images: np.ndarray) -> dict:
     return {"errors": errs, "stats": stats}
 
 
+# The "files" phase: the reference workloads driven from files at ViT-B/16
+# f32 (the reference_train preset with --model ViT-B-16).  The card's machine
+# has PIL and pandas but neither matplotlib nor the libjpeg/libpng headers
+# (checked once on the card): the loaders decode with PIL, and the phase runs
+# train's and test_cross_domain2's parse and run, the functions their mains
+# call before plotting.
+FILES_MODEL = "ViT-B-16"
+FILES_DEVICE = "cuda"
+FILES_SIZE = 224  # the tree's images, px
+FILES_UNSEEN = "Clipboards"
+FILES_IMAGES = 8  # per class and domain
+FILES_SHOTS = 4
+FILES_BATCH = 8
+FILES_EPOCHS = 2
+FILES_EVAL_BATCH = 256  # trainer.evaluate_cached
+# Kernels per text pass pair (the attribution pass: 11 K2, K3 at the last
+# block, 12 K1; the encode pass: 12 K2, 12 K1), per image batch (12 K2, 12
+# K1) and per train step's backward (12 B4, 12 B5) of ViT-B/16 in ref_compat.
+TEXT_PASS = {"fused_mlp": 24, "fused_attn_block": 23, "fused_attention_aux": 1}
+IMAGE_BATCH = {"fused_mlp": 12, "fused_attn_block": 12}
+STEP_BWD = {"fused_attn_block_bwd": 12, "fused_mlp_bwd": 12}
+FILES_KERNELS = FORWARD + BACKWARD
+
+
+def _counts(n_text: int = 0, n_image: int = 0, n_steps: int = 0) -> dict:
+    want = {name: 0 for name in FILES_KERNELS}
+    for table, n in ((TEXT_PASS, n_text), (IMAGE_BATCH, n_image), (STEP_BWD, n_steps)):
+        for name, k in table.items():
+            want[name] += k * n
+    return want
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {name: after[name] - before[name] for name in FILES_KERNELS}
+
+
+def _write_tree(root: str, domains, classes) -> int:
+    """Class-colored ``FILES_SIZE`` px JPEGs, ``FILES_IMAGES`` per class and domain."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    n = 0
+    for dom in domains:
+        for ci, name in enumerate(classes):
+            d = os.path.join(root, dom, name)
+            os.makedirs(d)
+            base = np.zeros(3)
+            base[ci % 3] = 60 + 30 * ci
+            for i in range(FILES_IMAGES):
+                arr = np.clip(base + rng.normal(0, 25, (FILES_SIZE, FILES_SIZE, 3)), 0, 255).astype(np.uint8)
+                Image.fromarray(arr).save(os.path.join(d, f"{i}.jpg"))
+                n += 1
+    return n
+
+
+def _busy_share(fn) -> dict:
+    """Device busy and idle share of one call of ``fn`` from a
+    ``torch.profiler`` trace: the union of the kernels' intervals over the
+    call's host span (``scripts/profile_kernels.py``'s method)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
+
+    from tapclip_tpu_torch.scripts.profile_kernels import _union_us
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("files.epoch"):
+            out = fn()
+            torch.cuda.synchronize()
+    window, spans, kernels = None, [], 0
+    for ev in prof.events():
+        a, b = ev.time_range.start, ev.time_range.end
+        if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA":
+            if getattr(ev, "is_user_annotation", False) or ev.name == "files.epoch":
+                continue
+            spans.append((a, b))
+            kernels += not ev.name.startswith(("Memcpy", "Memset"))
+        elif ev.name == "files.epoch":
+            window = (a, b)
+    require(window is not None and kernels > 0, "the profiler trace holds no device time")
+    busy = _union_us([(max(a, window[0]), min(b, window[1])) for a, b in spans if b > window[0] and a < window[1]])
+    span = window[1] - window[0]
+    return {"out": out, "span_ms": span / 1e3, "busy_share": busy / span, "idle_share": 1.0 - busy / span,
+            "device_ops": kernels}
+
+
+def _served(base: str, images: np.ndarray) -> list:
+    with ThreadPoolExecutor(len(images)) as pool:
+        return list(pool.map(lambda j: _post(base + "/predict", {"pixels": images[j].tolist()}),
+                             range(len(images))))
+
+
+def _probs_of(answers: list, names) -> np.ndarray:
+    return np.array([[r["probs"][n] for n in names] for r in answers])
+
+
+def files_phase(card: str) -> dict:
+    """The reference workloads from files on the card (ViT-B/16, f32): an
+    open_clip state dict written with ``save_openclip_checkpoint``, an
+    OfficeHome-shaped ImageFolder tree, ``train`` (2 epochs, 4 shots, batch
+    8, a snapshot per epoch, one kept) with its launches per epoch and a
+    ``--resume`` from the epoch-1 snapshot, ``test_cross_domain2`` over the
+    four domains with the unseen class, and ``serve --pretrained --ckpt``
+    over HTTP with ``POST /reload``."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch import test_cross_domain2, train
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.data import native
+    from tapclip_tpu_torch.data.imagefolder import ImageFolderIndex, Loader
+    from tapclip_tpu_torch.data.preprocess import make_preprocess
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import encode_dataset_features
+    from tapclip_tpu_torch.serve import PredictService, build_model, make_http_server
+    from tapclip_tpu_torch.test_cross_domain import DEFAULT_DOMAINS
+    from tapclip_tpu_torch.utils import checkpoint as ckpt_mod
+    from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint, save_openclip_checkpoint
+
+    cfg, dev = MODEL_PRESETS[FILES_MODEL], FILES_DEVICE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        # 1. Two seeded state dicts in open_clip layout, and one whose
+        # projections are half as wide (a reload that must be refused).
+        sd, t0 = {}, time.perf_counter()
+        for seed in (1, 2):
+            params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+            sd[seed] = save_openclip_checkpoint(params, cfg, os.path.join(tmp, f"open_clip_{seed}.bin"))
+        half = cfg.embed_dim // 2
+        params["visual"]["proj"] = params["visual"]["proj"][:, :half]
+        params["text"]["text_projection"] = params["text"]["text_projection"][:, :half]
+        sd["bad"] = save_openclip_checkpoint(params, cfg, os.path.join(tmp, "open_clip_half.bin"))
+        del params
+        write_s = time.perf_counter() - t0
+        mb = os.path.getsize(sd[1]) / 2 ** 20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_openclip_checkpoint(sd[1], cfg, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"files: wrote 3 {cfg.name} state dicts of {mb:.0f} MB in {write_s:.2f} s; load + convert onto the "
+              f"card {load_s:.3f} s ({card})", flush=True)
+
+        # 2. The tree: 4 domains x (5 train classes + the unseen one) x 8.
+        tree = os.path.join(tmp, "OfficeHome")
+        classes = TRAIN_CLASSES + [FILES_UNSEEN]
+        n_files = _write_tree(tree, DEFAULT_DOMAINS, classes)
+        files = [p for d in DEFAULT_DOMAINS for p, _ in ImageFolderIndex.scan(os.path.join(tree, d)).samples]
+        require(len(files) == n_files == 4 * 6 * FILES_IMAGES, f"tree holds {len(files)} images")
+
+        # 3. train: parse + run (main's steps before plotting), launch counts
+        # read at each epoch's snapshot; the epoch-1 snapshot is copied aside
+        # before the retention sweep (keep 1) deletes it.
+        common = ["--preset", "reference_train", "--model", FILES_MODEL, "--dtype", "float32", "--device", dev,
+                  "--pretrained", sd[1], "--classes", *TRAIN_CLASSES, "--num-shots", str(FILES_SHOTS),
+                  "--batch-size", str(FILES_BATCH), "--data-root", os.path.join(tree, DEFAULT_DOMAINS[0])]
+        snaps = []  # (time the epoch ended, launch counts, time its snapshot was written)
+        epoch1 = os.path.join(tmp, "epoch1.pt")
+        save = ckpt_mod.CheckpointManager.save
+
+        def recording_save(self, **kw):
+            torch.cuda.synchronize()
+            ended, counts = time.perf_counter(), read_counts()
+            path = save(self, **kw)
+            if kw["extra_meta"]["epoch"] == 1:
+                shutil.copy(path, epoch1)
+            snaps.append((ended, counts, time.perf_counter()))
+            return path
+
+        ckpt_mod.CheckpointManager.save = recording_save
+        try:
+            args, tcfg = train.parse(common + ["--epochs", str(FILES_EPOCHS), "--save-every", "1", "--keep-last-n", "1",
+                                               "--output-root", os.path.join(tmp, "train")])
+            reset_counts()
+            t0 = time.perf_counter()
+            out = train.run(args, tcfg)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            ckpt_mod.CheckpointManager.save = save
+        res = out["result"]
+        n_train = n_val = len(TRAIN_CLASSES) * FILES_SHOTS
+        steps = -(-n_train // FILES_BATCH)
+        per_epoch = _counts(n_text=steps + 1 + -(-n_val // FILES_EVAL_BATCH), n_steps=steps)
+        caching = _counts(n_image=-(-n_train // FILES_BATCH) + -(-n_val // FILES_BATCH))
+        require(len(snaps) == FILES_EPOCHS, f"{len(snaps)} snapshots in {FILES_EPOCHS} epochs")
+        _expect("files train epoch 1 (+ the image tower over the splits)", _delta(snaps[0][1], {k: 0 for k in FILES_KERNELS}),
+                {k: per_epoch[k] + caching[k] for k in FILES_KERNELS})
+        _expect("files train epoch 2", _delta(snaps[1][1], snaps[0][1]), per_epoch)
+        _expect("files train run (+ the attribution rows)", launches,
+                {k: caching[k] + FILES_EPOCHS * per_epoch[k] + _counts(n_text=1)[k] for k in FILES_KERNELS})
+        epoch_ms = 1e3 * (snaps[1][0] - snaps[0][2])
+        paths = out["paths"]
+        history = json.load(open(os.path.join(paths["csv_dir"], "history.json")))
+        kept = sorted(os.listdir(os.path.join(paths["model_dir"], "checkpoints")))
+        require(history["loss"] == res.loss_history and len(history["acc"]) == FILES_EPOCHS, f"history {history}")
+        require(all(np.isfinite(history["loss"])), f"non-finite loss {history['loss']}")
+        require(kept == ["manager_index.json", f"step_{2 * steps:08d}.pt"], f"checkpoints kept: {kept}")
+        require(os.path.isfile(out["ckpt"]) and ckpt_mod.restore_prompt_checkpoint(out["ckpt"])["meta"]["class_names"]
+                == TRAIN_CLASSES, f"best checkpoint {out['ckpt']}")
+        print(f"files: train {FILES_EPOCHS} epochs in {train_s:.2f} s ({1e3 * (snaps[0][0] - t0):.1f} ms from the "
+              f"start of the run to the end of epoch 1: the state dict's load, the image tower over {n_train + n_val} "
+              f"files and epoch 1; {epoch_ms:.1f} ms for epoch 2, {steps} steps at batch {FILES_BATCH}); loss "
+              f"{res.loss_history}, acc {res.acc_history}; launches per epoch {per_epoch}, whole run "
+              f"{_delta(launches, {k: 0 for k in FILES_KERNELS})}; the loaders' decode path: {out['decoder']} ({card})",
+              flush=True)
+        require(out["decoder"] == "pil", f"train's loaders took the {out['decoder']} path")
+
+        # The resume: epoch 2 again from the epoch-1 snapshot.
+        args, tcfg = train.parse(common + ["--epochs", "1", "--resume", epoch1,
+                                           "--output-root", os.path.join(tmp, "resume")])
+        resumed = train.run(args, tcfg)["result"]
+        err = abs(resumed.loss_history[0] - res.loss_history[1]) / abs(res.loss_history[1])
+        print(f"files: --resume from epoch 1: epoch-2 loss {resumed.loss_history[0]} vs {res.loss_history[1]} "
+              f"uninterrupted, rel err {err:.3e} (tol {TRAIN_TOL['float32']['loss']}); acc "
+              f"{resumed.acc_history} vs {res.acc_history[1:]}", flush=True)
+        require(err <= TRAIN_TOL["float32"]["loss"], f"resumed epoch-2 loss differs by {err:.3e}")
+        require(resumed.final_state.step == res.final_state.step, "the resumed run ends at another step")
+
+        # 4. test_cross_domain2: the four domains, the unseen class joining the bank.
+        args, xcfg = test_cross_domain2.parse(
+            ["--preset", "reference_train", "--model", FILES_MODEL, "--dtype", "float32", "--device", dev,
+             "--pretrained", sd[1], "--checkpoint", out["ckpt"], "--domain-root", tree,
+             "--domains", *DEFAULT_DOMAINS, "--shots", "0", str(FILES_SHOTS), "--seen-classes", *classes,
+             "--batch-size", str(FILES_BATCH), "--output-root", os.path.join(tmp, "xd2")])
+        reset_counts()
+        t0 = time.perf_counter()
+        grid = test_cross_domain2.run(args, xcfg)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+        grid_launches = read_counts()
+        cells = {(r["Domain"], r["Shots"]) for r in grid["results"]}
+        require(cells == {(d, s) for d in DEFAULT_DOMAINS for s in ("Zero-Shot", f"{FILES_SHOTS}-shot")}
+                and len(grid["results"]) == 8, f"grid {grid['results']}")
+        require(all(0.0 <= r["Accuracy"] <= 100.0 for r in grid["results"]), f"grid {grid['results']}")
+        require(open(grid["csv"]).readline().strip() == "Domain,Shots,Accuracy", "cross-domain CSV header")
+        for name in FILES_KERNELS:
+            require(grid_launches[name] > 0, f"{name} was not launched on the cross-domain grid")
+        print(f"files: test_cross_domain2 grid in {grid_s:.2f} s: "
+              + ", ".join(f"{r['Domain']}/{r['Shots']} {r['Accuracy']:.2f}" for r in grid["results"])
+              + f"; launches {_delta(grid_launches, {k: 0 for k in FILES_KERNELS})} ({card})", flush=True)
+
+        # 5. serve --pretrained --ckpt (main's model loading), /reload.
+        t0 = time.perf_counter()
+        model = build_model(cfg, TRAIN_CLASSES, dev, pretrained=sd[1], ckpt=out["ckpt"])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        service = PredictService(model, batch_size=8, max_latency_ms=2000.0)
+        server = make_http_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        images = np.random.default_rng(1).integers(0, 256, (8, FILES_SIZE, FILES_SIZE, 3), dtype=np.uint8)
+
+        def against(ref, label):
+            with torch.inference_mode():
+                want = ref(images)["logits"].float().cpu().numpy()
+                got = service.model(images)["logits"].float().cpu().numpy()
+            served = _served(base, images)
+            logit_err = float(np.abs(got - want).max())
+            prob_err = float(np.abs(_probs_of(served, TRAIN_CLASSES) - _plain_probs(want)).max())
+            same = [r["index"] for r in served] == want.argmax(-1).tolist()
+            print(f"files: serve {label}: logits max abs err {logit_err:.3e} (tol {LOGIT_TOL}), served probs "
+                  f"{prob_err:.3e} (tol {PROB_TOL}), argmax equal {same}", flush=True)
+            require(logit_err <= LOGIT_TOL and prob_err <= PROB_TOL and same, f"serve {label} differs")
+            return served
+
+        try:
+            reset_counts()
+            plain_cfg = cfg.replace(attn_impl="xla")
+            ref = FullModel(TRAIN_CLASSES, load_openclip_checkpoint(sd[1], plain_cfg, device=dev), plain_cfg)
+            ckpt_mod.apply_prompt_checkpoint(ref, out["ckpt"])
+            before = against(ref, "--pretrained --ckpt vs an in-memory plain model from the same files")
+            serve_launches = read_counts()
+            bad = _post_status(base + "/reload", {"path": sd["bad"]})
+            after_bad = _served(base, images)
+            drift = float(np.abs(_probs_of(after_bad, TRAIN_CLASSES) - _probs_of(before, TRAIN_CLASSES)).max())
+            require(bad[0] == 400 and "shape mismatches" in bad[1].get("error", ""), f"mismatched /reload: {bad}")
+            require(drift <= 1e-6 and [r["index"] for r in after_bad] == [r["index"] for r in before],
+                    f"a refused /reload changed the served answers by {drift:.3e}")
+            t0 = time.perf_counter()
+            ok = _post_status(base + "/reload", {"path": sd[2]})
+            reload_s = time.perf_counter() - t0
+            require(ok == (200, {"reloaded": True, "classes": TRAIN_CLASSES}), f"/reload: {ok}")
+            fresh = build_model(cfg, TRAIN_CLASSES, dev, pretrained=sd[2], ckpt=out["ckpt"])
+            after = against(fresh, "after POST /reload vs a fresh model from the second state dict")
+            moved = float(np.abs(_probs_of(after, TRAIN_CLASSES) - _probs_of(before, TRAIN_CLASSES)).max())
+            require(moved > 1e-3, "the reload did not change the served answers")
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=10)
+        for name in FORWARD:
+            require(serve_launches[name] > 0, f"{name} was not launched serving from files")
+        print(f"files: serve built from the files in {build_s:.2f} s; refused /reload answered 400 "
+              f"({bad[1]['error'][:80]}...), answers unchanged (max diff {drift:.1e}); /reload of the second state "
+              f"dict {reload_s:.2f} s; launches {_delta(serve_launches, {k: 0 for k in FILES_KERNELS})} ({card})",
+              flush=True)
+
+        # 6. The loader alone, and one file-fed epoch through the tower, traced.
+        rates = {}
+        for path, use_native in (("pil", False), ("native", True)):
+            if use_native and not native.available():
+                rates[path] = f"unavailable: {native.build_error()[:60]}"
+                continue
+            loader = Loader([(p, 0) for p in files], FILES_BATCH, image_size=FILES_SIZE, use_native=use_native)
+            t0 = time.perf_counter()
+            n = sum(int(m.sum()) for _, _, m in loader)
+            rates[path] = n / (time.perf_counter() - t0)
+            require(n == len(files), f"{path} loader decoded {n} of {len(files)}")
+        loader = Loader([(p, 0) for p in files], FILES_BATCH, image_size=FILES_SIZE,
+                        preprocess=make_preprocess(FILES_SIZE))
+        traced = _busy_share(lambda: encode_dataset_features(model.clip_params, cfg, loader))
+        feats = traced["out"][0]
+        require(feats.shape == (len(files), cfg.embed_dim) and np.isfinite(feats).all(), "file-fed features")
+        print(f"files: loader images/s at {FILES_SIZE} px, batch {FILES_BATCH}, 4 workers: "
+              + ", ".join(f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}" for k, v in rates.items())
+              + f"; one file-fed epoch ({len(files)} files -> PIL decode -> prefetch -> the image tower) "
+              f"{traced['span_ms']:.1f} ms traced, {1e3 * len(files) / traced['span_ms']:.1f} images/s, device busy "
+              f"{traced['busy_share']:.3f} / idle {traced['idle_share']:.3f} ({traced['device_ops']} device ops) "
+              f"({card})", flush=True)
+        return {"launches": launches, "per_epoch": per_epoch, "epoch_ms": epoch_ms, "load_s": load_s,
+                "loader_images_per_s": rates, "busy_share": traced["busy_share"],
+                "grid_launches": grid_launches, "serve_launches": serve_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _post_status(url: str, obj: dict) -> tuple:
+    """(HTTP status, JSON body) of a POST, error answers included."""
+    import urllib.error
+
+    try:
+        return 200, _post(url, obj)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
 def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, b13_bits: dict) -> list:
     """The kernels-line entries of B13, B14, S5 and S6: launches on the int8
     serving drive (f32, stochastic), errors and times at ViT-B/16 (B13, B14,
@@ -2808,6 +3178,7 @@ def main() -> int:
     int8_served = phase("int8 serve", int8_serve_phase, model, images)
     pruned = phase("pruned serve", pruned_serve_phase, model, images)
     phase("adaptive", adaptive_phase, model, images)
+    files = phase("files", files_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -2839,6 +3210,7 @@ def main() -> int:
             "train_launches": launches(trained["float32"]),
             "idiomatic_train_launches": launches(idiomatic["float32"]),
             "pallas_idiomatic_train_launches": launches(pallas["float32"]["idiomatic"]),
+            "files_train_launches": launches(files),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),

@@ -13,6 +13,16 @@ heavy until a name is used.
 
 __version__ = "0.1.0"
 
+NOT_PORTED = "not yet ported in tapclip_tpu_torch"
+
+
+class NotPortedError(NotImplementedError):
+    """A route, option or module of the JAX package that the port does not have yet."""
+
+    def __init__(self, what: str):
+        super().__init__(f"{what}: {NOT_PORTED}")
+
+
 _LAZY = {
     "FullModel": ("tapclip_tpu_torch.models.model_wrapper", "FullModel"),
     "PromptLearner": ("tapclip_tpu_torch.models.prompt_learner", "PromptLearner"),

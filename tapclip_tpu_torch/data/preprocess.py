@@ -88,6 +88,21 @@ def preprocess_pil_uint8(img: "Image.Image", image_size: int = 224) -> np.ndarra
     return np.asarray(img, np.uint8)
 
 
+def make_preprocess_uint8(image_size: int = 224):
+    """Path or PIL image -> ``[S, S, 3]`` uint8 (resize + crop, no normalize);
+    the loader's ``output_dtype="uint8"`` path, normalized on the device."""
+
+    def _fn(img):
+        if isinstance(img, str):
+            if not _HAS_PIL:
+                raise RuntimeError("PIL is required for image loading")
+            with Image.open(img) as im:
+                return preprocess_pil_uint8(im, image_size)
+        return preprocess_pil_uint8(img, image_size)
+
+    return _fn
+
+
 def device_normalize(images: torch.Tensor) -> torch.Tensor:
     """uint8 NHWC batch -> CLIP-normalized f32 on the batch's device.
 

@@ -23,3 +23,22 @@ def attribution_entropy(attribution: torch.Tensor) -> torch.Tensor:
     """Mean entropy of attribution rows (the reference's ``eval_metrics.py:76-81``)."""
     p = attribution.float() + 1e-8
     return (-(p * torch.log(p)).sum(dim=-1)).mean()
+
+
+def attribution_variance(attribution: torch.Tensor, labels: torch.Tensor, n_classes=None) -> torch.Tensor:
+    """Mean per-label variance of attribution rows (the reference's
+    ``eval_metrics.py:84-96``): per label present, the unbiased (ddof=1)
+    variance of its rows, averaged over the prompt axis, then over the
+    labels present.  ``n_classes`` defaults to ``max(labels) + 1``."""
+    labels = labels.long()
+    if n_classes is None:
+        n_classes = int(labels.max()) + 1
+    one_hot = torch.nn.functional.one_hot(labels, n_classes).to(attribution.dtype)  # [N, C]
+    counts = one_hot.sum(dim=0)
+    safe = counts.clamp_min(1.0)
+    mean = torch.einsum("nc,np->cp", one_hot, attribution) / safe[:, None]
+    sq = torch.einsum("nc,np->cp", one_hot, attribution ** 2) / safe[:, None]
+    var = (sq - mean ** 2) * (safe / (safe - 1.0).clamp_min(1.0))[:, None]
+    present = counts > 0
+    per_class = var.mean(dim=-1)
+    return torch.where(present, per_class, torch.zeros_like(per_class)).sum() / present.sum().clamp_min(1)

@@ -18,7 +18,7 @@ from the learner's generator.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -142,3 +142,24 @@ class PromptLearner:
             class_mask=pad_to(b.class_mask),
             eot_pos=pad_to(b.eot_pos),
         )
+
+    # -- (de)serialization helpers -------------------------------------------
+
+    def load_ctx(self, ctx_by_name: Dict[str, np.ndarray]) -> None:
+        """Load per-class context vectors by class name (checkpoint restore).
+
+        Every unseen name is registered first (growing the bank), then the
+        vectors are written into a new ctx tensor, so a bank shared with a
+        snapshot is never written through.
+        """
+        for name in ctx_by_name:
+            if name not in self.class_names:
+                self.add_class_prompt(name)
+        ctx = self.bank.ctx.clone()
+        for name, arr in ctx_by_name.items():
+            value = arr if torch.is_tensor(arr) else torch.from_numpy(np.asarray(arr, np.float32))
+            ctx[self.class_names.index(name)] = value.to(ctx.device, torch.float32)
+        self.bank = dataclasses.replace(self.bank, ctx=ctx)
+
+    def ctx_by_name(self) -> Dict[str, np.ndarray]:
+        return {name: self.bank.ctx[i].float().cpu().numpy() for i, name in enumerate(self.class_names)}

@@ -132,9 +132,11 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
 
 
 def _unported(**lambdas) -> None:
+    from tapclip_tpu_torch import NotPortedError
+
     for name, value in lambdas.items():
         if value > 0.0:
-            raise NotImplementedError(f"{name} > 0 is not yet ported in tapclip_tpu_torch")
+            raise NotPortedError(f"{name} > 0")
 
 
 def make_train_step(
@@ -232,15 +234,26 @@ def make_image_encoder(clip_cfg: CLIPConfig) -> Callable:
     return encode
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 def encode_dataset_features(clip_params, clip_cfg: CLIPConfig, loader, *, encoder=None):
     """Run the frozen image tower over a loader of ``(images, labels, mask)``
     batches once; returns ``(feats [N, E] f32, labels [N])`` as NumPy arrays
-    (bfloat16 features are widened to f32: NumPy has no bfloat16)."""
+    (bfloat16 features are widened to f32: NumPy has no bfloat16).
+
+    The loader is drained through ``data.prefetch.prefetch_to_device``, as
+    in the JAX package: the next batches decode on a thread and copy to the
+    device while this one runs the tower.
+    """
+    from tapclip_tpu_torch.data.prefetch import prefetch_to_device
+
     encoder = encoder or make_image_encoder(clip_cfg)
     feats, labels = [], []
-    for images, lbls, mask in loader:
+    for images, lbls, mask in prefetch_to_device(loader, device=_device_of(clip_params)):
         f = encoder(clip_params, images).float().cpu().numpy()
-        keep = np.asarray(mask, bool)
+        keep = _host(mask).astype(bool)
         feats.append(f[keep])
-        labels.append(np.asarray(lbls)[keep])
+        labels.append(_host(lbls)[keep])
     return np.concatenate(feats), np.concatenate(labels)

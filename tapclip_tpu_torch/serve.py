@@ -26,9 +26,13 @@ Endpoints (JSON):
   POST /explain   same payload -> prediction + per-class attribution rows
   POST /embed     same payload -> {"embedding": [E floats]}
   POST /embed_text {"texts": [str, ...]} -> {"embeddings": [[E floats], ...]}
-Not yet ported (HTTP 501): /reload, "saliency" in /explain.
+  POST /reload    {"path": <open_clip .pt/.bin>} -> hot-swap the tower weights
+                  (same geometry; the prompt state is kept)
+Not yet ported (HTTP 501): "saliency" in /explain.
 
-Run: ``python -m tapclip_tpu_torch.serve --model ViT-B-16 --synthetic``
+Run: ``python -m tapclip_tpu_torch.serve --model ViT-B-16 --pretrained
+open_clip_model.bin --ckpt best_model.pt`` (``--synthetic`` serves random
+weights from a fixed seed).
 """
 
 from __future__ import annotations
@@ -46,16 +50,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from tapclip_tpu_torch import NOT_PORTED, NotPortedError  # noqa: F401 - the server's refusals
+
 log = logging.getLogger("tapclip_torch.serve")
-
-NOT_PORTED = "not yet ported in tapclip_tpu_torch"
-
-
-class NotPortedError(NotImplementedError):
-    """A route or option of the JAX server that the port does not have yet."""
-
-    def __init__(self, what: str):
-        super().__init__(f"{what}: {NOT_PORTED}")
 
 
 class PredictService:
@@ -120,7 +117,43 @@ class PredictService:
         return {"embeddings": [[round(float(v), 6) for v in row] for row in feats]}
 
     def reload_weights(self, source) -> Dict[str, Any]:
-        raise NotPortedError("/reload")
+        """Hot-swap the CLIP tower weights of a live service.
+
+        ``source``: an open_clip ``.pt``/``.bin`` state dict or an in-memory
+        parameter tree.  The new tree must match the current one (the same
+        nesting and keys, every leaf the same shape), or nothing changes and
+        a ``ValueError`` says why.  The load and conversion run outside the
+        lock; the swap runs under it, so batches already in flight finish on
+        the old weights and the next one sees the new.  The prompt bank is
+        rebuilt from the new token embeddings while the trained context,
+        adjustor and logit scale are kept, and the cached text features are
+        dropped in the same critical section.
+        """
+        from tapclip_tpu_torch.models.prompt_learner import PromptLearner
+
+        m = self.model
+        if isinstance(source, str):
+            from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
+
+            tree = load_openclip_checkpoint(source, m.clip_cfg, device=m.device)
+        else:
+            tree = source
+        cur_leaves, new_leaves = _flat(m.clip_params), _flat(tree)
+        if [k for k, _ in cur_leaves] != [k for k, _ in new_leaves]:
+            raise ValueError("reload: checkpoint tree structure does not match the serving model "
+                             "(wrong architecture?)")
+        mismatched = [(k, tuple(np.shape(b)), tuple(a.shape))
+                      for (k, a), (_, b) in zip(cur_leaves, new_leaves) if tuple(np.shape(b)) != tuple(a.shape)]
+        if mismatched:
+            k, got, want = mismatched[0]
+            raise ValueError(f"reload: {len(mismatched)} leaf shape mismatches, e.g. {k} {got} vs {want}")
+        tree = _like(tree, m.clip_params)
+        with self._lock:
+            names = list(m.class_names)
+            m.clip_params = tree
+            m.prompt_learner = PromptLearner(names, tree, m.clip_cfg, m.prompt_cfg, m.tokenizer, banner=False)
+            self._text_cache = None
+        return {"reloaded": True, "classes": names}
 
     def explain(self, pixels: np.ndarray, saliency=None) -> Dict[str, Any]:
         """Prediction + context-token attribution for one image (not batched)."""
@@ -239,6 +272,25 @@ class PredictService:
             for _, slot, done, _kind in batch:
                 slot["error"] = f"{type(e).__name__}: {e}"
                 done.set()
+
+
+def _flat(tree, prefix: str = ""):
+    """``[(path, leaf)]`` of a nested dict / list tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _flat(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _flat(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _like(tree, ref):
+    """``tree``'s values as tensors with ``ref``'s devices and dtypes."""
+    if isinstance(ref, dict):
+        return {k: _like(tree[k], v) for k, v in ref.items()}
+    if isinstance(ref, list):
+        return [_like(t, r) for t, r in zip(tree, ref)]
+    t = tree if torch.is_tensor(tree) else torch.from_numpy(np.array(tree))
+    return t.to(device=ref.device, dtype=ref.dtype)
 
 
 def predict_batch(clip_params, clip_cfg, text_feats, logit_scale, class_mask, images):
@@ -370,17 +422,32 @@ def make_http_server(service: PredictService, host: str = "127.0.0.1", port: int
     return ThreadingHTTPServer((host, port), Handler)
 
 
-def build_model(cfg, class_names, device: str, seed: int = 0):
-    """FullModel with random weights drawn from ``seed`` on ``device``."""
+def build_model(cfg, class_names, device: str, seed: int = 0, *, pretrained: Optional[str] = None,
+                ckpt: Optional[str] = None):
+    """The served FullModel on ``device``: open_clip weights from
+    ``pretrained`` (a ``.pt``/``.bin`` state dict), else random weights
+    drawn from ``seed``; then the prompt checkpoint ``ckpt`` (the port's
+    ``.pt`` or a reference ``.pt``) when given.  ``main`` builds its model
+    here."""
     from tapclip_tpu_torch.models import clip as clip_model
     from tapclip_tpu_torch.models.model_wrapper import FullModel
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: no CUDA device is present")
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    params = clip_model.init_clip_params(generator, cfg, device=dev)
-    return FullModel(class_names, params, cfg)
+    if pretrained:
+        from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
+
+        params = load_openclip_checkpoint(pretrained, cfg, device=dev)
+    else:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        params = clip_model.init_clip_params(generator, cfg, device=dev)
+    model = FullModel(class_names, params, cfg)
+    if ckpt:
+        from tapclip_tpu_torch.utils.checkpoint import apply_prompt_checkpoint
+
+        apply_prompt_checkpoint(model, ckpt)
+    return model
 
 
 def server_config(args):
@@ -405,6 +472,9 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--preset", default=None, help="use a config preset's model "
                    "(e.g. tiny) instead of --model")
     p.add_argument("--classes", nargs="+", default=["Backpack", "Pen", "Monitor"])
+    p.add_argument("--ckpt", default=None,
+                   help="prompt checkpoint (the port's .pt or a reference .pt)")
+    p.add_argument("--pretrained", default=None, help="open_clip weights (.pt/.bin state dict)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8711)
     p.add_argument("--batch-size", type=int, default=8)
@@ -412,8 +482,7 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--temperature", type=float, default=1.0,
                    help="softmax temperature for served probabilities")
     p.add_argument("--synthetic", action="store_true",
-                   help="random weights from a fixed seed (required: loading "
-                        "open_clip weights is not yet ported)")
+                   help="random weights from a fixed seed (smoke/demo)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--int8", action="store_true",
                    help="serve the int8 W8A8 tower (ViT only)")
@@ -422,18 +491,16 @@ def main(argv: Optional[List[str]] = None):
                         "scoring (the same kernels, without stochastic rounding)")
     p.add_argument("--token-keep-ratio", type=float, default=1.0,
                    help="attention-aware token pruning ratio (1.0 = off)")
-    for flag in ("--pretrained", "--ckpt", "--dp"):
-        p.add_argument(flag, default=None, nargs="?", const=True, help=f"({NOT_PORTED})")
+    p.add_argument("--dp", default=None, nargs="?", const=True, help=f"({NOT_PORTED})")
     args = p.parse_args(argv)
-    for flag in ("pretrained", "ckpt", "dp"):
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag.replace('_', '-')} is {NOT_PORTED}")
-    if not args.synthetic:
-        p.error("pass --synthetic: loading open_clip weights is " + NOT_PORTED)
+    if args.dp is not None:
+        p.error(f"--dp is {NOT_PORTED}")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     cfg = server_config(args)
-    model = build_model(cfg, args.classes, args.device)
+    if not args.pretrained and not args.synthetic:
+        log.warning("no --pretrained given; serving random weights (pass --synthetic to silence)")
+    model = build_model(cfg, args.classes, args.device, pretrained=args.pretrained, ckpt=args.ckpt)
     if model.device.type == "cuda":
         # Build the kernels before the first request: nvcc takes longer than
         # a request's timeout on a fresh checkout.
@@ -446,7 +513,7 @@ def main(argv: Optional[List[str]] = None):
                              max_latency_ms=args.max_latency_ms, temperature=args.temperature)
     server = make_http_server(service, args.host, args.port)
     log.info("serving %s with %d classes on http://%s:%d (batch=%d, max_latency=%.0fms, device=%s)",
-             cfg.name, len(args.classes), args.host, args.port, args.batch_size,
+             cfg.name, len(model.class_names), args.host, args.port, args.batch_size,
              args.max_latency_ms, args.device)
     try:
         server.serve_forever()

@@ -13,9 +13,13 @@ Counterpart of ``tapclip_tpu/trainer.py`` (the reference's epoch loop,
 Batches come in the JAX package's order (``np.random.default_rng(seed +
 epoch)``), so both packages see the same batches.  AdamW updates the
 trainable tensors in place, so the best state is a copy (:func:`snapshot`),
-never an alias of the live ``ctx``.  Resume takes an in-memory state
-(``resume_state``); the path-keyed feature cache, checkpoint files and the
-zero-shot anchors (KgCoOp / ProGrad / PromptSRC) are not yet ported.
+never an alias of the live ``ctx``.  Resume takes a state restored from a
+checkpoint (``utils/checkpoint.py``) or from the JAX package; a restored
+``epoch`` continues the epoch numbering, so the shuffle seeds continue
+where the interrupted run stopped.  :class:`PathFeatureCache` keys the
+frozen tower's features by image path, so the cross-domain grid encodes
+each distinct image once.  The zero-shot anchors (KgCoOp / ProGrad /
+PromptSRC) are not yet ported.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from tapclip_tpu_torch.models.model_wrapper import FullModel, text_features_with
 from tapclip_tpu_torch.parallel.train_step import (
     encode_dataset_features,
     init_train_state,
+    load_adamw_state,
     make_eval_step,
     make_image_encoder,
     make_optimizer,
@@ -53,6 +58,65 @@ class CachedSet:
 def cache_features(model: FullModel, loader, encoder=None) -> CachedSet:
     feats, labels = encode_dataset_features(model.clip_params, model.clip_cfg, loader, encoder=encoder)
     return CachedSet(feats=feats, labels=labels)
+
+
+def _restore_opt_state(state, restored) -> None:
+    """Load a checkpoint's per-leaf AdamW state (``step``, ``exp_avg``,
+    ``exp_avg_sq``; empty for a leaf never stepped) into ``state``'s
+    optimizer, each moment checked against its trainable leaf's shape, so a
+    resume continues the same trajectory."""
+    if restored is None:
+        return
+    leaves = state.diff_leaves()
+    for p, st in zip(leaves, restored):
+        for key in ("exp_avg", "exp_avg_sq") if st else ():
+            if tuple(np.shape(st[key])) != tuple(p.shape):
+                raise ValueError(f"optimizer state {key} of shape {tuple(np.shape(st[key]))} "
+                                 f"for a leaf of {tuple(p.shape)}")
+    load_adamw_state(state.optimizer, leaves, restored)
+
+
+class PathFeatureCache:
+    """Frozen-tower features keyed by image path.
+
+    The cross-domain grid (``test_cross_domain*.py``) evaluates each domain
+    under several ``num_shots`` settings whose splits overlap; keyed by path,
+    the whole grid costs one image-tower pass per distinct image.
+    """
+
+    def __init__(self, model: FullModel, *, batch_size: int = 128, preprocess=None, num_workers: int = 4):
+        self.model = model
+        self.batch_size = batch_size
+        self.preprocess = preprocess
+        self.num_workers = num_workers
+        self._encoder = make_image_encoder(model.clip_cfg)
+        self._feats: Dict[str, np.ndarray] = {}
+
+    def ensure(self, paths) -> None:
+        from tapclip_tpu_torch.data.imagefolder import Loader
+        from tapclip_tpu_torch.data.prefetch import prefetch_to_device
+
+        missing = [p for p in dict.fromkeys(paths) if p not in self._feats]
+        if not missing:
+            return
+        loader = Loader([(p, 0) for p in missing], self.batch_size, image_size=self.model.clip_cfg.image_size,
+                        preprocess=self.preprocess, num_workers=self.num_workers)
+        it = iter(missing)
+        for images, _, mask in prefetch_to_device(loader, device=self.model.device):
+            f = self._encoder(self.model.clip_params, images).float().cpu().numpy()
+            for row, ok in zip(f, mask.cpu().numpy()):
+                if ok:
+                    self._feats[next(it)] = row
+
+    def gather(self, samples) -> CachedSet:
+        """``samples``: [(path, label)] -> CachedSet (encoding on demand)."""
+        self.ensure([p for p, _ in samples])
+        feats = np.stack([self._feats[p] for p, _ in samples])
+        labels = np.asarray([lb for _, lb in samples], np.int32)
+        return CachedSet(feats=feats, labels=labels)
+
+    def __len__(self) -> int:
+        return len(self._feats)
 
 
 def _batches(cached: CachedSet, batch_size: int, *, shuffle: bool, seed: int):
@@ -123,9 +187,12 @@ def fit_prompt_model(
 
     ``train_loader`` / ``val_loader``: loaders of ``(images, labels, mask)``
     or :class:`CachedSet` s.  ``resume_state``: ``{"trainable", "opt_state",
-    "step"}`` for an exact mid-training resume, with ``opt_state`` the
-    per-leaf AdamW moments (``TrainState.opt_state()``, or
-    ``utils.jax_bridge.adamw_state_from_optax`` of a JAX state).
+    "step"[, "epoch"]}`` for an exact mid-training resume, with ``opt_state``
+    the per-leaf AdamW moments (``TrainState.opt_state()``, or
+    ``utils.jax_bridge.adamw_state_from_optax`` of a JAX state).  With
+    ``epoch`` (the last epoch the interrupted run finished), the ``epochs``
+    run here are numbered from ``epoch + 1``, and so seeded: the shuffle
+    continues the interrupted run's sequence.
     ``checkpoint_cb(epoch, state, epoch_acc)`` runs every ``checkpoint_every``
     epochs and on early stop.
     """
@@ -153,11 +220,14 @@ def fit_prompt_model(
         else (cache_features(model, val_loader, encoder) if val_loader else None)
     )
 
+    first_epoch = 1
     if resume_state is not None:
         state = init_train_state(
             snapshot(dict(resume_state["trainable"]), model.device), optimizer, trainable_keys,
-            step=int(resume_state.get("step", 0)), opt_state=resume_state.get("opt_state"),
+            step=int(resume_state.get("step", 0)),
         )
+        _restore_opt_state(state, resume_state.get("opt_state"))
+        first_epoch = int(resume_state.get("epoch", 0)) + 1
     else:
         state = init_train_state(model.trainable, optimizer, trainable_keys)
     model.trainable = state.params
@@ -183,7 +253,7 @@ def fit_prompt_model(
     timer = StepTimer(warmup=1)
     n_steps = 0
 
-    for epoch in range(1, epochs + 1):
+    for epoch in range(first_epoch, first_epoch + epochs):
         epoch_loss, n_batches = 0.0, 0
         for feats, labels, mask in _batches(
             train_cache, train_cfg.batch_size, shuffle=True, seed=train_cfg.seed + epoch

@@ -527,9 +527,9 @@ def test_serve_parses_int8_and_pruning_flags(capsys):
     assert cfg.quantize_tower and cfg.int8_deterministic and cfg.token_keep_ratio == 0.5
     assert not parsed(("int8_deterministic", True)).int8_deterministic  # only with --int8
     assert parsed(("preset", "tiny"), ("int8", True)).name == tcfg.TINY_TEST.name
-    with pytest.raises(SystemExit) as e:  # still refused: no weights to load
-        main(["--int8", "--token-keep-ratio", "0.5"])
-    assert e.value.code == 2 and "--synthetic" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:  # the flags parse; --dp is still refused
+        main(["--int8", "--token-keep-ratio", "0.5", "--dp", "2"])
+    assert e.value.code == 2 and "--dp" in capsys.readouterr().err
 
 
 def test_predict_service_int8_matches_jax(tiny):

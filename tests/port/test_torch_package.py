@@ -28,6 +28,11 @@ PORT_MODULES = [
     "tapclip_tpu_torch.config",
     "tapclip_tpu_torch.data.tokenizer",
     "tapclip_tpu_torch.data.preprocess",
+    "tapclip_tpu_torch.data.domains",
+    "tapclip_tpu_torch.data.synthetic",
+    "tapclip_tpu_torch.data.native",
+    "tapclip_tpu_torch.data.prefetch",
+    "tapclip_tpu_torch.data.imagefolder",
     "tapclip_tpu_torch.ops._build",
     "tapclip_tpu_torch.ops.attention",
     "tapclip_tpu_torch.ops.fused_mlp",
@@ -47,9 +52,17 @@ PORT_MODULES = [
     "tapclip_tpu_torch.utils.jax_bridge",
     "tapclip_tpu_torch.utils.logging_utils",
     "tapclip_tpu_torch.utils.adaptive_eval",
+    "tapclip_tpu_torch.utils.torch_convert",
+    "tapclip_tpu_torch.utils.checkpoint",
+    "tapclip_tpu_torch.utils.eval_metrics",
+    "tapclip_tpu_torch.utils.plotting",
+    "tapclip_tpu_torch.utils.calibration",
     "tapclip_tpu_torch.parallel.train_step",
     "tapclip_tpu_torch.trainer",
     "tapclip_tpu_torch.serve",
+    "tapclip_tpu_torch.train",
+    "tapclip_tpu_torch.test_cross_domain",
+    "tapclip_tpu_torch.test_cross_domain2",
     "tapclip_tpu_torch.featurize",
     "tapclip_tpu_torch.zero_shot",
     "tapclip_tpu_torch.scripts.int8_mlp_ab",

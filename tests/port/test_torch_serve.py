@@ -4,7 +4,8 @@ A port ``PredictService`` on ``device="cpu"`` with the tiny config, fed the
 bridged JAX weights and prompt state, serves the same probabilities,
 attribution rows and text embeddings as the JAX ``PredictService`` on the
 same inputs (1e-4).
-Routes the port does not have yet answer HTTP 501.
+The route option the port does not have yet ("saliency" in /explain)
+answers HTTP 501.
 """
 
 import base64
@@ -188,11 +189,11 @@ def test_http_round_trip_add_class_and_501(tiny_cfg, tiny_params):
         emb = np.asarray(json.loads(body)["embeddings"])
         assert code == 200 and emb.shape == (2, tc.embed_dim)
         np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
-        for route, payload in (("/reload", {"path": "x"}),
-                               ("/explain", {"pixels": px, "saliency": True})):
-            code, body = _request(base + route, payload)
-            assert code == 501, route
-            assert "not yet ported in tapclip_tpu_torch" in json.loads(body)["error"]
+        code, body = _request(base + "/explain", {"pixels": px, "saliency": True})
+        assert code == 501
+        assert "not yet ported in tapclip_tpu_torch" in json.loads(body)["error"]
+        code, body = _request(base + "/reload", {"path": "x"})  # no such file
+        assert code == 400 and "Error" in json.loads(body)["error"]
         code, body = _request(base + "/metrics")
         assert code == 200 and "tapclip_classes 4" in body
         code, _ = _request(base + "/nope", {})
@@ -224,8 +225,7 @@ def test_decode_image_payload_matches_jax():
 
 
 def test_main_refuses_what_is_not_ported(capsys):
-    for argv in (["--synthetic", "--dp", "2"], ["--synthetic", "--ckpt", "p.pt"],
-                 ["--synthetic", "--pretrained", "w.pt"], []):
+    for argv in (["--synthetic", "--dp", "2"], ["--dp"]):
         with pytest.raises(SystemExit) as e:
             main(argv)
         assert e.value.code == 2
