@@ -1,5 +1,5 @@
-"""Drive the PyTorch + CUDA port's serving, training, text and int8 paths, and the reference
-workloads from files, once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving, training, text and int8 paths, the reference
+workloads from files and the offline inference and evaluation entry points, once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -170,6 +170,31 @@ Run from the repository root:  python3 chip_smoke.py
     seconds, ms per epoch, the loader's images/s and the device's busy /
     idle share over one file-fed epoch (a ``torch.profiler`` trace), each
     beside the card's name and power limit.
+22. The offline inference and evaluation entry points from files ("eval"),
+    ViT-B/16 f32: a seeded state dict and a reference prompt ``.pt`` of
+    seeded context under a temporary directory, two domains x the five train
+    classes x 32 JPEGs at 224 px (one file copied under a second name) and a
+    shard dir of 64 captioned JPEGs.  ``featurize`` of the first domain and
+    of the shards with ``--embed-text`` (rows against the plain path within
+    EMB_TOL), ``search`` by row, by text (scores against float64 of the bf16
+    operands, SEARCH_TOL) and with ``--dedup`` (the copied file's pair must
+    be found), ``predict`` float and ``--int8`` (every class's probability
+    against the plain path, PROB_TOL, and the plain int8 versions,
+    INT8_SERVE_TOL), the saliency forward's features against
+    ``encode_image`` on the kernels (F32_TOL), ``patch_saliency`` (rollout,
+    last) and ``/explain`` with ``"saliency"`` over HTTP, ``zero_shot_eval``
+    over the two domains, ``evaluate_adaptive`` (the int8 pruned cheap path,
+    margins inf and -inf), ``robustness`` (clean, gaussian_noise, pixelate x
+    severities 1, 5) and a two-cell ``sweep``, each against the plain path
+    (accuracies within one image).  Every kernel's launches are set to 0
+    before each driver and must equal what its shapes give (K1 and K2 12 per
+    image batch, K1 and B6 12 per text batch, B13 and B14 12 per int8 batch,
+    B4 and B5 12 per sweep step, 24 K1 + 23 K2 + 1 K3 per attribution and
+    encode text pass pair).  Then ``SearchIndex.search`` over a 1,000,000 x
+    512 bf16 index made on the card at Q = 1 and 64 and ``find_duplicates``
+    over 65,536 of its rows (one planted pair).  Prints featurize's and
+    predict's images/s (decode included), the device's busy share over one
+    predict pass, and the search and dedup times beside the index's bound.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -2741,8 +2766,8 @@ def _delta(after: dict, before: dict) -> dict:
     return {name: after[name] - before[name] for name in FILES_KERNELS}
 
 
-def _write_tree(root: str, domains, classes) -> int:
-    """Class-colored ``FILES_SIZE`` px JPEGs, ``FILES_IMAGES`` per class and domain."""
+def _write_tree(root: str, domains, classes, per_class: int = FILES_IMAGES) -> int:
+    """Class-colored ``FILES_SIZE`` px JPEGs, ``per_class`` per class and domain."""
     import os
 
     from PIL import Image
@@ -2755,7 +2780,7 @@ def _write_tree(root: str, domains, classes) -> int:
             os.makedirs(d)
             base = np.zeros(3)
             base[ci % 3] = 60 + 30 * ci
-            for i in range(FILES_IMAGES):
+            for i in range(per_class):
                 arr = np.clip(base + rng.normal(0, 25, (FILES_SIZE, FILES_SIZE, 3)), 0, 255).astype(np.uint8)
                 Image.fromarray(arr).save(os.path.join(d, f"{i}.jpg"))
                 n += 1
@@ -3041,6 +3066,423 @@ def files_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The "eval" phase: the offline inference and evaluation entry points from
+# files at ViT-B/16 f32 (random weights from a seed, saved as an open_clip
+# state dict; a reference prompt .pt of seeded context), each held against
+# the same model on the plain versions (attn_impl="xla") on the card, with
+# every kernel's launches read around each driver.
+EVAL_DOMAINS = ["Real World", "Art"]
+EVAL_IMAGES = 32  # per class and domain
+EVAL_BATCH = 32
+EVAL_CAPTIONS = 64  # captioned JPEGs in the shard dir, shards of 32
+EVAL_CACHE_BATCH = 128  # trainer.PathFeatureCache
+SEARCH_ROWS = 1_000_000
+SEARCH_QUERIES = (1, 64)
+DEDUP_ROWS = 65_536
+# featurize stores float16 unit-norm rows: a kernel-vs-plain difference of
+# 1e-6 can land a value on the other side of a float16 rounding step (4.9e-4
+# near 0.25), so the rows are held at a few steps.
+EMB_TOL = 2e-3
+# Scores of the bf16 index, f32 on the card against float64 of the same bf16
+# values: only the order of the f32 sum differs (512 terms).
+SEARCH_TOL = 1e-5
+# Per text batch of the causal tower (12 B6, 12 K1) and per int8 image
+# batch (12 B13, 12 B14).
+TEXT_BATCH = {"fused_mlp": 12, "fused_mha": 12}
+INT8_BATCH = {"int8_mlp": 12, "int8_attn": 12}
+EVAL_KERNELS = FORWARD + BACKWARD + ("fused_mha", "int8_mlp", "int8_attn")
+
+
+def _eval_counts(text_pass: int = 0, image: int = 0, text_batch: int = 0, int8: int = 0, steps: int = 0) -> dict:
+    want = {name: 0 for name in EVAL_KERNELS}
+    for table, n in ((TEXT_PASS, text_pass), (IMAGE_BATCH, image), (TEXT_BATCH, text_batch), (INT8_BATCH, int8),
+                     (STEP_BWD, steps)):
+        for name, k in table.items():
+            want[name] += k * n
+    return want
+
+
+def _counted(where: str, want: dict, fn, *args):
+    """``fn(*args)`` with every launch count set to 0 just before and read
+    just after: the counts of EVAL_KERNELS must be ``want`` exactly.
+    Returns (the result, the counts, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_counts()
+    _expect(where, got, want)
+    return out, {name: got[name] for name in EVAL_KERNELS}, seconds
+
+
+def _write_shards(path: str) -> list:
+    """EVAL_CAPTIONS noise JPEGs (224 x 256) with class captions, shards of 32."""
+    import io
+
+    from PIL import Image
+
+    from tapclip_tpu_torch.data.shards import write_shards
+
+    rng = np.random.default_rng(4)
+    samples = []
+    for i in range(EVAL_CAPTIONS):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (FILES_SIZE, FILES_SIZE + 32, 3), dtype=np.uint8)).save(buf, "JPEG")
+        samples.append((buf.getvalue(), f"a photo of a {TRAIN_CLASSES[i % len(TRAIN_CLASSES)].replace('_', ' ')}"))
+    write_shards(samples, path, shard_size=32)
+    return [c for _, c in samples]
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output (``search``'s result lines) dropped."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def _by_label(row: dict) -> dict:
+    return dict(zip(row["labels"], row["scores"]))
+
+
+def _rows_err(got: list, want: list) -> tuple:
+    """Max abs difference of the per-class probabilities of two predict runs
+    (top-k = every class), and the rows whose top-1 differs where the plain
+    run's top-2 gap exceeds twice that difference."""
+    err = max(abs(_by_label(g)[n] - p) for g, w in zip(got, want) for n, p in _by_label(w).items())
+    flips = [w["path"] for g, w in zip(got, want)
+             if g["labels"][0] != w["labels"][0] and w["scores"][0] - w["scores"][1] > 2 * err]
+    return err, flips
+
+
+def eval_phase(card: str) -> dict:
+    """The offline inference and evaluation entry points on the card
+    (ViT-B/16, f32), from files under a temporary directory: ``featurize``
+    (an ImageFolder domain with one duplicated file; a shard dir with
+    ``--embed-text``), ``search`` (by row, by text, ``--dedup``),
+    ``predict`` (float and ``--int8``), ``patch_saliency`` and ``/explain``
+    with ``"saliency"`` over HTTP, ``zero_shot_eval`` over two domains,
+    ``evaluate_adaptive``, ``robustness`` (clean, gaussian_noise and
+    pixelate at severities 1 and 5) and a ``sweep`` of two cells; then
+    ``SearchIndex`` at 1,000,000 x 512 and ``find_duplicates`` over 65,536
+    rows."""
+    import csv
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch import featurize, predict, robustness, search, sweep, zero_shot_eval
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.data.imagefolder import ImageFolderIndex, Loader, few_shot_split
+    from tapclip_tpu_torch.data.tokenizer import get_tokenizer
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.serve import PredictService, make_http_server
+    from tapclip_tpu_torch.utils.adaptive_eval import evaluate_adaptive
+    from tapclip_tpu_torch.utils.checkpoint import apply_prompt_checkpoint
+    from tapclip_tpu_torch.utils.saliency import patch_saliency, vision_attention_forward
+    from tapclip_tpu_torch.utils.torch_convert import (
+        load_openclip_checkpoint,
+        save_openclip_checkpoint,
+        save_reference_prompt_checkpoint,
+    )
+
+    cfg, dev = MODEL_PRESETS[FILES_MODEL], FILES_DEVICE
+    plain_cfg = cfg.replace(attn_impl="xla")
+    model_args = ["--model", FILES_MODEL, "--device", dev]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    launches, seconds = {}, {}
+
+    def counted(name, want, fn, *args):
+        out, launches[name], seconds[name] = _counted(f"eval {name}", want, fn, *args)
+        return out
+
+    try:
+        # 1. The files: a state dict, a prompt .pt, the tree (+ one duplicated
+        # JPEG), the shard dir.
+        params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(3), cfg)
+        sd = save_openclip_checkpoint(params, cfg, os.path.join(tmp, "open_clip.bin"))
+        del params
+        ctx = 0.02 * np.random.default_rng(3).standard_normal((len(TRAIN_CLASSES), 5, cfg.text_width))
+        ckpt = save_reference_prompt_checkpoint(ctx.astype(np.float32), TRAIN_CLASSES, os.path.join(tmp, "p.pt"))
+        tree = os.path.join(tmp, "OfficeHome")
+        _write_tree(tree, EVAL_DOMAINS, TRAIN_CLASSES, EVAL_IMAGES)
+        dom0 = os.path.join(tree, EVAL_DOMAINS[0])
+        shutil.copy(os.path.join(dom0, TRAIN_CLASSES[0], "0.jpg"), os.path.join(dom0, TRAIN_CLASSES[0], "dup.jpg"))
+        samples0 = ImageFolderIndex.scan(dom0).samples
+        n0 = len(samples0)
+        shard_dir = os.path.join(tmp, "shards")
+        captions = _write_shards(shard_dir)
+        kparams = load_openclip_checkpoint(sd, cfg, device=dev)
+        tok = get_tokenizer(None, cfg.context_length)
+        batches = lambda n, b=EVAL_BATCH: -(-n // b)  # noqa: E731
+
+        def loader(samples, b=EVAL_BATCH):
+            return Loader(samples, b, image_size=cfg.image_size, output_dtype="uint8")
+
+        def prompt_model(c):
+            m = FullModel(TRAIN_CLASSES, kparams, c)
+            apply_prompt_checkpoint(m, ckpt)
+            return m
+
+        # 2. featurize: the domain (uint8 transport), the shard dir with --embed-text.
+        feats = os.path.join(tmp, "feats")
+        counted("featurize", _eval_counts(image=batches(n0)), featurize.main,
+                ["--image-root", dom0, "--out", feats, "--pretrained", sd, "--batch-size", str(EVAL_BATCH),
+                 *model_args])
+        got = np.load(os.path.join(feats, "image_embeddings.npy")).astype(np.float32)
+        want = featurize.featurize_images(kparams, plain_cfg, iter(loader(samples0))).astype(np.float32)
+        emb_err = float(np.abs(got - want).max())
+        require(got.shape == (n0, cfg.embed_dim) and emb_err <= EMB_TOL, f"featurize: {got.shape}, err {emb_err:.3e}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        featurize.featurize_images(kparams, cfg, iter(loader(samples0)))
+        featurize_ips = n0 / (time.perf_counter() - t0)
+        shard_feats = os.path.join(tmp, "shard_feats")
+        counted("featurize shards", _eval_counts(image=batches(EVAL_CAPTIONS), text_batch=batches(EVAL_CAPTIONS)),
+                featurize.main, ["--shard-dir", shard_dir, "--embed-text", "--out", shard_feats, "--pretrained", sd,
+                                 "--batch-size", str(EVAL_BATCH), *model_args])
+        with open(os.path.join(shard_feats, "manifest.csv")) as f:
+            require([r.split(",", 1)[1] for r in f.read().splitlines()[1:]] == captions, "shard manifest captions")
+        got = np.load(os.path.join(shard_feats, "text_embeddings.npy")).astype(np.float32)
+        want = featurize.featurize_texts(kparams, plain_cfg, captions, tok.tokenize, EVAL_BATCH).astype(np.float32)
+        text_err = float(np.abs(got - want).max())
+        require(got.shape == (EVAL_CAPTIONS, cfg.embed_dim) and text_err <= EMB_TOL, f"text rows err {text_err:.3e}")
+        print(f"eval: featurize {n0} JPEGs in {seconds['featurize']:.2f} s (main: state dict load, PIL decode, "
+              f"batch {EVAL_BATCH}), featurize_images alone {featurize_ips:.1f} images/s decode included; rows vs the "
+              f"plain path max abs err {emb_err:.2e} (tol {EMB_TOL}); shards {EVAL_CAPTIONS} images + captions in "
+              f"{seconds['featurize shards']:.2f} s, text rows err {text_err:.2e}; launches {launches['featurize']}, "
+              f"{launches['featurize shards']} ({card})", flush=True)
+
+        # 3. search: by row, by text (the text tower: one batch), --dedup.
+        index = search.SearchIndex.load(feats, device=dev)
+        # Random weights map these images to nearly one direction (cosines
+        # within a bf16 step of 1), so the row's own score must reach the top
+        # score within that step; it is not always ranked first.
+        by_row = _quiet(search.main, ["--index", feats, "--row", "5", "-k", str(n0), "--device", dev])
+        own = [r["score"] for r in by_row if r["row"] == 5]
+        require(own and by_row[0]["score"] - own[0] <= 2 ** -8, f"--row 5: {by_row[:3]}, own score {own}")
+        text = "a photo of a Backpack"
+        by_text = counted("search --text", _eval_counts(text_batch=1), _quiet, search.main,
+                          ["--index", feats, "--text", text, "-k", "5", "--pretrained", sd, *model_args])
+        q = featurize.make_text_embed_fn(plain_cfg)(kparams, tok.tokenize([text])).cpu().numpy()
+        scores, rows = index.search(q, k=5)
+        ref = (index._index[torch.as_tensor(rows[0], device=dev)].double()
+               @ torch.as_tensor(q, device=dev).to(torch.bfloat16).double().T)[:, 0].cpu().numpy()
+        score_err = float(np.abs(scores[0] - ref).max())
+        require(score_err <= SEARCH_TOL, f"search scores vs float64: {score_err:.3e}")
+        require(np.abs(np.array([r["score"] for r in by_text]) - scores[0]).max() <= 1e-4
+                and (by_text[0]["row"] == rows[0][0] or scores[0][0] - scores[0][1] <= 1e-4),
+                f"search --text vs the plain tower: {by_text}")
+        pairs = search.main(["--index", feats, "--dedup", "0.99", "--device", dev])
+        manifest = [m[1] for m in index.manifest]
+        orig = manifest.index(os.path.join(dom0, TRAIN_CLASSES[0], "0.jpg"))
+        dup = manifest.index(os.path.join(dom0, TRAIN_CLASSES[0], "dup.jpg"))
+        found = [p for p in pairs if (p["row_a"], p["row_b"]) == (min(orig, dup), max(orig, dup))]
+        require(len(found) == 1 and found[0]["score"] >= 0.99, f"--dedup missed the duplicated file ({len(pairs)})")
+        print(f"eval: search --row 5: own score {own[0]}, top-1 row {by_row[0]['row']} at {by_row[0]['score']}; --text top-5 rows {rows[0].tolist()} scores vs float64 of the bf16 "
+              f"operands max abs err {score_err:.2e} (tol {SEARCH_TOL}); --dedup 0.99: {len(pairs)} pairs, the "
+              f"duplicated file at {found[0]['score']} ({card})", flush=True)
+
+        # 4. predict, float and --int8 (top-k = every class), against the plain paths.
+        paths = predict.list_images(dom0)
+        pred_args = ["--image-root", dom0, "--pretrained", sd, "--ckpt", ckpt, "--classes", *TRAIN_CLASSES,
+                     "--batch-size", str(EVAL_BATCH), "--top-k", str(len(TRAIN_CLASSES)), "--json", *model_args]
+        plain_model = prompt_model(plain_cfg)
+        out = {}
+        for label, extra, want_counts, ref_cfg, tol in (
+                ("predict", [], _eval_counts(text_pass=1, image=batches(n0)), plain_cfg, PROB_TOL),
+                ("predict --int8", ["--int8"], _eval_counts(text_pass=1, int8=batches(n0)),
+                 plain_cfg.replace(quantize_tower=True), INT8_SERVE_TOL["float32"]["probs"])):
+            res = counted(label, want_counts, predict.main, pred_args + extra + ["--out", os.path.join(tmp, label)])
+            got = json.load(open(res["json"]))["predictions"]
+            with plain_int8():
+                want, _ = predict.predict_corpus(prompt_model(ref_cfg), paths, batch_size=EVAL_BATCH,
+                                                 top_k=len(TRAIN_CLASSES))
+            err, flips = _rows_err(got, want)
+            require(res["n"] == n0 and [r["path"] for r in got] == paths, f"{label}: {res['n']} rows")
+            require(err <= tol and not flips, f"{label}: probabilities err {err:.3e} (tol {tol}), top-1 {flips}")
+            out[label] = err
+        model_k = prompt_model(cfg)
+        t0 = time.perf_counter()
+        predict.predict_corpus(model_k, paths, batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+        predict_ips = n0 / (time.perf_counter() - t0)
+        traced = _busy_share(lambda: predict.predict_corpus(model_k, paths, batch_size=EVAL_BATCH))
+        print(f"eval: predict {n0} JPEGs in {seconds['predict']:.2f} s (main), predict_corpus alone "
+              f"{predict_ips:.1f} images/s decode included; one traced predict_corpus pass {traced['span_ms']:.1f} ms, "
+              f"device busy {traced['busy_share']:.3f} / idle {traced['idle_share']:.3f} ({traced['device_ops']} "
+              f"device ops); probabilities vs the plain path max abs err {out['predict']:.2e} (tol {PROB_TOL}), "
+              f"--int8 vs the plain int8 versions {out['predict --int8']:.2e} (tol "
+              f"{INT8_SERVE_TOL['float32']['probs']}); launches {launches['predict']}, {launches['predict --int8']} "
+              f"({card})", flush=True)
+
+        # 5. Saliency: the plain forward's features equal the kernel path's;
+        # /explain with "saliency" over HTTP equals patch_saliency.
+        x = next(iter(loader(samples0[:8], 8)))[0]
+        with torch.inference_mode():
+            sal_feats, probs = vision_attention_forward(kparams, cfg, x)
+            kern_feats = clip_model.encode_image(kparams, cfg, torch.from_numpy(x).to(dev))
+        sal = compare("saliency forward's features vs encode_image on the kernels", sal_feats, kern_feats, F32_TOL)
+        require(float((probs.sum(-1) - 1).abs().max()) <= 1e-5, "saliency probabilities are not row-stochastic")
+        grids = {m: patch_saliency(kparams, cfg, x, method=m) for m in ("rollout", "last")}
+        g = cfg.image_size // cfg.patch_size
+        for m, grid in grids.items():
+            require(grid.shape == (8, g, g) and np.isfinite(grid).all() and grid.min() == 0.0 and grid.max() == 1.0,
+                    f"patch_saliency {m}: {grid.shape}")
+        service = PredictService(model_k, batch_size=8, max_latency_ms=5.0)
+        server = make_http_server(service, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            explained = {}
+            for m in ("rollout", "last"):
+                explained[m] = counted(f"/explain {m}", _eval_counts(text_pass=1, image=1), _post, base + "/explain",
+                                       {"pixels": x[0].tolist(), "saliency": m})
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=10)
+        # /explain runs one image: held against patch_saliency of the same one-image batch.
+        grid_err = max(float(np.abs(np.asarray(explained[m]["saliency"])
+                                    - patch_saliency(kparams, cfg, x[:1], method=m)[0]).max()) for m in grids)
+        with torch.inference_mode():
+            want = _plain_probs(plain_model(x[:1])["logits"].float().cpu().numpy())[0]
+        prob_err = float(np.abs(_probs_of([explained["rollout"]], TRAIN_CLASSES)[0] - want).max())
+        require(grid_err <= 1e-6 and prob_err <= PROB_TOL, f"/explain: grid err {grid_err:.2e}, probs {prob_err:.2e}")
+        print(f"eval: saliency forward's features vs encode_image on the kernels max abs err {sal['max_abs_err']:.2e} "
+              f"(tol {F32_TOL}); /explain with saliency (rollout, last) over HTTP: grids vs patch_saliency "
+              f"{grid_err:.1e}, probabilities vs the plain model {prob_err:.2e}; launches "
+              f"{launches['/explain rollout']} ({card})", flush=True)
+
+        # 6. zero_shot_eval over two domains, against the plain tower.
+        zargs = ["--preset", "reference_train", "--dtype", "float32", "--pretrained", sd, "--classes",
+                 *TRAIN_CLASSES, "--domain-root", tree, "--domains", *EVAL_DOMAINS, *model_args]
+        args, zcfg = zero_shot_eval.parse(zargs + ["--output-root", os.path.join(tmp, "zs")])
+        n_val = [len(few_shot_split(ImageFolderIndex.scan(os.path.join(tree, d)), TRAIN_CLASSES, 0).val)
+                 for d in EVAL_DOMAINS]
+        zs = counted("zero_shot_eval", _eval_counts(text_batch=1, image=sum(batches(n, EVAL_CACHE_BATCH)
+                                                                           for n in n_val)),
+                     zero_shot_eval.run, args, zcfg)
+        args, _ = zero_shot_eval.parse(zargs + ["--output-root", os.path.join(tmp, "zs_plain")])
+        zs_plain = zero_shot_eval.run(args, dataclasses.replace(zcfg, model=plain_cfg))
+        for r, p, n in zip(zs["results"], zs_plain["results"], n_val):
+            require(abs(r["Accuracy"] - p["Accuracy"]) <= 100.0 / n + 1e-9, f"zero_shot_eval {r} vs plain {p}")
+        print("eval: zero_shot_eval " + ", ".join(f"{r['Domain']} {r['Accuracy']:.2f} (plain {p['Accuracy']:.2f})"
+                                                   for r, p in zip(zs["results"], zs_plain["results"]))
+              + f" in {seconds['zero_shot_eval']:.2f} s; launches {launches['zero_shot_eval']} ({card})", flush=True)
+
+        # 7. evaluate_adaptive (the int8 pruned tower as the cheap path) on the
+        # second domain: margin inf rescues every image, -inf none.
+        val1 = few_shot_split(ImageFolderIndex.scan(os.path.join(tree, EVAL_DOMAINS[1])), TRAIN_CLASSES, 0).val
+        cheap = cfg.replace(token_keep_ratio=0.5, quantize_tower=True)
+        nb = batches(len(val1))
+        acc_inf, st_inf = counted("evaluate_adaptive inf", _eval_counts(text_pass=2 * nb, image=nb, int8=nb),
+                                  lambda: evaluate_adaptive(model_k, loader(val1), margin=np.inf, cheap_cfg=cheap))
+        acc_cheap, st_cheap = counted("evaluate_adaptive -inf", _eval_counts(text_pass=nb, int8=nb),
+                                      lambda: evaluate_adaptive(model_k, loader(val1), margin=-np.inf,
+                                                                cheap_cfg=cheap))
+        acc_full, _ = evaluate_adaptive(plain_model, loader(val1), margin=-np.inf, cheap_cfg=plain_cfg)
+        require(st_inf["rescued"] == len(val1) and st_cheap["rescued"] == 0, f"rescues {st_inf} {st_cheap}")
+        require(abs(acc_inf - acc_full) <= 100.0 / len(val1) + 1e-9, f"adaptive at inf {acc_inf} vs plain {acc_full}")
+        print(f"eval: evaluate_adaptive over {len(val1)} images: margin inf {acc_inf:.2f} ({st_inf}) vs the plain "
+              f"full tower {acc_full:.2f}; margin -inf (int8 pruned) {acc_cheap:.2f} ({st_cheap}) ({card})", flush=True)
+
+        # 8. robustness: clean + gaussian_noise + pixelate at severities 1 and 5.
+        rargs = robustness.parse(["--val-root", dom0, "--pretrained", sd, "--ckpt", ckpt, "--corruptions",
+                                  "gaussian_noise", "pixelate", "--severities", "1", "5", "--batch-size", "64",
+                                  "--model", FILES_MODEL, "--device", dev])
+        rob = counted("robustness", _eval_counts(text_pass=1, image=5 * batches(n0, 64)), robustness.run, rargs)
+        index0 = ImageFolderIndex.scan(dom0)
+        plain_rob = FullModel(index0.classes, kparams, plain_cfg)
+        apply_prompt_checkpoint(plain_rob, ckpt)
+        rows_plain = robustness.evaluate_robustness(plain_rob, index0.samples, corruptions=("gaussian_noise", "pixelate"),
+                                                    severities=(1, 5), batch_size=64, verbose=False)
+        for r, p in zip(rob["rows"], rows_plain):
+            require((r["Corruption"], r["Severity"]) == (p["Corruption"], p["Severity"])
+                    and abs(r["Accuracy"] - p["Accuracy"]) <= 100.0 / n0 + 0.01, f"robustness {r} vs plain {p}")
+        print("eval: robustness " + ", ".join(f"{r['Corruption']}/{r['Severity']} {r['Accuracy']:.2f} "
+                                               f"(plain {p['Accuracy']:.2f})" for r, p in zip(rob["rows"], rows_plain))
+              + f" in {seconds['robustness']:.2f} s; launches {launches['robustness']} ({card})", flush=True)
+
+        # 9. sweep: two cells (lr), 4 shots, 2 epochs; one feature cache.
+        split = few_shot_split(index0, TRAIN_CLASSES, FILES_SHOTS)
+        steps = batches(len(split.train))
+        epoch = dict(text_pass=steps + 1 + batches(len(split.val), FILES_EVAL_BATCH), steps=steps)
+        want_counts = _eval_counts(image=batches(len(split.train), EVAL_CACHE_BATCH)
+                                   + batches(len(split.val), EVAL_CACHE_BATCH),
+                                   **{k: 2 * FILES_EPOCHS * v for k, v in epoch.items()})
+        swept = counted("sweep", want_counts, sweep.main,
+                        ["--data-root", dom0, "--classes", *TRAIN_CLASSES, "--out", os.path.join(tmp, "sweep"),
+                         "--pretrained", sd, "--lrs", "2e-3", "5e-3", "--shots", str(FILES_SHOTS), "--epochs",
+                         str(FILES_EPOCHS), *model_args])
+        with open(swept["csv"]) as f:
+            cells = list(csv.DictReader(f))
+        plain_cells = sweep.run_sweep(kparams, plain_cfg, data_root=dom0, class_names=TRAIN_CLASSES,
+                                      base_prompt_cfg=zcfg.prompt, base_train_cfg=zcfg.train, tokenizer=tok,
+                                      lrs=(2e-3, 5e-3), shots=(FILES_SHOTS,), epochs=FILES_EPOCHS)
+        for c, p in zip(cells, plain_cells):
+            require(int(c["epochs_run"]) == p["epochs_run"] == FILES_EPOCHS
+                    and abs(float(c["best_acc"]) - p["best_acc"]) <= 100.0 / len(split.val) + 1e-3,
+                    f"sweep cell {c} vs plain {p}")
+        print("eval: sweep " + ", ".join(f"lr {c['lr']} best {float(c['best_acc']):.2f} (plain {p['best_acc']:.2f})"
+                                          for c, p in zip(cells, plain_cells))
+              + f" in {seconds['sweep']:.2f} s; launches {launches['sweep']} ({card})", flush=True)
+
+        # 10. Retrieval at scale: a 1,000,000 x 512 bf16 index made on the card.
+        gen = torch.Generator(device=dev).manual_seed(5)
+        emb = torch.randn(SEARCH_ROWS, cfg.embed_dim, generator=gen, device=dev)
+        emb /= emb.norm(dim=-1, keepdim=True)
+        big = search.SearchIndex(emb, [()] * SEARCH_ROWS, device=dev)
+        del emb
+        index_gb, index_bound = nbytes(big._index) / 1e9, 1e3 * nbytes(big._index) / HBM_BYTES_PER_S
+        timings = {}
+        for n_q in SEARCH_QUERIES:
+            picked = np.random.default_rng(n_q).choice(SEARCH_ROWS, n_q, replace=False)
+            q = big._index[torch.as_tensor(picked, device=dev)].float().cpu().numpy()
+            s, r = big.search(q, k=10)
+            require((r[:, 0] == picked).all(), f"Q={n_q}: a row is not its own top-1")
+            ref = torch.einsum("qkd,qd->qk", big._index[torch.as_tensor(r, device=dev)].double(),
+                               torch.as_tensor(q, device=dev).double()).cpu().numpy()
+            qt = torch.as_tensor(q, device=dev).to(torch.bfloat16)
+            timings[n_q] = {
+                "search_ms": time_ms(lambda: big.search(q, k=10), iters=10, warmup=2),
+                "device_ms": time_ms(lambda: torch.topk(big._scores(qt), 10, dim=-1), iters=10, warmup=2),
+                "max_abs_err": float(np.abs(s - ref).max()),
+            }
+            require(timings[n_q]["max_abs_err"] <= SEARCH_TOL, f"Q={n_q} scores: {timings[n_q]['max_abs_err']:.2e}")
+        dedup_index = big._index[:DEDUP_ROWS].clone()
+        dedup_index[-1] = dedup_index[7]
+        small = search.SearchIndex(dedup_index, [()] * DEDUP_ROWS, device=dev)
+        del big
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dupes = small.find_duplicates(0.96)
+        dedup_ms = 1e3 * (time.perf_counter() - t0)
+        require([(i, j) for i, j, _ in dupes] == [(7, DEDUP_ROWS - 1)] and dupes[0][2] >= 0.99,
+                f"find_duplicates over {DEDUP_ROWS} rows: {dupes[:5]}")
+        print(f"eval: SearchIndex {SEARCH_ROWS:,} x {cfg.embed_dim} bf16 ({index_gb:.2f} GB): " + "; ".join(f"Q={n} search {t['search_ms']:.3f} ms (host round trip), product + top-10 on the "
+                                   f"card {t['device_ms']:.3f} ms, bound {index_bound:.3f} ms (the index's bytes), "
+                                   f"scores err {t['max_abs_err']:.1e}" for n, t in timings.items())
+              + f"; find_duplicates over {DEDUP_ROWS:,} rows (chunks of 1024) {dedup_ms:.1f} ms, the planted pair "
+              f"at {dupes[0][2]:.4f} ({card})", flush=True)
+        total = {name: sum(c[name] for c in launches.values()) for name in EVAL_KERNELS}
+        return {"launches": total, "by_driver": launches, "featurize_images_per_s": featurize_ips,
+                "predict_images_per_s": predict_ips, "busy_share": traced["busy_share"], "search": timings,
+                "search_bound_ms": index_bound, "dedup_ms": dedup_ms}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _post_status(url: str, obj: dict) -> tuple:
     """(HTTP status, JSON body) of a POST, error answers included."""
     import urllib.error
@@ -3179,6 +3621,7 @@ def main() -> int:
     pruned = phase("pruned serve", pruned_serve_phase, model, images)
     phase("adaptive", adaptive_phase, model, images)
     files = phase("files", files_phase, card)
+    evaluated = phase("eval", eval_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -3211,6 +3654,7 @@ def main() -> int:
             "idiomatic_train_launches": launches(idiomatic["float32"]),
             "pallas_idiomatic_train_launches": launches(pallas["float32"]["idiomatic"]),
             "files_train_launches": launches(files),
+            "eval_launches": launches(evaluated),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),
@@ -3238,6 +3682,9 @@ def main() -> int:
         record.append(entry)
     record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"], b13_bits)
     record += ab_record(ab, served["all_launches"])
+    for entry in record:  # the int8 kernels' launches on the eval drive (predict --int8, evaluate_adaptive)
+        if entry["name"] in ("int8_mlp", "int8_attn"):
+            entry["eval_launches"] = evaluated["launches"][entry["name"]]
     print("chip_smoke: phase seconds " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()), flush=True)
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": record}))

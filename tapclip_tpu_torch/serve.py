@@ -23,12 +23,14 @@ Endpoints (JSON):
   POST /classes   {"name": "Clipboards"} -> {"classes": [...]}
   POST /predict   {"image": <base64 jpeg/png>} or {"pixels": [[...]]}
                   -> {"class": str, "index": int, "probs": {name: p}}
-  POST /explain   same payload -> prediction + per-class attribution rows
+  POST /explain   same payload -> prediction + per-class attribution rows;
+                  add "saliency": true|"rollout"|"last" for the class token's
+                  patch-saliency grid (ViT towers, ``utils/saliency.py``)
   POST /embed     same payload -> {"embedding": [E floats]}
   POST /embed_text {"texts": [str, ...]} -> {"embeddings": [[E floats], ...]}
   POST /reload    {"path": <open_clip .pt/.bin>} -> hot-swap the tower weights
                   (same geometry; the prompt state is kept)
-Not yet ported (HTTP 501): "saliency" in /explain.
+A route option the port does not have yet answers HTTP 501.
 
 Run: ``python -m tapclip_tpu_torch.serve --model ViT-B-16 --pretrained
 open_clip_model.bin --ckpt best_model.pt`` (``--synthetic`` serves random
@@ -156,23 +158,37 @@ class PredictService:
         return {"reloaded": True, "classes": names}
 
     def explain(self, pixels: np.ndarray, saliency=None) -> Dict[str, Any]:
-        """Prediction + context-token attribution for one image (not batched)."""
-        if saliency:
-            raise NotPortedError("saliency")
+        """Prediction + context-token attribution for one image (not batched).
+
+        ``saliency``: ``True`` / ``"rollout"`` / ``"last"`` adds the class
+        token's patch-saliency grid (``utils/saliency.patch_saliency``):
+        where in the image the model looked, beside the attribution's which
+        context tokens."""
         px = pixels[None] if pixels.dtype == np.uint8 else pixels[None].astype(np.float32)
+        grid = None
         with self._lock, torch.inference_mode():
             out = self.model(px)
             names = list(self.model.class_names)
             logits = out["logits"].float().cpu().numpy()[0]
             attr = out["attribution"].float().cpu().numpy()
+            if saliency:
+                # Under the same lock as the prediction: a /reload between
+                # the two would pair old-weight logits with a new-weight grid.
+                from tapclip_tpu_torch.utils.saliency import patch_saliency
+
+                method = "rollout" if saliency is True else str(saliency)
+                grid = patch_saliency(self.model.clip_params, self.model.clip_cfg, px, method=method)
         probs = _softmax(logits[None] / self.temperature)[0]
         pred = int(logits.argmax())
-        return {
+        result = {
             "index": pred,
             "class": names[pred],
             "probs": {n: round(float(probs[j]), 6) for j, n in enumerate(names)},
             "attribution": {n: [round(float(v), 6) for v in attr[j]] for j, n in enumerate(names)},
         }
+        if grid is not None:
+            result["saliency"] = [[round(float(v), 6) for v in row] for row in grid[0]]
+        return result
 
     def add_class(self, name: str) -> List[str]:
         with self._lock:  # a buffer write into the padded bank; no tower call
@@ -429,12 +445,11 @@ def build_model(cfg, class_names, device: str, seed: int = 0, *, pretrained: Opt
     drawn from ``seed``; then the prompt checkpoint ``ckpt`` (the port's
     ``.pt`` or a reference ``.pt``) when given.  ``main`` builds its model
     here."""
+    from tapclip_tpu_torch.featurize import resolve_device
     from tapclip_tpu_torch.models import clip as clip_model
     from tapclip_tpu_torch.models.model_wrapper import FullModel
 
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: no CUDA device is present")
+    dev = resolve_device(device)
     if pretrained:
         from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
 

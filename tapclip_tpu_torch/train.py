@@ -129,10 +129,10 @@ def build_model(cfg: ExperimentConfig, *, bpe_path: Optional[str] = None, rng_se
     from tapclip_tpu_torch.models import clip as clip_model
     from tapclip_tpu_torch.models.model_wrapper import FullModel
 
+    from tapclip_tpu_torch.featurize import resolve_device
+
     log = logging.getLogger("tapclip_tpu_torch")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {device}: no CUDA device is present")
+    dev = resolve_device(device)
     if cfg.pretrained_path:
         from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
 

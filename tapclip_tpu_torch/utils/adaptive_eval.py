@@ -10,8 +10,8 @@ Counterpart of ``adaptive_logits`` in ``tapclip_tpu/utils/adaptive_eval.py``:
 3. hard samples take the full path's logits, easy ones keep the cheap ones.
 
 At ``margin = inf`` every sample is rescued and the result is the full
-path's; at ``-inf`` it is the cheap path's.  ``evaluate_adaptive`` (the loop
-over a loader) waits for the port's loaders.
+path's; at ``-inf`` it is the cheap path's.  ``evaluate_adaptive`` is the
+loop over a loader (``data/imagefolder.Loader``) with decode-ahead.
 """
 
 from __future__ import annotations
@@ -77,3 +77,20 @@ def adaptive_logits(
     stats = {"n": n_valid, "n_rescued": int(len(hard)),
              "rescue_frac": round(len(hard) / max(n_valid, 1), 4)}
     return logits, stats
+
+
+def evaluate_adaptive(model, dataloader, *, margin: float, cheap_cfg=None) -> Tuple[float, Dict[str, Any]]:
+    """Accuracy (%) over a loader of ``(images, labels, mask)`` batches with
+    the two-path scheme, and ``{"total", "rescued", "rescue_frac"}``."""
+    from tapclip_tpu_torch.data.prefetch import background_iter
+
+    correct = total = rescued = 0
+    for images, labels, mask in background_iter(dataloader):
+        logits, st = adaptive_logits(model, images, margin=margin, cheap_cfg=cheap_cfg, mask=mask)
+        preds = logits[:, : model.n_cls].argmax(-1)
+        keep = np.asarray(mask, bool)
+        correct += int(((preds == np.asarray(labels)) & keep).sum())
+        total += int(keep.sum())
+        rescued += st["n_rescued"]
+    acc = 100.0 * correct / max(total, 1)
+    return acc, {"total": total, "rescued": rescued, "rescue_frac": round(rescued / max(total, 1), 4)}

@@ -65,6 +65,14 @@ PORT_MODULES = [
     "tapclip_tpu_torch.test_cross_domain2",
     "tapclip_tpu_torch.featurize",
     "tapclip_tpu_torch.zero_shot",
+    "tapclip_tpu_torch.data.shards",
+    "tapclip_tpu_torch.search",
+    "tapclip_tpu_torch.predict",
+    "tapclip_tpu_torch.utils.saliency",
+    "tapclip_tpu_torch.utils.corruptions",
+    "tapclip_tpu_torch.robustness",
+    "tapclip_tpu_torch.zero_shot_eval",
+    "tapclip_tpu_torch.sweep",
     "tapclip_tpu_torch.scripts.int8_mlp_ab",
     "tapclip_tpu_torch.scripts.int8_probe",
     "tapclip_tpu_torch.scripts._bench_util",

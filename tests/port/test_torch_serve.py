@@ -4,8 +4,8 @@ A port ``PredictService`` on ``device="cpu"`` with the tiny config, fed the
 bridged JAX weights and prompt state, serves the same probabilities,
 attribution rows and text embeddings as the JAX ``PredictService`` on the
 same inputs (1e-4).
-The route option the port does not have yet ("saliency" in /explain)
-answers HTTP 501.
+``/explain`` with ``"saliency"`` adds the patch-saliency grid of
+``utils/saliency.patch_saliency``, as the JAX server's.
 """
 
 import base64
@@ -28,7 +28,6 @@ from tapclip_tpu.serve import decode_image_payload as j_decode
 from tapclip_tpu_torch import config as tcfg
 from tapclip_tpu_torch.models.model_wrapper import FullModel
 from tapclip_tpu_torch.serve import (
-    NotPortedError,
     PredictService,
     decode_image_payload,
     main,
@@ -120,8 +119,12 @@ def test_explain_attribution_matches_jax(services):
     for n in CLASSES:
         np.testing.assert_allclose(got["attribution"][n], want["attribution"][n], atol=TOL)
     np.testing.assert_allclose(_probs(got, CLASSES), _probs(want, CLASSES), atol=TOL)
-    with pytest.raises(NotPortedError, match="not yet ported in tapclip_tpu_torch"):
-        tsvc.explain(px, saliency=True)
+    assert "saliency" not in got
+    for method in (True, "rollout", "last"):
+        want, got = jsvc.explain(px, saliency=method), tsvc.explain(px, saliency=method)
+        assert np.asarray(got["saliency"]).shape == (2, 2)
+        np.testing.assert_allclose(got["saliency"], want["saliency"], atol=TOL)
+        assert got["class"] == want["class"]
 
 
 @pytest.mark.parametrize("texts", [["a photo of a Backpack.", "Mug", "a drawing of a Pen"], []],
@@ -160,7 +163,8 @@ def _request(url, obj=None):
 def test_http_round_trip_add_class_and_501(tiny_cfg, tiny_params):
     """Its own service (adding a class changes the model): HTTP on an
     ephemeral port, POST /classes then /predict covers the new class, and
-    the routes not yet ported answer 501."""
+    /explain with "saliency" answers 200 with ``patch_saliency``'s grid
+    (it answered 501 before the saliency port)."""
     tc = tcfg.TINY_TEST
     tm = FullModel(CLASSES, params_from_jax(jax.tree.map(np.asarray, tiny_params), tc), tc)
     svc = PredictService(tm, batch_size=4, max_latency_ms=5.0)
@@ -189,9 +193,16 @@ def test_http_round_trip_add_class_and_501(tiny_cfg, tiny_params):
         emb = np.asarray(json.loads(body)["embeddings"])
         assert code == 200 and emb.shape == (2, tc.embed_dim)
         np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
-        code, body = _request(base + "/explain", {"pixels": px, "saliency": True})
-        assert code == 501
-        assert "not yet ported in tapclip_tpu_torch" in json.loads(body)["error"]
+        from tapclip_tpu_torch.utils.saliency import patch_saliency
+
+        for method in (True, "last"):
+            code, body = _request(base + "/explain", {"pixels": px, "saliency": method})
+            want = patch_saliency(tm.clip_params, tc, np.asarray(px, np.uint8)[None],
+                                  method="rollout" if method is True else method)[0]
+            assert code == 200 and json.loads(body)["class"] in CLASSES + ["Clipboards"]
+            np.testing.assert_allclose(json.loads(body)["saliency"], want, atol=1e-6)
+        code, body = _request(base + "/explain", {"pixels": px, "saliency": "gradcam"})
+        assert code == 400 and "unknown saliency method" in json.loads(body)["error"]
         code, body = _request(base + "/reload", {"path": "x"})  # no such file
         assert code == 400 and "Error" in json.loads(body)["error"]
         code, body = _request(base + "/metrics")
