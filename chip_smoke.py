@@ -1,5 +1,6 @@
 """Drive the PyTorch + CUDA port's serving, training, text and int8 paths, the reference
-workloads from files and the offline inference and evaluation entry points, once on one NVIDIA GPU.
+workloads from files, the offline inference and evaluation entry points and the few-shot
+adaptation zoo, once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -195,6 +196,21 @@ Run from the repository root:  python3 chip_smoke.py
     over 65,536 of its rows (one planted pair).  Prints featurize's and
     predict's images/s (decode included), the device's busy share over one
     predict pass, and the search and dedup times beside the index's bound.
+23. The few-shot adaptation zoo ("adapt"), ViT-B/16 f32, from a seeded
+    state dict and a 5-class tree of 8 JPEGs a class: the CE-only, kg, scl
+    and ProGrad cached-feature steps (batch 32, 5 steps) on the kernels and
+    on the plain path, loss, ctx displacement (TRAIN_TOL) and
+    prograd_conflict per step, 12 B4 + 12 B5 a step and 24 + 24 for ProGrad
+    (its two pullbacks); MaPLe's step (J 3, P 2, batch 8 uint8 images: the
+    image tower at T 199 padded to 200, B4's route printed) against the
+    plain path (loss, grad norm, displacement at MAPLE_STEP_TOL), 24 B4 +
+    24 B5 a step; one TPT batch (16 images x 8 views, 1 step) from the same
+    drawn views, logits at LOGIT_TOL, 12 K1 + 12 K2 for the B*V views;
+    ``fewshot.run`` with all eleven methods against
+    ``run_fewshot_benchmark`` on the plain path (accuracies within one
+    image); ``train`` with every anchor and three templates, launches
+    exactly as counted from the shapes.  Prints ms per step of each step
+    kind, TPT images/s and each method's TrainSeconds.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -3483,6 +3499,317 @@ def eval_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+ADAPT_MODEL = "ViT-B-16"
+ADAPT_DEVICE = "cuda"
+ADAPT_IMAGES = 8  # per class: 4 shots train, 4 held out
+ADAPT_SHOTS = 4
+ADAPT_EPOCHS = 2
+ADAPT_BATCH = 32
+ADAPT_STEPS = 5  # steps per anchored variant and per MaPLe check; the first is not timed
+MAPLE_DEPTH, MAPLE_PROMPT_LEN = 3, 2
+TPT_VIEWS, TPT_BATCH = 8, 16
+ADAPT_TEMPLATES = ("a photo of a {}", "a drawing of a {}", "a painting of a {}")
+# Per anchored step on cached features: one text pass pair, and ProGrad's
+# second pullback runs the text tower's backward again.
+ANCHORED = {"ce": {}, "kg": {"kg_lambda": 0.5}, "scl": {"scl_lambda": 1.0}, "prograd": {"prograd_lambda": 1.0}}
+ADAPT_KERNELS = FORWARD + BACKWARD + ("fused_mha", "fused_mha_bwd")
+# MaPLe's step differentiates the image tower into 1.18M projection
+# entries (proj_w [3, 512, 768]) under AdamW, which moves an entry by about
+# lr whatever its gradient's size: an entry whose gradient is near 0 moves
+# another way on each path, so the displacement is held at 1e-3 (readings
+# 1.085e-4 after 3 steps and 8.9e-5 after 5 on an H100 80GB HBM3 at 700 W,
+# where the text-only step reads 1e-5).  The loss of every step and the
+# gradient norm of the first (both paths from equal parameters) are held at
+# TRAIN_TOL's; a later step's gradient norm is taken where AdamW has already
+# moved the two paths apart (2.1e-5 at step 5) and is printed.
+MAPLE_STEP_TOL = 1e-3
+
+
+def _adapt_counts(text_pass: int = 0, image: int = 0, text_batch: int = 0, steps: int = 0) -> dict:
+    want = {name: 0 for name in ADAPT_KERNELS}
+    for table, n in ((TEXT_PASS, text_pass), (IMAGE_BATCH, image), (TEXT_BATCH, text_batch), (STEP_BWD, steps)):
+        for name, k in table.items():
+            want[name] += k * n
+    return want
+
+
+def _flat(tree) -> np.ndarray:
+    """A copy of every leaf of a nested dict of tensors, flattened in
+    sorted-key order (the optimizer updates the leaves in place)."""
+    if isinstance(tree, dict):
+        return np.concatenate([_flat(tree[k]) for k in sorted(tree)])
+    return np.array(tree.detach().float().cpu().numpy().reshape(-1), copy=True)
+
+
+def _anchored_steps(kparams, cfg, plain_cfg, card: str) -> dict:
+    """CE-only, kg, scl and ProGrad cached-feature steps at batch 32 on the
+    kernels and on the plain path: loss, ctx displacement and
+    prograd_conflict per step, launches per step, ms per step."""
+    from tapclip_tpu_torch.config import TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(7)
+    anchor = rng.standard_normal((8, cfg.embed_dim)).astype(np.float32)
+    anchor /= np.linalg.norm(anchor, axis=-1, keepdims=True)
+    batches = []
+    for _ in range(ADAPT_STEPS):  # each image near the anchor row of the class after its label
+        y = rng.integers(0, len(TRAIN_CLASSES), ADAPT_BATCH)
+        x = 3.0 * anchor[(y + 1) % len(TRAIN_CLASSES)] + 0.5 * rng.standard_normal((ADAPT_BATCH, cfg.embed_dim))
+        batches.append((x.astype(np.float32), y))
+    mask = np.ones(ADAPT_BATCH, bool)
+    tol = TRAIN_TOL["float32"]
+    out = {}
+    for name, terms in ANCHORED.items():
+        runs = {}
+        for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+            model = FullModel(TRAIN_CLASSES, kparams, c)
+            kw = dict(terms, kg_feats=anchor, anchor_scale=float(model.trainable["logit_scale"])) if terms else {}
+            step = make_train_step(c, model.prompt_cfg, **kw)
+            state = init_train_state(model.trainable, make_optimizer(TrainConfig(lr=2e-3)))
+            ctx0 = _flat(state.params["ctx"])
+            rec = {"loss": [], "conflict": [], "ms": []}
+            reset_counts()
+            for x, y in batches:
+                (state, m), ms = _sync_ms(lambda: step(kparams, state, model.prompt_learner.bank, x, y, mask))
+                rec["loss"].append(float(m["loss"]))
+                rec["conflict"].append(float(m.get("prograd_conflict", 0.0)))
+                rec["ms"].append(ms)
+            rec["launches"] = read_counts()
+            rec["ctx0"], rec["ctx"] = ctx0, _flat(state.params["ctx"])
+            runs[path] = rec
+        k, p = runs["kernel"], runs["plain"]
+        pulls = 2 if "prograd_lambda" in terms else 1
+        _expect(f"adapt {name} steps", k["launches"],
+                _adapt_counts(text_pass=ADAPT_STEPS, steps=pulls * ADAPT_STEPS))
+        require(all(n == 0 for n in p["launches"].values()), f"adapt {name}: the plain path launched kernels")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+        step_err = _step_err(k["ctx"], k["ctx0"], p["ctx"], p["ctx0"])
+        require(np.isfinite(k["loss"]).all() and loss_err <= tol["loss"] and step_err <= tol["ctx_step"],
+                f"adapt {name}: loss rel err {loss_err:.3e}, ctx displacement err {step_err:.3e}")
+        require(k["conflict"] == p["conflict"], f"adapt {name}: prograd_conflict {k['conflict']} vs {p['conflict']}")
+        out[name] = {"ms": float(np.median(k["ms"][1:])), "plain_ms": float(np.median(p["ms"][1:])),
+                     "loss_err": loss_err, "ctx_step_err": step_err, "conflict": k["conflict"],
+                     "launches_per_step": {n: k["launches"][n] // ADAPT_STEPS for n in BACKWARD}}
+    require(1.0 in out["prograd"]["conflict"], f"ProGrad's projection never engaged: {out['prograd']['conflict']}")
+    print("adapt: cached-feature steps at batch 32 (ViT-B/16 f32 text tower, 5 classes at capacity 8), median ms "
+          f"per step of the last {ADAPT_STEPS - 1} of {ADAPT_STEPS} on the host clock, kernel vs plain: "
+          + "; ".join(f"{n} {r['ms']:.2f} vs {r['plain_ms']:.2f} (B4/B5 per step {r['launches_per_step']}, loss rel "
+                      f"err {r['loss_err']:.1e}, ctx displacement err {r['ctx_step_err']:.1e})" for n, r in out.items())
+          + f"; ProGrad conflicts {out['prograd']['conflict']} on both paths (tol loss {tol['loss']}, ctx "
+          f"{tol['ctx_step']}) ({card})", flush=True)
+    return out
+
+
+def _maple_steps(kparams, cfg, plain_cfg, card: str) -> dict:
+    """MaPLe steps (J 3, P 2) on raw uint8 images at batch 8, kernels vs
+    plain: every leaf's displacement, launches per step (the image tower's
+    12 B4 + 12 B5 at T 197 + 2 -> 200 beside the text tower's)."""
+    import functools
+
+    import torch
+
+    from tapclip_tpu_torch.config import PromptConfig
+    from tapclip_tpu_torch.maple import MAPLE_KEYS, make_maple_train_step
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.ops.fused_mha import _tile_fits
+    from tapclip_tpu_torch.parallel.train_step import init_train_state
+
+    rng = np.random.default_rng(8)
+    batches = [(rng.integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8),
+                rng.integers(0, len(TRAIN_CLASSES), 8)) for _ in range(ADAPT_STEPS)]
+    mask = np.ones(8, bool)
+    pcfg = PromptConfig(maple_depth=MAPLE_DEPTH, prompt_len=MAPLE_PROMPT_LEN)
+    opt = functools.partial(torch.optim.AdamW, lr=2e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        model = FullModel(TRAIN_CLASSES, kparams, c, prompt_cfg=pcfg, generator=torch.Generator().manual_seed(0))
+        state = init_train_state(model.trainable, opt, MAPLE_KEYS)
+        step = make_maple_train_step(c, pcfg)
+        p0 = _flat({k: state.params[k] for k in MAPLE_KEYS})
+        rec = {"loss": [], "grad_norm": [], "ms": []}
+        reset_counts()
+        for x, y in batches:
+            (state, m), ms = _sync_ms(lambda: step(kparams, state, model.prompt_learner.bank, x, y, mask))
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["ms"].append(ms)
+        rec["launches"] = read_counts()
+        rec["p0"], rec["p"] = p0, _flat({k: state.params[k] for k in MAPLE_KEYS})
+        runs[path] = rec
+    k, p = runs["kernel"], runs["plain"]
+    T = cfg.vision_seq_len + MAPLE_PROMPT_LEN
+    Tp = (T + 7) // 8 * 8
+    route = "B4's kernels" if _tile_fits(Tp, cfg.vision_width // cfg.vision_heads) else "the split composition (B7)"
+    want = _adapt_counts(text_pass=ADAPT_STEPS, image=ADAPT_STEPS, steps=2 * ADAPT_STEPS)  # text + image backward
+    _expect("adapt MaPLe steps", k["launches"], want)
+    require(all(n == 0 for n in p["launches"].values()), "adapt MaPLe: the plain path launched kernels")
+    tol = TRAIN_TOL["float32"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+    norm_errs = [abs(a - b) / abs(b) for a, b in zip(k["grad_norm"], p["grad_norm"])]
+    step_err = _step_err(k["p"], k["p0"], p["p"], p["p0"])
+    require(np.isfinite(k["loss"]).all() and loss_err <= tol["loss"] and norm_errs[0] <= tol["grad_norm"]
+            and step_err <= MAPLE_STEP_TOL, f"adapt MaPLe: loss rel err {loss_err:.3e}, first grad norm rel err "
+            f"{norm_errs[0]:.3e}, prompt displacement err {step_err:.3e}")
+    out = {"ms": float(np.median(k["ms"][1:])), "plain_ms": float(np.median(p["ms"][1:])), "loss_err": loss_err,
+           "grad_norm_errs": norm_errs, "step_err": step_err, "image_T": T, "image_T_padded": Tp, "b4_route": route}
+    print(f"adapt: MaPLe step (J {MAPLE_DEPTH}, P {MAPLE_PROMPT_LEN}, batch 8 uint8 images, the image tower at T {T} "
+          f"padded to {Tp}: {route}) {out['ms']:.2f} ms vs plain {out['plain_ms']:.2f} ms (median of the last "
+          f"{ADAPT_STEPS - 1} of {ADAPT_STEPS}, host clock); launches per step {({n: k['launches'][n] // ADAPT_STEPS for n in ADAPT_KERNELS})}; "
+          f"loss rel err {loss_err:.1e}, grad norm rel err {norm_errs[0]:.1e} at step 1 (tol {tol['grad_norm']}), "
+          f"{max(norm_errs):.1e} at most over the steps, ctx + maple "
+          f"displacement err {step_err:.1e} (tol {MAPLE_STEP_TOL}) ({card})",
+          flush=True)
+    return out
+
+
+def _tpt_batch(kparams, cfg, plain_cfg, card: str) -> dict:
+    """One TPT batch (16 images x 8 views, 1 step) on the kernels and the
+    plain path from the same drawn views: the clean view's logits, the
+    baseline logits, both entropies; launches; images/s."""
+    import torch
+
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.tpt import TPTConfig, make_tpt_predict_fn, make_views
+
+    rng = np.random.default_rng(9)
+    images = torch.as_tensor(rng.standard_normal((TPT_BATCH, cfg.image_size, cfg.image_size, 3)).astype(np.float32),
+                             device=ADAPT_DEVICE)
+    tpt = TPTConfig(n_views=TPT_VIEWS, steps=1)
+    views = make_views(torch.Generator().manual_seed(0), images, tpt)
+    out = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        model = FullModel(TRAIN_CLASSES, kparams, c)
+        predict = make_tpt_predict_fn(c, model.prompt_cfg, tpt)
+        reset_counts()
+        (logits, aux), ms = _sync_ms(lambda: predict(kparams, model.trainable, model.prompt_learner.bank, images,
+                                                     views=views))
+        out[path] = {"logits": logits.float().cpu().numpy(), "launches": read_counts(), "ms": ms,
+                     "base": aux["baseline_logits"].float().cpu().numpy(),
+                     "ent": (float(aux["entropy_before"]), float(aux["entropy_after"]))}
+        if path == "kernel":
+            _, out[path]["ms"] = _sync_ms(lambda: predict(kparams, model.trainable, model.prompt_learner.bank,
+                                                          images, torch.Generator().manual_seed(1)))
+    k, p = out["kernel"], out["plain"]
+    n = len(TRAIN_CLASSES)
+    _expect("adapt TPT batch", k["launches"], _adapt_counts(text_pass=2, image=1, steps=1))
+    err = max(float(np.abs(k["logits"][:, :n] - p["logits"][:, :n]).max()),
+              float(np.abs(k["base"][:, :n] - p["base"][:, :n]).max()))
+    ent_err = max(abs(a - b) for a, b in zip(k["ent"], p["ent"]))
+    require(np.isfinite(k["logits"][:, :n]).all() and err <= LOGIT_TOL and ent_err <= LOGIT_TOL,
+            f"adapt TPT: logits err {err:.3e}, entropy err {ent_err:.3e}")
+    ips = TPT_BATCH / (k["ms"] / 1e3)
+    print(f"adapt: TPT batch ({TPT_BATCH} images x {TPT_VIEWS} views, 1 Adam step on {TPT_BATCH} x 8 text rows) "
+          f"{k['ms']:.1f} ms = {ips:.1f} images/s (views drawn on the host included), plain {p['ms']:.1f} ms; "
+          f"launches {({m: k['launches'][m] for m in ADAPT_KERNELS})} (the image tower once over "
+          f"{TPT_BATCH * TPT_VIEWS} views); logits err {err:.2e} (tol {LOGIT_TOL}), entropy {k['ent']} vs "
+          f"{p['ent']} ({card})", flush=True)
+    return {"ms": k["ms"], "images_per_s": ips, "logits_err": err}
+
+
+def adapt_phase(card: str) -> dict:
+    """The few-shot adaptation zoo on the card (ViT-B/16, f32) from files: a
+    seeded open_clip state dict and a 5-class JPEG tree; the anchored steps,
+    MaPLe's step and a TPT batch held against the plain path with exact
+    launch counts; ``fewshot.run`` with all eleven methods against
+    ``run_fewshot_benchmark`` on the plain path (accuracies within one
+    image); ``train`` with every anchor, with exact launch counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch import fewshot, train
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint, save_openclip_checkpoint
+
+    cfg, dev = MODEL_PRESETS[ADAPT_MODEL], ADAPT_DEVICE
+    plain_cfg = cfg.replace(attn_impl="xla")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_adapt_")
+    try:
+        params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(6), cfg)
+        sd = save_openclip_checkpoint(params, cfg, os.path.join(tmp, "open_clip.bin"))
+        del params
+        kparams = load_openclip_checkpoint(sd, cfg, device=dev)
+        tree = os.path.join(tmp, "tree")
+        _write_tree(tree, ["Real World"], TRAIN_CLASSES, ADAPT_IMAGES)
+        root = os.path.join(tree, "Real World")
+
+        steps = _anchored_steps(kparams, cfg, plain_cfg, card)
+        maple = _maple_steps(kparams, cfg, plain_cfg, card)
+        tpt = _tpt_batch(kparams, cfg, plain_cfg, card)
+
+        # fewshot: every method through the CLI's parse + run on the kernels,
+        # run_fewshot_benchmark on the plain path; the draws (splits, W0,
+        # MaPLe's init, TPT's views) come from the same seeded host
+        # generators on both.
+        fargs = ["--train-root", root, "--shots", str(ADAPT_SHOTS), "--model", ADAPT_MODEL, "--pretrained", sd,
+                 "--batch-size", str(ADAPT_BATCH), "--epochs", str(ADAPT_EPOCHS), "--maple-depth", str(MAPLE_DEPTH),
+                 "--maple-prompt-len", str(MAPLE_PROMPT_LEN), "--tpt-views", str(TPT_VIEWS), "--device", dev,
+                 "--out", os.path.join(tmp, "fewshot")]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = fewshot.run(fewshot.parse(fargs))
+        torch.cuda.synchronize()
+        fewshot_s = time.perf_counter() - t0
+        launches = read_counts()
+        t0 = time.perf_counter()
+        plain_rows = fewshot.run_fewshot_benchmark(
+            root, shots=ADAPT_SHOTS, cfg=plain_cfg, params=kparams, batch_size=ADAPT_BATCH, epochs=ADAPT_EPOCHS,
+            maple_depth=MAPLE_DEPTH, maple_prompt_len=MAPLE_PROMPT_LEN, tpt_views=TPT_VIEWS, verbose=False)
+        plain_s = time.perf_counter() - t0
+        n_val = len(TRAIN_CLASSES) * (ADAPT_IMAGES - ADAPT_SHOTS)
+        require([r["Method"] for r in rows] == [r["Method"] for r in plain_rows] == list(fewshot.ALL_METHODS),
+                f"fewshot methods {[r['Method'] for r in rows]}")
+        for r, q in zip(rows, plain_rows):
+            require(0.0 <= r["Accuracy"] <= 100.0 and abs(r["Accuracy"] - q["Accuracy"]) <= 100.0 / n_val + 0.01,
+                    f"fewshot {r} vs plain {q}")
+        require(open(os.path.join(tmp, "fewshot", "fewshot.csv")).readline().strip()
+                == ",".join(fewshot.CSV_COLUMNS), "fewshot.csv header")
+        for name in ADAPT_KERNELS[:-1]:  # B7 runs only in idiomatic mode or past B4's limit
+            require(launches[name] > 0, f"{name} was not launched by fewshot")
+        print(f"adapt: fewshot.run, 11 methods on {len(TRAIN_CLASSES)} classes x {ADAPT_SHOTS} shots "
+              f"({n_val} held out), {ADAPT_EPOCHS} epochs, in {fewshot_s:.2f} s (plain path {plain_s:.2f} s): "
+              + ", ".join(f"{r['Method']} {r['Accuracy']:.2f} (plain {q['Accuracy']:.2f}, {r['TrainSeconds']:.2f} s)"
+                          for r, q in zip(rows, plain_rows))
+              + f"; launches {({n: launches[n] for n in ADAPT_KERNELS})} ({card})", flush=True)
+
+        # train with every anchor: exact launches.
+        targs, tcfg = train.parse(
+            ["--preset", "reference_train", "--model", ADAPT_MODEL, "--dtype", "float32", "--device", dev,
+             "--pretrained", sd, "--classes", *TRAIN_CLASSES, "--num-shots", str(ADAPT_SHOTS), "--batch-size", "8",
+             "--data-root", root, "--epochs", str(ADAPT_EPOCHS), "--kg-lambda", "0.1", "--prograd-lambda", "1",
+             "--scl-lambda", "1", "--anchor-templates", *ADAPT_TEMPLATES, "--output-root", os.path.join(tmp, "train")])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trained = train.run(targs, tcfg)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        got = read_counts()
+        n_train = len(TRAIN_CLASSES) * ADAPT_SHOTS
+        n_steps = -(-n_train // 8)
+        per_epoch = _adapt_counts(text_pass=n_steps + 2, steps=2 * n_steps)  # + entropy, eval; 2 pullbacks
+        want = {n: (_adapt_counts(image=2 * n_steps, text_pass=len(ADAPT_TEMPLATES) + 1)[n]
+                    + ADAPT_EPOCHS * per_epoch[n]) for n in ADAPT_KERNELS}
+        _expect("adapt train with every anchor", got, want)
+        res = trained["result"]
+        require(np.isfinite(res.loss_history).all() and res.final_state.step == ADAPT_EPOCHS * n_steps,
+                f"anchored train: loss {res.loss_history}, {res.final_state.step} steps")
+        print(f"adapt: train --kg-lambda 0.1 --prograd-lambda 1 --scl-lambda 1 --anchor-templates x "
+              f"{len(ADAPT_TEMPLATES)}: {ADAPT_EPOCHS} epochs of {n_steps} steps in {train_s:.2f} s, loss "
+              f"{res.loss_history}, acc {res.acc_history}; launches {({n: got[n] for n in ADAPT_KERNELS})} ({card})",
+              flush=True)
+        return {"launches": launches, "steps": steps, "maple": maple, "tpt": tpt,
+                "train_seconds": {r["Method"]: r["TrainSeconds"] for r in rows}, "fewshot_s": fewshot_s,
+                "train_launches": got}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _post_status(url: str, obj: dict) -> tuple:
     """(HTTP status, JSON body) of a POST, error answers included."""
     import urllib.error
@@ -3622,6 +3949,7 @@ def main() -> int:
     phase("adaptive", adaptive_phase, model, images)
     files = phase("files", files_phase, card)
     evaluated = phase("eval", eval_phase, card)
+    adapted = phase("adapt", adapt_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -3655,6 +3983,7 @@ def main() -> int:
             "pallas_idiomatic_train_launches": launches(pallas["float32"]["idiomatic"]),
             "files_train_launches": launches(files),
             "eval_launches": launches(evaluated),
+            "adapt_launches": launches(adapted),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),

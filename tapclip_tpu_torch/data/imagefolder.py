@@ -112,6 +112,17 @@ def few_shot_split(
     return FewShotSplit(train=train, val=val, label_map=label_map)
 
 
+def eval_samples(index: ImageFolderIndex, val_root: Optional[str], split: FewShotSplit) -> List[Tuple[str, int]]:
+    """The few-shot drivers' eval samples: ``val_root``'s images of
+    ``index``'s classes, relabelled to ``index``'s order, else the split's
+    held-out part."""
+    if not val_root:
+        return split.val
+    val_index = ImageFolderIndex.scan(val_root)
+    return [(path, index.class_to_idx[val_index.classes[raw]]) for path, raw in val_index.samples
+            if val_index.classes[raw] in index.class_to_idx]
+
+
 class Loader:
     """Iterable of ``(images [B,H,W,3] f32, labels [B] i32, mask [B] bool)``.
 

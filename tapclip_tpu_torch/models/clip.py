@@ -11,8 +11,9 @@ attention-aware token pruning of ``token_keep_ratio``), ``embed_tokens``,
 ``encode_text`` (the proper CLIP text encoder: positional embedding, causal
 mask, ``ln_final``, EOT pooling), ``text_forward_embeds`` in ``ref_compat``
 and ``idiomatic`` mode, and ``l2_normalize``; every ``attn_impl`` of the JAX
-package.  The text tower is never quantized, as in the JAX package.  The
-ResNet tower, MoE, VPT and MaPLe's deep prompts raise
+package; MaPLe's prompts in both towers (``encode_image(maple_prompts=)``,
+``text_forward_embeds(deep_prompts=)``).  The text tower is never quantized,
+as in the JAX package.  The ResNet tower, MoE and VPT raise
 ``NotImplementedError``.
 """
 
@@ -131,12 +132,19 @@ def _pad_to_8(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
     return torch.nn.functional.pad(x, (0, 0, 0, Tp - T)), T
 
 
-def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch.Tensor:
+def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_prompts=None) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` (preprocessed f32, or raw uint8) -> ``[B, embed_dim]``.
 
     Matches open_clip ``VisionTransformer.forward`` + projection; the caller
     L2-normalizes.  The tower runs at T padded to a multiple of 8 (197 -> 200
     at ViT-B/16) with the pad keys masked; the pooled class token is row 0.
+
+    ``maple_prompts = (first [P, W], deep [L-1, P, W] | None, mask | None)``:
+    ``first`` is inserted after the class token (after the positional
+    embedding, so the prompts carry no position), ``deep`` overwrites those
+    slots at the masked block inputs (``layers.transformer_forward``); the
+    tower then runs at 197 + P padded to a multiple of 8 with 197 + P valid
+    keys.  Refused with VPT and with token pruning, as in the JAX package.
     """
     if cfg.vision_tower == "resnet":
         # As the JAX package: a quantization or pruning flag on the
@@ -160,13 +168,24 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     cls = p["class_embedding"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + p["positional_embedding"].to(dtype)[None]
+    deep = {}
+    if maple_prompts is not None:
+        if cfg.token_keep_ratio < 1.0:
+            raise NotImplementedError(
+                "maple prompts do not compose with token_keep_ratio (pruning would silently drop the coupled "
+                "prompts)"
+            )
+        first, layer_prompts, prompt_mask = maple_prompts
+        x = torch.cat([x[:, :1], first.to(dtype).expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
+        if layer_prompts is not None:
+            deep = dict(layer_prompts=layer_prompts.to(dtype), prompt_mask=prompt_mask)
     x = layers.layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, kv_valid = _pad_to_8(x)
     if cfg.token_keep_ratio < 1.0 and cfg.token_prune_layer < cfg.vision_layers:
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
         x, _ = layers.transformer_forward(
-            x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, **_tower_kw(cfg),
+            x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, **_tower_kw(cfg), **deep,
         )
     x = layers.layer_norm(x, p["ln_post"], cfg.ln_eps)
     return layers.dense(x[:, 0], p["proj"])
@@ -274,6 +293,8 @@ def text_forward_embeds(
     attn_to_idx=None,
     kv_valid_len: Optional[int] = None,
     impl: Optional[str] = None,
+    deep_prompts: Optional[torch.Tensor] = None,
+    deep_prompt_mask=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Text transformer over raw embeddings ``[B, T, W]``.
 
@@ -285,6 +306,11 @@ def text_forward_embeds(
     ``mode="idiomatic"`` (CoOp-style prompt tuning over well-formed
     sequences) adds the positional embedding of the first T positions, runs
     the tower causal and unpadded, and applies ``ln_final`` before pooling.
+
+    ``deep_prompts [text_layers-1, P, W]`` (MaPLe): row ``i`` overwrites the
+    context slots at block ``i+1``'s input, slots from position 0 in
+    ``ref_compat`` (``[ctx || tokens]``) and from 1 in ``idiomatic``
+    (``[sot, ctx, ...]``); ``deep_prompt_mask`` limits the depth.
 
     Returns ``(features [B, embed_dim], aux [B, T] | None)``, the aux being
     the last layer's head-averaged attention of every query to key
@@ -306,10 +332,14 @@ def text_forward_embeds(
             x, kv_valid_len = _pad_to_8(x)
     else:
         raise ValueError(f"unknown text mode {mode!r}")
+    deep = {}
+    if deep_prompts is not None:
+        deep = dict(layer_prompts=deep_prompts.to(x.dtype), prompt_offset=0 if mode == "ref_compat" else 1,
+                    prompt_mask=deep_prompt_mask)
     x, aux = layers.transformer_forward(
         x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=causal,
         kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx,
-        impl=impl if impl is not None else cfg.attn_impl,
+        impl=impl if impl is not None else cfg.attn_impl, **deep,
     )
     x = x[:, :T]
     if aux is not None:

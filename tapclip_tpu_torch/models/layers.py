@@ -192,17 +192,32 @@ def transformer_forward(
     impl: str = "auto",
     quantize: bool = False,
     quantize_deterministic: bool = False,
+    layer_prompts: Optional[torch.Tensor] = None,
+    prompt_offset: int = 1,
+    prompt_mask=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order; the attribution aux comes from the last one.
 
     The reference hooks the last text block's attention, so only the last
     block gets ``attn_to_idx`` (the JAX package runs it outside its scan).
+
+    ``layer_prompts [n_layers-1, P, W]`` (MaPLe's deep prompts): row ``i``
+    overwrites token slots ``prompt_offset .. prompt_offset+P`` of block
+    ``i``'s output, so block ``i+1`` sees fresh prompts at its input; the
+    last block's output is never overwritten.  ``prompt_mask [n_layers-1]``
+    (bool; None: every row) leaves the rows it marks False inert.  The
+    overwrite is out of place (a new tensor from ``torch.cat``): the kernels'
+    autograd Functions save their inputs for the backward.
     """
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
               quantize=quantize, quantize_deterministic=quantize_deterministic)
-    head = blocks if attn_to_idx is None else blocks[:-1]
-    for blk in head:
-        x, _ = block_forward(x, blk, n_heads, **kw)
-    if attn_to_idx is None:
-        return x, None
-    return block_forward(x, blocks[-1], n_heads, attn_to_idx=attn_to_idx, **kw)
+    active = [] if layer_prompts is None else (
+        [True] * layer_prompts.shape[0] if prompt_mask is None else torch.as_tensor(prompt_mask).tolist())
+    last, aux = len(blocks) - 1, None
+    for i, blk in enumerate(blocks):
+        x, aux = block_forward(x, blk, n_heads, attn_to_idx=attn_to_idx if i == last else None, **kw)
+        if i < last and i < len(active) and active[i]:
+            P = layer_prompts.shape[1]
+            rows = layer_prompts[i].to(x.dtype).expand(x.shape[0], P, x.shape[-1])
+            x = torch.cat([x[:, :prompt_offset], rows, x[:, prompt_offset + P:]], dim=1)
+    return x, aux

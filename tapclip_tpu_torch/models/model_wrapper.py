@@ -10,8 +10,14 @@ class, in one batched ``[C, T, D]`` text pass, and the forward is
 (or precomputed image features in place of the tower pass).  The
 attribution pass runs without an autograd graph (the reference's hook
 detaches the attention map), so a training step differentiates the encode
-pass only.  Loss: cross-entropy only, as in the reference.  The
-image-conditioned (CoCoOp) and MaPLe branches are not yet ported and raise.
+pass only.  Loss: cross-entropy only, as in the reference.
+
+MaPLe (``PromptConfig.maple_depth`` J > 0) couples the towers: the vision
+tower sees prompts projected from the live text prompts (layer 0 from the
+class-masked mean context, layers 1..J-1 from the deep text prompts), and
+the text blocks 1..J-1 see the deep text prompts in the context slots.  Its
+image features depend on the trainable state, so it takes raw images only.
+The image-conditioned (CoCoOp) branch is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -33,9 +39,7 @@ NEG_INF = -1e9
 
 def check_prompt_supported(prompt_cfg: PromptConfig) -> None:
     if prompt_cfg.image_conditioned:
-        raise NotImplementedError("image_conditioned prompts are not yet ported in tapclip_tpu_torch")
-    if prompt_cfg.maple_depth > 0:
-        raise NotImplementedError("MaPLe prompts are not yet ported in tapclip_tpu_torch")
+        raise NotImplementedError("image_conditioned (CoCoOp) prompts are not yet ported in tapclip_tpu_torch")
     if prompt_cfg.text_mode not in ("ref_compat", "idiomatic"):
         raise ValueError(f"unknown text mode {prompt_cfg.text_mode!r}")
 
@@ -43,10 +47,15 @@ def check_prompt_supported(prompt_cfg: PromptConfig) -> None:
 def init_trainable(
     generator: torch.Generator, prompt_learner: PromptLearner, prompt_cfg: PromptConfig
 ) -> Dict[str, Any]:
-    """Trainable state: context bank + adjustor MLP (if any) + logit scale."""
+    """Trainable state: context bank + adjustor MLP (if any) + logit scale,
+    and with ``maple_depth`` J > 0 the ``"maple"`` subtree: the deep text
+    prompts ``txt [J-1, P, D]`` (std 0.02) and the per-layer projections
+    ``proj_w [J, D, Wv]`` (std D^-1/2), ``proj_b [J, Wv]`` (zeros) that make
+    the vision prompts.  The draws come from ``generator`` (the JAX package
+    draws from ``jax.random``; tests bridge its tree)."""
     check_prompt_supported(prompt_cfg)
     device = prompt_learner.bank.ctx.device
-    return {
+    out = {
         "ctx": prompt_learner.bank.ctx.clone(),
         "adjustor": init_adjustor_params(
             generator, prompt_cfg.adjustor_method, prompt_learner.clip_cfg.text_width,
@@ -54,6 +63,36 @@ def init_trainable(
         ),
         "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32, device=device),
     }
+    if prompt_cfg.maple_depth > 0:
+        cfg = prompt_learner.clip_cfg
+        J = prompt_cfg.maple_depth
+        if cfg.vision_tower == "resnet":
+            raise NotImplementedError("maple_depth requires a ViT vision tower (vision prompts are token insertions)")
+        if J > min(cfg.text_layers, cfg.vision_layers):
+            raise ValueError(
+                f"maple_depth={J} exceeds the tower depth (text {cfg.text_layers}, vision {cfg.vision_layers})"
+            )
+        D, P = cfg.text_width, prompt_cfg.prompt_len
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, dtype=torch.float32,
+                               device=generator.device).to(device)
+
+        out["maple"] = {
+            "txt": 0.02 * normal(J - 1, P, D),
+            "proj_w": normal(J, D, cfg.vision_width) * D ** -0.5,
+            "proj_b": torch.zeros((J, cfg.vision_width), dtype=torch.float32, device=device),
+        }
+    return out
+
+
+def _tile_bank(bank: PromptBank, B: int) -> PromptBank:
+    """Repeat the class axis per sample: ``[C, ...] -> [B*C, ...]``."""
+    def rep(a):
+        return a[None].expand((B,) + tuple(a.shape)).reshape((B * a.shape[0],) + tuple(a.shape[1:]))
+
+    return PromptBank(ctx=rep(bank.ctx), token_embs=rep(bank.token_embs), class_mask=rep(bank.class_mask),
+                      eot_pos=rep(bank.eot_pos))
 
 
 def _idiomatic_seq(ctx: torch.Tensor, token_embs: torch.Tensor, context_length: int) -> torch.Tensor:
@@ -70,6 +109,7 @@ def text_features_with_attribution(
     clip_cfg: CLIPConfig,
     prompt_cfg: PromptConfig,
     adjustor_params: Dict[str, Any],
+    deep_ctx=None,
 ):
     """Class-batched attribution -> adjust -> encode.
 
@@ -82,8 +122,16 @@ def text_features_with_attribution(
     the causal mask those queries cannot see their EOT key, so their column
     is exactly 0 and the attribution the softmax of zeros, 1/P, as in the
     JAX package.
+
+    ``deep_ctx`` (MaPLe): ``(prompts [text_layers-1, P, D], mask)``, the
+    deep text prompts that overwrite the context slots at the masked block
+    inputs; the attribution pass sees them without a graph (as the context),
+    the encode pass live.
     """
     check_prompt_supported(prompt_cfg)
+    deep = {}
+    if deep_ctx is not None:
+        deep = dict(deep_prompts=deep_ctx[0], deep_prompt_mask=deep_ctx[1])
     P = prompt_cfg.prompt_len
     mode = prompt_cfg.text_mode
     if mode == "idiomatic":
@@ -97,14 +145,40 @@ def text_features_with_attribution(
         rows = slice(0, P)
     with torch.no_grad():  # the reference detaches the attention map
         _, aux = clip_model.text_forward_embeds(
-            clip_params, clip_cfg, build(ctx.detach()), mode=mode, attn_to_idx=col
+            clip_params, clip_cfg, build(ctx.detach()), mode=mode, attn_to_idx=col, **deep
         )
         attribution = attribution_scores(aux[:, rows], P, prompt_cfg.normalize_attribution)
     adjusted = adjust_prompt(adjustor_params, prompt_cfg.adjustor_method, ctx, attribution)
     feats, _ = clip_model.text_forward_embeds(
-        clip_params, clip_cfg, build(adjusted), mode=mode, pool_idx=col
+        clip_params, clip_cfg, build(adjusted), mode=mode, pool_idx=col, **deep
     )
     return clip_model.l2_normalize(feats), attribution
+
+
+def _maple_towers(clip_params, trainable, bank, images, clip_cfg: CLIPConfig, prompt_cfg: PromptConfig):
+    """MaPLe's coupling: ``(image_feats, deep_ctx)``.  The layer-0 text
+    prompts are the class-masked mean of ``ctx`` (every row's at template
+    init); each layer's projection of its text prompts gives the vision
+    prompts, inserted after the class token (layer 0) or overwriting the
+    prompt slots of vision blocks 1..J-1.  Both deep stacks are padded to
+    their tower's depth - 1 with rows past J-1 inactive."""
+    mp = trainable["maple"]
+    J = prompt_cfg.maple_depth
+    m = bank.class_mask.float()
+    t0 = torch.einsum("cpd,c->pd", trainable["ctx"].float(), m) / m.sum().clamp_min(1.0)
+    t_all = torch.cat([t0[None], mp["txt"]], dim=0)  # [J, P, D]
+    v_all = torch.einsum("jpd,jdw->jpw", t_all, mp["proj_w"]) + mp["proj_b"][:, None, :]  # [J, P, Wv]
+
+    def deep(rows, n_layers):  # [J-1, P, X] -> ([n_layers, P, X] zero-padded, [n_layers] host mask) or None
+        if J <= 1 or n_layers <= 0:
+            return None, None
+        pad = rows.new_zeros((n_layers - (J - 1),) + tuple(rows.shape[1:]))
+        return torch.cat([rows, pad], dim=0), torch.arange(n_layers) < (J - 1)
+
+    v_deep, v_mask = deep(v_all[1:], clip_cfg.vision_layers - 1)
+    image_feats = clip_model.encode_image(clip_params, clip_cfg, images, maple_prompts=(v_all[0], v_deep, v_mask))
+    t_deep, t_mask = deep(mp["txt"], clip_cfg.text_layers - 1)
+    return image_feats, None if t_deep is None else (t_deep, t_mask)
 
 
 def full_model_forward(
@@ -119,27 +193,40 @@ def full_model_forward(
     with_loss: bool = False,
     image_feats: Optional[torch.Tensor] = None,
     batch_mask: Optional[torch.Tensor] = None,
+    return_text_feats: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The fused forward: ``{"logits", "attribution"}`` (+ ``"loss"``,
-    ``"loss_cls"``).  Padded classes get ``NEG_INF`` logits.
+    ``"loss_cls"``; + ``"text_feats" [C, E]``, L2-normalized, with
+    ``return_text_feats``).  Padded classes get ``NEG_INF`` logits.
 
     Either ``images [B,H,W,3]`` or precomputed ``image_feats [B,E]``
     (unnormalized) is given; the image tower is frozen, so callers may cache
-    its features across epochs.  ``batch_mask [B]`` averages the
-    cross-entropy over the marked rows only (padded batches).
+    its features across epochs (not under MaPLe, whose vision prompts
+    depend on the trainable state: cached features raise).  ``batch_mask
+    [B]`` averages the cross-entropy over the marked rows only (padded
+    batches).
     """
     check_prompt_supported(prompt_cfg)
+    deep_ctx = None
+    if prompt_cfg.maple_depth > 0:
+        if image_feats is not None:
+            raise ValueError(
+                "maple_depth makes the vision tower prompt-dependent: pass raw images, not cached image_feats"
+            )
+        image_feats, deep_ctx = _maple_towers(clip_params, trainable, bank, images, clip_cfg, prompt_cfg)
     if image_feats is None:
         image_feats = clip_model.encode_image(clip_params, clip_cfg, images)
     img = clip_model.l2_normalize(image_feats)
     scale = torch.exp(trainable["logit_scale"]).float()
     text_feats, attribution = text_features_with_attribution(
-        clip_params, trainable["ctx"], bank, clip_cfg, prompt_cfg, trainable["adjustor"]
+        clip_params, trainable["ctx"], bank, clip_cfg, prompt_cfg, trainable["adjustor"], deep_ctx=deep_ctx
     )
     logits = scale * (img.float() @ text_feats.float().T)
     logits = torch.where(bank.class_mask[None, :], logits, torch.full_like(logits, NEG_INF))
 
     out = {"logits": logits, "attribution": attribution}
+    if return_text_feats:
+        out["text_feats"] = text_feats
     if with_loss:
         lse = torch.logsumexp(logits, dim=-1)
         ll = torch.take_along_dim(logits, labels.long()[:, None], dim=1)[:, 0]

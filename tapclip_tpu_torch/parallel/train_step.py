@@ -16,9 +16,12 @@ computes ``optax.adamw``'s update: decay applied to the old parameter, eps
 outside the square root, bias correction by the step count.
 
 The image tower is frozen, so both steps take precomputed image features
-(``use_image_feats=True``) or pixels.  The KgCoOp, ProGrad and PromptSRC
-terms (``kg_lambda``, ``prograd_lambda``, ``scl_lambda``) are not yet
-ported and raise.  No data parallelism yet: one device.
+(``use_image_feats=True``) or pixels.  The zero-shot anchors of the JAX step
+are here: the KgCoOp cosine pull (``kg_lambda``), PromptSRC's logit
+distillation (``scl_lambda``) and ProGrad's projection (``prograd_lambda``:
+one forward, then two pullbacks of ``[loss, KL]`` over the retained graph,
+so every backward kernel runs twice per step).  No data parallelism yet:
+one device.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from tapclip_tpu_torch.config import CLIPConfig, PromptConfig, TrainConfig
 from tapclip_tpu_torch.models import clip as clip_model
-from tapclip_tpu_torch.models.model_wrapper import full_model_forward
+from tapclip_tpu_torch.models.model_wrapper import NEG_INF, full_model_forward
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -131,12 +134,30 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def _unported(**lambdas) -> None:
-    from tapclip_tpu_torch import NotPortedError
+def _prograd_project(g_d: List[torch.Tensor], g_g: List[torch.Tensor], lam: float):
+    """ProGrad's conflict projection (Zhu et al., ICCV 2023, eq. 4), as the
+    JAX package's: over the flat concatenation of the leaves, when the task
+    gradient ``g_d`` and the general-knowledge gradient ``g_g`` (of
+    KL(zero-shot || tuned)) point against each other, subtract ``lam`` times
+    g_d's component along g_g.  A relative guard skips the projection when
+    g_g is float noise (``|g_g|^2 <= 1e-12 |g_d|^2``, as at template init).
 
-    for name, value in lambdas.items():
-        if value > 0.0:
-            raise NotPortedError(f"{name} > 0")
+    ``g_d``, ``g_g``: lists of gradients in the same leaf order.  Returns
+    ``(projected list, conflict)`` with ``conflict`` a 0/1 f32 scalar.
+    """
+    flat_d = torch.cat([g.reshape(-1).float() for g in g_d])
+    flat_g = torch.cat([g.reshape(-1).float() for g in g_g])
+    dd = flat_d @ flat_d
+    gg = flat_g @ flat_g
+    dot = flat_d @ flat_g
+    conflict = (dot < 0.0) & (gg > 1e-12 * dd)
+    coef = torch.where(conflict, dot / gg.clamp_min(1e-30), torch.zeros_like(dot))
+    flat = flat_d - lam * coef * flat_g
+    out, start = [], 0
+    for g in g_d:
+        out.append(flat[start:start + g.numel()].reshape(g.shape).to(g.dtype))
+        start += g.numel()
+    return out, conflict.float()
 
 
 def make_train_step(
@@ -146,18 +167,67 @@ def make_train_step(
     trainable_keys: Tuple[str, ...] = ("ctx",),
     use_image_feats: bool = True,
     kg_lambda: float = 0.0,
+    kg_feats=None,
     prograd_lambda: float = 0.0,
+    anchor_scale: Optional[float] = None,
     scl_lambda: float = 0.0,
 ) -> Callable:
     """Returns ``step(clip_params, state, bank, images_or_feats, labels, mask)
-    -> (state, {"loss", "grad_norm"})``, CE-only.
+    -> (state, metrics)``; ``metrics`` holds ``loss`` and ``grad_norm``, and
+    ``loss_kg``, ``loss_scl``, ``loss_prograd_kl`` and ``prograd_conflict``
+    with their terms.
+
+    ``kg_feats [C_max, E]``: the frozen zero-shot class embeddings
+    (L2-normalized, padded to the bank width).  ``kg_lambda`` adds
+    ``kg_lambda * mean_c(1 - cos(text_feats_c, kg_feats_c))`` over the live
+    classes (KgCoOp).  ``scl_lambda`` adds ``scl_lambda *
+    KL(zero-shot || tuned)`` (PromptSRC's logit term), the zero-shot logits
+    taken from the same feature batch at the init-time ``anchor_scale``.
+    ``prograd_lambda`` projects the loss gradient away from the KL's where
+    they conflict (:func:`_prograd_project`).  The refusals are the JAX
+    package's.
 
     ``optimizer`` is accepted for the JAX package's signature; the optimizer
     itself lives in the state (:func:`init_train_state`).  The step updates
     ``state`` in place and returns it.
     """
-    _unported(kg_lambda=kg_lambda, prograd_lambda=prograd_lambda, scl_lambda=scl_lambda)
+    use_kg, use_prograd, use_scl = kg_lambda > 0.0, prograd_lambda > 0.0, scl_lambda > 0.0
+    if use_kg or use_prograd or use_scl:
+        if kg_feats is None:
+            raise ValueError("kg_lambda/prograd_lambda/scl_lambda > 0 requires kg_feats (the zero-shot anchor)")
+        if (use_prograd or use_scl) and not use_image_feats:
+            raise ValueError(
+                "prograd_lambda/scl_lambda require the cached-feature step (use_image_feats=True): the "
+                "zero-shot logits are built from the feature batch"
+            )
+        if (use_prograd or use_scl) and anchor_scale is None:
+            raise ValueError(
+                "prograd_lambda/scl_lambda > 0 requires anchor_scale (the INIT-time raw logit_scale): the "
+                "zero-shot side must stay frozen even when logit_scale is in trainable_keys"
+            )
     keys = tuple(trainable_keys)
+    # exp of the init-time scale in f32, as the JAX step takes it
+    zs_scale = None if anchor_scale is None else float(np.exp(np.float32(anchor_scale)))
+    anchor = {}  # kg_feats as an f32 tensor on the step's device, made on first use
+
+    def anchor_on(dev):
+        if dev not in anchor:
+            anchor[dev] = _as_tensor(kg_feats, dev, torch.float32)
+        return anchor[dev]
+
+    def kl_term(logits, bank, x, mask):
+        """KL(zero-shot || tuned) from the tuned logits: the zero-shot side
+        is the frozen anchor classifier over the same feature batch at the
+        init-time scale, pad classes at the same finite NEG_INF."""
+        img = clip_model.l2_normalize(x).float()
+        zs = zs_scale * (img @ anchor_on(x.device).T)
+        zs = torch.where(bank.class_mask[None, :], zs, torch.full_like(zs, NEG_INF))
+        log_zs = torch.log_softmax(zs, dim=-1)
+        kl = (log_zs.exp() * (log_zs - torch.log_softmax(logits, dim=-1))).sum(-1)
+        if mask is not None:
+            m = mask.float()
+            return (kl * m).sum() / m.sum().clamp_min(1.0)
+        return kl.mean()
 
     def step(clip_params, state: TrainState, bank, x, labels, mask):
         if state.trainable_keys != keys:
@@ -171,11 +241,29 @@ def make_train_step(
             None if use_image_feats else x, labels,
             clip_cfg=clip_cfg, prompt_cfg=prompt_cfg, with_loss=True,
             image_feats=x if use_image_feats else None, batch_mask=mask,
+            return_text_feats=use_kg,
         )
         loss = out["loss"]
+        metrics = {}
+        if use_kg:
+            cos = (out["text_feats"].float() * anchor_on(dev)).sum(-1)  # [C]
+            cm = bank.class_mask.float()
+            metrics["loss_kg"] = ((1.0 - cos) * cm).sum(-1) / cm.sum().clamp_min(1.0)
+            loss = loss + kg_lambda * metrics["loss_kg"]
+        if use_scl:
+            metrics["loss_scl"] = kl_term(out["logits"], bank, x, mask)
+            loss = loss + scl_lambda * metrics["loss_scl"]
         leaves = state.diff_leaves()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        if use_prograd:
+            # One forward, two pullbacks of [loss, KL] over the retained graph.
+            kl = kl_term(out["logits"], bank, x, mask)
+            vals = torch.stack([loss.float(), kl])
+            grads = _grads(vals, leaves, vals.new_tensor([1.0, 0.0]), retain_graph=True)
+            g_kl = _grads(vals, leaves, vals.new_tensor([0.0, 1.0]))
+            grads, conflict = _prograd_project(grads, g_kl, prograd_lambda)
+            metrics.update(loss_prograd_kl=kl, prograd_conflict=conflict)
+        else:
+            grads = _grads(loss, leaves)
         grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         for p, g in zip(leaves, grads):
             p.grad = g
@@ -183,9 +271,16 @@ def make_train_step(
         for p in leaves:
             p.grad = None
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        metrics.update(loss=loss, grad_norm=grad_norm)
+        return state, {k: v.detach() for k, v in metrics.items()}
 
     return step
+
+
+def _grads(out, leaves, grad_outputs=None, retain_graph: bool = False) -> List[torch.Tensor]:
+    """d out / d leaves, zeros for a leaf the output does not reach."""
+    grads = torch.autograd.grad(out, leaves, grad_outputs, retain_graph=retain_graph, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
 
 def make_eval_step(

@@ -32,7 +32,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import MODEL_PRESETS, ExperimentConfig, preset
 
 
@@ -51,11 +50,14 @@ def build_argparser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--patience", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--weight-decay", type=float, default=None)
-    p.add_argument("--kg-lambda", type=float, default=None, help="KgCoOp weight (not yet ported: 0 only)")
-    p.add_argument("--prograd-lambda", type=float, default=None, help="ProGrad weight (not yet ported: 0 only)")
-    p.add_argument("--scl-lambda", type=float, default=None, help="PromptSRC weight (not yet ported: 0 only)")
+    p.add_argument("--kg-lambda", type=float, default=None,
+                   help="KgCoOp weight: cosine pull of the class embeddings to the zero-shot anchor")
+    p.add_argument("--prograd-lambda", type=float, default=None,
+                   help="ProGrad: project the gradient off the KL-to-zero-shot gradient where they conflict")
+    p.add_argument("--scl-lambda", type=float, default=None,
+                   help="PromptSRC logit term: weight of KL(zero-shot || tuned) in the loss")
     p.add_argument("--anchor-templates", nargs="+", default=None, metavar="TPL",
-                   help="PromptSRC anchor templates (used by the lambdas above)")
+                   help="average the zero-shot anchor over these templates (PromptSRC's textual diversity)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--num-shots", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
@@ -104,9 +106,6 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
                         tuple(args.anchor_templates) if args.anchor_templates is not None else None)]:
         if arg is not None:
             train = dataclasses.replace(train, **{field: arg})
-    for name in ("kg_lambda", "prograd_lambda", "scl_lambda"):
-        if getattr(train, name) > 0.0:
-            raise NotPortedError(f"--{name.replace('_', '-')} > 0")
     return dataclasses.replace(
         cfg,
         model=model,

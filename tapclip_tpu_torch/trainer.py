@@ -18,8 +18,12 @@ checkpoint (``utils/checkpoint.py``) or from the JAX package; a restored
 ``epoch`` continues the epoch numbering, so the shuffle seeds continue
 where the interrupted run stopped.  :class:`PathFeatureCache` keys the
 frozen tower's features by image path, so the cross-domain grid encodes
-each distinct image once.  The zero-shot anchors (KgCoOp / ProGrad /
-PromptSRC) are not yet ported.
+each distinct image once.  With ``kg_lambda``, ``prograd_lambda`` or
+``scl_lambda`` the fit builds the zero-shot anchor through the same pipeline
+the tuned features take (template-initialised bank, attribution, the init
+adjustor, encode under ``prompt_cfg.text_mode``), so ``loss_kg`` is 0 at
+template init; ``anchor_templates`` averages it over templates
+(:func:`_multi_template_anchor`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from tapclip_tpu_torch.config import TrainConfig
 from tapclip_tpu_torch.models.attribution_monitor import attribution_entropy
 from tapclip_tpu_torch.models.model_wrapper import FullModel, text_features_with_attribution
+from tapclip_tpu_torch.models.prompt_learner import PromptLearner
 from tapclip_tpu_torch.parallel.train_step import (
     encode_dataset_features,
     init_train_state,
@@ -47,6 +52,44 @@ from tapclip_tpu_torch.parallel.train_step import (
 from tapclip_tpu_torch.utils.logging_utils import StepTimer
 
 log = logging.getLogger("tapclip_tpu_torch")
+
+
+def _anchor_features(model: FullModel, bank, adjustor) -> torch.Tensor:
+    """``[C_max, E]`` L2-normalized text features of ``bank``'s own (frozen)
+    context through attribution -> adjust -> encode, without a graph (a
+    plain tensor, not an inference tensor: the step's autograd reads it)."""
+    with torch.no_grad():
+        feats, _ = text_features_with_attribution(
+            model.clip_params, bank.ctx, bank, model.clip_cfg, model.prompt_cfg, adjustor
+        )
+    return feats.float()
+
+
+def _multi_template_anchor(model: FullModel, templates, init_adjustor) -> np.ndarray:
+    """Template-ensembled zero-shot anchor in the tuned geometry (PromptSRC's
+    textual diversity): one template-initialised bank per template, each
+    encoded by :func:`_anchor_features`, the per-template features averaged
+    and renormalized.  Returns ``[C_max, E]`` f32, padded to the model bank's
+    width.  Refused unless ``use_init_prompt``: with a random context a
+    fresh learner would draw another context than the live model did."""
+    if not model.prompt_cfg.use_init_prompt:
+        raise ValueError(
+            "anchor_templates requires PromptConfig.use_init_prompt=True — with a random context init the "
+            "multi-template anchor would not be the model's own zero-shot features (drop anchor_templates to "
+            "anchor on the model's actual init context instead)"
+        )
+    C_max = model.prompt_learner.bank.ctx.shape[0]
+    acc = None
+    for t in templates:
+        learner = PromptLearner(list(model.class_names), model.clip_params, model.clip_cfg,
+                                dataclasses.replace(model.prompt_cfg, template=t), model.tokenizer, banner=False)
+        f = _anchor_features(model, learner.bank, init_adjustor).cpu().numpy()[: len(model.class_names)]
+        acc = f.copy() if acc is None else acc + f
+    acc /= len(templates)
+    acc = acc / np.maximum(np.linalg.norm(acc, axis=-1, keepdims=True), 1e-12)
+    out = np.zeros((C_max, acc.shape[-1]), np.float32)
+    out[: acc.shape[0]] = acc
+    return out
 
 
 @dataclasses.dataclass
@@ -197,18 +240,31 @@ def fit_prompt_model(
     epochs and on early stop.
     """
     epochs = epochs if epochs is not None else train_cfg.epochs
+    if model.prompt_cfg.maple_depth > 0:
+        raise NotImplementedError(
+            "fit_prompt_model trains over CACHED image features; MaPLe's vision prompts make features "
+            "trainable-dependent — use tapclip_tpu_torch.maple.fit_maple"
+        )
     trainable_keys = ("ctx",) if trainable_keys is None else tuple(trainable_keys)
     missing = [k for k in trainable_keys if k not in model.trainable]
     if missing:
         raise ValueError(
             f"trainable_keys {missing} not in model.trainable (have {sorted(model.trainable)})"
         )
-    # Built before the feature-caching pass, so unported options fail fast.
     optimizer = make_optimizer(train_cfg)
+    # The anchor is the init state's: the adjustor and logit scale are taken
+    # before a resume replaces model.trainable.
+    kg_feats = None
+    if train_cfg.kg_lambda > 0.0 or train_cfg.prograd_lambda > 0.0 or train_cfg.scl_lambda > 0.0:
+        init_adjustor = model.trainable.get("adjustor")
+        if train_cfg.anchor_templates:
+            kg_feats = _multi_template_anchor(model, train_cfg.anchor_templates, init_adjustor)
+        else:
+            kg_feats = _anchor_features(model, model.prompt_learner.bank, init_adjustor)
     step_fn = make_train_step(
         model.clip_cfg, model.prompt_cfg, optimizer, trainable_keys=trainable_keys,
-        kg_lambda=train_cfg.kg_lambda, prograd_lambda=train_cfg.prograd_lambda,
-        scl_lambda=train_cfg.scl_lambda,
+        kg_lambda=train_cfg.kg_lambda, kg_feats=kg_feats, prograd_lambda=train_cfg.prograd_lambda,
+        anchor_scale=float(model.trainable["logit_scale"]), scl_lambda=train_cfg.scl_lambda,
     )
     encoder = make_image_encoder(model.clip_cfg)
     train_cache = (

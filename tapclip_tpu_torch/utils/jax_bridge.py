@@ -69,13 +69,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict
 
 
 def prompt_state_from_jax(trainable: Dict[str, Any], bank, device="cpu") -> Tuple[Dict[str, Any], PromptBank]:
-    """JAX ``trainable`` (``ctx``, ``adjustor``, ``logit_scale``) and
-    ``PromptBank`` (any object with its four fields, NumPy-valued) -> the port's."""
+    """JAX ``trainable`` (``ctx``, ``adjustor``, ``logit_scale`` and MaPLe's
+    ``maple`` subtree when present) and ``PromptBank`` (any object with its
+    four fields, NumPy-valued) -> the port's."""
     port_trainable = {
         "ctx": _tensor(trainable["ctx"], device),
         "adjustor": _tree(dict(trainable.get("adjustor", {})), device),
         "logit_scale": _tensor(trainable["logit_scale"], device),
     }
+    if "maple" in trainable:
+        port_trainable["maple"] = _tree(dict(trainable["maple"]), device)
     port_bank = PromptBank(
         ctx=_tensor(bank.ctx, device),
         token_embs=_tensor(bank.token_embs, device),

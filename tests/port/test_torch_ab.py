@@ -63,6 +63,11 @@ from tapclip_tpu_torch.ops.fused_mlp import (
 )
 from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, fused_layer_ab, mlp_kernel_ab
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 B, W, HEADS, HID = 2, 128, 2, 512
 SHAPES = [(24, 17), (136, 130)]
 F32_TOL = dict(rtol=1e-5, atol=1e-5)

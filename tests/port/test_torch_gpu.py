@@ -1328,3 +1328,64 @@ def test_variant_refusals(cuda):
             fused_layer(x, ln1, attn, ln2, mlp, 2, 136, grid=fit + 1)
         with pytest.raises(ValueError, match="rows"):
             fused_mlp_variant(x, *ln2.values(), *mlp.values(), rows=8, ilv=True)
+
+
+# --- ProGrad: two pullbacks over one retained graph --------------------------------
+
+
+@pytest.mark.gpu
+def test_two_pullbacks_over_one_retained_graph(cuda):
+    """ProGrad's step: one forward through K2/B4, K1/B5 and K3 (the flash
+    chain's backward), then ``torch.autograd.grad`` of ``[L1, L2]`` with
+    cotangent ``[1, 0]`` (``retain_graph``) and ``[0, 1]``.  Each pullback
+    against autograd through the plain versions (norm-relative f32 1e-5);
+    the second also bit for bit against the same pullback over a fresh
+    graph, so the first left nothing the second reads changed; every
+    backward kernel launched twice."""
+    B, T, W, heads, valid = 4, 88, 128, 2, 82
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x0 = _randn(gen, B, T, W)
+    ln = {"scale": 1.0 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)}
+    attn = {"w_qkv": _randn(gen, W, 3 * W, scale=W ** -0.5), "b_qkv": _randn(gen, 3 * W, scale=0.1),
+            "w_out": _randn(gen, W, W, scale=W ** -0.5), "b_out": _randn(gen, W, scale=0.1)}
+    mlp = {"w_fc": _randn(gen, W, 4 * W, scale=W ** -0.5), "b_fc": _randn(gen, 4 * W, scale=0.1),
+           "w_proj": _randn(gen, 4 * W, W, scale=(4 * W) ** -0.5), "b_proj": _randn(gen, W, scale=0.1)}
+    g1, g2 = _randn(gen, B, T, W), _randn(gen, B, T, W)
+
+    def heads_of(t):  # [B, T, W] -> [B, H, T, Dh]
+        return t.reshape(B, T, heads, W // heads).transpose(1, 2).contiguous()
+
+    def forward(x, plain):
+        if plain:
+            h = attn_block_reference(x, ln["scale"], ln["bias"], *attn.values(), heads, valid, 1e-5)
+            h = fused_mlp_reference(h, ln["scale"], ln["bias"], *mlp.values(), eps=1e-5)
+            o, _ = attention_reference(heads_of(h), heads_of(h * 0.5), heads_of(h), kv_valid_len=valid,
+                                       attn_to_idx=T - 1)
+        else:
+            h = fused_attn_block(x, ln, attn, heads, valid_len=valid)
+            h = fused_mlp_block(h, ln, mlp)
+            o, _ = fused_attention(heads_of(h), heads_of(h * 0.5), heads_of(h), kv_valid_len=valid,
+                                   attn_to_idx=T - 1)
+        out = o.transpose(1, 2).reshape(B, T, W)
+        return torch.stack([(out * g1).sum(), (out * g2).sum()])
+
+    def pullbacks(plain):
+        x = x0.clone().requires_grad_(True)
+        vals = forward(x, plain)
+        (d1,) = torch.autograd.grad(vals, [x], vals.new_tensor([1.0, 0.0]), retain_graph=True)
+        (d2,) = torch.autograd.grad(vals, [x], vals.new_tensor([0.0, 1.0]))
+        return d1, d2
+
+    counters = ((fused_attn_block, "bwd_launches"), (fused_mlp_block, "bwd_launches"),
+                (fused_attention, "dq_launches"))
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    k1, k2 = pullbacks(plain=False)
+    assert [getattr(fn, attr) for fn, attr in counters] == [2, 2, 2]
+    p1, p2 = pullbacks(plain=True)
+    _close_rel("first pullback", k1, p1, 1e-5)
+    _close_rel("second pullback", k2, p2, 1e-5)
+    x = x0.clone().requires_grad_(True)
+    vals = forward(x, plain=False)
+    (fresh,) = torch.autograd.grad(vals, [x], vals.new_tensor([0.0, 1.0]))
+    assert torch.equal(k2, fresh)

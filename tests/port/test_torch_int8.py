@@ -45,6 +45,11 @@ from tapclip_tpu_torch.serve import PredictService, main, server_config
 from tapclip_tpu_torch.utils.adaptive_eval import adaptive_logits
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 W, HID, HEADS = 128, 512, 4
 BLOCK_TOL = 2e-3
 CLASSES = ["Backpack", "Pen", "Monitor"]

@@ -57,6 +57,11 @@ from tapclip_tpu_torch.utils import logging_utils as tlog
 from tapclip_tpu_torch.utils import torch_convert as ttc
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 CLASSES = ["Backpack", "Alarm_Clock", "Laptop"]
 T_TINY = tcfg.TINY_TEST
 # Logits are exp(logit_scale) = 14.3 times a cosine (the card's serving limits).

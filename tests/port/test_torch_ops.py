@@ -43,6 +43,11 @@ from tapclip_tpu_torch.scripts.split_error import (
     emulated_mlp_errors,
 )
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, T, W, HEADS, HID, VALID = 2, 16, 128, 2, 512, 13
 

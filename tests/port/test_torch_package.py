@@ -23,6 +23,11 @@ import tapclip_tpu_torch.config as tcfg
 import tapclip_tpu_torch.data.preprocess as tpre
 from tapclip_tpu_torch.data.tokenizer import SimpleTokenizer as TorchTokenizer
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 PORT_MODULES = [
     "tapclip_tpu_torch",
     "tapclip_tpu_torch.config",
@@ -81,6 +86,14 @@ PORT_MODULES = [
     "tapclip_tpu_torch.scripts.attn_kernel_ab",
     "tapclip_tpu_torch.scripts.attn_softmax_ab",
     "tapclip_tpu_torch.scripts.time_half_blocks",
+    "tapclip_tpu_torch.data.augment",
+    "tapclip_tpu_torch.promptsrc",
+    "tapclip_tpu_torch.maple",
+    "tapclip_tpu_torch.tpt",
+    "tapclip_tpu_torch.linear_probe",
+    "tapclip_tpu_torch.tip_adapter",
+    "tapclip_tpu_torch.clip_adapter",
+    "tapclip_tpu_torch.fewshot",
 ]
 
 

@@ -38,6 +38,11 @@ from tapclip_tpu_torch.models import clip as tclip
 from tapclip_tpu_torch.utils import saliency as tsal
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 CLASSES = ["Backpack", "Alarm_Clock", "Laptop"]
 SCORE_TOL = 1e-5  # beside the CSV's 6 decimals
 ATTR_TOL = 1e-6

@@ -37,6 +37,11 @@ from tapclip_tpu_torch import search as t_search
 from tapclip_tpu_torch import zero_shot_eval as t_zse
 from tapclip_tpu_torch.data import shards as t_shards
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 CLASSES = ["Backpack", "Alarm_Clock", "Laptop"]
 DOMAINS = ["Real World", "Art"]
 EMB_TOL = 2e-3  # float16 storage of unit-norm rows

@@ -36,6 +36,11 @@ from tapclip_tpu_torch import robustness as t_rob
 from tapclip_tpu_torch import sweep as t_sweep
 from tapclip_tpu_torch.utils import corruptions as tcor
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 CLASSES = ["Alarm_Clock", "Backpack", "Laptop"]  # the tree's sorted folders
 DOMAINS = ["Real World", "Art"]
 DETERMINISTIC = ("gaussian_blur", "contrast", "brightness", "saturate", "pixelate")

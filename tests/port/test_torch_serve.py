@@ -35,6 +35,11 @@ from tapclip_tpu_torch.serve import (
 )
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 CLASSES = ["Backpack", "Pen", "Monitor"]
 TOL = 1e-4
 

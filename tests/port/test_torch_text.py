@@ -62,6 +62,11 @@ from tapclip_tpu_torch.parallel import train_step as tts
 from tapclip_tpu_torch.scripts.split_error import emulate_mha, emulate_mha_bwd
 from tapclip_tpu_torch.utils.jax_bridge import params_from_jax, prompt_state_from_jax
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 # bf16 against the f32 answer: q.k and p.v see bf16 inputs (8 bits of
 # mantissa, 2^-8 relative each), and the two packages round p at different

@@ -50,6 +50,11 @@ from tapclip_tpu_torch.parallel import train_step as tts
 from tapclip_tpu_torch.utils.jax_bridge import adamw_state_from_optax, params_from_jax, prompt_state_from_jax
 from tapclip_tpu_torch.utils.logging_utils import StepTimer
 
+# One intra-op thread per process: the suite runs several workers on the
+# machine's cores, and torch's default of a thread per core oversubscribes
+# them (the plain versions' small operators then wait on each other).
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 TRAJ_TOL = dict(rtol=1e-4, atol=5e-6)
@@ -398,18 +403,24 @@ def test_fine_tune_on_few_shot_matches_jax(tiny):
     assert tres.acc_history == [] and tres.best_acc == 0.0
 
 
-# --- what is not ported yet -------------------------------------------------------
+# --- the anchored options (once not ported) ---------------------------------------
 
 
 @pytest.mark.parametrize("option", ["kg_lambda", "prograd_lambda", "scl_lambda"])
 def test_unported_options_raise(tiny, option):
+    """Each anchored option, once refused as not ported: the step now refuses
+    it without the zero-shot anchor, with the JAX package's message, and the
+    fit builds the anchor itself and trains."""
     jc, jp, tc, tp = tiny
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tts.make_train_step(tc, tcfg.PromptConfig(), **{option: 0.1})
+    for make in (lambda: tts.make_train_step(tc, tcfg.PromptConfig(), **{option: 0.1}),
+                 lambda: jts.make_train_step(jc, JPromptConfig(), None, **{option: 0.1})):
+        with pytest.raises(ValueError, match="requires kg_feats"):
+            make()
     _, tm = _models(tiny)
-    loader = [np.zeros((1, 4))]  # never read: the options are refused first
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrainer.fit_prompt_model(tm, loader, None, tcfg.TrainConfig(**{option: 0.1}), verbose=False)
+    (xtr, ytr), _ = _cached_sets(jc, n_train=4, seed=15)
+    res = ttrainer.fit_prompt_model(tm, ttrainer.CachedSet(xtr, ytr), None,
+                                    tcfg.TrainConfig(epochs=1, batch_size=4, **{option: 0.1}), verbose=False)
+    assert res.final_state.step == 1 and np.isfinite(res.loss_history).all()
 
 
 def test_unknown_trainable_key_raises(tiny):
