@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port's serving, training, text and int8 paths, the reference
-workloads from files, the offline inference and evaluation entry points and the few-shot
-adaptation zoo, once on one NVIDIA GPU.
+workloads from files, the offline inference and evaluation entry points, the few-shot
+adaptation zoo, and CoCoOp, base-to-new, CLIPWrapper and the RN50 tower, once on one
+NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -211,6 +212,27 @@ Run from the repository root:  python3 chip_smoke.py
     image); ``train`` with every anchor and three templates, launches
     exactly as counted from the shapes.  Prints ms per step of each step
     kind, TPT images/s and each method's TrainSeconds.
+24. CoCoOp, base-to-new, ``CLIPWrapper`` and RN50 ("cocoop_rn"), from
+    seeded state dicts (ViT-B/16 f32 unless RN50): a CoCoOp model at init
+    against the unconditioned one (LOGIT_TOL); the CoCoOp cached-feature
+    step (batch 32, 5 classes at capacity 8: 256 text rows; ctx and the
+    meta-net trained) in both text modes and once with kg + ProGrad, 5 steps
+    on the kernels and on the plain path (loss, first grad norm, the ctx +
+    meta-net displacement at TRAIN_TOL), launches per step exactly (24 K1 +
+    23 K2 + 1 K3 + 12 B4 + 12 B5 ref_compat, 24 K1 + 23 B6 + 1 causal K3 +
+    12 B7 + 12 B5 idiomatic, the backward twice for ProGrad), ms per step
+    timed in turns with the class-level CE step, ``evaluate_cached`` at its
+    batch of 256 (2,048 text rows) with its peak memory; a conditioned
+    CoCoOp model served over HTTP (a /predict batch of 8: 36 K1 + 35 K2 + 1
+    K3; an /embed batch one tower more; /explain rows against the plain
+    path, two images' rows apart by more than that error);
+    ``predict_corpus`` (attribution None, probabilities against the plain
+    path); ``base_to_new``'s ``parse`` + ``run`` on a 4-class tree against
+    ``run_base_to_new`` on the plain path (within one image) and its CSV
+    header; ``CLIPWrapper``'s encoders against featurize's, its bare map's
+    column T-1 against K3's aux (ATTR_TOL); RN50 at 224 px: an 8-image
+    batch's logits (LOGIT_TOL), the cached-feature step (text W 512, embed
+    1,024) with exact launches, /explain with saliency, ms per image batch.
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -3810,6 +3832,480 @@ def adapt_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+COCOOP_MODEL, RN_MODEL = "ViT-B-16", "RN50"
+COCOOP_DEVICE = "cuda"
+COCOOP_BATCH = 32
+COCOOP_STEPS = 5  # per variant; the first is not timed
+COCOOP_TURNS = 6  # CoCoOp and class-level CE steps timed in turns; the first pair is warm-up
+COCOOP_KEYS = ("ctx", "meta_net")
+COCOOP_EVAL = 256  # trainer.evaluate_cached's batch: 2,048 text rows at capacity 8
+COCOOP_VARIANTS = (("ref_compat", "ce", {}), ("idiomatic", "ce", {}),
+                   ("ref_compat", "kg+prograd", {"kg_lambda": 0.5, "prograd_lambda": 1.0}))
+B2N_CLASSES = ["Alarm_Clock", "Backpack", "Laptop", "Mug"]  # alphabetical halves
+B2N_IMAGES, B2N_SHOTS, B2N_EPOCHS = 8, 4, 2
+RN_BATCH = 8
+COCOOP_KERNELS = FORWARD + BACKWARD + TEXT
+# Per text pass pair of the idiomatic (causal) tower, and per step's pullback.
+IDIOMATIC_PASS = {"fused_mlp": 24, "fused_mha": 23, "fused_attention_aux": 1, "fused_attention_aux_causal": 1}
+IDIOMATIC_BWD = {"fused_mha_bwd": 12, "fused_mlp_bwd": 12}
+# A meta-net that conditions: w1 at 30x its init scale and w2 nonzero, so
+# each image shifts the context by its own vector, about 0.1 a dimension
+# apart between two random images (the token embeddings' scale is 0.02).
+META_W1_GAIN, META_W2_STD = 30.0, 0.05
+# The meta-net's displacement after COCOOP_STEPS steps, held apart from
+# ctx's (TRAIN_TOL): its output layer starts at 0, so w1's and b1's first
+# gradients are exactly 0 and their next ones are made through w2 entries
+# that AdamW's first step set to +-lr; AdamW then moves an entry whose
+# gradient sits near the f32 noise of its sum over the batch and the classes
+# by a different share of lr on each path.  The norm-relative displacement
+# read 2.1e-3 (ref_compat CE, H100 80GB HBM3 at 700 W) with no entry apart
+# by more than lr, so it is held at COCOOP_META_TOL and the share of entries
+# apart by more than lr at COCOOP_FLIP_SHARE; the loss of every step and the
+# first gradient norm stay at TRAIN_TOL, ctx's displacement too.
+COCOOP_META_TOL = 1e-2
+COCOOP_FLIP_SHARE = 1e-3
+
+
+def _cocoop_counts(mode: str, passes: int = 0, pullbacks: int = 0) -> dict:
+    want = {name: 0 for name in COCOOP_KERNELS}
+    fwd, bwd = (IDIOMATIC_PASS, IDIOMATIC_BWD) if mode == "idiomatic" else (TEXT_PASS, STEP_BWD)
+    for table, n in ((fwd, passes), (bwd, pullbacks)):
+        for name, k in table.items():
+            want[name] += k * n
+    return want
+
+
+def _conditioned(model, seed: int):
+    """``model``'s meta-net set to a seeded one that conditions (see META_W1_GAIN)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    mn = model.trainable["meta_net"]
+    E, h = mn["w1"].shape
+    dev = mn["w1"].device
+    model.trainable = dict(model.trainable, meta_net=dict(
+        mn, w1=(torch.randn(E, h, generator=g) * META_W1_GAIN * E ** -0.5).to(dev),
+        w2=(torch.randn(tuple(mn["w2"].shape), generator=g) * META_W2_STD).to(dev)))
+    return model
+
+
+def _cocoop_steps(kparams, cfg, plain_cfg, card: str) -> dict:
+    """The CoCoOp cached-feature step (batch 32, 5 classes at capacity 8: 256
+    text rows) in both text modes and with kg + ProGrad, on the kernels and
+    on the plain path: loss, first grad norm, the ctx + meta_net
+    displacement, exact launches; then ms per step timed in turns with the
+    class-level CE step; then ``evaluate_cached`` at its batch of 256."""
+    import torch
+
+    from tapclip_tpu_torch.config import PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.trainer import CachedSet, evaluate_cached
+
+    rng = np.random.default_rng(10)
+    anchor = rng.standard_normal((8, cfg.embed_dim)).astype(np.float32)
+    anchor /= np.linalg.norm(anchor, axis=-1, keepdims=True)
+    batches = []
+    for _ in range(COCOOP_STEPS):
+        y = rng.integers(0, len(TRAIN_CLASSES), COCOOP_BATCH)
+        x = 3.0 * anchor[(y + 1) % len(TRAIN_CLASSES)] + 0.5 * rng.standard_normal((COCOOP_BATCH, cfg.embed_dim))
+        batches.append((x.astype(np.float32), y))
+    mask = np.ones(COCOOP_BATCH, bool)
+    tol = TRAIN_TOL["float32"]
+    out = {}
+    launches = {n: 0 for n in COCOOP_KERNELS}
+
+    def setup(c, mode, terms, keys=COCOOP_KEYS, conditioned=True):
+        model = FullModel(TRAIN_CLASSES, kparams, c,
+                          prompt_cfg=PromptConfig(image_conditioned=conditioned, text_mode=mode))
+        kw = dict(terms, kg_feats=anchor, anchor_scale=float(model.trainable["logit_scale"])) if terms else {}
+        step = make_train_step(c, model.prompt_cfg, trainable_keys=keys, **kw)
+        return model, step, init_train_state(model.trainable, make_optimizer(TrainConfig(lr=2e-3)), keys)
+
+    for mode, name, terms in COCOOP_VARIANTS:
+        runs = {}
+        for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+            model, step, state = setup(c, mode, terms)
+            p0 = {k: _flat(state.params[k]) for k in COCOOP_KEYS}
+            rec = {"loss": [], "grad_norm": [], "ms": []}
+            reset_counts()
+            for x, y in batches:
+                (state, m), ms = _sync_ms(lambda: step(kparams, state, model.prompt_learner.bank, x, y, mask))
+                rec["loss"].append(float(m["loss"]))
+                rec["grad_norm"].append(float(m["grad_norm"]))
+                rec["ms"].append(ms)
+            rec["launches"] = read_counts()
+            rec["p0"], rec["p"] = p0, {k: _flat(state.params[k]) for k in COCOOP_KEYS}
+            runs[path] = rec
+        k, p = runs["kernel"], runs["plain"]
+        pulls = 2 if "prograd_lambda" in terms else 1
+        _expect(f"cocoop {mode} {name} steps", k["launches"],
+                _cocoop_counts(mode, COCOOP_STEPS, pulls * COCOOP_STEPS))
+        require(all(n == 0 for n in p["launches"].values()), f"cocoop {mode} {name}: the plain path launched kernels")
+        for n in launches:
+            launches[n] += k["launches"][n]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+        norm_err = abs(k["grad_norm"][0] - p["grad_norm"][0]) / abs(p["grad_norm"][0])
+        ctx_err, meta_err = (_step_err(k["p"][key], k["p0"][key], p["p"][key], p["p0"][key]) for key in COCOOP_KEYS)
+        apart = np.abs((k["p"]["meta_net"] - k["p0"]["meta_net"]) - (p["p"]["meta_net"] - p["p0"]["meta_net"]))
+        flips = float((apart > 2e-3).mean())  # moved apart by more than lr (2e-3)
+        require(np.isfinite(k["loss"]).all() and loss_err <= tol["loss"] and norm_err <= tol["grad_norm"]
+                and ctx_err <= tol["ctx_step"] and meta_err <= COCOOP_META_TOL and flips <= COCOOP_FLIP_SHARE,
+                f"cocoop {mode} {name}: loss rel err {loss_err:.3e}, first grad norm rel err {norm_err:.3e}, ctx "
+                f"displacement err {ctx_err:.3e}, meta_net {meta_err:.3e} with {flips:.2e} of its entries apart")
+        out[f"{mode} {name}"] = {"ms": float(np.median(k["ms"][1:])), "plain_ms": float(np.median(p["ms"][1:])),
+                                 "loss_err": loss_err, "grad_norm_err": norm_err, "ctx_step_err": ctx_err,
+                                 "meta_step_err": meta_err, "meta_entries_apart": flips,
+                                 "launches_per_step": {n: k["launches"][n] // COCOOP_STEPS for n in COCOOP_KERNELS
+                                                       if k["launches"][n]}}
+    print("cocoop: cached-feature steps at batch 32 (5 classes at capacity 8: 256 text rows, ViT-B/16 f32 text "
+          f"tower, ctx + meta_net trained), median ms of the last {COCOOP_STEPS - 1} of {COCOOP_STEPS}, kernel vs "
+          "plain: " + "; ".join(f"{n} {r['ms']:.2f} vs {r['plain_ms']:.2f} (launches per step {r['launches_per_step']}, "
+                                f"loss rel err {r['loss_err']:.1e}, first grad norm {r['grad_norm_err']:.1e}, "
+                                f"ctx displacement {r['ctx_step_err']:.1e}, meta_net {r['meta_step_err']:.1e} with "
+                                f"{r['meta_entries_apart']:.1e} of its entries apart)" for n, r in out.items())
+          + f" (tol loss {tol['loss']}, grad norm {tol['grad_norm']}, ctx displacement {tol['ctx_step']}, meta_net "
+          f"{COCOOP_META_TOL}, entries apart {COCOOP_FLIP_SHARE}) ({card})",
+          flush=True)
+
+    # ms per step in turns: the CoCoOp CE step, then the class-level CE step.
+    timed = {"cocoop": setup(cfg, "ref_compat", {}), "class-level": setup(cfg, "ref_compat", {}, ("ctx",), False)}
+    ms = {key: [] for key in timed}
+    for i in range(COCOOP_TURNS):
+        x, y = batches[i % len(batches)]
+        for key, (model, step, state) in timed.items():
+            _, t = _sync_ms(lambda: step(kparams, state, model.prompt_learner.bank, x, y, mask))
+            ms[key].append(t)
+    turns = {key: float(np.median(v[1:])) for key, v in ms.items()}
+    print(f"cocoop: ref_compat CE step in turns, median of {COCOOP_TURNS - 1} after one: CoCoOp {turns['cocoop']:.2f} "
+          f"ms, class-level {turns['class-level']:.2f} ms ({turns['cocoop'] / turns['class-level']:.1f}x) ({card})",
+          flush=True)
+
+    # evaluate_cached at its batch of 256: 2,048 text rows per pass.
+    ev = CachedSet(feats=(3.0 * anchor[rng.integers(0, len(TRAIN_CLASSES), COCOOP_EVAL)]
+                          + 0.5 * rng.standard_normal((COCOOP_EVAL, cfg.embed_dim))).astype(np.float32),
+                   labels=rng.integers(0, len(TRAIN_CLASSES), COCOOP_EVAL).astype(np.int32))
+    accs = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        model = _conditioned(FullModel(TRAIN_CLASSES, kparams, c, prompt_cfg=PromptConfig(image_conditioned=True)), 3)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (acc, _), s = _sync_ms(lambda: evaluate_cached(model, ev))
+        accs[path] = (acc, s, read_counts(), torch.cuda.max_memory_allocated() / 2 ** 30)
+    _expect("cocoop evaluate_cached", accs["kernel"][2], _cocoop_counts("ref_compat", 1))
+    for n in launches:
+        launches[n] += accs["kernel"][2][n]
+    require(abs(accs["kernel"][0] - accs["plain"][0]) <= 100.0 / COCOOP_EVAL + 1e-6,
+            f"cocoop evaluate_cached: {accs['kernel'][0]} vs plain {accs['plain'][0]}")
+    print(f"cocoop: evaluate_cached over {COCOOP_EVAL} features in one batch ({COCOOP_EVAL * 8} text rows a pass): "
+          f"{accs['kernel'][1]:.1f} ms, peak {accs['kernel'][3]:.2f} GiB allocated, accuracy {accs['kernel'][0]:.2f} "
+          f"(plain {accs['plain'][0]:.2f}, {accs['plain'][1]:.1f} ms, peak {accs['plain'][3]:.2f} GiB) ({card})",
+          flush=True)
+    return {"steps": out, "turns_ms": turns, "launches": launches,
+            "eval": {"ms": accs["kernel"][1], "plain_ms": accs["plain"][1], "peak_gib": accs["kernel"][3]}}
+
+
+def _cocoop_serve(kparams, cfg, plain_cfg, card: str) -> dict:
+    """A CoCoOp model with a conditioning meta-net served over HTTP: 8
+    concurrent /predict (one batch), 8 /embed riding a second batch, two
+    /explain; probabilities and attribution rows against the plain path;
+    exact launches per batch; the per-image attribution rows equal at init
+    and apart with the meta-net."""
+    import torch
+
+    from tapclip_tpu_torch.config import PromptConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.serve import PredictService, make_http_server
+
+    pcfg = PromptConfig(image_conditioned=True)
+    model = _conditioned(FullModel(CLASSES, kparams, cfg, prompt_cfg=pcfg), 4)
+    plain = FullModel(CLASSES, kparams, plain_cfg, prompt_cfg=pcfg)
+    plain.trainable = model.trainable
+    images = np.random.default_rng(11).integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    service = PredictService(model, batch_size=8, max_latency_ms=2000.0)
+    server = make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        reset_counts()
+        answers = _served(base, images)
+        torch.cuda.synchronize()
+        batch_launches = read_counts()
+        with ThreadPoolExecutor(8) as pool:
+            embeds = list(pool.map(lambda j: _post(base + "/embed", {"pixels": images[j].tolist()}), range(8)))
+        torch.cuda.synchronize()
+        served_launches = read_counts()
+        embed_launches = {n: v - batch_launches[n] for n, v in served_launches.items()}
+        explains = [_post(base + "/explain", {"pixels": images[j].tolist()}) for j in (0, 1)]
+        stats = service.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=10)
+    require(stats["batches"] == 2 and stats["requests"] == 16, f"cocoop serving: {stats}")
+    per_batch = {"fused_mlp": 36, "fused_attn_block": 35, "fused_attention_aux": 1}  # tower + 2 text passes
+    _expect("cocoop serving /predict batch", batch_launches, per_batch)
+    _expect("cocoop serving /embed batch", embed_launches, {n: v + IMAGE_BATCH.get(n, 0) for n, v in per_batch.items()})
+    with torch.inference_mode():
+        want = plain(images)
+        rows = model(images)["attribution"].float().cpu().numpy()  # [8, C, P] on the kernels, unrounded
+        at_init = FullModel(CLASSES, kparams, cfg, prompt_cfg=pcfg)(images)["attribution"].float().cpu().numpy()
+    want_probs = _plain_probs(want["logits"].float().cpu().numpy())
+    prob_err = float(np.abs(_probs_of(answers, CLASSES) - want_probs).max())
+    want_attr = want["attribution"].float().cpu().numpy()
+    attr_err = max(float(np.abs(np.array([ex["attribution"][n] for n in CLASSES]) - want_attr[j]).max())
+                   for j, ex in zip((0, 1), explains))
+    # The conditioning shows in the rows: at init (w2 = 0) every image's rows
+    # are the same bits; with the meta-net they part.  They part little:
+    # the attribution column T-1 is a padding slot whose key ~70 identical
+    # padding keys share, and the rows are a softmax of those probabilities,
+    # so they sit at 1/P within about 1e-6 (under the /explain JSON's
+    # 6-decimal rounding), and the spread is read on the unrounded rows.
+    spread = float(np.abs(rows - rows[:1]).max())
+    spread0 = float(np.abs(at_init - at_init[:1]).max())
+    feats = _image_features(kparams, plain_cfg, torch.as_tensor(images, device=COCOOP_DEVICE)).cpu().numpy()
+    emb_err = float(np.abs(np.array([e["embedding"] for e in embeds]) - feats).max())
+    require(prob_err <= PROB_TOL and attr_err <= ATTR_TOL and emb_err <= EMB_TOL,
+            f"cocoop serving vs plain: probs {prob_err:.3e}, attribution {attr_err:.3e}, embeddings {emb_err:.3e}")
+    require(spread0 == 0.0 and spread > 0.0,
+            f"cocoop attribution rows: {spread0:.3e} apart at init, {spread:.3e} with the meta-net")
+    print(f"cocoop: served (batch 8, a conditioning meta-net): /predict probs err {prob_err:.2e} (tol {PROB_TOL}), "
+          f"/explain rows err {attr_err:.2e} (tol {ATTR_TOL}); the 8 images' attribution rows apart by {spread:.2e} "
+          f"(at init {spread0:.1e}); /embed err "
+          f"{emb_err:.2e}; launches per /predict batch {per_batch}, per /embed batch one more tower; stats {stats} "
+          f"({card})", flush=True)
+    return {"prob_err": prob_err, "attr_err": attr_err, "row_spread": spread, "row_spread_at_init": spread0,
+            "batch_launches": per_batch,
+            "launches": served_launches,
+            "mean_batch_ms": stats["mean_batch_ms"]}
+
+
+def cocoop_rn_phase(card: str) -> dict:
+    """CoCoOp end to end, ``base_to_new``, ``CLIPWrapper`` and the RN50
+    tower on the card ("cocoop_rn"), from seeded open_clip state dicts
+    written by ``save_openclip_checkpoint`` and loaded back; ViT-B/16 f32
+    unless RN50."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch import base_to_new, predict
+    from tapclip_tpu_torch.config import MODEL_PRESETS, PromptConfig
+    from tapclip_tpu_torch.featurize import make_image_embed_fn, make_text_embed_fn
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.clip_wrapper import CLIPWrapper
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint, save_openclip_checkpoint
+
+    cfg, dev = MODEL_PRESETS[COCOOP_MODEL], COCOOP_DEVICE
+    plain_cfg = cfg.replace(attn_impl="xla")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cocoop_")
+    launches = {n: 0 for n in COCOOP_KERNELS}
+
+    def add(counts):
+        for n in launches:
+            launches[n] += counts.get(n, 0)
+
+    try:
+        params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(12), cfg)
+        sd = save_openclip_checkpoint(params, cfg, os.path.join(tmp, "open_clip.bin"))
+        del params
+        kparams = load_openclip_checkpoint(sd, cfg, device=dev)
+
+        # Zero-init identity: CoCoOp at init equals the unconditioned model.
+        images = np.random.default_rng(13).integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+        with torch.inference_mode():
+            base = FullModel(TRAIN_CLASSES, kparams, cfg)(images)["logits"].float().cpu().numpy()
+            cond = FullModel(TRAIN_CLASSES, kparams, cfg,
+                             prompt_cfg=PromptConfig(image_conditioned=True))(images)["logits"].float().cpu().numpy()
+        ident_err = float(np.abs(cond - base).max())
+        require(ident_err <= LOGIT_TOL, f"cocoop at init vs the unconditioned model: logits err {ident_err:.3e}")
+        print(f"cocoop: at init (w2 = 0) the logits of 8 images equal the unconditioned model's within "
+              f"{ident_err:.2e} (tol {LOGIT_TOL}) ({card})", flush=True)
+
+        steps = _cocoop_steps(kparams, cfg, plain_cfg, card)
+        add(steps["launches"])
+        served = _cocoop_serve(kparams, cfg, plain_cfg, card)
+        add(served["launches"])
+
+        # predict_corpus on a CoCoOp model: no attribution, rows as the plain path's.
+        tree = os.path.join(tmp, "tree")
+        _write_tree(tree, ["Real World"], B2N_CLASSES, B2N_IMAGES)
+        root = os.path.join(tree, "Real World")
+        paths = predict.list_images(root)
+        rows = {}
+        for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+            model = _conditioned(FullModel(CLASSES, kparams, c, prompt_cfg=PromptConfig(image_conditioned=True)), 4)
+            torch.cuda.synchronize()
+            reset_counts()
+            (rows[path], s) = _sync_ms(lambda: predict.predict_corpus(model, paths, batch_size=EVAL_BATCH,
+                                                                     top_k=len(CLASSES)))
+            rows[path] += (s, read_counts())
+        (krows, kattr, ks, kl), (prows, pattr, _, _) = rows["kernel"], rows["plain"]
+        n_batches = -(-len(paths) // EVAL_BATCH)
+        want = {n: (IMAGE_BATCH.get(n, 0) + TEXT_PASS.get(n, 0)) * n_batches for n in COCOOP_KERNELS}
+        _expect("cocoop predict_corpus", kl, want)
+        add(kl)
+        err, flips = _rows_err(krows, prows)
+        require(kattr is None and pattr is None and len(krows) == len(paths) and err <= PROB_TOL and not flips,
+                f"cocoop predict_corpus: attribution {kattr}, {len(krows)} rows, probs err {err:.3e}, flips {flips}")
+        print(f"cocoop: predict_corpus over {len(paths)} JPEGs (batch {EVAL_BATCH}) in {ks:.1f} ms, attribution None, "
+              f"probs err {err:.2e} (tol {PROB_TOL}) ({card})", flush=True)
+
+        # base_to_new through parse + run against run_base_to_new on the plain path.
+        out_dir = os.path.join(tmp, "b2n")
+        bargs = base_to_new.parse(["--root", root, "--model", COCOOP_MODEL, "--pretrained", sd, "--shots",
+                                   str(B2N_SHOTS), "--epochs", str(B2N_EPOCHS), "--batch-size", str(COCOOP_BATCH),
+                                   "--out", out_dir, "--device", dev])
+        torch.cuda.synchronize()
+        reset_counts()
+        b2n, b2n_ms = _sync_ms(lambda: base_to_new.run(bargs))
+        add(read_counts())
+        plain_b2n = base_to_new.run_base_to_new(root, shots=B2N_SHOTS, cfg=plain_cfg, params=kparams,
+                                                batch_size=COCOOP_BATCH, epochs=B2N_EPOCHS, verbose=False)
+        half = len(B2N_CLASSES) // 2
+        n_base, n_new = half * (B2N_IMAGES - B2N_SHOTS) // 2, half * B2N_IMAGES
+        for key, n in (("Base", n_base), ("New", n_new)):
+            require(abs(b2n[key] - plain_b2n[key]) <= 100.0 / n + 0.01, f"base_to_new {b2n} vs plain {plain_b2n}")
+        require(abs(b2n["H"] - base_to_new.harmonic_mean(b2n["Base"], b2n["New"])) <= 0.01, f"base_to_new H {b2n}")
+        require(open(os.path.join(out_dir, "base_to_new.csv")).readline().strip()
+                == ",".join(base_to_new.CSV_COLUMNS), "base_to_new.csv header")
+        print(f"cocoop: base_to_new ({len(B2N_CLASSES)} classes, {B2N_SHOTS} shots, {B2N_EPOCHS} epochs) in "
+              f"{b2n_ms / 1e3:.2f} s: {b2n} (plain path {plain_b2n}) ({card})", flush=True)
+
+        # CLIPWrapper: its encoders are featurize's; transformer_raw's map, column T-1, is K3's aux.
+        wrapper = CLIPWrapper(COCOOP_MODEL, pretrained_path=sd, device=dev)
+        tok = wrapper.get_tokenizer()
+        ids = np.asarray(tok.tokenize([f"a photo of a {c.replace('_', ' ')}" for c in TRAIN_CLASSES],
+                                      cfg.context_length))
+        text_err = float((clip_model.l2_normalize(wrapper.encode_text(ids)).float()
+                          - make_text_embed_fn(cfg)(kparams, ids)).abs().max())
+        img_err = float((clip_model.l2_normalize(wrapper.encode_image(images)).float()
+                         - make_image_embed_fn(cfg)(kparams, images)).abs().max())
+        require(tuple(wrapper.get_attention_map().shape) == (len(TRAIN_CLASSES), 77, 77),
+                f"CLIPWrapper map {tuple(wrapper.get_attention_map().shape)}")
+        T = 82  # ref_compat: 5 context tokens + 77
+        emb = torch.as_tensor(np.random.default_rng(14).standard_normal((8, T, cfg.text_width)).astype(np.float32)
+                              * 0.02, device=dev)
+        wrapper.transformer_raw(emb)
+        with torch.inference_mode():
+            reset_counts()
+            _, aux = clip_model.text_forward_embeds(kparams, cfg, emb, mode="ref_compat", attn_to_idx=T - 1)
+            torch.cuda.synchronize()
+            aux_launches = read_counts()
+        map_err = float((wrapper.get_attention_map()[:, :, T - 1] - aux.float()).abs().max())
+        require(aux_launches["fused_attention_aux"] == 1, f"K3 did not compute the aux: {aux_launches}")
+        require(text_err <= 1e-6 and img_err <= 1e-6 and map_err <= ATTR_TOL,
+                f"CLIPWrapper: text {text_err:.3e}, image {img_err:.3e}, map column vs K3 aux {map_err:.3e}")
+        print(f"cocoop: CLIPWrapper encode_text / encode_image vs featurize's embed functions {text_err:.1e} / "
+              f"{img_err:.1e}; transformer_raw's map column T-1 vs K3's aux {map_err:.2e} (tol {ATTR_TOL}) ({card})",
+              flush=True)
+        del wrapper
+
+        rn = _rn50_phase(tmp, card)
+        add(rn["launches"])
+        return {"launches": launches, "steps": steps, "served": served, "predict_ms": ks,
+                "base_to_new": b2n, "base_to_new_s": b2n_ms / 1e3, "rn50": rn}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rn50_phase(tmp: str, card: str) -> dict:
+    """RN50 at full width, 224 px, from a seeded state dict: an 8-image
+    batch's logits, the cached-feature step (text W 512, embed 1024) with
+    exact launches, /explain with saliency, ms per image batch."""
+    import os
+
+    import torch
+
+    from tapclip_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.serve import PredictService
+    from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint, save_openclip_checkpoint
+
+    cfg, dev = MODEL_PRESETS[RN_MODEL], COCOOP_DEVICE
+    plain_cfg = cfg.replace(attn_impl="xla")
+    params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(15), cfg)
+    sd = save_openclip_checkpoint(params, cfg, os.path.join(tmp, "rn50.bin"))
+    del params
+    rparams = load_openclip_checkpoint(sd, cfg, device=dev)
+    images = np.random.default_rng(16).integers(0, 256, (RN_BATCH, cfg.image_size, cfg.image_size, 3),
+                                                dtype=np.uint8)
+    model, plain = FullModel(CLASSES, rparams, cfg), FullModel(CLASSES, rparams, plain_cfg)
+    with torch.inference_mode():
+        reset_counts()
+        got = model(images)
+        torch.cuda.synchronize()
+        batch_launches = read_counts()
+        want = plain(images)
+    _expect("RN50 image batch", batch_launches, {n: TEXT_PASS.get(n, 0) for n in FORWARD})  # the tower is convolutions
+    logit_err = float((got["logits"] - want["logits"]).abs().max())
+    require(bool(torch.isfinite(got["logits"]).all()) and logit_err <= LOGIT_TOL, f"RN50 logits err {logit_err:.3e}")
+
+    rng = np.random.default_rng(17)
+    batches = [(rng.standard_normal((COCOOP_BATCH, cfg.embed_dim)).astype(np.float32),
+                rng.integers(0, len(CLASSES), COCOOP_BATCH)) for _ in range(COCOOP_STEPS)]
+    mask = np.ones(COCOOP_BATCH, bool)
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        m = FullModel(CLASSES, rparams, c)
+        step = make_train_step(c, m.prompt_cfg)
+        state = init_train_state(m.trainable, make_optimizer(TrainConfig(lr=2e-3)))
+        ctx0 = _flat(state.params["ctx"])
+        rec = {"loss": [], "grad_norm": [], "ms": []}
+        reset_counts()
+        for x, y in batches:
+            (state, met), ms = _sync_ms(lambda: step(rparams, state, m.prompt_learner.bank, x, y, mask))
+            rec["loss"].append(float(met["loss"]))
+            rec["grad_norm"].append(float(met["grad_norm"]))
+            rec["ms"].append(ms)
+        rec["launches"], rec["ctx0"], rec["ctx"] = read_counts(), ctx0, _flat(state.params["ctx"])
+        runs[path] = rec
+    k, p = runs["kernel"], runs["plain"]
+    _expect("RN50 cached-feature steps", k["launches"], _cocoop_counts("ref_compat", COCOOP_STEPS, COCOOP_STEPS))
+    tol = TRAIN_TOL["float32"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+    norm_err = abs(k["grad_norm"][0] - p["grad_norm"][0]) / abs(p["grad_norm"][0])
+    step_err = _step_err(k["ctx"], k["ctx0"], p["ctx"], p["ctx0"])
+    require(loss_err <= tol["loss"] and norm_err <= tol["grad_norm"] and step_err <= tol["ctx_step"],
+            f"RN50 steps: loss rel err {loss_err:.3e}, grad norm {norm_err:.3e}, ctx displacement {step_err:.3e}")
+
+    explained = {}
+    for key, mdl in (("kernel", model), ("plain", plain)):
+        svc = PredictService(mdl, batch_size=RN_BATCH)
+        try:
+            explained[key] = svc.explain(images[0], saliency=True)
+        finally:
+            svc.close()
+    sal = np.asarray(explained["kernel"]["saliency"])
+    g = cfg.image_size // 32
+    sal_err = float(np.abs(sal - np.asarray(explained["plain"]["saliency"])).max())  # one plain-torch computation
+    attr_err = max(abs(a - b) for n in CLASSES for a, b in zip(explained["kernel"]["attribution"][n],
+                                                               explained["plain"]["attribution"][n]))
+    require(sal.shape == (g, g) and sal.min() == 0.0 and sal.max() == 1.0 and sal_err <= ATTR_TOL and attr_err <= ATTR_TOL,
+            f"RN50 /explain: saliency {sal.shape} err {sal_err:.3e}, attribution err {attr_err:.3e}")
+
+    x = torch.as_tensor(images, device=dev)
+    with torch.inference_mode():
+        batch_ms = time_ms(lambda: clip_model.encode_image(rparams, cfg, x), iters=20, warmup=3)
+    ips = RN_BATCH / (batch_ms / 1e3)
+    print(f"rn50: 224 px, {RN_BATCH}-image batch logits err {logit_err:.2e} (tol {LOGIT_TOL}), launches {batch_launches} "
+          f"(the text passes; the tower is cuDNN convolutions, TF32 off); cached-feature step (text W 512, embed "
+          f"{cfg.embed_dim}) {float(np.median(k['ms'][1:])):.2f} ms vs plain {float(np.median(p['ms'][1:])):.2f}, "
+          f"loss rel err {loss_err:.1e}, grad norm {norm_err:.1e}, ctx displacement {step_err:.1e}; /explain "
+          f"saliency {g}x{g} err {sal_err:.1e} against the plain path's, attribution err {attr_err:.1e}; image tower "
+          f"{batch_ms:.3f} ms a batch of {RN_BATCH} (CUDA events) = {ips:.1f} images/s ({card})", flush=True)
+    return {"logit_err": logit_err, "step_ms": float(np.median(k["ms"][1:])),
+            "plain_step_ms": float(np.median(p["ms"][1:])), "batch_ms": batch_ms, "images_per_s": ips,
+            "launches": {n: batch_launches.get(n, 0) + k["launches"][n] for n in k["launches"]}}
+
+
 def _post_status(url: str, obj: dict) -> tuple:
     """(HTTP status, JSON body) of a POST, error answers included."""
     import urllib.error
@@ -3950,6 +4446,7 @@ def main() -> int:
     files = phase("files", files_phase, card)
     evaluated = phase("eval", eval_phase, card)
     adapted = phase("adapt", adapt_phase, card)
+    cocoop = phase("cocoop_rn", cocoop_rn_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -3984,6 +4481,7 @@ def main() -> int:
             "files_train_launches": launches(files),
             "eval_launches": launches(evaluated),
             "adapt_launches": launches(adapted),
+            "cocoop_rn_launches": cocoop["launches"].get(name, 0),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),

@@ -179,7 +179,13 @@ cudaError_t launch(LayerCall<T> c, int grid, cudaStream_t stream) {
                   &c.B, &c.H, &c.T, &c.W, &c.hidden, &c.valid, &c.eps};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid), dim3(kCoreThreads),
                                     args, smem, stream);
-  if (err != cudaSuccess) return err;
+  // A refused launch (a grid the card cannot hold) also records its error as
+  // the thread's last error; read it here, or the next wrapper's
+  // cudaGetLastError would report it as its own launch's failure.
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   return cudaGetLastError();
 }
 

@@ -5,7 +5,7 @@ parameter dict in the JAX package's layout (see ``utils/jax_bridge.py`` for
 the bridge from a JAX tree).  The patch embedding is a reshape + GEMM over
 NHWC images, numerically a strided conv.
 
-Ported: ``init_clip_params`` (ViT), ``patchify``, ``encode_image`` (with
+Ported: ``init_clip_params`` (ViT and RN), ``patchify``, ``encode_image`` (with
 the int8 W8A8 tower of ``quantize_tower`` / ``int8_deterministic`` and the
 attention-aware token pruning of ``token_keep_ratio``), ``embed_tokens``,
 ``encode_text`` (the proper CLIP text encoder: positional embedding, causal
@@ -13,8 +13,10 @@ mask, ``ln_final``, EOT pooling), ``text_forward_embeds`` in ``ref_compat``
 and ``idiomatic`` mode, and ``l2_normalize``; every ``attn_impl`` of the JAX
 package; MaPLe's prompts in both towers (``encode_image(maple_prompts=)``,
 ``text_forward_embeds(deep_prompts=)``).  The text tower is never quantized,
-as in the JAX package.  The ResNet tower, MoE and VPT raise
-``NotImplementedError``.
+as in the JAX package.  ``vision_tower="resnet"`` (the RN50 family) routes
+the image side to ``models/resnet.py``; int8, token pruning, MaPLe and VPT
+on it raise, as in the JAX package.  MoE and VPT raise
+``NotImplementedError`` (not yet ported).
 """
 
 from __future__ import annotations
@@ -32,8 +34,6 @@ Params = Dict[str, Any]
 
 
 def _unported(cfg: CLIPConfig) -> Optional[str]:
-    if cfg.vision_tower != "vit":
-        return "the ResNet vision tower"
     if cfg.moe_experts:
         return "mixture-of-experts towers"
     if cfg.vpt_tokens:
@@ -42,6 +42,13 @@ def _unported(cfg: CLIPConfig) -> Optional[str]:
 
 
 def check_supported(cfg: CLIPConfig) -> None:
+    if cfg.vision_tower == "resnet":  # the JAX package's refusals
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "moe_experts applies to ViT towers only (the RN-family tower has no per-block MLP bank)")
+        if cfg.vpt_tokens > 0:
+            raise NotImplementedError(
+                "vpt_tokens applies to ViT towers only (the RN-family tower has no token sequence to prompt)")
     missing = _unported(cfg)
     if missing:
         raise NotImplementedError(f"{missing} is not yet ported in tapclip_tpu_torch")
@@ -95,15 +102,20 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -
 
     vw, tw = cfg.vision_width, cfg.text_width
     patch_dim = cfg.patch_size * cfg.patch_size * 3
-    visual = {
-        "patch_embed": {"w": normal(patch_dim, vw, std=vw ** -0.5)},
-        "class_embedding": normal(vw, std=vw ** -0.5),
-        "positional_embedding": normal(cfg.vision_seq_len, vw, std=vw ** -0.5),
-        "ln_pre": ln(vw),
-        "blocks": blocks(cfg.vision_layers, vw),
-        "ln_post": ln(vw),
-        "proj": normal(vw, cfg.embed_dim, std=vw ** -0.5),
-    }
+    if cfg.vision_tower == "resnet":
+        from tapclip_tpu_torch.models.resnet import init_resnet_params
+
+        visual = init_resnet_params(generator, cfg, device)
+    else:
+        visual = {
+            "patch_embed": {"w": normal(patch_dim, vw, std=vw ** -0.5)},
+            "class_embedding": normal(vw, std=vw ** -0.5),
+            "positional_embedding": normal(cfg.vision_seq_len, vw, std=vw ** -0.5),
+            "ln_pre": ln(vw),
+            "blocks": blocks(cfg.vision_layers, vw),
+            "ln_post": ln(vw),
+            "proj": normal(vw, cfg.embed_dim, std=vw ** -0.5),
+        }
     text = {
         "token_embedding": normal(cfg.vocab_size, tw, std=0.02),
         "positional_embedding": normal(cfg.context_length, tw, std=0.01),
@@ -147,8 +159,12 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     keys.  Refused with VPT and with token pruning, as in the JAX package.
     """
     if cfg.vision_tower == "resnet":
-        # As the JAX package: a quantization or pruning flag on the
+        # As the JAX package: a quantization, pruning or prompt flag on the
         # convolutional tower fails loudly rather than being a silent no-op.
+        if maple_prompts is not None:
+            raise NotImplementedError(
+                "MaPLe vision prompts apply to ViT towers only (the RN-family tower has no token sequence)"
+            )
         if cfg.quantize_tower:
             raise NotImplementedError(
                 "quantize_tower is implemented for ViT towers only "
@@ -159,6 +175,12 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
                 "token_keep_ratio applies to ViT towers only "
                 "(the RN-family tower has no token sequence to prune)"
             )
+        check_supported(cfg)
+        from tapclip_tpu_torch.models.resnet import resnet_encode_image
+
+        if images.dtype == torch.uint8:
+            images = device_normalize(images)
+        return resnet_encode_image(params, cfg, images)
     check_supported(cfg)
     p = params["visual"]
     dtype = cfg.compute_dtype

@@ -17,7 +17,13 @@ tower sees prompts projected from the live text prompts (layer 0 from the
 class-masked mean context, layers 1..J-1 from the deep text prompts), and
 the text blocks 1..J-1 see the deep text prompts in the context slots.  Its
 image features depend on the trainable state, so it takes raw images only.
-The image-conditioned (CoCoOp) branch is not yet ported and raises.
+
+Image-conditioned prompts (CoCoOp, ``PromptConfig.image_conditioned``):
+a meta-net maps each sample's normalized image feature to a shift of the
+context tokens, so the text passes run per (sample, class), on ``B*C``
+rows, and the attribution is per sample, ``[B, C, P]``.  The meta-net's
+output layer starts at zero, so the conditioned model starts equal to the
+unconditioned one.
 """
 
 from __future__ import annotations
@@ -38,8 +44,6 @@ NEG_INF = -1e9
 
 
 def check_prompt_supported(prompt_cfg: PromptConfig) -> None:
-    if prompt_cfg.image_conditioned:
-        raise NotImplementedError("image_conditioned (CoCoOp) prompts are not yet ported in tapclip_tpu_torch")
     if prompt_cfg.text_mode not in ("ref_compat", "idiomatic"):
         raise ValueError(f"unknown text mode {prompt_cfg.text_mode!r}")
 
@@ -47,12 +51,16 @@ def check_prompt_supported(prompt_cfg: PromptConfig) -> None:
 def init_trainable(
     generator: torch.Generator, prompt_learner: PromptLearner, prompt_cfg: PromptConfig
 ) -> Dict[str, Any]:
-    """Trainable state: context bank + adjustor MLP (if any) + logit scale,
-    and with ``maple_depth`` J > 0 the ``"maple"`` subtree: the deep text
-    prompts ``txt [J-1, P, D]`` (std 0.02) and the per-layer projections
-    ``proj_w [J, D, Wv]`` (std D^-1/2), ``proj_b [J, Wv]`` (zeros) that make
-    the vision prompts.  The draws come from ``generator`` (the JAX package
-    draws from ``jax.random``; tests bridge its tree)."""
+    """Trainable state: context bank + adjustor MLP (if any) + logit scale;
+    with ``image_conditioned`` the ``"meta_net"`` subtree (CoCoOp's
+    bottleneck: ``w1 [E, h]`` of std E^-1/2, ``h = meta_hidden or max(E //
+    16, 8)``, and ``b1``, ``w2 [h, D]``, ``b2`` zeros, so the conditioned
+    model starts equal to the unconditioned one); with ``maple_depth`` J > 0
+    the ``"maple"`` subtree: the deep text prompts ``txt [J-1, P, D]`` (std
+    0.02) and the per-layer projections ``proj_w [J, D, Wv]`` (std D^-1/2),
+    ``proj_b [J, Wv]`` (zeros) that make the vision prompts.  The draws come
+    from ``generator`` (the JAX package draws from ``jax.random``; tests
+    bridge its tree)."""
     check_prompt_supported(prompt_cfg)
     device = prompt_learner.bank.ctx.device
     out = {
@@ -63,9 +71,24 @@ def init_trainable(
         ),
         "logit_scale": torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32, device=device),
     }
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device).to(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    if prompt_cfg.image_conditioned:
+        E, D = prompt_learner.clip_cfg.embed_dim, prompt_learner.clip_cfg.text_width
+        h = prompt_cfg.meta_hidden or max(E // 16, 8)
+        out["meta_net"] = {"w1": normal(E, h) * E ** -0.5, "b1": zeros(h), "w2": zeros(h, D), "b2": zeros(D)}
     if prompt_cfg.maple_depth > 0:
         cfg = prompt_learner.clip_cfg
         J = prompt_cfg.maple_depth
+        if prompt_cfg.image_conditioned:
+            raise NotImplementedError(
+                "maple_depth does not compose with image_conditioned (both re-route the prompt pipeline)"
+            )
         if cfg.vision_tower == "resnet":
             raise NotImplementedError("maple_depth requires a ViT vision tower (vision prompts are token insertions)")
         if J > min(cfg.text_layers, cfg.vision_layers):
@@ -73,17 +96,19 @@ def init_trainable(
                 f"maple_depth={J} exceeds the tower depth (text {cfg.text_layers}, vision {cfg.vision_layers})"
             )
         D, P = cfg.text_width, prompt_cfg.prompt_len
-
-        def normal(*shape):
-            return torch.randn(shape, generator=generator, dtype=torch.float32,
-                               device=generator.device).to(device)
-
         out["maple"] = {
             "txt": 0.02 * normal(J - 1, P, D),
             "proj_w": normal(J, D, cfg.vision_width) * D ** -0.5,
-            "proj_b": torch.zeros((J, cfg.vision_width), dtype=torch.float32, device=device),
+            "proj_b": zeros(J, cfg.vision_width),
         }
     return out
+
+
+def meta_net_forward(p: Dict[str, Any], feats: torch.Tensor) -> torch.Tensor:
+    """CoCoOp's bottleneck: ``[B, E]`` L2-normalized image features ->
+    ``[B, D]`` per-sample context shift, in f32."""
+    h = torch.relu(feats.float() @ p["w1"] + p["b1"])
+    return h @ p["w2"] + p["b2"]
 
 
 def _tile_bank(bank: PromptBank, B: int) -> PromptBank:
@@ -197,7 +222,9 @@ def full_model_forward(
 ) -> Dict[str, torch.Tensor]:
     """The fused forward: ``{"logits", "attribution"}`` (+ ``"loss"``,
     ``"loss_cls"``; + ``"text_feats" [C, E]``, L2-normalized, with
-    ``return_text_feats``).  Padded classes get ``NEG_INF`` logits.
+    ``return_text_feats``).  Padded classes get ``NEG_INF`` logits.  With
+    ``image_conditioned`` the attribution is ``[B, C, P]`` and the text
+    features ``[B, C, E]``.
 
     Either ``images [B,H,W,3]`` or precomputed ``image_feats [B,E]``
     (unnormalized) is given; the image tower is frozen, so callers may cache
@@ -218,10 +245,26 @@ def full_model_forward(
         image_feats = clip_model.encode_image(clip_params, clip_cfg, images)
     img = clip_model.l2_normalize(image_feats)
     scale = torch.exp(trainable["logit_scale"]).float()
-    text_feats, attribution = text_features_with_attribution(
-        clip_params, trainable["ctx"], bank, clip_cfg, prompt_cfg, trainable["adjustor"], deep_ctx=deep_ctx
-    )
-    logits = scale * (img.float() @ text_feats.float().T)
+    if prompt_cfg.image_conditioned:
+        # Each sample shifts the context by its meta-net output; the text
+        # passes run on B*C rows.  The shift is added in f32 and rounded to
+        # the context's dtype after, as in the JAX package.
+        ctx = trainable["ctx"]
+        B, (C, P, D) = img.shape[0], ctx.shape
+        pi = meta_net_forward(trainable["meta_net"], img)  # [B, D]
+        ctx_bc = (ctx[None].float() + pi[:, None, None, :]).to(ctx.dtype)
+        text_feats, attribution = text_features_with_attribution(
+            clip_params, ctx_bc.reshape(B * C, P, D), _tile_bank(bank, B), clip_cfg, prompt_cfg,
+            trainable["adjustor"],
+        )
+        attribution = attribution.reshape(B, C, P)
+        text_feats = text_feats.reshape(B, C, -1)
+        logits = scale * torch.einsum("be,bce->bc", img.float(), text_feats.float())
+    else:
+        text_feats, attribution = text_features_with_attribution(
+            clip_params, trainable["ctx"], bank, clip_cfg, prompt_cfg, trainable["adjustor"], deep_ctx=deep_ctx
+        )
+        logits = scale * (img.float() @ text_feats.float().T)
     logits = torch.where(bank.class_mask[None, :], logits, torch.full_like(logits, NEG_INF))
 
     out = {"logits": logits, "attribution": attribution}
@@ -318,7 +361,8 @@ class FullModel:
         )
         out = dict(out)
         out["logits"] = out["logits"][:, : self.n_cls]
-        out["attribution"] = out["attribution"][: self.n_cls]
+        attr = out["attribution"]  # [C, P], or [B, C, P] image-conditioned
+        out["attribution"] = attr[:, : self.n_cls] if attr.dim() == 3 else attr[: self.n_cls]
         return out
 
     def predict(self, images):

@@ -180,7 +180,8 @@ def make_train_step(
     ``kg_feats [C_max, E]``: the frozen zero-shot class embeddings
     (L2-normalized, padded to the bank width).  ``kg_lambda`` adds
     ``kg_lambda * mean_c(1 - cos(text_feats_c, kg_feats_c))`` over the live
-    classes (KgCoOp).  ``scl_lambda`` adds ``scl_lambda *
+    classes (KgCoOp; image-conditioned, the mean over the batch of each
+    sample's term).  ``scl_lambda`` adds ``scl_lambda *
     KL(zero-shot || tuned)`` (PromptSRC's logit term), the zero-shot logits
     taken from the same feature batch at the init-time ``anchor_scale``.
     ``prograd_lambda`` projects the loss gradient away from the KL's where
@@ -246,9 +247,10 @@ def make_train_step(
         loss = out["loss"]
         metrics = {}
         if use_kg:
-            cos = (out["text_feats"].float() * anchor_on(dev)).sum(-1)  # [C]
+            cos = (out["text_feats"].float() * anchor_on(dev)).sum(-1)  # [C], or [B, C] image-conditioned
             cm = bank.class_mask.float()
-            metrics["loss_kg"] = ((1.0 - cos) * cm).sum(-1) / cm.sum().clamp_min(1.0)
+            # the class-masked mean per sample, then the batch mean: a scalar either way
+            metrics["loss_kg"] = (((1.0 - cos) * cm).sum(-1) / cm.sum().clamp_min(1.0)).mean()
             loss = loss + kg_lambda * metrics["loss_kg"]
         if use_scl:
             metrics["loss_scl"] = kl_term(out["logits"], bank, x, mask)

@@ -16,8 +16,10 @@ Counterpart of ``tapclip_tpu/predict.py``, with the serving path's math:
 
 ``--int8`` runs the W8A8 tower (B13 and B14 in every block; stochastic
 rounding unless ``--int8-deterministic``).  Runs on ``cuda`` unless
-``--device cpu`` is given; asking for ``cuda`` without a card raises.  Not
-yet ported: image-conditioned (CoCoOp) prompts and ``--dp``.
+``--device cpu`` is given; asking for ``cuda`` without a card raises.
+Image-conditioned (CoCoOp) models have per-sample text features, so they
+run the full forward per batch and their attribution is ``None`` (``null``
+in ``--json``).  Not yet ported: ``--dp``.
 
 Usage:
     python -m tapclip_tpu_torch.predict --image-root photos/ --out preds/ \\
@@ -104,26 +106,38 @@ def predict_corpus(
 
     rows: one ``{"path", "labels": [k], "scores": [k]}`` per decodable image,
     in corpus order.  attribution: the class-level ``[n_cls, P]`` scores the
-    adjusted features were built with.  ``saliency`` (``"rollout"`` or
+    adjusted features were built with, or ``None`` for an image-conditioned
+    (CoCoOp) model, which runs the full forward per batch (its attribution
+    is per sample).  ``saliency`` (``"rollout"`` or
     ``"last"``) also writes a heatmap-overlay PNG per image into
     ``saliency_dir`` (each row gains ``"saliency_png"``) and forces uint8
     transport (the overlay needs display-space pixels).
     """
     from tapclip_tpu_torch.data.prefetch import prefetch_to_device
-    from tapclip_tpu_torch.models.model_wrapper import text_features_with_attribution
+    from tapclip_tpu_torch.models.model_wrapper import full_model_forward, text_features_with_attribution
 
     cfg, pcfg = model.clip_cfg, model.prompt_cfg
-    if pcfg.image_conditioned:
-        raise NotPortedError("predict with image-conditioned (CoCoOp) prompts")
     bank = model.prompt_learner.bank
     n_cls = model.n_cls
     top_k = max(1, min(top_k, n_cls))
-    with torch.inference_mode():
-        feats, attribution = text_features_with_attribution(
-            model.clip_params, model.trainable["ctx"], bank, cfg, pcfg, model.trainable["adjustor"])
-    attribution = attribution[:n_cls].float().cpu().numpy()
-    scale = model.trainable["logit_scale"].float()
-    classify = make_classify_fn(cfg)
+    if pcfg.image_conditioned:
+        attribution = None
+
+        def probs_fn(images):
+            with torch.inference_mode():
+                logits = full_model_forward(model.clip_params, model.trainable, bank, images, None, clip_cfg=cfg,
+                                            prompt_cfg=pcfg)["logits"]
+                return torch.softmax(logits, dim=-1)
+    else:
+        with torch.inference_mode():
+            feats, attribution = text_features_with_attribution(
+                model.clip_params, model.trainable["ctx"], bank, cfg, pcfg, model.trainable["adjustor"])
+        attribution = attribution[:n_cls].float().cpu().numpy()
+        scale = model.trainable["logit_scale"].float()
+        classify = make_classify_fn(cfg)
+
+        def probs_fn(images):
+            return classify(model.clip_params, feats, scale, bank.class_mask, images)
 
     if saliency:
         if saliency not in ("rollout", "last"):
@@ -142,8 +156,7 @@ def predict_corpus(
         # Slice to the real classes before ranking: padded slots carry
         # probability 0.0 and an unstable argsort could rank one above a
         # tied real class.
-        probs = classify(model.clip_params, feats, scale, bank.class_mask, images)
-        probs = probs.float().cpu().numpy()[keep][:, :n_cls]
+        probs = probs_fn(images).float().cpu().numpy()[keep][:, :n_cls]
         order = np.argsort(-probs, axis=-1)[:, :top_k]
         grids = None
         if saliency:
@@ -245,7 +258,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.json:
         json_path = os.path.join(args.out, "predictions.json")
         with open(json_path, "w") as f:
-            json.dump({"classes": list(model.class_names), "attribution": attribution.tolist(),
+            json.dump({"classes": list(model.class_names),
+                       "attribution": None if attribution is None else attribution.tolist(),
                        "predictions": rows}, f, indent=2)
         result["json"] = json_path
     log.info("wrote %d predictions to %s", len(rows), csv_path)

@@ -14,9 +14,10 @@ self-regularization mechanisms over the anchored train step:
    (1) and (2) averaged over templates (``trainer._multi_template_anchor``).
 
 Every epoch runs through ``fit_prompt_model``; GPA rides its
-``checkpoint_cb``, so this module adds no training loop of its own.  The
-image-conditioned (CoCoOp) prompts, whose meta-net GPA would also average,
-are not yet ported and raise.
+``checkpoint_cb``, so this module adds no training loop of its own.  With
+image-conditioned (CoCoOp) prompts the GPA averages the meta-net beside
+``ctx``: a GPA context paired with a best-epoch meta-net would be two
+points of different trajectories.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import TrainConfig
 from tapclip_tpu_torch.trainer import FitResult, evaluate_cached, fit_prompt_model
 
@@ -78,8 +78,6 @@ def fit_promptsrc(
     are both evaluated on the fit's validation features; ``model.trainable``
     is left at whichever wins (``best_is_gpa``).
     """
-    if model.prompt_cfg.image_conditioned:
-        raise NotPortedError("fit_promptsrc with image-conditioned (CoCoOp) prompts")
     if "checkpoint_cb" in fit_kwargs or "checkpoint_every" in fit_kwargs:
         raise ValueError(
             "fit_promptsrc drives checkpoint_cb itself (GPA snapshots); wrap fit_prompt_model directly for "
@@ -90,7 +88,11 @@ def fit_promptsrc(
             "fit_promptsrc needs a validation set: the GPA-vs-best winner is selected on validation accuracy "
             "(use fit_prompt_model directly for unvalidated training)"
         )
-    keys = tuple(fit_kwargs.get("trainable_keys") or ("ctx",))
+    # the leaves the fit optimizes: ctx, and the meta-net when image-conditioned
+    keys = fit_kwargs.get("trainable_keys")
+    if keys is None:
+        keys = ("ctx", "meta_net") if model.prompt_cfg.image_conditioned else ("ctx",)
+    keys = tuple(keys)
     snaps = []
 
     def _collect(epoch, state, _acc):

@@ -13,6 +13,11 @@ micro-batching in front of one predict function.
   encode pass) runs once per vocabulary change; then serving cost is the
   image tower + one logits GEMM.
 * **Classes can be added live** (``POST /classes``): the class axis is padded.
+* **Image-conditioned (CoCoOp) models** have per-sample text features, so
+  they bypass the text cache: a batch runs the full forward (the image
+  tower and both text passes on ``B*C`` rows; padded classes at the
+  model's ``NEG_INF``), and ``/embed`` traffic in the batch takes one more
+  image-tower pass.  ``/explain`` returns the image's own attribution rows.
 
 Every model call runs under ``torch.inference_mode()``, entered on the
 thread that runs it (grad mode is thread-local, and batches run on the
@@ -171,6 +176,8 @@ class PredictService:
             names = list(self.model.class_names)
             logits = out["logits"].float().cpu().numpy()[0]
             attr = out["attribution"].float().cpu().numpy()
+            if attr.ndim == 3:  # image-conditioned: [1, C, P]
+                attr = attr[0]
             if saliency:
                 # Under the same lock as the prediction: a /reload between
                 # the two would pair old-weight logits with a new-weight grid.
@@ -260,14 +267,23 @@ class PredictService:
         try:
             with self._lock, torch.inference_mode():
                 m = self.model
-                logits, feats = predict_batch(
-                    m.clip_params, m.clip_cfg, self._cached_text_feats(),
-                    m.trainable["logit_scale"], m.prompt_learner.bank.class_mask,
-                    torch.from_numpy(x).to(m.device),
-                )
+                xb = torch.from_numpy(x).to(m.device)
+                if m.prompt_cfg.image_conditioned:
+                    logits = m(xb)["logits"]
+                    feats = None
+                    if any(b[3] == "embed" for b in batch):
+                        from tapclip_tpu_torch.featurize import make_image_embed_fn
+
+                        feats = make_image_embed_fn(m.clip_cfg)(m.clip_params, xb)
+                else:
+                    logits, feats = predict_batch(
+                        m.clip_params, m.clip_cfg, self._cached_text_feats(),
+                        m.trainable["logit_scale"], m.prompt_learner.bank.class_mask, xb,
+                    )
                 names = list(m.class_names)
                 logits = logits[: len(batch), : len(names)].float().cpu().numpy()
-                feats = feats[: len(batch)].float().cpu().numpy()
+                if feats is not None:
+                    feats = feats[: len(batch)].float().cpu().numpy()
             probs = _softmax(logits / self.temperature)
             preds = logits.argmax(-1)
             for i, (_, slot, done, kind) in enumerate(batch):

@@ -245,7 +245,9 @@ def fit_prompt_model(
             "fit_prompt_model trains over CACHED image features; MaPLe's vision prompts make features "
             "trainable-dependent — use tapclip_tpu_torch.maple.fit_maple"
         )
-    trainable_keys = ("ctx",) if trainable_keys is None else tuple(trainable_keys)
+    if trainable_keys is None:  # the reference's ctx, and the meta-net when image-conditioned
+        trainable_keys = ("ctx", "meta_net") if model.prompt_cfg.image_conditioned else ("ctx",)
+    trainable_keys = tuple(trainable_keys)
     missing = [k for k in trainable_keys if k not in model.trainable]
     if missing:
         raise ValueError(

@@ -5,7 +5,7 @@ Orbax directories; the port writes one torch file per checkpoint, read back
 with ``torch.load(weights_only=True)``:
 
     {"format": "tapclip_tpu_torch.prompt_checkpoint",
-     "trainable": {"ctx", "adjustor", "logit_scale"[, "maple"]},  # tensors
+     "trainable": {"ctx", "adjustor", "logit_scale"[, "meta_net"][, "maple"]},  # tensors
      "bank": {"ctx", "token_embs", "class_mask", "eot_pos"},
      "opt_state": [{"step", "exp_avg", "exp_avg_sq"}, ...],  # when given
      "meta": {"class_names", "step", ...extras}}          # the JSON fields
@@ -154,11 +154,13 @@ def load_any_prompt_checkpoint(path: str, seen_class_names: Sequence[str]) -> Di
 def apply_prompt_checkpoint(model, path: str, seen_class_names: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Load a prompt checkpoint into a live ``FullModel``: context vectors by
     class name (unseen names grow the bank), the trained ctx synced into
-    ``model.trainable``, ``logit_scale`` when present, and MaPLe's
-    ``maple`` subtree from the port's own file (its shapes checked against
-    the model's).  A legacy stacked reference file is split over
-    ``seen_class_names`` (default: the model's classes).  Returns what was
-    read."""
+    ``model.trainable``, ``logit_scale`` when present, and CoCoOp's
+    ``meta_net`` and MaPLe's ``maple`` subtrees from the port's own file
+    (their shapes checked against the model's).  The JAX package's loader
+    drops ``meta_net``, so a CoCoOp checkpoint served there runs
+    unconditioned; the port carries it.  A legacy stacked reference file is
+    split over ``seen_class_names`` (default: the model's classes).  Returns
+    what was read."""
     names = list(model.class_names if seen_class_names is None else seen_class_names)
     tree = load_any_prompt_checkpoint(path, names)
     model.prompt_learner.load_ctx(tree["ctx_by_name"])
@@ -166,15 +168,17 @@ def apply_prompt_checkpoint(model, path: str, seen_class_names: Optional[Sequenc
     if tree.get("logit_scale") is not None and np.size(tree["logit_scale"]):
         model.trainable = dict(model.trainable, logit_scale=torch.as_tensor(
             np.asarray(tree["logit_scale"], np.float32), device=model.device).reshape(()))
-    maple = (tree.get("trainable") or {}).get("maple")
-    if maple is not None:
-        def shapes(t):
-            return None if t is None else {k: tuple(v.shape) for k, v in t.items()}
+    def shapes(t):
+        return None if t is None else {k: tuple(v.shape) for k, v in t.items()}
 
-        if shapes(maple) != shapes(model.trainable.get("maple")):
-            raise ValueError(f"{path}: a MaPLe subtree of shapes {shapes(maple)} for a model with "
-                             f"{shapes(model.trainable.get('maple'))}")
-        model.trainable = dict(model.trainable, maple={k: v.float().to(model.device) for k, v in maple.items()})
+    for key, what in (("meta_net", "CoCoOp meta-net"), ("maple", "MaPLe")):
+        sub = (tree.get("trainable") or {}).get(key)
+        if sub is None:
+            continue
+        if shapes(sub) != shapes(model.trainable.get(key)):
+            raise ValueError(f"{path}: a {what} subtree of shapes {shapes(sub)} for a model with "
+                             f"{shapes(model.trainable.get(key))}")
+        model.trainable = dict(model.trainable, **{key: {k: v.float().to(model.device) for k, v in sub.items()}})
     return tree
 
 

@@ -3,7 +3,8 @@
 The JAX package stores a parameter tree of arrays (``models/clip.py``), with
 every transformer block's leaves stacked along a leading ``[L]`` axis.  The
 port keeps the same tree and layout, except that a stack of blocks is a list
-of L per-block dicts.  The functions here take trees whose leaves are NumPy
+of L per-block dicts and an RN tower's convolution weights are OIHW (the
+JAX package's are HWIO).  The functions here take trees whose leaves are NumPy
 arrays (convert a JAX tree with ``jax.tree.map(np.asarray, tree)``), so the
 port itself never imports jax.  :func:`adamw_state_from_optax` carries an
 optax AdamW state over, so a JAX mid-training state resumes in the port.
@@ -50,16 +51,37 @@ def _unstack(stacked: Dict[str, Any], device):
     return [take(stacked, i) for i in range(n_layers)]
 
 
+def _resnet_tree(node, device):
+    """A JAX RN visual tree -> the port's: the same nesting (each layer a
+    list of block dicts), every convolution's HWIO ``w`` turned into OIHW."""
+    if isinstance(node, dict):
+        return {k: (_tensor(np.asarray(v).transpose(3, 2, 0, 1), device) if k == "w" and np.ndim(v) == 4
+                    else _resnet_tree(v, device)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_resnet_tree(v, device) for v in node]
+    return _tensor(node, device)
+
+
 def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict[str, Any]:
-    """JAX CLIP parameter tree (NumPy leaves) -> the port's tree (f32 tensors)."""
+    """JAX CLIP parameter tree (NumPy leaves) -> the port's tree (f32
+    tensors), with a ViT or an RN (``vision_tower="resnet"``) image tower."""
     out = {}
-    for tower in ("visual", "text"):
+    towers = ("text",) if cfg.vision_tower == "resnet" else ("visual", "text")
+    for tower in towers:
         sub = dict(tree[tower])
         blocks = sub.pop("blocks")
         out[tower] = _tree(sub, device)
         out[tower]["blocks"] = _unstack(blocks, device)
     out["logit_scale"] = _tensor(tree["logit_scale"], device)
-    n_vis, n_txt = len(out["visual"]["blocks"]), len(out["text"]["blocks"])
+    n_txt = len(out["text"]["blocks"])
+    if cfg.vision_tower == "resnet":
+        out["visual"] = _resnet_tree(tree["visual"], device)
+        got = tuple(len(out["visual"].get(f"layer{i + 1}", ())) for i in range(len(cfg.resnet_layers)))
+        if got != tuple(cfg.resnet_layers) or n_txt != cfg.text_layers:
+            raise ValueError(f"tree has RN layers {got} / {n_txt} text blocks, config {cfg.name} expects "
+                             f"{tuple(cfg.resnet_layers)} / {cfg.text_layers}")
+        return out
+    n_vis = len(out["visual"]["blocks"])
     if (n_vis, n_txt) != (cfg.vision_layers, cfg.text_layers):
         raise ValueError(
             f"tree has {n_vis} vision / {n_txt} text blocks, config "
@@ -69,16 +91,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict
 
 
 def prompt_state_from_jax(trainable: Dict[str, Any], bank, device="cpu") -> Tuple[Dict[str, Any], PromptBank]:
-    """JAX ``trainable`` (``ctx``, ``adjustor``, ``logit_scale`` and MaPLe's
-    ``maple`` subtree when present) and ``PromptBank`` (any object with its
-    four fields, NumPy-valued) -> the port's."""
+    """JAX ``trainable`` (``ctx``, ``adjustor``, ``logit_scale``, and
+    CoCoOp's ``meta_net`` and MaPLe's ``maple`` subtrees when present) and
+    ``PromptBank`` (any object with its four fields, NumPy-valued) -> the
+    port's."""
     port_trainable = {
         "ctx": _tensor(trainable["ctx"], device),
         "adjustor": _tree(dict(trainable.get("adjustor", {})), device),
         "logit_scale": _tensor(trainable["logit_scale"], device),
     }
-    if "maple" in trainable:
-        port_trainable["maple"] = _tree(dict(trainable["maple"]), device)
+    for key in ("meta_net", "maple"):
+        if key in trainable:
+            port_trainable[key] = _tree(dict(trainable[key]), device)
     port_bank = PromptBank(
         ctx=_tensor(bank.ctx, device),
         token_embs=_tensor(bank.token_embs, device),

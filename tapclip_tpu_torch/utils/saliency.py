@@ -1,10 +1,12 @@
 """Vision saliency: which image patches drove the prediction.
 
-Counterpart of ``tapclip_tpu/utils/saliency.py`` for ViT towers: the class
+Counterpart of ``tapclip_tpu/utils/saliency.py``.  ViT towers: the class
 token's attention over the patches, from the last layer (``"last"``) or by
 attention rollout through every layer (``"rollout"``, Abnar & Zuidema 2020:
 the residual-adjusted, row-stochastic head-mean maps multiplied through the
-stack).
+stack).  RN towers: the attention pool's mean-token query over the
+``image_size // 32`` grid (:func:`resnet_saliency`; one attention, so both
+methods give the same map).
 
 This is an explain path, not a hot path.  As in the JAX package, the tower
 is re-run in plain operations so that every layer's ``[B, H, T, T]``
@@ -13,8 +15,7 @@ So :func:`vision_attention_forward` is plain torch on the card (float, even
 for a model served with ``quantize_tower``, as the JAX package's plain
 forward), and its features equal ``clip.encode_image``'s on the kernel path
 (held on the card by ``chip_smoke.py`` and on the CPU against the JAX
-package), so the maps describe the model that serves.  The RN towers' map
-(the attention pool's) is not yet ported: it waits for ``models/resnet.py``.
+package), so the maps describe the model that serves.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import layers as L
 
@@ -77,6 +77,28 @@ def vision_attention_forward(params, cfg: CLIPConfig, images) -> Tuple[torch.Ten
     return L.dense(pooled, p["proj"]), torch.stack(all_probs)
 
 
+def resnet_saliency(params, cfg: CLIPConfig, images) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RN towers' map: ``(pooled [B, E], probs [B, h*w] f32)``, the
+    attention pool's output (``resnet_encode_image``'s, by the same
+    functions) and its mean-token query's head-mean attention over the
+    spatial keys (the mean-token key dropped)."""
+    from tapclip_tpu_torch.data.preprocess import device_normalize
+    from tapclip_tpu_torch.models import resnet
+
+    images = torch.as_tensor(images, device=params["logit_scale"].device)
+    if images.dtype == torch.uint8:
+        images = device_normalize(images)
+    x = resnet.resnet_feature_map(params, cfg, images)
+    p = params["visual"]["attnpool"]
+    t = resnet.pool_tokens(x, p)
+    q, k, v = resnet.pool_heads(t, p, resnet.attnpool_heads(cfg))
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (q.shape[-1] ** -0.5)
+    probs = torch.softmax(logits, dim=-1)  # [B, H, 1, hw + 1]
+    out = torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype).float(), v.float()).to(x.dtype)
+    pooled = L.dense(out.transpose(1, 2).reshape(t.shape[0], -1), p["c_proj"]["w"].T, p["c_proj"]["b"])
+    return pooled, probs.mean(dim=1)[:, 0, 1:]
+
+
 def attention_rollout(probs: torch.Tensor) -> torch.Tensor:
     """Rollout of ``[n_layers, B, H, T, T]`` maps -> ``[B, T, T]``.
 
@@ -96,22 +118,25 @@ def attention_rollout(probs: torch.Tensor) -> torch.Tensor:
 def patch_saliency(params, cfg: CLIPConfig, images, method: str = "rollout") -> np.ndarray:
     """Class-token saliency over the patch grid -> ``[B, g, g]`` in [0, 1].
 
-    ``method``: ``"rollout"`` (attention rollout through every layer) or
-    ``"last"`` (the head-mean class-token row of the final layer, the
-    classic attention map).  Each map is min-max normalized per image.
+    ViT towers: ``method`` is ``"rollout"`` (attention rollout through
+    every layer) or ``"last"`` (the head-mean class-token row of the final
+    layer, the classic attention map).  RN towers: the attention pool's map
+    over the ``image_size // 32`` grid, for either method.  Each map is
+    min-max normalized per image.
     """
     if method not in METHODS:
         raise ValueError(f"unknown saliency method {method!r}")
-    if cfg.vision_tower == "resnet":
-        raise NotPortedError("saliency of the RN towers (the attention pool's map, with models/resnet.py)")
     with torch.inference_mode():
-        _, probs = vision_attention_forward(params, cfg, images)
-        if method == "rollout":
-            cls_row = attention_rollout(probs)[:, 0, 1:]  # [B, n_patches]
+        if cfg.vision_tower == "resnet":
+            cls_row = resnet_saliency(params, cfg, images)[1]
         else:
-            cls_row = probs[-1].mean(dim=1)[:, 0, 1:]
+            _, probs = vision_attention_forward(params, cfg, images)
+            if method == "rollout":
+                cls_row = attention_rollout(probs)[:, 0, 1:]  # [B, n_patches]
+            else:
+                cls_row = probs[-1].mean(dim=1)[:, 0, 1:]
         cls_row = cls_row.float().cpu().numpy()
-    g = cfg.image_size // cfg.patch_size
+    g = cfg.image_size // (32 if cfg.vision_tower == "resnet" else cfg.patch_size)
     grid = cls_row.reshape(-1, g, g)
     lo = grid.min(axis=(1, 2), keepdims=True)
     hi = grid.max(axis=(1, 2), keepdims=True)

@@ -1,14 +1,16 @@
 """Weight conversion between open_clip / reference checkpoints and the port.
 
-Counterpart of ``tapclip_tpu/utils/torch_convert.py`` for ViT towers (the
-RN-family towers wait with ``models/resnet.py``):
+Counterpart of ``tapclip_tpu/utils/torch_convert.py``, for ViT and
+ModifiedResNet (RN50-family) image towers:
 
 * :func:`convert_openclip_state_dict` — open_clip state dict -> the port's
   parameter tree, straight into its layout: a tower's blocks are a list of
   per-block dicts (``utils/jax_bridge.py``), Linear weights transposed to
   the ``x @ w`` convention, the fused ``in_proj_weight`` transposed so its
   columns are ``[q | k | v]``, the patch convolution permuted to (ph, pw, c)
-  row order.  It only transposes and copies, so it equals the JAX
+  row order; an RN tower's convolutions keep open_clip's OIHW layout and
+  its attention pool's positional embedding is resampled to the config's
+  grid.  It only transposes and copies, so it equals the JAX
   package's converter bridged by ``params_from_jax`` leaf by leaf, bit for
   bit; :func:`resize_pos_embed` is the same float64 numpy arithmetic.
 * :func:`load_torch_file` / :func:`load_openclip_checkpoint` — ``.pt`` /
@@ -139,11 +141,55 @@ def _ln(sd, key, device) -> Dict[str, torch.Tensor]:
     return {"scale": _tensor(_f32(sd[f"{key}.weight"]), device), "bias": _tensor(_f32(sd[f"{key}.bias"]), device)}
 
 
+_BN_STATS = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"), ("var", "running_var"))
+_POOL_PROJS = ("q", "k", "v", "c")
+
+
+def _convert_resnet_visual(sd, cfg: CLIPConfig, device) -> Dict[str, Any]:
+    """open_clip ModifiedResNet ``visual.*`` -> the port's RN tree.  The
+    convolutions keep open_clip's OIHW layout; the attention pool's
+    positional embedding is resampled to ``(image_size // 32)^2 + 1`` rows
+    when the checkpoint was trained at another resolution."""
+    def conv(key):
+        return {"w": _tensor(_f32(sd[f"{key}.weight"]), device)}
+
+    def bn(key):
+        return {ours: _tensor(_f32(sd[f"{key}.{theirs}"]), device) for ours, theirs in _BN_STATS}
+
+    def bottleneck(prefix):
+        p = {f"{name}{i}": (conv if name == "conv" else bn)(f"{prefix}.{name}{i}")
+             for i in (1, 2, 3) for name in ("conv", "bn")}
+        if f"{prefix}.downsample.0.weight" in sd:  # CLIP's downsample: ["-1" avgpool, "0" conv, "1" bn]
+            p["downsample"] = {"conv": conv(f"{prefix}.downsample.0"), "bn": bn(f"{prefix}.downsample.1")}
+        return p
+
+    v = {f"{name}{i}": (conv if name == "conv" else bn)(f"visual.{name}{i}") for i in (1, 2, 3)
+         for name in ("conv", "bn")}
+    for li, n_blocks in enumerate(cfg.resnet_layers):
+        v[f"layer{li + 1}"] = [bottleneck(f"visual.layer{li + 1}.{b}") for b in range(n_blocks)]
+    v["attnpool"] = {
+        "positional_embedding": _tensor(resize_pos_embed(
+            _f32(sd["visual.attnpool.positional_embedding"]), (cfg.image_size // 32) ** 2 + 1), device),
+        **{f"{n}_proj": {"w": _tensor(_f32(sd[f"visual.attnpool.{n}_proj.weight"]), device),
+                         "b": _tensor(_f32(sd[f"visual.attnpool.{n}_proj.bias"]), device)} for n in _POOL_PROJS},
+    }
+    return v
+
+
 def convert_openclip_state_dict(sd: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict[str, Any]:
     """open_clip CLIP state dict (numpy or tensor values) -> the port's
-    parameter tree (f32 tensors on ``device``)."""
+    parameter tree (f32 tensors on ``device``): a ViT or, with
+    ``vision_tower="resnet"``, a ModifiedResNet image tower."""
+    text = {
+        "token_embedding": _tensor(_f32(sd["token_embedding.weight"]), device),
+        "positional_embedding": _tensor(_f32(sd["positional_embedding"]), device),
+        "blocks": [_convert_block(sd, f"transformer.resblocks.{i}", device) for i in range(cfg.text_layers)],
+        "ln_final": _ln(sd, "ln_final", device),
+        "text_projection": _tensor(_f32(sd["text_projection"]), device),
+    }
+    logit_scale = _tensor(_f32(sd["logit_scale"]).reshape(()), device)
     if cfg.vision_tower == "resnet":
-        raise NotImplementedError("RN-family towers are not yet ported in tapclip_tpu_torch")
+        return {"visual": _convert_resnet_visual(sd, cfg, device), "text": text, "logit_scale": logit_scale}
     conv_w = _f32(sd["visual.conv1.weight"])  # [O, C, kh, kw]
     O, C, kh, kw = conv_w.shape
     if kh != cfg.patch_size:
@@ -160,15 +206,7 @@ def convert_openclip_state_dict(sd: Dict[str, Any], cfg: CLIPConfig, device="cpu
         "ln_post": _ln(sd, "visual.ln_post", device),
         "proj": _tensor(_f32(sd["visual.proj"]), device),
     }
-    text = {
-        "token_embedding": _tensor(_f32(sd["token_embedding.weight"]), device),
-        "positional_embedding": _tensor(_f32(sd["positional_embedding"]), device),
-        "blocks": [_convert_block(sd, f"transformer.resblocks.{i}", device) for i in range(cfg.text_layers)],
-        "ln_final": _ln(sd, "ln_final", device),
-        "text_projection": _tensor(_f32(sd["text_projection"]), device),
-    }
-    return {"visual": visual, "text": text,
-            "logit_scale": _tensor(_f32(sd["logit_scale"]).reshape(()), device)}
+    return {"visual": visual, "text": text, "logit_scale": logit_scale}
 
 
 def load_openclip_checkpoint(path: str, cfg: CLIPConfig, device="cpu") -> Dict[str, Any]:
@@ -248,16 +286,38 @@ def _export_block(blk: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
     }
 
 
-def export_openclip_state_dict(params: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarray]:
-    """The port's parameter tree -> open_clip CLIP state dict (numpy values),
-    the inverse of :func:`convert_openclip_state_dict`.  Keys with no
-    open_clip slot are refused."""
-    if cfg.vision_tower == "resnet":
-        raise NotImplementedError("RN-family towers are not yet ported in tapclip_tpu_torch")
-    extras = set(params) - {"visual", "text", "logit_scale", "logit_bias"}
-    if extras:
-        raise ValueError(f"param tree has no open_clip slot for {sorted(extras)}")
-    v, t = params["visual"], params["text"]
+def _export_resnet_visual(v: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarray]:
+    """The port's RN tree -> open_clip ``visual.*`` (OIHW convolutions as
+    they are)."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(p, key):
+        sd[f"{key}.weight"] = _f32(p["w"])
+
+    def bn(p, key):
+        sd.update({f"{key}.{theirs}": _f32(p[ours]) for ours, theirs in _BN_STATS})
+
+    for i in (1, 2, 3):
+        conv(v[f"conv{i}"], f"visual.conv{i}")
+        bn(v[f"bn{i}"], f"visual.bn{i}")
+    for li, n_blocks in enumerate(cfg.resnet_layers):
+        for b in range(n_blocks):
+            blk, prefix = v[f"layer{li + 1}"][b], f"visual.layer{li + 1}.{b}"
+            for i in (1, 2, 3):
+                conv(blk[f"conv{i}"], f"{prefix}.conv{i}")
+                bn(blk[f"bn{i}"], f"{prefix}.bn{i}")
+            if "downsample" in blk:
+                conv(blk["downsample"]["conv"], f"{prefix}.downsample.0")
+                bn(blk["downsample"]["bn"], f"{prefix}.downsample.1")
+    ap = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = _f32(ap["positional_embedding"])
+    for n in _POOL_PROJS:
+        sd[f"visual.attnpool.{n}_proj.weight"] = _f32(ap[f"{n}_proj"]["w"])
+        sd[f"visual.attnpool.{n}_proj.bias"] = _f32(ap[f"{n}_proj"]["b"])
+    return sd
+
+
+def _export_vit_visual(v: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarray]:
     k = cfg.patch_size
     patch_w = _f32(v["patch_embed"]["w"])  # [kh*kw*C, O]
     sd: Dict[str, np.ndarray] = {
@@ -272,6 +332,19 @@ def export_openclip_state_dict(params: Dict[str, Any], cfg: CLIPConfig) -> Dict[
     sd["visual.ln_post.weight"] = _f32(v["ln_post"]["scale"])
     sd["visual.ln_post.bias"] = _f32(v["ln_post"]["bias"])
     sd["visual.proj"] = _f32(v["proj"])
+    return sd
+
+
+def export_openclip_state_dict(params: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarray]:
+    """The port's parameter tree -> open_clip CLIP state dict (numpy values),
+    the inverse of :func:`convert_openclip_state_dict`, for a ViT or an RN
+    image tower.  Keys with no open_clip slot are refused."""
+    extras = set(params) - {"visual", "text", "logit_scale", "logit_bias"}
+    if extras:
+        raise ValueError(f"param tree has no open_clip slot for {sorted(extras)}")
+    t = params["text"]
+    export_visual = _export_resnet_visual if cfg.vision_tower == "resnet" else _export_vit_visual
+    sd = export_visual(params["visual"], cfg)
     for i, blk in enumerate(t["blocks"]):
         sd.update(_export_block(blk, f"transformer.resblocks.{i}"))
     sd["token_embedding.weight"] = _f32(t["token_embedding"])

@@ -278,11 +278,15 @@ def test_fit_promptsrc_matches_jax(tiny):
     np.testing.assert_allclose(_np(tm.trainable["ctx"]), _np(jm.trainable["ctx"]), **TRAJ_TOL)
 
 
-def test_fit_promptsrc_refuses_cocoop():
-    from types import SimpleNamespace
-
-    from tapclip_tpu_torch import NotPortedError
-
-    stub = SimpleNamespace(prompt_cfg=tcfg.PromptConfig(image_conditioned=True))
-    with pytest.raises(NotPortedError, match="CoCoOp"):
-        tpsrc.fit_promptsrc(stub, None, None, tcfg.TrainConfig())
+def test_fit_promptsrc_refuses_cocoop(tiny):
+    """PromptSRC with CoCoOp prompts no longer refuses: its GPA averages
+    the meta-net beside ctx, and the early-stopped best keeps both (the
+    values against JAX's are in ``tests/port/test_torch_cocoop.py``)."""
+    jc, jp, tc, tp = tiny
+    tm = tmw.FullModel(CLASSES, tp, tc, prompt_cfg=tcfg.PromptConfig(image_conditioned=True))
+    rng = np.random.default_rng(12)
+    x, y = rng.standard_normal((8, jc.embed_dim)).astype(np.float32), rng.integers(0, 3, 8).astype(np.int32)
+    res = tpsrc.fit_promptsrc(tm, ttrainer.CachedSet(x, y), ttrainer.CachedSet(x, y),
+                              tcfg.TrainConfig(lr=5e-2, epochs=2, batch_size=4), verbose=False)
+    assert sorted(res.gpa_trainable["meta_net"]) == ["b1", "b2", "w1", "w2"]
+    assert float(res.gpa_trainable["meta_net"]["w2"].abs().max()) > 0.0

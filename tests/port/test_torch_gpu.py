@@ -56,7 +56,11 @@ flags-off kernel) bit for bit, in both modes and dtypes, at row counts off
 its tiles and at H 4,096.  B14 runs its two products on the same int8 tiles
 and its attention on K2's tensor-core walk, and is held at the image,
 pruned and ViT-L/14 shapes in both modes and dtypes, bit for bit against a
-second call.
+second call.  The CoCoOp step (both text modes, CE and kg + ProGrad) runs
+its B*C text rows on the kernels against the plain path (1e-4), with the
+backward kernels' launches per step; the RN tower's f32 features are held
+against float64 convolutions of the same weights (1e-4 norm-relative) with
+cuDNN's TF32 switch on before the call and on again after it.
 """
 
 import hashlib
@@ -1326,6 +1330,8 @@ def test_variant_refusals(cuda):
         assert fit >= 132
         with pytest.raises(RuntimeError, match="tapclip_fused_layer"):  # a cooperative grid the card cannot hold
             fused_layer(x, ln1, attn, ln2, mlp, 2, 136, grid=fit + 1)
+        # The refused launch leaves no error behind for the next kernel's check.
+        fused_attn_block(x, ln1, attn, 2, valid_len=136)
         with pytest.raises(ValueError, match="rows"):
             fused_mlp_variant(x, *ln2.values(), *mlp.values(), rows=8, ilv=True)
 
@@ -1389,3 +1395,127 @@ def test_two_pullbacks_over_one_retained_graph(cuda):
     vals = forward(x, plain=False)
     (fresh,) = torch.autograd.grad(vals, [x], vals.new_tensor([0.0, 1.0]))
     assert torch.equal(k2, fresh)
+
+
+# --- CoCoOp: the image-conditioned step on B*C text rows ----------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["ref_compat", "idiomatic"])
+@pytest.mark.parametrize("terms", [{}, {"kg_lambda": 0.5, "prograd_lambda": 1.0}], ids=["ce", "kg-prograd"])
+def test_tiny_model_cocoop_train_step_kernel_path_matches_plain(cuda, mode, terms):
+    """The image-conditioned step on the card (cached features, batch 4 at
+    capacity 8: 32 text rows), ``ctx`` and ``meta_net`` trained, a meta-net
+    that conditions: the kernel path vs the plain path, f32 (loss and grad
+    norm at rtol 1e-4, the leaves at 1e-4), and the backward kernels'
+    launches per step (B4 or B7, and B5, once per text block a pullback)."""
+    from tapclip_tpu_torch.config import TINY_TEST, PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.serve import build_model
+
+    pcfg = PromptConfig(image_conditioned=True, text_mode=mode)
+    keys = ("ctx", "meta_net")
+    model = build_model(TINY_TEST, ["Backpack", "Pen", "Mug"], "cuda", seed=0)
+    rng = np.random.default_rng(2)
+    anchor = rng.standard_normal((8, TINY_TEST.embed_dim)).astype(np.float32)
+    anchor /= np.linalg.norm(anchor, axis=-1, keepdims=True)
+    batches = [(rng.standard_normal((4, TINY_TEST.embed_dim)).astype(np.float32), rng.integers(0, 3, 4))
+               for _ in range(3)]
+    mask = np.ones(4, bool)
+    w2 = torch.as_tensor(rng.standard_normal((8, TINY_TEST.text_width)).astype(np.float32) * 0.2, device=cuda)
+    bwd = fused_mha if mode == "idiomatic" else fused_attn_block
+    results = []
+    for cfg in (TINY_TEST, TINY_TEST.replace(attn_impl="xla")):
+        m = FullModel(model.class_names, model.clip_params, cfg, prompt_cfg=pcfg)
+        m.trainable = dict(m.trainable, meta_net=dict(m.trainable["meta_net"], w2=w2))
+        kw = dict(terms, kg_feats=anchor, anchor_scale=float(m.trainable["logit_scale"])) if terms else {}
+        state = init_train_state(m.trainable, make_optimizer(TrainConfig()), keys)
+        step = make_train_step(cfg, pcfg, trainable_keys=keys, **kw)
+        n_attn, n_mlp = bwd.bwd_launches, fused_mlp_block.bwd_launches
+        metrics = []
+        for x, y in batches:
+            _, out = step(m.clip_params, state, m.prompt_learner.bank, x, y, mask)
+            metrics.append((float(out["loss"]), float(out["grad_norm"])))
+        results.append((metrics, state.params["ctx"].detach(), state.params["meta_net"]["w2"].detach(),
+                        (bwd.bwd_launches - n_attn, fused_mlp_block.bwd_launches - n_mlp)))
+    (km, kctx, kw2, kl), (pm, pctx, pw2, pl) = results
+    pulls = 2 if terms else 1
+    assert kl == (3 * pulls * TINY_TEST.text_layers,) * 2 and pl == (0, 0)
+    np.testing.assert_allclose(km, pm, rtol=1e-4, atol=1e-5)
+    _close(kctx, pctx, 1e-4)
+    _close(kw2, pw2, 1e-4)
+
+
+@pytest.mark.gpu
+def test_resnet_tower_runs_without_tf32_and_restores_the_switch(cuda):
+    """The RN tower on the card at the RN50 widths of its first stage (64
+    px, one block a stage): f32 features against float64 convolutions of
+    the same weights (1e-4 relative: TF32 would round the operands to 10
+    bits, about 1e-3), and cuDNN's TF32 switch restored after."""
+    from tapclip_tpu_torch.config import RN50
+    from tapclip_tpu_torch.models import resnet
+
+    cfg = RN50.replace(image_size=64, resnet_layers=(1, 1, 1, 1))
+    params = {"visual": resnet.init_resnet_params(torch.Generator(device=cuda).manual_seed(0), cfg)}
+    x = _randn(torch.Generator(device=cuda).manual_seed(1), 2, 64, 64, 3)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = resnet.resnet_encode_image(params, cfg, x)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    _close_rel("RN features", got, _resnet_f64(params, cfg, x), 1e-4)
+
+
+def _to_f64(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_f64(v) for v in tree]
+    return tree.double()
+
+
+def _resnet_f64(params, cfg, x):
+    """The tower's arithmetic in float64 (the plain reference of the f32 run)."""
+    import torch.nn.functional as F
+
+    from tapclip_tpu_torch.models import resnet
+
+    p = _to_f64(params["visual"])
+
+    def conv(t, q, stride=1):
+        return F.conv2d(t, q["w"], stride=stride, padding=(q["w"].shape[-1] - 1) // 2)
+
+    def bn(t, q):
+        scale = q["scale"] * torch.rsqrt(q["var"] + resnet.BN_EPS)
+        return t * scale[:, None, None] + (q["bias"] - q["mean"] * scale)[:, None, None]
+
+    t = x.double().permute(0, 3, 1, 2)
+    t = torch.relu(bn(conv(t, p["conv1"], 2), p["bn1"]))
+    t = torch.relu(bn(conv(t, p["conv2"]), p["bn2"]))
+    t = F.avg_pool2d(torch.relu(bn(conv(t, p["conv3"]), p["bn3"])), 2)
+    for li in range(4):
+        for b, q in enumerate(p[f"layer{li + 1}"]):
+            s = (1 if li == 0 else 2) if b == 0 else 1
+            out = torch.relu(bn(conv(t, q["conv1"]), q["bn1"]))
+            out = torch.relu(bn(conv(out, q["conv2"]), q["bn2"]))
+            out = bn(conv(F.avg_pool2d(out, s) if s > 1 else out, q["conv3"]), q["bn3"])
+            idn = t
+            if "downsample" in q:
+                idn = bn(conv(F.avg_pool2d(t, s) if s > 1 else t, q["downsample"]["conv"]), q["downsample"]["bn"])
+            t = torch.relu(out + idn)
+    ap = p["attnpool"]
+    tok = t.flatten(2).transpose(1, 2)
+    tok = torch.cat([tok.mean(1, keepdim=True), tok], 1) + ap["positional_embedding"][None]
+    H = resnet.attnpool_heads(cfg)
+    B, T, C = tok.shape
+
+    def heads(a):
+        return a.reshape(B, a.shape[1], H, C // H).transpose(1, 2)
+
+    q = heads(tok[:, :1] @ ap["q_proj"]["w"].T + ap["q_proj"]["b"])
+    k = heads(tok @ ap["k_proj"]["w"].T + ap["k_proj"]["b"])
+    v = heads(tok @ ap["v_proj"]["w"].T + ap["v_proj"]["b"])
+    o = torch.softmax(q @ k.transpose(-1, -2) * (C // H) ** -0.5, -1) @ v
+    return (o.transpose(1, 2).reshape(B, C) @ ap["c_proj"]["w"].T + ap["c_proj"]["b"]).float()

@@ -141,8 +141,10 @@ def test_openclip_files_cross_between_packages(tmp_path, sd, tiny_params):
 def test_convert_refuses_another_patch_size_and_resnet(sd):
     with pytest.raises(ValueError, match="patch size"):
         ttc.convert_openclip_state_dict(sd, T_TINY.replace(patch_size=8))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttc.convert_openclip_state_dict(sd, tcfg.RN50)
+    # RN towers convert (tests/port/test_torch_resnet.py); a ViT state dict
+    # has none of an RN tower's keys.
+    with pytest.raises(KeyError, match="visual.bn1.weight"):
+        ttc.convert_openclip_state_dict(sd, T_TINY.replace(vision_tower="resnet", resnet_layers=(1, 1, 1, 1)))
     with pytest.raises(ValueError, match="no open_clip slot"):
         ttc.export_openclip_state_dict({**ttc.convert_openclip_state_dict(sd, T_TINY), "kd_proj": 0}, T_TINY)
 

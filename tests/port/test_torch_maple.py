@@ -197,8 +197,13 @@ def test_maple_refusals(tiny):
     _, plain = _models(tiny)
     with pytest.raises(ValueError, match="maple_depth >= 1"):
         tmaple.fit_maple(plain, [])
-    with pytest.raises(NotImplementedError, match="CoCoOp"):
-        tmw.check_prompt_supported(tcfg.PromptConfig(image_conditioned=True))
+    # CoCoOp is supported on its own; MaPLe with it is refused, with JAX's message.
+    tmw.check_prompt_supported(tcfg.PromptConfig(image_conditioned=True))
+    both = dict(maple_depth=1, image_conditioned=True)
+    with pytest.raises(NotImplementedError, match="does not compose with image_conditioned"):
+        tmw.init_trainable(torch.Generator(), tm.prompt_learner, tcfg.PromptConfig(**both))
+    with pytest.raises(NotImplementedError, match="does not compose with image_conditioned"):
+        jmw.init_trainable(jax.random.PRNGKey(0), jm.prompt_learner, JPromptConfig(**both))
 
 
 def test_maple_main_saves_and_restores_the_subtree(tiny, tmp_path):

@@ -54,6 +54,8 @@ PORT_MODULES = [
     "tapclip_tpu_torch.models.attribution_monitor",
     "tapclip_tpu_torch.models.prompt_adjustor",
     "tapclip_tpu_torch.models.model_wrapper",
+    "tapclip_tpu_torch.models.clip_wrapper",
+    "tapclip_tpu_torch.models.resnet",
     "tapclip_tpu_torch.utils.jax_bridge",
     "tapclip_tpu_torch.utils.logging_utils",
     "tapclip_tpu_torch.utils.adaptive_eval",
@@ -93,6 +95,7 @@ PORT_MODULES = [
     "tapclip_tpu_torch.linear_probe",
     "tapclip_tpu_torch.tip_adapter",
     "tapclip_tpu_torch.clip_adapter",
+    "tapclip_tpu_torch.base_to_new",
     "tapclip_tpu_torch.fewshot",
 ]
 

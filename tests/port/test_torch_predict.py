@@ -164,9 +164,13 @@ def test_predict_saliency_and_uint8_transfer(files, predicted, tmp_path):
 def test_predict_refusals(files, tmp_path):
     with pytest.raises(NotPortedError, match="predict --dp"):
         t_predict.main(_args(files, tmp_path, "--dp", "2", "--device", "cpu"))
-    cocoop = SimpleNamespace(clip_cfg=tcfg.TINY_TEST, prompt_cfg=SimpleNamespace(image_conditioned=True))
-    with pytest.raises(NotPortedError, match="CoCoOp"):
-        t_predict.predict_corpus(cocoop, [])
+    # An image-conditioned (CoCoOp) model now runs: the full forward, no attribution.
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+
+    tp = params_from_jax(jax.tree.map(np.asarray, jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY)),
+                         tcfg.TINY_TEST)
+    cocoop = FullModel(CLASSES, tp, tcfg.TINY_TEST, prompt_cfg=tcfg.PromptConfig(image_conditioned=True))
+    assert t_predict.predict_corpus(cocoop, []) == ([], None)
     empty = tmp_path / "empty"
     empty.mkdir()
     with pytest.raises(SystemExit, match="no images"):
@@ -227,8 +231,8 @@ def test_saliency_refusals(towers):
     with pytest.raises(ValueError, match="unknown saliency method"):
         tsal.patch_saliency(tp, tcfg.TINY_TEST, x, method="gradcam")
     rn = tcfg.MODEL_PRESETS["RN50"]
-    with pytest.raises(NotPortedError, match="RN towers"):
-        tsal.patch_saliency(tp, rn, x)
+    # The RN towers' map is the attention pool's (tests/port/test_torch_resnet.py);
+    # the per-layer ViT forward keeps JAX's refusal.
     with pytest.raises(NotImplementedError, match="ViT towers only"):
         tsal.vision_attention_forward(tp, rn, x)
 
