@@ -1,7 +1,7 @@
 """Drive the PyTorch + CUDA port's serving, training, text and int8 paths, the reference
 workloads from files, the offline inference and evaluation entry points, the few-shot
-adaptation zoo, and CoCoOp, base-to-new, CLIPWrapper and the RN50 tower, once on one
-NVIDIA GPU.
+adaptation zoo, CoCoOp, base-to-new, CLIPWrapper and the RN50 tower, and CLIP
+pretraining, once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -233,6 +233,28 @@ Run from the repository root:  python3 chip_smoke.py
     column T-1 against K3's aux (ATTR_TOL); RN50 at 224 px: an 8-image
     batch's logits (LOGIT_TOL), the cached-feature step (text W 512, embed
     1,024) with exact launches, /explain with saliency, ms per image batch.
+25. CLIP pretraining ("pretrain"), ViT-B/16 with random weights, both
+    towers trained: 3 InfoNCE steps at batch 32 (AdamW, lr 1e-4) on the
+    kernels and on the plain path from one tree, f32 and bf16 (the losses,
+    step 1's gradients by global norm and leaf by leaf, the parameters'
+    displacement, at PRETRAIN_TOL), exactly 24 K1 + 12 K2 + 12 B6 + 24 B5
+    + 12 B4 + 12 B7 + 72 gemm.cu dW products + 108 column sums a step; one
+    step per option against the plain path with exact launches: SigLIP,
+    LoRA r8 (no column sum; the base tree bit-identical), BitFit (no dW
+    product; the weights bit-identical), the image lock (no image-tower
+    backward; the tower bit-identical), 2 unlocked groups, GradCache at
+    K = 2 (the one-shot step's loss and update), patch dropout 0.5 (T 99),
+    VPT-deep 8 (T 205) and shallow 16 (T 213: B4's split composition),
+    remat (twice the forward launches, the gradients of no remat),
+    distillation from a ViT-B/16 teacher, RN50; ``pretrain_cli.main`` for 2
+    epochs over 64 JPEGs (cosine, clip, EMA, snapshots, zero-shot), then
+    ``--resume`` for a third, ``featurize --pretrained`` on the final tree
+    (EMB_TOL), a ``--shard-dir`` and a ``--csv-path`` epoch; the step timed
+    in turns with the class-level CE step (f32, bf16); gemm.cu's four dW
+    products at 1,600 and 6,400 rows against torch.mm and their bound, B4
+    and B5 at the image shape with every gradient beside dx alone; one
+    traced step (profile_kernels.pretrain_trace: the device's busy share,
+    each wrapper's device time, gemm.cu's dW products on their own).
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -550,6 +572,7 @@ def _counters():
     from tapclip_tpu_torch.ops.fused_layer import fused_layer
     from tapclip_tpu_torch.ops.fused_mha import attn_block_variant, fused_attn_block, fused_mha
     from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_variant
+    from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
     from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
     from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
@@ -568,6 +591,10 @@ def _counters():
         "flash_bwd_dq": (fused_attention, "dq_launches"),
         # fused_attention_aux_long has none: it is K3 past T 2048, which no
         # main path reaches (0 launches there); K3's own launches are above.
+        # gemm.cu's weight-gradient products and column sums inside B4 and B5
+        # (pretraining: the first main path where the CLIP weights train).
+        "gemm_f32": (gemm_f32, "launches"),
+        "col_sum": (col_sum, "launches"),
         "int8_mlp": (int8_mlp_block, "launches"),
         "int8_attn": (int8_attn_block, "launches"),
         "int8_mlp_variants": (int8_mlp_block, "variant_launches"),  # S5, off the serving path
@@ -4316,6 +4343,575 @@ def _post_status(url: str, obj: dict) -> tuple:
         return e.code, json.loads(e.read())
 
 
+# --- "pretrain": CLIP pretraining of both towers (pretrain.py, peft.py, distill.py, pretrain_cli) ---------
+
+PRETRAIN_MODEL = "ViT-B-16"
+PRETRAIN_DEVICE = "cuda"
+PRETRAIN_BATCH = 32
+PRETRAIN_STEPS = 3
+PRETRAIN_LR, PRETRAIN_WD = 1e-4, 0.1
+PRETRAIN_TURNS = 6  # the pretraining steps and the class-level CE step timed in turns; the first turn is warm-up
+PRETRAIN_CLI_IMAGES = 64  # the synthetic ImageFolder of pretrain_cli: 4 classes of 16
+PRETRAIN_KERNELS = ("fused_mlp", "fused_attn_block", "fused_mha", "fused_mlp_bwd", "fused_attn_block_bwd",
+                    "fused_mha_bwd", "gemm_f32", "col_sum")
+# One InfoNCE step at ViT-B/16 with every leaf trained: the image tower's 12
+# blocks run K2 + K1 forward and B4 + B5 backward, the text tower's 12 run
+# B6 (between torch projections) + K1 forward and B7 + B5 backward; each B4
+# and B5 with its weight gradients runs gemm.cu's two dW products and three
+# column sums (the LayerNorm's gamma and beta from one, the two biases).
+PRETRAIN_STEP = {"fused_mlp": 24, "fused_attn_block": 12, "fused_mha": 12, "fused_mlp_bwd": 24,
+                 "fused_attn_block_bwd": 12, "fused_mha_bwd": 12, "gemm_f32": 72, "col_sum": 108}
+# Kernel path against the plain path (attn_impl="xla", the same weights and
+# draws).  loss / grad_norm: relative errors of the losses and of step 1's
+# global gradient norm; grad: the largest norm-relative error of a leaf's
+# step-1 gradient; step: the norm-relative error of the parameters'
+# displacement after the steps (_step_err).  AdamW turns a gradient entry
+# that is rounding noise into a move of up to about lr a step either way
+# (the key third of b_qkv always: the loss does not depend on a key bias),
+# so the displacement is also held entry by entry within 2 lr a step; the
+# share of entries past that must stay under PRETRAIN_APART.
+PRETRAIN_TOL = {"float32": {"loss": 1e-5, "grad_norm": 1e-4, "grad": 1e-3, "step": 2e-2},
+                "bfloat16": {"loss": 2e-2, "grad_norm": 0.1, "grad": 0.3, "step": 0.6}}
+PRETRAIN_APART = 1e-4
+
+
+def _pretrain_counts(**scale) -> dict:
+    """Launches of ``steps`` InfoNCE steps, with each count's extra terms."""
+    steps = scale.pop("steps", 1)
+    out = {n: steps * c for n, c in PRETRAIN_STEP.items()}
+    for n, extra in scale.items():
+        out[n] = extra
+    return out
+
+
+def _pretrain_batch(cfg, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    ids = rng.integers(1, cfg.vocab_size - 2, (n, cfg.context_length)).astype(np.int32)
+    ids[:, 0] = cfg.vocab_size - 2
+    ids[np.arange(n), rng.integers(4, cfg.context_length, n)] = cfg.vocab_size - 1  # EOT: the largest id
+    return images, ids
+
+
+def _tree_copy(params):
+    from tapclip_tpu_torch.pretrain import detached_copy
+
+    return detached_copy(params)
+
+
+def _grads(params, cfg, images, ids, loss: str = "infonce"):
+    """(loss, {path: gradient}) of one batch over every leaf of ``params``."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.models import clip as clip_model
+
+    leaves = P.set_trainable(params)
+    x = torch.as_tensor(images, device=params["logit_scale"].device)
+    total = P.pair_loss(loss, params, clip_model.encode_image(params, cfg, x), clip_model.encode_text(params, cfg, ids))
+    gs = torch.autograd.grad(total, [t for _, t in leaves])
+    return float(total.detach()), {p: g.float() for (p, _), g in zip(leaves, gs)}
+
+
+def _grad_errors(k: dict, p: dict) -> tuple:
+    """(global-norm rel err, largest per-leaf norm-rel err and its leaf)."""
+    import torch
+
+    kn = float(torch.sqrt(sum(g.square().sum() for g in k.values())))
+    pn = float(torch.sqrt(sum(g.square().sum() for g in p.values())))
+    per = {path: float((k[path] - p[path]).norm() / p[path].norm().clamp_min(1e-30)) for path in p
+           if float(p[path].norm()) > 0}
+    worst = max(per, key=per.get)
+    return abs(kn - pn) / pn, per[worst], worst
+
+
+def _displacement(k1, k0, p1, p0, lr: float, steps: int) -> tuple:
+    """(norm-rel error of the displacement, share of entries apart by more
+    than 2 lr a step, largest entry apart) over every leaf.  The norm leaves
+    out the key biases (the key third of attn/b_qkv, the RN pool's
+    k_proj/b): the loss does not depend on them, so their gradient is
+    rounding noise that AdamW scales to about lr a step on either path."""
+    import torch
+
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    num = den = 0.0
+    apart, n, worst = 0, 0, 0.0
+    for (path, a1), (_, a0), (_, b1), (_, b0) in zip(named_leaves(k1), named_leaves(k0), named_leaves(p1),
+                                                     named_leaves(p0)):
+        a1, a0, b1, b0 = (t.detach().float() for t in (a1, a0, b1, b0))
+        d = ((a1 - a0) - (b1 - b0)).abs()
+        ref = (b1 - b0).square()
+        apart += int((d > 2 * lr * steps).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()))
+        if path.endswith("attnpool/k_proj/b"):
+            continue
+        if path.endswith("attn/b_qkv"):
+            W = d.shape[0] // 3
+            d, ref = torch.cat([d[:W], d[2 * W:]]), torch.cat([ref[:W], ref[2 * W:]])
+        num += float(d.square().sum())
+        den += float(ref.sum())
+    return (num / den) ** 0.5, apart / n, worst
+
+
+def _run_steps(cfg, params, batches, *, trainable=None, loss="infonce", accum=0, draws=None, lora=None,
+               teacher=None):
+    """``len(batches)`` steps of the step the options name, in place on
+    ``params`` (or on the adapters ``lora``): (losses, ms per step, launches)."""
+    import torch
+
+    from tapclip_tpu_torch import distill, peft
+    from tapclip_tpu_torch import pretrain as P
+
+    if lora is not None:
+        P.set_trainable(params, {p: False for p, _ in P.named_leaves(params)})
+        leaves = P.set_trainable(lora)
+    else:
+        leaves = P.set_trainable(params, trainable)
+    opt = P.PretrainOptimizer(leaves, lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+    if lora is not None:
+        step = peft.make_lora_pretrain_step(cfg, opt, loss=loss)
+    elif teacher is not None:
+        step = distill.make_distill_step(cfg, cfg, opt, tau=2.0)
+    elif accum:
+        step = P.make_accum_pretrain_step(cfg, opt, accum, loss=loss)
+    else:
+        step = P.make_pretrain_step(cfg, opt, loss=loss)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i, (x, ids) in enumerate(batches):
+        if lora is not None:
+            call = lambda: step(params, lora, x, ids)  # noqa: E731
+        elif teacher is not None:
+            call = lambda: step(params, teacher, x, ids)  # noqa: E731
+        else:
+            call = lambda: step(params, x, ids, **(draws[i] if draws else {}))  # noqa: E731
+        m, t = _sync_ms(call)
+        losses.append(float(m["loss"]))
+        ms.append(t)
+    return losses, ms, read_counts()
+
+
+def _pretrain_main_steps(kparams, cfg, card: str) -> dict:
+    """Three InfoNCE steps at batch 32 on the kernels and on the plain path
+    from one tree: losses, step 1's gradients, the displacement, exact
+    launches per step."""
+    plain_cfg = cfg.replace(attn_impl="xla")
+    tol = PRETRAIN_TOL[cfg.dtype]
+    batches = [_pretrain_batch(cfg, PRETRAIN_BATCH, 30 + i) for i in range(PRETRAIN_STEPS)]
+    kl, kg = _grads(_tree_copy(kparams), cfg, *batches[0])
+    pl, pg = _grads(_tree_copy(kparams), plain_cfg, *batches[0])
+    norm_err, leaf_err, leaf = _grad_errors(kg, pg)
+    del kg, pg
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        tree = _tree_copy(kparams)
+        runs[path] = _run_steps(c, tree, batches) + (tree,)
+    (kls, kms, kc, k1), (pls, pms, pc, p1) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip([kl] + kls, [pl] + pls))
+    step_err, apart, worst = _displacement(k1, kparams, p1, kparams, PRETRAIN_LR, PRETRAIN_STEPS)
+    _expect(f"pretrain {cfg.dtype} steps", kc, _pretrain_counts(steps=PRETRAIN_STEPS))
+    require(all(n == 0 for n in pc.values()), f"pretrain {cfg.dtype}: the plain path launched kernels {pc}")
+    require(np.isfinite(kls).all() and kls[-1] < kls[0], f"pretrain {cfg.dtype}: losses {kls}")
+    print(f"pretrain {cfg.dtype}: {PRETRAIN_STEPS} InfoNCE steps at batch {PRETRAIN_BATCH} (every leaf trained, "
+          f"AdamW lr {PRETRAIN_LR}): loss kernel {[round(v, 5) for v in kls]} plain {[round(v, 5) for v in pls]}, rel "
+          f"err {loss_err:.2e} (tol {tol['loss']}); step-1 gradients: global norm rel err {norm_err:.2e} (tol "
+          f"{tol['grad_norm']}), worst leaf {leaf} norm-rel err {leaf_err:.2e} (tol {tol['grad']}); displacement "
+          f"after {PRETRAIN_STEPS} steps norm-rel err {step_err:.2e} (tol {tol['step']}), entries apart by more than "
+          f"2 lr a step {apart:.2e} (tol {PRETRAIN_APART}), largest {worst:.2e}; ms per step kernel "
+          f"{[round(v, 1) for v in kms]} plain {[round(v, 1) for v in pms]}; launches per step "
+          f"{ {n: kc[n] // PRETRAIN_STEPS for n in PRETRAIN_KERNELS} } ({card})", flush=True)
+    require(loss_err <= tol["loss"] and norm_err <= tol["grad_norm"] and leaf_err <= tol["grad"]
+            and step_err <= tol["step"] and apart <= PRETRAIN_APART,
+            f"pretrain {cfg.dtype}: kernel vs plain loss {loss_err:.3e}, grad norm {norm_err:.3e}, leaf {leaf} "
+            f"{leaf_err:.3e}, displacement {step_err:.3e}, entries apart {apart:.2e}")
+    return {"launches": kc, "errors": {"loss": loss_err, "grad_norm": norm_err, "grad_leaf": leaf_err,
+                                       "step": step_err, "apart": apart},
+            "ms": kms, "plain_ms": pms}
+
+
+def _pretrain_options(kparams, cfg, card: str) -> dict:
+    """One step per option on the kernels and on the plain path (f32, batch
+    32): exact launches, the loss and the trained leaves' displacement
+    against the plain path, and each option's own invariant."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.peft import init_lora_params
+
+    tol = PRETRAIN_TOL["float32"]
+    batch = [_pretrain_batch(cfg, PRETRAIN_BATCH, 40)]
+    out, launches = {}, {n: 0 for n in PRETRAIN_KERNELS}
+
+    def both(name, c, want, *, params=None, trainable=None, lora=False, check=None, batches=None, **kw):
+        runs = {}
+        for path, cc in (("kernel", c), ("plain", c.replace(attn_impl="xla"))):
+            tree = _tree_copy(kparams if params is None else params)
+            adapters = (init_lora_params(torch.Generator(device=PRETRAIN_DEVICE).manual_seed(3), tree, rank=8)
+                        if lora else None)
+            trained = adapters if lora else tree
+            before, trained0 = _tree_copy(tree), _tree_copy(trained)
+            losses, ms, counts = _run_steps(cc, tree, batches or batch, lora=adapters,
+                                            trainable=trainable(tree) if trainable else None, **kw)
+            runs[path] = {"loss": losses, "ms": ms, "counts": counts, "tree": tree, "before": before,
+                          "trained": trained, "trained0": trained0}
+        k, p = runs["kernel"], runs["plain"]
+        _expect(f"pretrain {name}", k["counts"], want)
+        require(all(n == 0 for n in p["counts"].values()), f"pretrain {name}: the plain path launched kernels")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"]))
+        step_err, apart, _ = _displacement(k["trained"], k["trained0"], p["trained"], p["trained0"], PRETRAIN_LR,
+                                           len(k["loss"]))
+        extra = check(runs) if check else {}
+        require(np.isfinite(k["loss"]).all() and loss_err <= tol["loss"] and step_err <= tol["step"]
+                and apart <= PRETRAIN_APART,
+                f"pretrain {name}: loss rel err {loss_err:.3e}, displacement {step_err:.3e}, entries apart {apart:.2e}")
+        for n in launches:
+            launches[n] += k["counts"].get(n, 0)
+        out[name] = {"loss": k["loss"], "loss_err": loss_err, "step_err": step_err, "apart": apart, "ms": k["ms"],
+                     "plain_ms": p["ms"], "launches": {n: k["counts"][n] for n in PRETRAIN_KERNELS if k["counts"][n]},
+                     **extra}
+        print(f"pretrain option {name}: loss {[round(v, 5) for v in k['loss']]} rel err {loss_err:.2e}, displacement "
+              f"norm-rel err {step_err:.2e} ({apart:.1e} of its entries apart), ms kernel "
+              f"{[round(v, 1) for v in k['ms']]} plain {[round(v, 1) for v in p['ms']]}, launches "
+              f"{out[name]['launches']}" + (f", {extra}" if extra else "") + f" ({card})", flush=True)
+
+    def unchanged(frozen_of):
+        """The leaves ``frozen_of(tree)`` names are bit-identical after the kernel path's step."""
+        def check(runs):
+            k = runs["kernel"]
+            old, new = dict(P.named_leaves(k["before"])), dict(P.named_leaves(k["tree"]))
+            paths = frozen_of(k["before"])
+            require(paths and all(torch.equal(old[q], new[q]) for q in paths),
+                    f"frozen leaves moved ({len(paths)} checked)")
+            return {"frozen_bit_identical": len(paths)}
+        return check
+
+    def lock(**kw):
+        return lambda tree: P.lock_tower_trainable(tree, **kw)
+
+    both("siglip", cfg, _pretrain_counts(), params=P.add_siglip_params(kparams), loss="siglip")
+    # LoRA: every adapted weight wants its gradient (through the merge), no bias or LayerNorm does.
+    both("lora r8", cfg, _pretrain_counts(col_sum=0), lora=True,
+         check=unchanged(lambda t: [q for q, _ in P.named_leaves(t)]))
+    # BitFit: the biases (and LayerNorm betas) want theirs, no weight does: no dW product runs.
+    both("bitfit", cfg, _pretrain_counts(gemm_f32=0), trainable=P.bitfit_trainable,
+         check=unchanged(lambda t: [q for q, tr in P.bitfit_trainable(t).items() if not tr]))
+    both("lock image", cfg, _pretrain_counts(fused_attn_block_bwd=0, fused_mlp_bwd=12, gemm_f32=24, col_sum=36),
+         trainable=lock(lock_image=True),
+         check=unchanged(lambda t: [q for q, _ in P.named_leaves(t) if q.startswith("visual/")]))
+    both("lock image, 2 groups unlocked", cfg,
+         _pretrain_counts(fused_attn_block_bwd=1, fused_mlp_bwd=13, gemm_f32=28, col_sum=42),
+         trainable=lock(lock_image=True, unlocked_groups=2),
+         check=unchanged(lambda t: [q for q, tr in P.lock_tower_trainable(t, lock_image=True,
+                                                                          unlocked_groups=2).items() if not tr]))
+
+    def same_as_one_shot(runs):
+        """GradCache at K = 2 (two micro-batches of 16) takes the one-shot batch-32 step."""
+        tree = _tree_copy(kparams)
+        one_loss, _, _ = _run_steps(cfg, tree, batch)
+        k = runs["kernel"]
+        err = abs(k["loss"][0] - one_loss[0]) / abs(one_loss[0])
+        step_err, _, _ = _displacement(k["tree"], k["before"], tree, k["before"], PRETRAIN_LR, 1)
+        require(err <= 1e-6 and step_err <= tol["step"],
+                f"GradCache vs the one-shot step: loss {err:.3e}, displacement {step_err:.3e}")
+        return {"one_shot_loss_err": err, "one_shot_step_err": step_err}
+
+    both("gradcache k2", cfg, _pretrain_counts(fused_mlp=96, fused_attn_block=48, fused_mha=48, fused_mlp_bwd=48,
+                                               fused_attn_block_bwd=24, fused_mha_bwd=24, gemm_f32=144, col_sum=216),
+         accum=2, check=same_as_one_shot)
+    pd = cfg.replace(patch_dropout=0.5)
+    idx = clip_model.patch_dropout_indices(torch.Generator(device=PRETRAIN_DEVICE).manual_seed(5), PRETRAIN_BATCH,
+                                           pd.grid_size ** 2, 0.5)
+    n_keep = round(pd.grid_size ** 2 * 0.5)  # 98 of ViT-B/16's 196: T 99
+    require(tuple(idx.shape) == (PRETRAIN_BATCH, n_keep), f"patch dropout keeps {tuple(idx.shape)}")
+    both("patch dropout 0.5 (T 99)", pd, _pretrain_counts(), draws=[{"patch_idx": idx}])
+    deep = cfg.replace(vpt_tokens=8, vpt_deep=True)
+    both("vpt deep 8 (T 205)", deep, _pretrain_counts(), params=clip_model.ensure_vpt_params(kparams, deep, seed=6))
+    shallow = cfg.replace(vpt_tokens=16)
+    # T 213 pads to 216, past B4's routing limit of 210: the image blocks'
+    # attention halves differentiate the split composition (B6 again + B7).
+    both("vpt shallow 16 (T 213, split composition)", shallow,
+         _pretrain_counts(fused_mha=24, fused_attn_block_bwd=0, fused_mha_bwd=24, gemm_f32=48, col_sum=72),
+         params=clip_model.ensure_vpt_params(kparams, shallow, seed=7))
+
+    def remat_equal(runs):
+        """remat's gradients are no remat's (the kernels are deterministic)."""
+        _, plain_g = _grads(_tree_copy(kparams), cfg, *batch[0])
+        _, remat_g = _grads(_tree_copy(kparams), cfg.replace(remat="full"), *batch[0])
+        worst = max(float((remat_g[q] - plain_g[q]).norm() / plain_g[q].norm().clamp_min(1e-30)) for q in plain_g)
+        require(worst <= 1e-6, f"remat changed a gradient: norm-rel {worst:.3e}")
+        return {"remat_grad_norm_rel_diff": worst}
+
+    both("remat full", cfg.replace(remat="full"),
+         _pretrain_counts(fused_mlp=48, fused_attn_block=24, fused_mha=24), check=remat_equal)
+    teacher = clip_model.init_clip_params(torch.Generator(device=PRETRAIN_DEVICE).manual_seed(8), cfg)
+    both("distill from ViT-B/16", cfg, _pretrain_counts(fused_mlp=48, fused_attn_block=24, fused_mha=24),
+         teacher=teacher)
+    del teacher
+    rn_cfg = MODEL_PRESETS["RN50"]
+    both("RN50", rn_cfg, {"fused_mlp": 12, "fused_attn_block": 0, "fused_mha": 12, "fused_mlp_bwd": 12,
+                          "fused_attn_block_bwd": 0, "fused_mha_bwd": 12, "gemm_f32": 24, "col_sum": 36},
+         params=clip_model.init_clip_params(torch.Generator(device=PRETRAIN_DEVICE).manual_seed(9), rn_cfg),
+         batches=[_pretrain_batch(rn_cfg, PRETRAIN_BATCH, 41)])
+    return {"options": out, "launches": launches}
+
+
+def _pretrain_cli(card: str, tmp: str) -> dict:
+    """``pretrain_cli.main`` end to end at ViT-B/16 f32 on a synthetic
+    ImageFolder: 2 epochs (cosine schedule, warmup, clip, EMA, a snapshot
+    each epoch, zero-shot each epoch), ``--resume`` for a third, ``featurize
+    --pretrained`` on the final tree, then one ``--shard-dir`` and one
+    ``--csv-path`` epoch over the same images."""
+    import csv
+    import io
+    import os
+
+    import torch
+    from PIL import Image
+
+    from tapclip_tpu_torch import featurize, pretrain_cli
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.data.preprocess import preprocess_pil_uint8
+    from tapclip_tpu_torch.data.shards import write_shards
+    from tapclip_tpu_torch.pretrain import named_leaves
+    from tapclip_tpu_torch.utils.checkpoint import load_clip_tree
+
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL]
+    classes = CLASSES + ["Mug"]
+    root = os.path.join(tmp, "cli_tree")
+    _write_tree(root, ["all"], classes, PRETRAIN_CLI_IMAGES // len(classes))
+    tree = os.path.join(root, "all")
+    base = ["--model", PRETRAIN_MODEL, "--device", PRETRAIN_DEVICE, "--batch-size", str(PRETRAIN_BATCH),
+            "--lr", str(PRETRAIN_LR), "--weight-decay", str(PRETRAIN_WD)]
+    args = base + ["--data-root", tree, "--epochs", "2", "--schedule", "cosine", "--warmup-steps", "1",
+                   "--grad-clip", "1", "--ema-decay", "0.9", "--save-every", "1", "--zeroshot-val-root", tree,
+                   "--output-root", os.path.join(tmp, "cli")]
+    torch.cuda.synchronize()
+    reset_counts()
+    first, s1 = _sync_ms(lambda: pretrain_cli.main(args))
+    counts = read_counts()
+    for n in PRETRAIN_KERNELS:
+        require(counts[n] > 0, f"pretrain_cli: {n} was not launched ({counts})")
+    with open(os.path.join(first["paths"]["csv_dir"], "pretrain_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    require([r["epoch"] for r in rows] == ["1", "2"] and all(r["zeroshot_acc_ema"] for r in rows)
+            and all(np.isfinite(first["loss_history"])), f"pretrain_cli rows {rows}")
+    snaps = [f for f in os.listdir(first["paths"]["model_dir"]) if f.startswith("pretrain_snapshot")]
+    require(snaps == ["pretrain_snapshot_e000002.pt"], f"pretrain_cli snapshots {snaps}")
+    resumed, s2 = _sync_ms(lambda: pretrain_cli.main(args[:args.index("--epochs")] + [
+        "--epochs", "3", "--resume", os.path.join(first["paths"]["model_dir"], snaps[0])]
+        + args[args.index("--epochs") + 2:]))
+    require(len(resumed["loss_history"]) == 1, f"resume ran {resumed['loss_history']}")
+    loaded = load_clip_tree(resumed["ckpt"], cfg, device=PRETRAIN_DEVICE)
+    same = all(torch.equal(a, b.detach()) for (_, a), (_, b) in zip(named_leaves(loaded),
+                                                                      named_leaves(resumed["params"])))
+    require(same, "the saved tree is not the trained tree")
+    out_dir = os.path.join(tmp, "feats")
+    featurize.main(["--image-root", tree, "--out", out_dir, "--model", PRETRAIN_MODEL, "--pretrained",
+                    resumed["ckpt"], "--device", PRETRAIN_DEVICE, "--batch-size", str(PRETRAIN_BATCH)])
+    emb = np.load(os.path.join(out_dir, "image_embeddings.npy")).astype(np.float32)
+    with open(os.path.join(out_dir, "manifest.csv")) as f:
+        paths = [r["path"] for r in csv.DictReader(f)]
+    pixels = np.stack([preprocess_pil_uint8(Image.open(p).convert("RGB"), cfg.image_size) for p in paths])
+    want = featurize.make_image_embed_fn(cfg)(loaded, pixels).cpu().numpy()
+    feat_err = float(np.abs(emb - want).max())
+    require(feat_err <= EMB_TOL, f"featurize --pretrained on the final tree: {feat_err:.3e}")
+    # The same images as webdataset shards and as a TSV manifest.
+    samples, lines = [], ["filepath\ttitle"]
+    for p in paths:
+        buf = io.BytesIO()
+        Image.open(p).save(buf, format="JPEG")
+        caption = f"a photo of a {os.path.basename(os.path.dirname(p)).lower()}"
+        samples.append((buf.getvalue(), caption))
+        lines.append(f"{p}\t{caption}")
+    write_shards(samples, os.path.join(tmp, "shards"), shard_size=32)
+    with open(os.path.join(tmp, "pairs.tsv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    streamed = {}
+    for key, extra in (("shards", ["--shard-dir", os.path.join(tmp, "shards"), "--shuffle-buffer", "16"]),
+                       ("csv", ["--csv-path", os.path.join(tmp, "pairs.tsv")])):
+        res, s = _sync_ms(lambda: pretrain_cli.main(base + ["--epochs", "1", "--output-root",
+                                                           os.path.join(tmp, key)] + extra))
+        require(len(res["loss_history"]) == 1 and np.isfinite(res["loss_history"][0]), f"{key}: {res}")
+        streamed[key] = {"loss": res["loss_history"][0], "s": s / 1e3}
+    print(f"pretrain_cli: 2 epochs over {PRETRAIN_CLI_IMAGES} images at batch {PRETRAIN_BATCH} (cosine, warmup 1, "
+          f"clip 1, EMA 0.9, snapshot and zero-shot each epoch) in {s1 / 1e3:.1f} s: rows "
+          f"{[{k: r[k] for k in ('epoch', 'loss', 'zeroshot_acc', 'zeroshot_acc_ema')} for r in rows]}; resumed "
+          f"epoch 3 in {s2 / 1e3:.1f} s, loss {resumed['loss_history'][0]:.5f}; featurize --pretrained on the final "
+          f"tree vs encode_image {feat_err:.2e} (tol {EMB_TOL}); one --shard-dir and one --csv-path epoch {streamed}; "
+          f"launches of the 2-epoch run { {n: counts[n] for n in PRETRAIN_KERNELS} } ({card})", flush=True)
+    return {"launches": counts, "s": s1 / 1e3, "resume_s": s2 / 1e3, "feat_err": feat_err, "streamed": streamed}
+
+
+def _pretrain_turns(kparams, cfg, card: str) -> dict:
+    """ms per step on the host clock (ended by a synchronisation), in turns:
+    the InfoNCE step in f32 and in bf16, and the class-level CE step
+    (prompt tuning on cached features) at batch 32."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+
+    steps = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        tree = _tree_copy(kparams)
+        step = P.make_pretrain_step(c, P.PretrainOptimizer(P.set_trainable(tree), lr=PRETRAIN_LR,
+                                                           weight_decay=PRETRAIN_WD))
+        x, ids = _pretrain_batch(c, PRETRAIN_BATCH, 50)
+        steps[f"pretrain {dtype}"] = (lambda step=step, tree=tree, x=x, ids=ids: step(tree, x, ids))
+    model = FullModel(TRAIN_CLASSES, kparams, cfg)
+    ce = make_train_step(cfg, model.prompt_cfg)
+    state = init_train_state(model.trainable, make_optimizer(TrainConfig(lr=2e-3)))
+    rng = np.random.default_rng(51)
+    feats = rng.standard_normal((PRETRAIN_BATCH, cfg.embed_dim)).astype(np.float32)
+    y = rng.integers(0, len(TRAIN_CLASSES), PRETRAIN_BATCH)
+    mask = np.ones(PRETRAIN_BATCH, bool)
+    steps["class-level CE"] = lambda: ce(kparams, state, model.prompt_learner.bank, feats, y, mask)
+    ms = {k: [] for k in steps}
+    for _ in range(PRETRAIN_TURNS):
+        for k, fn in steps.items():
+            ms[k].append(_sync_ms(fn)[1])
+    turns = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    print(f"pretrain: ms per step in turns, median of {PRETRAIN_TURNS - 1} after one, batch {PRETRAIN_BATCH} at "
+          f"ViT-B/16: " + ", ".join(f"{k} {v:.2f}" for k, v in turns.items())
+          + f"; the f32 pretraining step is {turns['pretrain float32'] / turns['class-level CE']:.1f}x the "
+          f"class-level CE step ({card})", flush=True)
+    return turns
+
+
+def _gemm_dw(card: str) -> dict:
+    """gemm.cu's weight-gradient products at the pretraining image shape (8 x
+    200 rows = 1,600; ViT-B/16's widths) and at batch 32 (6,400 rows): each
+    against its plain version (A^T.B of the operands widened to f32) and
+    torch.mm (f32 out), with CUDA-event ms and the bound; then B4's and B5's
+    call with every gradient beside dx alone at the image shape."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda
+    from tapclip_tpu_torch.ops.gemm import gemm_f32
+
+    gen = torch.Generator(device=PRETRAIN_DEVICE).manual_seed(60)
+    W = 768
+    cases = []
+    for rows in (1_600, 6_400):
+        for label, (M, N) in (("y^T.dqkv (B4)", (W, 3 * W)), ("o^T.g (B4)", (W, W)), ("y^T.dh (B5)", (W, 4 * W)),
+                              ("h^T.g (B5)", (4 * W, W))):
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                a = torch.randn((rows, M), generator=gen, device=PRETRAIN_DEVICE).to(dt)
+                b = torch.randn((rows, N), generator=gen, device=PRETRAIN_DEVICE).to(dt)
+                got = gemm_f32(a, b, trans_a=True)
+                want = a.float().T @ b.float()
+                err = compare(f"gemm_f32 {label} {rows} {dtype}", got, want, 1e-4 * rows ** 0.5)
+                lib = (lambda: torch.mm(a.T, b, out_dtype=torch.float32)) if dtype == "bfloat16" else (
+                    lambda: torch.mm(a.T, b))
+                try:
+                    library_ms = time_ms(lib)
+                except (RuntimeError, TypeError):  # a torch without out_dtype
+                    library_ms = None
+                cases.append({"shape": f"{label} {M}x{N}x{rows}", "dtype": dtype, **err,
+                              "ms": time_ms(lambda: gemm_f32(a, b, trans_a=True)),
+                              "plain_ms": time_ms(lambda: a.float().T @ b.float()), "library_ms": library_ms,
+                              **bound(nbytes(a, b) + 4 * M * N, 2.0 * M * N * rows, dtype)})
+    halves = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x, g = (torch.randn((8, 200, W), generator=gen, device=PRETRAIN_DEVICE).to(dt) for _ in range(2))
+
+        def rnd(*s, sc=1.0):
+            return torch.randn(s, generator=gen, device=PRETRAIN_DEVICE) * sc
+
+        pa = (1 + rnd(W, sc=0.1), rnd(W, sc=0.1), rnd(W, 3 * W, sc=W ** -0.5), rnd(3 * W, sc=0.1), rnd(W, W, sc=W ** -0.5))
+        pm = (1 + rnd(W, sc=0.1), rnd(W, sc=0.1), rnd(W, 4 * W, sc=W ** -0.5), rnd(4 * W, sc=0.1),
+              rnd(4 * W, W, sc=(4 * W) ** -0.5))
+        halves[dtype] = {
+            "B4 all": time_ms(lambda: _attn_block_bwd_cuda(x, g, *pa, 12, 197, 1e-5)),
+            "B4 dx": time_ms(lambda: _attn_block_bwd_cuda(x, g, *pa, 12, 197, 1e-5, weight_grads=False)),
+            "B5 all": time_ms(lambda: _fused_mlp_bwd_cuda(x, g, *pm, eps=1e-5)),
+            "B5 dx": time_ms(lambda: _fused_mlp_bwd_cuda(x, g, *pm, eps=1e-5, weight_grads=False)),
+        }
+    print("pretrain: gemm.cu's dW products, CUDA-event ms vs plain (f32 widened) vs torch.mm vs bound: "
+          + "; ".join(f"{c['shape']} {c['dtype']} {c['ms']:.3f} / {c['plain_ms']:.3f} / "
+                      f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 3)} / "
+                      f"{c['bound_ms']:.3f} ({c['bound_by']}), max abs err {c['max_abs_err']:.1e}" for c in cases)
+          + f" ({card})", flush=True)
+    print("pretrain: B4 and B5 at the image shape 8x200x768 (12 heads, valid 197), ms with every gradient vs dx "
+          "alone: " + "; ".join(f"{dt} " + ", ".join(f"{k} {v:.3f}" for k, v in h.items()) for dt, h in halves.items())
+          + f" ({card})", flush=True)
+    return {"cases": cases, "halves": halves}
+
+
+def pretrain_phase(card: str) -> dict:
+    """CLIP pretraining on the card ("pretrain"), ViT-B/16 f32 with random
+    weights unless said: the InfoNCE step on the kernels against the plain
+    path (f32 and bf16), one step per option, ``pretrain_cli`` end to end,
+    the step timed in turns with the class-level CE step, gemm.cu's dW
+    products and B4/B5 at the image shape timed, one traced step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    try:
+        kparams = clip_model.init_clip_params(torch.Generator(device=PRETRAIN_DEVICE).manual_seed(20), cfg)
+        main_f32 = _pretrain_main_steps(kparams, cfg, card)
+        main_bf16 = _pretrain_main_steps(kparams, cfg.replace(dtype="bfloat16"), card)
+        options = _pretrain_options(kparams, cfg, card)
+        cli = _pretrain_cli(card, tmp)
+        turns = _pretrain_turns(kparams, cfg, card)
+        del kparams
+        gemm = _gemm_dw(card)
+        from tapclip_tpu_torch.scripts.profile_kernels import pretrain_trace
+
+        trace = pretrain_trace(5)
+        fam = trace.get("families_us", {})
+        dw = sum(v for k, v in trace["gemm_cu_us"].items() if "gemm_f32_kernel" in k)  # gemm.cu's names only
+        require(dw > 0, f"the trace holds no gemm.cu dW product: {trace['gemm_cu_us']}")
+        print(f"pretrain: one traced InfoNCE step (f32, batch {PRETRAIN_BATCH}): {trace['step_ms']:.1f} ms traced, "
+              f"{trace['step_ms_unprofiled']:.1f} ms untraced, device busy {trace['busy_share']:.3f} "
+              f"(untraced {trace['busy_share_unprofiled']:.3f}); device us per step by wrapper "
+              + ", ".join(f"{k} {v:.0f}" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+              + f"; gemm.cu's dW products (gemm_f32_kernel by name) {dw:.0f} us, {dw / trace['kernels_sum_us']:.3f} of "
+              f"{trace['kernels_sum_us']:.0f} us of kernels; host ms {trace['host_ms']} ({card})", flush=True)
+        return {"launches": main_f32["launches"], "f32": main_f32, "bf16": main_bf16, "options": options, "cli": cli,
+                "turns_ms": turns, "gemm": gemm, "trace": trace}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def gemm_record(pretrained: dict) -> dict:
+    """The kernels-line entry of gemm.cu's weight-gradient products: launches
+    on the pretraining drive (3 InfoNCE steps), the B5 product h^T.g at the
+    batch-32 image shape (6,400 rows) in f32 as the timed case, every case."""
+    cases = pretrained["gemm"]["cases"]
+    f32 = [c for c in cases if c["dtype"] == "float32"]
+    timed = [c for c in f32 if c["shape"].startswith("h^T.g") and c["shape"].endswith("x6400")][0]
+    return {
+        "name": "gemm_f32", "route": "cuda", "source": "tapclip_tpu_torch/csrc/gemm.cu",
+        "replaces": "tapclip_tpu/ops/fused_mha.py:628, tapclip_tpu/ops/fused_mlp.py:119",
+        "launches": pretrained["launches"]["gemm_f32"], "max_abs_err": max(c["max_abs_err"] for c in f32),
+        "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "shape": timed["shape"],
+        "col_sum_launches": pretrained["launches"]["col_sum"], "pretrain_launches": pretrained["launches"]["gemm_f32"],
+        "cases": cases, "b4_b5_image_ms": pretrained["gemm"]["halves"],
+        "pretrain_step_ms": pretrained["turns_ms"],
+        "pretrain_trace": {k: pretrained["trace"][k] for k in ("step_ms_unprofiled", "busy_share_unprofiled",
+                                                                "kernels_sum_us") if k in pretrained["trace"]}
+        | {"families_us": pretrained["trace"].get("families_us", {}), "gemm_cu_us": pretrained["trace"]["gemm_cu_us"]},
+    }
+
+
 def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, b13_bits: dict) -> list:
     """The kernels-line entries of B13, B14, S5 and S6: launches on the int8
     serving drive (f32, stochastic), errors and times at ViT-B/16 (B13, B14,
@@ -4447,6 +5043,7 @@ def main() -> int:
     evaluated = phase("eval", eval_phase, card)
     adapted = phase("adapt", adapt_phase, card)
     cocoop = phase("cocoop_rn", cocoop_rn_phase, card)
+    pretrained = phase("pretrain", pretrain_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -4482,6 +5079,7 @@ def main() -> int:
             "eval_launches": launches(evaluated),
             "adapt_launches": launches(adapted),
             "cocoop_rn_launches": cocoop["launches"].get(name, 0),
+            "pretrain_launches": pretrained["launches"].get(name, 0),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),
@@ -4507,6 +5105,7 @@ def main() -> int:
         if name == "fused_mha":
             entry["fused_split_launches"] = split["launches"][name]
         record.append(entry)
+    record.append(gemm_record(pretrained))
     record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"], b13_bits)
     record += ab_record(ab, served["all_launches"])
     for entry in record:  # the int8 kernels' launches on the eval drive (predict --int8, evaluate_adaptive)

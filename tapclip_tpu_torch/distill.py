@@ -1,0 +1,104 @@
+"""CLIP knowledge distillation: a frozen teacher into a student.
+
+Counterpart of ``tapclip_tpu/distill.py`` (TinyCLIP / CLIP-KD style), three
+terms:
+
+* **task**: the student's own InfoNCE (``pretrain.contrastive_loss_local``);
+* **kd**: row-wise ``KL(teacher || student)`` over the batch similarity
+  matrix, both directions, at temperature ``tau`` with the ``tau^2``
+  correction, each model's logits at its own ``logit_scale``;
+* **feat**: ``1 - cos(student_e @ kd_proj, teacher_e)`` per modality, with a
+  learnable ``kd_proj`` head when the embed dims differ (stripped at export
+  by :func:`strip_distill_params`).
+
+The teacher runs under ``torch.inference_mode`` (no graph, nothing saved);
+the gradient reaches the student tree, ``kd_proj`` included.  The mesh form
+(``distill_loss_global``) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from tapclip_tpu_torch.config import CLIPConfig
+from tapclip_tpu_torch.models import clip as clip_model
+from tapclip_tpu_torch.pretrain import PretrainOptimizer, _batch, _clamp_logit_scale, contrastive_loss_local
+
+Params = Dict[str, Any]
+
+
+def init_distill_params(generator: torch.Generator, student_params: Params, student_embed_dim: int,
+                        teacher_embed_dim: int) -> Params:
+    """The student tree, plus ``kd_proj [E_s, E_t]`` ``N(0, 1/E_s)`` drawn
+    from ``generator`` when the embed dims differ."""
+    if student_embed_dim == teacher_embed_dim:
+        return dict(student_params)
+    w = torch.randn((student_embed_dim, teacher_embed_dim), generator=generator, device=generator.device,
+                    dtype=torch.float32) * student_embed_dim ** -0.5
+    return dict(student_params, kd_proj=w.to(student_params["logit_scale"].device))
+
+
+def strip_distill_params(params: Params) -> Params:
+    """The tree without its training-only ``kd_proj`` head: a plain CLIP tree."""
+    return {k: v for k, v in params.items() if k != "kd_proj"}
+
+
+def _kd_kl(t_logits: torch.Tensor, s_logits: torch.Tensor, tau: float) -> torch.Tensor:
+    """Mean row-wise KL(teacher || student) at temperature tau (x tau^2)."""
+    t = torch.log_softmax(t_logits / tau, dim=-1)
+    s = torch.log_softmax(s_logits / tau, dim=-1)
+    return (tau * tau) * torch.mean(torch.sum(torch.exp(t) * (t - s), dim=-1))
+
+
+def _feat_mimic(s_e: torch.Tensor, t_e: torch.Tensor, kd_proj) -> torch.Tensor:
+    """1 - cos between the (projected) student and the teacher embeddings."""
+    if kd_proj is not None:
+        s_e = s_e @ kd_proj
+    s_e = clip_model.l2_normalize(s_e)
+    return 1.0 - torch.mean(torch.sum(s_e * t_e, dim=-1))
+
+
+def distill_loss_local(s_img, s_txt, t_img, t_txt, s_scale, t_scale, kd_proj, *, tau: float = 1.0,
+                       w_task: float = 1.0, w_kd: float = 1.0,
+                       w_feat: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The single-device objective on un-normalised features (normalised
+    here); returns ``(total, {"task", "kd", "feat"})``."""
+    si = clip_model.l2_normalize(s_img).float()
+    st = clip_model.l2_normalize(s_txt).float()
+    ti = clip_model.l2_normalize(t_img).float()
+    tt = clip_model.l2_normalize(t_txt).float()
+    task = contrastive_loss_local(s_img, s_txt, s_scale)
+    s_logits = torch.exp(s_scale.float()) * si @ st.T
+    t_logits = torch.exp(t_scale.float()) * ti @ tt.T
+    kd = 0.5 * (_kd_kl(t_logits, s_logits, tau) + _kd_kl(t_logits.T, s_logits.T, tau))
+    feat = 0.5 * (_feat_mimic(s_img.float(), ti, kd_proj) + _feat_mimic(s_txt.float(), tt, kd_proj))
+    total = w_task * task + w_kd * kd + w_feat * feat
+    return total, {"task": task, "kd": kd, "feat": feat}
+
+
+def make_distill_step(student_cfg: CLIPConfig, teacher_cfg: CLIPConfig, optimizer: PretrainOptimizer, *,
+                      tau: float = 1.0, w_task: float = 1.0, w_kd: float = 1.0, w_feat: float = 1.0) -> Callable:
+    """``step(student, teacher, images, token_ids) -> {"loss", "task", "kd",
+    "feat"}``: the teacher's features with no graph, the student's loss and
+    one update of ``optimizer``'s leaves of ``student`` in place, then the
+    ``logit_scale`` clamp."""
+
+    def step(student: Params, teacher: Params, images, token_ids) -> Dict[str, torch.Tensor]:
+        images, ids = _batch(student, images, token_ids)
+        with torch.inference_mode():
+            t_img = clip_model.encode_image(teacher, teacher_cfg, images)
+            t_txt = clip_model.encode_text(teacher, teacher_cfg, ids)
+        t_img, t_txt = t_img.clone(), t_txt.clone()  # out of inference mode, usable under a graph
+        t_scale = teacher["logit_scale"].detach()
+        s_img = clip_model.encode_image(student, student_cfg, images)
+        s_txt = clip_model.encode_text(student, student_cfg, ids)
+        total, parts = distill_loss_local(s_img, s_txt, t_img, t_txt, student["logit_scale"], t_scale,
+                                          student.get("kd_proj"), tau=tau, w_task=w_task, w_kd=w_kd,
+                                          w_feat=w_feat)
+        if optimizer.update(torch.autograd.grad(total, optimizer.leaves, allow_unused=True)):
+            _clamp_logit_scale(student)
+        return {"loss": total.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    return step

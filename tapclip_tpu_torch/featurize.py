@@ -66,16 +66,19 @@ def resolve_device(device) -> torch.device:
 
 
 def load_clip_params(cfg: CLIPConfig, pretrained: Optional[str], seed: int = 0, device="cuda"):
-    """Tower params on ``device``: an open_clip ``.pt``/``.bin`` state dict,
-    else random weights drawn from ``seed``.  An Orbax directory of the JAX
-    package raises, as ``train`` does."""
+    """Tower params on ``device``: an open_clip ``.pt``/``.bin`` state dict
+    or a CLIP tree ``pretrain_cli`` saved, else random weights drawn from
+    ``seed`` (and fresh VPT tokens for a VPT config whose tree has none).
+    An Orbax directory of the JAX package raises, as ``train`` does."""
     dev = resolve_device(device)
     if pretrained:
         from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
 
-        return load_openclip_checkpoint(pretrained, cfg, device=dev)
-    log.warning("no --pretrained given: using RANDOM CLIP weights")
-    return clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        params = load_openclip_checkpoint(pretrained, cfg, device=dev)
+    else:
+        log.warning("no --pretrained given: using RANDOM CLIP weights")
+        params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+    return clip_model.ensure_vpt_params(params, cfg, seed=seed)
 
 
 # ---------------------------------------------------------------------------

@@ -6,16 +6,18 @@ the bridge from a JAX tree).  The patch embedding is a reshape + GEMM over
 NHWC images, numerically a strided conv.
 
 Ported: ``init_clip_params`` (ViT and RN), ``patchify``, ``encode_image`` (with
-the int8 W8A8 tower of ``quantize_tower`` / ``int8_deterministic`` and the
-attention-aware token pruning of ``token_keep_ratio``), ``embed_tokens``,
-``encode_text`` (the proper CLIP text encoder: positional embedding, causal
-mask, ``ln_final``, EOT pooling), ``text_forward_embeds`` in ``ref_compat``
-and ``idiomatic`` mode, and ``l2_normalize``; every ``attn_impl`` of the JAX
+the int8 W8A8 tower of ``quantize_tower`` / ``int8_deterministic``, the
+attention-aware token pruning of ``token_keep_ratio``, pretraining's patch
+dropout and VPT's learned prompt tokens), ``embed_tokens``, ``encode_text``
+(the proper CLIP text encoder: positional embedding, causal mask,
+``ln_final``, EOT pooling), ``text_forward_embeds`` in ``ref_compat`` and
+``idiomatic`` mode, and ``l2_normalize``; every ``attn_impl`` of the JAX
 package; MaPLe's prompts in both towers (``encode_image(maple_prompts=)``,
-``text_forward_embeds(deep_prompts=)``).  The text tower is never quantized,
+``text_forward_embeds(deep_prompts=)``); ``CLIPConfig.remat`` in both
+towers (``layers.transformer_forward``).  The text tower is never quantized,
 as in the JAX package.  ``vision_tower="resnet"`` (the RN50 family) routes
-the image side to ``models/resnet.py``; int8, token pruning, MaPLe and VPT
-on it raise, as in the JAX package.  MoE and VPT raise
+the image side to ``models/resnet.py``; int8, token pruning, MaPLe, patch
+dropout and VPT on it raise, as in the JAX package.  MoE raises
 ``NotImplementedError`` (not yet ported).
 """
 
@@ -36,8 +38,6 @@ Params = Dict[str, Any]
 def _unported(cfg: CLIPConfig) -> Optional[str]:
     if cfg.moe_experts:
         return "mixture-of-experts towers"
-    if cfg.vpt_tokens:
-        return "visual prompt tokens (VPT)"
     return None
 
 
@@ -116,6 +116,8 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -
             "ln_post": ln(vw),
             "proj": normal(vw, cfg.embed_dim, std=vw ** -0.5),
         }
+        if cfg.vpt_tokens > 0:
+            visual["vpt"] = init_vpt_params(generator, cfg, device)
     text = {
         "token_embedding": normal(cfg.vocab_size, tw, std=0.02),
         "positional_embedding": normal(cfg.context_length, tw, std=0.01),
@@ -125,6 +127,65 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -
     }
     logit_scale = torch.tensor(math.log(1.0 / 0.07), dtype=torch.float32, device=device)
     return {"visual": visual, "text": text, "logit_scale": logit_scale}
+
+
+def vpt_shape(cfg: CLIPConfig) -> Tuple[int, ...]:
+    """``visual.vpt``'s shape: ``[P, W]`` shallow, ``[L, P, W]`` deep."""
+    if cfg.vpt_deep:
+        return (cfg.vision_layers, cfg.vpt_tokens, cfg.vision_width)
+    return (cfg.vpt_tokens, cfg.vision_width)
+
+
+def init_vpt_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -> torch.Tensor:
+    """Fresh VPT prompt tokens of :func:`vpt_shape`, ``N(0, 1/W)``, drawn on
+    ``generator``'s device and moved to ``device``."""
+    t = torch.randn(vpt_shape(cfg), generator=generator, device=generator.device, dtype=torch.float32)
+    return (t * cfg.vision_width ** -0.5).to(device or generator.device)
+
+
+def ensure_vpt_params(params: Params, cfg: CLIPConfig, seed: int = 0) -> Params:
+    """A tree with ``visual.vpt`` for a VPT config: a loaded tree that has
+    none (an open_clip state dict, a tree saved without VPT) gets fresh
+    tokens drawn from ``seed``; a tree whose tokens have another shape
+    raises, rather than re-initialising trained prompts."""
+    if cfg.vpt_tokens <= 0 or cfg.vision_tower == "resnet":
+        return params
+    visual = params.get("visual", {})
+    if "vpt" in visual:
+        if tuple(visual["vpt"].shape) != vpt_shape(cfg):
+            raise ValueError(
+                f"checkpoint carries VPT tokens of shape {tuple(visual['vpt'].shape)} but the config expects "
+                f"{vpt_shape(cfg)} (vpt_tokens={cfg.vpt_tokens}, vpt_deep={cfg.vpt_deep}); load with the "
+                "matching config")
+        return params
+    dev = params["logit_scale"].device
+    vpt = init_vpt_params(torch.Generator().manual_seed(seed), cfg, dev)
+    return dict(params, visual=dict(visual, vpt=vpt))
+
+
+def patch_dropout_indices(generator: torch.Generator, batch: int, n_patches: int, prob: float,
+                          device=None) -> Optional[torch.Tensor]:
+    """The patches patch dropout keeps: ``[batch, n_keep]`` indices (0-based
+    over the patches) of the top ``n_keep = max(1, round(n_patches * (1 -
+    prob)))`` of uniform scores drawn from ``generator``, a uniform subset
+    without replacement in score order, as ``jax.lax.top_k`` orders it.
+    None when every patch is kept."""
+    n_keep = max(1, int(round(n_patches * (1.0 - prob))))
+    if n_keep >= n_patches:
+        return None
+    scores = torch.rand((batch, n_patches), generator=generator, device=generator.device, dtype=torch.float32)
+    return torch.topk(scores, n_keep, dim=-1).indices.to(device or generator.device)
+
+
+def _patch_dropout(x: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """FLIP-style patch masking of ``x [B, 1 + n_patches, W]`` (after the
+    positional embedding): the class token stays at slot 0, then the patches
+    ``idx`` names, in its order.  The gather's backward is a scatter-add."""
+    if idx is None:
+        return x
+    idx = idx.to(device=x.device, dtype=torch.long)
+    full = torch.cat([torch.zeros_like(idx[:, :1]), idx + 1], dim=1)
+    return torch.take_along_dim(x, full[:, :, None], dim=1)
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -144,7 +205,9 @@ def _pad_to_8(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
     return torch.nn.functional.pad(x, (0, 0, 0, Tp - T)), T
 
 
-def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_prompts=None) -> torch.Tensor:
+def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_prompts=None, *,
+                 generator: Optional[torch.Generator] = None,
+                 patch_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` (preprocessed f32, or raw uint8) -> ``[B, embed_dim]``.
 
     Matches open_clip ``VisionTransformer.forward`` + projection; the caller
@@ -157,10 +220,24 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     slots at the masked block inputs (``layers.transformer_forward``); the
     tower then runs at 197 + P padded to a multiple of 8 with 197 + P valid
     keys.  Refused with VPT and with token pruning, as in the JAX package.
+
+    Training only: with ``cfg.patch_dropout > 0`` and a ``generator`` (or
+    the kept indices ``patch_idx`` of :func:`patch_dropout_indices`, drawn
+    elsewhere), the patches not kept are dropped after the positional
+    embedding (:func:`_patch_dropout`); eval and serving pass neither, so
+    they never draw.  With ``cfg.vpt_tokens``, ``visual.vpt`` is inserted
+    after the class token, after patch dropout (the prompts are never
+    dropped); deep VPT's rows 1.. overwrite those slots at each later block
+    input, as MaPLe's deep prompts do.
     """
+    dropout = cfg.patch_dropout > 0 and (generator is not None or patch_idx is not None)
     if cfg.vision_tower == "resnet":
         # As the JAX package: a quantization, pruning or prompt flag on the
         # convolutional tower fails loudly rather than being a silent no-op.
+        if dropout:
+            raise NotImplementedError(
+                "patch_dropout applies to ViT towers only (the RN-family tower has no patch-token sequence)"
+            )
         if maple_prompts is not None:
             raise NotImplementedError(
                 "MaPLe vision prompts apply to ViT towers only (the RN-family tower has no token sequence)"
@@ -190,8 +267,20 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     cls = p["class_embedding"].to(dtype).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
     x = x + p["positional_embedding"].to(dtype)[None]
+    if dropout:
+        if cfg.token_keep_ratio < 1.0:
+            raise NotImplementedError(
+                "patch_dropout (training) and token_keep_ratio (eval pruning) do not compose — pick one per call"
+            )
+        if patch_idx is None:
+            patch_idx = patch_dropout_indices(generator, x.shape[0], x.shape[1] - 1, cfg.patch_dropout, x.device)
+        x = _patch_dropout(x, patch_idx)
     deep = {}
     if maple_prompts is not None:
+        if cfg.vpt_tokens > 0:
+            raise NotImplementedError(
+                "maple prompts and vpt_tokens both claim the prompt slots — pick one prompt source per model"
+            )
         if cfg.token_keep_ratio < 1.0:
             raise NotImplementedError(
                 "maple prompts do not compose with token_keep_ratio (pruning would silently drop the coupled "
@@ -201,13 +290,24 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
         x = torch.cat([x[:, :1], first.to(dtype).expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
         if layer_prompts is not None:
             deep = dict(layer_prompts=layer_prompts.to(dtype), prompt_mask=prompt_mask)
+    elif cfg.vpt_tokens > 0:
+        if cfg.token_keep_ratio < 1.0:
+            raise NotImplementedError(
+                "vpt_tokens does not compose with token_keep_ratio (pruning would silently drop the learned "
+                "prompts)"
+            )
+        vpt = p["vpt"].to(dtype)
+        first = vpt[0] if cfg.vpt_deep else vpt
+        x = torch.cat([x[:, :1], first.expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
+        if cfg.vpt_deep:
+            deep = dict(layer_prompts=vpt[1:])
     x = layers.layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, kv_valid = _pad_to_8(x)
     if cfg.token_keep_ratio < 1.0 and cfg.token_prune_layer < cfg.vision_layers:
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
         x, _ = layers.transformer_forward(
-            x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, **_tower_kw(cfg), **deep,
+            x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, remat=cfg.remat, **_tower_kw(cfg), **deep,
         )
     x = layers.layer_norm(x, p["ln_post"], cfg.ln_eps)
     return layers.dense(x[:, 0], p["proj"])
@@ -288,7 +388,7 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
     x, kv_valid = _pad_to_8(x)
     x, _ = layers.transformer_forward(
         x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=True,
-        kv_valid_len=kv_valid, impl=cfg.attn_impl,
+        kv_valid_len=kv_valid, impl=cfg.attn_impl, remat=cfg.remat,
     )
     x = layers.layer_norm(x[:, :T], p["ln_final"], cfg.ln_eps)
     pooled = _pool(x, ids.argmax(dim=-1))

@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tapclip_tpu_torch.ops.attention import IntOrTensor, multi_head_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
@@ -195,6 +196,7 @@ def transformer_forward(
     layer_prompts: Optional[torch.Tensor] = None,
     prompt_offset: int = 1,
     prompt_mask=None,
+    remat: str = "none",
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order; the attribution aux comes from the last one.
 
@@ -208,14 +210,28 @@ def transformer_forward(
     (bool; None: every row) leaves the rows it marks False inert.  The
     overwrite is out of place (a new tensor from ``torch.cat``): the kernels'
     autograd Functions save their inputs for the backward.
+
+    ``remat`` (``CLIPConfig.remat``: "none", "dots" or "full") checkpoints
+    each block under a graph (``torch.utils.checkpoint``, non-reentrant):
+    the block's forward runs again in the backward, so its kernels launch
+    twice.  Eager PyTorch has no policy that keeps the products' outputs, so
+    "dots" recomputes the whole block, as "full" does; the gradients equal
+    those without remat either way.
     """
+    if remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat policy {remat!r}")
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
               quantize=quantize, quantize_deterministic=quantize_deterministic)
     active = [] if layer_prompts is None else (
         [True] * layer_prompts.shape[0] if prompt_mask is None else torch.as_tensor(prompt_mask).tolist())
+    checkpointed = remat != "none" and torch.is_grad_enabled()
     last, aux = len(blocks) - 1, None
     for i, blk in enumerate(blocks):
-        x, aux = block_forward(x, blk, n_heads, attn_to_idx=attn_to_idx if i == last else None, **kw)
+        to_idx = attn_to_idx if i == last else None
+        if checkpointed:
+            x, aux = checkpoint(block_forward, x, blk, n_heads, attn_to_idx=to_idx, use_reentrant=False, **kw)
+        else:
+            x, aux = block_forward(x, blk, n_heads, attn_to_idx=to_idx, **kw)
         if i < last and i < len(active) and active[i]:
             P = layer_prompts.shape[1]
             rows = layer_prompts[i].to(x.dtype).expand(x.shape[0], P, x.shape[-1])

@@ -143,7 +143,7 @@ class _FusedAttnBlock(torch.autograd.Function):
         elif not _tile_fits(x.shape[1], x.shape[2] // ctx.cfg[0]):
             return (*_split_block_grads(saved, g, need, *ctx.cfg), None, None, None)
         else:
-            grads = _attn_block_bwd_cuda(*args, weight_grads=any(need[1:7]))
+            grads = _attn_block_bwd_cuda(*args, weight_grads=tuple(need[1:7]))
         return (*_grads_like(grads, saved, need), None, None, None)
 
 
@@ -244,15 +244,19 @@ def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, 
 def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps,
                          *, weight_grads=True, split=None):
     """B4 on the card: the seven launches of ``csrc/attn_block_bwd.cu`` (dx,
-    and with ``weight_grads`` o and the LayerNorm partials for the weight
-    gradients), then the A^T.B products and column sums.  ``split``: the
-    split of dy's depth into f32 partials (1, 2 or 4; None takes the
-    kernel's choice for the shape).  Returns the seven gradients of
-    :func:`attn_block_bwd_reference` (the six weight gradients None without
-    ``weight_grads``)."""
+    and with any weight gradient o and the LayerNorm partials for them),
+    then the A^T.B products and column sums of the weight gradients
+    ``weight_grads`` asks for: True (all), False (none) or six flags in the
+    order gamma, beta, w_qkv, b_qkv, w_out, b_out.  ``split``: the split of
+    dy's depth into f32 partials (1, 2 or 4; None takes the kernel's choice
+    for the shape).  Returns the seven gradients of
+    :func:`attn_block_bwd_reference` (None for a weight gradient not
+    computed)."""
     B, T, W = x.shape
     R = B * T
     Dh = _check_heads(T, W, n_heads, valid)
+    want = (weight_grads,) * 6 if isinstance(weight_grads, bool) else tuple(weight_grads)
+    weight_grads = any(want)
     lib = _build.library()
     if not _tile_fits(T, Dh):
         raise ValueError(
@@ -299,9 +303,10 @@ def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid,
         return dx, None, None, None, None, None, None
     y, dqkv, attn = wsd[:R * W].view(R, W), wsd[R * W:4 * R * W].view(R, 3 * W), wsd[4 * R * W:].view(R, W)
     g2 = g.reshape(R, W)
-    ln_sums = col_sum(part)
-    return (dx, ln_sums[:W], ln_sums[W:], gemm_f32(y, dqkv, trans_a=True), col_sum(dqkv),
-            gemm_f32(attn, g2, trans_a=True), col_sum(g2))
+    ln_sums = col_sum(part) if want[0] or want[1] else None
+    return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
+            gemm_f32(y, dqkv, trans_a=True) if want[2] else None, col_sum(dqkv) if want[3] else None,
+            gemm_f32(attn, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
 
 
 # --- the packed-QKV attention core: B6 forward, B7 backward -------------------

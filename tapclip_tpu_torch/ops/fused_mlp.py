@@ -91,9 +91,10 @@ def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 
 
 
 def _grads_like(grads, inputs, needs_input_grad):
-    """Each gradient in its input's shape and dtype, None where not wanted."""
+    """Each gradient in its input's shape and dtype, None where not wanted
+    (or not computed)."""
     return [
-        gr.reshape(t.shape).to(t.dtype) if want else None
+        gr.reshape(t.shape).to(t.dtype) if want and gr is not None else None
         for gr, t, want in zip(grads, inputs, needs_input_grad)
     ]
 
@@ -119,9 +120,8 @@ class _FusedMLP(torch.autograd.Function):
         if x.device.type == "cpu":
             grads = fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, ctx.eps)
         else:
-            grads = _fused_mlp_bwd_cuda(
-                x, g, gamma, beta, w_fc, b_fc, w_proj, eps=ctx.eps, weight_grads=any(need[1:7])
-            )
+            grads = _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, eps=ctx.eps,
+                                        weight_grads=tuple(need[1:7]))
         return (*_grads_like(grads, saved, need), None)
 
 
@@ -183,12 +183,14 @@ def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps):
 
 
 def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_grads=True, split=None):
-    """B5 on the card: its five launches (dx, and with ``weight_grads`` the
-    scratch for the weight gradients), then the A^T.B products and column
-    sums.  ``split``: the split of dy's depth into f32 partials (1, 2 or 4;
-    None takes the kernel's choice for the shape).  Returns the seven
-    gradients of :func:`fused_mlp_bwd_reference` (the six weight gradients
-    None without ``weight_grads``)."""
+    """B5 on the card: its five launches (dx, and with any weight gradient
+    the scratch for them), then the A^T.B products and column sums of the
+    weight gradients ``weight_grads`` asks for: True (all), False (none) or
+    six flags in the order gamma, beta, w_fc, b_fc, w_proj, b_proj.
+    ``split``: the split of dy's depth into f32 partials (1, 2 or 4; None
+    takes the kernel's choice for the shape).  Returns the seven gradients
+    of :func:`fused_mlp_bwd_reference` (None for a weight gradient not
+    computed)."""
     W = x.shape[-1]
     H = w_fc.shape[-1]
     R = x.numel() // W
@@ -200,6 +202,8 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
         if t[name].data_ptr() % align:
             raise ValueError(f"fused_mlp backward kernel copies {name} in {align}-byte chunks: it must be "
                              f"{align}-byte aligned")
+    want = (weight_grads,) * 6 if isinstance(weight_grads, bool) else tuple(weight_grads)
+    weight_grads = any(want)
     lib = _build.library()
     code = _build.dtype_code(x.dtype)
     S = lib.tapclip_mlp_bwd_split(R, W, H, code) if split is None else int(split)
@@ -224,9 +228,10 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
     dhp, y = wsd[:R * H].view(R, H), wsd[R * H:].view(R, W)
     dh_pre = ws[:R * H].view(R, H)  # unrounded, for db_fc
     g2 = g.reshape(R, W)
-    ln_sums = col_sum(part)
-    return (dx, ln_sums[:W], ln_sums[W:], gemm_f32(y, dhp, trans_a=True), col_sum(dh_pre),
-            gemm_f32(h, g2, trans_a=True), col_sum(g2))
+    ln_sums = col_sum(part) if want[0] or want[1] else None
+    return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
+            gemm_f32(y, dhp, trans_a=True) if want[2] else None, col_sum(dh_pre) if want[3] else None,
+            gemm_f32(h, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
 
 
 # --- S2: the A/B variants of the MLP half-block (scripts/mlp_kernel_ab.py) ---

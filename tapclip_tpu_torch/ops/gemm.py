@@ -1,6 +1,7 @@
 """Wrappers of ``csrc/gemm.cu``: the products and column sums that the
 backward kernels B4 and B5 share (CUDA tensors only; no plain path, since
-their callers run them only on the card)."""
+their callers run them only on the card).  They run when a weight gradient
+is wanted (pretraining); each counts its calls in ``.launches``."""
 
 from __future__ import annotations
 
@@ -29,7 +30,11 @@ def gemm_f32(a, b, *, bias=None, trans_a=False, trans_b=False):
         _build.stream_handle(a.device),
     )
     _build.check(err, "tapclip_gemm_f32")
+    gemm_f32.launches += 1
     return c
+
+
+gemm_f32.launches = 0
 
 
 _COL_CHUNK = 64
@@ -49,4 +54,8 @@ def col_sum(t, *, dtype=None):
     out = torch.empty((1, N), dtype=torch.float32, device=t.device)
     err = lib.tapclip_col_sum(part.data_ptr(), out.data_ptr(), chunks, N, chunks, 0, stream)
     _build.check(err, "tapclip_col_sum")
+    col_sum.launches += 1
     return out[0]
+
+
+col_sum.launches = 0  # wrapper calls (two kernel launches each)

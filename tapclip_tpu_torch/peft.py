@@ -1,0 +1,101 @@
+"""Parameter-efficient fine-tuning: LoRA adapters for the CLIP towers.
+
+Counterpart of ``tapclip_tpu/peft.py``.  LoRA (Hu et al. 2021) as
+merge-then-run: every step merges
+
+    W' = W + (alpha / r) * A @ B
+
+in f32 on ``attn/w_qkv``, ``attn/w_out``, ``mlp/w_fc`` and ``mlp/w_proj`` of
+every block of both towers, then runs the towers unchanged on the merged
+tree, so the same kernels run as in full pretraining (on the card the
+backward kernels compute dW of the merged weights, which autograd carries
+on into A and B).  The base tree does not require a gradient and has no
+optimizer state; ``logit_scale`` stays frozen too.
+
+The adapter tree mirrors the towers' block lists:
+``{"visual": {"blocks": [{"attn": {"w_qkv": {"a", "b"}, ...}, "mlp": {...}}, ...]},
+"text": {...}}``.  A is ``[In, r]`` ``N(0, 1/r)``, B is ``[r, Out]`` zero, so
+step 0 reproduces the base model.  An RN-family image tower has no block
+list and gets no adapters.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from tapclip_tpu_torch.config import CLIPConfig
+from tapclip_tpu_torch.models import clip as clip_model
+from tapclip_tpu_torch.pretrain import PretrainOptimizer, _check_loss, _batch, named_leaves, pair_loss
+
+Params = Dict[str, Any]
+
+ADAPTED = {"attn": ("w_qkv", "w_out"), "mlp": ("w_fc", "w_proj")}
+
+
+def _towers(params: Params):
+    return [t for t in ("visual", "text") if isinstance(params.get(t), dict) and "blocks" in params[t]]
+
+
+def init_lora_params(generator: torch.Generator, clip_params: Params, rank: int = 8) -> Params:
+    """Adapters for every adapted leaf of ``clip_params``, A drawn from
+    ``generator`` (tower, block, sublayer and leaf in that order)."""
+    out: Params = {}
+    for tower in _towers(clip_params):
+        blocks = []
+        for blk in clip_params[tower]["blocks"]:
+            entry = {}
+            for sub, names in ADAPTED.items():
+                entry[sub] = {}
+                for name in names:
+                    w = blk[sub][name]
+                    n_in, n_out = w.shape
+                    a = torch.randn((n_in, rank), generator=generator, device=generator.device, dtype=torch.float32)
+                    entry[sub][name] = {"a": (a * rank ** -0.5).to(w.device),
+                                        "b": torch.zeros((rank, n_out), dtype=torch.float32, device=w.device)}
+            blocks.append(entry)
+        out[tower] = {"blocks": blocks}
+    return out
+
+
+def merge_lora(clip_params: Params, lora: Params, alpha: float = 16.0) -> Params:
+    """``W + (alpha / r) * A @ B`` on every adapted leaf, in f32 (the others
+    are the base tree's own tensors).  Differentiable in A and B."""
+    merged = dict(clip_params)
+    for tower, sub_tree in lora.items():
+        blocks = []
+        for blk, ab in zip(clip_params[tower]["blocks"], sub_tree["blocks"]):
+            new = dict(blk)
+            for sub, leaves in ab.items():
+                new[sub] = dict(blk[sub])
+                for name, pair in leaves.items():
+                    w = blk[sub][name]
+                    scale = alpha / pair["a"].shape[-1]
+                    new[sub][name] = (w.float() + scale * (pair["a"] @ pair["b"])).to(w.dtype)
+            blocks.append(new)
+        merged[tower] = dict(clip_params[tower], blocks=blocks)
+    return merged
+
+
+def lora_param_count(lora: Params) -> int:
+    return sum(t.numel() for _, t in named_leaves(lora))
+
+
+def make_lora_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str = "infonce",
+                            alpha: float = 16.0) -> Callable:
+    """``step(clip_params, lora, images, token_ids) -> {"loss"}``: the
+    contrastive loss of the merged tree, its gradient in the adapters only
+    (``optimizer``'s leaves: ``lora``'s), one update in place."""
+    _check_loss(loss)
+
+    def step(clip_params: Params, lora: Params, images, token_ids) -> Dict[str, torch.Tensor]:
+        images, ids = _batch(clip_params, images, token_ids)
+        merged = merge_lora(clip_params, lora, alpha=alpha)
+        img = clip_model.encode_image(merged, cfg, images)
+        txt = clip_model.encode_text(merged, cfg, ids)
+        total = pair_loss(loss, merged, img, txt)
+        optimizer.update(torch.autograd.grad(total, optimizer.leaves, allow_unused=True))
+        return {"loss": total.detach()}
+
+    return step

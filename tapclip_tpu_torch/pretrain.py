@@ -1,0 +1,502 @@
+"""CLIP contrastive pretraining / fine-tuning steps on one device.
+
+Counterpart of ``tapclip_tpu/pretrain.py``: the symmetric InfoNCE and the
+SigLIP pairwise sigmoid objectives, a step that trains the towers
+themselves, GradCache accumulation with negatives over the whole macro
+batch, LiT tower locks, BitFit, an EMA of the tree and the validation
+readout (contrastive loss + retrieval Recall@K).
+
+The parameter tree is the port's (``models/clip.py``: a stack of blocks is a
+list).  Which leaves train is which leaves require a gradient: a locked or
+frozen leaf is left out of autograd and out of the optimizer (no moments, no
+decay), so it stays bit-identical.  A fully locked tower therefore runs its
+forward with no graph, which is JAX's ``stop_gradient`` pruning; VPT's
+``visual.vpt`` trains through an image lock, and the graph then reaches it
+through the frozen tower, whose kernels compute no weight gradient.
+
+:class:`PretrainOptimizer` is the JAX CLI's optax chain written out:
+``MultiSteps(chain(clip_by_global_norm, adamw(schedule)))`` over the
+trainable leaves, with :func:`warmup_cosine_decay_schedule`,
+:func:`clip_by_global_norm` and the ``MultiSteps`` running mean as plain
+functions.  The AdamW update is ``torch.optim.AdamW`` (``optax.adamw``'s
+update: decoupled decay on the old parameter, eps outside the square root,
+bias correction by the update count).  One deliberate difference: the
+clip's global norm runs over the trained leaves' gradients; under BitFit and
+``unlocked_groups`` the JAX chain also counts the frozen leaves' gradients,
+which the port never computes.
+
+Every random draw (augmentation boxes, patch-dropout indices) comes from an
+explicit ``torch.Generator`` and can be passed in instead (``boxes=``,
+``patch_idx=``), so tests feed JAX's draws.  The mesh forms (the
+``*_global`` losses, pipeline, sequence parallelism, FSDP) are not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tapclip_tpu_torch.config import CLIPConfig
+from tapclip_tpu_torch.models import clip as clip_model
+
+Params = Dict[str, Any]
+LOGIT_SCALE_MAX = math.log(100.0)
+
+#: Leaf-path suffixes BitFit trains: every additive bias (LayerNorm / BN
+#: biases, the attention and MLP projection biases, and "/b", the RN-family
+#: attention-pool projection biases); LN scales and BN statistics stay frozen.
+BITFIT_SUFFIXES = ("/bias", "/b_qkv", "/b_out", "/b_fc", "/b_proj", "/b")
+
+
+# --- losses ------------------------------------------------------------------
+
+
+def contrastive_loss_local(img_feats: torch.Tensor, txt_feats: torch.Tensor,
+                           logit_scale: torch.Tensor) -> torch.Tensor:
+    """Bidirectional InfoNCE over ``exp(logit_scale) * img @ txt.T``, in f32
+    on the L2-normalised features."""
+    img = clip_model.l2_normalize(img_feats).float()
+    txt = clip_model.l2_normalize(txt_feats).float()
+    logits = torch.exp(logit_scale.float()) * img @ txt.T
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return 0.5 * (F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels))
+
+
+def siglip_loss_local(img_feats: torch.Tensor, txt_feats: torch.Tensor, logit_scale: torch.Tensor,
+                      logit_bias: torch.Tensor) -> torch.Tensor:
+    """SigLIP (Zhai et al. 2023): ``-1/B sum_ij log sigmoid(z_ij (t img_i . txt_j + b))``
+    with ``z = +1`` on the diagonal and ``-1`` off it."""
+    img = clip_model.l2_normalize(img_feats).float()
+    txt = clip_model.l2_normalize(txt_feats).float()
+    n = img.shape[0]
+    logits = torch.exp(logit_scale.float()) * img @ txt.T + logit_bias.float()
+    z = 2.0 * torch.eye(n, dtype=torch.float32, device=logits.device) - 1.0
+    return -F.logsigmoid(z * logits).sum() / n
+
+
+def add_siglip_params(params: Params, init_bias: float = -10.0) -> Params:
+    """``params`` with SigLIP's ``logit_bias`` (init -10: training starts
+    near the all-negatives prior); a bias already there is kept."""
+    if "logit_bias" in params:
+        return dict(params)
+    return dict(params, logit_bias=torch.tensor(init_bias, dtype=torch.float32,
+                                                 device=params["logit_scale"].device))
+
+
+def pair_loss(loss: str, params: Params, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
+    """The objective ``loss`` ("infonce" or "siglip") on one batch of features."""
+    if loss == "siglip":
+        return siglip_loss_local(img, txt, params["logit_scale"], params["logit_bias"])
+    return contrastive_loss_local(img, txt, params["logit_scale"])
+
+
+def _check_loss(loss: str) -> None:
+    if loss not in ("infonce", "siglip"):
+        raise ValueError(f"unknown loss {loss!r}: use 'infonce' or 'siglip'")
+
+
+# --- the tree's leaves -------------------------------------------------------
+
+
+def named_leaves(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """``(path, leaf)`` of a nested dict/list tree, keys sorted, list items by
+    index: ``"visual/blocks/0/attn/w_qkv"``.  ``None`` leaves are skipped."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in named_leaves(v, f"{prefix}{i}/")]
+    if tree is None:
+        return []
+    return [(prefix[:-1], tree)]
+
+
+def map_tree(fn: Callable, tree):
+    """``fn`` over every tensor leaf of a nested dict/list tree (structure kept)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return None if tree is None else fn(tree)
+
+
+def detached_copy(tree):
+    """A detached clone of every leaf (an EMA start, a snapshot)."""
+    return map_tree(lambda t: t.detach().clone(), tree)
+
+
+def lock_tower_trainable(params: Params, *, lock_image: bool = False, lock_text: bool = False,
+                         unlocked_groups: int = 0) -> Dict[str, bool]:
+    """LiT-style locks (Zhai et al.; open_clip's ``--lock-image`` /
+    ``--lock-text``): ``{path: trains}`` over the tree.  A locked tower's
+    leaves are frozen, ``visual.vpt`` excepted; the top-level extras
+    (``logit_scale``, SigLIP's ``logit_bias``, ``kd_proj``) train.
+
+    ``unlocked_groups`` (open_clip's ``unlocked_groups=N``): the locked
+    tower's groups are [stem, block_0 .. block_{L-1}, head], and the last N
+    train (1: the head, 2: head + last block, ...; L + 2: all of it)."""
+    if lock_image and lock_text:
+        raise ValueError("locking BOTH towers leaves nothing to train")
+    locked = {"visual"} if lock_image else {"text"} if lock_text else set()
+    head_keys = {"visual": ("ln_post", "proj"), "text": ("ln_final", "text_projection")}
+    out = {}
+    for tower in ("visual", "text"):
+        if tower in locked and unlocked_groups > 0 and "blocks" not in params[tower]:
+            raise ValueError("unlocked_groups requires a stacked-blocks (transformer) tower; "
+                             f"{tower!r} has keys {sorted(params[tower])}")
+    for path, _ in named_leaves(params):
+        parts = path.split("/")
+        tower = parts[0]
+        if tower not in locked or (tower == "visual" and parts[1] == "vpt"):
+            out[path] = True
+        elif unlocked_groups <= 0:
+            out[path] = False
+        else:
+            n_blocks = len(params[tower]["blocks"])
+            n = min(unlocked_groups, n_blocks + 2)
+            first_unlocked = n_blocks - max(0, n - 1)
+            if parts[1] == "blocks":
+                out[path] = int(parts[2]) >= first_unlocked
+            else:
+                out[path] = parts[1] in head_keys[tower] or n >= n_blocks + 2
+    return out
+
+
+def bitfit_trainable(params: Params) -> Dict[str, bool]:
+    """BitFit (Ben Zaken et al. 2022): ``{path: trains}`` with only the
+    additive biases of the towers (:data:`BITFIT_SUFFIXES`), ``visual.vpt``
+    and the top-level extras training."""
+    out = {}
+    for path, _ in named_leaves(params):
+        if not path.startswith(("visual/", "text/")) or path == "visual/vpt":
+            out[path] = True
+        else:
+            out[path] = path.endswith(BITFIT_SUFFIXES)
+    return out
+
+
+def set_trainable(params: Params, trainable: Optional[Dict[str, bool]] = None) -> List[Tuple[str, torch.Tensor]]:
+    """Mark each leaf of ``params`` (in place) as requiring a gradient or
+    not; returns the trained ``(path, leaf)`` pairs, the optimizer's.  With
+    no mask every leaf trains."""
+    leaves = []
+    for path, t in named_leaves(params):
+        want = True if trainable is None else trainable[path]
+        t.requires_grad_(want)
+        if want:
+            leaves.append((path, t))
+    return leaves
+
+
+# --- the optimizer -------------------------------------------------------------
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0, exponent: float = 1.0) -> Callable[[int], float]:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps`` (held at ``init_value`` when that is
+    0), then cosine decay to ``end_value`` at ``decay_steps``."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps - warmup_steps}.")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+
+    def warmup(count):
+        if warmup_steps <= 0:
+            return init_value
+        frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+        return (init_value - peak_value) * frac + peak_value
+
+    def cosine(count):
+        count = min(count, decay_steps - warmup_steps)
+        decayed = 0.5 * (1 + math.cos(math.pi * count / (decay_steps - warmup_steps)))
+        return peak_value * ((1 - alpha) * decayed ** exponent + alpha)
+
+    return lambda count: warmup(count) if count < warmup_steps else cosine(count - warmup_steps)
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every gradient, in f32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """``optax.clip_by_global_norm``: each gradient as ``g / norm * max_norm``
+    when the global norm reaches ``max_norm``, unchanged below it (no
+    ``+1e-6`` in the divisor, unlike ``torch.nn.utils.clip_grad_norm_``)."""
+    norm = global_norm(grads)
+    if float(norm) < max_norm:
+        return grads
+    return [g / norm.to(g.dtype) * max_norm for g in grads]
+
+
+def multisteps_mean(acc: List[torch.Tensor], grads: List[torch.Tensor], mini_step: int) -> List[torch.Tensor]:
+    """``optax.MultiSteps``' running mean: ``acc + (g - acc) / (mini_step + 1)``."""
+    return [a + (g - a) / (mini_step + 1) for a, g in zip(acc, grads)]
+
+
+class PretrainOptimizer:
+    """``MultiSteps(chain(clip_by_global_norm, adamw(lr)))`` over named leaves.
+
+    ``leaves``: the trained ``(path, tensor)`` pairs (:func:`set_trainable`).
+    ``lr``: a float or a schedule ``count -> lr``, read at the count of
+    updates taken before this one, as optax reads it.  ``grad_clip`` > 0
+    clips the (averaged) gradient by its global norm.  ``accum_steps`` K > 1
+    averages K gradients and takes one update on the K-th; between updates
+    the parameters and the AdamW state do not move.
+    """
+
+    def __init__(self, leaves: List[Tuple[str, torch.Tensor]], *, lr, weight_decay: float,
+                 grad_clip: float = 0.0, accum_steps: int = 1):
+        if not leaves:
+            raise ValueError("nothing to train: every leaf is frozen")
+        self.paths = [p for p, _ in leaves]
+        self.leaves = [t for _, t in leaves]
+        self.lr = lr
+        self.grad_clip = float(grad_clip)
+        self.accum_steps = int(accum_steps)
+        self.count = 0  # updates taken
+        self.mini_step = 0
+        self.acc: Optional[List[torch.Tensor]] = None
+        self.adamw = torch.optim.AdamW(self.leaves, lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=weight_decay)
+
+    def lr_at(self, count: int) -> float:
+        return float(self.lr(count)) if callable(self.lr) else float(self.lr)
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[Optional[torch.Tensor]]) -> bool:
+        """One gradient per trained leaf (None: zero).  Returns whether the
+        parameters moved (False on a MultiSteps mini step)."""
+        grads = [torch.zeros_like(t) if g is None else g.to(t.dtype) for g, t in zip(grads, self.leaves)]
+        if self.accum_steps > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(t) for t in self.leaves]
+            self.acc = multisteps_mean(self.acc, grads, self.mini_step)
+            self.mini_step += 1
+            if self.mini_step < self.accum_steps:
+                return False
+            grads, self.acc, self.mini_step = self.acc, None, 0
+        if self.grad_clip > 0:
+            grads = clip_by_global_norm(grads, self.grad_clip)
+        for t, g in zip(self.leaves, grads):
+            t.grad = g
+        for group in self.adamw.param_groups:
+            group["lr"] = self.lr_at(self.count)
+        self.adamw.step()
+        for t in self.leaves:
+            t.grad = None
+        self.count += 1
+        return True
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Per-leaf AdamW moments by path, the update count and the
+        MultiSteps accumulator (host copies)."""
+        moments = {}
+        for path, t in zip(self.paths, self.leaves):
+            st = self.adamw.state.get(t, {})
+            if st:
+                moments[path] = {"step": float(st["step"]), "exp_avg": st["exp_avg"].detach().cpu().clone(),
+                                 "exp_avg_sq": st["exp_avg_sq"].detach().cpu().clone()}
+        acc = None if self.acc is None else {p: a.detach().cpu().clone() for p, a in zip(self.paths, self.acc)}
+        return {"count": self.count, "mini_step": self.mini_step, "moments": moments, "acc": acc}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict` (or a JAX state through
+        ``utils.jax_bridge.adamw_state_from_optax(..., cfg=)``); every saved
+        path must be a trained leaf here."""
+        index = dict(zip(self.paths, self.leaves))
+        unknown = sorted(set(state["moments"]) - set(index))
+        if unknown:
+            raise ValueError(f"optimizer state for leaves this run does not train: {unknown[:4]}")
+
+        def like(a, t):  # a tensor or an array as a copy in t's device and dtype
+            return torch.as_tensor(a).to(t.device, t.dtype).clone()
+
+        for path, st in state["moments"].items():
+            t = index[path]
+            self.adamw.state[t] = {"step": torch.tensor(float(st["step"]), dtype=torch.float32),
+                                   "exp_avg": like(st["exp_avg"], t), "exp_avg_sq": like(st["exp_avg_sq"], t)}
+        self.count = int(state.get("count", 0))
+        self.mini_step = int(state.get("mini_step", 0))
+        acc = state.get("acc")
+        self.acc = None if acc is None else [like(acc[p], t) for p, t in zip(self.paths, self.leaves)]
+
+
+# --- the steps -------------------------------------------------------------------
+
+
+def _clamp_logit_scale(params: Params) -> None:
+    with torch.no_grad():
+        params["logit_scale"].clamp_(max=LOGIT_SCALE_MAX)
+
+
+def _augmented(images: torch.Tensor, augment, generator, boxes):
+    from tapclip_tpu_torch.data.augment import draw_boxes, resample_boxes
+    from tapclip_tpu_torch.data.preprocess import device_normalize
+
+    if images.dtype == torch.uint8:  # normalise first: it commutes with the crop
+        images = device_normalize(images)
+    if boxes is None:
+        B, H, W, _ = images.shape
+        boxes = draw_boxes(generator, B, H, W, augment, device=images.device)
+    return resample_boxes(images, boxes)
+
+
+def _batch(params: Params, images, token_ids):
+    dev = params["logit_scale"].device
+    return torch.as_tensor(images, device=dev), torch.as_tensor(token_ids, device=dev)
+
+
+def _needs_draw(cfg: CLIPConfig, augment, generator, patch_idx, boxes) -> None:
+    if generator is None and ((augment is not None and boxes is None)
+                              or (cfg.patch_dropout > 0 and patch_idx is None)):
+        raise ValueError("this step was built with augment/patch_dropout: pass a per-step torch.Generator "
+                         "(or the draws themselves)")
+
+
+def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str = "infonce",
+                       augment=None) -> Callable:
+    """The CLIP pretraining step over the whole tree:
+    ``step(params, images, token_ids, generator=None, *, patch_idx=None,
+    boxes=None) -> {"loss"}``, updating ``optimizer``'s leaves of ``params``
+    in place and clamping ``logit_scale`` to ln 100 after the update.
+
+    ``augment`` (``data.augment.AugmentConfig``): a random-resized crop of
+    every sample first (``boxes`` from ``generator``, or given); with
+    ``cfg.patch_dropout > 0`` the patches kept are drawn from ``generator``
+    after the boxes (or given as ``patch_idx``).  Locks, BitFit and the
+    like are the optimizer's leaves (:func:`set_trainable`)."""
+    _check_loss(loss)
+
+    def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,
+             patch_idx=None, boxes=None) -> Dict[str, torch.Tensor]:
+        _needs_draw(cfg, augment, generator, patch_idx, boxes)
+        images, ids = _batch(params, images, token_ids)
+        if augment is not None:
+            images = _augmented(images, augment, generator, boxes)
+        img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx)
+        txt = clip_model.encode_text(params, cfg, ids)
+        total = pair_loss(loss, params, img, txt)
+        grads = torch.autograd.grad(total, optimizer.leaves, allow_unused=True)
+        if optimizer.update(grads):
+            _clamp_logit_scale(params)
+        return {"loss": total.detach()}
+
+    return step
+
+
+def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: int, loss: str = "infonce",
+                             augment=None) -> Callable:
+    """GradCache accumulation (open_clip's ``--accum-freq``): the exact
+    objective of a K·B batch at one micro-batch's activation memory.
+
+    ``step(params, images [K*B, ...], token_ids [K*B, T], generator=None, *,
+    patch_idx=None, boxes=None)``: the macro batch is augmented as one
+    (``boxes`` over K·B rows), then
+
+    1. every micro-batch is encoded with no graph, its features cached;
+    2. the K·B loss and its gradients in the features (and in
+       ``logit_scale`` / ``logit_bias``, which reach the loss directly) are
+       taken once;
+    3. each micro-batch is encoded again with a graph and its features'
+       gradients are pulled back into the towers, summed over micro-batches.
+
+    Patch dropout draws once per micro-batch (``patch_idx``: a list of K
+    index tensors), and both passes use that draw, so cached and live
+    features agree.  The sum is the one-shot K·B step's gradient; JAX takes
+    the scale's K-fold gradient and divides it back, the port takes it once."""
+    _check_loss(loss)
+    if k < 2:
+        raise ValueError("accumulation needs k >= 2 (use make_pretrain_step)")
+
+    def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,
+             patch_idx=None, boxes=None) -> Dict[str, torch.Tensor]:
+        _needs_draw(cfg, augment, generator, patch_idx, boxes)
+        images, ids = _batch(params, images, token_ids)
+        n = images.shape[0]
+        if n % k:
+            raise ValueError(f"macro batch {n} not divisible by k={k}")
+        if augment is not None:
+            images = _augmented(images, augment, generator, boxes)
+        b = n // k
+        micro = [(images[i * b:(i + 1) * b], ids[i * b:(i + 1) * b]) for i in range(k)]
+        if cfg.patch_dropout > 0 and patch_idx is None:
+            n_patches = cfg.grid_size ** 2
+            patch_idx = [clip_model.patch_dropout_indices(generator, b, n_patches, cfg.patch_dropout,
+                                                          images.device) for _ in range(k)]
+        draws = patch_idx if patch_idx is not None else [None] * k
+
+        def encode(i):
+            x, t = micro[i]
+            return (clip_model.encode_image(params, cfg, x, patch_idx=draws[i]),
+                    clip_model.encode_text(params, cfg, t))
+
+        with torch.no_grad():
+            cached = [encode(i) for i in range(k)]
+        img_all = torch.cat([c[0] for c in cached]).requires_grad_(True)
+        txt_all = torch.cat([c[1] for c in cached]).requires_grad_(True)
+        direct = [t for p, t in zip(optimizer.paths, optimizer.leaves) if p in ("logit_scale", "logit_bias")]
+        total = pair_loss(loss, params, img_all, txt_all)
+        g_img, g_txt, *g_direct = torch.autograd.grad(total, [img_all, txt_all, *direct])
+        grads: Dict[int, torch.Tensor] = {id(t): g for t, g in zip(direct, g_direct)}
+        tower = [t for t in optimizer.leaves if id(t) not in grads]
+        for i in range(k):
+            fi, ft = encode(i)
+            pulled = torch.autograd.grad([fi, ft], tower, [g_img[i * b:(i + 1) * b], g_txt[i * b:(i + 1) * b]],
+                                         allow_unused=True)
+            for t, g in zip(tower, pulled):
+                if g is not None:
+                    grads[id(t)] = g if id(t) not in grads else grads[id(t)] + g
+        if optimizer.update([grads.get(id(t)) for t in optimizer.leaves]):
+            _clamp_logit_scale(params)
+        return {"loss": total.detach()}
+
+    return step
+
+
+def make_ema_update(decay: float) -> Callable:
+    """``update(ema, params)``: ``ema = decay * ema + (1 - decay) * params``
+    leaf by leaf, in place (open_clip / BYOL model averaging)."""
+
+    @torch.no_grad()
+    def update(ema_params, params):
+        ema = [t for _, t in named_leaves(ema_params)]
+        live = [t.detach().to(e.dtype) for (_, t), e in zip(named_leaves(params), ema)]
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(live, 1.0 - decay))
+        return ema_params
+
+    return update
+
+
+def make_validation_fn(cfg: CLIPConfig) -> Callable:
+    """``validate(params, batches, max_samples=1024) -> (loss, recall)``:
+    features of up to ``max_samples`` held-out ``(images, token_ids)`` pairs
+    (e.g. a ``data.shards.ShardLoader``), then the contrastive loss and
+    retrieval Recall@1/5/10 over them (the open_clip validation readout)."""
+    from tapclip_tpu_torch.utils.eval_metrics import retrieval_recall
+
+    def validate(params, batches: Iterable, max_samples: int = 1024):
+        imgs, txts, n = [], [], 0
+        dev = params["logit_scale"].device
+        with torch.inference_mode():
+            for images, ids in batches:
+                x = torch.as_tensor(images, device=dev)
+                imgs.append(clip_model.encode_image(params, cfg, x).float().cpu().numpy())
+                txts.append(clip_model.encode_text(params, cfg, ids).float().cpu().numpy())
+                n += int(x.shape[0])
+                if n >= max_samples:
+                    break
+            if not imgs:
+                raise ValueError("validation stream produced no batches")
+            img = np.concatenate(imgs)[:max_samples]
+            txt = np.concatenate(txts)[:max_samples]
+            vloss = float(contrastive_loss_local(torch.from_numpy(img), torch.from_numpy(txt),
+                                                 params["logit_scale"].detach().float().cpu()))
+        return vloss, retrieval_recall(img, txt)
+
+    return validate

@@ -1,6 +1,6 @@
 """Device time of each CUDA kernel behind K1, K2, B5, B4, B13, B14, B7, B6 and S6, read from a profiler trace.
 
-    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B6,step,...]
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B6,step,pretrain,...]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and runs ``torch.profiler`` over
@@ -30,7 +30,11 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
   B13's two products (1,600 x 768 x 3,072 and 1,600 x 3,072 x 768);
 * ``step``: the idiomatic (CoOp-style) prompt-tune step on cached features
   at ViT-B/16 with random weights from seed 0, float32 (batch 32, five
-  classes in a bank of 8, as ``time_paths.py``): see :func:`step_trace`.
+  classes in a bank of 8, as ``time_paths.py``): see :func:`step_trace`;
+* ``pretrain``: the CLIP pretraining step (both towers trained, InfoNCE,
+  AdamW) at ViT-B/16, batch 32, float32 and bfloat16, with each kernel
+  wrapper's device time and gemm.cu's weight-gradient products on a line
+  of their own: see :func:`pretrain_trace`.
 
 A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
 LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
@@ -43,7 +47,7 @@ device time among them (launches of one kernel and template list summed).  Print
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
-``--kernels`` keeps only the named ones (default: all ten).  Exits 1
+``--kernels`` keeps only the named ones (default: all eleven).  Exits 1
 without a card, or when the trace holds no device time.
 """
 
@@ -109,75 +113,59 @@ def _union_us(spans) -> float:
     return total
 
 
-def step_trace(iters: int) -> dict:
-    """One ``torch.profiler`` trace of ``iters`` idiomatic prompt-tune steps
-    (ViT-B/16, float32, cached features, batch 32), each step, its forward
-    (``full_model_forward``), its backward (``torch.autograd.grad``) and its
-    optimizer step (``AdamW.step``) marked as host spans.  Returns per step:
-    the wall ms (``step_ms``, the host span of the step); the device's busy
-    share (the union of its kernels' intervals over the steps' window) and
-    its idle share; the step's CUDA-event ms without the profiler
-    (``step_ms_unprofiled``: the profiler's own host work per operator
-    lengthens the traced step) and the kernels' busy time over it
-    (``busy_share_unprofiled``); each kernel's device microseconds (``kernels_us``, the
-    20 largest, by name) and their sum; the host spans' ms (``host_ms``:
-    forward, backward, optimizer, and the rest of the step); the number of
-    aten operators and of kernel launches; and the 12 aten operators with
-    the most host time of their own (``top_ops``: ms and calls per step)."""
-    import numpy as np
+def _marked(name, fn):
+    """``fn`` inside a ``record_function(name)`` host span."""
+    from torch.profiler import record_function
+
+    def call(*a, **k):
+        with record_function(name):
+            return fn(*a, **k)
+    return call
+
+
+def _traced_steps(one, iters: int, patches, families=()) -> dict:
+    """Time ``one`` (a step) with CUDA events, then trace ``iters`` calls
+    with ``patches`` (``(owner, attribute, span name)``: each replaced by
+    itself inside a host span of that name) in place.  ``families``: the
+    span names whose device time (their kernels' device-side annotation)
+    is summed per step in ``families_us``."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
-
-    from tapclip_tpu_torch.config import VIT_B_16, PromptConfig, TrainConfig
-    from tapclip_tpu_torch.models.model_wrapper import FullModel
-    from tapclip_tpu_torch.parallel import train_step as ts
-    from tapclip_tpu_torch.serve import build_model
-
-    params = build_model(VIT_B_16, STEP_CLASSES, "cuda", seed=0).clip_params
-    rng = np.random.default_rng(0)
-    feats = rng.standard_normal((32, VIT_B_16.embed_dim)).astype(np.float32)
-    labels = rng.integers(0, len(STEP_CLASSES), 32)
-    mask = np.ones(32, bool)
-    pcfg = PromptConfig(text_mode="idiomatic")
-    model = FullModel(STEP_CLASSES, params, VIT_B_16, prompt_cfg=pcfg)
-    step = ts.make_train_step(VIT_B_16, pcfg)
-    state = [ts.init_train_state(model.trainable, ts.make_optimizer(TrainConfig(batch_size=32)))]
-
-    def marked(name, fn):
-        def call(*a, **k):
-            with record_function(name):
-                return fn(*a, **k)
-        return call
-
-    forward, grad = ts.full_model_forward, torch.autograd.grad
-
-    def one():
-        with record_function("step"):
-            state[0] = step(params, state[0], model.prompt_learner.bank, feats, labels, mask)[0]
 
     sys.path.append(str(Path(__file__).resolve().parent))
     from _bench_util import time_ms
 
-    plain_ms = time_ms(one, iters, 3)  # the step without the profiler's host overhead
-    ts.full_model_forward, torch.autograd.grad = marked("step.forward", forward), marked("step.backward", grad)
+    def step():
+        with record_function("step"):
+            one()
+
+    plain_ms = time_ms(step, iters, 3)  # the step without the profiler's host overhead
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in patches]
+    for (owner, attr, name), (_, _, fn) in zip(patches, saved):
+        setattr(owner, attr, _marked(name, fn))
     try:
         for _ in range(3):
-            one()
+            step()
         torch.cuda.synchronize()
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                one()
+                step()
             torch.cuda.synchronize()
     finally:
-        ts.full_model_forward, torch.autograd.grad = forward, grad
-    host, kernels, dev_spans, ops, launches = {}, {}, [], {}, 0
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    marks = {"step"} | {name for _, _, name in patches if name.startswith("step.")}
+    host, kernels, dev_spans, ops, launches, fam = {}, {}, [], {}, 0, {}
     window = [None, None]
-    marks = ("step", "step.forward", "step.backward")
     for ev in prof.events():
         a, b = ev.time_range.start, ev.time_range.end
         if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA":
-            # The marks' device-side copies (user annotations) are no kernel time.
+            # The spans' device-side copies (user annotations) are no kernel time of their own.
             if getattr(ev, "is_user_annotation", False) or ev.name in marks or ev.name.startswith("Optimizer."):
+                if ev.name in families:
+                    fam[ev.name] = fam.get(ev.name, 0.0) + (b - a) / iters
+                continue
+            if ev.name in families:
                 continue
             if not ev.name.startswith(("Memcpy", "Memset")):
                 kernels[_short(ev.name)] = kernels.get(_short(ev.name), 0.0) + (b - a) / iters
@@ -198,22 +186,110 @@ def step_trace(iters: int) -> dict:
         raise RuntimeError("the profiler trace holds no device time")
     span_us = window[1] - window[0]
     busy_us = _union_us([(max(a, window[0]), min(b, window[1])) for a, b in dev_spans if b > window[0] and a < window[1]])
-    host["rest"] = host["step"] - host.get("step.forward", 0.0) - host.get("step.backward", 0.0) - host.get(
-        "optimizer", 0.0)
+    host["rest"] = host["step"] - sum(v for k, v in host.items() if k != "step")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     top_ops = sorted(ops.items(), key=lambda kv: -kv[1][1])[:12]
-    return {"step_ms": host["step"], "busy_share": busy_us / span_us, "idle_share": 1.0 - busy_us / span_us,
-            "step_ms_unprofiled": plain_ms, "busy_share_unprofiled": busy_us / iters / 1e3 / plain_ms,
-            "kernels_sum_us": sum(kernels.values()), "kernels_us": dict(top), "host_ms": host,
-            "aten_ops_per_step": sum(n for n, _ in ops.values()) / iters, "launches_per_step": launches / iters,
-            "top_ops": {k: {"self_ms": t / 1e3 / iters, "calls": n / iters} for k, (n, t) in top_ops}}
+    out = {"step_ms": host["step"], "busy_share": busy_us / span_us, "idle_share": 1.0 - busy_us / span_us,
+           "step_ms_unprofiled": plain_ms, "busy_share_unprofiled": busy_us / iters / 1e3 / plain_ms,
+           "kernels_sum_us": sum(kernels.values()), "kernels_us": dict(top), "host_ms": host,
+           "aten_ops_per_step": sum(n for n, _ in ops.values()) / iters, "launches_per_step": launches / iters,
+           "top_ops": {k: {"self_ms": t / 1e3 / iters, "calls": n / iters} for k, (n, t) in top_ops}}
+    if families:
+        out["families_us"] = fam
+        # gemm.cu's two kernels by name, whatever the annotations hold: they
+        # sit in an anonymous namespace, gemm_mma.cuh's gemm_f32_kernel in
+        # tapclip::gemm.
+        out["gemm_cu_us"] = {k: v for k, v in kernels.items()
+                             if k.startswith(("void gemm_f32_kernel<", "void col_sum_kernel<"))}
+    return out
+
+
+def step_trace(iters: int) -> dict:
+    """One ``torch.profiler`` trace of ``iters`` idiomatic prompt-tune steps
+    (ViT-B/16, float32, cached features, batch 32), each step, its forward
+    (``full_model_forward``), its backward (``torch.autograd.grad``) and its
+    optimizer step (``AdamW.step``) marked as host spans.  Returns per step:
+    the wall ms (``step_ms``, the host span of the step); the device's busy
+    share (the union of its kernels' intervals over the steps' window) and
+    its idle share; the step's CUDA-event ms without the profiler
+    (``step_ms_unprofiled``: the profiler's own host work per operator
+    lengthens the traced step) and the kernels' busy time over it
+    (``busy_share_unprofiled``); each kernel's device microseconds (``kernels_us``, the
+    20 largest, by name) and their sum; the host spans' ms (``host_ms``:
+    forward, backward, optimizer, and the rest of the step); the number of
+    aten operators and of kernel launches; and the 12 aten operators with
+    the most host time of their own (``top_ops``: ms and calls per step)."""
+    import numpy as np
+    import torch
+
+    from tapclip_tpu_torch.config import VIT_B_16, PromptConfig, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel import train_step as ts
+    from tapclip_tpu_torch.serve import build_model
+
+    params = build_model(VIT_B_16, STEP_CLASSES, "cuda", seed=0).clip_params
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((32, VIT_B_16.embed_dim)).astype(np.float32)
+    labels = rng.integers(0, len(STEP_CLASSES), 32)
+    mask = np.ones(32, bool)
+    pcfg = PromptConfig(text_mode="idiomatic")
+    model = FullModel(STEP_CLASSES, params, VIT_B_16, prompt_cfg=pcfg)
+    step = ts.make_train_step(VIT_B_16, pcfg)
+    state = [ts.init_train_state(model.trainable, ts.make_optimizer(TrainConfig(batch_size=32)))]
+
+    def one():
+        state[0] = step(params, state[0], model.prompt_learner.bank, feats, labels, mask)[0]
+
+    return _traced_steps(one, iters, [(ts, "full_model_forward", "step.forward"),
+                                      (torch.autograd, "grad", "step.backward")])
+
+
+def pretrain_trace(iters: int, dtype: str = "float32", batch: int = 32) -> dict:
+    """One trace of ``iters`` CLIP pretraining steps (``pretrain.make_pretrain_step``,
+    InfoNCE, every leaf trained, AdamW) at ViT-B/16 with random weights from
+    seed 0, ``batch`` random uint8 images and token ids: what
+    :func:`step_trace` returns, with the forward (both towers' encodes),
+    the backward and the optimizer as host spans, plus ``families_us``: each
+    kernel wrapper's device time per step (K1, K2, B6 forward; B5, B4, B7
+    backward, each with what it launches; ``gemm_f32`` and ``col_sum``,
+    gemm.cu's weight-gradient products and column sums, inside B4 and B5)
+    and ``gemm_cu_us``, gemm.cu's kernels by name."""
+    import numpy as np
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import VIT_B_16
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.ops import fused_mha, fused_mlp
+
+    cfg = VIT_B_16.replace(dtype=dtype)
+    params = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    opt = P.PretrainOptimizer(P.set_trainable(params), lr=1e-5, weight_decay=0.1)
+    step = P.make_pretrain_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    images = torch.as_tensor(rng.integers(0, 256, (batch, cfg.image_size, cfg.image_size, 3), dtype=np.uint8),
+                             device="cuda")
+    ids = rng.integers(1, cfg.vocab_size - 1, (batch, cfg.context_length)).astype(np.int32)
+    ids[:, 0], ids[:, -1] = cfg.vocab_size - 2, cfg.vocab_size - 1
+    ids = torch.as_tensor(ids, device="cuda")
+    families = [(fused_mlp, "_fused_mlp_cuda", "K1"), (fused_mha, "_fused_attn_block_cuda", "K2"),
+                (fused_mha, "_fused_mha_cuda", "B6"), (fused_mlp, "_fused_mlp_bwd_cuda", "B5"),
+                (fused_mha, "_attn_block_bwd_cuda", "B4"), (fused_mha, "_fused_mha_bwd_cuda", "B7"),
+                (fused_mlp, "gemm_f32", "gemm_f32"), (fused_mha, "gemm_f32", "gemm_f32"),
+                (fused_mlp, "col_sum", "col_sum"), (fused_mha, "col_sum", "col_sum")]
+    patches = [(P.clip_model, "encode_image", "step.forward"), (P.clip_model, "encode_text", "step.forward"),
+               (torch.autograd, "grad", "step.backward"), *families]
+    out = _traced_steps(lambda: step(params, images, ids), iters, patches,
+                        families=tuple(sorted({name for _, _, name in families})))
+    out["batch"] = batch
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,S6,step")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,S6,step,pretrain")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -313,6 +389,9 @@ def main() -> int:
             emit("S6", f"{label} {M}x{K}x{N}", None, res)
     if "step" in want:
         emit("step", "idiomatic ViT-B/16 batch 32 cached features", torch.float32, step_trace(args.iters))
+    for dtype in ("float32", "bfloat16") if "pretrain" in want else ():
+        emit("pretrain", "InfoNCE ViT-B/16 batch 32, every leaf trained", getattr(torch, dtype),
+             pretrain_trace(args.iters, dtype))
     return 0
 
 

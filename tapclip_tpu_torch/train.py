@@ -121,8 +121,9 @@ def apply_overrides(cfg: ExperimentConfig, args) -> ExperimentConfig:
 
 def build_model(cfg: ExperimentConfig, *, bpe_path: Optional[str] = None, rng_seed: int = 0, device="cuda"):
     """(FullModel, preprocess fn) on ``device``: open_clip weights from
-    ``cfg.pretrained_path`` (a ``.pt``/``.bin`` state dict), else random
-    weights drawn from ``rng_seed``."""
+    ``cfg.pretrained_path`` (a ``.pt``/``.bin`` state dict, or a CLIP tree
+    ``pretrain_cli`` saved), else random weights drawn from ``rng_seed``;
+    fresh VPT tokens from ``rng_seed`` for a VPT config whose tree has none."""
     from tapclip_tpu_torch.data.preprocess import make_preprocess
     from tapclip_tpu_torch.data.tokenizer import get_tokenizer
     from tapclip_tpu_torch.models import clip as clip_model
@@ -141,6 +142,7 @@ def build_model(cfg: ExperimentConfig, *, bpe_path: Optional[str] = None, rng_se
         params = clip_model.init_clip_params(torch.Generator(device=dev).manual_seed(rng_seed), cfg.model,
                                              device=dev)
         log.warning("no --pretrained given: using RANDOM CLIP weights")
+    params = clip_model.ensure_vpt_params(params, cfg.model, seed=rng_seed)
     tokenizer = get_tokenizer(bpe_path, cfg.model.context_length)
     if tokenizer.is_fallback:
         log.warning("BPE merge table not found (set --bpe-path or TAPCLIP_BPE_PATH); "

@@ -16,6 +16,22 @@ trajectory.  :func:`load_any_prompt_checkpoint` also reads the reference's
 ``.pt`` (legacy stacked ``context_emb`` and per-class ``context_bank``),
 the interchange format with the JAX package; an Orbax directory raises.
 Sharded snapshots wait for ``parallel/``.
+
+Pretraining's trees (``pretrain_cli``; the JAX package writes Orbax
+directories) are ``.pt`` files too:
+
+    {"format": "tapclip_tpu_torch.clip_tree",
+     "config": CLIPConfig as JSON,
+     "params": the whole tree (lists for the block stacks; ``visual.vpt`` and
+               ``logit_bias`` when present, ``kd_proj`` stripped, LoRA merged)}
+
+which ``utils.torch_convert.load_openclip_checkpoint`` reads wherever an
+open_clip state dict is taken (``--pretrained`` of every driver, ``serve
+/reload``, ``--distill-teacher``), and the ``--save-every`` snapshot
+
+    {"format": "tapclip_tpu_torch.pretrain_snapshot",
+     "params": the tree (or the LoRA adapter tree), "lora": bool,
+     "opt_state": PretrainOptimizer.state_dict(), "epoch", "gstep"}
 """
 
 from __future__ import annotations
@@ -30,6 +46,12 @@ import numpy as np
 import torch
 
 FORMAT = "tapclip_tpu_torch.prompt_checkpoint"
+CLIP_TREE_FORMAT = "tapclip_tpu_torch.clip_tree"
+SNAPSHOT_FORMAT = "tapclip_tpu_torch.pretrain_snapshot"
+# The fields a saved tree's shapes depend on: a load under a config that
+# differs in one of them raises.
+_GEOMETRY = ("vision_tower", "image_size", "patch_size", "vision_width", "vision_layers", "resnet_layers",
+             "text_width", "text_layers", "embed_dim", "vocab_size", "context_length", "mlp_ratio")
 
 
 def _cpu(tree):
@@ -180,6 +202,65 @@ def apply_prompt_checkpoint(model, path: str, seen_class_names: Optional[Sequenc
                              f"{shapes(model.trainable.get(key))}")
         model.trainable = dict(model.trainable, **{key: {k: v.float().to(model.device) for k, v in sub.items()}})
     return tree
+
+
+def save_clip_tree(path: str, params: Dict[str, Any], cfg) -> str:
+    """Write a whole CLIP tree and its config to ``path`` (a ``.pt``)."""
+    import dataclasses
+
+    obj = {"format": CLIP_TREE_FORMAT, "config": json.dumps(dataclasses.asdict(cfg)), "params": _cpu(params)}
+    return _write(obj, path)
+
+
+def clip_tree_from(obj: Dict[str, Any], cfg, device="cpu", path: str = "") -> Dict[str, Any]:
+    """The tree of a loaded :func:`save_clip_tree` file on ``device``, after
+    checking its config's geometry against ``cfg``."""
+    saved = json.loads(obj["config"])
+    for field in _GEOMETRY:
+        want = getattr(cfg, field)
+        got = saved.get(field)
+        if (list(got) if isinstance(got, (list, tuple)) else got) != (list(want) if isinstance(want, tuple)
+                                                                     else want):
+            raise ValueError(f"{path}: a tree saved for {saved.get('name')} ({field}={got}) does not fit "
+                             f"{cfg.name} ({field}={want})")
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [move(v) for v in t]
+        return t.to(device=device, dtype=torch.float32)
+
+    return move(obj["params"])
+
+
+def load_clip_tree(path: str, cfg, device="cpu") -> Dict[str, Any]:
+    """Read a :func:`save_clip_tree` file for ``cfg`` onto ``device``."""
+    if os.path.isdir(path):
+        raise _orbax_refused(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and obj.get("format") == CLIP_TREE_FORMAT):
+        raise ValueError(f"{path} is not a tapclip_tpu_torch CLIP tree")
+    return clip_tree_from(obj, cfg, device, path)
+
+
+def save_pretrain_snapshot(path: str, *, params: Dict[str, Any], opt_state: Dict[str, Any], epoch: int,
+                           gstep: int, lora: bool = False) -> str:
+    """Write a pretraining snapshot: the tree (or the LoRA adapters),
+    ``PretrainOptimizer.state_dict()``, the epoch and the step counter."""
+    obj = {"format": SNAPSHOT_FORMAT, "params": _cpu(params), "lora": bool(lora), "opt_state": _cpu(opt_state),
+           "epoch": int(epoch), "gstep": int(gstep)}
+    return _write(obj, path)
+
+
+def restore_pretrain_snapshot(path: str) -> Dict[str, Any]:
+    """Read a :func:`save_pretrain_snapshot` file (on the CPU)."""
+    if os.path.isdir(path):
+        raise _orbax_refused(path)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and obj.get("format") == SNAPSHOT_FORMAT):
+        raise ValueError(f"{path} is not a tapclip_tpu_torch pretraining snapshot")
+    return obj
 
 
 class CheckpointManager:

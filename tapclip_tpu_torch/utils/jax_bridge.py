@@ -7,12 +7,16 @@ of L per-block dicts and an RN tower's convolution weights are OIHW (the
 JAX package's are HWIO).  The functions here take trees whose leaves are NumPy
 arrays (convert a JAX tree with ``jax.tree.map(np.asarray, tree)``), so the
 port itself never imports jax.  :func:`adamw_state_from_optax` carries an
-optax AdamW state over, so a JAX mid-training state resumes in the port.
+optax AdamW state over, so a JAX mid-training state resumes in the port:
+a prompt-tuning state, or (with ``cfg``) a pretraining state of the whole
+tree or of the LoRA adapters (:func:`lora_from_jax`).  The extras of
+pretraining ride along: ``visual.vpt``, SigLIP's ``logit_bias`` and
+distillation's ``kd_proj``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +77,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict
         out[tower] = _tree(sub, device)
         out[tower]["blocks"] = _unstack(blocks, device)
     out["logit_scale"] = _tensor(tree["logit_scale"], device)
+    for extra in ("logit_bias", "kd_proj"):
+        if extra in tree:
+            out[extra] = _tensor(tree[extra], device)
     n_txt = len(out["text"]["blocks"])
     if cfg.vision_tower == "resnet":
         out["visual"] = _resnet_tree(tree["visual"], device)
@@ -87,6 +94,26 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict
             f"tree has {n_vis} vision / {n_txt} text blocks, config "
             f"{cfg.name} expects {cfg.vision_layers} / {cfg.text_layers}"
         )
+    return out
+
+
+def lora_from_jax(lora: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """JAX LoRA adapters (``peft.init_lora_params``' tree: the CLIP tree
+    with ``{"a", "b"}`` at each adapted stacked leaf and None elsewhere,
+    NumPy-valued) -> the port's (``peft.py``: per tower, a list of blocks)."""
+    def adapted(node):  # the {"a", "b"} pairs, the None leaves dropped
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            return node
+        if isinstance(node, dict):
+            kept = {k: adapted(v) for k, v in node.items()}
+            return {k: v for k, v in kept.items() if v}
+        return None
+
+    out = {}
+    for tower in ("visual", "text"):
+        blocks = adapted((lora.get(tower) or {}).get("blocks"))
+        if blocks:
+            out[tower] = {"blocks": _unstack(blocks, device)}
     return out
 
 
@@ -124,7 +151,52 @@ def _adam_node(node):
     return None
 
 
-def adamw_state_from_optax(opt_state) -> List[Dict[str, Any]]:
+def _multisteps_node(node):
+    """optax's MultiStepsState (``mini_step``, ``acc_grads``), if any."""
+    if all(hasattr(node, a) for a in ("mini_step", "acc_grads")):
+        return node
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _multisteps_node(child)
+            if found is not None:
+                return found
+    return None
+
+
+def _pretrain_state(adam, opt_state, cfg: CLIPConfig, lora: bool) -> Dict[str, Any]:
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    def bridge(tree):
+        return lora_from_jax(tree) if lora else params_from_jax(tree, cfg)
+
+    count = int(np.asarray(adam.count))
+    mus, nus = named_leaves(bridge(adam.mu)), named_leaves(bridge(adam.nu))
+    moments = {} if count == 0 else {
+        path: {"step": count, "exp_avg": m.numpy(), "exp_avg_sq": v.numpy()}
+        for (path, m), (_, v) in zip(mus, nus)
+    }
+    multi = _multisteps_node(opt_state)
+    mini = 0 if multi is None else int(np.asarray(multi.mini_step))
+    acc = None if not mini else {p: t.numpy() for p, t in named_leaves(bridge(multi.acc_grads))}
+    return {"count": count, "mini_step": mini, "moments": moments, "acc": acc}
+
+
+def adamw_state_from_optax(opt_state, cfg: Optional[CLIPConfig] = None, *, lora: bool = False):
+    """Without ``cfg``: a prompt-tuning state (:func:`_prompt_adamw_state`).
+    With ``cfg``: a pretraining state (the
+    optax ``adamw`` of ``pretrain_cli``, under ``clip_by_global_norm`` and
+    ``MultiSteps`` or not) of the whole CLIP tree, or of the LoRA adapters
+    with ``lora``, as ``pretrain.PretrainOptimizer.load_state_dict`` takes
+    it: ``{"count", "mini_step", "moments": {leaf path: moments}, "acc"}``."""
+    adam = _adam_node(opt_state)
+    if adam is None:
+        raise ValueError("no (count, mu, nu) Adam state found in the optax state")
+    if cfg is not None:
+        return _pretrain_state(adam, opt_state, cfg, lora)
+    return _prompt_adamw_state(adam)
+
+
+def _prompt_adamw_state(adam) -> List[Dict[str, Any]]:
     """optax ``adamw`` state (NumPy-valued, ``(ScaleByAdamState(count, mu, nu),
     ...)``) -> the port's per-leaf AdamW moments, in sorted-key leaf order, for
     ``init_train_state(opt_state=...)`` or ``fit_prompt_model(resume_state=...)``.
@@ -135,9 +207,6 @@ def adamw_state_from_optax(opt_state) -> List[Dict[str, Any]]:
     """
     from tapclip_tpu_torch.parallel.train_step import tree_leaves
 
-    adam = _adam_node(opt_state)
-    if adam is None:
-        raise ValueError("no (count, mu, nu) Adam state found in the optax state")
     count = int(np.asarray(adam.count))
     mus, nus = tree_leaves(dict(adam.mu)), tree_leaves(dict(adam.nu))
     if count == 0:

@@ -45,6 +45,9 @@ def vision_attention_forward(params, cfg: CLIPConfig, images) -> Tuple[torch.Ten
         raise NotImplementedError("saliency applies to ViT towers only "
                                   "(the RN-family tower has no patch-token attention)")
     check_supported(cfg)
+    if cfg.vpt_tokens:
+        raise NotImplementedError("saliency's forward does not insert VPT tokens: its attention would not be "
+                                  "the tower's")
     p = params["visual"]
     dtype = cfg.compute_dtype
     images = torch.as_tensor(images, device=params["logit_scale"].device)

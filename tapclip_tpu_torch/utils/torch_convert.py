@@ -211,11 +211,20 @@ def convert_openclip_state_dict(sd: Dict[str, Any], cfg: CLIPConfig, device="cpu
 
 def load_openclip_checkpoint(path: str, cfg: CLIPConfig, device="cpu") -> Dict[str, Any]:
     """``torch.load`` + convert (the reference's ``clip_wrapper.py:13-15``).
-    A directory (an Orbax tree of the JAX package) raises."""
+    A CLIP tree that ``pretrain_cli`` saved (``utils.checkpoint.save_clip_tree``)
+    loads as it is, where the JAX package reads its Orbax tree.  A
+    directory (an Orbax tree of the JAX package) raises."""
+    from tapclip_tpu_torch.utils.checkpoint import CLIP_TREE_FORMAT, clip_tree_from
+
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory (an Orbax tree of the JAX package); tapclip_tpu_torch "
-                         "reads open_clip .pt/.bin state dicts")
-    sd = load_torch_file(path)
+                         "reads open_clip .pt/.bin state dicts and its own CLIP tree .pt files")
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and state.get("format") == CLIP_TREE_FORMAT:
+        return clip_tree_from(state, cfg, device, path)
+    if hasattr(state, "state_dict"):
+        state = state.state_dict()
+    sd = _numpy(state)
     # open_clip sometimes nests under 'state_dict' and prefixes 'module.'.
     if "state_dict" in sd and not any(k.startswith("visual.") for k in sd):
         sd = sd["state_dict"]

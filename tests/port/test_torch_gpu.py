@@ -1519,3 +1519,101 @@ def _resnet_f64(params, cfg, x):
     v = heads(tok @ ap["v_proj"]["w"].T + ap["v_proj"]["b"])
     o = torch.softmax(q @ k.transpose(-1, -2) * (C // H) ** -0.5, -1) @ v
     return (o.transpose(1, 2).reshape(B, C) @ ap["c_proj"]["w"].T + ap["c_proj"]["b"]).float()
+
+
+# --- pretraining: B4 and B5 with their weight gradients (csrc/gemm.cu) ----------------
+
+from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32  # noqa: E402
+
+# The image tower's pretraining shapes at ViT-B/16, batch 8: T 200 (197
+# valid), patch dropout 0.5 (99 valid, padded to 104) and VPT-deep at 8
+# tokens (205 valid, padded to 208: inside B4's routing limit of 210).
+PRETRAIN_SHAPES = [(8, 200, 197), (8, 104, 99), (8, 208, 205)]
+PRETRAIN_IDS = ["T200", "T99-dropout", "T205-vpt8"]
+
+
+def _pretrain_case(cuda, dtype, B, T, W, seed, attn):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W).to(dtype)
+    width = 3 * W if attn else 4 * W
+    p = (1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1), _randn(gen, W, width, scale=W ** -0.5),
+         _randn(gen, width, scale=0.1))
+    return x, g, p + ((_randn(gen, W, W, scale=W ** -0.5),) if attn else (_randn(gen, width, W, scale=width ** -0.5),))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,valid", PRETRAIN_SHAPES, ids=PRETRAIN_IDS)
+def test_b4_b5_every_gradient_at_the_pretraining_shapes(cuda, dtype, tol, B, T, valid):
+    """B4 and B5 with all seven gradients at ViT-B/16's image widths (W 768,
+    12 heads) against the plain backward (norm-relative), bit for bit on a
+    second call; the dW products launch gemm_f32 twice per call."""
+    W, heads = 768, 12
+    x, g, p = _pretrain_case(cuda, dtype, B, T, W, T + 1, attn=True)
+    n = gemm_f32.launches
+    got = _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5)
+    assert gemm_f32.launches == n + 2
+    for name, a, b, c in zip(NAMES, got, attn_block_bwd_reference(x, g, *p, heads, valid, 1e-5),
+                             _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5)):
+        _close_rel(f"B4 {name}", a, b, tol)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)
+    x, g, p = _pretrain_case(cuda, dtype, B, T, W, T + 2, attn=False)
+    got = _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5)
+    for name, a, b in zip(NAMES, got, fused_mlp_bwd_reference(x, g, *p, 1e-5)):
+        _close_rel(f"B5 {name}", a, b, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn", [True, False], ids=["B4", "B5"])
+def test_backward_computes_only_the_wanted_weight_gradients(cuda, attn):
+    """BitFit wants the biases and the LayerNorm's beta, not the weights: no
+    dW product runs, and each wanted gradient equals the all-gradient call's."""
+    W, heads, valid = 256, 4, 45
+    x, g, p = _pretrain_case(cuda, torch.float32, 2, 48, W, 5, attn=attn)
+    wanted = (False, True, False, True, False, True)
+
+    def run(weight_grads):
+        if attn:
+            return _attn_block_bwd_cuda(x, g, *p, heads, valid, 1e-5, weight_grads=weight_grads)
+        return _fused_mlp_bwd_cuda(x, g, *p, eps=1e-5, weight_grads=weight_grads)
+
+    full = run(True)
+    n_gemm, n_sum = gemm_f32.launches, col_sum.launches
+    some = run(wanted)
+    assert gemm_f32.launches == n_gemm and col_sum.launches == n_sum + 3
+    for name, a, b, want in zip(NAMES[1:], some[1:], full[1:], wanted):
+        if want:
+            torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+        else:
+            assert a is None, name
+    torch.testing.assert_close(some[0], full[0], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_remat_recomputes_the_kernels_with_equal_gradients(cuda):
+    """A checkpointed block (``remat``): K1 and K2 launch twice, B4 and B5
+    once, and the gradients equal those without remat bit for bit."""
+    from tapclip_tpu_torch.models import layers
+
+    W, heads = 256, 4
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    blk = {"ln_1": {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)},
+           "attn": {"w_qkv": _randn(gen, W, 3 * W, scale=W ** -0.5), "b_qkv": _randn(gen, 3 * W, scale=0.1),
+                    "w_out": _randn(gen, W, W, scale=W ** -0.5), "b_out": _randn(gen, W, scale=0.1)},
+           "ln_2": {"scale": 1 + _randn(gen, W, scale=0.1), "bias": _randn(gen, W, scale=0.1)},
+           "mlp": {"w_fc": _randn(gen, W, 4 * W, scale=W ** -0.5), "b_fc": _randn(gen, 4 * W, scale=0.1),
+                   "w_proj": _randn(gen, 4 * W, W, scale=0.03), "b_proj": _randn(gen, W, scale=0.1)}}
+    leaves = [t.requires_grad_() for d in blk.values() for t in d.values()]
+    x = _randn(gen, 2, 48, W)
+    grads, counts = [], []
+    for remat in ("none", "full"):
+        before = (fused_mlp_block.launches, fused_attn_block.launches, fused_mlp_block.bwd_launches,
+                  fused_attn_block.bwd_launches)
+        out, _ = layers.transformer_forward(x, [blk, blk], heads, act="gelu", kv_valid_len=45, remat=remat)
+        grads.append(torch.autograd.grad(out.square().sum(), leaves))
+        after = (fused_mlp_block.launches, fused_attn_block.launches, fused_mlp_block.bwd_launches,
+                 fused_attn_block.bwd_launches)
+        counts.append(tuple(a - b for a, b in zip(after, before)))
+    assert counts == [(2, 2, 2, 2), (4, 4, 2, 2)]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=0, atol=0)

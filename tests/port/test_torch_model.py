@@ -140,11 +140,14 @@ def test_l2_normalize_and_patchify():
 def test_unported_configs_raise(geo):
     jc, jp, tc, tp = geo
     x = torch.from_numpy(_images(jc, n=1))
-    for kw in (dict(vpt_tokens=2), dict(moe_experts=2)):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tclip.encode_image(tp, tc.replace(**kw), x)
-    with pytest.raises(NotImplementedError, match="visual prompt tokens"):
-        tclip.text_forward_embeds(tp, tc.replace(vpt_tokens=2), torch.zeros(1, 8, jc.text_width))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tclip.encode_image(tp, tc.replace(moe_experts=2), x)
+    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
+        tclip.text_forward_embeds(tp, tc.replace(moe_experts=2), torch.zeros(1, 8, jc.text_width))
+    # VPT is ported (tests/port/test_torch_vpt.py): the text tower ignores it, as JAX's does.
+    emb = torch.zeros(1, 8, jc.text_width)
+    torch.testing.assert_close(tclip.text_forward_embeds(tp, tc.replace(vpt_tokens=2), emb)[0],
+                               tclip.text_forward_embeds(tp, tc, emb)[0], rtol=0, atol=0)
     # The int8 tower is the vision tower's: the text tower ignores the flag.
     ids = np.zeros((1, jc.context_length), np.int32)
     torch.testing.assert_close(tclip.encode_text(tp, tc.replace(quantize_tower=True), ids),

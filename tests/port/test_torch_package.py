@@ -97,6 +97,11 @@ PORT_MODULES = [
     "tapclip_tpu_torch.clip_adapter",
     "tapclip_tpu_torch.base_to_new",
     "tapclip_tpu_torch.fewshot",
+    "tapclip_tpu_torch.pretrain",
+    "tapclip_tpu_torch.peft",
+    "tapclip_tpu_torch.distill",
+    "tapclip_tpu_torch.data.csv_dataset",
+    "tapclip_tpu_torch.pretrain_cli",
 ]
 
 
