@@ -671,7 +671,8 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
 # dK/dV kernel's four products 1 + 1 + 2 + 2, the dQ kernel's three
 # 1 + 1 + 2).  K2's mix is k2_mma_flops.
 MMA_PRODUCTS = {"fused_attention_aux": (6, 1), "flash_lse": (6, 1), "flash_bwd_dkv": (6, 1.5),
-                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1), "fused_mlp_bwd": (6, 1), "fused_mha": (6, 1)}
+                "flash_bwd_dq": (6, 4 / 3), "fused_mlp": (6, 1), "fused_mlp_bwd": (6, 1), "fused_mha": (6, 1),
+                "gemm_f32": (6, 1)}
 
 
 def mma_bound(n_bytes: int, flops: float, dtype: str, kernel: str) -> dict:
@@ -4787,14 +4788,17 @@ def _pretrain_turns(kparams, cfg, card: str) -> dict:
 def _gemm_dw(card: str) -> dict:
     """gemm.cu's weight-gradient products at the pretraining image shape (8 x
     200 rows = 1,600; ViT-B/16's widths) and at batch 32 (6,400 rows): each
-    against its plain version (A^T.B of the operands widened to f32) and
-    torch.mm (f32 out), with CUDA-event ms and the bound; then B4's and B5's
+    against its plain version (``gemm_reference``: A^T.B of the operands
+    widened to f32) and torch.mm (f32 out), with CUDA-event ms, the bound at
+    the dtype's peak (f32: the FMA units) and at the MMAs it runs (six a
+    product in f32), and the split of the rows it takes; then B4's and B5's
     call with every gradient beside dx alone at the image shape."""
     import torch
 
+    from tapclip_tpu_torch.ops import _build
     from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_cuda
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda
-    from tapclip_tpu_torch.ops.gemm import gemm_f32
+    from tapclip_tpu_torch.ops.gemm import gemm_f32, gemm_reference
 
     gen = torch.Generator(device=PRETRAIN_DEVICE).manual_seed(60)
     W = 768
@@ -4807,18 +4811,20 @@ def _gemm_dw(card: str) -> dict:
                 a = torch.randn((rows, M), generator=gen, device=PRETRAIN_DEVICE).to(dt)
                 b = torch.randn((rows, N), generator=gen, device=PRETRAIN_DEVICE).to(dt)
                 got = gemm_f32(a, b, trans_a=True)
-                want = a.float().T @ b.float()
+                want = gemm_reference(a, b, trans_a=True)
                 err = compare(f"gemm_f32 {label} {rows} {dtype}", got, want, 1e-4 * rows ** 0.5)
+                split = _build.library().tapclip_gemm_f32_split(M, N, rows, _build.dtype_code(dt))
                 lib = (lambda: torch.mm(a.T, b, out_dtype=torch.float32)) if dtype == "bfloat16" else (
                     lambda: torch.mm(a.T, b))
                 try:
                     library_ms = time_ms(lib)
                 except (RuntimeError, TypeError):  # a torch without out_dtype
                     library_ms = None
-                cases.append({"shape": f"{label} {M}x{N}x{rows}", "dtype": dtype, **err,
+                work = (nbytes(a, b) + 4 * M * N, 2.0 * M * N * rows)
+                cases.append({"shape": f"{label} {M}x{N}x{rows}", "dtype": dtype, **err, "split": split,
                               "ms": time_ms(lambda: gemm_f32(a, b, trans_a=True)),
-                              "plain_ms": time_ms(lambda: a.float().T @ b.float()), "library_ms": library_ms,
-                              **bound(nbytes(a, b) + 4 * M * N, 2.0 * M * N * rows, dtype)})
+                              "plain_ms": time_ms(lambda: gemm_reference(a, b, trans_a=True)),
+                              "library_ms": library_ms, **bound(*work, dtype), **mma_bound(*work, dtype, "gemm_f32")})
     halves = {}
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -4836,10 +4842,12 @@ def _gemm_dw(card: str) -> dict:
             "B5 all": time_ms(lambda: _fused_mlp_bwd_cuda(x, g, *pm, eps=1e-5)),
             "B5 dx": time_ms(lambda: _fused_mlp_bwd_cuda(x, g, *pm, eps=1e-5, weight_grads=False)),
         }
-    print("pretrain: gemm.cu's dW products, CUDA-event ms vs plain (f32 widened) vs torch.mm vs bound: "
-          + "; ".join(f"{c['shape']} {c['dtype']} {c['ms']:.3f} / {c['plain_ms']:.3f} / "
+    print("pretrain: gemm.cu's dW products, CUDA-event ms vs plain (f32 widened) vs torch.mm vs bound vs MMA "
+          "bound: "
+          + "; ".join(f"{c['shape']} {c['dtype']} split {c['split']} {c['ms']:.3f} / {c['plain_ms']:.3f} / "
                       f"{c['library_ms'] if c['library_ms'] is None else round(c['library_ms'], 3)} / "
-                      f"{c['bound_ms']:.3f} ({c['bound_by']}), max abs err {c['max_abs_err']:.1e}" for c in cases)
+                      f"{c['bound_ms']:.3f} ({c['bound_by']}) / {c['mma_bound_ms']:.3f}, max abs err "
+                      f"{c['max_abs_err']:.1e}" for c in cases)
           + f" ({card})", flush=True)
     print("pretrain: B4 and B5 at the image shape 8x200x768 (12 heads, valid 197), ms with every gradient vs dx "
           "alone: " + "; ".join(f"{dt} " + ", ".join(f"{k} {v:.3f}" for k, v in h.items()) for dt, h in halves.items())
@@ -4876,13 +4884,13 @@ def pretrain_phase(card: str) -> dict:
 
         trace = pretrain_trace(5)
         fam = trace.get("families_us", {})
-        dw = sum(v for k, v in trace["gemm_cu_us"].items() if "gemm_f32_kernel" in k)  # gemm.cu's names only
-        require(dw > 0, f"the trace holds no gemm.cu dW product: {trace['gemm_cu_us']}")
+        dw = fam.get("gemm_f32", 0.0)  # the device time inside gemm_f32's spans: its products and their sums
+        require(dw > 0, f"the trace holds no gemm.cu dW product: {fam}")
         print(f"pretrain: one traced InfoNCE step (f32, batch {PRETRAIN_BATCH}): {trace['step_ms']:.1f} ms traced, "
               f"{trace['step_ms_unprofiled']:.1f} ms untraced, device busy {trace['busy_share']:.3f} "
               f"(untraced {trace['busy_share_unprofiled']:.3f}); device us per step by wrapper "
               + ", ".join(f"{k} {v:.0f}" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
-              + f"; gemm.cu's dW products (gemm_f32_kernel by name) {dw:.0f} us, {dw / trace['kernels_sum_us']:.3f} of "
+              + f"; gemm.cu's dW products (gemm_f32's spans) {dw:.0f} us, {dw / trace['kernels_sum_us']:.3f} of "
               f"{trace['kernels_sum_us']:.0f} us of kernels; host ms {trace['host_ms']} ({card})", flush=True)
         return {"launches": main_f32["launches"], "f32": main_f32, "bf16": main_bf16, "options": options, "cli": cli,
                 "turns_ms": turns, "gemm": gemm, "trace": trace}
@@ -4903,6 +4911,7 @@ def gemm_record(pretrained: dict) -> dict:
         "launches": pretrained["launches"]["gemm_f32"], "max_abs_err": max(c["max_abs_err"] for c in f32),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"], "library_ms": timed["library_ms"], "shape": timed["shape"],
+        "mma_bound_ms": timed["mma_bound_ms"], "split": timed["split"],
         "col_sum_launches": pretrained["launches"]["col_sum"], "pretrain_launches": pretrained["launches"]["gemm_f32"],
         "cases": cases, "b4_b5_image_ms": pretrained["gemm"]["halves"],
         "pretrain_step_ms": pretrained["turns_ms"],

@@ -63,8 +63,9 @@
 // split composition, as the JAX _attn_block_bwd does; this kernel does not
 // refuse longer T itself.
 // Weight gradients (only with want_w; off the prompt-tuning path, where the
-// CLIP weights are frozen): dW_qkv = y^T . dqkv, dW_out = o^T . g and the
-// column sums, by gemm.cu in the wrapper.  No atomics: a call repeats bit for
+// CLIP weights are frozen): dW_qkv = y^T . dqkv, dW_out = o^T . g on
+// gemm.cu's tensor-core A^T . B products and the column sums, launched by
+// the wrapper.  No atomics: a call repeats bit for
 // bit.  Emulated error of the split products: python -m
 // tapclip_tpu_torch.scripts.split_error.
 #include <stdint.h>

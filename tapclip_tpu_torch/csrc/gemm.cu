@@ -8,119 +8,101 @@
 // tapclip_tpu/ops/fused_mlp.py::_mlp_bwd_kernel.  On a TPU those kernels add
 // each row tile's dW into an f32 block that stays in VMEM across the
 // sequential grid.  Hopper blocks run in no order, so the reduction over rows
-// is a second, deterministic pass:
+// is a deterministic pass of its own:
 //
-//   gemm_f32:  C[M, N] = op(A) @ op(B) (+ bias[N]) in f32, with op = identity
-//              or transpose on either side.  With A transposed it is the
-//              A^T . B over rows that gives every dW (y^T . dqkv, o^T . g,
-//              y^T . dh_pre, h^T . g).  One block owns a 64 x 64 tile of C
-//              and walks the whole reduction axis in order, so the sums do
-//              not depend on scheduling.  (The dx products of B4 and B5 run
-//              on the tensor cores, gemm_mma.cuh.)
+//   gemm_f32:  C[M, N] = op(A) @ op(B) (+ bias[N]) in f32, op = identity or
+//              transpose on one side.  With A transposed it is the A^T . B
+//              over rows that gives every dW (y^T . dqkv, o^T . g, y^T . dh_pre,
+//              h^T . g).  A dispatcher onto gemm_mma.cuh's tensor-core kernels
+//              (TA for a transposed A, TB for a transposed B): bf16 operands
+//              exact, one MMA a product; f32 operands in three bf16 terms, six
+//              MMAs a product with a rounded f32 add per 16-deep step.  The
+//              rows (the depth) split S ways into f32 partials [S, M, N] in a
+//              workspace the wrapper allocates, each part over whole 32-row
+//              stages; sum_parts adds them in the order s = 0, 1, ... and the
+//              bias after them.  No atomics: a call repeats bit for bit.
 //   col_sum:   out[c, N] = sum over a chunk of rows of in[R, N], one thread
 //              per column, rows in order; run twice (row chunks, then the
 //              chunk partials) for the bias, gamma and beta gradients.
 //
-// What bounds it on the card: the FMA units.  A dW product (K = rows = 704
-// at the text shape) runs in f32 on them with one 64 x 64 tile a block; a
-// trace on an H100 80GB HBM3 at 700 W (profile_kernels.py) reads B4's two
-// at the text shape at 169 us (f32) and 185 us (bf16), and B5's at 211 us:
-// 60% of B5's time with every gradient.  Tensor-core MMA (gemm_mma.cuh)
-// and a split of the rows for the small dW_out grid (64 tiles at W = 512)
-// are later work.
+// What bounds it on the card: the tensor cores.  A dW product at the
+// pretraining image shape (ViT-B/16, batch 32: 6,400 rows, W 768) is
+// 2 x 6,400 x 768 x 2,304 to 3,072 operations, 23 to 30 GFLOP: 0.023 to
+// 0.031 ms of bf16 MMAs at 989 TFLOP/s, six times that in f32; its bytes
+// (operands read once, C written once) take a third of that time.  So the
+// tiles are large, 128 x 128 in bf16 and 128 x 64 in f32 (the operands
+// re-read from L2 half as often as with 64 x 64), and the split of the rows
+// fills the card where the tiles alone are few (o^T . g at W 768: 36 tiles of
+// 128 x 128, split 7 ways).  tile_n and split_for pick them from
+// time_half_blocks.py --kernels dW,dWgrid.  Measured there on an H100 80GB
+// HBM3 at 700 W, at 6,400 rows: bf16 0.10-0.15 ms (about 220 TFLOP/s of
+// MMAs, 3x torch.mm's time), f32 0.17-0.63 ms (torch.mm's f32 time:
+// six MMAs a product at about 300 TFLOP/s).  A ring of 3, 4 or 5 stages, and
+// 128 x 256 tiles of 64 x 64 warp tiles at one block an SM, read the same in
+// bf16: neither the copies' latency nor ldmatrix's share of the shared
+// memory sets the pace; wgmma and TMA are the levers.
+#include <stdint.h>
+
 #include "common.cuh"
+#include "gemm_mma.cuh"
 
 namespace {
 
 using namespace tapclip;
+using gemm::bf16;
 
-constexpr int kThreads = 256;
-constexpr int kTile = 64;   // output tile edge
-constexpr int kKTile = 32;  // reduction depth per staged tile
+constexpr int kColThreads = 256;  // col_sum: a thread per column
+constexpr int kSumThreads = 256;  // sum_parts: four columns a thread
+constexpr int kMaxSplit = 8;      // parts of the rows at most
+constexpr int kMinStages = 8;     // 32-row stages a part at least (256 rows)
 
-// C[M, N] = op(A)[M, K] @ op(B)[K, N] + bias.  A is [M, K] (or [K, M] when
-// TRANS_A), B is [K, N] (or [N, K] when TRANS_B).
-template <typename T, bool TRANS_A, bool TRANS_B>
-__global__ void __launch_bounds__(kThreads)
-gemm_f32_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                const float* __restrict__ bias, float* __restrict__ c, int M,
-                int N, int K) {
-  __shared__ float a_s[kTile][kKTile + 1];
-  __shared__ float b_s[kKTile][kTile + 1];
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4, cg = tid & 15;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kKTile) {
-    // Stage A: neighbouring threads read neighbouring addresses either way.
-    for (int e = tid; e < kTile * kKTile; e += kThreads) {
-      int r, kk;
-      if (TRANS_A) {
-        kk = e / kTile;
-        r = e % kTile;
-      } else {
-        r = e / kKTile;
-        kk = e % kKTile;
-      }
-      const int m = m0 + r, k = k0 + kk;
-      float v = 0.f;
-      if (m < M && k < K)
-        v = to_f(TRANS_A ? a[static_cast<size_t>(k) * M + m] : a[static_cast<size_t>(m) * K + k]);
-      a_s[r][kk] = v;
-    }
-    for (int e = tid; e < kKTile * kTile; e += kThreads) {
-      int kk, col;
-      if (TRANS_B) {
-        col = e / kKTile;
-        kk = e % kKTile;
-      } else {
-        kk = e / kTile;
-        col = e % kTile;
-      }
-      const int n = n0 + col, k = k0 + kk;
-      float v = 0.f;
-      if (n < N && k < K)
-        v = to_f(TRANS_B ? b[static_cast<size_t>(n) * K + k] : b[static_cast<size_t>(k) * N + n]);
-      b_s[kk][col] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kKTile; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[rg + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[kk][cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+// The split's cost model, fitted to time_half_blocks.py --kernels dWgrid on
+// an H100 80GB HBM3 at 700 W (the four image products at 6,400 rows, the
+// two text ones at 2,560): us a 32-row stage takes with the block alone on
+// its SM and with two sharing it (bf16 on 128 x 128 tiles, f32 on 128 x 64),
+// and each part past the first: its partial written and read again (8
+// bytes an element of C at about 3.5 TB/s) and the sum's launch.  A wave
+// count alone (the least S of the fewest stages on the busiest SM) lands up
+// to 14% past each shape's best there, gemm_mma.cuh's depth_split rule up to
+// 40%; this model within 2% (PERF.md, PR 18).
+struct StageUs {
+  double alone, pair;
+};
+constexpr StageUs kStageUs[2] = {{1.69, 2.65}, {0.57, 0.90}};  // float32, bfloat16
+constexpr double kPartUsPerElem = 8.0 / 3.5e6;
+constexpr double kSumUs = 3.0;
+
+// c[e] = parts[0][e] + parts[1][e] + ... + parts[S - 1][e] (+ bias[col]), in
+// that order, four columns of one row a thread (N % 4 == 0).  parts may be
+// c itself (S 1: the bias alone).
+__global__ void __launch_bounds__(kSumThreads)
+sum_parts_kernel(const float* parts, int S, const float* __restrict__ bias, float* c, size_t quads, int N) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (i >= quads) return;
+  const float4* p = reinterpret_cast<const float4*>(parts) + i;
+  float4 v = p[0];
+  for (int s = 1; s < S; ++s) {
+    const float4 w = p[s * quads];
+    v.x += w.x;
+    v.y += w.y;
+    v.z += w.z;
+    v.w += w.w;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + rg + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + cg + 16 * j;
-      if (n >= N) continue;
-      c[static_cast<size_t>(m) * N + n] = acc[i][j] + (bias ? bias[n] : 0.f);
-    }
+  if (bias != nullptr) {
+    const int col = static_cast<int>((4 * i) % N);
+    v.x += bias[col];
+    v.y += bias[col + 1];
+    v.z += bias[col + 2];
+    v.w += bias[col + 3];
   }
+  reinterpret_cast<float4*>(c)[i] = v;
 }
 
 // out[chunk, n] = sum of in[r, n] over the chunk's rows, in row order.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N,
-               int rows_per_chunk) {
-  const int n = blockIdx.x * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kColThreads)
+col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N, int rows_per_chunk) {
+  const int n = blockIdx.x * kColThreads + threadIdx.x;
   if (n >= N) return;
   const int r0 = blockIdx.y * rows_per_chunk;
   const int r1 = min(R, r0 + rows_per_chunk);
@@ -129,49 +111,117 @@ col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N,
   out[static_cast<size_t>(blockIdx.y) * N + n] = s;
 }
 
-template <typename T>
-cudaError_t launch_gemm(const void* a, const void* b, const float* bias, float* c,
-                        int M, int N, int K, int trans_a, int trans_b,
-                        cudaStream_t s) {
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  const T* A = static_cast<const T*>(a);
-  const T* B = static_cast<const T*>(b);
-  if (!trans_a && !trans_b) gemm_f32_kernel<T, false, false><<<grid, kThreads, 0, s>>>(A, B, bias, c, M, N, K);
-  else if (!trans_a && trans_b) gemm_f32_kernel<T, false, true><<<grid, kThreads, 0, s>>>(A, B, bias, c, M, N, K);
-  else if (trans_a && !trans_b) gemm_f32_kernel<T, true, false><<<grid, kThreads, 0, s>>>(A, B, bias, c, M, N, K);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// Elements a copy of a staged row takes (8 or 4 in bf16, 4 in f32), or 0
+// where the kernels refuse the operands: both transposed, N or a stored row
+// length (A's: K, or M when TA; B's: N, or K when TB) not a multiple of 4,
+// an operand not 16-byte (f32) or 8-byte (bf16) aligned.
+int copy_elems(const void* a, const void* b, int M, int N, int K, int ta, int tb, int dtype) {
+  const int la = ta ? M : K, lb = tb ? K : N;
+  if ((ta && tb) || N % 4 || la % 4 || lb % 4) return 0;
+  if (dtype == 0) return aligned(a, 16) && aligned(b, 16) ? 4 : 0;
+  if (la % 8 == 0 && lb % 8 == 0 && aligned(a, 16) && aligned(b, 16)) return 8;
+  return aligned(a, 8) && aligned(b, 8) ? 4 : 0;
+}
+
+// The tile of C a dtype takes (dtype 0 float32, 1 bfloat16): 128 x 128 in
+// bf16; in f32 128 x 64, whose 128 registers a thread hold its accumulators
+// without spilling (128 x 128 spills about 250 bytes, and reads 5-14%
+// slower at the pretraining shapes: PERF.md, PR 18).
+constexpr int kTileM = 128;
+constexpr int tile_n(int dtype) { return dtype == 0 ? 64 : 128; }
+
+// The split of the rows: the S in [1, kMaxSplit], each part at least
+// kMinStages stages deep, of the least modelled time: the busiest SM's
+// blocks (tiles x S over the SMs, two at a time) times a part's stages, plus
+// the partials' cost; ties go to the smaller S.
+int split_for(int M, int N, int K, int dtype) {
+  const long tiles = static_cast<long>((M + kTileM - 1) / kTileM) * ((N + tile_n(dtype) - 1) / tile_n(dtype));
+  const long sms = gemm::sm_count();
+  const long nk = (K + gemm::kBK - 1) / gemm::kBK;
+  const StageUs& t = kStageUs[dtype == 0 ? 0 : 1];
+  int best = 1;
+  double best_us = 0.0;
+  for (int S = 1; S <= kMaxSplit && (S == 1 || nk / S >= kMinStages); ++S) {
+    const long n = (tiles * S + sms - 1) / sms;  // blocks on the busiest SM
+    double us = static_cast<double>((nk + S - 1) / S) * ((n / 2) * t.pair + (n % 2) * t.alone);
+    if (S > 1) us += kSumUs + (S - 1) * kPartUsPerElem * M * N;
+    if (S == 1 || us < best_us) {
+      best = S;
+      best_us = us;
+    }
+  }
+  return best;
+}
+
+template <typename T, int BM, int BN, int CE>
+cudaError_t launch_layout(const T* A, const T* B, float* out, int M, int N, int K, int ta, int tb, int S,
+                          cudaStream_t s) {
+  const gemm::Epi<T> e{};
+  if (ta) return gemm::launch_gemm<BM, BN, CE, gemm::kStore, false, float, true>(A, B, e, out, M, N, K, S, s);
+  if (tb) return gemm::launch_gemm<BM, BN, CE, gemm::kStore, true, float>(A, B, e, out, M, N, K, S, s);
+  return gemm::launch_gemm<BM, BN, CE, gemm::kStore, false, float>(A, B, e, out, M, N, K, S, s);
 }
 
 }  // namespace
 
-// C[M, N] (f32) = op(A) @ op(B) + bias (bias may be null).  A and B share the
+// The split of the rows (the depth K) that tapclip_gemm_f32_ws takes for
+// C[M, N] in a dtype (0 float32, 1 bfloat16).
+extern "C" int tapclip_gemm_f32_split(int M, int N, int K, int dtype) { return split_for(M, N, K, dtype); }
+
+// C[M, N] (f32) = op(A) @ op(B) + bias (bias may be null), the rows split S
+// ways (ws: f32 [S, M, N] when S > 1, else unused).  A and B share the
 // dtype: 0 float32, 1 bfloat16.  trans_a: A is stored [K, M]; trans_b: B is
-// stored [N, K].  Both transposed is refused.
-extern "C" int tapclip_gemm_f32(const void* a, const void* b, const void* bias,
-                                void* c, int M, int N, int K, int trans_a,
-                                int trans_b, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  const auto* bs = static_cast<const float*>(bias);
-  auto* out = static_cast<float*>(c);
+// stored [N, K].  cudaErrorInvalidValue for what the kernels refuse
+// (copy_elems).
+extern "C" int tapclip_gemm_f32_ws(const void* a, const void* b, const void* bias, void* c, void* ws, int M, int N,
+                                   int K, int trans_a, int trans_b, int dtype, int S, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || S < 1 || S > kMaxSplit || (S > 1 && ws == nullptr) ||
+      (dtype != 0 && dtype != 1))
+    return cudaErrorInvalidValue;
+  const int ce = copy_elems(a, b, M, N, K, trans_a, trans_b, dtype);
+  if (ce == 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_gemm<float>(a, b, bs, out, M, N, K, trans_a, trans_b, s);
-  if (dtype == 1) return launch_gemm<__nv_bfloat16>(a, b, bs, out, M, N, K, trans_a, trans_b, s);
-  return cudaErrorInvalidValue;
+  auto* out = static_cast<float*>(S > 1 ? ws : c);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_layout<float, kTileM, tile_n(0), 4>(static_cast<const float*>(a), static_cast<const float*>(b), out,
+                                                       M, N, K, trans_a, trans_b, S, s);
+  } else if (ce == 8) {
+    err = launch_layout<bf16, kTileM, tile_n(1), 8>(static_cast<const bf16*>(a), static_cast<const bf16*>(b), out, M,
+                                                      N, K, trans_a, trans_b, S, s);
+  } else {
+    err = launch_layout<bf16, kTileM, tile_n(1), 4>(static_cast<const bf16*>(a), static_cast<const bf16*>(b), out, M,
+                                                      N, K, trans_a, trans_b, S, s);
+  }
+  if (err != cudaSuccess || (S == 1 && bias == nullptr)) return err;
+  const size_t quads = static_cast<size_t>(M) * N / 4;
+  sum_parts_kernel<<<static_cast<unsigned>((quads + kSumThreads - 1) / kSumThreads), kSumThreads, 0, s>>>(
+      out, S, static_cast<const float*>(bias), static_cast<float*>(c), quads, N);
+  return cudaGetLastError();
+}
+
+// tapclip_gemm_f32_ws with the whole depth in every block (S 1): the
+// interface of the FMA design before it, for timing trees against each
+// other.
+extern "C" int tapclip_gemm_f32(const void* a, const void* b, const void* bias, void* c, int M, int N, int K,
+                                int trans_a, int trans_b, int dtype, void* stream) {
+  return tapclip_gemm_f32_ws(a, b, bias, c, nullptr, M, N, K, trans_a, trans_b, dtype, 1, stream);
 }
 
 // out[ceil(R / rows_per_chunk), N] (f32): column sums of in[R, N] over each
 // chunk of rows_per_chunk rows.  dtype 0 float32, 1 bfloat16.
-extern "C" int tapclip_col_sum(const void* in, void* out, int R, int N,
-                               int rows_per_chunk, int dtype, void* stream) {
+extern "C" int tapclip_col_sum(const void* in, void* out, int R, int N, int rows_per_chunk, int dtype,
+                               void* stream) {
   if (R <= 0 || N <= 0 || rows_per_chunk <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((N + kThreads - 1) / kThreads, (R + rows_per_chunk - 1) / rows_per_chunk);
+  const dim3 grid((N + kColThreads - 1) / kColThreads, (R + rows_per_chunk - 1) / rows_per_chunk);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    col_sum_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(in), o, R, N, rows_per_chunk);
+    col_sum_kernel<float><<<grid, kColThreads, 0, s>>>(static_cast<const float*>(in), o, R, N, rows_per_chunk);
   } else if (dtype == 1) {
-    col_sum_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+    col_sum_kernel<__nv_bfloat16><<<grid, kColThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(in), o, R, N, rows_per_chunk);
   } else {
     return cudaErrorInvalidValue;

@@ -1,15 +1,17 @@
 // The tiled tensor-core GEMM of K1 (fused_mlp.cu), K2 (attn_block.cu), B4
-// (attn_block_bwd.cu) and B5 (mlp_bwd.cu):  C[M, N] = epilogue(A[M, K] . B),
-// A row major, B either [K, N] row major or [N, K] row major (TB: the B of
-// A X^T, as the cotangent products g . w_proj^T and dh_pre . w_fc^T read
-// their weights).
+// (attn_block_bwd.cu), B5 (mlp_bwd.cu) and gemm.cu's weight-gradient
+// products:  C[M, N] = epilogue(op(A) . op(B)), A row major [M, K] or, when
+// TA, [K, M] (the A of A^T X: dW = y^T . dqkv over rows), B either [K, N]
+// row major or [N, K] row major (TB: the B of A X^T, as the cotangent
+// products g . w_proj^T and dh_pre . w_fc^T read their weights).
 //
-// A block owns a BM x BN tile of C (BM 64 or 32; launch_pass picks 32 where
-// 64-row tiles would not give every SM two blocks), 8 warps as 2 (rows) x 4
-// (columns), each a (BM / 2) x (BN / 4) sub-tile; the depth runs in 32-deep
-// stages with zeros past every edge; mma.sync m16n8k16 bf16 with f32
-// accumulation from ldmatrix fragments (flash_mma.cuh: .trans for a row
-// major [K, N] B, plain for a [N, K] one).
+// A block owns a BM x BN tile of C, 8 warps as Warps<BM, BN> (2 x 4, or
+// 4 x 2 for the 128 x 64 tile), each a WM x WN sub-tile (launch_pass picks
+// BM 64, or 32 where 64-row tiles would not give every SM two blocks;
+// gemm.cu takes 128 x 128 or 128 x 64); the depth runs in 32-deep stages
+// with zeros past every edge; mma.sync m16n8k16 bf16 with f32 accumulation
+// from ldmatrix fragments (flash_mma.cuh: .trans for a row major [K, N] B
+// and for a [K, M] A, plain for a [N, K] B and an [M, K] A).
 //   * bf16 (gemm_bf16_kernel): exact bf16 operands staged by a three-stage
 //     ring of 16-byte cp.async copies (8-byte when a row length is not a
 //     multiple of 8 or an operand is not 16-byte aligned); one MMA a product.
@@ -18,7 +20,7 @@
 //     summed from 0 and added with a rounded f32 add.  The next stage's f32
 //     tiles are loaded into registers while this stage's products run, and
 //     split once per block into three bf16 planes in shared memory (two
-//     buffers).
+//     buffers), each plane in the tile's own layout ([kBK, BM] when TA).
 // A deterministic split of the depth (gridDim.z = S > 1, kStore only)
 // writes S f32 partials [S, M, N], each over whole stages, that the caller
 // sums in a fixed order.  No atomics: a call repeats bit for bit.
@@ -34,7 +36,7 @@
 //   kDgelu     C = round(acc * (Phi(z) + z phi(z))), z read from Epi::z;
 //              with Epi::h also h = round(z Phi(z)) and z := the unrounded
 //              product (for dW_proj and db_fc)             B5's dh_pre
-//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy; B4's gh and dy
+//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy; B4's gh and dy; gemm.cu
 #pragma once
 
 #include <stdint.h>
@@ -72,7 +74,29 @@ struct Epi {
   int col0;           // kQkv: the first column rounded to T
 };
 
-// Row stride, in bf16 elements, of a staged B tile: [kBK, BN + 8] row major
+// The 8 warps of a BM x BN tile: kM (rows) x kN (columns), each a WM x WN
+// sub-tile of MT 16-row by NT 8-column MMA tiles.  2 x 4, except 4 x 2 for
+// a 128-row tile at most 64 wide (32 x 32 sub-tiles, not 64 x 16).
+template <int BM, int BN>
+struct Warps {
+  static constexpr int kM = (BM >= 128 && BN <= 64) ? 4 : 2;
+  static constexpr int kN = kThreads / 32 / kM;
+  static constexpr int WM = BM / kM, WN = BN / kN;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+};
+
+// A warp's accumulators.
+template <int BM, int BN>
+using Acc = float[Warps<BM, BN>::MT][Warps<BM, BN>::NT][4];
+
+// Elements, in bf16, of a staged A tile: [BM, kALd] row major, or
+// [kBK, BM + 8] when TA (the tile of A [K, M], read by ldmatrix .trans).
+template <int BM, bool TA>
+__host__ __device__ constexpr int a_plane() {
+  return TA ? kBK * mma::tile_ld<bf16, BM>() : BM * kALd;
+}
+
+// Elements, in bf16, of a staged B tile: [kBK, BN + 8] row major
 // (mma::load_bt), or [BN, kALd] when TB (mma::load_b).
 template <int BN, bool TB>
 __host__ __device__ constexpr int b_plane() {
@@ -91,16 +115,17 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
   }
 }
 
-// acc += the warp's [BM / 2, BN / 4] block of one kBK-deep stage, from NP
-// bf16 planes of each tile (plane p of A at as + p * BM * kALd, of B at
+// acc += the warp's [WM, WN] block of one kBK-deep stage, from NP bf16
+// planes of each tile (plane p of A at as + p * a_plane, of B at
 // bs + p * b_plane): per 16-deep step the warp's B fragments once, then
 // each 16-row A fragment against them.  NP = 3: six MMAs a product and a
 // rounded f32 add per step (mma::mma_split).
-template <int BM, int BN, int NP, bool TB>
-__device__ __forceinline__ void warp_stage(float (&acc)[BM / 32][BN / 32][4], const bf16* as, const bf16* bs,
-                                           int wm, int wn) {
-  constexpr int MT = BM / 32, NT = BN / 32, WM = BM / 2, WN = BN / 4;
-  constexpr int kAPlane = BM * kALd, kBPlane = b_plane<BN, TB>();
+template <int BM, int BN, int NP, bool TB, bool TA>
+__device__ __forceinline__ void warp_stage(Acc<BM, BN>& acc, const bf16* as, const bf16* bs, int wm, int wn) {
+  using Wp = Warps<BM, BN>;
+  constexpr int MT = Wp::MT, NT = Wp::NT, WM = Wp::WM, WN = Wp::WN;
+  constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>();
+  constexpr int kATLd = mma::tile_ld<bf16, BM>();
   const int l = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 16) {
@@ -124,9 +149,16 @@ __device__ __forceinline__ void warp_stage(float (&acc)[BM / 32][BN / 32][4], co
     for (int i = 0; i < MT; ++i) {
       uint32_t a[NP][4];
 #pragma unroll
-      for (int p = 0; p < NP; ++p)
-        mma::ldsm_x4(a[p], as + p * kAPlane + (wm * WM + 16 * i + (l & 7) + ((l >> 3) & 1) * 8) * kALd + kk +
-                               (l >> 4) * 8);
+      for (int p = 0; p < NP; ++p) {
+        if constexpr (TA) {  // rows kk.. of the [kBK, BM] tile, transposed: matrix q holds rows 8 (q >> 1)
+                             // and columns 8 (q & 1) of the 16 x 16 block, as the A fragment orders them
+          mma::ldsm_x4_trans(a[p], as + p * kAPlane + (kk + (l & 7) + ((l >> 4) & 1) * 8) * kATLd + wm * WM +
+                                       16 * i + ((l >> 3) & 1) * 8);
+        } else {
+          mma::ldsm_x4(a[p], as + p * kAPlane + (wm * WM + 16 * i + (l & 7) + ((l >> 3) & 1) * 8) * kALd + kk +
+                                 (l >> 4) * 8);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma::mma_split(acc[i][j], a, b[j]);
     }
@@ -162,9 +194,10 @@ __device__ __forceinline__ float dgelu_pdf(float z) {
 
 // C = epilogue(acc) for the warp's accumulators (T: the operands' dtype, TC: C's).
 template <typename T, typename TC, int BM, int BN, int EPI>
-__device__ __forceinline__ void epilogue(const float (&acc)[BM / 32][BN / 32][4], const Epi<T>& e,
-                                         TC* __restrict__ C, int M, int N, int m0, int n0, int wm, int wn) {
-  constexpr int MT = BM / 32, NT = BN / 32, WM = BM / 2, WN = BN / 4;
+__device__ __forceinline__ void epilogue(const Acc<BM, BN>& acc, const Epi<T>& e, TC* __restrict__ C, int M, int N,
+                                         int m0, int n0, int wm, int wn) {
+  using Wp = Warps<BM, BN>;
+  constexpr int MT = Wp::MT, NT = Wp::NT, WM = Wp::WM, WN = Wp::WN;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -231,22 +264,22 @@ __device__ __forceinline__ void depth_range(int K, int& kt0, int& kt1) {
   kt1 = min(nk, kt0 + per);
 }
 
-// bf16: C = epilogue(A . B); tiles staged by a kStages-deep ring of cp.async
-// copies of CE elements (M, N, K multiples of 4, and of CE along the copied
-// rows), zeros past every edge.
-template <int BM, int BN, int CE, int EPI, bool TB, typename TC>
+// bf16: C = epilogue(op(A) . op(B)); tiles staged by a kStages-deep ring of
+// cp.async copies of CE elements (N and the stored operands' row lengths
+// multiples of 4, and of CE along the copied rows), zeros past every edge.
+template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf16> e, TC* __restrict__ C, int M,
                  int N, int K) {
-  constexpr int kBPlane = b_plane<BN, TB>();
-  constexpr int kBLd = mma::tile_ld<bf16, BN>();
+  constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>();
+  constexpr int kATLd = mma::tile_ld<bf16, BM>(), kBLd = mma::tile_ld<bf16, BN>();
   constexpr int kAChunks = BM * kBK / CE, kBChunks = kBK * BN / CE;
   constexpr int kCopy = CE * 2;  // bytes a cp.async
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // [kStages][BM][kALd]
-  bf16* b_s = a_s + kStages * BM * kALd;          // [kStages][B plane]
+  bf16* a_s = reinterpret_cast<bf16*>(smem_raw);  // [kStages][A plane]
+  bf16* b_s = a_s + kStages * kAPlane;            // [kStages][B plane]
   const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
+  const int wm = warp / Warps<BM, BN>::kN, wn = warp % Warps<BM, BN>::kN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int kt0, kt1;
   depth_range(K, kt0, kt1);
@@ -255,15 +288,21 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf1
 
   auto load_stage = [&](int s, int kt) {
     const int k0 = kt * kBK;
-    bf16* as = a_s + s * BM * kALd;
+    bf16* as = a_s + s * kAPlane;
     bf16* bs = b_s + s * kBPlane;
 #pragma unroll
     for (int it = 0; it < (kAChunks + kThreads - 1) / kThreads; ++it) {
       const int i = threadIdx.x + it * kThreads;
       if (kAChunks % kThreads != 0 && i >= kAChunks) break;
-      const int r = i / (kBK / CE), c = (i % (kBK / CE)) * CE;
-      const bool in = m0 + r < M && k0 + c < K;
-      cp_async<kCopy>(as + r * kALd + c, A + (in ? static_cast<size_t>(m0 + r) * K + k0 + c : 0), in);
+      if constexpr (TA) {  // A [K, M]: rows k0.., columns m0..
+        const int r = i / (BM / CE), c = (i % (BM / CE)) * CE;
+        const bool in = k0 + r < K && m0 + c < M;
+        cp_async<kCopy>(as + r * kATLd + c, A + (in ? static_cast<size_t>(k0 + r) * M + m0 + c : 0), in);
+      } else {  // A [M, K]: rows m0.., columns k0..
+        const int r = i / (kBK / CE), c = (i % (kBK / CE)) * CE;
+        const bool in = m0 + r < M && k0 + c < K;
+        cp_async<kCopy>(as + r * kALd + c, A + (in ? static_cast<size_t>(m0 + r) * K + k0 + c : 0), in);
+      }
     }
 #pragma unroll
     for (int it = 0; it < (kBChunks + kThreads - 1) / kThreads; ++it) {
@@ -281,7 +320,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf1
     }
   };
 
-  float acc[BM / 32][BN / 32][4] = {};
+  Acc<BM, BN> acc = {};
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) load_stage(s, kt0 + s);
@@ -293,7 +332,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf1
     const int nxt = kt + kStages - 1;
     if (nxt < nk) load_stage(nxt % kStages, kt0 + nxt);
     mma::cp_commit();
-    warp_stage<BM, BN, 1, TB>(acc, a_s + (kt % kStages) * BM * kALd, b_s + (kt % kStages) * kBPlane, wm, wn);
+    warp_stage<BM, BN, 1, TB, TA>(acc, a_s + (kt % kStages) * kAPlane, b_s + (kt % kStages) * kBPlane, wm, wn);
   }
   mma::cp_wait<0>();
   epilogue<bf16, TC, BM, BN, EPI>(acc, e, C, M, N, m0, n0, wm, wn);
@@ -321,19 +360,19 @@ __device__ __forceinline__ void split4(const float4 v, bf16* dst, int stride) {
 // are split once per block into three bf16 planes in shared memory (two
 // buffers): the fragments then load by ldmatrix, and no warp splits an
 // operand that another warp of the block splits too.
-template <int BM, int BN, int EPI, bool TB>
+template <int BM, int BN, int EPI, bool TB, bool TA = false>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<float> e, float* __restrict__ C,
                 int M, int N, int K) {
   constexpr int NP = mma::kF32Terms;
-  constexpr int kBLd = mma::tile_ld<bf16, BN>();
-  constexpr int kAPlane = BM * kALd, kBPlane = b_plane<BN, TB>(), kStage = NP * (kAPlane + kBPlane);
+  constexpr int kATLd = mma::tile_ld<bf16, BM>(), kBLd = mma::tile_ld<bf16, BN>();
+  constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>(), kStage = NP * (kAPlane + kBPlane);
   constexpr int kAV = BM * kBK / 4 / kThreads, kBV = kBK * BN / 4 / kThreads;  // 16-byte loads a thread
   static_assert(kAV * 4 * kThreads == BM * kBK && kBV * 4 * kThreads == kBK * BN, "whole loads a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* planes = reinterpret_cast<bf16*>(smem_raw);  // [2][NP A planes, NP B planes]
   const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
+  const int wm = warp / Warps<BM, BN>::kN, wn = warp % Warps<BM, BN>::kN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int kt0, kt1;
   depth_range(K, kt0, kt1);
@@ -341,6 +380,16 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
   if (EPI == kStore) C += static_cast<size_t>(blockIdx.z) * M * N;
   float4 ra[kAV], rb[kBV];
 
+  // Row and column of an A chunk in its tile: [BM, kBK], or [kBK, BM] when TA.
+  auto a_rc = [](int i, int& r, int& c) {
+    if constexpr (TA) {
+      r = i / (BM / 4);
+      c = (i % (BM / 4)) * 4;
+    } else {
+      r = i / (kBK / 4);
+      c = (i % (kBK / 4)) * 4;
+    }
+  };
   // Row and column of a B chunk in its tile: [kBK, BN], or [BN, kBK] when TB.
   auto b_rc = [](int i, int& r, int& c) {
     if constexpr (TB) {
@@ -355,11 +404,11 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
     const int k0 = kt * kBK;
 #pragma unroll
     for (int v = 0; v < kAV; ++v) {
-      const int i = threadIdx.x + v * kThreads;
-      const int r = i / (kBK / 4), c = (i % (kBK / 4)) * 4;
-      ra[v] = (m0 + r < M && k0 + c < K)
-                  ? __ldg(reinterpret_cast<const float4*>(A + static_cast<size_t>(m0 + r) * K + k0 + c))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      int r, c;
+      a_rc(threadIdx.x + v * kThreads, r, c);
+      const bool in = TA ? (k0 + r < K && m0 + c < M) : (m0 + r < M && k0 + c < K);
+      const size_t off = TA ? static_cast<size_t>(k0 + r) * M + m0 + c : static_cast<size_t>(m0 + r) * K + k0 + c;
+      ra[v] = in ? __ldg(reinterpret_cast<const float4*>(A + off)) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
     for (int v = 0; v < kBV; ++v) {
@@ -374,8 +423,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
     bf16* st = planes + buf * kStage;
 #pragma unroll
     for (int v = 0; v < kAV; ++v) {
-      const int i = threadIdx.x + v * kThreads;
-      split4(ra[v], st + (i / (kBK / 4)) * kALd + (i % (kBK / 4)) * 4, kAPlane);
+      int r, c;
+      a_rc(threadIdx.x + v * kThreads, r, c);
+      split4(ra[v], st + r * (TA ? kATLd : kALd) + c, kAPlane);
     }
 #pragma unroll
     for (int v = 0; v < kBV; ++v) {
@@ -385,7 +435,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
     }
   };
 
-  float acc[BM / 32][BN / 32][4] = {};
+  Acc<BM, BN> acc = {};
   if (nk > 0) {
     fetch(kt0);
     put(0);
@@ -394,7 +444,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) fetch(kt0 + kt + 1);  // in flight during this stage's products
     const bf16* st = planes + (kt & 1) * kStage;
-    warp_stage<BM, BN, NP, TB>(acc, st, st + NP * kAPlane, wm, wn);
+    warp_stage<BM, BN, NP, TB, TA>(acc, st, st + NP * kAPlane, wm, wn);
     if (kt + 1 < nk) put((kt + 1) & 1);  // that buffer was last read before the previous barrier
     __syncthreads();
   }
@@ -437,20 +487,21 @@ cudaError_t launch(Kernel kernel, size_t smem, int BM, int BN, int S, const T* A
   return cudaGetLastError();
 }
 
-template <int BM, int BN, int CE, int EPI, bool TB, typename TC>
+template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const Epi<bf16>& e, TC* C, int M, int N, int K, int S,
                         cudaStream_t s) {
-  constexpr size_t smem = static_cast<size_t>(kStages) * (BM * kALd + b_plane<BN, TB>()) * sizeof(bf16);
-  return launch(gemm_bf16_kernel<BM, BN, CE, EPI, TB, TC>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
+  constexpr size_t smem = static_cast<size_t>(kStages) * (a_plane<BM, TA>() + b_plane<BN, TB>()) * sizeof(bf16);
+  return launch(gemm_bf16_kernel<BM, BN, CE, EPI, TB, TC, TA>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
 }
 
-template <int BM, int BN, int CE, int EPI, bool TB, typename TC>
+template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
 cudaError_t launch_gemm(const float* A, const float* B, const Epi<float>& e, TC* C, int M, int N, int K, int S,
                         cudaStream_t s) {
   static_assert(CE == 4, "f32 rows load as 16-byte chunks");
   static_assert(kIsF32<TC>, "f32 operands give an f32 C");
-  constexpr size_t smem = 2 * mma::kF32Terms * static_cast<size_t>(BM * kALd + b_plane<BN, TB>()) * sizeof(bf16);
-  return launch(gemm_f32_kernel<BM, BN, EPI, TB>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
+  constexpr size_t smem =
+      2 * mma::kF32Terms * static_cast<size_t>(a_plane<BM, TA>() + b_plane<BN, TB>()) * sizeof(bf16);
+  return launch(gemm_f32_kernel<BM, BN, EPI, TB, TA>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
 }
 
 // C = epilogue(A . B) in BM x BN tiles: 64-row tiles, or 32-row ones when

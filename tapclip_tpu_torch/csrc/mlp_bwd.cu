@@ -47,8 +47,9 @@
 // 13, 3 + 6), against 1.59 and 1.54 for the FMA design: four launch gaps
 // of a few us each are a fifth of it in bf16.
 // Weight gradients (only with want_w; off the training path, where the CLIP
-// weights are frozen and only the prompt context trains) stay on gemm.cu's
-// A^T . B products and column sums, run by the wrapper.  No atomics: a call
+// weights are frozen and only the prompt context trains) run on gemm.cu's
+// tensor-core A^T . B products (the rows split in a fixed order) and column
+// sums, launched by the wrapper.  No atomics: a call
 // repeats bit for bit.  Emulated error of the split products: python -m
 // tapclip_tpu_torch.scripts.split_error.
 #include <stdint.h>

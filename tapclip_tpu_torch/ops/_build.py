@@ -59,8 +59,13 @@ _SIGNATURES = {
     # q, k, v, valid, eot, valid_all, eot_all, out, aux, B, H, T, Dh, with_aux,
     # causal, dtype, stream (valid / eot null: valid_all / eot_all in every row)
     "tapclip_attn_aux": (P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, P),
-    # a, b, bias, c, M, N, K, trans_a, trans_b, dtype, stream
+    # a, b, bias, c, M, N, K, trans_a, trans_b, dtype, stream (the rows unsplit)
     "tapclip_gemm_f32": (P, P, P, P, I, I, I, I, I, I, P),
+    # M, N, K, dtype -> the split of the rows taken there
+    "tapclip_gemm_f32_split": (I, I, I, I),
+    # a, b, bias, c, ws (f32 [split, M, N] when split > 1), M, N, K, trans_a,
+    # trans_b, dtype, split, stream
+    "tapclip_gemm_f32_ws": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     # in, out, R, N, rows_per_chunk, dtype, stream
     "tapclip_col_sum": (P, P, I, I, I, I, P),
     # R, W, H, dtype -> the split of dy's depth that B5 takes there

@@ -12,7 +12,7 @@ row, head, query tile) into ``[B, T, W]``, then out-projection + bias +
 residual; its backward is B4 (``csrc/attn_block_bwd.cu``, which replaces
 ``_attn_block_bwd_kernel``): LN, the QKV, gh and dy products and the
 attention core on the tensor cores, seven launches, with the weight
-gradients by ``csrc/gemm.cu``.  On a CPU tensor they run
+gradients by ``csrc/gemm.cu``'s A^T.B products, also on the tensor cores.  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
 recomputes LN, QKV and the probabilities, as the TPU kernel does.  Past
@@ -53,7 +53,7 @@ import torch
 
 from tapclip_tpu_torch.ops import _build
 from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _rnd, ln_backward
-from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
+from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
 
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e: scores are exp2'd
 _LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_tile.cuh's kLn2Bf16)
@@ -115,8 +115,8 @@ def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, va
     dy = (dqkv @ _rnd(w_qkv, dt).T).reshape(B, T, W)
     dx_ln, dgn, dbn = ln_backward(dy, n, rstd, gamma)
     dx = (g.float() + dx_ln).to(dt)
-    return (dx, dgn.sum((0, 1)), dbn.sum((0, 1)), y32.reshape(B * T, W).T @ dqkv,
-            dqkv.sum(0), attn.T @ gc2, gc2.sum(0))
+    return (dx, dgn.sum((0, 1)), dbn.sum((0, 1)), gemm_reference(y32.reshape(B * T, W), dqkv, trans_a=True),
+            col_sum_reference(dqkv), gemm_reference(attn, gc2, trans_a=True), col_sum_reference(gc2))
 
 
 class _FusedAttnBlock(torch.autograd.Function):

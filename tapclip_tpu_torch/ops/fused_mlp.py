@@ -14,9 +14,10 @@ K1 runs both products on the tensor cores (bf16 MMAs, f32 operands split
 into three bf16 terms) in two tiled passes, with the ``[R, 4W]`` hidden
 activation in a scratch the wrapper allocates (it stays in the card's L2);
 B5 runs its three dx products the same way (the fc recompute, dh and dy),
-with z and dh_pre in such scratch.  Both take any row count R (they mask the
-ragged last tile), so the TPU kernel's alignment guard (R % 256, W % 128) is
-not ported.
+with z and dh_pre in such scratch, and its weight gradients as
+``csrc/gemm.cu``'s A^T.B products, the rows split in a fixed order.  Both
+take any row count R (they mask the ragged last tile), so the TPU kernel's
+alignment guard (R % 256, W % 128) is not ported.
 They use ``erff`` for the exact GELU where the TPU kernels needed a
 polynomial.
 """
@@ -28,7 +29,7 @@ import math
 import torch
 
 from tapclip_tpu_torch.ops import _build
-from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
+from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
 
 
 def fused_mlp_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps: float = 1e-5):
@@ -80,14 +81,14 @@ def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 
     dgelu = cdf + z * torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
     gc = _rnd(g32, dt)
     dh = gc @ _rnd(w_proj, dt).T
-    dw_proj = _rnd(z * cdf, dt).T @ gc
+    dw_proj = gemm_reference(_rnd(z * cdf, dt), gc, trans_a=True)
     dh_pre = dh * dgelu
     dhc = _rnd(dh_pre, dt)
     dy = dhc @ _rnd(w_fc, dt).T
-    dw_fc = y32.T @ dhc
+    dw_fc = gemm_reference(y32, dhc, trans_a=True)
     dx_ln, dgn, dbn = ln_backward(dy, n, rstd, gamma)
     dx = (g32 + dx_ln).to(dt).reshape(x.shape)
-    return dx, dgn.sum(0), dbn.sum(0), dw_fc, dh_pre.sum(0), dw_proj, g32.sum(0)
+    return dx, dgn.sum(0), dbn.sum(0), dw_fc, col_sum_reference(dh_pre), dw_proj, col_sum_reference(g32)
 
 
 def _grads_like(grads, inputs, needs_input_grad):

@@ -196,11 +196,14 @@ def _traced_steps(one, iters: int, patches, families=()) -> dict:
            "top_ops": {k: {"self_ms": t / 1e3 / iters, "calls": n / iters} for k, (n, t) in top_ops}}
     if families:
         out["families_us"] = fam
-        # gemm.cu's two kernels by name, whatever the annotations hold: they
-        # sit in an anonymous namespace, gemm_mma.cuh's gemm_f32_kernel in
-        # tapclip::gemm.
+        # gemm.cu's kernels by name, whatever the annotations hold: its
+        # products are gemm_mma.cuh's kernels at the 128-row tiles, which no
+        # other source instantiates; the partials' sum and the column sums
+        # sit in its anonymous namespace.
         out["gemm_cu_us"] = {k: v for k, v in kernels.items()
-                             if k.startswith(("void gemm_f32_kernel<", "void col_sum_kernel<"))}
+                             if k.startswith(("void tapclip::gemm::gemm_bf16_kernel<128,",
+                                              "void tapclip::gemm::gemm_f32_kernel<128,",
+                                              "sum_parts_kernel", "void col_sum_kernel<"))}
     return out
 
 

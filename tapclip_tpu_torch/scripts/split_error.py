@@ -51,6 +51,10 @@ causal or not: q . k^T and p . v with q, k, p and v in three terms in f32
 and one in bf16, where p is rounded and q, k, v are bf16 values):
 :func:`emulated_mha_errors` holds it against ``fused_mha_reference`` at
 ``MHA_BWD_SHAPES`` (the card tests' B6 and B7 shapes).
+:func:`emulate_dw` emulates ``csrc/gemm.cu``'s dW products A^T . B over
+rows (three terms an f32 operand, one in bf16, a rounded f32 add per 16-row
+step, the rows split in parts of whole stages summed in order), and
+:func:`emulated_dw_errors` holds it against float64 at ``DW_SHAPES``.
 :func:`emulate_int8_attn` emulates B14 (``csrc/int8_attn.cu``): its
 attention step on split q and k, p and v in three terms or (the stochastic
 mode in bf16) one, and the codes of the attention output from the row max
@@ -100,6 +104,11 @@ MHA_BWD_SHAPES = [(8, 77, 512, 8, 77, True), (8, 80, 512, 8, 77, True), (2, 200,
                   (2, 65, 64, 4, 65, True), (1, 40, 256, 8, 33, False)]
 F32_TERMS = 3  # bf16 terms of an f32 operand in the kernels (flash_mma.cuh kF32Terms)
 ACC_TERMS_BF16 = 2  # of p and ds beside bf16 operands (kAccTerms)
+# (rows, M, N, split) of gemm.cu's dW products: ragged row counts at small
+# widths, the whole depth in one part and split.
+DW_SHAPES = [(1, 24, 40, 1), (17, 24, 40, 1), (17, 24, 40, 3), (2049, 24, 40, 1), (2049, 24, 40, 3),
+             (2049, 24, 40, 8)]
+DW_STAGE = 32  # rows of a staged tile (gemm_mma.cuh kBK): a split of the rows takes whole stages
 
 
 def split_terms(x: torch.Tensor, n: int) -> list:
@@ -153,6 +162,46 @@ def _emulate(q, k, v, g, valid, causal, f32_terms):
 
 def _rel(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def emulate_dw(a, b, split=1, f32_terms=F32_TERMS):
+    """``a^T . b`` over the rows as ``csrc/gemm.cu`` sums it (A transposed,
+    ``a [rows, M]``, ``b [rows, N]``): each 16-row step's partial products of
+    the operands' bf16 terms (three an f32 operand, one a bf16 one) summed
+    from 0, smallest first, and added to the part's sum with a rounded f32
+    add; the rows in ``split`` parts of whole 32-row stages, each summed from
+    0, then the parts added in order."""
+    rows, M = a.shape
+    N = b.shape[1]
+    nt = f32_terms if a.dtype == torch.float32 else 1
+    steps = -(-rows // 16)
+    pad = steps * 16 - rows
+    a3 = torch.cat([a.float(), a.new_zeros(pad, M, dtype=torch.float32)]).view(steps, 16, M)
+    b3 = torch.cat([b.float(), b.new_zeros(pad, N, dtype=torch.float32)]).view(steps, 16, N)
+    prods = split_matmul(a3.transpose(1, 2), b3, nt, nt)  # [steps, M, N]
+    stages = -(-rows // DW_STAGE)
+    per = -(-stages // split) * (DW_STAGE // 16)  # 16-row steps a part
+    out = None
+    for s in range(split):
+        part = torch.zeros(M, N)
+        for k in range(s * per, min(steps, (s + 1) * per)):
+            part = part + prods[k]
+        out = part if out is None else out + part
+    return out
+
+
+def emulated_dw_errors(rows, M, N, dtype=torch.float32, split=1, f32_terms=F32_TERMS, seed=0) -> dict:
+    """Errors of :func:`emulate_dw` against float64 on the same inputs (numpy
+    normal draws from ``seed``, in ``dtype``): the max abs error beside
+    ``chip_smoke.py``'s limit for the card's dW check, 1e-4 sqrt(rows), and
+    the norm-relative error."""
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((rows, M)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((rows, N)).astype(np.float32)).to(dtype)
+    got = emulate_dw(a, b, split, f32_terms)
+    want = a.double().T @ b.double()
+    return {"max_abs": float((got.double() - want).abs().max()), "limit_abs": 1e-4 * rows ** 0.5,
+            "rel": float((got.double() - want).norm() / want.norm().clamp_min(1e-300))}
 
 
 def emulated_errors(B, H, T, Dh, valid, causal, dtype=torch.float32, f32_terms=F32_TERMS, seed=0) -> dict:
@@ -534,6 +583,10 @@ def main() -> int:
             errs = emulated_mha_errors(B, T, W, heads, valid, causal, dtype, args.terms)
             print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "B6",
                               "shape": [B, T, W], "heads": heads, "valid": valid, "causal": causal, **errs}))
+        for rows, M, N, split in DW_SHAPES:
+            errs = emulated_dw_errors(rows, M, N, dtype, split, args.terms)
+            print(json.dumps({"dtype": str(dtype).replace("torch.", ""), "terms": args.terms, "kernel": "gemm.cu dW",
+                              "rows": rows, "M": M, "N": N, "split": split, **errs}))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""Time the kernels K1, K2, B5, B4, B13, B14, B7 and B6 of one checkout of the port.
+"""Time the kernels K1, K2, B5, B4, B13, B14, B7, B6 and gemm.cu's dW products of one checkout of the port.
 
-    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B14,B7]
+    python3 tapclip_tpu_torch/scripts/time_half_blocks.py [--root DIR] [--runs N] [--kernels B14,B7,dW]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and prints one JSON line: the card's
@@ -35,7 +35,16 @@ calls, ``--runs`` readings each), float32 and bfloat16, of
   checkout whose autograd Function sent them to the flash chain on the
   packed strides (``_mha_flash_bwd_cuda``, on the forward's output computed
   once), the chain beside them;
-* B6's wrapper (``_fused_mha_cuda``) and its launch alone (``tapclip_mha``).
+* B6's wrapper (``_fused_mha_cuda``) and its launch alone (``tapclip_mha``);
+* ``dW``: gemm.cu's weight-gradient products A^T . B (``trans_a``) at the
+  pretraining shapes (``DW_SHAPES``: B4's and B5's four at the image shape,
+  6,400 rows, W 768; B5's two at the text shape, 2,560 rows, W 512), the
+  wrapper ``gemm_f32`` and its launches alone on buffers allocated once
+  (``tapclip_gemm_f32_ws`` at the split of the rows it chooses, with its
+  workspace; in a checkout without it ``tapclip_gemm_f32``), beside
+  ``torch.mm`` (f32 out from bf16 operands);
+* ``dWgrid``: those launches alone at each split of the rows (1 to 8), in
+  a checkout that takes them.
 
 K1 at ViT-B/16's image shape (8 x 200 rows, W 768) and the text tower's
 shapes (a 64-text batch, 64 x 80 rows, and 8 x 88 rows, W 512); K2 at the
@@ -51,7 +60,7 @@ three shapes.  Each launcher's C signature is read from the checkout's own
 ``_build._SIGNATURES``: where K1 takes a scratch pointer (h and y, R (H + W)
 elements of the dtype) the scratch is allocated once beside the buffers.
 
-``--kernels`` times only the named kernels (default: all eight).  To
+``--kernels`` times only the named kernels (default: all but ``dWgrid``).  To
 compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
 """
@@ -79,13 +88,18 @@ B6_SHAPES = B7_SHAPES
 B7_CORE_ARGS = 11  # tapclip_mha_bwd's arguments in the [T, T]-core design (no lse / delta scratch)
 B5_SPLITS = (1, 2, 4)  # the splits of dy's depth that tapclip_mlp_bwd takes, each timed where it takes one
 K1_ARGS = 14  # tapclip_fused_mlp's arguments without a scratch pointer
+# gemm.cu's dW products (rows, M, N): C[M, N] = A[rows, M]^T . B[rows, N].
+DW_SHAPES = {"image y^T.dqkv 768x2304x6400": (6400, 768, 2304), "image o^T.g 768x768x6400": (6400, 768, 768),
+             "image y^T.dh 768x3072x6400": (6400, 768, 3072), "image h^T.g 3072x768x6400": (6400, 3072, 768),
+             "text y^T.dh 512x2048x2560": (2560, 512, 2048), "text h^T.g 2048x512x2560": (2560, 2048, 512)}
+DW_MAX_SPLIT = 8
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,dW")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -105,6 +119,7 @@ def main() -> int:
         fused_attn_block,
     )
     from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, fused_mlp_block
+    from tapclip_tpu_torch.ops.gemm import gemm_f32
 
     # This file's own helpers, whichever checkout the package comes from.
     sys.path.append(str(Path(__file__).resolve().parent))
@@ -310,10 +325,32 @@ def main() -> int:
             a = (qkv.data_ptr(), out.data_ptr(), B, T, W, nh, valid, int(causal), code, stream)
             calls[f"B6 launch {label}"] = lambda a=a, keep=(qkv, out): lib.tapclip_mha(*a)
             calls[f"B6 wrapper {label}"] = lambda qkv=qkv, nh=nh, v=valid, c=causal: _fused_mha_cuda(qkv, nh, v, c)
+        for label, (rows, M, N) in DW_SHAPES.items():
+            a, b = rn(rows, M).to(dtype), rn(rows, N).to(dtype)
+            c = torch.empty((M, N), device="cuda")
+            calls[f"dW wrapper {label}"] = lambda a=a, b=b: gemm_f32(a, b, trans_a=True)
+            if dtype == torch.float32:
+                calls[f"dW torch.mm {label}"] = lambda a=a, b=b: torch.mm(a.T, b)
+            else:
+                calls[f"dW torch.mm {label}"] = lambda a=a, b=b: torch.mm(a.T, b, out_dtype=torch.float32)
+            if "tapclip_gemm_f32_ws" not in sig:  # the FMA design: one launch, no split
+                a1 = (a.data_ptr(), b.data_ptr(), None, c.data_ptr(), M, N, rows, 1, 0, code, stream)
+                calls[f"dW launch {label}"] = lambda a1=a1, keep=(a, b, c): lib.tapclip_gemm_f32(*a1)
+                continue
+            plans = [(lib.tapclip_gemm_f32_split(M, N, rows, code), "dW launch")]
+            plans += [(S, f"dWgrid split {S}") for S in range(1, DW_MAX_SPLIT + 1)]
+            for S, name in plans:
+                ws = torch.empty((S, M, N), device="cuda") if S > 1 else None
+                a1 = (a.data_ptr(), b.data_ptr(), None, c.data_ptr(), None if ws is None else ws.data_ptr(), M, N,
+                      rows, 1, 0, code, S, stream)
+                calls[f"{name} {label}"] = lambda a1=a1, keep=(a, b, c, ws): lib.tapclip_gemm_f32_ws(*a1)
         with torch.inference_mode():
             for name, fn in calls.items():
                 if name.split()[0] not in want:
                     continue
+                rc = fn()  # a launcher returns its cudaError: a refused launch would time as nothing
+                if isinstance(rc, int) and rc != 0:
+                    raise RuntimeError(f"{name}: cudaError {rc}")
                 readings[f"{name} {dname}"] = [time_ms(fn, 20, 3) for _ in range(args.runs)]
     print(json.dumps({"root": args.root, "card": card_line(), "k1_scratch": k1_scratch, "ms": readings}))
     return 0

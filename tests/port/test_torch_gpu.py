@@ -60,7 +60,13 @@ second call.  The CoCoOp step (both text modes, CE and kg + ProGrad) runs
 its B*C text rows on the kernels against the plain path (1e-4), with the
 backward kernels' launches per step; the RN tower's f32 features are held
 against float64 convolutions of the same weights (1e-4 norm-relative) with
-cuDNN's TF32 switch on before the call and on again after it.
+cuDNN's TF32 switch on before the call and on again after it.  gemm.cu's
+products (B4's and B5's weight gradients, on the tensor cores) are held
+against ``gemm_reference`` in each layout (none, A transposed, B
+transposed), both dtypes, at ragged depths and row counts (1 to 6,401), C
+off every tile edge, every split of the rows forced with a bias,
+at chip_smoke.py's dW limit 1e-4 sqrt(K) absolute, bit for bit against a
+second call; what they refuse raises ValueError.
 """
 
 import hashlib
@@ -1617,3 +1623,109 @@ def test_remat_recomputes_the_kernels_with_equal_gradients(cuda):
     assert counts == [(2, 2, 2, 2), (4, 4, 2, 2)]
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=0, atol=0)
+
+
+# --- gemm.cu on the tensor cores: every layout, tile and split of the rows ----------
+
+from tapclip_tpu_torch.ops.gemm import gemm_reference  # noqa: E402
+
+GEMM_LAYOUTS = ["none", "trans_a", "trans_b"]
+GEMM_ROWS = [1, 15, 200, 1600, 6401]
+
+
+def _gemm_case(cuda, dtype, layout, M, N, K, seed):
+    """Operands of ``op(a) @ op(b)`` stored as the layout stores them."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = _randn(gen, *((K, M) if layout == "trans_a" else (M, K))).to(dtype)
+    b = _randn(gen, *((N, K) if layout == "trans_b" else (K, N))).to(dtype)
+    return a, b, {"trans_a": layout == "trans_a", "trans_b": layout == "trans_b"}
+
+
+def _gemm_close(got, a, b, flags, K, bias=None):
+    """Against the plain version at chip_smoke.py's dW limit, 1e-4 sqrt(K)
+    absolute for unit-normal operands: f32 operands split into three bf16
+    terms read about 1e-7 relative, bf16 ones are exact, and the f32 sums run
+    in another order."""
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, gemm_reference(a, b, bias=bias, **flags), rtol=0, atol=1e-4 * K ** 0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", GEMM_LAYOUTS)
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+def test_gemm_kernel_every_layout_at_ragged_rows(cuda, dtype, layout, rows):
+    """Each layout against the plain version, bit for bit on a second call,
+    C 68 x 132 off every tile edge (bf16 rows of 68 and 132 elements take the
+    8-byte copies).  rows: the depth K where A is transposed (dW: rows of
+    both operands), else the rows M of A over a depth of 132."""
+    M, N, K = (68, 132, rows) if layout == "trans_a" else (rows, 132, 132)
+    a, b, flags = _gemm_case(cuda, dtype, layout, M, N, K, rows)
+    n = gemm_f32.launches
+    got = gemm_f32(a, b, **flags)
+    assert gemm_f32.launches == n + 1 and got.shape == (M, N) and got.dtype == torch.float32
+    _gemm_close(got, a, b, flags, K)
+    torch.testing.assert_close(gemm_f32(a, b, **flags), got, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", GEMM_LAYOUTS)
+@pytest.mark.parametrize("split", range(1, 9))
+def test_gemm_kernel_each_split_with_a_bias(cuda, dtype, layout, split):
+    """Every split of the rows the dispatcher can take, forced, with a bias,
+    on 1,600 rows (50 stages: the split 8 leaves a short last part) and C
+    200 x 136 (the 16-byte copies in bf16): against the plain version, bit
+    for bit on a second call; the dispatcher's own choice beside them."""
+    M, N, K = 200, 136, 1600
+    a, b, flags = _gemm_case(cuda, dtype, layout, M, N, K, 7 * split)
+    bias = _randn(torch.Generator(device=cuda).manual_seed(split), N)
+    got = gemm_f32(a, b, bias=bias, split=split, **flags)
+    _gemm_close(got, a, b, flags, K, bias)
+    torch.testing.assert_close(gemm_f32(a, b, bias=bias, split=split, **flags), got, rtol=0, atol=0)
+    _gemm_close(gemm_f32(a, b, bias=bias, **flags), a, b, flags, K, bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gemm_kernel_unsplit_entry_and_the_dispatchers_split(cuda, dtype):
+    """``tapclip_gemm_f32`` (the rows unsplit) equals the wrapper at split 1
+    bit for bit; the dispatcher splits the rows of the pretraining dW
+    products 1 to 8 ways."""
+    lib, code = _build.library(), _build.dtype_code(dtype)
+    a, b, flags = _gemm_case(cuda, dtype, "trans_a", 200, 136, 1600, 3)
+    c = torch.empty((200, 136), device=cuda)
+    assert lib.tapclip_gemm_f32(a.data_ptr(), b.data_ptr(), None, c.data_ptr(), 200, 136, 1600, 1, 0, code,
+                                _build.stream_handle(a.device)) == 0
+    torch.testing.assert_close(c, gemm_f32(a, b, split=1, **flags), rtol=0, atol=0)
+    for rows, M, N in ((6400, 768, 2304), (6400, 768, 768), (6400, 768, 3072), (6400, 3072, 768),
+                       (2560, 512, 2048), (2560, 2048, 512)):
+        assert 1 <= lib.tapclip_gemm_f32_split(M, N, rows, code) <= 8
+
+
+@pytest.mark.gpu
+def test_gemm_kernel_refusals(cuda):
+    """What the kernels do not take raises ValueError, never a fallback: N
+    not a multiple of 4, a stored row not a multiple of 4 elements, an
+    operand off its 16-byte (f32) or 8-byte (bf16) alignment, both operands
+    transposed, a split past 8; the C interface itself answers
+    cudaErrorInvalidValue (1)."""
+    a, b, _ = _gemm_case(cuda, torch.float32, "trans_a", 64, 130, 32, 1)
+    with pytest.raises(ValueError, match="N = 130"):
+        gemm_f32(a, b, trans_a=True)
+    c = torch.empty((64, 130), device=cuda)
+    assert _build.library().tapclip_gemm_f32_ws(a.data_ptr(), b.data_ptr(), None, c.data_ptr(), None, 64, 130, 32,
+                                                1, 0, 0, 1, _build.stream_handle(a.device)) == 1
+    a, b, _ = _gemm_case(cuda, torch.float32, "none", 64, 64, 15, 2)
+    with pytest.raises(ValueError, match="rows hold 15"):
+        gemm_f32(a, b)
+    for dtype, off in ((torch.float32, 2), (torch.bfloat16, 2)):
+        buf = torch.zeros(64 * 64 + off, device=cuda, dtype=dtype)
+        a_off = buf[off:].view(64, 64)
+        with pytest.raises(ValueError, match="aligned"):
+            gemm_f32(a_off, torch.zeros((64, 64), device=cuda, dtype=dtype), trans_a=True)
+    a, b, _ = _gemm_case(cuda, torch.float32, "trans_a", 64, 64, 64, 3)
+    with pytest.raises(ValueError, match="at most one transposed"):
+        gemm_f32(a, b, trans_a=True, trans_b=True)
+    with pytest.raises(ValueError, match="split 9"):
+        gemm_f32(a, b, trans_a=True, split=9)

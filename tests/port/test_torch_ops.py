@@ -31,6 +31,7 @@ from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block, fused_mlp_reference
 from tapclip_tpu_torch.scripts.split_error import (
     ATTN_BWD_SHAPES,
     ATTN_SHAPES,
+    DW_SHAPES,
     MLP_BWD_SHAPES,
     MLP_SHAPES,
     emulate_attn_block,
@@ -39,6 +40,7 @@ from tapclip_tpu_torch.scripts.split_error import (
     emulate_mlp_bwd,
     emulated_attn_block_bwd_errors,
     emulated_attn_block_errors,
+    emulated_dw_errors,
     emulated_mlp_bwd_errors,
     emulated_mlp_errors,
 )
@@ -372,3 +374,81 @@ def test_gemm_wrappers_take_cuda_operands_only():
     with pytest.raises(ValueError, match="CUDA tensor"):
         col_sum(a)
 
+
+@pytest.mark.parametrize("layout", ["none", "trans_a", "trans_b"])
+def test_gemm_reference_in_each_layout(layout):
+    """The plain versions of gemm.cu against float64: ``op(a) @ op(b) + bias``
+    with op the layout's transpose, bf16 operands widened; the column sums."""
+    from tapclip_tpu_torch.ops.gemm import col_sum_reference, gemm_reference
+
+    rng = np.random.default_rng(4)
+    M, N, K = 6, 8, 33
+    a = rng.standard_normal((K, M) if layout == "trans_a" else (M, K)).astype(np.float32)
+    b = rng.standard_normal((N, K) if layout == "trans_b" else (K, N)).astype(np.float32)
+    bias = rng.standard_normal(N).astype(np.float32)
+    want = (a.T if layout == "trans_a" else a).astype(np.float64) @ (b.T if layout == "trans_b" else b) + bias
+    flags = {"trans_a": layout == "trans_a", "trans_b": layout == "trans_b"}
+    got = gemm_reference(_t(a), _t(b), bias=_t(bias), **flags)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    got = gemm_reference(_t(a).to(torch.bfloat16), _t(b).to(torch.bfloat16), **flags)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), gemm_reference(_t(a).to(torch.bfloat16).double(),
+                                                           _t(b).to(torch.bfloat16).double(), **flags).numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(col_sum_reference(_t(a)).numpy(), a.astype(np.float64).sum(0), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("block", ["B4", "B5"])
+def test_plain_backwards_take_their_weight_gradients_from_gemm_reference(weights, monkeypatch, block):
+    """The plain B4 and B5 backwards (the CPU path of the autograd Functions,
+    held against the JAX backward kernels by test_torch_train.py) compute
+    their dW by gemm_reference and their bias sums by col_sum_reference:
+    each gradient is the value those return."""
+    from tapclip_tpu_torch.ops import fused_mha, fused_mlp
+
+    mod = fused_mha if block == "B4" else fused_mlp
+    seen = {"gemm_reference": [], "col_sum_reference": []}
+
+    def spy(name):
+        fn = getattr(mod, name)
+
+        def call(*a, **k):
+            seen[name].append(fn(*a, **k))
+            return seen[name][-1]
+        monkeypatch.setattr(mod, name, call)
+
+    spy("gemm_reference")
+    spy("col_sum_reference")
+    t = _torch_tree(weights)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(weights["x"].shape).astype(np.float32))
+    if block == "B4":
+        a = t["attn"]
+        got = fused_mha.attn_block_bwd_reference(t["x"], g, t["ln"]["scale"], t["ln"]["bias"], a["w_qkv"],
+                                                 a["b_qkv"], a["w_out"], HEADS, VALID, 1e-5)
+    else:
+        m = t["mlp"]
+        got = fused_mlp.fused_mlp_bwd_reference(t["x"], g, t["ln"]["scale"], t["ln"]["bias"], m["w_fc"], m["b_fc"],
+                                                m["w_proj"], 1e-5)
+    for name, grads in (("gemm_reference", (got[3], got[5])), ("col_sum_reference", (got[4], got[6]))):
+        assert len(seen[name]) == 2 and {id(t) for t in grads} == {id(t) for t in seen[name]}, name
+
+
+# gemm.cu's dW products on the card run A^T . B over rows on the tensor
+# cores: three bf16 terms an f32 operand, one a bf16 one, a rounded f32 add
+# per 16-row step, the rows split in parts of whole 32-row stages summed in
+# order (csrc/gemm.cu).  Their emulation (scripts/split_error.py) against
+# float64: chip_smoke.py's 1e-4 sqrt(rows) absolute for its dW check, and
+# 1e-6 norm-relative, which only three terms an f32 operand meet; readings:
+# at most 4.8e-5 absolute (the limit 4.5e-3 at 2,049 rows) and 2.1e-7
+# norm-relative in both dtypes, where two terms an f32 operand read
+# 3.7e-6 to 4.5e-6 (the f32 cases hold that they miss the limit).
+DW_REL_LIMIT = 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows,M,N,split", DW_SHAPES, ids=[f"r{r}-s{s}" for r, _, _, s in DW_SHAPES])
+def test_gemm_dw_split_products_meet_the_card_limits(rows, M, N, split, dtype):
+    errs = emulated_dw_errors(rows, M, N, dtype, split)
+    assert errs["max_abs"] <= errs["limit_abs"] and errs["rel"] <= DW_REL_LIMIT, errs
+    if dtype == torch.float32:
+        assert emulated_dw_errors(rows, M, N, dtype, split, f32_terms=2)["rel"] > DW_REL_LIMIT
