@@ -139,16 +139,19 @@ Run from the repository root:  python3 chip_smoke.py
     the full path, -inf the cheap path.
 20. The A/B variants, off every main path (0 launches there): the four card
     drivers' ``run()`` (``tapclip_tpu_torch/scripts/``: S1 the one-launch
-    fused layer, S2 the FMA walk's variants, S3 and S4 K2's) at ViT-B/16,
-    batch 8, f32 and bf16.  Each distinct variant kernel is held against its
-    plain version (AB_TOL: the parents' F32_TOL / BF16_TOL), each variant
-    with its parent's configuration against the parent bit for bit, each
-    timed in turns with the parent (CUDA events) beside its plain version
-    and the bound.  Each driver's parent is its own flags-off kernel (S2's
-    the FMA walk, S3's and S4's the FMA core's); K1 beside S2 and K2 beside
-    S3 and S4 are timed in the same turns as columns of their own
-    (``k1_ms``, ``k2_ms``), held against their plain versions.  S1's parent
-    is K2 then K1.
+    fused layer on K1's and K2's tensor-core tiles, S2 K1's launches with
+    the TPU script's switches, S3 and S4 K2's earlier FMA core's) at
+    ViT-B/16, batch 8, f32 and bf16.  Each distinct variant kernel is held
+    against its plain version (AB_TOL: the parents' F32_TOL / BF16_TOL), each
+    variant whose output is the parent's (its configuration, or S2's 128-row
+    tiles) against the parent bit for bit and each against a second call bit
+    for bit, each timed in turns with the parent (CUDA events) beside its plain
+    version, the bound and the MMA bound (``mma_bound_ms``: the operations
+    as bf16 MMAs, six a product in f32).  The parents (``AB_PARENTS``): K2
+    then K1 for S1, K1 for S2, the flags-off FMA core for S3 and S4, with K2
+    timed beside those in the same turns as a column of its own
+    (``k2_ms``), held against its plain version.  The ptxas line of
+    ``fused_layer.cu`` gives S1's registers and spills.
 
 21. The reference workloads from files ("files"), ViT-B/16 f32 (the
     reference_train preset with ``--model ViT-B-16``): two seeded state
@@ -530,9 +533,10 @@ CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "
              "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "fma_bound_ms", "mma_bound_ms",
              "mma_bound_dx_only_ms", "max_abs_err", "max_rel_err")
 # The sources whose kernels' ptxas report (registers, spills) is printed one by one:
-# the half-blocks' and B4's on the tensor cores, B7's and B6's, and B13's (with S5's walk) and B14's.
+# the half-blocks' and B4's on the tensor cores, B7's and B6's, B13's (with S5's walk) and B14's,
+# and S1's persistent layer and S2's interleaved steps on their tiles.
 PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "mha.cu",
-                 "int8_mlp.cu", "int8_attn.cu")
+                 "int8_mlp.cu", "int8_attn.cu", "fused_layer.cu", "fused_mlp_variants.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -555,6 +559,8 @@ INT8_KERNELS = {
 AB_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL}
 AB_BF16_SOFTMAX_F32_TOL = 1e-3
 AB_DRIVERS = ("fused_layer_ab", "mlp_kernel_ab", "attn_kernel_ab", "attn_softmax_ab")
+AB_PARENTS = {"fused_layer_ab": "K2 then K1", "mlp_kernel_ab": "K1", "attn_kernel_ab": "S3's flags-off kernel",
+              "attn_softmax_ab": "S4's flags-off kernel"}
 
 
 class SmokeFailure(RuntimeError):
@@ -716,7 +722,9 @@ def b4_mma_flops(B: int, T: int, W: int, pairs: int, dtype: str, dx_only: bool) 
 def ptxas_kernels(log: str, sources=PTXAS_SOURCES) -> list:
     """(source, kernel, registers, spill store bytes) of each kernel that
     ``sources`` compile, from ``-Xptxas -v``'s report (one section a source,
-    ``_build.build_log["ptxas_by_source"]``)."""
+    ``_build.build_log["ptxas_by_source"]``).  The spills of the functions
+    ptxas lists after a kernel, which it calls without inlining them (S1's
+    phases), count with the kernel's own."""
     out = []
     for src in sources:
         kernel = None
@@ -727,6 +735,8 @@ def ptxas_kernels(log: str, sources=PTXAS_SOURCES) -> list:
                 kernel, spill = m.group(1), 0
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
+                if kernel is None and out and out[-1][0] == src:  # a called function's
+                    out[-1] = out[-1][:3] + (out[-1][3] + int(m.group(1)),)
                 spill = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
@@ -2415,8 +2425,9 @@ def check_ab_variants() -> dict:
             dt = res["dtype"]
             out[(driver, dt)] = res
             par = res["parent"]
-            print(f"ab {driver} [{res['shape']} {dt}]: parent {par['ms']:.4g} ms (plain {par['plain_ms']:.4g}), "
-                  f"bound {res['bound_ms']:.4g} ms ({res['bound_by']})"
+            print(f"ab {driver} [{res['shape']} {dt}]: parent ({AB_PARENTS[driver]}) {par['ms']:.4g} ms "
+                  f"(plain {par['plain_ms']:.4g}), bound {res['bound_ms']:.4g} ms ({res['bound_by']}), "
+                  f"MMA bound {res['mma_bound_ms']:.4g} ms"
                   + (f", cooperative grid {res['grid']}" if "grid" in res else ""), flush=True)
             for name, v in res["variants"].items():
                 if "same_as" in v:
@@ -2429,14 +2440,16 @@ def check_ab_variants() -> dict:
                       f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
                       f"(needs {v['vs_plain']['tol_needed']:.3e}, limit {tol}), vs parent max abs "
                       f"{v['vs_parent']['max_abs_err']:.3e} rel {v['vs_parent']['rel_err']:.3e}"
-                      + (f", bit-equal to the parent: {v['bit_equal_parent']}" if "bit_equal_parent" in v else ""),
+                      + (f", bit-equal to the parent: {v['bit_equal_parent']}" if "bit_equal_parent" in v else "")
+                      + f", repeats: {v['repeats']}",
                       flush=True)
                 require(v["vs_plain"]["finite"], f"ab {driver} {name} {dt}: output is not finite")
                 require(v["vs_plain"]["tol_needed"] <= tol,
                         f"ab {driver} {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version > {tol}")
                 require(v.get("bit_equal_parent", True),
-                        f"ab {driver} {name} {dt}: the parent's configuration differs from the parent")
-            for name, v in res["columns"].items():  # K1 beside S2, K2 beside S3 and S4, on the tensor cores
+                        f"ab {driver} {name} {dt}: differs from the parent, whose output it is")
+                require(v["repeats"], f"ab {driver} {name} {dt}: a second call differs (no atomics: it must not)")
+            for name, v in res["columns"].items():  # K2 beside S3 and S4, on the tensor cores
                 tol = AB_TOL[dt]
                 print(f"ab {driver} column {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of the parent), "
                       f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
@@ -2478,9 +2491,10 @@ def ab_record(ab: dict, launches: dict) -> list:
                 "replaces": replaces, "launches": launches[counter[driver]],
                 "max_abs_err": v["vs_plain"]["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
                 "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
+                "mma_bound_ms": f32["mma_bound_ms"], "bf16_mma_bound_ms": bf16["mma_bound_ms"],
                 "shape": f32["shape"], "flags": v["flags"],
                 "same_as_this": [n for n, w in f32["variants"].items() if w.get("same_as") == name],
-                "parent_ms": f32["parent"]["ms"], "ratio": v["ratio"],
+                "parent": AB_PARENTS[driver], "parent_ms": f32["parent"]["ms"], "ratio": v["ratio"],
                 "vs_parent_rel_err": v["vs_parent"]["rel_err"], "bit_equal_parent": v.get("bit_equal_parent"),
                 "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_max_abs_err": b["vs_plain"]["max_abs_err"],
                 "bf16_bound_ms": bf16["bound_ms"], "bf16_parent_ms": bf16["parent"]["ms"],

@@ -56,8 +56,8 @@
 // MMAs on f32 q and k split in registers for every key tile.
 //
 // K2's earlier FMA core (attn_core.cuh, attn_tile.cuh) stays as the device
-// code of the A/B variants S3/S4 (attn_variants_*.cu) and of phase A of S1
-// (fused_layer.cu).
+// code of the A/B variants S3/S4 (attn_variants_*.cu).  S1 (fused_layer.cu)
+// runs this file's tiles in one persistent launch.
 #include <stdint.h>
 
 #include "attn_core_mma.cuh"

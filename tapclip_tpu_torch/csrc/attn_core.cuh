@@ -1,7 +1,6 @@
 // K2's earlier core on the FMA units (K2 itself, attn_block.cu, runs on the
 // tensor cores since its redesign), kept as the device code of the A/B
-// variants S3/S4 (attn_variants_*.cu) and the one-launch fused layer S1
-// (fused_layer.cu): for one (batch row, head group) the LayerNorm statistics
+// variants S3/S4 (attn_variants_*.cu): for one (batch row, head group) the LayerNorm statistics
 // of the batch row's T tokens, then for each head of the group its q, k, v
 // column slices of the QKV product for all T tokens (LN applied on the fly as
 // the [64, KT] operand tiles are staged in shared memory) and masked softmax
@@ -25,7 +24,6 @@
 //                        columns by their rows of w_out into an f32 partial
 //                        [groups, B, T, W] (reduced in a fixed order by a
 //                        second launch: no atomics);
-//     F32_OUT            S1: the attention output stays f32;
 //     SWITCHES           read the runtime switches below (off in K2);
 //   run time (CoreSwitches):
 //     ln1pass   var = E[x^2] - mean^2;
@@ -54,12 +52,12 @@ struct CoreSwitches {
 };
 
 template <int FORM_ = kOnline, bool SUM_ROUNDED_ = false, bool TAIL_SPLIT_ = false,
-          bool SMEM_QKV_ = false, bool INTERLEAVED_ = false, bool F32_OUT_ = false,
+          bool SMEM_QKV_ = false, bool INTERLEAVED_ = false,
           bool SWITCHES_ = false>
 struct CoreCfg {
   static constexpr int kForm = FORM_;
   static constexpr bool kSumRounded = SUM_ROUNDED_, kTailSplit = TAIL_SPLIT_, kSmemQkv = SMEM_QKV_,
-                        kInterleaved = INTERLEAVED_, kF32Out = F32_OUT_, kSwitches = SWITCHES_;
+                        kInterleaved = INTERLEAVED_, kSwitches = SWITCHES_;
   static constexpr int kKTile = SMEM_QKV_ ? 16 : 32;  // reduction depth per staged tile
 };
 
@@ -89,7 +87,7 @@ struct CoreArgs {
   const E* w_qkv;
   const float* b_qkv;
   float* ws;     // f32 [B, H, 3, T, Dh] (not with SMEM_QKV)
-  void* attn;    // [B, T, W]: T, or f32 with F32_OUT
+  void* attn;    // [B, T, W] of T
   const E* w_out;  // INTERLEAVED: w_out and the f32 partials [W / (group Dh), B, T, W]
   float* part;
   int B, H, T, W, valid;
@@ -304,10 +302,7 @@ __device__ __forceinline__ void attn_core_head(const CoreArgs<T>& a, const CoreS
         const int d = cg + 16 * j;
         const float o = Cfg::kForm == kNormalized ? tile.o[i][j] : tile.o[i][j] * inv_l;
         const size_t off = (static_cast<size_t>(b) * T_ + t) * W + h * DH + d;
-        if (Cfg::kF32Out)
-          static_cast<float*>(a.attn)[off] = o;
-        else
-          static_cast<T*>(a.attn)[off] = from_f<T>(o);
+        static_cast<T*>(a.attn)[off] = from_f<T>(o);
       }
     }
   }

@@ -37,6 +37,9 @@
 // Key tiles wholly at or past `valid` are skipped: their probabilities are
 // exactly 0, so the sums do not change.  No other atomics: a call repeats
 // bit for bit.
+// The kernel's body is a device function of its work item (attn_core_tile:
+// batch row, head, first query row), which the kernel calls with blockIdx
+// and S1's persistent layer (fused_layer.cu) calls for the items it walks.
 #pragma once
 
 #include <stdint.h>
@@ -51,11 +54,13 @@ namespace attn {
 
 using namespace tapclip::mma;
 
-// out[b, t, h Dh : (h + 1) Dh] for one (batch row b, head h, query tile).
+// out[b, t, h Dh : (h + 1) Dh] for one (batch row b, head h, query tile
+// from row q0).  All 2 ROWS threads of the block call it; it reads the
+// block's dynamic shared memory from its start.
 template <typename In, typename PT, typename OT, int DH, int ROWS, bool CAUSAL, bool RMAX>
-__global__ void __launch_bounds__(2 * ROWS)
-attn_core_mma_kernel(const In* __restrict__ qkv, OT* __restrict__ out, float* __restrict__ rmax, int H, int T_,
-                     int W, int valid) {
+__device__ __forceinline__ void attn_core_tile(const In* __restrict__ qkv, OT* __restrict__ out,
+                                               float* __restrict__ rmax, int T_, int W, int valid, int b, int h,
+                                               int q0) {
   static_assert(kIsF32<In> || !kIsF32<PT>, "p is rounded to v's dtype: a bf16 v takes a bf16 p");
   using bf16 = __nv_bfloat16;
   constexpr int kThreads = 2 * ROWS;  // ROWS / 16 warps
@@ -70,8 +75,7 @@ attn_core_mma_kernel(const In* __restrict__ qkv, OT* __restrict__ out, float* __
   bf16* Q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* KV_s = Q_s + kQK * kQPlane;  // split: K's planes, then V's; else buffer i: K at KV_s + 2 i kKVPlane, then V
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * ROWS, r0 = (threadIdx.x >> 5) * 16;
+  const int r0 = (threadIdx.x >> 5) * 16;
   const int st = 3 * W;
   const In* q = qkv + static_cast<size_t>(b) * T_ * st + h * DH;
   const In* k = q + W;
@@ -201,15 +205,27 @@ attn_core_mma_kernel(const In* __restrict__ qkv, OT* __restrict__ out, float* __
 }
 
 template <typename In, typename PT, typename OT, int DH, int ROWS, bool CAUSAL, bool RMAX>
+__global__ void __launch_bounds__(2 * ROWS)
+attn_core_mma_kernel(const In* __restrict__ qkv, OT* __restrict__ out, float* __restrict__ rmax, int H, int T_,
+                     int W, int valid) {
+  attn_core_tile<In, PT, OT, DH, ROWS, CAUSAL, RMAX>(qkv, out, rmax, T_, W, valid, blockIdx.x / H, blockIdx.x % H,
+                                                     blockIdx.y * ROWS);
+}
+
+// Bytes of dynamic shared memory an item takes: f32 qkv, the term planes of
+// q, k and v (one key tile); bf16, q, and K and V double-buffered (one key
+// tile needs no second buffer).
+template <typename In, typename PT, int DH, int ROWS>
+__host__ __device__ constexpr size_t core_smem(int T_) {
+  return static_cast<size_t>(kIsF32<In> ? kF32Terms * ROWS + (kF32Terms + (kIsF32<PT> ? kF32Terms : 1)) * kTile
+                                        : ROWS + (T_ > kTile ? 2 : 1) * 2 * kTile) *
+         tile_ld<__nv_bfloat16, DH>() * sizeof(__nv_bfloat16);
+}
+
+template <typename In, typename PT, typename OT, int DH, int ROWS, bool CAUSAL, bool RMAX>
 cudaError_t launch_core(const In* qkv, OT* out, float* rmax, int B, int H, int T_, int W, int valid,
                         cudaStream_t s) {
-  constexpr int kLd = tile_ld<__nv_bfloat16, DH>();
-  constexpr int kVTerms = kIsF32<PT> ? kF32Terms : 1;
-  // f32: the term planes of q, k and v (one key tile); bf16: q, and K and V
-  // double-buffered (one key tile needs no second buffer).
-  const int rows = kIsF32<In> ? kF32Terms * ROWS + (kF32Terms + kVTerms) * kTile
-                              : ROWS + (T_ > kTile ? 2 : 1) * 2 * kTile;
-  const size_t smem = static_cast<size_t>(rows) * kLd * sizeof(__nv_bfloat16);
+  const size_t smem = core_smem<In, PT, DH, ROWS>(T_);
   auto kernel = attn_core_mma_kernel<In, PT, OT, DH, ROWS, CAUSAL, RMAX>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

@@ -1,6 +1,6 @@
 // Softmax attention of one 64-row query tile against all keys, one 64-key
 // tile at a time (online softmax): K2's earlier FMA core (attn_core.cuh),
-// the device code of the A/B variants S1, S3 and S4.
+// the device code of the A/B variants S3 and S4.
 //
 // The JAX kernels hold a whole [T, T] score tile in VMEM.  A Hopper block has
 // at most 227 KB of shared memory, so the CUDA kernels keep one [64, 64]

@@ -35,11 +35,11 @@ extern "C" int tapclip_attn_variant_online(const void* x, const void* gamma, con
                                        ln1pass, qk_round, fold_q, mask, group, stream);
   if (smem_qkv)
     return sum_rounded || tail_split ? cudaErrorInvalidValue
-                                     : launch_variant_dtype<CoreCfg<kOnline, false, false, true, false, false, true>>(c, dtype);
+                                     : launch_variant_dtype<CoreCfg<kOnline, false, false, true, false, true>>(c, dtype);
   if (sum_rounded && tail_split) return cudaErrorInvalidValue;
-  if (sum_rounded) return launch_variant_dtype<CoreCfg<kOnline, true, false, false, false, false, true>>(c, dtype);
-  if (tail_split) return launch_variant_dtype<CoreCfg<kOnline, false, true, false, false, false, true>>(c, dtype);
-  return launch_variant_dtype<CoreCfg<kOnline, false, false, false, false, false, true>>(c, dtype);
+  if (sum_rounded) return launch_variant_dtype<CoreCfg<kOnline, true, false, false, false, true>>(c, dtype);
+  if (tail_split) return launch_variant_dtype<CoreCfg<kOnline, false, true, false, false, true>>(c, dtype);
+  return launch_variant_dtype<CoreCfg<kOnline, false, false, false, false, true>>(c, dtype);
 }
 
 // Bytes of shared memory the core takes at T (head dim 64) with q, k, v kept

@@ -54,13 +54,13 @@ extern "C" int tapclip_attn_variant_two_pass(const void* x, const void* gamma, c
                                        ln1pass, qk_round, fold_q, mask, group, stream);
   if (form == kNormalized && interleaved)
     return smem_qkv ? cudaErrorInvalidValue
-                    : launch_variant_dtype<CoreCfg<kNormalized, false, false, false, true, false, true>>(c, dtype);
+                    : launch_variant_dtype<CoreCfg<kNormalized, false, false, false, true, true>>(c, dtype);
   if (interleaved) return cudaErrorInvalidValue;
   if (form == kNormalized && smem_qkv)
-    return launch_variant_dtype<CoreCfg<kNormalized, false, false, true, false, false, true>>(c, dtype);
-  if (form == kNormalized) return launch_variant_dtype<CoreCfg<kNormalized, false, false, false, false, false, true>>(c, dtype);
+    return launch_variant_dtype<CoreCfg<kNormalized, false, false, true, false, true>>(c, dtype);
+  if (form == kNormalized) return launch_variant_dtype<CoreCfg<kNormalized, false, false, false, false, true>>(c, dtype);
   if (form == kBf16Exp && !smem_qkv)
-    return launch_variant_dtype<CoreCfg<kBf16Exp, false, false, false, false, false, true>>(c, dtype);
+    return launch_variant_dtype<CoreCfg<kBf16Exp, false, false, false, false, true>>(c, dtype);
   return cudaErrorInvalidValue;
 }
 

@@ -45,8 +45,8 @@
 // No atomics: every sum runs in one block in a fixed order, so a call
 // repeats bit for bit.
 //
-// The FMA walk of the earlier K1 (mlp_walk.cuh, fused_mlp.cuh) stays as the
-// A/B variants S2 (fused_mlp_variants.cu) and phase B of S1 (fused_layer.cu).
+// The A/B variants S2 (fused_mlp_variants.cu) run these launches with their
+// switches; S1 (fused_layer.cu) runs the same tiles in one persistent launch.
 #include <stdint.h>
 
 #include "common.cuh"

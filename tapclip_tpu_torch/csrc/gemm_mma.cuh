@@ -24,6 +24,11 @@
 // A deterministic split of the depth (gridDim.z = S > 1, kStore only)
 // writes S f32 partials [S, M, N], each over whole stages, that the caller
 // sums in a fixed order.  No atomics: a call repeats bit for bit.
+// Each kernel's body is a device function of its tile (gemm_bf16_tile,
+// gemm_f32_tile: the tile's first row and column, the split's index and
+// count), which the kernels call with blockIdx / gridDim and a persistent
+// kernel (S1, fused_layer.cu; S2's interleaved steps, fused_mlp_variants.cu)
+// calls for the tiles it walks.
 //
 // The epilogues (per element of C, row g (+ 8) of each 16-row tile, columns
 // 2t and 2t + 1 of each 8-column tile; N % 4 == 0, so col < N gives
@@ -36,7 +41,11 @@
 //   kDgelu     C = round(acc * (Phi(z) + z phi(z))), z read from Epi::z;
 //              with Epi::h also h = round(z Phi(z)) and z := the unrounded
 //              product (for dW_proj and db_fc)             B5's dh_pre
-//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy; B4's gh and dy; gemm.cu
+//   kStore     C (f32) = acc, partial blockIdx.z           B5's dy; B4's gh and dy; gemm.cu;
+//                                                          S2's interleaved proj
+//   kGeluErf3  kGelu with the A&S 3-term erf (common.cuh)  S2's erf3 fc
+// kResidual's residual may have another type than the operands (Epi's R):
+// S1 adds an f32 mid to a bf16 product and a bf16 x to an f32 one.
 #pragma once
 
 #include <stdint.h>
@@ -59,16 +68,17 @@ constexpr int kBK = 32;  // depth of a stage
 constexpr int kStages = 3;
 constexpr int kALd = kBK + 8;  // row stride of a [rows, kBK] tile, bf16 elements (80 bytes: ldmatrix conflict-free)
 
-enum Epilogue { kGelu = 0, kResidual = 1, kQkv = 2, kBias = 3, kDgelu = 4, kStore = 5 };
+enum Epilogue { kGelu = 0, kResidual = 1, kQkv = 2, kBias = 3, kDgelu = 4, kStore = 5, kGeluErf3 = 6 };
 
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 
-// What an epilogue reads beside the accumulators (unused members null / 0).
-template <typename T>
+// What an epilogue reads beside the accumulators (unused members null / 0);
+// R: the residual's type (the operands' by default).
+template <typename T, typename R = T>
 struct Epi {
   const float* bias;  // [N] f32
-  const T* resid;     // kResidual: [M, N]
+  const R* resid;     // kResidual: [M, N]
   float* z;           // kDgelu: [M, N] f32 pre-activation (and the unrounded product out, with h)
   T* h;               // kDgelu: round(gelu(z)) [M, N], or null
   int col0;           // kQkv: the first column rounded to T
@@ -116,11 +126,12 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
 }
 
 // acc += the warp's [WM, WN] block of one kBK-deep stage, from NP bf16
-// planes of each tile (plane p of A at as + p * a_plane, of B at
-// bs + p * b_plane): per 16-deep step the warp's B fragments once, then
-// each 16-row A fragment against them.  NP = 3: six MMAs a product and a
-// rounded f32 add per step (mma::mma_split).
-template <int BM, int BN, int NP, bool TB, bool TA>
+// planes of the A tile and NPB of the B tile (plane p of A at as + p *
+// a_plane, of B at bs + p * b_plane): per 16-deep step the warp's B
+// fragments once, then each 16-row A fragment against them.  NP = NPB = 3:
+// six MMAs a product and a rounded f32 add per step; NP = 3, NPB = 1 (B's
+// values bf16): three, accumulated in the MMAs (mma::mma_split).
+template <int BM, int BN, int NP, bool TB, bool TA, int NPB = NP>
 __device__ __forceinline__ void warp_stage(Acc<BM, BN>& acc, const bf16* as, const bf16* bs, int wm, int wn) {
   using Wp = Warps<BM, BN>;
   constexpr int MT = Wp::MT, NT = Wp::NT, WM = Wp::WM, WN = Wp::WN;
@@ -129,11 +140,11 @@ __device__ __forceinline__ void warp_stage(Acc<BM, BN>& acc, const bf16* as, con
   const int l = threadIdx.x & 31;
 #pragma unroll
   for (int kk = 0; kk < kBK; kk += 16) {
-    uint32_t b[NT][NP][2];
+    uint32_t b[NT][NPB][2];
 #pragma unroll
     for (int j = 0; j < NT; j += 2)
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
+      for (int p = 0; p < NPB; ++p) {
         uint32_t b0[1][2], b1[1][2];
         if constexpr (TB) {
           mma::load_b<kBK>(b0, b1, bs + p * kBPlane, wn * WN + 8 * j, kk);
@@ -192,10 +203,11 @@ __device__ __forceinline__ float dgelu_pdf(float z) {
   return __fmul_rn(expf(__fmul_rn(__fmul_rn(-0.5f, z), z)), kInvSqrt2Pi);
 }
 
-// C = epilogue(acc) for the warp's accumulators (T: the operands' dtype, TC: C's).
-template <typename T, typename TC, int BM, int BN, int EPI>
-__device__ __forceinline__ void epilogue(const Acc<BM, BN>& acc, const Epi<T>& e, TC* __restrict__ C, int M, int N,
-                                         int m0, int n0, int wm, int wn) {
+// C = epilogue(acc) for the warp's accumulators (T: the operands' dtype, TC: C's,
+// R: the residual's).
+template <typename T, typename TC, int BM, int BN, int EPI, typename R = T>
+__device__ __forceinline__ void epilogue(const Acc<BM, BN>& acc, const Epi<T, R>& e, TC* __restrict__ C, int M,
+                                         int N, int m0, int n0, int wm, int wn) {
   using Wp = Warps<BM, BN>;
   constexpr int MT = Wp::MT, NT = Wp::NT, WM = Wp::WM, WN = Wp::WN;
   const int lane = threadIdx.x & 31;
@@ -222,6 +234,11 @@ __device__ __forceinline__ void epilogue(const Acc<BM, BN>& acc, const Epi<T>& e
           v1 = v1 + bias1;
           v0 = 0.5f * v0 * (1.f + erff(v0 * kInvSqrt2));
           v1 = 0.5f * v1 * (1.f + erff(v1 * kInvSqrt2));
+        } else if constexpr (EPI == kGeluErf3) {
+          v0 = v0 + bias0;
+          v1 = v1 + bias1;
+          v0 = 0.5f * v0 * (1.f + erf3(v0 * kInvSqrt2));
+          v1 = 0.5f * v1 * (1.f + erf3(v1 * kInvSqrt2));
         } else if constexpr (EPI == kResidual) {
           v0 = v0 + bias0;
           v1 = v1 + bias1;
@@ -255,22 +272,26 @@ __device__ __forceinline__ void epilogue(const Acc<BM, BN>& acc, const Epi<T>& e
   }
 }
 
-// The stages [kt0, kt1) of this block's split of the depth (all of them
-// without a split).
-__device__ __forceinline__ void depth_range(int K, int& kt0, int& kt1) {
+// The stages [kt0, kt1) of split z of S of the depth (all of them when S
+// is 1).  Unsigned as blockIdx.z and gridDim.z, so the kernels compute it as
+// they did before their bodies became tile functions.
+__device__ __forceinline__ void depth_range(int K, unsigned z, unsigned S, int& kt0, int& kt1) {
   const int nk = (K + kBK - 1) / kBK;
-  const int per = (nk + gridDim.z - 1) / gridDim.z;
-  kt0 = blockIdx.z * per;
+  const int per = (nk + S - 1) / S;
+  kt0 = z * per;
   kt1 = min(nk, kt0 + per);
 }
 
-// bf16: C = epilogue(op(A) . op(B)); tiles staged by a kStages-deep ring of
-// cp.async copies of CE elements (N and the stored operands' row lengths
-// multiples of 4, and of CE along the copied rows), zeros past every edge.
-template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf16> e, TC* __restrict__ C, int M,
-                 int N, int K) {
+// bf16: the BM x BN tile of C at (m0, n0) = epilogue(op(A) . op(B)) over
+// split z of S of the depth; tiles staged by a kStages-deep ring of cp.async
+// copies of CE elements (N and the stored operands' row lengths multiples of
+// 4, and of CE along the copied rows), zeros past every edge.  All kThreads
+// threads of the block call it; it reads the block's dynamic shared memory
+// from its start.
+template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false, typename R = bf16>
+__device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                                               const Epi<bf16, R>& e, TC* __restrict__ C, int M, int N, int K,
+                                               int m0, int n0, unsigned z, unsigned S) {
   constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>();
   constexpr int kATLd = mma::tile_ld<bf16, BM>(), kBLd = mma::tile_ld<bf16, BN>();
   constexpr int kAChunks = BM * kBK / CE, kBChunks = kBK * BN / CE;
@@ -280,11 +301,10 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf1
   bf16* b_s = a_s + kStages * kAPlane;            // [kStages][B plane]
   const int warp = threadIdx.x >> 5;
   const int wm = warp / Warps<BM, BN>::kN, wn = warp % Warps<BM, BN>::kN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int kt0, kt1;
-  depth_range(K, kt0, kt1);
+  depth_range(K, z, S, kt0, kt1);
   const int nk = kt1 - kt0;
-  if (EPI == kStore) C += static_cast<size_t>(blockIdx.z) * M * N;
+  if (EPI == kStore) C += static_cast<size_t>(z) * M * N;
 
   auto load_stage = [&](int s, int kt) {
     const int k0 = kt * kBK;
@@ -335,18 +355,28 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf1
     warp_stage<BM, BN, 1, TB, TA>(acc, a_s + (kt % kStages) * kAPlane, b_s + (kt % kStages) * kBPlane, wm, wn);
   }
   mma::cp_wait<0>();
-  epilogue<bf16, TC, BM, BN, EPI>(acc, e, C, M, N, m0, n0, wm, wn);
+  epilogue<bf16, TC, BM, BN, EPI, R>(acc, e, C, M, N, m0, n0, wm, wn);
 }
 
-// The three bf16 terms of four f32 values (one row of a 16-byte chunk) into
-// planes 0, 1, 2 at dst, dst + stride, dst + 2 stride: two bf16x2 words a plane.
+template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, Epi<bf16> e, TC* __restrict__ C, int M,
+                 int N, int K) {
+  gemm_bf16_tile<BM, BN, CE, EPI, TB, TC, TA>(A, B, e, C, M, N, K, blockIdx.y * BM, blockIdx.x * BN, blockIdx.z,
+                                              gridDim.z);
+}
+
+// The NT (three) bf16 terms of four f32 values (one row of a 16-byte chunk)
+// into planes 0, 1, 2 at dst, dst + stride, dst + 2 stride: two bf16x2 words
+// a plane.
+template <int NT = mma::kF32Terms>
 __device__ __forceinline__ void split4(const float4 v, bf16* dst, int stride) {
   float x0 = v.x, x1 = v.y, x2 = v.z, x3 = v.w;
 #pragma unroll
-  for (int p = 0; p < mma::kF32Terms; ++p) {
+  for (int p = 0; p < NT; ++p) {
     const uint32_t u0 = mma::pack_bf16(x0, x1), u1 = mma::pack_bf16(x2, x3);
     *reinterpret_cast<uint2*>(dst + p * stride) = make_uint2(u0, u1);
-    if (p + 1 < mma::kF32Terms) {  // exact: x minus its bf16 rounding
+    if (p + 1 < NT) {  // exact: x minus its bf16 rounding
       x0 -= __uint_as_float(u0 << 16);
       x1 -= __uint_as_float(u0 & 0xffff0000u);
       x2 -= __uint_as_float(u1 << 16);
@@ -355,29 +385,32 @@ __device__ __forceinline__ void split4(const float4 v, bf16* dst, int stride) {
   }
 }
 
-// f32: as gemm_bf16_kernel, but each stage's f32 tiles come through
+// f32: as gemm_bf16_tile, but each stage's f32 tiles come through
 // registers (16-byte loads issued before the current stage's products) and
 // are split once per block into three bf16 planes in shared memory (two
 // buffers): the fragments then load by ldmatrix, and no warp splits an
-// operand that another warp of the block splits too.
-template <int BM, int BN, int EPI, bool TB, bool TA = false>
-__global__ void __launch_bounds__(kThreads, 2)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<float> e, float* __restrict__ C,
-                int M, int N, int K) {
+// operand that another warp of the block splits too.  A and B are read
+// through the read-only path (__ldg): a persistent caller writes them in an
+// earlier phase, behind a grid barrier, and never reads them before.  NPB,
+// B's terms: three, or one where B holds bf16 values (S1's out-projection in
+// bf16: three MMAs a product).
+template <int BM, int BN, int EPI, bool TB, bool TA = false, typename R = float, int NPB = mma::kF32Terms>
+__device__ __forceinline__ void gemm_f32_tile(const float* __restrict__ A, const float* __restrict__ B,
+                                              const Epi<float, R>& e, float* __restrict__ C, int M, int N, int K,
+                                              int m0, int n0, unsigned z, unsigned S) {
   constexpr int NP = mma::kF32Terms;
   constexpr int kATLd = mma::tile_ld<bf16, BM>(), kBLd = mma::tile_ld<bf16, BN>();
-  constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>(), kStage = NP * (kAPlane + kBPlane);
+  constexpr int kAPlane = a_plane<BM, TA>(), kBPlane = b_plane<BN, TB>(), kStage = NP * kAPlane + NPB * kBPlane;
   constexpr int kAV = BM * kBK / 4 / kThreads, kBV = kBK * BN / 4 / kThreads;  // 16-byte loads a thread
   static_assert(kAV * 4 * kThreads == BM * kBK && kBV * 4 * kThreads == kBK * BN, "whole loads a thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* planes = reinterpret_cast<bf16*>(smem_raw);  // [2][NP A planes, NP B planes]
   const int warp = threadIdx.x >> 5;
   const int wm = warp / Warps<BM, BN>::kN, wn = warp % Warps<BM, BN>::kN;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   int kt0, kt1;
-  depth_range(K, kt0, kt1);
+  depth_range(K, z, S, kt0, kt1);
   const int nk = kt1 - kt0;
-  if (EPI == kStore) C += static_cast<size_t>(blockIdx.z) * M * N;
+  if (EPI == kStore) C += static_cast<size_t>(z) * M * N;
   float4 ra[kAV], rb[kBV];
 
   // Row and column of an A chunk in its tile: [BM, kBK], or [kBK, BM] when TA.
@@ -431,7 +464,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
     for (int v = 0; v < kBV; ++v) {
       int r, c;
       b_rc(threadIdx.x + v * kThreads, r, c);
-      split4(rb[v], st + NP * kAPlane + r * (TB ? kALd : kBLd) + c, kBPlane);
+      split4<NPB>(rb[v], st + NP * kAPlane + r * (TB ? kALd : kBLd) + c, kBPlane);
     }
   };
 
@@ -444,11 +477,29 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<fl
   for (int kt = 0; kt < nk; ++kt) {
     if (kt + 1 < nk) fetch(kt0 + kt + 1);  // in flight during this stage's products
     const bf16* st = planes + (kt & 1) * kStage;
-    warp_stage<BM, BN, NP, TB, TA>(acc, st, st + NP * kAPlane, wm, wn);
+    warp_stage<BM, BN, NP, TB, TA, NPB>(acc, st, st + NP * kAPlane, wm, wn);
     if (kt + 1 < nk) put((kt + 1) & 1);  // that buffer was last read before the previous barrier
     __syncthreads();
   }
-  epilogue<float, float, BM, BN, EPI>(acc, e, C, M, N, m0, n0, wm, wn);
+  epilogue<float, float, BM, BN, EPI, R>(acc, e, C, M, N, m0, n0, wm, wn);
+}
+
+template <int BM, int BN, int EPI, bool TB, bool TA = false>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, Epi<float> e, float* __restrict__ C,
+                int M, int N, int K) {
+  gemm_f32_tile<BM, BN, EPI, TB, TA>(A, B, e, C, M, N, K, blockIdx.y * BM, blockIdx.x * BN, blockIdx.z, gridDim.z);
+}
+
+// Bytes of dynamic shared memory a tile function takes.
+template <int BM, int BN, bool TB, bool TA = false>
+__host__ __device__ constexpr size_t bf16_tile_smem() {
+  return static_cast<size_t>(kStages) * (a_plane<BM, TA>() + b_plane<BN, TB>()) * sizeof(bf16);
+}
+
+template <int BM, int BN, bool TB, bool TA = false, int NPB = mma::kF32Terms>
+__host__ __device__ constexpr size_t f32_tile_smem() {
+  return 2 * static_cast<size_t>(mma::kF32Terms * a_plane<BM, TA>() + NPB * b_plane<BN, TB>()) * sizeof(bf16);
 }
 
 inline int sm_count() {
@@ -490,7 +541,7 @@ cudaError_t launch(Kernel kernel, size_t smem, int BM, int BN, int S, const T* A
 template <int BM, int BN, int CE, int EPI, bool TB, typename TC, bool TA = false>
 cudaError_t launch_gemm(const bf16* A, const bf16* B, const Epi<bf16>& e, TC* C, int M, int N, int K, int S,
                         cudaStream_t s) {
-  constexpr size_t smem = static_cast<size_t>(kStages) * (a_plane<BM, TA>() + b_plane<BN, TB>()) * sizeof(bf16);
+  constexpr size_t smem = bf16_tile_smem<BM, BN, TB, TA>();
   return launch(gemm_bf16_kernel<BM, BN, CE, EPI, TB, TC, TA>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
 }
 
@@ -499,8 +550,7 @@ cudaError_t launch_gemm(const float* A, const float* B, const Epi<float>& e, TC*
                         cudaStream_t s) {
   static_assert(CE == 4, "f32 rows load as 16-byte chunks");
   static_assert(kIsF32<TC>, "f32 operands give an f32 C");
-  constexpr size_t smem =
-      2 * mma::kF32Terms * static_cast<size_t>(a_plane<BM, TA>() + b_plane<BN, TB>()) * sizeof(bf16);
+  constexpr size_t smem = f32_tile_smem<BM, BN, TB, TA>();
   return launch(gemm_f32_kernel<BM, BN, EPI, TB, TA>, smem, BM, BN, S, A, B, e, C, M, N, K, s);
 }
 

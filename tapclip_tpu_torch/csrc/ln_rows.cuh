@@ -1,7 +1,8 @@
 // LayerNorm rows of K1 (fused_mlp.cu), K2 (attn_block.cu), B4
-// (attn_block_bwd.cu) and B5 (mlp_bwd.cu), one warp a row, with the
-// statistics of the JAX kernels: two passes in f32 (mean, then the mean
-// square of x - mean), rstd = rsqrt(var + eps).
+// (attn_block_bwd.cu), B5 (mlp_bwd.cu), S1 (fused_layer.cu) and S2
+// (fused_mlp_variants.cu), one warp a row, with the statistics of the JAX
+// kernels: two passes in f32 (mean, then the mean square of x - mean),
+// rstd = rsqrt(var + eps); S2's ln1pass takes one (var = E[x^2] - mean^2).
 #pragma once
 
 #include "common.cuh"
@@ -14,32 +15,53 @@ constexpr int kLnBwdRows = 16;                 // rows of a block of ln_bwd_rows
 constexpr int kLnBwdThreads = 32 * kLnBwdRows;
 constexpr int kLnMaxSplits = 4;                // partials of dy ln_bwd_rows_kernel sums
 
-// y = LN(x) rounded to T; mean and rstd (f32, per row) too where not null.
-// Launch: ceil(R / kLnWarps) blocks of kLnThreads.
-template <typename T>
-__global__ void __launch_bounds__(kLnThreads)
-ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-               T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out, int R, int W,
-               float eps) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
-  if (r >= R) return;
-  const T* xr = x + static_cast<size_t>(r) * W;
-  float s = 0.f;
-  for (int c = lane; c < W; c += 32) s += to_f(xr[c]);
-  const float mean = warp_sum(s) / W;
-  float v = 0.f;
-  for (int c = lane; c < W; c += 32) {
-    const float d = to_f(xr[c]) - mean;
-    v += d * d;
+// Row r of y = LN(x) rounded to TO, by one warp (x of TI: S1's LN2 reads its
+// f32 mid); mean and rstd (f32) too where mean_out is not null.
+template <typename TI, typename TO, bool ONE_PASS = false>
+__device__ __forceinline__ void ln_row(const TI* __restrict__ x, const float* __restrict__ gamma,
+                                       const float* __restrict__ beta, TO* __restrict__ y,
+                                       float* __restrict__ mean_out, float* __restrict__ rstd_out, int r, int W,
+                                       float eps, int lane) {
+  const TI* xr = x + static_cast<size_t>(r) * W;
+  float mean, rstd;
+  if constexpr (ONE_PASS) {
+    float s = 0.f, q = 0.f;
+    for (int c = lane; c < W; c += 32) {
+      const float v = to_f(xr[c]);
+      s += v;
+      q += v * v;
+    }
+    mean = warp_sum(s) / W;
+    rstd = rsqrtf(warp_sum(q) / W - mean * mean + eps);
+  } else {
+    float s = 0.f;
+    for (int c = lane; c < W; c += 32) s += to_f(xr[c]);
+    mean = warp_sum(s) / W;
+    float v = 0.f;
+    for (int c = lane; c < W; c += 32) {
+      const float d = to_f(xr[c]) - mean;
+      v += d * d;
+    }
+    rstd = rsqrtf(warp_sum(v) / W + eps);
   }
-  const float rstd = rsqrtf(warp_sum(v) / W + eps);
-  T* yr = y + static_cast<size_t>(r) * W;
-  for (int c = lane; c < W; c += 32) yr[c] = from_f<T>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
+  TO* yr = y + static_cast<size_t>(r) * W;
+  for (int c = lane; c < W; c += 32) yr[c] = from_f<TO>((to_f(xr[c]) - mean) * rstd * gamma[c] + beta[c]);
   if (lane == 0 && mean_out != nullptr) {
     mean_out[r] = mean;
     rstd_out[r] = rstd;
   }
+}
+
+// y = LN(x) rounded to T; mean and rstd (f32, per row) too where not null.
+// Launch: ceil(R / kLnWarps) blocks of kLnThreads.
+template <typename T, bool ONE_PASS = false>
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
+               T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out, int R, int W,
+               float eps) {
+  const int r = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  ln_row<T, T, ONE_PASS>(x, gamma, beta, y, mean_out, rstd_out, r, W, eps, threadIdx.x & 31);
 }
 
 // dx = g + LN backward of dy, one warp a row, where dy is the sum, in order,

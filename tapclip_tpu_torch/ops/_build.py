@@ -114,9 +114,10 @@ _SIGNATURES = {
     "tapclip_int8_gemm_kp": (I,),
     # b, bt, K, N, stream: b [K, N] int8 -> bt [N, Kp] K-major
     "tapclip_int8_transpose": (P, P, I, I, P),
-    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, R, W, H, eps, rows,
-    # erf3, ln1pass, ilv, dtype, stream
-    "tapclip_fused_mlp_variant": (P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, I, I, P),
+    # x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, ws (K1's scratch:
+    # R * (H + W) elements of the dtype), part (f32 [chunks, R, W] or null),
+    # R, W, H, eps, row_tile, erf3, ln1pass, chunks, dtype, stream
+    "tapclip_fused_mlp_variant": (P,) * 10 + (I, I, I, F, I, I, I, I, I, P),
     # x, gamma, beta, w_qkv, b_qkv, w_out, ws, attn, part, B, T, W, n_heads,
     # valid, eps, form, sum_rounded, tail_split, smem_qkv, interleaved,
     # ln1pass, qk_round, fold_q, mask, group, dtype, stream
@@ -126,9 +127,10 @@ _SIGNATURES = {
     "tapclip_attn_variant_smem_bytes": (I, I, I),
     # part, groups, b_out, x, out, R, W, dtype, stream
     "tapclip_attn_partials_reduce": (P, I, P, P, P, I, I, I, P),
-    # x, gamma1, beta1, w_qkv, b_qkv, w_out, b_out, gamma2, beta2, w_fc, b_fc,
-    # w_proj, b_proj, ws, attn, out, B, T, W, n_heads, H, valid, eps, grid,
-    # dtype, stream
+    # x, gamma1, beta1, w_qkv, b_qkv, w_out32 (f32), b_out, gamma2, beta2,
+    # w_fc, b_fc, w_proj, b_proj, ws (f32 workspace 5 B T W), wsd (scratch:
+    # B T (2W + H) elements of the dtype), out, B, T, W, n_heads, H, valid,
+    # eps, grid, dtype, stream
     "tapclip_fused_layer": (P,) * 16 + (I,) * 6 + (F, I, I, P),
     # T, W, dtype
     "tapclip_fused_layer_max_grid": (I, I, I),

@@ -3,11 +3,12 @@
 Counterpart of ``scripts/fused_layer_ab.py::run_fused_layer``, an A/B
 variant that the JAX package's ``block_forward`` never reaches (nor does the
 port's).  :func:`fused_layer` launches the hand-written CUDA kernel
-``csrc/fused_layer.cu`` (one cooperative launch: K2's attention core for
-every (batch row, head), a grid-wide barrier, then per 16-row tile the
-out-projection, LN2 and the FMA hidden walk with ``mid`` kept in shared memory)
-on a CUDA tensor, and :func:`fused_layer_reference` on a CPU tensor.  Forward
-only, as in the JAX package.
+``csrc/fused_layer.cu`` (one cooperative launch of a persistent grid on the
+tensor cores: LN1 rows, QKV tiles, attention items, out-projection tiles into
+an f32 ``mid``, LN2 rows, fc tiles, proj tiles, a grid-wide barrier between
+phases; the tiles are K1's and K2's) on a CUDA tensor, and
+:func:`fused_layer_reference` on a CPU tensor.  Forward only, as in the JAX
+package.
 
 Numerics as the TPU kernel: LN1(x) rounded to x's dtype; q and k f32, v
 rounded; exp2 with the folded constant, p rounded before p.v, 1/l after it;
@@ -53,8 +54,9 @@ def fused_layer_max_grid(T: int, W: int, dtype) -> int:
 
 def fused_layer(x, ln1, attn, ln2, mlp, n_heads, valid, *, eps=1e-5, grid=0):
     """``x [B, T, W]`` through one pre-LN layer: ``csrc/fused_layer.cu`` on a CUDA
-    tensor (head dim 64), the plain version on a CPU tensor.  ``grid`` 0 takes as
-    many blocks as the card holds at once; a larger one is refused (raises)."""
+    tensor (head dim 64, a hidden width divisible by 8), the plain version on a
+    CPU tensor.  ``grid`` 0 takes as many blocks as the card holds at once; a
+    larger one is refused (raises)."""
     leaves = [x, *ln1.values(), *attn.values(), *ln2.values(), *mlp.values()]
     _build.refuse_graph("fused_layer", *leaves)
     if x.device.type == "cpu":
@@ -62,8 +64,8 @@ def fused_layer(x, ln1, attn, ln2, mlp, n_heads, valid, *, eps=1e-5, grid=0):
     B, T, W = x.shape
     Dh = _check_heads(T, W, n_heads, valid)
     H = mlp["w_fc"].shape[-1]
-    if Dh != 64 or H % 4:
-        raise ValueError(f"fused_layer takes head dim 64 and a hidden width divisible by 4, got {Dh}, {H}")
+    if Dh != 64 or H % 8:
+        raise ValueError(f"fused_layer takes head dim 64 and a hidden width divisible by 8, got {Dh}, {H}")
     dtype, f32 = x.dtype, torch.float32
     m = _check_mlp_operands(x, ln2["scale"], ln2["bias"], mlp["w_fc"], mlp["b_fc"], mlp["w_proj"])
     ops = {
@@ -71,21 +73,24 @@ def fused_layer(x, ln1, attn, ln2, mlp, n_heads, valid, *, eps=1e-5, grid=0):
         "beta1": (ln1["bias"].to(f32), f32, (W,)),
         "w_qkv": (attn["w_qkv"].to(dtype), dtype, (W, 3 * W)),
         "b_qkv": (attn["b_qkv"].to(f32), f32, (3 * W,)),
-        "w_out": (attn["w_out"].to(dtype), dtype, (W, W)),
+        # The out-projection multiplies the f32 attention output: w_out as f32,
+        # holding the dtype's values.
+        "w_out32": (_rnd(attn["w_out"], dtype).contiguous(), f32, (W, W)),
         "b_out": (attn["b_out"].to(f32), f32, (W,)),
         "b_proj": (mlp["b_proj"].to(f32), f32, (W,)),
     }
     for name, (t, dt, shape) in ops.items():
         _build.check_cuda_operand(name, t, dt, shape)
     t = {name: v[0] for name, v in ops.items()}
-    ws = torch.empty((B, n_heads, 3, T, Dh), dtype=f32, device=x.device)
-    attn_ws = torch.empty((B, T, W), dtype=f32, device=x.device)
+    R = B * T
+    ws = torch.empty(5 * R * W, dtype=f32, device=x.device)  # qkv [R, 3W], attn [R, W], mid [R, W]
+    wsd = torch.empty(R * (2 * W + H), dtype=dtype, device=x.device)  # y, y2 [R, W], h [R, H]
     out = torch.empty_like(x)
     err = _build.library().tapclip_fused_layer(
         x.data_ptr(), t["gamma1"].data_ptr(), t["beta1"].data_ptr(), t["w_qkv"].data_ptr(),
-        t["b_qkv"].data_ptr(), t["w_out"].data_ptr(), t["b_out"].data_ptr(), m["gamma"].data_ptr(),
+        t["b_qkv"].data_ptr(), t["w_out32"].data_ptr(), t["b_out"].data_ptr(), m["gamma"].data_ptr(),
         m["beta"].data_ptr(), m["w_fc"].data_ptr(), m["b_fc"].data_ptr(), m["w_proj"].data_ptr(),
-        t["b_proj"].data_ptr(), ws.data_ptr(), attn_ws.data_ptr(), out.data_ptr(),
+        t["b_proj"].data_ptr(), ws.data_ptr(), wsd.data_ptr(), out.data_ptr(),
         B, T, W, n_heads, H, int(valid), float(eps), int(grid), _build.dtype_code(dtype),
         _build.stream_handle(x.device),
     )

@@ -257,14 +257,17 @@ def _ln_rows(x32, eps, one_pass):
 
 
 def fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps=1e-5, erf3=False,
-                                ln1pass=False, ilv=False, rows=16):
+                                ln1pass=False, chunks=1, row_tile=0):
     """Plain version of S2, rounded where ``scripts/mlp_kernel_ab.py``'s kernel
     rounds: LN(x) and GELU's output to x's dtype; fc, GELU, the projection and
     the residual in f32; one rounding of the result.  ``erf3`` takes the
-    3-term erf, ``ln1pass`` the one-pass variance; ``ilv`` and ``rows`` are
-    schedule switches and change nothing here.  In f32 with every switch off
-    it is :func:`fused_mlp_reference` operation for operation."""
-    del ilv, rows
+    3-term erf, ``ln1pass`` the one-pass variance; ``chunks`` > 1 sums the
+    projection chunk by chunk in the TPU kernel's order,
+    ``((x + b_proj) + h_0 . w_proj_0) + h_1 . w_proj_1 ...`` over ``chunks``
+    equal slices of the hidden dimension; ``row_tile`` is a schedule switch
+    and changes nothing here.  In f32 with every switch off it is
+    :func:`fused_mlp_reference` operation for operation."""
+    del row_tile
     dt = x.dtype
     x32 = x.float()
     y = (_ln_rows(x32, eps, ln1pass) * gamma.float() + beta.float()).to(dt).float()
@@ -273,37 +276,60 @@ def fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, e
         g = 0.5 * h * (1.0 + erf3_poly(h * 2.0 ** -0.5))
     else:
         g = torch.nn.functional.gelu(h)
-    out = torch.matmul(g.to(dt).float(), _rnd(w_proj, dt)) + b_proj.float()
-    return (x32 + out).to(dt)
+    g, wp = g.to(dt).float(), _rnd(w_proj, dt)
+    if chunks == 1:
+        out = torch.matmul(g, wp) + b_proj.float()
+        return (x32 + out).to(dt)
+    acc = x32 + b_proj.float()
+    for gc, wc in zip(g.chunk(chunks, dim=-1), wp.chunk(chunks, dim=0)):
+        acc = acc + torch.matmul(gc, wc)
+    return acc.to(dt)
+
+
+def _check_variant_switches(W, H, erf3, ln1pass, chunks, row_tile):
+    if row_tile not in (0, 128) or chunks not in (1, 2, 4):
+        raise ValueError(f"fused_mlp_variant takes row_tile 0 or 128 and chunks 1, 2 or 4, got row_tile={row_tile}, "
+                         f"chunks={chunks}")
+    if (row_tile != 0) + bool(ln1pass) + (chunks > 1) + (bool(erf3) and chunks == 1) > 1:
+        raise ValueError(f"fused_mlp_variant takes one switch at a time (erf3 may join chunks), got "
+                         f"row_tile={row_tile}, erf3={erf3}, ln1pass={ln1pass}, chunks={chunks}")
+    if chunks > 1 and H % (128 * chunks):
+        raise ValueError(f"fused_mlp_variant with {chunks} chunks takes a hidden width divisible by "
+                         f"{128 * chunks} (whole 128-column fc tiles a chunk), got {H}")
+    if (row_tile or erf3 or ln1pass or chunks > 1) and (W % 8 or H % 8):
+        raise ValueError(f"fused_mlp_variant's switches take W and H divisible by 8, got W={W}, H={H}")
 
 
 def fused_mlp_variant(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps=1e-5, erf3=False,
-                      ln1pass=False, ilv=False, rows=16):
-    """S2 (forward only): the FMA walk (``csrc/fused_mlp_variants.cu``; K1 ran on
-    it before it moved to the tensor cores) with the A/B switches of
-    ``scripts/mlp_kernel_ab.py`` on a CUDA tensor, the plain version on a CPU
-    tensor.  ``rows`` 16 or 8; every switch off is the flags-off
-    configuration, the A/B's parent."""
+                      ln1pass=False, chunks=1, row_tile=0):
+    """S2 (forward only): K1's launches (``csrc/fused_mlp_variants.cu``) with the
+    A/B switches of ``scripts/mlp_kernel_ab.py`` on a CUDA tensor, the plain
+    version on a CPU tensor.  Every switch off is K1 itself, the A/B's parent;
+    ``row_tile`` 128 takes 128-row tiles (the schedule alone: K1's output bit
+    for bit), ``erf3`` the 3-term erf in the fc epilogue, ``ln1pass`` the
+    one-pass LayerNorm, ``chunks`` 2 or 4 the fc of one hidden chunk beside
+    the projection of the last, its partials summed in order."""
     _build.refuse_graph("fused_mlp_variant", x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
-    if rows not in (16, 8) or (rows == 8 and (erf3 or ilv)):
-        raise ValueError(f"fused_mlp_variant takes rows 16 with any switch or rows 8 alone, got rows={rows}, "
-                         f"erf3={erf3}, ilv={ilv}")
-    kw = dict(eps=eps, erf3=erf3, ln1pass=ln1pass, ilv=ilv, rows=rows)
-    if x.device.type == "cpu":
-        return fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, **kw)
     W = x.shape[-1]
     H = w_fc.shape[-1]
+    _check_variant_switches(W, H, erf3, ln1pass, chunks, row_tile)
+    kw = dict(eps=eps, erf3=erf3, ln1pass=ln1pass, chunks=chunks, row_tile=row_tile)
+    if x.device.type == "cpu":
+        return fused_mlp_variant_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, **kw)
     if W % 4 or H % 4:
         raise ValueError(f"fused_mlp kernel needs W and H divisible by 4, got W={W}, H={H}")
     t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj)
     b_proj = b_proj.to(torch.float32)
     _build.check_cuda_operand("b_proj", b_proj, torch.float32, (W,))
+    R = x.numel() // W
     out = torch.empty_like(x)
+    ws = torch.empty(R * (H + W), dtype=x.dtype, device=x.device)  # K1's scratch: h [R, H], then y [R, W]
+    part = torch.empty((chunks, R, W), dtype=torch.float32, device=x.device) if chunks > 1 else None
     err = _build.library().tapclip_fused_mlp_variant(
         x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
-        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(),
-        x.numel() // W, W, H, float(eps), rows, int(erf3), int(ln1pass), int(ilv),
-        _build.dtype_code(x.dtype), _build.stream_handle(x.device),
+        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        None if part is None else part.data_ptr(), R, W, H, float(eps), int(row_tile), int(erf3), int(ln1pass),
+        int(chunks), _build.dtype_code(x.dtype), _build.stream_handle(x.device),
     )
     _build.check(err, "tapclip_fused_mlp_variant")
     fused_mlp_variant.launches += 1

@@ -3,6 +3,7 @@
 * :func:`card_line`: the card's name and power limit, as ``nvidia-smi`` gives them;
 * :func:`time_ms`: the mean CUDA-event time of a call;
 * :func:`bound`: the least time the card could take for a call's work;
+  :func:`mma_bound_ms`: the same operations as the tensor cores' bf16 MMAs;
 * :func:`vit_layer`: random weights of one ViT layer at a model preset's
   vision widths, from a seed;
 * :func:`ab`: an A/B table of variants against their parent: errors against
@@ -73,6 +74,12 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def mma_bound_ms(flops: float, dtype: str) -> float:
+    """The operations as the kernels' bf16 MMAs at the card's bf16 peak: six
+    a product of f32 operands (three bf16 terms each), one of bf16 ones."""
+    return 1e3 * flops * (6 if dtype == "float32" else 1) / PEAK_FLOPS["bfloat16"]
+
+
 def vit_shape(model: str):
     """(T, valid, W, heads, H) of a preset's vision tower: T the token count
     padded to a multiple of 8, as the JAX scripts run it."""
@@ -116,15 +123,18 @@ def _errors(got, want) -> dict:
             "finite": bool(got.isfinite().all())}
 
 
-def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 10, columns=None) -> dict:
+def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: int = 10, columns=None) -> dict:
     """The A/B table.  ``parent``: (kernel, plain) callables of the production
     half-block(s).  ``variants``: name -> (kernel, plain, key), ``key`` the
     variant's port switches as sorted (name, value) pairs; variants with the
     same ``key`` run the same kernel, and each after the first is reported
-    ``same_as`` the first (not run or timed again).  ``parent_key`` is the key
-    of the variant configuration that is the parent's own: such a variant
+    ``same_as`` the first (not run or timed again).  ``parent_keys`` are the
+    keys of the variant configurations whose output is the parent's (its own
+    configuration, or one that changes only the schedule): such a variant
     should equal the parent bit for bit (``bit_equal_parent``).
-    ``work``: (bytes, flops) of one call.  ``columns``: name -> (kernel,
+    ``work``: (bytes, flops) of one call; the table holds the bound and
+    ``mma_bound_ms``.  Each variant kernel runs twice: ``repeats`` says
+    whether the second call equals the first bit for bit.  ``columns``: name -> (kernel,
     plain) of other kernels of the same function, reported under
     ``"columns"`` like a variant but apart from the variants (no flags, no
     ``bit_equal_parent``).  On a CUDA tensor the kernels and their plain
@@ -137,7 +147,7 @@ def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 
         cuda = want_parent.is_cuda
         dt = str(want_parent.dtype).replace("torch.", "")
         out = {"dtype": dt, "shape": "x".join(map(str, want_parent.shape)), **bound(*work, dt),
-               "parent": _errors(want_parent, p_plain()), "variants": {}}
+               "mma_bound_ms": mma_bound_ms(work[1], dt), "parent": _errors(want_parent, p_plain()), "variants": {}}
         first = {}
         for name, (kernel, plain, key) in variants.items():
             if key in first:
@@ -145,8 +155,9 @@ def ab(parent, variants: dict, *, parent_key, work, reps: int = 5, iters: int = 
                 continue
             first[key] = name
             got = kernel()
-            v = {"flags": dict(key), "vs_parent": _errors(got, want_parent), "vs_plain": _errors(got, plain())}
-            if key == parent_key:
+            v = {"flags": dict(key), "vs_parent": _errors(got, want_parent), "vs_plain": _errors(got, plain()),
+                 "repeats": bool(torch.equal(got, kernel()))}
+            if key in parent_keys:
                 v["bit_equal_parent"] = bool(torch.equal(got, want_parent))
             out["variants"][name] = v
         columns = columns or {}

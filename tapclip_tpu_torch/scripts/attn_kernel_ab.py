@@ -89,7 +89,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
                           tuple(sorted(f.items())))
     return ab((lambda: attn_block_variant(x, ln, attn, heads, valid),
                lambda: attn_block_variant_reference(x, *p, heads, valid)), variants,
-              parent_key=tuple(sorted(port_flags("run_variant", {}, heads).items())), work=attn_work(x, valid),
+              parent_keys=(tuple(sorted(port_flags("run_variant", {}, heads).items())),), work=attn_work(x, valid),
               reps=reps, columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
                                          lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
 

@@ -95,7 +95,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
                           tuple(sorted(f.items())))
     return ab((lambda: attn_block_variant(x, ln, attn, heads, valid, form="softmax"),
                lambda: attn_block_variant_reference(x, *p, heads, valid, form="softmax")), variants,
-              parent_key=tuple(sorted(port_flags({}, heads).items())), work=attn_work(x, valid), reps=reps,
+              parent_keys=(tuple(sorted(port_flags({}, heads).items())),), work=attn_work(x, valid), reps=reps,
               columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
                               lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
 

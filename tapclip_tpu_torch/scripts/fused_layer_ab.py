@@ -3,14 +3,17 @@
     python3 -m tapclip_tpu_torch.scripts.fused_layer_ab [--batch B] [--model NAME] [--reps N]
 
 Counterpart of ``scripts/fused_layer_ab.py``: the two production half-block
-kernels, K2 then K1 (the parent, "two half-block kernels"), against the
-whole layer in one cooperative launch (``ops/fused_layer.py::fused_layer``,
-``csrc/fused_layer.cu``).  The JAX script's three variants differ only in
-``bB`` and ``h_chunk``, which have no counterpart on this card: "fused bB8"
-is the kernel and the other two are reported ``same_as`` it.  The fused layer
-keeps the attention output and mid in f32 where K2 then K1 round them, so in
-bf16 the two differ by the rounding of those tensors.  Prints the card's name
-and power limit, the cooperative grid, then one JSON line per dtype.
+kernels, K2 then K1 (the parent, "two half-block kernels", seven launches),
+against the whole layer in one cooperative launch on the same tensor-core
+tiles (``ops/fused_layer.py::fused_layer``, ``csrc/fused_layer.cu``).  The
+JAX script's three variants differ only in ``bB`` (batch rows a grid step)
+and ``h_chunk`` (the hidden columns a step), which have no counterpart in a
+persistent grid that walks tiles of every product: "fused bB8" is the
+kernel and the other two are reported ``same_as`` it.  The fused layer keeps
+the attention output and mid in f32 where K2 then K1 round them, so in bf16
+the two differ by the rounding of those tensors.  Prints the card's name and
+power limit, the cooperative grid, then one JSON line per dtype (the bound,
+the MMA bound, the parent and the kernel).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
     a_bytes, a_flops = attn_work(x, valid)
     m_bytes, m_flops = mlp_work(x, H)
     work = (a_bytes + m_bytes - 2 * x.numel() * x.element_size(), a_flops + m_flops)
-    out = ab((parent, parent_plain), variants, parent_key=None, work=work, reps=reps)
+    out = ab((parent, parent_plain), variants, work=work, reps=reps)
     if x.is_cuda:
         out["grid"] = fused_layer_max_grid(x.shape[1], W, x.dtype)
     return out

@@ -2,28 +2,26 @@
 
     python3 -m tapclip_tpu_torch.scripts.mlp_kernel_ab [--batch B] [--model NAME] [--reps N]
 
-Counterpart of ``scripts/mlp_kernel_ab.py``: the FMA walk with every switch
-off (``ops/fused_mlp.py::fused_mlp_variant``, ``csrc/fused_mlp_variants.cu``:
-the port of that script's production kernel, the parent) against the
-variants of that script's ``main()``, each switch as its nearest counterpart
-on this card:
+Counterpart of ``scripts/mlp_kernel_ab.py``: K1 (``ops/fused_mlp.py::
+fused_mlp_block``, ``csrc/fused_mlp.cu``: the port of that script's
+production kernel, the parent) against the variants of that script's
+``main()``, each switch as its nearest counterpart on K1's own launches
+(``fused_mlp_variant``, ``csrc/fused_mlp_variants.cu``):
 
-* ``row_tile`` (rt512) -> 8 rows a block instead of 16 (more blocks per SM;
-  32 rows do not fit in shared memory);
-* ``erf3`` -> the A&S 3-term erf; ``ln1pass`` -> var = E[x^2] - mean^2;
-* ``ilv_chunks`` -> the next 256-column chunk's fc issued before this
-  chunk's projection (ilv2 and ilv4 are one schedule here: ilv4 is reported
-  ``same_as`` ilv2).
+* ``row_tile`` (rt512) -> 128-row tiles in both products instead of K1's 64
+  (or 32); the schedule alone, so its output is K1's bit for bit;
+* ``erf3`` -> the A&S 3-term erf in the fc epilogue; ``ln1pass`` -> var =
+  E[x^2] - mean^2;
+* ``ilv_chunks`` 2 / 4 -> the hidden dimension in 2 or 4 chunks: the fc of
+  chunk j + 1 runs in one grid with the projection of chunk j, the f32
+  partials summed in the TPU kernel's order.
 
-``base`` is the parent's configuration (it must equal the parent bit for
-bit); 8 rows and the pipelined walk change only the schedule (the card tests
-hold them bit-equal to the parent).  K1 (``csrc/fused_mlp.cu``, the same
-function on the tensor cores) is timed beside them as its own column
-(``columns["k1"]``).  At the model's vision widths (default ViT-B/16, batch
-8: rows 8 x 200, W 768, H 3,072), f32 and bf16, each variant is held against
-the parent and against its own plain version, and timed in turns with CUDA
-events; prints the card's name and power limit, then one JSON line per
-dtype.
+``base`` is K1's configuration, run through the variant launcher (it must
+equal the parent bit for bit, as must rt512).  At the model's vision widths
+(default ViT-B/16, batch 8: rows 8 x 200, W 768, H 3,072), f32 and bf16, each
+variant is held against the parent and against its own plain version, and
+timed in turns with CUDA events; prints the card's name and power limit, then
+one JSON line per dtype.
 """
 
 from __future__ import annotations
@@ -45,15 +43,18 @@ VARIANTS = {
     "ilv4": {"ilv_chunks": 4},
     "ilv4_erf3": {"ilv_chunks": 4, "erf3": True},
 }
+# The variants whose output is K1's bit for bit: its own configuration and
+# the larger tile (the schedule alone).
+SCHEDULE_ONLY = ("base", "rt512")
 REPLACES = "scripts/mlp_kernel_ab.py:62"
 
 
 def port_flags(jax_kwargs: dict) -> dict:
     """fused_mlp_variant's switches for the JAX script's run_variant arguments."""
-    return {"rows": 16 if jax_kwargs.get("row_tile", 256) == 256 else 8,
+    return {"row_tile": 0 if jax_kwargs.get("row_tile", 256) == 256 else 128,
             "erf3": bool(jax_kwargs.get("erf3", False)),
             "ln1pass": bool(jax_kwargs.get("ln1pass", False)),
-            "ilv": jax_kwargs.get("ilv_chunks", 1) > 1}
+            "chunks": int(jax_kwargs.get("ilv_chunks", 1))}
 
 
 def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: str = "cuda",
@@ -71,11 +72,9 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         f = port_flags(kw)
         variants[name] = (lambda f=f: fused_mlp_variant(*p, **f), lambda f=f: fused_mlp_variant_reference(*p, **f),
                           tuple(sorted(f.items())))
-    flags_off = port_flags({})
     work = mlp_work(x, mlp["w_fc"].shape[-1])
-    return ab((lambda: fused_mlp_variant(*p, **flags_off), lambda: fused_mlp_variant_reference(*p, **flags_off)),
-              variants, parent_key=tuple(sorted(flags_off.items())), work=work, reps=reps,
-              columns={"k1": (lambda: fused_mlp_block(x, ln, mlp), lambda: fused_mlp_reference(*p))})
+    return ab((lambda: fused_mlp_block(x, ln, mlp), lambda: fused_mlp_reference(*p)), variants,
+              parent_keys=tuple(variants[name][2] for name in SCHEDULE_ONLY), work=work, reps=reps)
 
 
 def main(argv=None) -> int:

@@ -550,6 +550,75 @@ def emulate_int8_attn(x, gamma, beta, q, n_heads, valid, *, seed=0, deterministi
     return (out + x.reshape(B * T, W).float()).to(x.dtype).reshape(B, T, W)
 
 
+def emulate_fused_layer(x, ln1, attn, ln2, mlp, n_heads, valid, eps=1e-5, f32_terms=F32_TERMS):
+    """S1 as the card computes it (``csrc/fused_layer.cu``, one launch on K1's
+    and K2's tiles): LN1 rounded to x's dtype; the QKV product on split
+    operands (``f32_terms`` terms each in f32, one in bf16), v rounded; q . k^T
+    on ``f32_terms`` terms of q and k in both dtypes, keys at or past
+    ``valid`` at -1e30, exp2 against the row max, the sum over the unrounded
+    p; p . v on ``f32_terms`` terms of p and v in f32 and one in bf16, over
+    the sum, left f32; the out-projection on ``f32_terms`` terms of the f32
+    attention output against ``f32_terms`` of w_out in f32 and one (its bf16
+    value, exact) in bf16, mid = x + (. + b_out) in f32; LN2 of mid rounded;
+    fc and proj on split operands, GELU rounded, out = mid + (. + b_proj),
+    one rounding."""
+    dt = x.dtype
+    nt = f32_terms if dt == torch.float32 else 1
+    B, T, W = x.shape
+    Dh = W // n_heads
+    x32 = x.float()
+    y = _ln_parts(x, ln1["scale"], ln1["bias"], eps)[2].float()
+    qkv = split_matmul(y, attn["w_qkv"].to(dt).float(), nt, nt) + attn["b_qkv"].float()
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    v = v.to(dt).float()
+    s = split_matmul(q, k.transpose(-1, -2), f32_terms, f32_terms) * (Dh ** -0.5 * _LOG2E)
+    s = torch.where(torch.arange(T) < valid, s, torch.full_like(s, -1e30))
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = _merge(split_matmul(e, v, nt, nt) / e.sum(dim=-1, keepdim=True))
+    mid = x32 + (split_matmul(o, attn["w_out"].to(dt).float(), f32_terms, nt) + attn["b_out"].float())
+    y2 = _ln_parts(mid, ln2["scale"], ln2["bias"], eps)[2].to(dt).float()
+    z = split_matmul(y2, mlp["w_fc"].to(dt).float(), nt, nt) + mlp["b_fc"].float()
+    h = (0.5 * z * (1.0 + torch.erf(z * 2.0 ** -0.5))).to(dt).float()
+    return (mid + (split_matmul(h, mlp["w_proj"].to(dt).float(), nt, nt) + mlp["b_proj"].float())).to(dt)
+
+
+def fused_layer_inputs(B, T, W, seed=0):
+    """x [B, T, W] and one layer's parameters (ln1, attn, ln2, mlp; H = 4 W),
+    f32 numpy normal draws from ``seed`` at the card tests' scales."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    def ln():
+        return {"scale": 1.0 + f(W, scale=0.1), "bias": f(W, scale=0.1)}
+
+    H = 4 * W
+    x = f(B, T, W)
+    attn = {"w_qkv": f(W, 3 * W, scale=W ** -0.5), "b_qkv": f(3 * W, scale=0.1),
+            "w_out": f(W, W, scale=W ** -0.5), "b_out": f(W, scale=0.1)}
+    mlp = {"w_fc": f(W, H, scale=W ** -0.5), "b_fc": f(H, scale=0.1),
+           "w_proj": f(H, W, scale=H ** -0.5), "b_proj": f(W, scale=0.1)}
+    return x, ln(), attn, ln(), mlp
+
+
+def emulated_fused_layer_errors(B, T, W, n_heads, valid, dtype=torch.float32, f32_terms=F32_TERMS,
+                                seed=0) -> dict:
+    """S1's emulated output against ``fused_layer_reference`` on the same
+    inputs (x in ``dtype``): ``out_rel`` (norm-relative), ``out_abs`` and
+    ``tol_needed``, the least atol = rtol ``torch.allclose`` would pass (max
+    |d| / (1 + |want|), what ``chip_smoke.py`` holds at ``AB_TOL``)."""
+    from tapclip_tpu_torch.ops.fused_layer import fused_layer_reference
+
+    x, ln1, attn, ln2, mlp = fused_layer_inputs(B, T, W, seed)
+    x = x.to(dtype)
+    got = emulate_fused_layer(x, ln1, attn, ln2, mlp, n_heads, valid, f32_terms=f32_terms).float()
+    want = fused_layer_reference(x, ln1, attn, ln2, mlp, n_heads, valid).float()
+    d = (got - want).abs()
+    return {"out_rel": _rel(got, want), "out_abs": float(d.max()),
+            "tol_needed": float((d / (1.0 + want.abs())).max())}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--terms", type=int, default=F32_TERMS, help="bf16 terms of an f32 operand")

@@ -9,7 +9,8 @@ each the mean of 20 calls after 3 warm-up calls; 5 calls past T 2048), in
 float32 and bfloat16, at K3's and the chain's four shapes (the text
 attribution pass 8 x 8 heads at T 88, valid 82; the idiomatic causal layer
 8 x 8 at T 77; ViT-L/14-336, 4 x 16 at T 584, valid 577; a long 1 x 16 at
-T 4096, valid 4000, causal and not), head dim 64, of
+T 4096, valid 4000, causal and not) and at the ViT-B/16 image shape of B7's
+library column (8 x 12 at T 200, valid 197), head dim 64, of
 
 * K3: ``fused_attention`` with the aux column (the wrapper the model
   calls), its launch alone through the C interface on buffers allocated
@@ -46,6 +47,7 @@ SHAPES = {
     "vit-l-336 4x16x584 valid577": (4, 16, 584, 577, False, 576),
     "long 1x16x4096 valid4000": (1, 16, 4096, 4000, False, 3999),
     "long 1x16x4096 valid4000 causal": (1, 16, 4096, 4000, True, 3999),
+    "image 8x12x200 valid197": (8, 12, 200, 197, False, 196),
 }
 
 

@@ -62,6 +62,7 @@ from tapclip_tpu_torch.ops.fused_mlp import (
     fused_mlp_variant_reference,
 )
 from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, fused_layer_ab, mlp_kernel_ab
+from tapclip_tpu_torch.scripts.split_error import emulate_fused_layer
 
 # One intra-op thread per process: the suite runs several workers on the
 # machine's cores, and torch's default of a thread per core oversubscribes
@@ -239,6 +240,16 @@ def test_fused_layer_matches_the_tpu_kernel(name, T, dt):
     _check(_s1_port(T, dt), _s1_jax(name, T, dt), dt, frac_limit=BF16_FRAC_LAYER)
 
 
+@pytest.mark.parametrize("T", [T for T, _ in SHAPES])
+def test_fused_layer_split_products_match_the_tpu_kernel(T):
+    """S1's tensor-core products as the card forms them (three bf16 terms an
+    f32 operand, ``split_error.emulate_fused_layer``) against the TPU kernel
+    in interpret mode, in f32, as the plain version is held above."""
+    w = _port(T, torch.float32)
+    got = emulate_fused_layer(w["x"], w["ln1"], w["attn"], w["ln2"], w["mlp"], HEADS, dict(SHAPES)[T])
+    _check(got, _s1_jax("fused bB8", T, "f32"), "f32")
+
+
 def _k2_then_k1(T, dt):
     """The parents' roundings for S1: K2's arithmetic (the softmax form with no
     switch), then K1's (the MLP variant with none)."""
@@ -314,7 +325,7 @@ def test_drivers_run_on_the_cpu(driver, dt):
     version, and the variants with one configuration name the first."""
     out = driver.run(B=1, model="ViT-B-32", reps=1, dtype=DTYPES[dt][1], device="cpu")
     same = {n: v["same_as"] for n, v in out["variants"].items() if "same_as" in v}
-    assert same == {mlp_kernel_ab: {"ilv4": "ilv2"},
+    assert same == {mlp_kernel_ab: {},
                     attn_kernel_ab: {"v4_bb8": "v0_default", "bb8_ph_smopt_v64": "bb8_ph_smopt",
                                      "bb8_ph_smopt_v32": "bb8_ph_smopt"},
                     attn_softmax_ab: {"swpipe": "base", "v10_swpipe": "v6_summxu"},
@@ -345,8 +356,8 @@ def test_variant_wrappers_refuse():
     with pytest.raises(ValueError, match="group_heads"):
         attn_block_variant(*attn_args, 130, group_heads=3)
     mlp_args = (w["x"], *w["ln2"].values(), *w["mlp"].values())
-    with pytest.raises(ValueError, match="rows"):
-        fused_mlp_variant(*mlp_args, rows=8, erf3=True)
+    with pytest.raises(ValueError, match="one switch"):
+        fused_mlp_variant(*mlp_args, row_tile=128, erf3=True)
     with pytest.raises(RuntimeError, match="eval only"):
         fused_mlp_variant(w["x"].clone().requires_grad_(), *mlp_args[1:])
     with pytest.raises(RuntimeError, match="eval only"):

@@ -1235,7 +1235,6 @@ def _distinct(variants, flags_of):
 
 
 S2_NAMES = _distinct(mlp_kernel_ab.VARIANTS, mlp_kernel_ab.port_flags)
-S2_SCHEDULE_ONLY = {"base", "rt512", "ilv2"}  # every row's arithmetic is the flags-off walk's
 
 
 @pytest.mark.gpu
@@ -1252,9 +1251,11 @@ def test_mlp_variant_kernels(cuda, dtype, tol, B, T, W, name):
         got = fused_mlp_variant(*args, **flags)
         assert fused_mlp_variant.launches == n + 1
         want = fused_mlp_variant_reference(*args, **flags)
-        parent = fused_mlp_variant(*args)  # the flags-off FMA walk, S2's parent
+        again = fused_mlp_variant(*args, **flags)
+        parent = fused_mlp_block(x, ln, mlp)  # K1, S2's parent
     _close(got, want, tol)
-    if name in S2_SCHEDULE_ONLY:  # the flags-off launcher, 8 rows and the pipelined walk: the parent bit for bit
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
+    if name in mlp_kernel_ab.SCHEDULE_ONLY:  # K1's own launches, or its schedule with 128-row tiles: K1 bit for bit
         torch.testing.assert_close(got, parent, rtol=0, atol=0)
 
 
@@ -1338,8 +1339,8 @@ def test_variant_refusals(cuda):
             fused_layer(x, ln1, attn, ln2, mlp, 2, 136, grid=fit + 1)
         # The refused launch leaves no error behind for the next kernel's check.
         fused_attn_block(x, ln1, attn, 2, valid_len=136)
-        with pytest.raises(ValueError, match="rows"):
-            fused_mlp_variant(x, *ln2.values(), *mlp.values(), rows=8, ilv=True)
+        with pytest.raises(ValueError, match="one switch"):
+            fused_mlp_variant(x, *ln2.values(), *mlp.values(), row_tile=128, chunks=2)
 
 
 # --- ProGrad: two pullbacks over one retained graph --------------------------------
