@@ -140,18 +140,20 @@ Run from the repository root:  python3 chip_smoke.py
 20. The A/B variants, off every main path (0 launches there): the four card
     drivers' ``run()`` (``tapclip_tpu_torch/scripts/``: S1 the one-launch
     fused layer on K1's and K2's tensor-core tiles, S2 K1's launches with
-    the TPU script's switches, S3 and S4 K2's earlier FMA core's) at
+    the TPU script's switches, S3 and S4 K2's launches with theirs) at
     ViT-B/16, batch 8, f32 and bf16.  Each distinct variant kernel is held
     against its plain version (AB_TOL: the parents' F32_TOL / BF16_TOL), each
-    variant whose output is the parent's (its configuration, or S2's 128-row
-    tiles) against the parent bit for bit and each against a second call bit
+    variant whose output is the parent's (its configuration, S2's 128-row
+    tiles, S3's and S4's variants that are K2's arithmetic in the dtype:
+    ``_bench_util.k2_keys``) against the parent bit for bit and each against
+    a second call bit
     for bit, each timed in turns with the parent (CUDA events) beside its plain
     version, the bound and the MMA bound (``mma_bound_ms``: the operations
     as bf16 MMAs, six a product in f32).  The parents (``AB_PARENTS``): K2
-    then K1 for S1, K1 for S2, the flags-off FMA core for S3 and S4, with K2
-    timed beside those in the same turns as a column of its own
-    (``k2_ms``), held against its plain version.  The ptxas line of
-    ``fused_layer.cu`` gives S1's registers and spills.
+    then K1 for S1, K1 for S2, K2 for S3 and S4, each held against its plain
+    version.  The ptxas lines of ``fused_layer.cu`` and
+    ``attn_variants_{online,two_pass}.cu`` give S1's and S3/S4's registers
+    and spills.
 
 21. The reference workloads from files ("files"), ViT-B/16 f32 (the
     reference_train preset with ``--model ViT-B-16``): two seeded state
@@ -534,9 +536,10 @@ CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "
              "mma_bound_dx_only_ms", "max_abs_err", "max_rel_err")
 # The sources whose kernels' ptxas report (registers, spills) is printed one by one:
 # the half-blocks' and B4's on the tensor cores, B7's and B6's, B13's (with S5's walk) and B14's,
-# and S1's persistent layer and S2's interleaved steps on their tiles.
+# S1's persistent layer and S2's interleaved steps on their tiles, and S3/S4's walks.
 PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "mha.cu",
-                 "int8_mlp.cu", "int8_attn.cu", "fused_layer.cu", "fused_mlp_variants.cu")
+                 "int8_mlp.cu", "int8_attn.cu", "fused_layer.cu", "fused_mlp_variants.cu",
+                 "attn_variants_online.cu", "attn_variants_two_pass.cu")
 PALLAS_STEPS = 3
 # The int8 eval tower's kernels (B13, B14), B13's A/B variants (S5) and the
 # bare int8 product (S6): entries of the kernels line built by int8_record.
@@ -559,8 +562,7 @@ INT8_KERNELS = {
 AB_TOL = {"float32": F32_TOL, "bfloat16": BF16_TOL}
 AB_BF16_SOFTMAX_F32_TOL = 1e-3
 AB_DRIVERS = ("fused_layer_ab", "mlp_kernel_ab", "attn_kernel_ab", "attn_softmax_ab")
-AB_PARENTS = {"fused_layer_ab": "K2 then K1", "mlp_kernel_ab": "K1", "attn_kernel_ab": "S3's flags-off kernel",
-              "attn_softmax_ab": "S4's flags-off kernel"}
+AB_PARENTS = {"fused_layer_ab": "K2 then K1", "mlp_kernel_ab": "K1", "attn_kernel_ab": "K2", "attn_softmax_ab": "K2"}
 
 
 class SmokeFailure(RuntimeError):
@@ -2429,6 +2431,9 @@ def check_ab_variants() -> dict:
                   f"(plain {par['plain_ms']:.4g}), bound {res['bound_ms']:.4g} ms ({res['bound_by']}), "
                   f"MMA bound {res['mma_bound_ms']:.4g} ms"
                   + (f", cooperative grid {res['grid']}" if "grid" in res else ""), flush=True)
+            if AB_PARENTS[driver] == "K2":  # S3's and S4's parent, held against its plain version
+                require(par["finite"] and par["tol_needed"] <= AB_TOL[dt],
+                        f"ab {driver} parent K2 {dt}: {par['tol_needed']:.3e} from its plain version")
             for name, v in res["variants"].items():
                 if "same_as" in v:
                     print(f"ab {driver} {name} [{dt}]: same kernel as {v['same_as']}", flush=True)
@@ -2449,14 +2454,6 @@ def check_ab_variants() -> dict:
                 require(v.get("bit_equal_parent", True),
                         f"ab {driver} {name} {dt}: differs from the parent, whose output it is")
                 require(v["repeats"], f"ab {driver} {name} {dt}: a second call differs (no atomics: it must not)")
-            for name, v in res["columns"].items():  # K2 beside S3 and S4, on the tensor cores
-                tol = AB_TOL[dt]
-                print(f"ab {driver} column {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of the parent), "
-                      f"plain {v['plain_ms']:.4g} ms, vs plain max abs {v['vs_plain']['max_abs_err']:.3e} "
-                      f"(needs {v['vs_plain']['tol_needed']:.3e}, limit {tol}), vs parent rel "
-                      f"{v['vs_parent']['rel_err']:.3e}", flush=True)
-                require(v["vs_plain"]["finite"] and v["vs_plain"]["tol_needed"] <= tol,
-                        f"ab {driver} column {name} {dt}: {v['vs_plain']['tol_needed']:.3e} from its plain version")
     return out
 
 
@@ -2498,8 +2495,7 @@ def ab_record(ab: dict, launches: dict) -> list:
                 "vs_parent_rel_err": v["vs_parent"]["rel_err"], "bit_equal_parent": v.get("bit_equal_parent"),
                 "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"], "bf16_max_abs_err": b["vs_plain"]["max_abs_err"],
                 "bf16_bound_ms": bf16["bound_ms"], "bf16_parent_ms": bf16["parent"]["ms"],
-                **{f"{col}_ms": f32["columns"][col]["ms"] for col in f32["columns"]},
-                **{f"bf16_{col}_ms": bf16["columns"][col]["ms"] for col in bf16["columns"]},
+                "bf16_bit_equal_parent": b.get("bit_equal_parent"),
             })
     return out
 

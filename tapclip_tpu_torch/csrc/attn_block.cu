@@ -41,8 +41,7 @@
 //      64 by T as in K3: 384 blocks at the image shape, 192 at the text
 //      shape.
 //   4. out = (attn . w_out + b_out) + x, the same GEMM with K1's kResidual
-//      epilogue (also the out-projection of the A/B variants S3/S4,
-//      tapclip_gemm_bias_residual).
+//      epilogue.
 // No atomics: a call repeats bit for bit.  Emulated error of the split
 // products: python -m tapclip_tpu_torch.scripts.split_error.
 //
@@ -55,9 +54,9 @@
 // function's products; in bf16 the attention leads, its q . k^T still six
 // MMAs on f32 q and k split in registers for every key tile.
 //
-// K2's earlier FMA core (attn_core.cuh, attn_tile.cuh) stays as the device
-// code of the A/B variants S3/S4 (attn_variants_*.cu).  S1 (fused_layer.cu)
-// runs this file's tiles in one persistent launch.
+// The A/B variants S3/S4 (attn_variants.cu) are these four launches with
+// their switches.  S1 (fused_layer.cu) runs this file's tiles in one
+// persistent launch.
 #include <stdint.h>
 
 #include "attn_core_mma.cuh"
@@ -126,34 +125,6 @@ extern "C" int tapclip_attn_block(const void* x, const void* gamma, const void* 
                                    T, W, n_heads, valid, eps, s);
     return launch_block<bf16, 4>(X, g, bt, Wq, bq, Wo, bo, static_cast<bf16*>(out), ws, static_cast<bf16*>(ya), B, T,
                                  W, n_heads, valid, eps, s);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// K2's out-projection alone, out = round((a . w + bias) + res), a [M, K],
-// w [K, N] row major: the out-projection of the A/B variants S3/S4.  dtype:
-// 0 float32, 1 bfloat16; N and K multiples of 4; a, w, res and out 16-byte
-// aligned in float32, 8-byte aligned in bfloat16.
-extern "C" int tapclip_gemm_bias_residual(const void* a, const void* w, const void* bias, const void* res,
-                                          void* out, int M, int N, int K, int dtype, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % 4 || K % 4) return cudaErrorInvalidValue;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(w) |
-                         reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(out);
-  if (!aligned(ptrs, dtype)) return cudaErrorMisalignedAddress;
-  const auto* bs = static_cast<const float*>(bias);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return gemm::launch_pass<float, 64, 4, gemm::kResidual>(
-        static_cast<const float*>(a), static_cast<const float*>(w),
-        Epi<float>{bs, static_cast<const float*>(res), nullptr, nullptr, 0}, static_cast<float*>(out), M, N, K, s);
-  if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
-    const auto* A = static_cast<const bf16*>(a);
-    const auto* Wt = static_cast<const bf16*>(w);
-    const Epi<bf16> e{bs, static_cast<const bf16*>(res), nullptr, nullptr, 0};
-    if ((ptrs & 15) == 0 && N % 8 == 0 && K % 8 == 0)
-      return gemm::launch_pass<bf16, 64, 8, gemm::kResidual>(A, Wt, e, static_cast<bf16*>(out), M, N, K, s);
-    return gemm::launch_pass<bf16, 64, 4, gemm::kResidual>(A, Wt, e, static_cast<bf16*>(out), M, N, K, s);
   }
   return cudaErrorInvalidValue;
 }

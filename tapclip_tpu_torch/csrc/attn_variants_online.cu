@@ -1,52 +1,51 @@
-// S3 and S4: the A/B variants of the attention half-block whose softmax is
-// the online form, as configurations of K2's earlier FMA core (attn_core.cuh).
+// S3 and S4: the walks of the attention half-block's A/B variants whose
+// softmax is the online form (attn_variants.cuh): K2's tile function over a
+// head group (group_heads alone, and the switches that change no value in the
+// dtype), K2's walk with qk_cast / fold_q / zerokv / sum_mxu / tail_split,
+// and perhead_qkv with S3's softmax_opt=True.
 //
 // Replaces scripts/attn_softmax_ab.py::make_kernel.kernel (S4: qk_cast,
 // fold_q, mask_mode full / tail / zerokv, sum_mxu, tail_split, swpipe,
 // group_heads) and the online forms of
 // scripts/attn_kernel_ab.py::make_variant_kernel.kernel (S3 softmax_opt=True
-// with and without perhead_qkv).  The two-pass forms are in
-// attn_variants_two_pass.cu.  The wrapper is
+// with and without perhead_qkv).  The launcher is attn_variants.cu's
+// tapclip_attn_variant, the wrapper
 // tapclip_tpu_torch/ops/fused_mha.py::attn_block_variant.
 //
-// What bounds it on the card: as K2's earlier FMA core, the serial work of one
-// block's pass over its head, one block per SM at the image shape, the
-// products on the FMA units in f32; the variants move that work around
-// (fewer blocks with group_heads, q, k, v kept in shared memory with
-// perhead_qkv) but none changes its kind.  swpipe, bB and vmem_mb have no
-// counterpart on this card (one block per (batch row, head) already overlaps
-// with the others through the SM's warp scheduler): those variants run their
-// parent's configuration and the driver names it.
+// What bounds it on the card: as K2, the products (7.5 GFLOP of projections
+// and 1.0 of attention at ViT-B/16 batch 8: 0.052 ms as six bf16 MMAs a
+// product in f32, 0.011 ms in bf16).  The switches change the walk's
+// arithmetic, not its kind: one MMA a q . k^T product in bf16 with qk_cast
+// (three terms of f32 q and k otherwise), the pad keys walked with zerokv,
+// a second set of accumulators with tail_split, the heads of a group one
+// after the other in one block.  swpipe and bB have no counterpart on this
+// card (K2's double-buffered key tiles and its grid over the batch already
+// are what they schedule): the driver names the variant they equal.
 #include "attn_variants.cuh"
 
-using namespace tapclip;
+namespace tapclip {
+namespace attnv {
 
-// Arguments: variant_call (attn_variants.cuh) and form, sum_rounded, tail_split,
-// smem_qkv, interleaved, dtype (0 float32, 1 bfloat16).
-extern "C" int tapclip_attn_variant_online(const void* x, const void* gamma, const void* beta, const void* w_qkv,
-                                            const void* b_qkv, const void* w_out, void* ws, void* attn, void* part,
-                                            int B, int T, int W, int n_heads, int valid, float eps, int form,
-                                            int sum_rounded, int tail_split, int smem_qkv, int interleaved,
-                                            int ln1pass, int qk_round, int fold_q, int mask, int group, int dtype,
-                                            void* stream) {
-  if (!variant_args_ok(B, T, W, n_heads, valid) || form != kOnline || interleaved)
-    return cudaErrorInvalidValue;
-  const VariantCall c = variant_call(x, gamma, beta, w_qkv, b_qkv, w_out, ws, attn, part, B, T, W, n_heads, valid, eps,
-                                       ln1pass, qk_round, fold_q, mask, group, stream);
-  if (smem_qkv)
-    return sum_rounded || tail_split ? cudaErrorInvalidValue
-                                     : launch_variant_dtype<CoreCfg<kOnline, false, false, true, false, true>>(c, dtype);
-  if (sum_rounded && tail_split) return cudaErrorInvalidValue;
-  if (sum_rounded) return launch_variant_dtype<CoreCfg<kOnline, true, false, false, false, true>>(c, dtype);
-  if (tail_split) return launch_variant_dtype<CoreCfg<kOnline, false, true, false, false, true>>(c, dtype);
-  return launch_variant_dtype<CoreCfg<kOnline, false, false, false, false, true>>(c, dtype);
+template <typename PT, int QK>
+cudaError_t online_walk(const WalkCall& c) {
+  return c.tail_split ? launch_walk<PT, kOnline, QK, true>(c) : launch_walk<PT, kOnline, QK, false>(c);
 }
 
-// Bytes of shared memory the core takes at T (head dim 64) with q, k, v kept
-// in shared memory (smem_qkv) or in the workspace, interleaved or not.
-extern "C" int tapclip_attn_variant_smem_bytes(int T, int smem_qkv, int interleaved) {
-  if (smem_qkv) return static_cast<int>(CoreSmem<kVariantDh, CoreCfg<kOnline, false, false, true>>::bytes(T));
-  if (interleaved)
-    return static_cast<int>(CoreSmem<kVariantDh, CoreCfg<kNormalized, false, false, false, true>>::bytes(T));
-  return static_cast<int>(CoreSmem<kVariantDh, CoreCfg<>>::bytes(T));
+template <typename PT>
+cudaError_t online(const WalkCall& c) {
+  if (c.k2) return launch_k2_group<PT>(c);
+  if (c.resident) return launch_perhead<PT, kOnline>(c);
+  if constexpr (!kIsF32<PT>) {
+    if (c.qk1) return online_walk<PT, 1>(c);
+  }
+  return online_walk<PT, kF32Terms>(c);
 }
+
+cudaError_t launch_online_walk(const WalkCall& c) {
+  if (c.dtype == 0) return online<float>(c);
+  if (c.dtype == 1) return online<bf16>(c);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace attnv
+}  // namespace tapclip

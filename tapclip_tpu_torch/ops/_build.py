@@ -54,8 +54,6 @@ _SIGNATURES = {
     # R * 3W), ya (scratch: R * W elements of the dtype), B, T, W, n_heads,
     # valid, eps, dtype, stream
     "tapclip_attn_block": (P,) * 10 + (I,) * 5 + (F, I, P),
-    # a, w, bias, residual, out, M, N, K, dtype, stream
-    "tapclip_gemm_bias_residual": (P, P, P, P, P, I, I, I, I, P),
     # q, k, v, valid, eot, valid_all, eot_all, out, aux, B, H, T, Dh, with_aux,
     # causal, dtype, stream (valid / eot null: valid_all / eot_all in every row)
     "tapclip_attn_aux": (P, P, P, P, P, I, I, P, P, I, I, I, I, I, I, I, P),
@@ -118,15 +116,14 @@ _SIGNATURES = {
     # R * (H + W) elements of the dtype), part (f32 [chunks, R, W] or null),
     # R, W, H, eps, row_tile, erf3, ln1pass, chunks, dtype, stream
     "tapclip_fused_mlp_variant": (P,) * 10 + (I, I, I, F, I, I, I, I, I, P),
-    # x, gamma, beta, w_qkv, b_qkv, w_out, ws, attn, part, B, T, W, n_heads,
-    # valid, eps, form, sum_rounded, tail_split, smem_qkv, interleaved,
-    # ln1pass, qk_round, fold_q, mask, group, dtype, stream
-    "tapclip_attn_variant_online": (P,) * 9 + (I,) * 5 + (F,) + (I,) * 11 + (P,),
-    "tapclip_attn_variant_two_pass": (P,) * 9 + (I,) * 5 + (F,) + (I,) * 11 + (P,),
-    # T, smem_qkv, interleaved
-    "tapclip_attn_variant_smem_bytes": (I, I, I),
-    # part, groups, b_out, x, out, R, W, dtype, stream
-    "tapclip_attn_partials_reduce": (P, I, P, P, P, I, I, I, P),
+    # x, gamma, beta, w_qkv, b_qkv, w_out, b_out, out, qkv (K2's f32 workspace
+    # R * 3W, or null with smem_qkv), ya (scratch: R * W elements of the dtype,
+    # 2 R W with smem_qkv), part (f32 [n_heads / group, R, W] or null), B, T, W,
+    # n_heads, valid, eps, form, sum_rounded, tail_split, smem_qkv,
+    # interleaved, ln1pass, qk_round, fold_q, mask, group, dtype, stream
+    "tapclip_attn_variant": (P,) * 11 + (I,) * 5 + (F,) + (I,) * 11 + (P,),
+    # T, dtype -> the shared memory of perhead_qkv's block
+    "tapclip_attn_variant_smem_bytes": (I, I),
     # x, gamma1, beta1, w_qkv, b_qkv, w_out32 (f32), b_out, gamma2, beta2,
     # w_fc, b_fc, w_proj, b_proj, ws (f32 workspace 5 B T W), wsd (scratch:
     # B T (2W + H) elements of the dtype), out, B, T, W, n_heads, H, valid,

@@ -56,7 +56,7 @@ from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _r
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
 
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e: scores are exp2'd
-_LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_tile.cuh's kLn2Bf16)
+_LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_variants.cuh's kLn2Bf16)
 
 
 def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
@@ -452,22 +452,22 @@ def _fused_mha_bwd_cuda(qkv, g, n_heads, valid, causal):
 # make_interleaved_kernel: group_heads) or "softmax"
 # (scripts/attn_softmax_ab.py::make_kernel: qk_cast, fold_q, mask_mode in
 # {"full", "tail", "zerokv"}, group_heads, sum_mxu, tail_split).
-# ``group_heads`` is the FMA core's heads per block here (1 with no switch;
-# the TPU scripts count heads per 128-lane step, 2 at head dim 64): a
-# schedule switch, like tail_split.  The TPU switches with no counterpart on the card (swpipe, bB,
-# vmem_mb) are not taken: the drivers drop them.
+# ``group_heads`` is the walk's heads per block here (1 with no switch; the
+# TPU scripts count heads per 128-lane step, 2 at head dim 64): a schedule
+# switch, like tail_split.  The TPU switches with no counterpart on the card
+# (swpipe, bB, vmem_mb) are not taken: the drivers drop them.
 
 ATTN_VARIANT_FLAGS = {
     "variant": ("group_heads", "ln_1pass", "perhead_qkv", "softmax_opt"),
     "interleaved": ("group_heads",),
     "softmax": ("group_heads", "qk_cast", "fold_q", "mask_mode", "sum_mxu", "tail_split"),
 }
-_FORM_CODE = {"online": 0, "normalized": 1, "bf16": 2}  # attn_tile.cuh's AttnForm
+_FORM_CODE = {"online": 0, "normalized": 1, "bf16": 2}  # attn_variants.cuh's Form
 _MASK_CODE = {"full": 0, "tail": 1, "zerokv": 2}
 
 
 def attn_variant_switches(form, T, valid, n_heads, **flags):
-    """The kernel switches (``attn_core.cuh``) of one variant; raises on a flag
+    """The kernel switches (``attn_variants.cuh``) of one variant; raises on a flag
     the form does not take, and on ``mask_mode="tail"`` where a pad key lies
     before the last 64-key tile or the last 128-key boundary (the TPU
     kernel's precondition, ``attn_softmax_ab.py:87-89``)."""
@@ -558,12 +558,49 @@ def attn_block_variant_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_h
     return (out + x32).to(dt)
 
 
+# The card configurations (attn_variant_kernel) whose output is K2's bit for
+# bit: K2's own code.  (perhead_qkv's online walk takes K2's product terms in
+# K2's order and K2's walk arithmetic, and equals K2 in f32; its bf16 build
+# differs from K2's in 2 of 1.2M attention elements by a bf16 step at
+# ViT-B/16 batch 8, so it is not pinned.)
+ATTN_K2_EQUAL = ("K2", "K2 group")
+
+
+def attn_variant_kernel(sw, dtype) -> str:
+    """The card's configuration of a variant's switches ``sw`` (from
+    :func:`attn_variant_switches`) in ``dtype``, as ``tapclip_attn_variant``
+    picks it (``csrc/attn_variants.cu``): "K2" (K2 itself,
+    ``tapclip_attn_block``), "K2 group" (K2's launches around its tile function
+    walking ``group`` heads a block: K2's output bit for bit), or K2's
+    launches with the variant walk, "walk <softmax> qk<terms of q and k>" (and
+    " tail_split", " interleaved") or "perhead <softmax>".  qk_round and
+    sum_rounded round to f32 in f32, and mask "tail" selects where K2's walk
+    selects: none changes a value there.  Raises ValueError on a combination
+    the card does not take."""
+    f32 = dtype == torch.float32
+    qk1 = sw["qk_round"] and not f32
+    sum_rounded = sw["sum_rounded"] and not f32
+    zerokv = sw["mask"] == "zerokv"
+    softmax = sw["softmax"]
+    if softmax != "online" and (sum_rounded or sw["tail_split"] or sw["fold_q"] or zerokv):
+        raise ValueError(f"the {softmax} softmax takes no sum_mxu, tail_split, fold_q or zerokv")
+    if sw["smem_qkv"] and (softmax == "bf16" or qk1 or sw["fold_q"] or zerokv or sw["tail_split"]):
+        raise ValueError("perhead_qkv takes the online and normalized softmax with q and k in f32, and no "
+                         "fold_q, zerokv or tail_split")
+    if softmax == "online" and not (sum_rounded or sw["tail_split"] or sw["smem_qkv"] or sw["ln1pass"] or qk1
+                                    or sw["fold_q"] or zerokv):
+        return "K2" if sw["group"] == 1 else "K2 group"
+    if sw["smem_qkv"]:
+        return f"perhead {softmax}"
+    return (f"walk {softmax} qk{1 if qk1 else 3}" + (" tail_split" if sw["tail_split"] else "")
+            + (" interleaved" if sw["interleaved"] else ""))
+
+
 def attn_block_variant(x, ln_params, attn_params, n_heads, valid, *, eps=1e-5, form="variant", **flags):
-    """S3/S4 (forward only): K2's earlier FMA core in the variant's
-    configuration (``csrc/attn_variants_online.cu``, ``attn_variants_two_pass.cu``),
-    then K2's out-projection (``tapclip_gemm_bias_residual``, or for the interleaved form
-    the per-group partials reduced by ``tapclip_attn_partials_reduce``) on a
-    CUDA tensor; :func:`attn_block_variant_reference` on a CPU tensor."""
+    """S3/S4 (forward only): K2's four launches with the variant's switches
+    (``csrc/attn_variants.cu``, the configuration :func:`attn_variant_kernel`
+    names; every switch off is K2 itself) on a CUDA tensor;
+    :func:`attn_block_variant_reference` on a CPU tensor."""
     params = (ln_params["scale"], ln_params["bias"], attn_params["w_qkv"], attn_params["b_qkv"],
               attn_params["w_out"], attn_params["b_out"])
     _build.refuse_graph("attn_block_variant", x, *params)
@@ -574,13 +611,16 @@ def attn_block_variant(x, ln_params, attn_params, n_heads, valid, *, eps=1e-5, f
     Dh = _check_heads(T, W, n_heads, valid)
     if Dh != 64:
         raise ValueError(f"the attention variants take head dim 64 (ViT-B/16, ViT-L/14), got {Dh}")
+    attn_variant_kernel(sw, x.dtype)  # raises on what the card does not take
     lib = _build.library()
-    smem = lib.tapclip_attn_variant_smem_bytes(T, int(sw["smem_qkv"]), int(sw["interleaved"]))
-    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"perhead_qkv keeps q, k, v of T={T} in shared memory: {smem} bytes, past the "
-                         f"card's {limit} a block")
     dtype, f32 = x.dtype, torch.float32
+    code = _build.dtype_code(dtype)
+    if sw["smem_qkv"]:
+        smem = lib.tapclip_attn_variant_smem_bytes(T, code)
+        limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+        if smem > limit:
+            raise ValueError(f"perhead_qkv keeps k and v of T={T} in shared memory: {smem} bytes, past the "
+                             f"card's {limit} a block")
     ops = {
         "x": (x, dtype, (B, T, W)),
         "gamma": (params[0].to(f32), f32, (W,)),
@@ -593,34 +633,26 @@ def attn_block_variant(x, ln_params, attn_params, n_heads, valid, *, eps=1e-5, f
     for name, (t, dt, shape) in ops.items():
         _build.check_cuda_operand(name, t, dt, shape)
     t = {name: v[0] for name, v in ops.items()}
-    groups = n_heads // sw["group"]
-    ws = None if sw["smem_qkv"] else torch.empty((B, n_heads, 3, T, Dh), dtype=f32, device=x.device)
-    attn = torch.empty_like(x)
-    part = torch.empty((groups, B, T, W), dtype=f32, device=x.device) if sw["interleaved"] else None
+    R = B * T
+    # K2's f32 workspace; y then (perhead_qkv) the attention output; the
+    # interleaved form's partials, one a head group.
+    qkv = None if sw["smem_qkv"] else torch.empty((R, 3 * W), dtype=f32, device=x.device)
+    ya = torch.empty(((2 if sw["smem_qkv"] else 1) * R, W), dtype=dtype, device=x.device)
+    part = (torch.empty((n_heads // sw["group"], R, W), dtype=f32, device=x.device) if sw["interleaved"]
+            else None)
     out = torch.empty_like(x)
-    code = _build.dtype_code(dtype)
-    stream = _build.stream_handle(x.device)
-    launcher = "tapclip_attn_variant_online" if sw["softmax"] == "online" else "tapclip_attn_variant_two_pass"
 
     def ptr(tensor):
         return None if tensor is None else tensor.data_ptr()
 
-    err = getattr(lib, launcher)(
-        x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(),
-        t["b_qkv"].data_ptr(), t["w_out"].data_ptr(), ptr(ws), attn.data_ptr(), ptr(part),
-        B, T, W, n_heads, int(valid), float(eps), _FORM_CODE[sw["softmax"]], int(sw["sum_rounded"]),
-        int(sw["tail_split"]), int(sw["smem_qkv"]), int(sw["interleaved"]), int(sw["ln1pass"]),
-        int(sw["qk_round"]), int(sw["fold_q"]), _MASK_CODE[sw["mask"]], sw["group"], code, stream,
+    err = lib.tapclip_attn_variant(
+        x.data_ptr(), *(t[n].data_ptr() for n in ("gamma", "beta", "w_qkv", "b_qkv", "w_out", "b_out")),
+        out.data_ptr(), ptr(qkv), ya.data_ptr(), ptr(part), B, T, W, n_heads, int(valid), float(eps),
+        _FORM_CODE[sw["softmax"]], int(sw["sum_rounded"]), int(sw["tail_split"]), int(sw["smem_qkv"]),
+        int(sw["interleaved"]), int(sw["ln1pass"]), int(sw["qk_round"]), int(sw["fold_q"]), _MASK_CODE[sw["mask"]],
+        sw["group"], code, _build.stream_handle(x.device),
     )
-    _build.check(err, launcher)
-    if sw["interleaved"]:
-        err = lib.tapclip_attn_partials_reduce(part.data_ptr(), groups, t["b_out"].data_ptr(), x.data_ptr(),
-                                               out.data_ptr(), B * T, W, code, stream)
-        _build.check(err, "tapclip_attn_partials_reduce")
-    else:
-        err = lib.tapclip_gemm_bias_residual(attn.data_ptr(), t["w_out"].data_ptr(), t["b_out"].data_ptr(),
-                                             x.data_ptr(), out.data_ptr(), B * T, W, W, code, stream)
-        _build.check(err, "tapclip_gemm_bias_residual")
+    _build.check(err, "tapclip_attn_variant")
     attn_block_variant.launches += 1
     return out
 

@@ -8,7 +8,8 @@
   vision widths, from a seed;
 * :func:`ab`: an A/B table of variants against their parent: errors against
   the parent and against each variant's own plain version, CUDA-event times
-  taken in turns (parent, variant, variant, ..., repeated), the bound.
+  taken in turns (parent, variant, variant, ..., repeated), the bound;
+  :func:`k2_keys`: the attention variants that are K2's arithmetic.
 
 Timing needs a card; on a CPU tensor :func:`ab` runs the plain versions and
 reports the errors only (the tests use that).
@@ -80,6 +81,22 @@ def mma_bound_ms(flops: float, dtype: str) -> float:
     return 1e3 * flops * (6 if dtype == "float32" else 1) / PEAK_FLOPS["bfloat16"]
 
 
+def k2_keys(variants: dict, T: int, valid: int, heads: int, dtype) -> tuple:
+    """The keys of the attention variants (S3, S4: name -> (kernel, plain,
+    key) as :func:`ab` takes them) whose card configuration in ``dtype`` is
+    one of ``fused_mha.ATTN_K2_EQUAL``: the variants that must equal K2,
+    their parent, bit for bit."""
+    from tapclip_tpu_torch.ops.fused_mha import ATTN_K2_EQUAL, attn_variant_kernel, attn_variant_switches
+
+    keys = []
+    for _, _, key in variants.values():
+        flags = dict(key)
+        sw = attn_variant_switches(flags.pop("form"), T, valid, heads, **flags)
+        if attn_variant_kernel(sw, dtype) in ATTN_K2_EQUAL:
+            keys.append(key)
+    return tuple(keys)
+
+
 def vit_shape(model: str):
     """(T, valid, W, heads, H) of a preset's vision tower: T the token count
     padded to a multiple of 8, as the JAX scripts run it."""
@@ -123,22 +140,20 @@ def _errors(got, want) -> dict:
             "finite": bool(got.isfinite().all())}
 
 
-def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: int = 10, columns=None) -> dict:
+def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: int = 10) -> dict:
     """The A/B table.  ``parent``: (kernel, plain) callables of the production
     half-block(s).  ``variants``: name -> (kernel, plain, key), ``key`` the
     variant's port switches as sorted (name, value) pairs; variants with the
     same ``key`` run the same kernel, and each after the first is reported
     ``same_as`` the first (not run or timed again).  ``parent_keys`` are the
     keys of the variant configurations whose output is the parent's (its own
-    configuration, or one that changes only the schedule): such a variant
+    configuration, one that changes only the schedule, or switches that change
+    no value in the dtype): such a variant
     should equal the parent bit for bit (``bit_equal_parent``).
     ``work``: (bytes, flops) of one call; the table holds the bound and
     ``mma_bound_ms``.  Each variant kernel runs twice: ``repeats`` says
-    whether the second call equals the first bit for bit.  ``columns``: name -> (kernel,
-    plain) of other kernels of the same function, reported under
-    ``"columns"`` like a variant but apart from the variants (no flags, no
-    ``bit_equal_parent``).  On a CUDA tensor the kernels and their plain
-    versions are timed, the kernels in turns."""
+    whether the second call equals the first bit for bit.  On a CUDA tensor
+    the kernels and their plain versions are timed, the kernels in turns."""
     import torch
 
     p_kernel, p_plain = parent
@@ -160,11 +175,6 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
             if key in parent_keys:
                 v["bit_equal_parent"] = bool(torch.equal(got, want_parent))
             out["variants"][name] = v
-        columns = columns or {}
-        out["columns"] = {}
-        for name, (kernel, plain) in columns.items():
-            got = kernel()
-            out["columns"][name] = {"vs_parent": _errors(got, want_parent), "vs_plain": _errors(got, plain())}
         if not cuda:
             return out
         torch.cuda.synchronize()
@@ -172,9 +182,7 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
         timed = {name: variants[name] for name, v in out["variants"].items() if "same_as" not in v}
         for name in timed:
             out["variants"][name]["plain_ms"] = time_ms(timed[name][1], max(1, iters // 2), 1)
-        for name, (_, plain) in columns.items():
-            out["columns"][name]["plain_ms"] = time_ms(plain, max(1, iters // 2), 1)
-        kernels = {**{name: timed[name][0] for name in timed}, **{name: fn for name, (fn, _) in columns.items()}}
+        kernels = {name: timed[name][0] for name in timed}
         reps_ms = {"parent": [], **{name: [] for name in kernels}}
         for _ in range(reps):
             reps_ms["parent"].append(time_ms(p_kernel, iters, 1))
@@ -183,6 +191,5 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
     out["parent"].update(ms=statistics.median(reps_ms["parent"]), ms_reps=reps_ms["parent"])
     for name in kernels:
         ms = statistics.median(reps_ms[name])
-        table = out["columns"] if name in columns else out["variants"]
-        table[name].update(ms=ms, ms_reps=reps_ms[name], ratio=ms / out["parent"]["ms"])
+        out["variants"][name].update(ms=ms, ms_reps=reps_ms[name], ratio=ms / out["parent"]["ms"])
     return out

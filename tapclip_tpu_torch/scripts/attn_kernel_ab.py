@@ -3,28 +3,28 @@
     python3 -m tapclip_tpu_torch.scripts.attn_kernel_ab [--batch B] [--model NAME] [--reps N]
 
 Counterpart of ``scripts/attn_kernel_ab.py``: that script's two kernels, run
-by ``ops/fused_mha.py::attn_block_variant`` as configurations of K2's earlier
-FMA core (``csrc/attn_core.cuh``), against the parent, the variant launcher
-with no switch (``v0_default``'s configuration):
+by ``ops/fused_mha.py::attn_block_variant`` as K2's own launches with the
+switches (``csrc/attn_variants.cu``), against the parent, K2
+(``fused_attn_block``, ``csrc/attn_block.cu``):
 
 * ``make_variant_kernel`` (form "variant"): without ``perhead_qkv`` q, k and v
   are all rounded to the compute dtype; ``perhead_qkv`` keeps q, k f32 and
-  the block's q, k, v in shared memory instead of K2's f32 workspace (refused
-  where they do not fit: past T 256); ``softmax_opt`` False is the normalised
+  the block's k and v in shared memory instead of K2's f32 workspace (refused
+  where they do not fit: past T 320); ``softmax_opt`` False is the normalised
   softmax (exp, p / l before rounding: two passes over the keys), True K2's,
   "bf16" exp2 at bf16 width; ``ln_1pass``; ``group_heads``;
 * ``make_interleaved_kernel`` (form "interleaved"): per head group the
-  out-projection's partial sums in f32, reduced in group order by a second
-  launch.
+  out-projection's partial sums in f32 (a split of its depth), summed in
+  group order.
 
 ``group_heads`` counts heads per 128-lane step on the TPU (2 at head dim 64,
-its default) and heads per block in the FMA core here (1 with no switch), so
+its default) and heads per block of the walk here (1 with no switch), so
 the TPU's g becomes g * 64 / 128.  ``bB`` and ``vmem_mb`` have no
 counterpart: those variants are reported ``same_as`` the one they equal.
-K2 (``csrc/attn_block.cu``, the same function on the tensor cores since it
-left the FMA core) is timed in the same turns as a column of its own
-(``columns["k2"]``).  Prints the card's name and power limit, then one JSON
-line per dtype.
+A variant the card runs as K2's code (``softmax_opt`` True in f32, where
+rounding q and k to f32 changes nothing: ``fused_mha.ATTN_K2_EQUAL``) must
+equal the parent bit for bit.  Prints the card's name and power limit, then one JSON line per
+dtype.
 """
 
 from __future__ import annotations
@@ -64,7 +64,6 @@ def port_flags(runner: str, jax_kwargs: dict, n_heads: int) -> dict:
             "softmax_opt": jax_kwargs.get("softmax_opt", False)}
 
 
-
 def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: str = "cuda",
         seed: int = 0) -> dict:
     """The A/B table (see ``_bench_util.ab``) at one dtype."""
@@ -76,7 +75,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         attn_block_variant_reference,
         fused_attn_block,
     )
-    from tapclip_tpu_torch.scripts._bench_util import vit_shape
+    from tapclip_tpu_torch.scripts._bench_util import k2_keys, vit_shape
 
     _, valid, _, heads, _ = vit_shape(model)
     x, ln, attn, _, _ = vit_layer(B, model, dtype or torch.float32, device, seed)
@@ -87,11 +86,9 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         variants[name] = (lambda f=f: attn_block_variant(x, ln, attn, heads, valid, **f),
                           lambda f=f: attn_block_variant_reference(x, *p, heads, valid, **f),
                           tuple(sorted(f.items())))
-    return ab((lambda: attn_block_variant(x, ln, attn, heads, valid),
-               lambda: attn_block_variant_reference(x, *p, heads, valid)), variants,
-              parent_keys=(tuple(sorted(port_flags("run_variant", {}, heads).items())),), work=attn_work(x, valid),
-              reps=reps, columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
-                                         lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
+    return ab((lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
+               lambda: attn_block_reference(x, *p, heads, valid, 1e-5)), variants,
+              parent_keys=k2_keys(variants, x.shape[1], valid, heads, x.dtype), work=attn_work(x, valid), reps=reps)
 
 
 def main(argv=None) -> int:

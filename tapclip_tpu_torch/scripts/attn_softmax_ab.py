@@ -4,16 +4,16 @@
 
 Counterpart of ``scripts/attn_softmax_ab.py`` (whose default, ``vitl``, is
 ``--model ViT-L-14`` here): the variants of that script, run by
-``ops/fused_mha.py::attn_block_variant(form="softmax")`` as configurations of
-K2's earlier FMA core (``csrc/attn_core.cuh``), against the parent, the
-flags-off online kernel (``base``'s configuration):
+``ops/fused_mha.py::attn_block_variant(form="softmax")`` as K2's own
+launches with the switches (``csrc/attn_variants.cu``), against the parent,
+K2 (``fused_attn_block``, ``csrc/attn_block.cu``):
 
 * ``qk_cast``: q and k rounded to the compute dtype before the score product;
   ``fold_q``: q times scale * log2 e, the score not scaled again;
 * ``mask_mode`` "tail": the valid select in the last 64-key tile only
   (refused unless every pad key lies past that tile's start and the last
-  128-key boundary); "zerokv": pad rows of k and v zeroed, no select,
-  l -= n_pad * exp2(-m);
+  128-key boundary), which is where K2's walk selects; "zerokv": pad rows of
+  k and v zeroed, no select, l -= n_pad * exp2(-m);
 * ``sum_mxu``: l sums p after its rounding to the compute dtype;
 * ``tail_split``: keys before and from the last 128-key boundary summed
   apart and merged (the same function in another order);
@@ -21,12 +21,12 @@ flags-off online kernel (``base``'s configuration):
   heads a block); ``swpipe`` and ``bB`` have no counterpart (reported
   ``same_as``).
 
-``base`` (no switch) is the parent's configuration and must equal it bit for
-bit.  K2 (``csrc/attn_block.cu``, the same function on the tensor cores) is
-timed in the same turns as a column of its own (``columns["k2"]``).  In the
-JAX script ``sum_mxu`` reads the tail select whatever ``mask_mode``
-(v6b_full raises there); here it takes the mask it is given.  Prints the
-card's name and power limit, then one JSON line per dtype.
+``base`` (no switch) is K2 itself; it, ``tailsel``, ``group256`` and in f32
+every variant whose only numeric switches are ``qk_cast`` and ``sum_mxu``
+(rounding to f32 changes nothing) are K2's arithmetic and must equal the
+parent bit for bit.  In the JAX script ``sum_mxu`` reads the tail select
+whatever ``mask_mode`` (v6b_full raises there); here it takes the mask it is
+given.  Prints the card's name and power limit, then one JSON line per dtype.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         attn_block_variant_reference,
         fused_attn_block,
     )
-    from tapclip_tpu_torch.scripts._bench_util import vit_shape
+    from tapclip_tpu_torch.scripts._bench_util import k2_keys, vit_shape
 
     _, valid, _, heads, _ = vit_shape(model)
     x, ln, attn, _, _ = vit_layer(B, model, dtype or torch.float32, device, seed)
@@ -93,11 +93,9 @@ def run(B: int = 8, model: str = "ViT-B-16", reps: int = 5, dtype=None, device: 
         variants[name] = (lambda f=f: attn_block_variant(x, ln, attn, heads, valid, **f),
                           lambda f=f: attn_block_variant_reference(x, *p, heads, valid, **f),
                           tuple(sorted(f.items())))
-    return ab((lambda: attn_block_variant(x, ln, attn, heads, valid, form="softmax"),
-               lambda: attn_block_variant_reference(x, *p, heads, valid, form="softmax")), variants,
-              parent_keys=(tuple(sorted(port_flags({}, heads).items())),), work=attn_work(x, valid), reps=reps,
-              columns={"k2": (lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
-                              lambda: attn_block_reference(x, *p, heads, valid, 1e-5))})
+    return ab((lambda: fused_attn_block(x, ln, attn, heads, valid_len=valid),
+               lambda: attn_block_reference(x, *p, heads, valid, 1e-5)), variants,
+              parent_keys=k2_keys(variants, x.shape[1], valid, heads, x.dtype), work=attn_work(x, valid), reps=reps)
 
 
 def main(argv=None) -> int:

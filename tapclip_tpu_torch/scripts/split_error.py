@@ -55,6 +55,10 @@ and one in bf16, where p is rounded and q, k, v are bf16 values):
 rows (three terms an f32 operand, one in bf16, a rounded f32 add per 16-row
 step, the rows split in parts of whole stages summed in order), and
 :func:`emulated_dw_errors` holds it against float64 at ``DW_SHAPES``.
+:func:`emulate_attn_variant` emulates S3 and S4 (``csrc/attn_variants.cu``:
+K2's launches with the switches of the A/B variants) and
+:func:`emulated_attn_variant_errors` holds one variant against
+``attn_block_variant_reference``.
 :func:`emulate_int8_attn` emulates B14 (``csrc/int8_attn.cu``): its
 attention step on split q and k, p and v in three terms or (the stochastic
 mode in bf16) one, and the codes of the attention output from the row max
@@ -321,6 +325,108 @@ def emulated_attn_block_errors(B, T, W, n_heads, valid, dtype=torch.float32, f32
     got = emulate_attn_block(x, *params, n_heads, valid, f32_terms=f32_terms)
     want = attn_block_reference(x, *params, n_heads, valid, 1e-5)
     return {"out_rel": _rel(got, want), "out_abs": float((got.float() - want.float()).abs().max())}
+
+
+def emulate_attn_variant(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps=1e-5, *,
+                         form="variant", f32_terms=F32_TERMS, **flags):
+    """S3/S4 as the card computes them (``csrc/attn_variants.cu``: K2's
+    launches with the variant's switches), as :func:`emulate_attn_block`
+    computes K2: LayerNorm (``ln1pass``: one-pass statistics) rounded; the
+    QKV product on split operands, v rounded; q times Dh^-1/2 log2 e in f32
+    with ``fold_q``; pad rows of k and v zeroed with ``zerokv``; q . k^T on
+    ``f32_terms`` terms of q and k, or one (their rounding) where the variant
+    rounds them in bf16, the same in both passes of the two-pass forms; the
+    normalised softmax's p = exp(s - m) / l before p . v, the "bf16" form's p
+    = bf16(exp(bf16(bf16(s - m) bf16(ln 2)))) (one exact term), the online
+    form's exp2 with l over p or (``sum_mxu``) its rounding, ``zerokv``'s
+    l -= n_pad exp2(-m), ``tail_split``'s two online states over the key
+    tiles before and from (T / 128) 128 (as far as the walk goes: the tiles
+    that reach valid) merged; p . v on ``f32_terms`` terms of p and v in f32
+    and one in bf16; the out-projection on split operands, or (interleaved)
+    the f32 partials of each head group's rows of w_out summed in group
+    order, + b_out + x, one rounding of the result."""
+    from tapclip_tpu_torch.ops.fused_mha import _LN2_BF16, attn_variant_switches
+    from tapclip_tpu_torch.ops.fused_mlp import _ln_rows
+
+    dt = x.dtype
+    f32 = dt == torch.float32
+    nt = f32_terms if f32 else 1
+    B, T, W = x.shape
+    Dh = W // n_heads
+    sw = attn_variant_switches(form, T, valid, n_heads, **flags)
+    x32 = x.float()
+    y = (_ln_rows(x32, eps, sw["ln1pass"]) * gamma.float() + beta.float()).to(dt).float()
+    qkv = split_matmul(y, w_qkv.to(dt).float(), nt, nt) + b_qkv.float()
+    q, k, v = (_heads(t, n_heads) for t in qkv.split(W, dim=-1))
+    if sw["fold_q"]:
+        q = q * (Dh ** -0.5 * _LOG2E)
+    pad = torch.arange(T) >= valid
+    zerokv = sw["mask"] == "zerokv"
+    if zerokv:
+        k = k.masked_fill(pad[:, None], 0.0)
+        v = v.masked_fill(pad[:, None], 0.0)
+    v = v.to(dt).float()
+    nqk = 1 if sw["qk_round"] and not f32 else f32_terms
+    s = split_matmul(q, k.transpose(-1, -2), nqk, nqk)
+    neg = torch.full_like(s, -1e30)
+    if sw["softmax"] == "normalized":
+        s = torch.where(pad, neg, s * Dh ** -0.5)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = split_matmul(e / e.sum(dim=-1, keepdim=True), v, nt, nt)
+    else:
+        if not sw["fold_q"]:
+            s = s * (Dh ** -0.5 * _LOG2E)
+        if not zerokv:
+            s = torch.where(pad, neg, s)
+        if sw["softmax"] == "bf16":
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(((s - m).to(torch.bfloat16).float() * _LN2_BF16).to(torch.bfloat16).float())
+            p = p.to(torch.bfloat16).float()
+            o = split_matmul(p, v, 1, nt) / p.sum(dim=-1, keepdim=True)
+        else:
+            # The online states over [lo, hi) of the walked keys: (m, l, o).
+            def state(lo, hi):
+                m = s[..., lo:hi].amax(dim=-1, keepdim=True)
+                p = torch.exp2(s[..., lo:hi] - m)
+                l = (p.to(dt).float() if sw["sum_rounded"] else p).sum(dim=-1, keepdim=True)
+                return m, l, split_matmul(p, v[..., lo:hi, :], nt, nt)
+
+            end = T if zerokv else min(T, -(-valid // 64) * 64)
+            split0 = T // 128 * 128 if sw["tail_split"] else 0
+            parts = [state(lo, hi) for lo, hi in ((0, split0), (split0, end)) if hi > lo]
+            m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+            l = sum(pl * torch.exp2(pm - m) for pm, pl, _ in parts)
+            o = sum(po * torch.exp2(pm - m) for pm, _, po in parts)
+            if zerokv:
+                l = l - (T - valid) * torch.exp2(-m)
+            o = o / l
+    attn = _merge(o).to(dt).float()
+    w_o = w_out.to(dt).float()
+    if sw["interleaved"]:
+        gw = sw["group"] * Dh
+        acc = None
+        for g in range(n_heads // sw["group"]):
+            part = split_matmul(attn[..., g * gw:(g + 1) * gw], w_o[g * gw:(g + 1) * gw], nt, nt)
+            acc = part if acc is None else acc + part
+        return ((acc + b_out.float()) + x32).to(dt)
+    return (x32 + (split_matmul(attn, w_o, nt, nt) + b_out.float())).to(dt)
+
+
+def emulated_attn_variant_errors(B, T, W, n_heads, valid, dtype=torch.float32, f32_terms=F32_TERMS, seed=0, *,
+                                 form="variant", **flags) -> dict:
+    """One S3/S4 variant's emulated output against
+    ``attn_block_variant_reference`` on the same inputs (x in ``dtype``):
+    ``out_rel``, ``out_abs`` and ``tol_needed`` (what ``chip_smoke.py`` holds
+    at ``AB_TOL``)."""
+    from tapclip_tpu_torch.ops.fused_mha import attn_block_variant_reference
+
+    x, *params = attn_block_inputs(B, T, W, seed)
+    x = x.to(dtype)
+    got = emulate_attn_variant(x, *params, n_heads, valid, form=form, f32_terms=f32_terms, **flags).float()
+    want = attn_block_variant_reference(x, *params, n_heads, valid, form=form, **flags).float()
+    d = (got - want).abs()
+    return {"out_rel": _rel(got, want), "out_abs": float(d.max()),
+            "tol_needed": float((d / (1.0 + want.abs())).max())}
 
 
 def emulate_mlp_bwd(x, g, gamma, beta, w_fc, b_fc, w_proj, eps=1e-5, f32_terms=F32_TERMS):

@@ -1210,7 +1210,13 @@ def test_int8_gemm_kernel_tile_edges(cuda, M, K, N, off):
 # --- the A/B variants: S2 (K1's), S3/S4 (K2's), S1 (the fused layer) ---------------
 
 from tapclip_tpu_torch.ops.fused_layer import fused_layer, fused_layer_reference  # noqa: E402
-from tapclip_tpu_torch.ops.fused_mha import attn_block_variant, attn_block_variant_reference  # noqa: E402
+from tapclip_tpu_torch.ops.fused_mha import (  # noqa: E402
+    ATTN_K2_EQUAL,
+    attn_block_variant,
+    attn_block_variant_reference,
+    attn_variant_kernel,
+    attn_variant_switches,
+)
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_variant, fused_mlp_variant_reference  # noqa: E402
 from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, mlp_kernel_ab  # noqa: E402
 
@@ -1267,11 +1273,17 @@ def _attn_variant_cases():
     return [pytest.param(f, id=f"s3-{n}") for n, f in s3.items()] + [pytest.param(f, id=f"s4-{n}") for n, f in s4.items()]
 
 
-# Variants with the arithmetic of the FMA core's flags-off online kernel (K2's
-# until it moved to the tensor cores): their launchers equal that kernel bit
-# for bit.
-K2_EQUAL = [dict(form="softmax"), dict(form="softmax", mask_mode="tail"), dict(form="softmax", group_heads=2),
-            dict(form="variant", perhead_qkv=True, softmax_opt=True)]
+# Variants the card runs as K2's code (ops/fused_mha.py::ATTN_K2_EQUAL: "K2",
+# or "K2 group", its tile function over a head group): they equal K2
+# (fused_attn_block) bit for bit.  S4's flags-off kernel is K2 itself;
+# mask_mode "tail" selects where K2's walk selects; group_heads is the
+# schedule alone.  In f32 also the variants whose only numeric switches round
+# to the dtype (qk_cast, sum_mxu, S3's q and k with softmax_opt True):
+# rounding to f32 changes nothing.
+K2_EQUAL = [dict(form="softmax"), dict(form="softmax", mask_mode="tail"), dict(form="softmax", group_heads=2)]
+K2_EQUAL_F32 = [dict(form="softmax", qk_cast=True), dict(form="softmax", sum_mxu=True),
+                dict(form="softmax", qk_cast=True, mask_mode="tail", sum_mxu=True),
+                dict(form="variant", softmax_opt=True)]
 
 
 @pytest.mark.gpu
@@ -1291,12 +1303,17 @@ def test_attn_variant_kernels(cuda, dtype, tol, B, T, W, heads, valid, flags):
         assert attn_block_variant.launches == n + 1
         want = attn_block_variant_reference(x, *ln.values(), *attn.values(), heads, valid, **flags)
         again = attn_block_variant(x, ln, attn, heads, valid, **flags)
-        online = attn_block_variant(x, ln, attn, heads, valid, form="softmax")  # S4's flags-off kernel
+        k2 = fused_attn_block(x, ln, attn, heads, valid_len=valid)  # the parent
     _close(got, want, tol)
     torch.testing.assert_close(got, again, rtol=0, atol=0)  # no atomics: repeatable
+    rest = {k: v for k, v in flags.items() if k != "form"}
+    config = attn_variant_kernel(attn_variant_switches(flags["form"], T, valid, heads, **rest), dtype)
+    pinned = K2_EQUAL + (K2_EQUAL_F32 if dtype == torch.float32 else [])
     if any(flags == dict(attn_softmax_ab.port_flags({}, heads), **k) or
-           flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k) for k in K2_EQUAL):
-        torch.testing.assert_close(got, online, rtol=0, atol=0)
+           flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k) for k in pinned):
+        assert config in ATTN_K2_EQUAL, config
+    if config in ATTN_K2_EQUAL:
+        torch.testing.assert_close(got, k2, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
@@ -1325,10 +1342,16 @@ def test_variant_refusals(cuda):
     with torch.inference_mode():
         with pytest.raises(ValueError, match="tail"):  # pad key 120 lies before the last 64-key tile
             attn_block_variant(x, ln1, attn, 2, 120, form="softmax", mask_mode="tail")
-        big, bl, ba, _, _ = _layer_case(cuda, 1, 300, 128, 4)
-        with pytest.raises(ValueError, match="shared memory"):  # q, k, v of T 300 do not fit a block
-            attn_block_variant(big, bl, ba, 2, 300, perhead_qkv=True, softmax_opt=True)
-        attn_block_variant(big, bl, ba, 2, 300, softmax_opt=True)  # the workspace form runs there
+        big, bl, ba, _, _ = _layer_case(cuda, 1, 384, 128, 4)
+        with pytest.raises(ValueError, match="shared memory"):  # k and v of T 384 do not fit a block
+            attn_block_variant(big, bl, ba, 2, 384, perhead_qkv=True, softmax_opt=True)
+        attn_block_variant(big, bl, ba, 2, 384, softmax_opt=True)  # the workspace form runs there
+        fit, fl, fa, _, _ = _layer_case(cuda, 1, 320, 128, 5)  # the longest rows perhead_qkv holds
+        flags = dict(perhead_qkv=True, softmax_opt=True)
+        _close(attn_block_variant(fit, fl, fa, 2, 300, **flags),
+               attn_block_variant_reference(fit, *fl.values(), *fa.values(), 2, 300, **flags), 1e-4)
+        with pytest.raises(ValueError, match="perhead_qkv takes"):
+            attn_block_variant(x, ln1, attn, 2, 136, perhead_qkv=True, softmax_opt="bf16")
         with pytest.raises(ValueError, match="head dim 64"):
             attn_block_variant(x, ln1, attn, 4, 136, form="softmax")
         with pytest.raises(ValueError, match="head dim 64"):
