@@ -112,12 +112,14 @@ Run from the repository root:  python3 chip_smoke.py
     weights laid out once (B13's four, B14's five; B14 also its bound at
     the int8 and bf16 MMA rates); the 64-seed mean of each stochastic
     block at least INT8_MEAN_GAIN times closer than one draw to the
-    weight-only-quantized float block.  B13_BITS: B13 on the int8 tensor
-    cores against the walk it replaced (S5's flags-off kernel), bit for bit,
-    both modes and dtypes, at the image and pruned (8 x 96) shapes.
-16. S5 (the walk's erf3 / recipmul variants) against the walk as built
-    (INT8_VARIANT_TOL) and their plain versions, timed in turns with B13
-    beside them (equal to the walk bit for bit); S6 (the
+    weight-only-quantized float block.  B13_BITS: B13's output against
+    digests read from the one-launch __dp4a walk it replaced, both modes and
+    dtypes, at the image and pruned (8 x 96) shapes.
+16. S5 (B13's launches with the erf3 / recipmul switches) in f32 and bf16
+    against B13, its parent (INT8_VARIANT_TOL), and its plain versions
+    (INT8_TOL), timed in turns with B13 through the wrappers and as the
+    launches alone, and against S5_BITS (digests read from the walk's
+    variants, stochastic, both dtypes, both shapes); S6 (the
     int8 product) exactly against its float64 plain version at the probe's
     shape (51,200 x 768 x 3,072) and at B13's two products, timed beside
     gemm.cu in bf16, ``torch._int_mm`` and ``torch.matmul`` in bf16.
@@ -401,6 +403,37 @@ FEATURE_COS = 0.98
 # move a token across the keep boundary; the float tower's must agree
 # exactly).  Reading on the same card: at least 0.979 (2 of 96).
 INT8_KEEP_AGREE = 0.95
+# B13 and S5 must compute what the one-launch __dp4a walk they replaced
+# computed, bit for bit: sha256 (first 16 hex digits) of the output on
+# numpy-seeded inputs (``int8_digest``), read on an NVIDIA H100 80GB HBM3
+# (CUDA 12.8) from the walk itself.  B13_BITS: the flags-off walk,
+# stochastic and round to nearest; S5_BITS: its erf3, recipmul and both
+# variants (stochastic).  f32 and bf16, at the image and pruned shapes.
+INT8_BITS_CASES = {"image 8x200x768": (8, 200, 768), "pruned 8x96x768": (8, 96, 768)}
+B13_BITS = {
+    ("float32", "image 8x200x768", "stochastic"): "8c913bffae042f87",
+    ("float32", "image 8x200x768", "round-to-nearest"): "66947e655d7d0570",
+    ("float32", "pruned 8x96x768", "stochastic"): "3832de6fd320c93e",
+    ("float32", "pruned 8x96x768", "round-to-nearest"): "14ad70f7ed2553c6",
+    ("bfloat16", "image 8x200x768", "stochastic"): "bd554d64868b2041",
+    ("bfloat16", "image 8x200x768", "round-to-nearest"): "2e721ce47880fac7",
+    ("bfloat16", "pruned 8x96x768", "stochastic"): "7c5ebeb9c6e15878",
+    ("bfloat16", "pruned 8x96x768", "round-to-nearest"): "9162abaa2145d705",
+}
+S5_BITS = {
+    ("float32", "image 8x200x768", "erf3"): "e6a30f135cf95c4f",
+    ("float32", "image 8x200x768", "recipmul"): "23d5e41277b55b60",
+    ("float32", "image 8x200x768", "both"): "59107892337da71b",
+    ("float32", "pruned 8x96x768", "erf3"): "2d607926aaf19fb4",
+    ("float32", "pruned 8x96x768", "recipmul"): "1f7b4dbaa320a6aa",
+    ("float32", "pruned 8x96x768", "both"): "63e45655e72025f6",
+    ("bfloat16", "image 8x200x768", "erf3"): "46717f37f4bb3073",
+    ("bfloat16", "image 8x200x768", "recipmul"): "0d4a91f9c211a865",
+    ("bfloat16", "image 8x200x768", "both"): "ee55b90dbfd4a6fa",
+    ("bfloat16", "pruned 8x96x768", "erf3"): "aec8d14576755f6c",
+    ("bfloat16", "pruned 8x96x768", "recipmul"): "2effef75b68aa9c4",
+    ("bfloat16", "pruned 8x96x768", "both"): "c3f1f07b23024927",
+}
 
 # B7 (the packed-QKV core's backward) must repeat its bits from one build
 # to the next: sha256 (first 16 hex digits) of B7's dqkv on numpy-seeded
@@ -535,7 +568,7 @@ CASE_KEYS = ("shape", "dtype", "ms", "ms_dx_only", "launcher_ms", "launch_ms", "
              "library_ms", "chain_ms", "bound_ms", "bound_dx_only_ms", "fma_bound_ms", "mma_bound_ms",
              "mma_bound_dx_only_ms", "max_abs_err", "max_rel_err")
 # The sources whose kernels' ptxas report (registers, spills) is printed one by one:
-# the half-blocks' and B4's on the tensor cores, B7's and B6's, B13's (with S5's walk) and B14's,
+# the half-blocks' and B4's on the tensor cores, B7's and B6's, B13's (with S5's switches) and B14's,
 # S1's persistent layer and S2's interleaved steps on their tiles, and S3/S4's walks.
 PTXAS_SOURCES = ("fused_mlp.cu", "attn_block.cu", "mlp_bwd.cu", "attn_block_bwd.cu", "mha_bwd.cu", "mha.cu",
                  "int8_mlp.cu", "int8_attn.cu", "fused_layer.cu", "fused_mlp_variants.cu",
@@ -868,26 +901,12 @@ def b4_launch(x, g, ln, attn, nh, valid):
 def b13_launch(x, gamma, beta, q, deterministic):
     """B13's four launches alone through the C interface on weights laid out
     once and scratch allocated once (``bare_launch``)."""
-    import torch
+    from tapclip_tpu_torch.scripts.int8_mlp_ab import launch_args
 
-    from tapclip_tpu_torch.ops import _build
-    from tapclip_tpu_torch.ops.int8_mlp import k_major
+    args, keep = launch_args(x, gamma, beta, q, deterministic)
+    launch = bare_launch("tapclip_int8_mlp", args)
 
-    lib = _build.library()
-    W, H = x.shape[-1], q["w_fc"].shape[1]
-    R = x.numel() // W
-    Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
-    w = (k_major(q["w_fc"], Wp), k_major(q["w_proj"], Hp))
-    bufs = (torch.empty_like(x), torch.empty((R, H), device=x.device),
-            torch.empty((R, Wp), dtype=torch.int8, device=x.device),
-            torch.empty((R, Hp), dtype=torch.int8, device=x.device), torch.empty((3, R), device=x.device))
-    launch = bare_launch("tapclip_int8_mlp", (
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w[0].data_ptr(), q["s_fc"].data_ptr(),
-        q["b_fc"].data_ptr(), w[1].data_ptr(), q["s_proj"].data_ptr(), q["b_proj"].data_ptr(),
-        *(t.data_ptr() for t in bufs), R, W, H, 1e-5, 0, int(deterministic), _build.dtype_code(x.dtype),
-        _build.stream_handle(x.device)))
-
-    def run(_buffers=(w, bufs)):  # the buffers live as long as the closure
+    def run(_buffers=keep):  # the buffers live as long as the closure
         return launch()
 
     return run
@@ -2349,52 +2368,84 @@ def check_int8_kernels() -> dict:
     return results
 
 
-def check_int8_variants() -> dict:
-    """S5: B13's erf3 / recipmul variants against the base kernel (same draws)
-    and against their own plain versions, timed in turns, f32, ViT-B/16."""
-    from tapclip_tpu_torch.scripts.int8_mlp_ab import run
+def int8_digest(dtype: str, B: int, T: int, W: int, **flags) -> str:
+    """sha256 (first 16 hex digits) of B13's output (``flags`` none or
+    ``deterministic``) or S5's (``erf3`` / ``recipmul``) on numpy-seeded
+    inputs, H = 4 W."""
+    import torch
 
-    res = run(B=8, model="ViT-B-16", reps=3)
-    print(f"int8 variants: B13 on the tensor cores median {res['b13_median_ms']:.4g} ms beside the walk's "
-          f"{res['variants']['base']['median_ms']:.4g}, equal to it bit for bit: {res['b13_equals_base']}", flush=True)
-    require(res["b13_equals_base"], "B13 differs from the walk (S5's flags-off kernel)")
-    for name, v in res["variants"].items():
-        print(f"int8 variant {name} [{res['shape']} {res['dtype']}]: median {v['median_ms']:.4g} ms "
-              f"(x{v['ratio']:.3f} of base), plain {v['plain_ms']:.4g} ms, vs base {v['vs_base_rel_err']:.3e}, "
-              f"vs its plain version (update) {v['vs_plain_update_rel_err']:.3e}", flush=True)
-        require(v["vs_base_rel_err"] <= INT8_VARIANT_TOL,
-                f"int8 variant {name}: {v['vs_base_rel_err']:.3e} from the base > {INT8_VARIANT_TOL}")
-        require(v["vs_plain_update_rel_err"] <= INT8_TOL["float32"],
-                f"int8 variant {name}: {v['vs_plain_update_rel_err']:.3e} from its plain version")
-    return res
+    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_variant, quantize_mlp
+
+    rng = np.random.default_rng(B * T + W + 13)
+    H = 4 * W
+
+    def f(*shape, s=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(s)).cuda()
+
+    x = f(B, T, W).to(getattr(torch, dtype))
+    gamma, beta = 1.0 + f(W, s=0.1), f(W, s=0.1)
+    q = quantize_mlp({"w_fc": f(W, H, s=W ** -0.5), "b_fc": f(H, s=0.1), "w_proj": f(H, W, s=H ** -0.5),
+                      "b_proj": f(W, s=0.1)})
+    with torch.inference_mode():
+        if flags.get("erf3") or flags.get("recipmul"):
+            return _sha16(int8_mlp_variant(x, gamma, beta, q, **flags))
+        return _sha16(int8_mlp_cuda(x, gamma, beta, q, **flags))
+
+
+def check_int8_variants() -> dict:
+    """S5: the driver (``scripts/int8_mlp_ab.py``) at ViT-B/16, batch 8, f32
+    and bf16: each variant against B13, its parent (same draws), and against
+    its plain version, timed in turns through the wrappers and as the
+    launches alone; then S5_BITS."""
+    import torch
+
+    from tapclip_tpu_torch.scripts.int8_mlp_ab import VARIANTS, port_flags, run
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        res = run(B=8, model="ViT-B-16", reps=3, dtype=dtype)
+        dt = res["dtype"]
+        out[dt] = res
+        par, launch = res["parent"], res["launch_ms"]["ms"]
+        print(f"int8 variants [{res['shape']} {dt}]: parent B13 {par['ms']:.4g} ms through the wrapper, "
+              f"{launch['parent']:.4g} launches alone (plain {par['plain_ms']:.4g}), bound {res['bound_ms']:.4g} ms "
+              f"({res['bound_by']}), vs its plain version (update) {par['update_rel_err']:.3e}", flush=True)
+        require(par["update_rel_err"] <= INT8_TOL[dt], f"int8 variants {dt}: B13 {par['update_rel_err']:.3e} "
+                                                       f"from its plain version")
+        for name, v in res["variants"].items():
+            print(f"int8 variant {name} [{dt}]: {v['ms']:.4g} ms (x{v['ratio']:.3f} of B13), launches alone "
+                  f"{launch[name]:.4g} (x{launch[name] / launch['parent']:.3f}), plain {v['plain_ms']:.4g} ms, vs "
+                  f"B13 {v['vs_parent']['rel_err']:.3e}, vs its plain version (update) "
+                  f"{v['vs_plain']['update_rel_err']:.3e}"
+                  + (f", bit-equal to B13: {v['bit_equal_parent']}" if "bit_equal_parent" in v else "")
+                  + f", repeats: {v['repeats']}", flush=True)
+            require(v["vs_plain"]["finite"], f"int8 variant {name} {dt}: output is not finite")
+            require(v["vs_parent"]["rel_err"] <= INT8_VARIANT_TOL,
+                    f"int8 variant {name} {dt}: {v['vs_parent']['rel_err']:.3e} from B13 > {INT8_VARIANT_TOL}")
+            require(v["vs_plain"]["update_rel_err"] <= INT8_TOL[dt],
+                    f"int8 variant {name} {dt}: {v['vs_plain']['update_rel_err']:.3e} from its plain version")
+            require(v.get("bit_equal_parent", True), f"int8 variant {name} {dt}: differs from B13, whose output it is")
+            require(v["repeats"], f"int8 variant {name} {dt}: a second call differs")
+    bits = {}
+    for (dt, label, name), want in S5_BITS.items():
+        digest = int8_digest(dt, *INT8_BITS_CASES[label], **port_flags(VARIANTS[name]))
+        print(f"S5_BITS [{label} {dt} {name}]: {digest} (want {want})", flush=True)
+        require(digest == want, f"S5 {name}'s output changed at {label} {dt}: {digest} != {want}")
+        bits[f"{label} {dt} {name}"] = digest
+    out["bits"] = bits
+    return out
 
 
 def check_b13_bits() -> dict:
-    """B13_BITS: B13 on the int8 tensor cores against the walk it replaced
-    (S5's flags-off kernel), bit for bit, stochastic and round to nearest, f32
-    and bf16, at the image shape (8 x 200, W 768) and the pruned one (8 x 96,
-    ``--token-keep-ratio 0.5``)."""
-    import torch
-
-    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_cuda, int8_mlp_walk
-
-    gen = torch.Generator(device="cuda").manual_seed(11)
+    """B13_BITS: B13's output bit for bit as the __dp4a walk it replaced,
+    stochastic and round to nearest, f32 and bf16, at the image shape (8 x
+    200, W 768) and the pruned one (8 x 96, ``--token-keep-ratio 0.5``)."""
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
-        for label, (B, T, W) in (("image 8x200x768", (8, 200, 768)), ("pruned 8x96x768", (8, 96, 768))):
-            x, ln, _, _, qm, _ = _int8_case(gen, B, T, W, 12, dtype)
-            for det in (False, True):
-                mode = "round-to-nearest" if det else "stochastic"
-                with torch.inference_mode():
-                    got = int8_mlp_cuda(x, ln["scale"], ln["bias"], qm, deterministic=det)
-                    walk = int8_mlp_walk(x, ln["scale"], ln["bias"], qm, deterministic=det)
-                    torch.cuda.synchronize()
-                differ = int((got != walk).sum())
-                out[f"{label} {dname} {mode}"] = differ
-                print(f"B13_BITS [{label} H{4 * W} {dname} {mode}]: {differ} of {got.numel()} elements differ "
-                      f"from the walk", flush=True)
-                require(differ == 0, f"B13 {label} {dname} {mode}: {differ} elements differ from the walk")
+    for (dt, label, mode), want in B13_BITS.items():
+        digest = int8_digest(dt, *INT8_BITS_CASES[label], deterministic=mode == "round-to-nearest")
+        print(f"B13_BITS [{label} H{4 * INT8_BITS_CASES[label][2]} {dt} {mode}]: {digest} (want {want})", flush=True)
+        require(digest == want, f"B13's output changed at {label} {dt} {mode}: {digest} != {want}")
+        out[f"{label} {dt} {mode}"] = digest
     return out
 
 
@@ -4962,17 +5013,24 @@ def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, 
         if name == "int8_attn":
             out[-1].update(mma_bound_ms=c["mma_bound_ms"], bf16_mma_bound_ms=bf["mma_bound_ms"])
         if name == "int8_mlp":
-            out[-1].update(walk_ms=variants["variants"]["base"]["median_ms"],
-                           b13_in_turns_ms=variants["b13_median_ms"], elements_differing_from_walk=b13_bits)
-    base = main_case("int8_mlp", "float32", "stochastic")
+            out[-1].update(bits_equal_walk=b13_bits, in_turns_ms=variants["float32"]["parent"]["ms"],
+                           in_turns_launch_ms=variants["float32"]["launch_ms"]["ms"]["parent"])
     for vname, key in (("int8_mlp_erf3", "erf3"), ("int8_mlp_recipmul", "recipmul"),
                        ("int8_mlp_erf3_recipmul", "both")):
-        v = variants["variants"][key]
+        f32, bf16 = variants["float32"], variants["bfloat16"]
+        v, b = f32["variants"][key], bf16["variants"][key]
         out.append({"name": vname, "route": "cuda", **INT8_KERNELS[vname], "launches": launches["int8_mlp_variants"],
-                    "max_abs_err": v["max_abs_err"], "ms": v["median_ms"], "plain_ms": v["plain_ms"],
-                    "bound_ms": base["bound_ms"], "bound_by": base["bound_by"], "library_ms": None,
-                    "shape": variants["shape"], "base_ms": variants["variants"]["base"]["median_ms"],
-                    "vs_base_rel_err": v["vs_base_rel_err"]})
+                    "max_abs_err": v["vs_plain"]["max_abs_err"], "ms": v["ms"], "plain_ms": v["plain_ms"],
+                    "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": None,
+                    "shape": f32["shape"], "launch_ms": f32["launch_ms"]["ms"][key],
+                    "parent_ms": f32["parent"]["ms"], "parent_launch_ms": f32["launch_ms"]["ms"]["parent"],
+                    "ratio": v["ratio"], "vs_parent_rel_err": v["vs_parent"]["rel_err"],
+                    "update_rel_err": v["vs_plain"]["update_rel_err"],
+                    "bf16_ms": b["ms"], "bf16_launch_ms": bf16["launch_ms"]["ms"][key],
+                    "bf16_plain_ms": b["plain_ms"], "bf16_max_abs_err": b["vs_plain"]["max_abs_err"],
+                    "bf16_vs_parent_rel_err": b["vs_parent"]["rel_err"],
+                    "bf16_update_rel_err": b["vs_plain"]["update_rel_err"], "bf16_bound_ms": bf16["bound_ms"],
+                    "bits_equal_walk": {k: d for k, d in variants["bits"].items() if k.endswith(" " + key)}})
     p = gemm["probe"]
     out.append({"name": "int8_gemm", "route": "cuda", **INT8_KERNELS["int8_gemm"], "launches": launches["int8_gemm"],
                 "max_abs_err": max(p["max_abs_err_int32"], p["max_abs_err_f32"]), "ms": p["ms"],

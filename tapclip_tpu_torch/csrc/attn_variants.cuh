@@ -162,7 +162,10 @@ struct Rows {
     zero(o);
   }
 
-  // The online form over one key tile: s becomes p = exp2(s - m).
+  // The online form over one key tile: s becomes p = exp2(s - m).  l alpha
+  // and the row's first p are summed in one fma, as nvcc contracts them in
+  // K2's walk (attn_core_mma.cuh).  Written out: left to the compiler, the
+  // sum_rounded branch in bf16 kept them apart, one rounding of l off K2's.
   __device__ __forceinline__ void online(float (&s)[kTile / 8][4], const float (&mt)[2], bool sum_rounded) {
     float alpha[2];
 #pragma unroll
@@ -170,14 +173,14 @@ struct Rows {
       const float m_new = fmaxf(m[r], quad_max(mt[r]));  // finite: key 0 is below T
       alpha[r] = exp2f(m[r] - m_new);
       m[r] = m_new;
-      l[r] *= alpha[r];
     }
 #pragma unroll
     for (int n = 0; n < kTile / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += sum_rounded ? round_to<PT>(p) : p;
+        const float add = sum_rounded ? round_to<PT>(p) : p;
+        l[e >> 1] = n == 0 && (e & 1) == 0 ? __fmaf_rn(l[e >> 1], alpha[e >> 1], add) : l[e >> 1] + add;
         s[n][e] = p;
       }
 #pragma unroll

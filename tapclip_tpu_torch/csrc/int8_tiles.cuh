@@ -9,18 +9,22 @@
 //                      m16n8k32 s8), dequantized (acc t_row) s_col + b_col
 //                      into f32 rows: with kGeluMax B13's fc (exact GELU,
 //                      each row's |h| max by atomicMax on the non-negative
-//                      f32 bits, which no order of the blocks changes); with
-//                      kQkv B14's QKV product (the columns from `round_from`
-//                      on, the v third in the stochastic mode, rounded to
-//                      the compute dtype).
+//                      f32 bits, which no order of the blocks changes), with
+//                      kGeluErf3Max the same with the 3-term erf (S5's
+//                      erf3); with kQkv B14's QKV product (the columns from
+//                      `round_from` on, the v third in the stochastic mode,
+//                      rounded to the compute dtype).
 //   quant_rows_kernel  one block a row: the codes of a row and its scale
 //                      from that max (code_of: the draws of (seed, stream,
 //                      row, column), so no tiling moves a draw).
 //   proj_kernel        codes . W^T on the same tile, dequantized, + bias +
 //                      the residual with one rounding to the dtype.
 // The quantizer's stream (int8_common.cuh) is an argument of the row passes.
-// Every float step is the __dp4a walk's (int8_mlp.cu), in its order, and the
-// int32 sums and the row maxima are exact.
+// RECIP, a template parameter of the two row passes, is S5's recipmul
+// (int8_common.cuh::row_scale); it defaults to off, so B13's and B14's
+// instantiations are the kernels they were.  Every float step is the one
+// the plain version takes (ops/int8_mlp.py), in its order, and the int32 sums
+// and the row maxima are exact.
 #pragma once
 
 #include <stdint.h>
@@ -43,7 +47,7 @@ __device__ __forceinline__ float gelu(float v) {
 // The rows' LayerNorm, codes q [R, Wp] and scale t [R] of quantizer
 // `stream`; rmax := 0.  One warp a row; shared memory: kInt8Warps rows of W
 // floats.
-template <typename T, bool SR>
+template <typename T, bool SR, bool RECIP = false>
 __global__ void __launch_bounds__(kInt8Threads)
 ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
                 int8_t* __restrict__ q, float* __restrict__ t, float* __restrict__ rmax, int R, int W, int Wp,
@@ -55,7 +59,7 @@ ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const 
   float* yr = y_s + static_cast<size_t>(warp) * W;
   ln_row_warp<T, !SR>(x + static_cast<size_t>(row) * W, gamma, beta, W, eps, yr, lane);
   __syncwarp();
-  const float s = quantize_row_warp<SR, false>(yr, W, Wp, q + static_cast<size_t>(row) * Wp,
+  const float s = quantize_row_warp<SR, RECIP>(yr, W, Wp, q + static_cast<size_t>(row) * Wp,
                                                 row_key(seed, stream, row), lane);
   if (lane == 0) {
     t[row] = s;
@@ -64,8 +68,9 @@ ln_quant_kernel(const T* __restrict__ x, const float* __restrict__ gamma, const 
 }
 
 // The epilogues of dequant_kernel.
-constexpr int kGeluMax = 0;  // B13's fc: GELU, each row's |h| max into rmax
-constexpr int kQkv = 1;      // B14's QKV: columns from round_from on rounded to T
+constexpr int kGeluMax = 0;      // B13's fc: GELU, each row's |h| max into rmax
+constexpr int kQkv = 1;          // B14's QKV: columns from round_from on rounded to T
+constexpr int kGeluErf3Max = 2;  // S5's erf3: as kGeluMax with the 3-term erf
 
 // out = epi((a . bt^T) t_row s_col + b_col) [R, N] f32; a [R, Kp], bt [N, Kp]
 // K-major int8.
@@ -80,8 +85,8 @@ dequant_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, cons
   mma8::gemm_tile<BM, true>(a, bt, tile_smem, R, N, Kp, m0, n0, acc);
   auto epi = [&](int acc_v, float tr, int col) {
     const float v = dequant(acc_v, tr, s_col[col], b_col[col]);
-    if constexpr (EPI == kGeluMax) {
-      return gelu<false>(v);
+    if constexpr (EPI != kQkv) {
+      return gelu<EPI == kGeluErf3Max>(v);
     } else {
       return col >= round_from ? round_to<T>(v) : v;
     }
@@ -114,7 +119,7 @@ dequant_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, cons
           *reinterpret_cast<float2*>(hr) = make_float2(v0, v1);
         }
       }
-      if constexpr (EPI == kGeluMax) {
+      if constexpr (EPI != kQkv) {
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the quad's lanes share the row
         m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
         if (in && (threadIdx.x & 3) == 0) atomicMax(reinterpret_cast<int*>(rmax + row), __float_as_int(m));
@@ -126,13 +131,13 @@ dequant_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, cons
 // past N) from rmax, the rows' largest |v|, for quantizer `stream`; one block
 // a row, four columns a thread at a time (one 16-byte load of v where N % 4
 // == 0, one 4-byte store of codes).
-template <bool SR>
+template <bool SR, bool RECIP = false>
 __global__ void __launch_bounds__(kInt8Threads)
 quant_rows_kernel(const float* __restrict__ v, const float* __restrict__ rmax, int8_t* __restrict__ q,
                   float* __restrict__ t, int N, int Np, uint32_t seed, uint32_t stream) {
   const int row = blockIdx.x;
   float inv;
-  const float scale = row_scale<false>(rmax[row], inv);
+  const float scale = row_scale<RECIP>(rmax[row], inv);
   const uint32_t key = row_key(seed, stream, row);
   const float* vr = v + static_cast<size_t>(row) * N;
   uint32_t* qr = reinterpret_cast<uint32_t*>(q + static_cast<size_t>(row) * Np);
@@ -149,7 +154,7 @@ quant_rows_kernel(const float* __restrict__ v, const float* __restrict__ rmax, i
     uint32_t word = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int8_t code = c + e < N ? code_of<SR, false>(x[e], scale, inv, key, c + e) : 0;
+      const int8_t code = c + e < N ? code_of<SR, RECIP>(x[e], scale, inv, key, c + e) : 0;
       word |= static_cast<uint32_t>(static_cast<uint8_t>(code)) << (8 * e);
     }
     qr[c / 4] = word;
@@ -200,10 +205,10 @@ cudaError_t launch_tiles(Kernel kernel, int BM, int M, int N, cudaStream_t s, Ar
   return cudaGetLastError();
 }
 
-template <typename T, bool SR>
+template <typename T, bool SR, bool RECIP = false>
 cudaError_t launch_ln_quant(const T* x, const float* gamma, const float* beta, int8_t* q, float* t, float* rmax,
                             int R, int W, int Wp, float eps, uint32_t seed, uint32_t stream, cudaStream_t s) {
-  auto kernel = ln_quant_kernel<T, SR>;
+  auto kernel = ln_quant_kernel<T, SR, RECIP>;
   const size_t smem = static_cast<size_t>(kInt8Warps) * W * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -212,10 +217,10 @@ cudaError_t launch_ln_quant(const T* x, const float* gamma, const float* beta, i
   return cudaGetLastError();
 }
 
-template <bool SR>
+template <bool SR, bool RECIP = false>
 cudaError_t launch_quant_rows(const float* v, const float* rmax, int8_t* q, float* t, int R, int N, int Np,
                               uint32_t seed, uint32_t stream, cudaStream_t s) {
-  quant_rows_kernel<SR><<<R, kInt8Threads, 0, s>>>(v, rmax, q, t, N, Np, seed, stream);
+  quant_rows_kernel<SR, RECIP><<<R, kInt8Threads, 0, s>>>(v, rmax, q, t, N, Np, seed, stream);
   return cudaGetLastError();
 }
 

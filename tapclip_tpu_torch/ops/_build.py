@@ -97,11 +97,9 @@ _SIGNATURES = {
     # x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, h, yq, hq,
     # scales, R, W, H, eps, seed, deterministic, dtype, stream
     "tapclip_int8_mlp": (P,) * 14 + (I, I, I, F, U, I, I, P),
-    # x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, R, W, H,
-    # eps, seed, deterministic, variant, dtype, stream
-    "tapclip_int8_mlp_walk": (P, P, P, P, P, P, P, P, P, P, I, I, I, F, U, I, I, I, P),
-    # W, H
-    "tapclip_int8_mlp_walk_smem_bytes": (I, I),
+    # tapclip_int8_mlp's arguments with variant (bit 0 erf3, bit 1 recipmul)
+    # before dtype
+    "tapclip_int8_mlp_variant": (P,) * 14 + (I, I, I, F, U, I, I, I, P),
     # x, gamma, beta, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, out, qkv, a,
     # codes, scales, B, T, W, n_heads, valid, eps, seed, deterministic, dtype,
     # stream

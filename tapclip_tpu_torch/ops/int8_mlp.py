@@ -30,10 +30,10 @@ tensor.  The TPU wrapper sends the
 shapes its kernel rejects (``W % 128``, ``H % 128``, ``T % 8``, ``B*T % 32``)
 to the round-to-nearest model; the card's kernel takes every shape, so the
 port rounds stochastically wherever the stochastic mode is asked for
-(``ROADMAP.md`` §C).  The earlier one-launch ``__dp4a`` kernel stays as
-:func:`int8_mlp_walk`, whose compile-time variants ``erf3`` and
-``recipmul`` are the A/B variants of ``scripts/int8_mlp_ab.py`` (S5); the new
-kernels equal its flags-off form bit for bit.
+(``ROADMAP.md`` §C).  :func:`int8_mlp_variant` runs the A/B variants of
+``scripts/int8_mlp_ab.py`` (S5: ``erf3``, the 3-term erf in GELU;
+``recipmul``, the codes by ``v * (127 / amax)``) as B13's own launches with
+those switches, stochastic mode only.
 """
 
 from __future__ import annotations
@@ -216,17 +216,7 @@ def int8_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5,
 
 
 int8_mlp_block.launches = 0
-int8_mlp_block.variant_launches = 0  # S5 and its flags-off parent (the walk), off the serving path
-
-
-def pack_k4(w_q: torch.Tensor) -> torch.Tensor:
-    """int8 ``[K, N]`` -> int32 ``[pad16(K) / 4, N]``: word k of column j holds
-    rows 4k..4k+3 of column j (zeros past K), the kernels' weight layout."""
-    K, N = w_q.shape
-    Kp = -(-K // 16) * 16
-    if Kp != K:
-        w_q = torch.cat([w_q, w_q.new_zeros((Kp - K, N))])
-    return w_q.view(Kp // 4, 4, N).permute(0, 2, 1).contiguous().view(torch.int32)
+int8_mlp_block.variant_launches = 0  # S5 (int8_mlp_variant), off the serving path
 
 
 def _f32_operand(name, t, shape):
@@ -267,14 +257,40 @@ def _mlp_operands(x, gamma, beta, q):
     return x.numel() // W, W, H, f
 
 
-def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
-                  erf3=False, recipmul=False):
+def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False):
     """B13 on the card (four launches on the int8 tensor cores) on the
-    quantized weights ``q``; ``erf3`` / ``recipmul`` run S5's variants of
-    the walk (:func:`int8_mlp_walk`) instead."""
-    if erf3 or recipmul:
-        return int8_mlp_walk(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic,
-                             erf3=erf3, recipmul=recipmul)
+    quantized weights ``q``."""
+    out = _launch(x, gamma, beta, q, eps, seed, deterministic, None)
+    int8_mlp_block.launches += 1
+    return out
+
+
+def int8_mlp_variant(x, gamma, beta, q, *, erf3=False, recipmul=False, eps=1e-5, seed=0, deterministic=False):
+    """S5 (eval only) on the quantized weights ``q``: B13's launches with the
+    switches of ``scripts/int8_mlp_ab.py`` (``tapclip_int8_mlp_variant``;
+    none is B13 itself, the A/B's parent) on a CUDA tensor, the plain version
+    on a CPU tensor.  The switches are stochastic-mode kernels:
+    ``deterministic`` with one raises ValueError."""
+    if deterministic and (erf3 or recipmul):
+        raise ValueError("the erf3 / recipmul variants are stochastic-mode kernels")
+    _build.refuse_graph("int8_mlp_variant", x, gamma, beta)
+    if x.device.type == "cpu":
+        return int8_mlp_plain(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic, erf3=erf3,
+                              recipmul=recipmul)
+    out = _launch(x, gamma, beta, q, eps, seed, deterministic, variant_code(erf3, recipmul))
+    int8_mlp_block.variant_launches += 1
+    return out
+
+
+def variant_code(erf3: bool, recipmul: bool) -> int:
+    """``tapclip_int8_mlp_variant``'s ``variant``: bit 0 erf3, bit 1 recipmul."""
+    return int(erf3) | 2 * int(recipmul)
+
+
+def _launch(x, gamma, beta, q, eps, seed, deterministic, variant):
+    """B13's four launches (``variant`` None: ``tapclip_int8_mlp``; else S5's
+    entry with that :func:`variant_code`): the weights laid out K-major, the
+    scratch allocated."""
     R, W, H, f = _mlp_operands(x, gamma, beta, q)
     lib = _build.library()
     Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
@@ -285,38 +301,13 @@ def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False,
     yq = torch.empty((R, Wp), dtype=torch.int8, device=dev)
     hq = torch.empty((R, Hp), dtype=torch.int8, device=dev)
     scales = torch.empty((3, R), dtype=torch.float32, device=dev)  # t1, t2, max |h| of each row
-    err = lib.tapclip_int8_mlp(
-        x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_fc.data_ptr(), f["s_fc"].data_ptr(),
-        f["b_fc"].data_ptr(), w_proj.data_ptr(), f["s_proj"].data_ptr(), f["b_proj"].data_ptr(), out.data_ptr(),
-        h.data_ptr(), yq.data_ptr(), hq.data_ptr(), scales.data_ptr(), R, W, H, float(eps),
-        int(seed) & 0xFFFFFFFF, int(deterministic), _build.dtype_code(x.dtype), _build.stream_handle(dev),
-    )
-    _build.check(err, "tapclip_int8_mlp")
-    int8_mlp_block.launches += 1
-    return out
-
-
-def int8_mlp_walk(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False, erf3=False, recipmul=False):
-    """S5 and its parent on the card: the one-launch ``__dp4a`` walk (the
-    earlier B13), with none, one or both of the ``erf3`` / ``recipmul``
-    switches, on the quantized weights ``q``."""
-    if deterministic and (erf3 or recipmul):
-        raise ValueError("the erf3 / recipmul variants are stochastic-mode kernels")
-    R, W, H, f = _mlp_operands(x, gamma, beta, q)
-    lib = _build.library()
-    smem = lib.tapclip_int8_mlp_walk_smem_bytes(W, H)
-    if smem > 232448:
-        raise ValueError(f"int8_mlp walk keeps 8 hidden rows in shared memory: W={W}, H={H} "
-                         f"needs {smem} bytes, more than the 232,448 a block can use")
-    w_fc, w_proj = pack_k4(q["w_fc"]), pack_k4(q["w_proj"])
-    out = torch.empty_like(x)
-    err = lib.tapclip_int8_mlp_walk(
-        x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_fc.data_ptr(),
-        f["s_fc"].data_ptr(), f["b_fc"].data_ptr(), w_proj.data_ptr(), f["s_proj"].data_ptr(),
-        f["b_proj"].data_ptr(), out.data_ptr(), R, W, H, float(eps), int(seed) & 0xFFFFFFFF,
-        int(deterministic), int(erf3) | 2 * int(recipmul), _build.dtype_code(x.dtype),
-        _build.stream_handle(x.device),
-    )
-    _build.check(err, "tapclip_int8_mlp_walk")
-    int8_mlp_block.variant_launches += 1
+    args = (x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_fc.data_ptr(), f["s_fc"].data_ptr(),
+            f["b_fc"].data_ptr(), w_proj.data_ptr(), f["s_proj"].data_ptr(), f["b_proj"].data_ptr(), out.data_ptr(),
+            h.data_ptr(), yq.data_ptr(), hq.data_ptr(), scales.data_ptr(), R, W, H, float(eps),
+            int(seed) & 0xFFFFFFFF, int(deterministic))
+    tail = (_build.dtype_code(x.dtype), _build.stream_handle(dev))
+    if variant is None:
+        _build.check(lib.tapclip_int8_mlp(*args, *tail), "tapclip_int8_mlp")
+    else:
+        _build.check(lib.tapclip_int8_mlp_variant(*args, variant, *tail), "tapclip_int8_mlp_variant")
     return out

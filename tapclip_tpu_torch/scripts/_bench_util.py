@@ -3,7 +3,8 @@
 * :func:`card_line`: the card's name and power limit, as ``nvidia-smi`` gives them;
 * :func:`time_ms`: the mean CUDA-event time of a call;
 * :func:`bound`: the least time the card could take for a call's work;
-  :func:`mma_bound_ms`: the same operations as the tensor cores' bf16 MMAs;
+  :func:`mma_bound_ms`: the same operations as the tensor cores' bf16 MMAs
+  (or their int8 MMAs);
 * :func:`vit_layer`: random weights of one ViT layer at a model preset's
   vision widths, from a seed;
 * :func:`ab`: an A/B table of variants against their parent: errors against
@@ -21,9 +22,9 @@ import statistics
 import subprocess
 
 # The card's published peaks (H100 SXM data sheet, dense): memory 3.35 TB/s;
-# f32 outside the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s.
+# f32 outside the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s, int8 1,979 TOP/s.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def card_line() -> str:
@@ -77,7 +78,10 @@ def bound(n_bytes: int, flops: float, dtype: str) -> dict:
 
 def mma_bound_ms(flops: float, dtype: str) -> float:
     """The operations as the kernels' bf16 MMAs at the card's bf16 peak: six
-    a product of f32 operands (three bf16 terms each), one of bf16 ones."""
+    a product of f32 operands (three bf16 terms each), one of bf16 ones; int8
+    operations at the int8 peak."""
+    if dtype == "int8":
+        return 1e3 * flops / PEAK_FLOPS["int8"]
     return 1e3 * flops * (6 if dtype == "float32" else 1) / PEAK_FLOPS["bfloat16"]
 
 
@@ -129,18 +133,24 @@ def vit_layer(B: int, model: str, dtype, device: str, seed: int = 0):
     return x, ln(), attn, ln(), mlp
 
 
-def _errors(got, want) -> dict:
+def _errors(got, want, residual=None) -> dict:
     """Max abs error, norm-relative error, and the least atol = rtol that
-    ``torch.allclose`` would pass (max |d| / (1 + |want|))."""
+    ``torch.allclose`` would pass (max |d| / (1 + |want|)); with the
+    half-block's input ``residual``, also the norm-relative error of the
+    update, ||got - want|| / ||want - residual||."""
     got, want = got.float(), want.float()
     d = (got - want).abs()
-    return {"max_abs_err": float(d.max()),
-            "rel_err": float((got - want).norm() / want.norm().clamp_min(1e-30)),
-            "tol_needed": float((d / (1.0 + want.abs())).max()),
-            "finite": bool(got.isfinite().all())}
+    out = {"max_abs_err": float(d.max()),
+           "rel_err": float((got - want).norm() / want.norm().clamp_min(1e-30)),
+           "tol_needed": float((d / (1.0 + want.abs())).max()),
+           "finite": bool(got.isfinite().all())}
+    if residual is not None:
+        out["update_rel_err"] = float((got - want).norm() / (want - residual.float()).norm().clamp_min(1e-30))
+    return out
 
 
-def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: int = 10) -> dict:
+def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: int = 10, ops: str = None,
+       residual=None) -> dict:
     """The A/B table.  ``parent``: (kernel, plain) callables of the production
     half-block(s).  ``variants``: name -> (kernel, plain, key), ``key`` the
     variant's port switches as sorted (name, value) pairs; variants with the
@@ -151,9 +161,12 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
     no value in the dtype): such a variant
     should equal the parent bit for bit (``bit_equal_parent``).
     ``work``: (bytes, flops) of one call; the table holds the bound and
-    ``mma_bound_ms``.  Each variant kernel runs twice: ``repeats`` says
-    whether the second call equals the first bit for bit.  On a CUDA tensor
-    the kernels and their plain versions are timed, the kernels in turns."""
+    ``mma_bound_ms``, the operations at the peak of ``ops`` (default the
+    output's dtype; "int8" for the int8 products).  ``residual``: the
+    half-block's input, for the errors of the update.  Each variant kernel
+    runs twice: ``repeats`` says whether the second call equals the first
+    bit for bit.  On a CUDA tensor the kernels and their plain versions are
+    timed, the kernels in turns."""
     import torch
 
     p_kernel, p_plain = parent
@@ -161,8 +174,9 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
         want_parent = p_kernel()
         cuda = want_parent.is_cuda
         dt = str(want_parent.dtype).replace("torch.", "")
-        out = {"dtype": dt, "shape": "x".join(map(str, want_parent.shape)), **bound(*work, dt),
-               "mma_bound_ms": mma_bound_ms(work[1], dt), "parent": _errors(want_parent, p_plain()), "variants": {}}
+        out = {"dtype": dt, "shape": "x".join(map(str, want_parent.shape)), **bound(*work, ops or dt),
+               "mma_bound_ms": mma_bound_ms(work[1], ops or dt),
+               "parent": _errors(want_parent, p_plain(), residual), "variants": {}}
         first = {}
         for name, (kernel, plain, key) in variants.items():
             if key in first:
@@ -170,7 +184,8 @@ def ab(parent, variants: dict, *, parent_keys=(), work, reps: int = 5, iters: in
                 continue
             first[key] = name
             got = kernel()
-            v = {"flags": dict(key), "vs_parent": _errors(got, want_parent), "vs_plain": _errors(got, plain()),
+            v = {"flags": dict(key), "vs_parent": _errors(got, want_parent, residual),
+                 "vs_plain": _errors(got, plain(), residual),
                  "repeats": bool(torch.equal(got, kernel()))}
             if key in parent_keys:
                 v["bit_equal_parent"] = bool(torch.equal(got, want_parent))

@@ -6,9 +6,11 @@ Builds the kernels of each checkout (``ops/_build.py``, ``-Xptxas -v``) in a
 process of its own, both at once, each into a fresh temporary directory so
 that neither load is a cached one, and compares ptxas's report kernel by
 kernel: registers, spill stores and spill loads.  Kernel names are demangled
-(``c++filt``) and two templates that gained a defaulted parameter are read
+(``c++filt``) and the templates that gained a defaulted parameter are read
 under their earlier spellings (``gemm::Epi<T, T>`` as ``Epi<T>``,
-``ln_rows_kernel<T, false>`` as ``ln_rows_kernel<T>``).  Prints one JSON
+``ln_rows_kernel<T, false>`` as ``ln_rows_kernel<T>``, and the int8 row
+passes' ``ln_quant_kernel<T, SR, false>`` and ``quant_rows_kernel<SR,
+false>`` as ``<T, SR>`` and ``<SR>``).  Prints one JSON
 line: the counts of kernels alike, differing and only in one checkout, and
 each that differs.  A refactor that must leave the compiled kernels alone
 shows none differing.  Needs ``nvcc``, not a card.
@@ -38,6 +40,8 @@ with tempfile.TemporaryDirectory() as tmp:
 def _demangle(name: str) -> str:
     out = subprocess.run(["c++filt", name], capture_output=True, text=True, check=True).stdout.strip()
     out = re.sub(r"Epi<(float|__nv_bfloat16), \1>", r"Epi<\1>", out)
+    out = re.sub(r"(ln_quant_kernel<(?:float|__nv_bfloat16), (?:true|false)), false>", r"\1>", out)
+    out = re.sub(r"quant_rows_kernel<(true|false), false>", r"quant_rows_kernel<\1>", out)
     return re.sub(r"ln_rows_kernel<(float|__nv_bfloat16), false>", r"ln_rows_kernel<\1>", out)
 
 

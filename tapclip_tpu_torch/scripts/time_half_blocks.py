@@ -95,6 +95,21 @@ DW_SHAPES = {"image y^T.dqkv 768x2304x6400": (6400, 768, 2304), "image o^T.g 768
 DW_MAX_SPLIT = 8
 
 
+
+def pack_k4(w_q):
+    """int8 ``[K, N]`` -> int32 ``[K16 / 4, N]`` (K16: K rounded up to 16; word k
+    of column j holds rows 4k..4k+3 of column j, zeros past K): the weight
+    layout of the int8 kernels' ``__dp4a`` design, which a checkout from
+    before their tensor-core design takes."""
+    import torch
+
+    K, N = w_q.shape
+    Kp = -(-K // 16) * 16
+    if Kp != K:
+        w_q = torch.cat([w_q, w_q.new_zeros((Kp - K, N))])
+    return w_q.view(Kp // 4, 4, N).permute(0, 2, 1).contiguous().view(torch.int32)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
@@ -242,7 +257,7 @@ def main() -> int:
             out = torch.empty_like(x)
             vec = (q["s_fc"], q["b_fc"], q["s_proj"], q["b_proj"])
             if len(sig["tapclip_int8_mlp"]) == B13_WALK_ARGS:
-                w = (int8_mlp.pack_k4(q["w_fc"]), int8_mlp.pack_k4(q["w_proj"]))
+                w = (pack_k4(q["w_fc"]), pack_k4(q["w_proj"]))
                 scratch, tail = (), (0,)  # the variant switch
             else:
                 Wp, Hp = lib.tapclip_int8_gemm_kp(W), lib.tapclip_int8_gemm_kp(H)
@@ -273,7 +288,7 @@ def main() -> int:
                 bufs = (torch.empty((R, 3 * W), device="cuda"), torch.empty((R, W), device="cuda"),
                         torch.empty((R, Wp), dtype=torch.int8, device="cuda"), torch.empty((3, R), device="cuda"))
             else:  # the three launches of the __dp4a / FMA design, on packed weights
-                w = (int8_mlp.pack_k4(q["w_qkv"]), int8_mlp.pack_k4(q["w_out"]))
+                w = (pack_k4(q["w_qkv"]), pack_k4(q["w_out"]))
                 bufs = (torch.empty((R, 3 * W), device="cuda"), torch.empty((R, W), device="cuda"))
             for mode, det in (("stochastic", 0), ("round-to-nearest", 1)):
                 keep = (x, out, w, bufs, ln, q)

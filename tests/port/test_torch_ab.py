@@ -1,10 +1,16 @@
-"""The A/B variants S1-S4 of the TPU scripts against the port's plain versions, on the CPU.
+"""The A/B variants S1-S5 of the TPU scripts against the port's plain versions, on the CPU.
 
 The JAX side runs each script's own kernel (``scripts/fused_layer_ab.py``,
-``mlp_kernel_ab.py``, ``attn_kernel_ab.py``, ``attn_softmax_ab.py``) in
-Pallas interpret mode: the scripts call ``pl.pallas_call`` through the module
-attribute, so a fixture swaps in a wrapper that drops the TPU compiler
-parameters and passes ``interpret=True``.  Each call is compiled with
+``mlp_kernel_ab.py``, ``attn_kernel_ab.py``, ``attn_softmax_ab.py``,
+``int8_mlp_ab.py``) in Pallas interpret mode: the scripts call
+``pl.pallas_call`` through the module attribute, so a fixture swaps in a
+wrapper that drops the TPU compiler parameters and passes
+``interpret=True``.  S5's kernel draws its random bits with
+``pltpu.prng_random_bits``, which the port cannot reproduce: its S5 tests
+swap the script's ``pltpu`` for the real module's members with a
+``prng_seed`` / ``prng_random_bits`` that compute the port's counter hash
+(``ops/int8_mlp.py::rand_bits``) inside the kernel, the streams in call
+order, so both sides see the same draws.  Each call is compiled with
 ``xla_allow_excess_precision`` off, so XLA keeps every ``.astype(bf16)`` the
 source writes (left on, it drops the rounding of the "bf16" softmax's
 probabilities in f32 and moves that variant by 1.8e-3).  The port side runs
@@ -18,7 +24,9 @@ keys, and T 136 with 130, which crosses the 128-key boundary of ``tail`` and
 ``tail_split``.  Schedule arguments the test batch cannot take are fitted to
 it (``bB`` 2, ``row_tile`` all rows, ``group_heads`` at most the 2 heads,
 ``h_chunk`` scaled from H 3,072 to 512): they change only the order of the
-TPU kernel's work.
+TPU kernel's work.  S5 runs at W 128, H 512, B 2 x T 16 and B 3 x T 24 with
+``row_tile`` all rows (one grid step, so the kernel's row index is the
+global one the draws are keyed on).
 
 Tolerances: f32 atol = rtol = 1e-5 (as ``test_torch_ops.py``: summation
 order, erff against the TPU's erf polynomial), except the "bf16" softmax
@@ -35,9 +43,15 @@ out-projection spreads each such step over its row), while the parents'
 roundings differ in 9.4-52% (S1 run as K2 then K1, the normalised softmax
 run as K2's, sum_mxu's l from unrounded p, the "bf16" softmax's p at full
 width): ``test_bf16_rounding_switches_are_held`` checks that those fail.
+S5 reads at most 9.5e-7 in f32 (its erf3 switch left off, or turned on where
+it is off, reads 3.2e-3 to 5.5e-3, so f32 tells the switches apart) and at
+most 0.01% of the outputs differing in bf16, where the wrong erf3 switch
+moves 1.2-3.4% of them by a step and would pass: bf16 holds the path, not
+the switch.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -45,10 +59,12 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from scripts import attn_kernel_ab as jax_s3
 from scripts import attn_softmax_ab as jax_s4
 from scripts import fused_layer_ab as jax_s1
+from scripts import int8_mlp_ab as jax_s5
 from scripts import mlp_kernel_ab as jax_s2
 from tapclip_tpu_torch.ops.fused_layer import fused_layer, fused_layer_reference
 from tapclip_tpu_torch.ops.fused_mha import (
@@ -61,7 +77,8 @@ from tapclip_tpu_torch.ops.fused_mlp import (
     fused_mlp_variant,
     fused_mlp_variant_reference,
 )
-from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, fused_layer_ab, mlp_kernel_ab
+from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_variant, quantize_mlp
+from tapclip_tpu_torch.scripts import attn_kernel_ab, attn_softmax_ab, fused_layer_ab, int8_mlp_ab, mlp_kernel_ab
 from tapclip_tpu_torch.scripts.split_error import emulate_fused_layer
 
 # One intra-op thread per process: the suite runs several workers on the
@@ -235,6 +252,75 @@ def test_attn_softmax_variants_match_the_tpu_kernel(name, T, dt):
     _check(_s4_port(name, T, dt), _s4_jax(name, T, dt), dt)
 
 
+# --- S5: the int8 MLP's variants, the script's kernel fed the port's draws ----------
+
+S5_SHAPES = [(2, 16), (3, 24)]  # (B, T) at W 128, H 512
+
+
+def _s5_pltpu():
+    """The real ``pltpu`` with the port's random bits: ``prng_seed`` records
+    the seed and restarts the streams, each ``prng_random_bits`` draws the
+    next stream's ``mix32(mix32(mix32(mix32(seed ^ 0x9e3779b9) ^ stream) ^
+    row) ^ col)`` in uint32 arithmetic inside the kernel."""
+    u32 = jnp.uint32
+    state = {}
+
+    def mix32(h):
+        h = h ^ (h >> 16)
+        h = h * u32(0x7FEB352D)
+        h = h ^ (h >> 15)
+        h = h * u32(0x846CA68B)
+        return h ^ (h >> 16)
+
+    def prng_seed(seed):
+        state.update(seed=jnp.asarray(seed).astype(u32), stream=0)
+
+    def prng_random_bits(shape):
+        key = mix32(mix32(state["seed"] ^ u32(0x9E3779B9)) ^ u32(state["stream"]))
+        state["stream"] += 1
+        rows = mix32(key ^ jax.lax.broadcasted_iota(u32, shape, 0))
+        return jax.lax.bitcast_convert_type(mix32(rows ^ jax.lax.broadcasted_iota(u32, shape, 1)), jnp.int32)
+
+    members = {k: getattr(pltpu, k) for k in dir(pltpu) if not k.startswith("__")}
+    return types.SimpleNamespace(**{**members, "prng_seed": prng_seed, "prng_random_bits": prng_random_bits})
+
+
+@functools.lru_cache(maxsize=None)
+def _s5_weights(B, T):
+    rng = np.random.default_rng(100 * B + T)
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
+    return {"x": f(B, T, W), "ln": {"scale": 1.0 + f(W, scale=0.1), "bias": f(W, scale=0.1)},
+            "mlp": {"w_fc": f(W, HID, scale=W ** -0.5), "b_fc": f(HID, scale=0.1),
+                    "w_proj": f(HID, W, scale=HID ** -0.5), "b_proj": f(W, scale=0.1)}}
+
+
+@functools.lru_cache(maxsize=None)
+def _s5_jax(name, B, T, dt):
+    w = _tree(_s5_weights(B, T), jnp.asarray)
+    x = w["x"].astype(DTYPES[dt][0])
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_s5, "pltpu", _s5_pltpu())
+    try:
+        f = jax.jit(functools.partial(jax_s5.run_variant, row_tile=B * T, **int8_mlp_ab.VARIANTS[name]))
+        out = f.lower(w["ln"], w["mlp"], x).compile(
+            compiler_options={"xla_allow_excess_precision": False})(w["ln"], w["mlp"], x)
+    finally:
+        mp.undo()
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _s5_port(name, B, T, dt):
+    w = _tree(_s5_weights(B, T), torch.from_numpy)
+    return int8_mlp_variant(w["x"].to(DTYPES[dt][1]), w["ln"]["scale"], w["ln"]["bias"], quantize_mlp(w["mlp"]),
+                            **int8_mlp_ab.port_flags(int8_mlp_ab.VARIANTS[name]))
+
+
+@pytest.mark.parametrize("name,B,T,dt", [pytest.param(n, B, T, dt, id=f"{n}-B{B}xT{T}-{dt}")
+                                         for n in int8_mlp_ab.VARIANTS for B, T in S5_SHAPES for dt in DTYPES])
+def test_int8_mlp_variants_match_the_tpu_kernel(name, B, T, dt):
+    _check(_s5_port(name, B, T, dt), _s5_jax(name, B, T, dt), dt)
+
+
 @pytest.mark.parametrize("name,T,dt", _cases(fused_layer_ab.VARIANTS))
 def test_fused_layer_matches_the_tpu_kernel(name, T, dt):
     _check(_s1_port(T, dt), _s1_jax(name, T, dt), dt, frac_limit=BF16_FRAC_LAYER)
@@ -317,7 +403,7 @@ def test_flags_off_variants_are_the_production_plain_versions(T):
 
 
 @pytest.mark.parametrize("dt", list(DTYPES))
-@pytest.mark.parametrize("driver", [mlp_kernel_ab, attn_kernel_ab, attn_softmax_ab, fused_layer_ab],
+@pytest.mark.parametrize("driver", [mlp_kernel_ab, attn_kernel_ab, attn_softmax_ab, fused_layer_ab, int8_mlp_ab],
                          ids=lambda d: d.__name__.rsplit(".", 1)[1])
 def test_drivers_run_on_the_cpu(driver, dt):
     """Each card driver's run() on the CPU (plain versions, no timing) at
@@ -329,14 +415,15 @@ def test_drivers_run_on_the_cpu(driver, dt):
                     attn_kernel_ab: {"v4_bb8": "v0_default", "bb8_ph_smopt_v64": "bb8_ph_smopt",
                                      "bb8_ph_smopt_v32": "bb8_ph_smopt"},
                     attn_softmax_ab: {"swpipe": "base", "v10_swpipe": "v6_summxu"},
-                    fused_layer_ab: {"fused bB4": "fused bB8", "fused bB8 hc1536": "fused bB8"}}[driver]
+                    fused_layer_ab: {"fused bB4": "fused bB8", "fused bB8 hc1536": "fused bB8"},
+                    int8_mlp_ab: {}}[driver]
     for name, v in out["variants"].items():
         if "same_as" not in v:
             assert v["vs_plain"]["max_abs_err"] == 0.0 and v["vs_parent"]["finite"], name
     assert out["bound_ms"] > 0 and "ms" not in out["parent"]
 
 
-@pytest.mark.parametrize("driver", [mlp_kernel_ab, attn_kernel_ab, attn_softmax_ab, fused_layer_ab],
+@pytest.mark.parametrize("driver", [mlp_kernel_ab, attn_kernel_ab, attn_softmax_ab, fused_layer_ab, int8_mlp_ab],
                          ids=lambda d: d.__name__.rsplit(".", 1)[1])
 def test_drivers_need_a_card(driver, capsys):
     assert driver.main([]) == 1
@@ -360,6 +447,12 @@ def test_variant_wrappers_refuse():
         fused_mlp_variant(*mlp_args, row_tile=128, erf3=True)
     with pytest.raises(RuntimeError, match="eval only"):
         fused_mlp_variant(w["x"].clone().requires_grad_(), *mlp_args[1:])
+    q = quantize_mlp(w["mlp"])
+    for flags in (dict(erf3=True), dict(recipmul=True)):
+        with pytest.raises(ValueError, match="stochastic"):
+            int8_mlp_variant(w["x"], *w["ln2"].values(), q, deterministic=True, **flags)
+    with pytest.raises(RuntimeError, match="eval only"):
+        int8_mlp_variant(w["x"].clone().requires_grad_(), *w["ln2"].values(), q)
     with pytest.raises(RuntimeError, match="eval only"):
         fused_layer(w["x"].clone().requires_grad_(), w["ln1"], w["attn"], w["ln2"], w["mlp"], HEADS, 130)
     with torch.no_grad():

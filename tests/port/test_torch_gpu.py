@@ -51,9 +51,11 @@ bit against dx with every gradient.  B7 runs on B4's row and column kernels
 causal and not, T = 1, T off the tiles with valid < T and T at the routing
 limit, and against digests of its output (a repeatability pin: its MMAs sum
 in another order than the FMA core it replaced).  B13 runs its
-two products on the int8 tensor cores and equals the walk it replaced (S5's
-flags-off kernel) bit for bit, in both modes and dtypes, at row counts off
-its tiles and at H 4,096.  B14 runs its two products on the same int8 tiles
+two products on the int8 tensor cores and is held at row counts off its
+tiles and at H 4,096 in both modes and dtypes, bit for bit against a second
+call; its output, and S5's (B13's launches with the erf3 / recipmul
+switches), against digests read from the one-launch __dp4a walk they
+replaced (B13_BITS, S5_BITS).  B14 runs its two products on the same int8 tiles
 and its attention on K2's tensor-core walk, and is held at the image,
 pruned and ViT-L/14 shapes in both modes and dtypes, bit for bit against a
 second call.  The CoCoOp step (both text modes, CE and kg + ProGrad) runs
@@ -108,7 +110,13 @@ from tapclip_tpu_torch.ops.fused_mlp import (
 )
 from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_cuda, int8_attn_plain, quantize_attn
 from tapclip_tpu_torch.ops.int8_gemm import int8_gemm, int8_gemm_reference
-from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block, int8_mlp_cuda, int8_mlp_plain, int8_mlp_walk, quantize_mlp
+from tapclip_tpu_torch.ops.int8_mlp import (
+    int8_mlp_block,
+    int8_mlp_cuda,
+    int8_mlp_plain,
+    int8_mlp_variant,
+    quantize_mlp,
+)
 
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
 BWD_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
@@ -1063,11 +1071,9 @@ def test_int8_mlp_kernel(cuda, dtype, deterministic, B, T, W):
     _close_update("int8_mlp", got, want, x, INT8_TOL[dtype])
 
 
-# B13 on the int8 tensor cores equals the walk (S5's flags-off kernel, the
-# earlier B13) bit for bit: rows off the 64- and 128-row tiles (8 x 97,
-# 5 x 33, 3 x 7), widths off the 128-column tile and the 64-byte depth (40,
-# 64, 256: H 160, 256, 1,024), the image and pruned shapes and ViT-L/14's
-# H 4,096.
+# B13 at its tile edges: rows off the 64- and 128-row tiles (8 x 97, 5 x 33,
+# 3 x 7), widths off the 128-column tile and the 64-byte depth (40, 64, 256:
+# H 160, 256, 1,024), the image and pruned shapes and ViT-L/14's H 4,096.
 B13_EDGES = [(8, 200, 768), (8, 96, 768), (8, 97, 256), (5, 33, 64), (3, 7, 40), (1, 264, 1024)]
 B13_EDGE_IDS = ["image", "pruned-t96", "rows776", "rows165-w64", "rows21-w40", "vit-l-h4096"]
 
@@ -1076,35 +1082,101 @@ B13_EDGE_IDS = ["image", "pruned-t96", "rows776", "rows165-w64", "rows21-w40", "
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
 @pytest.mark.parametrize("B,T,W", B13_EDGES, ids=B13_EDGE_IDS)
-def test_int8_mlp_kernel_equals_the_walk_bit_for_bit(cuda, dtype, deterministic, B, T, W):
+def test_int8_mlp_kernel_tile_edges(cuda, dtype, deterministic, B, T, W):
     x, ln, mlp, _ = _int8_case(cuda, B, T, W, B * T + W + 1)
     x = x.to(dtype)
     q = quantize_mlp(mlp)
     with torch.inference_mode():
         n = (int8_mlp_block.launches, int8_mlp_block.variant_launches)
         got = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
-        walk = int8_mlp_walk(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
-        assert (int8_mlp_block.launches, int8_mlp_block.variant_launches) == (n[0] + 1, n[1] + 1)
+        assert (int8_mlp_block.launches, int8_mlp_block.variant_launches) == (n[0] + 1, n[1])
+        again = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
+        want = int8_mlp_plain(x, ln["scale"], ln["bias"], q, deterministic=deterministic)
     assert got.dtype == dtype and got.shape == x.shape
-    torch.testing.assert_close(got, walk, rtol=0, atol=0)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)  # the row max's atomicMax is order-free
+    _close_update("int8_mlp", got, want, x, INT8_TOL[dtype])
+
+
+# sha256 (first 16 hex digits) of B13's output and of S5's on numpy-seeded
+# inputs (``_int8_digest``, chip_smoke.py's ``int8_digest``), read on an NVIDIA
+# H100 80GB HBM3 (CUDA 12.8) from the one-launch __dp4a walk they replaced:
+# B13 and its erf3 / recipmul variants compute the walk's output bit for bit.
+B13_BITS = {
+    (torch.float32, 8, 200, 768, False): "8c913bffae042f87", (torch.float32, 8, 200, 768, True): "66947e655d7d0570",
+    (torch.float32, 8, 96, 768, False): "3832de6fd320c93e", (torch.float32, 8, 96, 768, True): "14ad70f7ed2553c6",
+    (torch.bfloat16, 8, 200, 768, False): "bd554d64868b2041", (torch.bfloat16, 8, 200, 768, True): "2e721ce47880fac7",
+    (torch.bfloat16, 8, 96, 768, False): "7c5ebeb9c6e15878", (torch.bfloat16, 8, 96, 768, True): "9162abaa2145d705",
+}
+S5_BITS = {
+    (torch.float32, 8, 200, 768, "erf3"): "e6a30f135cf95c4f",
+    (torch.float32, 8, 200, 768, "recipmul"): "23d5e41277b55b60",
+    (torch.float32, 8, 200, 768, "both"): "59107892337da71b",
+    (torch.float32, 8, 96, 768, "erf3"): "2d607926aaf19fb4",
+    (torch.float32, 8, 96, 768, "recipmul"): "1f7b4dbaa320a6aa",
+    (torch.float32, 8, 96, 768, "both"): "63e45655e72025f6",
+    (torch.bfloat16, 8, 200, 768, "erf3"): "46717f37f4bb3073",
+    (torch.bfloat16, 8, 200, 768, "recipmul"): "0d4a91f9c211a865",
+    (torch.bfloat16, 8, 200, 768, "both"): "ee55b90dbfd4a6fa",
+    (torch.bfloat16, 8, 96, 768, "erf3"): "aec8d14576755f6c",
+    (torch.bfloat16, 8, 96, 768, "recipmul"): "2effef75b68aa9c4",
+    (torch.bfloat16, 8, 96, 768, "both"): "c3f1f07b23024927",
+}
+S5_FLAGS = {"erf3": dict(erf3=True), "recipmul": dict(recipmul=True), "both": dict(erf3=True, recipmul=True)}
+
+
+def _int8_digest(dtype, B, T, W, **flags):
+    rng = np.random.default_rng(B * T + W + 13)
+    H = 4 * W
+
+    def f(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)).cuda()
+
+    x = f(B, T, W).to(dtype)
+    gamma, beta = 1.0 + f(W, scale=0.1), f(W, scale=0.1)
+    q = quantize_mlp({"w_fc": f(W, H, scale=W ** -0.5), "b_fc": f(H, scale=0.1), "w_proj": f(H, W, scale=H ** -0.5),
+                      "b_proj": f(W, scale=0.1)})
+    with torch.inference_mode():
+        if flags.get("erf3") or flags.get("recipmul"):
+            out = int8_mlp_variant(x, gamma, beta, q, **flags)
+        else:
+            out = int8_mlp_cuda(x, gamma, beta, q, **flags)
+    return hashlib.sha256(out.cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("variant", [dict(erf3=True), dict(recipmul=True), dict(erf3=True, recipmul=True)],
-                         ids=["erf3", "recipmul", "both"])
-def test_int8_mlp_variants(cuda, variant):
+@pytest.mark.parametrize("key", list(B13_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}-"
+                                                      f"{'nearest' if k[4] else 'stochastic'}" for k in B13_BITS])
+def test_int8_mlp_kernel_equals_the_walk_bit_for_bit(cuda, key):
+    assert _int8_digest(*key[:4], deterministic=key[4]) == B13_BITS[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", list(S5_BITS), ids=[f"{str(k[0])[6:]}-{k[1]}x{k[2]}x{k[3]}-{k[4]}" for k in S5_BITS])
+def test_int8_mlp_variants_equal_the_walk_bit_for_bit(cuda, key):
+    assert _int8_digest(*key[:4], **S5_FLAGS[key[4]]) == S5_BITS[key]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("variant", list(S5_FLAGS.values()), ids=list(S5_FLAGS))
+def test_int8_mlp_variants(cuda, variant, dtype):
     x, ln, mlp, _ = _int8_case(cuda, 2, 200, 256, 5)
+    x = x.to(dtype)
     q = quantize_mlp(mlp)
     with torch.inference_mode():
-        n = int8_mlp_block.variant_launches
-        got = int8_mlp_cuda(x, ln["scale"], ln["bias"], q, **variant)
-        assert int8_mlp_block.variant_launches == n + 1
+        n = (int8_mlp_block.launches, int8_mlp_block.variant_launches)
+        got = int8_mlp_variant(x, ln["scale"], ln["bias"], q, **variant)
+        assert (int8_mlp_block.launches, int8_mlp_block.variant_launches) == (n[0], n[1] + 1)
+        again = int8_mlp_variant(x, ln["scale"], ln["bias"], q, **variant)
         want = int8_mlp_plain(x, ln["scale"], ln["bias"], q, **variant)
-        base = int8_mlp_cuda(x, ln["scale"], ln["bias"], q)
+        b13 = int8_mlp_cuda(x, ln["scale"], ln["bias"], q)  # the parent
+        base = int8_mlp_variant(x, ln["scale"], ln["bias"], q)  # no switch: B13's own launches
         with pytest.raises(ValueError, match="stochastic"):
-            int8_mlp_cuda(x, ln["scale"], ln["bias"], q, deterministic=True, **variant)
-    _close_update("int8_mlp variant", got, want, x, INT8_TOL[torch.float32])
-    assert float((got - base).norm() / base.norm()) <= 1e-3
+            int8_mlp_variant(x, ln["scale"], ln["bias"], q, deterministic=True, **variant)
+    torch.testing.assert_close(got, again, rtol=0, atol=0)
+    torch.testing.assert_close(base, b13, rtol=0, atol=0)
+    _close_update("int8_mlp variant", got, want, x, INT8_TOL[dtype])
+    assert float((got.float() - b13.float()).norm() / b13.float().norm()) <= 1e-3
 
 
 @pytest.mark.gpu
@@ -1160,12 +1232,9 @@ def test_int8_blocks_refuse_a_graph_and_bad_operands(cuda):
             int8_attn_block(x, ln, attn, 3)
         with pytest.raises(TypeError):
             int8_mlp_block(x.half(), ln, mlp)
-        # The walk keeps 8 hidden rows in shared memory; B13 keeps them in
-        # device memory and takes the width.
+        # B13 keeps the hidden rows in device memory and takes the width.
         x2, ln2, mlp2, _ = _int8_case(cuda, 1, 8, 2048, 4)
         q2 = quantize_mlp(mlp2)
-        with pytest.raises(ValueError, match="shared memory"):
-            int8_mlp_walk(x2, ln2["scale"], ln2["bias"], q2)
         _close_update("int8_mlp W 2048", int8_mlp_block(x2, ln2, mlp2),
                       int8_mlp_plain(x2, ln2["scale"], ln2["bias"], q2), x2, INT8_TOL[torch.float32])
 
@@ -1284,6 +1353,10 @@ K2_EQUAL = [dict(form="softmax"), dict(form="softmax", mask_mode="tail"), dict(f
 K2_EQUAL_F32 = [dict(form="softmax", qk_cast=True), dict(form="softmax", sum_mxu=True),
                 dict(form="softmax", qk_cast=True, mask_mode="tail", sum_mxu=True),
                 dict(form="variant", softmax_opt=True)]
+# perhead_qkv with K2's softmax runs its own kernel ("perhead online") on
+# K2's arithmetic, l alpha summed with the first p in one fma as K2 sums them:
+# K2 bit for bit in both dtypes.
+K2_ARITHMETIC = [dict(form="variant", perhead_qkv=True, softmax_opt=True)]
 
 
 @pytest.mark.gpu
@@ -1312,7 +1385,8 @@ def test_attn_variant_kernels(cuda, dtype, tol, B, T, W, heads, valid, flags):
     if any(flags == dict(attn_softmax_ab.port_flags({}, heads), **k) or
            flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k) for k in pinned):
         assert config in ATTN_K2_EQUAL, config
-    if config in ATTN_K2_EQUAL:
+    if config in ATTN_K2_EQUAL or any(flags == dict(attn_kernel_ab.port_flags("run_variant", {}, heads), **k)
+                                      for k in K2_ARITHMETIC):
         torch.testing.assert_close(got, k2, rtol=0, atol=0)
 
 
