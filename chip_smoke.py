@@ -1,7 +1,7 @@
 """Drive the PyTorch + CUDA port's serving, training, text and int8 paths, the reference
 workloads from files, the offline inference and evaluation entry points, the few-shot
-adaptation zoo, CoCoOp, base-to-new, CLIPWrapper and the RN50 tower, and CLIP
-pretraining, once on one NVIDIA GPU.
+adaptation zoo, CoCoOp, base-to-new, CLIPWrapper and the RN50 tower, CLIP
+pretraining and the MoE towers, once on one NVIDIA GPU.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -262,6 +262,22 @@ Run from the repository root:  python3 chip_smoke.py
     and B5 at the image shape with every gradient beside dx alone; one
     traced step (profile_kernels.pretrain_trace: the device's busy share,
     each wrapper's device time, gemm.cu's dW products on their own).
+26. The MoE towers ("moe", ``models/moe.py``), ViT-B/16 with 8 experts a
+    block (capacity 32 vision, 16 text) and random weights: 3 InfoNCE +
+    load-balance steps at batch 32, f32 and bf16, on the kernels (exactly
+    24 B6 + 24 B7 a step, nothing else), on the plain path fed the kernel
+    path's routing (``moe.route`` patched; held at PRETRAIN_TOL) and on the
+    plain path routing on its own (held at ``_moe_free_tol`` of the flip
+    share it measures, the share at MOE_FLIP_CAP), with step 1's
+    gradients, the share of tokens routed to another expert and the share
+    dropped over capacity per tower, the losses falling and every router
+    moving; one cached-feature prompt-tuning step (exactly 23 B6 + 1 K3 +
+    12 B7) against the plain path with the routing replayed (TRAIN_TOL); the
+    MoE step's CUDA-event ms in f32 and bf16 in turns with the dense f32
+    step; ``pretrain_cli --moe-experts 8`` for one epoch (exact launches,
+    the ``.pt`` tree read back, refused under the dense config); one traced
+    step (profile_kernels.moe_trace: B6, B7, router, dispatch, combine,
+    expert products, AdamW, the device's busy share).
 
 Prints one JSON line of per-kernel results before the last line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1630,8 +1646,10 @@ def time_model(model, plain, images, label: str = "f32") -> dict:
 def check_text_kernels() -> dict:
     """B6, B7 and causal K3 against their plain versions, f32 and bf16: B6
     and B7 at the text shape (a 64-text batch at T 80, valid 77, causal), the
-    idiomatic step's shape (8 classes at T 77, causal) and the fused_split
-    image shape (8 x 200, valid 197, W 768, 12 heads); causal K3 at the
+    idiomatic step's shape (8 classes at T 77, causal), the fused_split
+    image shape (8 x 200, valid 197, W 768, 12 heads) and the MoE towers'
+    two shapes (32 x 200 x 768, 12 heads, valid 197; 32 x 80 x 512, 8 heads,
+    valid 77, causal); causal K3 at the
     idiomatic aux layer's shape (8 classes x 8 heads, T 77, one EOT column
     per class).  Each with CUDA-event times of the kernel, the plain version
     and one library call (SDPA; for B7 the backward of SDPA through
@@ -1660,7 +1678,9 @@ def check_text_kernels() -> dict:
     # The idiomatic step's shape first: the kernels line reports it.
     shapes = (("idiomatic 8x77x512 h8 causal", (8, 77, 512, 8, 77, True)),
               ("text 64x80x512 h8 valid77 causal", (64, 80, 512, 8, 77, True)),
-              ("image 8x200x768 h12 valid197", (8, 200, 768, 12, 197, False)))
+              ("image 8x200x768 h12 valid197", (8, 200, 768, 12, 197, False)),
+              ("moe image 32x200x768 h12 valid197", (32, 200, 768, 12, 197, False)),
+              ("moe text 32x80x512 h8 valid77 causal", (32, 80, 512, 8, 77, True)))
     for dtype, tol, bwd_tol in ((torch.float32, F32_TOL, BWD_F32_TOL),
                                 (torch.bfloat16, BF16_TOL, BWD_BF16_TOL)):
         dname = str(dtype).replace("torch.", "")
@@ -4959,6 +4979,395 @@ def pretrain_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- "moe": the MoE towers (models/moe.py), pretrained and prompt-tuned ------------------------
+
+MOE_DEVICE = "cuda"
+MOE_EXPERTS = 8  # C = 32 in the vision tower (197 tokens), 16 in the text tower (77): multiples of 8
+MOE_STEPS = 3
+MOE_TURNS = 6  # the MoE steps (f32, bf16) and the dense f32 step timed in turns; the first turn is warm-up
+MOE_KERNELS = ("fused_mha", "fused_mha_bwd", "fused_attention_aux")
+# The free-running comparison (each path routes on its own attention's
+# output): a token whose top two router logits lie within the paths'
+# rounding goes to another expert on one of them, and through the queue's
+# cumulative sum that can move which later tokens overflow; such a token's
+# MLP output is another expert's.  Read on an H100 80GB HBM3 at 700 W
+# (this phase): f32, no token of 315,648 flipped and the figures
+# equal the replayed ones; bf16, 4.14% of the vision tokens and 2.22% of
+# the text ones flipped, and the step moved by 1.35e-3 (loss), 5.8e-3
+# (step 1's gradient norm), 0.39 (its worst leaf, an expert's b_proj) and
+# 0.33 (the displacement): per unit of the larger flip share, the
+# coefficients below.  So the free-running figures are held at
+# MOE_FREE_HEADROOM times the coefficient times the flip share the run
+# measures, never below PRETRAIN_TOL, and the flip share at MOE_FLIP_CAP
+# (f32 1e-3, the predicted bound; bf16 0.1, 2.4 times the reading).
+MOE_FLIP_COEF = {"loss": 0.033, "grad_norm": 0.14, "grad": 9.5, "step": 8.0}
+MOE_FLIP_CAP = {"float32": 1e-3, "bfloat16": 0.1}
+MOE_FREE_HEADROOM = 3.0
+
+
+def _moe_free_tol(dtype: str, flip_share: float) -> dict:
+    """The free-running limits at a flip share (see MOE_FLIP_COEF)."""
+    return {k: max(PRETRAIN_TOL[dtype][k], MOE_FREE_HEADROOM * c * flip_share) for k, c in MOE_FLIP_COEF.items()}
+
+
+def _moe_counts(cfg, steps: int = 0, tune_steps: int = 0) -> dict:
+    """Exact launches (every other counter 0) of ``steps`` InfoNCE steps on
+    MoE towers, where every block runs B6 between torch's QKV and
+    out-projections, then the expert bank in torch, and B7 backward (at
+    ViT-B/16: 12 vision blocks at 32 x 200 x 768, 12 heads, valid 197, and
+    12 text blocks at 32 x 80 x 512, 8 heads, valid 77, causal: 24 B6 + 24
+    B7), and of ``tune_steps`` cached-feature prompt-tuning steps
+    (ref_compat, T 88, valid 82), whose attribution pass runs the text
+    blocks but the last on B6 and the last on K3, and whose encode pass runs
+    every block on B6, differentiated into ctx through B7 (23 B6 + 1 K3 + 12
+    B7).  No K1, K2, B4, B5 and no gemm.cu product: they fuse a dense MLP or
+    a LayerNorm'd attention block."""
+    blocks, text = cfg.vision_layers + cfg.text_layers, cfg.text_layers
+    want = {name: 0 for name in _counters()}
+    want.update(fused_mha=blocks * steps + (2 * text - 1) * tune_steps, fused_mha_bwd=blocks * steps + text * tune_steps,
+                fused_attention_aux=tune_steps)
+    return want
+
+
+def _recording(calls: list):
+    """A ``patched`` replacement of ``moe.route`` that records each call's
+    decisions: (width, valid_len, expert, pos, keep)."""
+    def fn(orig, x, p, capacity_factor=1.25, valid_len=None):
+        r = orig(x, p, capacity_factor, valid_len)
+        calls.append((x.shape[-1], valid_len, r.expert, r.pos, r.keep))
+        return r
+    return fn
+
+
+def _replaying(calls: list):
+    """A ``patched`` replacement of ``moe.route`` that takes the recorded
+    decisions in order (expert, position, keep) and its own router's
+    probabilities: the gate is its probability of the recorded expert, so
+    the router's gradient is its own."""
+    queue = list(calls)
+
+    def fn(orig, x, p, capacity_factor=1.25, valid_len=None):
+        r = orig(x, p, capacity_factor, valid_len)
+        require(bool(queue), "the replay ran out of recorded routing")
+        width, vl, expert, pos, keep = queue.pop(0)
+        require(width == x.shape[-1] and vl == valid_len, "the replay's calls are out of order")
+        return r._replace(expert=expert, pos=pos, keep=keep, gate=r.probs.gather(-1, expert[..., None])[..., 0])
+    return fn, queue
+
+
+def _route_shares(calls: list, cfg, other: list = None) -> dict:
+    """Per tower: the valid tokens routed, the share dropped over capacity
+    and, against ``other`` (the same calls on another path), the share
+    routed to another expert.  Each pass routes the vision blocks, then the
+    text blocks."""
+    import torch
+
+    out = {}
+    for i, (_, vl, expert, pos, keep) in enumerate(calls):
+        tower = "vision" if i % (cfg.vision_layers + cfg.text_layers) < cfg.vision_layers else "text"
+        T = expert.shape[1]
+        valid = (torch.arange(T, device=expert.device) < (vl or T))[None].expand_as(expert)
+        t = out.setdefault(tower, {"tokens": 0, "dropped": 0, "flipped": 0})
+        t["tokens"] += int(valid.sum())
+        t["dropped"] += int((valid & ~keep).sum())
+        if other is not None:
+            t["flipped"] += int((valid & (expert != other[i][2])).sum())
+    return {tower: {"tokens": t["tokens"], "drop_share": t["dropped"] / t["tokens"],
+                    **({"flip_share": t["flipped"] / t["tokens"]} if other is not None else {})}
+            for tower, t in out.items()}
+
+
+def _moe_grads(params, cfg, images, ids):
+    """(loss, {path: gradient}) of InfoNCE + the load-balance term of one
+    batch over every leaf of ``params``."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.models import clip as clip_model
+
+    leaves = P.set_trainable(params)
+    x = torch.as_tensor(images, device=params["logit_scale"].device)
+    aux = []
+    total = P.pair_loss("infonce", params, clip_model.encode_image(params, cfg, x, moe_loss_out=aux),
+                        clip_model.encode_text(params, cfg, ids, moe_loss_out=aux))
+    total = total + cfg.moe_aux_weight * sum(aux)
+    gs = torch.autograd.grad(total, [t for _, t in leaves])
+    return float(total.detach()), {p: g.float() for (p, _), g in zip(leaves, gs)}
+
+
+def _moe_main_steps(kparams, cfg, card: str) -> dict:
+    """Three InfoNCE + load-balance steps at batch 32 on MoE towers: on the
+    kernels, on the plain path with the kernel path's routing replayed (held
+    at PRETRAIN_TOL, as the dense step), and on the plain path routing on
+    its own (held at ``_moe_free_tol`` of the flip share); step 1's
+    gradients likewise; exact
+    launches; the flip and drop shares per tower."""
+    import torch
+
+    from tapclip_tpu_torch.models import moe
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    plain_cfg = cfg.replace(attn_impl="xla")
+    tol = PRETRAIN_TOL[cfg.dtype]
+    batches = [_pretrain_batch(cfg, PRETRAIN_BATCH, 70 + i) for i in range(MOE_STEPS)]
+    recorded = []
+    with patched(moe, "route", _recording(recorded)):
+        kl, kg = _moe_grads(_tree_copy(kparams), cfg, *batches[0])
+    replay, left = _replaying(recorded)
+    with patched(moe, "route", replay):
+        pl, pg = _moe_grads(_tree_copy(kparams), plain_cfg, *batches[0])
+    require(not left, f"moe {cfg.dtype}: {len(left)} recorded routings not replayed")
+    fl, fg = _moe_grads(_tree_copy(kparams), plain_cfg, *batches[0])
+    grad_err = {"replayed": _grad_errors(kg, pg), "free": _grad_errors(kg, fg)}
+    del kg, pg, fg
+    runs, calls = {}, {}
+    for path, c in (("kernel", cfg), ("replayed", plain_cfg), ("free", plain_cfg)):
+        calls[path] = []
+        if path == "replayed":
+            fn, left = _replaying(calls["kernel"])
+        else:
+            fn = _recording(calls[path])
+        tree = _tree_copy(kparams)
+        with patched(moe, "route", fn):
+            runs[path] = _run_steps(c, tree, batches) + (tree,)
+        if path == "replayed":
+            require(not left, f"moe {cfg.dtype}: {len(left)} recorded routings not replayed")
+    (kls, kms, kc, k1) = runs["kernel"]
+    errs = {}
+    for path, l1 in (("replayed", pl), ("free", fl)):
+        ls, _, counts, t1 = runs[path]
+        require(all(n == 0 for n in counts.values()), f"moe {cfg.dtype} {path}: the plain path launched {counts}")
+        norm_err, leaf_err, leaf = grad_err[path]
+        step_err, apart, worst = _displacement(k1, kparams, t1, kparams, PRETRAIN_LR, MOE_STEPS)
+        errs[path] = {"loss": max(abs(a - b) / abs(b) for a, b in zip([kl] + kls, [l1] + ls)),
+                      "grad_norm": norm_err, "grad": leaf_err, "grad_leaf": leaf, "step": step_err,
+                      "apart": apart, "largest": worst, "losses": ls}
+    _expect(f"moe {cfg.dtype} steps", kc, _moe_counts(cfg, steps=MOE_STEPS))
+    require(np.isfinite(kls).all() and kls[-1] < kls[0], f"moe {cfg.dtype}: losses {kls}")
+    routers = [(path, t) for path, t in named_leaves(k1) if path.endswith("router/w")]
+    start = dict(named_leaves(kparams))
+    require(len(routers) == cfg.vision_layers + cfg.text_layers
+            and all(not torch.equal(t.detach(), start[path]) for path, t in routers),
+            f"moe {cfg.dtype}: a router did not move")
+    shares = _route_shares(calls["kernel"], cfg, calls["free"])
+    flip = max(t["flip_share"] for t in shares.values())
+    free_tol = _moe_free_tol(cfg.dtype, flip)
+    r, f = errs["replayed"], errs["free"]
+    print(f"moe {cfg.dtype}: {MOE_STEPS} InfoNCE + load-balance steps at batch {PRETRAIN_BATCH}, {MOE_EXPERTS} experts "
+          f"a block (every leaf trained, AdamW lr {PRETRAIN_LR}): loss kernel {[round(v, 5) for v in kls]}, plain "
+          f"with the kernel's routing {[round(v, 5) for v in r['losses']]}, plain routing on its own "
+          f"{[round(v, 5) for v in f['losses']]}; routing replayed: loss rel err {r['loss']:.2e} (tol {tol['loss']}), "
+          f"step-1 gradient norm {r['grad_norm']:.2e} (tol {tol['grad_norm']}), worst leaf {r['grad_leaf']} "
+          f"{r['grad']:.2e} (tol {tol['grad']}), displacement {r['step']:.2e} (tol {tol['step']}), entries apart "
+          f"{r['apart']:.2e} (tol {PRETRAIN_APART}); free-running: loss {f['loss']:.2e} (tol {free_tol['loss']}), "
+          f"gradient norm {f['grad_norm']:.2e} (tol {free_tol['grad_norm']}), worst leaf {f['grad_leaf']} "
+          f"{f['grad']:.2e} (tol {free_tol['grad']:.3g}), displacement {f['step']:.2e} (tol {free_tol['step']:.3g}), "
+          f"entries apart {f['apart']:.2e} (tol {PRETRAIN_APART}); per tower tokens routed, share dropped over capacity, share flipped "
+          f"(kernel vs free plain) {shares}; ms per step kernel {[round(v, 1) for v in kms]}; launches per step "
+          f"{ {n: kc[n] // MOE_STEPS for n in MOE_KERNELS} } ({card})", flush=True)
+    require(r["loss"] <= tol["loss"] and r["grad_norm"] <= tol["grad_norm"] and r["grad"] <= tol["grad"]
+            and r["step"] <= tol["step"] and r["apart"] <= PRETRAIN_APART,
+            f"moe {cfg.dtype}, routing replayed: loss {r['loss']:.3e}, grad norm {r['grad_norm']:.3e}, leaf "
+            f"{r['grad_leaf']} {r['grad']:.3e}, displacement {r['step']:.3e}, entries apart {r['apart']:.2e}")
+    require(flip <= MOE_FLIP_CAP[cfg.dtype] and all(f[k] <= free_tol[k] for k in free_tol)
+            and f["apart"] <= PRETRAIN_APART,
+            f"moe {cfg.dtype}, free-running: flip share {flip:.3e} (cap {MOE_FLIP_CAP[cfg.dtype]}), "
+            f"{ {k: f[k] for k in free_tol} } against {free_tol}, entries apart {f['apart']:.2e}")
+    return {"launches": kc, "errors": {p: {k: v for k, v in e.items() if k != "losses"} for p, e in errs.items()},
+            "shares": shares, "ms": kms, "losses": kls}
+
+
+def _moe_cli(card: str, tmp: str) -> dict:
+    """``pretrain_cli.main --moe-experts 8`` for one epoch over 64 JPEGs at
+    batch 32: exact launches, the ``.pt`` tree read back equal to the
+    trained one, and refused under the dense config."""
+    import os
+
+    import torch
+
+    from tapclip_tpu_torch import pretrain_cli
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.pretrain import named_leaves
+    from tapclip_tpu_torch.utils.checkpoint import load_clip_tree
+
+    dense = MODEL_PRESETS[PRETRAIN_MODEL]
+    cfg = dense.replace(moe_experts=MOE_EXPERTS)
+    classes = CLASSES + ["Mug"]
+    root = os.path.join(tmp, "moe_tree")
+    _write_tree(root, ["all"], classes, PRETRAIN_CLI_IMAGES // len(classes))
+    args = ["--model", PRETRAIN_MODEL, "--device", MOE_DEVICE, "--batch-size", str(PRETRAIN_BATCH), "--lr",
+            str(PRETRAIN_LR), "--weight-decay", str(PRETRAIN_WD), "--moe-experts", str(MOE_EXPERTS), "--data-root",
+            os.path.join(root, "all"), "--epochs", "1", "--output-root", os.path.join(tmp, "moe_cli")]
+    torch.cuda.synchronize()
+    reset_counts()
+    out, ms = _sync_ms(lambda: pretrain_cli.main(args))
+    counts = read_counts()
+    steps = PRETRAIN_CLI_IMAGES // PRETRAIN_BATCH
+    _expect("pretrain_cli --moe-experts", counts, _moe_counts(cfg, steps=steps))
+    require(len(out["loss_history"]) == 1 and np.isfinite(out["loss_history"][0]), f"moe cli: {out['loss_history']}")
+    t0 = time.perf_counter()
+    loaded = load_clip_tree(out["ckpt"], cfg, device=MOE_DEVICE)
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b.detach()) for (_, a), (_, b) in zip(named_leaves(loaded),
+                                                                      named_leaves(out["params"])))
+    require(same and "moe" in loaded["visual"]["blocks"][0], "moe cli: the saved tree is not the trained tree")
+    del loaded
+    try:
+        load_clip_tree(out["ckpt"], dense, device=MOE_DEVICE)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "does not fit" in refused, "moe cli: the dense config took the MoE tree")
+    size = os.path.getsize(out["ckpt"])
+    print(f"moe: pretrain_cli --moe-experts {MOE_EXPERTS}, 1 epoch over {PRETRAIN_CLI_IMAGES} images at batch "
+          f"{PRETRAIN_BATCH} in {ms / 1e3:.1f} s, loss {out['loss_history'][0]:.5f}; the .pt tree "
+          f"({size / 2 ** 30:.2f} GiB) read back in {load_s:.1f} s equal to the trained tree, refused under the dense "
+          f"config ({refused.split(':', 1)[-1].strip()[:80]}...); launches "
+          f"{ {n: counts[n] for n in MOE_KERNELS} } ({card})", flush=True)
+    return {"launches": counts, "s": ms / 1e3, "load_s": load_s, "bytes": size}
+
+
+def _moe_prompt_step(kparams, cfg, card: str) -> dict:
+    """One cached-feature prompt-tuning step (ref_compat, f32, batch 32) on
+    the MoE towers, on the kernels and on the plain path with the kernel
+    path's routing replayed: exact launches (``_moe_counts``), the loss, the
+    gradient norm and ctx's displacement at TRAIN_TOL."""
+    from tapclip_tpu_torch.config import TrainConfig
+    from tapclip_tpu_torch.models import moe
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(71)
+    feats = rng.standard_normal((PRETRAIN_BATCH, cfg.embed_dim)).astype(np.float32)
+    y = rng.integers(0, len(TRAIN_CLASSES), PRETRAIN_BATCH)
+    mask = np.ones(PRETRAIN_BATCH, bool)
+    recorded, out = [], {}
+    for path, c in (("kernel", cfg), ("plain", cfg.replace(attn_impl="xla"))):
+        model = FullModel(TRAIN_CLASSES, kparams, c)
+        step = make_train_step(c, model.prompt_cfg)
+        state = init_train_state(model.trainable, make_optimizer(TrainConfig(lr=2e-3)))
+        ctx0 = model.trainable["ctx"].detach().float().cpu().numpy()
+        fn, left = (_recording(recorded), []) if path == "kernel" else _replaying(recorded)
+        reset_counts()
+        with patched(moe, "route", fn):
+            (state, metrics), ms = _sync_ms(lambda: step(kparams, state, model.prompt_learner.bank, feats, y, mask))
+        require(not left, f"moe prompt step: {len(left)} recorded routings not replayed")
+        out[path] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "ms": ms,
+                     "ctx0": ctx0, "ctx": state.params["ctx"].detach().float().cpu().numpy(),
+                     "launches": read_counts()}
+    k, p = out["kernel"], out["plain"]
+    tol = TRAIN_TOL["float32"]
+    errs = {"loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+            "grad_norm": abs(k["grad_norm"] - p["grad_norm"]) / abs(p["grad_norm"]),
+            "ctx_step": _step_err(k["ctx"], k["ctx0"], p["ctx"], p["ctx0"])}
+    _expect("moe prompt step", k["launches"], _moe_counts(cfg, tune_steps=1))
+    require(all(n == 0 for n in p["launches"].values()), f"moe prompt step: the plain path launched {p['launches']}")
+    print(f"moe: one cached-feature prompt-tuning step (ref_compat, f32, batch {PRETRAIN_BATCH}, "
+          f"{len(TRAIN_CLASSES)} classes) on the MoE towers: loss {k['loss']:.6f} vs plain with the kernel's routing "
+          f"{p['loss']:.6f}, rel err {errs['loss']:.2e} (tol {tol['loss']}), grad norm {errs['grad_norm']:.2e} (tol "
+          f"{tol['grad_norm']}), ctx displacement {errs['ctx_step']:.2e} (tol {tol['ctx_step']}); ms kernel "
+          f"{k['ms']:.1f} plain {p['ms']:.1f}; launches { {n: k['launches'][n] for n in MOE_KERNELS} } ({card})",
+          flush=True)
+    require(all(errs[key] <= tol[key] for key in errs), f"moe prompt step: kernel vs plain {errs} against {tol}")
+    return {"launches": k["launches"], "errors": errs, "ms": k["ms"], "plain_ms": p["ms"]}
+
+
+def _event_ms(fn) -> float:
+    """CUDA-event ms of one call of ``fn`` (the device's timeline from before
+    its first launch to after its last, host gaps included)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _moe_turns(kparams, cfg, card: str) -> dict:
+    """ms per step with CUDA events, in turns: the MoE step in f32 and in
+    bf16 and the dense f32 step (random ViT-B/16 weights), batch 32, every
+    leaf trained; median of the turns after the first."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+
+    dense = MODEL_PRESETS[PRETRAIN_MODEL]
+    trees = {"moe float32": (cfg, _tree_copy(kparams)), "moe bfloat16": (cfg.replace(dtype="bfloat16"),
+                                                                          _tree_copy(kparams)),
+             "dense float32": (dense, clip_model.init_clip_params(torch.Generator(device=MOE_DEVICE).manual_seed(20),
+                                                                  dense))}
+    steps = {}
+    for key, (c, tree) in trees.items():
+        step = P.make_pretrain_step(c, P.PretrainOptimizer(P.set_trainable(tree), lr=PRETRAIN_LR,
+                                                           weight_decay=PRETRAIN_WD))
+        x, ids = _pretrain_batch(c, PRETRAIN_BATCH, 80)
+        steps[key] = (lambda step=step, tree=tree, x=x, ids=ids: step(tree, x, ids))
+    ms = {k: [] for k in steps}
+    for _ in range(MOE_TURNS):
+        for k, fn in steps.items():
+            ms[k].append(_event_ms(fn))
+    turns = {k: float(np.median(v[1:])) for k, v in ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"moe: ms per step with CUDA events in turns, median of {MOE_TURNS - 1} after one, batch {PRETRAIN_BATCH} "
+          f"at ViT-B/16: " + ", ".join(f"{k} {v:.2f} (turns {[round(t, 2) for t in ms[k]]})" for k, v in turns.items())
+          + f"; the MoE f32 step is {turns['moe float32'] / turns['dense float32']:.2f}x the dense f32 step; peak "
+          f"device memory so far {peak:.1f} GiB ({card})", flush=True)
+    return {"median_ms": turns, "turns_ms": ms, "peak_gib": peak}
+
+
+def moe_phase(card: str) -> dict:
+    """The MoE towers on the card ("moe"), ViT-B/16 with 8 experts a block
+    and random weights: the InfoNCE + load-balance step on the kernels
+    against the plain path (routing replayed and free-running), f32 and
+    bf16; ``pretrain_cli --moe-experts 8``; one prompt-tuning step; the step
+    timed in turns with the dense one; one traced step."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL].replace(moe_experts=MOE_EXPERTS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        kparams = clip_model.init_clip_params(torch.Generator(device=MOE_DEVICE).manual_seed(21), cfg)
+        n_params = sum(t.numel() for _, t in named_leaves(kparams))
+        print(f"moe: ViT-B/16 with {MOE_EXPERTS} experts a block, capacity factor {cfg.moe_capacity_factor}: "
+              f"{n_params / 1e6:.1f} M parameters ({card})", flush=True)
+        main_f32 = _moe_main_steps(kparams, cfg, card)
+        main_bf16 = _moe_main_steps(kparams, cfg.replace(dtype="bfloat16"), card)
+        tuned = _moe_prompt_step(kparams, cfg, card)
+        turns = _moe_turns(kparams, cfg, card)
+        del kparams
+        cli = _moe_cli(card, tmp)
+        from tapclip_tpu_torch.scripts.profile_kernels import moe_trace
+
+        trace = moe_trace(5)
+        fam = trace.get("families_us", {})
+        require(fam.get("B6", 0) > 0 and fam.get("B7", 0) > 0 and fam.get("products", 0) > 0,
+                f"the MoE trace misses B6, B7 or the expert products: {fam}")
+        print(f"moe: one traced step (f32, batch {PRETRAIN_BATCH}): {trace['step_ms']:.1f} ms traced, "
+              f"{trace['step_ms_unprofiled']:.1f} ms untraced, device busy {trace['busy_share']:.3f} (untraced "
+              f"{trace['busy_share_unprofiled']:.3f}); device us per step "
+              + ", ".join(f"{k} {v:.0f}" for k, v in sorted(fam.items(), key=lambda kv: -kv[1]))
+              + f" of {trace['kernels_sum_us']:.0f} us of kernels; host ms {trace['host_ms']}; largest kernels "
+              f"{ {k: round(v) for k, v in list(trace['kernels_us'].items())[:6]} } ({card})", flush=True)
+        launches = {n: main_f32["launches"][n] + tuned["launches"][n] for n in main_f32["launches"]}
+        return {"launches": launches, "f32": main_f32, "bf16": main_bf16, "prompt_step": tuned, "turns": turns,
+                "cli": cli, "trace": {k: trace[k] for k in ("step_ms_unprofiled", "busy_share_unprofiled",
+                                                            "kernels_sum_us", "families_us")}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def gemm_record(pretrained: dict) -> dict:
     """The kernels-line entry of gemm.cu's weight-gradient products: launches
     on the pretraining drive (3 InfoNCE steps), the B5 product h^T.g at the
@@ -5121,6 +5530,7 @@ def main() -> int:
     adapted = phase("adapt", adapt_phase, card)
     cocoop = phase("cocoop_rn", cocoop_rn_phase, card)
     pretrained = phase("pretrain", pretrain_phase, card)
+    moe = phase("moe", moe_phase, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -5157,6 +5567,7 @@ def main() -> int:
             "adapt_launches": launches(adapted),
             "cocoop_rn_launches": cocoop["launches"].get(name, 0),
             "pretrain_launches": pretrained["launches"].get(name, 0),
+            "moe_launches": moe["launches"].get(name, 0),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),

@@ -17,12 +17,18 @@ package; MaPLe's prompts in both towers (``encode_image(maple_prompts=)``,
 towers (``layers.transformer_forward``).  The text tower is never quantized,
 as in the JAX package.  ``vision_tower="resnet"`` (the RN50 family) routes
 the image side to ``models/resnet.py``; int8, token pruning, MaPLe, patch
-dropout and VPT on it raise, as in the JAX package.  MoE raises
-``NotImplementedError`` (not yet ported).
+dropout and VPT on it raise, as in the JAX package.
+
+``moe_experts > 0`` gives both ViT towers mixture-of-experts blocks
+(``models/moe.py``, picked by :func:`_pick_transformer_fn`); the encoders
+append each tower's summed load-balance term to ``moe_loss_out``.  As in the
+JAX package, MoE refuses the RN tower, MaPLe's prompts, deep VPT, token
+pruning and the int8 tower.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -30,15 +36,9 @@ import torch
 
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.data.preprocess import device_normalize
-from tapclip_tpu_torch.models import layers
+from tapclip_tpu_torch.models import layers, moe
 
 Params = Dict[str, Any]
-
-
-def _unported(cfg: CLIPConfig) -> Optional[str]:
-    if cfg.moe_experts:
-        return "mixture-of-experts towers"
-    return None
 
 
 def check_supported(cfg: CLIPConfig) -> None:
@@ -49,9 +49,14 @@ def check_supported(cfg: CLIPConfig) -> None:
         if cfg.vpt_tokens > 0:
             raise NotImplementedError(
                 "vpt_tokens applies to ViT towers only (the RN-family tower has no token sequence to prompt)")
-    missing = _unported(cfg)
-    if missing:
-        raise NotImplementedError(f"{missing} is not yet ported in tapclip_tpu_torch")
+
+
+def _pick_transformer_fn(cfg: CLIPConfig):
+    """The block-stack runner: the MoE blocks (``cfg.moe_experts``) or the
+    dense ones."""
+    if cfg.moe_experts > 0:
+        return functools.partial(moe.moe_transformer_forward, capacity_factor=cfg.moe_capacity_factor)
+    return layers.transformer_forward
 
 
 def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -> Params:
@@ -66,29 +71,22 @@ def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -
     device = gen_device if device is None else torch.device(device)
 
     def normal(*shape, std):
-        t = torch.randn(shape, generator=generator, device=gen_device, dtype=torch.float32)
-        return (t * std).to(device)
+        return layers.normal_init(generator, shape, std, device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=device)
-
     def ln(width):
-        return {"scale": ones(width), "bias": zeros(width)}
+        return layers.init_layer_norm(width, device)
 
     def blocks(n_layers, width):
+        if cfg.moe_experts > 0:
+            return moe.init_moe_blocks(generator, n_layers, width, cfg.moe_experts, cfg.mlp_ratio, device)
         hidden = cfg.mlp_ratio * width
         return [
             {
                 "ln_1": ln(width),
-                "attn": {
-                    "w_qkv": normal(width, 3 * width, std=width ** -0.5),
-                    "b_qkv": zeros(3 * width),
-                    "w_out": normal(width, width, std=width ** -0.5),
-                    "b_out": zeros(width),
-                },
+                "attn": layers.init_attn(generator, width, device),
                 "ln_2": ln(width),
                 "mlp": {
                     "w_fc": normal(width, hidden, std=width ** -0.5),
@@ -207,7 +205,7 @@ def _pad_to_8(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
 
 def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_prompts=None, *,
                  generator: Optional[torch.Generator] = None,
-                 patch_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 patch_idx: Optional[torch.Tensor] = None, moe_loss_out: Optional[list] = None) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` (preprocessed f32, or raw uint8) -> ``[B, embed_dim]``.
 
     Matches open_clip ``VisionTransformer.forward`` + projection; the caller
@@ -229,6 +227,9 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     after the class token, after patch dropout (the prompts are never
     dropped); deep VPT's rows 1.. overwrite those slots at each later block
     input, as MaPLe's deep prompts do.
+
+    MoE towers (``cfg.moe_experts``): the tower's summed load-balance term
+    is appended to the list ``moe_loss_out`` when one is given.
     """
     dropout = cfg.patch_dropout > 0 and (generator is not None or patch_idx is not None)
     if cfg.vision_tower == "resnet":
@@ -286,6 +287,9 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
                 "maple prompts do not compose with token_keep_ratio (pruning would silently drop the coupled "
                 "prompts)"
             )
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "maple prompts require the sequential block scan (no pipeline/MoE transformer_fn override)")
         first, layer_prompts, prompt_mask = maple_prompts
         x = torch.cat([x[:, :1], first.to(dtype).expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
         if layer_prompts is not None:
@@ -300,15 +304,24 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
         first = vpt[0] if cfg.vpt_deep else vpt
         x = torch.cat([x[:, :1], first.expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
         if cfg.vpt_deep:
+            if cfg.moe_experts > 0:
+                raise NotImplementedError(
+                    "vpt_deep requires the sequential block scan (no pipeline/MoE transformer_fn override)")
             deep = dict(layer_prompts=vpt[1:])
     x = layers.layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, kv_valid = _pad_to_8(x)
     if cfg.token_keep_ratio < 1.0 and cfg.token_prune_layer < cfg.vision_layers:
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "token pruning is not supported with a transformer_fn override or MoE towers (it targets the "
+                "dense eval path)")
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
-        x, _ = layers.transformer_forward(
+        x, tower_aux = _pick_transformer_fn(cfg)(
             x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, remat=cfg.remat, **_tower_kw(cfg), **deep,
         )
+        if cfg.moe_experts > 0 and moe_loss_out is not None:
+            moe_loss_out.append(tower_aux)
     x = layers.layer_norm(x, p["ln_post"], cfg.ln_eps)
     return layers.dense(x[:, 0], p["proj"])
 
@@ -370,13 +383,14 @@ def embed_tokens(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
     return table[torch.as_tensor(token_ids, device=table.device).long()]
 
 
-def encode_text(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
+def encode_text(params: Params, cfg: CLIPConfig, token_ids, *, moe_loss_out: Optional[list] = None) -> torch.Tensor:
     """Proper CLIP text encoding: ids ``[B, T]`` -> ``[B, embed_dim]``.
 
     Positional embedding, causal tower, ``ln_final``, and pooling at the EOT
     token (the largest id).  The tower runs at T padded to a multiple of 8
     (77 -> 80) with the pad keys masked; the pad query rows are sliced off
-    before pooling.  The caller L2-normalizes.
+    before pooling.  The caller L2-normalizes.  ``moe_loss_out``: as
+    :func:`encode_image`'s.
     """
     check_supported(cfg)
     p = params["text"]
@@ -386,10 +400,12 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
     x = x + p["positional_embedding"].to(dtype)[None]
     T = x.shape[1]
     x, kv_valid = _pad_to_8(x)
-    x, _ = layers.transformer_forward(
+    x, tower_aux = _pick_transformer_fn(cfg)(
         x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=True,
         kv_valid_len=kv_valid, impl=cfg.attn_impl, remat=cfg.remat,
     )
+    if cfg.moe_experts > 0 and moe_loss_out is not None:
+        moe_loss_out.append(tower_aux)
     x = layers.layer_norm(x[:, :T], p["ln_final"], cfg.ln_eps)
     pooled = _pool(x, ids.argmax(dim=-1))
     return layers.dense(pooled, p["text_projection"])
@@ -436,7 +452,7 @@ def text_forward_embeds(
 
     Returns ``(features [B, embed_dim], aux [B, T] | None)``, the aux being
     the last layer's head-averaged attention of every query to key
-    ``attn_to_idx``.
+    ``attn_to_idx`` (None without ``attn_to_idx``, MoE towers included).
     """
     check_supported(cfg)
     p = params["text"]
@@ -456,13 +472,18 @@ def text_forward_embeds(
         raise ValueError(f"unknown text mode {mode!r}")
     deep = {}
     if deep_prompts is not None:
+        if cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "deep text prompts (MaPLe) require the dense block scan (no MoE transformer)")
         deep = dict(layer_prompts=deep_prompts.to(x.dtype), prompt_offset=0 if mode == "ref_compat" else 1,
                     prompt_mask=deep_prompt_mask)
-    x, aux = layers.transformer_forward(
+    x, aux = _pick_transformer_fn(cfg)(
         x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=causal,
         kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx,
         impl=impl if impl is not None else cfg.attn_impl, **deep,
     )
+    if cfg.moe_experts > 0 and attn_to_idx is None:
+        aux = None  # the second output is the load-balance term, not an attribution aux
     x = x[:, :T]
     if aux is not None:
         aux = aux[:, :T]

@@ -60,6 +60,28 @@ from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
 Params = Dict[str, Any]
 
 
+def normal_init(generator: torch.Generator, shape, std: float, device=None) -> torch.Tensor:
+    """``N(0, std^2)`` f32 values drawn on ``generator``'s device, moved to
+    ``device`` (default: the generator's)."""
+    t = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return (t * std).to(device or generator.device)
+
+
+def init_layer_norm(width: int, device=None) -> Params:
+    return {"scale": torch.ones(width, device=device), "bias": torch.zeros(width, device=device)}
+
+
+def init_attn(generator: torch.Generator, width: int, device=None) -> Params:
+    """The attention half's weights, the JAX init's shapes and scales."""
+    std = width ** -0.5
+    return {
+        "w_qkv": normal_init(generator, (width, 3 * width), std, device),
+        "b_qkv": torch.zeros(3 * width, device=device),
+        "w_out": normal_init(generator, (width, width), std, device),
+        "b_out": torch.zeros(width, device=device),
+    }
+
+
 def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)

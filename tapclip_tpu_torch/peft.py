@@ -6,16 +6,22 @@ merge-then-run: every step merges
     W' = W + (alpha / r) * A @ B
 
 in f32 on ``attn/w_qkv``, ``attn/w_out``, ``mlp/w_fc`` and ``mlp/w_proj`` of
-every block of both towers, then runs the towers unchanged on the merged
+every block of both towers (an MoE block's expert banks ``moe/w_fc`` and
+``moe/w_proj`` per expert; its router stays frozen, with no adapter), then
+runs the towers unchanged on the merged
 tree, so the same kernels run as in full pretraining (on the card the
 backward kernels compute dW of the merged weights, which autograd carries
 on into A and B).  The base tree does not require a gradient and has no
-optimizer state; ``logit_scale`` stays frozen too.
+optimizer state; ``logit_scale`` stays frozen too.  On MoE towers the step
+adds the load-balance term with weight ``moe_aux_weight``, as the JAX
+package's does.
 
 The adapter tree mirrors the towers' block lists:
 ``{"visual": {"blocks": [{"attn": {"w_qkv": {"a", "b"}, ...}, "mlp": {...}}, ...]},
-"text": {...}}``.  A is ``[In, r]`` ``N(0, 1/r)``, B is ``[r, Out]`` zero, so
-step 0 reproduces the base model.  An RN-family image tower has no block
+"text": {...}}``.  For a weight ``[..., In, Out]`` (an expert bank's
+``[E, In, Out]``) A is ``[..., In, r]`` ``N(0, 1/r)`` and B ``[..., r, Out]``
+zero, the rank axis broadcasting over the experts, so step 0 reproduces
+the base model.  An RN-family image tower has no block
 list and gets no adapters.
 """
 
@@ -31,7 +37,7 @@ from tapclip_tpu_torch.pretrain import PretrainOptimizer, _check_loss, _batch, n
 
 Params = Dict[str, Any]
 
-ADAPTED = {"attn": ("w_qkv", "w_out"), "mlp": ("w_fc", "w_proj")}
+ADAPTED = {"attn": ("w_qkv", "w_out"), "mlp": ("w_fc", "w_proj"), "moe": ("w_fc", "w_proj")}
 
 
 def _towers(params: Params):
@@ -47,13 +53,16 @@ def init_lora_params(generator: torch.Generator, clip_params: Params, rank: int 
         for blk in clip_params[tower]["blocks"]:
             entry = {}
             for sub, names in ADAPTED.items():
+                if sub not in blk:
+                    continue
                 entry[sub] = {}
                 for name in names:
                     w = blk[sub][name]
-                    n_in, n_out = w.shape
-                    a = torch.randn((n_in, rank), generator=generator, device=generator.device, dtype=torch.float32)
+                    *lead, n_in, n_out = w.shape
+                    a = torch.randn((*lead, n_in, rank), generator=generator, device=generator.device,
+                                    dtype=torch.float32)
                     entry[sub][name] = {"a": (a * rank ** -0.5).to(w.device),
-                                        "b": torch.zeros((rank, n_out), dtype=torch.float32, device=w.device)}
+                                        "b": torch.zeros((*lead, rank, n_out), dtype=torch.float32, device=w.device)}
             blocks.append(entry)
         out[tower] = {"blocks": blocks}
     return out
@@ -92,9 +101,12 @@ def make_lora_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss:
     def step(clip_params: Params, lora: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(clip_params, images, token_ids)
         merged = merge_lora(clip_params, lora, alpha=alpha)
-        img = clip_model.encode_image(merged, cfg, images)
-        txt = clip_model.encode_text(merged, cfg, ids)
+        moe_losses: list = []
+        img = clip_model.encode_image(merged, cfg, images, moe_loss_out=moe_losses)
+        txt = clip_model.encode_text(merged, cfg, ids, moe_loss_out=moe_losses)
         total = pair_loss(loss, merged, img, txt)
+        if moe_losses:
+            total = total + cfg.moe_aux_weight * sum(moe_losses)
         optimizer.update(torch.autograd.grad(total, optimizer.leaves, allow_unused=True))
         return {"loss": total.detach()}
 

@@ -25,6 +25,11 @@ clip's global norm runs over the trained leaves' gradients; under BitFit and
 ``unlocked_groups`` the JAX chain also counts the frozen leaves' gradients,
 which the port never computes.
 
+MoE towers (``CLIPConfig.moe_experts``, ``models/moe.py``) add the Switch
+load-balance term of both towers' blocks with weight ``moe_aux_weight``, as
+the JAX package's steps do; GradCache adds each micro-batch's term with
+weight ``moe_aux_weight / k`` in its live pass.
+
 Every random draw (augmentation boxes, patch-dropout indices) comes from an
 explicit ``torch.Generator`` and can be passed in instead (``boxes=``,
 ``patch_idx=``), so tests feed JAX's draws.  The mesh forms (the
@@ -378,9 +383,13 @@ def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str 
         images, ids = _batch(params, images, token_ids)
         if augment is not None:
             images = _augmented(images, augment, generator, boxes)
-        img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx)
-        txt = clip_model.encode_text(params, cfg, ids)
+        moe_losses: List[torch.Tensor] = []
+        img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx,
+                                      moe_loss_out=moe_losses)
+        txt = clip_model.encode_text(params, cfg, ids, moe_loss_out=moe_losses)
         total = pair_loss(loss, params, img, txt)
+        if moe_losses:  # the Switch load balance over both towers' blocks
+            total = total + cfg.moe_aux_weight * sum(moe_losses)
         grads = torch.autograd.grad(total, optimizer.leaves, allow_unused=True)
         if optimizer.update(grads):
             _clamp_logit_scale(params)
@@ -408,7 +417,15 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
     Patch dropout draws once per micro-batch (``patch_idx``: a list of K
     index tensors), and both passes use that draw, so cached and live
     features agree.  The sum is the one-shot K·B step's gradient; JAX takes
-    the scale's K-fold gradient and divides it back, the port takes it once."""
+    the scale's K-fold gradient and divides it back, the port takes it once.
+
+    MoE towers: each micro-batch's load-balance term ``lb_i`` (over its own
+    rows: the K·B one needs every micro's activations at once) joins its
+    live pass with weight ``moe_aux_weight / k``, as in the JAX package.  The
+    loss returned is the objective whose gradient is taken, ``contrastive +
+    moe_aux_weight / k * sum(lb_i)``; the JAX step reports ``contrastive +
+    moe_aux_weight / k**2 * sum(lb_i)`` (it averages per-micro losses that
+    each hold one ``lb_i / k``)."""
     _check_loss(loss)
     if k < 2:
         raise ValueError("accumulation needs k >= 2 (use make_pretrain_step)")
@@ -430,10 +447,10 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
                                                           images.device) for _ in range(k)]
         draws = patch_idx if patch_idx is not None else [None] * k
 
-        def encode(i):
+        def encode(i, moe_loss_out=None):
             x, t = micro[i]
-            return (clip_model.encode_image(params, cfg, x, patch_idx=draws[i]),
-                    clip_model.encode_text(params, cfg, t))
+            return (clip_model.encode_image(params, cfg, x, patch_idx=draws[i], moe_loss_out=moe_loss_out),
+                    clip_model.encode_text(params, cfg, t, moe_loss_out=moe_loss_out))
 
         with torch.no_grad():
             cached = [encode(i) for i in range(k)]
@@ -444,16 +461,24 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
         g_img, g_txt, *g_direct = torch.autograd.grad(total, [img_all, txt_all, *direct])
         grads: Dict[int, torch.Tensor] = {id(t): g for t, g in zip(direct, g_direct)}
         tower = [t for t in optimizer.leaves if id(t) not in grads]
+        total = total.detach()
         for i in range(k):
-            fi, ft = encode(i)
-            pulled = torch.autograd.grad([fi, ft], tower, [g_img[i * b:(i + 1) * b], g_txt[i * b:(i + 1) * b]],
-                                         allow_unused=True)
+            lbs: List[torch.Tensor] = []
+            fi, ft = encode(i, lbs)
+            outs, cotangents = [fi, ft], [g_img[i * b:(i + 1) * b], g_txt[i * b:(i + 1) * b]]
+            if lbs:
+                lb = sum(lbs)
+                total = total + cfg.moe_aux_weight / k * lb.detach()
+                if lb.requires_grad:
+                    outs.append(lb)
+                    cotangents.append(torch.full_like(lb, cfg.moe_aux_weight / k))
+            pulled = torch.autograd.grad(outs, tower, cotangents, allow_unused=True)
             for t, g in zip(tower, pulled):
                 if g is not None:
                     grads[id(t)] = g if id(t) not in grads else grads[id(t)] + g
         if optimizer.update([grads.get(id(t)) for t in optimizer.leaves]):
             _clamp_logit_scale(params)
-        return {"loss": total.detach()}
+        return {"loss": total}
 
     return step
 

@@ -7,8 +7,10 @@ template ("a photo of a {class}"), from webdataset shards (``--shard-dir``)
 or from a CSV/TSV manifest (``--csv-path``).  Options: GradCache
 accumulation (``--accum-full-negatives``) or gradient accumulation
 (``--accum-steps``), LoRA (``--lora-rank``), BitFit, LiT locks, distillation
-from a frozen teacher, an EMA of the tree, patch dropout, VPT, on-device
-augmentation, remat, a warmup + cosine schedule and global-norm clipping.
+from a frozen teacher, an EMA of the tree, patch dropout, VPT, MoE towers
+(``--moe-experts N``: Switch top-1 expert MLPs in both towers, the
+load-balance term in the objective), on-device augmentation, remat, a
+warmup + cosine schedule and global-norm clipping.
 Each epoch appends a row to ``csv/pretrain_metrics.csv``: the mean loss,
 then the held-out contrastive loss and Recall@K (``--val-shard-dir``) and
 the zero-shot accuracy (``--zeroshot-val-root``), of the EMA tree too.
@@ -19,8 +21,8 @@ every driver's ``--pretrained`` reads; ``--save-every`` snapshots resume
 with ``--resume`` (the epoch numbering continues).  Runs on ``cuda`` unless
 ``--device cpu`` is given; asking for ``cuda`` without a card raises.  The
 mesh flags (``--dp``, ``--tp``, ``--pp``, ``--pp-microbatches``,
-``--seq-parallel``, ``--fsdp``, ``--sharded-snapshot``) and MoE towers
-(``--moe-experts``) are not ported and refuse.
+``--seq-parallel``, ``--fsdp``, ``--sharded-snapshot``; ``--tp`` is also
+the JAX package's expert parallelism) are not ported and refuse.
 
 Usage:
     python -m tapclip_tpu_torch.pretrain_cli --data-root data/OfficeHome/Real_World \\
@@ -89,7 +91,9 @@ def build_parser():
     p.add_argument("--scan-unroll", type=int, default=0,
                    help="the JAX package's block-scan unroll: a compile setting with no eager meaning, "
                         "accepted and ignored")
-    p.add_argument("--moe-experts", type=int, default=0, help=f"mixture-of-experts MLPs ({NOT_PORTED})")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="N > 0: Switch top-1 mixture-of-experts MLPs with N experts in both towers "
+                        "(models/moe.py); a fresh tree, or a CLIP tree .pt saved with the same N")
     p.add_argument("--distill-teacher", default=None,
                    help="distill from a frozen teacher: a CLIP tree .pt of this CLI or an open_clip "
                         ".bin/.pt (distill.py)")

@@ -1,6 +1,6 @@
 """Device time of each CUDA kernel behind K1, K2, B5, B4, B13, B14, B7, B6 and S6, read from a profiler trace.
 
-    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B6,step,pretrain,...]
+    python3 tapclip_tpu_torch/scripts/profile_kernels.py [--root DIR] [--iters N] [--kernels B6,step,pretrain,moe,...]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels, and runs ``torch.profiler`` over
@@ -34,7 +34,10 @@ holding this file), builds its kernels, and runs ``torch.profiler`` over
 * ``pretrain``: the CLIP pretraining step (both towers trained, InfoNCE,
   AdamW) at ViT-B/16, batch 32, float32 and bfloat16, with each kernel
   wrapper's device time and gemm.cu's weight-gradient products on a line
-  of their own: see :func:`pretrain_trace`.
+  of their own: see :func:`pretrain_trace`;
+* ``moe``: the same step on MoE towers (8 experts a block, ``models/moe.py``),
+  float32 and bfloat16, split into B6, B7, the router, the dispatch and
+  the combine, the expert products and AdamW: see :func:`moe_trace`.
 
 A wrapper call launches several kernels (K1: LayerNorm, fc, proj; K2:
 LayerNorm, QKV, attention, out-projection; B5: LayerNorm, z, dh_pre, dy, the
@@ -47,7 +50,7 @@ device time among them (launches of one kernel and template list summed).  Print
 each kernel's device microseconds per call (``us``, by kernel name), their
 sum, and the wall-clock ms per call between the first and the last event
 (``span_ms``), so the gaps between launches show as ``span_ms`` minus the sum.
-``--kernels`` keeps only the named ones (default: all eleven).  Exits 1
+``--kernels`` keeps only the named ones (default: all twelve).  Exits 1
 without a card, or when the trace holds no device time.
 """
 
@@ -128,7 +131,8 @@ def _traced_steps(one, iters: int, patches, families=()) -> dict:
     with ``patches`` (``(owner, attribute, span name)``: each replaced by
     itself inside a host span of that name) in place.  ``families``: the
     span names whose device time (their kernels' device-side annotation)
-    is summed per step in ``families_us``."""
+    is summed per step in ``families_us``; the family "optimizer" reads the
+    device time of torch's own ``Optimizer.step#`` spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
 
@@ -162,8 +166,9 @@ def _traced_steps(one, iters: int, patches, families=()) -> dict:
         if str(getattr(ev, "device_type", "")) == "DeviceType.CUDA":
             # The spans' device-side copies (user annotations) are no kernel time of their own.
             if getattr(ev, "is_user_annotation", False) or ev.name in marks or ev.name.startswith("Optimizer."):
-                if ev.name in families:
-                    fam[ev.name] = fam.get(ev.name, 0.0) + (b - a) / iters
+                key = "optimizer" if ev.name.startswith("Optimizer.step#") else ev.name
+                if key in families:
+                    fam[key] = fam.get(key, 0.0) + (b - a) / iters
                 continue
             if ev.name in families:
                 continue
@@ -247,25 +252,17 @@ def step_trace(iters: int) -> dict:
                                       (torch.autograd, "grad", "step.backward")])
 
 
-def pretrain_trace(iters: int, dtype: str = "float32", batch: int = 32) -> dict:
-    """One trace of ``iters`` CLIP pretraining steps (``pretrain.make_pretrain_step``,
-    InfoNCE, every leaf trained, AdamW) at ViT-B/16 with random weights from
-    seed 0, ``batch`` random uint8 images and token ids: what
-    :func:`step_trace` returns, with the forward (both towers' encodes),
-    the backward and the optimizer as host spans, plus ``families_us``: each
-    kernel wrapper's device time per step (K1, K2, B6 forward; B5, B4, B7
-    backward, each with what it launches; ``gemm_f32`` and ``col_sum``,
-    gemm.cu's weight-gradient products and column sums, inside B4 and B5)
-    and ``gemm_cu_us``, gemm.cu's kernels by name."""
+def _pretrain_setup(cfg, batch: int):
+    """A pretraining step (``pretrain.make_pretrain_step``, InfoNCE, every
+    leaf trained, AdamW) on random weights from seed 0 and ``batch`` random
+    uint8 images and token ids on the card: (one step as a callable, the
+    pretrain module)."""
     import numpy as np
     import torch
 
     from tapclip_tpu_torch import pretrain as P
-    from tapclip_tpu_torch.config import VIT_B_16
     from tapclip_tpu_torch.models import clip as clip_model
-    from tapclip_tpu_torch.ops import fused_mha, fused_mlp
 
-    cfg = VIT_B_16.replace(dtype=dtype)
     params = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     opt = P.PretrainOptimizer(P.set_trainable(params), lr=1e-5, weight_decay=0.1)
     step = P.make_pretrain_step(cfg, opt)
@@ -275,16 +272,60 @@ def pretrain_trace(iters: int, dtype: str = "float32", batch: int = 32) -> dict:
     ids = rng.integers(1, cfg.vocab_size - 1, (batch, cfg.context_length)).astype(np.int32)
     ids[:, 0], ids[:, -1] = cfg.vocab_size - 2, cfg.vocab_size - 1
     ids = torch.as_tensor(ids, device="cuda")
+    return (lambda: step(params, images, ids)), P
+
+
+def _trace_pretrain_step(cfg, iters: int, batch: int, families) -> dict:
+    """:func:`_traced_steps` over :func:`_pretrain_setup`'s step, the
+    forward (both towers' encodes), the backward and ``families`` marked."""
+    import torch
+
+    one, P = _pretrain_setup(cfg, batch)
+    patches = [(P.clip_model, "encode_image", "step.forward"), (P.clip_model, "encode_text", "step.forward"),
+               (torch.autograd, "grad", "step.backward"), *families]
+    out = _traced_steps(one, iters, patches, families=tuple(sorted({name for _, _, name in families} | {"optimizer"})))
+    out["batch"] = batch
+    return out
+
+
+def pretrain_trace(iters: int, dtype: str = "float32", batch: int = 32) -> dict:
+    """One trace of ``iters`` CLIP pretraining steps (:func:`_pretrain_setup`)
+    at ViT-B/16: what :func:`step_trace` returns, with the forward (both
+    towers' encodes), the backward and the optimizer as host spans, plus
+    ``families_us``: each kernel wrapper's device time per step (K1, K2, B6
+    forward; B5, B4, B7 backward, each with what it launches; ``gemm_f32``
+    and ``col_sum``, gemm.cu's weight-gradient products and column sums,
+    inside B4 and B5; the optimizer) and ``gemm_cu_us``, gemm.cu's kernels
+    by name."""
+    from tapclip_tpu_torch.config import VIT_B_16
+    from tapclip_tpu_torch.ops import fused_mha, fused_mlp
+
     families = [(fused_mlp, "_fused_mlp_cuda", "K1"), (fused_mha, "_fused_attn_block_cuda", "K2"),
                 (fused_mha, "_fused_mha_cuda", "B6"), (fused_mlp, "_fused_mlp_bwd_cuda", "B5"),
                 (fused_mha, "_attn_block_bwd_cuda", "B4"), (fused_mha, "_fused_mha_bwd_cuda", "B7"),
                 (fused_mlp, "gemm_f32", "gemm_f32"), (fused_mha, "gemm_f32", "gemm_f32"),
                 (fused_mlp, "col_sum", "col_sum"), (fused_mha, "col_sum", "col_sum")]
-    patches = [(P.clip_model, "encode_image", "step.forward"), (P.clip_model, "encode_text", "step.forward"),
-               (torch.autograd, "grad", "step.backward"), *families]
-    out = _traced_steps(lambda: step(params, images, ids), iters, patches,
-                        families=tuple(sorted({name for _, _, name in families})))
-    out["batch"] = batch
+    return _trace_pretrain_step(VIT_B_16.replace(dtype=dtype), iters, batch, families)
+
+
+def moe_trace(iters: int, dtype: str = "float32", batch: int = 32, experts: int = 8) -> dict:
+    """:func:`pretrain_trace` on MoE towers (``moe_experts`` = ``experts``,
+    the config's capacity factor): ``families_us`` holds the device time per
+    step of B6 and B7 (with what they launch), of ``moe.route`` (the router
+    product, softmax and queue positions; forward), ``moe.slots`` +
+    ``moe.dispatch`` and ``moe.combine`` (forward), the products of
+    ``moe._Bmm`` (the expert banks' forward and backward products, and the
+    router's small one) and the optimizer (AdamW)."""
+    from tapclip_tpu_torch.config import VIT_B_16
+    from tapclip_tpu_torch.models import moe
+    from tapclip_tpu_torch.ops import fused_mha
+
+    families = [(fused_mha, "_fused_mha_cuda", "B6"), (fused_mha, "_fused_mha_bwd_cuda", "B7"),
+                (moe, "route", "router"), (moe, "slots", "dispatch"), (moe, "dispatch", "dispatch"),
+                (moe, "combine", "combine"), (moe._Bmm, "forward", "products"),
+                (moe._Bmm, "backward", "products")]
+    out = _trace_pretrain_step(VIT_B_16.replace(dtype=dtype, moe_experts=experts), iters, batch, families)
+    out["experts"] = experts
     return out
 
 
@@ -292,7 +333,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--iters", type=int, default=20)
-    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,S6,step,pretrain")
+    ap.add_argument("--kernels", default="K1,K2,B5,B4,B13,B14,B7,B6,S6,step,pretrain,moe")
     args = ap.parse_args()
     want = set(args.kernels.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -395,6 +436,9 @@ def main() -> int:
     for dtype in ("float32", "bfloat16") if "pretrain" in want else ():
         emit("pretrain", "InfoNCE ViT-B/16 batch 32, every leaf trained", getattr(torch, dtype),
              pretrain_trace(args.iters, dtype))
+    for dtype in ("float32", "bfloat16") if "moe" in want else ():
+        emit("moe", "InfoNCE + load balance, ViT-B/16 with 8 experts a block, batch 32, every leaf trained",
+             getattr(torch, dtype), moe_trace(args.iters, dtype))
     return 0
 
 

@@ -22,8 +22,12 @@ directories) are ``.pt`` files too:
 
     {"format": "tapclip_tpu_torch.clip_tree",
      "config": CLIPConfig as JSON,
-     "params": the whole tree (lists for the block stacks; ``visual.vpt`` and
+     "params": the whole tree (lists for the block stacks, an MoE block's
+               expert bank and router included; ``visual.vpt`` and
                ``logit_bias`` when present, ``kd_proj`` stripped, LoRA merged)}
+
+loaded only under a config of the same geometry (an MoE tree under a
+dense config, or the reverse, raises);
 
 which ``utils.torch_convert.load_openclip_checkpoint`` reads wherever an
 open_clip state dict is taken (``--pretrained`` of every driver, ``serve
@@ -51,7 +55,7 @@ SNAPSHOT_FORMAT = "tapclip_tpu_torch.pretrain_snapshot"
 # The fields a saved tree's shapes depend on: a load under a config that
 # differs in one of them raises.
 _GEOMETRY = ("vision_tower", "image_size", "patch_size", "vision_width", "vision_layers", "resnet_layers",
-             "text_width", "text_layers", "embed_dim", "vocab_size", "context_length", "mlp_ratio")
+             "text_width", "text_layers", "embed_dim", "vocab_size", "context_length", "mlp_ratio", "moe_experts")
 
 
 def _cpu(tree):
@@ -216,6 +220,11 @@ def clip_tree_from(obj: Dict[str, Any], cfg, device="cpu", path: str = "") -> Di
     """The tree of a loaded :func:`save_clip_tree` file on ``device``, after
     checking its config's geometry against ``cfg``."""
     saved = json.loads(obj["config"])
+    moe_saved = saved.get("moe_experts", 0)
+    if bool(moe_saved) != bool(cfg.moe_experts):
+        kind = f"an MoE tree ({moe_saved} experts a block)" if moe_saved else "a dense tree (one MLP a block)"
+        raise ValueError(f"{path}: {kind} does not fit {cfg.name} with moe_experts={cfg.moe_experts}; load it "
+                         f"with moe_experts={moe_saved}")
     for field in _GEOMETRY:
         want = getattr(cfg, field)
         got = saved.get(field)

@@ -4,7 +4,9 @@ The JAX package stores a parameter tree of arrays (``models/clip.py``), with
 every transformer block's leaves stacked along a leading ``[L]`` axis.  The
 port keeps the same tree and layout, except that a stack of blocks is a list
 of L per-block dicts and an RN tower's convolution weights are OIHW (the
-JAX package's are HWIO).  The functions here take trees whose leaves are NumPy
+JAX package's are HWIO).  An MoE block's stacked leaves (``moe/w_fc [L, E, W, H]``, ``moe/router/w
+[L, W, E]``, ...) become per-block ``[E, ...]`` tensors the same way.  The
+functions here take trees whose leaves are NumPy
 arrays (convert a JAX tree with ``jax.tree.map(np.asarray, tree)``), so the
 port itself never imports jax.  :func:`adamw_state_from_optax` carries an
 optax AdamW state over, so a JAX mid-training state resumes in the port:
@@ -99,8 +101,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict
 
 def lora_from_jax(lora: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """JAX LoRA adapters (``peft.init_lora_params``' tree: the CLIP tree
-    with ``{"a", "b"}`` at each adapted stacked leaf and None elsewhere,
-    NumPy-valued) -> the port's (``peft.py``: per tower, a list of blocks)."""
+    with ``{"a", "b"}`` at each adapted stacked leaf and None elsewhere, an
+    MoE router included, NumPy-valued) -> the port's (``peft.py``: per
+    tower, a list of blocks)."""
     def adapted(node):  # the {"a", "b"} pairs, the None leaves dropped
         if isinstance(node, dict) and set(node) == {"a", "b"}:
             return node

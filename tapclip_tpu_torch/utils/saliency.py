@@ -45,6 +45,8 @@ def vision_attention_forward(params, cfg: CLIPConfig, images) -> Tuple[torch.Ten
         raise NotImplementedError("saliency applies to ViT towers only "
                                   "(the RN-family tower has no patch-token attention)")
     check_supported(cfg)
+    if cfg.moe_experts:
+        raise NotImplementedError("saliency's forward re-runs the dense MLP blocks: MoE towers are not supported")
     if cfg.vpt_tokens:
         raise NotImplementedError("saliency's forward does not insert VPT tokens: its attention would not be "
                                   "the tower's")

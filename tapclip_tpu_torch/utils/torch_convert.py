@@ -179,7 +179,12 @@ def _convert_resnet_visual(sd, cfg: CLIPConfig, device) -> Dict[str, Any]:
 def convert_openclip_state_dict(sd: Dict[str, Any], cfg: CLIPConfig, device="cpu") -> Dict[str, Any]:
     """open_clip CLIP state dict (numpy or tensor values) -> the port's
     parameter tree (f32 tensors on ``device``): a ViT or, with
-    ``vision_tower="resnet"``, a ModifiedResNet image tower."""
+    ``vision_tower="resnet"``, a ModifiedResNet image tower.  An MoE config
+    raises: open_clip's blocks hold one dense MLP, no expert bank."""
+    if cfg.moe_experts > 0:
+        raise ValueError(f"an open_clip state dict has dense MLP blocks and no expert bank: it does not fit "
+                         f"{cfg.name} with moe_experts={cfg.moe_experts} (start the MoE towers from a fresh "
+                         "tree or a CLIP tree .pt saved with the same moe_experts)")
     text = {
         "token_embedding": _tensor(_f32(sd["token_embedding.weight"]), device),
         "positional_embedding": _tensor(_f32(sd["positional_embedding"]), device),
@@ -347,7 +352,11 @@ def _export_vit_visual(v: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarr
 def export_openclip_state_dict(params: Dict[str, Any], cfg: CLIPConfig) -> Dict[str, np.ndarray]:
     """The port's parameter tree -> open_clip CLIP state dict (numpy values),
     the inverse of :func:`convert_openclip_state_dict`, for a ViT or an RN
-    image tower.  Keys with no open_clip slot are refused."""
+    image tower.  Keys with no open_clip slot are refused, and so is an MoE
+    tree: open_clip has no expert bank (the JAX package's export fails on
+    the missing ``mlp`` key)."""
+    if cfg.moe_experts > 0 or any("moe" in blk for blk in params["text"]["blocks"]):
+        raise ValueError("open_clip has no expert bank: an MoE tree cannot be exported as an open_clip state dict")
     extras = set(params) - {"visual", "text", "logit_scale", "logit_bias"}
     if extras:
         raise ValueError(f"param tree has no open_clip slot for {sorted(extras)}")

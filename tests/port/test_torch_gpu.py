@@ -68,7 +68,10 @@ against ``gemm_reference`` in each layout (none, A transposed, B
 transposed), both dtypes, at ragged depths and row counts (1 to 6,401), C
 off every tile edge, every split of the rows forced with a bias,
 at chip_smoke.py's dW limit 1e-4 sqrt(K) absolute, bit for bit against a
-second call; what they refuse raises ValueError.
+second call; what they refuse raises ValueError.  An MoE block (B6 forward
+and B7 backward around the expert bank, ``models/moe.py``) is held against
+the plain path fed the kernel path's routing, by the norm-relative error of
+its output, load-balance term and every gradient (f32 1e-5, bf16 2e-2).
 """
 
 import hashlib
@@ -1827,3 +1830,56 @@ def test_gemm_kernel_refusals(cuda):
         gemm_f32(a, b, trans_a=True, trans_b=True)
     with pytest.raises(ValueError, match="split 9"):
         gemm_f32(a, b, trans_a=True, split=9)
+
+
+# --- MoE blocks (models/moe.py): B6 forward and B7 backward around the expert bank ---
+
+MOE_CASES = [(False, 200, 197), (True, 80, 77), (False, 40, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("causal,T,valid", MOE_CASES, ids=["image", "text-causal", "unpadded"])
+def test_moe_block_kernel_path_matches_plain_with_the_routing_replayed(cuda, monkeypatch, dtype, tol, causal, T,
+                                                                      valid):
+    """One MoE block (``moe_block_forward``: E 4, W 256, 4 heads, batch 3)
+    on B6 forward and B7 backward against ``impl="xla"``, the plain path
+    fed the kernel path's routing decisions (expert, position, keep; its
+    gates and statistics from its own router probabilities): the output,
+    the load-balance term and the gradients of x and of every leaf, the
+    router's included, by the norm-relative error (f32 1e-5, bf16 2e-2, as
+    B7's own); one B6 and one B7 launch on the kernel path, none on the
+    plain one."""
+    from tapclip_tpu_torch.models import moe
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    W, heads = 256, 4
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    blk = moe.init_moe_block(gen, W, 4, device=cuda)
+    blk["moe"]["router"]["w"] = blk["moe"]["router"]["w"] * 25  # routing margins far above the paths' rounding
+    leaves = [t.requires_grad_() for _, t in named_leaves(blk)]
+    x = _randn(gen, 3, T, W).to(dtype).requires_grad_()
+    gy = _randn(gen, 3, T, W).to(dtype)
+    real, seen = moe.route, []
+
+    def record(*a, **k):
+        seen.append(real(*a, **k))
+        return seen[-1]
+
+    def replay(xx, p, capacity_factor=1.25, valid_len=None):
+        mine, rec = real(xx, p, capacity_factor, valid_len), seen.pop(0)
+        return rec._replace(gate=mine.probs.gather(-1, rec.expert[..., None])[..., 0], probs=mine.probs)
+
+    runs = []
+    for impl, route in (("auto", record), ("xla", replay)):
+        monkeypatch.setattr(moe, "route", route)
+        before = (fused_mha.launches, fused_mha.bwd_launches)
+        y, lb, _ = moe.moe_block_forward(x, blk, heads, act="gelu", causal=causal, kv_valid_len=valid, impl=impl)
+        grads = torch.autograd.grad([y, lb], [x, *leaves], [gy, torch.ones_like(lb)])
+        runs.append((y, lb, grads, (fused_mha.launches - before[0], fused_mha.bwd_launches - before[1])))
+    (yk, lbk, gk, nk), (yp, lbp, gp, np_) = runs
+    assert nk == (1, 1) and np_ == (0, 0) and not seen
+    _close_rel("moe block out", yk.detach(), yp.detach(), tol)
+    _close_rel("moe lb", lbk.detach().reshape(1), lbp.detach().reshape(1), tol)
+    for (path, _), a, b in zip([("x", x)] + named_leaves(blk), gk, gp):
+        _close_rel(f"moe grad {path}", a, b, tol)

@@ -138,12 +138,34 @@ def test_l2_normalize_and_patchify():
 
 
 def test_unported_configs_raise(geo):
+    """MoE towers are ported (tests/port/test_torch_moe.py); the JAX
+    package's refusals for them remain: MaPLe's prompts, deep VPT, token
+    pruning, the int8 tower and the RN tower, each raised as JAX raises it."""
     jc, jp, tc, tp = geo
     x = torch.from_numpy(_images(jc, n=1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tclip.encode_image(tp, tc.replace(moe_experts=2), x)
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        tclip.text_forward_embeds(tp, tc.replace(moe_experts=2), torch.zeros(1, 8, jc.text_width))
+    moe_cfg, jmoe_cfg = tc.replace(moe_experts=2), jc.replace(moe_experts=2)
+    moe_tree = tclip.init_clip_params(torch.Generator().manual_seed(0), moe_cfg)
+    jtree = jclip.init_clip_params(jax.random.PRNGKey(0), jmoe_cfg.replace(vpt_tokens=2, vpt_deep=True))
+    W = jc.vision_width
+    cases = [
+        (moe_cfg, dict(maple_prompts=(torch.zeros(2, W), None, None)),
+         dict(maple_prompts=(jnp.zeros((2, W)), None, None))),
+        (moe_cfg.replace(vpt_tokens=2, vpt_deep=True), {}, {}),
+        (moe_cfg.replace(token_keep_ratio=0.5, token_prune_layer=0), {}, {}),
+        (moe_cfg.replace(quantize_tower=True), {}, {}),
+    ]
+    for cfg, kw, jkw in cases:
+        jcfg = jmoe_cfg.replace(**{f: getattr(cfg, f) for f in ("vpt_tokens", "vpt_deep", "token_keep_ratio",
+                                                                 "token_prune_layer", "quantize_tower")})
+        tree = moe_tree if not cfg.vpt_deep else dict(
+            moe_tree, visual=dict(moe_tree["visual"], vpt=torch.zeros(tclip.vpt_shape(cfg))))
+        with pytest.raises(NotImplementedError) as want:
+            jclip.encode_image(jtree, jcfg, jnp.asarray(x.numpy()), **jkw)
+        with pytest.raises(NotImplementedError) as got:
+            tclip.encode_image(tree, cfg, x, **kw)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(NotImplementedError, match="moe_experts applies to ViT towers only"):
+        tclip.init_clip_params(torch.Generator().manual_seed(0), moe_cfg.replace(vision_tower="resnet"))
     # VPT is ported (tests/port/test_torch_vpt.py): the text tower ignores it, as JAX's does.
     emb = torch.zeros(1, 8, jc.text_width)
     torch.testing.assert_close(tclip.text_forward_embeds(tp, tc.replace(vpt_tokens=2), emb)[0],

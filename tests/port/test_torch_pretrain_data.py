@@ -243,7 +243,7 @@ def test_pretrain_cli_refuses_mesh_flags(argv, match, capsys):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--moe-experts", "2"], NotImplementedError, "mixture-of-experts towers is not yet ported"),
+    (["--distill-teacher", "t.pt", "--moe-experts", "2"], ValueError, "with MoE students is not wired"),
     (["--vpt-deep"], ValueError, "--vpt-deep requires --vpt-tokens"),
     (["--shard-dir", "a", "--csv-path", "b"], ValueError, "exclusive"),
     (["--distill-teacher", "t.pt", "--lora-rank", "2"], ValueError, "does not compose with --lora-rank"),
