@@ -5368,6 +5368,315 @@ def moe_phase(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The export phase's loader, run in a fresh interpreter: it imports
+# utils/model_export.py alone (and with it the tapclip op registrations and
+# their launchers), never the model code, while the caller exports; once the
+# caller has made the file ``ready``, it loads the programs named in
+# EXPORT_FRESH, runs each on the card with the launch counts set to 0 just
+# before and read just after, and saves what they return.
+EXPORT_FRESH = ("encode_image", "full_forward")
+EXPORT_LOADER = r"""
+import os, sys, time
+t0 = time.perf_counter()
+import torch
+sys.path.insert(0, sys.argv[4])
+from tapclip_tpu_torch.utils.model_export import load_exported
+import_s = time.perf_counter() - t0
+def banned():
+    return sorted(m for m in sys.modules if m.startswith("tapclip_tpu_torch.models") or m.split(".")[0] == "jax")
+before = banned()
+torch.backends.cuda.matmul.allow_tf32 = False
+while not os.path.exists(sys.argv[6]):
+    time.sleep(0.05)
+t0 = time.perf_counter()
+fns, load_by_fn = {}, {}
+for name in sys.argv[5].split(","):
+    t1 = time.perf_counter()
+    fns.update(load_exported(sys.argv[1], functions=(name,)))
+    load_by_fn[name] = time.perf_counter() - t1
+load_s = time.perf_counter() - t0
+a = torch.load(sys.argv[2], map_location="cuda")
+ops = sys.modules
+counters = {"fused_mlp": (ops["tapclip_tpu_torch.ops.fused_mlp"].fused_mlp_block, "launches"),
+            "fused_attn_block": (ops["tapclip_tpu_torch.ops.fused_mha"].fused_attn_block, "launches"),
+            "fused_mha": (ops["tapclip_tpu_torch.ops.fused_mha"].fused_mha, "launches"),
+            "fused_attention_aux": (ops["tapclip_tpu_torch.ops.flash_attention"].fused_attention, "launches"),
+            "fused_attention_aux_causal": (ops["tapclip_tpu_torch.ops.flash_attention"].fused_attention,
+                                           "causal_launches")}
+calls = {"encode_image": (a["params"], a["images"]), "encode_text": (a["params"], a["tokens"]),
+         "classify": (a["params"], a["text_feats"], a["logit_scale"], a["class_mask"], a["images"]),
+         "full_forward": (a["params"], a["trainable"], a["bank"], a["images"])}
+out = {"outputs": {}, "launches": {}}
+for name, args in calls.items():
+    if name not in fns:
+        continue
+    for w, attr in counters.values():
+        setattr(w, attr, 0)
+    out["outputs"][name] = fns[name](*args)
+    torch.cuda.synchronize()
+    out["launches"][name] = {k: getattr(w, attr) for k, (w, attr) in counters.items()}
+out.update(load_s=load_s, import_s=import_s, load_by_fn=load_by_fn, banned_before=before, banned_after=banned())
+torch.save(out, sys.argv[3])
+"""
+
+
+def _tree_bytes(tree) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in torch.utils._pytree.tree_leaves(tree))
+
+
+def _export_tools(params, cfg, tmp: str, card: str) -> dict:
+    """``convert_checkpoint``'s round trip (open_clip .bin -> CLIP tree .pt
+    -> .bin, every tensor back bit for bit) and a two-ingredient uniform
+    ``model_soup`` on ViT-B/16 trees (every leaf the float64 mean of the
+    two, cast back), through their ``main``."""
+    import os
+
+    import torch
+
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.scripts import convert_checkpoint, model_soup
+    from tapclip_tpu_torch.utils.checkpoint import load_clip_tree, save_clip_tree
+    from tapclip_tpu_torch.utils.torch_convert import save_openclip_checkpoint
+
+    paths = {k: os.path.join(tmp, k) for k in ("vitb16.bin", "tree.pt", "back.bin", "other.pt", "soup.pt")}
+    t0 = time.perf_counter()
+    save_openclip_checkpoint(params, cfg, paths["vitb16.bin"])
+    convert_checkpoint.main(["clip", "--src", paths["vitb16.bin"], "--model", cfg.name, "--dst", paths["tree.pt"]])
+    convert_checkpoint.main(["export", "--src", paths["tree.pt"], "--model", cfg.name, "--dst", paths["back.bin"]])
+    src, back = torch.load(paths["vitb16.bin"]), torch.load(paths["back.bin"])
+    require(set(src) == set(back) and all(torch.equal(src[k], back[k]) for k in src),
+            "convert_checkpoint: the .bin -> .pt -> .bin round trip changed a tensor")
+    convert_s = time.perf_counter() - t0
+    del src, back
+    t0 = time.perf_counter()
+    other = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(7), cfg)
+    save_clip_tree(paths["other.pt"], other, cfg)
+    model_soup.main(["--inputs", paths["tree.pt"], paths["other.pt"], "--out", paths["soup.pt"], "--model",
+                     cfg.name, "--device", "cuda"])
+    soup = load_clip_tree(paths["soup.pt"], cfg, device="cuda")
+    flat = lambda t: dict(torch.utils._pytree.tree_flatten_with_path(t)[0])  # noqa: E731
+    a, b, c = flat(params), flat(other), flat(soup)
+    require(set(a) == set(c) and all(torch.equal(c[k], ((a[k].double() + b[k].double()) / 2).float()) for k in a),
+            "model_soup: a soup leaf is not the mean of its two ingredients")
+    soup_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+    print(f"export tools: convert_checkpoint clip + export round trip of {sizes['vitb16.bin']} bytes bit for bit "
+          f"in {convert_s:.1f} s; uniform soup of 2 {cfg.name} trees ({len(c)} leaves, each the mean) in "
+          f"{soup_s:.1f} s ({card})", flush=True)
+    return {"convert_s": convert_s, "soup_s": soup_s, "bytes": sizes}
+
+
+def export_phase(model, card: str) -> dict:
+    """The port's export ("export") at ViT-B/16 f32 on the served weights:
+    the four functions exported at batch 8 on the card (timed), saved; each
+    ``.pt2`` under 1% of the parameter bytes; ``EXPORT_FRESH`` loaded in a
+    fresh interpreter that imports ``utils/model_export.py`` alone (no model
+    code before or after its calls) and run there, the other two run here
+    from the programs in memory, every output equal to the eager call's bit
+    for bit and the launches equal to its; a CPU-exported
+    ``encode_image`` moved to the card, launching K1 and K2; the checkpoint
+    tools on ViT-B/16 trees (these two beside the loader); then the eager
+    and exported image batch, and K1's and K2's wrapper, op and launcher, in
+    CUDA-event ms and in host us to enqueue one call."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tapclip_tpu_torch.models.model_wrapper import text_features_with_attribution
+    from tapclip_tpu_torch.ops.fused_mha import _fused_attn_block_cuda, fused_attn_block
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_cuda, fused_mlp_block
+    from tapclip_tpu_torch.utils import model_export as ME
+
+    cfg, pcfg = model.clip_cfg, model.prompt_cfg
+    params, trainable, bank = model.clip_params, model.trainable, model.prompt_learner.bank
+    B = 8
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    images = torch.randn((B, cfg.image_size, cfg.image_size, 3), generator=gen, device="cuda")
+    tokens = torch.as_tensor(model.tokenizer.tokenize([f"a photo of a {n}." for n in OFFICE_HOME[:B]],
+                                                      cfg.context_length), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        text_feats = text_features_with_attribution(params, trainable["ctx"], bank, cfg, pcfg,
+                                                    trainable["adjustor"])[0].float()
+    inputs = {"params": params, "trainable": trainable, "bank": ME._bank_to_plain(bank), "images": images,
+              "tokens": tokens, "text_feats": text_feats, "logit_scale": trainable["logit_scale"],
+              "class_mask": bank.class_mask}
+    calls = {"encode_image": ("params", "images"), "encode_text": ("params", "tokens"),
+             "classify": ("params", "text_feats", "logit_scale", "class_mask", "images"),
+             "full_forward": ("params", "trainable", "bank", "images")}
+    eager, eager_launches = {}, {}
+    for name, keys in calls.items():
+        fn = ME._build_fn(name, cfg, pcfg)
+        reset_counts()
+        with torch.no_grad():
+            eager[name] = fn(*(inputs[k] for k in keys))
+        torch.cuda.synchronize()
+        eager_launches[name] = read_counts()
+    _expect("eager encode_image", eager_launches["encode_image"],
+            {"fused_mlp": 12, "fused_attn_block": 12, "fused_mha": 0, "fused_attention_aux": 0})
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        out_dir, in_path, out_path, ready = (os.path.join(tmp, n) for n in ("export", "inputs.pt", "outputs.pt",
+                                                                             "ready"))
+        torch.save(inputs, in_path)
+        root = os.path.dirname(os.path.abspath(__file__))
+        # The loader imports while this process exports, then loads and runs
+        # the programs while this process exports on the CPU and runs the
+        # tools (none of which it counts); the timings below wait for it.
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", EXPORT_LOADER, out_dir, in_path, out_path, root,
+                                 ",".join(EXPORT_FRESH), ready],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root)
+        try:
+            t1 = time.perf_counter()
+            exported = ME.export_functions(params, cfg, pcfg, trainable, bank, batch=B, functions=tuple(calls))
+            export_s = time.perf_counter() - t1
+            ME.save_exported(out_dir, exported, cfg, {"batch": B})
+            open(ready, "w").close()
+            manifest = ME.load_manifest(out_dir)
+            param_bytes = _tree_bytes(params)
+            sizes = {name: meta["bytes"] for name, meta in manifest["functions"].items()}
+            print(f"export: 4 functions of {cfg.name} f32 at batch {B} exported on the card in {export_s:.1f} s; "
+                  f".pt2 bytes {sizes} against {param_bytes} bytes of parameters ({card})", flush=True)
+            for name, n in sizes.items():
+                require(n < 0.01 * param_bytes, f"export: {name}.pt2 holds {n} bytes, over 1% of the parameters'")
+            # The functions the loader leaves out, from the programs in memory.
+            here_outputs, here_launches = {}, {}
+            for name, keys in calls.items():
+                if name in EXPORT_FRESH:
+                    continue
+                program = ME._Loaded(exported[name].module())
+                reset_counts()
+                with torch.no_grad():
+                    here_outputs[name] = program(*(inputs[k] for k in keys))
+                torch.cuda.synchronize()
+                here_launches[name] = read_counts()
+            # A program exported on the CPU, moved to the card at load time.
+            cpu_params = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+            t1 = time.perf_counter()
+            cpu_dir = ME.export_model(os.path.join(tmp, "cpu_export"), cpu_params, cfg, batch=B,
+                                      functions=("encode_image",))
+            cpu_export_s = time.perf_counter() - t1
+            require(ME.load_manifest(cpu_dir)["device"] == "cpu", "export: the CPU export names another device")
+            moved = ME.load_exported(cpu_dir, device="cuda")["encode_image"]
+            reset_counts()
+            moved_out = moved(params, images)
+            torch.cuda.synchronize()
+            moved_launches = read_counts()
+            _expect("CPU-exported encode_image on the card", moved_launches,
+                    {"fused_mlp": 12, "fused_attn_block": 12, "fused_mha": 0, "fused_attention_aux": 0})
+            require(torch.equal(moved_out, eager["encode_image"]),
+                    "export: the moved CPU program differs from eager")
+            print(f"export: encode_image exported on the CPU in {cpu_export_s:.1f} s, moved to cuda at load: 12 K1 "
+                  f"+ 12 K2 launches, equal to the eager call ({card})", flush=True)
+            tools = _export_tools(params, cfg, tmp, card)
+            _, stderr = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        subprocess_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"export: the fresh loader failed:\n{stderr[-3000:]}")
+        got = torch.load(out_path, map_location="cuda")
+        require(not got["banned_before"] and not got["banned_after"],
+                f"export: the loader imported model code or jax: {got['banned_before']} / {got['banned_after']}")
+        got["outputs"].update(here_outputs)
+        got["launches"].update(here_launches)
+        errors, launches = {}, {}
+        for name in calls:
+            want_leaves = torch.utils._pytree.tree_leaves(eager[name])
+            got_leaves = torch.utils._pytree.tree_leaves(got["outputs"][name])
+            errors[name] = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got_leaves, want_leaves))
+            require(len(got_leaves) == len(want_leaves) and all(
+                torch.equal(g, w) for g, w in zip(got_leaves, want_leaves)),
+                f"export: exported {name} differs from the eager call by {errors[name]:.3e}")
+            for k, n in got["launches"][name].items():
+                require(n == eager_launches[name][k],
+                        f"export: exported {name} launched {k} {n} times, the eager call {eager_launches[name][k]}")
+            for k, n in got["launches"][name].items():
+                launches[k] = launches.get(k, 0) + n
+        print(f"export: fresh loader (utils.model_export alone, no model code before or after) loaded "
+              f"{', '.join(EXPORT_FRESH)} in {got['load_s']:.2f} s ("
+              + ", ".join(f"{k} {v:.2f} s" for k, v in got["load_by_fn"].items())
+              + f"; the import before, beside the export, {got['import_s']:.2f} s; {subprocess_s:.1f} s with the "
+              f"interpreter, the inputs and the calls, beside the export, the CPU export and the tools), the other "
+              f"two run from memory; outputs equal to the eager calls bit for bit (max abs diff "
+              f"{max(errors.values()):.1e}); launches per function {got['launches']}, as the eager calls ({card})",
+              flush=True)
+
+        # The host cost of the op dispatch: the exported and eager image
+        # batch, and K1's / K2's wrapper (autograd Function -> launcher, the
+        # dispatcher left out by ``_build.run``) and op against the launcher
+        # called directly.
+        loaded = ME.load_exported(out_dir, functions=("encode_image",))["encode_image"]
+        x = torch.randn((B, 200, cfg.vision_width), generator=gen, device="cuda")
+        blk = params["visual"]["blocks"][0]
+        ln1, ln2, attn, mlp = blk["ln_1"], blk["ln_2"], blk["attn"], blk["mlp"]
+        k1 = (x, ln2["scale"], ln2["bias"], mlp["w_fc"], mlp["b_fc"], mlp["w_proj"], mlp["b_proj"], 1e-5)
+        k2 = (x, ln1["scale"], ln1["bias"], attn["w_qkv"], attn["b_qkv"], attn["w_out"], attn["b_out"], 12, 197,
+              1e-5)
+        eager_image = ME._build_fn("encode_image", cfg, pcfg)
+        calls = {
+            "image_batch8_eager": lambda: eager_image(params, images),
+            "image_batch8_exported": lambda: loaded(params, images),
+            "k1_wrapper": lambda: fused_mlp_block(x, ln2, mlp),
+            "k1_op": lambda: torch.ops.tapclip.fused_mlp.default(*k1),
+            "k1_launcher": lambda: _fused_mlp_cuda(*k1),
+            "k2_wrapper": lambda: fused_attn_block(x, ln1, attn, 12, valid_len=197),
+            "k2_op": lambda: torch.ops.tapclip.attn_block.default(*k2),
+            "k2_launcher": lambda: _fused_attn_block_cuda(*k2),
+        }
+        timing, host, queued = {}, {}, {}
+        with torch.no_grad():
+            for name, fn in calls.items():
+                batch = name.startswith("image")
+                timing[name] = time_ms(fn, 20 if batch else 50, 3 if batch else 5)
+                # The host's us to enqueue one call on an idle device.
+                total, n = 0.0, 20 if batch else 100
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    total += time.perf_counter() - t0
+                host[name] = total / n * 1e6
+                torch.cuda.synchronize()
+            # The host's us a call with the device busy: 100 calls enqueued
+            # behind a sleeping kernel (at most 400 launches, under the
+            # queue's depth), so neither side waits on the other; 5 rounds,
+            # the kernels' three routes in turn.
+            for _ in range(5):
+                for name, fn in calls.items():
+                    if name.startswith("image"):
+                        continue
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(200_000_000)
+                    t0 = time.perf_counter()
+                    for _ in range(100):
+                        fn()
+                    queued.setdefault(name, []).append((time.perf_counter() - t0) / 100 * 1e6)
+                    torch.cuda.synchronize()
+        med = {k: sorted(v)[len(v) // 2] for k, v in queued.items()}
+        print("export: ms (CUDA events) " + ", ".join(f"{k}={v:.4f}" for k, v in timing.items())
+              + "; host us to enqueue one call on an idle device " + ", ".join(f"{k}={v:.1f}" for k, v in
+                                                                             host.items())
+              + "; host us a call behind a busy device, median of 5 rounds of 100 (range) "
+              + ", ".join(f"{k}={med[k]:.2f} ({min(v):.2f}-{max(v):.2f})" for k, v in queued.items())
+              + f"; over the launcher: K1 wrapper {med['k1_wrapper'] - med['k1_launcher']:.2f} us, op "
+              f"{med['k1_op'] - med['k1_launcher']:.2f} us; K2 wrapper {med['k2_wrapper'] - med['k2_launcher']:.2f} "
+              f"us, op {med['k2_op'] - med['k2_launcher']:.2f} us ({card})", flush=True)
+        return {"launches": launches, "eager_launches": eager_launches, "export_s": export_s, "bytes": sizes,
+                "param_bytes": param_bytes, "load_s": got["load_s"], "subprocess_s": subprocess_s,
+                "cpu_export_s": cpu_export_s, "errors": errors, "timing_ms": timing, "host_us": host,
+                "host_us_queued": queued, "import_s": got["import_s"], "load_by_fn": got["load_by_fn"],
+                "tools": tools}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def gemm_record(pretrained: dict) -> dict:
     """The kernels-line entry of gemm.cu's weight-gradient products: launches
     on the pretraining drive (3 InfoNCE steps), the B5 product h^T.g at the
@@ -5531,6 +5840,7 @@ def main() -> int:
     cocoop = phase("cocoop_rn", cocoop_rn_phase, card)
     pretrained = phase("pretrain", pretrain_phase, card)
     moe = phase("moe", moe_phase, card)
+    exported = phase("export", export_phase, model, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -5568,6 +5878,7 @@ def main() -> int:
             "cocoop_rn_launches": cocoop["launches"].get(name, 0),
             "pretrain_launches": pretrained["launches"].get(name, 0),
             "moe_launches": moe["launches"].get(name, 0),
+            "export_launches": exported["launches"].get(name, 0),
         }
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),

@@ -29,6 +29,8 @@ _LAZY = {
     "get_tokenizer": ("tapclip_tpu_torch.data.tokenizer", "get_tokenizer"),
     "PredictService": ("tapclip_tpu_torch.serve", "PredictService"),
     "params_from_jax": ("tapclip_tpu_torch.utils.jax_bridge", "params_from_jax"),
+    "export_model": ("tapclip_tpu_torch.utils.model_export", "export_model"),
+    "load_exported": ("tapclip_tpu_torch.utils.model_export", "load_exported"),
 }
 
 

@@ -418,7 +418,7 @@ def _pool(x: torch.Tensor, pool_idx) -> torch.Tensor:
     if isinstance(pool_idx, int):
         return x[:, pool_idx]
     idx = pool_idx.to(device=x.device, dtype=torch.long).reshape(-1, 1, 1)
-    return torch.take_along_dim(x, idx.expand(-1, 1, x.shape[-1]), dim=1)[:, 0]
+    return torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))[:, 0]  # take_along_dim pins a symbolic batch
 
 
 def text_forward_embeds(

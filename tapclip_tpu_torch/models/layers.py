@@ -48,7 +48,6 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tapclip_tpu_torch.ops.attention import IntOrTensor, multi_head_attention
@@ -56,6 +55,7 @@ from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
 from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
 from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
+from tapclip_tpu_torch.ops.plain import dense, layer_norm, mlp_forward
 
 Params = Dict[str, Any]
 
@@ -80,43 +80,6 @@ def init_attn(generator: torch.Generator, width: int, device=None) -> Params:
         "w_out": normal_init(generator, (width, width), std, device),
         "b_out": torch.zeros(width, device=device),
     }
-
-
-def layer_norm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x)  # exact (erf) form
-
-
-_ACTS = {"gelu": gelu, "quick_gelu": quick_gelu}
-
-
-def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``[..., In] @ [In, Out]`` with f32 accumulation, result in ``x.dtype``.
-
-    The weight is rounded to ``x.dtype`` first and the product of the rounded
-    values is taken in f32, as ``jnp.dot(..., preferred_element_type=f32)``.
-    """
-    y = torch.matmul(x.float(), w.to(x.dtype).float())
-    if b is not None:
-        y = y + b.float()
-    return y.to(x.dtype)
-
-
-def mlp_forward(x: torch.Tensor, p: Params, act: str) -> torch.Tensor:
-    h = _ACTS[act](dense(x, p["w_fc"], p["b_fc"]))
-    return dense(h, p["w_proj"], p["b_proj"])
 
 
 def attn_forward(
@@ -245,7 +208,7 @@ def transformer_forward(
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
               quantize=quantize, quantize_deterministic=quantize_deterministic)
     active = [] if layer_prompts is None else (
-        [True] * layer_prompts.shape[0] if prompt_mask is None else torch.as_tensor(prompt_mask).tolist())
+        [True] * layer_prompts.shape[0] if prompt_mask is None else [bool(m) for m in prompt_mask])
     checkpointed = remat != "none" and torch.is_grad_enabled()
     last, aux = len(blocks) - 1, None
     for i, blk in enumerate(blocks):

@@ -198,7 +198,7 @@ def _maple_towers(clip_params, trainable, bank, images, clip_cfg: CLIPConfig, pr
         if J <= 1 or n_layers <= 0:
             return None, None
         pad = rows.new_zeros((n_layers - (J - 1),) + tuple(rows.shape[1:]))
-        return torch.cat([rows, pad], dim=0), torch.arange(n_layers) < (J - 1)
+        return torch.cat([rows, pad], dim=0), [i < J - 1 for i in range(n_layers)]
 
     v_deep, v_mask = deep(v_all[1:], clip_cfg.vision_layers - 1)
     image_feats = clip_model.encode_image(clip_params, clip_cfg, images, maple_prompts=(v_all[0], v_deep, v_mask))
@@ -341,10 +341,14 @@ class FullModel:
         idx = self.n_cls
         self.prompt_learner.add_class_prompt(name)
         bank_ctx = self.prompt_learner.bank.ctx
-        ctx = self.trainable["ctx"]
+        # A new tensor, as the JAX package's update is: after fit_prompt_model
+        # the trained ctx is a leaf that requires grad, which takes no write.
+        ctx = self.trainable["ctx"].detach()
         if ctx.shape[0] < bank_ctx.shape[0]:
             pad = ctx.new_zeros((bank_ctx.shape[0] - ctx.shape[0],) + tuple(ctx.shape[1:]))
             ctx = torch.cat([ctx, pad], dim=0)
+        else:
+            ctx = ctx.clone()
         ctx[idx] = bank_ctx[idx]
         self.trainable = dict(self.trainable, ctx=ctx)
 

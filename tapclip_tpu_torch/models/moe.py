@@ -54,6 +54,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tapclip_tpu_torch.models import layers
+from tapclip_tpu_torch.ops.plain import ACTS
 
 Params = Dict[str, Any]
 
@@ -226,7 +227,7 @@ def moe_mlp_forward(x: torch.Tensor, p: Params, act: str, *, capacity_factor: fl
     r = route(x, p, capacity_factor, valid_len)
     slot = slots(r, C, E)
     h = _f32_bmm(dispatch(x, slot, E, C), p["w_fc"], dtype) + p["b_fc"].float()[:, None]
-    h = layers._ACTS[act](h.to(dtype))
+    h = ACTS[act](h.to(dtype))
     out = _f32_bmm(h, p["w_proj"], dtype) + p["b_proj"].float()[:, None]
     y = combine(out, slot, r.gate).to(dtype)
 

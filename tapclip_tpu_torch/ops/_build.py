@@ -216,6 +216,25 @@ def refuse_graph(name: str, *tensors) -> None:
         )
 
 
+def run(op, plain, launcher, x, *args):
+    """``op(x, *args)`` for a wrapper's forward, with the dispatcher left out
+    where nothing traces the call: on a plain CPU or CUDA tensor, outside
+    ``torch.export`` / ``torch.compile`` and every dispatch mode, the op's
+    own CPU implementation ``plain`` or CUDA implementation ``launcher`` is
+    called directly.  Both ways run the same function, so the bits and the
+    launch counts are the same; the direct call saves the dispatcher's
+    round trip into Python, several µs of host time a call.  A traced call
+    (fake tensors, a mode) goes through ``op`` and stays one node."""
+    import torch
+
+    if not torch.compiler.is_compiling() and type(x) is torch.Tensor and not torch._C._len_torch_dispatch_stack():
+        if x.is_cuda:
+            return launcher(x, *args)
+        if x.device.type == "cpu":
+            return plain(x, *args)
+    return op(x, *args)
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")

@@ -4,7 +4,11 @@ Counterpart of ``tapclip_tpu/ops/flash_attention.py::fused_attention`` with
 its ``custom_vjp``.  :func:`fused_attention` is one ``torch.autograd.Function``
 on every device.
 
-On a CUDA tensor its forward is the hand-written kernel K3
+Its forward is the op ``tapclip::attn_aux`` (``ops/_library.py``, through
+``_build.run``; the
+valid length and the attribution key each as an optional ``[B]`` tensor
+beside the int every row takes without one, as K3's C entry takes them).
+On a CUDA tensor the op is the hand-written kernel K3
 (``csrc/attn_aux.cu``, which replaces the Pallas ``_attn_kernel`` and, past
 T = 2048, ``_blocked_attn_kernel``: K3 walks keys in 64-key online-softmax
 tiles, so every T runs in the same shared memory).  The kernel emits the
@@ -141,11 +145,11 @@ class _FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, valid, eot, causal):
-        if q.device.type == "cpu":
-            out, aux = attention_reference(q, k, v, causal=causal, kv_valid_len=valid,
-                                           attn_to_idx=eot)
-        else:
-            out, aux = _fused_attention_cuda(q, k, v, causal, valid, eot)
+        valid_t, valid_all = _op_index(valid, q.shape[2])
+        eot_t, eot_all = _op_index(eot, 0)
+        out, aux = _build.run(torch.ops.tapclip.attn_aux.default, attn_aux_plain, attn_aux_cuda,
+                              q, k, v, valid_t, valid_all, eot_t, eot_all, causal, eot is not None)
+        aux = aux if eot is not None else None
         ctx.save_for_backward(q, k, v, out)
         ctx.valid, ctx.causal = valid, causal
         if aux is not None:
@@ -183,6 +187,31 @@ fused_attention.causal_launches = 0  # the causal ones among them
 fused_attention.lse_launches = 0  # the backward chain: LSE,
 fused_attention.dkv_launches = 0  # dK/dV
 fused_attention.dq_launches = 0  # and dQ
+
+
+def _op_index(x: IntOrTensor, default: int) -> Tuple[Optional[torch.Tensor], int]:
+    """``tapclip::attn_aux``'s pair for an :data:`IntOrTensor`: (the tensor or
+    None, the int every row takes when it is None)."""
+    if isinstance(x, torch.Tensor):
+        return x, default
+    return None, default if x is None else int(x)
+
+
+def attn_aux_plain(q, k, v, valid, valid_all, eot, eot_all, causal, with_aux):
+    """``tapclip::attn_aux`` on a CPU tensor: :func:`attention_reference` with
+    the op's arguments (``valid`` / ``eot`` None: ``valid_all`` / ``eot_all``
+    in every row); ``(out, aux [B, T] f32)``, aux empty without ``with_aux``."""
+    kv = valid if valid is not None else (None if valid_all == q.shape[2] else valid_all)
+    to = (eot if eot is not None else eot_all) if with_aux else None
+    out, aux = attention_reference(q, k, v, causal=causal, kv_valid_len=kv, attn_to_idx=to)
+    return out, aux if with_aux else q.new_empty((0,), dtype=torch.float32)
+
+
+def attn_aux_cuda(q, k, v, valid, valid_all, eot, eot_all, causal, with_aux):
+    """``tapclip::attn_aux`` on a CUDA tensor: one K3 launch."""
+    out, aux = _fused_attention_cuda(q, k, v, causal, valid if valid is not None else valid_all,
+                                     (eot if eot is not None else eot_all) if with_aux else None)
+    return out, aux if with_aux else q.new_empty((0,), dtype=torch.float32)
 
 
 def _valid_arg(x: IntOrTensor, batch: int, default: int, device) -> Tuple[Optional[torch.Tensor], int]:

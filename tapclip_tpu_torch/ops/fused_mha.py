@@ -15,7 +15,9 @@ attention core on the tensor cores, seven launches, with the weight
 gradients by ``csrc/gemm.cu``'s A^T.B products, also on the tensor cores.  On a CPU tensor they run
 :func:`attn_block_reference` and :func:`attn_block_bwd_reference`, the plain
 versions.  The forward saves x and the parameters only; the backward
-recomputes LN, QKV and the probabilities, as the TPU kernel does.  Past
+recomputes LN, QKV and the probabilities, as the TPU kernel does.  The
+forward is the op ``tapclip::attn_block`` (``ops/_library.py``, through ``_build.run``), whose
+dispatch picks K2 or the plain version by the device.  Past
 the routing limit ``tapclip_attn_bwd_max_seq`` (T over 210 at head dim 64:
 where the one-block ``[T, T]`` core B4 ran before its row and column
 kernels held its tile) the backward differentiates the split composition
@@ -38,7 +40,8 @@ or not) and its backward B7
 (``csrc/mha_bwd.cu``, which replaces ``_mha_bwd_kernel``); on a CPU tensor
 :func:`fused_mha_reference` (the counterpart of ``_xla_reference``) and
 :func:`fused_mha_bwd_reference` (the TPU backward's formula).  The forward
-saves qkv; the backward recomputes the probabilities.  B7 is two launches
+saves qkv; the backward recomputes the probabilities.  The forward is the
+op ``tapclip::mha``.  B7 is two launches
 on the tensor cores (B4's row and column kernels, ``csrc/attn_bwd_mma.cuh``,
 on the packed strides) at any T, as the JAX ``_fused_mha_bwd_impl`` runs at
 any T: at ViT-L/14's T 257 and 584 they beat the blockwise flash chain on
@@ -51,7 +54,8 @@ from typing import Optional
 
 import torch
 
-from tapclip_tpu_torch.ops import _build
+from tapclip_tpu_torch.ops import _build, plain
+from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _rnd, ln_backward
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
 
@@ -60,16 +64,15 @@ _LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_variants.cuh's kLn2Bf16)
 
 
 def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
-    """Plain version: the composition of ``models/layers.py`` (``_attn_block_xla``)."""
-    from tapclip_tpu_torch.models import layers
-
-    p_ln = {"scale": gamma, "bias": beta}
-    p_attn = {"w_qkv": w_qkv, "b_qkv": b_qkv, "w_out": w_out, "b_out": b_out}
-    kv = None if valid == x.shape[1] else valid
-    h, _ = layers.attn_forward(
-        layers.layer_norm(x, p_ln, eps), p_attn, n_heads, kv_valid_len=kv, impl="xla"
-    )
-    return x + h
+    """Plain version: the composition of ``models/layers.py`` (``_attn_block_xla``):
+    LayerNorm, the QKV product, :func:`attention_reference` over the heads,
+    the out-projection and the residual."""
+    B, T, W = x.shape
+    kv = None if valid == T else valid
+    qkv = plain.dense(plain.layer_norm(x, {"scale": gamma, "bias": beta}, eps), w_qkv, b_qkv)
+    q, k, v = (_split_heads(t, n_heads).contiguous() for t in qkv.split(W, dim=-1))
+    out, _ = attention_reference(q, k, v, kv_valid_len=kv)
+    return x + plain.dense(out.transpose(1, 2).reshape(B, T, W), w_out, b_out)
 
 
 def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps):
@@ -126,10 +129,8 @@ class _FusedAttnBlock(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
         ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_out, b_out)
         ctx.cfg = (n_heads, valid, eps)
-        args = (x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps)
-        if x.device.type == "cpu":
-            return attn_block_reference(*args)
-        return _fused_attn_block_cuda(*args)
+        return _build.run(torch.ops.tapclip.attn_block.default, attn_block_reference, _fused_attn_block_cuda,
+                          x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -325,8 +326,6 @@ def _merge_heads(t):  # [B, H, T, Dh] -> [B, T, W]
 def fused_mha_reference(qkv, n_heads, valid, causal):
     """Plain version of B6: ``_xla_reference``, the plain attention over the
     three column blocks of ``qkv``."""
-    from tapclip_tpu_torch.ops.attention import attention_reference
-
     T, W = qkv.shape[1], qkv.shape[2] // 3
     q, k, v = (_split_heads(t, n_heads) for t in qkv.split(W, dim=-1))
     out, _ = attention_reference(q, k, v, causal=causal, kv_valid_len=None if valid == T else valid)
@@ -368,9 +367,7 @@ class _FusedMHA(torch.autograd.Function):
     def forward(ctx, qkv, n_heads, valid, causal):
         ctx.cfg = (n_heads, valid, causal)
         ctx.save_for_backward(qkv)
-        if qkv.device.type == "cpu":
-            return fused_mha_reference(qkv, n_heads, valid, causal)
-        return _fused_mha_cuda(qkv, n_heads, valid, causal)
+        return _build.run(torch.ops.tapclip.mha.default, fused_mha_reference, _fused_mha_cuda, qkv, n_heads, valid, causal)
 
     @staticmethod
     def backward(ctx, g):

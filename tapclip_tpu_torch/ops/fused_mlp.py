@@ -1,10 +1,13 @@
 """Fused transformer MLP half-block: LayerNorm -> fc -> GELU -> proj -> +residual.
 
 Counterpart of ``tapclip_tpu/ops/fused_mlp.py``.  :func:`fused_mlp_block` is
-one ``torch.autograd.Function`` on every device.  Its forward launches the
+one ``torch.autograd.Function`` on every device.  Its forward is the op
+``tapclip::fused_mlp`` (``ops/_library.py``; ``_build.run`` calls its
+implementation directly where nothing traces the call), which launches the
 hand-written CUDA kernel K1 (``csrc/fused_mlp.cu``, which replaces the Pallas
 ``_mlp_kernel``) on a CUDA tensor and runs :func:`fused_mlp_reference`, the
-plain PyTorch composition, on a CPU tensor.  Its backward launches B5
+plain PyTorch composition, on a CPU tensor; an exported program keeps the op
+as one node.  Its backward launches B5
 (``csrc/mlp_bwd.cu`` + ``csrc/gemm.cu``, which replace ``_mlp_bwd_kernel``)
 on a CUDA tensor and runs :func:`fused_mlp_bwd_reference` on a CPU tensor.
 Like the TPU kernels, the forward saves x and the parameters only and the
@@ -28,17 +31,15 @@ import math
 
 import torch
 
-from tapclip_tpu_torch.ops import _build
+from tapclip_tpu_torch.ops import _build, plain
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
 
 
 def fused_mlp_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps: float = 1e-5):
     """Plain version: ``x + mlp(layer_norm(x))`` as ``models/layers.py`` composes it."""
-    from tapclip_tpu_torch.models import layers
-
     p_ln = {"scale": gamma, "bias": beta}
     p_mlp = {"w_fc": w_fc, "b_fc": b_fc, "w_proj": w_proj, "b_proj": b_proj}
-    return x + layers.mlp_forward(layers.layer_norm(x, p_ln, eps), p_mlp, "gelu")
+    return x + plain.mlp_forward(plain.layer_norm(x, p_ln, eps), p_mlp, "gelu")
 
 
 def _ln_parts(x, gamma, beta, eps):
@@ -107,10 +108,8 @@ class _FusedMLP(torch.autograd.Function):
     def forward(ctx, x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps):
         ctx.save_for_backward(x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
         ctx.eps = eps
-        args = (x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
-        if x.device.type == "cpu":
-            return fused_mlp_reference(*args, eps=eps)
-        return _fused_mlp_cuda(*args, eps=eps)
+        return _build.run(torch.ops.tapclip.fused_mlp.default, fused_mlp_reference, _fused_mlp_cuda,
+                          x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -157,7 +156,7 @@ def _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj, **extra):
     return {name: v[0] for name, v in ops.items()}
 
 
-def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, *, eps):
+def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps):
     W = x.shape[-1]
     H = w_fc.shape[-1]
     R = x.numel() // W

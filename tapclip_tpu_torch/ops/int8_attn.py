@@ -22,7 +22,9 @@ The two modes compute what the JAX package computes in each:
 product on the int8 MMAs, the attention on the bf16 MMAs with each row's
 |a| max, the attention output's codes, the out product) on a CUDA tensor in
 either mode, on weights laid out K-major (:func:`.int8_mlp.k_major`), and
-runs the plain version (:func:`int8_attn_plain`) on a CPU tensor.  The TPU kernel's
+runs the plain version (:func:`int8_attn_plain`) on a CPU tensor, through
+the op ``tapclip::int8_attn`` (``ops/_library.py``) after the weights are
+quantized in torch.  The TPU kernel's
 head-pair packing and its VMEM picker (``int8_attn.py:226-229``) are TPU
 layout choices and are not ported.
 """
@@ -46,6 +48,10 @@ from tapclip_tpu_torch.ops.int8_mlp import (
     quantize_activations,
     quantize_cols_int8,
 )
+
+
+# The quantized weights in ``tapclip::int8_attn``'s argument order.
+Q_ATTN = ("w_qkv", "s_qkv", "b_qkv", "w_out", "s_out", "b_out")
 
 
 def quantize_attn(attn) -> Dict[str, torch.Tensor]:
@@ -123,15 +129,20 @@ def int8_attn_block(x: torch.Tensor, ln_params, attn_params, n_heads: int, *,
     _build.refuse_graph("int8_attn_block", x, *ln_params.values(), *attn_params.values())
     valid = valid_len if valid_len is not None else x.shape[1]
     q = quantize_attn(attn_params)
-    gamma, beta = ln_params["scale"], ln_params["bias"]
-    if x.device.type == "cpu":
-        return int8_attn_plain(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
-                               deterministic=deterministic)
-    return int8_attn_cuda(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
-                          deterministic=deterministic)
+    return torch.ops.tapclip.int8_attn.default(x, ln_params["scale"], ln_params["bias"], *(q[k] for k in Q_ATTN),
+                                               n_heads, valid, eps, seed, deterministic)
 
 
 int8_attn_block.launches = 0
+
+
+def int8_attn_op(impl):
+    """``tapclip::int8_attn``'s implementation from a function of the weights'
+    dict ``q`` (:func:`int8_attn_plain` or :func:`int8_attn_cuda`)."""
+    def op(x, gamma, beta, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, n_heads, valid, eps, seed, deterministic):
+        q = dict(zip(Q_ATTN, (w_qkv, s_qkv, b_qkv, w_out, s_out, b_out)))
+        return impl(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed, deterministic=deterministic)
+    return op
 
 
 def int8_attn_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,

@@ -26,7 +26,8 @@ Two modes, each computing what the JAX package computes in it:
 (``csrc/int8_mlp.cu``: LayerNorm and codes, the fc product, the hidden
 rows' codes, the proj product, on the int8 tensor cores) on a CUDA tensor in
 either mode, and runs the plain version (:func:`int8_mlp_plain`) on a CPU
-tensor.  The TPU wrapper sends the
+tensor, through the op ``tapclip::int8_mlp`` (``ops/_library.py``) after the
+weights are quantized in torch.  The TPU wrapper sends the
 shapes its kernel rejects (``W % 128``, ``H % 128``, ``T % 8``, ``B*T % 32``)
 to the round-to-nearest model; the card's kernel takes every shape, so the
 port rounds stochastically wherever the stochastic mode is asked for
@@ -142,6 +143,10 @@ def quantize_activations(v, dtype, seed, stream, deterministic, *, round_input=F
     return row_quant_sr(v, bits, recipmul)
 
 
+# The quantized weights in ``tapclip::int8_mlp``'s argument order.
+Q_MLP = ("w_fc", "s_fc", "b_fc", "w_proj", "s_proj", "b_proj")
+
+
 def quantize_mlp(mlp) -> Dict[str, torch.Tensor]:
     """The MLP's weights as the kernel takes them: int8 per-column codes and
     scales, f32 biases."""
@@ -209,10 +214,8 @@ def int8_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5,
     mode), plain on CPU.  Eval only."""
     _build.refuse_graph("int8_mlp_block", x, *ln_params.values(), *mlp_params.values())
     q = quantize_mlp(mlp_params)
-    gamma, beta = ln_params["scale"], ln_params["bias"]
-    if x.device.type == "cpu":
-        return int8_mlp_plain(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic)
-    return int8_mlp_cuda(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic)
+    return torch.ops.tapclip.int8_mlp.default(x, ln_params["scale"], ln_params["bias"], *(q[k] for k in Q_MLP),
+                                              eps, seed, deterministic)
 
 
 int8_mlp_block.launches = 0
@@ -255,6 +258,15 @@ def _mlp_operands(x, gamma, beta, q):
         ("gamma", gamma, W), ("beta", beta, W), ("s_fc", q["s_fc"], H), ("b_fc", q["b_fc"], H),
         ("s_proj", q["s_proj"], W), ("b_proj", q["b_proj"], W))}
     return x.numel() // W, W, H, f
+
+
+def int8_mlp_op(impl):
+    """``tapclip::int8_mlp``'s implementation from a function of the weights'
+    dict ``q`` (:func:`int8_mlp_plain` or :func:`int8_mlp_cuda`)."""
+    def op(x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, eps, seed, deterministic):
+        q = dict(zip(Q_MLP, (w_fc, s_fc, b_fc, w_proj, s_proj, b_proj)))
+        return impl(x, gamma, beta, q, eps=eps, seed=seed, deterministic=deterministic)
+    return op
 
 
 def int8_mlp_cuda(x, gamma, beta, q, *, eps=1e-5, seed=0, deterministic=False):

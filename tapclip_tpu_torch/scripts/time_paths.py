@@ -1,6 +1,6 @@
-"""Time the int8 image batch, the idiomatic prompt-tune step and the text tower of one checkout of the port.
+"""Time the image batch, the int8 image batch, the idiomatic prompt-tune step and the text tower of one checkout.
 
-    python3 tapclip_tpu_torch/scripts/time_paths.py [--root DIR] [--runs N] [--paths int8,idiomatic,text,split]
+    python3 tapclip_tpu_torch/scripts/time_paths.py [--root DIR] [--runs N] [--paths image,int8,idiomatic,text,split]
 
 Imports ``tapclip_tpu_torch`` from the checkout at ``DIR`` (default: the one
 holding this file), builds its kernels and ViT-B/16 with random weights from
@@ -8,6 +8,10 @@ seed 0, and prints one JSON line: the card's name and power limit, then
 CUDA-event ms (mean of 20 calls after 3 warm-up calls, ``--runs`` readings
 each) of
 
+* the served image batch of 8 (uint8 pixels in, ``encode_image`` on the
+  default route: 12 K1 and 12 K2 launches), float32 and bfloat16, beside
+  the host's ms to enqueue one call on an idle device (a mean over 20
+  calls, each after a synchronisation: ``host ms``);
 * the int8 tower's image batch of 8 (uint8 pixels in, ``encode_image`` with
   ``quantize_tower``: 12 B13 and 12 B14 launches and the weights quantized
   on every call), float32 and bfloat16, stochastic and round to nearest;
@@ -22,7 +26,7 @@ each) of
   around B6 in every vision block: 12 B6 and 12 K1 launches), float32 and
   bfloat16.
 
-``--paths`` times only the named ones (default: all four).
+``--paths`` times only the named ones (default: all five).
 
 To compare two commits on one card, unpack both and run this file against
 each in turn within one machine: parent, change, change, parent.
@@ -33,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 CLASSES = ["Backpack", "Alarm_Clock", "Laptop", "Pen", "Mug"]
@@ -42,7 +47,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--paths", default="int8,idiomatic,text,split")
+    ap.add_argument("--paths", default="image,int8,idiomatic,text,split")
     args = ap.parse_args()
     want = set(args.paths.split(","))
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -63,6 +68,18 @@ def main() -> int:
     sys.path.append(str(Path(__file__).resolve().parent))
     from _bench_util import card_line, time_ms
 
+    def host_ms(fn, iters=20):
+        """The host's ms to enqueue one call of ``fn`` on an idle device (a
+        synchronisation before each call, the clock stopped before the next)."""
+        total = 0.0
+        for _ in range(iters + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            total += time.perf_counter() - t0 if _ else 0.0  # the first call warms up
+        torch.cuda.synchronize()
+        return total / iters * 1e3
+
     torch.backends.cuda.matmul.allow_tf32 = False
     params = build_model(VIT_B_16, CLASSES, "cuda", seed=0).clip_params
     rng = np.random.default_rng(0)
@@ -79,6 +96,11 @@ def main() -> int:
         cfg = VIT_B_16.replace(dtype=dtype)
         split = cfg.replace(attn_impl="fused_split")
         with torch.inference_mode():
+            if "image" in want:
+                readings[f"image batch 8 {dtype}"] = [
+                    time_ms(lambda: clip_model.encode_image(params, cfg, images), 20, 3) for _ in range(args.runs)]
+                readings[f"image batch 8 {dtype} host ms"] = [
+                    host_ms(lambda: clip_model.encode_image(params, cfg, images)) for _ in range(args.runs)]
             for mode, det in (("stochastic", False), ("round-to-nearest", True)) if "int8" in want else ():
                 cfg_q = cfg.replace(quantize_tower=True, int8_deterministic=det)
                 readings[f"int8 image batch 8 {mode} {dtype}"] = [

@@ -1883,3 +1883,108 @@ def test_moe_block_kernel_path_matches_plain_with_the_routing_replayed(cuda, mon
     _close_rel("moe lb", lbk.detach().reshape(1), lbp.detach().reshape(1), tol)
     for (path, _), a, b in zip([("x", x)] + named_leaves(blk), gk, gp):
         _close_rel(f"moe grad {path}", a, b, tol)
+
+
+# --- the tapclip ops and the exported programs (utils/model_export.py) ---------
+
+from tapclip_tpu_torch.utils import model_export as ME  # noqa: E402
+
+_EXPORT_COUNTERS = {"K1": (fused_mlp_block, "launches"), "K2": (fused_attn_block, "launches"),
+                    "B6": (fused_mha, "launches"), "K3": (fused_attention, "launches"),
+                    "B13": (int8_mlp_block, "launches"), "B14": (int8_attn_block, "launches")}
+
+
+def _export_counts(fn, *args):
+    for w, attr in _EXPORT_COUNTERS.values():
+        setattr(w, attr, 0)
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: getattr(w, attr) for k, (w, attr) in _EXPORT_COUNTERS.items()}
+
+
+def _export_model(cuda, text_mode, **cfg_kw):
+    from tapclip_tpu_torch import config as tcfg
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+
+    cfg = tcfg.TINY_TEST.replace(**cfg_kw)
+    params = clip_model.init_clip_params(torch.Generator(device=cuda).manual_seed(5), cfg)
+    return FullModel(["Backpack", "Pen", "Mug"], params, cfg,
+                     prompt_cfg=tcfg.PromptConfig(max_classes=4, text_mode=text_mode))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("text_mode", ["ref_compat", "idiomatic"])
+def test_exported_programs_equal_eager_and_launch_its_kernels(cuda, tmp_path, text_mode):
+    """The four functions exported on the card (tiny widths), saved and
+    loaded: each output equals the eager call's bit for bit and launches
+    exactly the kernels it launches (K1, K2, B6, K3)."""
+    m = _export_model(cuda, text_mode)
+    cfg, pcfg, params, tr, bank = m.clip_cfg, m.prompt_cfg, m.clip_params, m.trainable, m.prompt_learner.bank
+    out = ME.export_model(str(tmp_path / "exp"), params, cfg, pcfg, tr, bank, batch=3,
+                          functions=ME.EXPORTABLE_FUNCTIONS)
+    fns = ME.load_exported(out)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    images = _randn(gen, 3, cfg.image_size, cfg.image_size, 3)
+    tokens = torch.randint(0, 200, (3, cfg.context_length), generator=gen, device=cuda, dtype=torch.int32)
+    feats = torch.nn.functional.normalize(_randn(gen, bank.capacity, cfg.embed_dim), dim=-1)
+    args = {"encode_image": (params, images), "encode_text": (params, tokens),
+            "classify": (params, feats, tr["logit_scale"], bank.class_mask, images),
+            "full_forward": (params, tr, ME._bank_to_plain(bank), images)}
+    for name, a in args.items():
+        want, n_eager = _export_counts(ME._build_fn(name, cfg, pcfg), *a)
+        got, n_exported = _export_counts(fns[name], *a)
+        assert n_exported == n_eager, (name, n_exported, n_eager)
+        assert sum(n_eager.values()) > 0, name
+        for g, w in zip(torch.utils._pytree.tree_leaves(got), torch.utils._pytree.tree_leaves(want)):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.gpu
+def test_cpu_export_moved_to_the_card_launches_k1_and_k2(cuda, tmp_path):
+    m = _export_model(cuda, "ref_compat")
+    cfg, params = m.clip_cfg, m.clip_params
+    cpu_params = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    out = ME.export_model(str(tmp_path / "cpu"), cpu_params, cfg, batch=2, functions=("encode_image",))
+    fn = ME.load_exported(out, device="cuda")["encode_image"]
+    images = _randn(torch.Generator(device=cuda).manual_seed(7), 2, cfg.image_size, cfg.image_size, 3)
+    got, n = _export_counts(fn, params, images)
+    want, n_eager = _export_counts(ME._build_fn("encode_image", cfg, m.prompt_cfg), params, images)
+    assert n == n_eager and n["K1"] == n["K2"] == cfg.vision_layers
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deterministic", [False, True], ids=["stochastic", "nearest"])
+def test_exported_int8_tower_launches_b13_and_b14(cuda, tmp_path, deterministic):
+    m = _export_model(cuda, "ref_compat", quantize_tower=True, int8_deterministic=deterministic)
+    cfg, params = m.clip_cfg, m.clip_params
+    fn = ME.load_exported(ME.export_model(str(tmp_path / "int8"), params, cfg, batch=2,
+                                          functions=("encode_image",)))["encode_image"]
+    images = _randn(torch.Generator(device=cuda).manual_seed(8), 2, cfg.image_size, cfg.image_size, 3)
+    got, n = _export_counts(fn, params, images)
+    want, n_eager = _export_counts(ME._build_fn("encode_image", cfg, m.prompt_cfg), params, images)
+    assert n == n_eager and n["B13"] == n["B14"] == cfg.vision_layers and n["K1"] == n["K2"] == 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_ops_on_cuda_tensors_launch_the_kernels(cuda):
+    """A CUDA tensor reaching a ``tapclip`` op launches its kernel (the
+    counter rises by one), as the wrapper's direct call does, bit for bit;
+    operands on two devices raise."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    W, H = 64, 256
+    x = _randn(gen, 2, 24, W)
+    g, b = torch.ones(W, device=cuda), torch.zeros(W, device=cuda)
+    wf, bf, wp, bp = _randn(gen, W, H, scale=W ** -0.5), torch.zeros(H, device=cuda), _randn(gen, H, W), b
+    before = fused_mlp_block.launches
+    got = torch.ops.tapclip.fused_mlp(x, g, b, wf, bf, wp, bp, 1e-5)
+    assert fused_mlp_block.launches == before + 1
+    torch.testing.assert_close(got, fused_mlp_reference(x, g, b, wf, bf, wp, bp), rtol=1e-4, atol=1e-4)
+    with torch.no_grad():
+        direct = fused_mlp_block(x, {"scale": g, "bias": b}, {"w_fc": wf, "b_fc": bf, "w_proj": wp, "b_proj": bp})
+    assert fused_mlp_block.launches == before + 2 and torch.equal(direct, got)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        torch.ops.tapclip.fused_mlp(x, g.cpu(), b, wf, bf, wp, bp, 1e-5)

@@ -102,6 +102,14 @@ PORT_MODULES = [
     "tapclip_tpu_torch.distill",
     "tapclip_tpu_torch.data.csv_dataset",
     "tapclip_tpu_torch.pretrain_cli",
+    "tapclip_tpu_torch.ops._library",
+    "tapclip_tpu_torch.ops.plain",
+    "tapclip_tpu_torch.utils.model_export",
+    "tapclip_tpu_torch.scripts.export_model",
+    "tapclip_tpu_torch.scripts.convert_checkpoint",
+    "tapclip_tpu_torch.scripts.ckpt_info",
+    "tapclip_tpu_torch.scripts.model_soup",
+    "tapclip_tpu_torch.examples.quickstart",
 ]
 
 
