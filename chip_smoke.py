@@ -288,6 +288,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -637,6 +638,11 @@ def _counters():
     return {
         "fused_mlp": (fused_mlp_block, "launches"),
         "fused_attn_block": (fused_attn_block, "launches"),
+        # the partial modes of tensor parallelism (parallel/, "parallel"), counted on their own
+        "fused_mlp_partial": (fused_mlp_block, "partial_launches"),
+        "fused_attn_block_partial": (fused_attn_block, "partial_launches"),
+        "fused_mlp_bwd_partial": (fused_mlp_block, "partial_bwd_launches"),
+        "fused_attn_block_bwd_partial": (fused_attn_block, "partial_bwd_launches"),
         "fused_attention_aux": (fused_attention, "launches"),  # causal or not
         "fused_attn_block_bwd": (fused_attn_block, "bwd_launches"),
         "fused_mlp_bwd": (fused_mlp_block, "bwd_launches"),
@@ -1156,6 +1162,7 @@ def check_kernels() -> dict:
                 case.update(mma_bound(*work, case["dtype"], "fused_attention_aux"))
                 print(f"kernel fused_attention_aux [{label} {dtype}]: launcher {case['launcher_ms']:.4g} ms, "
                       f"launch alone {case['launch_ms']:.4g} ms, mma bound {case['mma_bound_ms']:.4g} ms", flush=True)
+    results.update(check_partial_forward())
     return results
 
 
@@ -1241,6 +1248,7 @@ def check_backward() -> dict:
                       flush=True)
                 require(rel <= tol and rel_dx <= tol,
                         f"{name} {shape} {dname}: norm-relative error {max(rel, rel_dx):.3e} > {tol}")
+    results.update(check_partial_backward())
     return results
 
 
@@ -5759,6 +5767,657 @@ def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, 
     return out
 
 
+# --- the partial modes of tensor parallelism (K1, K2, B5, B4; "kernels", "backward") -------------
+
+PARTIAL_SHAPE = (8, 200, 768, 12, 197)  # ViT-B/16's image shape; a rank of tp = 2 holds half the heads / hidden
+
+
+def _partial_case(dtype, seed: int):
+    """x, LayerNorm and the MLP / attention weights at PARTIAL_SHAPE, and the
+    two ranks' cuts (hidden columns; the per-head qkv cut)."""
+    import torch
+
+    from tapclip_tpu_torch.parallel.sharding import _qkv_parts
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    B, T, W, nh, valid = PARTIAL_SHAPE
+    H = 4 * W
+
+    def rn(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    c = {"x": rn(B, T, W).to(dtype), "g": rn(B, T, W, s=0.1).to(dtype), "ln": (1.0 + rn(W, s=0.1), rn(W, s=0.1)),
+         "mlp": (rn(W, H, s=W ** -0.5), rn(H, s=0.1), rn(H, W, s=H ** -0.5), rn(W, s=0.1)),
+         "attn": (rn(W, 3 * W, s=W ** -0.5), rn(3 * W, s=0.1), rn(W, W, s=W ** -0.5), rn(W, s=0.1))}
+    wf, bf, wp, _ = c["mlp"]
+    wq, bq, wo, _ = c["attn"]
+    c["mlp_cut"] = [(wf[:, j * H // 2:(j + 1) * H // 2].contiguous(), bf[j * H // 2:(j + 1) * H // 2].contiguous(),
+                     wp[j * H // 2:(j + 1) * H // 2].contiguous()) for j in range(2)]
+    c["attn_cut"] = [(_qkv_parts(wq, 2, j).contiguous(), _qkv_parts(bq, 2, j).contiguous(),
+                      wo[j * W // 2:(j + 1) * W // 2].contiguous()) for j in range(2)]
+    return c
+
+
+def check_partial_forward() -> dict:
+    """K1's and K2's partial modes through their wrappers
+    (``_FusedMLPPartial`` / ``_FusedAttnBlockPartial`` with no group: the
+    ``tapclip::`` op's ``partial`` argument, the launch, the epilogue
+    ``x + (acc + b)`` rounded once) against the plain partial plus the
+    residual and bias, in both dtypes; each launch's f32 product alone
+    against the plain partial; and the two ranks' halves, rank 1's product
+    added where rank 0's wrapper all-reduces, against the whole kernel.
+    CUDA-event times of the launch beside the plain partial and the bound."""
+    import torch
+
+    from tapclip_tpu_torch.ops import fused_mha as A
+    from tapclip_tpu_torch.ops import fused_mlp as M
+
+    B, T, W, nh, valid = PARTIAL_SHAPE
+    out = {"fused_mlp_partial": {"cases": []}, "fused_attn_block_partial": {"cases": []}}
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        dname = str(dtype).replace("torch.", "")
+        c = _partial_case(dtype, 7)
+        x, (gm, bt) = c["x"], c["ln"]
+        bm, ba = c["mlp"][3], c["attn"][3]
+        with torch.inference_mode():
+            for name, mod, wrapper, whole, part_k, part_p, cuts, bias in (
+                ("fused_mlp_partial", M, lambda w: M._FusedMLPPartial.apply(x, gm, bt, *w, bm, 1e-5, None),
+                 lambda: M._fused_mlp_cuda(x, gm, bt, *c["mlp"], 1e-5),
+                 lambda w: M._fused_mlp_cuda(x, gm, bt, *w, bm, 1e-5, True),
+                 lambda w: M.fused_mlp_partial_reference(x, gm, bt, *w), c["mlp_cut"], bm),
+                ("fused_attn_block_partial", A,
+                 lambda w: A._FusedAttnBlockPartial.apply(x, gm, bt, *w, ba, nh // 2, valid, 1e-5, None),
+                 lambda: A._fused_attn_block_cuda(x, gm, bt, *c["attn"], nh, valid, 1e-5),
+                 lambda w: A._fused_attn_block_cuda(x, gm, bt, *w, ba, nh // 2, valid, 1e-5, True),
+                 lambda w: A.attn_block_partial_reference(x, gm, bt, *w, nh // 2, valid, 1e-5), c["attn_cut"], ba),
+            ):
+                plain_out = [(x.float() + (part_p(w) + bias.float())).to(dtype) for w in cuts]
+                errs = [compare(f"{name} wrapper rank {j} {dname}", wrapper(w), plain_out[j], tol)["max_abs_err"]
+                        for j, w in enumerate(cuts)]
+                errs += [compare(f"{name} launch rank {j} {dname}", part_k(w), part_p(w), tol)["max_abs_err"]
+                         for j, w in enumerate(cuts)]
+                other = part_k(cuts[1])
+                orig = mod.all_reduce_
+                mod.all_reduce_ = lambda t, group: t.add_(other)  # rank 1's partial, where the sum sits
+                try:
+                    summed = wrapper(cuts[0])
+                finally:
+                    mod.all_reduce_ = orig
+                s_err = compare(f"{name} two ranks through the wrapper vs whole {dname}", summed, whole(),
+                                tol)["max_abs_err"]
+                ms = time_ms(lambda: part_k(cuts[0]))
+                plain_ms = time_ms(lambda: part_p(cuts[0]), iters=5)
+                R, Wl = B * T, W // 2
+                if name == "fused_mlp_partial":
+                    flops = 2 * 2 * R * W * (2 * W)  # fc and proj over H / 2 = 2W columns
+                else:
+                    flops = 2 * R * W * 3 * Wl + 4 * B * nh // 2 * T * valid * (W // nh) + 2 * R * Wl * W
+                b = bound(nbytes(x, *cuts[0]) + R * W * 4, flops, dname)
+                out[name]["cases"].append({"dtype": dname, "shape": f"{B}x{T}x{W} half", "max_abs_err": max(errs),
+                                           "sum_max_abs_err": s_err, "ms": ms, "plain_ms": plain_ms, **b})
+                print(f"{name} [{B}x{T}x{W}, half of {'H ' + str(4 * W) if 'mlp' in name else str(nh) + ' heads'} "
+                      f"{dname}]: wrapper and launch vs plain partial max abs err {max(errs):.3e}, two ranks "
+                      f"through the wrapper vs the whole kernel {s_err:.3e} (tol {tol}); launch {ms:.4f} ms "
+                      f"(plain {plain_ms:.3f}, bound {b['bound_ms']:.4f} by {b['bound_by']})", flush=True)
+    return out
+
+
+def check_partial_backward() -> dict:
+    """B5's and B4's partial modes (their launches up to dy over one rank's
+    cut, then the LayerNorm backward, with no group: the other rank's dy is
+    not added) against the plain partial backward on all seven outputs, in
+    both dtypes; and the two ranks' dy summed, through the LayerNorm
+    backward, against the whole kernel's dx."""
+    import torch
+
+    from tapclip_tpu_torch.ops.fused_mha import (
+        _attn_block_bwd_cuda, _attn_block_bwd_partial_cuda, attn_block_bwd_reference,
+    )
+    from tapclip_tpu_torch.ops.fused_mlp import _fused_mlp_bwd_cuda, _fused_mlp_bwd_partial_cuda, fused_mlp_bwd_reference
+
+    B, T, W, nh, valid = PARTIAL_SHAPE
+    out = {"fused_mlp_bwd_partial": {"cases": []}, "fused_attn_block_bwd_partial": {"cases": []}}
+    for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        dname = str(dtype).replace("torch.", "")
+        c = _partial_case(dtype, 8)
+        x, g, (gm, bt) = c["x"], c["g"], c["ln"]
+        for name, kern, plain, whole, cuts in (
+            ("fused_mlp_bwd_partial", lambda w, **k: _fused_mlp_bwd_partial_cuda(x, g, gm, bt, *w, eps=1e-5, **k),
+             lambda w: fused_mlp_bwd_reference(x, g, gm, bt, *w, 1e-5),
+             lambda: _fused_mlp_bwd_cuda(x, g, gm, bt, *c["mlp"][:3], eps=1e-5), c["mlp_cut"]),
+            ("fused_attn_block_bwd_partial",
+             lambda w, **k: _attn_block_bwd_partial_cuda(x, g, gm, bt, *w, nh // 2, valid, 1e-5, **k),
+             lambda w: attn_block_bwd_reference(x, g, gm, bt, *w, nh // 2, valid, 1e-5),
+             lambda: _attn_block_bwd_cuda(x, g, gm, bt, *c["attn"][:3], nh, valid, 1e-5), c["attn_cut"]),
+        ):
+            got, want = kern(cuts[0], group=None), plain(cuts[0])
+            torch.cuda.synchronize()
+            rel, ab = _rel_errors(got, want)
+            require(rel <= tol, f"{name} {dname}: partial backward vs plain norm-rel err {rel:.3e} > {tol}")
+            # the two ranks' dy summed: the LayerNorm backward of their sum is the whole block's dx
+            dx_sum = _summed_dx(name, x, g, gm, bt, cuts, nh, valid)
+            s_rel, s_ab = _rel_errors([dx_sum], [whole()[0]])
+            require(s_rel <= tol, f"{name} {dname}: two ranks' dy summed vs the whole dx norm-rel err {s_rel:.3e}")
+            ms = time_ms(lambda: kern(cuts[0], group=None), iters=10)
+            plain_ms = time_ms(lambda: plain(cuts[0]), iters=3, warmup=1)
+            R = B * T
+            flops = 3 * 2 * R * W * (2 * W) if "mlp" in name else (
+                2 * R * W * 3 * (W // 2) * 2 + 2 * R * W * (W // 2) + 8 * B * nh // 2 * T * valid * (W // nh))
+            b = bound(nbytes(x, g, *cuts[0]) + nbytes(*[t for t in got if t is not None]), flops, dname)
+            out[name]["cases"].append({"dtype": dname, "shape": f"{B}x{T}x{W} half", "max_rel_err": rel,
+                                       "max_abs_err": ab, "sum_max_rel_err": s_rel, "ms": ms, "plain_ms": plain_ms,
+                                       **b})
+            print(f"{name} [{B}x{T}x{W}, half {dname}]: vs plain partial norm-rel err {rel:.3e} (abs {ab:.3e}), two "
+                  f"ranks' dy summed vs the whole dx {s_rel:.3e} (tol {tol}); {ms:.4f} ms with weight gradients "
+                  f"(plain {plain_ms:.3f}, bound {b['bound_ms']:.4f} by {b['bound_by']})", flush=True)
+    return out
+
+
+def _summed_dx(name, x, g, gm, bt, cuts, nh, valid):
+    """dx of the whole block from the two ranks' partial dy (their launches up
+    to dy, summed, then tapclip_ln_bwd), as one process holds both cuts."""
+    import torch
+
+    from tapclip_tpu_torch.ops import _build
+    from tapclip_tpu_torch.ops import fused_mha as A
+    from tapclip_tpu_torch.ops import fused_mlp as M
+
+    dys = []
+    for w in cuts:
+        box = {}
+
+        def keep(t, group, box=box):  # the all-reduce's place: keep this rank's dy
+            box["dy"] = t.clone()
+            return t
+
+        orig_m, orig_a = M.all_reduce_, A.all_reduce_
+        M.all_reduce_ = A.all_reduce_ = keep
+        try:
+            if "mlp" in name:
+                M._fused_mlp_bwd_partial_cuda(x, g, gm, bt, *w, eps=1e-5, group=None, weight_grads=False)
+            else:
+                A._attn_block_bwd_partial_cuda(x, g, gm, bt, *w, nh // 2, valid, 1e-5, group=None,
+                                               weight_grads=False)
+        finally:
+            M.all_reduce_, A.all_reduce_ = orig_m, orig_a
+        dys.append(box["dy"])
+    # mean / rstd from the LayerNorm rows: one more front launch keeps its stats
+    R, W = x.numel() // x.shape[-1], x.shape[-1]
+    n, rstd, _ = M._ln_parts(x.reshape(R, W), gm, bt, 1e-5)
+    mean = x.reshape(R, W).float().mean(-1)
+    stats = torch.cat([mean, rstd.reshape(-1)])
+    S = dys[0].numel() // (R * W)
+    dx, _ = M._ln_bwd_cuda(x, g.contiguous(), dys[0] + dys[1], stats, gm.float().contiguous(), R, W, S, False,
+                           _build.dtype_code(x.dtype), _build.stream_handle(x.device))
+    return dx
+
+
+# --- "parallel": the data and model mesh axes (tapclip_tpu_torch/parallel/) --------------------
+
+PARALLEL_STEPS = 3
+PARALLEL_BATCH = 32  # the global batch
+PARALLEL_SEED = 20  # pretrain_phase's tree
+# The kernels a mesh form runs (K1, K2, B4, B5 in their partial modes under tp > 1), whose
+# launches each rank must show; K3 only in the prompt-tune forms (the attribution layer).
+PARALLEL_KERNELS = ("fused_mlp", "fused_attn_block", "fused_attn_block_bwd", "fused_mlp_bwd", "fused_mha",
+                    "fused_mha_bwd", "fused_attention_aux")
+PARTIAL_OF = {"fused_mlp": "fused_mlp_partial", "fused_attn_block": "fused_attn_block_partial",
+              "fused_mlp_bwd": "fused_mlp_bwd_partial", "fused_attn_block_bwd": "fused_attn_block_bwd_partial"}
+# Each group of ranks shares the one card over gloo (the rank wrapper copies
+# gloo's missing send / recv on CUDA tensors through host memory, never the
+# package: _stage_p2p_through_host).
+PARALLEL_GROUPS = {  # (dp, tp): the forms each group runs ("form" in f32, "form:bfloat16")
+    (2, 1): ("infonce", "siglip"),
+    (1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16"),
+    (2, 2): ("infonce",),
+}
+PARALLEL_TIMEOUT = 400.0
+
+
+def _stage_p2p_through_host() -> None:
+    """Replace ``torch.distributed.batch_isend_irecv`` with a version that
+    copies CUDA tensors to host memory, sends and receives there, and copies
+    the received ones back: gloo has no send / recv on CUDA tensors in the
+    card's torch (read on the first chip call of this slice; every other
+    collective the package calls it takes).  This script's rank wrapper
+    only; the package never stages a collective."""
+    import torch.distributed as dist
+
+    orig = dist.batch_isend_irecv
+
+    class _Done:
+        def wait(self):
+            return True
+
+    def batch_isend_irecv(ops):
+        staged = [(op, op.tensor.cpu()) for op in ops]
+        for r in orig([dist.P2POp(op.op, h, op.peer, op.group) for op, h in staged]):
+            r.wait()
+        for op, h in staged:  # the received tensors only: a sent one may be saved for a backward
+            if op.op is not dist.isend:
+                op.tensor.copy_(h)
+        return [_Done() for _ in ops]
+
+    dist.batch_isend_irecv = batch_isend_irecv
+    print("parallel rank wrapper: gloo's batch_isend_irecv on CUDA tensors copied through host memory", flush=True)
+
+
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "p2p": 0}
+
+
+@contextlib.contextmanager
+def _counting_collectives():
+    """Count the bytes each torch.distributed collective the package calls
+    moves, from its tensors' shapes: an all-reduce its tensor, an all-gather
+    its gathered output, a send its tensor (COLLECTIVE_BYTES, per call of
+    this context's body)."""
+    import torch.distributed as dist
+
+    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "batch_isend_irecv")}
+
+    def all_reduce(t, *a, **k):
+        COLLECTIVE_BYTES["all_reduce"] += t.numel() * t.element_size()
+        return orig["all_reduce"](t, *a, **k)
+
+    def all_gather(out, t, *a, **k):
+        COLLECTIVE_BYTES["all_gather"] += sum(o.numel() * o.element_size() for o in out)
+        return orig["all_gather"](out, t, *a, **k)
+
+    def batch_isend_irecv(ops):
+        COLLECTIVE_BYTES["p2p"] += sum(op.tensor.numel() * op.tensor.element_size() for op in ops
+                                       if op.op is dist.isend or getattr(op.op, "__name__", "") == "isend")
+        return orig["batch_isend_irecv"](ops)
+
+    for k in COLLECTIVE_BYTES:
+        COLLECTIVE_BYTES[k] = 0
+    dist.all_reduce, dist.all_gather, dist.batch_isend_irecv = all_reduce, all_gather, batch_isend_irecv
+    try:
+        yield COLLECTIVE_BYTES
+    finally:
+        dist.all_reduce, dist.all_gather, dist.batch_isend_irecv = (orig["all_reduce"], orig["all_gather"],
+                                                                    orig["batch_isend_irecv"])
+
+
+def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
+    """PARALLEL_STEPS InfoNCE / SigLIP steps at the global batch on ``mesh``
+    (each rank its rows and its shards), beside rank 0's one-process kernel
+    path from the same tree: losses and the displacement of the gathered
+    tree (PRETRAIN_TOL), and this rank's launches."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_params
+
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL].replace(dtype=dtype)
+    tree0 = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(PARALLEL_SEED), cfg)
+    if loss == "siglip":
+        tree0 = P.add_siglip_params(tree0)
+    batches = [_pretrain_batch(cfg, PARALLEL_BATCH, 30 + i) for i in range(PARALLEL_STEPS)]
+    ref = None
+    if mesh.rank == 0:
+        ref_tree = _tree_copy(tree0)
+        ref_losses, ref_ms, _ = _run_steps(cfg, ref_tree, batches, loss=loss)
+        ref = (ref_losses, ref_ms, ref_tree)
+    local = shard_params(_tree_copy(tree0), mesh)
+    opt = P.PretrainOptimizer(P.set_trainable(local), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+    step = P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    with _counting_collectives() as moved:
+        for x, ids in batches:
+            xb, idb = shard_batch((x, ids), mesh)
+            m, t = _sync_ms(lambda: step(local, xb, idb))
+            losses.append(float(m["loss"]))
+            ms.append(t)
+        step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
+    counts = read_counts()
+    whole = gather_params(local, mesh)
+    out = {"losses": losses, "ms": ms, "launches": counts, "bytes_per_step": step_bytes}
+    if ref is not None:
+        tol = PRETRAIN_TOL[dtype]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+        step_err, apart, worst = _displacement(whole, tree0, ref[2], tree0, PRETRAIN_LR, PARALLEL_STEPS)
+        out.update(ref_losses=ref[0], ref_ms=ref[1], loss_err=loss_err, step_err=step_err, apart=apart, worst=worst)
+        require(np.isfinite(losses).all() and loss_err <= tol["loss"] and step_err <= tol["step"]
+                and apart <= PRETRAIN_APART,
+                f"parallel {loss} {dict(mesh.shape)} {dtype}: loss {loss_err:.3e}, displacement {step_err:.3e}, "
+                f"entries apart {apart:.2e} against the one-process kernel path")
+    return out
+
+
+def _parallel_prompt_form(mesh, dtype: str) -> dict:
+    """PARALLEL_STEPS ref_compat prompt-tune steps, pixels in at the global
+    batch (the K3 aux through the head-sum all-reduce under tp), beside rank
+    0's one-process kernel path: losses, grad norms, the ctx displacement
+    (TRAIN_TOL)."""
+    import torch
+
+    from tapclip_tpu_torch.config import VIT_B_16, TrainConfig
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+    from tapclip_tpu_torch.serve import build_model
+
+    cfg = VIT_B_16.replace(dtype=dtype)
+    clip_params = build_model(VIT_B_16, CLASSES, "cuda", seed=0).clip_params
+    rng = np.random.default_rng(0)
+    images = [rng.integers(0, 256, (PARALLEL_BATCH, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+              for _ in range(PARALLEL_STEPS)]
+    labels = [rng.integers(0, len(TRAIN_CLASSES), PARALLEL_BATCH) for _ in range(PARALLEL_STEPS)]
+    mask = np.ones(PARALLEL_BATCH, bool)
+
+    def run(params, m):
+        model = FullModel(TRAIN_CLASSES, clip_params, cfg)  # the bank and the trainable leaves: replicated
+        state = init_train_state(model.trainable, make_optimizer(TrainConfig(batch_size=PARALLEL_BATCH)))
+        ctx0 = state.params["ctx"].detach().float().cpu().numpy().copy()
+        step = make_train_step(cfg, model.prompt_cfg, use_image_feats=False, mesh=m)
+        losses, norms, ms = [], [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        with _counting_collectives() as moved:
+            for x, y in zip(images, labels):
+                batch = shard_batch((x, y, mask), m) if m is not None else (x, y, mask)
+                (state, metrics), t = _sync_ms(lambda: step(params, state, model.prompt_learner.bank, *batch))
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+                ms.append(t)
+            step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
+        return {"losses": losses, "grad_norm": norms, "ms": ms, "launches": read_counts(), "ctx0": ctx0,
+                "ctx": state.params["ctx"].detach().float().cpu().numpy(), "bytes_per_step": step_bytes}
+
+    ref = run(clip_params, None) if mesh.rank == 0 else None
+    out = run(shard_params(clip_params, mesh), mesh)
+    if ref is not None:
+        tol = TRAIN_TOL[dtype]
+        errs = {"loss": max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref["losses"])),
+                "grad_norm": max(abs(a - b) / abs(b) for a, b in zip(out["grad_norm"], ref["grad_norm"])),
+                "ctx_step": _step_err(out["ctx"], out["ctx0"], ref["ctx"], ref["ctx0"])}
+        out.update(ref_losses=ref["losses"], ref_ms=ref["ms"], errors=errs)
+        for key, err in errs.items():
+            require(err <= tol[key], f"parallel prompt {dict(mesh.shape)} {dtype}: {key} error {err:.3e} > {tol[key]}")
+    del out["ctx0"], out["ctx"]
+    return out
+
+
+def parallel_rank_main(argv) -> int:
+    """One rank of a group (``chip_smoke.py --parallel-rank DP TP OUT
+    [BACKEND [FORM ...]]``, RANK / WORLD_SIZE / MASTER_* in the environment):
+    the forms (default PARALLEL_GROUPS[(dp, tp)]), its results in
+    ``OUT/rank{r}.json``.  gloo (the default): every rank on the one card,
+    the collectives gloo lacks on CUDA staged through host memory.  nccl:
+    one card a rank, ``cuda:LOCAL_RANK``, as ``torchrun --nproc-per-node N
+    chip_smoke.py --parallel-rank DP TP OUT nccl`` starts them on a machine
+    with N cards; rank 0 prints each form's line."""
+    import torch
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch.ops import _build
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+
+    dp, tp, out_dir = int(argv[0]), int(argv[1]), argv[2]
+    backend = argv[3] if len(argv) > 3 else "gloo"
+    forms = argv[4:] or PARALLEL_GROUPS[(dp, tp)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        if backend == "gloo":
+            _stage_p2p_through_host()
+        _build.library()  # the parent's build, loaded
+        mesh = make_mesh(dp=dp, tp=tp, backend=backend)
+        res = {}
+        for form in forms:
+            t0 = time.perf_counter()
+            name, _, dtype = form.partition(":")
+            if name == "prompt":
+                res[form] = _parallel_prompt_form(mesh, dtype or "float32")
+            else:
+                res[form] = _parallel_pretrain_form(mesh, name, dtype or "float32")
+            res[form]["seconds"] = time.perf_counter() - t0
+            r0 = res[form]
+            if backend == "nccl" and mesh.rank == 0:
+                errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
+                print(f"parallel dp={dp} tp={tp} {form} (NCCL, {dp * tp} cards): loss "
+                      f"{[round(v, 5) for v in r0['losses']]} vs one process "
+                      f"{[round(v, 5) for v in r0['ref_losses']]}, errors {errs}; ms per step "
+                      f"{[round(v, 1) for v in r0['ms']]} (one process {[round(v, 1) for v in r0['ref_ms']]}); "
+                      f"bytes a step {r0['bytes_per_step']}; launches "
+                      f"{ {k: v for k, v in r0['launches'].items() if v} } ({card_line()})", flush=True)
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(dp: int, tp: int, out_dir: str):
+    port = _free_port()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(dp * tp))
+    os.makedirs(out_dir, exist_ok=True)
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(dp), str(tp), out_dir],
+                             env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(dp * tp)]
+
+
+def _join_ranks(procs, what: str, deadline: float) -> None:
+    """Join every rank by ``deadline`` (kill all on a timeout); a non-zero exit
+    of any rank fails the phase with its output."""
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise SmokeFailure(f"parallel {what}: a rank did not finish by the phase's deadline")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith("parallel rank wrapper") and r == 0:
+                print(line, flush=True)
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    require(not bad, f"parallel {what}: ranks failed {bad}:\n" + "\n".join(log[-3000:] for log in logs))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _nccl_world_one(model, card: str) -> dict:
+    """(a) NCCL at world size 1 in this process: the mesh code's prompt-tune
+    step (ref_compat, K3 aux) and InfoNCE step at batch 32 against the steps
+    with no mesh, bit for bit, and their times."""
+    import torch
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS, TrainConfig
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models.model_wrapper import FullModel
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        require(mesh.backend == "nccl", f"the mesh's groups are {mesh.backend}, not nccl")
+        cfg = model.clip_cfg
+        rng = np.random.default_rng(3)
+        images = [rng.integers(0, 256, (PARALLEL_BATCH, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+                  for _ in range(PARALLEL_STEPS)]
+        labels = [rng.integers(0, len(TRAIN_CLASSES), PARALLEL_BATCH) for _ in range(PARALLEL_STEPS)]
+        mask = np.ones(PARALLEL_BATCH, bool)
+        prompt = {}
+        for name, m in (("dense", None), ("mesh", mesh), ("dense again", None), ("mesh again", mesh)):
+            fm = FullModel(TRAIN_CLASSES, model.clip_params, cfg)
+            state = init_train_state(fm.trainable, make_optimizer(TrainConfig(batch_size=PARALLEL_BATCH)))
+            step = make_train_step(cfg, fm.prompt_cfg, use_image_feats=False, mesh=m)
+            vals, ms = [], []
+            for x, y in zip(images, labels):
+                (state, metrics), t = _sync_ms(lambda: step(fm.clip_params, state, fm.prompt_learner.bank, x, y, mask))
+                vals += [metrics["loss"], metrics["grad_norm"]]
+                ms.append(t)
+            prompt[name] = (torch.stack(vals).cpu(), state.params["ctx"].detach().cpu(), ms)
+        require(torch.equal(prompt["dense"][0], prompt["mesh"][0]) and torch.equal(prompt["dense"][1], prompt["mesh"][1]),
+                "parallel (a): the prompt-tune step through the mesh at NCCL world 1 is not the dense step bit for bit")
+        pcfg = MODEL_PRESETS[PRETRAIN_MODEL]
+        tree0 = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(PARALLEL_SEED), pcfg)
+        batches = [_pretrain_batch(pcfg, PARALLEL_BATCH, 30 + i) for i in range(PARALLEL_STEPS)]
+        pre = {}
+        for name, m in (("dense", None), ("mesh", mesh), ("dense again", None), ("mesh again", mesh)):
+            tree = _tree_copy(tree0)
+            opt = P.PretrainOptimizer(P.set_trainable(tree), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+            step = P.make_pretrain_step(pcfg, opt, mesh=m)
+            vals, ms = [], []
+            with _counting_collectives() as moved:
+                for x, ids in batches:
+                    out, t = _sync_ms(lambda: step(tree, x, ids))
+                    vals.append(out["loss"])
+                    ms.append(t)
+                nccl_bytes = moved["all_reduce"] // PARALLEL_STEPS
+            pre[name] = (torch.stack(vals).cpu(), tree, ms)
+        require(torch.equal(pre["dense"][0], pre["mesh"][0]) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(P.named_leaves(pre["dense"][1]), P.named_leaves(pre["mesh"][1]))),
+            "parallel (a): the InfoNCE step through the mesh at NCCL world 1 is not the dense step bit for bit")
+        res = {"prompt_ms": {k: v[2] for k, v in prompt.items()}, "infonce_ms": {k: v[2] for k, v in pre.items()},
+               "infonce_allreduce_bytes": nccl_bytes}
+        print(f"parallel (a): NCCL world 1 in this process: the prompt-tune step (ref_compat, pixels in, batch "
+              f"{PARALLEL_BATCH}, {PARALLEL_STEPS} steps) and the InfoNCE step (every leaf trained, batch "
+              f"{PARALLEL_BATCH}) through the mesh equal the dense steps bit for bit (loss, grad norm, ctx; every "
+              f"leaf); ms per step in turns dense/mesh/dense/mesh: prompt "
+              f"{[[round(t, 1) for t in v[2]] for v in prompt.values()]}, InfoNCE "
+              f"{[[round(t, 1) for t in v[2]] for v in pre.values()]}; the mesh InfoNCE step all-reduces "
+              f"{nccl_bytes} bytes (its gradients) ({card})", flush=True)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+# (d): two replicas against one device, max abs error on unit-norm
+# embeddings and on probabilities.  Each replica runs half the rows, and the
+# products outside the kernels (the patch embedding, the projections) are
+# cuBLAS calls whose algorithm, so the order of their sums, follows the row
+# count: measured 1.04e-7 on the image embeddings on one H100 80GB HBM3 at
+# 700 W; the kernels' rows do not depend on the batch.
+PARALLEL_DP_TOL = 1e-6
+SERVE_ROUNDING = 1e-6  # PredictService rounds each probability to 6 decimals
+
+
+def _dp_replicas(model, card: str) -> dict:
+    """(d) serve, featurize and predict over the device list ["cuda:0",
+    "cuda:0"] (two replicas, each batch split in two and gathered in order)
+    against one device, within PARALLEL_DP_TOL."""
+    import torch
+
+    from tapclip_tpu_torch.featurize import make_image_embed_fn, make_text_embed_fn
+    from tapclip_tpu_torch.models.model_wrapper import text_features_with_attribution
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+    from tapclip_tpu_torch.predict import make_classify_fn
+    from tapclip_tpu_torch.serve import PredictService
+
+    mesh = make_mesh(2, devices=["cuda:0", "cuda:0"])
+    cfg = model.clip_cfg
+    rng = np.random.default_rng(5)
+    images = rng.integers(0, 256, (8, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
+    ids = rng.integers(1, cfg.vocab_size - 2, (8, cfg.context_length)).astype(np.int32)
+    ids[np.arange(8), rng.integers(4, cfg.context_length, 8)] = cfg.vocab_size - 1
+    x = torch.from_numpy(images).cuda()
+    errs = {}
+    with torch.inference_mode():
+        for name, fn, args in (("featurize image", make_image_embed_fn, (x,)), ("featurize text", make_text_embed_fn, (ids,))):
+            a, b = fn(cfg, mesh)(model.clip_params, *args), fn(cfg)(model.clip_params, *args)
+            errs[name] = float((a - b).abs().max())
+        feats, _ = text_features_with_attribution(model.clip_params, model.trainable["ctx"], model.prompt_learner.bank,
+                                                  cfg, model.prompt_cfg, model.trainable["adjustor"])
+        scale, cmask = model.trainable["logit_scale"].float(), model.prompt_learner.bank.class_mask
+        a = make_classify_fn(cfg, mesh)(model.clip_params, feats, scale, cmask, x)
+        b = make_classify_fn(cfg)(model.clip_params, feats, scale, cmask, x)
+        errs["predict classify"] = float((a - b).abs().max())
+    served = {}
+    for name, m in (("one", None), ("dp2", mesh)):
+        svc = PredictService(model, batch_size=8, max_latency_ms=2000.0, mesh=m)
+        try:
+            with ThreadPoolExecutor(8) as pool:
+                probs = list(pool.map(lambda img: svc.predict(img)["probs"], list(images)))
+            served[name] = np.array([[p[c] for c in CLASSES] for p in probs])
+        finally:
+            svc.close()
+    errs["serve probs"] = float(np.abs(served["one"] - served["dp2"]).max())
+    # Both sides' probabilities come rounded: values within PARALLEL_DP_TOL read at most one rounding unit more.
+    require(max(v for k, v in errs.items() if k != "serve probs") <= PARALLEL_DP_TOL
+            and errs["serve probs"] <= PARALLEL_DP_TOL + SERVE_ROUNDING,
+            f"parallel (d): two replicas against one device {errs}")
+    print(f"parallel (d): featurize (image and text embeddings), predict's classify and PredictService over two "
+          f"replicas on ['cuda:0', 'cuda:0'] against one device, max abs err {errs} (tol {PARALLEL_DP_TOL}, the "
+          f"served probabilities, rounded to 6 decimals, {PARALLEL_DP_TOL + SERVE_ROUNDING}; 8 "
+          f"images a batch) ({card})", flush=True)
+    return errs
+
+
+def parallel_phase(model, card: str) -> dict:
+    """The "parallel" phase: (a) NCCL world 1 bit for bit, (b)/(c) gloo groups
+    of 2 and 4 ranks sharing the one card (dp = 2 InfoNCE and SigLIP, tp = 2
+    InfoNCE and prompt tuning, 2 x 2) against rank 0's one-process kernel
+    path, with each rank's launches, (d) dp replicas of serve, featurize and
+    predict.  Two ranks on one card over gloo check the code paths and the
+    kernels; their times are not a scaling figure."""
+    import shutil
+    import tempfile
+
+    a = _nccl_world_one(model, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    groups = {}
+    try:
+        deadline = time.monotonic() + PARALLEL_TIMEOUT
+        for (dp, tp) in PARALLEL_GROUPS:
+            d = os.path.join(tmp, f"dp{dp}tp{tp}")
+            t0 = time.perf_counter()
+            _join_ranks(_spawn_ranks(dp, tp, d), f"dp={dp} tp={tp}", deadline)
+            ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(dp * tp)]
+            groups[(dp, tp)] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+            for form in PARALLEL_GROUPS[(dp, tp)]:
+                r0 = ranks[0][form]
+                for r, res in enumerate(ranks):
+                    c = res[form]["launches"]
+                    prompt = form.startswith("prompt")
+                    want = [k for k in PARALLEL_KERNELS if k != "fused_attention_aux" or prompt]
+                    if prompt:  # the frozen image tower runs K2 / K1 forward only
+                        want = [k for k in want if k not in ("fused_mha", "fused_mha_bwd")]
+                    for k in want:
+                        n = c.get(PARTIAL_OF[k], 0) if tp > 1 and k in PARTIAL_OF else c.get(k, 0)
+                        require(n > 0, f"parallel dp={dp} tp={tp} {form}: rank {r} launched no {k}"
+                                       f"{' (partial mode)' if tp > 1 and k in PARTIAL_OF else ''}: {c}")
+                    if tp > 1:
+                        require(all(c.get(k, 0) == 0 for k in PARTIAL_OF), f"parallel tp={tp} {form}: rank {r} "
+                                f"launched a whole-block kernel where its partial mode belongs: {c}")
+                errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
+                print(f"parallel dp={dp} tp={tp} {form} (gloo, {dp * tp} ranks sharing one card; not a scaling "
+                      f"figure): loss {[round(v, 5) for v in r0['losses']]} vs one process "
+                      f"{[round(v, 5) for v in r0['ref_losses']]}, errors {errs}; ms per step rank 0 "
+                      f"{[round(v, 1) for v in r0['ms']]} (one process {[round(v, 1) for v in r0['ref_ms']]}); "
+                      f"rank 0 launches { {k: v for k, v in r0['launches'].items() if v} }; bytes a step moved by "
+                      f"rank 0's collectives (from their tensors' shapes) {r0['bytes_per_step']}; "
+                      f"{r0['seconds']:.1f} s ({card})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    d = _dp_replicas(model, card)
+    launches = {}
+    for g in groups.values():
+        for res in g["ranks"]:
+            for form in res.values():
+                for k, v in form["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    return {"a": a, "groups": {f"dp{dp}tp{tp}": g for (dp, tp), g in groups.items()}, "d": d, "launches": launches}
+
 def main() -> int:
     import torch
 
@@ -5841,6 +6500,7 @@ def main() -> int:
     pretrained = phase("pretrain", pretrain_phase, card)
     moe = phase("moe", moe_phase, card)
     exported = phase("export", export_phase, model, card)
+    parallel = phase("parallel", parallel_phase, model, card)
 
     record = []
     for name, meta in KERNELS.items():
@@ -5879,7 +6539,18 @@ def main() -> int:
             "pretrain_launches": pretrained["launches"].get(name, 0),
             "moe_launches": moe["launches"].get(name, 0),
             "export_launches": exported["launches"].get(name, 0),
+            # the "parallel" phase's ranks, summed (the partial modes on their own below)
+            "parallel_launches": parallel["launches"].get(name, 0),
         }
+        partial = {"fused_mlp": "fused_mlp_partial", "fused_attn_block": "fused_attn_block_partial",
+                   "fused_mlp_bwd": "fused_mlp_bwd_partial", "fused_attn_block_bwd": "fused_attn_block_bwd_partial"}
+        if name in partial:
+            cases = kernels[partial[name]]["cases"]
+            entry.update({"partial_launches": parallel["launches"].get(partial[name], 0),
+                          "partial_max_abs_err": max(c["max_abs_err"] for c in cases),
+                          "partial_cases": [{k: c[k] for k in ("dtype", "shape", "ms", "plain_ms", "bound_ms",
+                                                                 "bound_by", "max_abs_err") if k in c}
+                                            for c in cases]})
         if name in BACKWARD or name in FLASH[:3]:
             entry.update(max_rel_err=max(c["max_rel_err"] for c in f32_cases),
                          bf16_max_rel_err=max(c["max_rel_err"] for c in bf16_cases))
@@ -5920,4 +6591,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -57,6 +57,15 @@
 // The A/B variants S3/S4 (attn_variants.cu) are these four launches with
 // their switches.  S1 (fused_layer.cu) runs this file's tiles in one
 // persistent launch.
+// Partial mode (tapclip_attn_block_partial), for Megatron tensor
+// parallelism: the rank holds the q, k and v columns of its own heads
+// (w_qkv [W, 3 Wl] laid out [q_j | k_j | v_j], b_qkv [3 Wl]) and the
+// matching rows of w_out ([Wl, W]), Wl = its heads x Dh.  The LayerNorm
+// runs over the whole width W, the QKV product and the attention over the
+// local heads (qkv [R, 3 Wl], attn [R, Wl]), and the out-projection stores
+// attn . w_out alone in f32 (gemm_mma.cuh's kStore), with no residual and
+// no b_out.  The caller all-reduces the f32 partials over the model group
+// and adds x + b_out once, rounding once, as kResidual does.
 #include <stdint.h>
 
 #include "attn_core_mma.cuh"
@@ -69,37 +78,37 @@ namespace {
 using namespace tapclip;
 using gemm::Epi;
 
-template <typename T, int CE>
+// Wl: the width of the heads this call runs (W, or a rank's Wl in the
+// partial mode, where out is the f32 out-projection alone).
+template <typename T, int CE, bool PARTIAL>
 cudaError_t launch_block(const T* x, const float* gamma, const float* beta, const T* w_qkv, const float* b_qkv,
-                         const T* w_out, const float* b_out, T* out, float* qkv, T* ya, int B, int T_, int W,
-                         int H, int valid, float eps, cudaStream_t s) {
+                         const T* w_out, const float* b_out, void* out, float* qkv, T* ya, int B, int T_, int W,
+                         int Wl, int H, int valid, float eps, cudaStream_t s) {
   const int R = B * T_;
   ln_rows_kernel<T><<<(R + kLnWarps - 1) / kLnWarps, kLnThreads, 0, s>>>(x, gamma, beta, ya, nullptr, nullptr,
                                                                           R, W, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = gemm::launch_pass<T, 128, CE, gemm::kQkv, false, float>(
-      ya, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 2 * W}, qkv, R, 3 * W, W, s);
+      ya, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 2 * Wl}, qkv, R, 3 * Wl, W, s);
   if (err != cudaSuccess) return err;
-  err = attn::launch_attn_core<float, T, T>(qkv, ya, nullptr, B, H, T_, W, valid, s);
+  err = attn::launch_attn_core<float, T, T>(qkv, ya, nullptr, B, H, T_, Wl, valid, s);
   if (err != cudaSuccess) return err;
-  return gemm::launch_pass<T, 64, CE, gemm::kResidual>(ya, w_out, Epi<T>{b_out, x, nullptr, nullptr, 0}, out, R,
-                                                       W, W, s);
+  if constexpr (PARTIAL)
+    return gemm::launch_pass<T, 64, CE, gemm::kStore, false, float>(ya, w_out, Epi<T>{}, static_cast<float*>(out),
+                                                                    R, W, Wl, s);
+  else
+    return gemm::launch_pass<T, 64, CE, gemm::kResidual>(ya, w_out, Epi<T>{b_out, x, nullptr, nullptr, 0},
+                                                         static_cast<T*>(out), R, W, Wl, s);
 }
 
 bool aligned(uintptr_t ptrs, int dtype) { return (ptrs & (dtype == 0 ? 15 : 7)) == 0; }
 
-}  // namespace
-
-// K2, all four launches.  dtype: 0 float32, 1 bfloat16.  Head dim
-// W / n_heads in {16, 32, 64, 128}; valid in [1, T]; qkv an f32 workspace of
-// B T 3W, ya a scratch of B T W elements of the dtype; x, w_qkv, w_out, out
-// and ya 16-byte aligned in float32, 8-byte aligned in bfloat16.
-extern "C" int tapclip_attn_block(const void* x, const void* gamma, const void* beta, const void* w_qkv,
-                                  const void* b_qkv, const void* w_out, const void* b_out, void* out, void* qkv,
-                                  void* ya, int B, int T, int W, int n_heads, int valid, float eps, int dtype,
-                                  void* stream) {
-  if (B <= 0 || T <= 0 || n_heads <= 0 || W % n_heads || W % 4 || valid < 1 || valid > T)
+template <bool PARTIAL>
+int dispatch(const void* x, const void* gamma, const void* beta, const void* w_qkv, const void* b_qkv,
+             const void* w_out, const void* b_out, void* out, void* qkv, void* ya, int B, int T, int W, int Wl,
+             int n_heads, int valid, float eps, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || n_heads <= 0 || Wl % n_heads || W % 4 || Wl % 4 || Wl > W || valid < 1 || valid > T)
     return cudaErrorInvalidValue;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_qkv) |
                          reinterpret_cast<uintptr_t>(w_out) | reinterpret_cast<uintptr_t>(out) |
@@ -112,19 +121,44 @@ extern "C" int tapclip_attn_block(const void* x, const void* gamma, const void* 
   auto* ws = static_cast<float*>(qkv);
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_block<float, 4>(static_cast<const float*>(x), g, bt, static_cast<const float*>(w_qkv), bq,
-                                  static_cast<const float*>(w_out), bo, static_cast<float*>(out), ws,
-                                  static_cast<float*>(ya), B, T, W, n_heads, valid, eps, s);
+    return launch_block<float, 4, PARTIAL>(static_cast<const float*>(x), g, bt, static_cast<const float*>(w_qkv), bq,
+                                           static_cast<const float*>(w_out), bo, out, ws, static_cast<float*>(ya), B,
+                                           T, W, Wl, n_heads, valid, eps, s);
   if (dtype == 1) {
     using bf16 = __nv_bfloat16;
     const auto* X = static_cast<const bf16*>(x);
     const auto* Wq = static_cast<const bf16*>(w_qkv);
     const auto* Wo = static_cast<const bf16*>(w_out);
-    if ((ptrs & 15) == 0 && W % 8 == 0)
-      return launch_block<bf16, 8>(X, g, bt, Wq, bq, Wo, bo, static_cast<bf16*>(out), ws, static_cast<bf16*>(ya), B,
-                                   T, W, n_heads, valid, eps, s);
-    return launch_block<bf16, 4>(X, g, bt, Wq, bq, Wo, bo, static_cast<bf16*>(out), ws, static_cast<bf16*>(ya), B, T,
-                                 W, n_heads, valid, eps, s);
+    if ((ptrs & 15) == 0 && W % 8 == 0 && Wl % 8 == 0)
+      return launch_block<bf16, 8, PARTIAL>(X, g, bt, Wq, bq, Wo, bo, out, ws, static_cast<bf16*>(ya), B, T, W, Wl,
+                                            n_heads, valid, eps, s);
+    return launch_block<bf16, 4, PARTIAL>(X, g, bt, Wq, bq, Wo, bo, out, ws, static_cast<bf16*>(ya), B, T, W, Wl,
+                                          n_heads, valid, eps, s);
   }
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// K2, all four launches.  dtype: 0 float32, 1 bfloat16.  Head dim
+// W / n_heads in {16, 32, 64, 128}; valid in [1, T]; qkv an f32 workspace of
+// B T 3W, ya a scratch of B T W elements of the dtype; x, w_qkv, w_out, out
+// and ya 16-byte aligned in float32, 8-byte aligned in bfloat16.
+extern "C" int tapclip_attn_block(const void* x, const void* gamma, const void* beta, const void* w_qkv,
+                                  const void* b_qkv, const void* w_out, const void* b_out, void* out, void* qkv,
+                                  void* ya, int B, int T, int W, int n_heads, int valid, float eps, int dtype,
+                                  void* stream) {
+  return dispatch<false>(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, out, qkv, ya, B, T, W, W, n_heads, valid, eps,
+                         dtype, stream);
+}
+
+// The partial mode: n_heads is the rank's head count, Wl its heads' width
+// (w_qkv [W, 3 Wl], b_qkv [3 Wl], w_out [Wl, W], qkv [R, 3 Wl] f32, ya
+// [R, W] of the dtype), out an f32 [R, W] buffer for attn . w_out alone.
+extern "C" int tapclip_attn_block_partial(const void* x, const void* gamma, const void* beta, const void* w_qkv,
+                                          const void* b_qkv, const void* w_out, void* out, void* qkv, void* ya,
+                                          int B, int T, int W, int Wl, int n_heads, int valid, float eps, int dtype,
+                                          void* stream) {
+  return dispatch<true>(x, gamma, beta, w_qkv, b_qkv, w_out, nullptr, out, qkv, ya, B, T, W, Wl, n_heads, valid,
+                        eps, dtype, stream);
 }

@@ -68,6 +68,20 @@
 // the wrapper.  No atomics: a call repeats bit for
 // bit.  Emulated error of the split products: python -m
 // tapclip_tpu_torch.scripts.split_error.
+// Partial mode, for Megatron tensor parallelism
+// (tapclip_attn_block_bwd_partial, then mlp_bwd.cu's tapclip_ln_bwd): the
+// rank holds its heads' q, k and v columns (w_qkv [W, 3 Wl], b_qkv [3 Wl],
+// laid out [q_j | k_j | v_j]) and w_out's matching rows ([Wl, W]).  Launches
+// 1-6 run on them (the LayerNorm over the whole width, qkv [R, 3 Wl], gh =
+// g . w_out^T [R, Wl], the attention core over the local heads, dy =
+// dqkv . w_qkv^T [S, R, W]), leaving dy as this rank's partial sum over its
+// heads.  The caller sums dy's S depth partials in order into one [R, W],
+// all-reduces it over the model group (Megatron's identity-forward /
+// all-reduce-backward operator, between launch 6 and 7) and launches the
+// LayerNorm backward (split 1) on the whole dy: dx = g + LN backward,
+// the residual's g added once, dgamma / dbeta complete on every rank.  The
+// local weight gradients (dW_qkv, db_qkv, dW_out) are exact; db_out is
+// complete on every rank and is not summed over the model group.
 #include <stdint.h>
 
 #include "attn_bwd_mma.cuh"
@@ -83,37 +97,51 @@ using gemm::Epi;
 constexpr int kMaxSplit = 4;
 static_assert(kMaxSplit <= kLnMaxSplits, "ln_bwd_rows_kernel sums every partial");
 
+// Launches 1-6 over Wl of the heads' width (W, or a rank's Wl in the
+// partial mode); dy's S partials, mean and rstd left in ws.
 template <typename T, int CE>
-cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_qkv,
-                       const float* b_qkv, const T* w_out, T* dx, float* ws, T* wsd, float* part, int B, int T_,
-                       int W, int H, int valid, float eps, int S, int want_w, cudaStream_t s) {
+cudaError_t launch_front(const T* x, const T* g, const float* gamma, const float* beta, const T* w_qkv,
+                         const float* b_qkv, const T* w_out, float* ws, T* wsd, int B, int T_, int W, int Wl, int H,
+                         int valid, float eps, int S, int want_w, cudaStream_t s) {
   const size_t R = static_cast<size_t>(B) * T_;
-  float* qkv = ws;                  // [R, 3W]
-  float* gh = qkv + R * 3 * W;      // [R, W]
-  float* dy = gh + R * W;           // [S, R, W]
+  float* qkv = ws;                  // [R, 3Wl]
+  float* gh = qkv + R * 3 * Wl;     // [R, Wl]
+  float* dy = gh + R * Wl;          // [S, R, W]
   float* mean = dy + S * R * W;     // [R]
   float* rstd = mean + R;           // [R]
   float* lse = rstd + R;            // [B H, T]
   float* delta = lse + R * H;       // [B H, T]
   T* y = wsd;                       // [R, W]
-  T* dqkv = y + R * W;              // [R, 3W]
-  T* attn = want_w ? dqkv + R * 3 * W : nullptr;  // [R, W]
+  T* dqkv = y + R * W;              // [R, 3Wl]
+  T* attn = want_w ? dqkv + R * 3 * Wl : nullptr;  // [R, Wl]
   const int M = static_cast<int>(R);
   ln_rows_kernel<T><<<(M + kLnWarps - 1) / kLnWarps, kLnThreads, 0, s>>>(x, gamma, beta, y, mean, rstd, M, W,
                                                                           eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = gemm::launch_pass<T, 128, CE, gemm::kBias, false, float>(
-      y, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 0}, qkv, M, 3 * W, W, s);
+      y, w_qkv, Epi<T>{b_qkv, nullptr, nullptr, nullptr, 0}, qkv, M, 3 * Wl, W, s);
   if (err != cudaSuccess) return err;
-  err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(g, w_out, Epi<T>{}, gh, M, W, W, s);
+  err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(g, w_out, Epi<T>{}, gh, M, Wl, W, s);
   if (err != cudaSuccess) return err;
-  err = attn_bwd::launch_core_dh<T, float, false, true>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, W, valid, s);
+  err = attn_bwd::launch_core_dh<T, float, false, true>(qkv, gh, dqkv, attn, lse, delta, B, H, T_, Wl, valid, s);
   if (err != cudaSuccess) return err;
-  err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(dqkv, w_qkv, Epi<T>{}, dy, M, W, 3 * W, s, S);
+  return gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(dqkv, w_qkv, Epi<T>{}, dy, M, W, 3 * Wl, s, S);
+}
+
+template <typename T, int CE>
+cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_qkv,
+                       const float* b_qkv, const T* w_out, T* dx, float* ws, T* wsd, float* part, int B, int T_,
+                       int W, int H, int valid, float eps, int S, int want_w, cudaStream_t s) {
+  cudaError_t err = launch_front<T, CE>(x, g, gamma, beta, w_qkv, b_qkv, w_out, ws, wsd, B, T_, W, W, H, valid, eps,
+                                        S, want_w, s);
   if (err != cudaSuccess) return err;
+  const size_t R = static_cast<size_t>(B) * T_;
+  const int M = static_cast<int>(R);
+  const float* dy = ws + R * 4 * W;
+  const float* mean = dy + S * R * W;
   ln_bwd_rows_kernel<T><<<(M + kLnBwdRows - 1) / kLnBwdRows, kLnBwdThreads, 0, s>>>(
-      x, g, dy, S, R * W, gamma, mean, rstd, dx, part, M, W, want_w);
+      x, g, dy, S, R * W, gamma, mean, mean + R, dx, part, M, W, want_w);
   return cudaGetLastError();
 }
 
@@ -188,6 +216,48 @@ extern "C" int tapclip_attn_block_bwd(const void* x, const void* g, const void* 
                                  want_w, s);
     return launch_bwd<bf16, 4>(X, G, gm, bt, Wq, bq, Wo, D, w32, Wd, pt, B, T, W, n_heads, valid, eps, split,
                                want_w, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// B4's partial mode, launches 1-6 (see the note at the top): n_heads the
+// rank's heads, Wl their width; ws the f32 workspace [qkv (3 Wl) | gh (Wl) |
+// dy partials (S W) | mean | rstd | lse | delta] per row, wsd [y (W) | dqkv
+// (3 Wl) | attn (Wl) with want_w] per row.  tapclip_ln_bwd ends it.
+extern "C" int tapclip_attn_block_bwd_partial(const void* x, const void* g, const void* gamma, const void* beta,
+                                              const void* w_qkv, const void* b_qkv, const void* w_out, void* ws,
+                                              void* wsd, int B, int T, int W, int Wl, int n_heads, int valid,
+                                              float eps, int split, int want_w, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || n_heads <= 0 || Wl % n_heads || W % 4 || Wl % 4 || Wl > W || valid < 1 || valid > T ||
+      split < 1 || split > kMaxSplit)
+    return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+                         reinterpret_cast<uintptr_t>(w_qkv) | reinterpret_cast<uintptr_t>(w_out) |
+                         reinterpret_cast<uintptr_t>(ws) | reinterpret_cast<uintptr_t>(wsd);
+  const auto* gm = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* bq = static_cast<const float*>(b_qkv);
+  auto* w32 = static_cast<float*>(ws);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (ptrs & 15) return cudaErrorMisalignedAddress;
+    return launch_front<float, 4>(static_cast<const float*>(x), static_cast<const float*>(g), gm, bt,
+                                  static_cast<const float*>(w_qkv), bq, static_cast<const float*>(w_out), w32,
+                                  static_cast<float*>(wsd), B, T, W, Wl, n_heads, valid, eps, split, want_w, s);
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    if (ptrs & 7) return cudaErrorMisalignedAddress;
+    const auto* X = static_cast<const bf16*>(x);
+    const auto* G = static_cast<const bf16*>(g);
+    const auto* Wq = static_cast<const bf16*>(w_qkv);
+    const auto* Wo = static_cast<const bf16*>(w_out);
+    auto* Wd = static_cast<bf16*>(wsd);
+    if ((ptrs & 15) == 0 && W % 8 == 0 && Wl % 8 == 0)
+      return launch_front<bf16, 8>(X, G, gm, bt, Wq, bq, Wo, w32, Wd, B, T, W, Wl, n_heads, valid, eps, split, want_w,
+                                   s);
+    return launch_front<bf16, 4>(X, G, gm, bt, Wq, bq, Wo, w32, Wd, B, T, W, Wl, n_heads, valid, eps, split, want_w,
+                                 s);
   }
   return cudaErrorInvalidValue;
 }

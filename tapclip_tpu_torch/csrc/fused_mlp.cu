@@ -47,6 +47,14 @@
 //
 // The A/B variants S2 (fused_mlp_variants.cu) run these launches with their
 // switches; S1 (fused_layer.cu) runs the same tiles in one persistent launch.
+//
+// Partial mode (tapclip_fused_mlp_partial), for Megatron tensor parallelism:
+// the rank holds w_fc[:, cols], b_fc[cols] and w_proj[cols, :] of its hidden
+// columns (H is the local width), and the third launch stores the proj
+// product alone in f32 (gemm_mma.cuh's kStore epilogue), with no residual
+// and no b_proj.  The caller all-reduces the f32 partials over the model
+// group and adds x + b_proj once, rounding once as kResidual does
+// (round(resid + (acc + bias))), so bf16 keeps its single rounding.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -58,9 +66,10 @@ namespace {
 using namespace tapclip;
 using gemm::Epi;
 
-template <typename T, int CE>
+// PARTIAL: out is the f32 proj product alone (kStore), else round(x + (proj + b_proj)).
+template <typename T, int CE, bool PARTIAL>
 cudaError_t launch_mlp(const T* x, const float* gamma, const float* beta, const T* w_fc, const float* b_fc,
-                       const T* w_proj, const float* b_proj, T* out, T* ws, int R, int W, int H, float eps,
+                       const T* w_proj, const float* b_proj, void* out, T* ws, int R, int W, int H, float eps,
                        cudaStream_t s) {
   T* h = ws;
   T* y = ws + static_cast<size_t>(R) * H;
@@ -71,8 +80,44 @@ cudaError_t launch_mlp(const T* x, const float* gamma, const float* beta, const 
   err = gemm::launch_pass<T, 128, CE, gemm::kGelu>(y, w_fc, Epi<T>{b_fc, nullptr, nullptr, nullptr, 0}, h, R, H, W,
                                                     s);
   if (err != cudaSuccess) return err;
-  return gemm::launch_pass<T, 64, CE, gemm::kResidual>(h, w_proj, Epi<T>{b_proj, x, nullptr, nullptr, 0}, out, R,
-                                                       W, H, s);
+  if constexpr (PARTIAL)
+    return gemm::launch_pass<T, 64, CE, gemm::kStore, false, float>(h, w_proj, Epi<T>{}, static_cast<float*>(out),
+                                                                    R, W, H, s);
+  else
+    return gemm::launch_pass<T, 64, CE, gemm::kResidual>(h, w_proj, Epi<T>{b_proj, x, nullptr, nullptr, 0},
+                                                         static_cast<T*>(out), R, W, H, s);
+}
+
+template <bool PARTIAL>
+int dispatch(const void* x, const void* gamma, const void* beta, const void* w_fc, const void* b_fc,
+             const void* w_proj, const void* b_proj, void* out, void* ws, int R, int W, int H, float eps, int dtype,
+             void* stream) {
+  if (R <= 0 || W <= 0 || H <= 0 || W % 4 || H % 4) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_fc) |
+                         reinterpret_cast<uintptr_t>(w_proj) | reinterpret_cast<uintptr_t>(out) |
+                         reinterpret_cast<uintptr_t>(ws);
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* bf = static_cast<const float*>(b_fc);
+  const auto* bp = static_cast<const float*>(b_proj);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (ptrs & 15) return cudaErrorMisalignedAddress;
+    return launch_mlp<float, 4, PARTIAL>(static_cast<const float*>(x), g, bt, static_cast<const float*>(w_fc), bf,
+                                         static_cast<const float*>(w_proj), bp, out, static_cast<float*>(ws), R, W,
+                                         H, eps, s);
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    if (ptrs & 7) return cudaErrorMisalignedAddress;
+    const auto* X = static_cast<const bf16*>(x);
+    const auto* Wf = static_cast<const bf16*>(w_fc);
+    const auto* Wp = static_cast<const bf16*>(w_proj);
+    if ((ptrs & 15) == 0 && W % 8 == 0 && H % 8 == 0)
+      return launch_mlp<bf16, 8, PARTIAL>(X, g, bt, Wf, bf, Wp, bp, out, static_cast<bf16*>(ws), R, W, H, eps, s);
+    return launch_mlp<bf16, 4, PARTIAL>(X, g, bt, Wf, bf, Wp, bp, out, static_cast<bf16*>(ws), R, W, H, eps, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -85,32 +130,13 @@ extern "C" int tapclip_fused_mlp(const void* x, const void* gamma, const void* b
                                  const void* w_proj, const void* b_proj, void* out, void* ws,
                                  int R, int W, int H, float eps, int dtype,
                                  void* stream) {
-  if (R <= 0 || W <= 0 || H <= 0 || W % 4 || H % 4) return cudaErrorInvalidValue;
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_fc) |
-                         reinterpret_cast<uintptr_t>(w_proj) | reinterpret_cast<uintptr_t>(out) |
-                         reinterpret_cast<uintptr_t>(ws);
-  const auto* g = static_cast<const float*>(gamma);
-  const auto* bt = static_cast<const float*>(beta);
-  const auto* bf = static_cast<const float*>(b_fc);
-  const auto* bp = static_cast<const float*>(b_proj);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (ptrs & 15) return cudaErrorMisalignedAddress;
-    return launch_mlp<float, 4>(static_cast<const float*>(x), g, bt, static_cast<const float*>(w_fc), bf,
-                                static_cast<const float*>(w_proj), bp, static_cast<float*>(out),
-                                static_cast<float*>(ws), R, W, H, eps, s);
-  }
-  if (dtype == 1) {
-    using bf16 = __nv_bfloat16;
-    if (ptrs & 7) return cudaErrorMisalignedAddress;
-    const auto* X = static_cast<const bf16*>(x);
-    const auto* Wf = static_cast<const bf16*>(w_fc);
-    const auto* Wp = static_cast<const bf16*>(w_proj);
-    if ((ptrs & 15) == 0 && W % 8 == 0 && H % 8 == 0)
-      return launch_mlp<bf16, 8>(X, g, bt, Wf, bf, Wp, bp, static_cast<bf16*>(out), static_cast<bf16*>(ws), R, W, H,
-                                 eps, s);
-    return launch_mlp<bf16, 4>(X, g, bt, Wf, bf, Wp, bp, static_cast<bf16*>(out), static_cast<bf16*>(ws), R, W, H,
-                               eps, s);
-  }
-  return cudaErrorInvalidValue;
+  return dispatch<false>(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, out, ws, R, W, H, eps, dtype, stream);
+}
+
+// The partial mode: H is the rank's hidden width, out an f32 [R, W] buffer
+// (16-byte aligned) that receives h . w_proj alone.
+extern "C" int tapclip_fused_mlp_partial(const void* x, const void* gamma, const void* beta, const void* w_fc,
+                                         const void* b_fc, const void* w_proj, void* out, void* ws, int R, int W,
+                                         int H, float eps, int dtype, void* stream) {
+  return dispatch<true>(x, gamma, beta, w_fc, b_fc, w_proj, nullptr, out, ws, R, W, H, eps, dtype, stream);
 }

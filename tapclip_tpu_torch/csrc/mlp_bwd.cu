@@ -52,6 +52,20 @@
 // sums, launched by the wrapper.  No atomics: a call
 // repeats bit for bit.  Emulated error of the split products: python -m
 // tapclip_tpu_torch.scripts.split_error.
+// Partial mode, for Megatron tensor parallelism (tapclip_mlp_bwd_partial,
+// then tapclip_ln_bwd): the rank holds its hidden columns (w_fc [W, Hl],
+// b_fc [Hl], w_proj [Hl, W]; H is Hl), and launches 1-4 above run on them,
+// leaving the LayerNorm output's gradient dy in the f32 workspace as this
+// rank's partial sum over its columns.  The caller sums dy's S depth
+// partials in order into one [R, W] and all-reduces it over the model group
+// (Megatron's identity-forward / all-reduce-backward operator, placed
+// between launch 4 and launch 5), then launch 5 runs alone (tapclip_ln_bwd,
+// split 1) on the whole dy: dx = g + LN backward, with the residual's
+// g added once and one rounding, and the LayerNorm's dgamma / dbeta partials
+// complete on every rank.  The weight gradients of the local columns
+// (dW_fc, db_fc, dW_proj) are exact; db_proj (the column sum of g) is
+// complete on every rank and is not summed over the model group.  B4's
+// partial mode (attn_block_bwd.cu) ends the same way, on the same launch.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -69,10 +83,11 @@ static_assert(kMaxSplit <= kLnMaxSplits, "ln_bwd_rows_kernel sums every partial"
 // S: the split of dy's depth H (gemm::depth_split).
 int dy_split(int R, int W, int H, int dtype) { return gemm::depth_split(R, W, H, dtype, kMaxSplit); }
 
+// Launches 1-4: y, z, dh_pre (and h), the S partials of dy; mean and rstd.
 template <typename T, int CE>
-cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_fc,
-                       const float* b_fc, const T* w_proj, T* dx, float* ws, T* wsd, T* h_out, float* part, int R,
-                       int W, int H, float eps, int S, int want_w, cudaStream_t s) {
+cudaError_t launch_front(const T* x, const T* g, const float* gamma, const float* beta, const T* w_fc,
+                         const float* b_fc, const T* w_proj, float* ws, T* wsd, T* h_out, int R, int W, int H,
+                         float eps, int S, int want_w, cudaStream_t s) {
   float* z = ws;                                                 // [R, H]
   float* dy = z + static_cast<size_t>(R) * H;                    // [S, R, W]
   float* mean = dy + static_cast<size_t>(S) * R * W;             // [R]
@@ -89,11 +104,29 @@ cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* 
   err = gemm::launch_pass<T, 128, CE, gemm::kDgelu, true>(
       g, w_proj, Epi<T>{nullptr, nullptr, z, want_w ? h_out : nullptr, 0}, dhp, R, H, W, s);
   if (err != cudaSuccess) return err;
-  err = gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(dhp, w_fc, Epi<T>{}, dy, R, W, H, s, S);
-  if (err != cudaSuccess) return err;
+  return gemm::launch_pass<T, 64, CE, gemm::kStore, true, float>(dhp, w_fc, Epi<T>{}, dy, R, W, H, s, S);
+}
+
+// Launch 5: dx = g + LN backward of the S partials of dy (and the LayerNorm
+// partials with want_w).
+template <typename T>
+cudaError_t launch_ln(const T* x, const T* g, const float* dy, const float* gamma, const float* mean,
+                      const float* rstd, T* dx, float* part, int R, int W, int S, int want_w, cudaStream_t s) {
   ln_bwd_rows_kernel<T><<<(R + kLnBwdRows - 1) / kLnBwdRows, kLnBwdThreads, 0, s>>>(
       x, g, dy, S, static_cast<size_t>(R) * W, gamma, mean, rstd, dx, part, R, W, want_w);
   return cudaGetLastError();
+}
+
+template <typename T, int CE>
+cudaError_t launch_bwd(const T* x, const T* g, const float* gamma, const float* beta, const T* w_fc,
+                       const float* b_fc, const T* w_proj, T* dx, float* ws, T* wsd, T* h_out, float* part, int R,
+                       int W, int H, float eps, int S, int want_w, cudaStream_t s) {
+  cudaError_t err = launch_front<T, CE>(x, g, gamma, beta, w_fc, b_fc, w_proj, ws, wsd, h_out, R, W, H, eps, S,
+                                        want_w, s);
+  if (err != cudaSuccess) return err;
+  const float* dy = ws + static_cast<size_t>(R) * H;
+  const float* mean = dy + static_cast<size_t>(S) * R * W;
+  return launch_ln<T>(x, g, dy, gamma, mean, mean + R, dx, part, R, W, S, want_w, s);
 }
 
 }  // namespace
@@ -147,6 +180,70 @@ extern "C" int tapclip_mlp_bwd(const void* x, const void* g, const void* gamma, 
     if ((ptrs & 15) == 0 && W % 8 == 0 && H % 8 == 0)
       return launch_bwd<bf16, 8>(X, G, gm, bt, Wf, bf, Wp, D, w32, Wd, Ho, pt, R, W, H, eps, split, want_w, s);
     return launch_bwd<bf16, 4>(X, G, gm, bt, Wf, bf, Wp, D, w32, Wd, Ho, pt, R, W, H, eps, split, want_w, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// B5's partial mode, launches 1-4 (see the note at the top): ws is the f32
+// workspace [z | dy partials | mean | rstd] of tapclip_mlp_bwd with H the
+// rank's hidden width, wsd [dh_pre | y], h_out [R, H] with want_w.
+extern "C" int tapclip_mlp_bwd_partial(const void* x, const void* g, const void* gamma, const void* beta,
+                                       const void* w_fc, const void* b_fc, const void* w_proj, void* ws, void* wsd,
+                                       void* h_out, int R, int W, int H, float eps, int split, int want_w, int dtype,
+                                       void* stream) {
+  if (R <= 0 || W <= 0 || H <= 0 || W % 4 || H % 4 || split < 1 || split > kMaxSplit) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(w_fc) |
+                         reinterpret_cast<uintptr_t>(w_proj) | reinterpret_cast<uintptr_t>(ws) |
+                         reinterpret_cast<uintptr_t>(wsd);
+  const auto* gm = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* bf = static_cast<const float*>(b_fc);
+  auto* w32 = static_cast<float*>(ws);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (ptrs & 15) return cudaErrorMisalignedAddress;
+    return launch_front<float, 4>(static_cast<const float*>(x), static_cast<const float*>(g), gm, bt,
+                                  static_cast<const float*>(w_fc), bf, static_cast<const float*>(w_proj), w32,
+                                  static_cast<float*>(wsd), static_cast<float*>(h_out), R, W, H, eps, split, want_w,
+                                  s);
+  }
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    if (ptrs & 7) return cudaErrorMisalignedAddress;
+    const auto* X = static_cast<const bf16*>(x);
+    const auto* G = static_cast<const bf16*>(g);
+    const auto* Wf = static_cast<const bf16*>(w_fc);
+    const auto* Wp = static_cast<const bf16*>(w_proj);
+    auto* Wd = static_cast<bf16*>(wsd);
+    auto* Ho = static_cast<bf16*>(h_out);
+    if ((ptrs & 15) == 0 && W % 8 == 0 && H % 8 == 0)
+      return launch_front<bf16, 8>(X, G, gm, bt, Wf, bf, Wp, w32, Wd, Ho, R, W, H, eps, split, want_w, s);
+    return launch_front<bf16, 4>(X, G, gm, bt, Wf, bf, Wp, w32, Wd, Ho, R, W, H, eps, split, want_w, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The LayerNorm backward that ends B4's and B5's partial modes, on the whole
+// (all-reduced) dy: dy [split, R, W] f32, mean and rstd [R] from the front
+// launches, dx = g + LN backward in the dtype; part [ceil(R / 16), 2W] f32
+// with want_w.
+extern "C" int tapclip_ln_bwd(const void* x, const void* g, const void* dy, const void* gamma, const void* mean,
+                              const void* rstd, void* dx, void* part, int R, int W, int split, int want_w, int dtype,
+                              void* stream) {
+  if (R <= 0 || W <= 0 || split < 1 || split > kLnMaxSplits) return cudaErrorInvalidValue;
+  const auto* dyf = static_cast<const float*>(dy);
+  const auto* gm = static_cast<const float*>(gamma);
+  const auto* mn = static_cast<const float*>(mean);
+  const auto* rs = static_cast<const float*>(rstd);
+  auto* pt = static_cast<float*>(part);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_ln<float>(static_cast<const float*>(x), static_cast<const float*>(g), dyf, gm, mn, rs,
+                            static_cast<float*>(dx), pt, R, W, split, want_w, s);
+  if (dtype == 1) {
+    using bf16 = __nv_bfloat16;
+    return launch_ln<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(g), dyf, gm, mn, rs,
+                           static_cast<bf16*>(dx), pt, R, W, split, want_w, s);
   }
   return cudaErrorInvalidValue;
 }

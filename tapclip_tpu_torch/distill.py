@@ -12,8 +12,12 @@ terms:
   by :func:`strip_distill_params`).
 
 The teacher runs under ``torch.inference_mode`` (no graph, nothing saved);
-the gradient reaches the student tree, ``kd_proj`` included.  The mesh form
-(``distill_loss_global``) is not ported.
+the gradient reaches the student tree, ``kd_proj`` included.  Under a
+mesh (``make_distill_step(mesh=)``), :func:`distill_loss_global` takes this
+rank's rows against every rank's columns for the task InfoNCE and the KD
+KL, and returns its share of the global objective; the student's gradients
+are summed over ``data`` as in ``pretrain.py``.  Tensor parallelism of the
+student or the teacher is not yet ported (refused by name).
 """
 
 from __future__ import annotations
@@ -24,7 +28,11 @@ import torch
 
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
-from tapclip_tpu_torch.pretrain import PretrainOptimizer, _batch, _clamp_logit_scale, contrastive_loss_local
+from tapclip_tpu_torch import NotPortedError
+from tapclip_tpu_torch.parallel import collectives
+from tapclip_tpu_torch.pretrain import (
+    PretrainOptimizer, _batch, _clamp_logit_scale, _Mesh, contrastive_loss_global, contrastive_loss_local,
+)
 
 Params = Dict[str, Any]
 
@@ -78,12 +86,42 @@ def distill_loss_local(s_img, s_txt, t_img, t_txt, s_scale, t_scale, kd_proj, *,
     return total, {"task": task, "kd": kd, "feat": feat}
 
 
+def distill_loss_global(s_img, s_txt, t_img, t_txt, s_scale, t_scale, kd_proj, group, *, tau: float = 1.0,
+                        w_task: float = 1.0, w_kd: float = 1.0,
+                        w_feat: float = 1.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`distill_loss_local` over the global batch of ``group``: this
+    rank's rows against every rank's columns (both models' features
+    all-gathered), the feature mimicry per row.  Returns ``(share, parts)``,
+    this rank's shares of the objective and of each term; the shares sum to
+    the single-device values on the gathered batch."""
+    si = clip_model.l2_normalize(s_img).float()
+    st = clip_model.l2_normalize(s_txt).float()
+    ti = clip_model.l2_normalize(t_img).float()
+    tt = clip_model.l2_normalize(t_txt).float()
+    n_global = si.shape[0] * collectives.size(group)
+    task = contrastive_loss_global(s_img, s_txt, s_scale, group)
+    s_i = torch.exp(s_scale.float()) * si @ collectives.all_gather(st, group).T
+    s_t = torch.exp(s_scale.float()) * st @ collectives.all_gather(si, group).T
+    t_i = torch.exp(t_scale.float()) * ti @ collectives.all_gather(tt, group).T
+    t_t = torch.exp(t_scale.float()) * tt @ collectives.all_gather(ti, group).T
+    rows = si.shape[0] / n_global  # _kd_kl and _feat_mimic take means over this rank's rows
+    kd = 0.5 * (_kd_kl(t_i, s_i, tau) + _kd_kl(t_t, s_t, tau)) * rows
+    feat = 0.5 * (_feat_mimic(s_img.float(), ti, kd_proj) + _feat_mimic(s_txt.float(), tt, kd_proj)) * rows
+    total = w_task * task + w_kd * kd + w_feat * feat
+    return total, {"task": task, "kd": kd, "feat": feat}
+
+
 def make_distill_step(student_cfg: CLIPConfig, teacher_cfg: CLIPConfig, optimizer: PretrainOptimizer, *,
-                      tau: float = 1.0, w_task: float = 1.0, w_kd: float = 1.0, w_feat: float = 1.0) -> Callable:
+                      tau: float = 1.0, w_task: float = 1.0, w_kd: float = 1.0, w_feat: float = 1.0,
+                      mesh=None) -> Callable:
     """``step(student, teacher, images, token_ids) -> {"loss", "task", "kd",
     "feat"}``: the teacher's features with no graph, the student's loss and
     one update of ``optimizer``'s leaves of ``student`` in place, then the
-    ``logit_scale`` clamp."""
+    ``logit_scale`` clamp.  ``mesh``: each rank passes its rows; the values
+    are the global batch's."""
+    m = _Mesh(mesh, student_cfg)
+    if m.tp_group is not None:
+        raise NotPortedError("distillation under tp > 1")
 
     def step(student: Params, teacher: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(student, images, token_ids)
@@ -94,11 +132,15 @@ def make_distill_step(student_cfg: CLIPConfig, teacher_cfg: CLIPConfig, optimize
         t_scale = teacher["logit_scale"].detach()
         s_img = clip_model.encode_image(student, student_cfg, images)
         s_txt = clip_model.encode_text(student, student_cfg, ids)
-        total, parts = distill_loss_local(s_img, s_txt, t_img, t_txt, student["logit_scale"], t_scale,
-                                          student.get("kd_proj"), tau=tau, w_task=w_task, w_kd=w_kd,
-                                          w_feat=w_feat)
-        if optimizer.update(torch.autograd.grad(total, optimizer.leaves, allow_unused=True)):
+        args = (s_img, s_txt, t_img, t_txt, student["logit_scale"], t_scale, student.get("kd_proj"))
+        kw = dict(tau=tau, w_task=w_task, w_kd=w_kd, w_feat=w_feat)
+        if m.loss_group is not None:
+            total, parts = distill_loss_global(*args, m.loss_group, **kw)
+        else:
+            total, parts = distill_loss_local(*args, **kw)
+        grads = m.reduce(torch.autograd.grad(total, optimizer.leaves, allow_unused=True), optimizer.leaves)
+        if optimizer.update(grads):
             _clamp_logit_scale(student)
-        return {"loss": total.detach(), **{k: v.detach() for k, v in parts.items()}}
+        return {"loss": m.loss(total), **{k: m.loss(v) for k, v in parts.items()}}
 
     return step

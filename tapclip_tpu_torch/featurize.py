@@ -25,8 +25,10 @@ Outputs (``--out DIR``):
   input: the caption of sample i embeds to row i)
 
 Runs on ``cuda`` unless ``--device cpu`` is given; asking for ``cuda``
-without a card raises.  ``--dp`` (data-parallel featurization) is not yet
-ported; ``--rank`` / ``--world`` partition the corpus across processes.
+without a card raises.  ``--dp N`` splits every batch over N replicas of
+the tower in this process (CUDA devices 0 .. N - 1; the batch size must
+divide by N); ``--rank`` / ``--world`` partition the corpus across
+processes.
 
 Usage:
     python -m tapclip_tpu_torch.featurize --image-root data/val --out feats/ \\
@@ -46,7 +48,6 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NOT_PORTED, NotPortedError
 from tapclip_tpu_torch.config import MODEL_PRESETS, CLIPConfig, preset
 from tapclip_tpu_torch.models import clip as clip_model
 
@@ -85,25 +86,32 @@ def load_clip_params(cfg: CLIPConfig, pretrained: Optional[str], seed: int = 0, 
 # embed functions
 # ---------------------------------------------------------------------------
 
-def make_image_embed_fn(cfg: CLIPConfig) -> Callable:
-    """``(params, images [B, H, W, 3] f32 | uint8) -> [B, D] f32 unit-norm``."""
+def make_image_embed_fn(cfg: CLIPConfig, mesh=None) -> Callable:
+    """``(params, images [B, H, W, 3] f32 | uint8) -> [B, D] f32 unit-norm``.
+    With ``mesh`` (a device-list mesh, ``parallel.mesh.make_mesh(dp,
+    devices=...)``) the batch splits over its replicas and the rows come
+    back in order (``parallel.sharding.data_parallel``)."""
+    from tapclip_tpu_torch.parallel.sharding import data_parallel
 
     def embed(params, images):
         with torch.inference_mode():
             x = torch.as_tensor(images, device=params["logit_scale"].device)
             return clip_model.l2_normalize(clip_model.encode_image(params, cfg, x)).float()
 
-    return embed
+    return data_parallel(embed, mesh, 1)
 
 
-def make_text_embed_fn(cfg: CLIPConfig) -> Callable:
-    """``(params, token_ids [B, T] int) -> [B, D] f32 unit-norm``."""
+def make_text_embed_fn(cfg: CLIPConfig, mesh=None) -> Callable:
+    """``(params, token_ids [B, T] int) -> [B, D] f32 unit-norm`` (``mesh``:
+    as :func:`make_image_embed_fn`)."""
+    from tapclip_tpu_torch.parallel.sharding import data_parallel
 
     def embed(params, ids):
         with torch.inference_mode():
+            ids = torch.as_tensor(ids, device=params["logit_scale"].device)
             return clip_model.l2_normalize(clip_model.encode_text(params, cfg, ids)).float()
 
-    return embed
+    return data_parallel(embed, mesh, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -166,12 +174,14 @@ def featurize_images(
     batches,
     *,
     prefetch_depth: int = 2,
+    embed_fn: Optional[Callable] = None,
 ) -> np.ndarray:
     """Embed the first ``mask.sum()`` rows of each ``(images, metas_or_labels,
-    mask)`` batch -> float16 ``[N, D]`` unit-norm rows."""
+    mask)`` batch -> float16 ``[N, D]`` unit-norm rows (``embed_fn``: a
+    :func:`make_image_embed_fn`, e.g. over a mesh)."""
     from tapclip_tpu_torch.data.prefetch import prefetch_to_device
 
-    embed_fn = make_image_embed_fn(cfg)
+    embed_fn = embed_fn or make_image_embed_fn(cfg)
     out: List[np.ndarray] = []
     for images, _, mask in prefetch_to_device(batches, size=prefetch_depth,
                                               device=params["logit_scale"].device):
@@ -188,10 +198,11 @@ def featurize_texts(
     captions: Sequence[str],
     tokenize: Callable[[List[str]], np.ndarray],
     batch_size: int,
+    embed_fn: Optional[Callable] = None,
 ) -> np.ndarray:
     """Embed captions -> float16 ``[N, D]`` unit-norm rows; the tail batch is
     padded with empty strings, whose rows are dropped."""
-    embed_fn = make_text_embed_fn(cfg)
+    embed_fn = embed_fn or make_text_embed_fn(cfg)
     out: List[np.ndarray] = []
     for i in range(0, len(captions), batch_size):
         chunk = list(captions[i : i + batch_size])
@@ -242,7 +253,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "pixels; ImageFolder input only)")
     p.add_argument("--uint8-transfer", dest="uint8_transfer", action="store_true", default=True)
     p.add_argument("--no-uint8-transfer", dest="uint8_transfer", action="store_false")
-    p.add_argument("--dp", type=int, default=0, help=f"data-parallel devices ({NOT_PORTED})")
+    p.add_argument("--dp", type=int, default=0,
+                   help="split every batch over this many replicas (CUDA devices 0 .. dp - 1; 0: one device)")
     p.add_argument("--rank", type=int, default=0,
                    help="this worker's corpus partition (each rank writes its own --out; search --index "
                         "takes all of them together)")
@@ -253,8 +265,13 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> dict:
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    mesh = None
     if args.dp:
-        raise NotPortedError("featurize --dp")
+        from tapclip_tpu_torch.parallel.mesh import device_mesh
+
+        mesh = device_mesh(args.dp, args.device)
+        if args.batch_size % args.dp:
+            raise SystemExit("--batch-size must divide by --dp")
     cfg = tower_config(args, args.int8)
     if args.embed_text and not args.shard_dir:
         raise SystemExit("--embed-text requires --shard-dir (captions)")
@@ -276,7 +293,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             index.samples = [index.samples[int(i)] for i in chunks[args.rank]]
         loader = Loader(index.samples, args.batch_size, shuffle=False, image_size=cfg.image_size,
                         output_dtype=dtype, fast_decode=args.fast_decode)
-        feats = featurize_images(params, cfg, iter(loader))
+        feats = featurize_images(params, cfg, iter(loader), embed_fn=make_image_embed_fn(cfg, mesh))
         manifest_rows = [(i, path, index.classes[label]) for i, (path, label) in enumerate(index.samples)]
         header = ("index", "path", "class")
     else:
@@ -289,7 +306,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
         stream = iter_shard_samples_deterministic(args.shard_dir, cfg.image_size, dtype,
                                                   rank=args.rank, world=args.world)
-        feats = featurize_images(params, cfg, _batched(tee_captions(stream), args.batch_size))
+        feats = featurize_images(params, cfg, _batched(tee_captions(stream), args.batch_size),
+                                 embed_fn=make_image_embed_fn(cfg, mesh))
         manifest_rows = list(enumerate(captions))
         header = ("index", "caption")
 
@@ -305,7 +323,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         from tapclip_tpu_torch.data.tokenizer import get_tokenizer
 
         tok = get_tokenizer(args.bpe_path, cfg.context_length)
-        tfeats = featurize_texts(params, cfg, captions, tok.tokenize, args.batch_size)
+        tfeats = featurize_texts(params, cfg, captions, tok.tokenize, args.batch_size,
+                                 embed_fn=make_text_embed_fn(cfg, mesh))
         np.save(os.path.join(args.out, "text_embeddings.npy"), tfeats)
         result["n_text"] = int(tfeats.shape[0])
         log.info("wrote %d text embeddings", result["n_text"])

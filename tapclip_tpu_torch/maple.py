@@ -34,15 +34,17 @@ log = logging.getLogger("tapclip_tpu_torch")
 MAPLE_KEYS = ("ctx", "maple")
 
 
-def make_maple_train_step(clip_cfg, prompt_cfg, optimizer=None):
+def make_maple_train_step(clip_cfg, prompt_cfg, optimizer=None, mesh=None):
     """The raw-image train step over ``("ctx", "maple")``:
     ``step(clip_params, state, bank, images, labels, mask) -> (state,
     {"loss", "grad_norm"})``, AdamW in the state (``init_train_state(...,
     MAPLE_KEYS)``).  The CLIP weights require no gradient, so the towers'
-    backward kernels compute dx only."""
+    backward kernels compute dx only.  ``mesh``: the sharded step
+    (``parallel/train_step.py``'s mesh form: each rank passes its rows)."""
     from tapclip_tpu_torch.parallel.train_step import make_train_step
 
-    return make_train_step(clip_cfg, prompt_cfg, optimizer, trainable_keys=MAPLE_KEYS, use_image_feats=False)
+    return make_train_step(clip_cfg, prompt_cfg, optimizer, trainable_keys=MAPLE_KEYS, use_image_feats=False,
+                           mesh=mesh)
 
 
 def fit_maple(

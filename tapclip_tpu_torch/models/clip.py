@@ -55,8 +55,19 @@ def _pick_transformer_fn(cfg: CLIPConfig):
     """The block-stack runner: the MoE blocks (``cfg.moe_experts``) or the
     dense ones."""
     if cfg.moe_experts > 0:
+        _refuse_under_tp("MoE towers (moe_experts)")
         return functools.partial(moe.moe_transformer_forward, capacity_factor=cfg.moe_capacity_factor)
     return layers.transformer_forward
+
+
+def _refuse_under_tp(what: str) -> None:
+    """Raise by name when the towers run tensor parallel
+    (``parallel.collectives.tensor_parallel``): ``what`` has no tp form yet."""
+    from tapclip_tpu_torch import NotPortedError
+    from tapclip_tpu_torch.parallel.collectives import current_model_group
+
+    if current_model_group() is not None:
+        raise NotPortedError(f"{what} under tp > 1")
 
 
 def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -> Params:
@@ -233,6 +244,7 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     """
     dropout = cfg.patch_dropout > 0 and (generator is not None or patch_idx is not None)
     if cfg.vision_tower == "resnet":
+        _refuse_under_tp("the RN-family image tower")
         # As the JAX package: a quantization, pruning or prompt flag on the
         # convolutional tower fails loudly rather than being a silent no-op.
         if dropout:
@@ -315,6 +327,7 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
             raise NotImplementedError(
                 "token pruning is not supported with a transformer_fn override or MoE towers (it targets the "
                 "dense eval path)")
+        _refuse_under_tp("token pruning (token_keep_ratio)")
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
         x, tower_aux = _pick_transformer_fn(cfg)(

@@ -34,6 +34,18 @@ int8 MLP (B13, ``int8_mlp_block``); ``quantize_deterministic``
 (``int8_deterministic``) picks round-to-nearest in both.  Neither has a
 gradient.
 
+**Tensor parallelism** (``tp_group``, or the group
+``parallel.collectives.tensor_parallel`` sets around a mesh step's
+forward): each block holds its ranks' heads and hidden columns
+(``parallel/sharding.py``'s cut; ``n_heads`` stays the tower's and must
+divide by the group's size).  K2 and K1 run in their partial modes, whose
+backwards are B4's and B5's (``fused_attn_block`` / ``fused_mlp_block``
+with ``tp_group``); the other routes put Megatron's ``copy_to_model`` on the
+LayerNorm output and ``reduce_from_model`` on the f32 out-projection, then
+add the output bias once.  The attribution aux is the head mean over the
+whole tower: each rank's local head sum, all-reduced, divided by
+``n_heads``.  int8 blocks refuse under ``tp > 1`` by name.
+
 Every other kernel differentiates: ``fused_attn_block``, ``fused_mha``,
 ``fused_mlp_block`` and ``fused_attention`` are ``torch.autograd.Function`` s
 whose backward is the hand-written B4 / B7 / B5 / flash chain on the card
@@ -50,12 +62,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.ops.attention import IntOrTensor, multi_head_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
 from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
 from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
-from tapclip_tpu_torch.ops.plain import dense, layer_norm, mlp_forward
+from tapclip_tpu_torch.ops.plain import ACTS, dense, layer_norm, mlp_forward
+from tapclip_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -91,9 +105,15 @@ def attn_forward(
     kv_valid_len: IntOrTensor = None,
     attn_to_idx: IntOrTensor = None,
     impl: str = "auto",
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Fused-QKV multi-head self attention over ``x [B, T, W]``."""
-    B, T, W = x.shape
+    """Fused-QKV multi-head self attention over ``x [B, T, W]``.  With
+    ``tp_group`` the weights are a rank's ``n_heads`` heads (the per-head
+    cut): the out-projection's f32 partials are all-reduced before
+    ``b_out``, and the aux is the tower's head mean (local head sums
+    all-reduced, divided by every rank's heads)."""
+    B, T, _ = x.shape
+    W = p["w_qkv"].shape[-1] // 3  # the heads' width (a rank's, under tp_group)
     Dh = W // n_heads
     qkv = dense(x, p["w_qkv"], p["b_qkv"])
 
@@ -107,7 +127,7 @@ def attn_forward(
             resolved = "xla"
     if resolved == "fused":
         out = fused_mha(qkv, n_heads, valid_len=kv_valid_len, causal=causal)
-        return dense(out, p["w_out"], p["b_out"]), None
+        return _out_proj(out, p, tp_group), None
 
     def heads(t):  # [B, T, W] -> [B, H, T, Dh]
         return t.reshape(B, T, n_heads, Dh).transpose(1, 2).contiguous()
@@ -118,7 +138,36 @@ def attn_forward(
         kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=resolved,
     )
     out = out.transpose(1, 2).reshape(B, T, W)
-    return dense(out, p["w_out"], p["b_out"]), aux
+    if aux is not None and tp_group is not None:
+        n = collectives.size(tp_group)
+        aux = collectives.all_reduce_(aux * n_heads, tp_group) / (n_heads * n)
+    return _out_proj(out, p, tp_group), aux
+
+
+def _out_proj(out, p, tp_group):
+    """``out . w_out + b_out``; under ``tp_group`` the f32 partials summed
+    over the group first."""
+    return _row_parallel(out, p["w_out"], p["b_out"], tp_group)
+
+
+def _row_parallel(h, w, b, tp_group):
+    """``dense(h, w, b)`` with the f32 product summed over ``tp_group``
+    before ``b`` (Megatron's row-parallel product; ``dense`` itself, bit for
+    bit, with no group)."""
+    acc = torch.matmul(h.float(), w.to(h.dtype).float())
+    return (collectives.reduce_from_model(acc, tp_group) + b.float()).to(h.dtype)
+
+
+def _check_tp(n_heads: int, tp_group, quantize: bool) -> int:
+    """A rank's head count under ``tp_group`` (``n_heads`` without one)."""
+    if tp_group is None:
+        return n_heads
+    n = collectives.size(tp_group)
+    if n_heads % n:
+        raise ValueError(f"n_heads {n_heads} is not divisible by tp={n}")
+    if quantize:
+        raise NotPortedError("int8 towers (quantize_tower) under tp > 1")
+    return n_heads // n
 
 
 def block_forward(
@@ -134,11 +183,14 @@ def block_forward(
     impl: str = "auto",
     quantize: bool = False,
     quantize_deterministic: bool = False,
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Pre-LN residual attention block (open_clip ResidualAttentionBlock)."""
+    """Pre-LN residual attention block (open_clip ResidualAttentionBlock);
+    ``tp_group``: tensor parallel over the group (the module note)."""
     plain_attn_block = attn_to_idx is None and not causal and (
         kv_valid_len is None or isinstance(kv_valid_len, int)
     )
+    n_heads = _check_tp(n_heads, tp_group, quantize)
     if quantize and plain_attn_block:
         x = int8_attn_block(
             x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps,
@@ -147,21 +199,23 @@ def block_forward(
         aux = None
     elif impl in ("auto", "fused") and plain_attn_block:
         x = fused_attn_block(
-            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps
+            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps, tp_group=tp_group
         )
         aux = None
     else:
         h, aux = attn_forward(
-            layer_norm(x, p["ln_1"], ln_eps), p["attn"], n_heads, causal=causal,
-            kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl,
+            collectives.copy_to_model(layer_norm(x, p["ln_1"], ln_eps), tp_group), p["attn"], n_heads,
+            causal=causal, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl, tp_group=tp_group,
         )
         x = x + h
     if quantize and act == "gelu":
         x = int8_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, deterministic=quantize_deterministic)
     elif act == "gelu" and impl in ("auto", "fused", "fused_split"):
-        x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps)
+        x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, tp_group=tp_group)
     else:
-        x = x + mlp_forward(layer_norm(x, p["ln_2"], ln_eps), p["mlp"], act)
+        m = p["mlp"]
+        y = collectives.copy_to_model(layer_norm(x, p["ln_2"], ln_eps), tp_group)
+        x = x + _row_parallel(ACTS[act](dense(y, m["w_fc"], m["b_fc"])), m["w_proj"], m["b_proj"], tp_group)
     return x, aux
 
 
@@ -182,8 +236,12 @@ def transformer_forward(
     prompt_offset: int = 1,
     prompt_mask=None,
     remat: str = "none",
+    tp_group=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order; the attribution aux comes from the last one.
+
+    ``tp_group`` (default: ``collectives.current_model_group()``, the group
+    a mesh step sets): every block runs tensor parallel over it.
 
     The reference hooks the last text block's attention, so only the last
     block gets ``attn_to_idx`` (the JAX package runs it outside its scan).
@@ -205,8 +263,10 @@ def transformer_forward(
     """
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {remat!r}")
+    if tp_group is None:
+        tp_group = collectives.current_model_group()
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
-              quantize=quantize, quantize_deterministic=quantize_deterministic)
+              quantize=quantize, quantize_deterministic=quantize_deterministic, tp_group=tp_group)
     active = [] if layer_prompts is None else (
         [True] * layer_prompts.shape[0] if prompt_mask is None else [bool(m) for m in prompt_mask])
     checkpointed = remat != "none" and torch.is_grad_enabled()

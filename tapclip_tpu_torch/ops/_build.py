@@ -72,6 +72,21 @@ _SIGNATURES = {
     # R H + split R W + 2 R), wsd (scratch: R (H + W) elements of the dtype),
     # h_out, part, R, W, H, eps, split, want_w, dtype, stream
     "tapclip_mlp_bwd": (P,) * 12 + (I, I, I, F, I, I, I, P),
+    # the partial modes (tensor parallelism): x, gamma, beta, w_fc, b_fc,
+    # w_proj, out (f32 [R, W]), ws, R, W, H (the rank's), eps, dtype, stream
+    "tapclip_fused_mlp_partial": (P,) * 8 + (I, I, I, F, I, P),
+    # x, gamma, beta, w_qkv, b_qkv, w_out, out (f32 [R, W]), qkv (f32
+    # R * 3 Wl), ya, B, T, W, Wl, n_heads (the rank's), valid, eps, dtype, stream
+    "tapclip_attn_block_partial": (P,) * 9 + (I,) * 6 + (F, I, P),
+    # x, g, gamma, beta, w_fc, b_fc, w_proj, ws, wsd, h_out, R, W, H, eps,
+    # split, want_w, dtype, stream (tapclip_mlp_bwd's launches 1-4)
+    "tapclip_mlp_bwd_partial": (P,) * 10 + (I, I, I, F, I, I, I, P),
+    # x, g, gamma, beta, w_qkv, b_qkv, w_out, ws, wsd, B, T, W, Wl, n_heads,
+    # valid, eps, split, want_w, dtype, stream (tapclip_attn_block_bwd's 1-6)
+    "tapclip_attn_block_bwd_partial": (P,) * 9 + (I,) * 6 + (F, I, I, I, P),
+    # x, g, dy (f32 [split, R, W]), gamma, mean, rstd, dx, part, R, W, split,
+    # want_w, dtype, stream (the LayerNorm backward that ends both)
+    "tapclip_ln_bwd": (P,) * 8 + (I, I, I, I, I, P),
     # Dh
     "tapclip_attn_bwd_max_seq": (I,),
     # R, W, dtype -> the split of dy's depth that B4 takes there

@@ -33,7 +33,9 @@ backward kernels are unchanged (an export holds no backward).  The int8
 wrappers, eval only, call their ops on every device.  ``attn_aux`` takes
 the valid length and the attribution key each as an optional ``[B]``
 tensor beside the int every row takes without one, as K3's C entry does,
-and returns an empty aux without ``with_aux``.
+and returns an empty aux without ``with_aux``.  ``fused_mlp`` and
+``attn_block`` take ``partial`` (default False): K1's and K2's partial modes
+for tensor parallelism, whose output is the f32 product alone.
 
 The ops are defined with the low-level ``Library`` API rather than the
 ``torch.library.custom_op`` decorator: its Python wrapper costs several
@@ -64,6 +66,13 @@ def _like(x, *_):
     return torch.empty_like(x)
 
 
+def _block_fake(x, *args):
+    """``fused_mlp`` / ``attn_block``: x's shape, f32 in the partial mode
+    (the schema's last argument, ``partial``, default False)."""
+    partial = len(args) in (8, 10) and bool(args[-1])
+    return x.new_empty(x.shape, dtype=torch.float32) if partial else torch.empty_like(x)
+
+
 def _mha_fake(qkv, n_heads, valid, causal):
     B, T, W3 = qkv.shape
     return qkv.new_empty((B, T, W3 // 3))
@@ -78,17 +87,17 @@ def _attn_aux_fake(q, k, v, valid, valid_all, eot, eot_all, causal, with_aux):
 OPS = {
     "fused_mlp": (
         "fused_mlp(Tensor x, Tensor gamma, Tensor beta, Tensor w_fc, Tensor b_fc, Tensor w_proj, "
-        "Tensor b_proj, float eps) -> Tensor",
+        "Tensor b_proj, float eps, bool partial=False) -> Tensor",
         _late(fused_mlp, "fused_mlp_reference"),
         _late(fused_mlp, "_fused_mlp_cuda"),
-        _like,
+        _block_fake,
     ),
     "attn_block": (
         "attn_block(Tensor x, Tensor gamma, Tensor beta, Tensor w_qkv, Tensor b_qkv, Tensor w_out, "
-        "Tensor b_out, int n_heads, int valid, float eps) -> Tensor",
+        "Tensor b_out, int n_heads, int valid, float eps, bool partial=False) -> Tensor",
         _late(fused_mha, "attn_block_reference"),
         _late(fused_mha, "_fused_attn_block_cuda"),
-        _like,
+        _block_fake,
     ),
     "mha": (
         "mha(Tensor qkv, int n_heads, int valid, bool causal) -> Tensor",

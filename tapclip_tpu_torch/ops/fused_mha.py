@@ -30,6 +30,19 @@ product to the compute dtype, as the JAX package's plain path does
 (``layers.py:130``), while the plain backward rounds where the JAX backward
 kernel rounds.  In f32 they agree to summation order.
 
+**Tensor parallelism** (``tp_group=``): the rank holds its heads' q, k and
+v columns of ``w_qkv`` / ``b_qkv`` (``[W, 3 Wl]`` laid out ``[q_j | k_j |
+v_j]``, ``parallel/sharding.py``'s per-head cut) and the matching rows of
+``w_out``, and ``n_heads`` is its head count.  The forward is K2's partial
+mode (``tapclip_attn_block_partial``: the out-projection alone in f32, or
+:func:`attn_block_partial_reference` on a CPU tensor), all-reduced over the
+group, then ``x + b_out`` added and rounded once.  The backward is B4's
+partial mode: its launches up to dy, dy all-reduced over the group, then
+``fused_mlp``'s LayerNorm backward (``tapclip_ln_bwd``), so dx, dgamma and
+dbeta come out complete; the local weight gradients are exact and db_out is
+complete on every rank.  Past B4's routing limit the backward differentiates
+the partial split composition and all-reduces its dx, dgamma and dbeta.
+
 **The attention core.** Counterpart of ``tapclip_tpu/ops/fused_mha.py::fused_mha``:
 attention over the packed ``qkv [B, T, 3W]`` (bias added) into ``[B, T, W]``,
 keys at or past ``valid_len`` masked, optionally causal.  :func:`fused_mha` is
@@ -56,17 +69,23 @@ import torch
 
 from tapclip_tpu_torch.ops import _build, plain
 from tapclip_tpu_torch.ops.attention import attention_reference
-from tapclip_tpu_torch.ops.fused_mlp import _grads_like, _ln_parts, _ln_rows, _rnd, ln_backward
+from tapclip_tpu_torch.ops.fused_mlp import (
+    _grads_like, _ln_bwd_cuda, _ln_parts, _ln_rows, _rnd, _summed_partials, ln_bwd_reference,
+)
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
+from tapclip_tpu_torch.parallel.collectives import all_reduce_
 
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e: scores are exp2'd
 _LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_variants.cuh's kLn2Bf16)
 
 
-def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
+def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, partial=False):
     """Plain version: the composition of ``models/layers.py`` (``_attn_block_xla``):
     LayerNorm, the QKV product, :func:`attention_reference` over the heads,
-    the out-projection and the residual."""
+    the out-projection and the residual (``partial``:
+    :func:`attn_block_partial_reference`, ``b_out`` unused)."""
+    if partial:
+        return attn_block_partial_reference(x, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps)
     B, T, W = x.shape
     kv = None if valid == T else valid
     qkv = plain.dense(plain.layer_norm(x, {"scale": gamma, "bias": beta}, eps), w_qkv, b_qkv)
@@ -75,18 +94,47 @@ def attn_block_reference(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, va
     return x + plain.dense(out.transpose(1, 2).reshape(B, T, W), w_out, b_out)
 
 
-def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps):
+def attn_block_partial_reference(x, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps):
+    """Plain version of K2's partial mode: over the rank's ``n_heads`` heads
+    (``w_qkv [W, 3 Wl]``, ``w_out [Wl, W]``), ``attn . w_out`` in f32, no
+    residual and no ``b_out``."""
+    B, T, _ = x.shape
+    Wl = w_out.shape[0]
+    kv = None if valid == T else valid
+    qkv = plain.dense(plain.layer_norm(x, {"scale": gamma, "bias": beta}, eps), w_qkv, b_qkv)
+    q, k, v = (_split_heads(t, n_heads).contiguous() for t in qkv.split(Wl, dim=-1))
+    out, _ = attention_reference(q, k, v, kv_valid_len=kv)
+    return torch.matmul(out.transpose(1, 2).reshape(B, T, Wl).float(), w_out.to(x.dtype).float())
+
+
+def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps, tp_group=None):
     """Plain backward of :func:`attn_block_reference`, written out as
     ``_attn_block_bwd_kernel`` computes it (same roundings in bfloat16).
+    With ``tp_group`` the weights are a rank's heads and dy is summed over
+    the group before the LayerNorm backward (B4's partial mode).
 
     ``x, g [B, T, W]`` in the compute dtype.  Returns ``(dx, dgamma, dbeta,
     dw_qkv, db_qkv, dw_out, db_out)``: dx in x.dtype, the rest f32.
     """
+    dy, n, rstd, dw_qkv, db_qkv, dw_out = attn_block_bwd_partial_reference(
+        x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps)
+    if tp_group is not None:
+        all_reduce_(dy, tp_group)
+    dx, dgamma, dbeta = ln_bwd_reference(x, g, dy, n, rstd, gamma)
+    return dx, dgamma, dbeta, dw_qkv, db_qkv, dw_out, col_sum_reference(g.reshape(dy.shape).float())
+
+
+def attn_block_bwd_partial_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps):
+    """Plain version of B4's launches up to dy (its partial mode's first
+    call) over the heads given: ``(dy [R, W] f32, n, rstd, dw_qkv, db_qkv,
+    dw_out)``, dy the LayerNorm output's gradient."""
     dt = x.dtype
     B, T, W = x.shape
+    n, rstd, y = _ln_parts(x.reshape(B * T, W), gamma, beta, eps)
+    n, rstd, y = n.reshape(B, T, W), rstd.reshape(B, T, 1), y.reshape(B, T, W)
+    W = w_out.shape[0]  # the width of the heads given
     Dh = W // n_heads
     scale = Dh ** -0.5
-    n, rstd, y = _ln_parts(x, gamma, beta, eps)
     y32 = y.float()
     qkv = y32 @ _rnd(w_qkv, dt) + b_qkv.float()
     gc = _rnd(g.float(), dt)
@@ -114,12 +162,11 @@ def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, va
 
     attn = merge(o)
     dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
-    gc2 = gc.reshape(B * T, W)
-    dy = (dqkv @ _rnd(w_qkv, dt).T).reshape(B, T, W)
-    dx_ln, dgn, dbn = ln_backward(dy, n, rstd, gamma)
-    dx = (g.float() + dx_ln).to(dt)
-    return (dx, dgn.sum((0, 1)), dbn.sum((0, 1)), gemm_reference(y32.reshape(B * T, W), dqkv, trans_a=True),
-            col_sum_reference(dqkv), gemm_reference(attn, gc2, trans_a=True), col_sum_reference(gc2))
+    gc2 = gc.reshape(B * T, -1)
+    dy = dqkv @ _rnd(w_qkv, dt).T
+    return (dy, n.reshape(B * T, -1), rstd.reshape(B * T, 1),
+            gemm_reference(y32.reshape(B * T, -1), dqkv, trans_a=True), col_sum_reference(dqkv),
+            gemm_reference(attn, gc2, trans_a=True))
 
 
 class _FusedAttnBlock(torch.autograd.Function):
@@ -176,6 +223,58 @@ def _split_block_grads(saved, g, need, n_heads, valid, eps):
     return [next(grads) if n else None for n in need[:len(saved)]]
 
 
+class _FusedAttnBlockPartial(torch.autograd.Function):
+    """The tensor-parallel half-block: K2's and B4's partial modes around the
+    all-reduces over ``group`` (plain versions on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, group):
+        ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_out, b_out)
+        ctx.cfg, ctx.group = (n_heads, valid, eps), group
+        acc = _build.run(torch.ops.tapclip.attn_block.default, attn_block_reference, _fused_attn_block_cuda,
+                         x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, True)
+        all_reduce_(acc, group)
+        return (x.float() + (acc + b_out.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x, gamma, beta, w_qkv, b_qkv, w_out, _ = saved
+        need = ctx.needs_input_grad
+        g = g.to(x.dtype).contiguous()
+        args = (x, g, gamma, beta, w_qkv, b_qkv, w_out, *ctx.cfg)
+        if x.device.type == "cpu":
+            grads = attn_block_bwd_reference(*args, tp_group=ctx.group)
+        elif not _tile_fits(x.shape[1], w_out.shape[0] // ctx.cfg[0]):
+            grads = _split_block_partial_grads(saved, g, need, *ctx.cfg, ctx.group)
+        else:
+            grads = _attn_block_bwd_partial_cuda(*args, group=ctx.group, weight_grads=tuple(need[1:7]))
+        return (*_grads_like(grads, saved, need), None, None, None, None)
+
+
+def _split_block_partial_grads(saved, g, need, n_heads, valid, eps, group):
+    """The partial half-block's gradients past B4's tile: autograd through the
+    rank's split composition (LayerNorm and the projections in torch around
+    :func:`fused_mha`, differentiated on B7) with g as the cotangent of its
+    f32 partial, then dx's LayerNorm part, dgamma and dbeta all-reduced over
+    ``group`` and g added to dx once."""
+    x, gamma, beta, w_qkv, b_qkv, w_out, _ = saved
+    dt = x.dtype
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True), *(t.detach().requires_grad_(True) for t in saved[1:6])]
+        xx, gm, bt, wq, bq, wo = leaves
+        y = _ln_parts(xx, gm, bt, eps)[2].float()
+        qkv = (y @ _rnd(wq, dt) + bq.float()).to(dt)
+        part = fused_mha(qkv, n_heads, valid_len=valid).float() @ _rnd(wo, dt)
+        grads = list(torch.autograd.grad(part, leaves, g.float()))
+    dx_ln, dgamma, dbeta = grads[0].float(), grads[1], grads[2]
+    for t in (dx_ln, dgamma, dbeta):
+        all_reduce_(t, group)
+    dx = (g.float() + dx_ln).to(dt)
+    g2 = g.reshape(-1, g.shape[-1]).float()
+    return [dx, dgamma, dbeta, grads[3], grads[4], grads[5], col_sum_reference(g2) if need[6] else None]
+
+
 def fused_attn_block(
     x: torch.Tensor,
     ln_params,
@@ -184,18 +283,24 @@ def fused_attn_block(
     *,
     valid_len: Optional[int] = None,
     eps: float = 1e-5,
+    tp_group=None,
 ) -> torch.Tensor:
-    """The attention half-block: K2/B4 on CUDA, plain on CPU."""
+    """The attention half-block: K2/B4 on CUDA, plain on CPU.  ``tp_group``:
+    the rank holds its ``n_heads`` heads' columns of ``attn_params`` (the
+    per-head cut) and the partial products are all-reduced over the group
+    (K2's and B4's partial modes)."""
     valid = valid_len if valid_len is not None else x.shape[1]
-    return _FusedAttnBlock.apply(
-        x, ln_params["scale"], ln_params["bias"], attn_params["w_qkv"],
-        attn_params["b_qkv"], attn_params["w_out"], attn_params["b_out"],
-        n_heads, valid, eps,
-    )
+    args = (x, ln_params["scale"], ln_params["bias"], attn_params["w_qkv"], attn_params["b_qkv"],
+            attn_params["w_out"], attn_params["b_out"], n_heads, valid, eps)
+    if tp_group is not None:
+        return _FusedAttnBlockPartial.apply(*args, tp_group)
+    return _FusedAttnBlock.apply(*args)
 
 
 fused_attn_block.launches = 0
 fused_attn_block.bwd_launches = 0
+fused_attn_block.partial_launches = 0
+fused_attn_block.partial_bwd_launches = 0
 
 
 def _check_heads(T, W, n_heads, valid):
@@ -207,39 +312,110 @@ def _check_heads(T, W, n_heads, valid):
     return Dh
 
 
-def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps):
+def _attn_operands(x, gamma, beta, w_qkv, b_qkv, w_out, Wl, **extra):
+    """Cast the parameters as K2 / B4 take them (``Wl``: the heads' width,
+    W or a rank's) and check every operand and its alignment."""
     B, T, W = x.shape
-    dtype = x.dtype
-    _check_heads(T, W, n_heads, valid)
-    f32 = torch.float32
+    dtype, f32 = x.dtype, torch.float32
     ops = {
         "x": (x, dtype, (B, T, W)),
+        **{k: (v, dtype, (B, T, W)) for k, v in extra.items()},
         "gamma": (gamma.to(f32), f32, (W,)),
         "beta": (beta.to(f32), f32, (W,)),
-        "w_qkv": (w_qkv.to(dtype), dtype, (W, 3 * W)),
-        "b_qkv": (b_qkv.to(f32), f32, (3 * W,)),
-        "w_out": (w_out.to(dtype), dtype, (W, W)),
-        "b_out": (b_out.to(f32), f32, (W,)),
+        "w_qkv": (w_qkv.to(dtype), dtype, (W, 3 * Wl)),
+        "b_qkv": (b_qkv.to(f32), f32, (3 * Wl,)),
+        "w_out": (w_out.to(dtype), dtype, (Wl, W)),
     }
     for name, (t, dt, shape) in ops.items():
         _build.check_cuda_operand(name, t, dt, shape)
     t = {name: v[0] for name, v in ops.items()}
     align = 4 * x.element_size()  # the GEMMs copy 4 elements at a time at least
-    for name in ("x", "w_qkv", "w_out"):
+    for name in ("x", *extra, "w_qkv", "w_out"):
         if t[name].data_ptr() % align:
             raise ValueError(f"attention block kernel copies {name} in {align}-byte chunks: it must be "
                              f"{align}-byte aligned")
-    qkv = torch.empty((B * T, 3 * W), dtype=f32, device=x.device)  # q | k | v, v rounded to the dtype
+    return t
+
+
+def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, partial=False):
+    """K2 (``partial``: its partial mode over the ``n_heads`` heads of the
+    per-head cut weights, an f32 ``[B, T, W]`` of the out-projection alone;
+    ``b_out`` unused)."""
+    B, T, W = x.shape
+    Wl = w_out.shape[0] if partial else W
+    dtype, f32 = x.dtype, torch.float32
+    _check_heads(T, Wl, n_heads, valid)
+    t = _attn_operands(x, gamma, beta, w_qkv, b_qkv, w_out, Wl)
+    qkv = torch.empty((B * T, 3 * Wl), dtype=f32, device=x.device)  # q | k | v, v rounded to the dtype
     ya = torch.empty_like(x)  # y = LN(x), then the attention output
+    lib, code, stream = _build.library(), _build.dtype_code(dtype), _build.stream_handle(x.device)
+    if partial:
+        out = torch.empty(x.shape, dtype=f32, device=x.device)
+        err = lib.tapclip_attn_block_partial(
+            x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(), t["b_qkv"].data_ptr(),
+            t["w_out"].data_ptr(), out.data_ptr(), qkv.data_ptr(), ya.data_ptr(), B, T, W, Wl, n_heads, int(valid),
+            float(eps), code, stream,
+        )
+        _build.check(err, "tapclip_attn_block_partial")
+        fused_attn_block.partial_launches += 1
+        return out
+    b_out = b_out.to(f32)
+    _build.check_cuda_operand("b_out", b_out, f32, (W,))
     out = torch.empty_like(x)
-    err = _build.library().tapclip_attn_block(
+    err = lib.tapclip_attn_block(
         x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(), t["b_qkv"].data_ptr(),
-        t["w_out"].data_ptr(), t["b_out"].data_ptr(), out.data_ptr(), qkv.data_ptr(), ya.data_ptr(),
-        B, T, W, n_heads, int(valid), float(eps), _build.dtype_code(dtype), _build.stream_handle(x.device),
+        t["w_out"].data_ptr(), b_out.data_ptr(), out.data_ptr(), qkv.data_ptr(), ya.data_ptr(),
+        B, T, W, n_heads, int(valid), float(eps), code, stream,
     )
     _build.check(err, "tapclip_attn_block")
     fused_attn_block.launches += 1
     return out
+
+
+def _attn_block_bwd_partial_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps, *, group,
+                                 weight_grads=True, split=None):
+    """B4's partial mode on the card: launches 1-6 over the rank's heads,
+    dy's depth partials summed and all-reduced over ``group``, then the
+    LayerNorm backward (``tapclip_ln_bwd``) and the weight gradients
+    ``weight_grads`` asks for, as :func:`_attn_block_bwd_cuda` returns them."""
+    B, T, W = x.shape
+    R, Wl = B * T, w_out.shape[0]
+    Dh = _check_heads(T, Wl, n_heads, valid)
+    want = (weight_grads,) * 6 if isinstance(weight_grads, bool) else tuple(weight_grads)
+    weight_grads = any(want)
+    lib = _build.library()
+    if not _tile_fits(T, Dh):
+        raise ValueError(f"attention block backward kernel runs up to its routing limit: T={T} exceeds "
+                         f"{lib.tapclip_attn_bwd_max_seq(Dh)} at head dim {Dh}")
+    t = _attn_operands(x, gamma, beta, w_qkv, b_qkv, w_out, Wl, g=g)
+    dtype, f32, dev = x.dtype, torch.float32, x.device
+    code, stream = _build.dtype_code(dtype), _build.stream_handle(dev)
+    S = lib.tapclip_attn_block_bwd_split(R, W, code) if split is None else int(split)
+    if S not in (1, 2, 4):
+        raise ValueError(f"attention block backward kernel splits dy's depth 1, 2 or 4 ways, got {S}")
+    # qkv, gh, dy partials, mean, rstd, lse, delta
+    ws = torch.empty(R * (4 * Wl + S * W + 2 + 2 * n_heads), dtype=f32, device=dev)
+    wsd = torch.empty(R * (W + (4 if weight_grads else 3) * Wl), dtype=dtype, device=dev)  # y, dqkv, o
+    err = lib.tapclip_attn_block_bwd_partial(
+        x.data_ptr(), g.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_qkv"].data_ptr(),
+        t["b_qkv"].data_ptr(), t["w_out"].data_ptr(), ws.data_ptr(), wsd.data_ptr(), B, T, W, Wl, n_heads,
+        int(valid), float(eps), S, int(weight_grads), code, stream,
+    )
+    _build.check(err, "tapclip_attn_block_bwd_partial")
+    dy = _summed_partials(ws[R * 4 * Wl:R * (4 * Wl + S * W)], S)
+    all_reduce_(dy, group)
+    dx, part = _ln_bwd_cuda(x, g, dy, ws[R * (4 * Wl + S * W):], t["gamma"], R, W, 1, weight_grads, code, stream)
+    fused_attn_block.partial_bwd_launches += 1
+    if not weight_grads:
+        return dx, None, None, None, None, None, None
+    y = wsd[:R * W].view(R, W)
+    dqkv = wsd[R * W:R * (W + 3 * Wl)].view(R, 3 * Wl)
+    attn = wsd[R * (W + 3 * Wl):].view(R, Wl)
+    g2 = g.reshape(R, W)
+    ln_sums = col_sum(part) if want[0] or want[1] else None
+    return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
+            gemm_f32(y, dqkv, trans_a=True) if want[2] else None, col_sum(dqkv) if want[3] else None,
+            gemm_f32(attn, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
 
 
 def _attn_block_bwd_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps,

@@ -23,6 +23,19 @@ take any row count R (they mask the ragged last tile), so the TPU kernel's
 alignment guard (R % 256, W % 128) is not ported.
 They use ``erff`` for the exact GELU where the TPU kernels needed a
 polynomial.
+
+**Tensor parallelism** (``tp_group=``, Megatron's column / row cut: the rank
+holds ``w_fc[:, cols]``, ``b_fc[cols]`` and ``w_proj[cols, :]``): the
+forward is K1's partial mode, the proj product alone in f32
+(``tapclip_fused_mlp_partial``, or :func:`fused_mlp_partial_reference` on a
+CPU tensor), all-reduced over the group, then ``x + b_proj`` added and
+rounded once, as K1's own epilogue does.  The backward is B5's partial mode:
+its launches up to dy, the LayerNorm output's gradient, which is all-reduced
+over the group, then the LayerNorm backward alone (``tapclip_ln_bwd``) on
+the whole dy, so dx, dgamma and dbeta come out complete on every rank and
+the residual's gradient is added once; the local weight gradients are exact
+and db_proj is complete (it is not summed over the group).  Partial launches
+count on their own (``.partial_launches``, ``.partial_bwd_launches``).
 """
 
 from __future__ import annotations
@@ -33,13 +46,25 @@ import torch
 
 from tapclip_tpu_torch.ops import _build, plain
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
+from tapclip_tpu_torch.parallel.collectives import all_reduce_
 
 
-def fused_mlp_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps: float = 1e-5):
-    """Plain version: ``x + mlp(layer_norm(x))`` as ``models/layers.py`` composes it."""
+def fused_mlp_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps: float = 1e-5, partial: bool = False):
+    """Plain version: ``x + mlp(layer_norm(x))`` as ``models/layers.py`` composes it
+    (``partial``: :func:`fused_mlp_partial_reference`, ``b_proj`` unused)."""
+    if partial:
+        return fused_mlp_partial_reference(x, gamma, beta, w_fc, b_fc, w_proj, eps)
     p_ln = {"scale": gamma, "bias": beta}
     p_mlp = {"w_fc": w_fc, "b_fc": b_fc, "w_proj": w_proj, "b_proj": b_proj}
     return x + plain.mlp_forward(plain.layer_norm(x, p_ln, eps), p_mlp, "gelu")
+
+
+def fused_mlp_partial_reference(x, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5):
+    """Plain version of K1's partial mode: ``h . w_proj`` in f32 over the
+    rank's hidden columns, ``h = gelu(LN(x) . w_fc + b_fc)`` rounded to x's
+    dtype, no residual and no ``b_proj``."""
+    h = plain.gelu(plain.dense(plain.layer_norm(x, {"scale": gamma, "bias": beta}, eps), w_fc, b_fc))
+    return torch.matmul(h.float(), w_proj.to(x.dtype).float())
 
 
 def _ln_parts(x, gamma, beta, eps):
@@ -65,13 +90,10 @@ def _rnd(t, dtype):
     return t.to(dtype).float()
 
 
-def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5):
-    """Plain backward of :func:`fused_mlp_reference`, written out as
-    ``_mlp_bwd_kernel`` computes it (same roundings in bfloat16).
-
-    ``x, g [..., W]`` in the compute dtype.  Returns ``(dx, dgamma, dbeta,
-    dw_fc, db_fc, dw_proj, db_proj)``: dx in x.dtype, the rest f32.
-    """
+def fused_mlp_bwd_partial_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5):
+    """Plain version of B5's launches up to dy (its partial mode's first
+    call): ``(dy [R, W] f32, n, rstd, dw_fc, db_fc, dw_proj)`` over the
+    hidden columns given, dy the LayerNorm output's gradient."""
     dt = x.dtype
     W = x.shape[-1]
     x2, g32 = x.reshape(-1, W), g.reshape(-1, W).float()
@@ -87,9 +109,32 @@ def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 
     dhc = _rnd(dh_pre, dt)
     dy = dhc @ _rnd(w_fc, dt).T
     dw_fc = gemm_reference(y32, dhc, trans_a=True)
+    return dy, n, rstd, dw_fc, col_sum_reference(dh_pre), dw_proj
+
+
+def ln_bwd_reference(x, g, dy, n, rstd, gamma):
+    """Plain version of the LayerNorm backward that ends B4 and B5 (and their
+    partial modes, ``tapclip_ln_bwd``): ``(dx, dgamma, dbeta)``, dx = g + the
+    LayerNorm's backward of ``dy [R, W]`` in x.dtype."""
     dx_ln, dgn, dbn = ln_backward(dy, n, rstd, gamma)
-    dx = (g32 + dx_ln).to(dt).reshape(x.shape)
-    return dx, dgn.sum(0), dbn.sum(0), dw_fc, col_sum_reference(dh_pre), dw_proj, col_sum_reference(g32)
+    dx = (g.reshape(dy.shape).float() + dx_ln).to(x.dtype).reshape(x.shape)
+    return dx, dgn.sum(0), dbn.sum(0)
+
+
+def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5, tp_group=None):
+    """Plain backward of :func:`fused_mlp_reference`, written out as
+    ``_mlp_bwd_kernel`` computes it (same roundings in bfloat16).  With
+    ``tp_group`` the weights are a rank's hidden columns and dy is summed
+    over the group before the LayerNorm backward (B5's partial mode).
+
+    ``x, g [..., W]`` in the compute dtype.  Returns ``(dx, dgamma, dbeta,
+    dw_fc, db_fc, dw_proj, db_proj)``: dx in x.dtype, the rest f32.
+    """
+    dy, n, rstd, dw_fc, db_fc, dw_proj = fused_mlp_bwd_partial_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps)
+    if tp_group is not None:
+        all_reduce_(dy, tp_group)
+    dx, dgamma, dbeta = ln_bwd_reference(x, g, dy, n, rstd, gamma)
+    return dx, dgamma, dbeta, dw_fc, db_fc, dw_proj, col_sum_reference(g.reshape(dy.shape).float())
 
 
 def _grads_like(grads, inputs, needs_input_grad):
@@ -125,16 +170,49 @@ class _FusedMLP(torch.autograd.Function):
         return (*_grads_like(grads, saved, need), None)
 
 
-def fused_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5) -> torch.Tensor:
-    """``x + mlp(layer_norm(x))`` for ``x [B, T, W]``: K1/B5 on CUDA, plain on CPU."""
-    return _FusedMLP.apply(
-        x, ln_params["scale"], ln_params["bias"], mlp_params["w_fc"],
-        mlp_params["b_fc"], mlp_params["w_proj"], mlp_params["b_proj"], eps,
-    )
+class _FusedMLPPartial(torch.autograd.Function):
+    """The tensor-parallel half-block: K1's and B5's partial modes around the
+    all-reduces over ``group`` (plain versions on a CPU tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, group):
+        ctx.save_for_backward(x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
+        ctx.eps, ctx.group = eps, group
+        acc = _build.run(torch.ops.tapclip.fused_mlp.default, fused_mlp_reference, _fused_mlp_cuda,
+                         x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, True)
+        all_reduce_(acc, group)
+        return (x.float() + (acc + b_proj.float())).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x, gamma, beta, w_fc, b_fc, w_proj, _ = saved
+        need = ctx.needs_input_grad
+        g = g.to(x.dtype).contiguous()
+        if x.device.type == "cpu":
+            grads = fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, ctx.eps, tp_group=ctx.group)
+        else:
+            grads = _fused_mlp_bwd_partial_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, eps=ctx.eps, group=ctx.group,
+                                                weight_grads=tuple(need[1:7]))
+        return (*_grads_like(grads, saved, need), None, None)
+
+
+def fused_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5, tp_group=None) -> torch.Tensor:
+    """``x + mlp(layer_norm(x))`` for ``x [B, T, W]``: K1/B5 on CUDA, plain on CPU.
+    ``tp_group``: the rank holds its hidden columns of ``mlp_params`` and the
+    partial products are all-reduced over the group (K1's and B5's partial
+    modes)."""
+    args = (x, ln_params["scale"], ln_params["bias"], mlp_params["w_fc"], mlp_params["b_fc"], mlp_params["w_proj"],
+            mlp_params["b_proj"], eps)
+    if tp_group is not None:
+        return _FusedMLPPartial.apply(*args, tp_group)
+    return _FusedMLP.apply(*args)
 
 
 fused_mlp_block.launches = 0
 fused_mlp_block.bwd_launches = 0
+fused_mlp_block.partial_launches = 0
+fused_mlp_block.partial_bwd_launches = 0
 
 
 def _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj, **extra):
@@ -156,26 +234,38 @@ def _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj, **extra):
     return {name: v[0] for name, v in ops.items()}
 
 
-def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps):
+def _fused_mlp_cuda(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, partial=False):
+    """K1 (``partial``: its partial mode, an f32 ``[..., W]`` of the proj
+    product alone over the hidden columns given; ``b_proj`` unused)."""
     W = x.shape[-1]
     H = w_fc.shape[-1]
     R = x.numel() // W
     if W % 4 or H % 4:
         raise ValueError(f"fused_mlp kernel needs W and H divisible by 4, got W={W}, H={H}")
     t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj)
-    b_proj = b_proj.to(torch.float32)
-    _build.check_cuda_operand("b_proj", b_proj, torch.float32, (W,))
     align = 4 * x.element_size()  # the kernels copy 4 elements at a time at least
     for name in ("x", "w_fc", "w_proj"):
         if t[name].data_ptr() % align:
             raise ValueError(f"fused_mlp kernel copies {name} in {align}-byte chunks: it must be "
                              f"{align}-byte aligned")
-    out = torch.empty_like(x)
     ws = torch.empty(R * (H + W), dtype=x.dtype, device=x.device)  # h [R, H], then y [R, W]
-    err = _build.library().tapclip_fused_mlp(
+    lib, code, stream = _build.library(), _build.dtype_code(x.dtype), _build.stream_handle(x.device)
+    if partial:
+        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        err = lib.tapclip_fused_mlp_partial(
+            x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(), t["b_fc"].data_ptr(),
+            t["w_proj"].data_ptr(), out.data_ptr(), ws.data_ptr(), R, W, H, float(eps), code, stream,
+        )
+        _build.check(err, "tapclip_fused_mlp_partial")
+        fused_mlp_block.partial_launches += 1
+        return out
+    b_proj = b_proj.to(torch.float32)
+    _build.check_cuda_operand("b_proj", b_proj, torch.float32, (W,))
+    out = torch.empty_like(x)
+    err = lib.tapclip_fused_mlp(
         x.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
         t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), b_proj.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        R, W, H, float(eps), _build.dtype_code(x.dtype), _build.stream_handle(x.device),
+        R, W, H, float(eps), code, stream,
     )
     _build.check(err, "tapclip_fused_mlp")
     fused_mlp_block.launches += 1
@@ -232,6 +322,81 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
     return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
             gemm_f32(y, dhp, trans_a=True) if want[2] else None, col_sum(dh_pre) if want[3] else None,
             gemm_f32(h, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
+
+
+def _fused_mlp_bwd_partial_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, group, weight_grads=True,
+                                split=None):
+    """B5's partial mode on the card: launches 1-4 over the rank's hidden
+    columns, dy's depth partials summed and all-reduced over ``group``,
+    then the LayerNorm backward (``tapclip_ln_bwd``) and the weight
+    gradients ``weight_grads`` asks for, as :func:`_fused_mlp_bwd_cuda`
+    returns them."""
+    W = x.shape[-1]
+    H = w_fc.shape[-1]
+    R = x.numel() // W
+    if W % 4 or H % 4:
+        raise ValueError(f"fused_mlp backward kernel needs W and H divisible by 4, got W={W}, H={H}")
+    t = _check_mlp_operands(x, gamma, beta, w_fc, b_fc, w_proj, g=g)
+    align = 4 * x.element_size()
+    for name in ("g", "w_fc", "w_proj"):
+        if t[name].data_ptr() % align:
+            raise ValueError(f"fused_mlp backward kernel copies {name} in {align}-byte chunks: it must be "
+                             f"{align}-byte aligned")
+    want = (weight_grads,) * 6 if isinstance(weight_grads, bool) else tuple(weight_grads)
+    weight_grads = any(want)
+    lib = _build.library()
+    code = _build.dtype_code(x.dtype)
+    S = lib.tapclip_mlp_bwd_split(R, W, H, code) if split is None else int(split)
+    if S not in (1, 2, 4):
+        raise ValueError(f"fused_mlp backward kernel splits dy's depth 1, 2 or 4 ways, got {S}")
+    dev, dtype, f32 = x.device, x.dtype, torch.float32
+    stream = _build.stream_handle(dev)
+    ws = torch.empty(R * H + S * R * W + 2 * R, dtype=f32, device=dev)  # z, dy partials, mean, rstd
+    wsd = torch.empty(R * (H + W), dtype=dtype, device=dev)  # dh_pre, then y
+    h = torch.empty((R, H), dtype=dtype, device=dev) if weight_grads else None
+    err = lib.tapclip_mlp_bwd_partial(
+        x.data_ptr(), g.data_ptr(), t["gamma"].data_ptr(), t["beta"].data_ptr(), t["w_fc"].data_ptr(),
+        t["b_fc"].data_ptr(), t["w_proj"].data_ptr(), ws.data_ptr(), wsd.data_ptr(),
+        None if h is None else h.data_ptr(), R, W, H, float(eps), S, int(weight_grads), code, stream,
+    )
+    _build.check(err, "tapclip_mlp_bwd_partial")
+    dy = _summed_partials(ws[R * H:R * H + S * R * W], S)
+    all_reduce_(dy, group)
+    dx, part = _ln_bwd_cuda(x, g, dy, ws[R * H + S * R * W:], t["gamma"], R, W, 1, weight_grads, code, stream)
+    fused_mlp_block.partial_bwd_launches += 1
+    if not weight_grads:
+        return dx, None, None, None, None, None, None
+    dhp, y = wsd[:R * H].view(R, H), wsd[R * H:].view(R, W)
+    dh_pre = ws[:R * H].view(R, H)
+    g2 = g.reshape(R, W)
+    ln_sums = col_sum(part) if want[0] or want[1] else None
+    return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
+            gemm_f32(y, dhp, trans_a=True) if want[2] else None, col_sum(dh_pre) if want[3] else None,
+            gemm_f32(h, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
+
+
+def _summed_partials(dy, S):
+    """The S depth partials of dy (``[S * R * W]`` f32) summed in
+    ``tapclip_ln_bwd``'s order, so the all-reduce moves one ``[R, W]``."""
+    parts = dy.view(S, -1)
+    out = parts[0]
+    for s in range(1, S):
+        out = out + parts[s]
+    return out
+
+
+def _ln_bwd_cuda(x, g, dy, stats, gamma, R, W, S, want_w, code, stream):
+    """``tapclip_ln_bwd``: dx = g + the LayerNorm backward of the S partials
+    of dy (``stats``: mean then rstd, ``[2R]`` f32); with ``want_w`` also the
+    per-16-row partials of dgamma and dbeta.  Returns ``(dx, part)``."""
+    dx = torch.empty_like(x)
+    part = torch.empty((-(-R // 16), 2 * W), dtype=torch.float32, device=x.device) if want_w else None
+    err = _build.library().tapclip_ln_bwd(
+        x.data_ptr(), g.data_ptr(), dy.data_ptr(), gamma.data_ptr(), stats.data_ptr(), stats[R:].data_ptr(),
+        dx.data_ptr(), None if part is None else part.data_ptr(), R, W, S, int(want_w), code, stream,
+    )
+    _build.check(err, "tapclip_ln_bwd")
+    return dx, part
 
 
 # --- S2: the A/B variants of the MLP half-block (scripts/mlp_kernel_ab.py) ---

@@ -20,8 +20,21 @@ The image tower is frozen, so both steps take precomputed image features
 are here: the KgCoOp cosine pull (``kg_lambda``), PromptSRC's logit
 distillation (``scl_lambda``) and ProGrad's projection (``prograd_lambda``:
 one forward, then two pullbacks of ``[loss, KL]`` over the retained graph,
-so every backward kernel runs twice per step).  No data parallelism yet:
-one device.
+so every backward kernel runs twice per step).
+
+**A mesh** (``mesh=``, ``parallel/mesh.py``'s process-group form): the JAX
+step takes its data parallelism from the batch's placement; here each rank
+passes its rows of the global batch (``sharding.shard_batch``) and the step
+sums, over ``data``, every trained leaf's gradient of this rank's share of
+the global-batch loss: its local (masked) mean times its share of the
+global count, so that a dp = 2 step equals the dp = 1 step on the same
+global batch.  ProGrad's projection is nonlinear, so both pullbacks are
+reduced before it (the "global-gradient projection under dp").  The KgCoOp
+and scl terms stay batch means over the global batch.  Under ``tp > 1`` the
+towers run tensor parallel over ``model`` (``models/layers.py``) inside the
+forward, and the trained leaves' gradients come out complete on every rank
+of a ``model`` group, so nothing is summed over ``model``.  With no mesh the
+step runs exactly what it runs without one.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch
 from tapclip_tpu_torch.config import CLIPConfig, PromptConfig, TrainConfig
 from tapclip_tpu_torch.models import clip as clip_model
 from tapclip_tpu_torch.models.model_wrapper import NEG_INF, full_model_forward
+from tapclip_tpu_torch.parallel import collectives
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -171,6 +185,7 @@ def make_train_step(
     prograd_lambda: float = 0.0,
     anchor_scale: Optional[float] = None,
     scl_lambda: float = 0.0,
+    mesh=None,
 ) -> Callable:
     """Returns ``step(clip_params, state, bank, images_or_feats, labels, mask)
     -> (state, metrics)``; ``metrics`` holds ``loss`` and ``grad_norm``, and
@@ -191,7 +206,13 @@ def make_train_step(
     ``optimizer`` is accepted for the JAX package's signature; the optimizer
     itself lives in the state (:func:`init_train_state`).  The step updates
     ``state`` in place and returns it.
+
+    ``mesh``: each rank passes its rows; the metrics are the global batch's
+    (the module note).
     """
+    _check_mesh(mesh)
+    data = None if mesh is None else mesh.data_group
+    tp_group = collectives.model_group_of(mesh)
     use_kg, use_prograd, use_scl = kg_lambda > 0.0, prograd_lambda > 0.0, scl_lambda > 0.0
     if use_kg or use_prograd or use_scl:
         if kg_feats is None:
@@ -237,13 +258,14 @@ def make_train_step(
         x = _as_tensor(x, dev)
         labels = _as_tensor(labels, dev, torch.long)
         mask = None if mask is None else _as_tensor(mask, dev, torch.bool)
-        out = full_model_forward(
-            clip_params, state.params, bank,
-            None if use_image_feats else x, labels,
-            clip_cfg=clip_cfg, prompt_cfg=prompt_cfg, with_loss=True,
-            image_feats=x if use_image_feats else None, batch_mask=mask,
-            return_text_feats=use_kg,
-        )
+        with collectives.tensor_parallel(tp_group):
+            out = full_model_forward(
+                clip_params, state.params, bank,
+                None if use_image_feats else x, labels,
+                clip_cfg=clip_cfg, prompt_cfg=prompt_cfg, with_loss=True,
+                image_feats=x if use_image_feats else None, batch_mask=mask,
+                return_text_feats=use_kg,
+            )
         loss = out["loss"]
         metrics = {}
         if use_kg:
@@ -256,16 +278,23 @@ def make_train_step(
             metrics["loss_scl"] = kl_term(out["logits"], bank, x, mask)
             loss = loss + scl_lambda * metrics["loss_scl"]
         leaves = state.diff_leaves()
+        share = None if mesh is None else _global_share(x, mask, data)
         if use_prograd:
             # One forward, two pullbacks of [loss, KL] over the retained graph.
             kl = kl_term(out["logits"], bank, x, mask)
             vals = torch.stack([loss.float(), kl])
             grads = _grads(vals, leaves, vals.new_tensor([1.0, 0.0]), retain_graph=True)
             g_kl = _grads(vals, leaves, vals.new_tensor([0.0, 1.0]))
+            if mesh is not None:  # both pullbacks are global before the (nonlinear) projection
+                grads, g_kl = _reduced(grads, share, data), _reduced(g_kl, share, data)
             grads, conflict = _prograd_project(grads, g_kl, prograd_lambda)
             metrics.update(loss_prograd_kl=kl, prograd_conflict=conflict)
         else:
             grads = _grads(loss, leaves)
+            if mesh is not None:
+                grads = _reduced(grads, share, data)
+        if mesh is not None:
+            loss, metrics = _global_metrics(loss, metrics, share, data)
         grad_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         for p, g in zip(leaves, grads):
             p.grad = g
@@ -279,6 +308,36 @@ def make_train_step(
     return step
 
 
+def _check_mesh(mesh) -> None:
+    if mesh is not None and mesh.in_process:
+        raise ValueError("a train or eval step takes a process-group mesh (make_mesh without devices=)")
+
+
+def _global_share(x, mask, group) -> torch.Tensor:
+    """This rank's share of the global batch's count: its (masked) rows over
+    the rows summed over ``group`` (f32 scalar; 1 on a one-rank axis)."""
+    n = (mask.float().sum() if mask is not None else torch.tensor(float(x.shape[0]), device=x.device))
+    total = collectives.all_reduce_(n.detach().clone().reshape(1), group)[0]
+    return n / total.clamp_min(1.0)
+
+
+def _reduced(grads: List[torch.Tensor], share: torch.Tensor, group) -> List[torch.Tensor]:
+    """Each rank's gradients of its local mean, weighted by its share and
+    summed over ``group``: the gradients of the global-batch mean."""
+    out = [g * share.to(g.dtype) for g in grads]
+    collectives.all_reduce_many_(out, group)
+    return out
+
+
+def _global_metrics(loss, metrics, share, group):
+    """The loss and the per-batch terms as global-batch means (the
+    ``prograd_conflict`` flag is already global)."""
+    keys = [k for k in ("loss_kg", "loss_scl", "loss_prograd_kl") if k in metrics]
+    vals = [(t.detach().float() * share).reshape(1) for t in [loss, *(metrics[k] for k in keys)]]
+    collectives.all_reduce_many_(vals, group)
+    return vals[0][0], {**metrics, **{k: v[0] for k, v in zip(keys, vals[1:])}}
+
+
 def _grads(out, leaves, grad_outputs=None, retain_graph: bool = False) -> List[torch.Tensor]:
     """d out / d leaves, zeros for a leaf the output does not reach."""
     grads = torch.autograd.grad(out, leaves, grad_outputs, retain_graph=retain_graph, allow_unused=True)
@@ -289,14 +348,26 @@ def make_eval_step(
     clip_cfg: CLIPConfig,
     prompt_cfg: PromptConfig,
     use_image_feats: bool = True,
+    mesh=None,
 ) -> Callable:
     """Returns ``eval_step(clip_params, trainable, bank, x, labels, mask)`` ->
     per-batch ``correct``/``total`` and per-class counts (padded C_max), run
-    under ``torch.inference_mode()``."""
+    under ``torch.inference_mode()``.  ``mesh``: each rank passes its rows;
+    the counts are summed over ``data`` (``preds`` stay the rank's)."""
+    _check_mesh(mesh)
+    tp_group = collectives.model_group_of(mesh)
 
     def step(clip_params, trainable, bank, x, labels, mask):
-        dev = _device_of(clip_params)
         with torch.inference_mode():
+            out = _eval(clip_params, trainable, bank, x, labels, mask)
+            if mesh is not None:
+                counts = [out[k] for k in ("correct", "total", "per_class_correct", "per_class_total")]
+                collectives.all_reduce_many_(counts, mesh.data_group)
+        return out
+
+    def _eval(clip_params, trainable, bank, x, labels, mask):
+        dev = _device_of(clip_params)
+        with torch.inference_mode(), collectives.tensor_parallel(tp_group):
             x = _as_tensor(x, dev)
             labels = _as_tensor(labels, dev, torch.long)
             valid = _as_tensor(mask, dev, torch.long)

@@ -33,7 +33,8 @@ import torch
 
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
-from tapclip_tpu_torch.pretrain import PretrainOptimizer, _check_loss, _batch, named_leaves, pair_loss
+from tapclip_tpu_torch import NotPortedError
+from tapclip_tpu_torch.pretrain import PretrainOptimizer, _Mesh, _check_loss, _batch, named_leaves, pair_loss
 
 Params = Dict[str, Any]
 
@@ -92,11 +93,20 @@ def lora_param_count(lora: Params) -> int:
 
 
 def make_lora_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str = "infonce",
-                            alpha: float = 16.0) -> Callable:
+                            alpha: float = 16.0, mesh=None) -> Callable:
     """``step(clip_params, lora, images, token_ids) -> {"loss"}``: the
     contrastive loss of the merged tree, its gradient in the adapters only
-    (``optimizer``'s leaves: ``lora``'s), one update in place."""
+    (``optimizer``'s leaves: ``lora``'s), one update in place.
+
+    ``mesh`` (the ``data`` axis): each rank passes its rows and a replica of
+    the base tree and the adapters; the adapters' gradients of the rank's
+    share of the global-batch loss are summed over ``data``
+    (``pretrain.py``'s mesh note).  Adapters under ``tp > 1`` are not yet
+    ported (refused by name)."""
     _check_loss(loss)
+    m = _Mesh(mesh, cfg)
+    if m.tp_group is not None:
+        raise NotPortedError("LoRA adapters under tp > 1")
 
     def step(clip_params: Params, lora: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(clip_params, images, token_ids)
@@ -104,10 +114,10 @@ def make_lora_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss:
         moe_losses: list = []
         img = clip_model.encode_image(merged, cfg, images, moe_loss_out=moe_losses)
         txt = clip_model.encode_text(merged, cfg, ids, moe_loss_out=moe_losses)
-        total = pair_loss(loss, merged, img, txt)
+        total = pair_loss(loss, merged, img, txt, m.loss_group)
         if moe_losses:
             total = total + cfg.moe_aux_weight * sum(moe_losses)
-        optimizer.update(torch.autograd.grad(total, optimizer.leaves, allow_unused=True))
-        return {"loss": total.detach()}
+        optimizer.update(m.reduce(torch.autograd.grad(total, optimizer.leaves, allow_unused=True), optimizer.leaves))
+        return {"loss": m.loss(total)}
 
     return step

@@ -19,7 +19,9 @@ rounding unless ``--int8-deterministic``).  Runs on ``cuda`` unless
 ``--device cpu`` is given; asking for ``cuda`` without a card raises.
 Image-conditioned (CoCoOp) models have per-sample text features, so they
 run the full forward per batch and their attribution is ``None`` (``null``
-in ``--json``).  Not yet ported: ``--dp``.
+in ``--json``).  ``--dp N`` splits every batch over N replicas of the tower
+in this process (CUDA devices 0 .. N - 1; the batch size must divide by N),
+on the cached-text path as in the JAX package.
 
 Usage:
     python -m tapclip_tpu_torch.predict --image-root photos/ --out preds/ \\
@@ -40,7 +42,6 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NOT_PORTED, NotPortedError
 
 log = logging.getLogger("tapclip_tpu_torch")
 
@@ -77,17 +78,21 @@ def iter_image_batches(
         yield images, [paths[int(i)] for i, m in zip(idx, mask) if m], mask
 
 
-def make_classify_fn(cfg):
+def make_classify_fn(cfg, mesh=None):
     """``(params, text_feats [C, E], logit_scale, class_mask, images) ->
-    probs [B, C]``: ``serve.predict_batch``'s logits, softmaxed."""
+    probs [B, C]``: ``serve.predict_batch``'s logits, softmaxed.  With
+    ``mesh`` (a device-list mesh) the images split over its replicas
+    (``parallel.sharding.data_parallel``)."""
+    from tapclip_tpu_torch.parallel.sharding import data_parallel
     from tapclip_tpu_torch.serve import predict_batch
 
     def classify(params, text_feats, logit_scale, class_mask, images):
         with torch.inference_mode():
+            images = torch.as_tensor(images, device=text_feats.device)
             logits, _ = predict_batch(params, cfg, text_feats, logit_scale, class_mask, images)
             return torch.softmax(logits, dim=-1)
 
-    return classify
+    return data_parallel(classify, mesh, 4)
 
 
 def predict_corpus(
@@ -97,6 +102,7 @@ def predict_corpus(
     batch_size: int = 256,
     top_k: int = 1,
     uint8_transfer: bool = True,
+    mesh=None,
     prefetch_depth: int = 2,
     fast_decode: bool = False,
     saliency: Optional[str] = None,
@@ -108,7 +114,8 @@ def predict_corpus(
     in corpus order.  attribution: the class-level ``[n_cls, P]`` scores the
     adjusted features were built with, or ``None`` for an image-conditioned
     (CoCoOp) model, which runs the full forward per batch (its attribution
-    is per sample).  ``saliency`` (``"rollout"`` or
+    is per sample); ``mesh`` (a device-list mesh) applies to the cached
+    path, as in the JAX package.  ``saliency`` (``"rollout"`` or
     ``"last"``) also writes a heatmap-overlay PNG per image into
     ``saliency_dir`` (each row gains ``"saliency_png"``) and forces uint8
     transport (the overlay needs display-space pixels).
@@ -134,7 +141,7 @@ def predict_corpus(
                 model.clip_params, model.trainable["ctx"], bank, cfg, pcfg, model.trainable["adjustor"])
         attribution = attribution[:n_cls].float().cpu().numpy()
         scale = model.trainable["logit_scale"].float()
-        classify = make_classify_fn(cfg)
+        classify = make_classify_fn(cfg, mesh)
 
         def probs_fn(images):
             return classify(model.clip_params, feats, scale, bank.class_mask, images)
@@ -204,15 +211,21 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="DCT-scaled JPEG decode in the native pipeline (near- but not bit-identical pixels)")
     p.add_argument("--uint8-transfer", dest="uint8_transfer", action="store_true", default=True)
     p.add_argument("--no-uint8-transfer", dest="uint8_transfer", action="store_false")
-    p.add_argument("--dp", type=int, default=0, help=f"data-parallel devices ({NOT_PORTED})")
+    p.add_argument("--dp", type=int, default=0,
+                   help="split every batch over this many replicas (CUDA devices 0 .. dp - 1; 0: one device)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = build_argparser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    mesh = None
     if args.dp:
-        raise NotPortedError("predict --dp")
+        from tapclip_tpu_torch.parallel.mesh import device_mesh
+
+        mesh = device_mesh(args.dp, args.device)
+        if args.batch_size % args.dp:
+            raise SystemExit("--batch-size must divide by --dp")
     from tapclip_tpu_torch.config import ExperimentConfig, preset
     from tapclip_tpu_torch.featurize import tower_config
     from tapclip_tpu_torch.train import build_model
@@ -236,7 +249,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     log.info("classifying %d images into %d classes (top-%d)", len(paths), model.n_cls, args.top_k)
     rows, attribution = predict_corpus(
         model, paths, batch_size=args.batch_size, top_k=args.top_k, uint8_transfer=args.uint8_transfer,
-        fast_decode=args.fast_decode, saliency=args.saliency,
+        mesh=mesh, fast_decode=args.fast_decode, saliency=args.saliency,
         saliency_dir=os.path.join(args.out, "saliency") if args.saliency else None,
     )
 

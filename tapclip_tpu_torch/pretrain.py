@@ -32,8 +32,27 @@ weight ``moe_aux_weight / k`` in its live pass.
 
 Every random draw (augmentation boxes, patch-dropout indices) comes from an
 explicit ``torch.Generator`` and can be passed in instead (``boxes=``,
-``patch_idx=``), so tests feed JAX's draws.  The mesh forms (the
-``*_global`` losses, pipeline, sequence parallelism, FSDP) are not ported.
+``patch_idx=``), so tests feed JAX's draws.
+
+**A mesh** (``mesh=``, the ``data`` and ``model`` axes): each rank passes
+its rows of the global batch.  :func:`contrastive_loss_global` scores the
+rank's rows against the columns of every rank (an autograd all-gather over
+``data``), :func:`siglip_loss_global` walks the ``ppermute`` ring; each
+returns the rank's share of the global mean, and the shares sum to the
+loss.  The all-gather's backward already carries the other ranks' part of
+each feature's gradient, so the trained leaves' gradients are **summed**
+over ``data`` (averaging them, as DDP does, would divide by dp a second
+time); the clip's global norm is taken after the sum, and under ``tp > 1``
+over the whole tree (the shards' squares summed over ``model``, the
+replicated leaves' counted once).  GradCache's negatives span K·B·dp.
+Patch dropout and ``augment`` draw for the global batch from the step's
+generator and each rank keeps its rows of the draws, so a dp = 2 step
+equals the dp = 1 step.  Under ``tp > 1`` the towers run tensor parallel
+over ``model`` (``models/layers.py``); every trained leaf's gradient is
+then complete on its rank (a replicated leaf's equal on every rank of the
+``model`` group, a shard's its own), so nothing is summed over ``model``.
+Not yet ported (refused by name): MoE towers under a mesh, and the
+pipeline, sequence-parallel and FSDP forms.
 """
 
 from __future__ import annotations
@@ -45,8 +64,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
+from tapclip_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 LOGIT_SCALE_MAX = math.log(100.0)
@@ -83,6 +104,48 @@ def siglip_loss_local(img_feats: torch.Tensor, txt_feats: torch.Tensor, logit_sc
     return -F.logsigmoid(z * logits).sum() / n
 
 
+def contrastive_loss_global(img_feats: torch.Tensor, txt_feats: torch.Tensor, logit_scale: torch.Tensor,
+                            group) -> torch.Tensor:
+    """Global-batch InfoNCE over ``group`` (the ``data`` axis): this rank's
+    rows ``[B_local, E]`` against every rank's columns (all-gathered), labels
+    offset by the rank, the sum over its rows divided by the global count.
+    Returns this rank's share; the shares sum to the loss on the gathered
+    batch, and the gradients summed over ``group`` are its gradients."""
+    img = clip_model.l2_normalize(img_feats).float()
+    txt = clip_model.l2_normalize(txt_feats).float()
+    img_all = collectives.all_gather(img, group)
+    txt_all = collectives.all_gather(txt, group)
+    n_local = img.shape[0]
+    labels = collectives.rank_in(group) * n_local + torch.arange(n_local, device=img.device)
+    s = torch.exp(logit_scale.float())
+    li = F.cross_entropy(s * img @ txt_all.T, labels, reduction="none")
+    lt = F.cross_entropy(s * txt @ img_all.T, labels, reduction="none")
+    return (0.5 * (li + lt)).sum() / (n_local * collectives.size(group))
+
+
+def siglip_loss_global(img_feats: torch.Tensor, txt_feats: torch.Tensor, logit_scale: torch.Tensor,
+                       logit_bias: torch.Tensor, group) -> torch.Tensor:
+    """Global-batch SigLIP over ``group`` on the ``ppermute`` ring (the
+    paper's chunked form): the image shard stays, the text shards rotate
+    D - 1 times, each step one ``[B_local, B_local]`` block; positives only on
+    the step that does not rotate.  Returns this rank's share of the global
+    mean, as :func:`contrastive_loss_global`."""
+    img = clip_model.l2_normalize(img_feats).float()
+    txt = clip_model.l2_normalize(txt_feats).float()
+    n_local, n_dev = img.shape[0], collectives.size(group)
+    s, b = torch.exp(logit_scale.float()), logit_bias.float()
+
+    def block(chunk, z):
+        return -F.logsigmoid(z * (s * img @ chunk.T + b)).sum()
+
+    acc = block(txt, 2.0 * torch.eye(n_local, dtype=torch.float32, device=img.device) - 1.0)
+    chunk = txt
+    for _ in range(n_dev - 1):
+        chunk = collectives.ring_shift(chunk, group)
+        acc = acc + block(chunk, -1.0)
+    return acc / (n_local * n_dev)
+
+
 def add_siglip_params(params: Params, init_bias: float = -10.0) -> Params:
     """``params`` with SigLIP's ``logit_bias`` (init -10: training starts
     near the all-negatives prior); a bias already there is kept."""
@@ -92,8 +155,14 @@ def add_siglip_params(params: Params, init_bias: float = -10.0) -> Params:
                                                  device=params["logit_scale"].device))
 
 
-def pair_loss(loss: str, params: Params, img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
-    """The objective ``loss`` ("infonce" or "siglip") on one batch of features."""
+def pair_loss(loss: str, params: Params, img: torch.Tensor, txt: torch.Tensor, group=None) -> torch.Tensor:
+    """The objective ``loss`` ("infonce" or "siglip") on one batch of
+    features; with ``group`` (a ``data`` group of more than one rank) this
+    rank's share of the global-batch objective."""
+    if group is not None:
+        if loss == "siglip":
+            return siglip_loss_global(img, txt, params["logit_scale"], params["logit_bias"], group)
+        return contrastive_loss_global(img, txt, params["logit_scale"], group)
     if loss == "siglip":
         return siglip_loss_local(img, txt, params["logit_scale"], params["logit_bias"])
     return contrastive_loss_local(img, txt, params["logit_scale"])
@@ -223,16 +292,27 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return lambda count: warmup(count) if count < warmup_steps else cosine(count - warmup_steps)
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every gradient, in f32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every gradient, in f32.  Under a
+    ``model`` ``group`` the leaves ``sharded`` marks hold this rank's part of
+    a leaf: their squares are summed over the group, the replicated leaves'
+    counted once, so every rank reads the whole tree's norm."""
+    if group is None:
+        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    squares = [g.float().square().sum() for g in grads]
+    part = sum((s for s, cut in zip(squares, sharded) if cut), torch.zeros((), device=squares[0].device))
+    collectives.all_reduce_(part, group)
+    return torch.sqrt(part + sum(s for s, cut in zip(squares, sharded) if not cut))
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, sharded: Optional[Sequence[bool]] = None,
+                        group=None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: each gradient as ``g / norm * max_norm``
-    when the global norm reaches ``max_norm``, unchanged below it (no
-    ``+1e-6`` in the divisor, unlike ``torch.nn.utils.clip_grad_norm_``)."""
-    norm = global_norm(grads)
+    when the global norm (:func:`global_norm`) reaches ``max_norm``,
+    unchanged below it (no ``+1e-6`` in the divisor, unlike
+    ``torch.nn.utils.clip_grad_norm_``)."""
+    norm = global_norm(grads, sharded, group)
     if float(norm) < max_norm:
         return grads
     return [g / norm.to(g.dtype) * max_norm for g in grads]
@@ -251,7 +331,9 @@ class PretrainOptimizer:
     updates taken before this one, as optax reads it.  ``grad_clip`` > 0
     clips the (averaged) gradient by its global norm.  ``accum_steps`` K > 1
     averages K gradients and takes one update on the K-th; between updates
-    the parameters and the AdamW state do not move.
+    the parameters and the AdamW state do not move.  A step built on a mesh
+    with a ``model`` axis sets :attr:`norm_group` and :attr:`sharded` (which
+    leaves are a rank's shard), so the clip reads the whole tree's norm.
     """
 
     def __init__(self, leaves: List[Tuple[str, torch.Tensor]], *, lr, weight_decay: float,
@@ -266,6 +348,8 @@ class PretrainOptimizer:
         self.count = 0  # updates taken
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
+        self.norm_group = None
+        self.sharded: Optional[List[bool]] = None
         self.adamw = torch.optim.AdamW(self.leaves, lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
 
@@ -286,7 +370,7 @@ class PretrainOptimizer:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
         if self.grad_clip > 0:
-            grads = clip_by_global_norm(grads, self.grad_clip)
+            grads = clip_by_global_norm(grads, self.grad_clip, self.sharded, self.norm_group)
         for t, g in zip(self.leaves, grads):
             t.grad = g
         for group in self.adamw.param_groups:
@@ -339,7 +423,10 @@ def _clamp_logit_scale(params: Params) -> None:
         params["logit_scale"].clamp_(max=LOGIT_SCALE_MAX)
 
 
-def _augmented(images: torch.Tensor, augment, generator, boxes):
+def _augmented(images: torch.Tensor, augment, generator, boxes, rows=None):
+    """``images`` cropped to ``boxes``, or to boxes drawn from ``generator``
+    (under a mesh ``rows`` = ``(n, idx)``: drawn for the global batch of n
+    rows, of which this rank keeps ``idx``)."""
     from tapclip_tpu_torch.data.augment import draw_boxes, resample_boxes
     from tapclip_tpu_torch.data.preprocess import device_normalize
 
@@ -347,8 +434,66 @@ def _augmented(images: torch.Tensor, augment, generator, boxes):
         images = device_normalize(images)
     if boxes is None:
         B, H, W, _ = images.shape
-        boxes = draw_boxes(generator, B, H, W, augment, device=images.device)
+        if rows is None:
+            boxes = draw_boxes(generator, B, H, W, augment, device=images.device)
+        else:
+            n, idx = rows
+            drawn = draw_boxes(generator, n, H, W, augment)
+            boxes = {k: v[idx.to(v.device)].to(images.device) for k, v in drawn.items()}
     return resample_boxes(images, boxes)
+
+
+class _Mesh:
+    """What a pretraining step reads off its mesh: the ``data`` group the
+    loss spans (None on one rank: the local loss, as the JAX step), the
+    group the gradients are summed over (every mesh), the ``model`` group
+    the towers run over, and this rank's rows of a global batch.  Given the
+    step's ``optimizer``, it points the clip's norm at the ``model`` group."""
+
+    def __init__(self, mesh, cfg: CLIPConfig, optimizer: Optional[PretrainOptimizer] = None):
+        if mesh is not None and mesh.in_process:
+            raise ValueError("a pretraining step takes a process-group mesh (make_mesh without devices=)")
+        if mesh is not None and cfg.moe_experts > 0 and (mesh.dp > 1 or mesh.tp > 1):
+            raise NotPortedError("MoE towers under a data or model mesh")
+        self.mesh = mesh
+        self.loss_group = mesh.data_group if mesh is not None and mesh.dp > 1 else None
+        self.tp_group = collectives.model_group_of(mesh)
+        if self.tp_group is not None and optimizer is not None:  # the clip's norm over the whole tree
+            from tapclip_tpu_torch.parallel.sharding import model_sharded
+
+            optimizer.norm_group = self.tp_group
+            optimizer.sharded = model_sharded(zip(optimizer.paths, optimizer.leaves), mesh)
+
+    def rows(self, b: int, k: int = 1):
+        """``(n, idx)``: a global batch of k micro-batches of b * dp rows
+        each, and this rank's rows of it (``sharding.shard_batch``'s for
+        k = 1, ``shard_micro_batches``' for k > 1); None with no data axis."""
+        if self.loss_group is None:
+            return None
+        dp, i = self.mesh.dp, self.mesh.data_index
+        return k * b * dp, torch.cat([m * b * dp + i * b + torch.arange(b) for m in range(k)])
+
+    def patch_idx(self, generator, b: int, cfg: CLIPConfig, device):
+        """Patch dropout's kept indices for this rank's b rows: drawn for the
+        global micro-batch, its rows kept (None: no draw under this mesh)."""
+        rows = self.rows(b)
+        if rows is None or generator is None or cfg.patch_dropout <= 0:
+            return None
+        idx = clip_model.patch_dropout_indices(generator, rows[0], cfg.grid_size ** 2, cfg.patch_dropout, device)
+        return None if idx is None else idx[rows[1].to(idx.device)]
+
+    def reduce(self, grads: List[Optional[torch.Tensor]], leaves) -> List[torch.Tensor]:
+        """The gradients summed over ``data`` (a zero for a leaf not reached)."""
+        if self.mesh is None:
+            return grads
+        grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
+        collectives.all_reduce_many_(grads, self.mesh.data_group)
+        return grads
+
+    def loss(self, total: torch.Tensor) -> torch.Tensor:
+        """The global objective from this rank's share."""
+        total = total.detach()
+        return total if self.loss_group is None else collectives.all_reduce_(total.clone(), self.loss_group)
 
 
 def _batch(params: Params, images, token_ids):
@@ -364,7 +509,7 @@ def _needs_draw(cfg: CLIPConfig, augment, generator, patch_idx, boxes) -> None:
 
 
 def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str = "infonce",
-                       augment=None) -> Callable:
+                       augment=None, mesh=None) -> Callable:
     """The CLIP pretraining step over the whole tree:
     ``step(params, images, token_ids, generator=None, *, patch_idx=None,
     boxes=None) -> {"loss"}``, updating ``optimizer``'s leaves of ``params``
@@ -374,32 +519,41 @@ def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str 
     every sample first (``boxes`` from ``generator``, or given); with
     ``cfg.patch_dropout > 0`` the patches kept are drawn from ``generator``
     after the boxes (or given as ``patch_idx``).  Locks, BitFit and the
-    like are the optimizer's leaves (:func:`set_trainable`)."""
+    like are the optimizer's leaves (:func:`set_trainable`).
+
+    ``mesh``: each rank passes its rows (``sharding.shard_batch``) and its
+    local tree (``sharding.shard_params``); the loss returned is the global
+    batch's (the module note)."""
     _check_loss(loss)
+    m = _Mesh(mesh, cfg, optimizer)
 
     def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,
              patch_idx=None, boxes=None) -> Dict[str, torch.Tensor]:
         _needs_draw(cfg, augment, generator, patch_idx, boxes)
         images, ids = _batch(params, images, token_ids)
+        b = images.shape[0]
         if augment is not None:
-            images = _augmented(images, augment, generator, boxes)
+            images = _augmented(images, augment, generator, boxes, m.rows(b))
+        if patch_idx is None:
+            patch_idx = m.patch_idx(generator, b, cfg, images.device)
         moe_losses: List[torch.Tensor] = []
-        img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx,
-                                      moe_loss_out=moe_losses)
-        txt = clip_model.encode_text(params, cfg, ids, moe_loss_out=moe_losses)
-        total = pair_loss(loss, params, img, txt)
+        with collectives.tensor_parallel(m.tp_group):
+            img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx,
+                                          moe_loss_out=moe_losses)
+            txt = clip_model.encode_text(params, cfg, ids, moe_loss_out=moe_losses)
+        total = pair_loss(loss, params, img, txt, m.loss_group)
         if moe_losses:  # the Switch load balance over both towers' blocks
             total = total + cfg.moe_aux_weight * sum(moe_losses)
-        grads = torch.autograd.grad(total, optimizer.leaves, allow_unused=True)
+        grads = m.reduce(torch.autograd.grad(total, optimizer.leaves, allow_unused=True), optimizer.leaves)
         if optimizer.update(grads):
             _clamp_logit_scale(params)
-        return {"loss": total.detach()}
+        return {"loss": m.loss(total)}
 
     return step
 
 
 def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: int, loss: str = "infonce",
-                             augment=None) -> Callable:
+                             augment=None, mesh=None) -> Callable:
     """GradCache accumulation (open_clip's ``--accum-freq``): the exact
     objective of a K·B batch at one micro-batch's activation memory.
 
@@ -425,10 +579,16 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
     loss returned is the objective whose gradient is taken, ``contrastive +
     moe_aux_weight / k * sum(lb_i)``; the JAX step reports ``contrastive +
     moe_aux_weight / k**2 * sum(lb_i)`` (it averages per-micro losses that
-    each hold one ``lb_i / k``)."""
+    each hold one ``lb_i / k``).
+
+    ``mesh``: each rank passes its rows of every micro-batch in micro order
+    (``sharding.shard_micro_batches``: micro i spans every rank, as JAX
+    lays the macro batch out), so the negatives span K·B·dp and the draws
+    are the dp = 1 step's."""
     _check_loss(loss)
     if k < 2:
         raise ValueError("accumulation needs k >= 2 (use make_pretrain_step)")
+    m = _Mesh(mesh, cfg, optimizer)
 
     def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,
              patch_idx=None, boxes=None) -> Dict[str, torch.Tensor]:
@@ -437,27 +597,29 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
         n = images.shape[0]
         if n % k:
             raise ValueError(f"macro batch {n} not divisible by k={k}")
-        if augment is not None:
-            images = _augmented(images, augment, generator, boxes)
         b = n // k
+        if augment is not None:
+            images = _augmented(images, augment, generator, boxes, m.rows(b, k))
         micro = [(images[i * b:(i + 1) * b], ids[i * b:(i + 1) * b]) for i in range(k)]
         if cfg.patch_dropout > 0 and patch_idx is None:
             n_patches = cfg.grid_size ** 2
-            patch_idx = [clip_model.patch_dropout_indices(generator, b, n_patches, cfg.patch_dropout,
-                                                          images.device) for _ in range(k)]
+            patch_idx = [m.patch_idx(generator, b, cfg, images.device) if m.loss_group is not None else
+                         clip_model.patch_dropout_indices(generator, b, n_patches, cfg.patch_dropout, images.device)
+                         for _ in range(k)]
         draws = patch_idx if patch_idx is not None else [None] * k
 
         def encode(i, moe_loss_out=None):
             x, t = micro[i]
-            return (clip_model.encode_image(params, cfg, x, patch_idx=draws[i], moe_loss_out=moe_loss_out),
-                    clip_model.encode_text(params, cfg, t, moe_loss_out=moe_loss_out))
+            with collectives.tensor_parallel(m.tp_group):
+                return (clip_model.encode_image(params, cfg, x, patch_idx=draws[i], moe_loss_out=moe_loss_out),
+                        clip_model.encode_text(params, cfg, t, moe_loss_out=moe_loss_out))
 
         with torch.no_grad():
             cached = [encode(i) for i in range(k)]
         img_all = torch.cat([c[0] for c in cached]).requires_grad_(True)
         txt_all = torch.cat([c[1] for c in cached]).requires_grad_(True)
         direct = [t for p, t in zip(optimizer.paths, optimizer.leaves) if p in ("logit_scale", "logit_bias")]
-        total = pair_loss(loss, params, img_all, txt_all)
+        total = pair_loss(loss, params, img_all, txt_all, m.loss_group)
         g_img, g_txt, *g_direct = torch.autograd.grad(total, [img_all, txt_all, *direct])
         grads: Dict[int, torch.Tensor] = {id(t): g for t, g in zip(direct, g_direct)}
         tower = [t for t in optimizer.leaves if id(t) not in grads]
@@ -476,9 +638,9 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
             for t, g in zip(tower, pulled):
                 if g is not None:
                     grads[id(t)] = g if id(t) not in grads else grads[id(t)] + g
-        if optimizer.update([grads.get(id(t)) for t in optimizer.leaves]):
+        if optimizer.update(m.reduce([grads.get(id(t)) for t in optimizer.leaves], optimizer.leaves)):
             _clamp_logit_scale(params)
-        return {"loss": total}
+        return {"loss": m.loss(total)}
 
     return step
 

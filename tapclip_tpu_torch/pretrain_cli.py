@@ -19,21 +19,35 @@ The final tree is ``models/clip_pretrained.pt`` (and
 ``clip_pretrained_ema.pt``), a ``utils.checkpoint.save_clip_tree`` file that
 every driver's ``--pretrained`` reads; ``--save-every`` snapshots resume
 with ``--resume`` (the epoch numbering continues).  Runs on ``cuda`` unless
-``--device cpu`` is given; asking for ``cuda`` without a card raises.  The
-mesh flags (``--dp``, ``--tp``, ``--pp``, ``--pp-microbatches``,
-``--seq-parallel``, ``--fsdp``, ``--sharded-snapshot``; ``--tp`` is also
-the JAX package's expert parallelism) are not ported and refuse.
+``--device cpu`` is given; asking for ``cuda`` without a card raises.
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from the
+environment; NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) the
+ranks form a ``(data, model)`` mesh: ``--dp`` (-1: every rank divided by
+``--tp``) and ``--tp`` (Megatron tensor parallelism in both towers'
+blocks).  Every rank reads the same stream and keeps its rows of each
+global batch (``--batch-size`` is the global batch), the negatives span it,
+and rank 0 writes the logs, the CSV and the ``.pt`` trees, gathered whole
+(``parallel.sharding.gather_params``: the layout of a one-device run);
+``--resume`` loads a whole tree and shards it.  Without ``torchrun`` the
+run is one process, as before.  Not yet ported (refused by name):
+``--pp``, ``--pp-microbatches``, ``--seq-parallel``, ``--fsdp``,
+``--sharded-snapshot``, ``--moe-experts`` with ``--tp > 1`` (the JAX
+package's expert parallelism) or over more than one rank, LoRA and
+distillation with ``--tp > 1``.
 
 Usage:
     python -m tapclip_tpu_torch.pretrain_cli --data-root data/OfficeHome/Real_World \\
         --model ViT-B-16 --epochs 5 --batch-size 256 --lr 1e-4
     python -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --epochs 2 --device cpu
+    torchrun --nproc-per-node 2 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --dp 2
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import logging
 import os
 from typing import List, Optional
 
@@ -44,7 +58,7 @@ from tapclip_tpu_torch import NOT_PORTED
 from tapclip_tpu_torch.config import MODEL_PRESETS, preset
 from tapclip_tpu_torch.train import apply_overrides, build_argparser, build_model, maybe_synthetic_root
 
-MESH_FLAGS = ("dp", "tp", "pp", "pp_microbatches", "seq_parallel", "fsdp", "sharded_snapshot")
+MESH_FLAGS = ("pp", "pp_microbatches", "seq_parallel", "fsdp", "sharded_snapshot")
 
 
 def _append_metrics_row(path: str, row: dict) -> None:
@@ -75,6 +89,10 @@ def step_generator(seed: int, gstep: int, device) -> torch.Generator:
 
 def build_parser():
     p = build_argparser(__doc__)
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel mesh size under torchrun (-1: every rank divided by --tp)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size under torchrun (Megatron in both towers' blocks)")
     for flag in MESH_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?", const=True,
                        help=f"({NOT_PORTED})")
@@ -153,6 +171,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     for flag in MESH_FLAGS:
         if getattr(args, flag) is not None:
             p.error(f"--{flag.replace('_', '-')} is {NOT_PORTED}")
+    if args.moe_experts and args.tp > 1:
+        p.error(f"--moe-experts with --tp > 1 (expert parallelism) is {NOT_PORTED}")
     cfg = apply_overrides(preset(args.preset), args)
     if args.remat or args.moe_experts or args.patch_dropout or args.vpt_tokens or args.vpt_deep:
         model_cfg = cfg.model
@@ -172,13 +192,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from tapclip_tpu_torch.data.imagefolder import ImageFolderIndex, Loader
     from tapclip_tpu_torch.data.prefetch import background_iter
     from tapclip_tpu_torch.featurize import resolve_device
+    from tapclip_tpu_torch.parallel import sharding
+    from tapclip_tpu_torch.parallel.collectives import model_group_of, tensor_parallel
     from tapclip_tpu_torch.utils import checkpoint as ckpt_io
     from tapclip_tpu_torch.utils.logging_utils import generate_output_paths, maybe_profile, setup_logging
     from tapclip_tpu_torch.zero_shot import class_name_to_text
 
     dev = resolve_device(args.device)
-    paths = generate_output_paths(cfg.version + "_pretrain", cfg.output_root)
-    log = setup_logging(os.path.join(paths["log_dir"], "pretrain.log"))
+    mesh, owns_group = _mesh(args, dev)
+    if mesh is not None and dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    lead = mesh is None or mesh.rank == 0
+    tp = mesh.tp if mesh is not None else 1
+    if mesh is not None and cfg.train.batch_size % mesh.dp:
+        raise ValueError(f"--batch-size {cfg.train.batch_size} (the global batch) must divide by dp={mesh.dp}")
+    paths = _output_paths(lead, cfg, generate_output_paths)
+    log = setup_logging(os.path.join(paths["log_dir"], "pretrain.log") if lead else None)
+    if not lead:
+        log.setLevel(logging.WARNING)
+    if mesh is not None:
+        log.info("mesh: %s over %d ranks (backend %s)", dict(mesh.shape), mesh.dp * mesh.tp, mesh.backend)
 
     model, preprocess = build_model(cfg, bpe_path=args.bpe_path, device=dev)
     params = model.clip_params
@@ -292,6 +326,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         else:
             params = tree
         opt_state = snap["opt_state"]
+        if tp > 1:  # a whole tree's moments, cut as its leaves are
+            opt_state = sharding.shard_opt_state(opt_state, mesh, params=tree)
         start_epoch, gstep = int(snap["epoch"]) + 1, int(snap["gstep"])
         if args.shard_dir:
             loader.restore({"epoch": start_epoch - 1, "shards_done": 0})
@@ -301,6 +337,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
             loader._epoch = start_epoch - 1  # the shuffle continues (seed + epoch)
         log.info("resumed from %s (epoch %d)", args.resume, start_epoch - 1)
 
+    if tp > 1:  # this rank's heads and hidden columns; the rest replicated
+        params = sharding.shard_params(params, mesh)
+        if teacher_params is not None:
+            teacher_params = sharding.shard_params(teacher_params, mesh)
     if lora is not None:
         P.set_trainable(params, {path: False for path, _ in P.named_leaves(params)})
         leaves = P.set_trainable(lora)
@@ -319,17 +359,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if lora is not None:
         from tapclip_tpu_torch.peft import make_lora_pretrain_step, merge_lora
 
-        step = make_lora_pretrain_step(cfg.model, optimizer, loss=args.loss, alpha=args.lora_alpha)
+        step = make_lora_pretrain_step(cfg.model, optimizer, loss=args.loss, alpha=args.lora_alpha, mesh=mesh)
     elif teacher_params is not None:
         from tapclip_tpu_torch.distill import make_distill_step
 
         step = make_distill_step(cfg.model, teacher_cfg, optimizer, tau=args.kd_temp, w_task=args.task_weight,
-                                 w_kd=args.kd_weight, w_feat=args.feat_weight)
+                                 w_kd=args.kd_weight, w_feat=args.feat_weight, mesh=mesh)
     elif args.accum_full_negatives > 1:
         step = P.make_accum_pretrain_step(cfg.model, optimizer, args.accum_full_negatives, loss=args.loss,
-                                          augment=augment)
+                                          augment=augment, mesh=mesh)
     else:
-        step = P.make_pretrain_step(cfg.model, optimizer, loss=args.loss, augment=augment)
+        step = P.make_pretrain_step(cfg.model, optimizer, loss=args.loss, augment=augment, mesh=mesh)
 
     ema_params = ema_update = None
     if args.ema_decay > 0 and lora is None:
@@ -357,9 +397,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     def effective(tree):  # LoRA runs evaluate the merged weights
         return merge_lora(tree, lora, alpha=args.lora_alpha) if lora is not None else tree
 
+    def whole(tree):  # the one-device layout, gathered over the model axis (every rank calls it)
+        return sharding.gather_params(tree, mesh) if tp > 1 else tree
+
+    tp_group = model_group_of(mesh)
+
     def run_validation(tree, tag=""):
         val_loader.restore({"epoch": 0, "shards_done": 0})  # the same subset every epoch
-        vloss, r = validate(tree, iter(val_loader), args.val_samples)
+        with tensor_parallel(tp_group):  # every rank runs it: its blocks' collectives
+            vloss, r = validate(tree, iter(val_loader), args.val_samples)
         log.info("[Epoch %d] val%s loss: %.4f | i2t R@1/5/10 %.3f/%.3f/%.3f | t2i R@1/5/10 %.3f/%.3f/%.3f",
                  epoch, tag, vloss, r["i2t_r@1"], r["i2t_r@5"], r["i2t_r@10"], r["t2i_r@1"], r["t2i_r@5"],
                  r["t2i_r@10"])
@@ -368,8 +414,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     def zs_acc(tree):
         from tapclip_tpu_torch.zero_shot import build_zero_shot_classifier, evaluate_zero_shot
 
-        clf = build_zero_shot_classifier(tree, cfg.model, zs_index.classes, tokenizer)
-        return evaluate_zero_shot(tree, cfg.model, clf, iter(zs_loader))
+        with tensor_parallel(tp_group):
+            clf = build_zero_shot_classifier(tree, cfg.model, zs_index.classes, tokenizer)
+            return evaluate_zero_shot(tree, cfg.model, clf, iter(zs_loader))
 
     stochastic = args.patch_dropout > 0 or args.augment
     if args.patch_dropout > 0:
@@ -394,6 +441,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         continue
                     images, ids = np.concatenate([m[0] for m in macro]), np.concatenate([m[1] for m in macro])
                     macro = []
+                if mesh is not None:  # this rank's rows of the global batch
+                    images, ids = (sharding.shard_micro_batches((images, ids), mesh, accum_k) if accum_k > 1
+                                   else sharding.shard_batch((images, ids), mesh))
                 if lora is not None:
                     m = step(params, lora, images, ids)
                 elif teacher_params is not None:
@@ -426,13 +476,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     row["zeroshot_acc_ema"] = round(ema_acc, 4)
                     msg += f" | ema {ema_acc:.2f}%"
                 log.info(msg)
-            _append_metrics_row(os.path.join(paths["csv_dir"], "pretrain_metrics.csv"), row)
+            if lead:
+                _append_metrics_row(os.path.join(paths["csv_dir"], "pretrain_metrics.csv"), row)
             if args.save_every and epoch % args.save_every == 0:
                 # The previous snapshot goes only once the new one is in place.
                 new_snap = os.path.abspath(f"{snap_base}_e{epoch:06d}.pt")
-                ckpt_io.save_pretrain_snapshot(new_snap, params=params if lora is None else lora,
-                                               opt_state=optimizer.state_dict(), epoch=epoch, gstep=gstep,
-                                               lora=lora is not None)
+                opt_sd = optimizer.state_dict()
+                if tp > 1:
+                    opt_sd = sharding.gather_opt_state(opt_sd, mesh, params)
+                snap_tree = whole(params) if lora is None else lora
+                if not lead:
+                    continue
+                ckpt_io.save_pretrain_snapshot(new_snap, params=snap_tree, opt_state=opt_sd, epoch=epoch,
+                                               gstep=gstep, lora=lora is not None)
                 base = os.path.basename(snap_base)
                 for d in sorted(os.listdir(paths["model_dir"])):
                     full = os.path.abspath(os.path.join(paths["model_dir"], d))
@@ -446,16 +502,50 @@ def main(argv: Optional[List[str]] = None) -> dict:
         params = strip_distill_params(params)
         if ema_params is not None:
             ema_params = strip_distill_params(ema_params)
-    ckpt = ckpt_io.save_clip_tree(os.path.join(paths["model_dir"], "clip_pretrained.pt"), effective(params),
-                                  cfg.model)
-    log.info("full CLIP params saved: %s", ckpt)
-    ema_ckpt = None
-    if ema_params is not None:
-        ema_ckpt = ckpt_io.save_clip_tree(os.path.join(paths["model_dir"], "clip_pretrained_ema.pt"), ema_params,
-                                          cfg.model)
-        log.info("EMA params saved: %s", ema_ckpt)
+    final = whole(effective(params))
+    ema_final = whole(ema_params) if ema_params is not None else None
+    ckpt = ema_ckpt = None
+    if lead:
+        ckpt = ckpt_io.save_clip_tree(os.path.join(paths["model_dir"], "clip_pretrained.pt"), final, cfg.model)
+        log.info("full CLIP params saved: %s", ckpt)
+        if ema_final is not None:
+            ema_ckpt = ckpt_io.save_clip_tree(os.path.join(paths["model_dir"], "clip_pretrained_ema.pt"), ema_final,
+                                              cfg.model)
+            log.info("EMA params saved: %s", ema_ckpt)
+    if owns_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return {"loss_history": history, "val_history": val_history, "ckpt": ckpt, "ema_ckpt": ema_ckpt,
             "paths": paths, "params": params, "ema_params": ema_params}
+
+
+def _mesh(args, dev):
+    """``(mesh, owns_group)``: the ``(data, model)`` mesh over the ranks
+    ``torchrun`` started (this call joins their group, NCCL on a CUDA
+    device, gloo on the CPU), or no mesh for one process; asking for more
+    than one rank without ``torchrun`` raises, as ``make_mesh`` does."""
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    owns = not dist.is_initialized()
+    world = init_distributed(dev)
+    owns = owns and dist.is_initialized()
+    if world <= 1 and args.dp in (-1, 1) and args.tp == 1:
+        return None, owns
+    return make_mesh(dp=args.dp, tp=args.tp), owns
+
+
+def _output_paths(lead: bool, cfg, generate_output_paths):
+    """Rank 0 makes the output tree (its name carries a timestamp) and the
+    other ranks take its paths."""
+    import torch.distributed as dist
+
+    paths = [generate_output_paths(cfg.version + "_pretrain", cfg.output_root) if lead else None]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.broadcast_object_list(paths, src=0)
+    return paths[0]
 
 
 if __name__ == "__main__":

@@ -57,7 +57,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NOT_PORTED, NotPortedError  # noqa: F401 - the server's refusals
+from tapclip_tpu_torch import NotPortedError  # noqa: F401 - the server's refusals
 
 log = logging.getLogger("tapclip_torch.serve")
 
@@ -66,13 +66,21 @@ class PredictService:
     """Micro-batching front end over the model's image tower + cached text side."""
 
     def __init__(self, model, *, batch_size: int = 8, max_latency_ms: float = 10.0,
-                 temperature: float = 1.0):
+                 temperature: float = 1.0, mesh=None):
+        """``mesh``: a device-list mesh (``parallel.mesh.make_mesh(dp,
+        devices=[...])``): every served batch splits into dp equal parts
+        that run on the replicas' devices, the answers gathered in order
+        (``batch_size`` must divide by dp)."""
         self.model = model
         self.batch_size = batch_size
         self.max_latency_ms = max_latency_ms
         if temperature <= 0:
             raise ValueError(f"temperature must be > 0, got {temperature}")
         self.temperature = float(temperature)
+        self.mesh = mesh
+        if mesh is not None and batch_size % mesh.dp:
+            raise ValueError(f"batch_size {batch_size} must be divisible by the mesh's data axis ({mesh.dp})")
+        self._predict, self._conditioned = _replicated_fns(mesh, model.clip_cfg, model.prompt_cfg)
         self._queue: "queue.Queue" = queue.Queue()
         self._lock = threading.Lock()  # model mutation (add_class) vs predict
         self._text_cache = None
@@ -269,15 +277,15 @@ class PredictService:
                 m = self.model
                 xb = torch.from_numpy(x).to(m.device)
                 if m.prompt_cfg.image_conditioned:
-                    logits = m(xb)["logits"]
+                    logits = self._conditioned(m.clip_params, m.trainable, m.prompt_learner.bank, xb)
                     feats = None
                     if any(b[3] == "embed" for b in batch):
                         from tapclip_tpu_torch.featurize import make_image_embed_fn
 
-                        feats = make_image_embed_fn(m.clip_cfg)(m.clip_params, xb)
+                        feats = make_image_embed_fn(m.clip_cfg, self.mesh)(m.clip_params, xb)
                 else:
-                    logits, feats = predict_batch(
-                        m.clip_params, m.clip_cfg, self._cached_text_feats(),
+                    logits, feats = self._predict(
+                        m.clip_params, self._cached_text_feats(),
                         m.trainable["logit_scale"], m.prompt_learner.bank.class_mask, xb,
                     )
                 names = list(m.class_names)
@@ -323,6 +331,24 @@ def _like(tree, ref):
         return [_like(t, r) for t, r in zip(tree, ref)]
     t = tree if torch.is_tensor(tree) else torch.from_numpy(np.array(tree))
     return t.to(device=ref.device, dtype=ref.dtype)
+
+
+def _replicated_fns(mesh, clip_cfg, prompt_cfg):
+    """The served batch's two paths, ``predict(params, text_feats,
+    logit_scale, class_mask, images)`` and ``conditioned(params, trainable,
+    bank, images) -> logits``, split over ``mesh``'s replicas
+    (``parallel.sharding.data_parallel``; without a mesh, on one device)."""
+    from tapclip_tpu_torch.models.model_wrapper import full_model_forward
+    from tapclip_tpu_torch.parallel.sharding import data_parallel
+
+    def predict(params, text_feats, logit_scale, class_mask, images):
+        return predict_batch(params, clip_cfg, text_feats, logit_scale, class_mask, images)
+
+    def conditioned(params, trainable, bank, images):
+        return full_model_forward(params, trainable, bank, images, None, clip_cfg=clip_cfg,
+                                  prompt_cfg=prompt_cfg)["logits"]
+
+    return data_parallel(predict, mesh, 4), data_parallel(conditioned, mesh, 3)
 
 
 def predict_batch(clip_params, clip_cfg, text_feats, logit_scale, class_mask, images):
@@ -522,12 +548,17 @@ def main(argv: Optional[List[str]] = None):
                         "scoring (the same kernels, without stochastic rounding)")
     p.add_argument("--token-keep-ratio", type=float, default=1.0,
                    help="attention-aware token pruning ratio (1.0 = off)")
-    p.add_argument("--dp", default=None, nargs="?", const=True, help=f"({NOT_PORTED})")
+    p.add_argument("--dp", type=int, default=0,
+                   help="split every served batch over this many replicas of the tower (CUDA devices "
+                        "0 .. dp - 1; 0/1: one device)")
     args = p.parse_args(argv)
-    if args.dp is not None:
-        p.error(f"--dp is {NOT_PORTED}")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    mesh = None
+    if args.dp > 1:  # the replicas' devices first: refused before any weights are built
+        from tapclip_tpu_torch.parallel.mesh import device_mesh
+
+        mesh = device_mesh(args.dp, args.device)
     cfg = server_config(args)
     if not args.pretrained and not args.synthetic:
         log.warning("no --pretrained given; serving random weights (pass --synthetic to silence)")
@@ -540,8 +571,8 @@ def main(argv: Optional[List[str]] = None):
         _build.library()
         log.info("kernels ready in %.1f s (%s)", _build.build_log["seconds"],
                  "cached" if _build.build_log["cached"] else "nvcc")
-    service = PredictService(model, batch_size=args.batch_size,
-                             max_latency_ms=args.max_latency_ms, temperature=args.temperature)
+    service = PredictService(model, batch_size=args.batch_size, max_latency_ms=args.max_latency_ms,
+                             temperature=args.temperature, mesh=mesh)
     server = make_http_server(service, args.host, args.port)
     log.info("serving %s with %d classes on http://%s:%d (batch=%d, max_latency=%.0fms, device=%s)",
              cfg.name, len(model.class_names), args.host, args.port, args.batch_size,

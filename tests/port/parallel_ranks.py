@@ -1,0 +1,369 @@
+"""The rank side of ``test_torch_parallel.py``: the port's mesh forms run in
+gloo process groups.
+
+Each rank is a process of its own (``python parallel_ranks.py LEGS INPUTS
+OUT``, with ``torchrun``'s environment: ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``), one torch thread, importing the port and
+never jax.  It reads the inputs the test wrote (the JAX package's trees and
+batches as NumPy arrays), runs every leg named in them on its mesh, and
+writes its results as NumPy arrays to ``OUT/rank{r}.pt``.  :func:`spawn`
+starts a group and :func:`wait` joins it with a timeout, failing on any
+rank's non-zero exit code.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+LR_PROMPT, LR_PRE, WD_PRE = 1e-2, 1e-4, 0.1
+# The "clip" leg's max norm: far below the tree's gradient norm (about 50), so
+# every step clips, and small enough that AdamW's eps (1e-8) is of the order
+# of the clipped entries, so the update reads the clip's scale.
+GRAD_CLIP = 1e-5
+CLASSES = ["Backpack", "Pen", "Mug"]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(dp: int, tp: int, inputs: str, out_dir: str, legs: str = "legs"):
+    """Start the ``dp x tp`` ranks of one gloo group running ``legs`` on ``inputs``."""
+    world = dp * tp
+    port = free_port()
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    os.makedirs(out_dir, exist_ok=True)
+    return [subprocess.Popen([sys.executable, os.path.join(HERE, "parallel_ranks.py"), legs, inputs, out_dir,
+                              str(dp), str(tp)],
+                             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def wait(procs, out_dir: str, timeout: float = 240.0):
+    """Join every rank (one deadline for all); kill the rest and raise on a
+    timeout or any non-zero exit code.  Returns each rank's results."""
+    deadline = time.monotonic() + timeout
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise RuntimeError(f"rank {procs.index(p)} did not finish in {timeout} s")
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"ranks failed {bad}:\n" + "\n".join(logs))
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(len(procs))]
+
+
+# --- the legs ------------------------------------------------------------------
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _leaves(tree):
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    return {p: _np(t) for p, t in named_leaves(tree)}
+
+
+def _port_cfg(fields):
+    from tapclip_tpu_torch import config as tcfg
+
+    return tcfg.CLIPConfig(**fields)
+
+
+def _prompt_state(entry):
+    from tapclip_tpu_torch.utils.jax_bridge import prompt_state_from_jax
+
+    return prompt_state_from_jax(entry["trainable"], SimpleNamespace(**entry["bank"]))
+
+
+def _prompt_leg(inp, mesh, key, pcfg, keys=("ctx",), feats=False, steps=2, **extra):
+    """Prompt tuning (pixels-in or cached features) on the mesh: per-step
+    loss and grad_norm, the trained leaves after ``steps``."""
+    from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
+    from tapclip_tpu_torch.parallel.train_step import init_train_state, make_train_step
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp[key]
+    cfg = _port_cfg(e["cfg"])
+    local = shard_params(params_from_jax(e["tree"], cfg), mesh)
+    trainable, bank = _prompt_state(e)
+    opt = _adamw(inp.get(key + "_wd", 0.01))
+    state = init_train_state(trainable, opt, keys)
+    step = make_train_step(cfg, pcfg, opt, keys, use_image_feats=feats, mesh=mesh, **extra)
+    x, labels, mask = shard_batch((e["x"], e["labels"], e["mask"]), mesh)
+    out = {"loss": [], "grad_norm": [], "metrics": []}
+    for _ in range(steps):
+        state, m = step(local, state, bank, x, labels, mask)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    out["params"] = {k: _leaves(state.params[k]) if isinstance(state.params[k], dict) else _np(state.params[k])
+                     for k in keys}
+    if key == "prompt":  # the eval step's counts over data against one process on the whole batch
+        from tapclip_tpu_torch.parallel.train_step import make_eval_step
+
+        got = make_eval_step(cfg, pcfg, use_image_feats=feats, mesh=mesh)(local, state.params, bank, x, labels, mask)
+        one = make_eval_step(cfg, pcfg, use_image_feats=feats)(
+            params_from_jax(e["tree"], cfg), state.params, bank, e["x"], e["labels"], e["mask"])
+        out["eval"] = {k: (_np(got[k]), _np(one[k])) for k in ("correct", "total", "per_class_correct",
+                                                               "per_class_total")}
+    return out
+
+
+def _adamw(wd):
+    import functools
+
+    return functools.partial(torch.optim.AdamW, lr=LR_PROMPT, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+
+
+def _pretrain_leg(inp, mesh, key, loss="infonce", k=1, lock_image=False, steps=2, grad_clip=0.0):
+    """A pretraining step on the mesh: per-step loss, the whole tree
+    (``gather_params``) after ``steps``, and this rank's local tree."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_micro_batches, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp[key]
+    cfg = _port_cfg(e["cfg"])
+    local = shard_params(params_from_jax(e["tree"], cfg), mesh)
+    mask = P.lock_tower_trainable(local, lock_image=True) if lock_image else None
+    opt = P.PretrainOptimizer(P.set_trainable(local, mask), lr=LR_PRE, weight_decay=WD_PRE, grad_clip=grad_clip)
+    if k > 1:
+        step = P.make_accum_pretrain_step(cfg, opt, k, loss=loss, mesh=mesh)
+        x, ids = shard_micro_batches((e["x"], e["ids"]), mesh, k)
+    else:
+        step = P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh)
+        x, ids = shard_batch((e["x"], e["ids"]), mesh)
+    losses = [float(step(local, x, ids)["loss"]) for _ in range(steps)]
+    return {"loss": losses, "tree": _leaves(gather_params(local, mesh)), "local": _leaves(local)}
+
+
+def _collectives_leg(inp, mesh):
+    """The autograd all-gather and ring shift over ``data``: values and the
+    gradients of a weighted sum."""
+    from tapclip_tpu_torch.parallel import collectives as C
+
+    g, r = mesh.data_group, mesh.data_index
+    x = torch.arange(6, dtype=torch.float32).reshape(3, 2).add(10.0 * r).requires_grad_(True)
+    w = torch.linspace(-1.0, 1.0, 6 * mesh.dp).reshape(3 * mesh.dp, 2)
+    gathered = C.all_gather(x, g)
+    (dx,) = torch.autograd.grad((gathered * w).sum() * (r + 1), [x])
+    y = x.detach().clone().requires_grad_(True)
+    shifted = C.ring_shift(y, g)
+    (dy,) = torch.autograd.grad((shifted * (r + 1)).sum(), [y])
+    return {"gathered": _np(gathered), "dx": _np(dx), "shifted": _np(shifted), "dy": _np(dy)}
+
+
+def _roundtrip_leg(inp, mesh):
+    """``shard_params`` then ``gather_params`` of the TINY tree: whether the
+    gathered tree is the tree bit for bit, and this rank's block-0 shards."""
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_params
+    from tapclip_tpu_torch.pretrain import named_leaves
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    tree = params_from_jax(inp["infonce"]["tree"], _port_cfg(inp["infonce"]["cfg"]))
+    local = shard_params(tree, mesh)
+    back = dict(named_leaves(gather_params(local, mesh)))
+    equal = all(torch.equal(back[p], t) for p, t in named_leaves(tree)) and len(back) == len(named_leaves(tree))
+    blk = local["visual"]["blocks"][0]
+    return {"equal": equal, "block0": {f"{sub}/{k}": _np(blk[sub][k]) for sub in ("attn", "mlp") for k in blk[sub]}}
+
+
+def _global_losses_leg(inp, mesh):
+    """InfoNCE and SigLIP over ``data``: this rank's share and the gradients
+    of the shares' sum in its rows, the scale and the bias."""
+    from tapclip_tpu_torch import pretrain as P
+
+    e = inp["losses"]
+    n = e["img"].shape[0] // mesh.dp
+    rows = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+    out = {}
+    for loss in ("infonce", "siglip"):
+        img = torch.from_numpy(e["img"][rows]).requires_grad_(True)
+        txt = torch.from_numpy(e["txt"][rows]).requires_grad_(True)
+        scale = torch.tensor(e["scale"]).requires_grad_(True)
+        bias = torch.tensor(e["bias"]).requires_grad_(True)
+        params = {"logit_scale": scale, "logit_bias": bias}
+        share = P.pair_loss(loss, params, img, txt, mesh.data_group)
+        grads = torch.autograd.grad(share, [img, txt, scale, bias], allow_unused=True)
+        out[loss] = {"share": float(share), "grads": [None if g is None else _np(g) for g in grads]}
+    return out
+
+
+def _peft_distill_leg(inp, mesh):
+    """LoRA and distillation steps over ``data`` against the same steps in
+    one process on the whole batch (every rank runs both): per-step losses
+    and the trained leaves' largest difference."""
+    from tapclip_tpu_torch import distill, peft
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.parallel.sharding import shard_batch
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["infonce"]
+    cfg = _port_cfg(e["cfg"])
+    out = {}
+    for form in ("lora", "distill"):
+        runs = {}
+        for m in (None, mesh):
+            tree = params_from_jax(e["tree"], cfg)
+            x, ids = (e["x"], e["ids"]) if m is None else shard_batch((e["x"], e["ids"]), m)
+            if form == "lora":
+                lora = peft.init_lora_params(torch.Generator().manual_seed(1), tree, rank=2)
+                P.set_trainable(tree, {p: False for p, _ in P.named_leaves(tree)})
+                opt = P.PretrainOptimizer(P.set_trainable(lora), lr=LR_PRE, weight_decay=WD_PRE)
+                step = peft.make_lora_pretrain_step(cfg, opt, mesh=m)
+                losses = [float(step(tree, lora, x, ids)["loss"]) for _ in range(2)]
+                trained = lora
+            else:
+                teacher = params_from_jax(e["tree"], cfg)
+                student = distill.init_distill_params(torch.Generator().manual_seed(2), tree, cfg.embed_dim,
+                                                      cfg.embed_dim)
+                opt = P.PretrainOptimizer(P.set_trainable(student), lr=LR_PRE, weight_decay=WD_PRE)
+                step = distill.make_distill_step(cfg, cfg, opt, tau=2.0, mesh=m)
+                losses = [float(step(student, teacher, x, ids)["loss"]) for _ in range(2)]
+                trained = student
+            runs[m is None] = (losses, _leaves(trained))
+        (one_l, one_t), (mesh_l, mesh_t) = runs[True], runs[False]
+        out[form] = {"losses": mesh_l, "one_losses": one_l,
+                     "max_diff": max(float(np.abs(mesh_t[p] - one_t[p]).max()) for p in one_t)}
+    out["stochastic"] = _stochastic_form(inp, mesh)
+    return out
+
+
+def _stochastic_form(inp, mesh):
+    """The InfoNCE step with augment and patch dropout 0.5 on the mesh and
+    in one process, each from a generator of one seed: the mesh draws for
+    the global batch and keeps its rows, so the losses and trees agree."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.data.augment import AugmentConfig
+    from tapclip_tpu_torch.parallel.sharding import shard_batch
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["infonce"]
+    cfg = _port_cfg(e["cfg"]).replace(patch_dropout=0.5)
+    runs = {}
+    for m in (None, mesh):
+        tree = params_from_jax(e["tree"], cfg)
+        opt = P.PretrainOptimizer(P.set_trainable(tree), lr=LR_PRE, weight_decay=WD_PRE)
+        step = P.make_pretrain_step(cfg, opt, augment=AugmentConfig(scale=(0.5, 1.0), hflip=0.5), mesh=m)
+        x, ids = (e["x"], e["ids"]) if m is None else shard_batch((e["x"], e["ids"]), m)
+        losses = [float(step(tree, x, ids, torch.Generator().manual_seed(s))["loss"]) for s in range(2)]
+        runs[m is None] = (losses, _leaves(tree))
+    (one_l, one_t), (mesh_l, mesh_t) = runs[True], runs[False]
+    return {"losses": mesh_l, "one_losses": one_l,
+            "max_diff": max(float(np.abs(mesh_t[p] - one_t[p]).max()) for p in one_t)}
+
+
+def _grads_leg(inp, mesh):
+    """The gradients a mesh InfoNCE / SigLIP step hands its optimizer
+    (captured, no update), gathered whole, against the one-process
+    gradients of the whole batch's loss: the largest norm-relative error
+    over the leaves (``errs``).  (AdamW divides out a constant factor, so
+    only the gradients themselves show one: averaging over ``data`` as well
+    as the all-gather's backward would halve every leaf's.)  ``norms``: the
+    clip's global norm of the local gradients, as the step's optimizer
+    reads it, beside the whole batch's gradients' norm."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel.sharding import gather_params, map_with_path, shard_batch, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    out = {"errs": {}, "norms": {}}
+    for loss in ("infonce", "siglip"):
+        e = inp[loss]
+        cfg = _port_cfg(e["cfg"])
+        local = shard_params(params_from_jax(e["tree"], cfg), mesh)
+        opt = P.PretrainOptimizer(P.set_trainable(local), lr=LR_PRE, weight_decay=WD_PRE)
+        box = {}
+        opt.update = lambda grads: box.setdefault("g", dict(zip(opt.paths, grads))) and False
+        P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh)(local, *shard_batch((e["x"], e["ids"]), mesh))
+        got = dict(P.named_leaves(gather_params(map_with_path(lambda p, t: box["g"][p], local), mesh)))
+        whole = params_from_jax(e["tree"], cfg)
+        leaves = P.set_trainable(whole)
+        x = torch.as_tensor(e["x"])
+        total = P.pair_loss(loss, whole, clip_model.encode_image(whole, cfg, x), clip_model.encode_text(whole, cfg, e["ids"]))
+        want = dict(zip([p for p, _ in leaves], torch.autograd.grad(total, [t for _, t in leaves])))
+        norm = P.global_norm([box["g"][p] for p in opt.paths], opt.sharded, opt.norm_group)
+        out["norms"][loss] = (float(norm), float(P.global_norm(list(want.values()))))
+        out["errs"][loss] = max(float((got[p] - w).norm() / w.norm().clamp_min(1e-30)) for p, w in want.items()
+                        if float(w.norm()) > 1e-12 and not p.endswith("attn/b_qkv"))
+    return out
+
+
+def _multihost_leg(inp, mesh):
+    """``make_multihost_mesh`` with two ranks a node (``LOCAL_WORLD_SIZE``):
+    the grid and this rank's place."""
+    from tapclip_tpu_torch.parallel.mesh import make_multihost_mesh
+
+    os.environ["LOCAL_WORLD_SIZE"] = "2"
+    m = make_multihost_mesh(tp=2)
+    return {"grid": m.grid.tolist(), "shape": m.shape, "place": (m.data_index, m.model_index)}
+
+
+def legs(inp, dp, tp):
+    from tapclip_tpu_torch import config as tcfg
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=dp, tp=tp)
+    pcfg = tcfg.PromptConfig(max_classes=8)
+    run = {
+        "collectives": lambda: _collectives_leg(inp, mesh),
+        "roundtrip": lambda: _roundtrip_leg(inp, mesh),
+        "global_losses": lambda: _global_losses_leg(inp, mesh),
+        "peft_distill": lambda: _peft_distill_leg(inp, mesh) if mesh.tp == 1 else None,
+        "grads": lambda: _grads_leg(inp, mesh),
+        "multihost": lambda: _multihost_leg(inp, mesh) if dp * tp == 4 else None,
+        "prompt": lambda: _prompt_leg(inp, mesh, "prompt", pcfg),
+        "idiomatic": lambda: _prompt_leg(inp, mesh, "idiomatic", tcfg.PromptConfig(max_classes=8,
+                                                                                   text_mode="idiomatic")),
+        "anchored": lambda: _prompt_leg(inp, mesh, "anchored", pcfg, feats=True, kg_lambda=0.5,
+                                        kg_feats=inp["anchored"]["kg_feats"], prograd_lambda=1.0,
+                                        anchor_scale=inp["anchored"]["anchor_scale"], scl_lambda=0.5),
+        "maple": lambda: _prompt_leg(inp, mesh, "maple", tcfg.PromptConfig(max_classes=8, maple_depth=2,
+                                                                           prompt_len=2), keys=("ctx", "maple")),
+        "flagship": lambda: _prompt_leg(inp, mesh, "flagship", pcfg),
+        "infonce": lambda: _pretrain_leg(inp, mesh, "infonce"),
+        "clip": lambda: _pretrain_leg(inp, mesh, "infonce", grad_clip=GRAD_CLIP),
+        "siglip": lambda: _pretrain_leg(inp, mesh, "siglip", loss="siglip"),
+        "gradcache": lambda: _pretrain_leg(inp, mesh, "gradcache", k=2),
+        "vpt": lambda: _pretrain_leg(inp, mesh, "vpt", lock_image=True),
+    }
+    return {name: run[name]() for name in inp["legs"]}
+
+
+def _main(which: str, inputs: str, out_dir: str, dp: str, tp: str) -> None:
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch.parallel.mesh import init_distributed
+
+    torch.set_num_threads(1)
+    init_distributed("cpu")
+    try:
+        out = globals()[which](torch.load(inputs, weights_only=False), int(dp), int(tp))
+        torch.save(out, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _main(*sys.argv[1:6])

@@ -107,8 +107,11 @@ from tapclip_tpu_torch.ops.fused_mha import (
 )
 from tapclip_tpu_torch.ops.fused_mlp import (
     _fused_mlp_bwd_cuda,
+    _fused_mlp_bwd_partial_cuda,
+    _fused_mlp_cuda,
     fused_mlp_block,
     fused_mlp_bwd_reference,
+    fused_mlp_partial_reference,
     fused_mlp_reference,
 )
 from tapclip_tpu_torch.ops.int8_attn import int8_attn_block, int8_attn_cuda, int8_attn_plain, quantize_attn
@@ -1988,3 +1991,104 @@ def test_ops_on_cuda_tensors_launch_the_kernels(cuda):
     assert fused_mlp_block.launches == before + 2 and torch.equal(direct, got)
     with pytest.raises(ValueError, match="CUDA tensor"):
         torch.ops.tapclip.fused_mlp(x, g.cpu(), b, wf, bf, wp, bp, 1e-5)
+
+
+# --- the partial modes of tensor parallelism (K1, K2, B5, B4) ---------------------------------------
+
+
+def _partial_block(gen, B, T, W, dtype):
+    H = 4 * W
+    x, g = _randn(gen, B, T, W).to(dtype), _randn(gen, B, T, W, scale=0.1).to(dtype)
+    ln = (1 + _randn(gen, W, scale=0.1), _randn(gen, W, scale=0.1))
+    mlp = (_randn(gen, W, H, scale=W ** -0.5), _randn(gen, H, scale=0.1), _randn(gen, H, W, scale=H ** -0.5))
+    attn = (_randn(gen, W, 3 * W, scale=W ** -0.5), _randn(gen, 3 * W, scale=0.1), _randn(gen, W, W, scale=W ** -0.5))
+    return x, g, ln, mlp, attn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", [(2, 21, 128, 2, 19), (8, 200, 768, 12, 197), (3, 77, 512, 8, 77)])
+def test_partial_forward_kernels(cuda, dtype, tol, B, T, W, heads, valid):
+    """K1's and K2's partial modes over one rank's half (hidden columns; the
+    per-head qkv cut) against their plain partial versions, and both halves
+    summed with the residual and bias against the whole kernel."""
+    from tapclip_tpu_torch.ops.fused_mha import _fused_attn_block_cuda, attn_block_partial_reference
+    from tapclip_tpu_torch.parallel.sharding import _qkv_parts
+
+    gen = torch.Generator(device=cuda).manual_seed(B * T + W + 5)
+    x, _, (gm, bt), (wf, bf, wp), (wq, bq, wo) = _partial_block(gen, B, T, W, dtype)
+    bias = _randn(gen, W, scale=0.1)
+    H = 4 * W
+    with torch.inference_mode():
+        halves = [(wf[:, j * H // 2:(j + 1) * H // 2].contiguous(), bf[j * H // 2:(j + 1) * H // 2].contiguous(),
+                   wp[j * H // 2:(j + 1) * H // 2].contiguous()) for j in range(2)]
+        n = fused_mlp_block.partial_launches
+        parts = [_fused_mlp_cuda(x, gm, bt, *h, bias, 1e-5, True) for h in halves]
+        assert fused_mlp_block.partial_launches == n + 2 and parts[0].dtype == torch.float32
+        for part, h in zip(parts, halves):
+            _close(part, fused_mlp_partial_reference(x, gm, bt, *h), tol)
+        whole = _fused_mlp_cuda(x, gm, bt, wf, bf, wp, bias, 1e-5)
+        _close((x.float() + (parts[0] + parts[1] + bias)).to(dtype), whole, tol)
+        heads_cut = [(_qkv_parts(wq, 2, j).contiguous(), _qkv_parts(bq, 2, j).contiguous(),
+                      wo[j * W // 2:(j + 1) * W // 2].contiguous()) for j in range(2)]
+        n = fused_attn_block.partial_launches
+        parts = [_fused_attn_block_cuda(x, gm, bt, *h, bias, heads // 2, valid, 1e-5, True) for h in heads_cut]
+        assert fused_attn_block.partial_launches == n + 2
+        for part, h in zip(parts, heads_cut):
+            _close(part, attn_block_partial_reference(x, gm, bt, *h, heads // 2, valid, 1e-5), tol)
+        whole = _fused_attn_block_cuda(x, gm, bt, wq, bq, wo, bias, heads, valid, 1e-5)
+        _close((x.float() + (parts[0] + parts[1] + bias)).to(dtype), whole, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+@pytest.mark.parametrize("B,T,W,heads,valid", [(2, 21, 128, 2, 19), (8, 200, 768, 12, 197), (8, 88, 512, 8, 82)])
+def test_partial_backward_kernels(cuda, dtype, tol, B, T, W, heads, valid):
+    """B5's and B4's partial modes (launches up to dy, then the LayerNorm
+    backward; no group, so the other half's dy is not added) against the
+    plain backward of one rank's half, all seven outputs."""
+    from tapclip_tpu_torch.ops.fused_mha import _attn_block_bwd_partial_cuda
+    from tapclip_tpu_torch.parallel.sharding import _qkv_parts
+
+    gen = torch.Generator(device=cuda).manual_seed(B * T + W + 6)
+    x, g, (gm, bt), (wf, bf, wp), (wq, bq, wo) = _partial_block(gen, B, T, W, dtype)
+    H = 4 * W
+    half = (wf[:, :H // 2].contiguous(), bf[:H // 2].contiguous(), wp[:H // 2].contiguous())
+    n = fused_mlp_block.partial_bwd_launches
+    got = _fused_mlp_bwd_partial_cuda(x, g, gm, bt, *half, eps=1e-5, group=None)
+    assert fused_mlp_block.partial_bwd_launches == n + 1
+    for name, a, b in zip(NAMES, got, fused_mlp_bwd_reference(x, g, gm, bt, *half, 1e-5)):
+        _close_rel(f"B5 partial {name}", a, b, tol)
+    cut = (_qkv_parts(wq, 2, 0).contiguous(), _qkv_parts(bq, 2, 0).contiguous(), wo[:W // 2].contiguous())
+    n = fused_attn_block.partial_bwd_launches
+    got = _attn_block_bwd_partial_cuda(x, g, gm, bt, *cut, heads // 2, valid, 1e-5, group=None)
+    assert fused_attn_block.partial_bwd_launches == n + 1
+    for name, a, b in zip(NAMES, got, attn_block_bwd_reference(x, g, gm, bt, *cut, heads // 2, valid, 1e-5)):
+        _close_rel(f"B4 partial {name}", a, b, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", BWD_DTYPES)
+def test_partial_attn_block_past_the_routing_limit(cuda, dtype, tol):
+    """Past B4's routing limit (T 257 at head dim 64) the tensor-parallel
+    half-block differentiates the rank's split composition: with no group,
+    its gradients equal the plain partial backward's (the other rank's dy
+    not added), K2's partial mode forward equal to its plain version."""
+    from tapclip_tpu_torch.ops.fused_mha import _FusedAttnBlockPartial, attn_block_partial_reference
+    from tapclip_tpu_torch.parallel.sharding import _qkv_parts
+
+    gen = torch.Generator(device=cuda).manual_seed(257)
+    B, T, W, heads = 2, 257, 1024, 16
+    x, g, (gm, bt), _, (wq, bq, wo) = _partial_block(gen, B, T, W, dtype)
+    bo = _randn(gen, W, scale=0.1)
+    cut = [_qkv_parts(wq, 2, 0).contiguous(), _qkv_parts(bq, 2, 0).contiguous(), wo[:W // 2].contiguous()]
+    leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt, *cut, bo)]
+    n = fused_attn_block.partial_launches
+    out = _FusedAttnBlockPartial.apply(*leaves, heads // 2, T, 1e-5, None)
+    assert fused_attn_block.partial_launches == n + 1
+    want = (x.float() + (attn_block_partial_reference(x, gm, bt, *cut, heads // 2, T, 1e-5) + bo)).to(dtype)
+    _close(out, want, DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])
+    got = torch.autograd.grad(out, leaves, g)
+    ref = attn_block_bwd_reference(x, g, gm, bt, *cut, heads // 2, T, 1e-5)
+    for name, a, b in zip(NAMES, got, ref):
+        _close_rel(f"split partial {name}", a, b, tol)

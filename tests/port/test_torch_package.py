@@ -65,6 +65,9 @@ PORT_MODULES = [
     "tapclip_tpu_torch.utils.plotting",
     "tapclip_tpu_torch.utils.calibration",
     "tapclip_tpu_torch.parallel.train_step",
+    "tapclip_tpu_torch.parallel.mesh",
+    "tapclip_tpu_torch.parallel.sharding",
+    "tapclip_tpu_torch.parallel.collectives",
     "tapclip_tpu_torch.trainer",
     "tapclip_tpu_torch.serve",
     "tapclip_tpu_torch.train",

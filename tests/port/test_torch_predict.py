@@ -31,7 +31,6 @@ from tapclip_tpu.models import clip as jclip
 from tapclip_tpu.utils import saliency as jsal
 from tapclip_tpu.utils import torch_convert as jtc
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch import config as tcfg
 from tapclip_tpu_torch import predict as t_predict
 from tapclip_tpu_torch.models import clip as tclip
@@ -161,9 +160,23 @@ def test_predict_saliency_and_uint8_transfer(files, predicted, tmp_path):
     assert _rows(f32) == _rows(predicted["port"])
 
 
+def test_predict_dp_matches_one_device_and_jax(files, predicted, tmp_path):
+    """``predict --dp 2`` over two CPU replicas: the same rows as ``--dp 1``
+    (scores at 1e-6: the halves' products sum in another order on the CPU)
+    and as the JAX package's ``--dp 2`` on its virtual mesh."""
+    port = t_predict.main(_args(files, tmp_path / "port", "--top-k", "2", "--json", "--device", "cpu", "--dp", "2"))
+    jres = j_predict.main(_args(files, tmp_path / "jax", "--top-k", "2", "--json", "--dp", "2"))
+    (ph, prows), (oh, orows), (jh, jrows) = _rows(port), _rows(predicted["port"]), _rows(jres)
+    assert ph == oh == jh and len(prows) == len(orows) == len(jrows) == 12
+    for p, o, j in zip(prows, orows, jrows):
+        assert [p[0], p[1], p[3]] == [o[0], o[1], o[3]] == [j[0], j[1], j[3]]
+        np.testing.assert_allclose([float(p[2]), float(p[4])], [float(o[2]), float(o[4])], atol=1e-6, rtol=0)
+        np.testing.assert_allclose([float(p[2]), float(p[4])], [float(j[2]), float(j[4])], atol=SCORE_TOL, rtol=0)
+
+
 def test_predict_refusals(files, tmp_path):
-    with pytest.raises(NotPortedError, match="predict --dp"):
-        t_predict.main(_args(files, tmp_path, "--dp", "2", "--device", "cpu"))
+    with pytest.raises(SystemExit, match="--batch-size must divide by --dp"):
+        t_predict.main(_args(files, tmp_path, "--dp", "3", "--device", "cpu"))
     # An image-conditioned (CoCoOp) model now runs: the full forward, no attribution.
     from tapclip_tpu_torch.models.model_wrapper import FullModel
 

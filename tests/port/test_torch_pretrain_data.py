@@ -232,7 +232,7 @@ def test_pretrain_cli_resume_featurize_shards_and_csv(runs, tree, sd_path, tmp_p
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--dp", "2"], "--dp is not yet ported"),
+    (["--pp", "2"], "--pp is not yet ported"),
     (["--fsdp"], "--fsdp is not yet ported"),
     (["--sharded-snapshot"], "--sharded-snapshot is not yet ported"),
 ])

@@ -31,7 +31,6 @@ from tapclip_tpu.data import shards as j_shards
 from tapclip_tpu.models import clip as jclip
 from tapclip_tpu.utils import torch_convert as jtc
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch import featurize as t_feat
 from tapclip_tpu_torch import search as t_search
 from tapclip_tpu_torch import zero_shot_eval as t_zse
@@ -177,9 +176,27 @@ def test_featurize_uint8_transfer_equals_the_float_pipeline(files, featurized, t
                                   np.load(os.path.join(td, "image_embeddings.npy")))
 
 
+@pytest.mark.parametrize("kind", ["tree", "shards"])
+def test_featurize_dp_matches_one_device_and_jax(files, featurized, tmp_path, kind):
+    """``featurize --dp 2`` over two CPU replicas: each batch splits in two
+    and the rows come back in order, equal to ``--dp 1``'s (the halves run
+    their products at half the rows: summation order only) and to the JAX
+    package's ``--dp 2`` on its virtual mesh, at the float16 files' EMB_TOL."""
+    extra = ("--shard-dir", files["shards"], "--embed-text") if kind == "shards" else ()
+    port, jax_dir = tmp_path / "port", tmp_path / "jax"
+    _featurize(files, port, *extra, "--dp", "2")
+    _featurize(files, jax_dir, *extra, "--dp", "2", port=False)
+    td = featurized["port", kind][0]
+    assert _manifest(port) == _manifest(td)
+    for name in ["image_embeddings.npy"] + (["text_embeddings.npy"] if kind == "shards" else []):
+        got = np.load(port / name).astype(np.float32)
+        np.testing.assert_allclose(got, np.load(os.path.join(td, name)).astype(np.float32), atol=1e-3, rtol=0)
+        np.testing.assert_allclose(got, np.load(jax_dir / name).astype(np.float32), atol=EMB_TOL, rtol=0)
+
+
 def test_featurize_refusals(files, tmp_path):
-    with pytest.raises(NotPortedError, match="featurize --dp"):
-        _featurize(files, tmp_path, "--dp", "2")
+    with pytest.raises(SystemExit, match="--batch-size must divide by --dp"):
+        _featurize(files, tmp_path, "--dp", "3")
     with pytest.raises(SystemExit, match="--embed-text requires --shard-dir"):
         _featurize(files, tmp_path, "--embed-text")
     with pytest.raises(SystemExit, match="bad --rank"):

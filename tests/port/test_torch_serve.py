@@ -240,12 +240,13 @@ def test_decode_image_payload_matches_jax():
         decode_image_payload({}, 32)
 
 
-def test_main_refuses_what_is_not_ported(capsys):
-    for argv in (["--synthetic", "--dp", "2"], ["--dp"]):
-        with pytest.raises(SystemExit) as e:
-            main(argv)
-        assert e.value.code == 2
-    assert "not yet ported in tapclip_tpu_torch" in capsys.readouterr().err
+def test_main_dp_refuses_more_replicas_than_devices():
+    """``serve --dp N`` takes CUDA devices 0 .. N - 1 and refuses, as the
+    mesh does, where the machine has fewer (before any weights are built)."""
+    n = torch.cuda.device_count()
+    dp = max(2, n + 1)
+    with pytest.raises(ValueError, match=f"needs {dp} devices, have {n}"):
+        main(["--preset", "tiny", "--synthetic", "--dp", str(dp), "--device", "cuda"])
 
 
 def test_main_device_cuda_without_card_raises():
