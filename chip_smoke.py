@@ -5821,12 +5821,12 @@ def check_partial_forward() -> dict:
         bm, ba = c["mlp"][3], c["attn"][3]
         with torch.inference_mode():
             for name, mod, wrapper, whole, part_k, part_p, cuts, bias in (
-                ("fused_mlp_partial", M, lambda w: M._FusedMLPPartial.apply(x, gm, bt, *w, bm, 1e-5, None),
+                ("fused_mlp_partial", M, lambda w: M._FusedMLPPartial.apply(x, gm, bt, *w, bm, 1e-5, None, False),
                  lambda: M._fused_mlp_cuda(x, gm, bt, *c["mlp"], 1e-5),
                  lambda w: M._fused_mlp_cuda(x, gm, bt, *w, bm, 1e-5, True),
                  lambda w: M.fused_mlp_partial_reference(x, gm, bt, *w), c["mlp_cut"], bm),
-                ("fused_attn_block_partial", A,
-                 lambda w: A._FusedAttnBlockPartial.apply(x, gm, bt, *w, ba, nh // 2, valid, 1e-5, None),
+                ("fused_attn_block_partial", M,  # both wrappers sum their partials through fused_mlp.partial_sum
+                 lambda w: A._FusedAttnBlockPartial.apply(x, gm, bt, *w, ba, nh // 2, valid, 1e-5, None, False),
                  lambda: A._fused_attn_block_cuda(x, gm, bt, *c["attn"], nh, valid, 1e-5),
                  lambda w: A._fused_attn_block_cuda(x, gm, bt, *w, ba, nh // 2, valid, 1e-5, True),
                  lambda w: A.attn_block_partial_reference(x, gm, bt, *w, nh // 2, valid, 1e-5), c["attn_cut"], ba),
@@ -5952,7 +5952,7 @@ def _summed_dx(name, x, g, gm, bt, cuts, nh, valid):
     return dx
 
 
-# --- "parallel": the data and model mesh axes (tapclip_tpu_torch/parallel/) --------------------
+# --- "parallel": the data, pipe and model mesh axes (tapclip_tpu_torch/parallel/) ---------------
 
 PARALLEL_STEPS = 3
 PARALLEL_BATCH = 32  # the global batch
@@ -5961,17 +5961,28 @@ PARALLEL_SEED = 20  # pretrain_phase's tree
 # launches each rank must show; K3 only in the prompt-tune forms (the attribution layer).
 PARALLEL_KERNELS = ("fused_mlp", "fused_attn_block", "fused_attn_block_bwd", "fused_mlp_bwd", "fused_mha",
                     "fused_mha_bwd", "fused_attention_aux")
+# The pallas form (pp = 2, attn_impl="pallas"): K3 in both towers and the flash chain's backward.
+PALLAS_KERNELS = ("fused_attention_aux", "fused_attention_aux_causal", "flash_lse", "flash_bwd_dkv", "flash_bwd_dq")
 PARTIAL_OF = {"fused_mlp": "fused_mlp_partial", "fused_attn_block": "fused_attn_block_partial",
               "fused_mlp_bwd": "fused_mlp_bwd_partial", "fused_attn_block_bwd": "fused_attn_block_bwd_partial"}
 # Each group of ranks shares the one card over gloo (the rank wrapper copies
 # gloo's missing send / recv on CUDA tensors through host memory, never the
-# package: _stage_p2p_through_host).
-PARALLEL_GROUPS = {  # (dp, tp): the forms each group runs ("form" in f32, "form:bfloat16")
-    (2, 1): ("infonce", "siglip"),
-    (1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16"),
-    (2, 2): ("infonce",),
+# package: _stage_p2p_through_host).  Forms: "infonce" / "siglip" (the plain
+# step on the group's mesh: GPipe under pp > 1), "sp" (seq_parallel=True),
+# "fsdp" (fsdp=True), "pallas" (attn_impl="pallas"), "prompt" (prompt
+# tuning); ":bfloat16" for bf16.
+PARALLEL_GROUPS = {  # (dp, pp, tp): the forms each group runs
+    (2, 1, 1): ("infonce", "siglip", "fsdp", "fsdp:bfloat16"),
+    (1, 1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16", "sp", "sp:bfloat16"),
+    (2, 1, 2): ("infonce",),
+    (1, 2, 1): ("infonce", "infonce:bfloat16", "pallas"),
+    (2, 2, 2): ("sp", "fsdp", "sp:bfloat16", "fsdp:bfloat16"),
 }
-PARALLEL_TIMEOUT = 400.0
+# The 3-axis legs run ViT-B/16's widths at 4 layers a tower (2 a stage): eight
+# ranks share the one card, and the phase must stay well inside the run's limit.
+PARALLEL_DEPTH = {(2, 2, 2): 4}
+PARALLEL_TIMEOUT = 600.0
+FSDP_RESIDENT_MAX = 0.55  # a dp = 2 FSDP rank's (param, mu, nu) bytes over the replicated triple's
 
 
 def _stage_p2p_through_host() -> None:
@@ -6002,47 +6013,71 @@ def _stage_p2p_through_host() -> None:
     print("parallel rank wrapper: gloo's batch_isend_irecv on CUDA tensors copied through host memory", flush=True)
 
 
-COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "p2p": 0}
+COLLECTIVE_BYTES = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0, "p2p": 0}
+COLLECTIVE_CALLS = dict(COLLECTIVE_BYTES)
 
 
 @contextlib.contextmanager
 def _counting_collectives():
-    """Count the bytes each torch.distributed collective the package calls
-    moves, from its tensors' shapes: an all-reduce its tensor, an all-gather
-    its gathered output, a send its tensor (COLLECTIVE_BYTES, per call of
-    this context's body)."""
+    """Count the calls and the bytes of each torch.distributed collective the
+    package calls, from its tensors' shapes: an all-reduce its tensor, an
+    all-gather its gathered output, a reduce-scatter its input (NCCL; over
+    gloo the package reduce-scatters by an all-reduce, counted there), a
+    send its tensor (COLLECTIVE_BYTES / COLLECTIVE_CALLS, per call of this
+    context's body)."""
     import torch.distributed as dist
 
-    orig = {n: getattr(dist, n) for n in ("all_reduce", "all_gather", "batch_isend_irecv")}
+    names = ("all_reduce", "all_gather", "reduce_scatter_tensor", "batch_isend_irecv")
+    orig = {n: getattr(dist, n) for n in names}
+
+    def count(key, n_bytes):
+        COLLECTIVE_BYTES[key] += n_bytes
+        COLLECTIVE_CALLS[key] += 1
 
     def all_reduce(t, *a, **k):
-        COLLECTIVE_BYTES["all_reduce"] += t.numel() * t.element_size()
+        count("all_reduce", t.numel() * t.element_size())
         return orig["all_reduce"](t, *a, **k)
 
     def all_gather(out, t, *a, **k):
-        COLLECTIVE_BYTES["all_gather"] += sum(o.numel() * o.element_size() for o in out)
+        count("all_gather", sum(o.numel() * o.element_size() for o in out))
         return orig["all_gather"](out, t, *a, **k)
 
+    def reduce_scatter_tensor(out, t, *a, **k):
+        count("reduce_scatter", t.numel() * t.element_size())
+        return orig["reduce_scatter_tensor"](out, t, *a, **k)
+
     def batch_isend_irecv(ops):
-        COLLECTIVE_BYTES["p2p"] += sum(op.tensor.numel() * op.tensor.element_size() for op in ops
-                                       if op.op is dist.isend or getattr(op.op, "__name__", "") == "isend")
+        count("p2p", sum(op.tensor.numel() * op.tensor.element_size() for op in ops
+                         if op.op is dist.isend or getattr(op.op, "__name__", "") == "isend"))
         return orig["batch_isend_irecv"](ops)
 
     for k in COLLECTIVE_BYTES:
-        COLLECTIVE_BYTES[k] = 0
-    dist.all_reduce, dist.all_gather, dist.batch_isend_irecv = all_reduce, all_gather, batch_isend_irecv
+        COLLECTIVE_BYTES[k] = COLLECTIVE_CALLS[k] = 0
+    patched = {"all_reduce": all_reduce, "all_gather": all_gather, "reduce_scatter_tensor": reduce_scatter_tensor,
+               "batch_isend_irecv": batch_isend_irecv}
+    for n in names:
+        setattr(dist, n, patched[n])
     try:
         yield COLLECTIVE_BYTES
     finally:
-        dist.all_reduce, dist.all_gather, dist.batch_isend_irecv = (orig["all_reduce"], orig["all_gather"],
-                                                                    orig["batch_isend_irecv"])
+        for n in names:
+            setattr(dist, n, orig[n])
 
 
-def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
-    """PARALLEL_STEPS InfoNCE / SigLIP steps at the global batch on ``mesh``
-    (each rank its rows and its shards), beside rank 0's one-process kernel
-    path from the same tree: losses and the displacement of the gathered
-    tree (PRETRAIN_TOL), and this rank's launches."""
+def _tree_bytes(tree) -> int:
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(tree))
+
+
+def _parallel_pretrain_form(mesh, form: str, dtype: str, depth: int = 0) -> dict:
+    """PARALLEL_STEPS pretraining steps at the global batch on ``mesh`` (each
+    rank its rows and its shards; ``form`` as PARALLEL_GROUPS names it;
+    ``depth`` > 0 cuts both towers to that many layers), beside rank 0's
+    one-process kernel path from the same tree: losses and the displacement
+    of the gathered tree (PRETRAIN_TOL), this rank's launches, the bytes
+    each collective moved a step, and under FSDP this rank's resident bytes
+    of the (param, mu, nu) triple against the replicated triple's."""
     import torch
 
     from tapclip_tpu_torch import pretrain as P
@@ -6050,7 +6085,13 @@ def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
     from tapclip_tpu_torch.models import clip as clip_model
     from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_params
 
+    loss = "siglip" if form == "siglip" else "infonce"
+    fsdp, seq = form == "fsdp", form == "sp"
     cfg = MODEL_PRESETS[PRETRAIN_MODEL].replace(dtype=dtype)
+    if depth:
+        cfg = cfg.replace(vision_layers=depth, text_layers=depth)
+    if form == "pallas":
+        cfg = cfg.replace(attn_impl="pallas")
     tree0 = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(PARALLEL_SEED), cfg)
     if loss == "siglip":
         tree0 = P.add_siglip_params(tree0)
@@ -6060,9 +6101,12 @@ def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
         ref_tree = _tree_copy(tree0)
         ref_losses, ref_ms, _ = _run_steps(cfg, ref_tree, batches, loss=loss)
         ref = (ref_losses, ref_ms, ref_tree)
-    local = shard_params(_tree_copy(tree0), mesh)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    local = shard_params(_tree_copy(tree0), mesh, fsdp=fsdp)
+    placed = torch.cuda.memory_allocated() - before
     opt = P.PretrainOptimizer(P.set_trainable(local), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
-    step = P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh)
+    step = P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh, seq_parallel=seq, fsdp=fsdp)
     losses, ms = [], []
     torch.cuda.synchronize()
     reset_counts()
@@ -6073,9 +6117,15 @@ def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
             losses.append(float(m["loss"]))
             ms.append(t)
         step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
+        step_calls = {k: v // PARALLEL_STEPS for k, v in COLLECTIVE_CALLS.items()}
     counts = read_counts()
-    whole = gather_params(local, mesh)
-    out = {"losses": losses, "ms": ms, "launches": counts, "bytes_per_step": step_bytes}
+    moments = sum(v.numel() * v.element_size() for st in opt.adamw.state.values() for k, v in st.items()
+                  if k in ("exp_avg", "exp_avg_sq"))
+    whole = gather_params(local, mesh, fsdp=fsdp)
+    out = {"losses": losses, "ms": ms, "launches": counts, "bytes_per_step": step_bytes,
+           "calls_per_step": step_calls, "layers": cfg.vision_layers,
+           "triple_bytes": _tree_bytes(local) + moments, "replicated_triple_bytes": 3 * _tree_bytes(tree0),
+           "placed_bytes": placed}
     if ref is not None:
         tol = PRETRAIN_TOL[dtype]
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
@@ -6083,7 +6133,7 @@ def _parallel_pretrain_form(mesh, loss: str, dtype: str) -> dict:
         out.update(ref_losses=ref[0], ref_ms=ref[1], loss_err=loss_err, step_err=step_err, apart=apart, worst=worst)
         require(np.isfinite(losses).all() and loss_err <= tol["loss"] and step_err <= tol["step"]
                 and apart <= PRETRAIN_APART,
-                f"parallel {loss} {dict(mesh.shape)} {dtype}: loss {loss_err:.3e}, displacement {step_err:.3e}, "
+                f"parallel {form} {dict(mesh.shape)} {dtype}: loss {loss_err:.3e}, displacement {step_err:.3e}, "
                 f"entries apart {apart:.2e} against the one-process kernel path")
     return out
 
@@ -6143,23 +6193,24 @@ def _parallel_prompt_form(mesh, dtype: str) -> dict:
 
 
 def parallel_rank_main(argv) -> int:
-    """One rank of a group (``chip_smoke.py --parallel-rank DP TP OUT
+    """One rank of a group (``chip_smoke.py --parallel-rank DP PP TP OUT
     [BACKEND [FORM ...]]``, RANK / WORLD_SIZE / MASTER_* in the environment):
-    the forms (default PARALLEL_GROUPS[(dp, tp)]), its results in
+    the forms (default PARALLEL_GROUPS[(dp, pp, tp)]), its results in
     ``OUT/rank{r}.json``.  gloo (the default): every rank on the one card,
     the collectives gloo lacks on CUDA staged through host memory.  nccl:
     one card a rank, ``cuda:LOCAL_RANK``, as ``torchrun --nproc-per-node N
-    chip_smoke.py --parallel-rank DP TP OUT nccl`` starts them on a machine
-    with N cards; rank 0 prints each form's line."""
+    chip_smoke.py --parallel-rank DP PP TP OUT nccl FORM`` starts them on a
+    machine with N cards; rank 0 prints each form's line."""
     import torch
     import torch.distributed as dist
 
     from tapclip_tpu_torch.ops import _build
     from tapclip_tpu_torch.parallel.mesh import make_mesh
 
-    dp, tp, out_dir = int(argv[0]), int(argv[1]), argv[2]
-    backend = argv[3] if len(argv) > 3 else "gloo"
-    forms = argv[4:] or PARALLEL_GROUPS[(dp, tp)]
+    dp, pp, tp, out_dir = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    backend = argv[4] if len(argv) > 4 else "gloo"
+    forms = argv[5:] or PARALLEL_GROUPS[(dp, pp, tp)]
+    depth = PARALLEL_DEPTH.get((dp, pp, tp), 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) if backend == "nccl" else 0)
     dist.init_process_group(backend, init_method="env://", rank=int(os.environ["RANK"]),
@@ -6168,7 +6219,7 @@ def parallel_rank_main(argv) -> int:
         if backend == "gloo":
             _stage_p2p_through_host()
         _build.library()  # the parent's build, loaded
-        mesh = make_mesh(dp=dp, tp=tp, backend=backend)
+        mesh = make_mesh(dp=dp, tp=tp, pp=pp, backend=backend)
         res = {}
         for form in forms:
             t0 = time.perf_counter()
@@ -6176,16 +6227,18 @@ def parallel_rank_main(argv) -> int:
             if name == "prompt":
                 res[form] = _parallel_prompt_form(mesh, dtype or "float32")
             else:
-                res[form] = _parallel_pretrain_form(mesh, name, dtype or "float32")
+                res[form] = _parallel_pretrain_form(mesh, name, dtype or "float32", depth)
             res[form]["seconds"] = time.perf_counter() - t0
             r0 = res[form]
             if backend == "nccl" and mesh.rank == 0:
                 errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
-                print(f"parallel dp={dp} tp={tp} {form} (NCCL, {dp * tp} cards): loss "
-                      f"{[round(v, 5) for v in r0['losses']]} vs one process "
-                      f"{[round(v, 5) for v in r0['ref_losses']]}, errors {errs}; ms per step "
+                print(f"parallel dp={dp} pp={pp} tp={tp} {form} (NCCL, {mesh.world} cards, "
+                      f"{r0.get('layers', 12)} layers a tower): loss {[round(v, 5) for v in r0['losses']]} vs one "
+                      f"process {[round(v, 5) for v in r0['ref_losses']]}, errors {errs}; ms per step "
                       f"{[round(v, 1) for v in r0['ms']]} (one process {[round(v, 1) for v in r0['ref_ms']]}); "
-                      f"bytes a step {r0['bytes_per_step']}; launches "
+                      f"bytes a step {r0['bytes_per_step']}, calls a step {r0.get('calls_per_step')}; "
+                      f"resident (param, mu, nu) {r0.get('triple_bytes')} of the replicated "
+                      f"{r0.get('replicated_triple_bytes')}; launches "
                       f"{ {k: v for k, v in r0['launches'].items() if v} } ({card_line()})", flush=True)
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
@@ -6195,13 +6248,15 @@ def parallel_rank_main(argv) -> int:
     return 0
 
 
-def _spawn_ranks(dp: int, tp: int, out_dir: str):
+def _spawn_ranks(dp: int, pp: int, tp: int, out_dir: str):
     port = _free_port()
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(dp * tp))
+    world = dp * pp * tp
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world))
     os.makedirs(out_dir, exist_ok=True)
-    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(dp), str(tp), out_dir],
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank", str(dp), str(pp), str(tp),
+                              out_dir],
                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(dp * tp)]
+            for r in range(world)]
 
 
 def _join_ranks(procs, what: str, deadline: float) -> None:
@@ -6363,13 +6418,40 @@ def _dp_replicas(model, card: str) -> dict:
     return errs
 
 
+def _check_form_launches(form: str, ranks, dp: int, pp: int, tp: int) -> None:
+    """Every rank of a form launched the kernels its path runs: K1, K2,
+    B4, B5 (their partial modes under tp > 1, and never the whole-block
+    kernels there), B6 and B7 in every pipeline stage; K3 only in the
+    prompt-tune forms; K3 and the flash chain in the pallas form."""
+    name = form.partition(":")[0]
+    prompt = name == "prompt"
+    for r, res in enumerate(ranks):
+        c = res[form]["launches"]
+        if name == "pallas":
+            for k in PALLAS_KERNELS:
+                require(c.get(k, 0) > 0, f"parallel dp={dp} pp={pp} tp={tp} {form}: rank {r} launched no {k}: {c}")
+            continue
+        want = [k for k in PARALLEL_KERNELS if k != "fused_attention_aux" or prompt]
+        if prompt:  # the frozen image tower runs K2 / K1 forward only
+            want = [k for k in want if k not in ("fused_mha", "fused_mha_bwd")]
+        for k in want:
+            n = c.get(PARTIAL_OF[k], 0) if tp > 1 and k in PARTIAL_OF else c.get(k, 0)
+            require(n > 0, f"parallel dp={dp} pp={pp} tp={tp} {form}: rank {r} launched no {k}"
+                           f"{' (partial mode)' if tp > 1 and k in PARTIAL_OF else ''}: {c}")
+        if tp > 1:
+            require(all(c.get(k, 0) == 0 for k in PARTIAL_OF), f"parallel tp={tp} {form}: rank {r} "
+                    f"launched a whole-block kernel where its partial mode belongs: {c}")
+
+
 def parallel_phase(model, card: str) -> dict:
     """The "parallel" phase: (a) NCCL world 1 bit for bit, (b)/(c) gloo groups
-    of 2 and 4 ranks sharing the one card (dp = 2 InfoNCE and SigLIP, tp = 2
-    InfoNCE and prompt tuning, 2 x 2) against rank 0's one-process kernel
-    path, with each rank's launches, (d) dp replicas of serve, featurize and
-    predict.  Two ranks on one card over gloo check the code paths and the
-    kernels; their times are not a scaling figure."""
+    of 2, 4 and 8 ranks sharing the one card (PARALLEL_GROUPS: dp = 2
+    InfoNCE, SigLIP and FSDP, tp = 2 InfoNCE, prompt tuning and SP, 2 x 2,
+    pp = 2 InfoNCE and pallas, the 3-axis SP and FSDP legs) against rank 0's
+    one-process kernel path, with each rank's launches, the bytes and calls
+    of each collective a step, and FSDP's resident triple, (d) dp replicas
+    of serve, featurize and predict.  Ranks on one card over gloo check the
+    code paths and the kernels; their times are not a scaling figure."""
     import shutil
     import tempfile
 
@@ -6378,35 +6460,34 @@ def parallel_phase(model, card: str) -> dict:
     groups = {}
     try:
         deadline = time.monotonic() + PARALLEL_TIMEOUT
-        for (dp, tp) in PARALLEL_GROUPS:
-            d = os.path.join(tmp, f"dp{dp}tp{tp}")
+        for (dp, pp, tp) in PARALLEL_GROUPS:
+            d = os.path.join(tmp, f"dp{dp}pp{pp}tp{tp}")
             t0 = time.perf_counter()
-            _join_ranks(_spawn_ranks(dp, tp, d), f"dp={dp} tp={tp}", deadline)
-            ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(dp * tp)]
-            groups[(dp, tp)] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
-            for form in PARALLEL_GROUPS[(dp, tp)]:
+            _join_ranks(_spawn_ranks(dp, pp, tp, d), f"dp={dp} pp={pp} tp={tp}", deadline)
+            ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(dp * pp * tp)]
+            groups[(dp, pp, tp)] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+            for form in PARALLEL_GROUPS[(dp, pp, tp)]:
+                _check_form_launches(form, ranks, dp, pp, tp)
                 r0 = ranks[0][form]
-                for r, res in enumerate(ranks):
-                    c = res[form]["launches"]
-                    prompt = form.startswith("prompt")
-                    want = [k for k in PARALLEL_KERNELS if k != "fused_attention_aux" or prompt]
-                    if prompt:  # the frozen image tower runs K2 / K1 forward only
-                        want = [k for k in want if k not in ("fused_mha", "fused_mha_bwd")]
-                    for k in want:
-                        n = c.get(PARTIAL_OF[k], 0) if tp > 1 and k in PARTIAL_OF else c.get(k, 0)
-                        require(n > 0, f"parallel dp={dp} tp={tp} {form}: rank {r} launched no {k}"
-                                       f"{' (partial mode)' if tp > 1 and k in PARTIAL_OF else ''}: {c}")
-                    if tp > 1:
-                        require(all(c.get(k, 0) == 0 for k in PARTIAL_OF), f"parallel tp={tp} {form}: rank {r} "
-                                f"launched a whole-block kernel where its partial mode belongs: {c}")
                 errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
-                print(f"parallel dp={dp} tp={tp} {form} (gloo, {dp * tp} ranks sharing one card; not a scaling "
-                      f"figure): loss {[round(v, 5) for v in r0['losses']]} vs one process "
-                      f"{[round(v, 5) for v in r0['ref_losses']]}, errors {errs}; ms per step rank 0 "
-                      f"{[round(v, 1) for v in r0['ms']]} (one process {[round(v, 1) for v in r0['ref_ms']]}); "
-                      f"rank 0 launches { {k: v for k, v in r0['launches'].items() if v} }; bytes a step moved by "
-                      f"rank 0's collectives (from their tensors' shapes) {r0['bytes_per_step']}; "
-                      f"{r0['seconds']:.1f} s ({card})", flush=True)
+                triple = ""
+                if form.startswith("fsdp"):
+                    shares = [res[form]["triple_bytes"] / res[form]["replicated_triple_bytes"] for res in ranks]
+                    triple = (f"; resident (param, mu, nu) per rank {[res[form]['triple_bytes'] for res in ranks]} "
+                              f"bytes, {max(shares):.4f} of the replicated triple's "
+                              f"{r0['replicated_triple_bytes']} (placement: memory_allocated grew "
+                              f"{[res[form]['placed_bytes'] for res in ranks]} bytes)")
+                    if (dp, pp, tp) == (2, 1, 1):
+                        require(max(shares) <= FSDP_RESIDENT_MAX, f"parallel dp=2 {form}: a rank holds "
+                                f"{max(shares):.4f} of the replicated triple (limit {FSDP_RESIDENT_MAX})")
+                print(f"parallel dp={dp} pp={pp} tp={tp} {form} (gloo, {dp * pp * tp} ranks sharing one card, "
+                      f"{r0.get('layers', 12)} layers a tower; not a scaling figure): loss "
+                      f"{[round(v, 5) for v in r0['losses']]} vs one process {[round(v, 5) for v in r0['ref_losses']]}, "
+                      f"errors {errs}; ms per step rank 0 {[round(v, 1) for v in r0['ms']]} (one process "
+                      f"{[round(v, 1) for v in r0['ref_ms']]}); launches per rank "
+                      f"{[{k: v for k, v in res[form]['launches'].items() if v} for res in ranks]}; bytes a step "
+                      f"moved by rank 0's collectives (from their tensors' shapes) {r0['bytes_per_step']}, calls "
+                      f"{r0.get('calls_per_step')}{triple}; {r0['seconds']:.1f} s ({card})", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     d = _dp_replicas(model, card)
@@ -6416,7 +6497,8 @@ def parallel_phase(model, card: str) -> dict:
             for form in res.values():
                 for k, v in form["launches"].items():
                     launches[k] = launches.get(k, 0) + v
-    return {"a": a, "groups": {f"dp{dp}tp{tp}": g for (dp, tp), g in groups.items()}, "d": d, "launches": launches}
+    return {"a": a, "groups": {f"dp{dp}pp{pp}tp{tp}": g for (dp, pp, tp), g in groups.items()}, "d": d,
+            "launches": launches}
 
 def main() -> int:
     import torch

@@ -122,6 +122,8 @@ def make_distill_step(student_cfg: CLIPConfig, teacher_cfg: CLIPConfig, optimize
     m = _Mesh(mesh, student_cfg)
     if m.tp_group is not None:
         raise NotPortedError("distillation under tp > 1")
+    if m.transformer_fn is not None:
+        raise ValueError("--distill-teacher does not compose with --pp/--fsdp yet (dp/tp only)")
 
     def step(student: Params, teacher: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(student, images, token_ids)

@@ -19,6 +19,12 @@ as in the JAX package.  ``vision_tower="resnet"`` (the RN50 family) routes
 the image side to ``models/resnet.py``; int8, token pruning, MaPLe, patch
 dropout and VPT on it raise, as in the JAX package.
 
+``encode_image`` / ``encode_text`` take the JAX package's parallel
+arguments: ``transformer_fn`` (the GPipe runner of
+``parallel/pipeline.py``, which refuses MaPLe prompts, deep VPT, token
+pruning and the RN tower by JAX's messages) and ``seq_parallel`` (the
+blocks sequence parallel over the ``model`` group, JAX's ``act_sharding``).
+
 ``moe_experts > 0`` gives both ViT towers mixture-of-experts blocks
 (``models/moe.py``, picked by :func:`_pick_transformer_fn`); the encoders
 append each tower's summed load-balance term to ``moe_loss_out``.  As in the
@@ -51,13 +57,18 @@ def check_supported(cfg: CLIPConfig) -> None:
                 "vpt_tokens applies to ViT towers only (the RN-family tower has no token sequence to prompt)")
 
 
-def _pick_transformer_fn(cfg: CLIPConfig):
-    """The block-stack runner: the MoE blocks (``cfg.moe_experts``) or the
-    dense ones."""
+def _pick_transformer_fn(cfg: CLIPConfig, transformer_fn=None, seq_parallel: bool = False):
+    """The block-stack runner: an explicit override (pipeline parallelism),
+    the MoE blocks (``cfg.moe_experts``) or the dense ones; ``seq_parallel``
+    is passed to the dense runners."""
     if cfg.moe_experts > 0:
+        if transformer_fn is not None:
+            raise NotImplementedError("pipeline parallelism over MoE towers is not supported (expert + pipeline "
+                                      "sharding do not compose yet)")
         _refuse_under_tp("MoE towers (moe_experts)")
         return functools.partial(moe.moe_transformer_forward, capacity_factor=cfg.moe_capacity_factor)
-    return layers.transformer_forward
+    run = transformer_fn or layers.transformer_forward
+    return functools.partial(run, seq_parallel=True) if seq_parallel else run
 
 
 def _refuse_under_tp(what: str) -> None:
@@ -216,7 +227,8 @@ def _pad_to_8(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
 
 def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_prompts=None, *,
                  generator: Optional[torch.Generator] = None,
-                 patch_idx: Optional[torch.Tensor] = None, moe_loss_out: Optional[list] = None) -> torch.Tensor:
+                 patch_idx: Optional[torch.Tensor] = None, moe_loss_out: Optional[list] = None,
+                 transformer_fn=None, seq_parallel: bool = False) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` (preprocessed f32, or raw uint8) -> ``[B, embed_dim]``.
 
     Matches open_clip ``VisionTransformer.forward`` + projection; the caller
@@ -241,10 +253,18 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
 
     MoE towers (``cfg.moe_experts``): the tower's summed load-balance term
     is appended to the list ``moe_loss_out`` when one is given.
+
+    ``transformer_fn`` overrides the block-stack runner (pipeline
+    parallelism: ``parallel/pipeline.py::make_pipeline_transformer_fn``);
+    ``seq_parallel`` runs the blocks sequence parallel over the ``model``
+    group (``layers.transformer_forward``).
     """
     dropout = cfg.patch_dropout > 0 and (generator is not None or patch_idx is not None)
     if cfg.vision_tower == "resnet":
         _refuse_under_tp("the RN-family image tower")
+        if transformer_fn is not None:
+            raise NotImplementedError("pipeline parallelism applies to transformer towers only (the RN-family "
+                                      "tower has no stacked block axis to stage)")
         # As the JAX package: a quantization, pruning or prompt flag on the
         # convolutional tower fails loudly rather than being a silent no-op.
         if dropout:
@@ -299,7 +319,7 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
                 "maple prompts do not compose with token_keep_ratio (pruning would silently drop the coupled "
                 "prompts)"
             )
-        if cfg.moe_experts > 0:
+        if transformer_fn is not None or cfg.moe_experts > 0:
             raise NotImplementedError(
                 "maple prompts require the sequential block scan (no pipeline/MoE transformer_fn override)")
         first, layer_prompts, prompt_mask = maple_prompts
@@ -316,21 +336,21 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
         first = vpt[0] if cfg.vpt_deep else vpt
         x = torch.cat([x[:, :1], first.expand(x.shape[0], *first.shape), x[:, 1:]], dim=1)
         if cfg.vpt_deep:
-            if cfg.moe_experts > 0:
+            if transformer_fn is not None or cfg.moe_experts > 0:
                 raise NotImplementedError(
                     "vpt_deep requires the sequential block scan (no pipeline/MoE transformer_fn override)")
             deep = dict(layer_prompts=vpt[1:])
     x = layers.layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, kv_valid = _pad_to_8(x)
     if cfg.token_keep_ratio < 1.0 and cfg.token_prune_layer < cfg.vision_layers:
-        if cfg.moe_experts > 0:
+        if transformer_fn is not None or cfg.moe_experts > 0:
             raise NotImplementedError(
                 "token pruning is not supported with a transformer_fn override or MoE towers (it targets the "
                 "dense eval path)")
         _refuse_under_tp("token pruning (token_keep_ratio)")
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
-        x, tower_aux = _pick_transformer_fn(cfg)(
+        x, tower_aux = _pick_transformer_fn(cfg, transformer_fn, seq_parallel)(
             x, p["blocks"], cfg.vision_heads, kv_valid_len=kv_valid, remat=cfg.remat, **_tower_kw(cfg), **deep,
         )
         if cfg.moe_experts > 0 and moe_loss_out is not None:
@@ -396,14 +416,15 @@ def embed_tokens(params: Params, cfg: CLIPConfig, token_ids) -> torch.Tensor:
     return table[torch.as_tensor(token_ids, device=table.device).long()]
 
 
-def encode_text(params: Params, cfg: CLIPConfig, token_ids, *, moe_loss_out: Optional[list] = None) -> torch.Tensor:
+def encode_text(params: Params, cfg: CLIPConfig, token_ids, *, moe_loss_out: Optional[list] = None,
+                transformer_fn=None, seq_parallel: bool = False) -> torch.Tensor:
     """Proper CLIP text encoding: ids ``[B, T]`` -> ``[B, embed_dim]``.
 
     Positional embedding, causal tower, ``ln_final``, and pooling at the EOT
     token (the largest id).  The tower runs at T padded to a multiple of 8
     (77 -> 80) with the pad keys masked; the pad query rows are sliced off
-    before pooling.  The caller L2-normalizes.  ``moe_loss_out``: as
-    :func:`encode_image`'s.
+    before pooling.  The caller L2-normalizes.  ``moe_loss_out``,
+    ``transformer_fn`` and ``seq_parallel``: as :func:`encode_image`'s.
     """
     check_supported(cfg)
     p = params["text"]
@@ -413,7 +434,7 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids, *, moe_loss_out: Opt
     x = x + p["positional_embedding"].to(dtype)[None]
     T = x.shape[1]
     x, kv_valid = _pad_to_8(x)
-    x, tower_aux = _pick_transformer_fn(cfg)(
+    x, tower_aux = _pick_transformer_fn(cfg, transformer_fn, seq_parallel)(
         x, p["blocks"], cfg.text_heads, act=cfg.act, ln_eps=cfg.ln_eps, causal=True,
         kv_valid_len=kv_valid, impl=cfg.attn_impl, remat=cfg.remat,
     )

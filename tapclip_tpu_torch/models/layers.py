@@ -46,6 +46,28 @@ add the output bias once.  The attribution aux is the head mean over the
 whole tower: each rank's local head sum, all-reduced, divided by
 ``n_heads``.  int8 blocks refuse under ``tp > 1`` by name.
 
+**Sequence parallelism** (``transformer_forward(seq_parallel=True)`` under a
+``model`` group, Megatron-SP; JAX's ``act_sharding = P("data", "model",
+None)``): between blocks the residual stream is a rank's ``[B, T/tp, W]``
+rows.  The tower enters that layout with ``collectives.split_seq`` (T
+padded to a multiple of tp first, the pad keys masked by ``kv_valid_len``,
+so a pad row never reaches a key set) and leaves it with ``join_seq``
+before the caller's ``ln_final``, pooling and projection.  K2 and K1 take
+the rank's rows, all-gather them over T, run their partial modes on the
+whole rows and reduce-scatter the f32 partials over T where tp alone
+all-reduces them (B4's and B5's summed dy likewise).  The other routes
+run the LayerNorm on the rank's rows, all-gather its output
+(``gather_seq``) into the column-parallel product and reduce-scatter the
+row-parallel product (``scatter_seq_sum``); the LayerNorm's scale and bias
+and the output bias then pass through ``copy_to_model``, whose backward
+sums their gradients, each of the rank's rows only, over the group.
+
+**FSDP** (``collectives.fully_sharded`` around a step's forward): each
+block's leaves cut over ``data`` are all-gathered at the block's use
+(``collectives.FullySharded.gathered``), inside the remat region, so a
+rematerialised block gathers them again; their gradients reduce-scatter
+back.
+
 Every other kernel differentiates: ``fused_attn_block``, ``fused_mha``,
 ``fused_mlp_block`` and ``fused_attention`` are ``torch.autograd.Function`` s
 whose backward is the hand-written B4 / B7 / B5 / flash chain on the card
@@ -106,11 +128,13 @@ def attn_forward(
     attn_to_idx: IntOrTensor = None,
     impl: str = "auto",
     tp_group=None,
+    seq: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Fused-QKV multi-head self attention over ``x [B, T, W]``.  With
     ``tp_group`` the weights are a rank's ``n_heads`` heads (the per-head
     cut): the out-projection's f32 partials are all-reduced before
-    ``b_out``, and the aux is the tower's head mean (local head sums
+    ``b_out`` (``seq``: reduce-scattered over T, the result this rank's
+    rows), and the aux is the tower's head mean (local head sums
     all-reduced, divided by every rank's heads)."""
     B, T, _ = x.shape
     W = p["w_qkv"].shape[-1] // 3  # the heads' width (a rank's, under tp_group)
@@ -127,7 +151,7 @@ def attn_forward(
             resolved = "xla"
     if resolved == "fused":
         out = fused_mha(qkv, n_heads, valid_len=kv_valid_len, causal=causal)
-        return _out_proj(out, p, tp_group), None
+        return _out_proj(out, p, tp_group, seq), None
 
     def heads(t):  # [B, T, W] -> [B, H, T, Dh]
         return t.reshape(B, T, n_heads, Dh).transpose(1, 2).contiguous()
@@ -141,21 +165,36 @@ def attn_forward(
     if aux is not None and tp_group is not None:
         n = collectives.size(tp_group)
         aux = collectives.all_reduce_(aux * n_heads, tp_group) / (n_heads * n)
-    return _out_proj(out, p, tp_group), aux
+    return _out_proj(out, p, tp_group, seq), aux
 
 
-def _out_proj(out, p, tp_group):
+def _out_proj(out, p, tp_group, seq=False):
     """``out . w_out + b_out``; under ``tp_group`` the f32 partials summed
     over the group first."""
-    return _row_parallel(out, p["w_out"], p["b_out"], tp_group)
+    return _row_parallel(out, p["w_out"], p["b_out"], tp_group, seq)
 
 
-def _row_parallel(h, w, b, tp_group):
+def _row_parallel(h, w, b, tp_group, seq=False):
     """``dense(h, w, b)`` with the f32 product summed over ``tp_group``
     before ``b`` (Megatron's row-parallel product; ``dense`` itself, bit for
-    bit, with no group)."""
+    bit, with no group).  ``seq``: reduce-scattered over T instead, ``b``
+    added to this rank's rows (its gradient summed over the group)."""
     acc = torch.matmul(h.float(), w.to(h.dtype).float())
+    if seq:
+        return (collectives.scatter_seq_sum(acc, tp_group)
+                + collectives.copy_to_model(b, tp_group).float()).to(h.dtype)
     return (collectives.reduce_from_model(acc, tp_group) + b.float()).to(h.dtype)
+
+
+def _ln_in(x, ln, eps, tp_group, seq):
+    """The LayerNorm output a column-parallel product reads: under
+    ``tp_group`` through ``copy_to_model``; ``seq``: the LayerNorm of this
+    rank's rows (scale and bias through ``copy_to_model``) all-gathered over
+    T (``gather_seq``)."""
+    if seq:
+        ln = {k: collectives.copy_to_model(v, tp_group) for k, v in ln.items()}
+        return collectives.gather_seq(layer_norm(x, ln, eps), tp_group)
+    return collectives.copy_to_model(layer_norm(x, ln, eps), tp_group)
 
 
 def _check_tp(n_heads: int, tp_group, quantize: bool) -> int:
@@ -184,13 +223,21 @@ def block_forward(
     quantize: bool = False,
     quantize_deterministic: bool = False,
     tp_group=None,
+    seq: bool = False,
+    fsdp: Optional[collectives.FullySharded] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Pre-LN residual attention block (open_clip ResidualAttentionBlock);
-    ``tp_group``: tensor parallel over the group (the module note)."""
+    ``tp_group``: tensor parallel over the group; ``seq``: ``x`` is this
+    rank's rows of the sequence (sequence parallel over ``tp_group``);
+    ``fsdp``: the block's leaves cut over ``data`` are gathered first (the
+    module note)."""
     plain_attn_block = attn_to_idx is None and not causal and (
         kv_valid_len is None or isinstance(kv_valid_len, int)
     )
     n_heads = _check_tp(n_heads, tp_group, quantize)
+    seq = seq and tp_group is not None
+    if fsdp is not None:
+        p = fsdp.gathered(p)
     if quantize and plain_attn_block:
         x = int8_attn_block(
             x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps,
@@ -199,23 +246,23 @@ def block_forward(
         aux = None
     elif impl in ("auto", "fused") and plain_attn_block:
         x = fused_attn_block(
-            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps, tp_group=tp_group
+            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps, tp_group=tp_group, seq=seq
         )
         aux = None
     else:
         h, aux = attn_forward(
-            collectives.copy_to_model(layer_norm(x, p["ln_1"], ln_eps), tp_group), p["attn"], n_heads,
-            causal=causal, kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl, tp_group=tp_group,
+            _ln_in(x, p["ln_1"], ln_eps, tp_group, seq), p["attn"], n_heads, causal=causal,
+            kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl, tp_group=tp_group, seq=seq,
         )
         x = x + h
     if quantize and act == "gelu":
         x = int8_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, deterministic=quantize_deterministic)
     elif act == "gelu" and impl in ("auto", "fused", "fused_split"):
-        x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, tp_group=tp_group)
+        x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, tp_group=tp_group, seq=seq)
     else:
         m = p["mlp"]
-        y = collectives.copy_to_model(layer_norm(x, p["ln_2"], ln_eps), tp_group)
-        x = x + _row_parallel(ACTS[act](dense(y, m["w_fc"], m["b_fc"])), m["w_proj"], m["b_proj"], tp_group)
+        y = _ln_in(x, p["ln_2"], ln_eps, tp_group, seq)
+        x = x + _row_parallel(ACTS[act](dense(y, m["w_fc"], m["b_fc"])), m["w_proj"], m["b_proj"], tp_group, seq)
     return x, aux
 
 
@@ -237,11 +284,18 @@ def transformer_forward(
     prompt_mask=None,
     remat: str = "none",
     tp_group=None,
+    seq_parallel: bool = False,
+    runner=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the blocks in order; the attribution aux comes from the last one.
 
     ``tp_group`` (default: ``collectives.current_model_group()``, the group
     a mesh step sets): every block runs tensor parallel over it.
+    ``seq_parallel`` (with a group): the blocks run sequence parallel over
+    it (the module note); no-op without one.  Under
+    ``collectives.fully_sharded`` each block gathers its FSDP leaves.
+    ``runner`` (``parallel/pipeline.py``'s GPipe schedule) takes the place
+    of the loop over the blocks, :func:`run_blocks`'s signature.
 
     The reference hooks the last text block's attention, so only the last
     block gets ``attn_to_idx`` (the JAX package runs it outside its scan).
@@ -265,8 +319,33 @@ def transformer_forward(
         raise ValueError(f"unknown remat policy {remat!r}")
     if tp_group is None:
         tp_group = collectives.current_model_group()
+    seq = seq_parallel and tp_group is not None
+    T = x.shape[1]
+    if seq:
+        if layer_prompts is not None:
+            raise NotPortedError("deep prompts (VPT-deep, MaPLe) under sequence parallelism")
+        n = collectives.size(tp_group)
+        Tp = -(-T // n) * n
+        if Tp != T:  # pad rows: masked as keys, sliced off after the tower
+            x = torch.nn.functional.pad(x, (0, 0, 0, Tp - T))
+            kv_valid_len = T if kv_valid_len is None else kv_valid_len
+        x = collectives.split_seq(x, tp_group)
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
-              quantize=quantize, quantize_deterministic=quantize_deterministic, tp_group=tp_group)
+              quantize=quantize, quantize_deterministic=quantize_deterministic, tp_group=tp_group, seq=seq,
+              fsdp=collectives.current_fsdp())
+    x, aux = (runner or run_blocks)(x, blocks, n_heads, remat, kw, attn_to_idx=attn_to_idx,
+                                    layer_prompts=layer_prompts, prompt_offset=prompt_offset, prompt_mask=prompt_mask)
+    if seq:
+        x = collectives.join_seq(x, tp_group)[:, :T]
+        aux = None if aux is None else aux[:, :T]
+    return x, aux
+
+
+def run_blocks(x, blocks: List[Params], n_heads: int, remat: str, kw: Dict[str, Any], *, attn_to_idx=None,
+               layer_prompts=None, prompt_offset: int = 1, prompt_mask=None):
+    """The loop over the blocks (:func:`block_forward` with ``kw``), the
+    aux from the last one, each block checkpointed under ``remat`` (the
+    arguments of :func:`transformer_forward`)."""
     active = [] if layer_prompts is None else (
         [True] * layer_prompts.shape[0] if prompt_mask is None else [bool(m) for m in prompt_mask])
     checkpointed = remat != "none" and torch.is_grad_enabled()

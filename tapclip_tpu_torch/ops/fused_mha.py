@@ -42,6 +42,9 @@ partial mode: its launches up to dy, dy all-reduced over the group, then
 dbeta come out complete; the local weight gradients are exact and db_out is
 complete on every rank.  Past B4's routing limit the backward differentiates
 the partial split composition and all-reduces its dx, dgamma and dbeta.
+Under sequence parallelism (``seq=True``) x is the rank's rows of the
+sequence, gathered over T around K2 and B4, the partials and dy
+reduce-scattered over T, as ``fused_mlp``'s module note says of K1 and B5.
 
 **The attention core.** Counterpart of ``tapclip_tpu/ops/fused_mha.py::fused_mha``:
 attention over the packed ``qkv [B, T, 3W]`` (bias added) into ``[B, T, W]``,
@@ -70,10 +73,12 @@ import torch
 from tapclip_tpu_torch.ops import _build, plain
 from tapclip_tpu_torch.ops.attention import attention_reference
 from tapclip_tpu_torch.ops.fused_mlp import (
-    _grads_like, _ln_bwd_cuda, _ln_parts, _ln_rows, _rnd, _summed_partials, ln_bwd_reference,
+    _grads_like, _ln_bwd_cuda, _ln_parts, _ln_rows, _partial_ln_bwd_cuda, _rnd, _summed_partials, ln_bwd_reference,
+    partial_sum, seq_ln_bwd,
 )
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
-from tapclip_tpu_torch.parallel.collectives import all_reduce_
+from tapclip_tpu_torch.parallel import collectives
+from tapclip_tpu_torch.parallel.collectives import all_reduce_, all_reduce_many_, gather_dim, reduce_scatter_dim
 
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e: scores are exp2'd
 _LN2_BF16 = 0.69140625  # ln 2 rounded to bf16 (attn_variants.cuh's kLn2Bf16)
@@ -107,21 +112,26 @@ def attn_block_partial_reference(x, gamma, beta, w_qkv, b_qkv, w_out, n_heads, v
     return torch.matmul(out.transpose(1, 2).reshape(B, T, Wl).float(), w_out.to(x.dtype).float())
 
 
-def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps, tp_group=None):
+def attn_block_bwd_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps, tp_group=None,
+                             seq=None):
     """Plain backward of :func:`attn_block_reference`, written out as
     ``_attn_block_bwd_kernel`` computes it (same roundings in bfloat16).
     With ``tp_group`` the weights are a rank's heads and dy is summed over
-    the group before the LayerNorm backward (B4's partial mode).
+    the group before the LayerNorm backward (B4's partial mode); ``seq``:
+    as ``fused_mlp.fused_mlp_bwd_reference``'s.
 
     ``x, g [B, T, W]`` in the compute dtype.  Returns ``(dx, dgamma, dbeta,
     dw_qkv, db_qkv, dw_out, db_out)``: dx in x.dtype, the rest f32.
     """
     dy, n, rstd, dw_qkv, db_qkv, dw_out = attn_block_bwd_partial_reference(
         x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps)
+    db_out = col_sum_reference(g.reshape(dy.shape).float())
+    if seq is not None:
+        return (*seq_ln_bwd(seq, dy, n, rstd, gamma, tp_group), dw_qkv, db_qkv, dw_out, db_out)
     if tp_group is not None:
         all_reduce_(dy, tp_group)
     dx, dgamma, dbeta = ln_bwd_reference(x, g, dy, n, rstd, gamma)
-    return dx, dgamma, dbeta, dw_qkv, db_qkv, dw_out, col_sum_reference(g.reshape(dy.shape).float())
+    return dx, dgamma, dbeta, dw_qkv, db_qkv, dw_out, db_out
 
 
 def attn_block_bwd_partial_reference(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps):
@@ -225,16 +235,17 @@ def _split_block_grads(saved, g, need, n_heads, valid, eps):
 
 class _FusedAttnBlockPartial(torch.autograd.Function):
     """The tensor-parallel half-block: K2's and B4's partial modes around the
-    all-reduces over ``group`` (plain versions on a CPU tensor)."""
+    all-reduces over ``group``, or with ``seq`` the all-gathers and
+    reduce-scatters over T (plain versions on a CPU tensor)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, group):
+    def forward(ctx, x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, group, seq):
         ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv, w_out, b_out)
-        ctx.cfg, ctx.group = (n_heads, valid, eps), group
+        ctx.cfg, ctx.group, ctx.seq = (n_heads, valid, eps), group, seq
         acc = _build.run(torch.ops.tapclip.attn_block.default, attn_block_reference, _fused_attn_block_cuda,
-                         x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, valid, eps, True)
-        all_reduce_(acc, group)
-        return (x.float() + (acc + b_out.float())).to(x.dtype)
+                         gather_dim(x, group, 1) if seq else x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads,
+                         valid, eps, True)
+        return (x.float() + (partial_sum(acc, x, group, seq) + b_out.float())).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -242,22 +253,26 @@ class _FusedAttnBlockPartial(torch.autograd.Function):
         x, gamma, beta, w_qkv, b_qkv, w_out, _ = saved
         need = ctx.needs_input_grad
         g = g.to(x.dtype).contiguous()
+        seq = (x, g) if ctx.seq else None
+        if seq is not None:  # the whole rows, gathered again (the forward saved the rank's)
+            x, g = gather_dim(x, ctx.group, 1), gather_dim(g, ctx.group, 1)
         args = (x, g, gamma, beta, w_qkv, b_qkv, w_out, *ctx.cfg)
         if x.device.type == "cpu":
-            grads = attn_block_bwd_reference(*args, tp_group=ctx.group)
+            grads = attn_block_bwd_reference(*args, tp_group=ctx.group, seq=seq)
         elif not _tile_fits(x.shape[1], w_out.shape[0] // ctx.cfg[0]):
-            grads = _split_block_partial_grads(saved, g, need, *ctx.cfg, ctx.group)
+            grads = _split_block_partial_grads((x, *saved[1:]), g, need, *ctx.cfg, ctx.group, seq)
         else:
-            grads = _attn_block_bwd_partial_cuda(*args, group=ctx.group, weight_grads=tuple(need[1:7]))
-        return (*_grads_like(grads, saved, need), None, None, None, None)
+            grads = _attn_block_bwd_partial_cuda(*args, group=ctx.group, weight_grads=tuple(need[1:7]), seq=seq)
+        return (*_grads_like(grads, saved, need), None, None, None, None, None)
 
 
-def _split_block_partial_grads(saved, g, need, n_heads, valid, eps, group):
+def _split_block_partial_grads(saved, g, need, n_heads, valid, eps, group, seq=None):
     """The partial half-block's gradients past B4's tile: autograd through the
     rank's split composition (LayerNorm and the projections in torch around
     :func:`fused_mha`, differentiated on B7) with g as the cotangent of its
     f32 partial, then dx's LayerNorm part, dgamma and dbeta all-reduced over
-    ``group`` and g added to dx once."""
+    ``group`` and g added to dx once (``seq``: dx's part reduce-scattered
+    over T, the rank's g added)."""
     x, gamma, beta, w_qkv, b_qkv, w_out, _ = saved
     dt = x.dtype
     with torch.enable_grad():
@@ -268,10 +283,13 @@ def _split_block_partial_grads(saved, g, need, n_heads, valid, eps, group):
         part = fused_mha(qkv, n_heads, valid_len=valid).float() @ _rnd(wo, dt)
         grads = list(torch.autograd.grad(part, leaves, g.float()))
     dx_ln, dgamma, dbeta = grads[0].float(), grads[1], grads[2]
-    for t in (dx_ln, dgamma, dbeta):
-        all_reduce_(t, group)
-    dx = (g.float() + dx_ln).to(dt)
+    all_reduce_many_([dgamma, dbeta], group)
     g2 = g.reshape(-1, g.shape[-1]).float()
+    if seq is not None:
+        dx_ln, g = reduce_scatter_dim(dx_ln, group, 1), seq[1]
+    else:
+        all_reduce_(dx_ln, group)
+    dx = (g.float() + dx_ln).to(dt)
     return [dx, dgamma, dbeta, grads[3], grads[4], grads[5], col_sum_reference(g2) if need[6] else None]
 
 
@@ -284,16 +302,20 @@ def fused_attn_block(
     valid_len: Optional[int] = None,
     eps: float = 1e-5,
     tp_group=None,
+    seq: bool = False,
 ) -> torch.Tensor:
     """The attention half-block: K2/B4 on CUDA, plain on CPU.  ``tp_group``:
     the rank holds its ``n_heads`` heads' columns of ``attn_params`` (the
     per-head cut) and the partial products are all-reduced over the group
-    (K2's and B4's partial modes)."""
-    valid = valid_len if valid_len is not None else x.shape[1]
+    (K2's and B4's partial modes); ``seq``: x is the rank's rows of the
+    sequence (``valid_len`` counts the whole sequence's), the partials
+    reduce-scattered over T."""
+    T = x.shape[1] * (collectives.size(tp_group) if seq else 1)
+    valid = valid_len if valid_len is not None else T
     args = (x, ln_params["scale"], ln_params["bias"], attn_params["w_qkv"], attn_params["b_qkv"],
             attn_params["w_out"], attn_params["b_out"], n_heads, valid, eps)
     if tp_group is not None:
-        return _FusedAttnBlockPartial.apply(*args, tp_group)
+        return _FusedAttnBlockPartial.apply(*args, tp_group, seq)
     return _FusedAttnBlock.apply(*args)
 
 
@@ -373,11 +395,12 @@ def _fused_attn_block_cuda(x, gamma, beta, w_qkv, b_qkv, w_out, b_out, n_heads, 
 
 
 def _attn_block_bwd_partial_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads, valid, eps, *, group,
-                                 weight_grads=True, split=None):
+                                 weight_grads=True, split=None, seq=None):
     """B4's partial mode on the card: launches 1-6 over the rank's heads,
     dy's depth partials summed and all-reduced over ``group``, then the
     LayerNorm backward (``tapclip_ln_bwd``) and the weight gradients
-    ``weight_grads`` asks for, as :func:`_attn_block_bwd_cuda` returns them."""
+    ``weight_grads`` asks for, as :func:`_attn_block_bwd_cuda` returns them.
+    ``seq``: as ``fused_mlp._fused_mlp_bwd_partial_cuda``'s."""
     B, T, W = x.shape
     R, Wl = B * T, w_out.shape[0]
     Dh = _check_heads(T, Wl, n_heads, valid)
@@ -403,8 +426,8 @@ def _attn_block_bwd_partial_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads
     )
     _build.check(err, "tapclip_attn_block_bwd_partial")
     dy = _summed_partials(ws[R * 4 * Wl:R * (4 * Wl + S * W)], S)
-    all_reduce_(dy, group)
-    dx, part = _ln_bwd_cuda(x, g, dy, ws[R * (4 * Wl + S * W):], t["gamma"], R, W, 1, weight_grads, code, stream)
+    dx, ln_sums = _partial_ln_bwd_cuda(x, g, dy, ws[R * (4 * Wl + S * W):], t["gamma"], group, weight_grads,
+                                       want[0] or want[1], code, stream, seq)
     fused_attn_block.partial_bwd_launches += 1
     if not weight_grads:
         return dx, None, None, None, None, None, None
@@ -412,7 +435,6 @@ def _attn_block_bwd_partial_cuda(x, g, gamma, beta, w_qkv, b_qkv, w_out, n_heads
     dqkv = wsd[R * W:R * (W + 3 * Wl)].view(R, 3 * Wl)
     attn = wsd[R * (W + 3 * Wl):].view(R, Wl)
     g2 = g.reshape(R, W)
-    ln_sums = col_sum(part) if want[0] or want[1] else None
     return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
             gemm_f32(y, dqkv, trans_a=True) if want[2] else None, col_sum(dqkv) if want[3] else None,
             gemm_f32(attn, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)

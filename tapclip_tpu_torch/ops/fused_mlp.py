@@ -36,6 +36,16 @@ the whole dy, so dx, dgamma and dbeta come out complete on every rank and
 the residual's gradient is added once; the local weight gradients are exact
 and db_proj is complete (it is not summed over the group).  Partial launches
 count on their own (``.partial_launches``, ``.partial_bwd_launches``).
+
+**Sequence parallelism** (``seq=True`` with ``tp_group``, Megatron-SP): x is
+the rank's ``[B, T/tp, W]`` rows.  The forward all-gathers them over T,
+runs K1's partial mode on the whole rows and reduce-scatters the f32
+partials over T where tp alone all-reduces them, then adds the rank's
+residual rows and ``b_proj`` with one rounding.  The backward all-gathers
+x and g over T, runs B5's partial mode on the whole rows, reduce-scatters
+its summed dy over T and runs the LayerNorm backward on the rank's rows
+(with their mean and rstd); dgamma and dbeta, each of the rank's rows, are
+all-reduced over the group, and db_proj comes from the gathered g.
 """
 
 from __future__ import annotations
@@ -46,7 +56,7 @@ import torch
 
 from tapclip_tpu_torch.ops import _build, plain
 from tapclip_tpu_torch.ops.gemm import col_sum, col_sum_reference, gemm_f32, gemm_reference
-from tapclip_tpu_torch.parallel.collectives import all_reduce_
+from tapclip_tpu_torch.parallel.collectives import all_reduce_, all_reduce_many_, gather_dim, local_part, reduce_scatter_dim
 
 
 def fused_mlp_reference(x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps: float = 1e-5, partial: bool = False):
@@ -121,20 +131,45 @@ def ln_bwd_reference(x, g, dy, n, rstd, gamma):
     return dx, dgn.sum(0), dbn.sum(0)
 
 
-def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5, tp_group=None):
+def fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps: float = 1e-5, tp_group=None, seq=None):
     """Plain backward of :func:`fused_mlp_reference`, written out as
     ``_mlp_bwd_kernel`` computes it (same roundings in bfloat16).  With
     ``tp_group`` the weights are a rank's hidden columns and dy is summed
-    over the group before the LayerNorm backward (B5's partial mode).
+    over the group before the LayerNorm backward (B5's partial mode);
+    ``seq`` = the rank's rows ``(x, g)`` of the gathered ``x, g``: dy is
+    reduce-scattered over T and the LayerNorm backward runs on those rows
+    (:func:`seq_ln_bwd`).
 
     ``x, g [..., W]`` in the compute dtype.  Returns ``(dx, dgamma, dbeta,
     dw_fc, db_fc, dw_proj, db_proj)``: dx in x.dtype, the rest f32.
     """
     dy, n, rstd, dw_fc, db_fc, dw_proj = fused_mlp_bwd_partial_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, eps)
+    db_proj = col_sum_reference(g.reshape(dy.shape).float())
+    if seq is not None:
+        return (*seq_ln_bwd(seq, dy, n, rstd, gamma, tp_group), dw_fc, db_fc, dw_proj, db_proj)
     if tp_group is not None:
         all_reduce_(dy, tp_group)
     dx, dgamma, dbeta = ln_bwd_reference(x, g, dy, n, rstd, gamma)
-    return dx, dgamma, dbeta, dw_fc, db_fc, dw_proj, col_sum_reference(g.reshape(dy.shape).float())
+    return dx, dgamma, dbeta, dw_fc, db_fc, dw_proj, db_proj
+
+
+def seq_rows(t, batch: int, group) -> torch.Tensor:
+    """This rank's rows of ``t [B*T, ...]`` (the ``[B, T/tp]`` slice of each
+    batch row, flattened)."""
+    return local_part(t.reshape(batch, t.shape[0] // batch, -1), group, 1).reshape(-1, *t.shape[1:])
+
+
+def seq_ln_bwd(seq, dy, n, rstd, gamma, group):
+    """The LayerNorm backward under sequence parallelism (plain): ``dy [R,
+    W]`` of the whole rows summed over ``group`` and this rank's rows kept
+    (reduce-scatter over T), then the backward on the rank's rows ``seq =
+    (x, g)``; dgamma and dbeta all-reduced over the group."""
+    x, g = seq
+    B, W = x.shape[0], dy.shape[-1]
+    dy = reduce_scatter_dim(dy.reshape(B, -1, W), group, 1).reshape(-1, W)
+    dx, dgamma, dbeta = ln_bwd_reference(x, g, dy, seq_rows(n, B, group), seq_rows(rstd, B, group), gamma)
+    all_reduce_many_([dgamma, dbeta], group)
+    return dx, dgamma, dbeta
 
 
 def _grads_like(grads, inputs, needs_input_grad):
@@ -170,18 +205,24 @@ class _FusedMLP(torch.autograd.Function):
         return (*_grads_like(grads, saved, need), None)
 
 
+def partial_sum(acc, x, group, seq: bool):
+    """A partial mode's f32 ``[B, T, W]`` summed over ``group``: all-reduced,
+    or (``seq``) reduce-scattered over T to this rank's rows, x's."""
+    return reduce_scatter_dim(acc, group, 1) if seq else all_reduce_(acc, group)
+
+
 class _FusedMLPPartial(torch.autograd.Function):
     """The tensor-parallel half-block: K1's and B5's partial modes around the
-    all-reduces over ``group`` (plain versions on a CPU tensor)."""
+    all-reduces over ``group``, or with ``seq`` the all-gathers and
+    reduce-scatters over T (plain versions on a CPU tensor)."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, group):
+    def forward(ctx, x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, group, seq):
         ctx.save_for_backward(x, gamma, beta, w_fc, b_fc, w_proj, b_proj)
-        ctx.eps, ctx.group = eps, group
+        ctx.eps, ctx.group, ctx.seq = eps, group, seq
         acc = _build.run(torch.ops.tapclip.fused_mlp.default, fused_mlp_reference, _fused_mlp_cuda,
-                         x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, True)
-        all_reduce_(acc, group)
-        return (x.float() + (acc + b_proj.float())).to(x.dtype)
+                         gather_dim(x, group, 1) if seq else x, gamma, beta, w_fc, b_fc, w_proj, b_proj, eps, True)
+        return (x.float() + (partial_sum(acc, x, group, seq) + b_proj.float())).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -189,23 +230,29 @@ class _FusedMLPPartial(torch.autograd.Function):
         x, gamma, beta, w_fc, b_fc, w_proj, _ = saved
         need = ctx.needs_input_grad
         g = g.to(x.dtype).contiguous()
+        seq = (x, g) if ctx.seq else None
+        if seq is not None:  # the whole rows, gathered again (the forward saved the rank's)
+            x, g = gather_dim(x, ctx.group, 1), gather_dim(g, ctx.group, 1)
         if x.device.type == "cpu":
-            grads = fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, ctx.eps, tp_group=ctx.group)
+            grads = fused_mlp_bwd_reference(x, g, gamma, beta, w_fc, b_fc, w_proj, ctx.eps, tp_group=ctx.group,
+                                            seq=seq)
         else:
             grads = _fused_mlp_bwd_partial_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, eps=ctx.eps, group=ctx.group,
-                                                weight_grads=tuple(need[1:7]))
-        return (*_grads_like(grads, saved, need), None, None)
+                                                weight_grads=tuple(need[1:7]), seq=seq)
+        return (*_grads_like(grads, saved, need), None, None, None)
 
 
-def fused_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5, tp_group=None) -> torch.Tensor:
+def fused_mlp_block(x: torch.Tensor, ln_params, mlp_params, *, eps: float = 1e-5, tp_group=None,
+                    seq: bool = False) -> torch.Tensor:
     """``x + mlp(layer_norm(x))`` for ``x [B, T, W]``: K1/B5 on CUDA, plain on CPU.
     ``tp_group``: the rank holds its hidden columns of ``mlp_params`` and the
     partial products are all-reduced over the group (K1's and B5's partial
-    modes)."""
+    modes); ``seq``: x is the rank's rows of the sequence, the partials
+    reduce-scattered over T (the module note)."""
     args = (x, ln_params["scale"], ln_params["bias"], mlp_params["w_fc"], mlp_params["b_fc"], mlp_params["w_proj"],
             mlp_params["b_proj"], eps)
     if tp_group is not None:
-        return _FusedMLPPartial.apply(*args, tp_group)
+        return _FusedMLPPartial.apply(*args, tp_group, seq)
     return _FusedMLP.apply(*args)
 
 
@@ -325,12 +372,13 @@ def _fused_mlp_bwd_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, weight_gr
 
 
 def _fused_mlp_bwd_partial_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, group, weight_grads=True,
-                                split=None):
+                                split=None, seq=None):
     """B5's partial mode on the card: launches 1-4 over the rank's hidden
     columns, dy's depth partials summed and all-reduced over ``group``,
     then the LayerNorm backward (``tapclip_ln_bwd``) and the weight
     gradients ``weight_grads`` asks for, as :func:`_fused_mlp_bwd_cuda`
-    returns them."""
+    returns them.  ``seq``: as :func:`fused_mlp_bwd_reference`'s
+    (:func:`seq_ln_bwd_cuda`)."""
     W = x.shape[-1]
     H = w_fc.shape[-1]
     R = x.numel() // W
@@ -361,15 +409,14 @@ def _fused_mlp_bwd_partial_cuda(x, g, gamma, beta, w_fc, b_fc, w_proj, *, eps, g
     )
     _build.check(err, "tapclip_mlp_bwd_partial")
     dy = _summed_partials(ws[R * H:R * H + S * R * W], S)
-    all_reduce_(dy, group)
-    dx, part = _ln_bwd_cuda(x, g, dy, ws[R * H + S * R * W:], t["gamma"], R, W, 1, weight_grads, code, stream)
+    dx, ln_sums = _partial_ln_bwd_cuda(x, g, dy, ws[R * H + S * R * W:], t["gamma"], group, weight_grads,
+                                       want[0] or want[1], code, stream, seq)
     fused_mlp_block.partial_bwd_launches += 1
     if not weight_grads:
         return dx, None, None, None, None, None, None
     dhp, y = wsd[:R * H].view(R, H), wsd[R * H:].view(R, W)
     dh_pre = ws[:R * H].view(R, H)
     g2 = g.reshape(R, W)
-    ln_sums = col_sum(part) if want[0] or want[1] else None
     return (dx, ln_sums[:W] if want[0] else None, ln_sums[W:] if want[1] else None,
             gemm_f32(y, dhp, trans_a=True) if want[2] else None, col_sum(dh_pre) if want[3] else None,
             gemm_f32(h, g2, trans_a=True) if want[4] else None, col_sum(g2) if want[5] else None)
@@ -383,6 +430,31 @@ def _summed_partials(dy, S):
     for s in range(1, S):
         out = out + parts[s]
     return out
+
+
+def _partial_ln_bwd_cuda(x, g, dy, stats, gamma, group, weight_grads, want_ln, code, stream, seq=None):
+    """The end of B4's and B5's partial modes: dy (``R * W`` f32, summed
+    over the depth) all-reduced over ``group``, then ``tapclip_ln_bwd`` on the
+    rows, or (``seq`` = the rank's rows ``(x, g)``) dy reduce-scattered over
+    T and ``tapclip_ln_bwd`` on the rank's rows with their mean and rstd,
+    dgamma and dbeta then all-reduced.  Returns ``(dx, ln_sums)``, the
+    column sums ``[dgamma | dbeta]`` when ``want_ln``."""
+    W = x.shape[-1]
+    R = dy.numel() // W
+    if seq is None:
+        all_reduce_(dy, group)
+        dx, part = _ln_bwd_cuda(x, g, dy, stats, gamma, R, W, 1, weight_grads, code, stream)
+        return dx, col_sum(part) if want_ln else None
+    x, g = seq
+    B = x.shape[0]
+    dy = reduce_scatter_dim(dy.view(B, -1, W), group, 1).view(-1, W)
+    stats = local_part(stats[:2 * R].view(2 * B, -1), group, 1).reshape(-1)  # [mean rows | rstd rows]
+    dx, part = _ln_bwd_cuda(x, g, dy, stats, gamma, dy.shape[0], W, 1, weight_grads, code, stream)
+    if not want_ln:
+        return dx, None
+    ln_sums = col_sum(part)
+    all_reduce_(ln_sums, group)
+    return dx, ln_sums
 
 
 def _ln_bwd_cuda(x, g, dy, stats, gamma, R, W, S, want_w, code, stream):

@@ -15,7 +15,26 @@ is a ``torch.autograd.Function``:
 * Megatron's pair: :func:`copy_to_model` (identity forward, all-reduce
   backward), at the input of a column-parallel product, and
   :func:`reduce_from_model` (all-reduce forward, identity backward), at the
-  output of a row-parallel one.
+  output of a row-parallel one.  The pipeline takes the same pair on its
+  ``pipe`` group: the stages' input (its gradient is stage 0's, summed over
+  the stages) and the masked sum of the last stage's output (each stage's
+  cotangent passes through once, the mask keeps the last stage's).
+* Megatron-SP's pairs over the sequence axis (dim 1 of ``[B, T, W]``) on
+  the ``model`` group: :func:`gather_seq` (all-gather forward,
+  reduce-scatter backward) and :func:`scatter_seq_sum` (reduce-scatter
+  forward, all-gather backward) around a block's products;
+  :func:`split_seq` (this rank's rows forward, all-gather backward) and
+  :func:`join_seq` (all-gather forward, this rank's rows backward) where
+  the tower enters and leaves the sequence-parallel layout.
+* FSDP's just-in-time gather, :func:`fsdp_gather`: a weight all-gathered
+  over ``data`` along its cut dimension, its gradient reduce-scattered back,
+  which is the data-parallel sum of that leaf's gradient.
+  :class:`FullySharded` carries which leaves are cut and gathers a block's
+  at its use (``models/layers.py``).
+
+A reduce-scatter is ``reduce_scatter_tensor`` on NCCL and an all-reduce
+then this rank's part on another backend (gloo has no reduce-scatter on
+every device).
 
 Every function takes its group; ``None`` is a one-rank axis with no
 process group, where each is the identity.  At world size 1 over a real
@@ -27,7 +46,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -158,6 +178,120 @@ def reduce_from_model(t: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return t
     return _ReduceFromModel.apply(t, group)
+
+
+def gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated along ``dim`` in rank
+    order (no gradient)."""
+    parts = [torch.empty_like(t) for _ in range(size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def local_part(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's ``1/n`` of ``t`` along ``dim`` (a contiguous copy)."""
+    n = size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"axis {dim} of size {t.shape[dim]} is not divisible by the group's {n} ranks")
+    c = t.shape[dim] // n
+    return t.narrow(dim, rank_in(group) * c, c).clone(memory_format=torch.contiguous_format)
+
+
+def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``t`` summed over ``group``, this rank's ``1/n`` along ``dim`` kept (no
+    gradient)."""
+    n = size(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"axis {dim} of size {t.shape[dim]} is not divisible by the group's {n} ranks")
+    if dist.get_backend(group) == "nccl":
+        rows = t.movedim(dim, 0).contiguous()
+        out = torch.empty((rows.shape[0] // n, *rows.shape[1:]), dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, rows, group=group)
+        return out.movedim(0, dim).contiguous()
+    return local_part(all_reduce_(t.contiguous().clone(), group), group, dim)
+
+
+class _Pair(torch.autograd.Function):
+    """``fwd(t, group, dim)`` forward, ``bwd(g, group, dim)`` backward."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, fwd, bwd):
+        ctx.group, ctx.dim, ctx.bwd = group, dim, bwd
+        return fwd(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous(), ctx.group, ctx.dim), None, None, None, None
+
+
+def gather_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """``[B, T/n, W]`` -> ``[B, T, W]`` over ``group``; the backward
+    reduce-scatters (Megatron-SP's gather before a column-parallel product)."""
+    return t if group is None else _Pair.apply(t, group, 1, gather_dim, reduce_scatter_dim)
+
+
+def scatter_seq_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``[B, T, W]`` partials summed over ``group``, this rank's ``T/n``
+    rows kept; the backward all-gathers (after a row-parallel product)."""
+    return t if group is None else _Pair.apply(t, group, 1, reduce_scatter_dim, gather_dim)
+
+
+def split_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's ``T/n`` rows of a ``[B, T, W]`` every rank holds; the
+    backward all-gathers (the tower entering the sequence-parallel layout)."""
+    return t if group is None else _Pair.apply(t, group, 1, local_part, gather_dim)
+
+
+def join_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's rows all-gathered over ``group``; the backward keeps this
+    rank's rows (the tower leaving the sequence-parallel layout, every rank
+    then computing the same loss)."""
+    return t if group is None else _Pair.apply(t, group, 1, gather_dim, local_part)
+
+
+def fsdp_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """A weight's ``1/n`` shard all-gathered over ``group`` (``data``) along
+    ``dim``; its gradient reduce-scattered back, summed over the group."""
+    return t if group is None else _Pair.apply(t, group, dim, gather_dim, reduce_scatter_dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class FullySharded:
+    """The FSDP leaves of a rank's tree: ``dims`` maps ``id`` of each local
+    leaf cut over ``group`` to the dimension it is cut along."""
+
+    group: Any
+    dims: Dict[int, int]
+
+    def gathered(self, tree, skip=()):
+        """``tree`` with each cut leaf replaced by its gathered whole
+        (:func:`fsdp_gather`), dict keys in ``skip`` kept as they are."""
+        if isinstance(tree, dict):
+            return {k: v if k in skip else self.gathered(v, skip) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [self.gathered(v, skip) for v in tree]
+        if torch.is_tensor(tree) and id(tree) in self.dims:
+            return fsdp_gather(tree, self.group, self.dims[id(tree)])
+        return tree
+
+
+_FSDP: contextvars.ContextVar = contextvars.ContextVar("tapclip_fsdp", default=None)
+
+
+@contextlib.contextmanager
+def fully_sharded(state: Optional[FullySharded]):
+    """Gather the FSDP leaves of the towers' blocks at their use
+    (``layers.transformer_forward``) inside the body; ``None``: no FSDP."""
+    token = _FSDP.set(state)
+    try:
+        yield
+    finally:
+        _FSDP.reset(token)
+
+
+def current_fsdp() -> Optional[FullySharded]:
+    """The state :func:`fully_sharded` set (``None`` outside it)."""
+    return _FSDP.get()
 
 
 def model_group_of(mesh) -> Optional[object]:

@@ -1,32 +1,39 @@
 """The device mesh over ``torch.distributed`` process groups.
 
 Counterpart of ``tapclip_tpu/parallel/mesh.py``.  A mesh is a ``(data,
-model)`` grid with JAX's axis names and rank grid: ``reshape(dp, tp)``, with
+model)`` grid, or ``(data, pipe, model)`` with ``pp > 1``, with JAX's axis
+names and rank grid: ``reshape(dp, tp)`` / ``reshape(dp, pp, tp)``, with
 ``model`` innermost, so that a ``model`` group is ``tp`` consecutive ranks.
 
 * ``"data"``: the batch axis.  Each rank holds its rows of the global batch;
   the trained leaves' gradients are summed over it (``train_step.py``,
-  ``pretrain.py``).
+  ``pretrain.py``), and under FSDP it also cuts the big weights
+  (``sharding.py``).
+* ``"pipe"``: the GPipe stages (``parallel/pipeline.py``): stage ``s`` holds
+  its ``L/pp`` consecutive blocks of each tower, and activations pass from
+  stage to stage on the ring of its ``pipe`` group.
 * ``"model"``: Megatron tensor parallelism in the towers (``models/layers.py``):
   a rank holds its heads' and its hidden columns' weights, and the blocks'
-  partial products are all-reduced over it.
+  partial products are all-reduced over it (reduce-scattered over the
+  sequence under sequence parallelism).
 
 A mesh comes in two forms:
 
 * **process groups** (:func:`make_mesh` after ``init_process_group``, one
-  process per rank, as ``torchrun`` starts them): :attr:`Mesh.data_group`
-  and :attr:`Mesh.model_group` are this rank's groups, built for every cell
-  of the grid by every rank, as ``torch.distributed.new_group`` requires;
+  process per rank, as ``torchrun`` starts them): :attr:`Mesh.data_group`,
+  :attr:`Mesh.pipe_group` and :attr:`Mesh.model_group` are this rank's
+  groups, built for every cell of the grid by every rank, as
+  ``torch.distributed.new_group`` requires;
 * **a device list in one process** (``make_mesh(dp, devices=[...])``):
   data-parallel replicas, one per device, for ``serve``, ``featurize`` and
   ``predict``.  It needs no process group.  A list may repeat a device
   (``["cuda:0", "cuda:0"]``), so the split and the gather run on one card.
+  It refuses ``tp > 1`` and ``pp > 1``.
 
 The backend is the caller's: :func:`init_distributed` takes NCCL for a CUDA
 device and gloo for the CPU unless it is named, and :func:`make_mesh` builds
 its groups on the default group's backend unless ``backend=`` is named.
-Nothing switches a backend on its own.  The ``pipe`` axis is the next
-slice's (``pp > 1`` raises :class:`~tapclip_tpu_torch.NotPortedError`).
+Nothing switches a backend on its own.
 """
 
 from __future__ import annotations
@@ -69,12 +76,13 @@ def init_distributed(device=None, backend: Optional[str] = None) -> int:
 
 @dataclasses.dataclass
 class Mesh:
-    """A ``(data, model)`` grid.  ``shape`` is a dict (``mesh.shape.get("data",
-    1)``); ``grid`` holds the ranks (process groups) or the device indices
-    into ``devices`` (one process).  For the process-group form,
-    ``data_index`` / ``model_index`` place this rank, and ``data_group`` /
-    ``model_group`` are its groups (``None`` on a one-rank mesh with no
-    process group)."""
+    """A ``(data, model)`` or ``(data, pipe, model)`` grid.  ``shape`` is a
+    dict (``mesh.shape.get("data", 1)``); ``grid`` holds the ranks (process
+    groups) or the device indices into ``devices`` (one process).  For the
+    process-group form, ``data_index`` / ``pipe_index`` / ``model_index``
+    place this rank, and ``data_group`` / ``pipe_group`` / ``model_group``
+    are its groups (``None`` on a one-rank mesh with no process group, and
+    ``pipe_group`` without a ``pipe`` axis)."""
 
     shape: Dict[str, int]
     grid: np.ndarray
@@ -86,6 +94,8 @@ class Mesh:
     data_group: Any = None
     model_group: Any = None
     backend: Optional[str] = None
+    pipe_index: int = 0
+    pipe_group: Any = None
 
     @property
     def dp(self) -> int:
@@ -94,6 +104,14 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.shape.get(MODEL_AXIS, 1)
+
+    @property
+    def pp(self) -> int:
+        return self.shape.get(PIPE_AXIS, 1)
+
+    @property
+    def world(self) -> int:
+        return self.dp * self.pp * self.tp
 
     @property
     def in_process(self) -> bool:
@@ -107,59 +125,76 @@ def _sizes(n: int, dp: int, tp: int, pp: int):
         tp = 1
     if pp <= 0:
         pp = 1
-    if pp > 1:
-        raise NotPortedError("the pipe mesh axis (pp > 1)")
     if dp == -1:
         if n % (tp * pp) != 0:
             raise ValueError(f"{n} devices not divisible by tp*pp={tp * pp}")
         dp = n // (tp * pp)
     if dp * tp * pp > n:
         raise ValueError(f"mesh {dp}x{pp}x{tp} needs {dp * tp * pp} devices, have {n}")
-    return dp, tp
+    return dp, tp, pp
 
 
 def make_mesh(dp: int = -1, tp: int = 1, devices: Optional[Sequence] = None, pp: int = 1, *,
               backend: Optional[str] = None) -> Mesh:
-    """Build a ``(data, model)`` mesh.  ``dp=-1`` takes every remaining rank
-    (or device).
+    """Build a ``(data, model)`` mesh, or ``(data, pipe, model)`` when ``pp >
+    1``.  ``dp=-1`` takes every remaining rank (or device).
 
     With ``devices`` (a list of devices): the one-process replica form,
-    ``tp`` must be 1.  Without: the ranks of the default process group,
-    ``grid = arange(dp * tp).reshape(dp, tp)`` (ranks past ``dp * tp`` get
-    no cell, as devices past it get none in JAX); with no process group the
-    world is this one process."""
+    ``tp`` and ``pp`` must be 1.  Without: the ranks of the default process
+    group, ``grid = arange(dp * pp * tp).reshape(dp, pp, tp)`` (``reshape(dp,
+    tp)`` when ``pp == 1``, the 2-axis mesh; ranks past the grid get no
+    cell, as devices past it get none in JAX, and every rank builds the
+    groups); with no process group the world is this one process."""
     import torch.distributed as dist
 
     if devices is not None:
         devs = [torch.device(d) for d in devices]
-        dp, tp = _sizes(len(devs), dp, tp, pp)
+        dp, tp, pp = _sizes(len(devs), dp, tp, pp)
         if tp > 1:
             raise NotPortedError("tensor parallelism over a device list in one process (use process groups)")
+        if pp > 1:
+            raise NotPortedError("the pipe axis over a device list in one process (use process groups)")
         return Mesh(shape={DATA_AXIS: dp, MODEL_AXIS: 1}, grid=np.arange(dp).reshape(dp, 1), devices=devs[:dp])
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp, tp = _sizes(world, dp, tp, pp)
-    grid = np.arange(dp * tp).reshape(dp, tp)
+    dp, tp, pp = _sizes(world, dp, tp, pp)
+    grid = np.arange(dp * pp * tp).reshape((dp, pp, tp) if pp > 1 else (dp, tp))
     if not dist.is_initialized():
-        return Mesh(shape={DATA_AXIS: dp, MODEL_AXIS: tp}, grid=grid, rank=0)
+        return Mesh(shape=_shape(grid), grid=grid, rank=0, axis_names=_axes(grid))
     return _grouped(grid, backend)
 
 
+def _axes(grid: np.ndarray) -> tuple:
+    return (DATA_AXIS, PIPE_AXIS, MODEL_AXIS) if grid.ndim == 3 else (DATA_AXIS, MODEL_AXIS)
+
+
+def _shape(grid: np.ndarray) -> Dict[str, int]:
+    return dict(zip(_axes(grid), (int(n) for n in grid.shape)))
+
+
 def _grouped(grid: np.ndarray, backend: Optional[str]) -> Mesh:
-    """The mesh over ``grid``'s ranks: every rank builds every group (in one
-    order), then keeps its own."""
+    """The mesh over ``grid``'s ranks (``[dp, tp]`` or ``[dp, pp, tp]``):
+    every rank builds every group (in one order: data, pipe, model), then
+    keeps its own."""
     import torch.distributed as dist
 
     backend = backend or dist.get_backend()
     rank = dist.get_rank()
-    dp, tp = grid.shape
-    data_groups = [dist.new_group([int(r) for r in grid[:, j]], backend=backend) for j in range(tp)]
-    model_groups = [dist.new_group([int(r) for r in grid[i, :]], backend=backend) for i in range(dp)]
-    mesh = Mesh(shape={DATA_AXIS: dp, MODEL_AXIS: tp}, grid=grid, rank=rank, backend=backend)
-    where = np.argwhere(grid == rank)
+    g3 = grid if grid.ndim == 3 else grid[:, None, :]
+    dp, pp, tp = g3.shape
+
+    def groups(lines):
+        return {key: dist.new_group([int(r) for r in ranks], backend=backend) for key, ranks in lines}
+
+    data_groups = groups(((s, j), g3[:, s, j]) for s in range(pp) for j in range(tp))
+    pipe_groups = groups(((i, j), g3[i, :, j]) for i in range(dp) for j in range(tp)) if pp > 1 else {}
+    model_groups = groups(((i, s), g3[i, s, :]) for i in range(dp) for s in range(pp))
+    mesh = Mesh(shape=_shape(grid), grid=grid, rank=rank, backend=backend, axis_names=_axes(grid))
+    where = np.argwhere(g3 == rank)
     if len(where):
-        i, j = (int(v) for v in where[0])
-        mesh.data_index, mesh.model_index = i, j
-        mesh.data_group, mesh.model_group = data_groups[j], model_groups[i]
+        i, s, j = (int(v) for v in where[0])
+        mesh.data_index, mesh.pipe_index, mesh.model_index = i, s, j
+        mesh.data_group, mesh.model_group = data_groups[s, j], model_groups[i, s]
+        mesh.pipe_group = pipe_groups.get((i, j))
     return mesh
 
 

@@ -10,24 +10,36 @@ the stacked path and gives its spec, and :func:`local_spec` drops the layer
 entry when a block leaf is placed.
 
 Placement (:func:`shard_params`, :func:`shard_opt_state`, :func:`replicate`,
-:func:`shard_batch`) covers the ``data`` and ``model`` axes: each rank keeps
-its local shard as a plain tensor.  The Megatron cut on ``model``:
+:func:`shard_batch`) covers the ``data``, ``pipe`` and ``model`` axes: each
+rank keeps its local shard as a plain tensor.
 
-* ``attn/w_qkv [W, 3W]`` and ``attn/b_qkv [3W]`` are cut **per head**: the
-  rank holds the q, k and v columns of its own heads, ``[W, 3W/tp]`` laid out
-  ``[q_j | k_j | v_j]``, so its attention runs on local heads.  (GSPMD can
-  cut the 3W columns contiguously because XLA reshards as it needs; a rank
-  that computes locally cannot.)
-* ``attn/w_out [W, W]``: the rows of its heads.
-* ``mlp/w_fc [W, H]``, ``mlp/b_fc [H]``: its hidden columns; ``mlp/w_proj
-  [H, W]``: the matching rows.
-* everything else (embeddings, LayerNorms, the output biases, projections):
-  replicated.
+* ``pipe`` (``pp > 1``): stage ``s`` keeps blocks ``s*L/pp .. (s+1)*L/pp - 1``
+  of each tower, as its own list indexed from 0 (the leading layer axis of
+  the stacked leaves is a slice of the list), so every stage's tree has the
+  same paths; the other leaves are replicas.
+* ``model``, the Megatron cut:
 
-:func:`gather_params` is the inverse, bit for bit: the checkpoint writer and
-``pretrain_cli``'s final tree use it.  Not yet ported (they raise
-:class:`~tapclip_tpu_torch.NotPortedError` by name): ``fsdp=True``, the
-``/moe/`` leaves under ``tp > 1``, and the ``pipe`` placement.
+  * ``attn/w_qkv [W, 3W]`` and ``attn/b_qkv [3W]`` are cut **per head**: the
+    rank holds the q, k and v columns of its own heads, ``[W, 3W/tp]`` laid
+    out ``[q_j | k_j | v_j]``, so its attention runs on local heads.  (GSPMD
+    can cut the 3W columns contiguously because XLA reshards as it needs; a
+    rank that computes locally cannot.)
+  * ``attn/w_out [W, W]``: the rows of its heads.
+  * ``mlp/w_fc [W, H]``, ``mlp/b_fc [H]``: its hidden columns; ``mlp/w_proj
+    [H, W]``: the matching rows.
+  * everything else (embeddings, LayerNorms, the output biases,
+    projections): replicated.
+* ``data`` under FSDP (``fsdp=True``): each leaf whose spec names ``data``
+  keeps ``1/dp`` along that dimension (``w_qkv``'s and ``w_fc``'s rows,
+  ``w_out``'s and ``w_proj``'s columns, the embeddings' and projections'
+  first dimension), which ``shard_opt_state(fsdp=True)`` mirrors in the
+  AdamW moments (ZeRO).  A dimension ``dp`` does not divide is refused
+  (GSPMD would pad it).
+
+:func:`gather_params` and :func:`gather_opt_state` are the inverses, bit for
+bit, across every combination of the three axes: the checkpoint writer and
+``pretrain_cli``'s final tree use them.  Not yet ported (refused by name):
+the ``/moe/`` leaves under ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -113,29 +125,39 @@ def _flags(mesh: Mesh):
     return mesh.shape.get(MODEL_AXIS, 1) > 1, mesh.shape.get(PIPE_AXIS, 1) > 1
 
 
+def leaf_spec(path: str, leaf: torch.Tensor, mesh: Mesh, fsdp: bool = False) -> tuple:
+    """The JAX package's spec of a port leaf's stacked leaf (a block leaf
+    counts the layer axis in its rank)."""
+    tp, pp = _flags(mesh)
+    stacked = stacked_path(path)
+    return _guard_rank(_spec_for_path(stacked, tp, pp, fsdp), leaf.dim() + (stacked != path))
+
+
 def clip_param_specs(params: Dict[str, Any], mesh: Mesh, fsdp: bool = False) -> Dict[str, tuple]:
     """``{port path: spec}`` for every leaf, each spec the JAX package's
-    ``clip_param_specs`` gives the stacked leaf (a block leaf counts the
-    layer axis in its rank)."""
-    tp, pp = _flags(mesh)
-    out = {}
-    for path, leaf in named_leaves(params):
-        stacked = stacked_path(path)
-        ndim = leaf.dim() + (stacked != path)
-        out[path] = _guard_rank(_spec_for_path(stacked, tp, pp, fsdp), ndim)
-    return out
+    ``clip_param_specs`` gives the stacked leaf."""
+    return {path: leaf_spec(path, leaf, mesh, fsdp) for path, leaf in named_leaves(params)}
 
 
-def model_sharded(leaves, mesh: Mesh) -> list:
-    """For each ``(path, leaf)`` of a tree (whole or a rank's local one),
-    whether :func:`shard_params` cuts it over ``model``."""
-    tp, pp = _flags(mesh)
-    out = []
-    for path, leaf in leaves:
-        stacked = stacked_path(path)
-        spec = _guard_rank(_spec_for_path(stacked, tp, pp), leaf.dim() + (stacked != path))
-        out.append(mesh.tp > 1 and MODEL_AXIS in spec)
-    return out
+def shard_axes(leaves, mesh: Mesh, fsdp: bool = False) -> list:
+    """For each ``(path, leaf)`` of a tree (whole or a rank's local one), the
+    axes of more than one rank that :func:`shard_params` cuts it over, in
+    the mesh's order (``()``: a replica)."""
+    sizes = {DATA_AXIS: mesh.dp if fsdp else 1, PIPE_AXIS: mesh.pp, MODEL_AXIS: mesh.tp}
+    return [tuple(a for a in (DATA_AXIS, PIPE_AXIS, MODEL_AXIS) if sizes[a] > 1 and a in leaf_spec(path, leaf, mesh, fsdp))
+            for path, leaf in leaves]
+
+
+def fsdp_state(local: Dict[str, Any], mesh: Mesh):
+    """The FSDP gather state of a rank's tree (:func:`shard_params` with
+    ``fsdp=True``): each leaf cut over ``data``, by ``id``, and its
+    dimension."""
+    dims = {}
+    for path, t in named_leaves(local):
+        spec = local_spec(path, leaf_spec(path, t, mesh, True))
+        if DATA_AXIS in spec:
+            dims[id(t)] = spec.index(DATA_AXIS)
+    return collectives.FullySharded(mesh.data_group, dims)
 
 
 def local_spec(path: str, spec: tuple) -> tuple:
@@ -143,13 +165,38 @@ def local_spec(path: str, spec: tuple) -> tuple:
     return spec[1:] if stacked_path(path) != path and spec else spec
 
 
-def _check_placeable(path: str, spec: tuple, fsdp: bool) -> None:
-    if fsdp:
-        raise NotPortedError("FSDP placement (fsdp=True)")
-    if PIPE_AXIS in spec:
-        raise NotPortedError("pipe placement")
+def _check_placeable(path: str, spec: tuple) -> None:
     if MODEL_AXIS in spec and "/moe/" in path:
         raise NotPortedError(f"MoE leaves under tp > 1 ({path})")
+
+
+def _stage_blocks(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """``params`` with each tower's blocks cut to this stage's (a shallow copy)."""
+    S, s = mesh.pp, mesh.pipe_index
+    if S <= 1:
+        return params
+    out = dict(params)
+    for tower in ("visual", "text"):
+        if isinstance(params.get(tower), dict) and "blocks" in params[tower]:
+            blocks = params[tower]["blocks"]
+            L = len(blocks)
+            if L % S:
+                raise ValueError(f"pipeline: {L} layers not divisible by {S} stages")
+            out[tower] = dict(params[tower], blocks=blocks[s * L // S:(s + 1) * L // S])
+    return out
+
+
+def _global_block_path(path: str, mesh: Mesh, n_local: Dict[str, int]) -> str:
+    """The whole tree's path of a stage's block leaf (its local index offset
+    by the stage's first block); other paths unchanged."""
+    parts = path.split("/")
+    if mesh.pp > 1 and len(parts) > 2 and parts[1] == "blocks":
+        parts[2] = str(mesh.pipe_index * n_local[parts[0]] + int(parts[2]))
+    return "/".join(parts)
+
+
+def _n_local_blocks(tree) -> Dict[str, int]:
+    return {k: len(v["blocks"]) for k, v in tree.items() if isinstance(v, dict) and "blocks" in v}
 
 
 def _qkv_parts(t: torch.Tensor, n: int, j: int) -> torch.Tensor:
@@ -161,18 +208,25 @@ def _qkv_parts(t: torch.Tensor, n: int, j: int) -> torch.Tensor:
     return torch.cat([t[..., s * w + j * c: s * w + (j + 1) * c] for s in range(3)], dim=-1)
 
 
-def shard_leaf(path: str, t: torch.Tensor, spec: tuple, n: int, j: int) -> torch.Tensor:
-    """Rank ``j`` of ``n``'s local shard of one leaf (a copy)."""
+def shard_leaf(path: str, t: torch.Tensor, spec: tuple, n: int, j: int, dn: int = 1, di: int = 0) -> torch.Tensor:
+    """Rank ``j`` of ``n`` on ``model`` and ``di`` of ``dn`` on ``data``
+    (FSDP): its local shard of one leaf, a copy that holds only the shard."""
     spec = local_spec(path, spec)
-    if MODEL_AXIS not in spec or n == 1:
-        return t.detach().clone()
-    if path.endswith(("attn/w_qkv", "attn/b_qkv")):
-        return _qkv_parts(t.detach(), n, j).contiguous()
-    ax = spec.index(MODEL_AXIS)
-    size = t.shape[ax]
-    if size % n:
-        raise ValueError(f"{path}: axis {ax} of size {size} is not divisible by tp={n}")
-    return t.detach().narrow(ax, j * (size // n), size // n).contiguous()
+    t = t.detach()
+    if MODEL_AXIS in spec and n > 1:
+        if path.endswith(("attn/w_qkv", "attn/b_qkv")):
+            t = _qkv_parts(t, n, j)
+        else:
+            ax = spec.index(MODEL_AXIS)
+            if t.shape[ax] % n:
+                raise ValueError(f"{path}: axis {ax} of size {t.shape[ax]} is not divisible by tp={n}")
+            t = t.narrow(ax, j * (t.shape[ax] // n), t.shape[ax] // n)
+    if DATA_AXIS in spec and dn > 1:
+        ax = spec.index(DATA_AXIS)
+        if t.shape[ax] % dn:
+            raise ValueError(f"{path}: axis {ax} of size {t.shape[ax]} is not divisible by dp={dn} (FSDP)")
+        t = t.narrow(ax, di * (t.shape[ax] // dn), t.shape[ax] // dn)
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_tp(params, tp: int) -> None:
@@ -183,73 +237,114 @@ def _check_tp(params, tp: int) -> None:
 
 
 def shard_params(params: Dict[str, Any], mesh: Mesh, fsdp: bool = False) -> Dict[str, Any]:
-    """This rank's local tree: the Megatron cut on ``model`` (per-head qkv),
-    every other leaf a replica.  Each leaf is a copy; ``requires_grad`` is
-    carried over."""
+    """This rank's local tree: its stage's blocks (``pipe``), the Megatron
+    cut on ``model`` (per-head qkv), with ``fsdp`` its ``1/dp`` of every
+    leaf the spec cuts over ``data``, every other leaf a replica.  Each leaf
+    is a copy that holds only its shard; ``requires_grad`` is carried
+    over."""
     specs = clip_param_specs(params, mesh, fsdp=fsdp)
     n, j = mesh.tp, mesh.model_index
+    dn, di = (mesh.dp, mesh.data_index) if fsdp else (1, 0)
     for path, spec in specs.items():
-        _check_placeable(path, spec, fsdp)
+        _check_placeable(path, spec)
     if n > 1:
         _check_tp(params, n)
-    return map_with_path(lambda path, t: shard_leaf(path, t, specs[path], n, j).requires_grad_(t.requires_grad),
-                         params)
+    # a stage's block i carries the spec of the whole tree's block i (every block's is the same)
+    return map_with_path(lambda path, t: shard_leaf(path, t, specs[path], n, j, dn, di).requires_grad_(t.requires_grad),
+                         _stage_blocks(params, mesh))
 
 
-def _gather_leaf(path: str, t: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+def _gather_leaf(path: str, t: torch.Tensor, spec: tuple, mesh: Mesh, fsdp: bool = False) -> torch.Tensor:
+    """One leaf whole over ``data`` (with ``fsdp``) and ``model`` (a
+    collective over each group that cuts it)."""
     spec = local_spec(path, spec)
+    t = t.detach()
+    if fsdp and DATA_AXIS in spec and mesh.dp > 1:
+        t = collectives.gather_dim(t, mesh.data_group, spec.index(DATA_AXIS))
     n = mesh.tp
     if MODEL_AXIS not in spec or n == 1:
-        return t.detach().clone()
-    parts = collectives._gather_rows(t.detach().unsqueeze(0).contiguous(), mesh.model_group)  # [n, ...]
+        return t.clone()
+    parts = collectives._gather_rows(t.unsqueeze(0).contiguous(), mesh.model_group)  # [n, ...]
     if path.endswith(("attn/w_qkv", "attn/b_qkv")):
         c = t.shape[-1] // 3
         return torch.cat([parts[j][..., s * c:(s + 1) * c] for s in range(3) for j in range(n)], dim=-1)
     return torch.cat(list(parts), dim=spec.index(MODEL_AXIS))
 
 
-def gather_params(local: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
-    """The whole tree from every rank's local tree (a collective over
-    ``model``: every rank of a ``model`` group calls it), bit for bit the
-    tree :func:`shard_params` cut."""
-    specs = clip_param_specs(local, mesh)
-    return map_with_path(lambda path, t: _gather_leaf(path, t, specs[path], mesh), local)
+def _join_stages(tree: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
+    """Each tower's blocks from every stage, in order (a collective over
+    ``pipe``): the inverse of :func:`_stage_blocks`."""
+    if mesh.pp <= 1:
+        return tree
+    out = dict(tree)
+    for tower, n in _n_local_blocks(tree).items():
+        stacked = [map_tree(lambda t: collectives._gather_rows(t.unsqueeze(0).contiguous(), mesh.pipe_group), blk)
+                   for blk in tree[tower]["blocks"]]
+        out[tower] = dict(tree[tower], blocks=[map_tree(lambda t, s=s: t[s].clone(), blk)
+                                               for s in range(mesh.pp) for blk in stacked])
+    return out
+
+
+def gather_params(local: Dict[str, Any], mesh: Mesh, fsdp: bool = False) -> Dict[str, Any]:
+    """The whole tree from every rank's local tree (a collective over the
+    ``model`` group, the ``data`` group with ``fsdp`` and the ``pipe``
+    group: every rank of the mesh calls it), bit for bit the tree
+    :func:`shard_params` cut."""
+    specs = clip_param_specs(local, mesh, fsdp=fsdp)
+    return _join_stages(map_with_path(lambda path, t: _gather_leaf(path, t, specs[path], mesh, fsdp), local), mesh)
 
 
 def shard_opt_state(opt_state: Dict[str, Any], mesh: Mesh, fsdp: bool = False, *,
                     params: Dict[str, Any]) -> Dict[str, Any]:
     """A ``pretrain.PretrainOptimizer.state_dict()`` of the whole tree, cut as
     :func:`shard_params` cuts the leaves its moments and accumulator track
-    (by path).  ``params``: the whole tree, for the ranks of the rules."""
-    if fsdp:
-        raise NotPortedError("FSDP placement (fsdp=True)")
-    specs = clip_param_specs(params, mesh)
+    (by path; a stage keeps its blocks' entries under their local paths;
+    with ``fsdp`` the moments keep ``1/dp``, ZeRO).  ``params``: the whole
+    tree, for the ranks of the rules."""
+    specs = clip_param_specs(params, mesh, fsdp=fsdp)
     n, j = mesh.tp, mesh.model_index
+    dn, di = (mesh.dp, mesh.data_index) if fsdp else (1, 0)
+    staged = _stage_blocks(params, mesh)
+    local = {_global_block_path(p, mesh, _n_local_blocks(staged)): p for p, _ in named_leaves(staged)}
 
     def cut(path, t):
-        return shard_leaf(path, torch.as_tensor(t), specs[path], n, j)
+        return shard_leaf(path, torch.as_tensor(t), specs[path], n, j, dn, di)
 
     out = dict(opt_state)
-    out["moments"] = {p: {k: (cut(p, v) if k != "step" else v) for k, v in st.items()}
-                      for p, st in opt_state["moments"].items()}
+    out["moments"] = {local[p]: {k: (cut(p, v) if k != "step" else v) for k, v in st.items()}
+                      for p, st in opt_state["moments"].items() if p in local}
     if opt_state.get("acc") is not None:
-        out["acc"] = {p: cut(p, a) for p, a in opt_state["acc"].items()}
+        out["acc"] = {local[p]: cut(p, a) for p, a in opt_state["acc"].items() if p in local}
     return out
 
 
-def gather_opt_state(opt_state: Dict[str, Any], mesh: Mesh, params: Dict[str, Any]) -> Dict[str, Any]:
-    """The inverse of :func:`shard_opt_state` (a collective over ``model``)."""
-    specs = clip_param_specs(params, mesh)
+def gather_opt_state(opt_state: Dict[str, Any], mesh: Mesh, params: Dict[str, Any],
+                     fsdp: bool = False) -> Dict[str, Any]:
+    """The inverse of :func:`shard_opt_state` (a collective over every group
+    that cuts a leaf), the moments under the whole tree's paths.
+    ``params``: this rank's local tree."""
+    specs = clip_param_specs(params, mesh, fsdp=fsdp)
     dev = next(iter(named_leaves(params)))[1].device
+    n_local = _n_local_blocks(params)
 
     def whole(path, t):
-        return _gather_leaf(path, torch.as_tensor(t).to(dev), specs[path], mesh).cpu()
+        return _gather_leaf(path, torch.as_tensor(t).to(dev), specs[path], mesh, fsdp).cpu()
+
+    def joined(entries):  # {local path: value} of every stage under the whole tree's paths
+        entries = {_global_block_path(p, mesh, n_local): v for p, v in entries.items()}
+        if mesh.pp <= 1:
+            return entries
+        import torch.distributed as dist
+
+        parts = [None] * mesh.pp
+        dist.all_gather_object(parts, entries, group=mesh.pipe_group)
+        return {p: v for part in parts for p, v in part.items()}
 
     out = dict(opt_state)
-    out["moments"] = {p: {k: (whole(p, v) if k != "step" else v) for k, v in st.items()}
-                      for p, st in opt_state["moments"].items()}
+    out["moments"] = joined({p: {k: (whole(p, v) if k != "step" else v) for k, v in st.items()}
+                             for p, st in opt_state["moments"].items()})
     if opt_state.get("acc") is not None:
-        out["acc"] = {p: whole(p, a) for p, a in opt_state["acc"].items()}
+        out["acc"] = joined({p: whole(p, a) for p, a in opt_state["acc"].items()})
     return out
 
 

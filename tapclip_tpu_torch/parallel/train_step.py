@@ -311,6 +311,9 @@ def make_train_step(
 def _check_mesh(mesh) -> None:
     if mesh is not None and mesh.in_process:
         raise ValueError("a train or eval step takes a process-group mesh (make_mesh without devices=)")
+    if mesh is not None and mesh.pp > 1:
+        raise NotImplementedError("prompt tuning freezes the towers: it runs on the data and model axes, not on a "
+                                  "pipe axis (use the sequential tower)")
 
 
 def _global_share(x, mask, group) -> torch.Tensor:

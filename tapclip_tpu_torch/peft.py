@@ -107,6 +107,8 @@ def make_lora_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss:
     m = _Mesh(mesh, cfg)
     if m.tp_group is not None:
         raise NotPortedError("LoRA adapters under tp > 1")
+    if m.transformer_fn is not None:
+        raise ValueError("--lora-rank does not compose with --pp yet (the merged tree runs the sequential tower)")
 
     def step(clip_params: Params, lora: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(clip_params, images, token_ids)

@@ -42,21 +42,34 @@ returns the rank's share of the global mean, and the shares sum to the
 loss.  The all-gather's backward already carries the other ranks' part of
 each feature's gradient, so the trained leaves' gradients are **summed**
 over ``data`` (averaging them, as DDP does, would divide by dp a second
-time); the clip's global norm is taken after the sum, and under ``tp > 1``
-over the whole tree (the shards' squares summed over ``model``, the
-replicated leaves' counted once).  GradCache's negatives span K·B·dp.
+time); the clip's global norm is taken after the sum, over the whole tree:
+each leaf's squares summed over every group that cuts it (``model`` for
+the Megatron shards, ``pipe`` for a stage's blocks, ``data`` for the FSDP
+shards), each replicated leaf counted once.  GradCache's negatives span
+K·B·dp.
 Patch dropout and ``augment`` draw for the global batch from the step's
 generator and each rank keeps its rows of the draws, so a dp = 2 step
 equals the dp = 1 step.  Under ``tp > 1`` the towers run tensor parallel
 over ``model`` (``models/layers.py``); every trained leaf's gradient is
 then complete on its rank (a replicated leaf's equal on every rank of the
 ``model`` group, a shard's its own), so nothing is summed over ``model``.
-Not yet ported (refused by name): MoE towers under a mesh, and the
-pipeline, sequence-parallel and FSDP forms.
+
+:func:`make_pretrain_step` also takes JAX's three other forms: a mesh with a
+``pipe`` axis runs both towers' blocks on the GPipe schedule
+(``parallel/pipeline.py``; ``pp_microbatches`` defaults to ``2 * pp``, and
+the per-data-shard batch must divide by it), ``seq_parallel`` (needs a
+``model`` axis) runs them sequence parallel, and ``fsdp`` (needs a ``data``
+axis; the tree placed by ``sharding.shard_params(..., fsdp=True)``) gathers
+each cut leaf at its use, whose gradient then arrives reduce-scattered,
+summed over ``data`` already, and is left out of the step's sum over
+``data``; the AdamW moments are the shards', so the update stays local and
+the tree stays cut.  Each is the plain step's arithmetic.  Not yet ported
+(refused by name): MoE towers under a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -68,6 +81,7 @@ from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
 from tapclip_tpu_torch.parallel import collectives
+from tapclip_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
 
 Params = Dict[str, Any]
 LOGIT_SCALE_MAX = math.log(100.0)
@@ -292,27 +306,36 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return lambda count: warmup(count) if count < warmup_steps else cosine(count - warmup_steps)
 
 
-def global_norm(grads: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None,
-                group=None) -> torch.Tensor:
-    """``sqrt(sum of squares)`` over every gradient, in f32.  Under a
-    ``model`` ``group`` the leaves ``sharded`` marks hold this rank's part of
-    a leaf: their squares are summed over the group, the replicated leaves'
-    counted once, so every rank reads the whole tree's norm."""
-    if group is None:
-        return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: Sequence[torch.Tensor], axes: Optional[Sequence[tuple]] = None,
+                groups: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """``sqrt(sum of squares)`` over every gradient, in f32.  On a mesh,
+    ``axes`` names for each gradient the axes whose ranks hold the other
+    parts of its leaf (``()``: the whole leaf) and ``groups`` maps an axis
+    to this rank's group: the squares of each set of axes are summed over
+    each of its groups in turn (the mesh's axis order, one all-reduce an
+    axis), the replicated leaves' counted once, so every rank reads the
+    whole tree's norm."""
     squares = [g.float().square().sum() for g in grads]
-    part = sum((s for s, cut in zip(squares, sharded) if cut), torch.zeros((), device=squares[0].device))
-    collectives.all_reduce_(part, group)
-    return torch.sqrt(part + sum(s for s, cut in zip(squares, sharded) if not cut))
+    if not axes or not any(axes):
+        return torch.sqrt(sum(squares))
+    keys = sorted(set(axes))
+    v = torch.stack([sum((q for q, a in zip(squares, axes) if a == k), torch.zeros((), device=squares[0].device))
+                     for k in keys])
+    for axis in (DATA_AXIS, PIPE_AXIS, MODEL_AXIS):
+        mask = torch.tensor([axis in k for k in keys], device=v.device)
+        if bool(mask.any()):
+            part = collectives.all_reduce_(torch.where(mask, v, torch.zeros_like(v)), groups[axis])
+            v = torch.where(mask, part, v)
+    return torch.sqrt(v.sum())
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, sharded: Optional[Sequence[bool]] = None,
-                        group=None) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float, axes: Optional[Sequence[tuple]] = None,
+                        groups: Optional[Dict[str, Any]] = None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: each gradient as ``g / norm * max_norm``
     when the global norm (:func:`global_norm`) reaches ``max_norm``,
     unchanged below it (no ``+1e-6`` in the divisor, unlike
     ``torch.nn.utils.clip_grad_norm_``)."""
-    norm = global_norm(grads, sharded, group)
+    norm = global_norm(grads, axes, groups)
     if float(norm) < max_norm:
         return grads
     return [g / norm.to(g.dtype) * max_norm for g in grads]
@@ -332,8 +355,9 @@ class PretrainOptimizer:
     clips the (averaged) gradient by its global norm.  ``accum_steps`` K > 1
     averages K gradients and takes one update on the K-th; between updates
     the parameters and the AdamW state do not move.  A step built on a mesh
-    with a ``model`` axis sets :attr:`norm_group` and :attr:`sharded` (which
-    leaves are a rank's shard), so the clip reads the whole tree's norm.
+    sets :attr:`shard_axes` (the axes that cut each leaf) and
+    :attr:`norm_groups` (this rank's group of each axis), so the clip reads
+    the whole tree's norm.
     """
 
     def __init__(self, leaves: List[Tuple[str, torch.Tensor]], *, lr, weight_decay: float,
@@ -348,8 +372,8 @@ class PretrainOptimizer:
         self.count = 0  # updates taken
         self.mini_step = 0
         self.acc: Optional[List[torch.Tensor]] = None
-        self.norm_group = None
-        self.sharded: Optional[List[bool]] = None
+        self.shard_axes: Optional[List[tuple]] = None
+        self.norm_groups: Optional[Dict[str, Any]] = None
         self.adamw = torch.optim.AdamW(self.leaves, lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
 
@@ -370,7 +394,7 @@ class PretrainOptimizer:
                 return False
             grads, self.acc, self.mini_step = self.acc, None, 0
         if self.grad_clip > 0:
-            grads = clip_by_global_norm(grads, self.grad_clip, self.sharded, self.norm_group)
+            grads = clip_by_global_norm(grads, self.grad_clip, self.shard_axes, self.norm_groups)
         for t, g in zip(self.leaves, grads):
             t.grad = g
         for group in self.adamw.param_groups:
@@ -447,22 +471,40 @@ class _Mesh:
     """What a pretraining step reads off its mesh: the ``data`` group the
     loss spans (None on one rank: the local loss, as the JAX step), the
     group the gradients are summed over (every mesh), the ``model`` group
-    the towers run over, and this rank's rows of a global batch.  Given the
-    step's ``optimizer``, it points the clip's norm at the ``model`` group."""
+    the towers run over, the GPipe runner of a ``pipe`` axis, the
+    sequence-parallel and FSDP switches, and this rank's rows of a global
+    batch.  Given the step's ``optimizer``, it points the clip's norm at the
+    groups that cut each leaf."""
 
-    def __init__(self, mesh, cfg: CLIPConfig, optimizer: Optional[PretrainOptimizer] = None):
+    def __init__(self, mesh, cfg: CLIPConfig, optimizer: Optional[PretrainOptimizer] = None, *,
+                 pp_microbatches: int = 0, seq_parallel: bool = False, fsdp: bool = False):
         if mesh is not None and mesh.in_process:
             raise ValueError("a pretraining step takes a process-group mesh (make_mesh without devices=)")
-        if mesh is not None and cfg.moe_experts > 0 and (mesh.dp > 1 or mesh.tp > 1):
-            raise NotPortedError("MoE towers under a data or model mesh")
-        self.mesh = mesh
+        if mesh is not None and cfg.moe_experts > 0 and (mesh.dp > 1 or mesh.tp > 1 or mesh.pp > 1):
+            raise NotPortedError("MoE towers under a data, pipe or model mesh")
+        if fsdp and (mesh is None or mesh.dp <= 1):
+            raise ValueError("fsdp needs a mesh with a 'data' axis > 1")
+        if seq_parallel and (mesh is None or mesh.tp <= 1):
+            raise ValueError("seq_parallel needs a mesh with a 'model' axis > 1")
+        self.mesh, self.seq_parallel, self.fsdp = mesh, seq_parallel, fsdp
         self.loss_group = mesh.data_group if mesh is not None and mesh.dp > 1 else None
         self.tp_group = collectives.model_group_of(mesh)
-        if self.tp_group is not None and optimizer is not None:  # the clip's norm over the whole tree
-            from tapclip_tpu_torch.parallel.sharding import model_sharded
+        self.transformer_fn = None
+        if mesh is not None and mesh.pp > 1:
+            from tapclip_tpu_torch.parallel.pipeline import check_pipeline_geometry, make_pipeline_transformer_fn
 
-            optimizer.norm_group = self.tp_group
-            optimizer.sharded = model_sharded(zip(optimizer.paths, optimizer.leaves), mesh)
+            for n_layers in (cfg.vision_layers, cfg.text_layers):
+                check_pipeline_geometry(n_layers, mesh.pp, batch=1, n_microbatches=1)
+            self.transformer_fn = make_pipeline_transformer_fn(
+                mesh, pp_microbatches or 2 * mesh.pp, remat=cfg.remat if cfg.remat != "none" else "full")
+        self.summed = None  # per trained leaf: whether the step sums its gradient over data
+        if mesh is not None and optimizer is not None:
+            from tapclip_tpu_torch.parallel.sharding import shard_axes
+
+            axes = shard_axes(zip(optimizer.paths, optimizer.leaves), mesh, fsdp)
+            optimizer.shard_axes = axes
+            optimizer.norm_groups = {DATA_AXIS: mesh.data_group, PIPE_AXIS: mesh.pipe_group, MODEL_AXIS: mesh.model_group}
+            self.summed = [DATA_AXIS not in a for a in axes]
 
     def rows(self, b: int, k: int = 1):
         """``(n, idx)``: a global batch of k micro-batches of b * dp rows
@@ -483,17 +525,37 @@ class _Mesh:
         return None if idx is None else idx[rows[1].to(idx.device)]
 
     def reduce(self, grads: List[Optional[torch.Tensor]], leaves) -> List[torch.Tensor]:
-        """The gradients summed over ``data`` (a zero for a leaf not reached)."""
+        """The gradients summed over ``data`` (a zero for a leaf not
+        reached); an FSDP leaf's arrives summed (its gather's backward)."""
         if self.mesh is None:
             return grads
         grads = [torch.zeros_like(t) if g is None else g for g, t in zip(grads, leaves)]
-        collectives.all_reduce_many_(grads, self.mesh.data_group)
+        summed = self.summed or [True] * len(grads)
+        collectives.all_reduce_many_([g for g, s in zip(grads, summed) if s], self.mesh.data_group)
         return grads
 
     def loss(self, total: torch.Tensor) -> torch.Tensor:
         """The global objective from this rank's share."""
         total = total.detach()
         return total if self.loss_group is None else collectives.all_reduce_(total.clone(), self.loss_group)
+
+    @contextlib.contextmanager
+    def towers(self, params: Params):
+        """The tree the towers read (the FSDP leaves outside the blocks
+        gathered, the blocks' gathered at their use) inside the mesh's
+        tensor-parallel and FSDP contexts."""
+        state = None
+        if self.fsdp:
+            from tapclip_tpu_torch.parallel.sharding import fsdp_state
+
+            state = fsdp_state(params, self.mesh)
+        with collectives.tensor_parallel(self.tp_group), collectives.fully_sharded(state):
+            yield params if state is None else state.gathered(params, skip=("blocks",))
+
+    def encoder_kw(self) -> Dict[str, Any]:
+        """The encoders' parallel arguments: the GPipe runner and sequence
+        parallelism."""
+        return {"transformer_fn": self.transformer_fn, "seq_parallel": self.seq_parallel}
 
 
 def _batch(params: Params, images, token_ids):
@@ -509,7 +571,8 @@ def _needs_draw(cfg: CLIPConfig, augment, generator, patch_idx, boxes) -> None:
 
 
 def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str = "infonce",
-                       augment=None, mesh=None) -> Callable:
+                       augment=None, mesh=None, pp_microbatches: int = 0, seq_parallel: bool = False,
+                       fsdp: bool = False) -> Callable:
     """The CLIP pretraining step over the whole tree:
     ``step(params, images, token_ids, generator=None, *, patch_idx=None,
     boxes=None) -> {"loss"}``, updating ``optimizer``'s leaves of ``params``
@@ -522,10 +585,11 @@ def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str 
     like are the optimizer's leaves (:func:`set_trainable`).
 
     ``mesh``: each rank passes its rows (``sharding.shard_batch``) and its
-    local tree (``sharding.shard_params``); the loss returned is the global
-    batch's (the module note)."""
+    local tree (``sharding.shard_params``, with ``fsdp=True`` for
+    ``fsdp``); the loss returned is the global batch's.  A ``pipe`` axis,
+    ``pp_microbatches``, ``seq_parallel`` and ``fsdp``: the module note."""
     _check_loss(loss)
-    m = _Mesh(mesh, cfg, optimizer)
+    m = _Mesh(mesh, cfg, optimizer, pp_microbatches=pp_microbatches, seq_parallel=seq_parallel, fsdp=fsdp)
 
     def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,
              patch_idx=None, boxes=None) -> Dict[str, torch.Tensor]:
@@ -537,10 +601,10 @@ def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str 
         if patch_idx is None:
             patch_idx = m.patch_idx(generator, b, cfg, images.device)
         moe_losses: List[torch.Tensor] = []
-        with collectives.tensor_parallel(m.tp_group):
-            img = clip_model.encode_image(params, cfg, images, generator=generator, patch_idx=patch_idx,
-                                          moe_loss_out=moe_losses)
-            txt = clip_model.encode_text(params, cfg, ids, moe_loss_out=moe_losses)
+        with m.towers(params) as tree:
+            img = clip_model.encode_image(tree, cfg, images, generator=generator, patch_idx=patch_idx,
+                                          moe_loss_out=moe_losses, **m.encoder_kw())
+            txt = clip_model.encode_text(tree, cfg, ids, moe_loss_out=moe_losses, **m.encoder_kw())
         total = pair_loss(loss, params, img, txt, m.loss_group)
         if moe_losses:  # the Switch load balance over both towers' blocks
             total = total + cfg.moe_aux_weight * sum(moe_losses)
@@ -588,6 +652,8 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
     _check_loss(loss)
     if k < 2:
         raise ValueError("accumulation needs k >= 2 (use make_pretrain_step)")
+    if mesh is not None and mesh.pp > 1:
+        raise ValueError("GradCache accumulation composes with dp/tp meshes, not with a pipe axis")
     m = _Mesh(mesh, cfg, optimizer)
 
     def step(params: Params, images, token_ids, generator: Optional[torch.Generator] = None, *,

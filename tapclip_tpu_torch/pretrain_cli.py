@@ -23,15 +23,23 @@ with ``--resume`` (the epoch numbering continues).  Runs on ``cuda`` unless
 
 Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from the
 environment; NCCL on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``) the
-ranks form a ``(data, model)`` mesh: ``--dp`` (-1: every rank divided by
-``--tp``) and ``--tp`` (Megatron tensor parallelism in both towers'
-blocks).  Every rank reads the same stream and keeps its rows of each
-global batch (``--batch-size`` is the global batch), the negatives span it,
-and rank 0 writes the logs, the CSV and the ``.pt`` trees, gathered whole
-(``parallel.sharding.gather_params``: the layout of a one-device run);
-``--resume`` loads a whole tree and shards it.  Without ``torchrun`` the
-run is one process, as before.  Not yet ported (refused by name):
-``--pp``, ``--pp-microbatches``, ``--seq-parallel``, ``--fsdp``,
+ranks form a ``(data, model)`` mesh, or ``(data, pipe, model)`` with
+``--pp``: ``--dp`` (-1: every rank divided by ``--tp * --pp``), ``--tp``
+(Megatron tensor parallelism in both towers' blocks; ``--seq-parallel``
+adds Megatron-SP) and ``--pp`` (GPipe stages over the blocks,
+``--pp-microbatches`` M, default ``2 * pp``); ``--fsdp`` cuts the big
+weights and their AdamW moments over ``data`` (ZeRO; on one rank it warns
+and is ignored, as in the JAX CLI).  Every rank reads the same stream and
+keeps its rows of each global batch (``--batch-size`` is the global batch),
+the negatives span it, and rank 0 writes the logs, the CSV and the ``.pt``
+trees, gathered whole (``parallel.sharding.gather_params``: the layout of a
+one-device run); ``--resume`` loads a whole tree and shards it.  Under
+``--pp`` or ``--fsdp`` the validation and the zero-shot readout run on the
+whole tree, gathered on every rank.  Without ``torchrun`` the run is one
+process, as before.  The JAX CLI's refusals hold: ``--fsdp`` with
+``--lora-rank`` or ``--pp``, ``--distill-teacher`` and ``--lora-rank`` with
+``--pp`` (``--fsdp``), GradCache with ``--accum-steps`` / ``--pp`` /
+``--fsdp`` / ``--seq-parallel``.  Not yet ported (refused by name):
 ``--sharded-snapshot``, ``--moe-experts`` with ``--tp > 1`` (the JAX
 package's expert parallelism) or over more than one rank, LoRA and
 distillation with ``--tp > 1``.
@@ -41,6 +49,8 @@ Usage:
         --model ViT-B-16 --epochs 5 --batch-size 256 --lr 1e-4
     python -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --epochs 2 --device cpu
     torchrun --nproc-per-node 2 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --dp 2
+    torchrun --nproc-per-node 4 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data \
+        --pp 2 --tp 2 --seq-parallel
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from tapclip_tpu_torch import NOT_PORTED
 from tapclip_tpu_torch.config import MODEL_PRESETS, preset
 from tapclip_tpu_torch.train import apply_overrides, build_argparser, build_model, maybe_synthetic_root
 
-MESH_FLAGS = ("pp", "pp_microbatches", "seq_parallel", "fsdp", "sharded_snapshot")
+MESH_FLAGS = ("sharded_snapshot",)
 
 
 def _append_metrics_row(path: str, row: dict) -> None:
@@ -93,6 +103,15 @@ def build_parser():
                    help="data-parallel mesh size under torchrun (-1: every rank divided by --tp)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel mesh size under torchrun (Megatron in both towers' blocks)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel stages under torchrun: the block stacks over a 'pipe' mesh axis "
+                        "(GPipe schedule, parallel/pipeline.py)")
+    p.add_argument("--pp-microbatches", type=int, default=0, help="GPipe microbatch count (default 2*pp)")
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="Megatron-SP between blocks (requires --tp > 1); the same arithmetic")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO/FSDP: cut params + AdamW moments over the data axis (1/dp each); weights gather "
+                        "at their use, grads reduce-scatter. Not with --pp or --lora-rank")
     for flag in MESH_FLAGS:
         p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?", const=True,
                        help=f"({NOT_PORTED})")
@@ -173,6 +192,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
             p.error(f"--{flag.replace('_', '-')} is {NOT_PORTED}")
     if args.moe_experts and args.tp > 1:
         p.error(f"--moe-experts with --tp > 1 (expert parallelism) is {NOT_PORTED}")
+    _refuse_combinations(args)
     cfg = apply_overrides(preset(args.preset), args)
     if args.remat or args.moe_experts or args.patch_dropout or args.vpt_tokens or args.vpt_deep:
         model_cfg = cfg.model
@@ -205,6 +225,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         torch.cuda.set_device(dev)
     lead = mesh is None or mesh.rank == 0
     tp = mesh.tp if mesh is not None else 1
+    fsdp = args.fsdp and mesh is not None
+    cut = mesh is not None and (tp > 1 or mesh.pp > 1 or fsdp)  # the tree is a rank's shards
     if mesh is not None and cfg.train.batch_size % mesh.dp:
         raise ValueError(f"--batch-size {cfg.train.batch_size} (the global batch) must divide by dp={mesh.dp}")
     paths = _output_paths(lead, cfg, generate_output_paths)
@@ -212,7 +234,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if not lead:
         log.setLevel(logging.WARNING)
     if mesh is not None:
-        log.info("mesh: %s over %d ranks (backend %s)", dict(mesh.shape), mesh.dp * mesh.tp, mesh.backend)
+        log.info("mesh: %s over %d ranks (backend %s)", dict(mesh.shape), mesh.world, mesh.backend)
+    if args.fsdp and mesh is None:
+        log.warning("--fsdp ignored: single device, nothing to shard")
 
     model, preprocess = build_model(cfg, bpe_path=args.bpe_path, device=dev)
     params = model.clip_params
@@ -297,9 +321,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         from tapclip_tpu_torch.data.augment import AugmentConfig
 
         augment = AugmentConfig(scale=(args.aug_scale_min, 1.0), hflip=args.hflip)
-    if args.accum_full_negatives > 1 and args.accum_steps > 1:
-        raise ValueError("--accum-full-negatives composes with dp/tp meshes and the stochastic knobs, not with "
-                         "--accum-steps/--pp/--fsdp/--seq-parallel")
     if args.accum_full_negatives > 1 and (args.lora_rank > 0 or teacher_params is not None):
         raise ValueError("--accum-full-negatives is wired for the full-tree pretraining step only (not "
                          "--lora-rank/--distill-teacher)")
@@ -326,8 +347,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         else:
             params = tree
         opt_state = snap["opt_state"]
-        if tp > 1:  # a whole tree's moments, cut as its leaves are
-            opt_state = sharding.shard_opt_state(opt_state, mesh, params=tree)
+        if cut:  # a whole tree's moments, cut as its leaves are
+            opt_state = sharding.shard_opt_state(opt_state, mesh, fsdp, params=tree)
         start_epoch, gstep = int(snap["epoch"]) + 1, int(snap["gstep"])
         if args.shard_dir:
             loader.restore({"epoch": start_epoch - 1, "shards_done": 0})
@@ -337,8 +358,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             loader._epoch = start_epoch - 1  # the shuffle continues (seed + epoch)
         log.info("resumed from %s (epoch %d)", args.resume, start_epoch - 1)
 
-    if tp > 1:  # this rank's heads and hidden columns; the rest replicated
-        params = sharding.shard_params(params, mesh)
+    if cut:  # this rank's stage, heads and hidden columns (and FSDP shards); the rest replicated
+        params = sharding.shard_params(params, mesh, fsdp=fsdp)
         if teacher_params is not None:
             teacher_params = sharding.shard_params(teacher_params, mesh)
     if lora is not None:
@@ -369,7 +390,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         step = P.make_accum_pretrain_step(cfg.model, optimizer, args.accum_full_negatives, loss=args.loss,
                                           augment=augment, mesh=mesh)
     else:
-        step = P.make_pretrain_step(cfg.model, optimizer, loss=args.loss, augment=augment, mesh=mesh)
+        step = P.make_pretrain_step(cfg.model, optimizer, loss=args.loss, augment=augment, mesh=mesh,
+                                    pp_microbatches=args.pp_microbatches, seq_parallel=args.seq_parallel, fsdp=fsdp)
 
     ema_params = ema_update = None
     if args.ema_decay > 0 and lora is None:
@@ -397,10 +419,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     def effective(tree):  # LoRA runs evaluate the merged weights
         return merge_lora(tree, lora, alpha=args.lora_alpha) if lora is not None else tree
 
-    def whole(tree):  # the one-device layout, gathered over the model axis (every rank calls it)
-        return sharding.gather_params(tree, mesh) if tp > 1 else tree
+    def whole(tree):  # the one-device layout, gathered over the mesh (every rank calls it)
+        return sharding.gather_params(tree, mesh, fsdp=fsdp) if cut else tree
 
-    tp_group = model_group_of(mesh)
+    # Under --pp / --fsdp a rank's tree is not a tower it can run alone: the readouts take the whole tree.
+    readout_whole = mesh is not None and (mesh.pp > 1 or fsdp)
+    tp_group = None if readout_whole else model_group_of(mesh)
 
     def run_validation(tree, tag=""):
         val_loader.restore({"epoch": 0, "shards_done": 0})  # the same subset every epoch
@@ -461,18 +485,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
             log.info("[Epoch %d] contrastive loss: %.4f", epoch, avg)
             row = {"epoch": epoch, "loss": round(avg, 6), "skipped_images": getattr(loader, "skipped", 0)}
             if validate is not None:
-                entry = run_validation(effective(params))
+                entry = run_validation(whole(effective(params)) if readout_whole else effective(params))
                 if ema_params is not None:
-                    entry["ema"] = run_validation(ema_params, tag="[ema]")
+                    entry["ema"] = run_validation(whole(ema_params) if readout_whole else ema_params, tag="[ema]")
                 val_history.append(entry)
                 row.update({"val_loss": round(entry["loss"], 6),
                             **{k: round(v, 4) for k, v in entry.items() if k.startswith(("i2t_", "t2i_"))}})
             if zs_loader is not None and epoch % max(1, args.zeroshot_frequency) == 0:
-                acc = zs_acc(effective(params))
+                acc = zs_acc(whole(effective(params)) if readout_whole else effective(params))
                 row["zeroshot_acc"] = round(acc, 4)
                 msg = f"[Epoch {epoch}] zero-shot val accuracy: {acc:.2f}%"
                 if ema_params is not None:
-                    ema_acc = zs_acc(ema_params)
+                    ema_acc = zs_acc(whole(ema_params) if readout_whole else ema_params)
                     row["zeroshot_acc_ema"] = round(ema_acc, 4)
                     msg += f" | ema {ema_acc:.2f}%"
                 log.info(msg)
@@ -482,8 +506,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 # The previous snapshot goes only once the new one is in place.
                 new_snap = os.path.abspath(f"{snap_base}_e{epoch:06d}.pt")
                 opt_sd = optimizer.state_dict()
-                if tp > 1:
-                    opt_sd = sharding.gather_opt_state(opt_sd, mesh, params)
+                if cut:
+                    opt_sd = sharding.gather_opt_state(opt_sd, mesh, params, fsdp)
                 snap_tree = whole(params) if lora is None else lora
                 if not lead:
                     continue
@@ -532,9 +556,24 @@ def _mesh(args, dev):
     owns = not dist.is_initialized()
     world = init_distributed(dev)
     owns = owns and dist.is_initialized()
-    if world <= 1 and args.dp in (-1, 1) and args.tp == 1:
+    if world <= 1 and args.dp in (-1, 1) and args.tp == 1 and args.pp == 1:
         return None, owns
-    return make_mesh(dp=args.dp, tp=args.tp), owns
+    return make_mesh(dp=args.dp, tp=args.tp, pp=args.pp), owns
+
+
+def _refuse_combinations(args) -> None:
+    """The JAX CLI's refusals of the parallel forms' combinations."""
+    if args.fsdp and args.lora_rank > 0:
+        raise ValueError("--fsdp does not apply to --lora-rank runs (the adapters are KBs; shard nothing)")
+    if args.fsdp and args.pp > 1:
+        raise ValueError("--fsdp does not compose with --pp (both spread param/optimizer memory)")
+    if args.distill_teacher and (args.pp > 1 or args.fsdp):
+        raise ValueError("--distill-teacher does not compose with --pp/--fsdp yet (dp/tp only)")
+    if args.lora_rank > 0 and args.pp > 1:
+        raise ValueError("--lora-rank does not compose with --pp yet (the merged tree runs the sequential tower)")
+    if args.accum_full_negatives > 1 and (args.accum_steps > 1 or args.pp > 1 or args.fsdp or args.seq_parallel):
+        raise ValueError("--accum-full-negatives composes with dp/tp meshes and the stochastic knobs, not with "
+                         "--accum-steps/--pp/--fsdp/--seq-parallel")
 
 
 def _output_paths(lead: bool, cfg, generate_output_paths):

@@ -303,7 +303,7 @@ def _grads_leg(inp, mesh):
         x = torch.as_tensor(e["x"])
         total = P.pair_loss(loss, whole, clip_model.encode_image(whole, cfg, x), clip_model.encode_text(whole, cfg, e["ids"]))
         want = dict(zip([p for p, _ in leaves], torch.autograd.grad(total, [t for _, t in leaves])))
-        norm = P.global_norm([box["g"][p] for p in opt.paths], opt.sharded, opt.norm_group)
+        norm = P.global_norm([box["g"][p] for p in opt.paths], opt.shard_axes, opt.norm_groups)
         out["norms"][loss] = (float(norm), float(P.global_norm(list(want.values()))))
         out["errs"][loss] = max(float((got[p] - w).norm() / w.norm().clamp_min(1e-30)) for p, w in want.items()
                         if float(w.norm()) > 1e-12 and not p.endswith("attn/b_qkv"))
@@ -342,6 +342,7 @@ def legs(inp, dp, tp):
         "maple": lambda: _prompt_leg(inp, mesh, "maple", tcfg.PromptConfig(max_classes=8, maple_depth=2,
                                                                            prompt_len=2), keys=("ctx", "maple")),
         "flagship": lambda: _prompt_leg(inp, mesh, "flagship", pcfg),
+        "pallas": lambda: _prompt_leg(inp, mesh, "pallas", pcfg),
         "infonce": lambda: _pretrain_leg(inp, mesh, "infonce"),
         "clip": lambda: _pretrain_leg(inp, mesh, "infonce", grad_clip=GRAD_CLIP),
         "siglip": lambda: _pretrain_leg(inp, mesh, "siglip", loss="siglip"),
@@ -349,6 +350,192 @@ def legs(inp, dp, tp):
         "vpt": lambda: _pretrain_leg(inp, mesh, "vpt", lock_image=True),
     }
     return {name: run[name]() for name in inp["legs"]}
+
+
+# --- the pipe axis, sequence parallelism and FSDP (test_torch_pipeline.py) -----------------------
+
+
+def _pipe_layers_leg(inp, mesh):
+    """``pipeline_transformer_forward`` over pp = 2 for each M of the
+    inputs: the output (every stage's) and this stage's blocks' gradients
+    of ``sum(y ** 2)``."""
+    from tapclip_tpu_torch.parallel.pipeline import pipeline_transformer_forward
+
+    e = inp["pipe_layers"]
+    out = {}
+    for M in e["micro"]:
+        blocks = [{k: {kk: torch.from_numpy(np.asarray(v[kk])).requires_grad_(True) for kk in v} for k, v in blk.items()}
+                  for blk in e["blocks"]]
+        L, S = len(blocks), mesh.pp
+        mine = blocks[mesh.pipe_index * L // S:(mesh.pipe_index + 1) * L // S]
+        y, _ = pipeline_transformer_forward(torch.from_numpy(e["x"]), mine, e["heads"], mesh=mesh, n_microbatches=M,
+                                            act="gelu")
+        leaves = [(f"{mesh.pipe_index * L // S + i}/{k}/{kk}", t) for i, blk in enumerate(mine)
+                  for k, v in blk.items() for kk, t in v.items()]
+        grads = torch.autograd.grad((y.float() ** 2).sum(), [t for _, t in leaves])
+        out[M] = {"y": _np(y), "grads": {p: _np(g) for (p, _), g in zip(leaves, grads)}}
+    return out
+
+
+def _seq_layers_leg(inp, mesh):
+    """``layers.transformer_forward(seq_parallel=True)`` over tp = 2 at T 197
+    (padded to 198 inside, the pad keys masked) and causal, against the same
+    call with no mesh: outputs and the blocks' gradients (whole: the rank's
+    heads' cuts gathered)."""
+    from tapclip_tpu_torch.models import layers
+    from tapclip_tpu_torch.parallel import collectives
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_params
+
+    e = inp["seq_layers"]
+    x = torch.from_numpy(e["x"])
+    out = {}
+    for causal in (False, True):
+        whole = [{k: {kk: torch.from_numpy(np.asarray(v[kk])) for kk in v} for k, v in blk.items()}
+                 for blk in e["blocks"]]
+        tree = {"visual": {"blocks": whole}}
+        local = shard_params(tree, mesh)
+        leaves = [t.requires_grad_(True) for _, t in _named(local)]
+        with collectives.tensor_parallel(mesh.model_group):
+            y, _ = layers.transformer_forward(x, local["visual"]["blocks"], e["heads"], act="gelu", causal=causal,
+                                              seq_parallel=True)
+        grads = torch.autograd.grad((y.float() ** 2).sum(), leaves)
+        gtree = gather_params(_rebuild(local, grads), mesh)
+        out[causal] = {"y": _np(y), "grads": {p: _np(g) for p, g in _named(gtree)}}
+    return out
+
+
+def _named(tree):
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    return named_leaves(tree)
+
+
+def _rebuild(tree, values):
+    """``tree``'s structure with its leaves replaced, in ``named_leaves``' order."""
+    from tapclip_tpu_torch.parallel.sharding import map_with_path
+
+    index = {p: v for (p, _), v in zip(_named(tree), values)}
+    return map_with_path(lambda p, t: index[p], tree)
+
+
+def _form_leg(inp, mesh, key, pp_microbatches=0, seq_parallel=False, fsdp=False, steps=2, attn_impl=None):
+    """A pretraining form on the mesh: per-step loss, the gathered whole tree
+    after ``steps``, the first step's gradients (captured on their way to
+    the optimizer, gathered whole) against one process's gradients of the
+    whole batch (the largest norm-relative error, the key biases aside),
+    the clip's global norm as this rank reads it beside the whole batch's,
+    and the local leaves' and AdamW moments' shapes."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel.sharding import gather_params, map_with_path, shard_batch, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp[key]
+    cfg = _port_cfg(e["cfg"])
+    if attn_impl:
+        cfg = cfg.replace(attn_impl=attn_impl)
+    local = shard_params(params_from_jax(e["tree"], cfg), mesh, fsdp=fsdp)
+    opt = P.PretrainOptimizer(P.set_trainable(local), lr=LR_PRE, weight_decay=WD_PRE)
+    step = P.make_pretrain_step(cfg, opt, mesh=mesh, pp_microbatches=pp_microbatches, seq_parallel=seq_parallel,
+                                fsdp=fsdp)
+    box, update = {}, opt.update
+
+    def record(grads):
+        box.setdefault("g", [g.detach().clone() for g in grads])
+        return update(grads)
+
+    opt.update = record
+    x, ids = shard_batch((e["x"], e["ids"]), mesh)
+    losses = [float(step(local, x, ids)["loss"]) for _ in range(steps)]
+    got = dict(_named(gather_params(map_with_path(lambda p, t: box["g"][opt.paths.index(p)], local), mesh, fsdp)))
+    whole = params_from_jax(e["tree"], cfg)
+    leaves = P.set_trainable(whole)
+    total = P.pair_loss("infonce", whole, clip_model.encode_image(whole, cfg, torch.as_tensor(e["x"])),
+                        clip_model.encode_text(whole, cfg, e["ids"]))
+    want = dict(zip([p for p, _ in leaves], torch.autograd.grad(total, [t for _, t in leaves])))
+    err = max(float((got[p] - w).norm() / w.norm()) for p, w in want.items()
+              if float(w.norm()) > 1e-12 and not p.endswith("attn/b_qkv"))
+    norm = float(P.global_norm(box["g"], opt.shard_axes, opt.norm_groups))
+    moments = opt.state_dict()["moments"]
+    return {"loss": losses, "tree": _leaves(gather_params(local, mesh, fsdp)), "grad_err": err,
+            "norms": (norm, float(P.global_norm(list(want.values())))),
+            "local_shapes": {p: tuple(t.shape) for p, t in _named(local)},
+            "moment_shapes": {p: tuple(m["exp_avg"].shape) for p, m in moments.items()},
+            "place": (mesh.data_index, mesh.pipe_index, mesh.model_index)}
+
+
+def _roundtrip3_leg(inp, mesh):
+    """``shard_params`` / ``gather_params`` and ``shard_opt_state`` /
+    ``gather_opt_state`` of the TINY tree (moments made from the leaves) on
+    the 3-axis mesh, with and without FSDP: whether each gathered tree is
+    the whole one bit for bit."""
+    from tapclip_tpu_torch.parallel.sharding import gather_opt_state, gather_params, shard_opt_state, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    tree = params_from_jax(inp["infonce"]["tree"], _port_cfg(inp["infonce"]["cfg"]))
+    whole = dict(_named(tree))
+    state = {"count": 3, "mini_step": 0, "acc": {p: t * 3.0 for p, t in whole.items()},
+             "moments": {p: {"step": 3.0, "exp_avg": t * 2.0, "exp_avg_sq": t * t} for p, t in whole.items()}}
+    out = {}
+    for fsdp in (False, True):
+        local = shard_params(tree, mesh, fsdp=fsdp)
+        back = dict(_named(gather_params(local, mesh, fsdp)))
+        st = gather_opt_state(shard_opt_state(state, mesh, fsdp, params=tree), mesh, local, fsdp)
+        out[fsdp] = {
+            "params": sorted(back) == sorted(whole) and all(torch.equal(back[p], t) for p, t in whole.items()),
+            "moments": sorted(st["moments"]) == sorted(whole) and all(
+                torch.equal(st["moments"][p][k], state["moments"][p][k]) for p in whole for k in ("exp_avg", "exp_avg_sq")),
+            "acc": all(torch.equal(st["acc"][p], state["acc"][p]) for p in whole),
+            "local_blocks": len(local["visual"]["blocks"])}
+    return out
+
+
+#: (dp, pp, tp, form options) of each pretraining form of test_torch_pipeline.py
+PIPE_FORMS = {
+    "dp2": (2, 1, 1, {}),
+    "dp2pp2": (2, 2, 1, dict(pp_microbatches=4)),
+    "tp2sp": (1, 1, 2, dict(seq_parallel=True)),
+    "tp2sp197": (1, 1, 2, dict(seq_parallel=True, key="t197")),
+    "pp2tp2sp": (1, 2, 2, dict(pp_microbatches=4, seq_parallel=True)),
+    "dp2fsdp": (2, 1, 1, dict(fsdp=True)),
+    "dp2tp2fsdp": (2, 1, 2, dict(fsdp=True)),
+    "3axis_sp": (2, 2, 2, dict(pp_microbatches=4, seq_parallel=True)),
+    "3axis_fsdp": (2, 2, 2, dict(pp_microbatches=4, fsdp=True)),
+    "pp2pallas": (1, 2, 1, dict(pp_microbatches=4, attn_impl="pallas")),
+}
+
+
+def pipeline_legs(inp, dp, tp):
+    """Every leg of test_torch_pipeline.py, each on the sub-mesh of its size:
+    all ranks build each mesh (``new_group`` is collective), the ranks
+    without a cell wait, as JAX takes ``devices[:k]``."""
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+
+    def in_grid(m):
+        return bool((m.grid == m.rank).any())
+
+    out = {}
+    meshes = {}
+
+    def mesh_of(dp, pp, tp):
+        if (dp, pp, tp) not in meshes:
+            meshes[dp, pp, tp] = make_mesh(dp=dp, tp=tp, pp=pp)
+        return meshes[dp, pp, tp]
+
+    m = mesh_of(1, 2, 1)
+    if in_grid(m):
+        out["pipe_layers"] = _pipe_layers_leg(inp, m)
+    m = mesh_of(1, 1, 2)
+    if in_grid(m):
+        out["seq_layers"] = _seq_layers_leg(inp, m)
+    m = mesh_of(2, 2, 2)
+    out["roundtrip3"] = _roundtrip3_leg(inp, m)
+    for name, (dp_, pp_, tp_, kw) in PIPE_FORMS.items():
+        m = mesh_of(dp_, pp_, tp_)
+        if in_grid(m):
+            kw = dict(kw)
+            out[name] = _form_leg(inp, m, kw.pop("key", "infonce"), **kw)
+    return out
 
 
 def _main(which: str, inputs: str, out_dir: str, dp: str, tp: str) -> None:

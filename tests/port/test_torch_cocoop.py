@@ -13,8 +13,9 @@ the same numpy inputs from a seed.
   GRAD_TOL (rtol 1e-4, atol 1e-6), nonzero through the zero-init ``w2``.
 * ``make_train_step``: 3 steps in both text modes, CE alone and with each
   anchor (kg, scl, ProGrad), ``ctx`` and ``meta_net`` trained: every metric
-  (``loss_kg`` a scalar) and both leaves at TRAJ_TOL (rtol 1e-4, atol
-  5e-6, as ``test_torch_anchored.py``).
+  (``loss_kg`` a scalar) at TRAJ_TOL (rtol 1e-4, atol 5e-6, as
+  ``test_torch_anchored.py``), both leaves at TRAJ_NORM_TOL (2e-5 of each
+  leaf's norm: each f32 trajectory's distance from a float64 one, twice).
 * ``fit_prompt_model``'s default keys (``ctx`` and ``meta_net``),
   ``fit_promptsrc``'s GPA over the meta-net, ``add_class_prompt``,
   ``PredictService``'s per-sample batches and ``/explain``, and
@@ -63,6 +64,12 @@ torch.set_num_threads(1)
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 TRAJ_TOL = dict(rtol=1e-4, atol=5e-6)
+# The trained leaves after the trajectory: AdamW divides each entry's update by its own gradient's
+# scale, so an entry whose gradient is small beside the sums that make it carries their f32
+# rounding into its move.  Each f32 trajectory lies within 1e-5 of the leaf's norm from a float64
+# run of the JAX step (measured on ref_compat-ce's ctx: 5.0e-6 the port, 8.3e-6 JAX; one entry of
+# 1536 then differs by 2.4e-5 between the two), so two f32 trajectories within twice that.
+TRAJ_NORM_TOL = 2e-5
 CLASSES = ["Backpack", "Pen", "Mug"]
 MODES = ["ref_compat", "idiomatic"]
 B = 4
@@ -230,10 +237,11 @@ def test_train_step_trajectory_matches_jax(tiny, anchor, mode, terms):
         for k in tmet:
             assert tmet[k].dim() == 0, k  # loss_kg included: a scalar, as JAX's
             np.testing.assert_allclose(_np(tmet[k]), _np(jmet[k]), err_msg=k, **TRAJ_TOL)
-    np.testing.assert_allclose(_np(tstate.params["ctx"]), _np(jstate.params["ctx"]), **TRAJ_TOL)
-    for k in ("w1", "b1", "w2", "b2"):
-        np.testing.assert_allclose(_np(tstate.params["meta_net"][k]), _np(jstate.params["meta_net"][k]),
-                                   err_msg=k, **TRAJ_TOL)
+    pairs = [("ctx", tstate.params["ctx"], jstate.params["ctx"])] + [
+        (k, tstate.params["meta_net"][k], jstate.params["meta_net"][k]) for k in ("w1", "b1", "w2", "b2")]
+    for k, got, want in pairs:
+        got, want = _np(got).astype(np.float64), _np(want)
+        assert np.linalg.norm(got - want) <= TRAJ_NORM_TOL * np.linalg.norm(want), k
 
 
 # --- fit, PromptSRC, add_class -----------------------------------------------------------

@@ -2084,7 +2084,7 @@ def test_partial_attn_block_past_the_routing_limit(cuda, dtype, tol):
     cut = [_qkv_parts(wq, 2, 0).contiguous(), _qkv_parts(bq, 2, 0).contiguous(), wo[:W // 2].contiguous()]
     leaves = [t.clone().requires_grad_(True) for t in (x, gm, bt, *cut, bo)]
     n = fused_attn_block.partial_launches
-    out = _FusedAttnBlockPartial.apply(*leaves, heads // 2, T, 1e-5, None)
+    out = _FusedAttnBlockPartial.apply(*leaves, heads // 2, T, 1e-5, None, False)
     assert fused_attn_block.partial_launches == n + 1
     want = (x.float() + (attn_block_partial_reference(x, gm, bt, *cut, heads // 2, T, 1e-5) + bo)).to(dtype)
     _close(out, want, DTYPES[0][1] if dtype == torch.float32 else DTYPES[1][1])

@@ -68,6 +68,7 @@ PORT_MODULES = [
     "tapclip_tpu_torch.parallel.mesh",
     "tapclip_tpu_torch.parallel.sharding",
     "tapclip_tpu_torch.parallel.collectives",
+    "tapclip_tpu_torch.parallel.pipeline",
     "tapclip_tpu_torch.trainer",
     "tapclip_tpu_torch.serve",
     "tapclip_tpu_torch.train",
@@ -91,6 +92,7 @@ PORT_MODULES = [
     "tapclip_tpu_torch.scripts.attn_kernel_ab",
     "tapclip_tpu_torch.scripts.attn_softmax_ab",
     "tapclip_tpu_torch.scripts.time_half_blocks",
+    "tapclip_tpu_torch.scripts.profile_mesh",
     "tapclip_tpu_torch.data.augment",
     "tapclip_tpu_torch.promptsrc",
     "tapclip_tpu_torch.maple",

@@ -11,7 +11,10 @@ its mesh).  Both sides take the same weights and batches (the JAX package's
 inits, bridged by ``params_from_jax`` / ``prompt_state_from_jax``).  The
 legs are the eight of ``__graft_entry__.dryrun_multichip`` on these two
 axes, each two steps, plus idiomatic prompt tuning (the causal text tower
-under tp: the plain projections around B6):
+under tp: the plain projections around B6) and prompt tuning under
+``attn_impl="pallas"`` (K3's aux through the head-sum all-reduce and the
+flash chain's plain backward on the rank's heads; JAX runs its Pallas
+kernels in interpret mode):
 
 * prompt-tune (pixels in, ref_compat: K2 / K1 partial modes, the K3 aux
   through the head-sum all-reduce), anchored kg + scl + ProGrad (cached
@@ -68,7 +71,7 @@ torch.set_num_threads(1)
 
 TRAJ_TOL = dict(rtol=1e-4, atol=5e-6)
 GROUPS = {"dp2": (2, 1), "tp2": (1, 2), "dp2xtp2": (2, 2)}
-PROMPT_LEGS = ("prompt", "idiomatic", "anchored", "maple", "flagship")
+PROMPT_LEGS = ("prompt", "idiomatic", "anchored", "maple", "flagship", "pallas")
 PRETRAIN_LEGS = ("infonce", "clip", "siglip", "gradcache", "vpt")
 B, STEPS = 8, 2
 CLASSES = R.CLASSES
@@ -128,6 +131,7 @@ def _inputs():
         "maple_wd": 1e-4,  # optax.adamw's default, as the dryrun's MaPLe leg
         "flagship": _prompt_entry(flag, pcfg, jclip.init_clip_params(jax.random.PRNGKey(3), flag), 4, pix(flag),
                                   rng),
+        "pallas": _prompt_entry(J_TINY.replace(attn_impl="pallas"), pcfg, tiny, 1, pix(J_TINY), rng),
         "infonce": _pretrain_entry(J_TINY, tiny, B, rng),
         "siglip": _pretrain_entry(J_TINY, tiny, B, rng, siglip=True),
         "gradcache": _pretrain_entry(J_TINY, tiny, 2 * B, rng),
@@ -237,6 +241,7 @@ def _jax_legs(inp):
         "maple": _jax_prompt(inp["maple"], JPromptConfig(max_classes=8, maple_depth=2, prompt_len=2), mesh,
                              keys=("ctx", "maple"), wd=inp["maple_wd"]),
         "flagship": _jax_prompt(inp["flagship"], pcfg, mesh),
+        "pallas": _jax_prompt(inp["pallas"], pcfg, mesh),
         "infonce": _jax_pretrain(inp["infonce"], mesh),
         "clip": _jax_pretrain(inp["infonce"], mesh, grad_clip=R.GRAD_CLIP),
         "siglip": _jax_pretrain(inp["siglip"], mesh, loss="siglip"),
@@ -608,26 +613,56 @@ def test_pretrain_cli_resumes_a_whole_snapshot_under_tp(legs):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--seq-parallel"], "--seq-parallel is not yet ported"),
+    (["--sharded-snapshot"], "--sharded-snapshot is not yet ported"),
     (["--moe-experts", "2", "--tp", "2"], "--moe-experts with --tp > 1"),
+    (["--fsdp", "--lora-rank", "2"], "--fsdp does not apply to --lora-rank runs"),
+    (["--fsdp", "--pp", "2"], "--fsdp does not compose with --pp"),
+    (["--distill-teacher", "teacher.bin", "--pp", "2"], "--distill-teacher does not compose with --pp/--fsdp"),
+    (["--distill-teacher", "teacher.bin", "--fsdp"], "--distill-teacher does not compose with --pp/--fsdp"),
+    (["--lora-rank", "2", "--pp", "2"], "--lora-rank does not compose with --pp"),
+    (["--accum-full-negatives", "2", "--accum-steps", "2"], "--accum-full-negatives composes with dp/tp meshes"),
+    (["--accum-full-negatives", "2", "--pp", "2"], "--accum-full-negatives composes with dp/tp meshes"),
+    (["--accum-full-negatives", "2", "--fsdp"], "--accum-full-negatives composes with dp/tp meshes"),
+    (["--accum-full-negatives", "2", "--seq-parallel"], "--accum-full-negatives composes with dp/tp meshes"),
 ])
 def test_pretrain_cli_refuses_the_next_slices_flags(argv, match, capsys):
+    """What stays refused, by name: the sharded snapshot and expert
+    parallelism (the next slice), and the JAX CLI's refusals of the
+    parallel forms' combinations (``tapclip_tpu/pretrain_cli.py``)."""
     from tapclip_tpu_torch import pretrain_cli
 
-    with pytest.raises(SystemExit):
+    with pytest.raises((SystemExit, ValueError)) as err:
         pretrain_cli.main(["--preset", "tiny", "--device", "cpu", *argv])
-    assert match in capsys.readouterr().err
+    assert match in str(err.value) + capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--pp", "2", "--pp-microbatches", "8"], dict(pp=2, pp_microbatches=8)),
+    (["--seq-parallel", "--tp", "2"], dict(seq_parallel=True, tp=2)),
+    (["--fsdp", "--dp", "4"], dict(fsdp=True, dp=4)),
+    ([], dict(pp=1, pp_microbatches=0, seq_parallel=False, fsdp=False)),
+])
+def test_pretrain_cli_parses_the_lifted_flags(argv, want):
+    """``--pp``, ``--pp-microbatches``, ``--seq-parallel`` and ``--fsdp``
+    parse as the JAX CLI's (their runs: ``test_torch_pipeline.py``)."""
+    from tapclip_tpu_torch import pretrain_cli
+
+    args = pretrain_cli.build_parser().parse_args(argv)
+    assert {k: getattr(args, k) for k in want} == want
 
 
 def test_refusals_of_the_next_slice():
-    """FSDP placement, the pipe axis, MoE leaves under tp > 1, and a head or
-    hidden count that tp does not divide, each by name."""
+    """MoE leaves under tp > 1, a head or hidden count that tp does not
+    divide, an FSDP cut that dp does not divide, the pipe and model axes
+    over a device list, and a mesh larger than the world, each by name."""
     tree = params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY)), tcfg.TINY_TEST)
-    one = tmesh.single_device_mesh()
-    with pytest.raises(NotPortedError, match="FSDP placement"):
-        tshard.shard_params(tree, one, fsdp=True)
-    with pytest.raises(NotPortedError, match="the pipe mesh axis"):
-        tmesh.make_mesh(dp=1, pp=2)
+    three_data = tmesh.Mesh(shape={"data": 3, "model": 1}, grid=np.zeros((3, 1)))
+    with pytest.raises(ValueError, match="not divisible by dp=3 [(]FSDP[)]"):
+        tshard.shard_params(tree, three_data, fsdp=True)
+    with pytest.raises(NotPortedError, match="the pipe axis over a device list"):
+        tmesh.make_mesh(dp=1, pp=2, devices=["cpu", "cpu"])
+    with pytest.raises(NotPortedError, match="tensor parallelism over a device list"):
+        tmesh.make_mesh(dp=1, tp=2, devices=["cpu", "cpu"])
     two = tmesh.Mesh(shape={"data": 1, "model": 2}, grid=np.zeros((1, 2)))
     moe = params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY.replace(moe_experts=2))),
                           tcfg.TINY_TEST.replace(moe_experts=2))
@@ -638,6 +673,8 @@ def test_refusals_of_the_next_slice():
         tshard.shard_params(tree, three)
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tmesh.make_mesh(dp=2)  # no process group: one rank
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        tmesh.make_mesh(dp=1, tp=2, pp=2)
 
 
 def test_mesh_grid_matches_jax():

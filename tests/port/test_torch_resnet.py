@@ -18,11 +18,14 @@ from identity, weights bridged by ``params_from_jax`` (HWIO -> OIHW):
 * the RN presets' geometry, and each of RN50, RN101 and RN50x4 built,
   exported, converted back bit for bit and run at a reduced resolution;
 * an RN ``FullModel``: logits and 3 pixels-in train steps against JAX's at
-  TRAJ_TOL (rtol 1e-4, atol 5e-6), and ``/explain`` with saliency.
+  TRAJ_TOL (rtol 1e-4, atol 5e-6), and ``/explain`` with saliency (its
+  grid as the saliency grids above, plus the service's 6-decimal rounding).
 
 ``CLIPWrapper`` and ``last_layer_attention_map`` (``models/clip_wrapper.py``)
 at the tiny config: the maps (causal and not) at 1e-6, every method against
-JAX's ``CLIPWrapper`` on one JAX-exported state dict at 1e-5, and the
+JAX's ``CLIPWrapper`` on one JAX-exported state dict (the encoders' outputs at
+F32_NORM_TOL, 2e-6 of the tensor's norm: each f32 run's distance from a
+float64 one, twice), and the
 non-causal map's column T-1 equal to the attribution pass's aux (K3's
 function) at 1e-6.
 """
@@ -70,6 +73,11 @@ F32_TOL = dict(rtol=1e-5, atol=1e-6)
 TRAJ_TOL = dict(rtol=1e-4, atol=5e-6)
 SAL_TOL = 1e-5
 PROB_TOL = 1e-6  # attention probabilities, f32
+SERVE_ROUNDING = 5e-7  # PredictService rounds each value to 6 decimals
+# The tiny text and image towers' f32 outputs: the port's and XLA's sums run in different orders,
+# and each lies within about 5e-7 of the tensor's norm from a float64 run of the same tower
+# (measured on encode_text: 4.6e-7 the port, 4.5e-7 JAX), so two f32 runs within twice that.
+F32_NORM_TOL = 2e-6
 MAP_TOL = 1e-6
 
 RCFG = JCLIPConfig(name="rn-test", vision_tower="resnet", image_size=64, vision_width=16, resnet_layers=(1, 1, 1, 1),
@@ -286,8 +294,16 @@ def test_resnet_explain_with_saliency(rn):
     try:
         px = np.random.default_rng(10).integers(0, 256, (64, 64, 3), dtype=np.uint8)
         out = svc.explain(px, saliency=True)
-        want = jsal.patch_saliency(jax.tree.map(jnp.asarray, jp), RCFG, jnp.asarray(px[None]))[0]
-        np.testing.assert_allclose(np.asarray(out["saliency"]), want, atol=SAL_TOL)
+        jparams = jax.tree.map(jnp.asarray, jp)
+        want = jsal.patch_saliency(jparams, RCFG, jnp.asarray(px[None]))[0]
+        # As test_resnet_saliency_matches_jax holds the grids: the probabilities agree at PROB_TOL
+        # (f32, the convolutions' order of sums differs), and the min-max normalization divides
+        # that error by the map's range; the service rounds each entry to 6 decimals.
+        _, jprobs = jsal._jitted_resnet_saliency(RCFG)(jparams, jnp.asarray(px[None]))
+        _, probs = tsal.resnet_saliency(tp, tc, px[None])
+        np.testing.assert_allclose(_np(probs), np.asarray(jprobs), atol=PROB_TOL, rtol=0)
+        tol = PROB_TOL / float(np.ptp(np.asarray(jprobs)[0])) + SERVE_ROUNDING
+        assert np.abs(np.asarray(out["saliency"]) - want).max() <= max(SAL_TOL, tol)
         assert set(out["attribution"]) == {"Backpack", "Pen"}
         assert out["class"] == svc.predict(px)["class"]
     finally:
@@ -320,6 +336,13 @@ def test_last_layer_attention_map_matches_jax(wrappers, causal):
         assert float(torch.triu(got, diagonal=1).abs().max()) == 0.0
 
 
+def _assert_norm_close(got, want, tol=F32_NORM_TOL):
+    """``||got - want|| <= tol ||want||`` (the f32 error over the tensor's norm)."""
+    assert got.shape == want.shape
+    err = float(np.linalg.norm(got.astype(np.float64) - want) / np.linalg.norm(want))
+    assert err <= tol, err
+
+
 def test_clip_wrapper_matches_jax(wrappers):
     jw, tw = wrappers
     texts = ["a photo of a pen", "a mug"]
@@ -327,15 +350,14 @@ def test_clip_wrapper_matches_jax(wrappers):
                           np.asarray(jw.get_tokenizer().tokenize(texts, J_TINY.context_length)))
     ids = np.asarray(tw.get_tokenizer().tokenize(texts, J_TINY.context_length))
     assert tw.get_attention_map() is None
-    np.testing.assert_allclose(_np(tw.encode_text(ids)), np.asarray(jw.encode_text(jnp.asarray(ids))), **F32_TOL)
+    _assert_norm_close(_np(tw.encode_text(ids)), np.asarray(jw.encode_text(jnp.asarray(ids))))
     np.testing.assert_allclose(_np(tw.get_attention_map()), np.asarray(jw.get_attention_map()), atol=MAP_TOL, rtol=0)
     tw.reset()
     assert tw.get_attention_map() is None
     x = np.random.default_rng(12).standard_normal((2, 32, 32, 3)).astype(np.float32)
-    np.testing.assert_allclose(_np(tw.encode_image(x)), np.asarray(jw.encode_image(jnp.asarray(x))), **F32_TOL)
+    _assert_norm_close(_np(tw.encode_image(x)), np.asarray(jw.encode_image(jnp.asarray(x))))
     emb = np.random.default_rng(13).standard_normal((2, 10, J_TINY.text_width)).astype(np.float32)
-    np.testing.assert_allclose(_np(tw.transformer_raw(emb)), np.asarray(jw.transformer_raw(jnp.asarray(emb))),
-                               **F32_TOL)
+    _assert_norm_close(_np(tw.transformer_raw(emb)), np.asarray(jw.transformer_raw(jnp.asarray(emb))))
     np.testing.assert_allclose(_np(tw.get_attention_map()), np.asarray(jw.get_attention_map()), atol=MAP_TOL, rtol=0)
     pre = tw.get_preprocess()
     from PIL import Image
