@@ -5969,20 +5969,54 @@ PARTIAL_OF = {"fused_mlp": "fused_mlp_partial", "fused_attn_block": "fused_attn_
 # gloo's missing send / recv on CUDA tensors through host memory, never the
 # package: _stage_p2p_through_host).  Forms: "infonce" / "siglip" (the plain
 # step on the group's mesh: GPipe under pp > 1), "sp" (seq_parallel=True),
-# "fsdp" (fsdp=True), "pallas" (attn_impl="pallas"), "prompt" (prompt
-# tuning); ":bfloat16" for bf16.
+# "fsdp" (fsdp=True; in f32 on dp = 2 it also writes the sharded snapshot
+# after step 2), "pallas" (attn_impl="pallas"), "prompt" (prompt tuning);
+# the expert-parallel, LoRA, distillation and deep-prompt forms
+# (_parallel_mesh_form): "moe" (MoE towers, 8 experts a block), "moe4"
+# (4), "moe_fsdp" (8, FSDP), "lora" (LoRA rank 8, the adapters
+# replicated), "distill" (a ViT-B/16 teacher of other weights),
+# "vpt_deep_sp" (VPT-deep, 8 tokens, the image tower locked, SP); "resume"
+# (the dp = 2 FSDP snapshot resumed on this mesh and in rank 0's one
+# process: _parallel_resume_form); ":bfloat16" for bf16.
 PARALLEL_GROUPS = {  # (dp, pp, tp): the forms each group runs
-    (2, 1, 1): ("infonce", "siglip", "fsdp", "fsdp:bfloat16"),
-    (1, 1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16", "sp", "sp:bfloat16"),
-    (2, 1, 2): ("infonce",),
+    (2, 1, 1): ("infonce", "siglip", "fsdp", "fsdp:bfloat16", "moe", "moe_fsdp"),
+    (1, 1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16", "sp", "sp:bfloat16", "moe", "lora",
+                "distill", "vpt_deep_sp", "resume"),
+    (2, 1, 2): ("infonce", "moe4"),
     (1, 2, 1): ("infonce", "infonce:bfloat16", "pallas"),
     (2, 2, 2): ("sp", "fsdp", "sp:bfloat16", "fsdp:bfloat16"),
 }
-# The 3-axis legs run ViT-B/16's widths at 4 layers a tower (2 a stage): eight
-# ranks share the one card, and the phase must stay well inside the run's limit.
-PARALLEL_DEPTH = {(2, 2, 2): 4}
-PARALLEL_TIMEOUT = 600.0
+# The forms of _parallel_pretrain_form run ViT-B/16's widths at 4 layers a
+# tower (the 3-axis legs 2 a stage): up to eight ranks share the one card,
+# and the whole script must stay well inside its limit with the 12-layer
+# forms of _parallel_mesh_form (MoE, LoRA, distillation, VPT-deep) and the
+# snapshot's resume (at the saving form's depth) beside them.
+PARALLEL_DEPTH = {(2, 1, 1): 4, (1, 1, 2): 4, (2, 1, 2): 4, (1, 2, 1): 4, (2, 2, 2): 4}
+PARALLEL_TIMEOUT = 750.0
 FSDP_RESIDENT_MAX = 0.55  # a dp = 2 FSDP rank's (param, mu, nu) bytes over the replicated triple's
+PARALLEL_MOE_EXPERTS = {"moe": MOE_EXPERTS, "moe_fsdp": MOE_EXPERTS, "moe4": 4}
+# The MoE forms' free-running flip share against one process.  A mesh's
+# products round in another order than one process's (half the columns or
+# the rows of a cut, the partials summed over the group, half the batch a
+# rank), so a token whose top two router logits lie within that rounding
+# goes to another expert; its row then differs by a whole expert's output,
+# and through attention every later block of its sequence, in every later
+# step, routes on moved activations.  Read on an H100 80GB HBM3 at 700 W
+# (this phase, two runs), f32, 8 experts: 1.28e-3 to 1.41e-3 of the
+# tokens at dp = 2 and tp = 2 over 3 steps, 0 to 6.6e-5 in step 1 (4
+# experts at 2 x 2: none), past the MoE phase's f32 cap of 1e-3, which was
+# set for the kernel against the plain path on one process; the
+# free-running displacement then read 0.0315, 24 per unit of flip share
+# where MOE_FLIP_COEF has 8 (few flips move whole expert rows).  So the
+# mesh forms are held first with one process's routing replayed on every
+# rank (PRETRAIN_TOL: the decisions fixed, everything else the mesh's own
+# arithmetic), and free-running at the flip share's cap, 7 times the f32
+# reading (bf16: MOE_FLIP_CAP's), with the errors at MOE_FLIP_COEF's
+# limits of that cap (_moe_free_tol).
+PARALLEL_MOE_FLIP_CAP = {"float32": 1e-2, "bfloat16": MOE_FLIP_CAP["bfloat16"]}
+PARALLEL_LORA_RANK = 8
+PARALLEL_VPT_TOKENS = 8
+SNAPSHOT_STEP = 2  # the dp = 2 FSDP form's snapshot: after this many of its PARALLEL_STEPS
 
 
 def _stage_p2p_through_host() -> None:
@@ -6070,14 +6104,18 @@ def _tree_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for _, t in named_leaves(tree))
 
 
-def _parallel_pretrain_form(mesh, form: str, dtype: str, depth: int = 0) -> dict:
+def _parallel_pretrain_form(mesh, form: str, dtype: str, depth: int = 0, snapshot: str = "") -> dict:
     """PARALLEL_STEPS pretraining steps at the global batch on ``mesh`` (each
     rank its rows and its shards; ``form`` as PARALLEL_GROUPS names it;
     ``depth`` > 0 cuts both towers to that many layers), beside rank 0's
     one-process kernel path from the same tree: losses and the displacement
     of the gathered tree (PRETRAIN_TOL), this rank's launches, the bytes
     each collective moved a step, and under FSDP this rank's resident bytes
-    of the (param, mu, nu) triple against the replicated triple's."""
+    of the (param, mu, nu) triple against the replicated triple's.
+    ``snapshot`` (a directory): after step SNAPSHOT_STEP every rank writes
+    its shards there (``save_sharded_snapshot``, outside the byte counts),
+    and rank 0 writes beside it the gathered tree, the next step's loss and
+    the final tree, which the "resume" form reads."""
     import torch
 
     from tapclip_tpu_torch import pretrain as P
@@ -6107,25 +6145,33 @@ def _parallel_pretrain_form(mesh, form: str, dtype: str, depth: int = 0) -> dict
     placed = torch.cuda.memory_allocated() - before
     opt = P.PretrainOptimizer(P.set_trainable(local), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
     step = P.make_pretrain_step(cfg, opt, loss=loss, mesh=mesh, seq_parallel=seq, fsdp=fsdp)
-    losses, ms = [], []
+    losses, ms, snap = [], [], {}
     torch.cuda.synchronize()
     reset_counts()
     with _counting_collectives() as moved:
-        for x, ids in batches:
+        for i, (x, ids) in enumerate(batches):
             xb, idb = shard_batch((x, ids), mesh)
             m, t = _sync_ms(lambda: step(local, xb, idb))
             losses.append(float(m["loss"]))
             ms.append(t)
+            if snapshot and i + 1 == SNAPSHOT_STEP:
+                counted = dict(moved), dict(COLLECTIVE_CALLS)
+                snap = _save_parallel_snapshot(snapshot, local, opt, mesh, fsdp)
+                moved.update(counted[0])
+                COLLECTIVE_CALLS.update(counted[1])
         step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
         step_calls = {k: v // PARALLEL_STEPS for k, v in COLLECTIVE_CALLS.items()}
     counts = read_counts()
     moments = sum(v.numel() * v.element_size() for st in opt.adamw.state.values() for k, v in st.items()
                   if k in ("exp_avg", "exp_avg_sq"))
     whole = gather_params(local, mesh, fsdp=fsdp)
+    if snapshot and mesh.rank == 0:
+        torch.save({"tree": snap.pop("tree"), "loss": losses[SNAPSHOT_STEP], "final": _tree_copy(whole)},
+                   snapshot + "_ref.pt")
     out = {"losses": losses, "ms": ms, "launches": counts, "bytes_per_step": step_bytes,
            "calls_per_step": step_calls, "layers": cfg.vision_layers,
            "triple_bytes": _tree_bytes(local) + moments, "replicated_triple_bytes": 3 * _tree_bytes(tree0),
-           "placed_bytes": placed}
+           "placed_bytes": placed, **({"snapshot": snap} if snap else {})}
     if ref is not None:
         tol = PRETRAIN_TOL[dtype]
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
@@ -6135,6 +6181,261 @@ def _parallel_pretrain_form(mesh, form: str, dtype: str, depth: int = 0) -> dict
                 and apart <= PRETRAIN_APART,
                 f"parallel {form} {dict(mesh.shape)} {dtype}: loss {loss_err:.3e}, displacement {step_err:.3e}, "
                 f"entries apart {apart:.2e} against the one-process kernel path")
+    return out
+
+
+def _save_parallel_snapshot(path: str, local, opt, mesh, fsdp: bool) -> dict:
+    """Every rank writes its shards and moments into ``path``
+    (``save_sharded_snapshot``): the seconds it took, the directory's bytes,
+    and on rank 0 the gathered tree (``"tree"``), which the resume must
+    equal bit for bit."""
+    import torch
+
+    from tapclip_tpu_torch.parallel.sharding import gather_params
+    from tapclip_tpu_torch.utils import checkpoint as ckpt_io
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_io.save_sharded_snapshot(path, params=local, opt_state=opt.state_dict(), epoch=1, gstep=SNAPSHOT_STEP,
+                                  mesh=mesh, fsdp=fsdp)
+    save_s = time.perf_counter() - t0
+    whole = gather_params(local, mesh, fsdp=fsdp)
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return {"save_s": save_s, "bytes": size, "files": len(os.listdir(path)),
+            **({"tree": _tree_copy(whole)} if mesh.rank == 0 else {})}
+
+
+def _moe_flips(calls, ref_calls, cfg) -> dict:
+    """Per tower, the share of this rank's valid tokens routed to another
+    expert than rank 0's one process routed the same rows to (``calls`` of
+    rank 0: its rows, the first of the global batch under ``data``), over
+    every step and over the first step alone (``"step 1"``)."""
+    require(len(calls) == len(ref_calls), f"moe flips: {len(calls)} routings against {len(ref_calls)}")
+    ref = [(w, vl, e[:c[2].shape[0]].to(c[2].device), pos, keep) for (w, vl, e, pos, keep), c in zip(ref_calls, calls)]
+    first = cfg.vision_layers + cfg.text_layers
+    return {**_route_shares(calls, cfg, ref),
+            "step 1": {k: v["flip_share"] for k, v in _route_shares(calls[:first], cfg, ref[:first]).items()}}
+
+
+def _shared_routing(calls, mesh, device):
+    """Rank 0's one-process routing (``calls``, None elsewhere) on every rank
+    of ``mesh``, each call's rows cut to this rank's rows of the global
+    batch, on ``device`` (a broadcast of host copies)."""
+    import torch
+    import torch.distributed as dist
+
+    box = [None if calls is None else [(w, vl, e.cpu(), pos.cpu(), keep.cpu()) for w, vl, e, pos, keep in calls]]
+    dist.broadcast_object_list(box, src=int(mesh.grid.reshape(-1)[0]))
+    out = []
+    for w, vl, e, pos, keep in box[0]:
+        b = e.shape[0] // mesh.dp
+        rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+        out.append((w, vl, *(t[rows].to(device) for t in (e, pos, keep))))
+    torch.cuda.synchronize()
+    return out
+
+
+def _parallel_mesh_form(mesh, form: str, dtype: str) -> dict:
+    """PARALLEL_STEPS steps of a mesh form (PARALLEL_GROUPS: "moe", "moe4",
+    "moe_fsdp", "lora", "distill", "vpt_deep_sp") at the global batch on
+    ``mesh`` through the package's entry points (``shard_params``, the
+    steps' ``mesh=``), beside rank 0's one-process kernel path from the same
+    trees: losses and the trained tree's displacement at PRETRAIN_TOL (the
+    MoE forms with one process's routing replayed on every rank; then, on a
+    mesh with no data axis, free-running, the flip share at
+    PARALLEL_MOE_FLIP_CAP and the errors at the MoE phase's limits of that
+    cap), this rank's launches, the bytes and calls of each collective a
+    step, FSDP's resident triple."""
+    import torch
+
+    from tapclip_tpu_torch import distill
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models import moe
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_params
+    from tapclip_tpu_torch.peft import init_lora_params, make_lora_pretrain_step
+
+    experts = PARALLEL_MOE_EXPERTS.get(form, 0)
+    fsdp, seq = form == "moe_fsdp", form == "vpt_deep_sp"
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL].replace(dtype=dtype, moe_experts=experts)
+    if seq:
+        cfg = cfg.replace(vpt_tokens=PARALLEL_VPT_TOKENS, vpt_deep=True)
+    gen = torch.Generator(device="cuda")
+    tree0 = clip_model.init_clip_params(gen.manual_seed(PARALLEL_SEED), cfg)
+    teacher0 = (clip_model.init_clip_params(gen.manual_seed(PARALLEL_SEED + 1), cfg) if form == "distill"
+                else None)
+    lora0 = (init_lora_params(gen.manual_seed(PARALLEL_SEED + 2), tree0, rank=PARALLEL_LORA_RANK) if form == "lora"
+             else None)
+    batches = [_pretrain_batch(cfg, PARALLEL_BATCH, 30 + i) for i in range(PARALLEL_STEPS)]
+
+    def run(m, route=None):
+        tree = _tree_copy(tree0)
+        local = tree if m is None else shard_params(tree, m, fsdp=fsdp)
+        if lora0 is not None:
+            P.set_trainable(local, {p: False for p, _ in P.named_leaves(local)})
+            trained = _tree_copy(lora0)
+            opt = P.PretrainOptimizer(P.set_trainable(trained), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+            step = make_lora_pretrain_step(cfg, opt, mesh=m)
+            call = lambda x, ids: step(local, trained, x, ids)  # noqa: E731
+        elif teacher0 is not None:
+            teacher = _tree_copy(teacher0)
+            teacher = teacher if m is None else shard_params(teacher, m)
+            opt = P.PretrainOptimizer(P.set_trainable(local), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+            step = distill.make_distill_step(cfg, cfg, opt, tau=2.0, mesh=m)
+            call = lambda x, ids: step(local, teacher, x, ids)  # noqa: E731
+        else:
+            mask = P.lock_tower_trainable(local, lock_image=True) if seq else None
+            opt = P.PretrainOptimizer(P.set_trainable(local, mask), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+            step = P.make_pretrain_step(cfg, opt, mesh=m, seq_parallel=seq and m is not None,
+                                        fsdp=fsdp and m is not None)
+            call = lambda x, ids: step(local, x, ids)  # noqa: E731
+        calls, losses, ms = [], [], []
+        torch.cuda.synchronize()
+        reset_counts()
+        if experts:
+            route = patched(moe, "route", route or _recording(calls))
+        else:
+            route = contextlib.nullcontext()
+        with route, _counting_collectives() as moved:
+            for x, ids in batches:
+                xb, idb = (x, ids) if m is None else shard_batch((x, ids), m)
+                r, t = _sync_ms(lambda: call(xb, idb))
+                losses.append(float(r["loss"]))
+                ms.append(t)
+            step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
+            step_calls = {k: v // PARALLEL_STEPS for k, v in COLLECTIVE_CALLS.items()}
+        counts = read_counts()
+        moments = sum(v.numel() * v.element_size() for st in opt.adamw.state.values() for k, v in st.items()
+                      if k in ("exp_avg", "exp_avg_sq"))
+        out = {"losses": losses, "ms": ms, "launches": counts, "bytes_per_step": step_bytes,
+               "calls_per_step": step_calls, "triple_bytes": _tree_bytes(local) + moments}
+        if lora0 is not None:
+            final = trained
+        else:
+            final = local if m is None else gather_params(local, m, fsdp=fsdp)
+        return out, final, calls
+
+    ref = None
+    if mesh.rank == 0:
+        r_out, r_final, r_calls = run(None)
+        ref = (r_out, _tree_copy(r_final), r_calls)
+        del r_final
+        torch.cuda.empty_cache()
+    start = lora0 if lora0 is not None else tree0
+
+    def held(out, final, tol, what):
+        """Rank 0: the mesh run's losses and displacement against one process's."""
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(out["losses"], ref[0]["losses"]))
+        step_err, apart, worst = _displacement(final, start, ref[1], start, PRETRAIN_LR, PARALLEL_STEPS)
+        require(np.isfinite(out["losses"]).all() and loss_err <= tol["loss"] and step_err <= tol["step"]
+                and apart <= PRETRAIN_APART,
+                f"parallel {form} {dict(mesh.shape)} {dtype}{what}: loss {loss_err:.3e} (tol {tol['loss']:.3g}), "
+                f"displacement {step_err:.3e} (tol {tol['step']:.3g}), entries apart {apart:.2e} against the "
+                f"one-process kernel path")
+        return {"loss_err": loss_err, "step_err": step_err, "apart": apart, "worst": worst}
+
+    replayed = None
+    if experts:  # one process's routing on every rank: the strict check
+        fn, left = _replaying(_shared_routing(None if ref is None else ref[2], mesh, tree0["logit_scale"].device))
+        r_out, r_final, _ = run(mesh, fn)
+        require(not left, f"parallel {form}: {len(left)} recorded routings not replayed")
+        if ref is not None:
+            replayed = {"losses": r_out["losses"], **held(r_out, r_final, PRETRAIN_TOL[dtype], ", routing replayed")}
+        if mesh.dp > 1:  # the data-parallel MoE forms: held with the replayed routing alone
+            r_out.update(layers=cfg.vision_layers, replicated_triple_bytes=3 * _tree_bytes(tree0))
+            if replayed is not None:
+                r_out.update(ref_losses=ref[0]["losses"], ref_ms=ref[0]["ms"], replayed=replayed,
+                             **{k: replayed[k] for k in ("loss_err", "step_err", "apart", "worst")})
+            return r_out
+        del r_final
+        torch.cuda.empty_cache()
+    out, final, calls = run(mesh)
+    out.update(layers=cfg.vision_layers, replicated_triple_bytes=3 * _tree_bytes(tree0))
+    if ref is not None:
+        tol = dict(PRETRAIN_TOL[dtype])
+        if experts:
+            shares = _moe_flips(calls, ref[2], cfg)
+            flip = max(t["flip_share"] for k, t in shares.items() if k != "step 1")
+            require(flip <= PARALLEL_MOE_FLIP_CAP[dtype], f"parallel {form} {dict(mesh.shape)} {dtype}: flip share "
+                    f"{flip:.3e} (cap {PARALLEL_MOE_FLIP_CAP[dtype]}) against one process")
+            tol.update({k: v for k, v in _moe_free_tol(dtype, PARALLEL_MOE_FLIP_CAP[dtype]).items()
+                        if k in ("loss", "step")})
+            out.update(moe_shares=shares, replayed=replayed)
+        out.update(ref_losses=ref[0]["losses"], ref_ms=ref[0]["ms"], tol={k: tol[k] for k in ("loss", "step")},
+                   **held(out, final, tol, ", free-running" if experts else ""))
+    return out
+
+
+def _parallel_resume_form(mesh, snapshot: str) -> dict:
+    """The dp = 2 FSDP form's sharded snapshot (``snapshot``, its step
+    SNAPSHOT_STEP) resumed on ``mesh`` and, on rank 0, in one process, each
+    into a fresh tree and optimizer (``restore_sharded_snapshot`` of an
+    ``abstract_target``): the resumed tree equal to the gathered one bit for
+    bit, then the next step's loss and displacement against the
+    uninterrupted step at PRETRAIN_TOL; the seconds to resume; this rank's
+    launches in the mesh's step."""
+    import torch
+
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.config import MODEL_PRESETS
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_params
+    from tapclip_tpu_torch.pretrain import named_leaves
+    from tapclip_tpu_torch.utils import checkpoint as ckpt_io
+
+    cfg = MODEL_PRESETS[PRETRAIN_MODEL]
+    depth = PARALLEL_DEPTH.get((2, 1, 1), 0)  # the saving form's
+    if depth:
+        cfg = cfg.replace(vision_layers=depth, text_layers=depth)
+    x, ids = _pretrain_batch(cfg, PARALLEL_BATCH, 30 + SNAPSHOT_STEP)  # the uninterrupted run's next batch
+    ref = torch.load(snapshot + "_ref.pt", map_location="cuda", weights_only=True) if mesh.rank == 0 else None
+    tree0 = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(PARALLEL_SEED + 7), cfg)
+    out, counts, losses = {}, {}, []
+    tol = PRETRAIN_TOL["float32"]
+    for where, m in (("mesh", mesh), ("one", None)):
+        if m is None and mesh.rank != 0:
+            continue
+        local = _tree_copy(tree0) if m is None else shard_params(_tree_copy(tree0), m)
+        opt = P.PretrainOptimizer(P.set_trainable(local), lr=PRETRAIN_LR, weight_decay=PRETRAIN_WD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ckpt_io.restore_sharded_snapshot(snapshot, ckpt_io.abstract_target(local, m), m, trained=opt.paths)
+        with torch.no_grad():
+            for p, t in named_leaves(local):
+                t.copy_(got["params"][p])
+        require(got["opt_state"] is not None, f"resume {where}: the moments did not match by key path")
+        opt.load_state_dict(got["opt_state"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        whole = _tree_copy(local) if m is None else gather_params(local, m)  # the step updates local in place
+        step = P.make_pretrain_step(cfg, opt, mesh=m)
+        xb, idb = (x, ids) if m is None else shard_batch((x, ids), m)
+        reset_counts()
+        with _counting_collectives() as moved:
+            r, ms = _sync_ms(lambda: step(local, xb, idb))
+            step_bytes, step_calls = dict(moved), dict(COLLECTIVE_CALLS)
+        if m is not None:
+            counts = read_counts()
+            out.update(losses=[float(r["loss"])], ms=[ms], bytes_per_step=step_bytes, calls_per_step=step_calls)
+        final = local if m is None else gather_params(local, m)
+        if ref is not None:
+            saved = dict(named_leaves(ref["tree"]))
+            got_leaves = dict(named_leaves(whole))
+            equal = sorted(got_leaves) == sorted(saved) and all(torch.equal(t, saved[p]) for p, t in got_leaves.items())
+            loss_err = abs(float(r["loss"]) - ref["loss"]) / abs(ref["loss"])
+            step_err, apart, _ = _displacement(final, whole, ref["final"], ref["tree"], PRETRAIN_LR, 1)
+            out[where] = {"equal": equal, "resume_s": resume_s, "loss": float(r["loss"]), "loss_err": loss_err,
+                          "step_err": step_err, "apart": apart, "ms": ms, "epoch": got["epoch"],
+                          "gstep": got["gstep"]}
+            require(equal and loss_err <= tol["loss"] and step_err <= tol["step"] and apart <= PRETRAIN_APART,
+                    f"resume {where} {dict(mesh.shape)}: equal {equal}, loss {loss_err:.3e}, displacement "
+                    f"{step_err:.3e}, entries apart {apart:.2e} against the uninterrupted step")
+            losses.append(float(r["loss"]))
+    out.update(launches=counts, layers=cfg.vision_layers)
+    if ref is not None:
+        out.update(ref_losses=[ref["loss"]], ref_ms=out["ms"], loss_err=out["mesh"]["loss_err"],
+                   step_err=out["mesh"]["step_err"], apart=out["mesh"]["apart"])
     return out
 
 
@@ -6220,15 +6521,23 @@ def parallel_rank_main(argv) -> int:
             _stage_p2p_through_host()
         _build.library()  # the parent's build, loaded
         mesh = make_mesh(dp=dp, tp=tp, pp=pp, backend=backend)
+        snapshot = os.path.join(os.path.dirname(os.path.abspath(out_dir)), "snapshot")
         res = {}
         for form in forms:
             t0 = time.perf_counter()
             name, _, dtype = form.partition(":")
             if name == "prompt":
                 res[form] = _parallel_prompt_form(mesh, dtype or "float32")
+            elif name == "resume":
+                res[form] = _parallel_resume_form(mesh, snapshot)
+            elif name in PARALLEL_MOE_EXPERTS or name in ("lora", "distill", "vpt_deep_sp"):
+                res[form] = _parallel_mesh_form(mesh, name, dtype or "float32")
             else:
-                res[form] = _parallel_pretrain_form(mesh, name, dtype or "float32", depth)
+                saves = (dp, pp, tp) == (2, 1, 1) and form == "fsdp"  # the snapshot "resume" reads
+                res[form] = _parallel_pretrain_form(mesh, name, dtype or "float32", depth,
+                                                    snapshot=snapshot if saves else "")
             res[form]["seconds"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()  # the next form's trees: ranks share one card
             r0 = res[form]
             if backend == "nccl" and mesh.rank == 0:
                 errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
@@ -6431,6 +6740,12 @@ def _check_form_launches(form: str, ranks, dp: int, pp: int, tp: int) -> None:
             for k in PALLAS_KERNELS:
                 require(c.get(k, 0) > 0, f"parallel dp={dp} pp={pp} tp={tp} {form}: rank {r} launched no {k}: {c}")
             continue
+        if name in PARALLEL_MOE_EXPERTS:  # MoE blocks: B6 and B7 on the rank's heads, no dense-MLP kernel
+            for k in ("fused_mha", "fused_mha_bwd"):
+                require(c.get(k, 0) > 0, f"parallel dp={dp} pp={pp} tp={tp} {form}: rank {r} launched no {k}: {c}")
+            require(all(c.get(k, 0) == 0 for k in (*PARTIAL_OF, *PARTIAL_OF.values())),
+                    f"parallel {form}: rank {r} launched a dense block's kernel in an MoE tower: {c}")
+            continue
         want = [k for k in PARALLEL_KERNELS if k != "fused_attention_aux" or prompt]
         if prompt:  # the frozen image tower runs K2 / K1 forward only
             want = [k for k in want if k not in ("fused_mha", "fused_mha_bwd")]
@@ -6443,15 +6758,64 @@ def _check_form_launches(form: str, ranks, dp: int, pp: int, tp: int) -> None:
                     f"launched a whole-block kernel where its partial mode belongs: {c}")
 
 
+def _report_form(form: str, ranks, dp: int, pp: int, tp: int, card: str) -> None:
+    """Check one form's results from every rank of its group (launches,
+    FSDP's resident triple) and print its line: rank 0's losses against
+    one process, errors, ms, launches, the bytes and calls of its
+    collectives, and what the form adds (routing, snapshot, resume)."""
+    _check_form_launches(form, ranks, dp, pp, tp)
+    r0 = ranks[0][form]
+    errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
+    triple = ""
+    if form.startswith(("fsdp", "moe_fsdp")):
+        shares = [res[form]["triple_bytes"] / res[form]["replicated_triple_bytes"] for res in ranks]
+        triple = (f"; resident (param, mu, nu) per rank {[res[form]['triple_bytes'] for res in ranks]} "
+                  f"bytes, {max(shares):.4f} of the replicated triple's "
+                  f"{r0['replicated_triple_bytes']} (placement: memory_allocated grew "
+                  f"{[res[form].get('placed_bytes') for res in ranks]} bytes)")
+        if (dp, pp, tp) == (2, 1, 1):
+            require(max(shares) <= FSDP_RESIDENT_MAX, f"parallel dp=2 {form}: a rank holds "
+                    f"{max(shares):.4f} of the replicated triple (limit {FSDP_RESIDENT_MAX})")
+    extra = ""
+    if "replayed" in r0:
+        rp = r0["replayed"]
+        extra += (f"; with one process's routing replayed on every rank: loss {[round(v, 5) for v in rp['losses']]}, "
+                  f"loss err {rp['loss_err']:.2e}, displacement {rp['step_err']:.2e}, entries apart {rp['apart']:.2e} "
+                  f"(PRETRAIN_TOL)")
+    if "moe_shares" in r0:
+        extra += (f"; free-running (the errors above, at limits {r0['tol']}): routing per tower, rank 0 against one "
+                  f"process, {r0['moe_shares']}")
+    if "snapshot" in r0:
+        sn = r0["snapshot"]
+        extra += (f"; sharded snapshot after step {SNAPSHOT_STEP}: {sn['files']} files, {sn['bytes']} "
+                  f"bytes, written in {sn['save_s']:.2f} s (rank 0)")
+    if form == "resume":
+        extra += "; resumed " + ", ".join(
+            f"{w} {'bit for bit' if r0[w]['equal'] else 'NOT EQUAL'} in {r0[w]['resume_s']:.2f} s, "
+            f"next step loss err {r0[w]['loss_err']:.2e}, displacement {r0[w]['step_err']:.2e}"
+            for w in ("mesh", "one"))
+    print(f"parallel dp={dp} pp={pp} tp={tp} {form} (gloo, {dp * pp * tp} ranks sharing one card, "
+          f"{r0.get('layers', 12)} layers a tower; not a scaling figure): loss "
+          f"{[round(v, 5) for v in r0['losses']]} vs one process {[round(v, 5) for v in r0['ref_losses']]}, "
+          f"errors {errs}; ms per step rank 0 {[round(v, 1) for v in r0['ms']]} (one process "
+          f"{[round(v, 1) for v in r0['ref_ms']]}); launches per rank "
+          f"{[{k: v for k, v in res[form]['launches'].items() if v} for res in ranks]}; bytes a step "
+          f"moved by rank 0's collectives (from their tensors' shapes) {r0['bytes_per_step']}, calls "
+          f"{r0.get('calls_per_step')}{triple}{extra}; {r0['seconds']:.1f} s ({card})", flush=True)
+
+
 def parallel_phase(model, card: str) -> dict:
     """The "parallel" phase: (a) NCCL world 1 bit for bit, (b)/(c) gloo groups
     of 2, 4 and 8 ranks sharing the one card (PARALLEL_GROUPS: dp = 2
-    InfoNCE, SigLIP and FSDP, tp = 2 InfoNCE, prompt tuning and SP, 2 x 2,
-    pp = 2 InfoNCE and pallas, the 3-axis SP and FSDP legs) against rank 0's
-    one-process kernel path, with each rank's launches, the bytes and calls
-    of each collective a step, and FSDP's resident triple, (d) dp replicas
-    of serve, featurize and predict.  Ranks on one card over gloo check the
-    code paths and the kernels; their times are not a scaling figure."""
+    InfoNCE, SigLIP, FSDP, MoE and MoE + FSDP, tp = 2 InfoNCE, prompt
+    tuning, SP, MoE (expert parallelism), LoRA, distillation and VPT-deep +
+    SP, 2 x 2 InfoNCE and MoE, pp = 2 InfoNCE and pallas, the 3-axis SP and
+    FSDP legs) against rank 0's one-process kernel path, with each rank's
+    launches, the bytes and calls of each collective a step, and FSDP's
+    resident triple; the dp = 2 FSDP form's sharded snapshot resumed on tp =
+    2 and in one process ("resume"); (d) dp replicas of serve, featurize and
+    predict.  Ranks on one card over gloo check the code paths and the
+    kernels; their times are not a scaling figure."""
     import shutil
     import tempfile
 
@@ -6467,27 +6831,7 @@ def parallel_phase(model, card: str) -> dict:
             ranks = [json.load(open(os.path.join(d, f"rank{r}.json"))) for r in range(dp * pp * tp)]
             groups[(dp, pp, tp)] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
             for form in PARALLEL_GROUPS[(dp, pp, tp)]:
-                _check_form_launches(form, ranks, dp, pp, tp)
-                r0 = ranks[0][form]
-                errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
-                triple = ""
-                if form.startswith("fsdp"):
-                    shares = [res[form]["triple_bytes"] / res[form]["replicated_triple_bytes"] for res in ranks]
-                    triple = (f"; resident (param, mu, nu) per rank {[res[form]['triple_bytes'] for res in ranks]} "
-                              f"bytes, {max(shares):.4f} of the replicated triple's "
-                              f"{r0['replicated_triple_bytes']} (placement: memory_allocated grew "
-                              f"{[res[form]['placed_bytes'] for res in ranks]} bytes)")
-                    if (dp, pp, tp) == (2, 1, 1):
-                        require(max(shares) <= FSDP_RESIDENT_MAX, f"parallel dp=2 {form}: a rank holds "
-                                f"{max(shares):.4f} of the replicated triple (limit {FSDP_RESIDENT_MAX})")
-                print(f"parallel dp={dp} pp={pp} tp={tp} {form} (gloo, {dp * pp * tp} ranks sharing one card, "
-                      f"{r0.get('layers', 12)} layers a tower; not a scaling figure): loss "
-                      f"{[round(v, 5) for v in r0['losses']]} vs one process {[round(v, 5) for v in r0['ref_losses']]}, "
-                      f"errors {errs}; ms per step rank 0 {[round(v, 1) for v in r0['ms']]} (one process "
-                      f"{[round(v, 1) for v in r0['ref_ms']]}); launches per rank "
-                      f"{[{k: v for k, v in res[form]['launches'].items() if v} for res in ranks]}; bytes a step "
-                      f"moved by rank 0's collectives (from their tensors' shapes) {r0['bytes_per_step']}, calls "
-                      f"{r0.get('calls_per_step')}{triple}; {r0['seconds']:.1f} s ({card})", flush=True)
+                _report_form(form, ranks, dp, pp, tp, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     d = _dp_replicas(model, card)

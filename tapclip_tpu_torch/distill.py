@@ -16,8 +16,13 @@ the gradient reaches the student tree, ``kd_proj`` included.  Under a
 mesh (``make_distill_step(mesh=)``), :func:`distill_loss_global` takes this
 rank's rows against every rank's columns for the task InfoNCE and the KD
 KL, and returns its share of the global objective; the student's gradients
-are summed over ``data`` as in ``pretrain.py``.  Tensor parallelism of the
-student or the teacher is not yet ported (refused by name).
+are summed over ``data`` as in ``pretrain.py``.  Under a ``model`` axis
+both towers of both models run tensor parallel: each rank holds its shards
+of the student and of the teacher (each cut with its own config's heads and
+hidden width by ``sharding.shard_params``), the teacher's blocks run their
+partial modes under ``inference_mode``, and ``kd_proj`` stays replicated.
+The step refuses the pipe axis, and ``pretrain_cli`` FSDP and MoE
+students, in the JAX CLI's words.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ import torch
 
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.parallel import collectives
 from tapclip_tpu_torch.pretrain import (
     PretrainOptimizer, _batch, _clamp_logit_scale, _Mesh, contrastive_loss_global, contrastive_loss_local,
@@ -118,22 +122,22 @@ def make_distill_step(student_cfg: CLIPConfig, teacher_cfg: CLIPConfig, optimize
     "feat"}``: the teacher's features with no graph, the student's loss and
     one update of ``optimizer``'s leaves of ``student`` in place, then the
     ``logit_scale`` clamp.  ``mesh``: each rank passes its rows; the values
-    are the global batch's."""
-    m = _Mesh(mesh, student_cfg)
-    if m.tp_group is not None:
-        raise NotPortedError("distillation under tp > 1")
+    are the global batch's; under a ``model`` axis each rank passes its
+    shards of both trees (the module note)."""
+    m = _Mesh(mesh, student_cfg, optimizer)
     if m.transformer_fn is not None:
         raise ValueError("--distill-teacher does not compose with --pp/--fsdp yet (dp/tp only)")
 
     def step(student: Params, teacher: Params, images, token_ids) -> Dict[str, torch.Tensor]:
         images, ids = _batch(student, images, token_ids)
-        with torch.inference_mode():
-            t_img = clip_model.encode_image(teacher, teacher_cfg, images)
-            t_txt = clip_model.encode_text(teacher, teacher_cfg, ids)
-        t_img, t_txt = t_img.clone(), t_txt.clone()  # out of inference mode, usable under a graph
+        with collectives.tensor_parallel(m.tp_group):
+            with torch.inference_mode():
+                t_img = clip_model.encode_image(teacher, teacher_cfg, images)
+                t_txt = clip_model.encode_text(teacher, teacher_cfg, ids)
+            t_img, t_txt = t_img.clone(), t_txt.clone()  # out of inference mode, usable under a graph
+            s_img = clip_model.encode_image(student, student_cfg, images)
+            s_txt = clip_model.encode_text(student, student_cfg, ids)
         t_scale = teacher["logit_scale"].detach()
-        s_img = clip_model.encode_image(student, student_cfg, images)
-        s_txt = clip_model.encode_text(student, student_cfg, ids)
         args = (s_img, s_txt, t_img, t_txt, student["logit_scale"], t_scale, student.get("kd_proj"))
         kw = dict(tau=tau, w_task=w_task, w_kd=w_kd, w_feat=w_feat)
         if m.loss_group is not None:

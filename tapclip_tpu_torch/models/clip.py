@@ -27,9 +27,11 @@ blocks sequence parallel over the ``model`` group, JAX's ``act_sharding``).
 
 ``moe_experts > 0`` gives both ViT towers mixture-of-experts blocks
 (``models/moe.py``, picked by :func:`_pick_transformer_fn`); the encoders
-append each tower's summed load-balance term to ``moe_loss_out``.  As in the
-JAX package, MoE refuses the RN tower, MaPLe's prompts, deep VPT, token
-pruning and the int8 tower.
+append each tower's summed load-balance term to ``moe_loss_out``.  Under a
+``model`` group the MoE blocks take the rank's heads and experts (expert
+parallelism), and ``seq_parallel`` reaches them too.  As in the JAX
+package, MoE refuses the RN tower, MaPLe's prompts, deep VPT, token
+pruning, the int8 tower and the pipe axis.
 """
 
 from __future__ import annotations
@@ -59,15 +61,15 @@ def check_supported(cfg: CLIPConfig) -> None:
 
 def _pick_transformer_fn(cfg: CLIPConfig, transformer_fn=None, seq_parallel: bool = False):
     """The block-stack runner: an explicit override (pipeline parallelism),
-    the MoE blocks (``cfg.moe_experts``) or the dense ones; ``seq_parallel``
-    is passed to the dense runners."""
+    the MoE blocks (``cfg.moe_experts``; expert parallel under a ``model``
+    group) or the dense ones; ``seq_parallel`` is passed to either."""
     if cfg.moe_experts > 0:
         if transformer_fn is not None:
             raise NotImplementedError("pipeline parallelism over MoE towers is not supported (expert + pipeline "
                                       "sharding do not compose yet)")
-        _refuse_under_tp("MoE towers (moe_experts)")
-        return functools.partial(moe.moe_transformer_forward, capacity_factor=cfg.moe_capacity_factor)
-    run = transformer_fn or layers.transformer_forward
+        run = functools.partial(moe.moe_transformer_forward, capacity_factor=cfg.moe_capacity_factor)
+    else:
+        run = transformer_fn or layers.transformer_forward
     return functools.partial(run, seq_parallel=True) if seq_parallel else run
 
 

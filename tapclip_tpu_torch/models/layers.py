@@ -60,7 +60,11 @@ run the LayerNorm on the rank's rows, all-gather its output
 (``gather_seq``) into the column-parallel product and reduce-scatter the
 row-parallel product (``scatter_seq_sum``); the LayerNorm's scale and bias
 and the output bias then pass through ``copy_to_model``, whose backward
-sums their gradients, each of the rank's rows only, over the group.
+sums their gradients, each of the rank's rows only, over the group.  Deep
+prompts (VPT-deep, MaPLe's ``layer_prompts``) overwrite their slots on
+whichever ranks hold them after the pad (a range may straddle two ranks);
+the prompts pass through ``copy_to_model``, so their gradient, each rank's
+slots' part, is summed over the group.
 
 **FSDP** (``collectives.fully_sharded`` around a step's forward): each
 block's leaves cut over ``data`` are all-gathered at the block's use
@@ -305,8 +309,9 @@ def transformer_forward(
     ``i``'s output, so block ``i+1`` sees fresh prompts at its input; the
     last block's output is never overwritten.  ``prompt_mask [n_layers-1]``
     (bool; None: every row) leaves the rows it marks False inert.  The
-    overwrite is out of place (a new tensor from ``torch.cat``): the kernels'
-    autograd Functions save their inputs for the backward.
+    overwrite is out of place (a new tensor from ``torch.cat``, or a
+    ``torch.where`` on the rank's rows under sequence parallelism): the
+    kernels' autograd Functions save their inputs for the backward.
 
     ``remat`` (``CLIPConfig.remat``: "none", "dots" or "full") checkpoints
     each block under a graph (``torch.utils.checkpoint``, non-reentrant):
@@ -322,14 +327,7 @@ def transformer_forward(
     seq = seq_parallel and tp_group is not None
     T = x.shape[1]
     if seq:
-        if layer_prompts is not None:
-            raise NotPortedError("deep prompts (VPT-deep, MaPLe) under sequence parallelism")
-        n = collectives.size(tp_group)
-        Tp = -(-T // n) * n
-        if Tp != T:  # pad rows: masked as keys, sliced off after the tower
-            x = torch.nn.functional.pad(x, (0, 0, 0, Tp - T))
-            kv_valid_len = T if kv_valid_len is None else kv_valid_len
-        x = collectives.split_seq(x, tp_group)
+        x, kv_valid_len = enter_seq(x, tp_group, kv_valid_len)
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
               quantize=quantize, quantize_deterministic=quantize_deterministic, tp_group=tp_group, seq=seq,
               fsdp=collectives.current_fsdp())
@@ -341,6 +339,37 @@ def transformer_forward(
     return x, aux
 
 
+def enter_seq(x: torch.Tensor, tp_group, kv_valid_len):
+    """``x [B, T, W]`` (every rank's) -> (this rank's ``T/n`` rows, the key
+    length to mask): T padded to a multiple of the group's size first, the
+    pad rows masked as keys (``kv_valid_len``, T when it was None) and
+    sliced off after the tower."""
+    T = x.shape[1]
+    n = collectives.size(tp_group)
+    Tp = -(-T // n) * n
+    if Tp != T:
+        x = torch.nn.functional.pad(x, (0, 0, 0, Tp - T))
+        kv_valid_len = T if kv_valid_len is None else kv_valid_len
+    return collectives.split_seq(x, tp_group), kv_valid_len
+
+
+def _overwrite_rows(x: torch.Tensor, rows: torch.Tensor, offset: int, seq: bool, tp_group) -> torch.Tensor:
+    """``x`` with token slots ``offset .. offset + P`` set to ``rows [P, W]``,
+    out of place.  ``seq``: ``x`` is this rank's ``T/n`` rows, and only the
+    slots it holds are set (a range may straddle two ranks); every rank
+    selects from ``rows`` (a ``torch.where``), so every rank's graph holds
+    it and its gradient, each rank's slots' part, meets the others in the
+    caller's all-reduce."""
+    P = rows.shape[0]
+    if not seq:
+        rows = rows.to(x.dtype).expand(x.shape[0], P, x.shape[-1])
+        return torch.cat([x[:, :offset], rows, x[:, offset + P:]], dim=1)
+    Tl = x.shape[1]
+    pos = torch.arange(Tl, device=x.device) + collectives.rank_in(tp_group) * Tl - offset
+    held = (pos >= 0) & (pos < P)
+    return torch.where(held[None, :, None], rows[pos.clamp(0, P - 1)].to(x.dtype)[None], x)
+
+
 def run_blocks(x, blocks: List[Params], n_heads: int, remat: str, kw: Dict[str, Any], *, attn_to_idx=None,
                layer_prompts=None, prompt_offset: int = 1, prompt_mask=None):
     """The loop over the blocks (:func:`block_forward` with ``kw``), the
@@ -348,6 +377,9 @@ def run_blocks(x, blocks: List[Params], n_heads: int, remat: str, kw: Dict[str, 
     arguments of :func:`transformer_forward`)."""
     active = [] if layer_prompts is None else (
         [True] * layer_prompts.shape[0] if prompt_mask is None else [bool(m) for m in prompt_mask])
+    seq = kw.get("seq", False)
+    if seq and any(active):  # each rank sets its slots: the prompts' gradient summed over the group
+        layer_prompts = collectives.copy_to_model(layer_prompts, kw["tp_group"])
     checkpointed = remat != "none" and torch.is_grad_enabled()
     last, aux = len(blocks) - 1, None
     for i, blk in enumerate(blocks):
@@ -357,7 +389,5 @@ def run_blocks(x, blocks: List[Params], n_heads: int, remat: str, kw: Dict[str, 
         else:
             x, aux = block_forward(x, blk, n_heads, attn_to_idx=to_idx, **kw)
         if i < last and i < len(active) and active[i]:
-            P = layer_prompts.shape[1]
-            rows = layer_prompts[i].to(x.dtype).expand(x.shape[0], P, x.shape[-1])
-            x = torch.cat([x[:, :prompt_offset], rows, x[:, prompt_offset + P:]], dim=1)
+            x = _overwrite_rows(x, layer_prompts[i], prompt_offset, seq, kw.get("tp_group"))
     return x, aux

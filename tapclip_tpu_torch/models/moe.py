@@ -41,6 +41,37 @@ The load-balance term is the Switch one, ``E * sum_e f_e p_e`` (1 at
 perfect balance), averaged over the groups; :func:`moe_transformer_forward`
 sums it over the blocks, and the pretraining steps add it with weight
 ``CLIPConfig.moe_aux_weight``.
+
+**Expert parallelism** (``tp_group``, or the group
+``parallel.collectives.tensor_parallel`` sets): a rank holds ``E / tp``
+experts of each bank, experts ``j * E/tp .. (j + 1) * E/tp - 1`` on model
+rank ``j`` (``parallel/sharding.py``), and the router whole.  Every rank
+routes the same (replicated) activations with the same router, so every
+rank takes the same decisions; it dispatches only the tokens routed to its
+own experts, runs their products, and combines them into an f32 partial
+``[B, T, W]`` (0 for every other token) that is all-reduced over the group,
+which is the sum XLA computes for the JAX package's combine einsum.  The
+expert half sits in Megatron's pair: the dispatched input and the gate pass
+through ``copy_to_model`` (their gradients, each a rank's experts' part,
+summed over the group) and the partial through ``reduce_from_model``, so
+the input's and the router's gradients come out whole.  The load-balance
+term reads the router's probabilities, whole and equal on every rank: its
+gradient is taken once, never summed over the group.  The attention half
+runs on the rank's heads (``layers.attn_forward`` with the group: B6, or K3
+with the head-sum all-reduce on the attribution layer).
+
+**Sequence parallelism** (``seq_parallel``, JAX's ``act_sharding``, which
+the JAX package's MoE scan keeps as a layout constraint): between blocks
+the residual stream is the rank's rows, as in ``layers.transformer_forward``
+(T padded to a multiple of tp, the pad rows masked as keys and kept out of
+the routing).  Routing needs a whole sequence (the capacity queue is a
+cumulative sum over it), so each block gathers the rows
+(``collectives.join_seq``), runs as under tp alone, and keeps the rank's
+rows of its output (``split_seq``).
+
+**FSDP** (``collectives.fully_sharded``): each block gathers its leaves cut
+over ``data`` (the banks' ``w_fc`` / ``w_proj`` along dimension 1, and the
+attention weights) at its use, inside the remat region.
 """
 
 from __future__ import annotations
@@ -55,6 +86,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tapclip_tpu_torch.models import layers
 from tapclip_tpu_torch.ops.plain import ACTS
+from tapclip_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -189,14 +221,17 @@ def route(x: torch.Tensor, p: Params, capacity_factor: float = 1.25, valid_len: 
     return Routing(expert, gate, pos, keep, probs)
 
 
-def slots(r: Routing, capacity: int, n_experts: int) -> torch.Tensor:
-    """Each token's row ``[B*T]`` in the ``[E * B * C]`` expert bank,
-    ``(expert, batch row, position)`` in that order; a token not kept gets
-    the spare row ``E * B * C``."""
+def slots(r: Routing, capacity: int, n_experts: int, first: int = 0) -> torch.Tensor:
+    """Each token's row ``[B*T]`` in the ``[E * B * C]`` bank of experts
+    ``first .. first + E - 1``, ``(expert, batch row, position)`` in that
+    order; a token not kept, or routed to another bank's expert, gets the
+    spare row ``E * B * C``."""
     B = r.expert.shape[0]
     row_base = torch.arange(B, device=r.expert.device)[:, None] * capacity
     bank = n_experts * B * capacity
-    return torch.where(r.keep, r.expert * (B * capacity) + row_base + r.pos, bank).reshape(-1)
+    local = r.expert - first
+    mine = r.keep & (local >= 0) & (local < n_experts)
+    return torch.where(mine, local * (B * capacity) + row_base + r.pos, bank).reshape(-1)
 
 
 def dispatch(x: torch.Tensor, slot: torch.Tensor, n_experts: int, capacity: int) -> torch.Tensor:
@@ -217,19 +252,25 @@ def combine(out: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor) -> torch.
 
 
 def moe_mlp_forward(x: torch.Tensor, p: Params, act: str, *, capacity_factor: float = 1.25,
-                    valid_len: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    valid_len: Optional[int] = None, tp_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-1 MoE MLP over ``x [B, T, W]`` -> (out ``[B, T, W]`` in x's
-    dtype, the load-balance term, an f32 scalar averaged over the B groups)."""
+    dtype, the load-balance term, an f32 scalar averaged over the B groups).
+    ``tp_group``: ``p``'s banks are this rank's experts (the module note)."""
     B, T, W = x.shape
-    E = p["w_fc"].shape[0]
+    E = p["router"]["w"].shape[-1]
+    E_local = p["w_fc"].shape[0]
+    if E_local * collectives.size(tp_group) != E:
+        raise ValueError(f"a bank of {E_local} experts under tp={collectives.size(tp_group)} for a router of {E}")
     C = expert_capacity(valid_len or T, E, capacity_factor)
     dtype = x.dtype
     r = route(x, p, capacity_factor, valid_len)
-    slot = slots(r, C, E)
-    h = _f32_bmm(dispatch(x, slot, E, C), p["w_fc"], dtype) + p["b_fc"].float()[:, None]
+    slot = slots(r, C, E_local, collectives.rank_in(tp_group) * E_local)
+    xin = dispatch(collectives.copy_to_model(x, tp_group), slot, E_local, C)
+    h = _f32_bmm(xin, p["w_fc"], dtype) + p["b_fc"].float()[:, None]
     h = ACTS[act](h.to(dtype))
     out = _f32_bmm(h, p["w_proj"], dtype) + p["b_proj"].float()[:, None]
-    y = combine(out, slot, r.gate).to(dtype)
+    y = combine(out, slot, collectives.copy_to_model(r.gate, tp_group))
+    y = collectives.reduce_from_model(y, tp_group).to(dtype)
 
     # Switch load balance over the valid tokens: f_e the routed share, p_e
     # the mean router probability.
@@ -247,21 +288,32 @@ def moe_mlp_forward(x: torch.Tensor, p: Params, act: str, *, capacity_factor: fl
 
 def moe_block_forward(x: torch.Tensor, p: Params, n_heads: int, *, act: str, ln_eps: float = 1e-5,
                       causal: bool = False, kv_valid_len=None, attn_to_idx=None, impl: str = "auto",
-                      capacity_factor: float = 1.25) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+                      capacity_factor: float = 1.25, tp_group=None, seq: bool = False,
+                      fsdp: Optional[collectives.FullySharded] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Pre-LN residual block with an MoE MLP half -> (x, lb, the attention
     aux of ``attn_to_idx`` or None).  The rows route with ``valid_len`` only
     when ``kv_valid_len`` is an int (the towers' pad length): with a per-row
-    tensor every row routes and takes capacity, as in the JAX package."""
+    tensor every row routes and takes capacity, as in the JAX package.
+    ``tp_group``: the rank's heads and experts; ``seq``: ``x`` is the rank's
+    rows (gathered in, the output's rows kept); ``fsdp``: the leaves cut
+    over ``data`` gathered first (the module note)."""
+    n_local = layers._check_tp(n_heads, tp_group, False)
+    if fsdp is not None:
+        p = fsdp.gathered(p)
+    if seq:
+        x = collectives.join_seq(x, tp_group)
     h, aux = layers.attn_forward(
-        layers.layer_norm(x, p["ln_1"], ln_eps), p["attn"], n_heads, causal=causal,
-        kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl,
+        layers._ln_in(x, p["ln_1"], ln_eps, tp_group, False), p["attn"], n_local, causal=causal,
+        kv_valid_len=kv_valid_len, attn_to_idx=attn_to_idx, impl=impl, tp_group=tp_group,
     )
     x = x + h
     y, lb = moe_mlp_forward(
         layers.layer_norm(x, p["ln_2"], ln_eps), p["moe"], act, capacity_factor=capacity_factor,
-        valid_len=kv_valid_len if isinstance(kv_valid_len, int) else None,
+        valid_len=kv_valid_len if isinstance(kv_valid_len, int) else None, tp_group=tp_group,
     )
-    return x + y, lb, aux
+    x = x + y
+    return (collectives.split_seq(x, tp_group) if seq else x), lb, aux
 
 
 def moe_transformer_forward(
@@ -279,6 +331,8 @@ def moe_transformer_forward(
     quantize_deterministic: bool = False,
     remat: str = "none",
     capacity_factor: float = 1.25,
+    tp_group=None,
+    seq_parallel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the MoE blocks in order; ``layers.transformer_forward``'s
     signature, so the towers route here.  The second output follows the
@@ -294,13 +348,22 @@ def moe_transformer_forward(
     ``remat`` checkpoints each block under a graph, as
     ``layers.transformer_forward`` does (the routing is recomputed from the
     same inputs, so it is the same).  ``quantize`` (the int8 tower) raises.
+    ``tp_group`` (default: ``collectives.current_model_group()``),
+    ``seq_parallel`` and FSDP (``collectives.fully_sharded``): the module
+    note.
     """
     if quantize:
         raise NotImplementedError("int8 quantization of MoE towers")
     if remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {remat!r}")
+    if tp_group is None:
+        tp_group = collectives.current_model_group()
+    seq = seq_parallel and tp_group is not None
+    T = x.shape[1]
+    if seq:
+        x, kv_valid_len = layers.enter_seq(x, tp_group, kv_valid_len)
     kw = dict(act=act, ln_eps=ln_eps, causal=causal, kv_valid_len=kv_valid_len, impl=impl,
-              capacity_factor=capacity_factor)
+              capacity_factor=capacity_factor, tp_group=tp_group, seq=seq, fsdp=collectives.current_fsdp())
     checkpointed = remat != "none" and torch.is_grad_enabled()
     last = len(blocks) - 1
     lb_sum = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -312,6 +375,9 @@ def moe_transformer_forward(
         else:
             x, lb, aux = moe_block_forward(x, blk, n_heads, attn_to_idx=to_idx, **kw)
         lb_sum = lb_sum + lb
+    if seq:
+        x = collectives.join_seq(x, tp_group)[:, :T]
+        aux = None if aux is None else aux[:, :T]
     if attn_to_idx is None:
         return x, lb_sum
     return x, aux

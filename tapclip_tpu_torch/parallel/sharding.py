@@ -35,11 +35,19 @@ rank keeps its local shard as a plain tensor.
   first dimension), which ``shard_opt_state(fsdp=True)`` mirrors in the
   AdamW moments (ZeRO).  A dimension ``dp`` does not divide is refused
   (GSPMD would pad it).
+* the ``/moe/`` expert banks (expert parallelism): ``w_fc [E, W, H]``,
+  ``b_fc [E, H]``, ``w_proj [E, H, W]`` and ``b_proj [E, W]`` keep the
+  rank's ``E / tp`` experts (the expert axis over ``model``; an ``E`` that
+  ``tp`` does not divide is refused by name), and under FSDP ``w_fc`` /
+  ``w_proj`` also ``1/dp`` of their dimension 1 over ``data``; the router
+  ``router/w [W, E]`` is replicated.
 
 :func:`gather_params` and :func:`gather_opt_state` are the inverses, bit for
 bit, across every combination of the three axes: the checkpoint writer and
-``pretrain_cli``'s final tree use them.  Not yet ported (refused by name):
-the ``/moe/`` leaves under ``tp > 1``.
+``pretrain_cli``'s final tree use them.  :func:`join_leaf` is the same
+inverse over pieces held on one host (the sharded snapshot's resume,
+``utils/checkpoint.py``), and :func:`cut` the differentiable cut of a whole
+tensor to a rank's ``model`` shard (LoRA's delta, ``peft.py``).
 """
 
 from __future__ import annotations
@@ -50,7 +58,6 @@ from typing import Any, Dict
 
 import torch
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.parallel import collectives
 from tapclip_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh, batch_sharding, replicated
 from tapclip_tpu_torch.pretrain import map_tree, named_leaves
@@ -165,11 +172,6 @@ def local_spec(path: str, spec: tuple) -> tuple:
     return spec[1:] if stacked_path(path) != path and spec else spec
 
 
-def _check_placeable(path: str, spec: tuple) -> None:
-    if MODEL_AXIS in spec and "/moe/" in path:
-        raise NotPortedError(f"MoE leaves under tp > 1 ({path})")
-
-
 def _stage_blocks(params: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:
     """``params`` with each tower's blocks cut to this stage's (a shallow copy)."""
     S, s = mesh.pp, mesh.pipe_index
@@ -208,19 +210,28 @@ def _qkv_parts(t: torch.Tensor, n: int, j: int) -> torch.Tensor:
     return torch.cat([t[..., s * w + j * c: s * w + (j + 1) * c] for s in range(3)], dim=-1)
 
 
+def cut(path: str, t: torch.Tensor, spec: tuple, n: int, j: int) -> torch.Tensor:
+    """Rank ``j`` of ``n``'s ``model`` shard of ``t``, a whole leaf or a
+    tensor of its shape (its local spec taken from ``spec``, the stacked
+    leaf's): the per-head qkv cut, else a slice of the spec's ``model``
+    axis; ``t`` itself with no such axis.  Differentiable (a view or a
+    concatenation of views)."""
+    spec = local_spec(path, spec)
+    if MODEL_AXIS not in spec or n <= 1:
+        return t
+    if path.endswith(("attn/w_qkv", "attn/b_qkv")):
+        return _qkv_parts(t, n, j)
+    ax = spec.index(MODEL_AXIS)
+    if t.shape[ax] % n:
+        raise ValueError(f"{path}: axis {ax} of size {t.shape[ax]} is not divisible by tp={n}")
+    return t.narrow(ax, j * (t.shape[ax] // n), t.shape[ax] // n)
+
+
 def shard_leaf(path: str, t: torch.Tensor, spec: tuple, n: int, j: int, dn: int = 1, di: int = 0) -> torch.Tensor:
     """Rank ``j`` of ``n`` on ``model`` and ``di`` of ``dn`` on ``data``
     (FSDP): its local shard of one leaf, a copy that holds only the shard."""
+    t = cut(path, t.detach(), spec, n, j)
     spec = local_spec(path, spec)
-    t = t.detach()
-    if MODEL_AXIS in spec and n > 1:
-        if path.endswith(("attn/w_qkv", "attn/b_qkv")):
-            t = _qkv_parts(t, n, j)
-        else:
-            ax = spec.index(MODEL_AXIS)
-            if t.shape[ax] % n:
-                raise ValueError(f"{path}: axis {ax} of size {t.shape[ax]} is not divisible by tp={n}")
-            t = t.narrow(ax, j * (t.shape[ax] // n), t.shape[ax] // n)
     if DATA_AXIS in spec and dn > 1:
         ax = spec.index(DATA_AXIS)
         if t.shape[ax] % dn:
@@ -230,10 +241,13 @@ def shard_leaf(path: str, t: torch.Tensor, spec: tuple, n: int, j: int, dn: int 
 
 
 def _check_tp(params, tp: int) -> None:
-    """``n_heads % tp`` and ``mlp_hidden % tp`` refused by name."""
+    """``mlp_hidden % tp`` and ``moe_experts % tp`` refused by name (the
+    head count: ``models/layers.py``)."""
     for path, t in named_leaves(params):
         if path.endswith("mlp/w_fc") and t.shape[-1] % tp:
             raise ValueError(f"mlp_hidden {t.shape[-1]} is not divisible by tp={tp} ({path})")
+        if path.endswith("moe/w_fc") and t.shape[0] % tp:
+            raise ValueError(f"moe_experts {t.shape[0]} is not divisible by tp={tp} ({path})")
 
 
 def shard_params(params: Dict[str, Any], mesh: Mesh, fsdp: bool = False) -> Dict[str, Any]:
@@ -245,13 +259,35 @@ def shard_params(params: Dict[str, Any], mesh: Mesh, fsdp: bool = False) -> Dict
     specs = clip_param_specs(params, mesh, fsdp=fsdp)
     n, j = mesh.tp, mesh.model_index
     dn, di = (mesh.dp, mesh.data_index) if fsdp else (1, 0)
-    for path, spec in specs.items():
-        _check_placeable(path, spec)
     if n > 1:
         _check_tp(params, n)
     # a stage's block i carries the spec of the whole tree's block i (every block's is the same)
     return map_with_path(lambda path, t: shard_leaf(path, t, specs[path], n, j, dn, di).requires_grad_(t.requires_grad),
                          _stage_blocks(params, mesh))
+
+
+def _join_model(path: str, parts, spec: tuple) -> torch.Tensor:
+    """The inverse of :func:`cut` over every rank's ``model`` shard
+    (``parts``, in rank order; ``spec`` local)."""
+    if MODEL_AXIS not in spec or len(parts) == 1:
+        return parts[0].clone()
+    if path.endswith(("attn/w_qkv", "attn/b_qkv")):
+        c = parts[0].shape[-1] // 3
+        return torch.cat([parts[j][..., s * c:(s + 1) * c] for s in range(3) for j in range(len(parts))], dim=-1)
+    return torch.cat(list(parts), dim=spec.index(MODEL_AXIS))
+
+
+def join_leaf(path: str, pieces, spec: tuple) -> torch.Tensor:
+    """A whole leaf from the pieces :func:`shard_leaf` cut, held on one host:
+    ``pieces[d][j]`` the piece of data index ``d`` (one entry unless the
+    spec's ``data`` axis cuts it) and model index ``j`` (one unless
+    ``model`` does), ``spec`` the stacked leaf's.  Bit for bit the leaf that
+    was cut."""
+    spec = local_spec(path, spec)
+    if DATA_AXIS in spec and len(pieces) > 1:
+        ax = spec.index(DATA_AXIS)
+        pieces = [[torch.cat([row[j] for row in pieces], dim=ax) for j in range(len(pieces[0]))]]
+    return _join_model(path, pieces[0], spec)
 
 
 def _gather_leaf(path: str, t: torch.Tensor, spec: tuple, mesh: Mesh, fsdp: bool = False) -> torch.Tensor:
@@ -261,14 +297,9 @@ def _gather_leaf(path: str, t: torch.Tensor, spec: tuple, mesh: Mesh, fsdp: bool
     t = t.detach()
     if fsdp and DATA_AXIS in spec and mesh.dp > 1:
         t = collectives.gather_dim(t, mesh.data_group, spec.index(DATA_AXIS))
-    n = mesh.tp
-    if MODEL_AXIS not in spec or n == 1:
+    if MODEL_AXIS not in spec or mesh.tp == 1:
         return t.clone()
-    parts = collectives._gather_rows(t.unsqueeze(0).contiguous(), mesh.model_group)  # [n, ...]
-    if path.endswith(("attn/w_qkv", "attn/b_qkv")):
-        c = t.shape[-1] // 3
-        return torch.cat([parts[j][..., s * c:(s + 1) * c] for s in range(3) for j in range(n)], dim=-1)
-    return torch.cat(list(parts), dim=spec.index(MODEL_AXIS))
+    return _join_model(path, list(collectives._gather_rows(t.unsqueeze(0).contiguous(), mesh.model_group)), spec)
 
 
 def _join_stages(tree: Dict[str, Any], mesh: Mesh) -> Dict[str, Any]:

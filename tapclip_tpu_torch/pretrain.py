@@ -63,8 +63,15 @@ axis; the tree placed by ``sharding.shard_params(..., fsdp=True)``) gathers
 each cut leaf at its use, whose gradient then arrives reduce-scattered,
 summed over ``data`` already, and is left out of the step's sum over
 ``data``; the AdamW moments are the shards', so the update stays local and
-the tree stays cut.  Each is the plain step's arithmetic.  Not yet ported
-(refused by name): MoE towers under a mesh.
+the tree stays cut.  Each is the plain step's arithmetic.
+
+MoE towers run under ``data`` (plain and FSDP, whose cut reaches the expert
+banks) and ``model`` (expert parallelism, ``models/moe.py``); the pipe axis
+refuses them by JAX's message.  The load-balance term is a mean over the
+global batch's rows, so each rank adds its own rows' term weighted by its
+share of them (``1/dp``, as the global losses' shares) and the gradients
+are summed over ``data``; under ``model`` the term is the same on every
+rank and counted once.  GradCache keeps the JAX package's per-micro mean.
 """
 
 from __future__ import annotations
@@ -77,7 +84,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.config import CLIPConfig
 from tapclip_tpu_torch.models import clip as clip_model
 from tapclip_tpu_torch.parallel import collectives
@@ -480,14 +486,17 @@ class _Mesh:
                  pp_microbatches: int = 0, seq_parallel: bool = False, fsdp: bool = False):
         if mesh is not None and mesh.in_process:
             raise ValueError("a pretraining step takes a process-group mesh (make_mesh without devices=)")
-        if mesh is not None and cfg.moe_experts > 0 and (mesh.dp > 1 or mesh.tp > 1 or mesh.pp > 1):
-            raise NotPortedError("MoE towers under a data, pipe or model mesh")
+        if mesh is not None and cfg.moe_experts > 0 and mesh.pp > 1:
+            raise NotImplementedError("pipeline parallelism over MoE towers is not supported (expert + pipeline "
+                                      "sharding do not compose yet)")
         if fsdp and (mesh is None or mesh.dp <= 1):
             raise ValueError("fsdp needs a mesh with a 'data' axis > 1")
         if seq_parallel and (mesh is None or mesh.tp <= 1):
             raise ValueError("seq_parallel needs a mesh with a 'model' axis > 1")
         self.mesh, self.seq_parallel, self.fsdp = mesh, seq_parallel, fsdp
         self.loss_group = mesh.data_group if mesh is not None and mesh.dp > 1 else None
+        # this rank's share of the global batch's rows: the weight of its load-balance term
+        self.lb_share = 1.0 if self.loss_group is None else 1.0 / mesh.dp
         self.tp_group = collectives.model_group_of(mesh)
         self.transformer_fn = None
         if mesh is not None and mesh.pp > 1:
@@ -606,8 +615,8 @@ def make_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, loss: str 
                                           moe_loss_out=moe_losses, **m.encoder_kw())
             txt = clip_model.encode_text(tree, cfg, ids, moe_loss_out=moe_losses, **m.encoder_kw())
         total = pair_loss(loss, params, img, txt, m.loss_group)
-        if moe_losses:  # the Switch load balance over both towers' blocks
-            total = total + cfg.moe_aux_weight * sum(moe_losses)
+        if moe_losses:  # the Switch load balance over both towers' blocks, this rank's share of it
+            total = total + cfg.moe_aux_weight * m.lb_share * sum(moe_losses)
         grads = m.reduce(torch.autograd.grad(total, optimizer.leaves, allow_unused=True), optimizer.leaves)
         if optimizer.update(grads):
             _clamp_logit_scale(params)
@@ -696,10 +705,10 @@ def make_accum_pretrain_step(cfg: CLIPConfig, optimizer: PretrainOptimizer, k: i
             outs, cotangents = [fi, ft], [g_img[i * b:(i + 1) * b], g_txt[i * b:(i + 1) * b]]
             if lbs:
                 lb = sum(lbs)
-                total = total + cfg.moe_aux_weight / k * lb.detach()
+                total = total + cfg.moe_aux_weight / k * m.lb_share * lb.detach()
                 if lb.requires_grad:
                     outs.append(lb)
-                    cotangents.append(torch.full_like(lb, cfg.moe_aux_weight / k))
+                    cotangents.append(torch.full_like(lb, cfg.moe_aux_weight / k * m.lb_share))
             pulled = torch.autograd.grad(outs, tower, cotangents, allow_unused=True)
             for t, g in zip(tower, pulled):
                 if g is not None:

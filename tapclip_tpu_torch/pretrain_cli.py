@@ -36,13 +36,20 @@ trees, gathered whole (``parallel.sharding.gather_params``: the layout of a
 one-device run); ``--resume`` loads a whole tree and shards it.  Under
 ``--pp`` or ``--fsdp`` the validation and the zero-shot readout run on the
 whole tree, gathered on every rank.  Without ``torchrun`` the run is one
-process, as before.  The JAX CLI's refusals hold: ``--fsdp`` with
+process, as before.  ``--moe-experts`` runs under ``--dp`` (with
+``--fsdp`` too) and ``--tp`` (expert parallelism: a rank holds ``E / tp``
+experts of each bank), LoRA and distillation under ``--tp`` (the adapters
+and ``kd_proj`` replicated, the teacher cut with its own config), and
+``--vpt-deep`` under ``--seq-parallel``.  ``--sharded-snapshot``: every
+rank writes its own shards at ``--save-every`` (a directory,
+``utils.checkpoint.save_sharded_snapshot``), and ``--resume`` of such a
+directory restores after placement, into this run's layout, on any
+``(dp, pp, tp, fsdp)``.  The JAX CLI's refusals hold: ``--fsdp`` with
 ``--lora-rank`` or ``--pp``, ``--distill-teacher`` and ``--lora-rank`` with
-``--pp`` (``--fsdp``), GradCache with ``--accum-steps`` / ``--pp`` /
-``--fsdp`` / ``--seq-parallel``.  Not yet ported (refused by name):
-``--sharded-snapshot``, ``--moe-experts`` with ``--tp > 1`` (the JAX
-package's expert parallelism) or over more than one rank, LoRA and
-distillation with ``--tp > 1``.
+``--pp`` (``--fsdp``), ``--distill-teacher`` with ``--moe-experts``, MoE
+towers with ``--pp``, GradCache with ``--accum-steps`` / ``--pp`` /
+``--fsdp`` / ``--seq-parallel``, a snapshot resumed with the other format's
+flag.
 
 Usage:
     python -m tapclip_tpu_torch.pretrain_cli --data-root data/OfficeHome/Real_World \\
@@ -51,6 +58,12 @@ Usage:
     torchrun --nproc-per-node 2 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --dp 2
     torchrun --nproc-per-node 4 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data \
         --pp 2 --tp 2 --seq-parallel
+    torchrun --nproc-per-node 2 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data \
+        --tp 2 --moe-experts 4
+    torchrun --nproc-per-node 4 -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data \
+        --dp 2 --tp 2 --fsdp --sharded-snapshot --save-every 1 --epochs 1
+    python -m tapclip_tpu_torch.pretrain_cli --preset tiny --synthetic-data --epochs 2 \
+        --sharded-snapshot --resume OUT/models/pretrain_snapshot_e000001
 """
 
 from __future__ import annotations
@@ -64,11 +77,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tapclip_tpu_torch import NOT_PORTED
 from tapclip_tpu_torch.config import MODEL_PRESETS, preset
 from tapclip_tpu_torch.train import apply_overrides, build_argparser, build_model, maybe_synthetic_root
-
-MESH_FLAGS = ("sharded_snapshot",)
 
 
 def _append_metrics_row(path: str, row: dict) -> None:
@@ -112,9 +122,9 @@ def build_parser():
     p.add_argument("--fsdp", action="store_true",
                    help="ZeRO/FSDP: cut params + AdamW moments over the data axis (1/dp each); weights gather "
                         "at their use, grads reduce-scatter. Not with --pp or --lora-rank")
-    for flag in MESH_FLAGS:
-        p.add_argument("--" + flag.replace("_", "-"), default=None, nargs="?", const=True,
-                       help=f"({NOT_PORTED})")
+    p.add_argument("--sharded-snapshot", action="store_true",
+                   help="--save-every writes each rank's own shards (a directory; nothing gathered) and --resume "
+                        "reads such a directory into this run's layout, on any mesh")
     p.add_argument("--ema-decay", type=float, default=0.0,
                    help="keep an EMA of the whole tree (e.g. 0.999), saved beside the final tree as "
                         "clip_pretrained_ema.pt; full-tree runs only (ignored with --lora-rank)")
@@ -187,12 +197,11 @@ def build_parser():
 def main(argv: Optional[List[str]] = None) -> dict:
     p = build_parser()
     args = p.parse_args(argv)
-    for flag in MESH_FLAGS:
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag.replace('_', '-')} is {NOT_PORTED}")
-    if args.moe_experts and args.tp > 1:
-        p.error(f"--moe-experts with --tp > 1 (expert parallelism) is {NOT_PORTED}")
     _refuse_combinations(args)
+    if args.resume:  # before anything is built: a snapshot of the other format's flag exits by name
+        from tapclip_tpu_torch.utils.checkpoint import snapshot_format
+
+        _check_snapshot_format(args.resume, args.sharded_snapshot, snapshot_format(args.resume))
     cfg = apply_overrides(preset(args.preset), args)
     if args.remat or args.moe_experts or args.patch_dropout or args.vpt_tokens or args.vpt_deep:
         model_cfg = cfg.model
@@ -281,9 +290,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
             raise ValueError("--distill-teacher trains the full student tree; it does not compose with --lora-rank")
         if args.loss == "siglip":
             raise ValueError("--distill-teacher uses the InfoNCE task term; drop --loss siglip")
-        if args.moe_experts:
-            raise ValueError("--distill-teacher with MoE students is not wired (the aux loss is not in the KD "
-                             "objective)")
         from tapclip_tpu_torch.utils.torch_convert import load_openclip_checkpoint
 
         teacher_cfg = MODEL_PRESETS[args.teacher_model or cfg.model.name]
@@ -339,7 +345,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                      cfg.model.embed_dim, teacher_cfg.embed_dim)
 
     start_epoch, gstep, opt_state = 1, 0, None
-    if args.resume:
+    if args.resume and not args.sharded_snapshot:
         snap = ckpt_io.restore_pretrain_snapshot(args.resume)
         tree = P.map_tree(lambda t: t.to(dev), snap["params"])
         if lora is not None:
@@ -347,15 +353,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
         else:
             params = tree
         opt_state = snap["opt_state"]
-        if cut:  # a whole tree's moments, cut as its leaves are
+        if cut and lora is None:  # a whole tree's moments, cut as its leaves are (the adapters: replicated)
             opt_state = sharding.shard_opt_state(opt_state, mesh, fsdp, params=tree)
         start_epoch, gstep = int(snap["epoch"]) + 1, int(snap["gstep"])
-        if args.shard_dir:
-            loader.restore({"epoch": start_epoch - 1, "shards_done": 0})
-        elif args.csv_path:
-            loader.restore({"epoch": start_epoch - 1})
-        elif hasattr(loader, "_epoch"):
-            loader._epoch = start_epoch - 1  # the shuffle continues (seed + epoch)
+        _resume_loader(loader, args, start_epoch)
         log.info("resumed from %s (epoch %d)", args.resume, start_epoch - 1)
 
     if cut:  # this rank's stage, heads and hidden columns (and FSDP shards); the rest replicated
@@ -377,6 +378,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                     accum_steps=args.accum_steps)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
+    if args.resume and args.sharded_snapshot:
+        # Deferred past placement, as the JAX CLI's: the snapshot restores into this run's layout, one leaf at a time.
+        start_epoch, gstep = _restore_sharded(args.resume, lora if lora is not None else params, optimizer, mesh,
+                                              fsdp, lora is not None, ckpt_io, log)
+        _resume_loader(loader, args, start_epoch)
     if lora is not None:
         from tapclip_tpu_torch.peft import make_lora_pretrain_step, merge_lora
 
@@ -417,7 +423,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                  len(zs_index.classes), max(1, args.zeroshot_frequency))
 
     def effective(tree):  # LoRA runs evaluate the merged weights
-        return merge_lora(tree, lora, alpha=args.lora_alpha) if lora is not None else tree
+        return merge_lora(tree, lora, alpha=args.lora_alpha, mesh=mesh) if lora is not None else tree
 
     def whole(tree):  # the one-device layout, gathered over the mesh (every rank calls it)
         return sharding.gather_params(tree, mesh, fsdp=fsdp) if cut else tree
@@ -504,21 +510,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 _append_metrics_row(os.path.join(paths["csv_dir"], "pretrain_metrics.csv"), row)
             if args.save_every and epoch % args.save_every == 0:
                 # The previous snapshot goes only once the new one is in place.
-                new_snap = os.path.abspath(f"{snap_base}_e{epoch:06d}.pt")
                 opt_sd = optimizer.state_dict()
-                if cut:
-                    opt_sd = sharding.gather_opt_state(opt_sd, mesh, params, fsdp)
-                snap_tree = whole(params) if lora is None else lora
-                if not lead:
-                    continue
-                ckpt_io.save_pretrain_snapshot(new_snap, params=snap_tree, opt_state=opt_sd, epoch=epoch,
-                                               gstep=gstep, lora=lora is not None)
-                base = os.path.basename(snap_base)
-                for d in sorted(os.listdir(paths["model_dir"])):
-                    full = os.path.abspath(os.path.join(paths["model_dir"], d))
-                    if d.startswith(base) and full != new_snap:
-                        os.remove(full)
-                log.info("pretrain snapshot at epoch %d -> %s", epoch, new_snap)
+                if args.sharded_snapshot:  # every rank its own shards, nothing gathered
+                    new_snap = ckpt_io.save_sharded_snapshot(
+                        f"{snap_base}_e{epoch:06d}", params=params if lora is None else lora, opt_state=opt_sd,
+                        epoch=epoch, gstep=gstep, mesh=mesh, fsdp=fsdp, lora=lora is not None)
+                else:
+                    new_snap = os.path.abspath(f"{snap_base}_e{epoch:06d}.pt")
+                    if cut and lora is None:
+                        opt_sd = sharding.gather_opt_state(opt_sd, mesh, params, fsdp)
+                    snap_tree = whole(params) if lora is None else lora
+                    if lead:
+                        ckpt_io.save_pretrain_snapshot(new_snap, params=snap_tree, opt_state=opt_sd, epoch=epoch,
+                                                       gstep=gstep, lora=lora is not None)
+                if lead:
+                    _remove_other_snapshots(paths["model_dir"], os.path.basename(snap_base), new_snap)
+                    log.info("pretrain snapshot at epoch %d -> %s", epoch, new_snap)
 
     if teacher_params is not None:  # export a plain CLIP tree: kd_proj is training-only
         from tapclip_tpu_torch.distill import strip_distill_params
@@ -561,14 +568,82 @@ def _mesh(args, dev):
     return make_mesh(dp=args.dp, tp=args.tp, pp=args.pp), owns
 
 
+def _check_snapshot_format(path: str, sharded: bool, fmt) -> None:
+    """A resume in the other format's flag exits by name, as the JAX CLI's."""
+    if sharded and fmt == "host":
+        raise SystemExit(f"--resume {path}: host-format snapshot (saved WITHOUT --sharded-snapshot) — resume it "
+                         "without --sharded-snapshot")
+    if sharded and fmt is None:
+        raise SystemExit(f"--resume {path}: not a readable sharded snapshot directory")
+    if not sharded and fmt == "sharded":
+        raise SystemExit(f"--resume {path}: a sharded snapshot directory (saved WITH --sharded-snapshot) — resume "
+                         "it with --sharded-snapshot")
+
+
+def _restore_sharded(path: str, tree, optimizer, mesh, fsdp: bool, lora: bool, ckpt_io, log):
+    """``--resume`` of a sharded snapshot into this rank's live ``tree`` (the
+    CLIP tree's shards, or the LoRA adapters) and ``optimizer``: the params
+    in place; the moments where they match the trained leaves by key path
+    and shape, else fresh ones with a warning.  Returns (start epoch, the
+    step counter)."""
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    target = ckpt_io.abstract_target(tree, mesh, fsdp, replicated=lora)
+    try:
+        snap = ckpt_io.restore_sharded_snapshot(path, target, mesh, fsdp=fsdp, trained=optimizer.paths)
+    except ckpt_io.SnapshotMismatch as err:
+        raise SystemExit(f"--resume {path}: sharded snapshot does not match this run beyond its optimizer state — "
+                         f"the PARAMS tree also drifted (model preset/LoRA change since the save?).  Params cannot be "
+                         f"merged; start fresh or resume with the saving-time configuration. ({err})") from err
+    with torch.no_grad():
+        for p, t in named_leaves(tree):
+            t.copy_(snap["params"][p])
+    if snap["opt_state"] is not None:
+        optimizer.load_state_dict(snap["opt_state"])
+    else:
+        log.warning("sharded resume: snapshot optimizer state (%d moments) does not match this run's %d trained "
+                    "leaves by key path and shape — resuming params with FRESH optimizer state", *snap["moments"])
+    log.info("resumed from %s (epoch %d, sharded)", path, snap["epoch"])
+    return snap["epoch"] + 1, snap["gstep"]
+
+
+def _resume_loader(loader, args, start_epoch: int) -> None:
+    """The data order continues from ``start_epoch`` (seed + epoch)."""
+    if args.shard_dir:
+        loader.restore({"epoch": start_epoch - 1, "shards_done": 0})
+    elif args.csv_path:
+        loader.restore({"epoch": start_epoch - 1})
+    elif hasattr(loader, "_epoch"):
+        loader._epoch = start_epoch - 1
+
+
+def _remove_other_snapshots(model_dir: str, base: str, keep: str) -> None:
+    """Every snapshot under ``model_dir`` but ``keep`` (files and sharded
+    directories)."""
+    import shutil
+
+    for d in sorted(os.listdir(model_dir)):
+        full = os.path.abspath(os.path.join(model_dir, d))
+        if d.startswith(base) and full != keep and os.path.isdir(full):
+            shutil.rmtree(full)
+        elif d.startswith(base) and full != keep:
+            os.remove(full)
+
+
 def _refuse_combinations(args) -> None:
     """The JAX CLI's refusals of the parallel forms' combinations."""
     if args.fsdp and args.lora_rank > 0:
         raise ValueError("--fsdp does not apply to --lora-rank runs (the adapters are KBs; shard nothing)")
     if args.fsdp and args.pp > 1:
         raise ValueError("--fsdp does not compose with --pp (both spread param/optimizer memory)")
+    if args.moe_experts and args.pp > 1:  # the JAX towers' words (models/clip.py), before any tree is built
+        raise ValueError("pipeline parallelism over MoE towers is not supported (expert + pipeline sharding do not "
+                         "compose yet)")
     if args.distill_teacher and (args.pp > 1 or args.fsdp):
         raise ValueError("--distill-teacher does not compose with --pp/--fsdp yet (dp/tp only)")
+    if args.distill_teacher and args.moe_experts:
+        raise ValueError("--distill-teacher with MoE students is not wired (the aux loss is not in the KD "
+                         "objective)")
     if args.lora_rank > 0 and args.pp > 1:
         raise ValueError("--lora-rank does not compose with --pp yet (the merged tree runs the sequential tower)")
     if args.accum_full_negatives > 1 and (args.accum_steps > 1 or args.pp > 1 or args.fsdp or args.seq_parallel):

@@ -2,12 +2,15 @@
 
     torchrun --nproc-per-node 4 -m tapclip_tpu_torch.scripts.profile_mesh --dp 1 --pp 2 --tp 2 --seq-parallel
     torchrun --nproc-per-node 4 -m tapclip_tpu_torch.scripts.profile_mesh --dp 2 --pp 2 --fsdp
+    torchrun --nproc-per-node 4 -m tapclip_tpu_torch.scripts.profile_mesh --dp 2 --tp 2 --moe-experts 8
 
 One rank a card over NCCL (``cuda:LOCAL_RANK``).  Each rank builds the
 kernels (run ``python3 -c "from tapclip_tpu_torch.ops import _build;
 _build.library()"`` once first), places a ViT-B/16 tree from seed 20 on the
-``(data, pipe, model)`` mesh and runs the InfoNCE step (AdamW, every leaf
-trained) at the global batch ``--batch`` (32): three warm-up steps, three
+``(data, pipe, model)`` mesh (MoE towers with ``--moe-experts N``, the
+experts over ``model``) and runs the InfoNCE step (AdamW, every leaf
+trained; with MoE towers the load-balance term too) at the global batch
+``--batch`` (32): three warm-up steps, three
 timed steps (host clock ended by a synchronisation), then one step under
 ``torch.profiler``.  Rank 0 prints the card's name and power limit, the
 times, the device's busy share (the sum of the operators' self device time
@@ -29,6 +32,7 @@ def main(argv=None) -> None:
         p.add_argument(f"--{axis}", type=int, default=1)
     p.add_argument("--seq-parallel", action="store_true")
     p.add_argument("--fsdp", action="store_true")
+    p.add_argument("--moe-experts", type=int, default=0, help="MoE towers with N experts a block")
     p.add_argument("--dtype", default="float32")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--rows", type=int, default=25, help="operators printed per table")
@@ -52,7 +56,7 @@ def main(argv=None) -> None:
     try:
         _build.library()
         mesh = make_mesh(dp=args.dp, tp=args.tp, pp=args.pp)
-        cfg = VIT_B_16.replace(dtype=args.dtype)
+        cfg = VIT_B_16.replace(dtype=args.dtype, moe_experts=args.moe_experts)
         tree = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(20), cfg)
         local = shard_params(tree, mesh, fsdp=args.fsdp)
         del tree
@@ -82,7 +86,8 @@ def main(argv=None) -> None:
                                   capture_output=True, text=True, check=True).stdout.strip()
             ev = prof.key_averages()
             busy = sum(e.self_device_time_total for e in ev) / 1e3
-            print(f"mesh {dict(mesh.shape)} seq_parallel={args.seq_parallel} fsdp={args.fsdp} {args.dtype}, batch "
+            print(f"mesh {dict(mesh.shape)} seq_parallel={args.seq_parallel} fsdp={args.fsdp} "
+                  f"moe_experts={args.moe_experts} {args.dtype}, batch "
                   f"{args.batch}, rank 0 ({card}): ms a step {[round(v, 1) for v in ms]}, traced {wall:.1f} ms, "
                   f"device busy {busy:.1f} ms ({busy / wall:.2f})", flush=True)
             for key in ("self_cpu_time_total", "self_device_time_total"):

@@ -15,7 +15,6 @@ with ``torch.load(weights_only=True)``:
 trajectory.  :func:`load_any_prompt_checkpoint` also reads the reference's
 ``.pt`` (legacy stacked ``context_emb`` and per-class ``context_bank``),
 the interchange format with the JAX package; an Orbax directory raises.
-Sharded snapshots wait for ``parallel/``.
 
 Pretraining's trees (``pretrain_cli``; the JAX package writes Orbax
 directories) are ``.pt`` files too:
@@ -36,6 +35,29 @@ open_clip state dict is taken (``--pretrained`` of every driver, ``serve
     {"format": "tapclip_tpu_torch.pretrain_snapshot",
      "params": the tree (or the LoRA adapter tree), "lora": bool,
      "opt_state": PretrainOptimizer.state_dict(), "epoch", "gstep"}
+
+and ``--sharded-snapshot``'s directory (the JAX package's names:
+:func:`save_sharded_snapshot`, :func:`snapshot_format`,
+:func:`abstract_target`, :func:`snapshot_saved_target`,
+:func:`restore_sharded_snapshot`; the format is the port's own, since the
+port reads no Orbax directory):
+
+    manifest.json   {"format": "tapclip_tpu_torch.sharded_snapshot", "mesh":
+                     {"data", "pipe", "model"}, "fsdp", "lora", "epoch",
+                     "gstep", "blocks": {tower: layers}, "leaves": {whole
+                     path: {"local", "shape", "dtype", "spec"}}, "moments":
+                     [whole paths], "acc": bool}
+    rank{r}.pt      {"format", "rank", "params": {local path: this rank's
+                     shard}, "opt_state": its PretrainOptimizer.state_dict()}
+
+Every rank writes its own shards, nothing gathered: the directory is
+written under a temporary name and renamed by rank 0 after a barrier.  A
+resume on any ``(dp, pp, tp, fsdp)`` rebuilds one leaf at a time on the
+host from the saved pieces (``torch.load(mmap=True)``, the cut's exact
+inverse, ``parallel.sharding.join_leaf``) and cuts it with the live spec, so
+no rank holds the whole tree.  Optimizer moments are matched to the trained
+leaves by key path (the JAX CLI matches them by order); where any key or
+shape differs, the params resume with fresh moments.
 """
 
 from __future__ import annotations
@@ -52,6 +74,8 @@ import torch
 FORMAT = "tapclip_tpu_torch.prompt_checkpoint"
 CLIP_TREE_FORMAT = "tapclip_tpu_torch.clip_tree"
 SNAPSHOT_FORMAT = "tapclip_tpu_torch.pretrain_snapshot"
+SHARDED_FORMAT = "tapclip_tpu_torch.sharded_snapshot"
+MANIFEST = "manifest.json"
 # The fields a saved tree's shapes depend on: a load under a config that
 # differs in one of them raises.
 _GEOMETRY = ("vision_tower", "image_size", "patch_size", "vision_width", "vision_layers", "resnet_layers",
@@ -270,6 +294,201 @@ def restore_pretrain_snapshot(path: str) -> Dict[str, Any]:
     if not (isinstance(obj, dict) and obj.get("format") == SNAPSHOT_FORMAT):
         raise ValueError(f"{path} is not a tapclip_tpu_torch pretraining snapshot")
     return obj
+
+
+# --- the sharded snapshot (--sharded-snapshot) -------------------------------------------------------
+
+
+def _mesh_shape(mesh) -> Dict[str, int]:
+    return {"data": 1, "pipe": 1, "model": 1} if mesh is None else {"data": mesh.dp, "pipe": mesh.pp,
+                                                                     "model": mesh.tp}
+
+
+def abstract_target(tree: Dict[str, Any], mesh=None, fsdp: bool = False,
+                    replicated: bool = False) -> Dict[str, Dict[str, Any]]:
+    """A rank's live tree as a restore target: ``{local path: {"path": the
+    whole tree's path, "shape": the whole leaf's shape, "dtype", "spec": the
+    spec it is cut with}}`` (``replicated``: every leaf whole on every rank,
+    as LoRA's adapters; ``mesh`` None: one process)."""
+    from tapclip_tpu_torch.parallel import sharding
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    shape = _mesh_shape(mesh)
+    n_local = sharding._n_local_blocks(tree)
+    out = {}
+    for path, t in named_leaves(tree):
+        spec = () if mesh is None or replicated else sharding.leaf_spec(path, t, mesh, fsdp)
+        loc = sharding.local_spec(path, spec)
+        whole = list(t.shape)
+        for axis in ("model", "data"):
+            if axis in loc:
+                whole[loc.index(axis)] *= shape[axis]
+        out[path] = {"path": path if mesh is None else sharding._global_block_path(path, mesh, n_local),
+                     "shape": whole, "dtype": str(t.dtype).replace("torch.", ""), "spec": list(spec)}
+    return out
+
+
+def save_sharded_snapshot(path: str, *, params: Dict[str, Any], opt_state: Dict[str, Any], epoch: int, gstep: int,
+                          mesh=None, fsdp: bool = False, lora: bool = False) -> str:
+    """Every rank of ``mesh`` (a collective; ``None``: one process) writes
+    its local ``params`` (or LoRA tree, ``lora``: replicated) and its
+    ``PretrainOptimizer.state_dict()`` into ``path``, a directory, beside
+    the manifest rank 0 writes.  Written under ``path + ".tmp"`` and renamed
+    into place by rank 0 after a barrier; returns when every rank sees it."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch.pretrain import named_leaves
+
+    path = os.path.abspath(path)
+    tmp = path + ".tmp"
+    rank = 0 if mesh is None else mesh.rank
+
+    def barrier():
+        if mesh is not None:
+            dist.barrier()
+
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    barrier()
+    target = abstract_target(params, mesh, fsdp, replicated=lora)
+    torch.save({"format": SHARDED_FORMAT, "rank": rank, "params": {p: _cpu(t) for p, t in named_leaves(params)},
+                "opt_state": _cpu(opt_state)}, os.path.join(tmp, f"rank{rank}.pt"))
+    entries = {e["path"]: {"local": p, **{k: e[k] for k in ("shape", "dtype", "spec")}} for p, e in target.items()}
+    moments = sorted(target[p]["path"] for p in opt_state["moments"])
+    if mesh is not None and mesh.pp > 1:  # every stage's blocks
+        parts = [None] * mesh.world
+        dist.all_gather_object(parts, (entries, moments))
+        entries = {k: v for e, _ in parts for k, v in e.items()}
+        moments = sorted({m for _, ms in parts for m in ms})
+    if rank == 0:
+        from tapclip_tpu_torch.parallel.sharding import _n_local_blocks
+
+        blocks = {k: v * _mesh_shape(mesh)["pipe"] for k, v in _n_local_blocks(params).items()}
+        manifest = {"format": SHARDED_FORMAT, "mesh": _mesh_shape(mesh), "fsdp": bool(fsdp), "lora": bool(lora),
+                    "epoch": int(epoch), "gstep": int(gstep), "blocks": blocks, "leaves": entries,
+                    "moments": moments, "acc": opt_state.get("acc") is not None}
+        with open(os.path.join(tmp, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+    barrier()
+    if rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+        os.replace(tmp, path)
+    barrier()
+    return path
+
+
+def snapshot_format(path: str) -> Optional[str]:
+    """Which save path wrote the snapshot at ``path``: ``"sharded"`` for a
+    :func:`save_sharded_snapshot` directory, ``"host"`` for a
+    :func:`save_pretrain_snapshot` file, None for anything else."""
+    if os.path.isdir(path):
+        try:
+            with open(os.path.join(path, MANIFEST)) as f:
+                return "sharded" if json.load(f).get("format") == SHARDED_FORMAT else None
+        except (OSError, ValueError):
+            return None
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    except Exception:
+        return None
+    return "host" if isinstance(obj, dict) and obj.get("format") == SNAPSHOT_FORMAT else None
+
+
+def snapshot_saved_target(path: str) -> Dict[str, Any]:
+    """The snapshot's own structure: its manifest (the saving mesh, each
+    leaf's whole path, shape, dtype and spec, the moments' paths)."""
+    with open(os.path.join(path, MANIFEST)) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != SHARDED_FORMAT:
+        raise ValueError(f"{path} is not a tapclip_tpu_torch sharded snapshot")
+    return manifest
+
+
+class SnapshotMismatch(ValueError):
+    """A sharded snapshot whose params tree is not the live one."""
+
+
+def restore_sharded_snapshot(path: str, target: Dict[str, Dict[str, Any]], mesh=None, *, fsdp: bool = False,
+                             trained: Sequence[str] = ()) -> Dict[str, Any]:
+    """Restore a :func:`save_sharded_snapshot` directory into ``target``'s
+    layout (:func:`abstract_target` of this rank's live tree, on ``mesh``
+    with ``fsdp``): ``{"params": {local path: this rank's shard}, "opt_state":
+    a PretrainOptimizer.state_dict() over the local paths ``trained`` or
+    None, "moments": (saved, live) counts, "epoch", "gstep"}``.  Each leaf is
+    rebuilt whole from the saved pieces, one at a time, and cut with the
+    live spec, whatever topology saved it.  The moments come back only when
+    the saved ones and ``trained`` match by key path and shape; otherwise
+    ``opt_state`` is None (fresh moments).  A params tree that differs
+    raises :class:`SnapshotMismatch`."""
+    from tapclip_tpu_torch.parallel.sharding import join_leaf, local_spec, shard_leaf
+
+    manifest = snapshot_saved_target(path)
+    saved, shape = manifest["leaves"], manifest["mesh"]
+    live = {e["path"]: (p, e) for p, e in target.items()}
+    missing, extra = sorted(set(live) - set(saved)), sorted(set(saved) - set(live))
+    wrong = sorted(k for k in set(live) & set(saved) if list(saved[k]["shape"]) != list(live[k][1]["shape"]))
+    if missing or extra or wrong:
+        raise SnapshotMismatch(f"{path}: the snapshot's params tree is not this run's ({len(missing)} leaves "
+                               f"missing, e.g. {missing[:2]}; {len(extra)} not in this run, e.g. {extra[:2]}; "
+                               f"{len(wrong)} of another shape, e.g. {wrong[:2]})")
+    dp, pp, tp = shape["data"], shape["pipe"], shape["model"]
+    grid = np.arange(dp * pp * tp).reshape(dp, pp, tp)
+    files: Dict[int, Any] = {}
+
+    def saved_rank(r):
+        if r not in files:
+            files[r] = torch.load(os.path.join(path, f"rank{r}.pt"), map_location="cpu", weights_only=True,
+                                  mmap=True)
+        return files[r]
+
+    def place(whole_path):  # (stage, the stage's own path) of a leaf on the saving mesh
+        parts = whole_path.split("/")
+        if pp > 1 and len(parts) > 2 and parts[1] == "blocks":
+            per = manifest["blocks"][parts[0]] // pp
+            s, parts[2] = divmod(int(parts[2]), per)
+            parts[2] = str(parts[2])
+            return s, "/".join(parts)
+        return 0, whole_path
+
+    def whole(whole_path, read):
+        """The whole leaf ``whole_path`` from ``read(rank file, local path)``."""
+        spec = tuple(saved[whole_path]["spec"])
+        loc = local_spec(whole_path, spec)
+        s, local_path = place(whole_path)
+        ds = range(dp) if manifest["fsdp"] and "data" in loc else [0]
+        js = range(tp) if "model" in loc else [0]
+        return join_leaf(whole_path, [[read(saved_rank(int(grid[d, s, j])), local_path) for j in js] for d in ds],
+                         spec)
+
+    shape_live = _mesh_shape(mesh)
+    n, j = shape_live["model"], (0 if mesh is None else mesh.model_index)
+    dn, di = (shape_live["data"], mesh.data_index) if fsdp and mesh is not None else (1, 0)
+
+    def cut(local_path, t):
+        return shard_leaf(local_path, t, tuple(target[local_path]["spec"]), n, j, dn, di)
+
+    params = {p: cut(p, whole(k, lambda f, lp: f["params"][lp])) for k, (p, _) in live.items()}
+    trained_whole = {target[p]["path"]: p for p in trained}
+    counts = (len(manifest["moments"]), len(trained_whole))
+    opt_state = None
+    if trained_whole and sorted(trained_whole) == manifest["moments"]:
+        head = saved_rank(0)["opt_state"]
+        moments = {}
+        for k, p in trained_whole.items():
+            s, lp = place(k)
+            moments[p] = {"step": float(saved_rank(int(grid[0, s, 0]))["opt_state"]["moments"][lp]["step"]),
+                          **{key: cut(p, whole(k, lambda f, lp, key=key: f["opt_state"]["moments"][lp][key]))
+                             for key in ("exp_avg", "exp_avg_sq")}}
+        acc = None
+        if manifest["acc"]:
+            acc = {p: cut(p, whole(k, lambda f, lp: f["opt_state"]["acc"][lp])) for k, p in trained_whole.items()}
+        opt_state = {"count": int(head["count"]), "mini_step": int(head["mini_step"]), "moments": moments,
+                     "acc": acc}
+    return {"params": params, "opt_state": opt_state, "moments": counts, "epoch": int(manifest["epoch"]),
+            "gstep": int(manifest["gstep"])}
 
 
 class CheckpointManager:

@@ -538,6 +538,195 @@ def pipeline_legs(inp, dp, tp):
     return out
 
 
+# --- expert parallelism, LoRA and distillation under tp, VPT-deep under SP, the sharded snapshot ------
+# (test_torch_expert_parallel.py and test_torch_sharded_snapshot.py)
+
+#: (dp, tp, options) of each form of test_torch_expert_parallel.py: the input entry, FSDP, SP, GradCache's k,
+#: the image lock
+EXPERT_FORMS = {
+    "moe_tp2": (1, 2, dict(key="moe")),
+    "moe_dp2": (2, 1, dict(key="moe")),
+    "moe_dp2tp2": (2, 2, dict(key="moe")),
+    "moe_dp2fsdp": (2, 1, dict(key="moe", fsdp=True)),
+    "moe_tp2sp": (1, 2, dict(key="moe", seq_parallel=True)),
+    "moe_gradcache_dp2": (2, 1, dict(key="moe_gc", k=2)),
+    "vpt_deep_sp": (1, 2, dict(key="vpt_deep", seq_parallel=True, lock_image=True)),
+    "lora_tp2": (1, 2, dict(key="lora")),
+    "lora_moe_tp2": (1, 2, dict(key="lora_moe")),
+    "distill_tp2": (1, 2, dict(key="distill")),
+}
+LORA_ALPHA, LORA_RANK = 8.0, 2
+DISTILL_KW = dict(tau=2.0, w_task=1.0, w_kd=0.5, w_feat=0.5)
+
+
+def _expert_form(inp, mesh, key, fsdp=False, seq_parallel=False, k=1, lock_image=False, steps=2):
+    """A form of EXPERT_FORMS on ``mesh``, beside the same form in one
+    process (mesh None) on the whole batch: per-step losses, the trained
+    tree (gathered whole; LoRA's adapters as they are), the local leaves'
+    shapes."""
+    from tapclip_tpu_torch import distill, peft
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_micro_batches, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import lora_from_jax, params_from_jax
+
+    e = inp[key]
+    cfg = _port_cfg(e["cfg"])
+    out = {}
+    for m in (mesh, None):
+        x, ids = (e["x"], e["ids"]) if m is None else (
+            shard_micro_batches((e["x"], e["ids"]), m, k) if k > 1 else shard_batch((e["x"], e["ids"]), m))
+        tree = params_from_jax(e["tree"], cfg)
+        local = tree if m is None else shard_params(tree, m, fsdp=fsdp)
+        if key.startswith("lora"):
+            P.set_trainable(local, {p: False for p, _ in P.named_leaves(local)})
+            trained = lora_from_jax(e["lora"])
+            opt = P.PretrainOptimizer(P.set_trainable(trained), lr=LR_PRE, weight_decay=WD_PRE)
+            step = peft.make_lora_pretrain_step(cfg, opt, alpha=LORA_ALPHA, mesh=m)
+            losses = [[float(step(local, trained, x, ids)["loss"])] for _ in range(steps)]
+            tree_out = _leaves(trained)
+        elif key == "distill":
+            tcfg = _port_cfg(e["teacher_cfg"])
+            teacher = params_from_jax(e["teacher"], tcfg)
+            teacher = teacher if m is None else shard_params(teacher, m)
+            opt = P.PretrainOptimizer(P.set_trainable(local), lr=LR_PRE, weight_decay=WD_PRE)
+            step = distill.make_distill_step(cfg, tcfg, opt, mesh=m, **DISTILL_KW)
+            losses = []
+            for _ in range(steps):
+                r = step(local, teacher, x, ids)
+                losses.append([float(r[n]) for n in ("loss", "task", "kd", "feat")])
+            tree_out = _leaves(local if m is None else gather_params(local, m))
+        else:
+            mask = P.lock_tower_trainable(local, lock_image=True) if lock_image else None
+            opt = P.PretrainOptimizer(P.set_trainable(local, mask), lr=LR_PRE, weight_decay=WD_PRE)
+            if k > 1:
+                step = P.make_accum_pretrain_step(cfg, opt, k, mesh=m)
+            else:
+                step = P.make_pretrain_step(cfg, opt, mesh=m, seq_parallel=seq_parallel and m is not None,
+                                            fsdp=fsdp and m is not None)
+            losses = [[float(step(local, x, ids)["loss"])] for _ in range(steps)]
+            tree_out = _leaves(local if m is None else gather_params(local, m, fsdp and m is not None))
+        out["mesh" if m is not None else "one"] = {"loss": losses, "tree": tree_out}
+        if m is not None:
+            out["local_shapes"] = {p: tuple(t.shape) for p, t in _named(local)}
+            out["moment_shapes"] = {p: tuple(v["exp_avg"].shape) for p, v in opt.state_dict()["moments"].items()}
+    return out
+
+
+def _snapshot_leg(inp, meshes, out_dir):
+    """The MoE InfoNCE step on dp 2 x tp 2 with FSDP: one step, a sharded
+    snapshot (``save_sharded_snapshot``, every rank its shards), the
+    gathered tree, a second step.  Then the snapshot resumed on tp 2
+    (ranks 0 and 1) and in one process (rank 0), each into a fresh tree
+    and optimizer: whether the resumed tree is the gathered one bit for
+    bit, its moments equal to the saved ones gathered, and the second step's
+    loss and tree."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.parallel.sharding import gather_opt_state, gather_params, shard_batch, shard_params
+    from tapclip_tpu_torch.utils import checkpoint as ckpt_io
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["moe"]
+    cfg = _port_cfg(e["cfg"])
+    snap = os.path.join(out_dir, "snapshot")
+    out = {}
+    m4 = meshes[2, 2]
+    local = shard_params(params_from_jax(e["tree"], cfg), m4, fsdp=True)
+    opt = P.PretrainOptimizer(P.set_trainable(local), lr=LR_PRE, weight_decay=WD_PRE)
+    step = P.make_pretrain_step(cfg, opt, mesh=m4, fsdp=True)
+    x, ids = shard_batch((e["x"], e["ids"]), m4)
+    step(local, x, ids)
+    ckpt_io.save_sharded_snapshot(snap, params=local, opt_state=opt.state_dict(), epoch=1, gstep=1, mesh=m4,
+                                  fsdp=True)
+    saved = dict(_named(gather_params(local, m4, True)))
+    saved_moments = gather_opt_state(opt.state_dict(), m4, local, True)["moments"]
+    loss = float(step(local, x, ids)["loss"])
+    out["uninterrupted"] = {"loss": loss, "tree": _leaves(gather_params(local, m4, True)),
+                            "files": sorted(os.listdir(snap)),
+                            "local_bank": tuple(local["visual"]["blocks"][0]["moe"]["w_fc"].shape)}
+    for name, m in (("tp2", meshes[1, 2]), ("one", None)):
+        if m is not None and not bool((m.grid == m.rank).any()):
+            continue
+        if m is None and torch.distributed.get_rank() != 0:
+            continue
+        tree = params_from_jax(e["tree"], cfg)  # the step-0 tree: every leaf overwritten by the resume
+        fresh = tree if m is None else shard_params(tree, m)
+        opt2 = P.PretrainOptimizer(P.set_trainable(fresh), lr=LR_PRE, weight_decay=WD_PRE)
+        got = ckpt_io.restore_sharded_snapshot(snap, ckpt_io.abstract_target(fresh, m), m, trained=opt2.paths)
+        with torch.no_grad():
+            for p, t in _named(fresh):
+                t.copy_(got["params"][p])
+        opt2.load_state_dict(got["opt_state"])
+        whole = dict(_named(fresh if m is None else gather_params(fresh, m)))
+        st = opt2.state_dict()
+        moments = st if m is None else gather_opt_state(st, m, fresh)
+        step2 = P.make_pretrain_step(cfg, opt2, mesh=m)
+        xb, ib = (e["x"], e["ids"]) if m is None else shard_batch((e["x"], e["ids"]), m)
+        out[name] = {
+            "equal": sorted(whole) == sorted(saved) and all(torch.equal(whole[p], saved[p]) for p in saved),
+            "moments_equal": sorted(moments["moments"]) == sorted(saved_moments) and all(
+                torch.equal(moments["moments"][p][k], saved_moments[p][k]) for p in saved_moments
+                for k in ("exp_avg", "exp_avg_sq")),
+            "count": opt2.count, "epoch": got["epoch"], "gstep": got["gstep"],
+            "loss": float(step2(fresh, xb, ib)["loss"]),
+            "tree": _leaves(fresh if m is None else gather_params(fresh, m))}
+    return out
+
+
+def _refusals_leg(mesh):
+    """The forms that stay refused under tp > 1 (the int8 tower, the RN
+    tower, token pruning): each one's message, by name."""
+    from tapclip_tpu_torch import config as tcfg
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.models import layers
+    from tapclip_tpu_torch.parallel.collectives import tensor_parallel
+
+    out = {}
+    cfg = tcfg.TINY_TEST
+    tree = clip_model.init_clip_params(torch.Generator().manual_seed(0), cfg)
+    rn = tcfg.MODEL_PRESETS["RN50"].replace(resnet_layers=(1, 1, 1, 1), image_size=64, vision_width=64)
+    cases = {
+        "int8": lambda: layers.block_forward(torch.zeros(2, 8, 64), tree["visual"]["blocks"][0], 4, act="gelu",
+                                             quantize=True, tp_group=mesh.model_group),
+        "resnet": lambda: clip_model.encode_image(clip_model.init_clip_params(torch.Generator().manual_seed(0), rn),
+                                                  rn, torch.zeros(1, 64, 64, 3)),
+        "pruning": lambda: clip_model.encode_image(tree, cfg.replace(token_keep_ratio=0.5, token_prune_layer=1),
+                                                   torch.zeros(1, 32, 32, 3)),
+    }
+    for name, fn in cases.items():
+        try:
+            with tensor_parallel(mesh.model_group):
+                fn()
+            out[name] = None
+        except Exception as err:  # the message is the result
+            out[name] = f"{type(err).__name__}: {err}"
+    return out
+
+
+def expert_legs(inp, dp, tp):
+    """Every leg of test_torch_expert_parallel.py (``inp["legs"]``) and
+    test_torch_sharded_snapshot.py (``"snapshot"``), each on the sub-mesh
+    of its size: every rank builds every mesh, the ranks without a cell
+    wait."""
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = {(d, t): make_mesh(dp=d, tp=t) for d, t in ((1, 2), (2, 1), (2, 2))}
+    out = {}
+    for name in inp["legs"]:
+        if name == "snapshot":
+            out[name] = _snapshot_leg(inp, meshes, inp["out_dir"])
+            continue
+        if name == "refusals":
+            m = meshes[1, 2]
+            if bool((m.grid == m.rank).any()):
+                out[name] = _refusals_leg(m)
+            continue
+        d, t, kw = EXPERT_FORMS[name]
+        m = meshes[d, t]
+        if bool((m.grid == m.rank).any()):
+            out[name] = _expert_form(inp, m, **kw)
+    return out
+
+
 def _main(which: str, inputs: str, out_dir: str, dp: str, tp: str) -> None:
     import torch.distributed as dist
 

@@ -573,8 +573,9 @@ def test_pretrain_cli_moe_experts_writes_a_loadable_tree(tmp_path):
         ckpt_io.load_clip_tree(out["ckpt"], tcfg.TINY_TEST)
     snap = ckpt_io.restore_pretrain_snapshot(f"{out['paths']['model_dir']}/pretrain_snapshot_e000001.pt")
     assert "moe" in snap["params"]["text"]["blocks"][1] and snap["opt_state"]["count"] > 0
-    with pytest.raises(SystemExit):
-        pretrain_cli.main(["--preset", "tiny", "--device", "cpu", "--moe-experts", "2", "--tp", "2"])
+    args = pretrain_cli.build_parser().parse_args(["--preset", "tiny", "--device", "cpu", "--moe-experts", "2",
+                                                   "--tp", "2"])
+    assert (args.moe_experts, args.tp) == (2, 2)  # expert parallelism: test_torch_expert_parallel.py
 
 
 @pytest.mark.parametrize("what", ["maple", "vpt_deep", "pruning", "int8", "deep_text", "resnet", "saliency"])

@@ -483,23 +483,33 @@ def _meta_tree(jshapes):
 @pytest.mark.parametrize("tp,pp,fsdp", [(a, b, c) for a in (False, True) for b in (False, True)
                                         for c in (False, True)])
 def test_clip_param_specs_equal_jax(tp, pp, fsdp):
-    """Every leaf's spec of the TINY, TINY-MoE and ViT-B/16 trees equals the
-    JAX package's ``PartitionSpec`` for its stacked leaf, under each of
-    (tp, pp, fsdp)."""
+    """Every leaf's spec of the TINY, TINY-MoE (2 and 4 experts) and
+    ViT-B/16 trees equals the JAX package's ``PartitionSpec`` for its
+    stacked leaf, under each of (tp, pp, fsdp), and the shard
+    ``shard_leaf`` cuts has the shape of JAX's shard of it (the expert banks
+    their ``E / tp`` experts and, under FSDP, ``1/dp`` of dimension 1; a
+    block leaf without the layer axis)."""
     shape = {"data": 2, **({"pipe": 2} if pp else {}), "model": 2 if tp else 1}
     jm = jmesh.make_mesh(dp=2, tp=shape["model"], pp=shape.get("pipe", 1),
                          devices=jax.devices()[:2 * shape["model"] * shape.get("pipe", 1)])
     tm = tmesh.Mesh(shape=shape, grid=np.zeros((1, 1)))
-    for cfg in (J_TINY, J_TINY.replace(moe_experts=2), J_VIT_B_16):
+    for cfg in (J_TINY, J_TINY.replace(moe_experts=2), J_TINY.replace(moe_experts=4), J_VIT_B_16):
         jshapes = jax.eval_shape(lambda c=cfg: jclip.init_clip_params(jax.random.PRNGKey(0), c))
-        want = {}
+        want, sizes = {}, {}
         jax.tree_util.tree_map_with_path(
             lambda path, s: want.__setitem__(jshard._path_str(path), tuple(s)),
             jshard.clip_param_specs(jshapes, jm, fsdp=fsdp), is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-        got = tshard.clip_param_specs(_meta_tree(jshapes), tm, fsdp=fsdp)
+        jax.tree_util.tree_map_with_path(lambda path, s: sizes.__setitem__(jshard._path_str(path), s.shape), jshapes)
+        meta = _meta_tree(jshapes)
+        got = tshard.clip_param_specs(meta, tm, fsdp=fsdp)
         assert {tshard.stacked_path(p) for p in got} == set(want)
+        leaves = dict(tpre.named_leaves(meta))
         for path, spec in got.items():
-            assert spec == want[tshard.stacked_path(path)], (cfg.name, path)
+            stacked = tshard.stacked_path(path)
+            assert spec == want[stacked], (cfg.name, path)
+            shard = jax.sharding.NamedSharding(jm, jax.sharding.PartitionSpec(*spec)).shard_shape(sizes[stacked])
+            local = tshard.shard_leaf(path, leaves[path], spec, shape["model"], 0, 2 if fsdp else 1, 0)
+            assert tuple(local.shape) == tuple(shard[1:] if stacked != path else shard), (cfg.name, path)
 
 
 def test_partial_modes_sum_to_the_whole_block():
@@ -613,8 +623,8 @@ def test_pretrain_cli_resumes_a_whole_snapshot_under_tp(legs):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--sharded-snapshot"], "--sharded-snapshot is not yet ported"),
-    (["--moe-experts", "2", "--tp", "2"], "--moe-experts with --tp > 1"),
+    (["--moe-experts", "2", "--pp", "2"], "pipeline parallelism over MoE towers is not supported"),
+    (["--distill-teacher", "teacher.bin", "--moe-experts", "2"], "--distill-teacher with MoE students is not wired"),
     (["--fsdp", "--lora-rank", "2"], "--fsdp does not apply to --lora-rank runs"),
     (["--fsdp", "--pp", "2"], "--fsdp does not compose with --pp"),
     (["--distill-teacher", "teacher.bin", "--pp", "2"], "--distill-teacher does not compose with --pp/--fsdp"),
@@ -626,9 +636,9 @@ def test_pretrain_cli_resumes_a_whole_snapshot_under_tp(legs):
     (["--accum-full-negatives", "2", "--seq-parallel"], "--accum-full-negatives composes with dp/tp meshes"),
 ])
 def test_pretrain_cli_refuses_the_next_slices_flags(argv, match, capsys):
-    """What stays refused, by name: the sharded snapshot and expert
-    parallelism (the next slice), and the JAX CLI's refusals of the
-    parallel forms' combinations (``tapclip_tpu/pretrain_cli.py``)."""
+    """What stays refused, by name: the JAX CLI's refusals of the parallel
+    forms' combinations (``tapclip_tpu/pretrain_cli.py``), MoE towers on
+    the pipe axis and distillation into an MoE student among them."""
     from tapclip_tpu_torch import pretrain_cli
 
     with pytest.raises((SystemExit, ValueError)) as err:
@@ -640,11 +650,15 @@ def test_pretrain_cli_refuses_the_next_slices_flags(argv, match, capsys):
     (["--pp", "2", "--pp-microbatches", "8"], dict(pp=2, pp_microbatches=8)),
     (["--seq-parallel", "--tp", "2"], dict(seq_parallel=True, tp=2)),
     (["--fsdp", "--dp", "4"], dict(fsdp=True, dp=4)),
-    ([], dict(pp=1, pp_microbatches=0, seq_parallel=False, fsdp=False)),
+    ([], dict(pp=1, pp_microbatches=0, seq_parallel=False, fsdp=False, sharded_snapshot=False)),
+    (["--sharded-snapshot"], dict(sharded_snapshot=True)),
+    (["--moe-experts", "2", "--tp", "2"], dict(moe_experts=2, tp=2)),
 ])
 def test_pretrain_cli_parses_the_lifted_flags(argv, want):
-    """``--pp``, ``--pp-microbatches``, ``--seq-parallel`` and ``--fsdp``
-    parse as the JAX CLI's (their runs: ``test_torch_pipeline.py``)."""
+    """``--pp``, ``--pp-microbatches``, ``--seq-parallel``, ``--fsdp``,
+    ``--sharded-snapshot`` and ``--moe-experts`` with ``--tp`` parse as the
+    JAX CLI's (their runs: ``test_torch_pipeline.py``,
+    ``test_torch_expert_parallel.py``, ``test_torch_sharded_snapshot.py``)."""
     from tapclip_tpu_torch import pretrain_cli
 
     args = pretrain_cli.build_parser().parse_args(argv)
@@ -652,9 +666,11 @@ def test_pretrain_cli_parses_the_lifted_flags(argv, want):
 
 
 def test_refusals_of_the_next_slice():
-    """MoE leaves under tp > 1, a head or hidden count that tp does not
-    divide, an FSDP cut that dp does not divide, the pipe and model axes
-    over a device list, and a mesh larger than the world, each by name."""
+    """The specs cut the MoE banks under tp > 1 (a rank's experts; an
+    expert count that tp does not divide refused by name), and a head or
+    hidden count that tp does not divide, an FSDP cut that dp does not
+    divide, the pipe and model axes over a device list, and a mesh larger
+    than the world are refused, each by name."""
     tree = params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY)), tcfg.TINY_TEST)
     three_data = tmesh.Mesh(shape={"data": 3, "model": 1}, grid=np.zeros((3, 1)))
     with pytest.raises(ValueError, match="not divisible by dp=3 [(]FSDP[)]"):
@@ -666,8 +682,18 @@ def test_refusals_of_the_next_slice():
     two = tmesh.Mesh(shape={"data": 1, "model": 2}, grid=np.zeros((1, 2)))
     moe = params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY.replace(moe_experts=2))),
                           tcfg.TINY_TEST.replace(moe_experts=2))
-    with pytest.raises(NotPortedError, match="MoE leaves under tp > 1"):
-        tshard.shard_params(moe, two)
+    banks = tshard.shard_params(moe, tmesh.Mesh(shape={"data": 1, "model": 2}, grid=np.arange(2).reshape(1, 2),
+                                                model_index=1))
+    for path, t in tpre.named_leaves(banks):
+        whole = dict(tpre.named_leaves(moe))[path]
+        if "/moe/" in path and not path.endswith("router/w"):
+            assert torch.equal(t, whole[1:]), path  # model rank 1: expert 1 of 2
+        elif path.endswith("router/w"):
+            assert torch.equal(t, whole), path
+    moe3 = params_from_jax(_np_tree(jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY.replace(moe_experts=3))),
+                           tcfg.TINY_TEST.replace(moe_experts=3))
+    with pytest.raises(ValueError, match="moe_experts 3 is not divisible by tp=2"):
+        tshard.shard_params(moe3, two)
     three = tmesh.Mesh(shape={"data": 1, "model": 3}, grid=np.zeros((1, 3)))
     with pytest.raises(ValueError, match="not divisible by tp=3"):
         tshard.shard_params(tree, three)

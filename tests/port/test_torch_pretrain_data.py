@@ -234,7 +234,7 @@ def test_pretrain_cli_resume_featurize_shards_and_csv(runs, tree, sd_path, tmp_p
 @pytest.mark.parametrize("argv,match", [
     (["--pp", "2"], "1 devices not divisible by tp*pp=2"),  # the pipe axis needs torchrun's ranks
     (["--fsdp", "--pp", "2"], "--fsdp does not compose with --pp"),  # the JAX CLI's refusal
-    (["--sharded-snapshot"], "--sharded-snapshot is not yet ported"),
+    (["--sharded-snapshot", "--resume", "no_such_snapshot"], "not a readable sharded snapshot directory"),
 ])
 def test_pretrain_cli_refuses_mesh_flags(argv, match, capsys):
     with pytest.raises((SystemExit, ValueError)) as err:
