@@ -633,7 +633,7 @@ def _counters():
     from tapclip_tpu_torch.ops.gemm import col_sum, gemm_f32
     from tapclip_tpu_torch.ops.int8_attn import int8_attn_block
     from tapclip_tpu_torch.ops.int8_gemm import int8_gemm
-    from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_block
+    from tapclip_tpu_torch.ops.int8_mlp import epilogue_cuda, int8_mlp_block, partial_out_cuda
 
     return {
         "fused_mlp": (fused_mlp_block, "launches"),
@@ -660,6 +660,12 @@ def _counters():
         "col_sum": (col_sum, "launches"),
         "int8_mlp": (int8_mlp_block, "launches"),
         "int8_attn": (int8_attn_block, "launches"),
+        # B13's and B14's partial modes (tensor parallelism, "parallel"): each front, one a half-block,
+        # and the two stages both share, one each a half-block
+        "int8_mlp_partial": (int8_mlp_block, "partial_launches"),
+        "int8_attn_partial": (int8_attn_block, "partial_launches"),
+        "int8_partial_out": (partial_out_cuda, "launches"),
+        "int8_epilogue": (epilogue_cuda, "launches"),
         "int8_mlp_variants": (int8_mlp_block, "variant_launches"),  # S5, off the serving path
         "int8_gemm": (int8_gemm, "launches"),  # S6, off the serving path
         "fused_layer": (fused_layer, "launches"),  # S1-S4, off every main path
@@ -1005,15 +1011,17 @@ def b7_mma_flops(W: int, pairs: int, dtype: str) -> float:
     return (6 * 5 if dtype == "float32" else 1 + 1 + 1 + 3 + 3) * 2 * W * pairs
 
 
-def b14_mma_bound(n_bytes: int, R: int, W: int, pairs: int, dtype: str, deterministic: bool) -> dict:
+def b14_mma_bound(n_bytes: int, R: int, W: int, pairs: int, dtype: str, deterministic: bool,
+                  tp: int = 1) -> dict:
     """B14's bound at the rates of the units it runs on: its two int8
     products (8 R W^2) at the tensor cores' int8 peak plus its attention's
     bf16 MMAs at the bf16 peak (q k^T six a product, q and k f32 in three
     terms; p v six, or one where the stochastic mode in bf16 rounds p), or
-    its bytes, whichever is larger."""
+    its bytes, whichever is larger.  ``tp``: a rank's share of the partial
+    mode, 1 / tp of the products and of the heads."""
     pv = 1 if dtype == "bfloat16" and not deterministic else 6
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * (8 * R * W * W / PEAK_INT8_OPS + (6 + pv) * 2 * W * pairs / PEAK_FLOPS["bfloat16"])
+    by_ops = 1e3 * (8 * R * W * W / tp / PEAK_INT8_OPS + (6 + pv) * 2 * (W // tp) * pairs / PEAK_FLOPS["bfloat16"])
     return {"mma_bound_ms": max(by_bytes, by_ops), "mma_bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
@@ -2598,11 +2606,13 @@ def plain_int8():
     from tapclip_tpu_torch.ops.int8_attn import int8_attn_plain, quantize_attn
     from tapclip_tpu_torch.ops.int8_mlp import int8_mlp_plain, quantize_mlp
 
-    def mlp(_, x, ln, p, *, eps=1e-5, seed=0, deterministic=False):
+    def mlp(_, x, ln, p, *, eps=1e-5, seed=0, deterministic=False, tp_group=None):
+        require(tp_group is None, "plain_int8 runs the one-process blocks")
         return int8_mlp_plain(x, ln["scale"], ln["bias"], quantize_mlp(p), eps=eps, seed=seed,
                               deterministic=deterministic)
 
-    def attn(_, x, ln, p, n_heads, *, valid_len=None, eps=1e-5, seed=0, deterministic=False):
+    def attn(_, x, ln, p, n_heads, *, valid_len=None, eps=1e-5, seed=0, deterministic=False, tp_group=None):
+        require(tp_group is None, "plain_int8 runs the one-process blocks")
         valid = x.shape[1] if valid_len is None else valid_len
         return int8_attn_plain(x, ln["scale"], ln["bias"], quantize_attn(p), n_heads, valid, eps=eps,
                                seed=seed, deterministic=deterministic)
@@ -5767,6 +5777,26 @@ def int8_record(int8_kernels: dict, variants: dict, gemm: dict, launches: dict, 
     return out
 
 
+def int8_partial_record(partial: dict, launches: dict) -> list:
+    """The kernels-line entries of B13's and B14's partial modes: launches
+    of the front on the "parallel" phase's int8 forms (every rank, summed)
+    and beside them those of the two stages both modes share, the f32
+    stochastic case's times (one rank's three entries) and bound at half the
+    operations, every case."""
+    out = []
+    for name, whole in (("int8_mlp_partial", "int8_mlp"), ("int8_attn_partial", "int8_attn")):
+        cases = partial[name]["cases"]
+        c = [x for x in cases if x["dtype"] == "float32" and x["mode"] == "stochastic"][0]
+        out.append({"name": name, "route": "cuda", **INT8_KERNELS[whole], "launches": launches.get(name, 0),
+                    "shared_stage_launches": {k: launches.get(k, 0) for k in ("int8_partial_out", "int8_epilogue")},
+                    "max_abs_err": max(x["max_abs_err"] for x in cases), "ms": c["ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None, "shape": c["shape"],
+                    **({"fma_bound_ms": c["fma_bound_ms"]} if "fma_bound_ms" in c else {}),
+                    "whole_ms": c["whole_ms"], "half_width_whole_ms": c["half_width_whole_ms"],
+                    "bits_equal_whole": all(x["bits_equal_whole"] for x in cases), "cases": cases})
+    return out
+
+
 # --- the partial modes of tensor parallelism (K1, K2, B5, B4; "kernels", "backward") -------------
 
 PARTIAL_SHAPE = (8, 200, 768, 12, 197)  # ViT-B/16's image shape; a rank of tp = 2 holds half the heads / hidden
@@ -5952,6 +5982,141 @@ def _summed_dx(name, x, g, gm, bt, cuts, nh, valid):
     return dx
 
 
+def _int8_rank_weights(qm, qa, n: int, j: int):
+    """Rank j of n's quantized MLP and attention weights: fc's hidden columns
+    and proj's rows, the per-head qkv cut and w_out's rows, with proj's and
+    out's column scales the whole weight's (what ``quantize_mlp`` /
+    ``quantize_attn`` with the group give the rank)."""
+    from tapclip_tpu_torch.parallel.sharding import _qkv_parts
+
+    H, W = qm["w_fc"].shape[1], qm["w_proj"].shape[1]
+    hc, wc = slice(j * H // n, (j + 1) * H // n), slice(j * W // n, (j + 1) * W // n)
+    m = {"w_fc": qm["w_fc"][:, hc].contiguous(), "s_fc": qm["s_fc"][hc].contiguous(),
+         "b_fc": qm["b_fc"][hc].contiguous(), "w_proj": qm["w_proj"][hc].contiguous(), "s_proj": qm["s_proj"],
+         "b_proj": qm["b_proj"]}
+    a = {k: _qkv_parts(qa[k], n, j).contiguous() for k in ("w_qkv", "s_qkv", "b_qkv")}
+    a.update(w_out=qa["w_out"][wc].contiguous(), s_out=qa["s_out"], b_out=qa["b_out"])
+    return m, a
+
+
+def _int8_two_ranks(front, partial_out, epilogue, n_local: int, R: int):
+    """The partial mode's three stages for ranks 0 and 1 in this process
+    (``front(j)``, ``partial_out(j, ws, col0)``, ``epilogue(j, ws, acc)``),
+    the collectives done by hand where ``int8_mlp.run_partial`` runs them:
+    the row max of both fronts, the sum of both int32 partials.  Returns
+    each rank's output and the summed acc."""
+    import torch
+
+    fronts = [front(j) for j in range(2)]
+    top = torch.maximum(fronts[0][R * n_local:], fronts[1][R * n_local:])
+    for f in fronts:
+        f[R * n_local:] = top
+    acc = sum(partial_out(j, fronts[j], j * n_local) for j in range(2))
+    return [epilogue(j, fronts[j], acc) for j in range(2)], acc
+
+
+def b14_partial_bound(n_bytes: int, R: int, W: int, pairs: int, dtype: str, deterministic: bool) -> dict:
+    """A rank's half of B14 (tp = 2) priced on the units its stages run on
+    (:func:`b14_mma_bound`): the bound; beside it the price of its attention
+    at the f32 rate outside the tensor cores, as the whole B14's ``bound_ms``."""
+    mma = b14_mma_bound(n_bytes, R, W, pairs, dtype, deterministic, tp=2)
+    fma = int8_bound(n_bytes, 4 * R * W * W, 4 * (W // 2) * pairs)
+    return {"bound_ms": mma["mma_bound_ms"], "bound_by": mma["mma_bound_by"], "fma_bound_ms": fma["bound_ms"]}
+
+
+def check_int8_partial() -> dict:
+    """B13's and B14's partial modes at ViT-B/16 (8 x 200, W 768, H 3,072,
+    12 heads, valid 197; a rank of tp = 2 holds half the hidden columns and
+    6 heads), f32 and bf16, stochastic and round to nearest: the two ranks'
+    stages on the card, the collectives done by hand (the fronts' row max,
+    the int32 partials summed) then the epilogue, held bit for bit against
+    the whole B13 / B14 launch, and against the same chain of the plain
+    partials (INT8_TOL on the update).  CUDA-event times of one rank's three
+    entries (no collective) beside the plain partial's, the whole kernel's
+    at full and half width, and the bound of a rank's half of the work."""
+    import torch
+
+    from tapclip_tpu_torch.ops import int8_attn as A
+    from tapclip_tpu_torch.ops import int8_mlp as M
+
+    B, T, W, nh, valid = PARTIAL_SHAPE
+    R, H = B * T, 4 * W
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {"int8_mlp_partial": {"cases": []}, "int8_attn_partial": {"cases": []}}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        x, ln, _, _, qm, qa = _int8_case(gen, B, T, W, nh, dtype)
+        g, b = ln["scale"], ln["bias"]
+        cuts = [_int8_rank_weights(qm, qa, 2, j) for j in range(2)]
+        half_x = x[..., :W // 2].contiguous()  # the whole B14 at half width: 6 heads of 64
+        half_qa = A.quantize_attn({k: v for k, v in _int8_case(gen, 1, 8, W // 2, nh // 2, dtype)[3].items()})
+        for det in (False, True):
+            mode = "round-to-nearest" if det else "stochastic"
+            kw = dict(deterministic=det)
+            # name: (the fronts on the card and plain, the out weight's keys and its quantizer's stream, the
+            # rank's columns, the whole kernel, the whole kernel at half width, the bound of a rank's half)
+            runs = {
+                "int8_mlp_partial": (
+                    {impl: (lambda f: lambda j: f(x, g, b, cuts[j][0], **kw))(f)
+                     for impl, f in (("cuda", M.int8_mlp_front_cuda), ("plain", M.int8_mlp_front_plain))},
+                    (0, "w_proj", "s_proj", "b_proj", M.STREAM_MLP_H), H // 2,
+                    lambda: M.int8_mlp_cuda(x, g, b, qm, **kw),
+                    lambda: M.int8_mlp_cuda(x, g, b, cuts[0][0], **kw),
+                    int8_bound(nbytes(x, x, cuts[0][0]["w_fc"], cuts[0][0]["w_proj"]) + 2 * 4 * R * W,
+                               4 * R * W * H // 2)),
+                "int8_attn_partial": (
+                    {impl: (lambda f: lambda j: f(x, g, b, cuts[j][1], nh // 2, valid, **kw))(f)
+                     for impl, f in (("cuda", A.int8_attn_front_cuda), ("plain", A.int8_attn_front_plain))},
+                    (1, "w_out", "s_out", "b_out", M.STREAM_ATTN_A), W // 2,
+                    lambda: A.int8_attn_cuda(x, g, b, qa, nh, valid, **kw),
+                    lambda: A.int8_attn_cuda(half_x, g[:W // 2].contiguous(), b[:W // 2].contiguous(), half_qa,
+                                             nh // 2, valid, **kw),
+                    b14_partial_bound(nbytes(x, x, cuts[0][1]["w_qkv"], cuts[0][1]["w_out"]) + 2 * 4 * R * W,
+                                      R, W, attn_pairs(B, T, valid), dname, det)),
+            }
+            stages = {"cuda": (M.partial_out_cuda, M.epilogue_cuda), "plain": (M.partial_out_plain, M.epilogue_plain)}
+            for name, (fronts, (i, wk, sk, bk, stream), n_local, whole, half_whole, work) in runs.items():
+                def chain(impl):  # (front, partial_out, epilogue) of ``impl``, as _int8_two_ranks calls them
+                    po, ep = stages[impl]
+                    return (fronts[impl], lambda j, ws, col0: po(ws, cuts[j][i][wk], 0, stream, det, col0),
+                            lambda j, ws, acc: ep(acc, ws, cuts[j][i][sk], cuts[j][i][bk], x))
+
+                with torch.inference_mode():
+                    got, acc = _int8_two_ranks(*chain("cuda"), n_local, R)
+                    want = whole()
+                    torch.cuda.synchronize()
+                    bits = all(torch.equal(o, want) for o in got)
+                    require(bits, f"{name} {dname} {mode}: the two ranks' partials summed are not the whole "
+                                  f"kernel's bits (max abs {float((got[0].float() - want.float()).abs().max()):.3e})")
+                    ref, ref_acc = _int8_two_ranks(*chain("plain"), n_local, R)
+                    rel = _update_rel(got[0], ref[0], x)
+                    require(rel <= INT8_TOL[dname], f"{name} {dname} {mode}: vs the plain partials, update "
+                                                    f"norm-relative error {rel:.3e} > {INT8_TOL[dname]}")
+                    acc_rel = float((acc.double() - ref_acc.double()).norm() / ref_acc.double().norm())
+
+                    def rank0(impl):  # one rank's three entries, no collective
+                        front, po, ep = chain(impl)
+
+                        def run():
+                            ws = front(0)
+                            return ep(0, ws, po(0, ws, 0))
+                        return run
+
+                    case = {"shape": f"{B}x{T}x{W} half", "dtype": dname, "mode": mode, "bits_equal_whole": bits,
+                            "update_rel_err": rel, "acc_rel_err": acc_rel,
+                            "max_abs_err": float((got[0].float() - ref[0].float()).abs().max()),
+                            "ms": time_ms(rank0("cuda")), "plain_ms": time_ms(rank0("plain"), 5, 1),
+                            "whole_ms": time_ms(whole), "half_width_whole_ms": time_ms(half_whole),
+                            "library_ms": None, **work}
+                out[name]["cases"].append(case)
+                print(f"{name} [{case['shape']} {dname} {mode}]: two ranks summed vs the whole kernel bit for bit "
+                      f"{bits}; vs the plain partials update err {rel:.3e} (tol {INT8_TOL[dname]}), int32 sums "
+                      f"{acc_rel:.3e}; a rank's three entries {case['ms']:.4f} ms (the whole kernel "
+                      f"{case['whole_ms']:.4f}, at half width {case['half_width_whole_ms']:.4f}, the plain partial "
+                      f"{case['plain_ms']:.3f}, bound {case['bound_ms']:.4f} by {case['bound_by']})", flush=True)
+    return out
+
+
 # --- "parallel": the data, pipe and model mesh axes (tapclip_tpu_torch/parallel/) ---------------
 
 PARALLEL_STEPS = 3
@@ -5977,11 +6142,16 @@ PARTIAL_OF = {"fused_mlp": "fused_mlp_partial", "fused_attn_block": "fused_attn_
 # replicated), "distill" (a ViT-B/16 teacher of other weights),
 # "vpt_deep_sp" (VPT-deep, 8 tokens, the image tower locked, SP); "resume"
 # (the dp = 2 FSDP snapshot resumed on this mesh and in rank 0's one
-# process: _parallel_resume_form); ":bfloat16" for bf16.
+# process: _parallel_resume_form); ":bfloat16" for bf16.  The image-tower
+# forms of _parallel_eval_form, eval only at ViT-B/16's 12 layers: "int8"
+# (B13 / B14 in their partial modes; ":nearest" rounds to nearest),
+# "pruned" (token pruning on the ranks' heads), "int8_pruned"; and "rn50"
+# (the RN50 prompt-tune step at full width: the RN tower replicated, the
+# text tower tensor parallel).
 PARALLEL_GROUPS = {  # (dp, pp, tp): the forms each group runs
     (2, 1, 1): ("infonce", "siglip", "fsdp", "fsdp:bfloat16", "moe", "moe_fsdp"),
     (1, 1, 2): ("infonce", "prompt", "infonce:bfloat16", "prompt:bfloat16", "sp", "sp:bfloat16", "moe", "lora",
-                "distill", "vpt_deep_sp", "resume"),
+                "distill", "vpt_deep_sp", "resume", "int8", "int8:nearest", "pruned", "int8_pruned", "rn50"),
     (2, 1, 2): ("infonce", "moe4"),
     (1, 2, 1): ("infonce", "infonce:bfloat16", "pallas"),
     (2, 2, 2): ("sp", "fsdp", "sp:bfloat16", "fsdp:bfloat16"),
@@ -6016,6 +6186,20 @@ PARALLEL_MOE_EXPERTS = {"moe": MOE_EXPERTS, "moe_fsdp": MOE_EXPERTS, "moe4": 4}
 PARALLEL_MOE_FLIP_CAP = {"float32": 1e-2, "bfloat16": MOE_FLIP_CAP["bfloat16"]}
 PARALLEL_LORA_RANK = 8
 PARALLEL_VPT_TOKENS = 8
+PARALLEL_EVAL_FORMS = {"int8": dict(quantize_tower=True), "pruned": dict(token_keep_ratio=0.5),
+                       "int8_pruned": dict(quantize_tower=True, token_keep_ratio=0.5)}
+# The eval forms' unit-norm features against one process, max abs: the int8
+# blocks' partial stages are the whole kernels' bits, the float blocks run
+# K1's and K2's partial modes, whose f32 sums over the two halves round in
+# another order (F32_TOL, their kernel check's limit).
+PARALLEL_EVAL_TOL = F32_TOL
+# A pruned row whose kept tokens differ from one process's must be a near
+# tie: the scores of the last kept and the first dropped patch this close.
+PARALLEL_TIE_TOL = 1e-6
+# The int8 tower's collectives an image batch under tp: per block, the MAX of
+# proj's and out's column scales over [W], the MAX of the hidden and
+# attention rows' maxima over [R], the SUM of both int32 products over [R, W].
+INT8_TP_ALL_REDUCES = 6
 SNAPSHOT_STEP = 2  # the dp = 2 FSDP form's snapshot: after this many of its PARALLEL_STEPS
 
 
@@ -6367,6 +6551,86 @@ def _parallel_mesh_form(mesh, form: str, dtype: str) -> dict:
     return out
 
 
+def _parallel_eval_form(mesh, name: str, mode: str) -> dict:
+    """An image-tower form of PARALLEL_EVAL_FORMS (``mode`` "nearest":
+    ``int8_deterministic``) at ViT-B/16's 12 layers, eval only, one image
+    batch of PARALLEL_BATCH through the package's entry points with the
+    mesh (``featurize.make_image_embed_fn`` for "int8",
+    ``make_image_encoder`` for the others), beside rank 0's one process on
+    the whole batch: every rank's unit-norm features (PARALLEL_EVAL_TOL;
+    the int8 forms its bits), pruning's kept tokens (a row that
+    keeps others must be a near tie, PARALLEL_TIE_TOL), this rank's
+    launches and the calls and bytes of each collective."""
+    import torch
+
+    from tapclip_tpu_torch import featurize
+    from tapclip_tpu_torch.config import VIT_B_16
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
+    from tapclip_tpu_torch.parallel.train_step import make_image_encoder
+
+    cfg = VIT_B_16.replace(**PARALLEL_EVAL_FORMS[name], int8_deterministic=mode == "nearest")
+    tree = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(PARALLEL_SEED), cfg)
+    images = np.random.default_rng(40).integers(0, 256, (PARALLEL_BATCH, cfg.image_size, cfg.image_size, 3),
+                                                dtype=np.uint8)
+
+    def run(params, m):
+        fn = featurize.make_image_embed_fn(cfg, m) if name == "int8" else make_image_encoder(cfg, m)
+        x = images if m is None else shard_batch((images,), m)[0]
+        kept, scored = [], []
+
+        def keep(orig, *a):
+            kept.append(orig(*a))
+            return kept[-1]
+
+        def score(orig, *a):
+            res = orig(*a)
+            scored.append(res[0].clone())  # token_keep_indices then pins the class token's
+            return res
+
+        torch.cuda.synchronize()
+        reset_counts()
+        with patched(clip_model, "token_keep_indices", keep), patched(clip_model, "token_keep_scores", score), \
+                _counting_collectives() as moved:
+            feats, ms = _sync_ms(lambda: fn(params, x))
+            calls = dict(COLLECTIVE_CALLS)
+        return {"feats": clip_model.l2_normalize(feats.float()), "ms": ms, "launches": read_counts(),
+                "bytes": dict(moved), "calls": calls, "kept": kept, "scores": scored}
+
+    one = run(tree, None) if mesh.rank == 0 else None
+    got = run(shard_params(tree, mesh), mesh)
+    out = {"ms": [got["ms"]], "launches": got["launches"], "bytes_per_step": got["bytes"],
+           "calls_per_step": got["calls"], "layers": cfg.vision_layers,
+           "kept": [k.cpu().tolist() for k in got["kept"]]}
+    if one is not None:
+        out.update(ref_ms=[one["ms"]], ref_launches=one["launches"])
+    # Rank 0's one process, sent to every rank (outside the counted collectives)
+    # so that each rank's features are held against it.
+    sent = [None if one is None else {k: [t.cpu() for t in one[k]] if k != "feats" else one[k].cpu()
+                                      for k in ("feats", "kept", "scores")}]
+    torch.distributed.broadcast_object_list(sent, src=0)
+    ref_feats = sent[0]["feats"].to(got["feats"].device)
+    err = float((got["feats"] - ref_feats).abs().max())
+    flips, gap = 0, 0.0
+    for k, ref, sc in zip(got["kept"], sent[0]["kept"], sent[0]["scores"]):
+        differ = (k.cpu().sort(dim=-1).values != ref.sort(dim=-1).values).any(dim=-1)
+        for i in differ.nonzero().flatten().tolist():
+            s = sc[i, 1:].double().sort(descending=True).values  # the patches
+            gap = max(gap, float(s[k.shape[1] - 2] - s[k.shape[1] - 1]))
+            flips += 1
+    bits = bool(torch.equal(got["feats"], ref_feats))
+    # The int8 forms are one process's sums, exact: its bits unless a kept token moved.
+    exact = name.startswith("int8") and flips == 0
+    out.update(max_abs_err=err, bits_equal=bits, flips=flips, tie_gap=gap,
+               errors={"max_abs_err": err, "flips": flips})
+    require(bool(torch.isfinite(got["feats"]).all()) and err <= PARALLEL_EVAL_TOL and gap <= PARALLEL_TIE_TOL
+            and (bits or not exact),
+            f"parallel {name}:{mode} {dict(mesh.shape)}: rank {mesh.rank}'s features max abs err {err:.3e} (tol "
+            f"{PARALLEL_EVAL_TOL}{', bit for bit' if exact else ''}), {flips} pruned rows flipped, widest gap "
+            f"{gap:.3e} (tol {PARALLEL_TIE_TOL})")
+    return out
+
+
 def _parallel_resume_form(mesh, snapshot: str) -> dict:
     """The dp = 2 FSDP form's sharded snapshot (``snapshot``, its step
     SNAPSHOT_STEP) resumed on ``mesh`` and, on rank 0, in one process, each
@@ -6439,21 +6703,26 @@ def _parallel_resume_form(mesh, snapshot: str) -> dict:
     return out
 
 
-def _parallel_prompt_form(mesh, dtype: str) -> dict:
+def _parallel_prompt_form(mesh, dtype: str, model_name: str = "ViT-B-16") -> dict:
     """PARALLEL_STEPS ref_compat prompt-tune steps, pixels in at the global
     batch (the K3 aux through the head-sum all-reduce under tp), beside rank
     0's one-process kernel path: losses, grad norms, the ctx displacement
-    (TRAIN_TOL)."""
+    (TRAIN_TOL).  ``model_name`` RN50 (the "rn50" form): the RN tower at
+    full width, replicated on every rank, from a seeded tree."""
     import torch
 
-    from tapclip_tpu_torch.config import VIT_B_16, TrainConfig
+    from tapclip_tpu_torch.config import MODEL_PRESETS, VIT_B_16, TrainConfig
+    from tapclip_tpu_torch.models import clip as clip_model
     from tapclip_tpu_torch.models.model_wrapper import FullModel
     from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
     from tapclip_tpu_torch.parallel.train_step import init_train_state, make_optimizer, make_train_step
     from tapclip_tpu_torch.serve import build_model
 
-    cfg = VIT_B_16.replace(dtype=dtype)
-    clip_params = build_model(VIT_B_16, CLASSES, "cuda", seed=0).clip_params
+    cfg = MODEL_PRESETS[model_name].replace(dtype=dtype)
+    if model_name == "ViT-B-16":
+        clip_params = build_model(VIT_B_16, CLASSES, "cuda", seed=0).clip_params
+    else:
+        clip_params = clip_model.init_clip_params(torch.Generator(device="cuda").manual_seed(15), cfg)
     rng = np.random.default_rng(0)
     images = [rng.integers(0, 256, (PARALLEL_BATCH, cfg.image_size, cfg.image_size, 3), dtype=np.uint8)
               for _ in range(PARALLEL_STEPS)]
@@ -6476,8 +6745,10 @@ def _parallel_prompt_form(mesh, dtype: str) -> dict:
                 norms.append(float(metrics["grad_norm"]))
                 ms.append(t)
             step_bytes = {k: v // PARALLEL_STEPS for k, v in moved.items()}
+            step_calls = {k: v // PARALLEL_STEPS for k, v in COLLECTIVE_CALLS.items()}
         return {"losses": losses, "grad_norm": norms, "ms": ms, "launches": read_counts(), "ctx0": ctx0,
-                "ctx": state.params["ctx"].detach().float().cpu().numpy(), "bytes_per_step": step_bytes}
+                "ctx": state.params["ctx"].detach().float().cpu().numpy(), "bytes_per_step": step_bytes,
+                "calls_per_step": step_calls}
 
     ref = run(clip_params, None) if mesh.rank == 0 else None
     out = run(shard_params(clip_params, mesh), mesh)
@@ -6528,6 +6799,10 @@ def parallel_rank_main(argv) -> int:
             name, _, dtype = form.partition(":")
             if name == "prompt":
                 res[form] = _parallel_prompt_form(mesh, dtype or "float32")
+            elif name == "rn50":
+                res[form] = _parallel_prompt_form(mesh, "float32", RN_MODEL)
+            elif name in PARALLEL_EVAL_FORMS:
+                res[form] = _parallel_eval_form(mesh, name, dtype)
             elif name == "resume":
                 res[form] = _parallel_resume_form(mesh, snapshot)
             elif name in PARALLEL_MOE_EXPERTS or name in ("lora", "distill", "vpt_deep_sp"):
@@ -6733,9 +7008,23 @@ def _check_form_launches(form: str, ranks, dp: int, pp: int, tp: int) -> None:
     kernels there), B6 and B7 in every pipeline stage; K3 only in the
     prompt-tune forms; K3 and the flash chain in the pallas form."""
     name = form.partition(":")[0]
-    prompt = name == "prompt"
+    prompt = name in ("prompt", "rn50")
     for r, res in enumerate(ranks):
         c = res[form]["launches"]
+        if name in PARALLEL_EVAL_FORMS:  # one image batch: every block in its partial mode, never whole
+            L = res[form]["layers"]
+            want = ({"int8_attn_partial": L, "int8_mlp_partial": L, "int8_partial_out": 2 * L,
+                     "int8_epilogue": 2 * L} if name.startswith("int8")
+                    else {"fused_attn_block_partial": L, "fused_mlp_partial": L, "int8_partial_out": 0,
+                          "int8_epilogue": 0})
+            whole = ("int8_attn", "int8_mlp", "fused_attn_block", "fused_mlp")
+            require(all(c.get(k, 0) == n for k, n in want.items()) and all(c.get(k, 0) == 0 for k in whole),
+                    f"parallel tp={tp} {form}: rank {r} launches {c}, want {want} and no whole-block kernel")
+            if name.startswith("int8"):
+                n_ar = res[form]["calls_per_step"]["all_reduce"]
+                require(n_ar == INT8_TP_ALL_REDUCES * L, f"parallel tp={tp} {form}: rank {r} made {n_ar} "
+                        f"all-reduces, want {INT8_TP_ALL_REDUCES} a block")
+            continue
         if name == "pallas":
             for k in PALLAS_KERNELS:
                 require(c.get(k, 0) > 0, f"parallel dp={dp} pp={pp} tp={tp} {form}: rank {r} launched no {k}: {c}")
@@ -6765,6 +7054,24 @@ def _report_form(form: str, ranks, dp: int, pp: int, tp: int, card: str) -> None
     collectives, and what the form adds (routing, snapshot, resume)."""
     _check_form_launches(form, ranks, dp, pp, tp)
     r0 = ranks[0][form]
+    if form.partition(":")[0] in PARALLEL_EVAL_FORMS:
+        kept = [res[form]["kept"] for res in ranks]
+        require(all(k == kept[0] for k in kept), f"parallel tp={tp} {form}: the ranks kept different tokens")
+        bits = [res[form]["bits_equal"] for res in ranks]
+        errs = ", ".join(f"{res[form]['max_abs_err']:.3e}" for res in ranks)
+        require(all(bits) or not form.startswith("int8") or r0["flips"],
+                f"parallel tp={tp} {form}: a rank's features are not one process's bits: {bits}")
+        print(f"parallel dp={dp} pp={pp} tp={tp} {form} (gloo, {dp * pp * tp} ranks sharing one card, ViT-B/16 "
+              f"image tower, {r0['layers']} layers, one batch of {PARALLEL_BATCH}, eval; not a scaling figure): "
+              f"unit-norm features vs rank 0's one process max abs err per rank "
+              f"[{errs}] (tol {PARALLEL_EVAL_TOL}), bit for bit "
+              f"per rank {bits}; pruned rows whose kept tokens moved "
+              f"{r0['flips']} (widest gap {r0['tie_gap']:.2e}, tol {PARALLEL_TIE_TOL}), the same on every rank; ms "
+              f"rank 0 {round(r0['ms'][0], 2)} (one process {round(r0['ref_ms'][0], 2)}); launches per rank "
+              f"{[{k: v for k, v in res[form]['launches'].items() if v} for res in ranks]} (one process "
+              f"{ {k: v for k, v in r0['ref_launches'].items() if v} }); rank 0's collectives: bytes "
+              f"{r0['bytes_per_step']}, calls {r0['calls_per_step']}; {r0['seconds']:.1f} s ({card})", flush=True)
+        return
     errs = r0.get("errors") or {k: r0[k] for k in ("loss_err", "step_err", "apart")}
     triple = ""
     if form.startswith(("fsdp", "moe_fsdp")):
@@ -6816,10 +7123,15 @@ def parallel_phase(model, card: str) -> dict:
     2 and in one process ("resume"); (d) dp replicas of serve, featurize and
     predict.  Ranks on one card over gloo check the code paths and the
     kernels; their times are not a scaling figure."""
+    import gc
     import shutil
     import tempfile
 
+    import torch
+
     a = _nccl_world_one(model, card)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card: hand them what this process only caches
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     groups = {}
     try:
@@ -6896,6 +7208,7 @@ def main() -> int:
     block_bits = phase("K2 and B4 bits", check_block_bits)
     int8_kernels = phase("int8 kernels", check_int8_kernels)
     b13_bits = phase("B13 bits", check_b13_bits)
+    int8_partial = phase("int8 partial", check_int8_partial)
     variants = phase("int8 variants", check_int8_variants)
     gemm = phase("int8 gemm", check_int8_gemm)
     ab = phase("ab variants", check_ab_variants)
@@ -7003,6 +7316,7 @@ def main() -> int:
         record.append(entry)
     record.append(gemm_record(pretrained))
     record += int8_record(int8_kernels, variants, gemm, int8_served["float32 stochastic"]["launches"], b13_bits)
+    record += int8_partial_record(int8_partial, parallel["launches"])
     record += ab_record(ab, served["all_launches"])
     for entry in record:  # the int8 kernels' launches on the eval drive (predict --int8, evaluate_adaptive)
         if entry["name"] in ("int8_mlp", "int8_attn"):

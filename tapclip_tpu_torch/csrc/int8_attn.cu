@@ -56,6 +56,26 @@
 // wrapper's two weight transposes (time_half_blocks.py: launches alone
 // 0.135 ms, 0.109 in bf16).  The attention leads: q and k are f32 values,
 // split into three bf16 terms for every key tile.
+//
+// The partial mode (tensor parallelism over a `model` group of n ranks; the
+// wrapper ops/int8_attn.py::int8_attn_block(tp_group=) runs the collectives
+// between the entries).  Rank r holds the qkv columns of heads [r H/n, (r+1)
+// H/n) (parallel/sharding.py's per-head cut, [q_r | k_r | v_r]), the same
+// rows of w_out, and w_out's per-column scales of the whole weight:
+//   tapclip_int8_attn_front     launches 1-3 on the rank's heads: the
+//                               LayerNorm rows and their codes (replicated),
+//                               the QKV product on its 3 W/n columns (v
+//                               rounded column by column, so no bit depends
+//                               on which columns the rank holds), K2's walk
+//                               over its heads into a [R, W/n] and each
+//                               row's local |a| max;
+//   (all-reduce MAX of the row max over the group)
+//   int8_mlp.cu's tapclip_int8_partial_out (quantizer kStreamAttnA, col0 =
+//   r W/n: the rank's heads are the attention output's columns [r W/n, (r+1)
+//   W/n)), then the all-reduce SUM of the int32 rows, then
+//   tapclip_int8_epilogue.
+// Every head's walk is the whole kernel's, so the ranks' result is the whole
+// kernel's bit for bit.
 #include <stdint.h>
 
 #include <type_traits>
@@ -86,7 +106,7 @@ cudaError_t launch_block(const T* x, const float* gamma, const float* beta, cons
   if (err != cudaSuccess) return err;
   err = attn::launch_attn_core<float, PT, float, false, true>(qkv, a, amax, B, H, T_, W, valid, s);
   if (err != cudaSuccess) return err;
-  err = launch_quant_rows<SR>(a, amax, codes, t2, R, W, Wp, seed, kStreamAttnA, s);
+  err = launch_quant_rows<SR>(a, amax, codes, t2, R, W, Wp, 0, seed, kStreamAttnA, s);
   if (err != cudaSuccess) return err;
   return launch_proj<T>(codes, w_out, t2, s_out, b_out, x, out, R, W, Wp, s);
 }
@@ -146,5 +166,72 @@ extern "C" int tapclip_int8_attn(const void* x, const void* gamma, const void* b
   if (dtype == 1)
     return launch_block_mode<__nv_bfloat16>(deterministic, x, g, bt, wq, sq, bq, wo, so, bo, out, ws, av, c8, sc, B,
                                             T, W, n_heads, valid, eps, seed, s);
+  return cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T, bool SR>
+cudaError_t launch_front(const T* x, const float* gamma, const float* beta, const int8_t* w_qkv, const float* s_qkv,
+                         const float* b_qkv, float* qkv, float* a, int8_t* codes, float* t1, float* amax, int B,
+                         int T_, int W, int Wl, int H, int valid, float eps, uint32_t seed, cudaStream_t s) {
+  using PT = std::conditional_t<SR && !mma::kIsF32<T>, __nv_bfloat16, float>;
+  const int R = B * T_, Wp = mma8::kp(W);
+  cudaError_t err = launch_ln_quant<T, SR>(x, gamma, beta, codes, t1, amax, R, W, Wp, eps, seed, kStreamAttnY, s);
+  if (err != cudaSuccess) return err;
+  err = launch_dequant<kQkv, T>(codes, w_qkv, t1, s_qkv, b_qkv, qkv, nullptr, R, 3 * Wl, Wp, SR ? 2 * Wl : 3 * Wl, s);
+  if (err != cudaSuccess) return err;
+  return attn::launch_attn_core<float, PT, float, false, true>(qkv, a, amax, B, H, T_, Wl, valid, s);
+}
+
+template <typename T>
+cudaError_t launch_front_mode(int deterministic, const void* x, const float* gamma, const float* beta,
+                              const int8_t* w_qkv, const float* s_qkv, const float* b_qkv, float* qkv, float* a,
+                              int8_t* codes, float* t1, float* amax, int B, int T_, int W, int Wl, int H, int valid,
+                              float eps, uint32_t seed, cudaStream_t s) {
+  const auto* X = static_cast<const T*>(x);
+  if (deterministic)
+    return launch_front<T, false>(X, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, a, codes, t1, amax, B, T_, W, Wl, H,
+                                  valid, eps, seed, s);
+  return launch_front<T, true>(X, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, a, codes, t1, amax, B, T_, W, Wl, H, valid,
+                               eps, seed, s);
+}
+
+}  // namespace
+
+// B14's partial mode, its front (launches 1-3 on the rank's n_heads heads of
+// width Wl in all).  x [B, T, W] in the compute dtype (0 float32, 1
+// bfloat16); gamma, beta [W] and s_qkv, b_qkv [3 Wl] f32; w_qkv [3 Wl,
+// kp(W)] int8 K-major, the columns [q | k | v] of the rank's heads; out: a
+// [B T, Wl] f32 and amax [B T] f32 (each row's local |a| max); scratch qkv
+// [B T, 3 Wl] f32, codes [B T, kp(W)] int8, t1 [B T] f32.  Head dim Wl /
+// n_heads in {16, 32, 64, 128}; valid in [1, T].  w_qkv, qkv, a, codes
+// 16-byte aligned.
+extern "C" int tapclip_int8_attn_front(const void* x, const void* gamma, const void* beta, const void* w_qkv,
+                                       const void* s_qkv, const void* b_qkv, void* qkv, void* a, void* codes,
+                                       void* t1, void* amax, int B, int T, int W, int Wl, int n_heads, int valid,
+                                       float eps, unsigned int seed, int deterministic, int dtype, void* stream) {
+  if (B <= 0 || T <= 0 || n_heads <= 0 || Wl <= 0 || Wl % n_heads || Wl % 4 || valid < 1 || valid > T)
+    return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(w_qkv) | reinterpret_cast<uintptr_t>(qkv) |
+                         reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(codes);
+  if (ptrs & 15) return cudaErrorMisalignedAddress;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* wq = static_cast<const int8_t*>(w_qkv);
+  const auto* sq = static_cast<const float*>(s_qkv);
+  const auto* bq = static_cast<const float*>(b_qkv);
+  auto* ws = static_cast<float*>(qkv);
+  auto* av = static_cast<float*>(a);
+  auto* c8 = static_cast<int8_t*>(codes);
+  auto* t = static_cast<float*>(t1);
+  auto* m = static_cast<float*>(amax);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_front_mode<float>(deterministic, x, g, bt, wq, sq, bq, ws, av, c8, t, m, B, T, W, Wl, n_heads,
+                                    valid, eps, seed, s);
+  if (dtype == 1)
+    return launch_front_mode<__nv_bfloat16>(deterministic, x, g, bt, wq, sq, bq, ws, av, c8, t, m, B, T, W, Wl,
+                                            n_heads, valid, eps, seed, s);
   return cudaErrorInvalidValue;
 }

@@ -52,7 +52,28 @@
 // exact, so a variant's output is fixed by its switches, whatever the
 // tiling: it equals the earlier __dp4a walk's bit for bit (chip_smoke.py's
 // B13_BITS and S5_BITS, digests read from the walk).
+//
+// The partial mode (tensor parallelism over a `model` group of n ranks; the
+// wrapper ops/int8_mlp.py::int8_mlp_block(tp_group=) runs the collectives
+// between the entries).  Rank r holds fc's columns [r H/n, (r+1) H/n), the
+// same rows of proj, and proj's per-column scales of the whole weight (the
+// rank's column max all-reduced MAX before it quantizes):
+//   tapclip_int8_mlp_front      launches 1 and 2 on the rank's columns: the
+//                               LayerNorm rows and their codes (replicated),
+//                               fc + GELU into h [R, H/n] and each row's
+//                               local |h| max;
+//   (all-reduce MAX of the row max over the group)
+//   tapclip_int8_partial_out    launch 3 with the global column index in
+//                               the draws (col0 = r H/n), then acc_kernel:
+//                               proj's int32 sums over the rank's depth;
+//   (all-reduce SUM of the int32 rows: exact, 127^2 H is far below 2^31)
+//   tapclip_int8_epilogue       proj_kernel's epilogue on the summed rows.
+// Every step is the whole kernel's on the same values, so the ranks' result
+// is the whole kernel's bit for bit.  B14's partial mode shares the last two
+// entries.  What bounds a rank: half the int8 operations at n = 2.
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "int8_common.cuh"
 #include "int8_tiles.cuh"
@@ -87,7 +108,7 @@ cudaError_t launch_mma(const MlpCall& c, const T* x, T* out, cudaStream_t s) {
   err = launch_dequant<ERF3 ? kGeluErf3Max : kGeluMax, float>(c.yq, c.w_fc, t1, c.s_fc, c.b_fc, c.h, hmax, c.R,
                                                               c.H, Wp, c.H, s);
   if (err != cudaSuccess) return err;
-  err = launch_quant_rows<SR, RECIP>(c.h, hmax, c.hq, t2, c.R, c.H, Hp, c.seed, kStreamMlpH, s);
+  err = launch_quant_rows<SR, RECIP>(c.h, hmax, c.hq, t2, c.R, c.H, Hp, 0, c.seed, kStreamMlpH, s);
   if (err != cudaSuccess) return err;
   return launch_proj<T>(c.hq, c.w_proj, t2, c.s_proj, c.b_proj, x, out, c.R, c.W, Hp, s);
 }
@@ -158,4 +179,105 @@ extern "C" int tapclip_int8_mlp_variant(const void* x, const void* gamma, const 
                                         int variant, int dtype, void* stream) {
   return run(x, gamma, beta, w_fc, s_fc, b_fc, w_proj, s_proj, b_proj, out, h, yq, hq, scales, R, W, H, eps, seed,
              deterministic, variant, dtype, stream);
+}
+
+namespace {
+
+template <typename T, bool SR>
+cudaError_t launch_front(const T* x, const float* gamma, const float* beta, const int8_t* w_fc, const float* s_fc,
+                         const float* b_fc, float* h, int8_t* yq, float* t1, float* hmax, int R, int W, int H,
+                         float eps, uint32_t seed, cudaStream_t s) {
+  const int Wp = mma8::kp(W);
+  cudaError_t err = launch_ln_quant<T, SR>(x, gamma, beta, yq, t1, hmax, R, W, Wp, eps, seed, kStreamMlpY, s);
+  if (err != cudaSuccess) return err;
+  return launch_dequant<kGeluMax, float>(yq, w_fc, t1, s_fc, b_fc, h, hmax, R, H, Wp, H, s);
+}
+
+template <typename T>
+cudaError_t launch_front_mode(int deterministic, const void* x, const float* gamma, const float* beta,
+                              const int8_t* w_fc, const float* s_fc, const float* b_fc, float* h, int8_t* yq,
+                              float* t1, float* hmax, int R, int W, int H, float eps, uint32_t seed, cudaStream_t s) {
+  const auto* X = static_cast<const T*>(x);
+  if (deterministic)
+    return launch_front<T, false>(X, gamma, beta, w_fc, s_fc, b_fc, h, yq, t1, hmax, R, W, H, eps, seed, s);
+  return launch_front<T, true>(X, gamma, beta, w_fc, s_fc, b_fc, h, yq, t1, hmax, R, W, H, eps, seed, s);
+}
+
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits & 15;
+}
+
+}  // namespace
+
+// B13's partial mode, its front (launches 1 and 2 on the rank's H hidden
+// columns).  x [R, W] in the compute dtype (0 float32, 1 bfloat16); gamma,
+// beta [W], s_fc, b_fc [H] f32; w_fc [H, kp(W)] int8 K-major; out: h [R, H]
+// f32 and hmax [R] f32 (each row's local |h| max); scratch yq [R, kp(W)]
+// int8 and t1 [R] f32.  w_fc, h, yq 16-byte aligned.
+extern "C" int tapclip_int8_mlp_front(const void* x, const void* gamma, const void* beta, const void* w_fc,
+                                      const void* s_fc, const void* b_fc, void* h, void* yq, void* t1, void* hmax,
+                                      int R, int W, int H, float eps, unsigned int seed, int deterministic, int dtype,
+                                      void* stream) {
+  if (R <= 0 || W <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (misaligned({w_fc, h, yq})) return cudaErrorMisalignedAddress;
+  const auto* g = static_cast<const float*>(gamma);
+  const auto* bt = static_cast<const float*>(beta);
+  const auto* w = static_cast<const int8_t*>(w_fc);
+  const auto* sf = static_cast<const float*>(s_fc);
+  const auto* bf = static_cast<const float*>(b_fc);
+  auto* hh = static_cast<float*>(h);
+  auto* q = static_cast<int8_t*>(yq);
+  auto* t = static_cast<float*>(t1);
+  auto* m = static_cast<float*>(hmax);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_front_mode<float>(deterministic, x, g, bt, w, sf, bf, hh, q, t, m, R, W, H, eps, seed, s);
+  if (dtype == 1)
+    return launch_front_mode<__nv_bfloat16>(deterministic, x, g, bt, w, sf, bf, hh, q, t, m, R, W, H, eps, seed, s);
+  return cudaErrorInvalidValue;
+}
+
+// The partial modes' int32 product (B13's proj, B14's out): the codes of
+// the rows v [R, K] f32 from their global max rmax [R] (quantizer
+// `stream_id`, column c drawing column col0 + c's bits) into codes [R,
+// kp(K)] int8 with scales t [R] f32, then acc [R, N] int32 = codes . w^T
+// over the rank's depth, w [N, kp(K)] int8 K-major.  v, codes, w 16-byte
+// aligned.
+extern "C" int tapclip_int8_partial_out(const void* v, const void* rmax, const void* w, void* codes, void* t,
+                                        void* acc, int R, int K, int N, int col0, unsigned int seed, int stream_id,
+                                        int deterministic, void* stream) {
+  if (R <= 0 || K <= 0 || N <= 0 || col0 < 0 || stream_id < 0 || stream_id > 3) return cudaErrorInvalidValue;
+  if (misaligned({v, w, codes})) return cudaErrorMisalignedAddress;
+  const auto* V = static_cast<const float*>(v);
+  const auto* M = static_cast<const float*>(rmax);
+  auto* Q = static_cast<int8_t*>(codes);
+  auto* S = static_cast<float*>(t);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int Kp = mma8::kp(K);
+  cudaError_t err = deterministic
+                        ? launch_quant_rows<false>(V, M, Q, S, R, K, Kp, col0, seed, stream_id, s)
+                        : launch_quant_rows<true>(V, M, Q, S, R, K, Kp, col0, seed, stream_id, s);
+  if (err != cudaSuccess) return err;
+  return launch_acc(Q, static_cast<const int8_t*>(w), static_cast<int*>(acc), R, N, Kp, s);
+}
+
+// The partial modes' epilogue: out [R, N] = (acc t) s_col + b_col + x, one
+// rounding to the compute dtype (0 float32, 1 bfloat16), t the scale of the
+// row's global max rmax [R]; acc [R, N] int32 summed over the group.
+extern "C" int tapclip_int8_epilogue(const void* acc, const void* rmax, const void* s_col, const void* b_col,
+                                     const void* x, void* out, int R, int N, int dtype, void* stream) {
+  if (R <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const auto* A = static_cast<const int*>(acc);
+  const auto* M = static_cast<const float*>(rmax);
+  const auto* S = static_cast<const float*>(s_col);
+  const auto* B = static_cast<const float*>(b_col);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_epilogue<float>(A, M, S, B, static_cast<const float*>(x), static_cast<float*>(out), R, N, s);
+  if (dtype == 1)
+    return launch_epilogue<__nv_bfloat16>(A, M, S, B, static_cast<const __nv_bfloat16*>(x),
+                                          static_cast<__nv_bfloat16*>(out), R, N, s);
+  return cudaErrorInvalidValue;
 }

@@ -19,6 +19,17 @@
 //                      row, column), so no tiling moves a draw).
 //   proj_kernel        codes . W^T on the same tile, dequantized, + bias +
 //                      the residual with one rounding to the dtype.
+// The partial modes of tensor parallelism (a rank's hidden columns or heads,
+// int8_mlp.cu's tapclip_int8_partial_out / tapclip_int8_epilogue) split
+// proj_kernel in two around the all-reduce of its int32 sums:
+//   acc_kernel         codes . W^T on the same tile, the int32 sums stored
+//                      as they are (the rank's depth; no epilogue).
+//   epilogue_kernel    proj_kernel's epilogue alone, elementwise over the
+//                      summed int32 rows: the row's scale from its max
+//                      (row_scale, as quant_rows_kernel stores it), then
+//                      dequant + bias + the residual, one rounding.
+// quant_rows_kernel takes `col0`, the global index of the rows' column 0:
+// a rank's codes draw the bits of the columns the whole kernel gives them.
 // The quantizer's stream (int8_common.cuh) is an argument of the row passes.
 // RECIP, a template parameter of the two row passes, is S5's recipmul
 // (int8_common.cuh::row_scale); it defaults to off, so B13's and B14's
@@ -28,6 +39,8 @@
 #pragma once
 
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "int8_common.cuh"
 #include "int8_mma.cuh"
@@ -130,11 +143,12 @@ dequant_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, cons
 // The codes q [R, Np] of the rows v [R, N] f32 and their scales t (zeros
 // past N) from rmax, the rows' largest |v|, for quantizer `stream`; one block
 // a row, four columns a thread at a time (one 16-byte load of v where N % 4
-// == 0, one 4-byte store of codes).
+// == 0, one 4-byte store of codes).  Column c draws the bits of column
+// col0 + c (0 for a whole row).
 template <bool SR, bool RECIP = false>
 __global__ void __launch_bounds__(kInt8Threads)
 quant_rows_kernel(const float* __restrict__ v, const float* __restrict__ rmax, int8_t* __restrict__ q,
-                  float* __restrict__ t, int N, int Np, uint32_t seed, uint32_t stream) {
+                  float* __restrict__ t, int N, int Np, int col0, uint32_t seed, uint32_t stream) {
   const int row = blockIdx.x;
   float inv;
   const float scale = row_scale<RECIP>(rmax[row], inv);
@@ -154,7 +168,7 @@ quant_rows_kernel(const float* __restrict__ v, const float* __restrict__ rmax, i
     uint32_t word = 0;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int8_t code = c + e < N ? code_of<SR, RECIP>(x[e], scale, inv, key, c + e) : 0;
+      const int8_t code = c + e < N ? code_of<SR, RECIP>(x[e], scale, inv, key, col0 + c + e) : 0;
       word |= static_cast<uint32_t>(static_cast<uint8_t>(code)) << (8 * e);
     }
     qr[c / 4] = word;
@@ -194,6 +208,49 @@ proj_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, const f
     }
 }
 
+// acc = a . bt^T [R, N] int32, the sums as they are; a [R, Kp], bt [N, Kp]
+// K-major int8.
+template <int BM>
+__global__ void __launch_bounds__(mma8::kGemmThreads, 2)
+acc_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ bt, int* __restrict__ out, int R, int N,
+           int Kp) {
+  extern __shared__ __align__(16) int8_t tile_smem[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * mma8::kBN;
+  int acc[BM / 32][mma8::kNT][4];
+  mma8::gemm_tile<BM, true>(a, bt, tile_smem, R, N, Kp, m0, n0, acc);
+#pragma unroll
+  for (int i = 0; i < BM / 32; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = mma8::acc_row<BM>(m0, i, hh);
+      if (row >= R) continue;
+#pragma unroll
+      for (int j = 0; j < mma8::kNT; ++j) {
+        const int col = mma8::acc_col(n0, j);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (col + e < N) out[static_cast<size_t>(row) * N + col + e] = acc[i][j][2 * hh + e];
+      }
+    }
+}
+
+// out = (acc t_row) s_col + b_col + x [R, N], one rounding to T, with t_row
+// the scale row_scale gives the row's max rmax (proj_kernel's epilogue on
+// summed int32 rows); a grid-stride loop over the elements.
+template <typename T>
+__global__ void __launch_bounds__(kInt8Threads)
+epilogue_kernel(const int* __restrict__ acc, const float* __restrict__ rmax, const float* __restrict__ s_col,
+                const float* __restrict__ b_col, const T* __restrict__ x, T* __restrict__ out, int R, int N) {
+  const size_t n = static_cast<size_t>(R) * N;
+  for (size_t i = blockIdx.x * static_cast<size_t>(kInt8Threads) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * kInt8Threads) {
+    const int row = static_cast<int>(i / N), col = static_cast<int>(i % N);
+    float inv;
+    const float tr = row_scale<false>(rmax[row], inv);
+    out[i] = from_f<T>(__fadd_rn(dequant(acc[i], tr, s_col[col], b_col[col]), to_f(x[i])));
+  }
+}
+
 // Launch one of the tile kernels over an [M, N] output with BM-row tiles.
 template <typename Kernel, typename... Args>
 cudaError_t launch_tiles(Kernel kernel, int BM, int M, int N, cudaStream_t s, Args... args) {
@@ -219,8 +276,23 @@ cudaError_t launch_ln_quant(const T* x, const float* gamma, const float* beta, i
 
 template <bool SR, bool RECIP = false>
 cudaError_t launch_quant_rows(const float* v, const float* rmax, int8_t* q, float* t, int R, int N, int Np,
-                              uint32_t seed, uint32_t stream, cudaStream_t s) {
-  quant_rows_kernel<SR, RECIP><<<R, kInt8Threads, 0, s>>>(v, rmax, q, t, N, Np, seed, stream);
+                              int col0, uint32_t seed, uint32_t stream, cudaStream_t s) {
+  quant_rows_kernel<SR, RECIP><<<R, kInt8Threads, 0, s>>>(v, rmax, q, t, N, Np, col0, seed, stream);
+  return cudaGetLastError();
+}
+
+// acc = a . bt^T as int32 at the row tile mma8::tile_m picks.
+inline cudaError_t launch_acc(const int8_t* a, const int8_t* bt, int* acc, int R, int N, int Kp, cudaStream_t s) {
+  return mma8::tile_m(R, N) == 128 ? launch_tiles(acc_kernel<128>, 128, R, N, s, a, bt, acc, R, N, Kp)
+                                   : launch_tiles(acc_kernel<64>, 64, R, N, s, a, bt, acc, R, N, Kp);
+}
+
+template <typename T>
+cudaError_t launch_epilogue(const int* acc, const float* rmax, const float* s_col, const float* b_col, const T* x,
+                            T* out, int R, int N, cudaStream_t s) {
+  const size_t n = static_cast<size_t>(R) * N;
+  const int blocks = static_cast<int>(std::min<size_t>((n + kInt8Threads - 1) / kInt8Threads, 4096));
+  epilogue_kernel<T><<<blocks, kInt8Threads, 0, s>>>(acc, rmax, s_col, b_col, x, out, R, N);
   return cudaGetLastError();
 }
 

@@ -90,8 +90,22 @@ def make_image_embed_fn(cfg: CLIPConfig, mesh=None) -> Callable:
     """``(params, images [B, H, W, 3] f32 | uint8) -> [B, D] f32 unit-norm``.
     With ``mesh`` (a device-list mesh, ``parallel.mesh.make_mesh(dp,
     devices=...)``) the batch splits over its replicas and the rows come
-    back in order (``parallel.sharding.data_parallel``)."""
+    back in order (``parallel.sharding.data_parallel``).  With a
+    process-group mesh (``make_mesh(dp, tp)``) each rank passes its local
+    tree and its rows and gets its rows' embeddings, the tower run by
+    ``parallel.train_step.make_image_encoder(cfg, mesh)``."""
     from tapclip_tpu_torch.parallel.sharding import data_parallel
+
+    if mesh is not None and not mesh.in_process:
+        from tapclip_tpu_torch.parallel.train_step import make_image_encoder
+
+        encode = make_image_encoder(cfg, mesh)
+
+        def embed_on_mesh(params, images):
+            with torch.inference_mode():
+                return clip_model.l2_normalize(encode(params, images)).float()
+
+        return embed_on_mesh
 
     def embed(params, images):
         with torch.inference_mode():
@@ -103,7 +117,7 @@ def make_image_embed_fn(cfg: CLIPConfig, mesh=None) -> Callable:
 
 def make_text_embed_fn(cfg: CLIPConfig, mesh=None) -> Callable:
     """``(params, token_ids [B, T] int) -> [B, D] f32 unit-norm`` (``mesh``:
-    as :func:`make_image_embed_fn`)."""
+    a device-list mesh, as :func:`make_image_embed_fn`'s)."""
     from tapclip_tpu_torch.parallel.sharding import data_parallel
 
     def embed(params, ids):

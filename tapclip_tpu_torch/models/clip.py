@@ -32,6 +32,14 @@ append each tower's summed load-balance term to ``moe_loss_out``.  Under a
 parallelism), and ``seq_parallel`` reaches them too.  As in the JAX
 package, MoE refuses the RN tower, MaPLe's prompts, deep VPT, token
 pruning, the int8 tower and the pipe axis.
+
+Under a ``model`` group (a mesh step's ``tensor_parallel``) every form runs,
+computing what it computes in one process: the int8 tower in B13's and
+B14's partial modes (``models/layers.py``), token pruning on each rank's
+heads with the class query's probabilities gathered over the group
+(:func:`token_keep_indices`), and the RN-family tower replicated on every
+rank (none of its leaves is cut, ``parallel/sharding.py``) beside a text
+tower that runs tensor parallel.
 """
 
 from __future__ import annotations
@@ -71,16 +79,6 @@ def _pick_transformer_fn(cfg: CLIPConfig, transformer_fn=None, seq_parallel: boo
     else:
         run = transformer_fn or layers.transformer_forward
     return functools.partial(run, seq_parallel=True) if seq_parallel else run
-
-
-def _refuse_under_tp(what: str) -> None:
-    """Raise by name when the towers run tensor parallel
-    (``parallel.collectives.tensor_parallel``): ``what`` has no tp form yet."""
-    from tapclip_tpu_torch import NotPortedError
-    from tapclip_tpu_torch.parallel.collectives import current_model_group
-
-    if current_model_group() is not None:
-        raise NotPortedError(f"{what} under tp > 1")
 
 
 def init_clip_params(generator: torch.Generator, cfg: CLIPConfig, device=None) -> Params:
@@ -263,7 +261,6 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
     """
     dropout = cfg.patch_dropout > 0 and (generator is not None or patch_idx is not None)
     if cfg.vision_tower == "resnet":
-        _refuse_under_tp("the RN-family image tower")
         if transformer_fn is not None:
             raise NotImplementedError("pipeline parallelism applies to transformer towers only (the RN-family "
                                       "tower has no stacked block axis to stage)")
@@ -349,7 +346,6 @@ def encode_image(params: Params, cfg: CLIPConfig, images: torch.Tensor, maple_pr
             raise NotImplementedError(
                 "token pruning is not supported with a transformer_fn override or MoE towers (it targets the "
                 "dense eval path)")
-        _refuse_under_tp("token pruning (token_keep_ratio)")
         x = _forward_with_token_pruning(p, cfg, x, kv_valid)
     else:
         x, tower_aux = _pick_transformer_fn(cfg, transformer_fn, seq_parallel)(
@@ -370,13 +366,31 @@ def _tower_kw(cfg: CLIPConfig) -> Dict[str, Any]:
 
 def token_keep_indices(blk: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid) -> torch.Tensor:
     """``[B, n_keep]`` indices of the tokens to keep: the class token first,
-    then the patches in order of the class query's head-averaged attention
-    under block ``blk``'s q/k weights (pads at -inf)."""
+    then the patches in order of :func:`token_keep_scores`."""
+    scores, n_keep = token_keep_scores(blk, cfg, x, kv_valid)
+    scores[:, 0] = torch.inf  # the class token is always kept, first
+    return torch.topk(scores, n_keep, dim=-1).indices
+
+
+def token_keep_scores(blk: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid) -> Tuple[torch.Tensor, int]:
+    """``([B, T] f32, n_keep)``: each token's score, the class query's
+    head-averaged attention under block ``blk``'s q/k weights (pads 0), and
+    how many tokens pruning keeps.
+
+    Under a ``model`` group (``parallel.collectives.tensor_parallel``)
+    ``blk`` is a rank's cut: its ``w_qkv`` columns are its heads' q, k and
+    v.  Each rank computes the class query's softmax on its heads, the
+    ``[B, H/tp, T]`` rows are all-gathered in head order, and the mean runs
+    over all H heads as in one process, so every rank keeps the same tokens."""
+    from tapclip_tpu_torch.parallel import collectives
+
+    group = collectives.current_model_group()
     y = layers.layer_norm(x, blk["ln_1"], cfg.ln_eps)
-    B, T, W = y.shape
-    H = cfg.vision_heads
-    Dh = W // H
+    B, T, _ = y.shape
     w_qkv, b_qkv = blk["attn"]["w_qkv"], blk["attn"]["b_qkv"]
+    W = w_qkv.shape[-1] // 3  # the heads' width: the tower's, or a rank's
+    H = cfg.vision_heads // collectives.size(group)
+    Dh = W // H
     dt = y.dtype
 
     def proj(rows, lo):  # rows @ w[:, lo:lo+W] + b[lo:lo+W] in the compute dtype
@@ -388,14 +402,15 @@ def token_keep_indices(blk: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid) 
     if kv_valid is not None:
         ki = torch.arange(T, device=x.device)[None, None, :]
         logits = torch.where(ki < kv_valid, logits, torch.full_like(logits, -torch.inf))
-    scores = torch.softmax(logits, dim=-1).mean(dim=1)  # [B, T]
+    probs = torch.softmax(logits, dim=-1)
+    if group is not None:
+        probs = collectives.gather_dim(probs, group, 1)  # [B, H, T], the heads in order
     n_keep = max(8, int(T * cfg.token_keep_ratio) // 8 * 8)  # a multiple of 8
     if kv_valid is not None:
         # Never keep more tokens than exist: past this point kv_valid is
         # dropped, so a kept pad row would become an attendable key.
         n_keep = min(n_keep, max(kv_valid // 8 * 8, 8))
-    scores[:, 0] = torch.inf  # the class token is always kept, first
-    return torch.topk(scores, n_keep, dim=-1).indices
+    return probs.mean(dim=1), n_keep  # [B, T]
 
 
 def _forward_with_token_pruning(p: Params, cfg: CLIPConfig, x: torch.Tensor, kv_valid):

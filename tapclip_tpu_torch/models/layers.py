@@ -44,7 +44,10 @@ with ``tp_group``); the other routes put Megatron's ``copy_to_model`` on the
 LayerNorm output and ``reduce_from_model`` on the f32 out-projection, then
 add the output bias once.  The attribution aux is the head mean over the
 whole tower: each rank's local head sum, all-reduced, divided by
-``n_heads``.  int8 blocks refuse under ``tp > 1`` by name.
+``n_heads``.  The int8 half-blocks run in B13's and B14's partial modes
+(``int8_mlp_block`` / ``int8_attn_block`` with ``tp_group``: the rank's
+columns and heads, the row maxima all-reduced MAX and the int32 sums SUM),
+whose output is the whole block's bit for bit.
 
 **Sequence parallelism** (``transformer_forward(seq_parallel=True)`` under a
 ``model`` group, Megatron-SP; JAX's ``act_sharding = P("data", "model",
@@ -60,7 +63,10 @@ run the LayerNorm on the rank's rows, all-gather its output
 (``gather_seq``) into the column-parallel product and reduce-scatter the
 row-parallel product (``scatter_seq_sum``); the LayerNorm's scale and bias
 and the output bias then pass through ``copy_to_model``, whose backward
-sums their gradients, each of the rank's rows only, over the group.  Deep
+sums their gradients, each of the rank's rows only, over the group.  An
+int8 half-block (eval only) gathers the rank's rows (``join_seq``), runs in
+its partial mode on the whole sequence and keeps the rank's rows after it
+(``split_seq``), as the MoE blocks do.  Deep
 prompts (VPT-deep, MaPLe's ``layer_prompts``) overwrite their slots on
 whichever ranks hold them after the pad (a range may straddle two ranks);
 the prompts pass through ``copy_to_model``, so their gradient, each rank's
@@ -88,7 +94,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from tapclip_tpu_torch import NotPortedError
 from tapclip_tpu_torch.ops.attention import IntOrTensor, multi_head_attention
 from tapclip_tpu_torch.ops.fused_mha import fused_attn_block, fused_mha
 from tapclip_tpu_torch.ops.fused_mlp import fused_mlp_block
@@ -201,16 +206,22 @@ def _ln_in(x, ln, eps, tp_group, seq):
     return collectives.copy_to_model(layer_norm(x, ln, eps), tp_group)
 
 
-def _check_tp(n_heads: int, tp_group, quantize: bool) -> int:
+def _check_tp(n_heads: int, tp_group) -> int:
     """A rank's head count under ``tp_group`` (``n_heads`` without one)."""
     if tp_group is None:
         return n_heads
     n = collectives.size(tp_group)
     if n_heads % n:
         raise ValueError(f"n_heads {n_heads} is not divisible by tp={n}")
-    if quantize:
-        raise NotPortedError("int8 towers (quantize_tower) under tp > 1")
     return n_heads // n
+
+
+def _int8_half(half, x, tp_group, seq: bool):
+    """``half(x)``, an int8 half-block, on the whole sequence: under ``seq``
+    the rank's rows gathered first and kept after (no gradient flows)."""
+    if not seq:
+        return half(x)
+    return collectives.split_seq(half(collectives.join_seq(x, tp_group)), tp_group)
 
 
 def block_forward(
@@ -238,15 +249,15 @@ def block_forward(
     plain_attn_block = attn_to_idx is None and not causal and (
         kv_valid_len is None or isinstance(kv_valid_len, int)
     )
-    n_heads = _check_tp(n_heads, tp_group, quantize)
+    n_heads = _check_tp(n_heads, tp_group)
     seq = seq and tp_group is not None
     if fsdp is not None:
         p = fsdp.gathered(p)
     if quantize and plain_attn_block:
-        x = int8_attn_block(
-            x, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps,
-            deterministic=quantize_deterministic,
-        )
+        x = _int8_half(lambda t: int8_attn_block(
+            t, p["ln_1"], p["attn"], n_heads, valid_len=kv_valid_len, eps=ln_eps,
+            deterministic=quantize_deterministic, tp_group=tp_group,
+        ), x, tp_group, seq)
         aux = None
     elif impl in ("auto", "fused") and plain_attn_block:
         x = fused_attn_block(
@@ -260,7 +271,9 @@ def block_forward(
         )
         x = x + h
     if quantize and act == "gelu":
-        x = int8_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, deterministic=quantize_deterministic)
+        x = _int8_half(lambda t: int8_mlp_block(t, p["ln_2"], p["mlp"], eps=ln_eps,
+                                                deterministic=quantize_deterministic, tp_group=tp_group),
+                       x, tp_group, seq)
     elif act == "gelu" and impl in ("auto", "fused", "fused_split"):
         x = fused_mlp_block(x, p["ln_2"], p["mlp"], eps=ln_eps, tp_group=tp_group, seq=seq)
     else:

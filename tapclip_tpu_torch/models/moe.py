@@ -298,7 +298,7 @@ def moe_block_forward(x: torch.Tensor, p: Params, n_heads: int, *, act: str, ln_
     ``tp_group``: the rank's heads and experts; ``seq``: ``x`` is the rank's
     rows (gathered in, the output's rows kept); ``fsdp``: the leaves cut
     over ``data`` gathered first (the module note)."""
-    n_local = layers._check_tp(n_heads, tp_group, False)
+    n_local = layers._check_tp(n_heads, tp_group)
     if fsdp is not None:
         p = fsdp.gathered(p)
     if seq:

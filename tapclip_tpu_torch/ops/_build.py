@@ -119,6 +119,19 @@ _SIGNATURES = {
     # codes, scales, B, T, W, n_heads, valid, eps, seed, deterministic, dtype,
     # stream
     "tapclip_int8_attn": (P,) * 14 + (I, I, I, I, I, F, U, I, I, P),
+    # the partial modes of B13 and B14 (tensor parallelism): x, gamma, beta,
+    # w_fc, s_fc, b_fc, h (f32 [R, H]), yq, t1, hmax (f32 [R]), R, W, H (the
+    # rank's), eps, seed, deterministic, dtype, stream
+    "tapclip_int8_mlp_front": (P,) * 10 + (I, I, I, F, U, I, I, P),
+    # x, gamma, beta, w_qkv, s_qkv, b_qkv, qkv, a (f32 [B T, Wl]), codes, t1,
+    # amax (f32 [B T]), B, T, W, Wl, n_heads (the rank's), valid, eps, seed,
+    # deterministic, dtype, stream
+    "tapclip_int8_attn_front": (P,) * 11 + (I,) * 6 + (F, U, I, I, P),
+    # v, rmax, w, codes, t, acc (int32 [R, N]), R, K, N, col0, seed, stream_id,
+    # deterministic, stream
+    "tapclip_int8_partial_out": (P,) * 6 + (I, I, I, I, U, I, I, P),
+    # acc, rmax, s_col, b_col, x, out, R, N, dtype, stream
+    "tapclip_int8_epilogue": (P,) * 6 + (I, I, I, P),
     # a, b, bt (scratch), c, M, N, K, out_f32, stream
     "tapclip_int8_gemm": (P, P, P, P, I, I, I, I, P),
     # K -> Kp, the depth of int8_gemm's transposed B scratch [N, Kp]

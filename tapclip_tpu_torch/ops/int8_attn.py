@@ -27,6 +27,19 @@ the op ``tapclip::int8_attn`` (``ops/_library.py``) after the weights are
 quantized in torch.  The TPU kernel's
 head-pair packing and its VMEM picker (``int8_attn.py:226-229``) are TPU
 layout choices and are not ported.
+
+**The partial mode** (tensor parallelism, ``int8_attn_block(tp_group=)``):
+each rank holds the qkv columns of its heads (``parallel/sharding.py``'s
+per-head cut, ``[q_r | k_r | v_r]``; rank r's heads are the heads ``r H/n
+..``, so their outputs are the attention output's columns ``r W/n ..``) and
+the same rows of ``w_out``, whose per-column scales :func:`quantize_attn`
+takes over the whole weight.  The front (the op with ``partial``) runs
+LayerNorm and its codes, the QKV product and the attention on the rank's
+heads and returns ``[a (R x W/n) | max (R)]``; stages 2 and 3 are
+:mod:`.int8_mlp`'s (the codes of a at their global columns, the int32 out
+product, the epilogue), with the same collectives around them
+(:func:`.int8_mlp.run_partial`).  Every head computes what it computes in
+the whole block, so the ranks' output is the whole block's bit for bit.
 """
 
 from __future__ import annotations
@@ -42,11 +55,13 @@ from tapclip_tpu_torch.ops.int8_mlp import (
     STREAM_ATTN_A,
     STREAM_ATTN_Y,
     _f32_operand,
+    front_ws,
     int_dot,
     k_major,
     ln_f32,
     quantize_activations,
     quantize_cols_int8,
+    run_partial,
 )
 
 
@@ -54,10 +69,12 @@ from tapclip_tpu_torch.ops.int8_mlp import (
 Q_ATTN = ("w_qkv", "s_qkv", "b_qkv", "w_out", "s_out", "b_out")
 
 
-def quantize_attn(attn) -> Dict[str, torch.Tensor]:
-    """The projections' weights as the kernels take them."""
+def quantize_attn(attn, tp_group=None) -> Dict[str, torch.Tensor]:
+    """The projections' weights as the kernels take them.  ``tp_group``: the
+    weights are a rank's cut (its heads' qkv columns, their rows of
+    ``w_out``), and ``w_out``'s column scales are the whole weight's."""
     w_qkv, s_qkv = quantize_cols_int8(attn["w_qkv"])
-    w_out, s_out = quantize_cols_int8(attn["w_out"])
+    w_out, s_out = quantize_cols_int8(attn["w_out"], tp_group)
     return {"w_qkv": w_qkv, "s_qkv": s_qkv, "b_qkv": attn["b_qkv"].float(),
             "w_out": w_out, "s_out": s_out, "b_out": attn["b_out"].float()}
 
@@ -85,20 +102,29 @@ def int8_attn_plain_parts(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e
     in x's dtype and shape."""
     B, T, W = x.shape
     x2 = x.reshape(B * T, W)
-    y = ln_f32(x2, gamma, beta, eps)
+    parts = _attn_rows(x, gamma, beta, q, n_heads, valid, eps, seed, deterministic)
+    aq, t2 = quantize_activations(parts["a"], x.dtype, seed, STREAM_ATTN_A, deterministic)
+    out = int_dot(aq, q["w_out"]) * t2 * q["s_out"] + q["b_out"]
+    return {**parts, "aq": aq, "t2": t2, "out": (out + x2.float()).to(x.dtype).reshape(B, T, W)}
+
+
+def _attn_rows(x, gamma, beta, q, n_heads, valid, eps, seed, deterministic) -> Dict[str, torch.Tensor]:
+    """LayerNorm's codes and scale (``yq``, ``t1``), the f32 workspace ``qkv
+    [B T, 3 Wh]`` and the attention output ``a [B T, Wh]`` f32 of the heads
+    ``q["w_qkv"]`` holds (``n_heads`` of them, ``Wh`` wide in all: every head
+    of the block, or a rank's)."""
+    B, T, W = x.shape
+    Wh = q["w_qkv"].shape[1] // 3
+    y = ln_f32(x.reshape(B * T, W), gamma, beta, eps)
     yq, t1 = quantize_activations(y, x.dtype, seed, STREAM_ATTN_Y, deterministic, round_input=True)
     qkv = int_dot(yq, q["w_qkv"]) * t1 * q["s_qkv"] + q["b_qkv"]
     if deterministic:
-        heads = [_split_heads(t, n_heads) for t in qkv.reshape(B, T, 3 * W).split(W, dim=-1)]
+        heads = [_split_heads(t, n_heads) for t in qkv.reshape(B, T, 3 * Wh).split(Wh, dim=-1)]
         a = _merge_heads(attention_reference(*heads, kv_valid_len=None if valid == T else valid)[0])
     else:
-        qkv = torch.cat([qkv[:, :2 * W], qkv[:, 2 * W:].to(x.dtype).float()], dim=-1)
-        a = attn_core_exp2(qkv.reshape(B, T, 3 * W), n_heads, valid, x.dtype)
-    a = a.reshape(B * T, W)
-    aq, t2 = quantize_activations(a, x.dtype, seed, STREAM_ATTN_A, deterministic)
-    out = int_dot(aq, q["w_out"]) * t2 * q["s_out"] + q["b_out"]
-    return {"yq": yq, "t1": t1, "qkv": qkv, "a": a, "aq": aq, "t2": t2,
-            "out": (out + x2.float()).to(x.dtype).reshape(B, T, W)}
+        qkv = torch.cat([qkv[:, :2 * Wh], qkv[:, 2 * Wh:].to(x.dtype).float()], dim=-1)
+        a = attn_core_exp2(qkv.reshape(B, T, 3 * Wh), n_heads, valid, x.dtype)
+    return {"yq": yq, "t1": t1, "qkv": qkv, "a": a.reshape(B * T, Wh)}
 
 
 def int8_attn_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,
@@ -123,26 +149,73 @@ def int8_attn_sr_reference(x, ln_params, attn_params, n_heads: int, valid: int,
 
 def int8_attn_block(x: torch.Tensor, ln_params, attn_params, n_heads: int, *,
                     valid_len: Optional[int] = None, eps: float = 1e-5, seed: int = 0,
-                    deterministic: bool = False) -> torch.Tensor:
+                    deterministic: bool = False, tp_group=None) -> torch.Tensor:
     """The int8 attention half-block over ``x [B, T, W]``: B14 on CUDA (either
-    mode), plain on CPU.  Eval only."""
+    mode), plain on CPU.  Eval only.  ``tp_group``: ``attn_params`` are the
+    rank's cut and ``n_heads`` its heads; the block runs in the partial mode
+    (the module note) and every rank returns the whole block's output."""
     _build.refuse_graph("int8_attn_block", x, *ln_params.values(), *attn_params.values())
     valid = valid_len if valid_len is not None else x.shape[1]
-    q = quantize_attn(attn_params)
-    return torch.ops.tapclip.int8_attn.default(x, ln_params["scale"], ln_params["bias"], *(q[k] for k in Q_ATTN),
-                                               n_heads, valid, eps, seed, deterministic)
+    q = quantize_attn(attn_params, tp_group)
+    args = (x, ln_params["scale"], ln_params["bias"], *(q[k] for k in Q_ATTN), n_heads, valid, eps, seed,
+            deterministic)
+    if tp_group is None:
+        return torch.ops.tapclip.int8_attn.default(*args)
+    return run_partial(torch.ops.tapclip.int8_attn.default(*args, True), x, q["w_out"], q["s_out"], q["b_out"],
+                       seed=seed, stream=STREAM_ATTN_A, deterministic=deterministic, group=tp_group)
 
 
 int8_attn_block.launches = 0
+int8_attn_block.partial_launches = 0  # the partial mode's front, one a half-block
 
 
-def int8_attn_op(impl):
-    """``tapclip::int8_attn``'s implementation from a function of the weights'
-    dict ``q`` (:func:`int8_attn_plain` or :func:`int8_attn_cuda`)."""
-    def op(x, gamma, beta, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, n_heads, valid, eps, seed, deterministic):
+def int8_attn_op(impl, front_impl):
+    """``tapclip::int8_attn``'s implementation from functions of the weights'
+    dict ``q``: the whole block (:func:`int8_attn_plain` or
+    :func:`int8_attn_cuda`) and, with ``partial``, the partial mode's front
+    (:func:`int8_attn_front_plain` or :func:`int8_attn_front_cuda`)."""
+    def op(x, gamma, beta, w_qkv, s_qkv, b_qkv, w_out, s_out, b_out, n_heads, valid, eps, seed, deterministic,
+           partial=False):
         q = dict(zip(Q_ATTN, (w_qkv, s_qkv, b_qkv, w_out, s_out, b_out)))
-        return impl(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed, deterministic=deterministic)
+        return (front_impl if partial else impl)(x, gamma, beta, q, n_heads, valid, eps=eps, seed=seed,
+                                                 deterministic=deterministic)
     return op
+
+
+def int8_attn_front_plain(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0, deterministic=False):
+    """Plain version of the front of B14's partial mode on a rank's quantized
+    weights ``q`` (:func:`quantize_attn` with the group) and its ``n_heads``
+    heads: the workspace ``[a | max]``."""
+    return front_ws(_attn_rows(x, gamma, beta, q, n_heads, valid, eps, seed, deterministic)["a"])
+
+
+def int8_attn_front_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0, deterministic=False):
+    """The front of B14's partial mode on the card (:func:`int8_attn_front_plain`'s
+    function): ``tapclip_int8_attn_front``, launches 1-3 on the rank's heads,
+    counted as one partial launch."""
+    B, T, W = x.shape
+    Wl = q["w_qkv"].shape[1] // 3
+    R = B * T
+    _check_heads(T, Wl, n_heads, valid)
+    _build.check_cuda_operand("x", x, x.dtype, (B, T, W))
+    _build.check_cuda_operand("w_qkv", q["w_qkv"], torch.int8, (W, 3 * Wl))
+    f = {name: _f32_operand(name, t, (n,)) for name, t, n in (
+        ("gamma", gamma, W), ("beta", beta, W), ("s_qkv", q["s_qkv"], 3 * Wl), ("b_qkv", q["b_qkv"], 3 * Wl))}
+    lib = _build.library()
+    Wp = lib.tapclip_int8_gemm_kp(W)
+    w_qkv = k_major(q["w_qkv"], Wp)
+    dev = x.device
+    ws = torch.empty(R * Wl + R, dtype=torch.float32, device=dev)  # a, then each row's |a| max
+    qkv = torch.empty((R, 3 * Wl), dtype=torch.float32, device=dev)
+    codes = torch.empty((R, Wp), dtype=torch.int8, device=dev)
+    t1 = torch.empty(R, dtype=torch.float32, device=dev)
+    _build.check(lib.tapclip_int8_attn_front(
+        x.data_ptr(), f["gamma"].data_ptr(), f["beta"].data_ptr(), w_qkv.data_ptr(), f["s_qkv"].data_ptr(),
+        f["b_qkv"].data_ptr(), qkv.data_ptr(), ws.data_ptr(), codes.data_ptr(), t1.data_ptr(),
+        ws.data_ptr() + 4 * R * Wl, B, T, W, Wl, n_heads, int(valid), float(eps), int(seed) & 0xFFFFFFFF,
+        int(deterministic), _build.dtype_code(x.dtype), _build.stream_handle(dev)), "tapclip_int8_attn_front")
+    int8_attn_block.partial_launches += 1
+    return ws
 
 
 def int8_attn_cuda(x, gamma, beta, q, n_heads: int, valid: int, *, eps=1e-5, seed=0,

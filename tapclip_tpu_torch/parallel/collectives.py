@@ -69,6 +69,13 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def all_max_(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, in place (no gradient)."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
 def all_reduce_many_(tensors, group) -> None:
     """Sum each tensor of ``tensors`` over ``group`` in place, as one flat
     buffer per dtype (one collective, not one per leaf)."""

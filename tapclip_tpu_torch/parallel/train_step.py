@@ -34,7 +34,11 @@ and scl terms stay batch means over the global batch.  Under ``tp > 1`` the
 towers run tensor parallel over ``model`` (``models/layers.py``) inside the
 forward, and the trained leaves' gradients come out complete on every rank
 of a ``model`` group, so nothing is summed over ``model``.  With no mesh the
-step runs exactly what it runs without one.
+step runs exactly what it runs without one.  Every image tower runs under a
+``model`` group: the int8 tower and token pruning in the eval step and the
+image encoder, and the RN-family tower, which no rule cuts, replicated on
+every rank (its gradients, where a step trains it, are whole on each rank
+and summed over ``data`` alone).
 """
 
 from __future__ import annotations
@@ -394,12 +398,18 @@ def make_eval_step(
     return step
 
 
-def make_image_encoder(clip_cfg: CLIPConfig) -> Callable:
+def make_image_encoder(clip_cfg: CLIPConfig, mesh=None) -> Callable:
     """The frozen image tower, ``encode(clip_params, images)``, under
-    ``torch.inference_mode()`` (for feature caching)."""
+    ``torch.inference_mode()`` (for feature caching).  ``mesh`` (a
+    process-group mesh, as the steps take it): each rank passes its local
+    tree and its rows, the tower runs tensor parallel over ``model`` (the
+    int8 tower, token pruning and the RN tower included), and each rank
+    gets its rows' features."""
+    _check_mesh(mesh)
+    tp_group = collectives.model_group_of(mesh)
 
     def encode(clip_params, images):
-        with torch.inference_mode():
+        with torch.inference_mode(), collectives.tensor_parallel(tp_group):
             return clip_model.encode_image(clip_params, clip_cfg, _as_tensor(images, _device_of(clip_params)))
 
     return encode

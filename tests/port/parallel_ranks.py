@@ -97,20 +97,23 @@ def _prompt_state(entry):
 
 
 def _prompt_leg(inp, mesh, key, pcfg, keys=("ctx",), feats=False, steps=2, **extra):
-    """Prompt tuning (pixels-in or cached features) on the mesh: per-step
-    loss and grad_norm, the trained leaves after ``steps``."""
+    """Prompt tuning (pixels-in or cached features) on the mesh (None: one
+    process on the whole batch): per-step loss and grad_norm, the trained
+    leaves after ``steps``."""
     from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
     from tapclip_tpu_torch.parallel.train_step import init_train_state, make_train_step
     from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
 
     e = inp[key]
     cfg = _port_cfg(e["cfg"])
-    local = shard_params(params_from_jax(e["tree"], cfg), mesh)
+    local = params_from_jax(e["tree"], cfg)
+    local = local if mesh is None else shard_params(local, mesh)
     trainable, bank = _prompt_state(e)
     opt = _adamw(inp.get(key + "_wd", 0.01))
     state = init_train_state(trainable, opt, keys)
     step = make_train_step(cfg, pcfg, opt, keys, use_image_feats=feats, mesh=mesh, **extra)
-    x, labels, mask = shard_batch((e["x"], e["labels"], e["mask"]), mesh)
+    batch = (e["x"], e["labels"], e["mask"])
+    x, labels, mask = batch if mesh is None else shard_batch(batch, mesh)
     out = {"loss": [], "grad_norm": [], "metrics": []}
     for _ in range(steps):
         state, m = step(local, state, bank, x, labels, mask)
@@ -672,36 +675,6 @@ def _snapshot_leg(inp, meshes, out_dir):
     return out
 
 
-def _refusals_leg(mesh):
-    """The forms that stay refused under tp > 1 (the int8 tower, the RN
-    tower, token pruning): each one's message, by name."""
-    from tapclip_tpu_torch import config as tcfg
-    from tapclip_tpu_torch.models import clip as clip_model
-    from tapclip_tpu_torch.models import layers
-    from tapclip_tpu_torch.parallel.collectives import tensor_parallel
-
-    out = {}
-    cfg = tcfg.TINY_TEST
-    tree = clip_model.init_clip_params(torch.Generator().manual_seed(0), cfg)
-    rn = tcfg.MODEL_PRESETS["RN50"].replace(resnet_layers=(1, 1, 1, 1), image_size=64, vision_width=64)
-    cases = {
-        "int8": lambda: layers.block_forward(torch.zeros(2, 8, 64), tree["visual"]["blocks"][0], 4, act="gelu",
-                                             quantize=True, tp_group=mesh.model_group),
-        "resnet": lambda: clip_model.encode_image(clip_model.init_clip_params(torch.Generator().manual_seed(0), rn),
-                                                  rn, torch.zeros(1, 64, 64, 3)),
-        "pruning": lambda: clip_model.encode_image(tree, cfg.replace(token_keep_ratio=0.5, token_prune_layer=1),
-                                                   torch.zeros(1, 32, 32, 3)),
-    }
-    for name, fn in cases.items():
-        try:
-            with tensor_parallel(mesh.model_group):
-                fn()
-            out[name] = None
-        except Exception as err:  # the message is the result
-            out[name] = f"{type(err).__name__}: {err}"
-    return out
-
-
 def expert_legs(inp, dp, tp):
     """Every leg of test_torch_expert_parallel.py (``inp["legs"]``) and
     test_torch_sharded_snapshot.py (``"snapshot"``), each on the sub-mesh
@@ -715,15 +688,173 @@ def expert_legs(inp, dp, tp):
         if name == "snapshot":
             out[name] = _snapshot_leg(inp, meshes, inp["out_dir"])
             continue
-        if name == "refusals":
-            m = meshes[1, 2]
-            if bool((m.grid == m.rank).any()):
-                out[name] = _refusals_leg(m)
-            continue
         d, t, kw = EXPERT_FORMS[name]
         m = meshes[d, t]
         if bool((m.grid == m.rank).any()):
             out[name] = _expert_form(inp, m, **kw)
+    return out
+
+
+# --- the int8 tower, token pruning and the RN tower under tp (test_torch_tp_eval.py) -----------------
+
+#: (dp, tp) of each mesh of test_torch_tp_eval.py
+TP_EVAL_MESHES = {"tp2": (1, 2), "dp2tp2": (2, 2)}
+#: the image-tower forms of the "eval" entry: the config's changes
+TP_EVAL_FORMS = {
+    "int8": dict(quantize_tower=True, int8_deterministic=True),
+    "int8_sr": dict(quantize_tower=True),
+    "pruned": dict(token_keep_ratio=0.5, token_prune_layer=1),
+    "int8_pruned": dict(quantize_tower=True, int8_deterministic=True, token_keep_ratio=0.5, token_prune_layer=1),
+}
+
+
+def _recording(module, name, box):
+    """``module.name`` replaced by a function that appends each result to
+    ``box`` (the original returned, to put back)."""
+    orig = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        box.append(out)
+        return out
+
+    setattr(module, name, spy)
+    return orig
+
+
+def _tower_form(inp, mesh, form):
+    """One image-tower form of the "eval" entry on ``mesh`` and in one
+    process on this rank's rows: the features (``make_image_encoder(mesh=)``,
+    and ``featurize.make_image_embed_fn(mesh=)`` for the stochastic tower),
+    pruning's kept indices and scores; for "int8" also the eval step
+    (pixels in) with its logits (spied at ``full_model_forward``) and
+    counts, the one process's counts over the whole batch beside them."""
+    from tapclip_tpu_torch import config as tcfg
+    from tapclip_tpu_torch import featurize
+    from tapclip_tpu_torch.models import clip as clip_model
+    from tapclip_tpu_torch.parallel import train_step as ts
+    from tapclip_tpu_torch.parallel.sharding import shard_batch, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["eval"]
+    cfg = _port_cfg(e["cfg"]).replace(**TP_EVAL_FORMS[form])
+    whole = params_from_jax(e["tree"], cfg)
+    local = shard_params(whole, mesh)
+    x = shard_batch((e["x"],), mesh)[0]
+    out = {}
+    for where, params, m in (("mesh", local, mesh), ("one", whole, None)):
+        kept, scored = [], []
+        undo = [_recording(clip_model, "token_keep_indices", kept), _recording(clip_model, "token_keep_scores", scored)]
+        try:
+            if form == "int8_sr":
+                feats = featurize.make_image_embed_fn(cfg, m)(params, x)
+            else:
+                feats = ts.make_image_encoder(cfg, m)(params, x)
+        finally:
+            clip_model.token_keep_indices, clip_model.token_keep_scores = undo
+        out[where] = {"feats": _np(feats), "kept": [_np(k) for k in kept], "scores": [_np(t[0]) for t in scored]}
+    if form == "int8":
+        trainable, bank = _prompt_state(e)
+        pcfg = tcfg.PromptConfig(max_classes=8)
+        for where, params, m in (("mesh", local, mesh), ("one", whole, None)):
+            seen = []
+            undo = _recording(ts, "full_model_forward", seen)
+            try:
+                batch = (e["x"], e["labels"], e["mask"])
+                got = ts.make_eval_step(cfg, pcfg, use_image_feats=False, mesh=m)(
+                    params, trainable, bank, *(batch if m is None else shard_batch(batch, m)))
+            finally:
+                ts.full_model_forward = undo
+            out[where]["logits"] = _np(seen[0]["logits"])
+            out[where]["counts"] = {k: _np(got[k]) for k in ("correct", "total", "per_class_correct",
+                                                             "per_class_total")}
+    return out
+
+
+def _int8_seq_form(inp, mesh):
+    """The int8 tower's blocks under sequence parallelism on ``mesh``'s
+    ``model`` group (each int8 half-block gathers the rank's rows and keeps
+    them after), in both modes, against the same blocks in one process."""
+    from tapclip_tpu_torch.models import layers
+    from tapclip_tpu_torch.parallel.sharding import shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["eval"]
+    cfg = _port_cfg(e["cfg"])
+    whole = params_from_jax(e["tree"], cfg)
+    local = shard_params(whole, mesh)
+    x = torch.from_numpy(e["seq_x"])
+    out = {}
+    for det in (False, True):
+        kw = dict(act=cfg.act, kv_valid_len=21, quantize=True, quantize_deterministic=det)
+        with torch.inference_mode():
+            got = layers.transformer_forward(x, local["visual"]["blocks"], cfg.vision_heads, tp_group=mesh.model_group,
+                                             seq_parallel=True, **kw)[0]
+            want = layers.transformer_forward(x, whole["visual"]["blocks"], cfg.vision_heads, **kw)[0]
+        out[det] = {"mesh": _np(got), "one": _np(want)}
+    return out
+
+
+def _rn_infonce(inp, mesh, steps=2):
+    """The RN tower's InfoNCE step on ``mesh`` (None: one process on the
+    whole batch), every leaf trained: per-step losses, the gathered tree, the
+    first step's gradients of the RN leaves (``visual/``, captured on their
+    way to the optimizer: a replica's whole, or doubled where a step sums it
+    over ``model``), the clip's global norm as the rank reads it, and the
+    local shapes of the RN leaves."""
+    from tapclip_tpu_torch import pretrain as P
+    from tapclip_tpu_torch.parallel.sharding import gather_params, shard_batch, shard_params
+    from tapclip_tpu_torch.utils.jax_bridge import params_from_jax
+
+    e = inp["rn_pre"]
+    cfg = _port_cfg(e["cfg"])
+    local = params_from_jax(e["tree"], cfg)
+    local = local if mesh is None else shard_params(local, mesh)
+    opt = P.PretrainOptimizer(P.set_trainable(local), lr=LR_PRE, weight_decay=WD_PRE)
+    box, update = {}, opt.update
+
+    def record(grads):
+        box.setdefault("g", [g.detach().clone() for g in grads])
+        return update(grads)
+
+    opt.update = record
+    step = P.make_pretrain_step(cfg, opt, mesh=mesh)
+    x, ids = (e["x"], e["ids"]) if mesh is None else shard_batch((e["x"], e["ids"]), mesh)
+    losses = [float(step(local, x, ids)["loss"]) for _ in range(steps)]
+    grads = {p: _np(g) for p, g in zip(opt.paths, box["g"]) if p.startswith("visual/")}
+    norm = float(P.global_norm(box["g"], opt.shard_axes, opt.norm_groups)) if mesh is not None else float(
+        P.global_norm(box["g"]))
+    return {"loss": losses, "tree": _leaves(local if mesh is None else gather_params(local, mesh)),
+            "rn_grads": grads, "norm": norm,
+            "rn_local_shapes": {p: tuple(t.shape) for p, t in _named(local) if p.startswith("visual/")}}
+
+
+def tp_eval_legs(inp, dp, tp):
+    """Every leg of test_torch_tp_eval.py on each mesh of TP_EVAL_MESHES (the
+    ranks without a cell wait): the image-tower forms beside one process on
+    the rank's rows, the RN prompt-tune and InfoNCE steps, and on tp 2 the
+    int8 blocks under sequence parallelism; then rank 0 alone runs the RN
+    steps in one process on the whole batch ("one")."""
+    import torch.distributed as dist
+
+    from tapclip_tpu_torch import config as tcfg
+    from tapclip_tpu_torch.parallel.mesh import make_mesh
+
+    pcfg = tcfg.PromptConfig(max_classes=8)
+    out = {}
+    for name, (d, t) in TP_EVAL_MESHES.items():
+        m = make_mesh(dp=d, tp=t)
+        if not bool((m.grid == m.rank).any()):
+            continue
+        res = {form: _tower_form(inp, m, form) for form in TP_EVAL_FORMS}
+        res["rn_prompt"] = _prompt_leg(inp, m, "rn_prompt", pcfg)
+        res["rn_infonce"] = _rn_infonce(inp, m)
+        if t > 1 and d == 1:
+            res["int8_seq"] = _int8_seq_form(inp, m)
+        res["place"] = (m.data_index, m.model_index)
+        out[name] = res
+    if dist.get_rank() == 0:
+        out["one"] = {"rn_prompt": _prompt_leg(inp, None, "rn_prompt", pcfg), "rn_infonce": _rn_infonce(inp, None)}
     return out
 
 

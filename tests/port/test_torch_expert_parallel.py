@@ -31,8 +31,7 @@ Losses at ``TRAJ_TOL`` against the JAX form's (GradCache: against the
 port's one-process step, since the two packages report its load-balance
 term differently, ``test_torch_moe.py``) and against one process, the trees
 as ``test_torch_parallel.py`` holds them; each rank's expert banks cut to
-``E / tp`` experts (and ``1/dp`` of dimension 1 under FSDP, moments too);
-the refusals that stay.
+``E / tp`` experts (and ``1/dp`` of dimension 1 under FSDP, moments too).
 """
 
 import jax
@@ -85,7 +84,7 @@ def _inputs(out_dir):
     tiny = jclip.init_clip_params(jax.random.PRNGKey(0), J_TINY)
     moe = jclip.init_clip_params(jax.random.PRNGKey(1), J_MOE)
     return {
-        "legs": tuple(R.EXPERT_FORMS) + ("refusals",), "out_dir": out_dir,
+        "legs": tuple(R.EXPERT_FORMS), "out_dir": out_dir,
         "moe": _entry(J_MOE, moe, rng),
         "moe_gc": _entry(J_MOE, moe, rng, n=2 * B),
         "vpt_deep": _entry(J_VPT, jclip.init_clip_params(jax.random.PRNGKey(10), J_VPT), rng),
@@ -261,21 +260,3 @@ def test_moe_under_tp_equals_the_whole_bank_bit_for_bit():
     assert torch.equal(parts[0] + parts[1], whole)
     assert bool(((parts[0] != 0).any(-1) & (parts[1] != 0).any(-1)).sum() == 0)  # no token on both ranks
     assert lb.shape == ()
-
-
-@pytest.mark.parametrize("form,match", [
-    ("int8", "NotPortedError: int8 towers [(]quantize_tower[)] under tp > 1"),
-    ("resnet", "NotPortedError: the RN-family image tower under tp > 1"),
-    ("pruning", "NotPortedError: token pruning [(]token_keep_ratio[)] under tp > 1"),
-])
-def test_the_next_slices_forms_stay_refused_under_tp(legs, form, match):
-    """The int8 tower, the RN tower and token pruning under a ``model``
-    group of 2 ranks: each refused by name (no JAX CLI reaches them with
-    ``--tp``)."""
-    import re
-
-    _, _, got = legs
-    ranks = _ranks_of(got, "refusals")
-    assert len(ranks) == 2
-    for r in ranks:
-        assert r[form] is not None and re.search(match, r[form]), r[form]
